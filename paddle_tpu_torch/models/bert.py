@@ -1,0 +1,166 @@
+"""BERT encoder — the port of paddle_tpu/models/bert.py (the served
+encoder; the pretraining heads and the MoE branch come with the training
+slice).
+
+Static-graph builder: embeddings + N post-LN transformer encoder layers
++ the pooled first-token output.  It emits the same program as the JAX
+package's builder, op for op and name for name, so a desc built by
+either package is byte-identical."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from .. import layers
+from ..framework.initializer import TruncatedNormalInitializer
+from ..framework.layer_helper import LayerHelper, ParamAttr
+
+
+@dataclass
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    initializer_range: float = 0.02
+    dtype: str = "float32"
+
+    @staticmethod
+    def base():
+        return BertConfig()
+
+    @staticmethod
+    def tiny():
+        return BertConfig(vocab_size=1024, hidden_size=128,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=512, max_position_embeddings=128,
+                          type_vocab_size=2)
+
+
+def _init(cfg):
+    return TruncatedNormalInitializer(0.0, cfg.initializer_range)
+
+
+def _attr(name, cfg):
+    return ParamAttr(name=name, initializer=_init(cfg))
+
+
+def _ffn_block(x, cfg: BertConfig, name: str):
+    ffn = layers.fc(x, cfg.intermediate_size, num_flatten_dims=2,
+                    act=cfg.hidden_act,
+                    param_attr=_attr(f"{name}_ffn1_w", cfg),
+                    bias_attr=ParamAttr(name=f"{name}_ffn1_b"))
+    return layers.fc(ffn, cfg.hidden_size, num_flatten_dims=2,
+                     param_attr=_attr(f"{name}_ffn2_w", cfg),
+                     bias_attr=ParamAttr(name=f"{name}_ffn2_b"))
+
+
+def encoder_layer(x, attn_bias, cfg: BertConfig, name: str, is_test=False):
+    """Post-LN transformer layer (fused QKV projection, fused attention,
+    residual + LayerNorm twice)."""
+    d = cfg.hidden_size
+    qkv = layers.fc(x, 3 * d, num_flatten_dims=2,
+                    param_attr=_attr(f"{name}_qkv_w", cfg),
+                    bias_attr=ParamAttr(name=f"{name}_qkv_b"))
+    q, k, v = layers.split(qkv, 3, dim=2)
+    ctx = fused_attention(q, k, v, attn_bias, cfg.num_attention_heads,
+                          cfg.attention_probs_dropout_prob, is_test,
+                          name=name)
+    attn_out = layers.fc(ctx, d, num_flatten_dims=2,
+                         param_attr=_attr(f"{name}_out_w", cfg),
+                         bias_attr=ParamAttr(name=f"{name}_out_b"))
+    attn_out = layers.dropout(attn_out, cfg.hidden_dropout_prob,
+                              is_test=is_test,
+                              dropout_implementation="upscale_in_train")
+    x = layers.layer_norm(x + attn_out, begin_norm_axis=2,
+                          param_attr=ParamAttr(name=f"{name}_ln1_scale"),
+                          bias_attr=ParamAttr(name=f"{name}_ln1_bias"))
+    ffn = _ffn_block(x, cfg, name)
+    ffn = layers.dropout(ffn, cfg.hidden_dropout_prob, is_test=is_test,
+                         dropout_implementation="upscale_in_train")
+    return layers.layer_norm(x + ffn, begin_norm_axis=2,
+                             param_attr=ParamAttr(name=f"{name}_ln2_scale"),
+                             bias_attr=ParamAttr(name=f"{name}_ln2_bias"))
+
+
+def fused_attention(q, k, v, attn_bias, n_head, dropout_rate, is_test,
+                    name, causal=False):
+    helper = LayerHelper("fused_attention", name=f"{name}_attn")
+    out = helper.create_variable_for_type_inference(q.dtype, q.shape)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if attn_bias is not None:
+        inputs["AttnBias"] = [attn_bias]
+    # causality is an op attr, not a baked [S, S] bias: one program
+    # serves every bucketed sequence length
+    helper.append_op(type="fused_attention", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"n_head": n_head, "dropout_rate": dropout_rate,
+                            "is_test": is_test, "causal": causal})
+    return out
+
+
+def bert_encoder(src_ids, position_ids, sentence_ids, input_mask,
+                 cfg: BertConfig, is_test=False, extra_emb=None):
+    """Returns (sequence_output, pooled_output).  ``extra_emb`` joins the
+    input embedding sum (ERNIE's task-type embedding hook)."""
+    emb = layers.embedding(src_ids, size=[cfg.vocab_size, cfg.hidden_size],
+                           dtype=cfg.dtype,
+                           param_attr=_attr("word_embedding", cfg))
+    pos = layers.embedding(position_ids,
+                           size=[cfg.max_position_embeddings,
+                                 cfg.hidden_size], dtype=cfg.dtype,
+                           param_attr=_attr("pos_embedding", cfg))
+    sent = layers.embedding(sentence_ids,
+                            size=[cfg.type_vocab_size, cfg.hidden_size],
+                            dtype=cfg.dtype,
+                            param_attr=_attr("sent_embedding", cfg))
+    emb = emb + pos + sent
+    if extra_emb is not None:
+        emb = emb + extra_emb
+    emb = layers.layer_norm(emb, begin_norm_axis=2,
+                            param_attr=ParamAttr(name="pre_encoder_ln_scale"),
+                            bias_attr=ParamAttr(name="pre_encoder_ln_bias"))
+    emb = layers.dropout(emb, cfg.hidden_dropout_prob, is_test=is_test,
+                         dropout_implementation="upscale_in_train")
+
+    # additive attention bias from the padding mask:
+    # (B, S, 1) x (B, 1, S) -> (B, 1, S, S), 0 keep / -1e4 drop
+    mask_sq = layers.matmul(input_mask, input_mask, transpose_y=True)
+    attn_bias = layers.scale(mask_sq, scale=1e4, bias=-1e4)
+    attn_bias = layers.unsqueeze(attn_bias, axes=[1])
+    attn_bias.stop_gradient = True
+
+    x = emb
+    for i in range(cfg.num_hidden_layers):
+        x = encoder_layer(x, attn_bias, cfg, name=f"encoder_layer_{i}",
+                          is_test=is_test)
+
+    # pooled output: first token -> fc tanh
+    first_tok = layers.slice(x, axes=[1], starts=[0], ends=[1])
+    first_tok = layers.reshape(first_tok, [-1, cfg.hidden_size])
+    pooled = layers.fc(first_tok, cfg.hidden_size, act="tanh",
+                       param_attr=_attr("pooled_fc.w_0", cfg),
+                       bias_attr=ParamAttr(name="pooled_fc.b_0"))
+    return x, pooled
+
+
+def build_inference_network(cfg: BertConfig):
+    """The served encoder with its four feeds; returns (feeds,
+    sequence_output, pooled_output)."""
+    src_ids = layers.data("src_ids", shape=[-1, -1], dtype="int64",
+                          append_batch_size=False)
+    pos_ids = layers.data("pos_ids", shape=[-1, -1], dtype="int64",
+                          append_batch_size=False)
+    sent_ids = layers.data("sent_ids", shape=[-1, -1], dtype="int64",
+                           append_batch_size=False)
+    input_mask = layers.data("input_mask", shape=[-1, -1, 1],
+                             dtype="float32", append_batch_size=False)
+    seq_out, pooled = bert_encoder(src_ids, pos_ids, sent_ids, input_mask,
+                                   cfg, is_test=True)
+    return [src_ids, pos_ids, sent_ids, input_mask], seq_out, pooled

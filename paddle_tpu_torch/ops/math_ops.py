@@ -1,0 +1,140 @@
+"""Dense math ops — the port of paddle_tpu/ops/math_ops.py (the subset the
+served BERT programs use).  Slot names and attribute semantics are the
+reference's.  Matrix products are ``torch.matmul`` — plain products the
+JAX package leaves to XLA stay library calls; on the card they run in full
+float32 (``core.device_for`` turns TF32 off)."""
+
+from __future__ import annotations
+
+import torch
+
+from .registry import register, x
+
+
+# ---------------------------------------------------------------------------
+# elementwise binary family
+# Paddle broadcasting: Y's shape aligns to X starting at `axis`
+# (axis == -1 → numpy-style trailing alignment).
+# ---------------------------------------------------------------------------
+
+def _bcast(a, b, axis):
+    if axis is None or axis == -1 or a.dim() == b.dim():
+        return a, b
+    new_shape = [1] * a.dim()
+    for i, s in enumerate(b.shape):
+        new_shape[axis + i] = s
+    return a, b.reshape(new_shape)
+
+
+def _elementwise(fn):
+    def impl(ctx, ins, attrs):
+        a, b = x(ins, "X"), x(ins, "Y")
+        a, b = _bcast(a, b, attrs.get("axis", -1))
+        return {"Out": fn(a, b)}
+    return impl
+
+
+register("elementwise_add")(_elementwise(torch.add))
+register("elementwise_sub")(_elementwise(torch.sub))
+register("elementwise_mul")(_elementwise(torch.mul))
+register("elementwise_div")(_elementwise(torch.div))
+register("elementwise_max")(_elementwise(torch.maximum))
+register("elementwise_min")(_elementwise(torch.minimum))
+
+
+@register("sum")
+def _sum(ctx, ins, attrs):
+    xs = ins["X"]
+    out = xs[0]
+    for v in xs[1:]:
+        out = out + v
+    return {"Out": out}
+
+
+@register("scale")
+def _scale(ctx, ins, attrs):
+    a = x(ins, "X")
+    s = attrs.get("scale", 1.0)
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": a * s + b}
+    return {"Out": (a + b) * s}
+
+
+# ---------------------------------------------------------------------------
+# matmul / mul
+# ---------------------------------------------------------------------------
+
+
+def _flatten2(a, num_col_dims):
+    lead = 1
+    for s in a.shape[:num_col_dims]:
+        lead *= s
+    return a.reshape(lead, -1)
+
+
+@register("mul")
+def _mul(ctx, ins, attrs):
+    """2-D GEMM with leading-dim flattening (ref: mul_op.cc)."""
+    a, b = x(ins, "X"), x(ins, "Y")
+    xn = attrs.get("x_num_col_dims", 1)
+    yn = attrs.get("y_num_col_dims", 1)
+    out_shape = tuple(a.shape[:xn]) + tuple(b.shape[yn:])
+    out = torch.matmul(_flatten2(a, xn), _flatten2(b, yn))
+    return {"Out": out.reshape(out_shape)}
+
+
+@register("matmul")
+def _matmul(ctx, ins, attrs):
+    a, b = x(ins, "X"), x(ins, "Y")
+    if attrs.get("transpose_X", False) and a.dim() > 1:
+        a = a.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and b.dim() > 1:
+        b = b.transpose(-1, -2)
+    out = torch.matmul(a, b)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
+
+
+@register("matmul_v2")
+def _matmul_v2(ctx, ins, attrs):
+    a, b = x(ins, "X"), x(ins, "Y")
+    if attrs.get("trans_x", False):
+        a = a.transpose(-1, -2)
+    if attrs.get("trans_y", False):
+        b = b.transpose(-1, -2)
+    return {"Out": torch.matmul(a, b)}
+
+
+# ---------------------------------------------------------------------------
+# activations (ref: operators/activation_op.cc)
+# ---------------------------------------------------------------------------
+
+def _unary(fn):
+    def impl(ctx, ins, attrs):
+        return {"Out": fn(x(ins, "X"))}
+    return impl
+
+
+def gelu(a, approximate=False):
+    """Exact-erf GELU (the stock op), or the tanh form when asked —
+    written out, as jax.nn.gelu computes it."""
+    if approximate:
+        c = 0.7978845608028654              # sqrt(2 / pi)
+        return 0.5 * a * (1.0 + torch.tanh(c * (a + 0.044715 * a ** 3)))
+    return 0.5 * a * (1.0 + torch.erf(a * 0.7071067811865476))
+
+
+register("relu")(_unary(torch.relu))
+register("sigmoid")(_unary(torch.sigmoid))
+register("tanh")(_unary(torch.tanh))
+register("exp")(_unary(torch.exp))
+register("sqrt")(_unary(torch.sqrt))
+register("erf")(_unary(torch.erf))
+
+
+@register("gelu")
+def _gelu(ctx, ins, attrs):
+    return {"Out": gelu(x(ins, "X"), attrs.get("approximate", False))}

@@ -1,0 +1,111 @@
+"""NN ops — the port of paddle_tpu/ops/nn_ops.py (the subset the served
+BERT programs use).  ``layer_norm`` routes onto the hand-written LayerNorm
+kernel (``fused_layer_norm`` route); every other op is a plain PyTorch
+composition, as the JAX package leaves them to XLA."""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda import fused_ops as cuda_fused
+from .registry import cuda_route, register, x
+
+
+def _rows(a, bna):
+    d = 1
+    for s in a.shape[bna:]:
+        d *= int(s)
+    return a.numel() // d, d
+
+
+def layer_norm_composition(a, scale, bias, eps, bna):
+    """The plain layer_norm: float32 mean/variance over dims [bna:]."""
+    axes = tuple(range(bna, a.dim()))
+    af = a.float()
+    mean = af.mean(dim=axes, keepdim=True)
+    var = ((af - mean) ** 2).mean(dim=axes, keepdim=True)
+    out = (af - mean) * torch.rsqrt(var + eps)
+    tail = a.shape[bna:]
+    if scale is not None:
+        out = out * scale.reshape(tail)
+    if bias is not None:
+        out = out + bias.reshape(tail)
+    lead = a.shape[:bna]
+    return out.to(a.dtype), mean.reshape(lead), var.reshape(lead)
+
+
+@register("layer_norm")
+def _layer_norm(ctx, ins, attrs):
+    """ref: operators/layer_norm_op.cc — normalise over dims
+    [begin_norm_axis:]; Scale/Bias are flattened over those dims."""
+    a = x(ins, "X")
+    scale, bias = x(ins, "Scale"), x(ins, "Bias")
+    eps = attrs.get("epsilon", 1e-5)
+    bna = attrs.get("begin_norm_axis", 1)
+    route, _ = cuda_route("layer_norm", ins, attrs)
+    if route is not None:
+        r, d = _rows(a, bna)
+        y = cuda_fused.layer_norm(a.reshape(r, d), scale.reshape(d),
+                                  bias.reshape(d), eps).reshape(a.shape)
+        # Mean/Variance are rarely-consumed auxiliaries, computed outside
+        # the kernel as the JAX package does
+        af = a.float().reshape(r, d)
+        return {"Y": y, "Mean": af.mean(-1).reshape(a.shape[:bna]),
+                "Variance": af.var(-1, unbiased=False).reshape(
+                    a.shape[:bna])}
+    y, mean, var = layer_norm_composition(a, scale, bias, eps, bna)
+    return {"Y": y, "Mean": mean, "Variance": var}
+
+
+@register("softmax")
+def _softmax(ctx, ins, attrs):
+    return {"Out": torch.softmax(x(ins, "X"), dim=attrs.get("axis", -1))}
+
+
+def _mask_of(a):
+    """The inference-mode dropout mask: all ones, as a zero-copy view."""
+    return torch.ones((), dtype=torch.uint8, device=a.device).expand(
+        a.shape)
+
+
+@register("dropout")
+def _dropout(ctx, ins, attrs):
+    a = x(ins, "X")
+    p = attrs.get("dropout_prob", 0.5)
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if is_test:
+        out = a if impl == "upscale_in_train" else a * (1.0 - p)
+        return {"Out": out, "Mask": _mask_of(a)}
+    keep = torch.empty(a.shape, device=a.device).bernoulli_(
+        1.0 - p, generator=ctx.generator).bool()
+    if impl == "upscale_in_train":
+        out = torch.where(keep, a / max(1.0 - p, 1e-12),
+                          torch.zeros((), dtype=a.dtype, device=a.device))
+    else:
+        out = torch.where(keep, a,
+                          torch.zeros((), dtype=a.dtype, device=a.device))
+    return {"Out": out.to(a.dtype), "Mask": keep.to(torch.uint8)}
+
+
+def embedding_lookup(w, ids, padding_idx):
+    flat = ids.reshape(-1).long()
+    out = w.index_select(0, flat)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out.masked_fill((flat == padding_idx)[:, None], 0.0)
+    return out.reshape(tuple(ids.shape) + (w.shape[-1],))
+
+
+@register("lookup_table")
+def _lookup_table(ctx, ins, attrs):
+    """ref: lookup_table_op.cc — ids carry a trailing 1 dim."""
+    w, ids = x(ins, "W"), x(ins, "Ids")
+    if ids.dim() > 1 and ids.shape[-1] == 1:
+        ids = ids[..., 0]
+    return {"Out": embedding_lookup(w, ids, attrs.get("padding_idx", -1))}
+
+
+@register("lookup_table_v2")
+def _lookup_table_v2(ctx, ins, attrs):
+    w, ids = x(ins, "W"), x(ins, "Ids")
+    return {"Out": embedding_lookup(w, ids, attrs.get("padding_idx", -1))}
