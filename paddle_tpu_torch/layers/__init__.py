@@ -5,6 +5,7 @@ from .math_ops import (_binary, _broadcast_shape, _to_variable,  # noqa: F401
                        elementwise_add, elementwise_sub, elementwise_mul,
                        elementwise_div, relu, sigmoid, tanh, gelu, scale,
                        matmul, mul)
-from .nn import data, fc, layer_norm, embedding, dropout  # noqa: F401
+from .nn import (data, fc, layer_norm, embedding, softmax,  # noqa: F401
+                 dropout)
 from .tensor_ops import (cast, fill_constant, reshape,  # noqa: F401
                          transpose, split, unsqueeze, slice)

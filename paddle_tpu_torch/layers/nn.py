@@ -106,6 +106,14 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def softmax(input, axis=-1, name=None, use_cudnn=False):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
             dropout_implementation="downgrade_in_infer"):
     helper = LayerHelper("dropout", name=name)

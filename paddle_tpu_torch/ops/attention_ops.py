@@ -5,9 +5,10 @@ the decode and multi-GPU slices).
 One op takes projected Q/K/V in (B, S, H*D) layout plus an additive
 attention bias and produces the context in (B, S, H*D).  The
 ``flash_attention`` route runs the hand-written flash kernel
-(ops/cuda/flash_attention.py); with the route off or the shape
-unsupported, :func:`reference_attention` — the JAX package's composition
-— computes it."""
+(ops/cuda/flash_attention.py).  With the route's flag off, or on CPU
+tensors the kernel rejects (training-mode dropout),
+:func:`reference_attention` — the JAX package's composition — computes
+it; on the card such an input raises (``registry.cuda_route``)."""
 
 from __future__ import annotations
 
@@ -76,7 +77,7 @@ def reference_attention(q, k, v, bias, n_head, dropout_rate, ctx, is_test,
 
 def lower_flash_attention(ctx, ins, attrs):
     """The ``flash_attention`` route: the kernel on head-split operands
-    (cuda_route has checked that the kernel takes the shape)."""
+    (``cuda_route`` has checked that the kernel takes the shape)."""
     q, k, v = x(ins, "Q"), x(ins, "K"), x(ins, "V")
     n_head = resolve_heads(q, attrs)
     out = cuda_flash.flash_attention_bshd(
@@ -98,7 +99,7 @@ def _fused_attention(ctx, ins, attrs):
                           dict(attrs, is_test=is_test),
                           kernel="flash_attention")
     if route is not None:
-        return route.lower(ctx, ins, attrs)
+        return lower_flash_attention(ctx, ins, attrs)
     return {"Out": reference_attention(
         q, k, v, attn_bias(ins), resolve_heads(q, attrs),
         attrs.get("dropout_rate", 0.0), ctx, is_test,

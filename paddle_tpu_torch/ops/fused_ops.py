@@ -3,8 +3,9 @@ paddle_tpu/ops/fused_ops.py (+ the ``fc`` op of registry_tail_ops.py).
 
 ``fused_elemwise_activation`` (bias + GELU) and ``fused_add_layernorm``
 route onto the hand-written kernels (ops/cuda/fused_ops.py),
-``multihead_matmul`` onto the flash kernel; with a route off or a shape
-the kernel rejects, each falls back to the JAX package's composition."""
+``multihead_matmul`` onto the flash kernel.  With a route's flag off, or
+on CPU tensors a kernel rejects, each runs the JAX package's composition;
+on the card such an input raises (``registry.cuda_route``)."""
 
 from __future__ import annotations
 

@@ -4,13 +4,15 @@ routes in paddle_tpu/ops/op_specs.py.
 Each :class:`~.registry.CudaLowering` below carries a ``supported``
 predicate stating exactly what its CUDA kernel rejects (head dims, norm
 widths, dtypes, dropout), evaluated on the op's input tensors, so
-``cuda_route`` reports every hit and every fallback with its reason."""
+``cuda_route`` reports every hit and every fallback with its reason, and
+refuses (raises) on the card what a gate rejects.  :func:`kernel_facts`
+gives each kernel's source and the TPU kernel it replaces."""
 
 from __future__ import annotations
 
 from .cuda import flash_attention as cuda_flash
 from .cuda import fused_ops as cuda_fused
-from .registry import CudaLowering, register_routes, x
+from .registry import ROUTES, CudaLowering, register_routes, x
 
 
 def _attn_dims(ins, attrs):
@@ -91,42 +93,53 @@ def _bias_gelu_supported(ins, attrs):
     return cuda_fused.bg_supported(int(a.shape[-1]), a.dtype)
 
 
-def _lower_flash_attention(ctx, ins, attrs):
-    from .attention_ops import lower_flash_attention
-    return lower_flash_attention(ctx, ins, attrs)
-
-
-_FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py:77 _fwd_kernel"
+_CSRC = "paddle_tpu_torch/ops/cuda/csrc/"
+# the Pallas kernel each route's CUDA kernel replaces, as file:line
+_FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py:77"    # _fwd_kernel
+_LN_TPU = "paddle_tpu/ops/pallas/fused_ops.py:58"             # _ln_fwd_kernel
+_ADD_LN_TPU = "paddle_tpu/ops/pallas/fused_ops.py:152"        # _aln_fwd_kernel
+_BIAS_GELU_TPU = "paddle_tpu/ops/pallas/fused_ops.py:259"     # _bg_fwd_kernel
 
 ROUTE_FLASH = CudaLowering(
     "flash_attention", flag="use_flash_attention", attr="use_flash",
     match=lambda attrs: not attrs.get("_seq_axis")
     and not attrs.get("_cached"),
-    supported=_flash_supported, lower=_lower_flash_attention,
-    kernels=("flash_attention_fwd",), replaces=(_FLASH_TPU,))
+    supported=_flash_supported, kernels=("flash_attention_fwd",),
+    replaces=(_FLASH_TPU,), source=_CSRC + "flash_attention.cu")
 ROUTE_MHM = CudaLowering(
     "flash_attention", flag="use_flash_attention",
-    supported=_mhm_supported,
-    kernels=("flash_attention_fwd",), replaces=(_FLASH_TPU,))
+    supported=_mhm_supported, kernels=("flash_attention_fwd",),
+    replaces=(_FLASH_TPU,), source=_CSRC + "flash_attention.cu")
 ROUTE_LN = CudaLowering(
     "fused_layer_norm", flag="use_pallas_fused",
     supported=_norm_rows_supported, kernels=("layer_norm_fwd",),
-    replaces=("paddle_tpu/ops/pallas/fused_ops.py:58 _ln_fwd_kernel",))
+    replaces=(_LN_TPU,), source=_CSRC + "layer_norm.cu")
 ROUTE_ADD_LN = CudaLowering(
     "fused_add_layer_norm", flag="use_pallas_fused",
     supported=_add_ln_supported, kernels=("add_layer_norm_fwd",),
-    replaces=("paddle_tpu/ops/pallas/fused_ops.py:152 _aln_fwd_kernel",))
+    replaces=(_ADD_LN_TPU,), source=_CSRC + "layer_norm.cu")
 # only add+gelu has a kernel: other functor pairs (the pooled tanh) are
 # not in play for this route, so they are skipped, not counted as
 # fallbacks
 ROUTE_BIAS_GELU = CudaLowering(
     "fused_bias_gelu", flag="use_pallas_fused",
     match=_is_bias_gelu, supported=_bias_gelu_supported,
-    kernels=("bias_gelu_fwd",),
-    replaces=("paddle_tpu/ops/pallas/fused_ops.py:259 _bg_fwd_kernel",))
+    kernels=("bias_gelu_fwd",), replaces=(_BIAS_GELU_TPU,),
+    source=_CSRC + "bias_gelu.cu")
 
 register_routes("fused_attention", ROUTE_FLASH)
 register_routes("multihead_matmul", ROUTE_MHM)
 register_routes("layer_norm", ROUTE_LN)
 register_routes("fused_add_layernorm", ROUTE_ADD_LN)
 register_routes("fused_elemwise_activation", ROUTE_BIAS_GELU)
+
+
+def kernel_facts():
+    """``{LAUNCHES key: (CUDA source, "file:line" of the TPU kernel it
+    replaces)}``, read from the route table."""
+    facts = {}
+    for routes in ROUTES.values():
+        for route in routes:
+            for name, tpu in zip(route.kernels, route.replaces):
+                facts[name] = (route.source, tpu)
+    return facts

@@ -18,6 +18,11 @@ kernel rejects, and every decision is counted in :data:`ROUTE_COUNTS`
 reached a kernel and that none fell back.  A hit does not mean the GPU:
 the route's kernel wrapper runs its plain version on CPU tensors.
 
+No fallback on the card: the op's plain composition runs in place of a
+kernel only when the route's flag (or the op's attr) turns it off, or
+when the op's tensors lie on the CPU.  A gate that rejects tensors on any
+other device raises :class:`UnimplementedError` with the gate's reason.
+
 Integer ids stay int64 (the JAX package narrows them to int32 when x64
 is off); tests compare values, not dtypes."""
 
@@ -27,6 +32,8 @@ import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from ..framework.errors import UnimplementedError
 
 OPS: Dict[str, Callable] = {}
 
@@ -47,10 +54,6 @@ def get_op(name: str) -> Callable:
         raise NotImplementedError(
             f"op {name!r} has no PyTorch implementation in the port yet "
             f"({len(OPS)} ops available)") from None
-
-
-def has_op(name: str) -> bool:
-    return name in OPS
 
 
 class LoweringContext:
@@ -91,30 +94,32 @@ class CudaLowering:
       fallback);
     * ``supported(ins, attrs)`` → ``(ok, reason)`` — exactly what the CUDA
       kernel rejects, from the input tensors' shapes and dtypes;
-    * ``lower(ctx, ins, attrs)`` — the op impl's kernel path (optional:
-      op impls may call the kernel wrapper themselves);
     * ``kernels`` — the wrapper(s) this route launches, by their
       ``ops.cuda.LAUNCHES`` key;
-    * ``replaces`` — the TPU kernel(s) the route stands in for.
+    * ``replaces`` — for each of ``kernels``, the ``file:line`` of the TPU
+      kernel it stands in for;
+    * ``source`` — the CUDA source the route's kernels are built from.
+
+    The op impl calls the kernel wrapper itself when :func:`cuda_route`
+    returns the route.
     """
 
-    __slots__ = ("kernel", "flag", "attr", "match", "supported", "lower",
-                 "kernels", "replaces")
+    __slots__ = ("kernel", "flag", "attr", "match", "supported", "kernels",
+                 "replaces", "source")
 
     def __init__(self, kernel: str, flag: Optional[str] = None,
                  attr: Optional[str] = None,
                  match: Optional[Callable] = None,
                  supported: Optional[Callable] = None,
-                 lower: Optional[Callable] = None,
-                 kernels=(), replaces=()):
+                 kernels=(), replaces=(), source: str = ""):
         self.kernel = kernel
         self.flag = flag
         self.attr = attr
         self.match = match
         self.supported = supported
-        self.lower = lower
         self.kernels = tuple(kernels)
         self.replaces = tuple(replaces)
+        self.source = source
 
 
 ROUTES: Dict[str, Tuple[CudaLowering, ...]] = {}
@@ -151,17 +156,29 @@ def route_counts(outcome: Optional[str] = None
                 if outcome is None or k[2] == outcome}
 
 
+def _device_of(ins) -> Optional[torch.device]:
+    for vals in ins.values():
+        for v in vals or ():
+            if isinstance(v, torch.Tensor):
+                return v.device
+    return None
+
+
 def cuda_route(op_type: str, ins, attrs, kernel: Optional[str] = None,
                count: bool = True):
     """Resolve the kernel route for one op instance (the counterpart of
     ``pallas_route``).  Returns ``(route, reason)``: the winning
     :class:`CudaLowering`, or None with the reason every matching route
-    fell back (``flag:...=off`` or the kernel's shape/dtype reason).
-    Hits and fallbacks are counted in :data:`ROUTE_COUNTS`."""
+    fell back (``flag:...=off``, or the kernel's shape/dtype reason for
+    CPU tensors).  A gate that rejects tensors off the CPU raises
+    :class:`UnimplementedError`: there the only plain path is the one a
+    flag asks for.  Hits and fallbacks are counted in
+    :data:`ROUTE_COUNTS`."""
     routes = ROUTES.get(op_type)
     if not routes:
         return None, "no-cuda-route"
     reasons = []
+    rejected = []
     matched = []
     for route in routes:
         if kernel is not None and route.kernel != kernel:
@@ -185,8 +202,16 @@ def cuda_route(op_type: str, ins, attrs, kernel: Optional[str] = None,
                 _count(op_type, route.kernel, "hit", "supported")
             return route, "supported"
         reasons.append(why)
+        rejected.append(f"{route.kernel}: {why}")
     if not matched:
         return None, "no-matching-route"
+    device = _device_of(ins)
+    if rejected and device is not None and device.type != "cpu":
+        raise UnimplementedError(
+            f"{op_type} on {device}: the CUDA kernel rejects this input "
+            f"({'; '.join(rejected)}), and the port runs no plain fallback "
+            f"on the card; turn the route's flag off to ask for the plain "
+            f"composition")
     reason = "; ".join(reasons)
     if count:
         _count(op_type, matched[0], "fallback", reason)

@@ -6,7 +6,9 @@
   raise (never fall back) when there is no GPU;
 * a kernel wrapper given a CPU tensor runs its plain version and launches
   nothing;
-* the kernel-route table is enumerable and counts every decision.
+* the kernel-route table is enumerable and counts every decision;
+* on the card a gate's rejection raises with its reason: the plain
+  composition runs there only when a flag asks for it.
 """
 
 import ast
@@ -22,7 +24,8 @@ import paddle_tpu_torch
 from paddle_tpu_torch import flags
 from paddle_tpu_torch import fluid
 from paddle_tpu_torch.framework import core, unique_name
-from paddle_tpu_torch.framework.errors import UnavailableError
+from paddle_tpu_torch.framework.errors import (UnavailableError,
+                                               UnimplementedError)
 from paddle_tpu_torch.ops import cuda as port_cuda
 from paddle_tpu_torch.ops import registry
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
@@ -148,8 +151,19 @@ def test_route_table_names_every_kernel_and_what_it_replaces():
     assert kernels == set(port_cuda.LAUNCHES)
     for routes in table.values():
         for r in routes:
-            assert r.replaces and all(
-                x.startswith("paddle_tpu/ops/pallas/") for x in r.replaces)
+            assert len(r.replaces) == len(r.kernels)
+            assert os.path.isfile(os.path.join(REPO, r.source))
+    from paddle_tpu_torch.ops.op_specs import kernel_facts
+    facts = kernel_facts()
+    assert set(facts) == set(port_cuda.LAUNCHES)
+    for name, (source, tpu) in facts.items():
+        # file:line names the def of the Pallas kernel in the JAX package
+        path, line = tpu.split(":")
+        assert path.startswith("paddle_tpu/ops/pallas/")
+        with open(os.path.join(REPO, path)) as f:
+            text = f.read().splitlines()[int(line) - 1]
+        assert text.startswith("def _") and "_kernel(" in text, (name, text)
+        assert source.startswith("paddle_tpu_torch/ops/cuda/csrc/")
 
 
 def _ln_ins(d, dtype=torch.float32):
@@ -201,6 +215,50 @@ def test_fused_attention_route_falls_back_for_training_dropout():
     get_op("fused_attention")(ctx, ins, attrs)
     assert registry.route_counts("hit") == {
         ("fused_attention", "flash_attention", "hit", "supported"): 1}
+    # off the CPU the same training-mode input raises: the kernel has no
+    # dropout yet, and the card runs no plain fallback
+    qm = torch.empty(2, 128, 128, device="meta")
+    attrs["is_test"] = False
+    with pytest.raises(UnimplementedError, match="dropout"):
+        get_op("fused_attention")(ctx, {"Q": [qm], "K": [qm], "V": [qm]},
+                                  attrs)
+
+
+def _meta_ln_ins(d):
+    return {k: [t.to("meta") for t in v] for k, v in _ln_ins(d).items()}
+
+
+def test_a_gate_rejection_off_the_cpu_raises_unless_a_flag_asks():
+    attrs = {"begin_norm_axis": 2}
+    route, _ = registry.cuda_route("layer_norm", _meta_ln_ins(256), attrs)
+    assert route is not None
+    with pytest.raises(UnimplementedError, match="norm-dim:200"):
+        registry.cuda_route("layer_norm", _meta_ln_ins(200), attrs)
+    ins = _meta_ln_ins(200)
+    ins["Residual"] = list(ins["X"])
+    with pytest.raises(UnimplementedError, match="norm-dim:200"):
+        registry.cuda_route("fused_add_layernorm", ins, attrs)
+    with pytest.raises(UnimplementedError, match="dim:200"):
+        registry.cuda_route(
+            "fused_elemwise_activation",
+            {"X": [torch.empty(4, 200, device="meta")],
+             "Y": [torch.empty(200, device="meta")]},
+            {"functor_list": ["elementwise_add", "gelu"]})
+    qm = torch.empty(1, 2, 128, 32, device="meta")
+    with pytest.raises(UnimplementedError, match="head-dim:32"):
+        registry.cuda_route("multihead_matmul",
+                            {"Q": [qm], "K": [qm], "V": [qm]}, {})
+    # an explicit flag-off request is the only way to the plain path there
+    flags.set_flags({"use_pallas_fused": False})
+    try:
+        route, why = registry.cuda_route("layer_norm", _meta_ln_ins(200),
+                                         attrs)
+    finally:
+        flags.set_flags({"use_pallas_fused": True})
+    assert route is None and why == "flag:use_pallas_fused=off"
+    assert registry.route_counts("fallback") == {
+        ("layer_norm", "fused_layer_norm", "fallback",
+         "flag:use_pallas_fused=off"): 1}
 
 
 def test_startup_program_draws_from_a_seeded_generator():
