@@ -24,7 +24,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (test mode) → matmul, fused by ``multihead_matmul_fuse`` into a
    ``multihead_matmul`` op: the flash kernel launches and the output
    matches the plain path and the unfused program;
-6. print the ``kernels`` JSON line, the card's name and power limit, and
+6. the training kernels against their plain versions at BERT-base
+   training shapes: flash forward with dropout 0.1 and its dq and dk/dv
+   kernels (B = 32, S = 128 and B = 8, S = 512; padding bias and causal;
+   float32 and bfloat16; one seed, so the masks are bit-identical),
+   LayerNorm backward (R = 4096 and 640, D = 768) and Adam (the word
+   embedding's 23,440,896 elements, 2,359,296, 768, 2, and all 158
+   BERT-base parameters), timed like phase 2;
+7. train BERT-base at full width and depth (random weights from a seed,
+   Adam 1e-4, dropout 0.1 as published) for 10 steps through
+   ``Executor.prepare(donate_state=True)`` on a pretraining batch of
+   32 x 128 tokens with 20 masked positions per sequence: the loss is
+   finite and falls, no route falls back, and each step launches 12 flash
+   forward, 12 dq, 12 dk/dv, 26 LayerNorm forward and backward and 158
+   Adam kernels; one more step runs under ``torch.profiler`` for the
+   device time by kernel and the device's busy share of a step; then,
+   with dropout 0, 3 steps with every kernel on against every kernel
+   flag off (the plain compositions) agree;
+8. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -56,6 +73,21 @@ BF16_REL = 2.0 ** -6      # bf16: max|Δ| <= two bf16 ulps of max|plain|
 TOL_LONE = 1e-5           # served result vs lone run of its padded request
 TOL_PLAIN_PATH = 1e-4     # kernels on vs all kernel flags off, 12 layers
 TOL_UNFUSED = 1e-4        # unfused program vs fused program, 12 layers
+TOL_GRAD = 2e-4           # flash dq/dk/dv, of max(1, max|plain|)
+TOL_LN_SUM = 2e-5         # LN dscale/dbias, of max(1, max|plain|)
+TOL_ADAM = 1e-5           # Adam p, m, v (abs)
+TOL_TRAIN_LOSS = 1e-4     # training loss, kernels on vs off (relative)
+TOL_TRAIN_GRAD = 1e-4     # step-1 grads, kernels on vs off, of max|grad|
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS = 10, 32, 128, 20
+LONG_BATCH, LONG_SEQ = 8, 512      # the longest BERT sequence
+PLAIN_STEPS = 3
+DROPOUT = 0.1
+# launches per BERT-base training step: 12 layers; LayerNorm 1 + 2 per
+# layer + the masked-LM head; one Adam op per parameter
+TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+                  "flash_attention_bwd_dkv": 12, "layer_norm_fwd": 26,
+                  "layer_norm_bwd": 26, "adam": 158}
 
 class SmokeFailure(Exception):
     pass
@@ -106,10 +138,14 @@ def max_err(torch, got, ref):
     return float((got.float() - ref.float()).abs().max())
 
 
-def agree(torch, what, got, ref, dtype, tol):
+def agree(torch, what, got, ref, dtype, tol, relative=False):
+    """Kernel vs plain: bf16 within two bf16 ulps of max|plain|; float32
+    within ``tol``, of max(1, max|plain|) when ``relative``."""
     err = max_err(torch, got, ref)
     if dtype == "bfloat16":
         limit = BF16_REL * float(ref.float().abs().max())
+    elif relative:
+        limit = tol * max(1.0, float(ref.float().abs().max()))
     else:
         limit = tol
     log(f"  {what}: max|Δ| {err:.3e} (tolerance {limit:.3e})")
@@ -123,6 +159,41 @@ def agree(torch, what, got, ref, dtype, tol):
 # ---------------------------------------------------------------------------
 
 
+def recorder(results):
+    """record(name, shape, dtype, err, ms, plain_ms, lib_ms, nbytes, flops,
+    **extra) appends one timed row to ``results[name]``."""
+    def record(name, shape, dtype, err, ms, plain_ms, lib_ms, nbytes,
+               flops, **extra):
+        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        row = {"shape": shape, "dtype": dtype, "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by, **extra}
+        results.setdefault(name, []).append(row)
+        log(f"  {name} {shape} {dtype}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms ({b_by})"
+            + "".join(f", {k} {v}" for k, v in extra.items()))
+    return record
+
+
+def randn_on(torch, gen, dev):
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) *
+                scale).to(dtype)
+    return randn
+
+
+def padding_bias(torch, gen, dev, bsz, seq):
+    """BERT's head-shared bias (B, S, S): 0 where query and key are both
+    inside the sequence, -1e4 elsewhere (padded query rows included)."""
+    lens = torch.randint(seq // 4, seq + 1, (bsz,), generator=gen,
+                         device=dev)
+    mask = (torch.arange(seq, device=dev)[None, :] <
+            lens[:, None]).float()                     # [B, S]
+    return (mask[:, :, None] * mask[:, None, :]) * 1e4 - 1e4
+
+
 def kernel_checks(torch, results):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import fused_ops as K
@@ -130,22 +201,8 @@ def kernel_checks(torch, results):
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def randn(*shape, dtype=torch.float32, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev) *
-                scale).to(dtype)
-
-    def record(name, shape, dtype, err, ms, plain_ms, lib_ms, nbytes,
-               flops):
-        b_ms, b_by = bound_ms(nbytes, flops, dtype)
-        row = {"shape": shape, "dtype": dtype, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": b_ms, "bound_by": b_by}
-        results.setdefault(name, []).append(row)
-        log(f"  {name} {shape} {dtype}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+    randn = randn_on(torch, gen, dev)
+    record = recorder(results)
 
     for dtname, dt in (("float32", torch.float32),
                        ("bfloat16", torch.bfloat16)):
@@ -193,11 +250,7 @@ def kernel_checks(torch, results):
         for seq in (128, 512):
             bh = bsz * heads
             q, k, v = (randn(bh, seq, d, dtype=dt) for _ in range(3))
-            lens = torch.randint(seq // 4, seq + 1, (bsz,), generator=gen,
-                                 device=dev)
-            mask = (torch.arange(seq, device=dev)[None, :] <
-                    lens[:, None]).float()                     # [B, S]
-            shared = (mask[:, :, None] * mask[:, None, :]) * 1e4 - 1e4
+            shared = padding_bias(torch, gen, dev, bsz, seq)
             perhead = randn(bh, seq, seq)
             # BERT's bias masks the padded query rows too (every logit of
             # such a row carries -1e4); all rows are held to the tolerance
@@ -494,6 +547,398 @@ def mhm_phase(torch, np):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def bert_base_param_shapes(cfg):
+    """The 158 parameter shapes of BERT-base pretraining (a program built
+    for its declarations only; nothing runs)."""
+    from paddle_tpu_torch.framework.core import Program, program_guard
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        bert.build_pretrain_network(cfg)
+    return [tuple(p.shape) for p in main.all_parameters()]
+
+
+def flash_training_checks(torch, results):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    randn = randn_on(torch, gen, dev)
+    record = recorder(results)
+    seed = torch.tensor([SEED], dtype=torch.int32, device=dev)
+    heads, d = 12, 64
+    for dtname, dt in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        es = torch.finfo(dt).bits // 8
+        for bsz, seq in ((TRAIN_BATCH, TRAIN_SEQ), (LONG_BATCH, LONG_SEQ)):
+            bh = bsz * heads
+            q, k, v, do = (randn(bh, seq, d, dtype=dt) for _ in range(4))
+            shared = padding_bias(torch, gen, dev, bsz, seq)
+            for mode, bias, causal in (("padding-bias", shared, False),
+                                       ("causal", None, True)):
+                what = f"flash train {mode} B={bsz} S={seq} {dtname}"
+                o, lse = FA.flash_fwd(q, k, v, bias, causal, DROPOUT, seed)
+                po, plse = FA.flash_fwd_plain(q, k, v, bias, causal,
+                                              DROPOUT, seed)
+                err_o = agree(torch, what + " o (dropout 0.1)", o, po,
+                              dtname, TOL_F32)
+                # a padded row's lse is near -1e4, where a float32 ulp is
+                # ~1e-3: held per row to TOL_LSE of max(1, |lse|)
+                lerr = float(((lse - plse).abs() /
+                              plse.abs().clamp_min(1.0)).max())
+                log(f"  {what} lse: max|Δ|/max(1,|lse|) {lerr:.3e} "
+                    f"(tolerance {TOL_LSE:.1e})")
+                check(lerr <= TOL_LSE, f"{what}: lse disagrees ({lerr})")
+                grads = FA.flash_bwd(q, k, v, bias, o, lse, do, causal,
+                                     DROPOUT, seed)
+                refs = FA.flash_bwd_plain(q, k, v, bias, o, lse, do, causal,
+                                          DROPOUT, seed)
+                errs = [agree(torch, f"{what} {n}", g, r, dtname, TOL_GRAD,
+                              relative=True)
+                        for n, g, r in zip(("dq", "dk", "dv"), grads, refs)]
+                delta = (do.float() * o.float()).sum(dim=-1)
+                pairs = seq * (seq + 1) // 2 if causal else seq * seq
+                io_bytes = bh * seq * d * es
+                extra = (0 if bias is None else bias.numel() * 4) + \
+                    2 * bh * seq * 4                  # lse, delta
+                q4, k4, v4, do4 = (t.view(bsz, heads, seq, d).detach()
+                                   .requires_grad_(True) for t in
+                                   (q, k, v, do))
+                mask4 = None if bias is None else \
+                    bias.view(bsz, 1, seq, seq).to(dt)
+                lib_out = F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask4, is_causal=causal)
+                lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, (q4, k4, v4), do4, retain_graph=True))
+                plain_bwd = time_ms(torch, lambda: FA.flash_bwd_plain(
+                    q, k, v, bias, o, lse, do, causal, DROPOUT, seed))
+                shape = [bsz, heads, seq, d, mode, "dropout 0.1"]
+                record("flash_attention_fwd_dropout", shape, dtname,
+                       max(err_o, lerr),
+                       time_ms(torch, lambda: FA.flash_fwd(
+                           q, k, v, bias, causal, DROPOUT, seed)),
+                       time_ms(torch, lambda: FA.flash_fwd_plain(
+                           q, k, v, bias, causal, DROPOUT, seed)),
+                       time_ms(torch, lambda: F.scaled_dot_product_attention(
+                           q4, k4, v4, attn_mask=mask4, is_causal=causal,
+                           dropout_p=DROPOUT)),
+                       4 * io_bytes + extra - bh * seq * 4,
+                       4 * bh * pairs * d)
+                # the library's one backward call computes dq, dk and dv
+                # together, and so does the plain version: both stand
+                # beside each kernel, the library as an extra key
+                record("flash_attention_bwd_dq", shape, dtname, errs[0],
+                       time_ms(torch, lambda: FA.flash_bwd_dq(
+                           q, k, v, bias, do, lse, delta, causal, DROPOUT,
+                           seed)),
+                       plain_bwd, None, 5 * io_bytes + extra,
+                       6 * bh * pairs * d, library_dq_dk_dv_ms=lib_bwd)
+                record("flash_attention_bwd_dkv", shape, dtname,
+                       max(errs[1:]),
+                       time_ms(torch, lambda: FA.flash_bwd_dkv(
+                           q, k, v, bias, do, lse, delta, causal, DROPOUT,
+                           seed)),
+                       plain_bwd, None, 6 * io_bytes + extra,
+                       8 * bh * pairs * d, library_dq_dk_dv_ms=lib_bwd)
+                del lib_out
+
+
+def ln_adam_training_checks(torch, results, cfg):
+    from paddle_tpu_torch.ops.cuda import fused_ops as K
+    from paddle_tpu_torch.ops.cuda import optimizer as O
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    randn = randn_on(torch, gen, dev)
+    record = recorder(results)
+    d = cfg.hidden_size
+    for dtname, dt in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        es = torch.finfo(dt).bits // 8
+        # the encoder's rows (B*S) and the masked-LM head's (B*20)
+        for rows in (TRAIN_BATCH * TRAIN_SEQ, TRAIN_BATCH * TRAIN_MASKS):
+            x, dy = randn(rows, d, dtype=dt), randn(rows, d, dtype=dt)
+            s = (1.0 + randn(d, scale=0.1)).to(dt)
+            what = f"layer_norm_bwd [{rows},{d}] {dtname}"
+            got = K.layer_norm_bwd(x, s, dy)
+            ref = K.layer_norm_bwd_plain(x, s, dy)
+            err = max(agree(torch, what + " dx", got[0], ref[0], dtname,
+                            TOL_F32),
+                      agree(torch, what + " dscale", got[1], ref[1], dtname,
+                            TOL_LN_SUM, relative=True),
+                      agree(torch, what + " dbias", got[2], ref[2], dtname,
+                            TOL_LN_SUM, relative=True))
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                x, [d], s, s, 1e-5)
+            record("layer_norm_bwd", [rows, d], dtname, err,
+                   time_ms(torch, lambda: K.layer_norm_bwd(x, s, dy)),
+                   time_ms(torch, lambda: K.layer_norm_bwd_plain(x, s, dy)),
+                   time_ms(torch, lambda:
+                           torch.ops.aten.native_layer_norm_backward(
+                               dy, x, [d], mean, rstd, s, s,
+                               [True, True, True])),
+                   (3 * rows * d + 3 * d) * es, 16 * rows * d)
+
+    def adam_state(n):
+        return (randn(n), randn(n), randn(n, scale=0.1),
+                randn(n, scale=0.01).abs())
+
+    lr_t = torch.tensor([1e-4], device=dev)
+    step = torch.tensor([1.0], device=dev)
+
+    def library(ps, gs, ms, vs):
+        torch._fused_adam_(ps, gs, ms, vs, [], [step] * len(ps), lr=1e-4,
+                           beta1=0.9, beta2=0.999, weight_decay=0.0,
+                           eps=1e-8, amsgrad=False, maximize=False)
+
+    # the word embedding's launch, a 768 x 3072 FFN weight, an LN vector
+    # and next_sent_fc.b_0
+    adam_err = 0.0
+    for n in (cfg.vocab_size * d, 4 * d * d, d, 2):
+        state = adam_state(n)
+        a = [t.clone() for t in state]
+        b = [t.clone() for t in state]
+        O.adam(a[0], a[1], a[2], a[3], lr_t)
+        O.adam_plain(b[0], b[1], b[2], b[3], lr_t)
+        err = max(agree(torch, f"adam n={n} {name}", a[i], b[i], "float32",
+                        TOL_ADAM) for name, i in (("p", 0), ("m", 2),
+                                                  ("v", 3)))
+        record("adam", [n], "float32", err,
+               time_ms(torch, lambda: O.adam(*a, lr_t)),
+               time_ms(torch, lambda: O.adam_plain(*b, lr_t)),
+               time_ms(torch, lambda: library([a[0]], [a[1]], [a[2]],
+                                              [a[3]])),
+               28 * n, 12 * n)
+        adam_err = max(adam_err, err)
+    # one step's 158 launches over every BERT-base parameter
+    shapes = bert_base_param_shapes(cfg)
+    check(len(shapes) == TRAIN_LAUNCHES["adam"],
+          f"BERT-base has {len(shapes)} parameters")
+    total = sum(math.prod(sh) for sh in shapes)
+    tensors = [adam_state(math.prod(sh)) for sh in shapes]
+    ps, gs, ms, vs = (list(t) for t in zip(*tensors))
+
+    def kernel_all():
+        for st in tensors:
+            O.adam(*st, lr_t)
+
+    def plain_all():
+        for st in tensors:
+            O.adam_plain(*st, lr_t)
+
+    record("adam", [f"all {len(shapes)} BERT-base parameters", total],
+           "float32", adam_err, time_ms(torch, kernel_all, samples=9),
+           time_ms(torch, plain_all, samples=9),
+           time_ms(torch, lambda: library(ps, gs, ms, vs), samples=9),
+           28 * total, 12 * total)
+    del tensors, ps, gs, ms, vs
+
+
+# ---------------------------------------------------------------------------
+# phase 7: BERT-base training through the port
+# ---------------------------------------------------------------------------
+
+
+def build_train(cfg, lr=1e-4):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.framework.core import Program, program_guard
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = Program(), Program()
+    startup.random_seed = main.random_seed = SEED
+    with program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        fluid.optimizer.Adam(lr).minimize(total)
+    return main, startup, total
+
+
+# the port's kernels by their CUDA function names (csrc/*.cu)
+PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                     "flash_bwd_dkv_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
+                     "ln_bwd_colsum_kernel", "adam_kernel")
+
+
+def profile_step(torch, step, step_ms):
+    """Device time of one training step by kernel, from torch.profiler:
+    the port's kernels, the matrix products (cuBLAS / CUTLASS gemm) and
+    everything else, and the device's busy share of ``step_ms`` (the
+    median unprofiled step).  None when the profiler saw no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not by_name:
+        log("  device time by kernel: not measured (the profiler saw no "
+            "device activity)")
+        return None
+    groups = {"port kernels": 0.0, "matrix products": 0.0, "other": 0.0}
+    for name, (_, us) in by_name.items():
+        low = name.lower()
+        if any(k in name for k in PORT_KERNEL_NAMES):
+            groups["port kernels"] += us / 1e3
+        elif "gemm" in low or "cutlass" in low:
+            groups["matrix products"] += us / 1e3
+        else:
+            groups["other"] += us / 1e3
+    busy = sum(groups.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    log(f"  one profiled step: device busy {busy:.2f} ms of the "
+        f"{step_ms:.2f} ms median step ({100 * busy / step_ms:.1f} %); "
+        + ", ".join(f"{g} {ms:.2f} ms" for g, ms in groups.items()))
+    for name, (n, us) in top:
+        log(f"    {us / 1e3:8.3f} ms  {n:4d}x  {name[:110]}")
+    return {"busy_ms": busy, "step_ms": step_ms,
+            "busy_share": busy / step_ms, "groups_ms": groups,
+            "top": [{"name": name[:200], "calls": n, "ms": us / 1e3}
+                    for name, (n, us) in top]}
+
+
+def train_phase(torch, np, cfg):
+    """10 steps through prepare(donate_state=True), dropout as cfg says;
+    then one more step under the profiler."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    main, startup, total = build_train(cfg)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    scope = fluid.Scope()
+    exe = fluid.Executor()                       # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    n_params = sum(math.prod(p.shape) for p in main.all_parameters())
+    prepared = exe.prepare(main, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        handle, = prepared.run(feed)
+        return float(handle)                     # waits for the step
+
+    # the main path: counts from zero, TRAIN_STEPS steps, read right after
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    routes = registry.route_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(step_s[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"  BERT-base pretraining ({n_params} parameters, "
+        f"{len(main.all_parameters())} tensors), batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {TRAIN_MASKS} masks per sequence, dropout "
+        f"{cfg.hidden_dropout_prob}/{cfg.attention_probs_dropout_prob}")
+    log(f"  losses: {[round(x, 5) for x in losses]}")
+    log(f"  step times (s): {[round(x, 4) for x in step_s]}")
+    log(f"  training step: median of steps 3-{TRAIN_STEPS} {steady * 1e3:.2f} "
+        f"ms, {TRAIN_BATCH / steady:.2f} sequences/s, {tokens / steady:.1f} "
+        f"tokens/s; peak device memory {peak_gib:.2f} GiB")
+    log(f"  launches over {TRAIN_STEPS} steps: {launches}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    fallbacks = {k: v for k, v in routes.items() if k[2] == "fallback"}
+    check(not fallbacks, f"route fallbacks on the training path: "
+                         f"{fallbacks}")
+    for name, per_step in TRAIN_LAUNCHES.items():
+        check(launches[name] == per_step * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
+              f"expected {per_step} per step")
+    # the served-only kernels have no place in a training step
+    check(launches["add_layer_norm_fwd"] == 0 and
+          launches["bias_gelu_fwd"] == 0, "a forward-only kernel ran")
+    profile = profile_step(torch, step, steady * 1e3)
+    del prepared, scope
+    return launches, {"losses": losses, "step_s": step_s,
+                      "step_ms_median_3_10": steady * 1e3,
+                      "sequences_per_s": TRAIN_BATCH / steady,
+                      "tokens_per_s": tokens / steady,
+                      "parameters": n_params, "peak_gib": peak_gib,
+                      "profile": profile}
+
+
+def train_plain_phase(torch, np, cfg):
+    """Dropout 0: PLAIN_STEPS steps with every kernel on, and again with
+    every kernel flag off, from the same startup; losses and step-1
+    grads agree."""
+    import dataclasses
+    from paddle_tpu_torch import flags, fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    main, startup, total = build_train(cfg0)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg0,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    grad_names = [p.name + "@GRAD" for p in main.all_parameters()]
+
+    def run(kernels_on):
+        flags.set_flags({"use_flash_attention": kernels_on,
+                         "use_pallas_fused": kernels_on})
+        try:
+            scope = fluid.Scope()
+            exe = fluid.Executor()
+            exe.run(startup, scope=scope)
+            kernels.reset_launch_counts()
+            losses, grads = [], None
+            for i in range(PLAIN_STEPS):
+                fetch = [total] + (grad_names if i == 0 else [])
+                out = exe.run(main, feed=feed, fetch_list=fetch,
+                              scope=scope)
+                losses.append(float(out[0]))
+                if i == 0:
+                    grads = out[1:]
+            return losses, grads, kernels.launch_counts()
+        finally:
+            flags.set_flags({"use_flash_attention": True,
+                             "use_pallas_fused": True})
+
+    k_losses, k_grads, k_launches = run(True)
+    p_losses, p_grads, p_launches = run(False)
+    check(sum(p_launches.values()) == 0, "the plain path launched a kernel")
+    check(k_launches["flash_attention_bwd_dkv"] > 0 and
+          k_launches["adam"] > 0, "the kernel path launched no kernel")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    grad_err, worst = 0.0, ""
+    for n, a, b in zip(grad_names, k_grads, p_grads):
+        e = max_abs(np, a, b) / max(float(np.abs(b).max()), 1e-30)
+        if e > grad_err:
+            grad_err, worst = e, n
+    log(f"  dropout 0, {PLAIN_STEPS} steps: losses kernels "
+        f"{[round(x, 6) for x in k_losses]} vs plain "
+        f"{[round(x, 6) for x in p_losses]}: max relative Δ {loss_err:.3e} "
+        f"(tolerance {TOL_TRAIN_LOSS:.0e}); step-1 grads: max |Δ| / "
+        f"max|grad| {grad_err:.3e} at {worst} (tolerance "
+        f"{TOL_TRAIN_GRAD:.0e})")
+    check(loss_err <= TOL_TRAIN_LOSS, "training loss: kernels disagree with "
+                                      "the plain path")
+    check(grad_err <= TOL_TRAIN_GRAD, f"step-1 grad of {worst}: kernels "
+                                      f"disagree with the plain path")
+    return {"plain_losses": p_losses, "kernel_losses": k_losses,
+            "loss_max_rel": loss_err, "grad_max_rel": grad_err,
+            "grad_worst": worst}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -510,28 +955,51 @@ def nvidia_smi_line():
         return f"nvidia-smi unavailable: {e!r}"
 
 
-def kernels_line(per_kernel, served_launches, unfused_launches):
-    """One entry per kernel, at the main-path shape (rows 8x128 / B = 8,
-    S = 128, float32); the flash entry is the padding-bias case.  Sources
-    and the TPU kernels replaced come from the port's route table."""
+# kernel -> (the path whose launches it reports, its row's name in the
+# per-kernel results); the first float32 row is the main-path shape
+KERNEL_PATHS = {
+    "flash_attention_fwd": ("served", "flash_attention_fwd"),
+    "add_layer_norm_fwd": ("served", "add_layer_norm_fwd"),
+    "bias_gelu_fwd": ("served", "bias_gelu_fwd"),
+    "layer_norm_fwd": ("unfused", "layer_norm_fwd"),
+    "flash_attention_bwd_dq": ("train", "flash_attention_bwd_dq"),
+    "flash_attention_bwd_dkv": ("train", "flash_attention_bwd_dkv"),
+    "layer_norm_bwd": ("train", "layer_norm_bwd"),
+    "adam": ("train", "adam"),
+}
+
+
+def kernels_line(per_kernel, launches_by_path):
+    """One entry per kernel, at its main-path shape, float32: served rows
+    8 x 128 (flash B = 8, S = 128, padding bias), training B = 32, S = 128
+    (flash with dropout 0.1; LayerNorm rows 4096; Adam the word embedding's
+    launch).  Sources and the TPU kernels replaced come from the port's
+    route table; a kernel that also runs in training carries
+    ``train_launches``, and flash forward its dropout variant's times."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     out = []
-    for name in ("flash_attention_fwd", "add_layer_norm_fwd",
-                 "bias_gelu_fwd", "layer_norm_fwd"):
-        rows = [r for r in per_kernel[name] if r["dtype"] == "float32"]
+    for name, (path, rows_name) in KERNEL_PATHS.items():
+        rows = [r for r in per_kernel[rows_name] if r["dtype"] == "float32"]
         main = rows[0]
-        path = "unfused" if name == "layer_norm_fwd" else "served"
-        launches = (unfused_launches if path == "unfused"
-                    else served_launches)[name]
-        out.append({
+        entry = {
             "name": name, "route": "cuda", "source": facts[name][0],
-            "replaces": facts[name][1], "launches": launches,
+            "replaces": facts[name][1],
+            "launches": launches_by_path[path][name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
-            "dtype": "float32", "path": path})
+            "dtype": "float32", "path": path}
+        if path != "train":
+            entry["train_launches"] = launches_by_path["train"][name]
+        if name == "flash_attention_fwd":
+            drop = [r for r in per_kernel["flash_attention_fwd_dropout"]
+                    if r["dtype"] == "float32"][0]
+            entry["dropout"] = {k: drop[k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -584,16 +1052,28 @@ def main() -> int:
 
         log("phase 5: multihead_matmul program on the flash kernel")
         serving["multihead_matmul_max_abs"] = mhm_phase(torch, np)
+
+        log("phase 6: training kernels vs plain versions")
+        from paddle_tpu_torch.models import bert
+        base = bert.BertConfig.base()
+        flash_training_checks(torch, per_kernel)
+        ln_adam_training_checks(torch, per_kernel, base)
+
+        log("phase 7: BERT-base trained through the port")
+        trained, training = train_phase(torch, np, base)
+        training.update(train_plain_phase(torch, np, base))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
-    log(f"phase 6: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 8: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
+    log("training " + json.dumps(training))
     log("kernel_rows " + json.dumps(per_kernel))
-    print(json.dumps(kernels_line(per_kernel, served, unfused)))
+    print(json.dumps(kernels_line(per_kernel, {
+        "served": served, "unfused": unfused, "train": trained})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

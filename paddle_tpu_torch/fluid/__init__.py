@@ -1,7 +1,8 @@
 """fluid-compatible namespace for the port (ref: python/paddle/fluid):
 ``import paddle_tpu_torch.fluid as fluid`` gives the static-graph surface
-the serving slice covers — Program, Executor (``CUDAPlace(0)`` by
-default), the BERT layers, ParamAttr, initializers and io."""
+the serving and training slices cover — Program, Executor
+(``CUDAPlace(0)`` by default), the BERT layers, ParamAttr, initializers,
+io, append_backward and the SGD/Adam optimizers."""
 
 from ..framework.core import (Program, Variable, Parameter,  # noqa: F401
                               default_main_program, default_startup_program,
@@ -16,6 +17,9 @@ from .. import layers        # noqa: F401
 from .. import io            # noqa: F401
 from ..flags import get_flags, set_flags  # noqa: F401
 from ..framework import core  # noqa: F401
+from ..framework.backward import append_backward, gradients  # noqa: F401
+from ..framework.executor import sync_prepared_state  # noqa: F401
+from .. import optimizer     # noqa: F401
 
 name_scope = unique_name.name_scope
 

@@ -60,6 +60,14 @@ def convert_dtype(dtype) -> str:
     raise ValueError(f"unsupported dtype: {dtype!r}")
 
 
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    """The name of ``name``'s gradient variable (ref: framework.py)."""
+    return name + GRAD_SUFFIX
+
+
 # ---------------------------------------------------------------------------
 # Variable / Parameter
 # ---------------------------------------------------------------------------

@@ -13,8 +13,18 @@ results are only waited for when read.
   the read-only-state serving mode.  Weights are pulled from the scope
   onto the device once and stay resident; ``run`` returns lazy
   :class:`FetchHandle`\\ s that synchronise only on ``.numpy()``.
-  In-place state updates (``donate_state=True``, the training mode) come
-  with the training slice.
+* ``Executor.prepare(..., donate_state=True)``: the training mode.  The
+  state stays on the device and the optimizer ops update parameters,
+  moments and beta powers in place, so they keep their storage across
+  steps; :func:`sync_prepared_state` hands the current tensors to the
+  scope by reference (``Executor.run`` and ``io.save_persistables`` call
+  it first).
+
+A program with a ``backward`` meta-op (``append_backward``) runs through
+:func:`run_training_block`, the counterpart of the JAX package's
+``lower_block_with_backward``: the forward ops under autograd with the
+parameters as leaves, ``torch.autograd.grad`` at the ``backward`` op, and
+the optimizer ops after it without autograd.
 
 Random ops draw from a ``torch.Generator`` on the run's device, seeded
 from ``program.random_seed`` and kept in the scope so successive runs
@@ -24,14 +34,15 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .core import (CUDAPlace, Place, Program, Variable, default_main_program,
-                   device_for)
-from .errors import EnforceNotMet
+                   device_for, grad_var_name)
+from .errors import EnforceNotMet, UnimplementedError
 from ..ops.registry import LoweringContext, get_op
 
 _RNG_VAR = "@RNG_STATE@"
@@ -60,6 +71,14 @@ class Scope:
     def drop_all(self):
         self.vars.clear()
         self._version += 1
+
+
+def sync_prepared_state(scope: Scope):
+    """Hand every live donated PreparedStep's device state to ``scope`` by
+    reference (no copy, no device sync), so direct scope readers — a plain
+    ``Executor.run``, ``io.save_persistables`` — see current values."""
+    for ps in list(getattr(scope, "_prepared", ())):
+        ps.sync_scope()
 
 
 _global_scope = Scope()
@@ -127,6 +146,78 @@ def run_ops(ops, env, ctx):
                                 getattr(op, "callstack", None)) from e
         _scatter_outputs(op, outs, env)
     return env
+
+
+def backward_index(ops) -> Optional[int]:
+    """Position of the ``backward`` meta-op in an op list, or None."""
+    for i, op in enumerate(ops):
+        if op.type == "backward":
+            return i
+    return None
+
+
+def _refuse_unported(bw_op):
+    """What the JAX package's lowering does at the backward op and this
+    port does not yet: say so rather than train differently."""
+    attrs = bw_op.attrs
+    if attrs.get("checkpoints"):
+        raise UnimplementedError(
+            "backward: recompute checkpoints (activation rematerialization) "
+            "are not ported yet")
+    pipe = {k: v for k, v in attrs.items()
+            if k.startswith("pipe_") and v not in (None, 0, 1, "", False)}
+    if pipe:
+        raise UnimplementedError(
+            f"backward: pipeline attrs {sorted(pipe)} — pipeline "
+            f"parallelism comes with the multi-GPU slice")
+    if attrs.get("loss_scale_var"):
+        raise UnimplementedError(
+            "backward: dynamic loss scaling (loss_scale_var, AMP) is not "
+            "ported yet")
+    if attrs.get("guard_scale") or "@GUARD_SCALE@" in \
+            bw_op.block.program.global_block().vars:
+        raise UnimplementedError(
+            "backward: guardrail loss scaling is not ported yet")
+
+
+def run_training_block(ops, env, ctx, bw_idx):
+    """[forward ops][backward meta-op][update ops]: the forward under
+    autograd with the parameters as leaf tensors, ``param@GRAD`` from
+    ``torch.autograd.grad`` of ``loss.sum() * loss_scale`` (zeros for a
+    parameter the loss does not reach), ``loss@GRAD`` = ones, then the
+    update ops without autograd on the original parameter tensors."""
+    bw_op = ops[bw_idx]
+    _refuse_unported(bw_op)
+    param_names = list(bw_op.attrs["param_names"])
+    loss_name = bw_op.attrs["loss_name"]
+    loss_scale = float(bw_op.attrs.get("loss_scale", 1.0))
+    originals = {n: env[n] for n in param_names}
+    leaves = [env[n].detach().requires_grad_(True) for n in param_names]
+    env.update(zip(param_names, leaves))
+    with torch.enable_grad():
+        run_ops(ops[:bw_idx], env, ctx)
+        total = env[loss_name].sum() * loss_scale
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    for k, v in env.items():
+        if isinstance(v, torch.Tensor) and v.requires_grad:
+            env[k] = v.detach()
+    env.update(originals)
+    for n, leaf, g in zip(param_names, leaves, grads):
+        env[grad_var_name(n)] = torch.zeros_like(leaf) if g is None else g
+    env[grad_var_name(loss_name)] = torch.ones_like(env[loss_name])
+    with torch.no_grad():
+        run_ops(ops[bw_idx + 1:], env, ctx)
+    return env
+
+
+def run_block(ops, env, ctx):
+    """Interpret a global block: through :func:`run_training_block` when
+    it has a ``backward`` op, else every op without autograd."""
+    bw_idx = backward_index(ops)
+    if bw_idx is not None:
+        return run_training_block(ops, env, ctx, bw_idx)
+    with torch.no_grad():
+        return run_ops(ops, env, ctx)
 
 
 def external_inputs(program: Program) -> List[str]:
@@ -213,17 +304,22 @@ class FetchHandle:
 
 
 class PreparedStep:
-    """Steady-state serving fast path (ref: Executor::Prepare /
-    RunPreparedContext), read-only-state mode: the program's persistable
-    inputs are resolved and moved to the device once and stay resident
-    across runs (re-pulled only if the scope is written), feeds go
-    straight to the device, and fetches return as lazy
+    """Steady-state fast path (ref: Executor::Prepare / RunPreparedContext):
+    the program's persistable inputs are resolved and moved to the device
+    once and stay resident across runs (re-pulled only if the scope is
+    written), feeds go straight to the device, and fetches return as lazy
     :class:`FetchHandle`\\ s.  ``signatures`` counts the distinct feed
     shape signatures served — the port's analog of the JAX package's
-    compiled-executable count."""
+    compiled-executable count.
+
+    With ``donate_state`` (training) the step owns its state: the
+    optimizer ops update it in place, nothing is written to the scope per
+    step, and :meth:`sync_scope` (through :func:`sync_prepared_state`)
+    hands the current tensors over by reference."""
 
     def __init__(self, executor: "Executor", program: Program, feed_names,
-                 fetch_list, scope: Scope, feed=None):
+                 fetch_list, scope: Scope, feed=None,
+                 donate_state: bool = False):
         self._exe = executor
         self._program = program
         self._scope = scope
@@ -239,7 +335,14 @@ class PreparedStep:
         self._scope_version = None
         self._steps: Dict[Any, int] = {}
         self._lock = threading.Lock()
+        self._donate = donate_state
+        self._written = [n for n in self._state_names
+                         if any(n in op.output_names() for op in self._ops)]
         self.stats = {"steps": 0}
+        if donate_state:
+            if not hasattr(scope, "_prepared"):
+                scope._prepared = weakref.WeakSet()
+            scope._prepared.add(self)
         if feed is not None:
             self.run(dict(feed))
 
@@ -259,6 +362,21 @@ class PreparedStep:
             state[n] = to_device(v, device)
         self._state = state
         self._scope_version = self._scope._version
+
+    def sync_scope(self):
+        """Write the current state tensors into the scope by reference."""
+        with self._lock:
+            if self._state is None or \
+                    self._scope_version != self._scope._version:
+                return          # the scope was written since: it is newer
+            changed = False
+            for n in self._written:
+                if self._scope.vars.get(n) is not self._state[n]:
+                    self._scope.vars[n] = self._state[n]
+                    changed = True
+            if changed:
+                self._scope._version += 1
+                self._scope_version = self._scope._version
 
     def run(self, feed=None, return_numpy=False):
         """One run.  Returns ``FetchHandle``s (device-resident; sync on
@@ -280,11 +398,15 @@ class PreparedStep:
                 env[k] = to_device(v, device)
             ctx = LoweringContext(
                 _generator(self._scope, self._program, device), device,
-                is_test=self._program._is_test)
-            with torch.no_grad():
-                run_ops(self._ops, env, ctx)
-            for n in self._state_names:
-                if env[n] is not self._state[n]:
+                is_test=self._program._is_test,
+                donate_state=self._donate)
+            run_block(self._ops, env, ctx)
+            for n in self._written:
+                if env[n] is self._state[n]:
+                    continue                # updated in place
+                if self._donate:
+                    self._state[n] = env[n]   # handed over by sync_scope
+                else:
                     # a served program writes no persistable; keep the
                     # scope the owner if one ever does
                     self._scope.set_var(n, env[n])
@@ -313,6 +435,7 @@ class Executor:
             return_numpy: bool = True):
         program = program or default_main_program()
         scope = scope or global_scope()
+        sync_prepared_state(scope)
         feed = feed or {}
         fetch_names = _fetch_names(fetch_list)
         env: Dict[str, Any] = {}
@@ -328,8 +451,7 @@ class Executor:
             env[n] = to_device(v, self.device)
         ctx = LoweringContext(_generator(scope, program, self.device),
                               self.device, is_test=program._is_test)
-        with torch.no_grad():
-            run_ops(program.global_block().ops, env, ctx)
+        run_block(program.global_block().ops, env, ctx)
         for op in program.global_block().ops:
             for n in op.output_names():
                 if _is_persistable(program, n) and n in env:
@@ -346,16 +468,13 @@ class Executor:
                 fetch_list=None, scope: Optional[Scope] = None, feed=None,
                 donate_state: bool = False):
         """Resolve ``program`` + ``fetch_list`` into a
-        :class:`PreparedStep` (read-only state, weights device-resident).
-        Pass an example ``feed`` to run it once eagerly."""
-        if donate_state:
-            raise NotImplementedError(
-                "prepare(donate_state=True) — in-place state updates for "
-                "training — comes with the training slice of the port")
+        :class:`PreparedStep` with device-resident state: read-only for
+        serving, or owned and updated in place with ``donate_state=True``
+        (training).  Pass an example ``feed`` to run it once eagerly."""
         program = program or default_main_program()
         scope = scope or global_scope()
         return PreparedStep(self, program, feed_names, fetch_list or [],
-                            scope, feed=feed)
+                            scope, feed=feed, donate_state=donate_state)
 
     def close(self):
         pass

@@ -7,7 +7,7 @@ by either package loads in the other.
 :func:`convert_params` is the one door by which parameters enter the
 port from numpy — the arrays the JAX package keeps in its scope or writes
 to ``params.npz`` — and every load goes through it.  Checkpoints (format
-v2, manifests, resharding) come with the training slice."""
+v2, manifests, resharding) are a later item of the port."""
 
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from .framework.core import Program, Variable, default_main_program
-from .framework.executor import Scope, global_scope, _RNG_VAR
+from .framework.executor import (Scope, global_scope, _RNG_VAR,
+                                 sync_prepared_state)
 
 
 def convert_params(arrays: Dict[str, np.ndarray], device
@@ -60,9 +61,11 @@ def save_persistables(executor, dirname,
                       main_program: Optional[Program] = None,
                       filename: Optional[str] = None,
                       scope: Optional[Scope] = None):
-    """Save every persistable var of the program to one npz file."""
+    """Save every persistable var of the program to one npz file (the
+    current values: a donated prepared step's state is synced first)."""
     main_program = main_program or default_main_program()
     scope = scope or global_scope()
+    sync_prepared_state(scope)
     os.makedirs(dirname, exist_ok=True)
     arrays = {}
     for name in _persistable_names(main_program):

@@ -1,10 +1,11 @@
 """Layer builders — the port of paddle_tpu/layers/ (the subset the BERT
-encoder calls)."""
+encoder and its pretraining heads call)."""
 
 from .math_ops import (_binary, _broadcast_shape, _to_variable,  # noqa: F401
                        elementwise_add, elementwise_sub, elementwise_mul,
                        elementwise_div, relu, sigmoid, tanh, gelu, scale,
-                       matmul, mul)
+                       matmul, mul, mean)
+from .loss import softmax_with_cross_entropy  # noqa: F401
 from .nn import (data, fc, layer_norm, embedding, softmax,  # noqa: F401
                  dropout)
 from .tensor_ops import (cast, fill_constant, reshape,  # noqa: F401

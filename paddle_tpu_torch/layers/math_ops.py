@@ -134,3 +134,11 @@ def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
                      attrs={"x_num_col_dims": x_num_col_dims,
                             "y_num_col_dims": y_num_col_dims})
     return out
+
+
+def mean(x, name=None):
+    """The mean of every element of ``x``, as a scalar variable."""
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, ())
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out

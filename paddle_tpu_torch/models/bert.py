@@ -1,6 +1,7 @@
-"""BERT encoder — the port of paddle_tpu/models/bert.py (the served
-encoder; the pretraining heads and the MoE branch come with the training
-slice).
+"""BERT — the port of paddle_tpu/models/bert.py: the encoder, the
+masked-LM + next-sentence pretraining heads and the synthetic pretraining
+batch (the MoE branch and the tensor/sequence-parallel builders are not
+ported yet).
 
 Static-graph builder: embeddings + N post-LN transformer encoder layers
 + the pooled first-token output.  It emits the same program as the JAX
@@ -10,6 +11,8 @@ either package is byte-identical."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
 
 from .. import layers
 from ..framework.initializer import TruncatedNormalInitializer
@@ -164,3 +167,81 @@ def build_inference_network(cfg: BertConfig):
     seq_out, pooled = bert_encoder(src_ids, pos_ids, sent_ids, input_mask,
                                    cfg, is_test=True)
     return [src_ids, pos_ids, sent_ids, input_mask], seq_out, pooled
+
+
+def bert_pretrain_loss(seq_out, pooled, mask_label, mask_pos, labels,
+                       cfg: BertConfig):
+    """Masked-LM + next-sentence losses; the masked-LM decoder is the
+    transposed word embedding plus an output bias.  mask_pos holds
+    per-sample token positions [B, M].  Returns (total, mlm, nsp)."""
+    d = cfg.hidden_size
+    gh = LayerHelper("gather_tokens")
+    mask_feat = gh.create_variable_for_type_inference(seq_out.dtype,
+                                                      (-1, d))
+    gh.append_op(type="gather_tokens",
+                 inputs={"X": [seq_out], "Index": [mask_pos]},
+                 outputs={"Out": [mask_feat]})
+    mask_trans = layers.fc(mask_feat, d, act=cfg.hidden_act,
+                           param_attr=_attr("mask_lm_trans_fc.w_0", cfg),
+                           bias_attr=ParamAttr(name="mask_lm_trans_fc.b_0"))
+    mask_trans = layers.layer_norm(
+        mask_trans, begin_norm_axis=1,
+        param_attr=ParamAttr(name="mask_lm_trans_ln_scale"),
+        bias_attr=ParamAttr(name="mask_lm_trans_ln_bias"))
+    word_emb = mask_trans.block.program.global_block().var("word_embedding")
+    helper = LayerHelper("mask_lm_out")
+    bias = helper.create_parameter(
+        ParamAttr(name="mask_lm_out_fc.b_0"), [cfg.vocab_size], cfg.dtype,
+        is_bias=True)
+    logits = layers.matmul(mask_trans, word_emb, transpose_y=True)
+    logits = layers.elementwise_add(logits, bias)
+    mask_lm_loss = layers.mean(
+        layers.softmax_with_cross_entropy(logits, mask_label))
+    ns_logits = layers.fc(pooled, 2,
+                          param_attr=_attr("next_sent_fc.w_0", cfg),
+                          bias_attr=ParamAttr(name="next_sent_fc.b_0"))
+    ns_loss = layers.mean(
+        layers.softmax_with_cross_entropy(ns_logits, labels))
+    return mask_lm_loss + ns_loss, mask_lm_loss, ns_loss
+
+
+def build_pretrain_network(cfg: BertConfig, is_test=False):
+    """The pretraining program with its seven feeds; returns (feeds,
+    total loss, masked-LM loss, next-sentence loss)."""
+    def feed(name, shape, dtype):
+        return layers.data(name, shape=shape, dtype=dtype,
+                           append_batch_size=False)
+
+    src_ids = feed("src_ids", [-1, -1], "int64")
+    pos_ids = feed("pos_ids", [-1, -1], "int64")
+    sent_ids = feed("sent_ids", [-1, -1], "int64")
+    input_mask = feed("input_mask", [-1, -1, 1], "float32")
+    mask_label = feed("mask_label", [-1, 1], "int64")
+    mask_pos = feed("mask_pos", [-1, -1], "int64")
+    labels = feed("labels", [-1, 1], "int64")
+    seq_out, pooled = bert_encoder(src_ids, pos_ids, sent_ids, input_mask,
+                                   cfg, is_test=is_test)
+    total, mlm, nsp = bert_pretrain_loss(seq_out, pooled, mask_label,
+                                         mask_pos, labels, cfg)
+    feeds = [src_ids, pos_ids, sent_ids, input_mask, mask_label, mask_pos,
+             labels]
+    return feeds, total, mlm, nsp
+
+
+def make_fake_batch(rng, cfg: BertConfig, batch_size=8, seq_len=128,
+                    num_masks=20):
+    """Synthetic pretraining batch in the feed layout above, from a
+    ``numpy.random.RandomState`` (the JAX package's generator order, so
+    one seed gives both packages the same batch)."""
+    b, s = batch_size, seq_len
+    return {
+        "src_ids": rng.randint(0, cfg.vocab_size, (b, s)).astype("int64"),
+        "pos_ids": np.tile(np.arange(s, dtype="int64"), (b, 1)),
+        "sent_ids": rng.randint(0, cfg.type_vocab_size,
+                                (b, s)).astype("int64"),
+        "input_mask": np.ones((b, s, 1), dtype="float32"),
+        "mask_label": rng.randint(0, cfg.vocab_size,
+                                  (b * num_masks, 1)).astype("int64"),
+        "mask_pos": rng.randint(0, s, (b, num_masks)).astype("int64"),
+        "labels": rng.randint(0, 2, (b, 1)).astype("int64"),
+    }

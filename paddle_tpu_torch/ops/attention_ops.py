@@ -4,11 +4,14 @@ the decode and multi-GPU slices).
 
 One op takes projected Q/K/V in (B, S, H*D) layout plus an additive
 attention bias and produces the context in (B, S, H*D).  The
-``flash_attention`` route runs the hand-written flash kernel
-(ops/cuda/flash_attention.py).  With the route's flag off, or on CPU
-tensors the kernel rejects (training-mode dropout),
-:func:`reference_attention` — the JAX package's composition — computes
-it; on the card such an input raises (``registry.cuda_route``)."""
+``flash_attention`` route runs the hand-written flash kernels
+(ops/cuda/flash_attention.py): the forward, and under autograd the dq and
+dk/dv kernels as its backward.  In training the dropout mask is drawn
+inside the kernels from one int32 seed per op per run, taken from the
+run's generator on the device.  With the route's flag off, or on CPU
+tensors the kernels reject, :func:`reference_attention` — the JAX
+package's composition — computes it; on the card such an input raises
+(``registry.cuda_route``)."""
 
 from __future__ import annotations
 
@@ -75,15 +78,26 @@ def reference_attention(q, k, v, bias, n_head, dropout_rate, ctx, is_test,
     return _merge_heads(ctxv)
 
 
+def dropout_seed(ctx):
+    """One int32 seed for the flash kernels' dropout mask, drawn from the
+    run's generator straight onto the run's device (no host sync), so the
+    mask changes every step while forward and backward agree."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=ctx.generator,
+                         device=ctx.device, dtype=torch.int32)
+
+
 def lower_flash_attention(ctx, ins, attrs):
-    """The ``flash_attention`` route: the kernel on head-split operands
-    (``cuda_route`` has checked that the kernel takes the shape)."""
+    """The ``flash_attention`` route: the kernels on head-split operands
+    (``cuda_route`` has checked that the kernels take the shape)."""
     q, k, v = x(ins, "Q"), x(ins, "K"), x(ins, "V")
     n_head = resolve_heads(q, attrs)
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    rate = 0.0 if is_test else float(attrs.get("dropout_rate", 0.0))
     out = cuda_flash.flash_attention_bshd(
         _split_heads(q, n_head), _split_heads(k, n_head),
-        _split_heads(v, n_head), attn_bias(ins),
-        causal=bool(attrs.get("causal", False)))
+        _split_heads(v, n_head), attn_bias(ins), dropout_rate=rate,
+        causal=bool(attrs.get("causal", False)),
+        seed=dropout_seed(ctx) if rate else None)
     return {"Out": _merge_heads(out)}
 
 

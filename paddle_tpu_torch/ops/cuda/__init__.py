@@ -12,6 +12,12 @@ called through ``ctypes`` by a Python wrapper that:
   raises on a non-zero return code (a refused launch);
 * adds one to its entry in :data:`LAUNCHES` each time it launches.
 
+A kernel with a backward is called through a ``torch.autograd.Function``
+whose backward is a kernel too (flash attention, LayerNorm); a
+forward-only kernel refuses to run on the card while an input needs a
+gradient (:func:`refuse_grad`), since its output would silently cut the
+autograd graph.
+
 Nothing here builds, loads a library or imports anything GPU-specific at
 import time."""
 
@@ -25,9 +31,13 @@ import torch
 #: (plain integers; only a real kernel launch counts, never a plain run)
 LAUNCHES: Dict[str, int] = {
     "flash_attention_fwd": 0,
+    "flash_attention_bwd_dq": 0,
+    "flash_attention_bwd_dkv": 0,
     "layer_norm_fwd": 0,
+    "layer_norm_bwd": 0,
     "add_layer_norm_fwd": 0,
     "bias_gelu_fwd": 0,
+    "adam": 0,
 }
 
 #: dtype codes understood by the C entry points (csrc/common.cuh PtDtype)
@@ -80,3 +90,17 @@ def raise_on_error(what: str, rc: int):
 def require_cuda(what: str, t: torch.Tensor):
     if t.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record an op on these tensors."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors):
+    """A forward-only kernel's output has no autograd history: refuse to
+    launch it while an input needs a gradient."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward "
+                           f"kernel, and an input requires grad")

@@ -30,10 +30,12 @@ BUILD_DIR = os.path.join(
 #: kernel library name -> its source in csrc/
 SOURCES = {
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "layer_norm": "layer_norm.cu",
     "bias_gelu": "bias_gelu.cu",
+    "adam": "adam.cu",
 }
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "flash_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

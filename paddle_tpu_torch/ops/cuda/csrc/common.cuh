@@ -1,5 +1,6 @@
 // Shared helpers for the port's Hopper kernels: element loads/stores in
-// float32 or bfloat16 and a float block reduction.
+// float32 or bfloat16, a float block reduction and the counter-based
+// dropout generator.
 //
 // Every kernel source in this directory exposes a plain C entry point that
 // takes raw device pointers and a cudaStream_t (as void*), launches on that
@@ -9,6 +10,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 // dtype codes shared with the Python wrappers (ops/cuda/__init__.py)
 enum PtDtype { PT_F32 = 0, PT_BF16 = 1 };
@@ -51,4 +53,30 @@ __device__ __forceinline__ float pt_block_sum(float v, float* scratch) {
   float total = 0.f;
   for (int w = 0; w < nwarps; ++w) total += scratch[w];
   return total;
+}
+
+// Philox-4x32-10 (Salmon et al., SC 2011) keyed on one attention-score
+// element: counter (col, row, bh, 0), key (seed, 0); returns the first
+// output word.  Keying on the element, not the tile, makes the dropout
+// mask independent of how a kernel tiles the scores, so forward and both
+// backward kernels regenerate it bit for bit, and so does the plain
+// version in ops/cuda/flash_attention.py (philox_bits).
+__device__ __forceinline__ uint32_t pt_philox(uint32_t seed, uint32_t bh,
+                                              uint32_t row, uint32_t col) {
+  uint32_t c0 = col, c1 = row, c2 = bh, c3 = 0u, k0 = seed, k1 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  return c0;
 }

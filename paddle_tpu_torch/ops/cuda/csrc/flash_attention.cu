@@ -8,6 +8,16 @@
 // on rows whose l is 0).  In bf16 mode p is rounded to bf16 before the p.v
 // product, as the TPU kernel does with p.astype(v.dtype).
 //
+// Dropout (training): as in the TPU kernel, l sums the undropped p and
+// only the numerator is masked, p -> keep ? p / (1 - rate) : 0.  The TPU
+// seeds its hardware generator per (head, q-block, k-block); here the keep
+// bit of each score element is Philox-4x32-10 of (seed, bh, row, col)
+// (common.cuh), so the backward kernels regenerate the same mask and the
+// mask does not depend on the tiling.  The seed is read from device
+// memory, so drawing it costs no host sync.  The kernel is instantiated
+// with and without dropout: with the generator compiled into the one
+// kernel, the inference forward ran 12 % slower on an H100 at S = 512.
+//
 // Bound on an H100: at the served shapes (D = 64, S = 128..512) the
 // 4*BH*Sq*Sk*D FLOPs dominate the bytes.  This version runs them on the
 // float32 FMA pipes (67 TFLOP/s peak), not the tensor cores; the limit in
@@ -16,29 +26,17 @@
 //
 // Design: one block of 256 threads per (64-row query tile, batch*head);
 // the Q tile and each 64-key K/V tile are staged in shared memory (float32,
-// bf16 widened on load).  Both products are register-tiled: thread (ty, tx)
-// of a 16 x 16 grid owns query rows ty + 16i and keys tx + 16j (i, j < 4)
-// of the score tile, so one pass over D costs 8 float4 loads for 64 FMAs,
-// and rows ty + 16i by head dims 64c + 4tx .. +3 of the output, fed by one
-// broadcast p load per row and one float4 of V.  The strides (rows D + 4
-// floats apart, P rows 80 apart) keep every warp's shared-memory accesses
-// free of bank conflicts.  A row's 64 scores live in the 16 threads of one
-// half-warp: the tile max is a 4-step shuffle, and each thread keeps its
-// own share of the softmax sum, added up once at the end.  Causal tiles
+// bf16 widened on load).  Both products are register-tiled (flash_common.cuh):
+// thread (ty, tx) of a 16 x 16 grid owns query rows ty + 16i and keys
+// tx + 16j (i, j < 4) of the score tile, and rows ty + 16i by head dims
+// 64c + 4tx .. +3 of the output.  A row's 64 scores live in the 16 threads
+// of one half-warp: the tile max is a 4-step shuffle, and each thread keeps
+// its own share of the softmax sum, added up once at the end.  Causal tiles
 // above the diagonal are never loaded (block skipping); keys past Sk and
 // rows past Sq are masked, so any lengths work.
-#include <math.h>
-#include <stdint.h>
-
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kBlockM = 64;        // query rows per thread block
-constexpr int kBlockN = 64;        // keys per K/V tile
-constexpr int kThreads = 256;      // a 16 x 16 grid of threads
-constexpr int kPStride = kBlockN + 16;
-constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 
 template <int D>
 struct Tile {
@@ -49,47 +47,14 @@ struct Tile {
       sizeof(float);
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// rows [row0, row0 + 64) of src[rows, D] into dst[64][stride]; rows at or
-// past `limit` are zero
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, int stride, const T* src,
-                                      int row0, int limit) {
-  for (int idx = threadIdx.x; idx < 64 * D / 4; idx += kThreads) {
-    const int r = idx / (D / 4), c = 4 * (idx % (D / 4));
-    const float4 v = row0 + r < limit
-                         ? load4(src + static_cast<size_t>(row0 + r) * D + c)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + r * stride + c) = v;
-  }
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ o, float* __restrict__ lse, int sq,
-                     int sk, int bias_ratio, int causal, float scale) {
+                     int sk, int bias_ratio, int causal, float scale,
+                     const int* __restrict__ seed, uint32_t threshold,
+                     float inv_keep) {
   using C = Tile<D>;
   constexpr int S = C::kStride;
   extern __shared__ float4 smem4[];
@@ -105,10 +70,11 @@ __global__ void __launch_bounds__(kThreads)
   const T* vb = v + static_cast<size_t>(bh) * sk * D;
   const float* bb =
       bias ? bias + static_cast<size_t>(bh / bias_ratio) * sq * sk : nullptr;
+  const uint32_t sd = kDropout ? static_cast<uint32_t>(*seed) : 0u;
 
-  stage<T, D>(qs, S, q + static_cast<size_t>(bh) * sq * D, m0, sq);
+  stage<T, D, D>(qs, S, q + static_cast<size_t>(bh) * sq * D, m0, sq);
 
-  float acc[4][C::kChunks][4];
+  float acc[C::kChunks][4][4];
   float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -117,43 +83,22 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < C::kChunks; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[c][i][e] = 0.f;
   }
   const int kend = causal ? min(sk, m0 + kBlockM) : sk;
 
   for (int k0 = 0; k0 < kend; k0 += kBlockN) {
     __syncthreads();  // the previous tile is fully consumed
-    stage<T, D>(ks, S, kb, k0, sk);
-    stage<T, D>(vs, D, vb, k0, sk);
+    stage<T, D, D>(ks, S, kb, k0, sk);
+    stage<T, D, D>(vs, D, vb, k0, sk);
     __syncthreads();
 
-    // s = q.k^T on the 4 x 4 register tile
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * S + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * S + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(qv[i].x, kv[j].x, t);
-          t = fmaf(qv[i].y, kv[j].y, t);
-          t = fmaf(qv[i].z, kv[j].z, t);
-          t = fmaf(qv[i].w, kv[j].w, t);
-          s[i][j] = t;
-        }
-    }
+    tile_dot(s, qs, S, ks, S, D);
 
     // scale, bias and masks; the tile's row max over the half-warp
     float mt[4];
@@ -177,9 +122,10 @@ __global__ void __launch_bounds__(kThreads)
         mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], off));
     }
 
-    // rescale the running state, write p for the p.v product
+    // rescale the running state, write (dropped) p for the p.v product
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+      const int row = m0 + ty + 16 * i;
       const float m_new = fmaxf(m[i], mt[i]);
       const float alpha = expf(m[i] - m_new);
       m[i] = m_new;
@@ -187,35 +133,21 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < C::kChunks; ++c)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
+        for (int e = 0; e < 4; ++e) acc[c][i][e] *= alpha;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        l[i] += p;  // the softmax denominator sums the unrounded p
+        const int key = k0 + tx + 16 * j;
+        float p = expf(s[i][j] - m_new);
+        l[i] += p;  // the softmax denominator sums the undropped p
+        if (kDropout)
+          p = keep_element(sd, bh, row, key, threshold) ? p * inv_keep : 0.f;
         ps[(ty + 16 * i) * kPStride + tx + 16 * j] = pt_round<T>(p);
       }
     }
     __syncthreads();
 
-    // acc += p.v on the 4-row x 4*kChunks-dim register tile
-#pragma unroll 4
-    for (int j = 0; j < kBlockN; ++j) {
-      float pr[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * kPStride + j];
-#pragma unroll
-      for (int c = 0; c < C::kChunks; ++c) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vs + j * D + 64 * c + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][c][0] = fmaf(pr[i], vv.x, acc[i][c][0]);
-          acc[i][c][1] = fmaf(pr[i], vv.y, acc[i][c][1]);
-          acc[i][c][2] = fmaf(pr[i], vv.z, acc[i][c][2]);
-          acc[i][c][3] = fmaf(pr[i], vv.w, acc[i][c][3]);
-        }
-      }
-    }
+    for (int c = 0; c < C::kChunks; ++c) tile_acc(acc[c], ps, vs + 64 * c, D);
   }
 
   // each thread summed its own keys: add the 16 shares of every row
@@ -234,52 +166,58 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < C::kChunks; ++c)
       store4(op + 64 * c + 4 * tx,
-             make_float4(acc[i][c][0] / denom, acc[i][c][1] / denom,
-                         acc[i][c][2] / denom, acc[i][c][3] / denom));
+             make_float4(acc[c][i][0] / denom, acc[c][i][1] / denom,
+                         acc[c][i][2] / denom, acc[c][i][3] / denom));
     if (tx == 0)
       lse[static_cast<size_t>(bh) * sq + row] =
           l[i] > 0.f ? m[i] + logf(denom) : INFINITY;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, void* o, void* lse, int bh, int sq,
-                   int sk, int bias_ratio, int causal, float scale,
-                   cudaStream_t stream) {
+struct FwdArgs {
+  const void *q, *k, *v, *bias;
+  void *o, *lse;
+  int bh, sq, sk, bias_ratio, causal;
+  float scale;
+  const int* seed;
+  uint32_t threshold;
+  float inv_keep;
+};
+
+template <typename T, int D, bool kDropout>
+cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
   using C = Tile<D>;
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, D, kDropout>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
+  dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.bh);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(o), static_cast<float*>(lse), sq, sk, bias_ratio,
-      causal, scale);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
+      static_cast<T*>(a.o), static_cast<float*>(a.lse), a.sq, a.sk,
+      a.bias_ratio, a.causal, a.scale, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       const void* bias, void* o, void* lse, int bh, int sq,
-                       int sk, int bias_ratio, int causal, float scale,
-                       cudaStream_t s) {
+template <typename T, bool kDropout>
+cudaError_t dispatch_d(int d, const FwdArgs& a, cudaStream_t s) {
   switch (d) {
     case 64:
-      return launch<T, 64>(q, k, v, bias, o, lse, bh, sq, sk, bias_ratio,
-                           causal, scale, s);
+      return launch<T, 64, kDropout>(a, s);
     case 128:
-      return launch<T, 128>(q, k, v, bias, o, lse, bh, sq, sk, bias_ratio,
-                            causal, scale, s);
+      return launch<T, 128, kDropout>(a, s);
     case 256:
-      return launch<T, 256>(q, k, v, bias, o, lse, bh, sq, sk, bias_ratio,
-                            causal, scale, s);
+      return launch<T, 256, kDropout>(a, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t dispatch(int d, const FwdArgs& a, cudaStream_t s) {
+  return a.seed ? dispatch_d<T, true>(d, a, s) : dispatch_d<T, false>(d, a, s);
 }
 
 }  // namespace
@@ -288,23 +226,26 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 // optional float32 additive bias[bh / bias_ratio, sq, sk] (NULL for none;
 // bias_ratio = H shares one bias across the heads of a batch row).
 // d must be 64, 128 or 256; causal requires sq == sk; q, k, v and o must be
-// 16-byte aligned.
+// 16-byte aligned.  `seed` (one int32 in device memory) turns dropout on:
+// an element is kept when its Philox word is >= `threshold` and then
+// scaled by `inv_keep`; NULL means no dropout.
 extern "C" int pt_flash_attn_fwd(int dtype, const void* q, const void* k,
                                  const void* v, const void* bias, void* o,
                                  void* lse, int bh, int sq, int sk, int d,
                                  int bias_ratio, int causal, float scale,
-                                 void* stream) {
+                                 const void* seed, unsigned int threshold,
+                                 float inv_keep, void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || bias_ratio < 1 ||
       bh % bias_ratio != 0 || (causal && sq != sk))
     return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{q, k, v, bias, o, lse, bh, sq, sk, bias_ratio, causal,
+                  scale, static_cast<const int*>(seed), threshold, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == PT_F32) {
-    err = dispatch_d<float>(d, q, k, v, bias, o, lse, bh, sq, sk, bias_ratio,
-                            causal, scale, s);
+    err = dispatch<float>(d, a, s);
   } else if (dtype == PT_BF16) {
-    err = dispatch_d<__nv_bfloat16>(d, q, k, v, bias, o, lse, bh, sq, sk,
-                                    bias_ratio, causal, scale, s);
+    err = dispatch<__nv_bfloat16>(d, a, s);
   } else {
     err = cudaErrorInvalidValue;
   }

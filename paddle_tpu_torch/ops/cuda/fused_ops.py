@@ -1,16 +1,22 @@
 """Fused row kernels on Hopper — the counterpart of
-``paddle_tpu/ops/pallas/fused_ops.py`` (forward halves).
+``paddle_tpu/ops/pallas/fused_ops.py``.
 
-* :func:`layer_norm` — LN over the last dim of x2 [R, D]
-  (``csrc/layer_norm.cu``, replaces ``_ln_fwd_kernel``);
+* :func:`layer_norm` — LN over the last dim of x2 [R, D], differentiable
+  through :class:`LayerNorm` (``csrc/layer_norm.cu``: ``layer_norm_fwd``
+  replaces ``_ln_fwd_kernel``, ``layer_norm_bwd`` replaces
+  ``_ln_bwd_kernel``);
 * :func:`add_layer_norm` — LN(a2 + b2), the sum never written to memory
   (same source, residual variant; replaces ``_aln_fwd_kernel``);
 * :func:`bias_gelu` — exact-erf GELU(x2 + bias) (``csrc/bias_gelu.cu``,
   replaces ``_bg_fwd_kernel``).
 
 Each has a ``*_plain`` PyTorch twin computing the same function with the
-same float32 statistics; CPU tensors run the twin, CUDA tensors launch
-the kernel or raise."""
+same float32 statistics (the backward twin is the explicit formula of
+``_ln_bwd_kernel``); CPU tensors run the twin, CUDA tensors launch the
+kernel or raise.  ``add_layer_norm`` and ``bias_gelu`` have no backward
+kernel yet (the fused-training slice ports ``_aln_bwd_kernel`` and
+``_bg_bwd_kernel``), so on the card they refuse an input that needs a
+gradient."""
 
 from __future__ import annotations
 
@@ -19,16 +25,19 @@ from typing import Tuple
 
 import torch
 
-from . import (LAUNCHES, check_cuda, dtype_code, raise_on_error,
-               require_cuda, stream_handle)
+from . import (LAUNCHES, check_cuda, dtype_code, needs_grad,
+               raise_on_error, refuse_grad, require_cuda, stream_handle)
 from .build import function
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LN_ARGTYPES = (_I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P)
+_LN_BWD_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    ctypes.c_float, _P)
 _BG_ARGTYPES = (_I, _P, _P, _P, _I, _I, _P)
 
 LN_MAX_DIM = 8192
+LN_BWD_MAX_BLOCKS = 512     # row blocks of the backward's partial sums
 BG_MAX_DIM = 16384
 
 
@@ -71,6 +80,24 @@ def add_layer_norm_plain(a2, b2, scale, bias, eps=1e-5):
                       eps).to(a2.dtype)
 
 
+def layer_norm_bwd_plain(x2, scale, dy, eps=1e-5):
+    """The explicit backward of :func:`layer_norm_plain`, as
+    ``_ln_bwd_kernel`` computes it: statistics recomputed in float32,
+    dx = rstd * (dy*s - mean(dy*s) - xhat * mean(dy*s*xhat)), and
+    dscale = sum(dy * xhat), dbias = sum(dy) over the rows."""
+    xf, dyf = x2.float(), dy.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dys = dyf * scale.float()
+    m1 = dys.mean(dim=-1, keepdim=True)
+    m2 = (dys * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * (dys - m1 - xhat * m2)
+    return dx.to(x2.dtype), (dyf * xhat).sum(dim=0).to(scale.dtype), \
+        dyf.sum(dim=0).to(scale.dtype)
+
+
 def bias_gelu_plain(x2, bias):
     u = x2.float() + bias.float()
     return (0.5 * u * (1.0 + torch.erf(u * 0.7071067811865476))).to(
@@ -105,29 +132,94 @@ def _ln_launch(what, counter, a2, b2, scale, bias, eps):
     return y
 
 
-def layer_norm(x2, scale, bias, eps=1e-5):
+def layer_norm_fwd(x2, scale, bias, eps=1e-5):
     """LayerNorm over the last dim of x2 [R, D]; scale/bias [D] of x2's
-    dtype."""
+    dtype.  No autograd: :func:`layer_norm` is the differentiable entry."""
     if x2.device.type == "cpu":
         return layer_norm_plain(x2, scale, bias, eps)
     return _ln_launch("layer_norm", "layer_norm_fwd", x2, None, scale,
                       bias, eps)
 
 
+def layer_norm_bwd(x2, scale, dy, eps=1e-5):
+    """(dx, dscale, dbias) of LayerNorm over x2 [R, D] for the output
+    gradient dy [R, D].  CPU tensors run :func:`layer_norm_bwd_plain`;
+    CUDA tensors launch the backward kernel (row blocks, then the
+    column sum of their partials) or raise."""
+    if x2.device.type == "cpu":
+        return layer_norm_bwd_plain(x2, scale, dy, eps)
+    what = "layer_norm_bwd"
+    require_cuda(what, x2)
+    dy = dy.contiguous()
+    check_cuda(what, x2, scale, dy)
+    if x2.dim() != 2 or dy.shape != x2.shape:
+        raise ValueError(f"{what}: expected x2 and dy [R, D]")
+    r, d = x2.shape
+    if tuple(scale.shape) != (d,):
+        raise ValueError(f"{what}: scale must be [{d}]")
+    ok, why = ln_supported(d, x2.dtype)
+    if not ok or r < 1:
+        raise ValueError(f"{what}: unsupported ({why or 'no rows'})")
+    rows_per_block = -(-r // LN_BWD_MAX_BLOCKS)
+    nblocks = -(-r // rows_per_block)
+    dx = torch.empty_like(x2)
+    dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
+    partial = torch.empty((nblocks, 2, d), dtype=torch.float32,
+                          device=x2.device)
+    fn = function("layer_norm", "pt_layer_norm_bwd", _LN_BWD_ARGTYPES)
+    rc = fn(dtype_code(x2, what), x2.data_ptr(), scale.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), partial.data_ptr(), r, d, rows_per_block,
+            nblocks, float(eps), stream_handle(x2.device))
+    raise_on_error(what, rc)
+    LAUNCHES["layer_norm_bwd"] += 1
+    return dx, dscale, dbias
+
+
+class LayerNorm(torch.autograd.Function):
+    """LayerNorm rows through the forward kernel, with the backward
+    kernel as its backward (the TPU package's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, bias, eps):
+        ctx.save_for_backward(x2, scale)
+        ctx.eps = eps
+        return layer_norm_fwd(x2, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, scale = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_bwd(x2, scale, dy, ctx.eps)
+        return dx, dscale, dbias, None
+
+
+def layer_norm(x2, scale, bias, eps=1e-5):
+    """LayerNorm over the last dim of x2 [R, D]; scale/bias [D] of x2's
+    dtype; differentiable in x2, scale and bias through :class:`LayerNorm`
+    when autograd records."""
+    if needs_grad(x2, scale, bias):
+        return LayerNorm.apply(x2, scale, bias, eps)
+    return layer_norm_fwd(x2, scale, bias, eps)
+
+
 def add_layer_norm(a2, b2, scale, bias, eps=1e-5):
-    """LN(a2 + b2) over the last dim; a2/b2 [R, D], scale/bias [D]."""
+    """LN(a2 + b2) over the last dim; a2/b2 [R, D], scale/bias [D].
+    Forward only: refused on the card while an input needs a gradient."""
     if a2.device.type == "cpu":
         return add_layer_norm_plain(a2, b2, scale, bias, eps)
+    refuse_grad("add_layer_norm", a2, b2, scale, bias)
     return _ln_launch("add_layer_norm", "add_layer_norm_fwd", a2, b2,
                       scale, bias, eps)
 
 
 def bias_gelu(x2, bias):
-    """gelu(x2 + bias), exact erf; x2 [R, D], bias [D] of x2's dtype."""
+    """gelu(x2 + bias), exact erf; x2 [R, D], bias [D] of x2's dtype.
+    Forward only: refused on the card while an input needs a gradient."""
     if x2.device.type == "cpu":
         return bias_gelu_plain(x2, bias)
     what = "bias_gelu"
     require_cuda(what, x2)
+    refuse_grad(what, x2, bias)
     check_cuda(what, x2, bias)
     if x2.dim() != 2 or tuple(bias.shape) != (x2.shape[1],):
         raise ValueError(f"{what}: expected x2 [R, D] and bias [D]")

@@ -1,5 +1,5 @@
 """Dense math ops — the port of paddle_tpu/ops/math_ops.py (the subset the
-served BERT programs use).  Slot names and attribute semantics are the
+BERT serving and pretraining programs use).  Slot names and attribute semantics are the
 reference's.  Matrix products are ``torch.matmul`` — plain products the
 JAX package leaves to XLA stay library calls; on the card they run in full
 float32 (``core.device_for`` turns TF32 off)."""
@@ -138,3 +138,9 @@ register("erf")(_unary(torch.erf))
 @register("gelu")
 def _gelu(ctx, ins, attrs):
     return {"Out": gelu(x(ins, "X"), attrs.get("approximate", False))}
+
+
+@register("mean")
+def _mean(ctx, ins, attrs):
+    """The mean of every element, as a 0-d tensor."""
+    return {"Out": torch.mean(x(ins, "X"))}

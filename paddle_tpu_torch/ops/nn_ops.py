@@ -1,6 +1,7 @@
-"""NN ops — the port of paddle_tpu/ops/nn_ops.py (the subset the served
-BERT programs use).  ``layer_norm`` routes onto the hand-written LayerNorm
-kernel (``fused_layer_norm`` route); every other op is a plain PyTorch
+"""NN ops — the port of paddle_tpu/ops/nn_ops.py (the subset the BERT
+serving and pretraining programs use).  ``layer_norm`` routes onto the
+hand-written LayerNorm kernels (``fused_layer_norm`` route: forward, and
+the backward kernel under autograd); every other op is a plain PyTorch
 composition, as the JAX package leaves them to XLA."""
 
 from __future__ import annotations
@@ -48,8 +49,9 @@ def _layer_norm(ctx, ins, attrs):
         y = cuda_fused.layer_norm(a.reshape(r, d), scale.reshape(d),
                                   bias.reshape(d), eps).reshape(a.shape)
         # Mean/Variance are rarely-consumed auxiliaries, computed outside
-        # the kernel as the JAX package does
-        af = a.float().reshape(r, d)
+        # the kernel and non-differentiable, as the JAX package
+        # stop-gradients them (the kernel's backward covers Y only)
+        af = a.detach().float().reshape(r, d)
         return {"Y": y, "Mean": af.mean(-1).reshape(a.shape[:bna]),
                 "Variance": af.var(-1, unbiased=False).reshape(
                     a.shape[:bna])}
@@ -109,3 +111,37 @@ def _lookup_table(ctx, ins, attrs):
 def _lookup_table_v2(ctx, ins, attrs):
     w, ids = x(ins, "W"), x(ins, "Ids")
     return {"Out": embedding_lookup(w, ids, attrs.get("padding_idx", -1))}
+
+
+def _gather_label_logp(logp, label, ignore_index=-100):
+    lbl = label.reshape(logp.shape[:-1]).long()
+    ignored = lbl == ignore_index
+    safe = torch.where(ignored, torch.zeros_like(lbl), lbl)
+    picked = torch.gather(logp, -1, safe[..., None])[..., 0]
+    return torch.where(ignored, torch.zeros((), dtype=picked.dtype,
+                                            device=picked.device), picked)
+
+
+@register("softmax_with_cross_entropy")
+def _softmax_with_cross_entropy(ctx, ins, attrs):
+    """ref: softmax_with_cross_entropy_op.cc — Softmax and the per-row
+    Loss; hard labels are int64 class ids (ignore_index rows give 0)."""
+    logits, label = x(ins, "Logits"), x(ins, "Label")
+    axis = attrs.get("axis", -1)
+    softmax = torch.softmax(logits, dim=axis)
+    logp = torch.log_softmax(logits, dim=axis)
+    if attrs.get("soft_label", False):
+        loss = -(label * logp).sum(dim=axis, keepdim=True)
+    else:
+        picked = _gather_label_logp(logp.movedim(axis, -1), label,
+                                    attrs.get("ignore_index", -100))
+        loss = -picked[..., None]
+    return {"Softmax": softmax, "Loss": loss}
+
+
+@register("gather_tokens")
+def _gather_tokens(ctx, ins, attrs):
+    """Per-sample token positions: (B, S, D) x (B, M) -> (B*M, D)."""
+    seq, pos = x(ins, "X"), x(ins, "Index").long()
+    idx = pos[..., None].expand(pos.shape[0], pos.shape[1], seq.shape[-1])
+    return {"Out": torch.gather(seq, 1, idx).reshape(-1, seq.shape[-1])}

@@ -3,7 +3,8 @@ routes in paddle_tpu/ops/op_specs.py.
 
 Each :class:`~.registry.CudaLowering` below carries a ``supported``
 predicate stating exactly what its CUDA kernel rejects (head dims, norm
-widths, dtypes, dropout), evaluated on the op's input tensors, so
+widths, dtypes, an input that needs a gradient the kernel has no backward
+for), evaluated on the op's input tensors, so
 ``cuda_route`` reports every hit and every fallback with its reason, and
 refuses (raises) on the card what a gate rejects.  :func:`kernel_facts`
 gives each kernel's source and the TPU kernel it replaces."""
@@ -12,7 +13,18 @@ from __future__ import annotations
 
 from .cuda import flash_attention as cuda_flash
 from .cuda import fused_ops as cuda_fused
+from .cuda import needs_grad
+from .cuda import optimizer as cuda_opt
 from .registry import ROUTES, CudaLowering, register_routes, x
+
+
+def _no_backward_kernel(ins):
+    """A forward-only kernel cannot run while autograd records: its output
+    would cut the graph.  Returns the gate's (ok, reason)."""
+    if needs_grad(*(t for vals in ins.values() for t in vals or ()
+                    if hasattr(t, "requires_grad"))):
+        return False, "no-backward-kernel"
+    return True, ""
 
 
 def _attn_dims(ins, attrs):
@@ -46,10 +58,12 @@ def _mhm_supported(ins, attrs):
     q, k = x(ins, "Q"), x(ins, "K")
     if q is None or k is None or q.dim() != 4 or k.dim() != 4:
         return False, "shape-unknown"
-    rate = 0.0 if attrs.get("is_test") else \
-        float(attrs.get("dropout_rate", 0.0))
+    if attrs.get("dropout_rate") and not attrs.get("is_test"):
+        # the inference pattern's dropout (downgrade_in_infer by default)
+        # does not upscale in training, the kernel's mask does
+        return False, "dropout"
     return cuda_flash.supported(int(q.shape[2]), int(k.shape[2]),
-                                int(q.shape[3]), q.dtype, False, rate)
+                                int(q.shape[3]), q.dtype, False)
 
 
 def _norm_rows_supported(ins, attrs):
@@ -66,6 +80,9 @@ def _norm_rows_supported(ins, attrs):
 
 
 def _add_ln_supported(ins, attrs):
+    ok, why = _no_backward_kernel(ins)
+    if not ok:
+        return ok, why
     res = x(ins, "Residual")
     if res is None:
         return False, "no-residual"
@@ -80,6 +97,9 @@ def _is_bias_gelu(attrs):
 
 
 def _bias_gelu_supported(ins, attrs):
+    ok, why = _no_backward_kernel(ins)
+    if not ok:
+        return ok, why
     a, b = x(ins, "X"), x(ins, "Y")
     if a is None or b is None:
         return False, "shape-unknown"
@@ -93,27 +113,46 @@ def _bias_gelu_supported(ins, attrs):
     return cuda_fused.bg_supported(int(a.shape[-1]), a.dtype)
 
 
+def _is_dense_adam(attrs):
+    return not attrs.get("lazy_mode")
+
+
+def _adam_supported(ins, attrs):
+    return cuda_opt.adam_supported(x(ins, "Param"), x(ins, "Grad"),
+                                   x(ins, "Moment1"), x(ins, "Moment2"))
+
+
 _CSRC = "paddle_tpu_torch/ops/cuda/csrc/"
 # the Pallas kernel each route's CUDA kernel replaces, as file:line
 _FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py:77"    # _fwd_kernel
+_FLASH_DQ_TPU = "paddle_tpu/ops/pallas/flash_attention.py:133"  # _bwd_dq_kernel
+_FLASH_DKV_TPU = "paddle_tpu/ops/pallas/flash_attention.py:177"  # _bwd_dkv_kernel
 _LN_TPU = "paddle_tpu/ops/pallas/fused_ops.py:58"             # _ln_fwd_kernel
+_LN_BWD_TPU = "paddle_tpu/ops/pallas/fused_ops.py:68"         # _ln_bwd_kernel
 _ADD_LN_TPU = "paddle_tpu/ops/pallas/fused_ops.py:152"        # _aln_fwd_kernel
 _BIAS_GELU_TPU = "paddle_tpu/ops/pallas/fused_ops.py:259"     # _bg_fwd_kernel
+_ADAM_TPU = "paddle_tpu/ops/pallas/fused_ops.py:331"          # _adam_kernel
 
+# flash forward, dq and dk/dv: two sources, so the facts name each one
 ROUTE_FLASH = CudaLowering(
     "flash_attention", flag="use_flash_attention", attr="use_flash",
     match=lambda attrs: not attrs.get("_seq_axis")
     and not attrs.get("_cached"),
-    supported=_flash_supported, kernels=("flash_attention_fwd",),
-    replaces=(_FLASH_TPU,), source=_CSRC + "flash_attention.cu")
+    supported=_flash_supported,
+    kernels=("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv"),
+    replaces=(_FLASH_TPU, _FLASH_DQ_TPU, _FLASH_DKV_TPU),
+    source=(_CSRC + "flash_attention.cu", _CSRC + "flash_attention_bwd.cu",
+            _CSRC + "flash_attention_bwd.cu"))
 ROUTE_MHM = CudaLowering(
     "flash_attention", flag="use_flash_attention",
     supported=_mhm_supported, kernels=("flash_attention_fwd",),
     replaces=(_FLASH_TPU,), source=_CSRC + "flash_attention.cu")
 ROUTE_LN = CudaLowering(
     "fused_layer_norm", flag="use_pallas_fused",
-    supported=_norm_rows_supported, kernels=("layer_norm_fwd",),
-    replaces=(_LN_TPU,), source=_CSRC + "layer_norm.cu")
+    supported=_norm_rows_supported,
+    kernels=("layer_norm_fwd", "layer_norm_bwd"),
+    replaces=(_LN_TPU, _LN_BWD_TPU), source=_CSRC + "layer_norm.cu")
 ROUTE_ADD_LN = CudaLowering(
     "fused_add_layer_norm", flag="use_pallas_fused",
     supported=_add_ln_supported, kernels=("add_layer_norm_fwd",),
@@ -127,11 +166,19 @@ ROUTE_BIAS_GELU = CudaLowering(
     kernels=("bias_gelu_fwd",), replaces=(_BIAS_GELU_TPU,),
     source=_CSRC + "bias_gelu.cu")
 
+# the lazy (SparseRows) update is a plain composition, as in the JAX
+# package: not in play for the kernel, so skipped rather than refused
+ROUTE_ADAM = CudaLowering(
+    "fused_adam", flag="use_pallas_fused", match=_is_dense_adam,
+    supported=_adam_supported, kernels=("adam",), replaces=(_ADAM_TPU,),
+    source=_CSRC + "adam.cu")
+
 register_routes("fused_attention", ROUTE_FLASH)
 register_routes("multihead_matmul", ROUTE_MHM)
 register_routes("layer_norm", ROUTE_LN)
 register_routes("fused_add_layernorm", ROUTE_ADD_LN)
 register_routes("fused_elemwise_activation", ROUTE_BIAS_GELU)
+register_routes("adam", ROUTE_ADAM)
 
 
 def kernel_facts():
@@ -140,6 +187,7 @@ def kernel_facts():
     facts = {}
     for routes in ROUTES.values():
         for route in routes:
-            for name, tpu in zip(route.kernels, route.replaces):
-                facts[name] = (route.source, tpu)
+            for name, src, tpu in zip(route.kernels, route.sources,
+                                      route.replaces):
+                facts[name] = (src, tpu)
     return facts

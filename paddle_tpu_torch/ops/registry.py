@@ -58,14 +58,17 @@ def get_op(name: str) -> Callable:
 
 class LoweringContext:
     """Threaded through one program run: test mode, the device the run
-    executes on, and the seeded generator random ops draw from."""
+    executes on, the seeded generator random ops draw from, and whether
+    the run owns its state (``donate_state``: optimizer ops then update
+    parameters and moments in place)."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None,
-                 is_test: bool = False):
+                 is_test: bool = False, donate_state: bool = False):
         self.generator = generator
         self.device = device if device is not None else torch.device("cpu")
         self.is_test = is_test
+        self.donate_state = donate_state
 
 
 def x(ins, slot, i=0):
@@ -98,20 +101,21 @@ class CudaLowering:
       ``ops.cuda.LAUNCHES`` key;
     * ``replaces`` — for each of ``kernels``, the ``file:line`` of the TPU
       kernel it stands in for;
-    * ``source`` — the CUDA source the route's kernels are built from.
+    * ``sources`` — for each of ``kernels``, the CUDA source it is built
+      from (``source`` takes one path for all of them, or a tuple).
 
     The op impl calls the kernel wrapper itself when :func:`cuda_route`
     returns the route.
     """
 
     __slots__ = ("kernel", "flag", "attr", "match", "supported", "kernels",
-                 "replaces", "source")
+                 "replaces", "sources")
 
     def __init__(self, kernel: str, flag: Optional[str] = None,
                  attr: Optional[str] = None,
                  match: Optional[Callable] = None,
                  supported: Optional[Callable] = None,
-                 kernels=(), replaces=(), source: str = ""):
+                 kernels=(), replaces=(), source=""):
         self.kernel = kernel
         self.flag = flag
         self.attr = attr
@@ -119,7 +123,8 @@ class CudaLowering:
         self.supported = supported
         self.kernels = tuple(kernels)
         self.replaces = tuple(replaces)
-        self.source = source
+        self.sources = (source,) * len(self.kernels) \
+            if isinstance(source, str) else tuple(source)
 
 
 ROUTES: Dict[str, Tuple[CudaLowering, ...]] = {}

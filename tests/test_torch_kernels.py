@@ -164,8 +164,9 @@ def test_gates_state_what_the_kernels_reject():
     assert tfa.supported(128, 128, 80) == (False, "head-dim:80")
     assert tfa.supported(128, 256, 64, causal=True) == \
         (False, "causal-rectangular")
-    assert tfa.supported(128, 128, 64, dropout_rate=0.1) == \
-        (False, "dropout")
+    assert tfa.supported(128, 128, 64, dropout_rate=0.1) == (True, "")
+    assert tfa.supported(128, 128, 64, dropout_rate=1.0) == \
+        (False, "dropout-rate:1.0")
     assert tfa.supported(128, 128, 64, torch.float16)[1].startswith(
         "dtype:")
     assert tF.ln_supported(768) == (True, "")
@@ -173,6 +174,6 @@ def test_gates_state_what_the_kernels_reject():
     assert tF.ln_supported(200) == (False, "norm-dim:200")
     assert tF.bg_supported(3072) == (True, "")
     assert tF.bg_supported(16512) == (False, "dim:16512")
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout"):
         tfa.flash_fwd(torch.zeros(1, 4, 64), torch.zeros(1, 4, 64),
                       torch.zeros(1, 4, 64), dropout_rate=0.1)

@@ -119,8 +119,10 @@ def test_kernel_wrappers_run_plain_on_cpu_and_launch_nothing():
                        tF.add_layer_norm_plain(x, r, s, b))
     assert torch.equal(tF.bias_gelu(x, b), tF.bias_gelu_plain(x, b))
     assert port_cuda.launch_counts() == {
-        "flash_attention_fwd": 0, "layer_norm_fwd": 0,
-        "add_layer_norm_fwd": 0, "bias_gelu_fwd": 0}
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0, "layer_norm_fwd": 0,
+        "layer_norm_bwd": 0, "add_layer_norm_fwd": 0, "bias_gelu_fwd": 0,
+        "adam": 0}
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -133,8 +135,8 @@ def test_kernel_wrappers_refuse_other_devices():
 def test_nothing_is_built_at_import():
     from paddle_tpu_torch.ops.cuda import build
     assert not build._LIBS
-    assert set(build.SOURCES) == {"flash_attention", "layer_norm",
-                                  "bias_gelu"}
+    assert set(build.SOURCES) == {"flash_attention", "flash_attention_bwd",
+                                  "layer_norm", "bias_gelu", "adam"}
     for name in build.SOURCES:
         path = build.library_path(name)
         assert path.startswith(build.BUILD_DIR)
@@ -145,14 +147,16 @@ def test_route_table_names_every_kernel_and_what_it_replaces():
     table = registry.route_table()
     assert set(table) == {"fused_attention", "multihead_matmul",
                           "layer_norm", "fused_add_layernorm",
-                          "fused_elemwise_activation"}
+                          "fused_elemwise_activation", "adam"}
     kernels = {k for routes in table.values() for r in routes
                for k in r.kernels}
     assert kernels == set(port_cuda.LAUNCHES)
     for routes in table.values():
         for r in routes:
             assert len(r.replaces) == len(r.kernels)
-            assert os.path.isfile(os.path.join(REPO, r.source))
+            assert len(r.sources) == len(r.kernels)
+            for source in r.sources:
+                assert os.path.isfile(os.path.join(REPO, source))
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     assert set(facts) == set(port_cuda.LAUNCHES)
@@ -201,6 +205,10 @@ def test_cuda_route_counts_hits_and_fallbacks_with_reasons():
 
 
 def test_fused_attention_route_falls_back_for_training_dropout():
+    """Training-mode dropout used to be the flash route's fallback; the
+    kernels now draw the mask themselves, so it is a hit, and what still
+    falls back is a rate the kernels cannot take (and with it, on the
+    card, a refusal)."""
     from paddle_tpu_torch.ops.registry import LoweringContext, get_op
     q = torch.randn(2, 128, 128)
     ins = {"Q": [q], "K": [q], "V": [q]}
@@ -209,17 +217,17 @@ def test_fused_attention_route_falls_back_for_training_dropout():
     ctx = LoweringContext(torch.Generator().manual_seed(0))
     out = get_op("fused_attention")(ctx, ins, attrs)["Out"]
     assert out.shape == q.shape
-    assert registry.route_counts("fallback") == {
-        ("fused_attention", "flash_attention", "fallback", "dropout"): 1}
     attrs["is_test"] = True
     get_op("fused_attention")(ctx, ins, attrs)
     assert registry.route_counts("hit") == {
-        ("fused_attention", "flash_attention", "hit", "supported"): 1}
-    # off the CPU the same training-mode input raises: the kernel has no
-    # dropout yet, and the card runs no plain fallback
+        ("fused_attention", "flash_attention", "hit", "supported"): 2}
+    attrs.update(is_test=False, dropout_rate=1.0)
+    get_op("fused_attention")(ctx, ins, attrs)
+    assert registry.route_counts("fallback") == {
+        ("fused_attention", "flash_attention", "fallback",
+         "dropout-rate:1.0"): 1}
     qm = torch.empty(2, 128, 128, device="meta")
-    attrs["is_test"] = False
-    with pytest.raises(UnimplementedError, match="dropout"):
+    with pytest.raises(UnimplementedError, match="dropout-rate"):
         get_op("fused_attention")(ctx, {"Q": [qm], "K": [qm], "V": [qm]},
                                   attrs)
 
