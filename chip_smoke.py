@@ -30,7 +30,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    float32 and bfloat16; one seed, so the masks are bit-identical),
    LayerNorm backward (R = 4096 and 640, D = 768) and Adam (the word
    embedding's 23,440,896 elements, 2,359,296, 768, 2, and all 158
-   BERT-base parameters), timed like phase 2;
+   BERT-base parameters), timed like phase 2; and the fused-training
+   kernels: add+LayerNorm backward (R = 4096 and 1000, plus 1003 for a
+   ragged last row block, D = 768) and bias+GELU backward (R = 4096,
+   D = 3072 and R = 640, D = 768, plus R = 1003), float32 and bfloat16;
 7. train BERT-base at full width and depth (random weights from a seed,
    Adam 1e-4, dropout 0.1 as published) for 10 steps through
    ``Executor.prepare(donate_state=True)`` on a pretraining batch of
@@ -41,7 +44,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    device time by kernel and the device's busy share of a step; then,
    with dropout 0, 3 steps with every kernel on against every kernel
    flag off (the plain compositions) agree;
-8. print the ``kernels`` JSON line, the card's name and power limit, and
+8. train BERT-base at full width and depth through the fused program and
+   the published optimizer recipe: ``fuse_add_layernorm`` applied, then
+   ``CompiledProgram(main).with_data_parallel(build_strategy=
+   BuildStrategy(fuse_elewise_add_act_ops=True))`` prepared with
+   ``donate_state=True``; AdamW with weight decay 0.01, gradients clipped
+   to global norm 1.0, the LR warmed up linearly to 1e-4 and decayed
+   linearly to 0 over 1,000,000 steps.  The warmup is cut from the
+   published 10,000 steps to 3 so the loss moves within the 10 steps.
+   Same batch and dropout as phase 7.  The loss is finite and falls, the
+   LR read back each step is the schedule's closed form, no route falls
+   back, and each step launches 25 add+LN forward and backward, 1 LN
+   forward and backward, 13 bias+GELU forward and backward, 12 flash
+   forward, dq and dk/dv and 158 Adam kernels; one more step runs under
+   the profiler; then, with dropout 0, 3 steps with every kernel on
+   against every kernel flag off agree;
+9. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -88,6 +106,19 @@ DROPOUT = 0.1
 TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
                   "flash_attention_bwd_dkv": 12, "layer_norm_fwd": 26,
                   "layer_norm_bwd": 26, "adam": 158}
+# the fused program: add+LN for the 24 residual adds and the embedding sum
+# (word + pos) + sent, LN left for the masked-LM transform; bias+GELU for
+# the 12 FFNs and the masked-LM transform (the pooled tanh runs unfused)
+FUSED_LAUNCHES = dict(TRAIN_LAUNCHES, layer_norm_fwd=1, layer_norm_bwd=1,
+                      add_layer_norm_fwd=25, add_layer_norm_bwd=25,
+                      bias_gelu_fwd=13, bias_gelu_bwd=13)
+# the recipe (Devlin et al. 2019, A.2; google-research/bert
+# optimization.py): peak LR 1e-4, decay to 0 over 1M steps, AdamW 0.01,
+# global-norm clip 1.0; the warmup is cut from 10,000 steps to 3
+PEAK_LR, WARMUP_STEPS, DECAY_STEPS = 1e-4, 3, 1_000_000
+WEIGHT_DECAY, CLIP_NORM = 0.01, 1.0
+TOL_LR = 1e-6             # LR read back vs the closed form (relative)
+EDGE_ROWS = 1003          # ragged last block of the backwards' row blocks
 
 class SmokeFailure(Exception):
     pass
@@ -741,12 +772,77 @@ def ln_adam_training_checks(torch, results, cfg):
     del tensors, ps, gs, ms, vs
 
 
+def fused_training_checks(torch, results, cfg):
+    """add+LN backward at the encoder's rows and bias+GELU backward at the
+    FFN's and the masked-LM transform's, each also at EDGE_ROWS."""
+    from paddle_tpu_torch.ops.cuda import fused_ops as K
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    randn = randn_on(torch, gen, dev)
+    record = recorder(results)
+    d = cfg.hidden_size
+    for dtname, dt in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        es = torch.finfo(dt).bits // 8
+        for rows in (TRAIN_BATCH * TRAIN_SEQ, 1000, EDGE_ROWS):
+            a, b, dy = (randn(rows, d, dtype=dt) for _ in range(3))
+            s = (1.0 + randn(d, scale=0.1)).to(dt)
+            what = f"add_layer_norm_bwd [{rows},{d}] {dtname}"
+            got = K.add_layer_norm_bwd(a, b, s, dy)
+            ref = K.add_layer_norm_bwd_plain(a, b, s, dy)
+            err = max(agree(torch, what + " dx", got[0], ref[0], dtname,
+                            TOL_F32),
+                      agree(torch, what + " dscale", got[1], ref[1], dtname,
+                            TOL_LN_SUM, relative=True),
+                      agree(torch, what + " dbias", got[2], ref[2], dtname,
+                            TOL_LN_SUM, relative=True))
+            # the library backward of LN(u) with u = a + b made beforehand
+            u = a + b
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                u, [d], s, s, 1e-5)
+            record("add_layer_norm_bwd", [rows, d], dtname, err,
+                   time_ms(torch, lambda: K.add_layer_norm_bwd(a, b, s, dy)),
+                   time_ms(torch,
+                           lambda: K.add_layer_norm_bwd_plain(a, b, s, dy)),
+                   time_ms(torch, lambda:
+                           torch.ops.aten.native_layer_norm_backward(
+                               dy, u, [d], mean, rstd, s, s,
+                               [True, True, True])),
+                   (4 * rows * d + 3 * d) * es, 17 * rows * d)
+        for rows, width in ((TRAIN_BATCH * TRAIN_SEQ, cfg.intermediate_size),
+                            (TRAIN_BATCH * TRAIN_MASKS, d),
+                            (EDGE_ROWS, cfg.intermediate_size)):
+            x, dy = randn(rows, width, dtype=dt), randn(rows, width, dtype=dt)
+            bb = randn(width, scale=0.1, dtype=dt)
+            what = f"bias_gelu_bwd [{rows},{width}] {dtname}"
+            got = K.bias_gelu_bwd(x, bb, dy)
+            ref = K.bias_gelu_bwd_plain(x, bb, dy)
+            err = max(agree(torch, what + " dx", got[0], ref[0], dtname,
+                            TOL_F32),
+                      agree(torch, what + " db", got[1], ref[1], dtname,
+                            TOL_LN_SUM, relative=True))
+            u = x + bb
+
+            def library():
+                return torch.ops.aten.gelu_backward(dy, u).sum(0)
+            # ~30 operations per element: erff and expf, the add, 6 muls
+            record("bias_gelu_bwd", [rows, width], dtname, err,
+                   time_ms(torch, lambda: K.bias_gelu_bwd(x, bb, dy)),
+                   time_ms(torch, lambda: K.bias_gelu_bwd_plain(x, bb, dy)),
+                   time_ms(torch, library),
+                   (3 * rows * width + 2 * width) * es, 30 * rows * width,
+                   library_is="gelu_backward(dy, x + b) and its .sum(0)")
+
+
 # ---------------------------------------------------------------------------
 # phase 7: BERT-base training through the port
 # ---------------------------------------------------------------------------
 
 
-def build_train(cfg, lr=1e-4):
+def build_train(cfg):
+    """Phase 7's program: pretraining + Adam(1e-4), run as it is.
+    Returns (the program to run, startup, loss, LR var)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.framework.core import Program, program_guard
     from paddle_tpu_torch.framework import unique_name
@@ -756,14 +852,54 @@ def build_train(cfg, lr=1e-4):
     startup.random_seed = main.random_seed = SEED
     with program_guard(main, startup):
         _, total, _, _ = bert.build_pretrain_network(cfg)
-        fluid.optimizer.Adam(lr).minimize(total)
-    return main, startup, total
+        opt = fluid.optimizer.Adam(PEAK_LR)
+        opt.minimize(total)
+    return main, startup, total, opt.learning_rate_var
+
+
+def build_fused_train(cfg):
+    """Phase 8's program, as a user writes it: the recipe, then both
+    fusion passes (``fuse_elemwise_add_act`` through the build
+    strategy).  Returns (the CompiledProgram, startup, loss, LR var)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.framework.core import Program, program_guard
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.passes import apply_pass
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = Program(), Program()
+    startup.random_seed = main.random_seed = SEED
+    with program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        lr = fluid.layers.linear_lr_warmup(
+            fluid.layers.polynomial_decay(PEAK_LR, DECAY_STEPS, 0.0,
+                                          power=1.0),
+            WARMUP_STEPS, 0.0, PEAK_LR)
+        opt = fluid.optimizer.AdamW(
+            lr, weight_decay=WEIGHT_DECAY,
+            grad_clip=fluid.clip.GradientClipByGlobalNorm(CLIP_NORM))
+        opt.minimize(total)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    bs = fluid.BuildStrategy()
+    bs.fuse_elewise_add_act_ops = True
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=total.name, build_strategy=bs)
+    return compiled, startup, total, opt.learning_rate_var
+
+
+def scheduled_lr(step):
+    """The recipe's LR for run ``step`` (0-based), in closed form."""
+    if step < WARMUP_STEPS:
+        return PEAK_LR * step / WARMUP_STEPS
+    return PEAK_LR * (1.0 - min(step, DECAY_STEPS) / DECAY_STEPS)
 
 
 # the port's kernels by their CUDA function names (csrc/*.cu)
 PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                      "flash_bwd_dkv_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
-                     "ln_bwd_colsum_kernel", "adam_kernel")
+                     "ln_bwd_colsum_kernel", "bias_gelu_fwd_kernel",
+                     "bias_gelu_bwd_kernel", "bias_gelu_bwd_colsum_kernel",
+                     "adam_kernel")
 
 
 def profile_step(torch, step, step_ms):
@@ -808,47 +944,60 @@ def profile_step(torch, step, step_ms):
                     for name, (n, us) in top]}
 
 
-def train_phase(torch, np, cfg):
-    """10 steps through prepare(donate_state=True), dropout as cfg says;
-    then one more step under the profiler."""
+def train_phase(torch, np, cfg, build, expected, schedule=None):
+    """TRAIN_STEPS steps of ``build(cfg)``'s program through
+    prepare(donate_state=True), dropout as cfg says, each kernel launched
+    exactly ``expected`` times per step and no other; the LR fetched each
+    step equals ``schedule(step)`` when given.  Then one more step under
+    the profiler."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import cuda as kernels
     from paddle_tpu_torch.ops import registry
-    main, startup, total = build_train(cfg)
+    program, startup, total, lr_var = build(cfg)
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
     scope = fluid.Scope()
     exe = fluid.Executor()                       # CUDAPlace(0)
     exe.run(startup, scope=scope)
-    n_params = sum(math.prod(p.shape) for p in main.all_parameters())
-    prepared = exe.prepare(main, fetch_list=[total], scope=scope,
+    params = program.all_parameters()
+    n_params = sum(math.prod(p.shape) for p in params)
+    prepared = exe.prepare(program, fetch_list=[total, lr_var], scope=scope,
                            donate_state=True)
+    ops = [op.type for op in prepared._program.global_block().ops]
+    log(f"  program run: {len(ops)} ops, "
+        + ", ".join(f"{ops.count(t)} {t}" for t in (
+            "fused_add_layernorm", "layer_norm",
+            "fused_elemwise_activation", "fused_attention", "adam",
+            "adamw")))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     def step():
-        handle, = prepared.run(feed)
-        return float(handle)                     # waits for the step
+        handle, lr = prepared.run(feed)
+        return float(handle), float(lr)          # waits for the step
 
     # the main path: counts from zero, TRAIN_STEPS steps, read right after
     kernels.reset_launch_counts()
     registry.reset_route_counts()
-    losses, step_s = [], []
+    losses, lrs, step_s = [], [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        losses.append(step())
+        loss, lr = step()
         step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        lrs.append(lr)
     launches = kernels.launch_counts()
     routes = registry.route_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = statistics.median(step_s[2:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"  BERT-base pretraining ({n_params} parameters, "
-        f"{len(main.all_parameters())} tensors), batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ}, {TRAIN_MASKS} masks per sequence, dropout "
-        f"{cfg.hidden_dropout_prob}/{cfg.attention_probs_dropout_prob}")
+    log(f"  BERT-base pretraining ({n_params} parameters, {len(params)} "
+        f"tensors), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MASKS} masks "
+        f"per sequence, dropout {cfg.hidden_dropout_prob}/"
+        f"{cfg.attention_probs_dropout_prob}")
     log(f"  losses: {[round(x, 5) for x in losses]}")
+    log(f"  learning rates: {lrs}")
     log(f"  step times (s): {[round(x, 4) for x in step_s]}")
     log(f"  training step: median of steps 3-{TRAIN_STEPS} {steady * 1e3:.2f} "
         f"ms, {TRAIN_BATCH / steady:.2f} sequences/s, {tokens / steady:.1f} "
@@ -859,16 +1008,20 @@ def train_phase(torch, np, cfg):
     fallbacks = {k: v for k, v in routes.items() if k[2] == "fallback"}
     check(not fallbacks, f"route fallbacks on the training path: "
                          f"{fallbacks}")
-    for name, per_step in TRAIN_LAUNCHES.items():
-        check(launches[name] == per_step * TRAIN_STEPS,
-              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
-              f"expected {per_step} per step")
-    # the served-only kernels have no place in a training step
-    check(launches["add_layer_norm_fwd"] == 0 and
-          launches["bias_gelu_fwd"] == 0, "a forward-only kernel ran")
+    for name, n in launches.items():
+        per_step = expected.get(name, 0)
+        check(n == per_step * TRAIN_STEPS,
+              f"{name}: {n} launches in {TRAIN_STEPS} steps, expected "
+              f"{per_step} per step")
+    if schedule is not None:
+        lr_err = max(abs(lr - schedule(i)) / PEAK_LR
+                     for i, lr in enumerate(lrs))
+        log(f"  LR vs the closed-form schedule: max |Δ| / peak {lr_err:.3e} "
+            f"(tolerance {TOL_LR:.0e})")
+        check(lr_err <= TOL_LR, f"the LR does not follow the schedule: {lrs}")
     profile = profile_step(torch, step, steady * 1e3)
     del prepared, scope
-    return launches, {"losses": losses, "step_s": step_s,
+    return launches, {"losses": losses, "lrs": lrs, "step_s": step_s,
                       "step_ms_median_3_10": steady * 1e3,
                       "sequences_per_s": TRAIN_BATCH / steady,
                       "tokens_per_s": tokens / steady,
@@ -876,20 +1029,21 @@ def train_phase(torch, np, cfg):
                       "profile": profile}
 
 
-def train_plain_phase(torch, np, cfg):
-    """Dropout 0: PLAIN_STEPS steps with every kernel on, and again with
-    every kernel flag off, from the same startup; losses and step-1
-    grads agree."""
+def train_plain_phase(torch, np, cfg, build, expected):
+    """Dropout 0: PLAIN_STEPS steps of ``build``'s program through
+    Executor.run with every kernel on (each launched ``expected`` times
+    per step), and again with every kernel flag off, from the same
+    startup; losses and step-1 grads agree."""
     import dataclasses
     from paddle_tpu_torch import flags, fluid
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import cuda as kernels
     cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
                                attention_probs_dropout_prob=0.0)
-    main, startup, total = build_train(cfg0)
+    program, startup, total, _ = build(cfg0)
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg0,
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
-    grad_names = [p.name + "@GRAD" for p in main.all_parameters()]
+    grad_names = [p.name + "@GRAD" for p in program.all_parameters()]
 
     def run(kernels_on):
         flags.set_flags({"use_flash_attention": kernels_on,
@@ -902,7 +1056,7 @@ def train_plain_phase(torch, np, cfg):
             losses, grads = [], None
             for i in range(PLAIN_STEPS):
                 fetch = [total] + (grad_names if i == 0 else [])
-                out = exe.run(main, feed=feed, fetch_list=fetch,
+                out = exe.run(program, feed=feed, fetch_list=fetch,
                               scope=scope)
                 losses.append(float(out[0]))
                 if i == 0:
@@ -915,8 +1069,9 @@ def train_plain_phase(torch, np, cfg):
     k_losses, k_grads, k_launches = run(True)
     p_losses, p_grads, p_launches = run(False)
     check(sum(p_launches.values()) == 0, "the plain path launched a kernel")
-    check(k_launches["flash_attention_bwd_dkv"] > 0 and
-          k_launches["adam"] > 0, "the kernel path launched no kernel")
+    check(all(k_launches[n] == per_step * PLAIN_STEPS
+              for n, per_step in expected.items()),
+          f"the kernel path launched {k_launches}")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
     grad_err, worst = 0.0, ""
     for n, a, b in zip(grad_names, k_grads, p_grads):
@@ -966,16 +1121,20 @@ KERNEL_PATHS = {
     "flash_attention_bwd_dkv": ("train", "flash_attention_bwd_dkv"),
     "layer_norm_bwd": ("train", "layer_norm_bwd"),
     "adam": ("train", "adam"),
+    "add_layer_norm_bwd": ("fused_train", "add_layer_norm_bwd"),
+    "bias_gelu_bwd": ("fused_train", "bias_gelu_bwd"),
 }
 
 
 def kernels_line(per_kernel, launches_by_path):
     """One entry per kernel, at its main-path shape, float32: served rows
     8 x 128 (flash B = 8, S = 128, padding bias), training B = 32, S = 128
-    (flash with dropout 0.1; LayerNorm rows 4096; Adam the word embedding's
-    launch).  Sources and the TPU kernels replaced come from the port's
-    route table; a kernel that also runs in training carries
-    ``train_launches``, and flash forward its dropout variant's times."""
+    (flash with dropout 0.1; LayerNorm and add+LN rows 4096; bias+GELU
+    rows 4096 x 3072; Adam the word embedding's launch).  Sources and the
+    TPU kernels replaced come from the port's route table; a kernel also
+    launched on another path carries ``train_launches`` (phase 7) and
+    ``fused_train_launches`` (phase 8), and flash forward its dropout
+    variant's times."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     out = []
@@ -991,8 +1150,9 @@ def kernels_line(per_kernel, launches_by_path):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
             "dtype": "float32", "path": path}
-        if path != "train":
-            entry["train_launches"] = launches_by_path["train"][name]
+        for other in ("train", "fused_train"):
+            if path != other and launches_by_path[other][name]:
+                entry[other + "_launches"] = launches_by_path[other][name]
         if name == "flash_attention_fwd":
             drop = [r for r in per_kernel["flash_attention_fwd_dropout"]
                     if r["dtype"] == "float32"][0]
@@ -1058,22 +1218,38 @@ def main() -> int:
         base = bert.BertConfig.base()
         flash_training_checks(torch, per_kernel)
         ln_adam_training_checks(torch, per_kernel, base)
+        fused_training_checks(torch, per_kernel, base)
 
         log("phase 7: BERT-base trained through the port")
-        trained, training = train_phase(torch, np, base)
-        training.update(train_plain_phase(torch, np, base))
+        trained, training = train_phase(torch, np, base, build_train,
+                                        TRAIN_LAUNCHES)
+        training.update(train_plain_phase(torch, np, base, build_train,
+                                          TRAIN_LAUNCHES))
+
+        log(f"phase 8: BERT-base trained through the fused program and the "
+            f"published recipe (AdamW {WEIGHT_DECAY}, global-norm clip "
+            f"{CLIP_NORM}, LR {PEAK_LR} decayed over {DECAY_STEPS} steps; "
+            f"warmup cut from the published 10,000 steps to {WARMUP_STEPS} "
+            f"so the loss moves within {TRAIN_STEPS} steps)")
+        fused, fused_training = train_phase(
+            torch, np, base, build_fused_train, FUSED_LAUNCHES,
+            schedule=scheduled_lr)
+        fused_training.update(train_plain_phase(
+            torch, np, base, build_fused_train, FUSED_LAUNCHES))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
-    log(f"phase 8: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 9: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
+    log("fused_training " + json.dumps(fused_training))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
-        "served": served, "unfused": unfused, "train": trained})))
+        "served": served, "unfused": unfused, "train": trained,
+        "fused_train": fused})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """fluid-compatible namespace for the port (ref: python/paddle/fluid):
 ``import paddle_tpu_torch.fluid as fluid`` gives the static-graph surface
 the serving and training slices cover — Program, Executor
-(``CUDAPlace(0)`` by default), the BERT layers, ParamAttr, initializers,
-io, append_backward and the SGD/Adam optimizers."""
+(``CUDAPlace(0)`` by default), CompiledProgram and BuildStrategy, the
+BERT layers and LR schedules, ParamAttr, initializers, io,
+append_backward, the SGD/Adam/AdamW optimizers, regularizers and
+gradient clips."""
 
 from ..framework.core import (Program, Variable, Parameter,  # noqa: F401
                               default_main_program, default_startup_program,
@@ -10,6 +12,8 @@ from ..framework.core import (Program, Variable, Parameter,  # noqa: F401
                               is_compiled_with_cuda)
 from ..framework.executor import (Executor, Scope, global_scope,  # noqa: F401
                                   scope_guard, PreparedStep, FetchHandle)
+from ..framework.compiler import (CompiledProgram, BuildStrategy,  # noqa: F401
+                                  ExecutionStrategy)
 from ..framework.layer_helper import ParamAttr  # noqa: F401
 from ..framework import initializer  # noqa: F401
 from ..framework import unique_name  # noqa: F401
@@ -20,6 +24,8 @@ from ..framework import core  # noqa: F401
 from ..framework.backward import append_backward, gradients  # noqa: F401
 from ..framework.executor import sync_prepared_state  # noqa: F401
 from .. import optimizer     # noqa: F401
+from .. import regularizer   # noqa: F401
+from .. import clip          # noqa: F401
 
 name_scope = unique_name.name_scope
 

@@ -20,6 +20,9 @@ results are only waited for when read.
   scope by reference (``Executor.run`` and ``io.save_persistables`` call
   it first).
 
+Both take a :class:`~.compiler.CompiledProgram` too: ``run`` resolves its
+pass variant for the fetch list on every call, ``prepare`` once.
+
 A program with a ``backward`` meta-op (``append_backward``) runs through
 :func:`run_training_block`, the counterpart of the JAX package's
 ``lower_block_with_backward``: the forward ops under autograd with the
@@ -40,6 +43,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .compiler import CompiledProgram
 from .core import (CUDAPlace, Place, Program, Variable, default_main_program,
                    device_for, grad_var_name)
 from .errors import EnforceNotMet, UnimplementedError
@@ -336,8 +340,11 @@ class PreparedStep:
         self._steps: Dict[Any, int] = {}
         self._lock = threading.Lock()
         self._donate = donate_state
-        self._written = [n for n in self._state_names
-                         if any(n in op.output_names() for op in self._ops)]
+        # every persistable the program writes, read first (parameters,
+        # moments) or not (an LR schedule's current value)
+        self._written = [n for n in dict.fromkeys(
+            n for op in self._ops for n in op.output_names())
+            if _is_persistable(program, n)]
         self.stats = {"steps": 0}
         if donate_state:
             if not hasattr(scope, "_prepared"):
@@ -371,8 +378,9 @@ class PreparedStep:
                 return          # the scope was written since: it is newer
             changed = False
             for n in self._written:
-                if self._scope.vars.get(n) is not self._state[n]:
-                    self._scope.vars[n] = self._state[n]
+                v = self._state.get(n)
+                if v is not None and self._scope.vars.get(n) is not v:
+                    self._scope.vars[n] = v
                     changed = True
             if changed:
                 self._scope._version += 1
@@ -402,7 +410,7 @@ class PreparedStep:
                 donate_state=self._donate)
             run_block(self._ops, env, ctx)
             for n in self._written:
-                if env[n] is self._state[n]:
+                if env[n] is self._state.get(n):
                     continue                # updated in place
                 if self._donate:
                     self._state[n] = env[n]   # handed over by sync_scope
@@ -438,6 +446,8 @@ class Executor:
         sync_prepared_state(scope)
         feed = feed or {}
         fetch_names = _fetch_names(fetch_list)
+        if isinstance(program, CompiledProgram):
+            program = program._variant_for(fetch_names)
         env: Dict[str, Any] = {}
         for n in external_inputs(program):
             if n in feed:
@@ -470,9 +480,13 @@ class Executor:
         """Resolve ``program`` + ``fetch_list`` into a
         :class:`PreparedStep` with device-resident state: read-only for
         serving, or owned and updated in place with ``donate_state=True``
-        (training).  Pass an example ``feed`` to run it once eagerly."""
+        (training).  Pass an example ``feed`` to run it once eagerly.  A
+        :class:`~.compiler.CompiledProgram`'s pass variant for the fetch
+        list is pinned here, once."""
         program = program or default_main_program()
         scope = scope or global_scope()
+        if isinstance(program, CompiledProgram):
+            program = program._variant_for(_fetch_names(fetch_list))
         return PreparedStep(self, program, feed_names, fetch_list or [],
                             scope, feed=feed, donate_state=donate_state)
 

@@ -1,5 +1,6 @@
 """Layer builders — the port of paddle_tpu/layers/ (the subset the BERT
-encoder and its pretraining heads call)."""
+encoder and its pretraining heads call, and the LR schedules of
+``lr_scheduler.py``)."""
 
 from .math_ops import (_binary, _broadcast_shape, _to_variable,  # noqa: F401
                        elementwise_add, elementwise_sub, elementwise_mul,
@@ -10,3 +11,7 @@ from .nn import (data, fc, layer_norm, embedding, softmax,  # noqa: F401
                  dropout)
 from .tensor_ops import (cast, fill_constant, reshape,  # noqa: F401
                          transpose, split, unsqueeze, slice)
+from ..lr_scheduler import (noam_decay, exponential_decay,  # noqa: F401
+                            natural_exp_decay, inverse_time_decay,
+                            polynomial_decay, piecewise_decay, cosine_decay,
+                            linear_lr_warmup)

@@ -12,11 +12,9 @@ called through ``ctypes`` by a Python wrapper that:
   raises on a non-zero return code (a refused launch);
 * adds one to its entry in :data:`LAUNCHES` each time it launches.
 
-A kernel with a backward is called through a ``torch.autograd.Function``
-whose backward is a kernel too (flash attention, LayerNorm); a
-forward-only kernel refuses to run on the card while an input needs a
-gradient (:func:`refuse_grad`), since its output would silently cut the
-autograd graph.
+Every kernel with a backward is called through a
+``torch.autograd.Function`` whose backward is a kernel too (flash
+attention, LayerNorm, add+LayerNorm, bias+GELU).
 
 Nothing here builds, loads a library or imports anything GPU-specific at
 import time."""
@@ -36,7 +34,9 @@ LAUNCHES: Dict[str, int] = {
     "layer_norm_fwd": 0,
     "layer_norm_bwd": 0,
     "add_layer_norm_fwd": 0,
+    "add_layer_norm_bwd": 0,
     "bias_gelu_fwd": 0,
+    "bias_gelu_bwd": 0,
     "adam": 0,
 }
 
@@ -97,10 +97,3 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
 
-
-def refuse_grad(what: str, *tensors):
-    """A forward-only kernel's output has no autograd history: refuse to
-    launch it while an input needs a gradient."""
-    if needs_grad(*tensors):
-        raise RuntimeError(f"{what}: the CUDA kernel has no backward "
-                           f"kernel, and an input requires grad")

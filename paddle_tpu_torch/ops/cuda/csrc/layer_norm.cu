@@ -1,9 +1,11 @@
-// Row LayerNorm forward, with or without a residual addend, and LayerNorm
-// backward, for Hopper.
+// Row LayerNorm forward and backward, each with or without a residual
+// addend, for Hopper.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas/fused_ops.py
 // _ln_fwd_kernel (LN(x)), _aln_fwd_kernel (LN(a + b), the sum never
-// written to memory) and _ln_bwd_kernel (dx, dscale, dbias).
+// written to memory), _ln_bwd_kernel (dx, dscale, dbias) and
+// _aln_bwd_kernel (the same for LN(a + b): the sum is recomputed in
+// float32 and one dx is the gradient of both addends).
 //
 // Bound on an H100: bytes.  Each row of D elements is read once per addend
 // and written once, and the work is ~8 operations per element, far below
@@ -25,7 +27,9 @@
 // owns its columns, so no atomics); the block writes its partials to
 // partial[block][2][D], and a second kernel sums them per column in block
 // order.  The sums are deterministic.  Bound: bytes (x and dy read, dx
-// written; the partials add 2 * 4 * D bytes per block).
+// written; the partials add 2 * 4 * D bytes per block).  The residual
+// variant reads b as well and adds it to x as the row is staged, so the
+// sum never reaches device memory in the backward either.
 #include "common.cuh"
 
 namespace {
@@ -79,8 +83,9 @@ cudaError_t launch(const void* a, const void* b, const void* scale,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kResidual>
 __global__ void ln_bwd_kernel(const T* __restrict__ x,
+                              const T* __restrict__ b,
                               const T* __restrict__ scale,
                               const T* __restrict__ dy, T* __restrict__ dx,
                               float* __restrict__ partial, int rows, int d,
@@ -100,7 +105,8 @@ __global__ void ln_bwd_kernel(const T* __restrict__ x,
     const size_t base = static_cast<size_t>(r) * d;
     float sum = 0.f;
     for (int i = threadIdx.x; i < d; i += kThreads) {
-      const float u = pt_load(x + base + i);
+      float u = pt_load(x + base + i);
+      if (kResidual) u += pt_load(b + base + i);
       xs[i] = u;
       gs[i] = pt_load(dy + base + i);
       sum += u;
@@ -151,21 +157,22 @@ __global__ void ln_bwd_colsum_kernel(const float* __restrict__ partial,
   pt_store(c < d ? dscale + c : dbias + (c - d), acc);
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* x, const void* scale, const void* dy,
-                       void* dx, void* dscale, void* dbias, void* partial,
-                       int rows, int d, int rows_per_block, int nblocks,
-                       float eps, cudaStream_t stream) {
+template <typename T, bool kResidual>
+cudaError_t launch_bwd(const void* x, const void* b, const void* scale,
+                       const void* dy, void* dx, void* dscale, void* dbias,
+                       void* partial, int rows, int d, int rows_per_block,
+                       int nblocks, float eps, cudaStream_t stream) {
   const size_t smem = 4 * static_cast<size_t>(d) * sizeof(float);
-  auto kernel = ln_bwd_kernel<T>;
+  auto kernel = ln_bwd_kernel<T, kResidual>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<nblocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale),
-      static_cast<const T*>(dy), static_cast<T*>(dx),
-      static_cast<float*>(partial), rows, d, rows_per_block, eps);
+      static_cast<const T*>(x), static_cast<const T*>(b),
+      static_cast<const T*>(scale), static_cast<const T*>(dy),
+      static_cast<T*>(dx), static_cast<float*>(partial), rows, d,
+      rows_per_block, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ln_bwd_colsum_kernel<T><<<(2 * d + kThreads - 1) / kThreads, kThreads, 0,
@@ -203,26 +210,36 @@ extern "C" int pt_layer_norm_fwd(int dtype, const void* a, const void* b,
   return static_cast<int>(err);
 }
 
-// LayerNorm backward over rows of x[rows, d] with scale[d] and dy[rows, d]:
-// dx[rows, d] and dscale, dbias[d] (same dtype as x).  `partial` is float32
-// scratch of [nblocks, 2, d] with nblocks = ceil(rows / rows_per_block).
-// Same width rule as the forward.
-extern "C" int pt_layer_norm_bwd(int dtype, const void* x, const void* scale,
-                                 const void* dy, void* dx, void* dscale,
-                                 void* dbias, void* partial, int rows, int d,
-                                 int rows_per_block, int nblocks, float eps,
-                                 void* stream) {
+// LayerNorm backward over rows of x (+ b)[rows, d] with scale[d] and
+// dy[rows, d]: dx[rows, d] (with `b`, the gradient of both addends) and
+// dscale, dbias[d] (same dtype as x).  `b` may be NULL (plain LN).
+// `partial` is float32 scratch of [nblocks, 2, d] with
+// nblocks = ceil(rows / rows_per_block).  Same width rule as the forward.
+extern "C" int pt_layer_norm_bwd(int dtype, const void* x, const void* b,
+                                 const void* scale, const void* dy, void* dx,
+                                 void* dscale, void* dbias, void* partial,
+                                 int rows, int d, int rows_per_block,
+                                 int nblocks, float eps, void* stream) {
   if (d <= 0 || d % 128 != 0 || d > 8192 || rows < 1 || rows_per_block < 1 ||
       nblocks != (rows + rows_per_block - 1) / rows_per_block)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == PT_F32) {
-    err = launch_bwd<float>(x, scale, dy, dx, dscale, dbias, partial, rows,
-                            d, rows_per_block, nblocks, eps, s);
+    err = b ? launch_bwd<float, true>(x, b, scale, dy, dx, dscale, dbias,
+                                      partial, rows, d, rows_per_block,
+                                      nblocks, eps, s)
+            : launch_bwd<float, false>(x, b, scale, dy, dx, dscale, dbias,
+                                       partial, rows, d, rows_per_block,
+                                       nblocks, eps, s);
   } else if (dtype == PT_BF16) {
-    err = launch_bwd<__nv_bfloat16>(x, scale, dy, dx, dscale, dbias, partial,
-                                    rows, d, rows_per_block, nblocks, eps, s);
+    err = b ? launch_bwd<__nv_bfloat16, true>(x, b, scale, dy, dx, dscale,
+                                              dbias, partial, rows, d,
+                                              rows_per_block, nblocks, eps, s)
+            : launch_bwd<__nv_bfloat16, false>(x, b, scale, dy, dx, dscale,
+                                               dbias, partial, rows, d,
+                                               rows_per_block, nblocks, eps,
+                                               s);
   } else {
     err = cudaErrorInvalidValue;
   }

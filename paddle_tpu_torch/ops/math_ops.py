@@ -132,6 +132,7 @@ register("sigmoid")(_unary(torch.sigmoid))
 register("tanh")(_unary(torch.tanh))
 register("exp")(_unary(torch.exp))
 register("sqrt")(_unary(torch.sqrt))
+register("abs")(_unary(torch.abs))
 register("erf")(_unary(torch.erf))
 
 
@@ -144,3 +145,32 @@ def _gelu(ctx, ins, attrs):
 def _mean(ctx, ins, attrs):
     """The mean of every element, as a 0-d tensor."""
     return {"Out": torch.mean(x(ins, "X"))}
+
+
+# ---------------------------------------------------------------------------
+# gradient clipping (ref: operators/clip_op, clip_by_norm_op,
+# squared_l2_norm_op)
+# ---------------------------------------------------------------------------
+
+
+@register("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": torch.clamp(x(ins, "X"), attrs.get("min"),
+                               attrs.get("max"))}
+
+
+@register("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    a = x(ins, "X")
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(a * a))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return {"Out": a * scale.to(a.dtype)}
+
+
+@register("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    a = x(ins, "X")
+    return {"Out": torch.sum(a * a).reshape(1)}

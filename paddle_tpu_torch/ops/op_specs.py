@@ -3,8 +3,7 @@ routes in paddle_tpu/ops/op_specs.py.
 
 Each :class:`~.registry.CudaLowering` below carries a ``supported``
 predicate stating exactly what its CUDA kernel rejects (head dims, norm
-widths, dtypes, an input that needs a gradient the kernel has no backward
-for), evaluated on the op's input tensors, so
+widths, dtypes), evaluated on the op's input tensors, so
 ``cuda_route`` reports every hit and every fallback with its reason, and
 refuses (raises) on the card what a gate rejects.  :func:`kernel_facts`
 gives each kernel's source and the TPU kernel it replaces."""
@@ -13,18 +12,8 @@ from __future__ import annotations
 
 from .cuda import flash_attention as cuda_flash
 from .cuda import fused_ops as cuda_fused
-from .cuda import needs_grad
 from .cuda import optimizer as cuda_opt
 from .registry import ROUTES, CudaLowering, register_routes, x
-
-
-def _no_backward_kernel(ins):
-    """A forward-only kernel cannot run while autograd records: its output
-    would cut the graph.  Returns the gate's (ok, reason)."""
-    if needs_grad(*(t for vals in ins.values() for t in vals or ()
-                    if hasattr(t, "requires_grad"))):
-        return False, "no-backward-kernel"
-    return True, ""
 
 
 def _attn_dims(ins, attrs):
@@ -80,9 +69,6 @@ def _norm_rows_supported(ins, attrs):
 
 
 def _add_ln_supported(ins, attrs):
-    ok, why = _no_backward_kernel(ins)
-    if not ok:
-        return ok, why
     res = x(ins, "Residual")
     if res is None:
         return False, "no-residual"
@@ -97,9 +83,6 @@ def _is_bias_gelu(attrs):
 
 
 def _bias_gelu_supported(ins, attrs):
-    ok, why = _no_backward_kernel(ins)
-    if not ok:
-        return ok, why
     a, b = x(ins, "X"), x(ins, "Y")
     if a is None or b is None:
         return False, "shape-unknown"
@@ -130,7 +113,9 @@ _FLASH_DKV_TPU = "paddle_tpu/ops/pallas/flash_attention.py:177"  # _bwd_dkv_kern
 _LN_TPU = "paddle_tpu/ops/pallas/fused_ops.py:58"             # _ln_fwd_kernel
 _LN_BWD_TPU = "paddle_tpu/ops/pallas/fused_ops.py:68"         # _ln_bwd_kernel
 _ADD_LN_TPU = "paddle_tpu/ops/pallas/fused_ops.py:152"        # _aln_fwd_kernel
+_ADD_LN_BWD_TPU = "paddle_tpu/ops/pallas/fused_ops.py:162"    # _aln_bwd_kernel
 _BIAS_GELU_TPU = "paddle_tpu/ops/pallas/fused_ops.py:259"     # _bg_fwd_kernel
+_BIAS_GELU_BWD_TPU = "paddle_tpu/ops/pallas/fused_ops.py:264"  # _bg_bwd_kernel
 _ADAM_TPU = "paddle_tpu/ops/pallas/fused_ops.py:331"          # _adam_kernel
 
 # flash forward, dq and dk/dv: two sources, so the facts name each one
@@ -155,15 +140,17 @@ ROUTE_LN = CudaLowering(
     replaces=(_LN_TPU, _LN_BWD_TPU), source=_CSRC + "layer_norm.cu")
 ROUTE_ADD_LN = CudaLowering(
     "fused_add_layer_norm", flag="use_pallas_fused",
-    supported=_add_ln_supported, kernels=("add_layer_norm_fwd",),
-    replaces=(_ADD_LN_TPU,), source=_CSRC + "layer_norm.cu")
+    supported=_add_ln_supported,
+    kernels=("add_layer_norm_fwd", "add_layer_norm_bwd"),
+    replaces=(_ADD_LN_TPU, _ADD_LN_BWD_TPU), source=_CSRC + "layer_norm.cu")
 # only add+gelu has a kernel: other functor pairs (the pooled tanh) are
 # not in play for this route, so they are skipped, not counted as
 # fallbacks
 ROUTE_BIAS_GELU = CudaLowering(
     "fused_bias_gelu", flag="use_pallas_fused",
     match=_is_bias_gelu, supported=_bias_gelu_supported,
-    kernels=("bias_gelu_fwd",), replaces=(_BIAS_GELU_TPU,),
+    kernels=("bias_gelu_fwd", "bias_gelu_bwd"),
+    replaces=(_BIAS_GELU_TPU, _BIAS_GELU_BWD_TPU),
     source=_CSRC + "bias_gelu.cu")
 
 # the lazy (SparseRows) update is a plain composition, as in the JAX
@@ -179,6 +166,7 @@ register_routes("layer_norm", ROUTE_LN)
 register_routes("fused_add_layernorm", ROUTE_ADD_LN)
 register_routes("fused_elemwise_activation", ROUTE_BIAS_GELU)
 register_routes("adam", ROUTE_ADAM)
+register_routes("adamw", ROUTE_ADAM)        # the same update, then decay
 
 
 def kernel_facts():

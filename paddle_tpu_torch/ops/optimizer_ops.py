@@ -1,5 +1,5 @@
-"""Optimizer update ops — the port of paddle_tpu/ops/optimizer_ops.py (sgd
-and adam; ref: operators/optimizers/sgd_op, adam_op).
+"""Optimizer update ops — the port of paddle_tpu/ops/optimizer_ops.py (sgd,
+adam and adamw; ref: operators/optimizers/sgd_op, adam_op).
 
 The JAX package returns new arrays (ParamOut, Moment1Out, ...) that the
 executor writes back under the same names.  The port does the same in
@@ -11,7 +11,10 @@ The dense ``adam`` runs on the ``fused_adam`` route (the hand-written
 one-pass kernel, ops/cuda/optimizer.py).  Its bias-corrected step
 ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)`` and the beta-power
 updates are device tensor ops, so no op waits for the host.  The lazy
-``SparseRows`` branch is a plain composition, as in the JAX package."""
+``SparseRows`` branch is a plain composition, as in the JAX package.
+``adamw`` runs the same update on the same kernel, then subtracts the
+decoupled decay ``lr * coeff * p`` of the parameter as it was before the
+update."""
 
 from __future__ import annotations
 
@@ -46,8 +49,7 @@ def _lazy_adam(p, g, m1, m2, b1p, b2p, lr_t, beta1, beta2, eps, rows):
             "Beta1PowOut": b1p * beta1, "Beta2PowOut": b2p * beta2}
 
 
-@register("adam")
-def _adam(ctx, ins, attrs):
+def _adam_update(op_type, ctx, ins, attrs):
     p, g, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "LearningRate")
     m1, m2 = x(ins, "Moment1"), x(ins, "Moment2")
     b1p, b2p = x(ins, "Beta1Pow"), x(ins, "Beta2Pow")
@@ -60,7 +62,7 @@ def _adam(ctx, ins, attrs):
         return _lazy_adam(p, g, m1, m2, b1p, b2p, lr_t, beta1, beta2, eps,
                           ins["SparseRows"])
     donate = ctx.donate_state
-    route, _ = cuda_route("adam", ins, attrs)
+    route, _ = cuda_route(op_type, ins, attrs)
     if route is not None:
         if not donate:              # Executor.run: leave the inputs intact
             p, m1, m2 = p.clone(), m1.clone(), m2.clone()
@@ -77,3 +79,25 @@ def _adam(ctx, ins, attrs):
         b1p_out, b2p_out = b1p * beta1, b2p * beta2
     return {"ParamOut": p_out, "Moment1Out": m1_out, "Moment2Out": m2_out,
             "Beta1PowOut": b1p_out, "Beta2PowOut": b2p_out}
+
+
+@register("adam")
+def _adam(ctx, ins, attrs):
+    return _adam_update("adam", ctx, ins, attrs)
+
+
+@register("adamw")
+def _adamw(ctx, ins, attrs):
+    """Adam, then ``ParamOut -= lr * coeff * Param`` with ``Param`` read
+    before the update, as the JAX package computes it.  The decay term is
+    taken first: with ``donate_state`` the update writes p in place."""
+    if not attrs.get("with_decay", True):
+        return _adam_update("adamw", ctx, ins, attrs)
+    p, lr = x(ins, "Param"), x(ins, "LearningRate")
+    decay = lr.to(p.dtype) * attrs.get("coeff", 0.01) * p
+    out = _adam_update("adamw", ctx, ins, attrs)
+    if ctx.donate_state:
+        out["ParamOut"].sub_(decay)
+    else:
+        out["ParamOut"] = out["ParamOut"] - decay
+    return out

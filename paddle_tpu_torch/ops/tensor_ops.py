@@ -92,6 +92,15 @@ def _cast(ctx, ins, attrs):
     return {"Out": x(ins, "X").to(torch_dtype(attrs["out_dtype"]))}
 
 
+@register("increment")
+def _increment(ctx, ins, attrs):
+    """X + step in X's dtype (ref: increment_op.h — an int counter stays
+    int)."""
+    a = x(ins, "X")
+    return {"Out": a + torch.as_tensor(attrs.get("step", 1.0),
+                                       dtype=a.dtype, device=a.device)}
+
+
 # ---------------------------------------------------------------------------
 # shape manipulation
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """Optimizers — the port of paddle_tpu/optimizer.py (the static-graph
-``Optimizer`` base, SGD and Adam; ref: python/paddle/fluid/optimizer.py).
+``Optimizer`` base, SGD, Adam and AdamW; ref:
+python/paddle/fluid/optimizer.py).
 
 Same architecture as the reference: ``minimize = append_backward +
-apply_gradients``; the learning rate and the accumulators are persistable
-variables initialised in the startup program, and each parameter gets one
-optimizer op in the main program (``ops/optimizer_ops.py``; dense Adam
-runs on the fused Adam kernel).  Regularization and gradient clipping are
-not ported yet and raise."""
+apply_gradients``; the learning rate (a float, a Variable or an
+``lr_scheduler`` schedule) and the accumulators are persistable variables
+initialised in the startup program, and each parameter gets one optimizer
+op in the main program (``ops/optimizer_ops.py``; dense Adam and AdamW
+run on the fused Adam kernel).  ``apply_gradients`` appends the
+regularization ops first and the gradient clip after them, the JAX
+package's order."""
 
 from __future__ import annotations
 
@@ -16,6 +19,9 @@ from .framework import unique_name
 from .framework.backward import append_backward
 from .framework.core import (Variable, default_main_program,
                              default_startup_program, program_guard)
+from .clip import get_gradient_clip
+from .lr_scheduler import LRScheduler
+from .regularizer import append_regularization_ops
 
 
 class Optimizer:
@@ -23,17 +29,13 @@ class Optimizer:
 
     def __init__(self, learning_rate, regularization=None, grad_clip=None,
                  name=None, parameter_list=None):
-        if regularization is not None:
-            raise NotImplementedError(
-                "Optimizer(regularization=...) is not ported yet")
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "Optimizer(grad_clip=...) is not ported yet")
         if parameter_list is not None:
             raise NotImplementedError(
                 "Optimizer(parameter_list=...) is the dygraph API, which is "
                 "not ported")
         self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._grad_clip = grad_clip
         self._name = name
         self._accumulators: Dict[str, Dict[str, Variable]] = {}
         self._lr_var: Optional[Variable] = None
@@ -45,10 +47,9 @@ class Optimizer:
         if isinstance(self._learning_rate, Variable):
             self._lr_var = self._learning_rate
             return
-        if not isinstance(self._learning_rate, (int, float)):
-            raise NotImplementedError(
-                f"learning rate {type(self._learning_rate).__name__}: only "
-                f"a float or a Variable is ported (schedulers come later)")
+        if isinstance(self._learning_rate, LRScheduler):
+            self._lr_var = self._learning_rate._create_ops()
+            return
         name = unique_name.generate("learning_rate")
         main = default_main_program().global_block()
         startup = default_startup_program().global_block()
@@ -117,6 +118,13 @@ class Optimizer:
     def apply_gradients(self, params_grads):
         prog = default_main_program()
         block = prog.current_block()
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
+        grad_clip = self._grad_clip
+        if grad_clip is None:
+            grad_clip = get_gradient_clip()
+        if grad_clip is not None:
+            params_grads = grad_clip(params_grads)
         self._create_global_learning_rate()
         self._create_accumulators(prog.global_block(),
                                   [p for p, _ in params_grads])
@@ -188,8 +196,7 @@ class AdamOptimizer(Optimizer):
                   "Moment2": [self._get_accumulator("moment2", p)],
                   "Beta1Pow": [self._get_accumulator("beta1_pow_acc", p)],
                   "Beta2Pow": [self._get_accumulator("beta2_pow_acc", p)]}
-        attrs = {"beta1": self._beta1, "beta2": self._beta2,
-                 "epsilon": self._epsilon}
+        attrs = self._op_attrs()
         if self._lazy_mode:
             rows = self._lookup_ids_for(block, p)
             if rows:
@@ -203,6 +210,25 @@ class AdamOptimizer(Optimizer):
                      "Beta2PowOut": inputs["Beta2Pow"]},
             attrs=attrs)
 
+    def _op_attrs(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon}
+
+
+class AdamWOptimizer(AdamOptimizer):
+    """Adam with decoupled weight decay: the ``adamw`` op subtracts
+    ``lr * weight_decay * p`` after the Adam update."""
+    type = "adamw"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, weight_decay=0.01, **kw):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
+        self._coeff = weight_decay
+
+    def _op_attrs(self):
+        return dict(super()._op_attrs(), coeff=self._coeff)
+
 
 SGD = SGDOptimizer
 Adam = AdamOptimizer
+AdamW = AdamWOptimizer

@@ -121,7 +121,8 @@ def test_kernel_wrappers_run_plain_on_cpu_and_launch_nothing():
     assert port_cuda.launch_counts() == {
         "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
         "flash_attention_bwd_dkv": 0, "layer_norm_fwd": 0,
-        "layer_norm_bwd": 0, "add_layer_norm_fwd": 0, "bias_gelu_fwd": 0,
+        "layer_norm_bwd": 0, "add_layer_norm_fwd": 0,
+        "add_layer_norm_bwd": 0, "bias_gelu_fwd": 0, "bias_gelu_bwd": 0,
         "adam": 0}
 
 
@@ -147,7 +148,7 @@ def test_route_table_names_every_kernel_and_what_it_replaces():
     table = registry.route_table()
     assert set(table) == {"fused_attention", "multihead_matmul",
                           "layer_norm", "fused_add_layernorm",
-                          "fused_elemwise_activation", "adam"}
+                          "fused_elemwise_activation", "adam", "adamw"}
     kernels = {k for routes in table.values() for r in routes
                for k in r.kernels}
     assert kernels == set(port_cuda.LAUNCHES)

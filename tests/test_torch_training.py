@@ -27,6 +27,7 @@ from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.framework import core as tcore
 from paddle_tpu_torch.framework import unique_name as tun
 from paddle_tpu_torch.framework.errors import UnimplementedError
+from paddle_tpu_torch.framework.executor import backward_index
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.ops import cuda as port_cuda
 from paddle_tpu_torch.ops import registry
@@ -237,16 +238,32 @@ def _small_feeds(steps):
              "x": g.randn(3, 16).astype("float32")} for i in range(steps)]
 
 
-@pytest.mark.parametrize("opt", ["sgd", "adam", "adam-lazy", "gradients"])
+_SMALL_OPTS = {
+    "sgd": lambda f: f.optimizer.SGD(0.1),
+    "adam": lambda f: f.optimizer.Adam(0.01),
+    "adam-lazy": lambda f: f.optimizer.Adam(0.01, lazy_mode=True),
+    "gradients": None,
+    "adamw": lambda f: f.optimizer.AdamW(0.05, weight_decay=0.5),
+    "sgd-l1decay": lambda f: f.optimizer.SGD(
+        0.1, regularization=f.regularizer.L1Decay(0.05)),
+    "sgd-clip-by-value": lambda f: f.optimizer.SGD(
+        0.1, grad_clip=f.clip.GradientClipByValue(0.02)),
+    "sgd-clip-by-norm": lambda f: f.optimizer.SGD(
+        0.1, grad_clip=f.clip.GradientClipByNorm(0.05)),
+    "adam-exponential-l2-global-norm": lambda f: f.optimizer.Adam(
+        f.layers.exponential_decay(0.05, 1, 0.5),
+        regularization=f.regularizer.L2Decay(0.1),
+        grad_clip=f.clip.GradientClipByGlobalNorm(0.05)),
+}
+
+
+@pytest.mark.parametrize("opt", list(_SMALL_OPTS))
 def test_small_programs_match_the_jax_package(opt):
     """SGD, dense Adam, lazy Adam (rows the batch never touched keep their
-    parameters and moments) and ``gradients`` w.r.t. a feed, 3 steps
+    parameters and moments), ``gradients`` w.r.t. a feed, AdamW, the
+    regularizers, the three gradient clips and an LR schedule, 3 steps
     through ``Executor.run`` of both packages from one startup."""
-    make_opt = {
-        "sgd": lambda f: f.optimizer.SGD(0.1),
-        "adam": lambda f: f.optimizer.Adam(0.01),
-        "adam-lazy": lambda f: f.optimizer.Adam(0.01, lazy_mode=True),
-        "gradients": None}[opt]
+    make_opt = _SMALL_OPTS[opt]
     feeds = _small_feeds(3)
     jmain, jstart, jfetch = _small_program(jfluid, jcore, jun, make_opt)
     jscope = jfluid.Scope()
@@ -277,7 +294,7 @@ def test_small_programs_match_the_jax_package(opt):
     for n in names:
         np.testing.assert_allclose(scope.find_var(n).numpy(), jfinal[n],
                                    rtol=TOL, atol=TOL, err_msg=n)
-    if opt.startswith("adam"):
+    if opt in ("adam", "adam-lazy"):
         moved = not np.array_equal(scope.find_var(emb).numpy()[:10],
                                    rows_after_step1)
         assert moved == (opt == "adam")
@@ -306,8 +323,23 @@ def test_unported_backward_features_are_refused():
         with pytest.raises(UnimplementedError, match=words):
             exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
         bw.attrs.pop(attr)
-    with pytest.raises(NotImplementedError, match="regularization"):
-        tfluid.optimizer.Adam(1e-3, regularization=object())
+    # regularization is ported: L2Decay adds coeff * p to each gradient
+    # before the update reads it
+    tun.reset()
+    main, startup = tcore.Program(), tcore.Program()
+    with tcore.program_guard(main, startup):
+        x = tfluid.layers.data("x", shape=[4])
+        loss = tfluid.layers.mean(tfluid.layers.fc(x, 2))
+        tfluid.optimizer.Adam(
+            1e-3, regularization=tfluid.regularizer.L2Decay(0.5)
+        ).minimize(loss)
+    ops = main.global_block().ops
+    tail = [op.type for op in ops[backward_index(ops) + 1:]]
+    assert tail == ["scale", "sum"] * 2 + ["adam"] * 2
+    sums = [op for op in ops if op.type == "sum"]
+    assert all(op.output_names()[0] in adam.inputs["Grad"]
+               for op, adam in zip(sums, [o for o in ops
+                                           if o.type == "adam"]))
 
 
 # ---------------------------------------------------------------------------
@@ -319,38 +351,39 @@ def _meta(*shape, grad=False):
     return torch.empty(*shape, device="meta").requires_grad_(grad)
 
 
-def test_forward_only_kernels_refuse_inputs_that_need_a_gradient():
-    ctx = LoweringContext(device=torch.device("meta"))
-    ins = {"X": [_meta(4, 3, 256, grad=True)], "Residual": [_meta(4, 3, 256)],
-           "Scale": [_meta(256)], "Bias": [_meta(256)]}
-    with pytest.raises(UnimplementedError, match="no-backward-kernel"):
-        get_op("fused_add_layernorm")(ctx, ins, {"begin_norm_axis": 2})
-    ins = {"X": [_meta(4, 256, grad=True)], "Y": [_meta(256)]}
-    attrs = {"functor_list": ["elementwise_add", "gelu"]}
-    with pytest.raises(UnimplementedError, match="no-backward-kernel"):
-        get_op("fused_elemwise_activation")(ctx, ins, attrs)
-    # without autograd recording the same inputs pass the gate
-    with torch.no_grad():
-        route, _ = registry.cuda_route("fused_elemwise_activation", ins,
-                                       attrs)
-    assert route is not None
-    # and on the CPU the refusal is a counted fallback to the composition
-    cpu = {"X": [torch.zeros(4, 256, requires_grad=True)],
-           "Y": [torch.zeros(256)]}
-    route, why = registry.cuda_route("fused_elemwise_activation", cpu, attrs)
-    assert route is None and why == "no-backward-kernel"
+_GRAD_ROUTES = {
+    "layer_norm": lambda: ({"X": [_meta(4, 3, 768, grad=True)],
+                            "Scale": [_meta(768)], "Bias": [_meta(768)]},
+                           {"begin_norm_axis": 2}, "fused_layer_norm"),
+    "fused_attention": lambda: (
+        {"Q": [_meta(2, 128, 128, grad=True)],
+         "K": [_meta(2, 128, 128, grad=True)],
+         "V": [_meta(2, 128, 128, grad=True)]},
+        {"n_head": 2, "dropout_rate": 0.1, "is_test": False},
+        "flash_attention"),
+    "fused_add_layernorm": lambda: (
+        {"X": [_meta(4, 3, 256, grad=True)], "Residual": [_meta(4, 3, 256)],
+         "Scale": [_meta(256, grad=True)], "Bias": [_meta(256)]},
+        {"begin_norm_axis": 2}, "fused_add_layer_norm"),
+    "fused_elemwise_activation": lambda: (
+        {"X": [_meta(4, 256, grad=True)], "Y": [_meta(256, grad=True)]},
+        {"functor_list": ["elementwise_add", "gelu"]}, "fused_bias_gelu"),
+}
 
 
-def test_kernels_with_a_backward_take_inputs_that_need_a_gradient():
-    ins = {"X": [_meta(4, 3, 768, grad=True)], "Scale": [_meta(768)],
-           "Bias": [_meta(768)]}
-    route, _ = registry.cuda_route("layer_norm", ins, {"begin_norm_axis": 2})
-    assert route is not None and route.kernel == "fused_layer_norm"
-    q = _meta(2, 128, 128, grad=True)
-    route, _ = registry.cuda_route(
-        "fused_attention", {"Q": [q], "K": [q], "V": [q]},
-        {"n_head": 2, "dropout_rate": 0.1, "is_test": False})
+@pytest.mark.parametrize("op_type", list(_GRAD_ROUTES))
+def test_kernels_with_a_backward_take_inputs_that_need_a_gradient(op_type):
+    """Every kernel route of the training programs has a backward kernel,
+    so an input that needs a gradient is a hit on the card and on the
+    CPU alike, never a refusal or a fallback."""
+    ins, attrs, kernel = _GRAD_ROUTES[op_type]()
+    route, _ = registry.cuda_route(op_type, ins, attrs)
+    assert route is not None and route.kernel == kernel
+    cpu = {k: [torch.zeros(t.shape).requires_grad_(t.requires_grad)
+               for t in v] for k, v in ins.items()}
+    route, _ = registry.cuda_route(op_type, cpu, attrs)
     assert route is not None
+    assert not registry.route_counts("fallback")
 
 
 def test_layer_norm_route_detaches_mean_and_variance():
