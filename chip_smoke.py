@@ -59,7 +59,33 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    forward, dq and dk/dv and 158 Adam kernels; one more step runs under
    the profiler; then, with dropout 0, 3 steps with every kernel on
    against every kernel flag off agree;
-9. print the ``kernels`` JSON line, the card's name and power limit, and
+9. the receive-stage kernels of the quantized gradient all-reduce against
+   their plain versions: dequant-accumulate (#11) and
+   dequant-accumulate-requantize (#12) on synthetic peer payloads at the
+   shard shapes of BERT-base's buckets (n = 2 with SB = 45,783, the word
+   embedding, and 13,844, a layer bucket; n = 4 and 8 with a ragged
+   SB = 1,003), int8 at block 256, int4 at blocks 256 and 128, and a
+   payload view that is not 16-byte aligned: #12's payload bit-identical
+   and its scales within 2e-6, #11 within 1e-5; timed like phase 2;
+10. data-parallel BERT-base: two ranks on the one card
+   (``python -m paddle_tpu_torch.distributed.launch --nproc 2
+   --selected_gpus 0,0 --backend gloo``; NCCL refuses two ranks of one
+   communicator on one GPU, so gloo carries the wire bytes through the
+   host while everything else runs on the card), each running this script
+   as ``--dp-worker``: the phase-8 program and recipe through ``fleet``
+   with ``quant_allreduce`` on the phase-8 global batch (16 rows per
+   rank), 10 steps in the int8 tier and 3 in the int4 tier.  Each rank
+   checks 13 ``c_fused_quant_allreduce_sum`` buckets, 13 launches of #12
+   (int8) or #11 (int4) per step, the phase-8 kernels' launches per step,
+   no route fallback, gloo and its device, a finite falling loss, and
+   reports its step time, one profiled step's device-busy share and the
+   wall time of its collectives (gloo staged through the host on a shared
+   card: no measure of NVLink); the parent holds the ranks' parameters
+   bit-identical after each leg, and 3 dropout-free int8 steps on two
+   ranks against 3 single-GPU steps: the losses within the int8 tier's
+   bound 5e-2, and Adam's first moments (linear in the reduced gradients)
+   within four int8 quanta (4/127) as a relative norm;
+11. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -119,6 +145,20 @@ PEAK_LR, WARMUP_STEPS, DECAY_STEPS = 1e-4, 3, 1_000_000
 WEIGHT_DECAY, CLIP_NORM = 0.01, 1.0
 TOL_LR = 1e-6             # LR read back vs the closed form (relative)
 EDGE_ROWS = 1003          # ragged last block of the backwards' row blocks
+# the quantized all-reduce's receive stage (KERNEL_CENSUS_r15.json parity)
+TOL_DQ_ACC = 1e-5         # #11 vs its plain version (abs)
+TOL_DQ_ACC_BLOCK = 1e-6   # #11, each block of max|plain| of that block
+TOL_DQ_SCALE = 2e-6       # #12's scales vs its plain version (abs)
+# data parallelism on one card: two ranks, 13 gradient buckets of BERT-base
+# at the default 32 MB cap, one #12 (int8) or #11 (int4) launch each
+DP_RANKS, DP_BUCKETS, DP_INT4_STEPS = 2, 13, 3
+DP_TIMEOUT_S = 420
+TOL_DP_INT8 = 5e-2        # int8 tier vs full precision (test_grad_comm.py)
+# Adam's first moments after the dropout-free legs, two ranks int8 vs one
+# GPU, as a relative norm over every parameter: four int8 quanta (a
+# quantum is 1/127 of its block's max).  The moments are linear in the
+# reduced gradients, which the LR schedule and AdamW hide from the losses
+TOL_DP_MOMENTS = 4 / 127
 
 class SmokeFailure(Exception):
     pass
@@ -835,6 +875,397 @@ def fused_training_checks(torch, results, cfg):
                    library_is="gelu_backward(dy, x + b) and its .sum(0)")
 
 
+def quant_peers(torch, gen, spec, n, sb, offset=0):
+    """n peers' quantized shards of sb blocks, peer-major as all_to_all
+    delivers them, from gradient-like data: each block's magnitude drawn
+    log-uniform in [1e-3, 1], so none lies far below the tolerances; with
+    ``offset`` the payload is a view ``offset`` bytes into a larger
+    buffer, so its base is not 16-byte aligned."""
+    from paddle_tpu_torch.ops.quantize_wire import quantize_blockwise
+    dev = torch.device("cuda", 0)
+    x = torch.randn(n * sb, spec.block_size, generator=gen, device=dev)
+    x *= 10.0 ** (-3 * torch.rand(n * sb, 1, generator=gen, device=dev))
+    q, s = quantize_blockwise(x.reshape(-1), spec)
+    if offset:
+        buf = torch.empty(q.numel() + offset, dtype=torch.int8, device=dev)
+        buf[offset:].copy_(q.reshape(-1))
+        q = buf[offset:].view(q.shape)
+    return q, s
+
+
+def quant_kernel_checks(torch, results):
+    """#11 and #12 against their plain versions at the shard shapes of
+    BERT-base's gradient buckets; the first row of each is its main-path
+    shape (n = 2, the word-embedding bucket's 45,783 blocks: #12 in the
+    int8 tier, #11 in the int4 tier)."""
+    from paddle_tpu_torch.ops.cuda import quant_kernels as QK
+    from paddle_tpu_torch.ops.quantize_wire import CompressionSpec
+    gen = torch.Generator(device=torch.device("cuda", 0)).manual_seed(
+        SEED + 4)
+    record = recorder(results)
+    # (wire dtype, block, peers, shard blocks, payload offset)
+    cases = [("int4", 256, 2, 45783, 0), ("int8", 256, 2, 45783, 0),
+             ("int8", 256, 2, 13844, 0), ("int4", 256, 2, 13844, 0),
+             ("int4", 128, 2, 13844, 0), ("int8", 256, 4, 1003, 0),
+             ("int8", 256, 8, 1003, 0), ("int4", 256, 8, 1003, 0),
+             ("int4", 128, 4, 1003, 0), ("int8", 256, 2, 1003, 1),
+             ("int4", 128, 2, 1003, 3)]
+    for dtype, block, n, sb, offset in cases:
+        spec = CompressionSpec(dtype, block)
+        q, s = quant_peers(torch, gen, spec, n, sb, offset)
+        shape = [n, sb, block, dtype] + (["unaligned"] if offset else [])
+        what = f"n={n} SB={sb} {dtype} block {block}" + \
+            (f" payload at +{offset} bytes" if offset else "")
+        in_bytes = q.numel() + 4 * s.numel()
+        elems = sb * block
+        acc = QK.dequant_accumulate(q, s, spec, n)
+        ref = QK.dequant_accumulate_plain(q, s, spec, n)
+        err = agree(torch, f"dequant_accumulate {what}", acc, ref, "float32",
+                    TOL_DQ_ACC)
+        # and block by block, of the block's own max|plain|, so a block of
+        # small values is held as tightly as a large one
+        blocks_ref = ref.reshape(sb, block)
+        block_err = float(((acc.reshape(sb, block) - blocks_ref).abs()
+                           .amax(1) / blocks_ref.abs().amax(1)
+                           .clamp_min(1e-30)).max())
+        log(f"  dequant_accumulate {what}: worst block max|Δ| / max|plain| "
+            f"{block_err:.3e} (tolerance {TOL_DQ_ACC_BLOCK:.0e})")
+        check(block_err <= TOL_DQ_ACC_BLOCK,
+              f"dequant_accumulate {what}: a block disagrees with its plain "
+              f"version ({block_err:.3e} of its max)")
+        record("dequant_accumulate", shape, "float32", err,
+               time_ms(torch, lambda: QK.dequant_accumulate(q, s, spec, n)),
+               time_ms(torch, lambda: QK.dequant_accumulate_plain(
+                   q, s, spec, n)), None,
+               in_bytes + 4 * elems, 2 * n * elems)
+        if dtype != "int8":
+            continue
+        q2, s2 = QK.dequant_accumulate_requant(q, s, spec, n)
+        p2, t2 = QK.dequant_accumulate_requant_plain(q, s, spec, n)
+        differ = int((q2 != p2).sum())
+        serr = max_err(torch, s2, t2)
+        log(f"  dequant_accumulate_requant {what}: payload bytes that differ "
+            f"{differ} (must be 0), scales max|Δ| {serr:.3e} (tolerance "
+            f"{TOL_DQ_SCALE:.0e})")
+        check(differ == 0, f"dequant_accumulate_requant {what}: payload not "
+                           f"bit-identical to its plain version")
+        check(serr <= TOL_DQ_SCALE, f"dequant_accumulate_requant {what}: "
+                                    f"scales disagree ({serr:.3e})")
+        # per element: n fused multiply-adds, then |x|, max, a division,
+        # rint and the clip: ~6 more
+        record("dequant_accumulate_requant", shape, "float32", serr,
+               time_ms(torch, lambda: QK.dequant_accumulate_requant(
+                   q, s, spec, n)),
+               time_ms(torch, lambda: QK.dequant_accumulate_requant_plain(
+                   q, s, spec, n)), None,
+               in_bytes + elems + 4 * sb, (2 * n + 6) * elems,
+               payload_bytes_differ=differ)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: data-parallel BERT-base, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def build_dp_train(cfg, tier):
+    """Phase 10's program as a rank writes it: phase 8's recipe and both
+    fusion passes, through ``fleet`` with the ``tier`` quantized gradient
+    all-reduce.  Returns (fleet.main_program, startup, loss, LR var)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.passes import apply_pass
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        s = DistributedStrategy()
+        s.quant_allreduce = True
+        s.quant_configs = {"dtype": tier, "block_size": 256,
+                           "stochastic_rounding": False}
+        s.build_strategy = fluid.BuildStrategy()
+        s.build_strategy.fuse_elewise_add_act_ops = True
+        lr = fluid.layers.linear_lr_warmup(
+            fluid.layers.polynomial_decay(PEAK_LR, DECAY_STEPS, 0.0,
+                                          power=1.0),
+            WARMUP_STEPS, 0.0, PEAK_LR)
+        inner = fluid.optimizer.AdamW(
+            lr, weight_decay=WEIGHT_DECAY,
+            grad_clip=fluid.clip.GradientClipByGlobalNorm(CLIP_NORM))
+        fleet.distributed_optimizer(inner, s).minimize(total)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    return fleet.main_program, startup, total, inner.learning_rate_var
+
+
+def params_digest(np, scope, program):
+    """sha256 over every parameter's bytes, in name order."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in sorted(program.all_parameters(), key=lambda v: v.name):
+        h.update(p.name.encode())
+        h.update(np.ascontiguousarray(
+            scope.find_var(p.name).detach().cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def moment1_tensors(scope, program):
+    """Adam's first moment of every parameter, by accumulator name."""
+    return {v.name: scope.find_var(v.name) for v in program.list_vars()
+            if v.persistable and "_moment1_" in v.name}
+
+
+def timed_collectives(torch):
+    """Wrap the gloo transfers of ops/collective_ops.py so one step can
+    report their wall time (synchronised first, so the time is the
+    transfer's and not the queued work's).  Returns (totals, undo)."""
+    from paddle_tpu_torch.ops import collective_ops as C
+    totals = {"ms": 0.0, "calls": 0}
+    saved = {n: getattr(C, n) for n in ("all_to_all", "all_gather",
+                                        "all_reduce")}
+
+    def wrap(fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            totals["ms"] += (time.perf_counter() - t0) * 1e3
+            totals["calls"] += 1
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(C, n, wrap(fn))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(C, n, fn)
+    return totals, undo
+
+
+def dp_leg(torch, np, cfg, tier, steps, measure, moments_path=None):
+    """One leg on this rank: ``steps`` steps of the data-parallel program
+    through prepare(donate_state=True) on the global batch, counts from
+    zero before and read after; with ``measure`` one profiled step and
+    one step with the collectives timed follow; with ``moments_path`` the
+    Adam first moments are saved there for the parent."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    program, startup, total, lr_var = build_dp_train(cfg, tier)
+    check(program._dp is not None and program._dp.world == DP_RANKS,
+          f"fleet.main_program is not data-parallel over {DP_RANKS} ranks")
+    buckets = sum(op.type == "c_fused_quant_allreduce_sum"
+                  for op in program._program.global_block().ops)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    exe.run(startup, scope=scope)
+    prepared = exe.prepare(program, fetch_list=[total, lr_var], scope=scope,
+                           donate_state=True)
+
+    def step():
+        handle, lr = prepared.run(feed)
+        return float(handle), float(lr)
+
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, _ = step()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = kernels.launch_counts()
+    fallbacks = registry.route_counts("fallback")
+    fluid.sync_prepared_state(scope)
+    out = {"tier": tier, "buckets": buckets, "losses": losses,
+           "step_s": step_s, "launches": launches,
+           "fallbacks": {str(k): v for k, v in fallbacks.items()},
+           "params_sha256": params_digest(np, scope, program._program)}
+    if moments_path:
+        torch.save({n: t.detach().cpu() for n, t in
+                    moment1_tensors(scope, program._program).items()},
+                   moments_path)
+    if measure:
+        steady = statistics.median(step_s[2:])
+        out["step_ms_median_3_10"] = steady * 1e3
+        out["profile"] = profile_step(torch, step, steady * 1e3)
+        totals, undo = timed_collectives(torch)
+        try:
+            t0 = time.perf_counter()
+            step()
+            out["collectives_step_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            undo()
+        out["collectives_ms"] = totals["ms"]
+        out["collective_calls"] = totals["calls"]
+    del prepared, scope
+    return out
+
+
+def dp_worker(out_dir):
+    """One rank of phase 10 (started by the launcher with
+    ``--dp-worker``): writes ``rank<r>.json`` to ``out_dir``; any failed
+    check exits non-zero, which fails the launch and the phase."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
+    from paddle_tpu_torch.models import bert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    dev = torch.device("cuda", fleet.place.device_id)
+    res = {"rank": rank, "world": fleet.worker_num(),
+           "backend": fleet.backend, "place": repr(fleet.place),
+           "device": torch.cuda.get_device_name(dev)}
+    log(f"[rank {rank}] {res}")
+    check(res["backend"] == "gloo", f"rank {rank} on {res['backend']}")
+    base = bert.BertConfig.base()
+    per_step = dict(FUSED_LAUNCHES)
+    for tier, steps, kernel in (("int8", TRAIN_STEPS,
+                                 "dequant_accumulate_requant"),
+                                ("int4", DP_INT4_STEPS,
+                                 "dequant_accumulate")):
+        leg = dp_leg(torch, np, base, tier, steps, measure=tier == "int8")
+        res[tier] = leg
+        log(f"[rank {rank}] {tier}: {leg['buckets']} buckets, losses "
+            f"{[round(x, 5) for x in leg['losses']]}, step times (s) "
+            f"{[round(x, 4) for x in leg['step_s']]}, launches "
+            f"{leg['launches']}")
+        check(leg["buckets"] == DP_BUCKETS,
+              f"{tier}: {leg['buckets']} quantized buckets, expected "
+              f"{DP_BUCKETS}")
+        check(not leg["fallbacks"], f"{tier}: route fallbacks "
+                                    f"{leg['fallbacks']}")
+        check(all(math.isfinite(x) for x in leg["losses"]),
+              f"{tier}: non-finite loss {leg['losses']}")
+        check(leg["losses"][-1] < leg["losses"][0],
+              f"{tier}: the loss did not fall: {leg['losses']}")
+        want = dict(per_step, **{kernel: DP_BUCKETS})
+        for name, n in leg["launches"].items():
+            check(n == want.get(name, 0) * steps,
+                  f"{tier}: {name} launched {n} times in {steps} steps, "
+                  f"expected {want.get(name, 0)} per step")
+    cfg0 = dataclasses.replace(base, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    res["dropout0_int8"] = dp_leg(
+        torch, np, cfg0, "int8", PLAIN_STEPS, measure=False,
+        moments_path=os.path.join(out_dir, "moment1.pt") if rank == 0
+        else None)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def single_gpu_run(torch, np, cfg):
+    """PLAIN_STEPS steps of phase 8's program on one GPU on the global
+    batch (the data-parallel run's reference): the losses and the Adam
+    first moments after them."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    program, startup, total, _ = build_fused_train(cfg)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    losses = [float(prepared.run(feed)[0]) for _ in range(PLAIN_STEPS)]
+    fluid.sync_prepared_state(scope)
+    moments = {n: t.detach().clone() for n, t in
+               moment1_tensors(scope, program._program).items()}
+    del prepared, scope
+    return losses, moments
+
+
+def dp_phase(torch, np, repo, cfg):
+    """Launch the two ranks, hold their results against each other and
+    the dropout-free leg against one GPU: the losses at the int8 tier's
+    bound, and the Adam first moments, which a wrong reduction moves."""
+    import dataclasses
+    from paddle_tpu_torch.ops.cuda import build
+    out_dir = os.path.join(build.BUILD_DIR, "smoke_dp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc", str(DP_RANKS), "--selected_gpus", "0,0",
+           "--backend", "gloo", "--timeout", str(DP_TIMEOUT_S),
+           os.path.join(repo, "chip_smoke.py"), "--dp-worker", out_dir]
+    log("  " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=repo, timeout=DP_TIMEOUT_S + 60).returncode
+    log(f"  the ranks ran {time.perf_counter() - t0:.1f} s, exit code {rc}")
+    check(rc == 0, f"a data-parallel rank failed (launcher exit code {rc})")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for leg in ("int8", "int4", "dropout0_int8"):
+        digests = {r[leg]["params_sha256"] for r in ranks}
+        log(f"  {leg}: parameter sha256 per rank "
+            f"{[r[leg]['params_sha256'][:16] for r in ranks]}")
+        check(len(digests) == 1, f"{leg}: the ranks' parameters differ")
+        losses = {tuple(r[leg]["losses"]) for r in ranks}
+        check(len(losses) == 1, f"{leg}: the ranks fetched other losses")
+    for r in ranks:
+        m = r["int8"]
+        prof = m.get("profile") or {}
+        log(f"  rank {r['rank']} ({r['place']}, {r['backend']}, "
+            f"{r['device']}): int8 step median of steps 3-{TRAIN_STEPS} "
+            f"{m['step_ms_median_3_10']:.2f} ms; device busy "
+            + (f"{100 * prof['busy_share']:.1f} % of it"
+               if prof else "not measured")
+            + f"; collectives (gloo staged through the host, two ranks on "
+            f"one card: no measure of NVLink) {m['collectives_ms']:.2f} ms "
+            f"in {m['collective_calls']} calls of a "
+            f"{m['collectives_step_ms']:.2f} ms step")
+    cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    single, single_m = single_gpu_run(torch, np, cfg0)
+    dp = ranks[0]["dropout0_int8"]["losses"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(dp, single))
+    log(f"  dropout 0, {PLAIN_STEPS} steps: two ranks int8 "
+        f"{[round(x, 6) for x in dp]} vs one GPU "
+        f"{[round(x, 6) for x in single]}: max relative gap {gap:.3e} "
+        f"(tolerance {TOL_DP_INT8:.0e}, the int8 tier's bound)")
+    check(gap <= TOL_DP_INT8, "two-rank int8 training strays from one GPU")
+    dp_m = torch.load(os.path.join(out_dir, "moment1.pt"),
+                      map_location=torch.device("cuda", 0))
+    check(dp_m.keys() == single_m.keys() and len(single_m) > 0,
+          "the two runs' Adam moments do not name the same parameters")
+    num = den = 0.0
+    worst, worst_name = 0.0, None
+    for n, ref in single_m.items():
+        d2 = float((dp_m[n].double() - ref.double()).pow(2).sum())
+        r2 = float(ref.double().pow(2).sum())
+        num, den = num + d2, den + r2
+        rel = math.sqrt(d2 / r2) if r2 else math.sqrt(d2)
+        if rel > worst:
+            worst, worst_name = rel, n
+    m_gap = math.sqrt(num / den)
+    log(f"  dropout 0, {PLAIN_STEPS} steps: Adam first moments, two ranks "
+        f"int8 vs one GPU, relative norm over {len(single_m)} parameters "
+        f"{m_gap:.3e} (tolerance {TOL_DP_MOMENTS:.3e}, four int8 quanta); "
+        f"worst parameter {worst_name} {worst:.3e}")
+    check(m_gap <= TOL_DP_MOMENTS,
+          "two-rank int8 gradients stray from one GPU's (Adam moments)")
+    del dp_m, single_m
+    return ranks, {"single_gpu_losses": single, "dp_int8_losses": dp,
+                   "max_rel_gap": gap, "moment1_rel_gap": m_gap,
+                   "moment1_worst": [worst_name, worst]}
+
+
 # ---------------------------------------------------------------------------
 # phase 7: BERT-base training through the port
 # ---------------------------------------------------------------------------
@@ -899,7 +1330,7 @@ PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                      "flash_bwd_dkv_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
                      "ln_bwd_colsum_kernel", "bias_gelu_fwd_kernel",
                      "bias_gelu_bwd_kernel", "bias_gelu_bwd_colsum_kernel",
-                     "adam_kernel")
+                     "adam_kernel", "dq_acc_kernel", "dq_acc_requant_kernel")
 
 
 def profile_step(torch, step, step_ms):
@@ -1123,6 +1554,8 @@ KERNEL_PATHS = {
     "adam": ("train", "adam"),
     "add_layer_norm_bwd": ("fused_train", "add_layer_norm_bwd"),
     "bias_gelu_bwd": ("fused_train", "bias_gelu_bwd"),
+    "dequant_accumulate": ("dp_int4", "dequant_accumulate"),
+    "dequant_accumulate_requant": ("dp_int8", "dequant_accumulate_requant"),
 }
 
 
@@ -1130,11 +1563,13 @@ def kernels_line(per_kernel, launches_by_path):
     """One entry per kernel, at its main-path shape, float32: served rows
     8 x 128 (flash B = 8, S = 128, padding bias), training B = 32, S = 128
     (flash with dropout 0.1; LayerNorm and add+LN rows 4096; bias+GELU
-    rows 4096 x 3072; Adam the word embedding's launch).  Sources and the
-    TPU kernels replaced come from the port's route table; a kernel also
-    launched on another path carries ``train_launches`` (phase 7) and
-    ``fused_train_launches`` (phase 8), and flash forward its dropout
-    variant's times."""
+    rows 4096 x 3072; Adam the word embedding's launch), and the
+    quantized all-reduce's receive stage at the word-embedding bucket's
+    shard (n = 2, SB = 45,783; #12 int8, #11 int4, launches from rank 0 of
+    phase 10).  Sources and the TPU kernels replaced come from the port's
+    route table; a kernel also launched on another path carries
+    ``train_launches`` (phase 7) and ``fused_train_launches`` (phase 8),
+    and flash forward its dropout variant's times."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     out = []
@@ -1150,8 +1585,8 @@ def kernels_line(per_kernel, launches_by_path):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
             "dtype": "float32", "path": path}
-        for other in ("train", "fused_train"):
-            if path != other and launches_by_path[other][name]:
+        for other in ("train", "fused_train", "dp_int8", "dp_int4"):
+            if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name == "flash_attention_fwd":
             drop = [r for r in per_kernel["flash_attention_fwd_dropout"]
@@ -1163,7 +1598,8 @@ def kernels_line(per_kernel, launches_by_path):
     return {"kernels": out}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     try:
         import numpy as np
         import torch
@@ -1180,6 +1616,12 @@ def main() -> int:
               "paddle_tpu_torch package beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
+    if argv[:1] == ["--dp-worker"]:
+        try:
+            return dp_worker(argv[1])
+        except SmokeFailure as e:
+            print(f"chip_smoke: rank FAILED: {e}", file=sys.stderr)
+            return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
@@ -1236,20 +1678,32 @@ def main() -> int:
             schedule=scheduled_lr)
         fused_training.update(train_plain_phase(
             torch, np, base, build_fused_train, FUSED_LAUNCHES))
+
+        log("phase 9: quantized all-reduce receive-stage kernels vs plain "
+            "versions")
+        quant_kernel_checks(torch, per_kernel)
+
+        log(f"phase 10: data-parallel BERT-base, {DP_RANKS} ranks on one "
+            f"card over gloo, int8 tier {TRAIN_STEPS} steps, int4 tier "
+            f"{DP_INT4_STEPS} steps")
+        dp_ranks, dp_parity = dp_phase(torch, np, repo, base)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
-    log(f"phase 9: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 11: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
+    log("data_parallel " + json.dumps({"ranks": dp_ranks,
+                                       "parity": dp_parity}))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
-        "fused_train": fused})))
+        "fused_train": fused, "dp_int8": dp_ranks[0]["int8"]["launches"],
+        "dp_int4": dp_ranks[0]["int4"]["launches"]})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

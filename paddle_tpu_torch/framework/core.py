@@ -9,7 +9,9 @@ executor interprets the program op by op on a ``torch.device``.
 Places name devices: ``CUDAPlace(i)`` is the GPU, ``CPUPlace()`` the host.
 :func:`device_for` turns a place into a ``torch.device`` and refuses a
 CUDA place when no GPU is present — the port never drops to the CPU
-unless the caller asked for it."""
+unless the caller asked for it.  :func:`backend_for` names the
+``torch.distributed`` backend of a rank on a place: NCCL on a GPU unless
+the caller names gloo, gloo on the CPU; it never switches on its own."""
 
 from __future__ import annotations
 
@@ -293,6 +295,13 @@ class Block:
         self.program._bump_version()
         return op
 
+    def _insert_op(self, index: int, type: str, inputs=None, outputs=None,
+                   attrs=None) -> Operator:
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
     def all_parameters(self) -> List[Parameter]:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
@@ -536,4 +545,24 @@ def device_for(place: Place):
         # as the XLA dots of the JAX package do — stated, not assumed
         torch.backends.cuda.matmul.allow_tf32 = False
         return torch.device("cuda", place.device_id)
+    raise TypeError(f"unsupported place {place!r}")
+
+
+def backend_for(place: Place, requested: Optional[str] = None) -> str:
+    """The ``torch.distributed`` backend of a rank on ``place``: on a GPU
+    NCCL, or gloo when the caller names it (two ranks on one GPU need
+    gloo: NCCL refuses them); on the CPU gloo.  Anything else raises."""
+    from .errors import InvalidArgumentError
+    req = (requested or "").strip().lower() or None
+    if isinstance(place, CPUPlace):
+        if req not in (None, "gloo"):
+            raise InvalidArgumentError(
+                f"backend {requested!r} on {place!r}: ranks on the CPU "
+                f"communicate over gloo")
+        return "gloo"
+    if isinstance(place, CUDAPlace):
+        if req not in (None, "nccl", "gloo"):
+            raise InvalidArgumentError(
+                f"backend {requested!r} on {place!r}: nccl or gloo")
+        return req or "nccl"
     raise TypeError(f"unsupported place {place!r}")

@@ -21,7 +21,14 @@ results are only waited for when read.
   it first).
 
 Both take a :class:`~.compiler.CompiledProgram` too: ``run`` resolves its
-pass variant for the fetch list on every call, ``prepare`` once.
+pass variant for the fetch list on every call, ``prepare`` once.  One
+compiled inside a ``torch.distributed`` group of more than one rank runs
+data-parallel, like the JAX package's ``shard_map`` over a ``dp`` axis:
+each rank keeps its ``1/world`` rows of every fed batch, the collectives
+reduce over the group, and fetches are merged across ranks (a float
+scalar averaged, an integer scalar summed, a batch-sharded tensor
+all-gathered; persistables and whatever the ``backward`` op or the ops
+after it write pass through).
 
 A program with a ``backward`` meta-op (``append_backward``) runs through
 :func:`run_training_block`, the counterpart of the JAX package's
@@ -31,7 +38,8 @@ the optimizer ops after it without autograd.
 
 Random ops draw from a ``torch.Generator`` on the run's device, seeded
 from ``program.random_seed`` and kept in the scope so successive runs
-continue one stream."""
+continue one stream; a data-parallel run draws from its own stream, the
+seed folded with the rank, so dropout masks differ across ranks."""
 
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from .compiler import CompiledProgram
 from .core import (CUDAPlace, Place, Program, Variable, default_main_program,
                    device_for, grad_var_name)
 from .errors import EnforceNotMet, UnimplementedError
+from ..ops.collective_ops import merge_fetch, slice_feed
 from ..ops.registry import LoweringContext, get_op
 
 _RNG_VAR = "@RNG_STATE@"
@@ -250,14 +259,33 @@ def _fetch_names(fetch_list) -> List[str]:
             for f in (fetch_list or [])]
 
 
-def _generator(scope: Scope, program: Program, device: torch.device):
-    g = scope.find_var(_RNG_VAR)
+def _generator(scope: Scope, program: Program, device: torch.device,
+               dp=None):
+    """The scope's random stream on ``device``; a data-parallel run's is
+    its own, seeded from ``program.random_seed`` folded with the rank."""
+    key, seed = _RNG_VAR, int(program.random_seed)
+    if dp is not None:
+        key = f"{_RNG_VAR}/rank{dp.rank}"
+        seed = (seed * 0x9E3779B1 + dp.rank + 1) % (1 << 63)
+    g = scope.find_var(key)
     if not isinstance(g, torch.Generator) or g.device != device:
         g = torch.Generator(device=device)
-        g.manual_seed(int(program.random_seed))
+        g.manual_seed(seed)
         # not a state write: prepared steps need not re-pull their weights
-        scope.vars[_RNG_VAR] = g
+        scope.vars[key] = g
     return g
+
+
+def _replicated_names(program: Program, ops) -> set:
+    """Fetchable names that are the same on every data-parallel rank: the
+    persistables, and everything the backward op or the ops after it
+    write (synced grads, the LR and optimizer zone)."""
+    names = {v.name for v in program.list_vars() if v.persistable}
+    bw_idx = backward_index(ops)
+    if bw_idx is not None:
+        for op in ops[bw_idx:]:
+            names.update(op.output_names())
+    return names
 
 
 def _is_persistable(program: Program, name: str) -> bool:
@@ -323,7 +351,7 @@ class PreparedStep:
 
     def __init__(self, executor: "Executor", program: Program, feed_names,
                  fetch_list, scope: Scope, feed=None,
-                 donate_state: bool = False):
+                 donate_state: bool = False, dp=None):
         self._exe = executor
         self._program = program
         self._scope = scope
@@ -340,6 +368,8 @@ class PreparedStep:
         self._steps: Dict[Any, int] = {}
         self._lock = threading.Lock()
         self._donate = donate_state
+        self._dp = dp
+        self._replicated = _replicated_names(program, self._ops)
         # every persistable the program writes, read first (parameters,
         # moments) or not (an LR schedule's current value)
         self._written = [n for n in dict.fromkeys(
@@ -403,11 +433,11 @@ class PreparedStep:
             self._steps[sig] = self._steps.get(sig, 0) + 1
             env = dict(self._state)
             for k, v in feed.items():
-                env[k] = to_device(v, device)
+                env[k] = to_device(slice_feed(self._dp, k, v), device)
             ctx = LoweringContext(
-                _generator(self._scope, self._program, device), device,
-                is_test=self._program._is_test,
-                donate_state=self._donate)
+                _generator(self._scope, self._program, device, self._dp),
+                device, is_test=self._program._is_test,
+                donate_state=self._donate, dp=self._dp)
             run_block(self._ops, env, ctx)
             for n in self._written:
                 if env[n] is self._state.get(n):
@@ -423,7 +453,9 @@ class PreparedStep:
         if device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
-        handles = [FetchHandle(env[n], n, event) for n in self._fetch_names]
+        handles = [FetchHandle(merge_fetch(self._dp, env[n],
+                                           n in self._replicated), n, event)
+                   for n in self._fetch_names]
         if return_numpy:
             return [h.numpy() for h in handles]
         return handles
@@ -446,12 +478,14 @@ class Executor:
         sync_prepared_state(scope)
         feed = feed or {}
         fetch_names = _fetch_names(fetch_list)
+        dp = None
         if isinstance(program, CompiledProgram):
+            dp = program._dp
             program = program._variant_for(fetch_names)
         env: Dict[str, Any] = {}
         for n in external_inputs(program):
             if n in feed:
-                env[n] = to_device(feed[n], self.device)
+                env[n] = to_device(slice_feed(dp, n, feed[n]), self.device)
                 continue
             v = scope.find_var(n)
             if v is None:
@@ -459,17 +493,20 @@ class Executor:
                     f"var {n!r} is neither fed nor initialised in scope — "
                     f"feed it, or run the startup program first")
             env[n] = to_device(v, self.device)
-        ctx = LoweringContext(_generator(scope, program, self.device),
-                              self.device, is_test=program._is_test)
-        run_block(program.global_block().ops, env, ctx)
-        for op in program.global_block().ops:
+        ctx = LoweringContext(_generator(scope, program, self.device, dp),
+                              self.device, is_test=program._is_test, dp=dp)
+        ops = program.global_block().ops
+        run_block(ops, env, ctx)
+        for op in ops:
             for n in op.output_names():
                 if _is_persistable(program, n) and n in env:
                     scope.set_var(n, env[n])
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} were not computed")
-        outs = [env[n] for n in fetch_names]
+        replicated = _replicated_names(program, ops) if dp else ()
+        outs = [merge_fetch(dp, env[n], n in replicated)
+                for n in fetch_names]
         if return_numpy:
             return [o.detach().cpu().numpy() for o in outs]
         return outs
@@ -485,10 +522,13 @@ class Executor:
         list is pinned here, once."""
         program = program or default_main_program()
         scope = scope or global_scope()
+        dp = None
         if isinstance(program, CompiledProgram):
+            dp = program._dp
             program = program._variant_for(_fetch_names(fetch_list))
         return PreparedStep(self, program, feed_names, fetch_list or [],
-                            scope, feed=feed, donate_state=donate_state)
+                            scope, feed=feed, donate_state=donate_state,
+                            dp=dp)
 
     def close(self):
         pass

@@ -9,4 +9,5 @@ from . import nn_ops        # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import fused_ops     # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import collective_ops  # noqa: F401
 from . import op_specs      # noqa: F401

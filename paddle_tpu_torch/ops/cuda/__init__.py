@@ -38,6 +38,8 @@ LAUNCHES: Dict[str, int] = {
     "bias_gelu_fwd": 0,
     "bias_gelu_bwd": 0,
     "adam": 0,
+    "dequant_accumulate": 0,
+    "dequant_accumulate_requant": 0,
 }
 
 #: dtype codes understood by the C entry points (csrc/common.cuh PtDtype)

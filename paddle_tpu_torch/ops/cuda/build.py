@@ -34,6 +34,7 @@ SOURCES = {
     "layer_norm": "layer_norm.cu",
     "bias_gelu": "bias_gelu.cu",
     "adam": "adam.cu",
+    "quant_accumulate": "quant_accumulate.cu",
 }
 HEADERS = ("common.cuh", "flash_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -13,6 +13,8 @@ from __future__ import annotations
 from .cuda import flash_attention as cuda_flash
 from .cuda import fused_ops as cuda_fused
 from .cuda import optimizer as cuda_opt
+from .cuda import quant_kernels as cuda_quant
+from .quantize_wire import CompressionSpec
 from .registry import ROUTES, CudaLowering, register_routes, x
 
 
@@ -105,6 +107,18 @@ def _adam_supported(ins, attrs):
                                    x(ins, "Moment1"), x(ins, "Moment2"))
 
 
+def _dequant_acc_supported(ins, attrs):
+    """The receive stage of a quantized all-reduce over ``_n_peers``
+    ranks (the collective op adds it): what the CUDA kernels reject."""
+    spec = CompressionSpec.from_attr(attrs.get("quant_spec"))
+    if spec is None:
+        return False, "no-quant-spec"
+    n = attrs.get("_n_peers")
+    numel = sum(t.numel() for t in ins.get("X", []))
+    blocks = -(-numel // (n * spec.block_size)) if n and numel else None
+    return cuda_quant.supported(n, blocks, spec)
+
+
 _CSRC = "paddle_tpu_torch/ops/cuda/csrc/"
 # the Pallas kernel each route's CUDA kernel replaces, as file:line
 _FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py:77"    # _fwd_kernel
@@ -117,6 +131,8 @@ _ADD_LN_BWD_TPU = "paddle_tpu/ops/pallas/fused_ops.py:162"    # _aln_bwd_kernel
 _BIAS_GELU_TPU = "paddle_tpu/ops/pallas/fused_ops.py:259"     # _bg_fwd_kernel
 _BIAS_GELU_BWD_TPU = "paddle_tpu/ops/pallas/fused_ops.py:264"  # _bg_bwd_kernel
 _ADAM_TPU = "paddle_tpu/ops/pallas/fused_ops.py:331"          # _adam_kernel
+_DQ_ACC_TPU = "paddle_tpu/ops/pallas/quant_kernels.py:91"     # _dq_acc_kernel
+_DQ_ACC_RQ_TPU = "paddle_tpu/ops/pallas/quant_kernels.py:111"  # _dq_acc_requant_kernel
 
 # flash forward, dq and dk/dv: two sources, so the facts name each one
 ROUTE_FLASH = CudaLowering(
@@ -160,6 +176,16 @@ ROUTE_ADAM = CudaLowering(
     supported=_adam_supported, kernels=("adam",), replaces=(_ADAM_TPU,),
     source=_CSRC + "adam.cu")
 
+# the quantized all-reduce's receive stage: the requantizing kernel for
+# int8 with round-to-nearest, else the accumulating one and a plain
+# requantize (the JAX package's _PL_DEQUANT_ACC_AR)
+ROUTE_DEQUANT_ACC = CudaLowering(
+    "dequant_accumulate", flag="use_pallas_fused",
+    supported=_dequant_acc_supported,
+    kernels=("dequant_accumulate", "dequant_accumulate_requant"),
+    replaces=(_DQ_ACC_TPU, _DQ_ACC_RQ_TPU),
+    source=_CSRC + "quant_accumulate.cu")
+
 register_routes("fused_attention", ROUTE_FLASH)
 register_routes("multihead_matmul", ROUTE_MHM)
 register_routes("layer_norm", ROUTE_LN)
@@ -167,6 +193,8 @@ register_routes("fused_add_layernorm", ROUTE_ADD_LN)
 register_routes("fused_elemwise_activation", ROUTE_BIAS_GELU)
 register_routes("adam", ROUTE_ADAM)
 register_routes("adamw", ROUTE_ADAM)        # the same update, then decay
+register_routes("c_quant_allreduce_sum", ROUTE_DEQUANT_ACC)
+register_routes("c_fused_quant_allreduce_sum", ROUTE_DEQUANT_ACC)
 
 
 def kernel_facts():

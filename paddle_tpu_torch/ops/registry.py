@@ -58,17 +58,27 @@ def get_op(name: str) -> Callable:
 
 class LoweringContext:
     """Threaded through one program run: test mode, the device the run
-    executes on, the seeded generator random ops draw from, and whether
-    the run owns its state (``donate_state``: optimizer ops then update
-    parameters and moments in place)."""
+    executes on, the seeded generator random ops draw from, whether the
+    run owns its state (``donate_state``: optimizer ops then update
+    parameters and moments in place), and the data-parallel process group
+    the collectives reduce over (``dp``, an
+    ``ops.collective_ops.DataParallelGroup``; None outside one)."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None,
-                 is_test: bool = False, donate_state: bool = False):
+                 is_test: bool = False, donate_state: bool = False,
+                 dp=None):
         self.generator = generator
         self.device = device if device is not None else torch.device("cpu")
         self.is_test = is_test
         self.donate_state = donate_state
+        self.dp = dp
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The run's reduce axes (the JAX package's mesh axis names):
+        the process group's one axis, or none."""
+        return (self.dp.axis_name,) if self.dp is not None else ()
 
 
 def x(ins, slot, i=0):

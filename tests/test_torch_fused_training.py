@@ -242,9 +242,15 @@ def test_pass_variants_are_a_true_lru_of_eight():
 @pytest.mark.parametrize("how", ["two-cpu-places", "two-cuda-places", "mesh",
                                  "with_mesh"])
 def test_more_than_one_place_is_refused(how):
+    """One process drives one device: data parallelism is one process per
+    rank, through the launcher and fleet, and meshes are not ported."""
     main, _, _, _, loss = _fetch_program()
     cp = tfluid.CompiledProgram(main)
-    with pytest.raises(UnimplementedError, match="multi-GPU"):
+    with pytest.raises(UnimplementedError,
+                       match="one process per rank: launch the script with "
+                             r"`python -m paddle_tpu_torch\.distributed\."
+                             r"launch --nproc N` and train through "
+                             r"`paddle_tpu_torch\.distributed\.fleet`"):
         if how == "two-cpu-places":
             cp.with_data_parallel(loss.name, places=tfluid.cpu_places(2))
         elif how == "two-cuda-places":
@@ -254,11 +260,13 @@ def test_more_than_one_place_is_refused(how):
             cp.with_data_parallel(loss.name, mesh=object())
         else:
             cp.with_mesh(object(), loss_name=loss.name)
-    # one place inserts no gradient sync: the op list is untouched
+    # one place outside a process group inserts no gradient sync: the op
+    # list is untouched
     before = [op.type for op in main.global_block().ops]
-    tfluid.CompiledProgram(main).with_data_parallel(
+    one = tfluid.CompiledProgram(main).with_data_parallel(
         loss.name, places=[tfluid.CPUPlace()])
     assert [op.type for op in main.global_block().ops] == before
+    assert one._dp is None
 
 
 # ---------------------------------------------------------------------------

@@ -123,7 +123,7 @@ def test_kernel_wrappers_run_plain_on_cpu_and_launch_nothing():
         "flash_attention_bwd_dkv": 0, "layer_norm_fwd": 0,
         "layer_norm_bwd": 0, "add_layer_norm_fwd": 0,
         "add_layer_norm_bwd": 0, "bias_gelu_fwd": 0, "bias_gelu_bwd": 0,
-        "adam": 0}
+        "adam": 0, "dequant_accumulate": 0, "dequant_accumulate_requant": 0}
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -137,7 +137,8 @@ def test_nothing_is_built_at_import():
     from paddle_tpu_torch.ops.cuda import build
     assert not build._LIBS
     assert set(build.SOURCES) == {"flash_attention", "flash_attention_bwd",
-                                  "layer_norm", "bias_gelu", "adam"}
+                                  "layer_norm", "bias_gelu", "adam",
+                                  "quant_accumulate"}
     for name in build.SOURCES:
         path = build.library_path(name)
         assert path.startswith(build.BUILD_DIR)
@@ -148,7 +149,9 @@ def test_route_table_names_every_kernel_and_what_it_replaces():
     table = registry.route_table()
     assert set(table) == {"fused_attention", "multihead_matmul",
                           "layer_norm", "fused_add_layernorm",
-                          "fused_elemwise_activation", "adam", "adamw"}
+                          "fused_elemwise_activation", "adam", "adamw",
+                          "c_quant_allreduce_sum",
+                          "c_fused_quant_allreduce_sum"}
     kernels = {k for routes in table.values() for r in routes
                for k in r.kernels}
     assert kernels == set(port_cuda.LAUNCHES)
