@@ -33,7 +33,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    BERT-base parameters), timed like phase 2; and the fused-training
    kernels: add+LayerNorm backward (R = 4096 and 1000, plus 1003 for a
    ragged last row block, D = 768) and bias+GELU backward (R = 4096,
-   D = 3072 and R = 640, D = 768, plus R = 1003), float32 and bfloat16;
+   D = 3072 and R = 640, D = 768, plus R = 1003), float32 and bfloat16.
+   Both LayerNorm backwards also at R = 1, at D = 128, 896, 4096 and
+   8192 (one to 16 warps a row; the gate's edges) on 300 rows, and on
+   views 4 bytes off the vector alignment (the scalar instantiation);
+   their dscale/dbias bit-identical across two launches, and their row
+   and column passes timed apart by ``torch.profiler`` at the main-path
+   shapes;
 7. train BERT-base at full width and depth (random weights from a seed,
    Adam 1e-4, dropout 0.1 as published) for 10 steps through
    ``Executor.prepare(donate_state=True)`` on a pretraining batch of
@@ -95,6 +101,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -145,6 +152,10 @@ PEAK_LR, WARMUP_STEPS, DECAY_STEPS = 1e-4, 3, 1_000_000
 WEIGHT_DECAY, CLIP_NORM = 0.01, 1.0
 TOL_LR = 1e-6             # LR read back vs the closed form (relative)
 EDGE_ROWS = 1003          # ragged last block of the backwards' row blocks
+# the LN backwards beyond BERT-base's shapes: widths of 1, 2, 8 and 16
+# warps a row (128 and 8192 are the gate's edges) at a few hundred rows
+LN_EDGE_ROWS = 300
+LN_EDGE_WIDTHS = (128, 896, 4096, 8192)
 # the quantized all-reduce's receive stage (KERNEL_CENSUS_r15.json parity)
 TOL_DQ_ACC = 1e-5         # #11 vs its plain version (abs)
 TOL_DQ_ACC_BLOCK = 1e-6   # #11, each block of max|plain| of that block
@@ -178,15 +189,19 @@ def log(msg):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, samples=25, warmup=3):
+def time_ms(torch, fn, samples=25, warmup=3, flush=None):
     """Median device time of one call: each sample starts behind a short
     GPU sleep, so the host finishes enqueueing before the start event
-    fires and the events see device time only."""
+    fires and the events see device time only.  With ``flush`` (a tensor
+    larger than the L2 cache) the cache is overwritten before each
+    sample, outside the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(samples):
+        if flush is not None:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
@@ -196,6 +211,29 @@ def time_ms(torch, fn, samples=25, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_split_ms(torch, fn, calls=10):
+    """Device ms per call of each kernel ``fn`` launches, by kernel name
+    (template arguments and parameters cut), from one profiled run of
+    ``calls`` calls; empty when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+)(<[^(]*>)?\(", e.name)
+            name = m.group(1) if m else e.name[:60]
+            by_name[name] = by_name.get(name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / calls
+    return by_name
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -721,25 +759,58 @@ def flash_training_checks(torch, results):
                 del lib_out
 
 
-def ln_adam_training_checks(torch, results, cfg):
+def ln_bwd_checks(torch, results, residual, main_rows, d, seed):
+    """The LN backward (``residual``: the add+LN backward) against its
+    plain twin, float32 and bfloat16: at the main path's ``main_rows`` of
+    width ``d``, each also split into its row and column passes by
+    ``torch.profiler``; then at R = 1, at the widths LN_EDGE_WIDTHS of
+    LN_EDGE_ROWS rows, and on views 4 bytes off the vector alignment (the
+    scalar instantiation).  Every case is timed beside
+    ``native_layer_norm_backward`` (on u = a + b made beforehand for the
+    residual variant, which it does not read), and its dscale/dbias are
+    bit-identical across two launches on the same inputs."""
     from paddle_tpu_torch.ops.cuda import fused_ops as K
-    from paddle_tpu_torch.ops.cuda import optimizer as O
 
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     randn = randn_on(torch, gen, dev)
     record = recorder(results)
-    d = cfg.hidden_size
+    name = "add_layer_norm_bwd" if residual else "layer_norm_bwd"
     for dtname, dt in (("float32", torch.float32),
                        ("bfloat16", torch.bfloat16)):
         es = torch.finfo(dt).bits // 8
-        # the encoder's rows (B*S) and the masked-LM head's (B*20)
-        for rows in (TRAIN_BATCH * TRAIN_SEQ, TRAIN_BATCH * TRAIN_MASKS):
-            x, dy = randn(rows, d, dtype=dt), randn(rows, d, dtype=dt)
-            s = (1.0 + randn(d, scale=0.1)).to(dt)
-            what = f"layer_norm_bwd [{rows},{d}] {dtname}"
-            got = K.layer_norm_bwd(x, s, dy)
-            ref = K.layer_norm_bwd_plain(x, s, dy)
+        cases = [(rows, d, 0, None) for rows in main_rows] + \
+            [(1, d, 0, "R=1")] + \
+            [(LN_EDGE_ROWS, w, 0, f"D={w}") for w in LN_EDGE_WIDTHS] + \
+            [(LN_EDGE_ROWS, d, 4 // es, "4-byte offset view")]
+        for rows, width, off, case in cases:
+            def operand(n):
+                return randn(n + off, dtype=dt)[off:]
+            a, dy = (operand(rows * width).view(rows, width)
+                     for _ in range(2))
+            b = operand(rows * width).view(rows, width) if residual else None
+            s = 1.0 + operand(width) * 0.1
+            if residual:
+                def kern():
+                    return K.add_layer_norm_bwd(a, b, s, dy)
+
+                def plain():
+                    return K.add_layer_norm_bwd_plain(a, b, s, dy)
+                u = a + b
+            else:
+                def kern():
+                    return K.layer_norm_bwd(a, s, dy)
+
+                def plain():
+                    return K.layer_norm_bwd_plain(a, s, dy)
+                u = a
+            what = f"{name} [{rows},{width}] {dtname}" + \
+                (f" ({case})" if case else "")
+            got, again, ref = kern(), kern(), plain()
+            check(torch.equal(got[1], again[1]) and
+                  torch.equal(got[2], again[2]),
+                  f"{what}: dscale/dbias differ between two launches on "
+                  f"the same inputs")
             err = max(agree(torch, what + " dx", got[0], ref[0], dtname,
                             TOL_F32),
                       agree(torch, what + " dscale", got[1], ref[1], dtname,
@@ -747,15 +818,32 @@ def ln_adam_training_checks(torch, results, cfg):
                       agree(torch, what + " dbias", got[2], ref[2], dtname,
                             TOL_LN_SUM, relative=True))
             _, mean, rstd = torch.ops.aten.native_layer_norm(
-                x, [d], s, s, 1e-5)
-            record("layer_norm_bwd", [rows, d], dtname, err,
-                   time_ms(torch, lambda: K.layer_norm_bwd(x, s, dy)),
-                   time_ms(torch, lambda: K.layer_norm_bwd_plain(x, s, dy)),
+                u, [width], s, s, 1e-5)
+            extra = {"case": case} if case else \
+                {"split_ms": kernel_split_ms(torch, kern)}
+            record(name, [rows, width], dtname, err, time_ms(torch, kern),
+                   time_ms(torch, plain),
                    time_ms(torch, lambda:
                            torch.ops.aten.native_layer_norm_backward(
-                               dy, x, [d], mean, rstd, s, s,
+                               dy, u, [width], mean, rstd, s, s,
                                [True, True, True])),
-                   (3 * rows * d + 3 * d) * es, 16 * rows * d)
+                   ((3 + residual) * rows * width + 3 * width) * es,
+                   (16 + residual) * rows * width,
+                   dscale_dbias_bit_identical=True, **extra)
+
+
+def ln_adam_training_checks(torch, results, cfg):
+    from paddle_tpu_torch.ops.cuda import optimizer as O
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    randn = randn_on(torch, gen, dev)
+    record = recorder(results)
+    d = cfg.hidden_size
+    # the encoder's rows (B*S) and the masked-LM head's (B*20)
+    ln_bwd_checks(torch, results, False,
+                  (TRAIN_BATCH * TRAIN_SEQ, TRAIN_BATCH * TRAIN_MASKS), d,
+                  SEED + 4)
 
     def adam_state(n):
         return (randn(n), randn(n), randn(n, scale=0.1),
@@ -822,34 +910,11 @@ def fused_training_checks(torch, results, cfg):
     randn = randn_on(torch, gen, dev)
     record = recorder(results)
     d = cfg.hidden_size
+    ln_bwd_checks(torch, results, True,
+                  (TRAIN_BATCH * TRAIN_SEQ, 1000, EDGE_ROWS), d, SEED + 5)
     for dtname, dt in (("float32", torch.float32),
                        ("bfloat16", torch.bfloat16)):
         es = torch.finfo(dt).bits // 8
-        for rows in (TRAIN_BATCH * TRAIN_SEQ, 1000, EDGE_ROWS):
-            a, b, dy = (randn(rows, d, dtype=dt) for _ in range(3))
-            s = (1.0 + randn(d, scale=0.1)).to(dt)
-            what = f"add_layer_norm_bwd [{rows},{d}] {dtname}"
-            got = K.add_layer_norm_bwd(a, b, s, dy)
-            ref = K.add_layer_norm_bwd_plain(a, b, s, dy)
-            err = max(agree(torch, what + " dx", got[0], ref[0], dtname,
-                            TOL_F32),
-                      agree(torch, what + " dscale", got[1], ref[1], dtname,
-                            TOL_LN_SUM, relative=True),
-                      agree(torch, what + " dbias", got[2], ref[2], dtname,
-                            TOL_LN_SUM, relative=True))
-            # the library backward of LN(u) with u = a + b made beforehand
-            u = a + b
-            _, mean, rstd = torch.ops.aten.native_layer_norm(
-                u, [d], s, s, 1e-5)
-            record("add_layer_norm_bwd", [rows, d], dtname, err,
-                   time_ms(torch, lambda: K.add_layer_norm_bwd(a, b, s, dy)),
-                   time_ms(torch,
-                           lambda: K.add_layer_norm_bwd_plain(a, b, s, dy)),
-                   time_ms(torch, lambda:
-                           torch.ops.aten.native_layer_norm_backward(
-                               dy, u, [d], mean, rstd, s, s,
-                               [True, True, True])),
-                   (4 * rows * d + 3 * d) * es, 17 * rows * d)
         for rows, width in ((TRAIN_BATCH * TRAIN_SEQ, cfg.intermediate_size),
                             (TRAIN_BATCH * TRAIN_MASKS, d),
                             (EDGE_ROWS, cfg.intermediate_size)):
@@ -1327,28 +1392,45 @@ def scheduled_lr(step):
 
 # the port's kernels by their CUDA function names (csrc/*.cu)
 PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                     "flash_bwd_dkv_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
-                     "ln_bwd_colsum_kernel", "bias_gelu_fwd_kernel",
-                     "bias_gelu_bwd_kernel", "bias_gelu_bwd_colsum_kernel",
+                     "flash_bwd_dkv_kernel", "ln_fwd_kernel",
+                     "ln_bwd_rows_kernel", "ln_bwd_colsum_kernel",
+                     "bias_gelu_fwd_kernel", "bias_gelu_bwd_kernel",
+                     "bias_gelu_bwd_colsum_kernel",
                      "adam_kernel", "dq_acc_kernel", "dq_acc_requant_kernel")
+
+
+def covered_us(spans):
+    """Length of the union of (start, end) spans: device time during which
+    at least one of them ran."""
+    total, lo, hi = 0.0, None, None
+    for start, end in sorted(spans):
+        if hi is None or start > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return total + (0.0 if hi is None else hi - lo)
 
 
 def profile_step(torch, step, step_ms):
     """Device time of one training step by kernel, from torch.profiler:
     the port's kernels, the matrix products (cuBLAS / CUTLASS gemm) and
-    everything else, and the device's busy share of ``step_ms`` (the
-    median unprofiled step).  None when the profiler saw no device
-    activity."""
+    everything else (sums of each kernel's span), and the device's busy
+    share of ``step_ms`` (the median unprofiled step): the union of the
+    spans, since a programmatic dependent launch (the LN backwards'
+    column sum) starts, and waits, before its primary ends.  None when
+    the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step()
-    by_name = {}
+    by_name, spans = {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+            spans.append((e.time_range.start, e.time_range.end))
     if not by_name:
         log("  device time by kernel: not measured (the profiler saw no "
             "device activity)")
@@ -1362,7 +1444,7 @@ def profile_step(torch, step, step_ms):
             groups["matrix products"] += us / 1e3
         else:
             groups["other"] += us / 1e3
-    busy = sum(groups.values())
+    busy = covered_us(spans) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     log(f"  one profiled step: device busy {busy:.2f} ms of the "
         f"{step_ms:.2f} ms median step ({100 * busy / step_ms:.1f} %); "

@@ -54,61 +54,6 @@ cudaError_t launch(const void* x, const void* bias, void* y, int rows, int d,
   return cudaGetLastError();
 }
 
-// kVec consecutive elements as floats: one 16-byte (float32) or 8-byte
-// (bfloat16) access for kVec == 4, the pointer aligned to it
-template <int kVec>
-__device__ __forceinline__ void load_n(const float* p, float* v) {
-  if constexpr (kVec == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int kVec>
-__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* v) {
-  if constexpr (kVec == 4) {
-    const uint2 q = *reinterpret_cast<const uint2*>(p);
-    const float2 lo =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-    const float2 hi =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-    v[0] = lo.x;
-    v[1] = lo.y;
-    v[2] = hi.x;
-    v[3] = hi.y;
-  } else {
-    v[0] = pt_load(p);
-  }
-}
-
-template <int kVec>
-__device__ __forceinline__ void store_n(float* p, const float* v) {
-  if constexpr (kVec == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    *p = v[0];
-  }
-}
-
-template <int kVec>
-__device__ __forceinline__ void store_n(__nv_bfloat16* p, const float* v) {
-  if constexpr (kVec == 4) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 q;
-    q.x = *reinterpret_cast<const uint32_t*>(&lo);
-    q.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = q;
-  } else {
-    pt_store(p, v[0]);
-  }
-}
-
 template <typename T, int kVec>
 __global__ void bias_gelu_bwd_kernel(const T* __restrict__ x,
                                      const T* __restrict__ bias,
@@ -128,9 +73,9 @@ __global__ void bias_gelu_bwd_kernel(const T* __restrict__ x,
     const size_t base = static_cast<size_t>(r) * d;
     for (int c = threadIdx.x * kVec; c < d; c += kThreads * kVec) {
       float xv[kVec], bv[kVec], g[kVec];
-      load_n<kVec>(x + base + c, xv);
-      load_n<kVec>(bias + c, bv);
-      load_n<kVec>(dy + base + c, g);
+      pt_load_n<kVec>(x + base + c, xv);
+      pt_load_n<kVec>(bias + c, bv);
+      pt_load_n<kVec>(dy + base + c, g);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
         const float u = xv[j] + bv[j];
@@ -139,7 +84,7 @@ __global__ void bias_gelu_bwd_kernel(const T* __restrict__ x,
         g[j] *= cdf + u * pdf;
         dbp[c + j] += g[j];
       }
-      store_n<kVec>(dx + base + c, g);
+      pt_store_n<kVec>(dx + base + c, g);
     }
   }
   float* out = partial + static_cast<size_t>(blockIdx.x) * d;
@@ -191,18 +136,15 @@ cudaError_t launch_bwd_kernel(const void* x, const void* bias, const void* dy,
   return cudaGetLastError();
 }
 
-bool aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* bias, const void* dy,
                        void* dx, void* db, void* partial, int rows, int d,
                        int rows_per_block, int nblocks, cudaStream_t stream) {
   // d % 128 == 0, so every row starts as aligned as its tensor does
   const size_t vec_bytes = 4 * sizeof(T);
-  const bool vec = aligned(x, vec_bytes) && aligned(bias, vec_bytes) &&
-                   aligned(dy, vec_bytes) && aligned(dx, vec_bytes);
+  const bool vec = pt_aligned(x, vec_bytes) &&
+                   pt_aligned(bias, vec_bytes) &&
+                   pt_aligned(dy, vec_bytes) && pt_aligned(dx, vec_bytes);
   cudaError_t err =
       vec ? launch_bwd_kernel<T, 4>(x, bias, dy, dx, partial, rows, d,
                                     rows_per_block, nblocks, stream)

@@ -1,6 +1,6 @@
 // Shared helpers for the port's Hopper kernels: element loads/stores in
-// float32 or bfloat16, a float block reduction and the counter-based
-// dropout generator.
+// float32 or bfloat16 (one at a time, or four as one vector access), a
+// float block reduction and the counter-based dropout generator.
 //
 // Every kernel source in this directory exposes a plain C entry point that
 // takes raw device pointers and a cudaStream_t (as void*), launches on that
@@ -31,6 +31,68 @@ template <> __device__ __forceinline__ float pt_round<float>(float v) {
 }
 template <> __device__ __forceinline__ float pt_round<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// kVec consecutive elements as floats: one 16-byte (float32) or 8-byte
+// (bfloat16) access for kVec == 4, the pointer aligned to it
+template <int kVec>
+__device__ __forceinline__ void pt_load_n(const float* p, float* v) {
+  if constexpr (kVec == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void pt_load_n(const __nv_bfloat16* p,
+                                          float* v) {
+  if constexpr (kVec == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    v[0] = lo.x;
+    v[1] = lo.y;
+    v[2] = hi.x;
+    v[3] = hi.y;
+  } else {
+    v[0] = pt_load(p);
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void pt_store_n(float* p, const float* v) {
+  if constexpr (kVec == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void pt_store_n(__nv_bfloat16* p,
+                                           const float* v) {
+  if constexpr (kVec == 4) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const uint32_t*>(&lo);
+    q.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = q;
+  } else {
+    pt_store(p, v[0]);
+  }
+}
+
+// Whether a host pointer is aligned to `bytes` (picks a vector width).
+inline bool pt_aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 __device__ __forceinline__ float pt_warp_sum(float v) {

@@ -24,7 +24,7 @@ bits every run."""
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -35,14 +35,17 @@ from .build import function
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LN_ARGTYPES = (_I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P)
-_LN_BWD_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                    ctypes.c_float, _P)
+_LN_BWD_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _I, ctypes.c_float, _P)
 _BG_ARGTYPES = (_I, _P, _P, _P, _I, _I, _P)
 _BG_BWD_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 
 LN_MAX_DIM = 8192
 BG_MAX_DIM = 16384
-BWD_MAX_BLOCKS = 512        # row blocks of the backwards' partial sums
+BWD_MAX_BLOCKS = 512        # row blocks of bias+GELU backward's partials
+LN_BWD_MAX_BLOCKS = 256     # row blocks of the LN backward's partials
+LN_BWD_BLOCK_WARPS = 8      # warps of an LN backward block (or one row's)
+LN_BWD_CHUNKS = (2, 4, 6)   # 128-column chunks a lane may hold of a row
 
 
 def ln_supported(d: int, dtype=torch.float32) -> Tuple[bool, str]:
@@ -171,9 +174,54 @@ def layer_norm_fwd(x2, scale, bias, eps=1e-5):
 
 
 def _row_blocks(r):
-    """(rows per block, blocks) of a backward's partial sums."""
+    """(rows per block, blocks) of bias+GELU backward's partial sums."""
     rows_per_block = -(-r // BWD_MAX_BLOCKS)
     return rows_per_block, -(-r // rows_per_block)
+
+
+class LnBwdPlan(NamedTuple):
+    """The LayerNorm backward's launch over x [rows, d] (see
+    :func:`ln_bwd_plan`)."""
+    rows: int
+    d: int
+    chunks: int          # 4-column slices a lane holds of each row
+    group_warps: int     # warps that share one row
+    block_warps: int     # warps of a block: block_warps // group_warps groups
+    rows_per_block: int
+    blocks: int          # row blocks, each one float32 partial of [2, d]
+
+    @property
+    def groups(self) -> int:
+        return self.block_warps // self.group_warps
+
+    def group_rows(self, block: int, group: int) -> range:
+        """The rows that row group ``group`` of block ``block`` takes, in
+        the kernel's order (``ln_bwd_rows_kernel``)."""
+        r0 = block * self.rows_per_block
+        return range(r0 + group, min(self.rows, r0 + self.rows_per_block),
+                     self.groups)
+
+
+def ln_bwd_plan(r: int, d: int) -> LnBwdPlan:
+    """The grid of ``csrc/layer_norm.cu``'s backward, a function of (r, d)
+    alone — never of the device — so dscale/dbias are the same bits on
+    every card.  A row is split over the fewest warps (a power of two)
+    that leaves each lane at most ``LN_BWD_CHUNKS[-1]`` 128-column chunks;
+    blocks hold ``LN_BWD_BLOCK_WARPS`` warps (more when one row needs
+    them), take a whole number of rows per row group, and number at most
+    ``LN_BWD_MAX_BLOCKS``."""
+    if r < 1 or d < 128 or d % 128:
+        raise ValueError(f"ln_bwd_plan: no plan for [{r}, {d}]")
+    n = d // 128
+    group = 1
+    while -(-n // group) > LN_BWD_CHUNKS[-1]:
+        group *= 2
+    chunks = min(c for c in LN_BWD_CHUNKS if c >= -(-n // group))
+    block_warps = max(LN_BWD_BLOCK_WARPS, group)
+    groups = block_warps // group
+    rows_per_block = groups * -(-r // (LN_BWD_MAX_BLOCKS * groups))
+    return LnBwdPlan(r, d, chunks, group, block_warps, rows_per_block,
+                     -(-r // rows_per_block))
 
 
 def _ln_bwd_launch(what, a2, b2, scale, dy, eps):
@@ -190,17 +238,18 @@ def _ln_bwd_launch(what, a2, b2, scale, dy, eps):
     ok, why = ln_supported(d, a2.dtype)
     if not ok or r < 1:
         raise ValueError(f"{what}: unsupported ({why or 'no rows'})")
-    rows_per_block, nblocks = _row_blocks(r)
+    plan = ln_bwd_plan(r, d)
     dx = torch.empty_like(a2)
     dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
-    partial = torch.empty((nblocks, 2, d), dtype=torch.float32,
+    partial = torch.empty((plan.blocks, 2, d), dtype=torch.float32,
                           device=a2.device)
     fn = function("layer_norm", "pt_layer_norm_bwd", _LN_BWD_ARGTYPES)
     rc = fn(dtype_code(a2, what), a2.data_ptr(),
             b2.data_ptr() if b2 is not None else None, scale.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), partial.data_ptr(), r, d, rows_per_block,
-            nblocks, float(eps), stream_handle(a2.device))
+            dbias.data_ptr(), partial.data_ptr(), r, d, plan.chunks,
+            plan.group_warps, plan.rows_per_block, plan.blocks, float(eps),
+            stream_handle(a2.device))
     raise_on_error(what, rc)
     LAUNCHES[what] += 1
     return dx, dscale, dbias
