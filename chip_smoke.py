@@ -27,7 +27,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 6. the training kernels against their plain versions at BERT-base
    training shapes: flash forward with dropout 0.1 and its dq and dk/dv
    kernels (B = 32, S = 128 and B = 8, S = 512; padding bias and causal;
-   float32 and bfloat16; one seed, so the masks are bit-identical),
+   float32 and bfloat16; one seed, so the masks are bit-identical; dq, dk
+   and dv bit-identical across two launches; in float32 with the padding
+   bias, kernels and twin each against the same backward in float64; the
+   pair timed, beside the library's backward with the same dropout rate,
+   at 0.1 and at 0; both routes of the backward's plan at head dims 64,
+   128 and 256 on padded and rectangular shapes, the FMA route also with
+   the score-gradient scratch capped),
    LayerNorm backward (R = 4096 and 640, D = 768) and Adam (the word
    embedding's 23,440,896 elements, 2,359,296, 768, 2, and all 158
    BERT-base parameters), timed like phase 2; and the fused-training
@@ -115,6 +121,7 @@ BURSTS, BURST_REQUESTS = 16, 24     # the served window: 384 requests
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12,      # FP32 outside the tensor cores
+              "tf32": 495e12,        # TF32 tensor cores
               "bfloat16": 989e12}    # BF16 tensor cores
 
 # stated tolerances: kernel vs its plain version on the same inputs
@@ -270,10 +277,12 @@ def agree(torch, what, got, ref, dtype, tol, relative=False):
 
 def recorder(results):
     """record(name, shape, dtype, err, ms, plain_ms, lib_ms, nbytes, flops,
-    **extra) appends one timed row to ``results[name]``."""
+    bound=None, **extra) appends one timed row to ``results[name]``; its
+    bound is ``bound_ms(nbytes, flops, dtype)`` unless ``bound`` gives
+    (ms, by)."""
     def record(name, shape, dtype, err, ms, plain_ms, lib_ms, nbytes,
-               flops, **extra):
-        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+               flops, bound=None, **extra):
+        b_ms, b_by = bound or bound_ms(nbytes, flops, dtype)
         row = {"shape": shape, "dtype": dtype, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": b_ms, "bound_by": b_by, **extra}
@@ -707,12 +716,16 @@ def flash_training_checks(torch, results):
                 check(lerr <= TOL_LSE, f"{what}: lse disagrees ({lerr})")
                 grads = FA.flash_bwd(q, k, v, bias, o, lse, do, causal,
                                      DROPOUT, seed)
+                again = FA.flash_bwd(q, k, v, bias, o, lse, do, causal,
+                                     DROPOUT, seed)
+                check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                      f"{what}: dq/dk/dv differ between two launches on the "
+                      f"same inputs")
                 refs = FA.flash_bwd_plain(q, k, v, bias, o, lse, do, causal,
                                           DROPOUT, seed)
                 errs = [agree(torch, f"{what} {n}", g, r, dtname, TOL_GRAD,
                               relative=True)
                         for n, g, r in zip(("dq", "dk", "dv"), grads, refs)]
-                delta = (do.float() * o.float()).sum(dim=-1)
                 pairs = seq * (seq + 1) // 2 if causal else seq * seq
                 io_bytes = bh * seq * d * es
                 extra = (0 if bias is None else bias.numel() * 4) + \
@@ -722,10 +735,29 @@ def flash_training_checks(torch, results):
                                    (q, k, v, do))
                 mask4 = None if bias is None else \
                     bias.view(bsz, 1, seq, seq).to(dt)
-                lib_out = F.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=mask4, is_causal=causal)
-                lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-                    lib_out, (q4, k4, v4), do4, retain_graph=True))
+                # kernels and the library's backward, each at dropout 0.1
+                # and at 0 (the library redraws its own mask: the same rate,
+                # not the same bits)
+                timed = {}
+                for rate in (DROPOUT, 0.0):
+                    o_r, lse_r = FA.flash_fwd(q, k, v, bias, causal, rate,
+                                              seed)
+                    delta = (do.float() * o_r.float()).sum(dim=-1)
+                    args = (q, k, v, bias, do, lse_r, delta, causal, rate,
+                            seed)
+                    ds = FA.flash_bwd_dkv(*args)[2]
+                    lib_out = F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask4, is_causal=causal,
+                        dropout_p=rate)
+                    timed[rate] = (
+                        time_ms(torch, lambda: FA.flash_bwd_dq_ds(
+                            k, ds, seq, causal)),
+                        time_ms(torch, lambda: FA.flash_bwd_dkv(*args)),
+                        time_ms(torch, lambda: torch.autograd.grad(
+                            lib_out, (q4, k4, v4), do4, retain_graph=True)))
+                    del lib_out, ds
+                (dq_ms, dkv_ms, lib_bwd), (dq0_ms, dkv0_ms, lib0_bwd) = \
+                    timed[DROPOUT], timed[0.0]
                 plain_bwd = time_ms(torch, lambda: FA.flash_bwd_plain(
                     q, k, v, bias, o, lse, do, causal, DROPOUT, seed))
                 shape = [bsz, heads, seq, d, mode, "dropout 0.1"]
@@ -740,23 +772,127 @@ def flash_training_checks(torch, results):
                            dropout_p=DROPOUT)),
                        4 * io_bytes + extra - bh * seq * 4,
                        4 * bh * pairs * d)
-                # the library's one backward call computes dq, dk and dv
-                # together, and so does the plain version: both stand
-                # beside each kernel, the library as an extra key
-                record("flash_attention_bwd_dq", shape, dtname, errs[0],
-                       time_ms(torch, lambda: FA.flash_bwd_dq(
-                           q, k, v, bias, do, lse, delta, causal, DROPOUT,
-                           seed)),
-                       plain_bwd, None, 5 * io_bytes + extra,
-                       6 * bh * pairs * d, library_dq_dk_dv_ms=lib_bwd)
-                record("flash_attention_bwd_dkv", shape, dtname,
-                       max(errs[1:]),
-                       time_ms(torch, lambda: FA.flash_bwd_dkv(
-                           q, k, v, bias, do, lse, delta, causal, DROPOUT,
-                           seed)),
-                       plain_bwd, None, 6 * io_bytes + extra,
-                       8 * bh * pairs * d, library_dq_dk_dv_ms=lib_bwd)
-                del lib_out
+                # each row's bound is the function of the TPU kernel it
+                # replaces: dq 6 BH S^2 D flops (it recomputes q.k^T and
+                # do.v^T), dk/dv 8, each reading q, k, v, dO, the bias, lse
+                # and delta once; float32 at the smaller of the FMA-pipe and
+                # the 3xTF32 tensor-core bound, both kept as extra keys.
+                # This design's own work stands beside it: dk/dv also writes
+                # the float32 score gradient ds^T (whole 64 x 64 tiles, the
+                # causal ones on and below the diagonal), and dq is ds.k, 2
+                # BH S^2 D flops, reading k and ds.  The library's one
+                # backward call computes dq, dk and dv together, and so does
+                # the plain version: both stand beside each kernel, the
+                # library as extra keys, at dropout 0.1 and at 0
+                tiles = -(-seq // FA.BWD_TILE)
+                ds_bytes = 4 * bh * FA.BWD_TILE ** 2 * (
+                    tiles * (tiles + 1) // 2 if causal else tiles ** 2)
+                work = {"dq": (5 * io_bytes + extra, 6 * bh * pairs * d),
+                        "dkv": (6 * io_bytes + extra, 8 * bh * pairs * d)}
+                design = {"dq": (2 * io_bytes + ds_bytes,
+                                 2 * bh * pairs * d),
+                          "dkv": (6 * io_bytes + extra + ds_bytes,
+                                  8 * bh * pairs * d)}
+                witness = {}
+                if dtname == "float32" and mode == "padding-bias":
+                    witness = float64_witness(torch, FA, what, grads, refs,
+                                              (q, k, v, bias, o, lse, do),
+                                              causal, seed)
+                for name, err, ms, ms0 in (
+                        ("dq", errs[0], dq_ms, dq0_ms),
+                        ("dkv", max(errs[1:]), dkv_ms, dkv0_ms)):
+                    nbytes, flops = work[name]
+                    d_bytes, d_flops = design[name]
+                    bounds = {"bound_design_ms": bound_ms(
+                        d_bytes, d_flops, dtname)[0]}
+                    bound = None
+                    if dtname == "float32":
+                        bound = bound_ms(nbytes, 3 * flops, "tf32")
+                        bounds = {
+                            "bound_fma_ms": bound_ms(nbytes, flops,
+                                                     "float32")[0],
+                            "bound_3xtf32_ms": bound[0],
+                            "bound_design_ms": bound_ms(
+                                d_bytes, 3 * d_flops, "tf32")[0]}
+                    record(f"flash_attention_bwd_{name}", shape, dtname, err,
+                           ms, plain_bwd, None, nbytes, flops, bound=bound,
+                           library_dq_dk_dv_ms=lib_bwd,
+                           ms_dropout0=ms0,
+                           library_dq_dk_dv_ms_dropout0=lib0_bwd,
+                           **bounds, **witness.get(name, {}))
+    flash_route_checks(torch, FA, gen, seed)
+
+
+def float64_witness(torch, FA, what, grads, refs, inputs, causal, seed):
+    """The float32 kernels and the float32 plain twin, each against the
+    same backward in float64 (same inputs, same mask): max|Δ| over
+    max(1, max|float64|), logged and returned as extra row keys.  The
+    kernels reproduce the twin's q.k^T rounding, so phase 6 holds them to
+    the twin; this shows how far each side is from the exact result."""
+    wide = [None if t is None else t.double() for t in inputs]
+    exact = FA.flash_bwd_plain(*wide, causal, DROPOUT, seed)
+    out = {}
+    for n, g, r, e in zip(("dq", "dk", "dv"), grads, refs, exact):
+        top = max(1.0, float(e.abs().max()))
+        out[n] = (float((g.double() - e).abs().max()) / top,
+                  float((r.double() - e).abs().max()) / top)
+        log(f"  {what} {n} vs float64: kernel {out[n][0]:.3e}, plain "
+            f"twin {out[n][1]:.3e} (of max(1, max|float64|))")
+    del exact, wide
+    return {name: {"kernel_err_vs_float64": max(out[n][0] for n in ns),
+                   "plain_err_vs_float64": max(out[n][1] for n in ns)}
+            for name, ns in (("dq", ("dq",)), ("dkv", ("dk", "dv")))}
+
+
+def flash_route_checks(torch, FA, gen, seed):
+    """Both routes of ``bwd_plan`` at shapes the main path does not give:
+    the FMA route (head dim 256, and head dims 64 and 128 with the score
+    gradient scratch capped to 0 bytes, as past DS_SCRATCH_CAP) and the
+    tensor-core route on unpadded and rectangular problems, each against
+    the plain twin with dropout 0.1 and bit for bit across two runs."""
+    dev = torch.device("cuda", 0)
+    randn = randn_on(torch, gen, dev)
+    cases = (  # (bh, sq, sk, d, dtype, causal, bias ratio, scratch cap)
+        (TRAIN_BATCH * 12, TRAIN_SEQ, TRAIN_SEQ, 64, torch.float32, False,
+         12, 0),
+        (24, 200, 200, 128, torch.bfloat16, True, 0, 0),
+        (24, 100, 77, 64, torch.float32, False, 1, None),
+        (24, 65, 65, 128, torch.bfloat16, True, 0, None),
+        (24, 77, 200, 128, torch.float32, False, 12, None),
+        (8, 100, 77, 256, torch.float32, False, 1, None),
+        (8, 128, 128, 256, torch.bfloat16, True, 0, None))
+    saved = FA.DS_SCRATCH_CAP
+    try:
+        for bh, sq, sk, d, dt, causal, ratio, cap in cases:
+            FA.DS_SCRATCH_CAP = saved if cap is None else cap
+            route = FA.bwd_plan(bh, sq, sk, d).route
+            dtname = "float32" if dt == torch.float32 else "bfloat16"
+            what = (f"flash bwd {route} route BH={bh} Sq={sq} Sk={sk} D={d} "
+                    f"{'causal ' if causal else ''}{dtname}")
+            q, do = (randn(bh, sq, d, dtype=dt) for _ in range(2))
+            k, v = (randn(bh, sk, d, dtype=dt) for _ in range(2))
+            bias = None
+            if ratio:
+                bias = torch.where(
+                    torch.rand(bh // ratio, sq, sk, generator=gen,
+                               device=dev) < 0.2, -1e4, 0.0)
+            o, lse = FA.flash_fwd(q, k, v, bias, causal, DROPOUT, seed)
+            grads = FA.flash_bwd(q, k, v, bias, o, lse, do, causal, DROPOUT,
+                                 seed)
+            again = FA.flash_bwd(q, k, v, bias, o, lse, do, causal, DROPOUT,
+                                 seed)
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"{what}: dq/dk/dv differ between two launches")
+            refs = FA.flash_bwd_plain(q, k, v, bias, o, lse, do, causal,
+                                      DROPOUT, seed)
+            for n, g, r in zip(("dq", "dk", "dv"), grads, refs):
+                agree(torch, f"{what} {n}", g, r, dtname, TOL_GRAD,
+                      relative=True)
+            ms = time_ms(torch, lambda: FA.flash_bwd(
+                q, k, v, bias, o, lse, do, causal, DROPOUT, seed))
+            log(f"  {what}: flash_bwd (delta, dk/dv, dq) {ms:.4f} ms")
+    finally:
+        FA.DS_SCRATCH_CAP = saved
 
 
 def ln_bwd_checks(torch, results, residual, main_rows, d, seed):
@@ -1392,7 +1528,8 @@ def scheduled_lr(step):
 
 # the port's kernels by their CUDA function names (csrc/*.cu)
 PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                     "flash_bwd_dkv_kernel", "ln_fwd_kernel",
+                     "flash_bwd_dkv_kernel", "flash_bwd_dq_fma_kernel",
+                     "flash_bwd_dkv_fma_kernel", "ln_fwd_kernel",
                      "ln_bwd_rows_kernel", "ln_bwd_colsum_kernel",
                      "bias_gelu_fwd_kernel", "bias_gelu_bwd_kernel",
                      "bias_gelu_bwd_colsum_kernel",
@@ -1651,7 +1788,8 @@ def kernels_line(per_kernel, launches_by_path):
     phase 10).  Sources and the TPU kernels replaced come from the port's
     route table; a kernel also launched on another path carries
     ``train_launches`` (phase 7) and ``fused_train_launches`` (phase 8),
-    and flash forward its dropout variant's times."""
+    flash forward its dropout variant's times, and the flash backward
+    its row's extra bounds, library call and float64 witness."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     out = []
@@ -1667,6 +1805,12 @@ def kernels_line(per_kernel, launches_by_path):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
             "dtype": "float32", "path": path}
+        # the flash backward's other bounds, its library call (dq, dk, dv
+        # together) and its float64 witness, where its row has them
+        entry.update({k: main[k] for k in (
+            "bound_fma_ms", "bound_3xtf32_ms", "bound_design_ms",
+            "library_dq_dk_dv_ms", "kernel_err_vs_float64",
+            "plain_err_vs_float64") if k in main})
         for other in ("train", "fused_train", "dp_int8", "dp_int4"):
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]

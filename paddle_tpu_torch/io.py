@@ -24,19 +24,37 @@ from .framework.executor import (Scope, global_scope, _RNG_VAR,
                                  sync_prepared_state)
 
 
-def convert_params(arrays: Dict[str, np.ndarray], device
+def _is_two_byte_record(a: np.ndarray) -> bool:
+    """A ``|V2`` array: how ``np.load`` returns a bfloat16 array that the
+    JAX package (or :func:`save_persistables`) wrote to an npz file."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2 and \
+        a.dtype.name != "bfloat16"
+
+
+def convert_params(arrays: Dict[str, np.ndarray], device,
+                   dtypes: Optional[Dict[str, str]] = None
                    ) -> Dict[str, torch.Tensor]:
     """numpy arrays → tensors on ``device``, values and dtypes unchanged
-    (int64 stays int64; a bfloat16 array, as JAX writes it, becomes
-    torch.bfloat16 bit for bit)."""
+    (int64 stays int64; a bfloat16 array, as JAX keeps it, becomes
+    torch.bfloat16 bit for bit).  A ``|V2`` record array, as ``np.load``
+    returns a bfloat16 array from an npz file, becomes torch.bfloat16 when
+    ``dtypes`` (var name → the program's dtype) says the var is
+    bfloat16, and raises TypeError otherwise."""
     device = torch.device(device)
+    dtypes = dtypes or {}
     out = {}
     for name, a in arrays.items():
         # a private copy: the array may be read-only (JAX's are), and a CPU
         # tensor would otherwise alias it
         a = np.array(a, order="C")
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        if _is_two_byte_record(a) and dtypes.get(name) != "bfloat16":
+            raise TypeError(
+                f"convert_params: {name!r} is a 2-byte record array "
+                f"({a.dtype.str}) but the program declares it "
+                f"{dtypes.get(name, 'nothing')}; only a bfloat16 var is "
+                f"read from 2-byte records")
+        if a.dtype.name == "bfloat16" or _is_two_byte_record(a):
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(a)
         out[name] = t.to(device)
@@ -44,10 +62,12 @@ def convert_params(arrays: Dict[str, np.ndarray], device
 
 
 def _to_numpy(v) -> np.ndarray:
+    """A scope value as the npz file holds it: a bfloat16 tensor as 2-byte
+    records (``|V2``, its bits unchanged), as the JAX package writes one."""
     if isinstance(v, torch.Tensor):
         v = v.detach().cpu()
         if v.dtype == torch.bfloat16:
-            return v.float().numpy()
+            return v.view(torch.int16).numpy().view("V2")
         return v.numpy()
     return np.asarray(v)
 
@@ -83,14 +103,17 @@ def load_persistables(executor, dirname,
                       filename: Optional[str] = None,
                       scope: Optional[Scope] = None):
     """Load the program's persistables from an npz file onto the
-    executor's device."""
+    executor's device; a bfloat16 var's 2-byte records come back as
+    torch.bfloat16."""
     main_program = main_program or default_main_program()
     scope = scope or global_scope()
     path = os.path.join(dirname, filename or "params.npz")
     wanted = set(_persistable_names(main_program))
     with np.load(path) as data:
         arrays = {n: data[n] for n in data.files if n in wanted}
-    for name, t in convert_params(arrays, executor.device).items():
+    dtypes = {v.name: v.dtype for v in main_program.list_vars()
+              if v.name in arrays}
+    for name, t in convert_params(arrays, executor.device, dtypes).items():
         scope.set_var(name, t)
 
 

@@ -1,37 +1,725 @@
-// Flash attention backward for Hopper: dq, and dk/dv.
+// Flash attention backward for Hopper: dk/dv with the score gradient ds,
+// then dq = ds.k.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas/flash_attention.py
-// _bwd_dq_kernel and _bwd_dkv_kernel (reached from _flash_bwd).  Same
-// function, FlashAttention-2 style: both kernels recompute
-// s = q.k^T * scale + bias (causal entries -1e30, keys past Sk -inf) and
-// p = exp(s - lse) in float32 — a row whose lse is +inf (no unmasked key)
-// gives p = 0 — and dp = do.v^T, masked and rescaled by the dropout keep
-// mask; ds = p * (dp - delta) with delta = rowsum(do * o) (computed by the
-// caller, as _flash_bwd does outside its kernels).  Then
+// _bwd_dkv_kernel (:177) and _bwd_dq_kernel (:133), reached from
+// _flash_bwd (pallas_call at :338 and :317).  Same function:
+//   s = q.k^T * scale + bias (causal entries -1e30, keys past Sk -inf),
+//   p = exp(s - lse), 0 on a row whose lse is +inf (no unmasked key),
+//   dp = do.v^T, masked and rescaled by the dropout keep mask,
+//   ds = p * (dp - delta), delta = rowsum(do * o) from the caller (a ring
+//   route passes delta - dlse), and
 //   dq = ds.k * scale,  dk = ds^T.q * scale,  dv = p_dropped^T.do.
-// The keep mask is regenerated element by element from (seed, bh, row,
-// col) with the forward's Philox (common.cuh), so it is bit-identical.
-// The additive bias gets no gradient (zero by contract, as on the TPU).
+// The keep mask is Philox-4x32-10 of (seed, bh, row, col) (common.cuh), bit
+// for bit the forward's; the additive bias gets no gradient (zero by
+// contract, as on the TPU).
 //
-// Bound on an H100: at BERT's shapes (D = 64, S = 128..512) the FLOPs
-// (dq 6*BH*Sq*Sk*D, dk/dv 8*BH*Sq*Sk*D) dominate the bytes.  Like the
-// forward, the products run on the float32 FMA pipes, register-tiled
-// (flash_common.cuh), not on the tensor cores.
+// Bound on an H100 SXM at BERT-base's training shape (B32 H12 S128 D64,
+// float32).  The TPU kernels' functions: dk/dv four S^2 D products (8 BH
+// S^2 D flops), dq three (6 BH S^2 D: it recomputes q.k^T and do.v^T), each
+// reading q, k, v, dO, the bias, lse and delta once.  On the float32 FMA
+// pipes (67 TFLOP/s) that is 0.048 + 0.036 ms; as 3xTF32 on the tensor
+// cores (495 TFLOP/s, three passes a product) 0.0195 + 0.0146 ms of
+// operations, under the bytes' 0.0233 + 0.0195 ms at 3.35 TB/s: the bound
+// chip_smoke.py holds each kernel to.  This design does the pair's work in
+// four products, not seven: dk/dv (8 BH S^2 D) writes ds, 25 MB of float32
+// (with it, dk/dv's byte bound is 0.0308 ms), and dq takes one product, ds.k
+// (2 BH S^2 D, 0.0049 ms), bound by reading ds (0.0150 ms).  It keeps one of
+// dk/dv's four products, q.k^T, on the FMA pipes in float32 (0.012 ms of FMA
+// beside 0.0146 ms of tensor-core work; the two pipes run side by side).
+// bf16 runs one tensor-core pass a product (989 TFLOP/s), two where p or ds
+// is an operand.
 //
-// Design.  dq: one block of 256 threads per (64-row query tile, bh) keeps
-// its Q and dO rows in shared memory and walks the key tiles (causal: only
-// up to the diagonal); K and V come in 64-wide head-dim chunks, so shared
-// memory stays under the 227 KB limit at D = 256.  dk/dv: one block per
-// (64-key tile, bh) keeps its K and V rows and walks the query tiles
-// (causal: from the diagonal on), accumulating dk and dv in registers.
-// Each block owns its output rows, so nothing is summed across blocks: no
-// atomics, and the result is the same on every run.
+// Design.
+// * The products (but float32's q.k^T, below) run on the tensor cores
+//   through mma.sync.aligned.m16n8k8 (.tf32) and m16n8k16 (.bf16), each
+//   thread loading its fragments from shared memory.  Not wgmma: with .tf32
+//   it reads only K-major operands from shared memory (its transpose option
+//   exists for 16-bit types only), so three of the five products would need
+//   K, dO and Q staged a second time transposed, and p and ds would
+//   round-trip through shared memory.
+//   With mma.sync the score tiles stay in registers from the product that
+//   makes them to the products that use them (an accumulator fragment is an
+//   A fragment with its k index permuted), and a thread reads B in any
+//   layout, so p^T.dO, ds^T.Q and ds.K need no transposed copies.
+// * In float32 the score product q.k^T stays on the FMA pipes: each score is
+//   one fmaf chain over the head dim in order from 0, the float32 product
+//   the plain version's matmul computes, bit for bit on the H100 (the first
+//   port's FMA kernels, which summed the same way, agreed with the plain
+//   version to 0.0 at every shape).  BERT's padding bias adds -1e4 to a
+//   masked score, where a float32 ulp is 2^-10: summed in any other order,
+//   some such scores move by an ulp, their p by 1e-3 of itself, and dq and
+//   dk by up to 5e-4 at B32 S128 (on the card, with q.k^T in 3xTF32) -- past
+//   the gradient tolerance against the plain version.  That tolerance holds
+//   the kernel to the plain version's order of the sum, not to the exact
+//   result: against the same backward in float64 (chip_smoke.py's witness)
+//   kernel and plain version are both ~3.4e-4 off at B32 S128, the kernel
+//   no further than the plain version.  The four other products carry no
+//   such cancellation and run on the tensor cores.
+// * float32 keeps float32 accuracy with 3xTF32 (CUTLASS's
+//   OpMultiplyAddFastF32): a = hi + lo with hi = tf32(a), lo = tf32(a - hi)
+//   (cvt.rna: nearest, ties away from zero), a.b ~ lo.hi' + hi.lo' + hi.hi',
+//   small terms first, accumulated in float32.  Single-pass TF32 keeps
+//   about three decimal digits and misses the gradient tolerance
+//   (tests/test_torch_flash_bwd_numerics.py).  bf16 feeds q, k, v and do to
+//   the tensor cores as they are; p and ds, float32 in registers, are split
+//   into two bf16 halves the same way (rounded to bf16 once, they used up
+//   to half of the bf16 tolerance in a CPU emulation at S = 512).
+// * One pass over the scores.  dk/dv (a block of 4 warps per 64 keys, 16
+//   keys a warp) walks the queries 32 rows at a time with dk and dv in
+//   registers (at most 170 a thread at D = 64: three blocks an SM; with 64
+//   rows a stage it took 230 and ran 1.2x slower on the card); it
+//   computes p, draws the keep mask once per element (skipping a group of
+//   four whose p are all 0: a score that is masked out needs no draw), and
+//   writes ds to a float32 scratch ds^T[bh][key][query], both padded to 64.
+//   dq (a block of 4 warps per 64 queries) is then the product ds.k over the
+//   key tiles: it recomputes neither q.k^T and do.v^T (4 of the 6 S^2 D
+//   products the first port's dq kernel did) nor the mask.
+// * The loop body stays small enough for the instruction cache: the mask is
+//   drawn in a rolled loop, four independent generator chains at a time,
+//   and the loops that index only shared memory are unrolled twice, not
+//   fully.  Fully unrolled (32 inlined Philox chains a tile), the float32
+//   dk/dv kernel took 0.264 ms at B32 H12 S128; per-phase clock64() counts
+//   showed the elementwise step, not the products, taking the time.  A
+//   tile's bias loads are all issued before the first is used.
+// * Copies overlap products: the streamed tiles (Q, dO and their rows' lse
+//   and delta in dk/dv; K and ds in dq) are double-buffered in shared
+//   memory with cp.async, so the next tile's copy flies while this tile's
+//   products run.  Row strides are padded so that every fragment load is
+//   free of bank conflicts.
+// * Every sum runs in a fixed order with no atomics: each block owns its
+//   output rows, so dq, dk and dv are bit-identical across launches.
+// * Memory: the ds^T scratch is 4 BH round64(Sk) round64(Sq) bytes (25.2 MB
+//   at B32 H12 S128, 101 MB at B8 H12 S512), O(S^2) where the kernels
+//   below need O(S).  The caller caps it (flash_attention.py bwd_plan,
+//   DS_SCRATCH_CAP = 1 GiB): a problem whose scratch would exceed the cap
+//   takes the FMA route.
+// * The FMA route (the second half of this file) is the first port's pair
+//   on the float32 FMA pipes, each kernel recomputing the scores and the
+//   mask, with no scratch.  It takes head dim 256 (a warp's dk and dv rows,
+//   2 x 16 x 256 floats, do not fit in its registers beside the score
+//   tiles) and any problem past the scratch cap; a NULL ds selects it.
 #include "flash_common.cuh"
 
 namespace {
 
+constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of the tile each
+
+struct BwdArgs {
+  const void *q, *k, *v, *bias, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  float* ds;  // ds^T scratch [bh][round64(sk)][round64(sq)] (tensor cores)
+  int bh, sq, sk, bias_ratio, causal;
+  float scale;
+  const int* seed;
+  uint32_t threshold;
+  float inv_keep;
+};
+
+__host__ __device__ constexpr int round64(int n) { return (n + 63) / 64 * 64; }
+
+// ---------------------------------------------------------------------------
+// tensor-core fragments and asynchronous copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 values (3xTF32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) = hi + lo, both pairs of bf16, a in the low halves
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// two adjacent bf16 values as one word (p 4-byte aligned)
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// p[0] and p[stride] as one word, p[0] in the low half
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p,
+                                            int stride) {
+  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
+  const uint32_t hi = *reinterpret_cast<const unsigned short*>(p + stride);
+  return lo | (hi << 16);
+}
+
+// c[16x8] += a[16x8] . b[8x8]: TF32 in, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[16x8] += a[16x16] . b[16x8]: bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b on split operands, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  mma_tf32(c, alo, bhi);
+  mma_tf32(c, ahi, blo);
+  mma_tf32(c, ahi, bhi);
+}
+
+// 16 (or 4) bytes from device to shared memory, zeros where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + R) of a row-major matrix (rows `ld` elements apart; W
+// columns from `src`) into dst[R][S] with cp.async; rows at or past
+// `limit` are zero.  W elements are a multiple of 16 bytes.
+template <typename T, int W, int R, int S>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src, size_t ld,
+                                          int r0, int limit) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = W / kVec;
+  for (int i = threadIdx.x; i < R * kPerRow; i += kMmaThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * S + c,
+               src + (ok ? static_cast<size_t>(r0 + r) * ld : 0) + c, ok);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ---------------------------------------------------------------------------
+// warp products.  Lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8
+// and columns 2t, 2t + 1 of each 16 x 8 accumulator tile.
+// ---------------------------------------------------------------------------
+
+// c[j] += a[16][0:D] . b[8j + n][0:D] (n < 8), j < NT: a's rows are the
+// warp's, b's rows the tile's; both in shared memory, S elements apart
+template <int D, int NT, int S>
+__device__ __forceinline__ void score_tile(float (&c)[NT][4], const float* a,
+                                           const float* b, int g, int t) {
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 8) {
+    uint32_t ahi[4], alo[4];
+    split_tf32(a[g * S + kk + t], ahi[0], alo[0]);
+    split_tf32(a[(g + 8) * S + kk + t], ahi[1], alo[1]);
+    split_tf32(a[g * S + kk + t + 4], ahi[2], alo[2]);
+    split_tf32(a[(g + 8) * S + kk + t + 4], ahi[3], alo[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bhi[2], blo[2];
+      split_tf32(b[(8 * j + g) * S + kk + t], bhi[0], blo[0]);
+      split_tf32(b[(8 * j + g) * S + kk + t + 4], bhi[1], blo[1]);
+      mma_3xtf32(c[j], ahi, alo, bhi, blo);
+    }
+  }
+}
+
+// float32 scores, exact: c[j] as score_tile's, each element one fmaf chain
+// over the head dim in order from 0 -- the float32 product the plain
+// version's matmul computes, bit for bit (see the source note)
+template <int D, int NT, int S>
+__device__ __forceinline__ void score_tile_fma(float (&c)[NT][4],
+                                               const float* a,
+                                               const float* b, int g,
+                                               int t) {
+  const float* a0 = a + g * S;
+  const float* a1 = a0 + 8 * S;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    const float4 x0 = load4(a0 + d), x1 = load4(a1 + d);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 y = load4(b + (8 * j + 2 * t + e) * S + d);
+        float u = c[j][e], w = c[j][2 + e];
+        u = fmaf(x0.x, y.x, u);
+        w = fmaf(x1.x, y.x, w);
+        u = fmaf(x0.y, y.y, u);
+        w = fmaf(x1.y, y.y, w);
+        u = fmaf(x0.z, y.z, u);
+        w = fmaf(x1.z, y.z, w);
+        u = fmaf(x0.w, y.w, u);
+        w = fmaf(x1.w, y.w, w);
+        c[j][e] = u;
+        c[j][2 + e] = w;
+      }
+  }
+}
+
+template <int D, int NT, int S>
+__device__ __forceinline__ void score_tile(float (&c)[NT][4],
+                                           const __nv_bfloat16* a,
+                                           const __nv_bfloat16* b, int g,
+                                           int t) {
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 16) {
+    const uint32_t af[4] = {ld_pair(a + g * S + kk + 2 * t),
+                            ld_pair(a + (g + 8) * S + kk + 2 * t),
+                            ld_pair(a + g * S + kk + 2 * t + 8),
+                            ld_pair(a + (g + 8) * S + kk + 2 * t + 8)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* br = b + (8 * j + g) * S + kk + 2 * t;
+      const uint32_t bf[2] = {ld_pair(br), ld_pair(br + 8)};
+      mma_bf16(c[j], af, bf);
+    }
+  }
+}
+
+// acc[n] += p . b[0:8NT][8n:8n + 8] (n < D / 8): p is 16 x 8NT in
+// score_tile's accumulator layout, b's rows in shared memory S apart.  The
+// accumulator holds columns 2t, 2t + 1 of its tile j where an A fragment of
+// m16n8k8 holds t and t + 4: read as that fragment, the k index is permuted,
+// and b's rows 8j + 2t and 8j + 2t + 1 take the place of rows t and t + 4.
+template <int D, int NT, int S>
+__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
+                                         const float (&p)[NT][4],
+                                         const float* b, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ahi[4], alo[4];
+    split_tf32(p[j][0], ahi[0], alo[0]);
+    split_tf32(p[j][2], ahi[1], alo[1]);
+    split_tf32(p[j][1], ahi[2], alo[2]);
+    split_tf32(p[j][3], ahi[3], alo[3]);
+    const float* br = b + (8 * j + 2 * t) * S + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bhi[2], blo[2];
+      split_tf32(br[8 * n], bhi[0], blo[0]);
+      split_tf32(br[S + 8 * n], bhi[1], blo[1]);
+      mma_3xtf32(acc[n], ahi, alo, bhi, blo);
+    }
+  }
+}
+
+// bf16: tiles 2i and 2i + 1 of p are, as they lie, the A fragment of one
+// m16n8k16 step over the columns 16i .. 16i + 16
+template <int D, int NT, int S>
+__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
+                                         const float (&p)[NT][4],
+                                         const __nv_bfloat16* b, int g,
+                                         int t) {
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) {
+    uint32_t ahi[4], alo[4];
+    split_bf16(p[2 * i][0], p[2 * i][1], ahi[0], alo[0]);
+    split_bf16(p[2 * i][2], p[2 * i][3], ahi[1], alo[1]);
+    split_bf16(p[2 * i + 1][0], p[2 * i + 1][1], ahi[2], alo[2]);
+    split_bf16(p[2 * i + 1][2], p[2 * i + 1][3], ahi[3], alo[3]);
+    const __nv_bfloat16* br = b + (16 * i + 2 * t) * S + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const uint32_t bf[2] = {ld_pair(br + 8 * n, S),
+                              ld_pair(br + 8 * S + 8 * n, S)};
+      mma_bf16(acc[n], alo, bf);
+      mma_bf16(acc[n], ahi, bf);
+    }
+  }
+}
+
+// acc[n] += ds[16 queries][0:64] . k[0:64][8n:8n + 8]: ds^T[key][query]
+// (the warp's first query at column 0, rows SD apart) and k[key][d] (rows
+// SK apart) in shared memory
+template <int D, int SD, int SK>
+__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4],
+                                        const float* ds, const float* k,
+                                        int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN; kk += 8) {
+    const float* a = ds + (kk + t) * SD + g;
+    uint32_t ahi[4], alo[4];
+    split_tf32(a[0], ahi[0], alo[0]);
+    split_tf32(a[8], ahi[1], alo[1]);
+    split_tf32(a[4 * SD], ahi[2], alo[2]);
+    split_tf32(a[4 * SD + 8], ahi[3], alo[3]);
+    const float* br = k + (kk + t) * SK + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bhi[2], blo[2];
+      split_tf32(br[8 * n], bhi[0], blo[0]);
+      split_tf32(br[4 * SK + 8 * n], bhi[1], blo[1]);
+      mma_3xtf32(acc[n], ahi, alo, bhi, blo);
+    }
+  }
+}
+
+template <int D, int SD, int SK>
+__device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4],
+                                        const float* ds,
+                                        const __nv_bfloat16* k, int g,
+                                        int t) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN; kk += 16) {
+    const float* a = ds + (kk + 2 * t) * SD + g;
+    uint32_t ahi[4], alo[4];
+    split_bf16(a[0], a[SD], ahi[0], alo[0]);
+    split_bf16(a[8], a[SD + 8], ahi[1], alo[1]);
+    split_bf16(a[8 * SD], a[9 * SD], ahi[2], alo[2]);
+    split_bf16(a[8 * SD + 8], a[9 * SD + 8], ahi[3], alo[3]);
+    const __nv_bfloat16* br = k + (kk + 2 * t) * SK + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const uint32_t bf[2] = {ld_pair(br + 8 * n, SK),
+                              ld_pair(br + 8 * SK + 8 * n, SK)};
+      mma_bf16(acc[n], alo, bf);
+      mma_bf16(acc[n], ahi, bf);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[i][e] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv and ds
+// ---------------------------------------------------------------------------
+
+// K, V resident; Q, dO and their rows' lse and delta in two stages.  Row
+// strides of 4 words mod 32 keep the fragment loads conflict-free.
+template <typename T, int D, int BM>
+struct DkvTile {
+  static constexpr int kS = D + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr size_t kSmem =
+      (2 * kBlockN + 4 * BM) * kS * sizeof(T) + 4 * BM * sizeof(float);
+};
+
+// D 64: three blocks an SM (at most 170 registers a thread, no spills)
+template <typename T, int D, int BM>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const float* __restrict__ bias,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dk, T* __restrict__ dv,
+                         float* __restrict__ ds, int sq, int sk,
+                         int bias_ratio, int causal, float scale,
+                         const int* __restrict__ seed, uint32_t threshold,
+                         float inv_keep) {
+  using L = DkvTile<T, D, BM>;
+  constexpr int S = L::kS;
+  constexpr int NT = BM / 8;  // 8-query tiles of a warp's scores
+  constexpr int DT = D / 8;   // 8-column tiles of its dk and dv rows
+  extern __shared__ float4 smem4[];
+  T* ks = reinterpret_cast<T*>(smem4);  // [kBlockN][S]
+  T* vs = ks + kBlockN * S;             // [kBlockN][S]
+  T* qs = vs + kBlockN * S;             // [2][BM][S]
+  T* dos = qs + 2 * BM * S;             // [2][BM][S]
+  float* lses = reinterpret_cast<float*>(dos + 2 * BM * S);  // [2][BM]
+  float* deltas = lses + 2 * BM;                             // [2][BM]
+
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int bh = blockIdx.y, n0 = blockIdx.x * kBlockN;
+  const int sqp = round64(sq);
+  const size_t qoff = static_cast<size_t>(bh) * sq;
+  const size_t koff = static_cast<size_t>(bh) * sk;
+  const T* qb = q + qoff * D;
+  const T* db = dout + qoff * D;
+  const float* bb =
+      bias ? bias + static_cast<size_t>(bh / bias_ratio) * sq * sk : nullptr;
+  // this block's 64 rows of ds^T
+  float* dsb =
+      ds + (static_cast<size_t>(bh) * round64(sk) + n0 + 16 * warp) * sqp;
+  const uint32_t sd = seed ? static_cast<uint32_t>(*seed) : 0u;
+
+  auto stage_rows = [&](int buf, int m0) {
+    copy_tile<T, D, BM, S>(qs + buf * BM * S, qb, D, m0, sq);
+    copy_tile<T, D, BM, S>(dos + buf * BM * S, db, D, m0, sq);
+    for (int i = threadIdx.x; i < BM; i += kMmaThreads) {
+      const bool ok = m0 + i < sq;
+      const size_t r = qoff + (ok ? m0 + i : 0);
+      cp_async4(lses + buf * BM + i, lse + r, ok);
+      cp_async4(deltas + buf * BM + i, delta + r, ok);
+    }
+  };
+  copy_tile<T, D, kBlockN, S>(ks, k + koff * D, D, n0, sk);
+  copy_tile<T, D, kBlockN, S>(vs, v + koff * D, D, n0, sk);
+  // causal: query rows below the tile's first key see none of its keys
+  const int qstart = causal ? n0 : 0;
+  stage_rows(0, qstart);
+  cp_async_commit();
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  const T* kw = ks + 16 * warp * S;
+  const T* vw = vs + 16 * warp * S;
+  int buf = 0;
+  for (int m0 = qstart; m0 < sqp; m0 += BM, buf ^= 1) {
+    if (m0 + BM < sqp) stage_rows(buf ^ 1, m0 + BM);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* qt = qs + buf * BM * S;
+    const T* dt = dos + buf * BM * S;
+    const float* lt = lses + buf * BM;
+    const float* et = deltas + buf * BM;
+
+    // the warp's 16 keys against the tile's queries: s = k.q^T, dp = v.do^T
+    float s[NT][4], dp[NT][4];
+    zero(s);
+    zero(dp);
+    if constexpr (sizeof(T) == 4)
+      score_tile_fma<D, NT, S>(s, kw, qt, g, t);
+    else
+      score_tile<D, NT, S>(s, kw, qt, g, t);
+    score_tile<D, NT, S>(dp, vw, dt, g, t);
+
+    // p from the scores (s becomes p); `live` marks the elements whose p is
+    // not 0, the only ones whose keep bit matters
+    uint32_t live = 0;
+    float bv[NT][4];  // the bias loads of the tile, all in flight at once
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = m0 + 8 * j + 2 * t + (c & 1);
+        const int key = n0 + 16 * warp + g + 8 * (c >> 1);
+        bv[j][c] = bb && row < sq && key < sk
+                       ? bb[static_cast<size_t>(row) * sk + key]
+                       : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * j + 2 * t + (c & 1), row = m0 + col;
+        const int key = n0 + 16 * warp + g + 8 * (c >> 1);
+        float sv = s[j][c] * scale + bv[j][c];
+        if (causal && key > row) sv = kNegInf;
+        if (key >= sk) sv = -INFINITY;
+        s[j][c] = row < sq ? expf(sv - lt[col]) : 0.f;
+        if (s[j][c] != 0.f) live |= 1u << (4 * j + c);
+      }
+    // the keep mask: one draw per element of a tile column group that
+    // holds a live one, four independent generator chains at a time, in a
+    // loop left rolled (unrolled once per element, the generator's ~100
+    // instructions made the loop body outgrow the instruction cache)
+    uint32_t keep = ~0u;
+    if (seed) {
+      keep = 0;
+#pragma unroll 1
+      for (int j = 0; j < NT; ++j) {
+        if (!((live >> (4 * j)) & 0xFu)) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = m0 + 8 * j + 2 * t + (c & 1);
+          const int key = n0 + 16 * warp + g + 8 * (c >> 1);
+          if (keep_element(sd, bh, row, key, threshold))
+            keep |= 1u << (4 * j + c);
+        }
+      }
+    }
+    // s becomes p_dropped and dp becomes ds, which goes to memory for dq
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = s[j][c];
+        const float mult = !seed ? 1.f
+                           : (keep >> (4 * j + c)) & 1u ? inv_keep : 0.f;
+        s[j][c] = p * mult;
+        dp[j][c] = p * (dp[j][c] * mult - et[8 * j + 2 * t + (c & 1)]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(dsb + static_cast<size_t>(g + 8 * h) * sqp + m0 + 8 * j +
+                   2 * t,
+               dp[j][2 * h], dp[j][2 * h + 1]);
+    }
+    acc_tile<D, NT, S>(dv_acc, s, dt, g, t);   // dv += p_dropped^T . do
+    acc_tile<D, NT, S>(dk_acc, dp, qt, g, t);  // dk += ds^T . q
+    __syncthreads();  // the stage is read before the next copy into it
+  }
+
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = n0 + 16 * warp + g + 8 * h;
+      if (key >= sk) continue;
+      const size_t at = (koff + key) * D + 8 * n + 2 * t;
+      store2(dk + at, dk_acc[n][2 * h] * scale, dk_acc[n][2 * h + 1] * scale);
+      store2(dv + at, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// dq = ds.k * scale
+// ---------------------------------------------------------------------------
+
+// K and ds^T tiles in two stages; strides of 8 words mod 32 (K, float32
+// ds) or 4 (bf16 K rows in words; ds read two rows at a time for bf16)
+template <typename T, int D>
+struct DqTile {
+  static constexpr int kSK = D + 8;
+  static constexpr int kSD = kBlockM + (sizeof(T) == 4 ? 8 : 4);
+  static constexpr size_t kSmem =
+      2 * (kBlockN * kSK * sizeof(T) + kBlockN * kSD * sizeof(float));
+};
+
+// D 64: three blocks an SM; D 128 may take the registers it needs (capped
+// at 128 without the bound, it spilled)
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
+    flash_bwd_dq_kernel(const T* __restrict__ k,
+                        const float* __restrict__ ds, T* __restrict__ dq,
+                        int sq, int sk, int causal, float scale) {
+  using L = DqTile<T, D>;
+  constexpr int SK = L::kSK, SD = L::kSD, DT = D / 8;
+  extern __shared__ float4 smem4[];
+  T* ks = reinterpret_cast<T*>(smem4);  // [2][kBlockN][SK]
+  // [2][kBlockN][SD]
+  float* dss = reinterpret_cast<float*>(ks + 2 * kBlockN * SK);
+
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int bh = blockIdx.y, m0 = blockIdx.x * kBlockM;
+  const int sqp = round64(sq), skp = round64(sk);
+  const T* kb = k + static_cast<size_t>(bh) * sk * D;
+  // column m0 of this bh's ds^T
+  const float* dsb = ds + static_cast<size_t>(bh) * skp * sqp + m0;
+  // causal: the key tiles up to the diagonal
+  const int kend = causal ? min(sk, m0 + kBlockM) : sk;
+  const int tiles = (kend + kBlockN - 1) / kBlockN;
+
+  auto stage_keys = [&](int buf, int k0) {
+    copy_tile<T, D, kBlockN, SK>(ks + buf * kBlockN * SK, kb, D, k0, sk);
+    copy_tile<float, kBlockM, kBlockN, SD>(dss + buf * kBlockN * SD, dsb,
+                                           sqp, k0, skp);
+  };
+  stage_keys(0, 0);
+  cp_async_commit();
+  float acc[DT][4];
+  zero(acc);
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) stage_keys((i + 1) & 1, (i + 1) * kBlockN);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    dq_tile<D, SD, SK>(acc, dss + (i & 1) * kBlockN * SD + 16 * warp,
+                       ks + (i & 1) * kBlockN * SK, g, t);
+    __syncthreads();  // the stage is read before the next copy into it
+  }
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 16 * warp + g + 8 * h;
+      if (row >= sq) continue;
+      store2(dq + (static_cast<size_t>(bh) * sq + row) * D + 8 * n + 2 * t,
+             acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+    }
+}
+
+template <typename T, int D, int BM>
+cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
+  using L = DkvTile<T, D, BM>;
+  static_assert(L::kSmem <= 232448, "dk/dv tiles exceed shared memory");
+  auto kernel = flash_bwd_dkv_kernel<T, D, BM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kSmem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(round64(a.sk) / kBlockN, a.bh);
+  kernel<<<grid, kMmaThreads, L::kSmem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.ds, a.sq, a.sk, a.bias_ratio, a.causal,
+      a.scale, a.seed, a.threshold, a.inv_keep);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
+  using L = DqTile<T, D>;
+  static_assert(L::kSmem <= 232448, "dq tiles exceed shared memory");
+  auto kernel = flash_bwd_dq_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kSmem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(round64(a.sq) / kBlockM, a.bh);
+  kernel<<<grid, kMmaThreads, L::kSmem, stream>>>(
+      static_cast<const T*>(a.k), a.ds, static_cast<T*>(a.dq), a.sq, a.sk,
+      a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// head dim 256: the first port's kernels on the float32 FMA pipes, both
+// recomputing the scores and the mask, 256 threads as a 16 x 16 grid over
+// 64 x 64 score tiles (flash_common.cuh)
+// ---------------------------------------------------------------------------
+
 template <int D>
-struct BwdTile {
+struct FmaTile {
   static constexpr int kStride = D + 4;
   static constexpr int kChunks = D / 64;
   // dq: Q, dO resident; K, V chunks; ds tile
@@ -45,19 +733,13 @@ struct BwdTile {
       sizeof(float);
 };
 
-struct BwdArgs {
-  const void *q, *k, *v, *bias, *dout, *lse, *delta;
-  void *dq, *dk, *dv;
-  int bh, sq, sk, bias_ratio, causal;
-  float scale;
-  const int* seed;
-  uint32_t threshold;
-  float inv_keep;
-};
 
+// D 64: two blocks an SM (128 registers a thread; dk/dv spills 4 bytes
+// there, and with 168 registers at one block an SM the pair ran slower);
+// D 128 and 256 take the registers they need
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    flash_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const float* __restrict__ bias,
                         const T* __restrict__ dout,
@@ -66,7 +748,7 @@ __global__ void __launch_bounds__(kThreads)
                         int sq, int sk, int bias_ratio, int causal,
                         float scale, const int* __restrict__ seed,
                         uint32_t threshold, float inv_keep) {
-  using C = BwdTile<D>;
+  using C = FmaTile<D>;
   constexpr int S = C::kStride;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBlockM][S]
@@ -169,8 +851,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+    flash_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const float* __restrict__ bias,
                          const T* __restrict__ dout,
@@ -180,7 +862,7 @@ __global__ void __launch_bounds__(kThreads)
                          int sk, int bias_ratio, int causal, float scale,
                          const int* __restrict__ seed, uint32_t threshold,
                          float inv_keep) {
-  using C = BwdTile<D>;
+  using C = FmaTile<D>;
   constexpr int S = C::kStride;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // [kBlockN][S]
@@ -300,9 +982,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  using C = BwdTile<D>;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+cudaError_t launch_dq_fma(const BwdArgs& a, cudaStream_t stream) {
+  using C = FmaTile<D>;
+  auto kernel = flash_bwd_dq_fma_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmemDq));
@@ -318,9 +1000,9 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
 }
 
 template <typename T, int D>
-cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  using C = BwdTile<D>;
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+cudaError_t launch_dkv_fma(const BwdArgs& a, cudaStream_t stream) {
+  using C = FmaTile<D>;
+  auto kernel = flash_bwd_dkv_fma_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmemDkv));
@@ -336,31 +1018,56 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// dk/dv: the tensor-core kernel where the caller gives a ds scratch, else
+// the FMA kernel (head dim 256 has only the FMA route)
 template <typename T>
-cudaError_t dispatch(bool dkv, int d, const BwdArgs& a, cudaStream_t s) {
+cudaError_t dispatch_dkv(int d, const BwdArgs& a, cudaStream_t s) {
   switch (d) {
     case 64:
-      return dkv ? launch_dkv<T, 64>(a, s) : launch_dq<T, 64>(a, s);
+      return a.ds ? launch_dkv<T, 64, 32>(a, s) : launch_dkv_fma<T, 64>(a, s);
     case 128:
-      return dkv ? launch_dkv<T, 128>(a, s) : launch_dq<T, 128>(a, s);
+      return a.ds ? launch_dkv<T, 128, 32>(a, s)
+                  : launch_dkv_fma<T, 128>(a, s);
     case 256:
-      return dkv ? launch_dkv<T, 256>(a, s) : launch_dq<T, 256>(a, s);
+      return a.ds ? cudaErrorInvalidValue : launch_dkv_fma<T, 256>(a, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-int run(bool dkv, int dtype, int d, const BwdArgs& a, void* stream) {
+// dq: from ds on the tensor-core route, from the inputs on the FMA route
+template <typename T>
+cudaError_t dispatch_dq(bool from_ds, int d, const BwdArgs& a,
+                        cudaStream_t s) {
+  switch (d) {
+    case 64:
+      return from_ds ? launch_dq<T, 64>(a, s) : launch_dq_fma<T, 64>(a, s);
+    case 128:
+      return from_ds ? launch_dq<T, 128>(a, s) : launch_dq_fma<T, 128>(a, s);
+    case 256:
+      return from_ds ? cudaErrorInvalidValue : launch_dq_fma<T, 256>(a, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+enum class Kernel { kDkv, kDqFma, kDqDs };
+
+int run(Kernel which, int dtype, int d, const BwdArgs& a, void* stream) {
   if (a.bh < 1 || a.bh > 65535 || a.sq < 1 || a.sk < 1 ||
       a.bias_ratio < 1 || a.bh % a.bias_ratio != 0 ||
-      (a.causal && a.sq != a.sk))
+      (a.causal && a.sq != a.sk) || (which == Kernel::kDqDs && !a.ds))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == PT_F32) {
-    err = dispatch<float>(dkv, d, a, s);
+    err = which == Kernel::kDkv
+              ? dispatch_dkv<float>(d, a, s)
+              : dispatch_dq<float>(which == Kernel::kDqDs, d, a, s);
   } else if (dtype == PT_BF16) {
-    err = dispatch<__nv_bfloat16>(dkv, d, a, s);
+    err = which == Kernel::kDkv
+              ? dispatch_dkv<__nv_bfloat16>(d, a, s)
+              : dispatch_dq<__nv_bfloat16>(which == Kernel::kDqDs, d, a, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -369,11 +1076,32 @@ int run(bool dkv, int dtype, int d, const BwdArgs& a, void* stream) {
 
 }  // namespace
 
-// dq[bh, sq, d] from q[bh, sq, d], k/v[bh, sk, d], the optional float32
+// dk, dv[bh, sk, d] from q[bh, sq, d], k/v[bh, sk, d], the optional float32
 // bias[bh / bias_ratio, sq, sk], dout[bh, sq, d], and the float32 row
-// statistics lse[bh, sq] (the forward's) and delta[bh, sq] =
-// rowsum(dout * o).  `seed`, `threshold` and `inv_keep` must be the
-// forward's (NULL seed: no dropout).  Same shape rules as the forward.
+// statistics lse[bh, sq] (the forward's) and delta[bh, sq] (rowsum(dout *
+// o)).  `seed`, `threshold` and `inv_keep` must be the forward's (NULL
+// seed: no dropout).  With a ds (d 64 and 128 only) the tensor-core kernel
+// also writes the score gradient ds^T into the float32 scratch ds[bh,
+// round64(sk), round64(sq)] that pt_flash_attn_bwd_dq_ds reads; with a NULL
+// ds the FMA kernel runs.
+extern "C" int pt_flash_attn_bwd_dkv(int dtype, const void* q, const void* k,
+                                     const void* v, const void* bias,
+                                     const void* dout, const void* lse,
+                                     const void* delta, void* dk, void* dv,
+                                     void* ds, int bh, int sq, int sk, int d,
+                                     int bias_ratio, int causal, float scale,
+                                     const void* seed, unsigned int threshold,
+                                     float inv_keep, void* stream) {
+  const BwdArgs a{q,  k,  v,  bias, dout, lse, delta, nullptr,
+                  dk, dv, static_cast<float*>(ds), bh, sq, sk, bias_ratio,
+                  causal, scale, static_cast<const int*>(seed), threshold,
+                  inv_keep};
+  return run(Kernel::kDkv, dtype, d, a, stream);
+}
+
+// dq[bh, sq, d] from the same inputs, on the FMA route: the kernel
+// recomputes the scores and the mask (pt_flash_attn_bwd_dkv with a NULL ds
+// is its pair).
 extern "C" int pt_flash_attn_bwd_dq(int dtype, const void* q, const void* k,
                                     const void* v, const void* bias,
                                     const void* dout, const void* lse,
@@ -382,23 +1110,23 @@ extern "C" int pt_flash_attn_bwd_dq(int dtype, const void* q, const void* k,
                                     int causal, float scale, const void* seed,
                                     unsigned int threshold, float inv_keep,
                                     void* stream) {
-  const BwdArgs a{q,  k,      v,  bias, dout, lse, delta, dq,
-                  nullptr, nullptr, bh, sq, sk, bias_ratio, causal, scale,
-                  static_cast<const int*>(seed), threshold, inv_keep};
-  return run(false, dtype, d, a, stream);
+  const BwdArgs a{q,  k,       v,       bias,    dout, lse, delta,
+                  dq, nullptr, nullptr, nullptr, bh,   sq,  sk,
+                  bias_ratio, causal, scale, static_cast<const int*>(seed),
+                  threshold, inv_keep};
+  return run(Kernel::kDqFma, dtype, d, a, stream);
 }
 
-// dk, dv[bh, sk, d] from the same inputs as pt_flash_attn_bwd_dq.
-extern "C" int pt_flash_attn_bwd_dkv(int dtype, const void* q, const void* k,
-                                     const void* v, const void* bias,
-                                     const void* dout, const void* lse,
-                                     const void* delta, void* dk, void* dv,
-                                     int bh, int sq, int sk, int d,
-                                     int bias_ratio, int causal, float scale,
-                                     const void* seed, unsigned int threshold,
-                                     float inv_keep, void* stream) {
-  const BwdArgs a{q,  k,  v,  bias, dout, lse, delta, nullptr,
-                  dk, dv, bh, sq, sk, bias_ratio, causal, scale,
-                  static_cast<const int*>(seed), threshold, inv_keep};
-  return run(true, dtype, d, a, stream);
+// dq[bh, sq, d] = ds.k * scale, on the tensor-core route (d 64 and 128):
+// ds is the scratch pt_flash_attn_bwd_dkv wrote for the same problem.
+extern "C" int pt_flash_attn_bwd_dq_ds(int dtype, const void* k,
+                                       const void* ds, void* dq, int bh,
+                                       int sq, int sk, int d, int causal,
+                                       float scale, void* stream) {
+  const BwdArgs a{nullptr, k,       nullptr, nullptr, nullptr,
+                  nullptr, nullptr, dq,      nullptr, nullptr,
+                  const_cast<float*>(static_cast<const float*>(ds)),
+                  bh,      sq,      sk,      1,       causal,
+                  scale,   nullptr, 0u,      1.f};  // q .. delta unread
+  return run(Kernel::kDqDs, dtype, d, a, stream);
 }

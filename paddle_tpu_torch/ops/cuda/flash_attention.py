@@ -3,8 +3,13 @@
 
 ``flash_fwd`` is ``_flash_fwd``'s analog on flattened ``(B*H, S, D)``
 operands and returns ``(o, lse)``; ``flash_bwd`` is ``_flash_bwd``'s and
-returns ``(dq, dk, dv)`` from two kernels (``flash_bwd_dq``,
-``flash_bwd_dkv``).  :class:`FlashAttention` ties them into one
+returns ``(dq, dk, dv)`` from two kernels routed by :func:`bwd_plan`.  On
+its "mma" route (head dim 64 or 128, a score gradient of at most
+:data:`DS_SCRATCH_CAP` bytes) ``flash_bwd_dkv`` writes dk, dv and the
+score gradient ds into a float32 scratch, and ``flash_bwd_dq_ds`` takes
+dq = ds.k from it; on its "fma" route (head dim 256, or a larger score
+gradient) ``flash_bwd_dkv`` and ``flash_bwd_dq`` each recompute the
+scores, in O(S) memory.  :class:`FlashAttention` ties them into one
 ``torch.autograd.Function`` (the TPU package's ``custom_vjp``), and
 ``flash_attention_bshd`` takes ``(B, H, S, D)`` operands plus a
 broadcastable additive bias, exactly as the TPU wrapper does.  The
@@ -13,7 +18,8 @@ kernels are ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``
 ``flash_fwd_plain`` and ``flash_bwd_plain`` are the same functions in plain
 PyTorch, written out as the kernels compute them (the backward is the
 explicit formula, not autograd of the forward), used for CPU tensors and
-as the references ``chip_smoke.py`` holds the kernels against.
+as the references ``chip_smoke.py`` holds the kernels against (in float32,
+or in float64 when given float64 tensors).
 
 Dropout: an element of the score matrix is kept when the Philox-4x32-10
 word of (seed, bh, row, col) is at least ``rate * 2^32``
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,10 +48,18 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 _FWD_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                  _P, _U, _F, _P)
-_DQ_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                _F, _P, _U, _F, _P)
-_DKV_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                 _I, _F, _P, _U, _F, _P)
+_DQ_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                _I, _F, _P, _U, _F, _P)
+_DQ_DS_ARGTYPES = (_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
+_DKV_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                 _I, _I, _F, _P, _U, _F, _P)
+#: rows of a score tile in the backward kernels (csrc kBlockM, kBlockN)
+BWD_TILE = 64
+#: the most bytes of float32 score gradient the "mma" route allocates per
+#: backward call (4 BH round64(Sk) round64(Sq): 25.2 MB at B32 H12 S128,
+#: 101 MB at B8 H12 S512); a larger problem takes the "fma" route, whose
+#: kernels recompute the scores in O(S) memory (:func:`bwd_plan`)
+DS_SCRATCH_CAP = 1 << 30
 
 # Philox-4x32-10 constants (csrc/common.cuh pt_philox)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -69,6 +83,32 @@ def supported(sq: int, sk: int, d: int, dtype=torch.float32,
     if not 0.0 <= dropout_rate < 1.0:
         return False, f"dropout-rate:{dropout_rate}"
     return True, ""
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernels take a problem.  ``route`` "mma": the
+    tensor-core kernels, dk/dv writing the float32 score gradient ds^T
+    into a (BH, ds_rows, ds_cols) scratch (keys by queries, both padded to
+    the 64-row tiles) that dq reads; "fma": the float32 FMA kernels, each
+    recomputing the scores and the dropout mask (no scratch)."""
+    route: str
+    ds_rows: int
+    ds_cols: int
+
+
+def bwd_plan(bh: int, sq: int, sk: int, d: int,
+             cap: Optional[int] = None) -> BwdPlan:
+    """The :class:`BwdPlan` of a problem the gate (:func:`supported`)
+    takes, as ``csrc/flash_attention_bwd.cu`` dispatches it: "mma" for
+    head dims 64 and 128 while the scratch holds at most ``cap`` bytes
+    (default :data:`DS_SCRATCH_CAP`, read at the call), else "fma" (head
+    dim 256: a warp's dk and dv rows do not fit its registers)."""
+    def pad(n):
+        return -(-n // BWD_TILE) * BWD_TILE
+    cap = DS_SCRATCH_CAP if cap is None else cap
+    if d == 256 or 4 * bh * pad(sk) * pad(sq) > cap:
+        return BwdPlan("fma", 0, 0)
+    return BwdPlan("mma", pad(sk), pad(sq))
 
 
 # ---------------------------------------------------------------------------
@@ -129,14 +169,22 @@ def dropout_keep(seed: torch.Tensor, rate: float, bh: int, sq: int,
 # ---------------------------------------------------------------------------
 
 
+def _acc(t):
+    """The plain versions' arithmetic: float64 for float64 operands (a
+    witness of the float32 result's own rounding), float32 otherwise."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def _scores(q, k, bias, causal):
-    """s = q.k^T / sqrt(D) + bias in float32, causal entries at NEG_INF."""
+    """s = q.k^T / sqrt(D) + bias in float32 (float64 for float64 q),
+    causal entries at NEG_INF."""
     bh, sq, d = q.shape
     sk = k.shape[1]
-    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * \
+    ct = _acc(q)
+    s = torch.matmul(q.to(ct), k.to(ct).transpose(1, 2)) * \
         (1.0 / math.sqrt(d))
     if bias is not None:
-        b = bias.float()
+        b = bias.to(ct)
         if b.shape[0] != bh:                       # head-shared bias
             b = b.repeat_interleave(bh // b.shape[0], dim=0)
         s = s + b
@@ -160,7 +208,8 @@ def flash_fwd_plain(q, k, v, bias=None, causal=False, dropout_rate=0.0,
     """Plain PyTorch spec of the forward kernel: q (BH, Sq, D), k/v
     (BH, Sk, D), bias (B|BH, Sq, Sk) or None, seed an int32 tensor when
     dropout_rate > 0.  Returns (o in q's dtype, lse float32 of shape
-    (BH, Sq, 1), +inf on rows with no unmasked key).  The softmax
+    (BH, Sq, 1), +inf on rows with no unmasked key; float64 both for
+    float64 operands).  The softmax
     denominator sums the undropped p; the mask scales the numerator."""
     s = _scores(q, k, bias, causal)
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
@@ -170,7 +219,7 @@ def flash_fwd_plain(q, k, v, bias=None, causal=False, dropout_rate=0.0,
     if keep is not None:
         p = torch.where(keep, p * dropout_params(dropout_rate)[1],
                         torch.zeros((), device=p.device))
-    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    acc = torch.matmul(p.to(v.dtype).to(p.dtype), v.to(p.dtype))
     o = (acc / l.clamp_min(1e-30)).to(q.dtype)
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
                       torch.full_like(l, math.inf))
@@ -182,12 +231,12 @@ def flash_bwd_plain(q, k, v, bias, o, lse, do, causal=False,
     """Plain PyTorch spec of the backward kernels, as explicit formulas:
     p = exp(s - lse); dp = do.v^T masked and rescaled like p;
     ds = p * (dp - rowsum(do * o)); dq = ds.k * scale,
-    dk = ds^T.q * scale, dv = p_dropped^T.do.  Returns (dq, dk, dv) in the
-    dtypes of q, k, v."""
+    dk = ds^T.q * scale, dv = p_dropped^T.do, in float32 (float64 for
+    float64 operands).  Returns (dq, dk, dv) in the dtypes of q, k, v."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.exp(_scores(q, k, bias, causal) - lse)
-    dof = do.float()
-    dp = torch.matmul(dof, v.float().transpose(1, 2))
+    dof = do.to(p.dtype)
+    dp = torch.matmul(dof, v.to(p.dtype).transpose(1, 2))
     keep = _keep_mask(q, k, dropout_rate, seed)
     pd = p
     if keep is not None:
@@ -195,10 +244,10 @@ def flash_bwd_plain(q, k, v, bias, o, lse, do, causal=False,
         zero = torch.zeros((), device=p.device)
         pd = torch.where(keep, p * inv, zero)
         dp = torch.where(keep, dp * inv, zero)
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    delta = (dof * o.to(p.dtype)).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
-    dq = torch.matmul(ds, k.float()) * scale
-    dk = torch.matmul(ds.transpose(1, 2), q.float()) * scale
+    dq = torch.matmul(ds, k.to(p.dtype)) * scale
+    dk = torch.matmul(ds.transpose(1, 2), q.to(p.dtype)) * scale
     dv = torch.matmul(pd.transpose(1, 2), dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -284,13 +333,43 @@ def _bwd_args(what, q, k, v, bias, do, lse, causal, dropout_rate, seed):
     return ratio, seed_ptr, threshold, inv_keep
 
 
+def flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal=False,
+                  dropout_rate=0.0, seed=None):
+    """(dk, dv, ds) on CUDA tensors (the ``_bwd_dkv_kernel`` counterpart):
+    ds is the float32 score gradient ds^T that :func:`flash_bwd_dq_ds`
+    reads on the "mma" route of :func:`bwd_plan`, None on its "fma"
+    route."""
+    ratio, seed_ptr, threshold, inv_keep = _bwd_args(
+        "flash_bwd_dkv", q, k, v, bias, do, lse, causal, dropout_rate, seed)
+    bh, sq, d = q.shape
+    plan = bwd_plan(bh, sq, k.shape[1], d)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ds = None
+    if plan.route == "mma":
+        ds = torch.empty((bh, plan.ds_rows, plan.ds_cols),
+                         dtype=torch.float32, device=q.device)
+    fn = function("flash_attention_bwd", "pt_flash_attn_bwd_dkv",
+                  _DKV_ARGTYPES)
+    rc = fn(dtype_code(q, "flash_bwd_dkv"), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), bias.data_ptr() if bias is not None else None,
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), ds.data_ptr() if ds is not None else None, bh,
+            sq, k.shape[1], d, ratio, int(bool(causal)), 1.0 / math.sqrt(d),
+            seed_ptr, threshold, inv_keep, stream_handle(q.device))
+    raise_on_error("flash_bwd_dkv", rc)
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv, ds
+
+
 def flash_bwd_dq(q, k, v, bias, do, lse, delta, causal=False,
                  dropout_rate=0.0, seed=None):
-    """dq on CUDA tensors (the ``_bwd_dq_kernel`` counterpart)."""
+    """dq on CUDA tensors from the inputs alone (the ``_bwd_dq_kernel``
+    counterpart, on the "fma" route of :func:`bwd_plan`): the kernel
+    recomputes the scores and the mask."""
     ratio, seed_ptr, threshold, inv_keep = _bwd_args(
         "flash_bwd_dq", q, k, v, bias, do, lse, causal, dropout_rate, seed)
-    bh, sq, d = q.shape
     dq = torch.empty_like(q)
+    bh, sq, d = q.shape
     fn = function("flash_attention_bwd", "pt_flash_attn_bwd_dq",
                   _DQ_ARGTYPES)
     rc = fn(dtype_code(q, "flash_bwd_dq"), q.data_ptr(), k.data_ptr(),
@@ -304,41 +383,61 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta, causal=False,
     return dq
 
 
-def flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal=False,
-                  dropout_rate=0.0, seed=None):
-    """(dk, dv) on CUDA tensors (the ``_bwd_dkv_kernel`` counterpart)."""
-    ratio, seed_ptr, threshold, inv_keep = _bwd_args(
-        "flash_bwd_dkv", q, k, v, bias, do, lse, causal, dropout_rate, seed)
-    bh, sq, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = function("flash_attention_bwd", "pt_flash_attn_bwd_dkv",
-                  _DKV_ARGTYPES)
-    rc = fn(dtype_code(q, "flash_bwd_dkv"), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), bias.data_ptr() if bias is not None else None,
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, sq, k.shape[1], d, ratio, int(bool(causal)),
-            1.0 / math.sqrt(d), seed_ptr, threshold, inv_keep,
-            stream_handle(q.device))
-    raise_on_error("flash_bwd_dkv", rc)
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
-    return dk, dv
+def flash_bwd_dq_ds(k, ds, sq, causal=False):
+    """dq = ds.k * scale on CUDA tensors (the ``_bwd_dq_kernel``
+    counterpart on the "mma" route of :func:`bwd_plan`): ``ds`` is the
+    float32 score gradient :func:`flash_bwd_dkv` returned for the same
+    problem, and dq has ``sq`` rows in k's dtype."""
+    require_cuda("flash_bwd_dq_ds", k)
+    check_cuda("flash_bwd_dq_ds", k)
+    if ds.device != k.device:
+        raise ValueError(f"flash_bwd_dq_ds: tensors on {ds.device} and "
+                         f"{k.device}")
+    if k.dim() != 3 or k.data_ptr() % 16:
+        raise ValueError("flash_bwd_dq_ds: k must be a 16-byte-aligned "
+                         "(BH, Sk, D) tensor")
+    bh, sk, d = k.shape
+    plan = bwd_plan(bh, sq, sk, d)
+    if causal and sq != sk:
+        raise ValueError("flash_bwd_dq_ds: unsupported problem "
+                         "(causal-rectangular)")
+    if plan.route != "mma" or ds.dtype != torch.float32 or \
+            not ds.is_contiguous() or \
+            tuple(ds.shape) != (bh, plan.ds_rows, plan.ds_cols):
+        raise ValueError(f"flash_bwd_dq_ds: needs flash_bwd_dkv's float32 "
+                         f"ds scratch for ({bh}, {sq}, {sk}, {d}) on the "
+                         f"mma route, got {ds.dtype} {tuple(ds.shape)}")
+    dq = torch.empty((bh, sq, d), dtype=k.dtype, device=k.device)
+    fn = function("flash_attention_bwd", "pt_flash_attn_bwd_dq_ds",
+                  _DQ_DS_ARGTYPES)
+    rc = fn(dtype_code(k, "flash_bwd_dq_ds"), k.data_ptr(), ds.data_ptr(),
+            dq.data_ptr(), bh, sq, sk, d, int(bool(causal)),
+            1.0 / math.sqrt(d), stream_handle(k.device))
+    raise_on_error("flash_bwd_dq_ds", rc)
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
 
 
 def flash_bwd(q, k, v, bias, o, lse, do, causal=False, dropout_rate=0.0,
               seed=None):
     """(dq, dk, dv) given the forward's inputs, o, lse and the output
     gradient do.  CPU tensors run :func:`flash_bwd_plain`; CUDA tensors
-    launch the dq and dk/dv kernels (delta = rowsum(do * o) is one float32
-    reduction here, as ``_flash_bwd`` computes it outside its kernels)."""
+    launch the dk/dv kernel, then the dq kernel, from its ds on the "mma"
+    route and from the inputs on the "fma" route (delta = rowsum(do * o)
+    is one float32 reduction here, as ``_flash_bwd`` computes it outside
+    its kernels)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, bias, o, lse, do, causal,
                                dropout_rate, seed)
     do = do.contiguous()
     delta = (do.float() * o.float()).sum(dim=-1)
-    dq = flash_bwd_dq(q, k, v, bias, do, lse, delta, causal, dropout_rate,
-                      seed)
-    dk, dv = flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal,
-                           dropout_rate, seed)
+    dk, dv, ds = flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal,
+                               dropout_rate, seed)
+    if ds is not None:
+        dq = flash_bwd_dq_ds(k, ds, q.shape[1], causal)
+    else:
+        dq = flash_bwd_dq(q, k, v, bias, do, lse, delta, causal,
+                          dropout_rate, seed)
     return dq, dk, dv
 
 

@@ -89,7 +89,10 @@ def _assign_value(ctx, ins, attrs):
 
 @register("cast")
 def _cast(ctx, ins, attrs):
-    return {"Out": x(ins, "X").to(torch_dtype(attrs["out_dtype"]))}
+    """To ``out_dtype``, else ``dtype``, else float32 (the JAX op's
+    order)."""
+    dtype = attrs.get("out_dtype", attrs.get("dtype", "float32"))
+    return {"Out": x(ins, "X").to(torch_dtype(dtype))}
 
 
 @register("increment")
@@ -154,10 +157,16 @@ def _unsqueeze2(ctx, ins, attrs):
 
 @register("squeeze2")
 def _squeeze2(ctx, ins, attrs):
+    """Drop the size-1 ``axes`` (every size-1 axis when none are given);
+    an axis of another size raises ValueError, as ``jnp.squeeze`` does,
+    where ``torch.squeeze`` would leave it silently."""
     a = x(ins, "X")
-    axes = attrs.get("axes", [])
-    out = a.squeeze() if not axes else \
-        a.squeeze(tuple(ax % a.dim() for ax in axes))
+    axes = tuple(ax % a.dim() for ax in attrs.get("axes", []))
+    wide = [ax for ax in axes if a.shape[ax] != 1]
+    if wide:
+        raise ValueError(f"squeeze2: cannot squeeze axes {wide} of shape "
+                         f"{tuple(a.shape)}: their size is not 1")
+    out = a.squeeze(axes) if axes else a.squeeze()
     return {"Out": out, "XShape": _xshape(a)}
 
 
@@ -172,9 +181,14 @@ def _split(ctx, ins, attrs):
     axis = attrs.get("axis", 0)
     sections = attrs.get("sections", [])
     if sections:
-        outs = torch.split(a, list(sections), dim=axis)
+        # cut where the JAX op cuts: after each section but the last
+        outs = torch.tensor_split(a, np.cumsum(sections[:-1]).tolist(),
+                                  dim=axis)
     else:
         num = attrs.get("num", 0)
+        if a.shape[axis] % num:
+            raise ValueError(f"split: num {num} does not divide axis "
+                             f"{axis} of size {a.shape[axis]}")
         outs = torch.split(a, a.shape[axis] // num, dim=axis)
     return {"Out": list(outs)}
 
