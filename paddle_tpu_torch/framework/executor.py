@@ -56,7 +56,7 @@ from .core import (CUDAPlace, Place, Program, Variable, default_main_program,
                    device_for, grad_var_name)
 from .errors import EnforceNotMet, UnimplementedError
 from ..ops.collective_ops import merge_fetch, slice_feed
-from ..ops.registry import LoweringContext, get_op
+from ..ops.registry import LoweringContext, get_group, get_op
 
 _RNG_VAR = "@RNG_STATE@"
 
@@ -141,23 +141,61 @@ def _scatter_outputs(op, outs, env):
             env[n] = v
 
 
+def _call(op, fn):
+    """``fn()``, a failure raised as EnforceNotMet carrying ``op``'s type
+    and the user call site that created it."""
+    try:
+        return fn()
+    except EnforceNotMet:
+        raise
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception as e:
+        raise EnforceNotMet(op.type, e, getattr(op, "callstack", None)) from e
+
+
+def _run_end(ops, i, group):
+    """The end of the run of ops from ``i`` that ``group`` takes together
+    (at once, so in no order): consecutive ops it is registered for, none
+    reading a variable an earlier op of the run writes (a shared beta power
+    ends the run) or writing one an earlier op reads or writes."""
+    read, written = set(), set()
+    j = i
+    while j < len(ops) and get_group(ops[j].type) is group:
+        ins, outs = set(ops[j].input_names()), set(ops[j].output_names())
+        if not (written.isdisjoint(ins) and written.isdisjoint(outs) and
+                read.isdisjoint(outs)):
+            break
+        read.update(ins)
+        written.update(outs)
+        j += 1
+    return j
+
+
 def run_ops(ops, env, ctx):
-    """Interpret a straight-line op list.  A failing op raises
-    EnforceNotMet carrying the op type and the user call site that
-    created it."""
-    for op in ops:
+    """Interpret a straight-line op list.  A run of ops with a group impl
+    (``registry.register_group``: Adam's multi-tensor update) is handed to
+    it at once.  A failing op raises EnforceNotMet carrying the op type
+    and the user call site that created it."""
+    i = 0
+    while i < len(ops):
+        op = ops[i]
         if op.type in ("feed", "fetch"):
+            i += 1
             continue
-        try:
-            outs = get_op(op.type)(ctx, _gather_inputs(op, env), op.attrs)
-        except EnforceNotMet:
-            raise
-        except (KeyboardInterrupt, SystemExit):
-            raise
-        except Exception as e:
-            raise EnforceNotMet(op.type, e,
-                                getattr(op, "callstack", None)) from e
-        _scatter_outputs(op, outs, env)
+        group = get_group(op.type)
+        if group is None:
+            outs = _call(op, lambda: get_op(op.type)(
+                ctx, _gather_inputs(op, env), op.attrs))
+            _scatter_outputs(op, outs, env)
+            i += 1
+            continue
+        run = ops[i:_run_end(ops, i, group)]
+        outs = _call(op, lambda: group(ctx, [
+            (o.type, _gather_inputs(o, env), o.attrs) for o in run]))
+        for o, out in zip(run, outs):
+            _scatter_outputs(o, out, env)
+        i += len(run)
     return env
 
 

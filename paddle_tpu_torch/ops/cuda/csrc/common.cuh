@@ -117,15 +117,11 @@ __device__ __forceinline__ float pt_block_sum(float v, float* scratch) {
   return total;
 }
 
-// Philox-4x32-10 (Salmon et al., SC 2011) keyed on one attention-score
-// element: counter (col, row, bh, 0), key (seed, 0); returns the first
-// output word.  Keying on the element, not the tile, makes the dropout
-// mask independent of how a kernel tiles the scores, so forward and both
-// backward kernels regenerate it bit for bit, and so does the plain
-// version in ops/cuda/flash_attention.py (philox_bits).
-__device__ __forceinline__ uint32_t pt_philox(uint32_t seed, uint32_t bh,
-                                              uint32_t row, uint32_t col) {
-  uint32_t c0 = col, c1 = row, c2 = bh, c3 = 0u, k0 = seed, k1 = 0u;
+// Philox-4x32-10 (Salmon et al., SC 2011): the four output words of
+// counter (c0, c1, c2, 0) under key (seed, 0).
+__device__ __forceinline__ uint4 pt_philox(uint32_t seed, uint32_t c0,
+                                           uint32_t c1, uint32_t c2) {
+  uint32_t c3 = 0u, k0 = seed, k1 = 0u;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     if (r) {
@@ -140,5 +136,26 @@ __device__ __forceinline__ uint32_t pt_philox(uint32_t seed, uint32_t bh,
     c2 = n2;
     c3 = lo0;
   }
-  return c0;
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// The dropout word of attention-score element (bh, row, col): one draw
+// serves four elements,
+//   counter (col >> 1, row & ~8, bh, 0), key (seed, 0),
+//   word 2 * ((row >> 3) & 1) + (col & 1),
+// a bijection from (bh, row, col) to (counter, word).  The four elements
+// of a draw -- rows r and r + 8 (bit 3 of r clear) at columns c and c + 1
+// (c even) -- are the four that one thread holds of an m16n8 accumulator
+// tile whose first row is a multiple of 16, so a kernel in that layout
+// draws once per tile and uses every word.  The mapping is a function of
+// the element alone, not of any kernel's tiling: the forward and both
+// backward kernels regenerate the mask bit for bit, and so does the plain
+// version in ops/cuda/flash_attention.py (philox_bits).
+__device__ __forceinline__ uint32_t pt_dropout_word(uint32_t seed,
+                                                    uint32_t bh,
+                                                    uint32_t row,
+                                                    uint32_t col) {
+  const uint4 w = pt_philox(seed, col >> 1, row & ~8u, bh);
+  const uint32_t lo = col & 1u ? w.y : w.x, hi = col & 1u ? w.w : w.z;
+  return row & 8u ? hi : lo;
 }

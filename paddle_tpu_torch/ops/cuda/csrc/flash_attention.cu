@@ -11,35 +11,269 @@
 // Dropout (training): as in the TPU kernel, l sums the undropped p and
 // only the numerator is masked, p -> keep ? p / (1 - rate) : 0.  The TPU
 // seeds its hardware generator per (head, q-block, k-block); here the keep
-// bit of each score element is Philox-4x32-10 of (seed, bh, row, col)
-// (common.cuh), so the backward kernels regenerate the same mask and the
-// mask does not depend on the tiling.  The seed is read from device
-// memory, so drawing it costs no host sync.  The kernel is instantiated
-// with and without dropout: with the generator compiled into the one
-// kernel, the inference forward ran 12 % slower on an H100 at S = 512.
+// bit of each score element is common.cuh's pt_dropout_word of (seed, bh,
+// row, col), one Philox-4x32-10 draw for four elements, so the backward
+// kernels regenerate the same mask and the mask does not depend on the
+// tiling.  The seed is read from device memory, so drawing it costs no host
+// sync.  The kernel is instantiated with and without dropout: with the
+// generator compiled into the one kernel, the inference forward ran 12 %
+// slower on an H100 at S = 512.
 //
-// Bound on an H100: at the served shapes (D = 64, S = 128..512) the
-// 4*BH*Sq*Sk*D FLOPs dominate the bytes.  This version runs them on the
-// float32 FMA pipes (67 TFLOP/s peak), not the tensor cores; the limit in
-// practice is how many FMAs each shared-memory load feeds.  wgmma/TMA come
-// later.
+// Bound on an H100 SXM: the TPU kernel's function is two S^2 D products
+// (4 BH Sq Sk D flops, half of it for causal) reading q, k, v and the bias
+// once and writing o and lse.  At BERT-base's training shape (B32 H12 S128
+// D64, float32, the head-shared padding bias) that is 0.0157 ms of bytes
+// at 3.35 TB/s, above 0.0098 ms of 3xTF32 tensor-core operations (495
+// TFLOP/s, three passes a product) and below the 0.0240 ms the products
+// take on the float32 FMA pipes (67 TFLOP/s); served (B8 S128) 0.0039 ms.
 //
-// Design: one block of 256 threads per (64-row query tile, batch*head);
-// the Q tile and each 64-key K/V tile are staged in shared memory (float32,
-// bf16 widened on load).  Both products are register-tiled (flash_common.cuh):
-// thread (ty, tx) of a 16 x 16 grid owns query rows ty + 16i and keys
-// tx + 16j (i, j < 4) of the score tile, and rows ty + 16i by head dims
-// 64c + 4tx .. +3 of the output.  A row's 64 scores live in the 16 threads
-// of one half-warp: the tile max is a 4-step shuffle, and each thread keeps
-// its own share of the softmax sum, added up once at the end.  Causal tiles
-// above the diagonal are never loaded (block skipping); keys past Sk and
-// rows past Sq are masked, so any lengths work.
+// Design (head dims 64 and 128).
+// * The products run on the tensor cores through mma.sync, as in the
+//   backward (flash_common.cuh).  A block of 4 warps takes 32 query rows:
+//   2 row warps of 16 rows, each twice, for the two 16-key parts of every
+//   32-key stage.  The K and V stages are double-buffered in shared memory
+//   by cp.async, in their own dtype, the next stage's copy in flight while
+//   this one's products run.  A warp's 16 x 16 scores stay in registers
+//   from q.k^T through the softmax to p.v: an accumulator fragment is an A
+//   fragment with its k index permuted (acc_tile).  Each part keeps its own
+//   running max, sum and accumulator; after the last stage the upper part
+//   hands its state to the lower one through shared memory, which merges
+//   the two (m = max(m_a, m_b), x = x_a e^(m_a - m) + x_b e^(m_b - m)).
+//   The shape was measured on an H100 (tools/torch_kernel_ab.py, variants
+//   of 32 or 64 rows, one or two key parts, 32 or 64 keys a stage): small
+//   blocks (43.5 KB at D 64 in float32, at most 128 registers, four an SM)
+//   spread BERT's served grid (B8 S128: 384 blocks) evenly over the 132
+//   SMs, where 64-row blocks left 60 SMs with twice the work; the training
+//   shapes run within 8 % of the best shape measured for them.  A row's
+//   arithmetic does not depend on the block's row count, only on the parts
+//   and stages.
+// * float32: q.k^T is one fmaf chain per score over the head dim in order
+//   from 0 (score_tile_fma), the float32 product the plain version's matmul
+//   computes, and the scale and bias are applied with their own roundings,
+//   as the plain version applies them.  Under BERT's -1e4 padding bias a
+//   float32 score keeps 10 bits; summed in another order, a score of an
+//   all-masked query row moves by an ulp and its p by 1e-3 of itself, and o
+//   with it, past the 2e-5 tolerance against the plain version
+//   (tests/test_torch_flash_fwd_numerics.py emulates both).  p.v is 3xTF32.
+//   bf16: q.k^T on the tensor cores as it is, p rounded to bf16 once.
+// * Dropout: one draw per 8-key tile of a thread's fragment (rows g and
+//   g + 8 at two columns: the four words of one draw), four generator
+//   chains at a time, folded into a bit mask (fragment_keep).
+// * Row statistics: a row's scores lie in the 4 lanes of a quad, so the
+//   tile max is two shuffles, and each thread keeps its own share of the
+//   softmax sum, added up once at the end.
+// * Causal tiles above the diagonal are never loaded (block skipping); keys
+//   past Sk and rows past Sq are masked (their staged rows are zeros), so
+//   any lengths work.
+// * Head dim 256 takes the first port's kernel on the float32 FMA pipes
+//   (flash_fwd_fma_kernel, below): a warp's 16 output rows of 256 floats do
+//   not fit in its registers beside the score tiles.
 #include "flash_common.cuh"
 
 namespace {
 
+// A block: 2 row warps of 16 query rows, each twice, for the two 16-key
+// parts of every 32-key stage; Q resident, K and V in two stages, rows 4
+// words apart mod 32
+template <typename T, int D>
+struct FwdTile {
+  static constexpr int kRows = 32;
+  static constexpr int kKeys = 32;
+  static constexpr int kThreads = 128;
+  static constexpr int kS = D + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr size_t kSmem = (kRows + 4 * kKeys) * kS * sizeof(T);
+  // the upper key part's row state (m, l and the accumulator), handed over
+  // through the same shared memory after the last stage
+  static constexpr size_t kMerge = (4 + D / 2) * 2 * kRows * sizeof(float);
+  static_assert(kMerge <= kSmem, "the merge fits the tiles' memory");
+};
+
+// D 64: four blocks an SM (at most 128 registers a thread)
+template <typename T, int D, bool kDropout>
+__global__ void __launch_bounds__(128, D == 64 ? 4 : 1)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     T* __restrict__ o, float* __restrict__ lse, int sq,
+                     int sk, int bias_ratio, int causal, float scale,
+                     const int* __restrict__ seed, uint32_t threshold,
+                     float inv_keep) {
+  using L = FwdTile<T, D>;
+  constexpr int S = L::kS, ROWS = L::kRows, NTH = L::kThreads;
+  constexpr int BN = L::kKeys, HALF = BN / 2, NT = HALF / 8, DT = D / 8;
+  constexpr int RW = ROWS / 16;  // row warps
+  extern __shared__ float4 smem4[];
+  T* qs = reinterpret_cast<T*>(smem4);  // [ROWS][S]
+  T* ks = qs + ROWS * S;                // [2][BN][S]
+  T* vs = ks + 2 * BN * S;              // [2][BN][S]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp % RW, half = warp / RW;  // row warp, key part
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y, m0 = blockIdx.x * ROWS;
+  const size_t qoff = static_cast<size_t>(bh) * sq;
+  const size_t koff = static_cast<size_t>(bh) * sk;
+  const T* kb = k + koff * D;
+  const T* vb = v + koff * D;
+  const float* bb =
+      bias ? bias + static_cast<size_t>(bh / bias_ratio) * sq * sk : nullptr;
+  const uint32_t sd = kDropout ? static_cast<uint32_t>(*seed) : 0u;
+  // causal: the key tiles up to the diagonal
+  const int kend = causal ? min(sk, m0 + ROWS) : sk;
+  const int tiles = (kend + BN - 1) / BN;
+  const int r0 = m0 + 16 * rw + g;  // this thread's rows: r0, r0 + 8
+
+  auto stage_keys = [&](int buf, int k0) {
+    copy_tile<T, D, BN, S, NTH>(ks + buf * BN * S, kb, D, k0, sk);
+    copy_tile<T, D, BN, S, NTH>(vs + buf * BN * S, vb, D, k0, sk);
+  };
+  copy_tile<T, D, ROWS, S, NTH>(qs, q + qoff * D, D, m0, sq);
+  stage_keys(0, 0);
+  cp_async_commit();
+
+  float acc[DT][4];
+  zero(acc);
+  float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
+  const T* qw = qs + 16 * rw * S;
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) stage_keys((i + 1) & 1, (i + 1) * BN);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int kw = i * BN + half * HALF;  // this warp's first key
+    const T* kt = ks + ((i & 1) * BN + half * HALF) * S;
+    const T* vt = vs + ((i & 1) * BN + half * HALF) * S;
+
+    float bv[NT][4];  // the bias loads, all in flight at once
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = r0 + 8 * (c >> 1), key = kw + 8 * j + 2 * t + (c & 1);
+        bv[j][c] = bb && row < sq && key < sk
+                       ? bb[static_cast<size_t>(row) * sk + key]
+                       : 0.f;
+      }
+    float s[NT][4];
+    zero(s);
+    if constexpr (sizeof(T) == 4)
+      score_tile_fma<D, NT, S>(s, qw, kt, g, t);
+    else
+      score_tile<D, NT, S>(s, qw, kt, g, t);
+    const uint32_t keep =
+        kDropout ? fragment_keep<NT>(sd, bh, r0, kw + 2 * t, threshold) : ~0u;
+
+    // scale, bias and masks; the max of rows r0 and r0 + 8 over the keys
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = r0 + 8 * (c >> 1), key = kw + 8 * j + 2 * t + (c & 1);
+        float sv = __fadd_rn(__fmul_rn(s[j][c], scale), bv[j][c]);
+        if (causal && key > row) sv = kNegInf;
+        if (key >= sk) sv = -INFINITY;  // padding past Sk: weight exactly 0
+        s[j][c] = sv;
+        mt[c >> 1] = fmaxf(mt[c >> 1], sv);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+      const float m_new = fmaxf(mrow[h], mt[h]);
+      alpha[h] = expf(mrow[h] - m_new);
+      mrow[h] = m_new;
+      lrow[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
+    // p, its sum (undropped) and the dropped p that p.v takes
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[j][c] - mrow[c >> 1]);
+        lrow[c >> 1] += p;
+        s[j][c] = !kDropout ? p
+                  : (keep >> (4 * j + c)) & 1u ? p * inv_keep : 0.f;
+      }
+    acc_tile<D, NT, S, false>(acc, s, vt, g, t);  // acc += p . v
+    __syncthreads();  // the stage is read before the next copy into it
+  }
+
+  // the two key parts of each row: the upper warps hand (m, l, acc) to the
+  // lower ones through shared memory, [value][thread] (conflict-free), and
+  // the lower ones merge, m = max(m_a, m_b), x = x_a e^(m_a - m) + x_b
+  // e^(m_b - m), and write the rows
+  {
+    constexpr int N = 32 * RW;
+    cp_async_wait<0>();
+    float* xs = reinterpret_cast<float*>(smem4);
+    const int slot = rw * 32 + lane;
+    if (half == 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        xs[h * N + slot] = mrow[h];
+        xs[(2 + h) * N + slot] = lrow[h];
+      }
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xs[(4 + 4 * n + c) * N + slot] = acc[n][c];
+    }
+    __syncthreads();
+    if (half == 1) return;
+    float fb[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mb = xs[h * N + slot];
+      const float m_new = fmaxf(mrow[h], mb);
+      const float fa = expf(mrow[h] - m_new);
+      fb[h] = expf(mb - m_new);
+      lrow[h] = lrow[h] * fa + xs[(2 + h) * N + slot] * fb[h];
+      mrow[h] = m_new;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        acc[n][2 * h] *= fa;
+        acc[n][2 * h + 1] *= fa;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[n][c] += xs[(4 + 4 * n + c) * N + slot] * fb[c >> 1];
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 1);
+    lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 2);
+    const int row = r0 + 8 * h;
+    if (row >= sq) continue;
+    const float denom = fmaxf(lrow[h], 1e-30f);
+    T* op = o + (qoff + row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      store2(op + 8 * n, acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+    if (t == 0)
+      lse[qoff + row] = lrow[h] > 0.f ? mrow[h] + logf(denom) : INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// head dim 256: the first port's kernel on the float32 FMA pipes, 256
+// threads as a 16 x 16 grid over 64 x 64 score tiles (flash_common.cuh):
+// thread (ty, tx) owns query rows ty + 16i and keys tx + 16j (i, j < 4) of
+// the score tile, and rows ty + 16i by head dims 64c + 4tx .. +3 of the
+// output; the Q tile and each 64-key K/V tile are staged in shared memory
+// as float32
+// ---------------------------------------------------------------------------
+
 template <int D>
-struct Tile {
+struct FmaTile {
   static constexpr int kStride = D + 4;   // Q/K rows: 4 banks apart
   static constexpr int kChunks = D / 64;  // 4-wide head-dim chunks a thread owns
   static constexpr size_t kSmem =
@@ -49,13 +283,13 @@ struct Tile {
 
 template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    flash_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ o, float* __restrict__ lse, int sq,
                      int sk, int bias_ratio, int causal, float scale,
                      const int* __restrict__ seed, uint32_t threshold,
                      float inv_keep) {
-  using C = Tile<D>;
+  using C = FmaTile<D>;
   constexpr int S = C::kStride;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBlockM][S]
@@ -186,8 +420,26 @@ struct FwdArgs {
 
 template <typename T, int D, bool kDropout>
 cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
-  using C = Tile<D>;
+  using L = FwdTile<T, D>;
+  static_assert(L::kSmem <= 232448, "forward tiles exceed shared memory");
   auto kernel = flash_fwd_kernel<T, D, kDropout>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::kSmem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.sq + L::kRows - 1) / L::kRows, a.bh);
+  kernel<<<grid, L::kThreads, L::kSmem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
+      static_cast<T*>(a.o), static_cast<float*>(a.lse), a.sq, a.sk,
+      a.bias_ratio, a.causal, a.scale, a.seed, a.threshold, a.inv_keep);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool kDropout>
+cudaError_t launch_fma(const FwdArgs& a, cudaStream_t stream) {
+  using C = FmaTile<D>;
+  auto kernel = flash_fwd_fma_kernel<T, D, kDropout>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
@@ -209,7 +461,7 @@ cudaError_t dispatch_d(int d, const FwdArgs& a, cudaStream_t s) {
     case 128:
       return launch<T, 128, kDropout>(a, s);
     case 256:
-      return launch<T, 256, kDropout>(a, s);
+      return launch_fma<T, 256, kDropout>(a, s);
     default:
       return cudaErrorInvalidValue;
   }

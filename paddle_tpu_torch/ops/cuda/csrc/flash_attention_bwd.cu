@@ -10,9 +10,9 @@
 //   ds = p * (dp - delta), delta = rowsum(do * o) from the caller (a ring
 //   route passes delta - dlse), and
 //   dq = ds.k * scale,  dk = ds^T.q * scale,  dv = p_dropped^T.do.
-// The keep mask is Philox-4x32-10 of (seed, bh, row, col) (common.cuh), bit
-// for bit the forward's; the additive bias gets no gradient (zero by
-// contract, as on the TPU).
+// The keep mask is common.cuh's pt_dropout_word of (seed, bh, row, col),
+// one Philox-4x32-10 draw for four elements, bit for bit the forward's; the
+// additive bias gets no gradient (zero by contract, as on the TPU).
 //
 // Bound on an H100 SXM at BERT-base's training shape (B32 H12 S128 D64,
 // float32).  The TPU kernels' functions: dk/dv four S^2 D products (8 BH
@@ -69,15 +69,15 @@
 //   keys a warp) walks the queries 32 rows at a time with dk and dv in
 //   registers (at most 170 a thread at D = 64: three blocks an SM; with 64
 //   rows a stage it took 230 and ran 1.2x slower on the card); it
-//   computes p, draws the keep mask once per element (skipping a group of
-//   four whose p are all 0: a score that is masked out needs no draw), and
-//   writes ds to a float32 scratch ds^T[bh][key][query], both padded to 64.
+//   computes p, draws the keep mask (one draw per four elements, shared by
+//   two lanes), and writes ds to a float32 scratch ds^T[bh][key][query],
+//   both padded to 64.
 //   dq (a block of 4 warps per 64 queries) is then the product ds.k over the
 //   key tiles: it recomputes neither q.k^T and do.v^T (4 of the 6 S^2 D
 //   products the first port's dq kernel did) nor the mask.
 // * The loop body stays small enough for the instruction cache: the mask is
-//   drawn in a rolled loop, four independent generator chains at a time,
-//   and the loops that index only shared memory are unrolled twice, not
+//   drawn four independent generator chains at a time, and the loops that
+//   index only shared memory are unrolled twice, not
 //   fully.  Fully unrolled (32 inlined Philox chains a tile), the float32
 //   dk/dv kernel took 0.264 ms at B32 H12 S128; per-phase clock64() counts
 //   showed the elementwise step, not the products, taking the time.  A
@@ -103,8 +103,6 @@
 
 namespace {
 
-constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of the tile each
-
 struct BwdArgs {
   const void *q, *k, *v, *bias, *dout, *lse, *delta;
   void *dq, *dk, *dv;
@@ -117,262 +115,6 @@ struct BwdArgs {
 };
 
 __host__ __device__ constexpr int round64(int n) { return (n + 63) / 64 * 64; }
-
-// ---------------------------------------------------------------------------
-// tensor-core fragments and asynchronous copies
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32 values (3xTF32)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (a, b) = hi + lo, both pairs of bf16, a in the low halves
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
-}
-
-// two adjacent bf16 values as one word (p 4-byte aligned)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// p[0] and p[stride] as one word, p[0] in the low half
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p,
-                                            int stride) {
-  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
-  const uint32_t hi = *reinterpret_cast<const unsigned short*>(p + stride);
-  return lo | (hi << 16);
-}
-
-// c[16x8] += a[16x8] . b[8x8]: TF32 in, float32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c[16x8] += a[16x16] . b[16x8]: bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a.b on split operands, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4],
-                                           const uint32_t (&bhi)[2],
-                                           const uint32_t (&blo)[2]) {
-  mma_tf32(c, alo, bhi);
-  mma_tf32(c, ahi, blo);
-  mma_tf32(c, ahi, bhi);
-}
-
-// 16 (or 4) bytes from device to shared memory, zeros where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Rows [r0, r0 + R) of a row-major matrix (rows `ld` elements apart; W
-// columns from `src`) into dst[R][S] with cp.async; rows at or past
-// `limit` are zero.  W elements are a multiple of 16 bytes.
-template <typename T, int W, int R, int S>
-__device__ __forceinline__ void copy_tile(T* dst, const T* src, size_t ld,
-                                          int r0, int limit) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = W / kVec;
-  for (int i = threadIdx.x; i < R * kPerRow; i += kMmaThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    const bool ok = r0 + r < limit;
-    cp_async16(dst + r * S + c,
-               src + (ok ? static_cast<size_t>(r0 + r) * ld : 0) + c, ok);
-  }
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// ---------------------------------------------------------------------------
-// warp products.  Lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8
-// and columns 2t, 2t + 1 of each 16 x 8 accumulator tile.
-// ---------------------------------------------------------------------------
-
-// c[j] += a[16][0:D] . b[8j + n][0:D] (n < 8), j < NT: a's rows are the
-// warp's, b's rows the tile's; both in shared memory, S elements apart
-template <int D, int NT, int S>
-__device__ __forceinline__ void score_tile(float (&c)[NT][4], const float* a,
-                                           const float* b, int g, int t) {
-#pragma unroll 2
-  for (int kk = 0; kk < D; kk += 8) {
-    uint32_t ahi[4], alo[4];
-    split_tf32(a[g * S + kk + t], ahi[0], alo[0]);
-    split_tf32(a[(g + 8) * S + kk + t], ahi[1], alo[1]);
-    split_tf32(a[g * S + kk + t + 4], ahi[2], alo[2]);
-    split_tf32(a[(g + 8) * S + kk + t + 4], ahi[3], alo[3]);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t bhi[2], blo[2];
-      split_tf32(b[(8 * j + g) * S + kk + t], bhi[0], blo[0]);
-      split_tf32(b[(8 * j + g) * S + kk + t + 4], bhi[1], blo[1]);
-      mma_3xtf32(c[j], ahi, alo, bhi, blo);
-    }
-  }
-}
-
-// float32 scores, exact: c[j] as score_tile's, each element one fmaf chain
-// over the head dim in order from 0 -- the float32 product the plain
-// version's matmul computes, bit for bit (see the source note)
-template <int D, int NT, int S>
-__device__ __forceinline__ void score_tile_fma(float (&c)[NT][4],
-                                               const float* a,
-                                               const float* b, int g,
-                                               int t) {
-  const float* a0 = a + g * S;
-  const float* a1 = a0 + 8 * S;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    const float4 x0 = load4(a0 + d), x1 = load4(a1 + d);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float4 y = load4(b + (8 * j + 2 * t + e) * S + d);
-        float u = c[j][e], w = c[j][2 + e];
-        u = fmaf(x0.x, y.x, u);
-        w = fmaf(x1.x, y.x, w);
-        u = fmaf(x0.y, y.y, u);
-        w = fmaf(x1.y, y.y, w);
-        u = fmaf(x0.z, y.z, u);
-        w = fmaf(x1.z, y.z, w);
-        u = fmaf(x0.w, y.w, u);
-        w = fmaf(x1.w, y.w, w);
-        c[j][e] = u;
-        c[j][2 + e] = w;
-      }
-  }
-}
-
-template <int D, int NT, int S>
-__device__ __forceinline__ void score_tile(float (&c)[NT][4],
-                                           const __nv_bfloat16* a,
-                                           const __nv_bfloat16* b, int g,
-                                           int t) {
-#pragma unroll 2
-  for (int kk = 0; kk < D; kk += 16) {
-    const uint32_t af[4] = {ld_pair(a + g * S + kk + 2 * t),
-                            ld_pair(a + (g + 8) * S + kk + 2 * t),
-                            ld_pair(a + g * S + kk + 2 * t + 8),
-                            ld_pair(a + (g + 8) * S + kk + 2 * t + 8)};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* br = b + (8 * j + g) * S + kk + 2 * t;
-      const uint32_t bf[2] = {ld_pair(br), ld_pair(br + 8)};
-      mma_bf16(c[j], af, bf);
-    }
-  }
-}
-
-// acc[n] += p . b[0:8NT][8n:8n + 8] (n < D / 8): p is 16 x 8NT in
-// score_tile's accumulator layout, b's rows in shared memory S apart.  The
-// accumulator holds columns 2t, 2t + 1 of its tile j where an A fragment of
-// m16n8k8 holds t and t + 4: read as that fragment, the k index is permuted,
-// and b's rows 8j + 2t and 8j + 2t + 1 take the place of rows t and t + 4.
-template <int D, int NT, int S>
-__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
-                                         const float (&p)[NT][4],
-                                         const float* b, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    uint32_t ahi[4], alo[4];
-    split_tf32(p[j][0], ahi[0], alo[0]);
-    split_tf32(p[j][2], ahi[1], alo[1]);
-    split_tf32(p[j][1], ahi[2], alo[2]);
-    split_tf32(p[j][3], ahi[3], alo[3]);
-    const float* br = b + (8 * j + 2 * t) * S + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      uint32_t bhi[2], blo[2];
-      split_tf32(br[8 * n], bhi[0], blo[0]);
-      split_tf32(br[S + 8 * n], bhi[1], blo[1]);
-      mma_3xtf32(acc[n], ahi, alo, bhi, blo);
-    }
-  }
-}
-
-// bf16: tiles 2i and 2i + 1 of p are, as they lie, the A fragment of one
-// m16n8k16 step over the columns 16i .. 16i + 16
-template <int D, int NT, int S>
-__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
-                                         const float (&p)[NT][4],
-                                         const __nv_bfloat16* b, int g,
-                                         int t) {
-#pragma unroll
-  for (int i = 0; i < NT / 2; ++i) {
-    uint32_t ahi[4], alo[4];
-    split_bf16(p[2 * i][0], p[2 * i][1], ahi[0], alo[0]);
-    split_bf16(p[2 * i][2], p[2 * i][3], ahi[1], alo[1]);
-    split_bf16(p[2 * i + 1][0], p[2 * i + 1][1], ahi[2], alo[2]);
-    split_bf16(p[2 * i + 1][2], p[2 * i + 1][3], ahi[3], alo[3]);
-    const __nv_bfloat16* br = b + (16 * i + 2 * t) * S + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const uint32_t bf[2] = {ld_pair(br + 8 * n, S),
-                              ld_pair(br + 8 * S + 8 * n, S)};
-      mma_bf16(acc[n], alo, bf);
-      mma_bf16(acc[n], ahi, bf);
-    }
-  }
-}
 
 // acc[n] += ds[16 queries][0:64] . k[0:64][8n:8n + 8]: ds^T[key][query]
 // (the warp's first query at column 0, rows SD apart) and k[key][d] (rows
@@ -424,14 +166,6 @@ __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4],
   }
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[i][e] = 0.f;
-}
-
 // ---------------------------------------------------------------------------
 // dk/dv and ds
 // ---------------------------------------------------------------------------
@@ -460,6 +194,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
                          const int* __restrict__ seed, uint32_t threshold,
                          float inv_keep) {
   using L = DkvTile<T, D, BM>;
+  static_assert(BM % 16 == 0, "the mask pairs query tiles 2i and 2i + 1");
   constexpr int S = L::kS;
   constexpr int NT = BM / 8;  // 8-query tiles of a warp's scores
   constexpr int DT = D / 8;   // 8-column tiles of its dk and dv rows
@@ -529,9 +264,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
       score_tile<D, NT, S>(s, kw, qt, g, t);
     score_tile<D, NT, S>(dp, vw, dt, g, t);
 
-    // p from the scores (s becomes p); `live` marks the elements whose p is
-    // not 0, the only ones whose keep bit matters
-    uint32_t live = 0;
+    // p from the scores (s becomes p)
     float bv[NT][4];  // the bias loads of the tile, all in flight at once
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -553,26 +286,33 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
         if (causal && key > row) sv = kNegInf;
         if (key >= sk) sv = -INFINITY;
         s[j][c] = row < sq ? expf(sv - lt[col]) : 0.f;
-        if (s[j][c] != 0.f) live |= 1u << (4 * j + c);
       }
-    // the keep mask: one draw per element of a tile column group that
-    // holds a live one, four independent generator chains at a time, in a
-    // loop left rolled (unrolled once per element, the generator's ~100
-    // instructions made the loop body outgrow the instruction cache)
+    // the keep mask (common.cuh pt_dropout_word): the draw of counter
+    // (key >> 1, query) serves keys g and g ^ 1 -- this lane and the lane
+    // four apart -- at queries q and q + 8 (tiles 2i and 2i + 1, q's bit 3
+    // clear).  Each lane draws the counters of its own query parity g & 1
+    // (NT draws a stage, four generator chains at a time), keeps two words
+    // of each and hands the other two to its partner as bits: one shuffle
+    // a stage, a quarter of one draw per element
     uint32_t keep = ~0u;
     if (seed) {
-      keep = 0;
-#pragma unroll 1
-      for (int j = 0; j < NT; ++j) {
-        if (!((live >> (4 * j)) & 0xFu)) continue;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int row = m0 + 8 * j + 2 * t + (c & 1);
-          const int key = n0 + 16 * warp + g + 8 * (c >> 1);
-          if (keep_element(sd, bh, row, key, threshold))
-            keep |= 1u << (4 * j + c);
-        }
+      const int par = g & 1;
+      uint32_t mine = 0, theirs = 0;
+#pragma unroll 4
+      for (int i = 0; i < NT; ++i) {
+        const int h = i & 1, jp = i >> 1;
+        const int key = n0 + 16 * warp + g + 8 * h;
+        const uint32_t w = keep_bits(
+            pt_philox(sd, static_cast<uint32_t>(key) >> 1,
+                      static_cast<uint32_t>(m0 + 16 * jp + 2 * t + par),
+                      static_cast<uint32_t>(bh)),
+            threshold);
+        const int at = 8 * jp + par + 2 * h;  // element (2jp, par + 2h)
+        mine |= ((w >> par) & 1u) << at | ((w >> (2 + par)) & 1u) << (at + 4);
+        theirs |= ((w >> (1 - par)) & 1u) << at |
+                  ((w >> (3 - par)) & 1u) << (at + 4);
       }
+      keep = mine | __shfl_xor_sync(0xffffffffu, theirs, 4);
     }
     // s becomes p_dropped and dp becomes ds, which goes to memory for dq
 #pragma unroll

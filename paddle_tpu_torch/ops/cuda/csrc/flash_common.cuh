@@ -1,7 +1,16 @@
 // Tile helpers shared by the flash attention forward (flash_attention.cu)
-// and backward (flash_attention_bwd.cu) kernels: 256 threads as a 16 x 16
-// grid over 64 x 64 score tiles, float4 staging of (bf16 or float32) rows
-// into float32 shared memory, and the register-tiled products.
+// and backward (flash_attention_bwd.cu) kernels.
+//
+// * The FMA kernels (head dim 256, and the backward's route past its
+//   scratch cap): 256 threads as a 16 x 16 grid over 64 x 64 score tiles,
+//   float4 staging of (bf16 or float32) rows into float32 shared memory,
+//   and the register-tiled products on the float32 FMA pipes.
+// * The tensor-core kernels: warps of mma.sync.m16n8k8 (.tf32, float32 as
+//   3xTF32) and m16n8k16 (.bf16) products whose score tiles stay in
+//   registers, float32 score products as one FMA chain per score, and
+//   cp.async copies of the streamed tiles.
+// * The dropout keep decision (common.cuh pt_dropout_word), per element and
+//   per accumulator fragment.
 #pragma once
 
 #include <math.h>
@@ -17,6 +26,7 @@ constexpr int kThreads = 256;      // a 16 x 16 grid of threads
 constexpr int kPStride = kBlockN + 16;  // score-tile rows in shared memory
 constexpr int kCStride = 64 + 4;        // a 64-wide head-dim chunk row
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
+constexpr int kMmaThreads = 128;  // tensor-core kernels: 4 warps
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -106,11 +116,313 @@ __device__ __forceinline__ void tile_acc(float (&acc)[4][4], const float* p,
 
 // The keep decision of inverted dropout for score element (bh, row, col):
 // P(keep) = 1 - threshold / 2^32, as the TPU kernel's bits >= threshold.
+// One draw per element, of which one word is used (the FMA kernels).
 __device__ __forceinline__ bool keep_element(uint32_t seed, int bh, int row,
                                              int col, uint32_t threshold) {
-  return pt_philox(seed, static_cast<uint32_t>(bh),
-                   static_cast<uint32_t>(row),
-                   static_cast<uint32_t>(col)) >= threshold;
+  return pt_dropout_word(seed, static_cast<uint32_t>(bh),
+                         static_cast<uint32_t>(row),
+                         static_cast<uint32_t>(col)) >= threshold;
+}
+
+// The four keep bits of one draw, word i at bit i.
+__device__ __forceinline__ uint32_t keep_bits(uint4 w, uint32_t threshold) {
+  return static_cast<uint32_t>(w.x >= threshold) |
+         static_cast<uint32_t>(w.y >= threshold) << 1 |
+         static_cast<uint32_t>(w.z >= threshold) << 2 |
+         static_cast<uint32_t>(w.w >= threshold) << 3;
+}
+
+// Keep bits of a thread's score fragment over NT tiles of 8 keys, in the
+// m16n8 accumulator layout: bit 4j + c for the element at row r0 + 8 (c >>
+// 1) and column c0 + 8j + (c & 1), where r0 has bit 3 clear and c0 is even
+// (lane (g, t) of a warp whose 16 rows start at a multiple of 16: r0 =
+// row0 + g, c0 = col0 + 2t).  Those four elements are one draw's four
+// words (pt_dropout_word), so a tile costs one draw.  The loop is left
+// partly rolled: the generator is ~70 instructions a draw, and one inlined
+// chain per element once made the backward's loop outgrow the instruction
+// cache.
+template <int NT>
+__device__ __forceinline__ uint32_t fragment_keep(uint32_t seed, int bh,
+                                                  int r0, int c0,
+                                                  uint32_t threshold) {
+  uint32_t keep = 0;
+#pragma unroll 4
+  for (int j = 0; j < NT; ++j)
+    keep |= keep_bits(pt_philox(seed, static_cast<uint32_t>(c0 + 8 * j) >> 1,
+                                static_cast<uint32_t>(r0),
+                                static_cast<uint32_t>(bh)),
+                      threshold)
+            << (4 * j);
+  return keep;
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core fragments and asynchronous copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 values (3xTF32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) = hi + lo, both pairs of bf16, a in the low halves
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// two adjacent bf16 values as one word (p 4-byte aligned)
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// p[0] and p[stride] as one word, p[0] in the low half
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p,
+                                            int stride) {
+  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
+  const uint32_t hi = *reinterpret_cast<const unsigned short*>(p + stride);
+  return lo | (hi << 16);
+}
+
+// c[16x8] += a[16x8] . b[8x8]: TF32 in, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[16x8] += a[16x16] . b[16x8]: bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b on split operands, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  mma_tf32(c, alo, bhi);
+  mma_tf32(c, ahi, blo);
+  mma_tf32(c, ahi, bhi);
+}
+
+// 16 (or 4) bytes from device to shared memory, zeros where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + R) of a row-major matrix (rows `ld` elements apart; W
+// columns from `src`) into dst[R][S] with cp.async by a block of kBlock
+// threads; rows at or past `limit` are zero.  W elements are a multiple of
+// 16 bytes.
+template <typename T, int W, int R, int S, int kBlock = kMmaThreads>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src, size_t ld,
+                                          int r0, int limit) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = W / kVec;
+  for (int i = threadIdx.x; i < R * kPerRow; i += kBlock) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * S + c,
+               src + (ok ? static_cast<size_t>(r0 + r) * ld : 0) + c, ok);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ---------------------------------------------------------------------------
+// warp products.  Lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8
+// and columns 2t, 2t + 1 of each 16 x 8 accumulator tile.
+// ---------------------------------------------------------------------------
+
+// c[j] += a[16][0:D] . b[8j + n][0:D] (n < 8), j < NT: a's rows are the
+// warp's, b's rows the tile's; both in shared memory, S elements apart
+template <int D, int NT, int S>
+__device__ __forceinline__ void score_tile(float (&c)[NT][4], const float* a,
+                                           const float* b, int g, int t) {
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 8) {
+    uint32_t ahi[4], alo[4];
+    split_tf32(a[g * S + kk + t], ahi[0], alo[0]);
+    split_tf32(a[(g + 8) * S + kk + t], ahi[1], alo[1]);
+    split_tf32(a[g * S + kk + t + 4], ahi[2], alo[2]);
+    split_tf32(a[(g + 8) * S + kk + t + 4], ahi[3], alo[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bhi[2], blo[2];
+      split_tf32(b[(8 * j + g) * S + kk + t], bhi[0], blo[0]);
+      split_tf32(b[(8 * j + g) * S + kk + t + 4], bhi[1], blo[1]);
+      mma_3xtf32(c[j], ahi, alo, bhi, blo);
+    }
+  }
+}
+
+// float32 scores, exact: c[j] as score_tile's, each element one fmaf chain
+// over the head dim in order from 0 -- the float32 product the plain
+// version's matmul computes, bit for bit (see the source note)
+template <int D, int NT, int S>
+__device__ __forceinline__ void score_tile_fma(float (&c)[NT][4],
+                                               const float* a,
+                                               const float* b, int g,
+                                               int t) {
+  const float* a0 = a + g * S;
+  const float* a1 = a0 + 8 * S;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    const float4 x0 = load4(a0 + d), x1 = load4(a1 + d);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 y = load4(b + (8 * j + 2 * t + e) * S + d);
+        float u = c[j][e], w = c[j][2 + e];
+        u = fmaf(x0.x, y.x, u);
+        w = fmaf(x1.x, y.x, w);
+        u = fmaf(x0.y, y.y, u);
+        w = fmaf(x1.y, y.y, w);
+        u = fmaf(x0.z, y.z, u);
+        w = fmaf(x1.z, y.z, w);
+        u = fmaf(x0.w, y.w, u);
+        w = fmaf(x1.w, y.w, w);
+        c[j][e] = u;
+        c[j][2 + e] = w;
+      }
+  }
+}
+
+template <int D, int NT, int S>
+__device__ __forceinline__ void score_tile(float (&c)[NT][4],
+                                           const __nv_bfloat16* a,
+                                           const __nv_bfloat16* b, int g,
+                                           int t) {
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 16) {
+    const uint32_t af[4] = {ld_pair(a + g * S + kk + 2 * t),
+                            ld_pair(a + (g + 8) * S + kk + 2 * t),
+                            ld_pair(a + g * S + kk + 2 * t + 8),
+                            ld_pair(a + (g + 8) * S + kk + 2 * t + 8)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* br = b + (8 * j + g) * S + kk + 2 * t;
+      const uint32_t bf[2] = {ld_pair(br), ld_pair(br + 8)};
+      mma_bf16(c[j], af, bf);
+    }
+  }
+}
+
+// acc[n] += p . b[0:8NT][8n:8n + 8] (n < D / 8): p is 16 x 8NT in
+// score_tile's accumulator layout, b's rows in shared memory S apart.  The
+// accumulator holds columns 2t, 2t + 1 of its tile j where an A fragment of
+// m16n8k8 holds t and t + 4: read as that fragment, the k index is permuted,
+// and b's rows 8j + 2t and 8j + 2t + 1 take the place of rows t and t + 4.
+// (kSplit is the bf16 overload's; float32 is always 3xTF32.)
+template <int D, int NT, int S, bool kSplit = true>
+__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
+                                         const float (&p)[NT][4],
+                                         const float* b, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ahi[4], alo[4];
+    split_tf32(p[j][0], ahi[0], alo[0]);
+    split_tf32(p[j][2], ahi[1], alo[1]);
+    split_tf32(p[j][1], ahi[2], alo[2]);
+    split_tf32(p[j][3], ahi[3], alo[3]);
+    const float* br = b + (8 * j + 2 * t) * S + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      uint32_t bhi[2], blo[2];
+      split_tf32(br[8 * n], bhi[0], blo[0]);
+      split_tf32(br[S + 8 * n], bhi[1], blo[1]);
+      mma_3xtf32(acc[n], ahi, alo, bhi, blo);
+    }
+  }
+}
+
+// bf16: tiles 2i and 2i + 1 of p are, as they lie, the A fragment of one
+// m16n8k16 step over the columns 16i .. 16i + 16.  p is split into two
+// bf16 halves (kSplit), or rounded to bf16 once, as the forward's reference
+// rounds p to v's dtype before p.v.
+template <int D, int NT, int S, bool kSplit = true>
+__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
+                                         const float (&p)[NT][4],
+                                         const __nv_bfloat16* b, int g,
+                                         int t) {
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) {
+    uint32_t ahi[4], alo[4];
+    split_bf16(p[2 * i][0], p[2 * i][1], ahi[0], alo[0]);
+    split_bf16(p[2 * i][2], p[2 * i][3], ahi[1], alo[1]);
+    split_bf16(p[2 * i + 1][0], p[2 * i + 1][1], ahi[2], alo[2]);
+    split_bf16(p[2 * i + 1][2], p[2 * i + 1][3], ahi[3], alo[3]);
+    const __nv_bfloat16* br = b + (16 * i + 2 * t) * S + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const uint32_t bf[2] = {ld_pair(br + 8 * n, S),
+                              ld_pair(br + 8 * S + 8 * n, S)};
+      if (kSplit) mma_bf16(acc[n], alo, bf);
+      mma_bf16(acc[n], ahi, bf);
+    }
+  }
+}
+
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[i][e] = 0.f;
 }
 
 }  // namespace

@@ -21,10 +21,12 @@ explicit formula, not autograd of the forward), used for CPU tensors and
 as the references ``chip_smoke.py`` holds the kernels against (in float32,
 or in float64 when given float64 tensors).
 
-Dropout: an element of the score matrix is kept when the Philox-4x32-10
-word of (seed, bh, row, col) is at least ``rate * 2^32``
-(:func:`philox_bits` reproduces the kernels' generator bit for bit in
-integer tensor ops), and the seed is an int32 tensor, read on the device.
+Dropout: an element of the score matrix is kept when its Philox-4x32-10
+word is at least ``rate * 2^32``: word 2 * ((row >> 3) & 1) + (col & 1)
+of the draw of counter (col >> 1, row & ~8, bh), one draw for four
+elements (:func:`philox_bits` reproduces the kernels' generator bit for
+bit in integer tensor ops), and the seed is an int32 tensor, read on the
+device.
 The additive bias gets no gradient, by the TPU kernel's contract."""
 
 from __future__ import annotations
@@ -135,18 +137,13 @@ def _mulhilo(a, m: int):
     return hi, lo
 
 
-def philox_bits(seed: torch.Tensor, bh: int, sq: int, sk: int
-                ) -> torch.Tensor:
-    """The kernels' Philox-4x32-10 word for every element (bh, row, col)
-    of a (BH, Sq, Sk) score tensor, as int64 values in [0, 2^32): counter
-    (col, row, bh, 0), key (seed, 0), first output word."""
-    dev = seed.device
-    k0 = seed.reshape(1, 1, 1).to(torch.int64) & _U32
+def philox_words(seed: torch.Tensor, c0, c1, c2):
+    """The four Philox-4x32-10 output words of counters (c0, c1, c2, 0)
+    under key (seed, 0), for broadcastable int64 tensors of values in
+    [0, 2^32): a tuple of four int64 tensors (csrc/common.cuh pt_philox)."""
+    k0 = seed.reshape(()).to(torch.int64) & _U32
     k1 = 0
-    c0 = torch.arange(sk, dtype=torch.int64, device=dev).view(1, 1, sk)
-    c1 = torch.arange(sq, dtype=torch.int64, device=dev).view(1, sq, 1)
-    c2 = torch.arange(bh, dtype=torch.int64, device=dev).view(bh, 1, 1)
-    c3 = torch.zeros((), dtype=torch.int64, device=dev)
+    c3 = torch.zeros((), dtype=torch.int64, device=seed.device)
     for r in range(10):
         if r:
             k0 = (k0 + _PHILOX_W[0]) & _U32
@@ -154,7 +151,30 @@ def philox_bits(seed: torch.Tensor, bh: int, sq: int, sk: int
         hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
         hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0.expand(bh, sq, sk)
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: torch.Tensor, bh: int, sq: int, sk: int
+                ) -> torch.Tensor:
+    """The kernels' dropout word for every element (bh, row, col) of a
+    (BH, Sq, Sk) score tensor, as int64 values in [0, 2^32): word
+    2 * ((row >> 3) & 1) + (col & 1) of the draw of counter
+    (col >> 1, row & ~8, bh, 0), key (seed, 0) (csrc/common.cuh
+    pt_dropout_word).  One draw covers rows r and r + 8 at columns c and
+    c + 1, so the draws are taken on a grid of a quarter of the elements."""
+    dev = seed.device
+    blocks, pairs = -(-sq // 16), -(-sk // 2)
+    rows = (torch.arange(blocks, dtype=torch.int64, device=dev)[:, None] * 16
+            + torch.arange(8, dtype=torch.int64, device=dev)).reshape(-1)
+    words = philox_words(
+        seed, torch.arange(pairs, dtype=torch.int64, device=dev).view(1, 1, -1),
+        rows.view(1, -1, 1),
+        torch.arange(bh, dtype=torch.int64, device=dev).view(-1, 1, 1))
+    # [bh, block, row & 7, col >> 1, word] -> word = 2 * (row bit 3) + col & 1
+    w = torch.stack(torch.broadcast_tensors(*words), dim=-1).view(
+        bh, blocks, 8, pairs, 2, 2)
+    return w.permute(0, 1, 4, 2, 3, 5).reshape(
+        bh, 16 * blocks, 2 * pairs)[:, :sq, :sk]
 
 
 def dropout_keep(seed: torch.Tensor, rate: float, bh: int, sq: int,

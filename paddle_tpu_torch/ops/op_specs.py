@@ -104,7 +104,8 @@ def _is_dense_adam(attrs):
 
 def _adam_supported(ins, attrs):
     return cuda_opt.adam_supported(x(ins, "Param"), x(ins, "Grad"),
-                                   x(ins, "Moment1"), x(ins, "Moment2"))
+                                   x(ins, "Moment1"), x(ins, "Moment2"),
+                                   x(ins, "Beta1Pow"), x(ins, "Beta2Pow"))
 
 
 def _dequant_acc_supported(ins, attrs):

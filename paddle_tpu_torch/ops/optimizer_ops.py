@@ -7,21 +7,24 @@ executor writes back under the same names.  The port does the same in
 ``ctx.donate_state`` and the ops update their state tensors in place, so
 parameters and moments keep their storage across steps.
 
-The dense ``adam`` runs on the ``fused_adam`` route (the hand-written
-one-pass kernel, ops/cuda/optimizer.py).  Its bias-corrected step
-``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)`` and the beta-power
-updates are device tensor ops, so no op waits for the host.  The lazy
-``SparseRows`` branch is a plain composition, as in the JAX package.
-``adamw`` runs the same update on the same kernel, then subtracts the
-decoupled decay ``lr * coeff * p`` of the parameter as it was before the
-update."""
+Dense ``adam`` and ``adamw`` run on the ``fused_adam`` route: the
+executor hands every run of them to :func:`adam_group`
+(``registry.register_group``), which sends the ops the route takes to the
+multi-tensor kernel in one launch (ops/cuda/optimizer.py; the JAX
+package's step fuses the same updates into its one XLA executable).  The
+kernel computes each op's bias-corrected step ``lr_t = lr * sqrt(1 -
+beta2^t) / (1 - beta1^t)``, AdamW's decoupled decay ``lr * coeff * p`` of
+the parameter as it was before the update, and the beta-power updates on
+the device, so no op waits for the host.  An op on its own is a run of
+one.  The lazy ``SparseRows`` branch and an op whose route is turned off
+are plain compositions, as in the JAX package."""
 
 from __future__ import annotations
 
 import torch
 
 from .cuda import optimizer as cuda_opt
-from .registry import cuda_route, register, x
+from .registry import cuda_route, register, register_group, x
 
 
 @register("sgd")
@@ -49,7 +52,9 @@ def _lazy_adam(p, g, m1, m2, b1p, b2p, lr_t, beta1, beta2, eps, rows):
             "Beta1PowOut": b1p * beta1, "Beta2PowOut": b2p * beta2}
 
 
-def _adam_update(op_type, ctx, ins, attrs):
+def _composed(op_type, ctx, ins, attrs):
+    """The plain composition of one dense or lazy ``adam`` / ``adamw``,
+    AdamW's decay taken from the parameter before the update."""
     p, g, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "LearningRate")
     m1, m2 = x(ins, "Moment1"), x(ins, "Moment2")
     b1p, b2p = x(ins, "Beta1Pow"), x(ins, "Beta2Pow")
@@ -57,47 +62,92 @@ def _adam_update(op_type, ctx, ins, attrs):
     beta2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
     g = g.to(m1.dtype)
+    coeff = _decay_coeff(op_type, attrs)
+    decay = lr.to(p.dtype) * coeff * p if coeff else None
     lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
     if attrs.get("lazy_mode") and ins.get("SparseRows"):
-        return _lazy_adam(p, g, m1, m2, b1p, b2p, lr_t, beta1, beta2, eps,
-                          ins["SparseRows"])
-    donate = ctx.donate_state
-    route, _ = cuda_route(op_type, ins, attrs)
-    if route is not None:
-        if not donate:              # Executor.run: leave the inputs intact
-            p, m1, m2 = p.clone(), m1.clone(), m2.clone()
-        p_out, m1_out, m2_out = cuda_opt.adam(
-            p, g.contiguous(), m1, m2, lr_t.reshape(1).to(torch.float32),
-            beta1=beta1, beta2=beta2, eps=eps)
+        out = _lazy_adam(p, g, m1, m2, b1p, b2p, lr_t, beta1, beta2, eps,
+                         ins["SparseRows"])
     else:
         m1_out = beta1 * m1 + (1 - beta1) * g
         m2_out = beta2 * m2 + (1 - beta2) * g * g
-        p_out = p - lr_t.to(p.dtype) * (m1_out / (m2_out.sqrt() + eps))
-    if donate:                      # lr_t above already read the powers
-        b1p_out, b2p_out = b1p.mul_(beta1), b2p.mul_(beta2)
-    else:
-        b1p_out, b2p_out = b1p * beta1, b2p * beta2
-    return {"ParamOut": p_out, "Moment1Out": m1_out, "Moment2Out": m2_out,
-            "Beta1PowOut": b1p_out, "Beta2PowOut": b2p_out}
+        out = {"ParamOut": p - lr_t.to(p.dtype) *
+               (m1_out / (m2_out.sqrt() + eps)),
+               "Moment1Out": m1_out, "Moment2Out": m2_out}
+        if ctx.donate_state:             # lr_t above already read them
+            out.update(Beta1PowOut=b1p.mul_(beta1),
+                       Beta2PowOut=b2p.mul_(beta2))
+        else:
+            out.update(Beta1PowOut=b1p * beta1, Beta2PowOut=b2p * beta2)
+    if decay is not None:
+        out["ParamOut"] = out["ParamOut"] - decay
+    return out
+
+
+def _decay_coeff(op_type, attrs) -> float:
+    if op_type == "adamw" and attrs.get("with_decay", True):
+        return attrs.get("coeff", 0.01)
+    return 0.0
+
+
+def _kernel_update(ctx, items):
+    """One launch for the ops ``items`` the route took; without
+    ``donate_state`` (Executor.run) on copies, so the inputs stay intact."""
+    entries, outs = [], []
+    for op_type, ins, attrs in items:
+        state = [x(ins, s) for s in ("Param", "Moment1", "Moment2",
+                                     "Beta1Pow", "Beta2Pow")]
+        if not ctx.donate_state:
+            state = [t.clone() for t in state]
+        p, m1, m2, b1p, b2p = state
+        lr = x(ins, "LearningRate")
+        entries.append(cuda_opt.AdamTensor(
+            p, x(ins, "Grad").to(m1.dtype).contiguous(), m1, m2,
+            lr.to(torch.float32).reshape(1), b1p, b2p,
+            attrs.get("beta1", 0.9), attrs.get("beta2", 0.999),
+            attrs.get("epsilon", 1e-8), _decay_coeff(op_type, attrs)))
+        outs.append({"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
+                     "Beta1PowOut": b1p, "Beta2PowOut": b2p})
+    cuda_opt.adam_multi(entries)
+    return outs
+
+
+@register_group("adam", "adamw")
+def adam_group(ctx, items):
+    """A run of ``adam`` / ``adamw`` ops (``(op_type, ins, attrs)`` each, no
+    op reading what another writes): every maximal run of those the
+    ``fused_adam`` route takes is one kernel launch; the lazy ``SparseRows``
+    updates and the ops whose route is off run their compositions between
+    them.  Returns each op's outputs."""
+    outs, batch = [None] * len(items), []
+
+    def flush():
+        if not batch:
+            return
+        for i, out in zip(batch, _kernel_update(
+                ctx, [items[i] for i in batch])):
+            outs[i] = out
+        batch.clear()
+    for i, (op_type, ins, attrs) in enumerate(items):
+        route = None
+        if not (attrs.get("lazy_mode") and ins.get("SparseRows")):
+            route, _ = cuda_route(op_type, ins, attrs)
+        if route is None:
+            flush()
+            outs[i] = _composed(op_type, ctx, ins, attrs)
+        else:
+            batch.append(i)
+    flush()
+    return outs
 
 
 @register("adam")
 def _adam(ctx, ins, attrs):
-    return _adam_update("adam", ctx, ins, attrs)
+    return adam_group(ctx, [("adam", ins, attrs)])[0]
 
 
 @register("adamw")
 def _adamw(ctx, ins, attrs):
     """Adam, then ``ParamOut -= lr * coeff * Param`` with ``Param`` read
-    before the update, as the JAX package computes it.  The decay term is
-    taken first: with ``donate_state`` the update writes p in place."""
-    if not attrs.get("with_decay", True):
-        return _adam_update("adamw", ctx, ins, attrs)
-    p, lr = x(ins, "Param"), x(ins, "LearningRate")
-    decay = lr.to(p.dtype) * attrs.get("coeff", 0.01) * p
-    out = _adam_update("adamw", ctx, ins, attrs)
-    if ctx.donate_state:
-        out["ParamOut"].sub_(decay)
-    else:
-        out["ParamOut"] = out["ParamOut"] - decay
-    return out
+    before the update, as the JAX package computes it."""
+    return adam_group(ctx, [("adamw", ins, attrs)])[0]

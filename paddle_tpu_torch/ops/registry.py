@@ -36,6 +36,9 @@ import torch
 from ..framework.errors import UnimplementedError
 
 OPS: Dict[str, Callable] = {}
+#: op type -> the impl that takes a run of such ops at once (see
+#: :func:`register_group`)
+GROUPS: Dict[str, Callable] = {}
 
 
 def register(name: str):
@@ -45,6 +48,28 @@ def register(name: str):
         OPS[name] = fn
         return fn
     return deco
+
+
+def register_group(*names: str):
+    """Register ``fn(ctx, [(op_type, ins, attrs), ...]) -> [outs, ...]``
+    for the op types ``names``: the executor hands it every maximal run of
+    consecutive ops of those types in which no op reads or writes what an
+    earlier one of the run writes, nor writes what an earlier one reads
+    (``executor._run_end``), and scatters each op's outputs as
+    ``get_op``'s.  It
+    must compute what the ops' own impls compute one after the other (the
+    JAX package's step fuses such runs into one executable)."""
+    def deco(fn):
+        for name in names:
+            if name in GROUPS:
+                raise ValueError(f"op {name!r} grouped twice")
+            GROUPS[name] = fn
+        return fn
+    return deco
+
+
+def get_group(name: str) -> Optional[Callable]:
+    return GROUPS.get(name)
 
 
 def get_op(name: str) -> Callable:

@@ -108,21 +108,27 @@ def test_layer_norm_bwd_plain_matches_pallas_interpret(rows, d):
 
 @pytest.mark.parametrize("n", [8 * 1024, 3 * 128])
 def test_adam_plain_matches_pallas_interpret(n):
+    """The port's Adam takes the op's LR and beta powers and forms the
+    bias-corrected step itself; the Pallas kernel is given that step."""
     rng = np.random.RandomState(12)
     p = rng.randn(n).astype(np.float32)
     g = rng.randn(n).astype(np.float32)
     m = rng.randn(n).astype(np.float32) * 0.1
     v = np.abs(rng.randn(n)).astype(np.float32) * 0.01
-    lr_t = 0.01
+    lr = torch.tensor([0.01])
+    b1p, b2p = torch.tensor([0.9 ** 3]), torch.tensor([0.999 ** 3])
+    lr_t = float(lr * torch.sqrt(1 - b2p) / (1 - b1p))
     ref = F.adam_update(jnp.asarray(p), jnp.asarray(g), jnp.asarray(m),
                         jnp.asarray(v), lr_t, beta1=0.9, beta2=0.999,
                         eps=1e-8, interpret=True)
     tp, tm, tv = (torch.from_numpy(a.copy()) for a in (p, m, v))
-    got = topt.adam(tp, torch.from_numpy(g), tm, tv,
-                    torch.tensor([lr_t], dtype=torch.float32))
+    got = topt.adam(tp, torch.from_numpy(g), tm, tv, lr, b1p, b2p)
     assert got[0] is tp and got[1] is tm and got[2] is tv    # in place
     for a, r in zip(got, ref):
         _close(a, r, TOL_ADAM)
+    assert float(b1p) == np.float32(np.float32(0.9 ** 3) * np.float32(0.9))
+    assert float(b2p) == np.float32(np.float32(0.999 ** 3) *
+                                    np.float32(0.999))
 
 
 def test_adam_takes_any_numel_and_refuses_mismatched_operands():
@@ -179,6 +185,62 @@ def test_philox_matches_the_published_known_answer():
     (the Random123 known-answer vectors)."""
     bits = tfa.philox_bits(torch.tensor([0], dtype=torch.int32), 1, 1, 1)
     assert int(bits[0, 0, 0]) == 0x6627E8D5
+
+
+def test_philox_four_words_match_the_published_known_answer():
+    """All four words of counter 0, key 0 (Random123's kat_vectors:
+    6627e8d5 e169c58d bc57ac4c 9b00dbd8), and where the mask takes them:
+    elements (row, col) (0, 0), (0, 1), (8, 0) and (8, 1) of one draw."""
+    zero = torch.tensor([0], dtype=torch.int32)
+    c = torch.tensor(0)
+    words = tfa.philox_words(zero, c, c, c)
+    assert [int(w) for w in words] == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C,
+                                       0x9B00DBD8]
+    bits = tfa.philox_bits(zero, 1, 16, 2)
+    assert [int(bits[0, r, col]) for r, col in ((0, 0), (0, 1), (8, 0),
+                                                (8, 1))] == \
+        [int(w) for w in words]
+
+
+def test_dropout_mapping_is_a_bijection_and_matches_its_definition():
+    """(bh, row, col) -> counter (col >> 1, row & ~8, bh), word
+    2 * ((row >> 3) & 1) + (col & 1) is one-to-one, and philox_bits gives
+    that word of that draw for every element of a ragged grid."""
+    bh, sq, sk = 3, 41, 13
+    seen = set()
+    for b in range(bh):
+        for r in range(sq):
+            for c in range(sk):
+                seen.add((c >> 1, r & ~8, b, 2 * ((r >> 3) & 1) + (c & 1)))
+    assert len(seen) == bh * sq * sk
+    seed = torch.tensor([1234], dtype=torch.int32)
+    bits = tfa.philox_bits(seed, bh, sq, sk)
+    b = torch.arange(bh).view(-1, 1, 1)
+    r = torch.arange(sq).view(1, -1, 1)
+    c = torch.arange(sk).view(1, 1, -1)
+    words = torch.stack(torch.broadcast_tensors(
+        *tfa.philox_words(seed, c >> 1, r & ~8, b)), dim=-1)
+    pick = (2 * ((r >> 3) & 1) + (c & 1)).expand(bh, sq, sk)
+    assert torch.equal(bits, words.gather(-1, pick[..., None])[..., 0])
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_words_of_one_draw_are_independent(rate):
+    """The pairs of elements that share a draw -- adjacent columns c, c + 1
+    (c even) and rows r, r + 8 -- are both dropped as often as two
+    independent elements, rate^2, within 1e-3 over more than 5e5 pairs
+    each (about 7 standard deviations at rate 0.1); the keep fraction is
+    1 - rate within 0.003."""
+    seed = torch.tensor([97], dtype=torch.int32)
+    drop = ~tfa.dropout_keep(seed, rate, 16, 256, 256)       # 1,048,576
+    assert abs(float(drop.float().mean()) - rate) <= 0.003
+    cols = (drop[:, :, 0::2] & drop[:, :, 1::2]).float()
+    rows = (drop.view(16, 16, 2, 8, 256)[:, :, 0] &
+            drop.view(16, 16, 2, 8, 256)[:, :, 1]).float()
+    for pairs in (cols, rows):
+        assert pairs.numel() >= 5 * 10 ** 5
+        assert abs(float(pairs.mean()) - rate ** 2) <= 1e-3, \
+            float(pairs.mean())
 
 
 def test_dropout_keep_fraction_and_seed_dependence():
