@@ -8,7 +8,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. build the port's CUDA kernels from ``paddle_tpu_torch/ops/cuda/csrc``
    with nvcc (one process per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the GPU at the
-   served shapes (BERT-base: rows 8x128 and 8x512, D = 768 / 3072; flash
+   served shapes (BERT-base: rows 8x128 and 8x512, D = 768 / 3072; the
+   LayerNorm and add+LayerNorm forwards also at R = 1, 128 and 512, at
+   D = 128, 896, 4096 and 8192 on 300 rows and on views 4 bytes off the
+   vector alignment, bit-identical across two launches; flash
    B = 8, H = 12, S = 128 and 512, D = 64 with padding, per-head, no bias
    and causal; bit-identical across two launches), float32 and bfloat16,
    and time kernel, plain version and one PyTorch library call (CUDA
@@ -171,6 +174,10 @@ EDGE_ROWS = 1003          # ragged last block of the backwards' row blocks
 # warps a row (128 and 8192 are the gate's edges) at a few hundred rows
 LN_EDGE_ROWS = 300
 LN_EDGE_WIDTHS = (128, 896, 4096, 8192)
+# the LN forwards' rows of D = 768: served B8 x S128 (the main path), the
+# training batch (B8 x S512 served, 32 x 128 trained), one row, and the
+# served B1 and B4 x S128
+LN_FWD_ROWS = (8 * 128, 8 * 512, 1, 128, 512)
 # the quantized all-reduce's receive stage (KERNEL_CENSUS_r15.json parity)
 TOL_DQ_ACC = 1e-5         # #11 vs its plain version (abs)
 TOL_DQ_ACC_BLOCK = 1e-6   # #11, each block of max|plain| of that block
@@ -334,6 +341,56 @@ def padding_bias(torch, gen, dev, bsz, seq):
     return (mask[:, :, None] * mask[:, None, :]) * 1e4 - 1e4
 
 
+def ln_fwd_checks(torch, results, randn, dtname, cases):
+    """Both LayerNorm forwards, #4 LN(x) and #6 LN(a + b), against their
+    plain twins in ``dtname`` on (rows, width, offset, case) ``cases``
+    (``offset`` elements into each operand: views off the vector alignment
+    take the scalar instantiation); every output bit-identical across two
+    launches on the same inputs.  Each case is timed beside
+    ``F.layer_norm``; #6 beside the two calls a user would make (a + b,
+    then ``F.layer_norm``) and, as the lower yardstick, ``F.layer_norm``
+    alone on the sum made beforehand."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import fused_ops as K
+
+    dt = getattr(torch, dtname)
+    es = torch.finfo(dt).bits // 8
+    record = recorder(results)
+    for rows, width, off, case in cases:
+        def operand(n, scale=1.0, shift=0.0):
+            return (shift + randn(n + off, scale=scale)).to(dt)[off:]
+        a, b = (operand(rows * width).view(rows, width) for _ in range(2))
+        s = operand(width, 0.1, 1.0)
+        bb = operand(width, 0.1)
+        u = a + b
+        for name, kern, plain, lib in (
+                ("layer_norm_fwd", lambda: K.layer_norm(a, s, bb),
+                 lambda: K.layer_norm_plain(a, s, bb),
+                 lambda: F.layer_norm(a, (width,), s, bb, 1e-5)),
+                ("add_layer_norm_fwd",
+                 lambda: K.add_layer_norm(a, b, s, bb),
+                 lambda: K.add_layer_norm_plain(a, b, s, bb),
+                 lambda: F.layer_norm(a + b, (width,), s, bb, 1e-5))):
+            residual = name == "add_layer_norm_fwd"
+            what = f"{name} [{rows},{width}] {dtname}" + \
+                (f" ({case})" if case else "")
+            got, again = kern(), kern()
+            check(torch.equal(got, again),
+                  f"{what}: output differs between two launches on the "
+                  f"same inputs")
+            err = agree(torch, what, got, plain(), dtname, TOL_F32)
+            extra = {"case": case} if case else {}
+            if residual:
+                extra["library_is"] = "a + b, then F.layer_norm"
+                extra["library_layer_norm_alone_ms"] = time_ms(
+                    torch, lambda: F.layer_norm(u, (width,), s, bb, 1e-5))
+            record(name, [rows, width], dtname, err, time_ms(torch, kern),
+                   time_ms(torch, plain), time_ms(torch, lib),
+                   ((2 + residual) * rows * width + 2 * width) * es,
+                   (8 + residual) * rows * width, bit_identical=True,
+                   **extra)
+
+
 def kernel_checks(torch, results):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import fused_ops as K
@@ -347,31 +404,9 @@ def kernel_checks(torch, results):
     for dtname, dt in (("float32", torch.float32),
                        ("bfloat16", torch.bfloat16)):
         es = torch.finfo(dt).bits // 8
-        # LayerNorm and residual add + LayerNorm, D = 768
-        for rows in (8 * 128, 8 * 512):
-            d = 768
-            a, b = randn(rows, d, dtype=dt), randn(rows, d, dtype=dt)
-            s = (1.0 + randn(d, scale=0.1)).to(dt)
-            bb = randn(d, scale=0.1, dtype=dt)
-            err = agree(torch, f"layer_norm [{rows},{d}] {dtname}",
-                        K.layer_norm(a, s, bb), K.layer_norm_plain(a, s, bb),
-                        dtname, TOL_F32)
-            record("layer_norm_fwd", [rows, d], dtname, err,
-                   time_ms(torch, lambda: K.layer_norm(a, s, bb)),
-                   time_ms(torch, lambda: K.layer_norm_plain(a, s, bb)),
-                   time_ms(torch, lambda: F.layer_norm(a, (d,), s, bb,
-                                                       1e-5)),
-                   (2 * rows * d + 2 * d) * es, 8 * rows * d)
-            err = agree(torch, f"add_layer_norm [{rows},{d}] {dtname}",
-                        K.add_layer_norm(a, b, s, bb),
-                        K.add_layer_norm_plain(a, b, s, bb), dtname, TOL_F32)
-            record("add_layer_norm_fwd", [rows, d], dtname, err,
-                   time_ms(torch, lambda: K.add_layer_norm(a, b, s, bb)),
-                   time_ms(torch,
-                           lambda: K.add_layer_norm_plain(a, b, s, bb)),
-                   time_ms(torch, lambda: F.layer_norm(a + b, (d,), s, bb,
-                                                       1e-5)),
-                   (3 * rows * d + 2 * d) * es, 9 * rows * d)
+        # LayerNorm and residual add + LayerNorm at the served rows
+        ln_fwd_checks(torch, results, randn, dtname,
+                      [(rows, 768, 0, None) for rows in LN_FWD_ROWS[:2]])
         # bias + GELU, D = 3072
         for rows in (8 * 128, 8 * 512):
             d = 3072
@@ -450,6 +485,16 @@ def kernel_checks(torch, results):
                            q, k, v, bias, causal=causal)),
                        time_ms(torch, lib), nbytes, flops,
                        **fwd_bounds(nbytes, flops, dtname))
+    # the LayerNorm forwards beyond the served rows, on their own generator
+    randn = randn_on(torch, torch.Generator(device=dev).manual_seed(SEED + 7),
+                     dev)
+    for dtname in ("float32", "bfloat16"):
+        es = torch.finfo(getattr(torch, dtname)).bits // 8
+        ln_fwd_checks(
+            torch, results, randn, dtname,
+            [(rows, 768, 0, None) for rows in LN_FWD_ROWS[2:]] +
+            [(LN_EDGE_ROWS, w, 0, f"D={w}") for w in LN_EDGE_WIDTHS] +
+            [(LN_EDGE_ROWS, 768, 4 // es, "4-byte offset view")])
 
 
 # ---------------------------------------------------------------------------
@@ -1865,14 +1910,18 @@ KERNEL_PATHS = {
 
 def kernels_line(per_kernel, launches_by_path):
     """One entry per kernel, at its main-path shape, float32: served rows
-    8 x 128 (flash B = 8, S = 128, padding bias), training B = 32, S = 128
-    (flash with dropout 0.1; LayerNorm and add+LN rows 4096; bias+GELU
+    8 x 128 (flash B = 8, S = 128, padding bias; the LayerNorm and add+LN
+    forwards R = 1024 of D = 768), training B = 32, S = 128 (flash with
+    dropout 0.1; the LayerNorm and add+LN backwards rows 4096; bias+GELU
     rows 4096 x 3072; Adam the run of all 158 parameters, adam), and the
     quantized all-reduce's receive stage at the word-embedding bucket's
     shard (n = 2, SB = 45,783; #12 int8, #11 int4, launches from rank 0 of
     phase 10).  Sources and the TPU kernels replaced come from the port's
     route table; a kernel also launched on another path carries
     ``train_launches`` (phase 7) and ``fused_train_launches`` (phase 8),
+    the LayerNorm forwards their launches on the served, unfused, training
+    and fused-training paths (``launches_by_path``) and #6 its library
+    call's name beside ``F.layer_norm`` alone on the sum,
     flash forward its dropout variant's times, the flash kernels their
     rows' extra bounds, and the flash backward its library call and
     float64 witness."""
@@ -1896,7 +1945,12 @@ def kernels_line(per_kernel, launches_by_path):
         entry.update({k: main[k] for k in (
             "bound_fma_ms", "bound_3xtf32_ms", "bound_design_ms",
             "library_dq_dk_dv_ms", "kernel_err_vs_float64",
-            "plain_err_vs_float64") if k in main})
+            "plain_err_vs_float64", "library_is",
+            "library_layer_norm_alone_ms") if k in main})
+        if name in ("layer_norm_fwd", "add_layer_norm_fwd"):
+            entry["launches_by_path"] = {
+                p: launches_by_path[p].get(name, 0)
+                for p in ("served", "unfused", "train", "fused_train")}
         for other in ("train", "fused_train", "dp_int8", "dp_int4"):
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]

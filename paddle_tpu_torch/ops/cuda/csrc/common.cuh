@@ -1,6 +1,6 @@
 // Shared helpers for the port's Hopper kernels: element loads/stores in
 // float32 or bfloat16 (one at a time, or four as one vector access), a
-// float block reduction and the counter-based dropout generator.
+// float warp reduction and the counter-based dropout generator.
 //
 // Every kernel source in this directory exposes a plain C entry point that
 // takes raw device pointers and a cudaStream_t (as void*), launches on that
@@ -100,21 +100,6 @@ __device__ __forceinline__ float pt_warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Sum of `v` over the whole block, returned to every thread.  `scratch`
-// holds one float per warp; blockDim.x must be a multiple of 32.
-__device__ __forceinline__ float pt_block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = pt_warp_sum(v);
-  __syncthreads();  // scratch may still be read by a previous reduction
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float total = 0.f;
-  for (int w = 0; w < nwarps; ++w) total += scratch[w];
-  return total;
 }
 
 // Philox-4x32-10 (Salmon et al., SC 2011): the four output words of

@@ -12,28 +12,52 @@
 // backward), far below the ~20 FLOP/byte the card needs before arithmetic
 // matters.
 //
-// Forward design: one block of 128 threads per row.  The row (a + b, in
-// float32) is staged in shared memory (D <= 8192 floats = 32 KB), so device
-// memory is read once; the mean, then the mean of squared deviations (both
-// float32, the order _ln_fwd_kernel uses) come from two block reductions,
-// and the normalised row is written in one pass.  Loads are coalesced:
-// thread t touches elements t, t + 128, ...  The residual sum never leaves
-// the SM.
+// Row layout, both directions: a row lives in the registers of one warp,
+// or of a fixed group of 2-16 warps when D > 768.  Each lane holds
+// `kChunks` (2, 4 or 6) slices of 4 columns, read as one 16-byte (float32)
+// or 8-byte (bfloat16) vector each when every pointer is aligned for it,
+// as four coalesced scalars otherwise (chunk_col).  ln_row_layout in
+// ops/cuda/fused_ops.py picks (chunks, group_warps) for both.  Sums come
+// from shuffle trees; a multi-warp group adds its warps' sums in warp
+// order through a few floats of shared memory under its own named barrier
+// (group_sum).
+//
+// Forward design (ln_fwd_kernel; it replaces a first port that gave each
+// row a block of 128 threads, staged the row in shared memory and took
+// two block reductions, four block barriers a row).  At BERT's shapes
+// (R <= 4096, D = 768) the bound is 2-11 us, near a launch, so what
+// counts is the latency of one row's chain (load, two reductions, store)
+// and how many rows are in flight at once.
+//  * One row group takes one row, in registers: no shared-memory copy of
+//    the row and no __syncthreads.  The residual variant adds b in float32
+//    as it loads.
+//  * Statistics in float32 as _ln_fwd_kernel takes them: the sum, then the
+//    mean, then the sum of (u - mean)^2 from the registers (two passes,
+//    never E[u^2] - mean^2), rsqrt(var + eps), y = fma(xhat, scale, bias)
+//    rounded once to the output dtype.
+//  * scale and bias are read as vectors in the output pass only, after
+//    the reductions: every warp of an SM reads the same columns, so after
+//    the first warp they come from L1, and keeping them in registers would
+//    cost 8 * kChunks registers a lane.
+//  * Blocks of 8 warps, 4 up to R = 1024 (more SMs share a small grid),
+//    or of the one row group of 8 or 16 warps; ceil(R / groups) of them,
+//    a function of (R, D) alone (ln_fwd_plan), and the bits of a row
+//    depend on D and the alignment alone.  Held to 64 registers a thread,
+//    32 warps fit on an SM, so R = 4096 rows of D = 768 run as one wave
+//    on 132 SMs.
+//  * A programmatic dependent launch: the grid may be scheduled while the
+//    kernel before it drains, and waits in griddepcontrol.wait before it
+//    touches device memory.
 //
 // Backward design (ln_bwd_rows_kernel, then ln_bwd_colsum_kernel).  Bound:
 // bytes (x, dy and, residual, b read; dx written).  The TPU kernel sums
 // dscale/dbias across row blocks in scratch carried over its sequential
 // grid; blocks here run in parallel, so the sums take two deterministic
 // stages.
-//  * A row lives in the registers of one warp, or of a fixed group of
-//    2-16 warps when D > 768: each lane holds `kChunks` (2, 4 or 6) slices
-//    of 4 columns of x (+ b) and dy, read as one 16-byte (float32) or
-//    8-byte (bfloat16) vector each when every pointer is aligned for it,
-//    as four coalesced scalars otherwise.  Mean, variance (recomputed in
-//    float32, mean first, as _ln_bwd_kernel does), mean(dy*s) and
-//    mean(dy*s*xhat) come from shuffle trees; a multi-warp group adds its
-//    warps' sums through a few floats of shared memory under a named
-//    barrier.  No __syncthreads on the per-row path; dx =
+//  * Each lane holds its slices of x (+ b) and dy.  Mean, variance
+//    (recomputed in float32, mean first, as _ln_bwd_kernel does),
+//    mean(dy*s) and mean(dy*s*xhat) come from the row layout's sums.  No
+//    __syncthreads on the per-row path; dx =
 //    rstd * (dy*s - mean(dy*s) - xhat * mean(dy*s*xhat)) is written from
 //    registers.  scale is copied to shared memory once per block
 //    (cp.async, while the first row's loads are in flight).
@@ -66,65 +90,20 @@
 // sum never reaches device memory in the backward either.
 #include "common.cuh"
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 128;
-
-template <typename T, bool kResidual>
-__global__ void ln_fwd_kernel(const T* __restrict__ a,
-                              const T* __restrict__ b,
-                              const T* __restrict__ scale,
-                              const T* __restrict__ bias,
-                              T* __restrict__ y, int d, float eps) {
-  extern __shared__ float row[];           // d floats
-  __shared__ float scratch[kThreads / 32];
-  const size_t base = static_cast<size_t>(blockIdx.x) * d;
-
-  float sum = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    float u = pt_load(a + base + i);
-    if (kResidual) u += pt_load(b + base + i);
-    row[i] = u;
-    sum += u;
-  }
-  const float mean = pt_block_sum(sum, scratch) / d;
-
-  // each thread re-reads only the elements it wrote: no barrier needed
-  float sq = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float c = row[i] - mean;
-    sq += c * c;
-  }
-  const float var = pt_block_sum(sq, scratch) / d;
-  const float rstd = rsqrtf(var + eps);
-
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float v = (row[i] - mean) * rstd * pt_load(scale + i) +
-                    pt_load(bias + i);
-    pt_store(y + base + i, v);
-  }
-}
-
-template <typename T, bool kResidual>
-cudaError_t launch(const void* a, const void* b, const void* scale,
-                   const void* bias, void* y, int rows, int d, float eps,
-                   cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  ln_fwd_kernel<T, kResidual><<<rows, kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(scale), static_cast<const T*>(bias),
-      static_cast<T*>(y), d, eps);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-constexpr int kBlockWarps = 8;     // warps of a backward block ...
-constexpr int kMaxRowWarps = 16;   // ... or of its one row group (D > 6144)
+constexpr int kMaxRowWarps = 16;   // warps of the widest row group (D > 6144)
+constexpr int kFwdBlocksPerSm = 2; // forward: 2 blocks of 512 threads (32
+                                   // warps) an SM: at most 64 registers
+constexpr int kBlockWarps = 8;     // warps of a backward block (or its group)
 constexpr int kSumWarps = 8;       // warps of a column-sum block
 constexpr int kSumLoads = 8;       // loads each of them keeps in flight
+
+// ---------------------------------------------------------------------------
+// the row layout
+// ---------------------------------------------------------------------------
 
 // Column of element j of the 4-column slice a lane holds of 128-column
 // chunk k: with kVec4 128 k + 4 lane + j (one vector access), otherwise
@@ -203,6 +182,157 @@ __device__ __forceinline__ void group_sum(float* v,
   }
   phase ^= 1;
 }
+
+// Calls f(std::integral_constant<int, chunks>(), std::bool_constant<vec4>())
+// for the runtime (chunks, vec4): the kernels are instantiated for chunks
+// 2, 4 and 6 (the entry points refuse any other), vectors or scalars.
+template <typename F>
+cudaError_t with_layout(int chunks, bool vec4, F&& f) {
+  auto v = [&](auto c) {
+    return vec4 ? f(c, std::true_type()) : f(c, std::false_type());
+  };
+  if (chunks == 2) return v(std::integral_constant<int, 2>());
+  if (chunks == 4) return v(std::integral_constant<int, 4>());
+  return v(std::integral_constant<int, 6>());
+}
+
+// Whether a row layout is one the kernels take: chunks * group_warps
+// 128-column chunks cover the row, the group is 1-16 warps (a power of
+// two) and the block a whole number of groups of at most 16 warps.
+bool layout_ok(int d, int chunks, int group_warps, int block_warps) {
+  const bool group_ok = group_warps == 1 || group_warps == 2 ||
+                        group_warps == 4 || group_warps == 8 ||
+                        group_warps == kMaxRowWarps;
+  return d > 0 && d % 128 == 0 && d <= 8192 &&
+         (chunks == 2 || chunks == 4 || chunks == 6) && group_ok &&
+         chunks * group_warps * 128 >= d && block_warps >= group_warps &&
+         block_warps <= kMaxRowWarps && block_warps % group_warps == 0;
+}
+
+// Launches `kernel` on `stream` as a programmatic dependent of the kernel
+// before it: the grid may be scheduled while that kernel drains, and must
+// wait in griddepcontrol.wait before it touches what that kernel writes.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), int blocks,
+                             int threads, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// Row `blockIdx.x * groups + grp` of a (+ b), normalised into y by row
+// group `grp` of `group_warps` warps; a lane's 4-column slices are chunks
+// wg, wg + group_warps, ... of the row (wg: its warp in the group).
+template <typename T, bool kResidual, int kChunks, bool kVec4>
+__global__ void __launch_bounds__(kMaxRowWarps * 32, kFwdBlocksPerSm)
+    ln_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                  const T* __restrict__ scale, const T* __restrict__ bias,
+                  T* __restrict__ y, int rows, int d, int group_warps,
+                  float eps) {
+  __shared__ float xchg[2][kMaxRowWarps][2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = warp / group_warps;
+  const int wg = warp % group_warps;
+  const int r = blockIdx.x * ((blockDim.x >> 5) / group_warps) + grp;
+  // launched as a programmatic dependent: the grid may be scheduled while
+  // the kernel before it drains, and waits here, before reading or
+  // writing device memory, until that kernel's writes are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  // a whole group leaves together; its barrier counts its own warps only
+  if (r >= rows) return;
+  const int nk = d >> 7;  // 128-column chunks of a row
+  const size_t base = static_cast<size_t>(r) * d;
+  float u[kChunks * 4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int k = c * group_warps + wg;
+    if (k < nk) load4<kVec4>(a + base, k, lane, u + 4 * c);
+  }
+  if constexpr (kResidual) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int k = c * group_warps + wg;
+      if (k >= nk) continue;
+      float t[4];
+      load4<kVec4>(b + base, k, lane, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) u[4 * c + j] += t[j];
+    }
+  }
+  float acc[1] = {0.f};
+  int phase = 0;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (c * group_warps + wg < nk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[0] += u[4 * c + j];
+    }
+  }
+  group_sum<1>(acc, xchg, phase, group_warps, grp);
+  const float mean = acc[0] / d;
+  acc[0] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (c * group_warps + wg < nk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        u[4 * c + j] -= mean;
+        acc[0] = fmaf(u[4 * c + j], u[4 * c + j], acc[0]);
+      }
+    }
+  }
+  group_sum<1>(acc, xchg, phase, group_warps, grp);
+  const float rstd = rsqrtf(acc[0] / d + eps);
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int k = c * group_warps + wg;
+    if (k >= nk) continue;
+    float s[4], o[4];
+    load4<kVec4>(scale, k, lane, s);
+    load4<kVec4>(bias, k, lane, o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = fmaf(u[4 * c + j] * rstd, s[j], o[j]);
+    store4<kVec4>(y + base, k, lane, o);
+  }
+}
+
+template <typename T, bool kResidual>
+cudaError_t launch_fwd(const void* a, const void* b, const void* scale,
+                       const void* bias, void* y, int rows, int d,
+                       int chunks, int group_warps, int block_warps,
+                       int blocks, float eps, cudaStream_t stream) {
+  // d % 128 == 0, so every row starts as aligned as its tensor does
+  const size_t vec_bytes = 4 * sizeof(T);
+  const bool vec4 = pt_aligned(a, vec_bytes) &&
+                    (!kResidual || pt_aligned(b, vec_bytes)) &&
+                    pt_aligned(scale, vec_bytes) &&
+                    pt_aligned(bias, vec_bytes) && pt_aligned(y, vec_bytes);
+  return with_layout(chunks, vec4, [&](auto c, auto v) {
+    return launch_dependent(
+        ln_fwd_kernel<T, kResidual, decltype(c)::value, decltype(v)::value>,
+        blocks, block_warps * 32, stream, static_cast<const T*>(a),
+        static_cast<const T*>(b), static_cast<const T*>(scale),
+        static_cast<const T*>(bias), static_cast<T*>(y), rows, d,
+        group_warps, eps);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
 
 // Shared memory a row group needs per column: the residual variant's row
 // buffers x, dy, b of T, which the epilogue reuses for the group's float32
@@ -500,20 +630,6 @@ cudaError_t launch_rows(const void* x, const void* b, const void* scale,
   return cudaGetLastError();
 }
 
-template <typename T, bool kResidual, int kChunks>
-cudaError_t launch_rows(bool vec4, const void* x, const void* b,
-                        const void* scale, const void* dy, void* dx,
-                        void* partial, int rows, int d, int group_warps,
-                        int rows_per_block, int nblocks, float eps,
-                        cudaStream_t stream) {
-  return vec4 ? launch_rows<T, kResidual, kChunks, true>(
-                    x, b, scale, dy, dx, partial, rows, d, group_warps,
-                    rows_per_block, nblocks, eps, stream)
-              : launch_rows<T, kResidual, kChunks, false>(
-                    x, b, scale, dy, dx, partial, rows, d, group_warps,
-                    rows_per_block, nblocks, eps, stream);
-}
-
 template <typename T, bool kResidual>
 cudaError_t launch_bwd(const void* x, const void* b, const void* scale,
                        const void* dy, void* dx, void* dscale, void* dbias,
@@ -526,75 +642,65 @@ cudaError_t launch_bwd(const void* x, const void* b, const void* scale,
                     (!kResidual || pt_aligned(b, vec_bytes)) &&
                     pt_aligned(scale, vec_bytes) &&
                     pt_aligned(dy, vec_bytes) && pt_aligned(dx, vec_bytes);
-  cudaError_t err;
-  if (chunks == 2) {
-    err = launch_rows<T, kResidual, 2>(vec4, x, b, scale, dy, dx, partial,
-                                       rows, d, group_warps, rows_per_block,
-                                       nblocks, eps, stream);
-  } else if (chunks == 4) {
-    err = launch_rows<T, kResidual, 4>(vec4, x, b, scale, dy, dx, partial,
-                                       rows, d, group_warps, rows_per_block,
-                                       nblocks, eps, stream);
-  } else {
-    err = launch_rows<T, kResidual, 6>(vec4, x, b, scale, dy, dx, partial,
-                                       rows, d, group_warps, rows_per_block,
-                                       nblocks, eps, stream);
-  }
+  const cudaError_t err = with_layout(chunks, vec4, [&](auto c, auto v) {
+    return launch_rows<T, kResidual, decltype(c)::value, decltype(v)::value>(
+        x, b, scale, dy, dx, partial, rows, d, group_warps, rows_per_block,
+        nblocks, eps, stream);
+  });
   if (err != cudaSuccess) return err;
-  // a programmatic dependent launch: the column sum is scheduled while the
-  // row pass runs and waits in griddepcontrol.wait for all of its writes
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * d / 32);
-  cfg.blockDim = dim3(kSumWarps * 32);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, ln_bwd_colsum_kernel<T>,
-                            static_cast<const float*>(partial),
-                            static_cast<T*>(dscale), static_cast<T*>(dbias),
-                            nblocks, d);
+  // the column sum is scheduled while the row pass runs and waits in
+  // griddepcontrol.wait for all of its writes
+  return launch_dependent(ln_bwd_colsum_kernel<T>, 2 * d / 32,
+                          kSumWarps * 32, stream,
+                          static_cast<const float*>(partial),
+                          static_cast<T*>(dscale), static_cast<T*>(dbias),
+                          nblocks, d);
+}
+
+// Calls f(T-typed tag, std::bool_constant<residual>()) for `dtype` and
+// whether `b` is given; cudaErrorInvalidValue for any other dtype.
+template <typename F>
+cudaError_t with_types(int dtype, const void* b, F&& f) {
+  auto r = [&](auto t) {
+    return b ? f(t, std::true_type()) : f(t, std::false_type());
+  };
+  if (dtype == PT_F32) return r(float());
+  if (dtype == PT_BF16) return r(__nv_bfloat16());
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // y[rows, d] = LN(a (+ b)) * scale + bias.  `b` may be NULL (plain LN).
-// Requires d % 128 == 0 and d <= 8192 (checked by the Python wrapper and
-// re-checked here); all tensors contiguous, of the dtype `dtype` names.
+// The launch is ln_fwd_plan's (ops/cuda/fused_ops.py): each lane holds
+// `chunks` (2, 4 or 6) 4-column slices of a row shared by `group_warps`
+// (1, 2, 4, 8 or 16) warps, with chunks * group_warps * 128 >= d; `blocks`
+// blocks of `block_warps` warps, one row to each row group, so
+// blocks = ceil(rows / (block_warps / group_warps)).  Requires d % 128 == 0
+// and d <= 8192 (the Python wrapper's gate, re-checked here); all tensors
+// contiguous, of the dtype `dtype` names.
 extern "C" int pt_layer_norm_fwd(int dtype, const void* a, const void* b,
                                  const void* scale, const void* bias,
-                                 void* y, int rows, int d, float eps,
-                                 void* stream) {
-  if (d <= 0 || d % 128 != 0 || d > 8192 || rows < 0)
+                                 void* y, int rows, int d, int chunks,
+                                 int group_warps, int block_warps,
+                                 int blocks, float eps, void* stream) {
+  if (!layout_ok(d, chunks, group_warps, block_warps) || rows < 1 ||
+      blocks != (rows - 1) / (block_warps / group_warps) + 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == PT_F32) {
-    err = b ? launch<float, true>(a, b, scale, bias, y, rows, d, eps, s)
-            : launch<float, false>(a, b, scale, bias, y, rows, d, eps, s);
-  } else if (dtype == PT_BF16) {
-    err = b ? launch<__nv_bfloat16, true>(a, b, scale, bias, y, rows, d,
-                                          eps, s)
-            : launch<__nv_bfloat16, false>(a, b, scale, bias, y, rows, d,
-                                           eps, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_types(dtype, b, [&](auto t, auto res) {
+    return launch_fwd<decltype(t), decltype(res)::value>(
+        a, b, scale, bias, y, rows, d, chunks, group_warps, block_warps,
+        blocks, eps, s);
+  }));
 }
 
 // LayerNorm backward over rows of x (+ b)[rows, d] with scale[d] and
 // dy[rows, d]: dx[rows, d] (with `b`, the gradient of both addends) and
 // dscale, dbias[d] (same dtype as x).  `b` may be NULL (plain LN).  The
-// launch is ln_bwd_plan's (ops/cuda/fused_ops.py): each lane holds
-// `chunks` (2, 4 or 6) 4-column slices of a row shared by `group_warps`
-// (1, 2, 4, 8 or 16) warps, with chunks * group_warps * 128 >= d; blocks
-// of max(8, group_warps) warps take `rows_per_block` rows each; `partial`
-// is float32 scratch of [nblocks, 2, d] with
+// launch is ln_bwd_plan's (ops/cuda/fused_ops.py): the forward's row
+// layout; blocks of max(8, group_warps) warps take `rows_per_block` rows
+// each; `partial` is float32 scratch of [nblocks, 2, d] with
 // nblocks = ceil(rows / rows_per_block).  Same width rule as the forward.
 extern "C" int pt_layer_norm_bwd(int dtype, const void* x, const void* b,
                                  const void* scale, const void* dy, void* dx,
@@ -602,32 +708,16 @@ extern "C" int pt_layer_norm_bwd(int dtype, const void* x, const void* b,
                                  int rows, int d, int chunks,
                                  int group_warps, int rows_per_block,
                                  int nblocks, float eps, void* stream) {
-  const bool group_ok = group_warps == 1 || group_warps == 2 ||
-                        group_warps == 4 || group_warps == 8 ||
-                        group_warps == kMaxRowWarps;
-  if (d <= 0 || d % 128 != 0 || d > 8192 || rows < 1 || rows_per_block < 1 ||
-      nblocks != (rows + rows_per_block - 1) / rows_per_block ||
-      (chunks != 2 && chunks != 4 && chunks != 6) || !group_ok ||
-      chunks * group_warps * 128 < d)
+  const int block_warps =
+      group_warps > kBlockWarps ? group_warps : kBlockWarps;
+  if (!layout_ok(d, chunks, group_warps, block_warps) || rows < 1 ||
+      rows_per_block < 1 ||
+      nblocks != (rows + rows_per_block - 1) / rows_per_block)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == PT_F32) {
-    err = b ? launch_bwd<float, true>(x, b, scale, dy, dx, dscale, dbias,
-                                      partial, rows, d, chunks, group_warps,
-                                      rows_per_block, nblocks, eps, s)
-            : launch_bwd<float, false>(x, b, scale, dy, dx, dscale, dbias,
-                                       partial, rows, d, chunks, group_warps,
-                                       rows_per_block, nblocks, eps, s);
-  } else if (dtype == PT_BF16) {
-    err = b ? launch_bwd<__nv_bfloat16, true>(
-                  x, b, scale, dy, dx, dscale, dbias, partial, rows, d,
-                  chunks, group_warps, rows_per_block, nblocks, eps, s)
-            : launch_bwd<__nv_bfloat16, false>(
-                  x, b, scale, dy, dx, dscale, dbias, partial, rows, d,
-                  chunks, group_warps, rows_per_block, nblocks, eps, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_types(dtype, b, [&](auto t, auto res) {
+    return launch_bwd<decltype(t), decltype(res)::value>(
+        x, b, scale, dy, dx, dscale, dbias, partial, rows, d, chunks,
+        group_warps, rows_per_block, nblocks, eps, s);
+  }));
 }

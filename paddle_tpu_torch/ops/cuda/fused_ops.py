@@ -34,7 +34,8 @@ from .build import function
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_LN_ARGTYPES = (_I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P)
+_LN_ARGTYPES = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                ctypes.c_float, _P)
 _LN_BWD_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _I, ctypes.c_float, _P)
 _BG_ARGTYPES = (_I, _P, _P, _P, _I, _I, _P)
@@ -43,9 +44,11 @@ _BG_BWD_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 LN_MAX_DIM = 8192
 BG_MAX_DIM = 16384
 BWD_MAX_BLOCKS = 512        # row blocks of bias+GELU backward's partials
+LN_CHUNKS = (2, 4, 6)       # 128-column chunks a lane may hold of a row
+LN_FWD_BLOCK_WARPS = 8      # warps of an LN forward block (or one row's),
+LN_FWD_SMALL_ROWS = 1024    # half as many up to this many rows
 LN_BWD_MAX_BLOCKS = 256     # row blocks of the LN backward's partials
 LN_BWD_BLOCK_WARPS = 8      # warps of an LN backward block (or one row's)
-LN_BWD_CHUNKS = (2, 4, 6)   # 128-column chunks a lane may hold of a row
 
 
 def ln_supported(d: int, dtype=torch.float32) -> Tuple[bool, str]:
@@ -154,10 +157,14 @@ def _ln_launch(what, counter, a2, b2, scale, bias, eps):
     if not ok:
         raise ValueError(f"{what}: unsupported ({why})")
     y = torch.empty_like(a2)
+    if r == 0:
+        return y
+    plan = ln_fwd_plan(r, d)
     fn = function("layer_norm", "pt_layer_norm_fwd", _LN_ARGTYPES)
     rc = fn(dtype_code(a2, what), a2.data_ptr(),
             b2.data_ptr() if b2 is not None else None, scale.data_ptr(),
-            bias.data_ptr(), y.data_ptr(), r, d, float(eps),
+            bias.data_ptr(), y.data_ptr(), r, d, plan.chunks,
+            plan.group_warps, plan.block_warps, plan.blocks, float(eps),
             stream_handle(a2.device))
     raise_on_error(what, rc)
     LAUNCHES[counter] += 1
@@ -179,8 +186,9 @@ def _row_blocks(r):
     return rows_per_block, -(-r // rows_per_block)
 
 
-class LnBwdPlan(NamedTuple):
-    """The LayerNorm backward's launch over x [rows, d] (see
+class LnPlan(NamedTuple):
+    """A LayerNorm kernel's launch over x [rows, d]: its row layout
+    (:func:`ln_row_layout`) and grid (:func:`ln_fwd_plan`,
     :func:`ln_bwd_plan`)."""
     rows: int
     d: int
@@ -188,7 +196,7 @@ class LnBwdPlan(NamedTuple):
     group_warps: int     # warps that share one row
     block_warps: int     # warps of a block: block_warps // group_warps groups
     rows_per_block: int
-    blocks: int          # row blocks, each one float32 partial of [2, d]
+    blocks: int          # blocks of the grid
 
     @property
     def groups(self) -> int:
@@ -196,32 +204,58 @@ class LnBwdPlan(NamedTuple):
 
     def group_rows(self, block: int, group: int) -> range:
         """The rows that row group ``group`` of block ``block`` takes, in
-        the kernel's order (``ln_bwd_rows_kernel``)."""
+        the kernels' order (``ln_fwd_kernel``, ``ln_bwd_rows_kernel``)."""
         r0 = block * self.rows_per_block
         return range(r0 + group, min(self.rows, r0 + self.rows_per_block),
                      self.groups)
 
 
-def ln_bwd_plan(r: int, d: int) -> LnBwdPlan:
-    """The grid of ``csrc/layer_norm.cu``'s backward, a function of (r, d)
-    alone — never of the device — so dscale/dbias are the same bits on
-    every card.  A row is split over the fewest warps (a power of two)
-    that leaves each lane at most ``LN_BWD_CHUNKS[-1]`` 128-column chunks;
-    blocks hold ``LN_BWD_BLOCK_WARPS`` warps (more when one row needs
-    them), take a whole number of rows per row group, and number at most
-    ``LN_BWD_MAX_BLOCKS``."""
-    if r < 1 or d < 128 or d % 128:
-        raise ValueError(f"ln_bwd_plan: no plan for [{r}, {d}]")
+def ln_row_layout(d: int) -> Tuple[int, int]:
+    """(chunks, group_warps) of ``csrc/layer_norm.cu``'s row layout, both
+    directions: a row is split over the fewest warps (a power of two) that
+    leaves each lane at most ``LN_CHUNKS[-1]`` 128-column chunks, and a
+    lane holds the smallest instantiated count of chunks that covers its
+    share."""
+    if d < 128 or d % 128:
+        raise ValueError(f"ln_row_layout: no layout for width {d}")
     n = d // 128
     group = 1
-    while -(-n // group) > LN_BWD_CHUNKS[-1]:
+    while -(-n // group) > LN_CHUNKS[-1]:
         group *= 2
-    chunks = min(c for c in LN_BWD_CHUNKS if c >= -(-n // group))
+    return min(c for c in LN_CHUNKS if c >= -(-n // group)), group
+
+
+def ln_fwd_plan(r: int, d: int) -> LnPlan:
+    """The grid of ``csrc/layer_norm.cu``'s forward, a function of (r, d)
+    alone — never of the device: each row group takes one row, in blocks
+    of ``LN_FWD_BLOCK_WARPS`` warps, half as many up to
+    ``LN_FWD_SMALL_ROWS`` rows (more blocks on more SMs where latency
+    decides), or of the one row group when it has more warps;
+    ``ceil(r / groups)`` blocks."""
+    if r < 1:
+        raise ValueError(f"ln_fwd_plan: no plan for [{r}, {d}]")
+    chunks, group = ln_row_layout(d)
+    warps = LN_FWD_BLOCK_WARPS // (2 if r <= LN_FWD_SMALL_ROWS else 1)
+    block_warps = max(warps, group)
+    groups = block_warps // group
+    return LnPlan(r, d, chunks, group, block_warps, groups, -(-r // groups))
+
+
+def ln_bwd_plan(r: int, d: int) -> LnPlan:
+    """The grid of ``csrc/layer_norm.cu``'s backward, a function of (r, d)
+    alone — never of the device — so dscale/dbias are the same bits on
+    every card.  The row layout is :func:`ln_row_layout`'s; blocks hold
+    ``LN_BWD_BLOCK_WARPS`` warps (more when one row needs them), take a
+    whole number of rows per row group, and number at most
+    ``LN_BWD_MAX_BLOCKS``; each writes one float32 partial of [2, d]."""
+    if r < 1:
+        raise ValueError(f"ln_bwd_plan: no plan for [{r}, {d}]")
+    chunks, group = ln_row_layout(d)
     block_warps = max(LN_BWD_BLOCK_WARPS, group)
     groups = block_warps // group
     rows_per_block = groups * -(-r // (LN_BWD_MAX_BLOCKS * groups))
-    return LnBwdPlan(r, d, chunks, group, block_warps, rows_per_block,
-                     -(-r // rows_per_block))
+    return LnPlan(r, d, chunks, group, block_warps, rows_per_block,
+                  -(-r // rows_per_block))
 
 
 def _ln_bwd_launch(what, a2, b2, scale, dy, eps):

@@ -63,11 +63,11 @@ def test_every_width_the_gate_accepts_has_a_kernel_plan(d):
     assert tF.ln_supported(d, torch.float32)[0]
     plan = tF.ln_bwd_plan(4096, d)
     chunks = d // 128
-    assert plan.chunks in tF.LN_BWD_CHUNKS
+    assert plan.chunks in tF.LN_CHUNKS
     assert plan.group_warps in (1, 2, 4, 8, 16)
     assert plan.chunks * plan.group_warps >= chunks
     assert plan.group_warps == 1 or \
-        -(-chunks // (plan.group_warps // 2)) > tF.LN_BWD_CHUNKS[-1]
+        -(-chunks // (plan.group_warps // 2)) > tF.LN_CHUNKS[-1]
     assert plan.block_warps == max(tF.LN_BWD_BLOCK_WARPS, plan.group_warps)
     assert plan.block_warps * 32 <= 512
 
@@ -76,9 +76,9 @@ def test_bert_base_rows_take_one_warp_each():
     """D = 768: six 128-column chunks a lane, one warp a row, 8 rows to a
     block of 256 threads; the encoder's 4096 rows make 256 blocks of 16,
     the masked-LM head's 640 make 80 of 8."""
-    assert tF.ln_bwd_plan(4096, 768) == tF.LnBwdPlan(4096, 768, 6, 1, 8, 16,
-                                                     256)
-    assert tF.ln_bwd_plan(640, 768) == tF.LnBwdPlan(640, 768, 6, 1, 8, 8, 80)
+    assert tF.ln_bwd_plan(4096, 768) == tF.LnPlan(4096, 768, 6, 1, 8, 16,
+                                                  256)
+    assert tF.ln_bwd_plan(640, 768) == tF.LnPlan(640, 768, 6, 1, 8, 8, 80)
 
 
 def test_ln_gate_accepts_and_refuses_exactly_as_before():

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's attention and optimizer kernels on one CUDA
-card, across checkouts of the repository.
+"""A/B timing of the port's attention, optimizer and LayerNorm forward
+kernels on one CUDA card, across checkouts of the repository.
 
     python3 tools/torch_kernel_ab.py ROOT [ROOT ...] [--out FILE]
-                                     [--only fwd,bwd,adam]
+                                     [--only fwd,bwd,adam,ln_fwd]
 
 Each ROOT is a checkout holding ``paddle_tpu_torch``.  Each runs in its own
 process, in the order given (to compare a parent P with a change C on one
@@ -33,7 +33,18 @@ through the checkout's own wrappers and executor:
   apart from everything else: the step size, the beta powers and the
   decay passes), the span between two CUDA events, and the host's
   enqueue time; beside ``torch._fused_adam_`` and ``torch._fused_adamw_``
-  called once over the same 158 tensors.
+  called once over the same 158 tensors;
+* the LayerNorm forwards (``ln_fwd``): ``layer_norm_fwd`` (replaces
+  ``_ln_fwd_kernel``) and ``add_layer_norm_fwd`` (replaces
+  ``_aln_fwd_kernel``) at D 768 and R 128, 512, 1024 and 4096 (the served
+  B1, B4 and B8 x S128 and B8 x S512, and the training rows), float32 and
+  bf16, each held against its plain twin and bit for bit across two
+  launches, timed alone (L2 warm, and flushed before each sample) and as
+  a chain of CHAIN launches back to back (per launch: what a launch
+  costs behind another kernel), beside
+  ``F.layer_norm`` (for the add: a + b then ``F.layer_norm``, and
+  ``F.layer_norm`` alone on the sum made beforehand), its device time from
+  the profiler and its bound (bytes over 3.35 TB/s).
 
 ``--only`` keeps the named groups of measurements.  Kernel times are CUDA
 events, median of 25 (the Adam update: of 9), with
@@ -61,6 +72,10 @@ HEADS, HEAD_DIM = 12, 64
 RATES = (0.1, 0.0)
 SEED = 2024
 ADAM_SAMPLES = 9
+LN_ROWS = (128, 512, 1024, 4096)
+LN_D = 768
+CHAIN = 16
+FLUSH_BYTES = 64 << 20        # more than the H100's 50 MB L2
 
 
 def profile_calls(torch, fn, calls=5):
@@ -307,7 +322,60 @@ def adam_rows(torch, C, dev, gen):
     return rows
 
 
-GROUPS = ("fwd", "bwd", "adam")
+def ln_fwd_rows(torch, C, dev, gen):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import fused_ops as K
+    rows = []
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    for dtname in ("float32", "bfloat16"):
+        dt = torch.float32 if dtname == "float32" else torch.bfloat16
+        es = torch.finfo(dt).bits // 8
+        for r in LN_ROWS:
+            d = LN_D
+            a, b = (torch.randn(r, d, generator=gen, device=dev).to(dt)
+                    for _ in range(2))
+            s = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+                 ).to(dt)
+            bb = (0.1 * torch.randn(d, generator=gen, device=dev)).to(dt)
+            u = a + b
+            for name, kern, plain, lib in (
+                    ("layer_norm_fwd", lambda: K.layer_norm_fwd(a, s, bb),
+                     lambda: K.layer_norm_plain(a, s, bb),
+                     lambda: F.layer_norm(a, (d,), s, bb, 1e-5)),
+                    ("add_layer_norm_fwd",
+                     lambda: K.add_layer_norm_fwd(a, b, s, bb),
+                     lambda: K.add_layer_norm_plain(a, b, s, bb),
+                     lambda: F.layer_norm(a + b, (d,), s, bb, 1e-5))):
+                residual = name == "add_layer_norm_fwd"
+                got, again = kern(), kern()
+
+                def chain():
+                    for _ in range(CHAIN):
+                        kern()
+                row = {"kernel": name, "dtype": dtname, "rows": r, "d": d,
+                       "err": float((got.float() - plain().float()).abs()
+                                    .max()),
+                       "bit_identical": bool(torch.equal(got, again)),
+                       "ms": C.time_ms(torch, kern),
+                       "cold_ms": C.time_ms(torch, kern, flush=flush),
+                       "chain_ms": C.time_ms(torch, chain) / CHAIN,
+                       "device_ms": sum(ms for _, ms in profile_calls(
+                           torch, kern).values()),
+                       "plain_ms": C.time_ms(torch, plain),
+                       "library_ms": C.time_ms(torch, lib),
+                       "bound_ms": ((2 + residual) * r * d + 2 * d) * es /
+                       C.HBM_BYTES_PER_S * 1e3}
+                if residual:
+                    row["library_layer_norm_alone_ms"] = C.time_ms(
+                        torch, lambda: F.layer_norm(u, (d,), s, bb, 1e-5))
+                rows.append(row)
+    return rows
+
+
+GROUPS = ("fwd", "bwd", "adam", "ln_fwd")
+LIBRARIES = {"fwd": ("flash_attention",), "adam": ("adam",),
+             "bwd": ("flash_attention", "flash_attention_bwd"),
+             "ln_fwd": ("layer_norm",)}
 
 
 def worker(root, out, only=GROUPS):
@@ -319,7 +387,7 @@ def worker(root, out, only=GROUPS):
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
     assert os.path.abspath(FA.__file__).startswith(os.path.abspath(root))
     torch.backends.cuda.matmul.allow_tf32 = False
-    rep = build.build(["flash_attention", "flash_attention_bwd", "adam"],
+    rep = build.build(sorted({lib for g in only for lib in LIBRARIES[g]}),
                       verbose=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -331,6 +399,8 @@ def worker(root, out, only=GROUPS):
         rows += backward_rows(torch, FA, C, dev, gen, seed)
     if "adam" in only:
         rows += adam_rows(torch, C, dev, gen)
+    if "ln_fwd" in only:
+        rows += ln_fwd_rows(torch, C, dev, gen)
     with open(out, "w") as f:
         json.dump({"root": root, "ptxas": rep["ptxas"],
                    "build_s": rep["seconds"], "rows": rows}, f)
@@ -356,6 +426,17 @@ def fmt(row):
                 + ", ".join(f"{k} {f(v)}" for k, v in row["split_ms"].items())
                 + f"; max rel err {['%.2e' % e for e in row['max_rel_err']]}"
                 f", bit-identical {row['bit_identical']}")
+    if row["kernel"] in ("layer_norm_fwd", "add_layer_norm_fwd"):
+        alone = row.get("library_layer_norm_alone_ms")
+        return (f"  {row['kernel']} {row['dtype']} R{row['rows']} "
+                f"D{row['d']}: {f(row['ms'])} ms, L2 flushed "
+                f"{f(row['cold_ms'])}, chain {f(row['chain_ms'])}"
+                f" per launch, device {f(row['device_ms'])}; plain "
+                f"{f(row['plain_ms'])}, library {f(row['library_ms'])}"
+                + ("" if alone is None else f" (F.layer_norm alone "
+                   f"{f(alone)})")
+                + f", bound {f(row['bound_ms'])}; err {row['err']:.2e}, "
+                f"bit-identical {row['bit_identical']}")
     return (f"  {row['kernel']} x{row['ops']} ({row['parameters']} "
             f"parameters): {row['launches']:.0f} device launches "
             f"(LAUNCHES {row['port_launch_count']}); Adam kernel "
@@ -408,9 +489,10 @@ def main(argv):
         json.dump({"card": card, "runs": runs}, f, indent=1)
     print(card)
     bad = [r for run in runs for r in run["rows"]
-           if r["kernel"] in ("fwd", "bwd_pair") and (
+           if "bit_identical" in r and (
                not r["bit_identical"] or
-               math.isnan(r.get("err_o", max(r.get("max_rel_err", [0])))))]
+               math.isnan(r.get("err_o", r.get("err", max(
+                   r.get("max_rel_err", [0]))))))]
     return 1 if bad else 0
 
 
