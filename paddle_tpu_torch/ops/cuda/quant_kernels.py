@@ -14,6 +14,23 @@ SB,)`` float32 scales.
   float32)``, the float32 sum never written to device memory (replaces
   ``_dq_acc_requant_kernel``).
 
+The launch is :func:`quant_plan`'s, a pure function of (n, SB, C, int4,
+aligned, requant) — never of the device — whose numbers the wrappers pass
+to the C entry points, which re-check them.  A row is taken by a group
+of ``group`` lanes (a power of two, at most 32), each loading ``vec``
+payload bytes at a time (a chunk): 16 for #12, so a lane loads and stores
+16 bytes; for #11 the chunk whose floats are one float4 (4 bytes of int8,
+2 of int4), so a warp's stores are contiguous.  Where a row fits one pass
+(``chunks`` = 1 or 2 chunks a lane) and n is in :data:`QUANT_PEERS` (the
+peer count compiled in), a group takes ``rows`` rows a pass with every
+load in flight before the first FMA; a wider row, an odd width, another
+peer count or a payload that is not 16-byte aligned takes the loop kernel
+(``chunks`` 0, n at run time: a lane walks its row's chunks, #12
+twice).  ``blocks`` fills one H100 once (:data:`QUANT_SMS` x
+:data:`QUANT_BLOCKS_PER_SM`) or covers the rows in fewer; the blocks
+stride over the row groups.  Rows are independent, so no plan changes
+a bit.
+
 Each has a ``*_plain`` twin with the kernels' arithmetic: the peers
 added in order 0..n-1 onto zeros, each as one fused multiply-add
 ``acc = fma(q, s, acc)`` (emulated in float64: the int8 x float32 product
@@ -31,7 +48,7 @@ were limits of the TPU's tiling and would refuse int4 at block 128 here."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,13 +60,59 @@ from .build import function
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-_ACC_ARGTYPES = (_P, _P, _P, _I, _LL, _I, _I, _P)
+_PLAN_ARGTYPES = (_I,) * 6          # vec, group, chunks, rows, peers, blocks
+_ACC_ARGTYPES = (_P, _P, _P, _I, _LL, _I, _I) + _PLAN_ARGTYPES + (_P,)
 _REQUANT_ARGTYPES = (_P, _P, _P, _P, _I, _LL, _I, ctypes.c_float,
-                     ctypes.c_float, _P)
+                     ctypes.c_float) + _PLAN_ARGTYPES + (_P,)
 
-#: the requantizing kernel keeps one float32 row per warp in 48 KB of
-#: shared memory
+#: the widest block the requantizing route takes (its loop kernel walks a
+#: row of any width; phase 9 and the tests hold it up to this)
 REQUANT_MAX_BLOCK = 12288
+
+#: the launch: warps a block; the card the grid is sized for (one H100
+#: SXM: its SMs, and the blocks of QUANT_WARPS warps an SM holds at full
+#: occupancy); rows a row group takes per pass in the one-pass kernels
+#: (csrc/quant_accumulate.cu kRows); the peer counts compiled into them
+QUANT_WARPS = 8
+QUANT_SMS = 132
+QUANT_BLOCKS_PER_SM = 8
+QUANT_ROWS = 2
+QUANT_PEERS = (2, 4, 8)
+
+
+class QuantPlan(NamedTuple):
+    vec: int       # payload bytes a lane loads at once (a chunk)
+    group: int     # lanes a row: a power of two, at most 32
+    chunks: int    # chunks a lane holds in one pass (1, 2); 0: loop kernel
+    rows: int      # rows a group takes per pass
+    peers: int     # the compiled peer count (n); 0: the loop kernel
+    blocks: int    # blocks of QUANT_WARPS warps, striding over the rows
+
+
+def quant_plan(n: int, sb: int, cols: int, int4: bool, aligned: bool,
+               requant: bool = False) -> QuantPlan:
+    """The launch of ``csrc/quant_accumulate.cu`` for ``n`` peers of
+    ``sb`` rows of ``cols`` payload bytes (``int4``: packed nibbles), the
+    payload 16-byte aligned or not, #12 (``requant``) or #11.  A function
+    of its arguments alone, never of the device."""
+    if n < 1 or sb < 1 or cols < 1 or (requant and int4):
+        raise ValueError(f"quant_plan: no plan for n={n} sb={sb} "
+                         f"cols={cols} int4={int4} requant={requant}")
+    widest = 16 if requant else (2 if int4 else 4)
+    vec = 1
+    if aligned:
+        vec = next(v for v in (16, 8, 4, 2, 1)
+                   if v <= widest and cols % v == 0)
+    m = cols // vec
+    group = 32 if m >= 32 else 1 << (m - 1).bit_length()
+    if vec == widest and m <= (1 if requant else 2) * group and \
+            n in QUANT_PEERS:
+        chunks, rows, peers = -(-m // group), QUANT_ROWS, n
+    else:
+        chunks, rows, peers = 0, 1, 0
+    per_block = QUANT_WARPS * (32 // group) * rows
+    blocks = min(-(-sb // per_block), QUANT_SMS * QUANT_BLOCKS_PER_SM)
+    return QuantPlan(vec, group, chunks, rows, peers, blocks)
 
 
 def supported(n_peers: Optional[int], num_blocks: Optional[int],
@@ -148,9 +211,12 @@ def dequant_accumulate(payload, scales, spec: CompressionSpec,
     sb = _check(what, payload, scales, spec, n_peers, requant=False)
     out = torch.empty(sb * spec.block_size, dtype=torch.float32,
                       device=payload.device)
+    int4 = spec.dtype == "int4"
+    plan = quant_plan(n_peers, sb, spec.payload_cols, int4,
+                      payload.data_ptr() % 16 == 0)
     fn = function("quant_accumulate", "pt_dequant_accumulate", _ACC_ARGTYPES)
     rc = fn(payload.data_ptr(), scales.data_ptr(), out.data_ptr(), n_peers,
-            sb, spec.payload_cols, int(spec.dtype == "int4"),
+            sb, spec.payload_cols, int(int4), *plan,
             stream_handle(payload.device))
     raise_on_error(what, rc)
     LAUNCHES["dequant_accumulate"] += 1
@@ -169,11 +235,13 @@ def dequant_accumulate_requant(payload, scales, spec: CompressionSpec,
     q2 = torch.empty((sb, spec.payload_cols), dtype=torch.int8,
                      device=payload.device)
     s2 = torch.empty(sb, dtype=torch.float32, device=payload.device)
+    plan = quant_plan(n_peers, sb, spec.payload_cols, False,
+                      payload.data_ptr() % 16 == 0, requant=True)
     fn = function("quant_accumulate", "pt_dequant_accumulate_requant",
                   _REQUANT_ARGTYPES)
     rc = fn(payload.data_ptr(), scales.data_ptr(), q2.data_ptr(),
             s2.data_ptr(), n_peers, sb, spec.payload_cols, float(spec.qmax),
-            1.0 / spec.qmax, stream_handle(payload.device))
+            1.0 / spec.qmax, *plan, stream_handle(payload.device))
     raise_on_error(what, rc)
     LAUNCHES["dequant_accumulate_requant"] += 1
     return q2, s2

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's attention, optimizer and LayerNorm forward
-kernels on one CUDA card, across checkouts of the repository.
+"""A/B timing of the port's attention, optimizer, LayerNorm forward and
+quantized all-reduce receive-stage kernels on one CUDA card, across
+checkouts of the repository.
 
     python3 tools/torch_kernel_ab.py ROOT [ROOT ...] [--out FILE]
-                                     [--only fwd,bwd,adam,ln_fwd]
+                                     [--only fwd,bwd,adam,ln_fwd,quant]
 
 Each ROOT is a checkout holding ``paddle_tpu_torch``.  Each runs in its own
 process, in the order given (to compare a parent P with a change C on one
@@ -44,7 +45,17 @@ through the checkout's own wrappers and executor:
   costs behind another kernel), beside
   ``F.layer_norm`` (for the add: a + b then ``F.layer_norm``, and
   ``F.layer_norm`` alone on the sum made beforehand), its device time from
-  the profiler and its bound (bytes over 3.35 TB/s).
+  the profiler and its bound (bytes over 3.35 TB/s);
+* the quantized all-reduce's receive stage (``quant``): #12
+  ``dequant_accumulate_requant`` (int8, replaces ``_dq_acc_requant_kernel``)
+  and #11 ``dequant_accumulate`` (int4, replaces ``_dq_acc_kernel``) at
+  n = 2 and block 256 at the shard shapes of a BERT-base step's buckets
+  (``chip_smoke.STEP_BUCKET_SB``: SB 45,783, 14,618, 13,844, 16,217), each
+  held against its plain twin (#12's payload bytes that differ, #11's max
+  |d|) and bit for bit across two launches, timed alone (L2 warm, and
+  flushed before each sample), by profiler device time, beside the twin
+  and the bound; and the step's 13 launches in bucket order as one chain
+  (events, and the sum of the profiled device times).
 
 ``--only`` keeps the named groups of measurements.  Kernel times are CUDA
 events, median of 25 (the Adam update: of 9), with
@@ -72,6 +83,7 @@ HEADS, HEAD_DIM = 12, 64
 RATES = (0.1, 0.0)
 SEED = 2024
 ADAM_SAMPLES = 9
+QUANT_SHAPES = (45783, 14618, 13844, 16217)
 LN_ROWS = (128, 512, 1024, 4096)
 LN_D = 768
 CHAIN = 16
@@ -80,25 +92,29 @@ FLUSH_BYTES = 64 << 20        # more than the H100's 50 MB L2
 
 def profile_calls(torch, fn, calls=5):
     """{kernel name: (launches per call, device ms per call)} from one
-    profiled run of ``calls`` calls of ``fn``."""
+    profiled run of ``calls`` calls of ``fn`` (a second when the first saw
+    no device activity)."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            m = re.search(r"(\w+)(<[^(]*>)?\(", e.name)
-            name = m.group(1) if m else e.name[:60]
-            n, ms = out.get(name, (0.0, 0.0))
-            out[name] = (n + 1 / calls,
-                         ms + e.time_range.elapsed_us() / 1e3 / calls)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                m = re.search(r"(\w+)(<[^(]*>)?\(", e.name)
+                name = m.group(1) if m else e.name[:60]
+                n, ms = out.get(name, (0.0, 0.0))
+                out[name] = (n + 1 / calls,
+                             ms + e.time_range.elapsed_us() / 1e3 / calls)
+        if out:
+            break
     return out
 
 
@@ -372,10 +388,66 @@ def ln_fwd_rows(torch, C, dev, gen):
     return rows
 
 
-GROUPS = ("fwd", "bwd", "adam", "ln_fwd")
+def quant_rows(torch, C, dev, gen):
+    from paddle_tpu_torch.ops.cuda import quant_kernels as QK
+    from paddle_tpu_torch.ops.quantize_wire import CompressionSpec
+    rows = []
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    for dtype, name in (("int8", "dequant_accumulate_requant"),
+                        ("int4", "dequant_accumulate")):
+        spec = CompressionSpec(dtype, 256)
+        requant = dtype == "int8"
+        fn = getattr(QK, name)
+        plain = getattr(QK, name + "_plain")
+        for sb in QUANT_SHAPES:
+            q, s = C.quant_peers(torch, gen, spec, 2, sb)
+
+            def kern():
+                return fn(q, s, spec, 2)
+            got, again, ref = kern(), kern(), plain(q, s, spec, 2)
+            if requant:
+                err = int((got[0] != ref[0]).sum())
+                same = torch.equal(got[0], again[0]) and \
+                    torch.equal(got[1], again[1])
+            else:
+                err = float((got - ref).abs().max())
+                same = torch.equal(got, again)
+            rows.append({
+                "kernel": name, "dtype": dtype, "n": 2, "sb": sb,
+                "block": 256, "err": err, "bit_identical": bool(same),
+                "ms": C.time_ms(torch, kern),
+                "cold_ms": C.time_ms(torch, kern, flush=flush),
+                "device_ms": sum(ms for _, ms in profile_calls(
+                    torch, kern).values()),
+                "plain_ms": C.time_ms(torch, lambda: plain(q, s, spec, 2)),
+                "bound_ms": C.quant_bytes(spec, 2, sb, requant) /
+                C.HBM_BYTES_PER_S * 1e3})
+            del q, s, got, again, ref
+        inputs = [C.quant_peers(torch, gen, spec, 2, sb)
+                  for sb in C.STEP_BUCKET_SB]
+
+        def chain():
+            for q, s in inputs:
+                fn(q, s, spec, 2)
+        split = profile_calls(torch, chain)
+        rows.append({
+            "kernel": name + " step", "dtype": dtype,
+            "buckets": list(C.STEP_BUCKET_SB),
+            "chain_ms": C.time_ms(torch, chain, samples=15),
+            "chain_device_ms": sum(ms for _, ms in split.values()),
+            "launches": sum(n for n, _ in split.values()),
+            "bound_ms": sum(C.quant_bytes(spec, 2, sb, requant)
+                            for sb in C.STEP_BUCKET_SB) /
+            C.HBM_BYTES_PER_S * 1e3})
+        del inputs
+        torch.cuda.empty_cache()
+    return rows
+
+
+GROUPS = ("fwd", "bwd", "adam", "ln_fwd", "quant")
 LIBRARIES = {"fwd": ("flash_attention",), "adam": ("adam",),
              "bwd": ("flash_attention", "flash_attention_bwd"),
-             "ln_fwd": ("layer_norm",)}
+             "ln_fwd": ("layer_norm",), "quant": ("quant_accumulate",)}
 
 
 def worker(root, out, only=GROUPS):
@@ -401,6 +473,8 @@ def worker(root, out, only=GROUPS):
         rows += adam_rows(torch, C, dev, gen)
     if "ln_fwd" in only:
         rows += ln_fwd_rows(torch, C, dev, gen)
+    if "quant" in only:
+        rows += quant_rows(torch, C, dev, gen)
     with open(out, "w") as f:
         json.dump({"root": root, "ptxas": rep["ptxas"],
                    "build_s": rep["seconds"], "rows": rows}, f)
@@ -426,6 +500,17 @@ def fmt(row):
                 + ", ".join(f"{k} {f(v)}" for k, v in row["split_ms"].items())
                 + f"; max rel err {['%.2e' % e for e in row['max_rel_err']]}"
                 f", bit-identical {row['bit_identical']}")
+    if row["kernel"].endswith(" step"):
+        return (f"  {row['kernel']} {row['dtype']} n2, 13 launches: chain "
+                f"{f(row['chain_ms'])} ms, device {f(row['chain_device_ms'])}"
+                f" ({row['launches']:.0f} launches); bound "
+                f"{f(row['bound_ms'])}")
+    if row["kernel"].startswith("dequant"):
+        return (f"  {row['kernel']} {row['dtype']} n2 SB{row['sb']}: "
+                f"{f(row['ms'])} ms, L2 flushed {f(row['cold_ms'])}, device "
+                f"{f(row['device_ms'])}; plain {f(row['plain_ms'])}, bound "
+                f"{f(row['bound_ms'])}; err {row['err']}, bit-identical "
+                f"{row['bit_identical']}")
     if row["kernel"] in ("layer_norm_fwd", "add_layer_norm_fwd"):
         alone = row.get("library_layer_norm_alone_ms")
         return (f"  {row['kernel']} {row['dtype']} R{row['rows']} "
@@ -492,7 +577,8 @@ def main(argv):
            if "bit_identical" in r and (
                not r["bit_identical"] or
                math.isnan(r.get("err_o", r.get("err", max(
-                   r.get("max_rel_err", [0]))))))]
+                   r.get("max_rel_err", [0]))))) or
+               (r["kernel"] == "dequant_accumulate_requant" and r["err"]))]
     return 1 if bad else 0
 
 
