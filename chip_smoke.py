@@ -111,7 +111,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ranks against 3 single-GPU steps: the losses within the int8 tier's
    bound 5e-2, and Adam's first moments (linear in the reduced gradients)
    within four int8 quanta (4/127) as a relative norm;
-11. print the ``kernels`` JSON line, the card's name and power limit, and
+11. paged-KV decode at BERT-base width (12 layers, hidden 768, vocab
+   30522, random weights from the seed) through ``DecodeEngine(
+   BertDecoder(cfg), DecodeConfig(block_size=16, max_seq_len=512,
+   max_batch_size=8, prefill buckets 64-512, 4 segments a row, 32 new
+   tokens, chains of 1 and 8, prefix cache)).generate`` over a pool of
+   256 blocks (302 MB): 16 greedy requests of 16-384 prompt tokens in two
+   bursts of 8 (the second once the first's chains run; four of it share
+   a 64-token prefix with one of the first and hit the prefix cache).
+   Every request's tokens equal ``greedy_reference``'s (a divergence is
+   allowed once, and only where the reference's top-2 logit gap is under
+   1e-4); 12 flash forward and 25 LayerNorm forward launches per forward
+   (prefill, chunk or decode step), no other launch, no route fallback;
+   one chain of 8 runs with host syncs made errors.  A second engine
+   with ``sampling=True`` draws the same tokens for four requests in two
+   submission orders, its greedy row the greedy run's.  Printed:
+   tokens/s, TTFT p50/p99, ms per chain step at B8 and B1, prefill ms per
+   bucket, one profiled chain's device time by kernel group and busy
+   share.  Kernel #1 is held against its twin at the decode step's shape
+   (B8 H12 Sq1 T512 D64 with a padded, all-masked row) and the chunk's
+   (Sq 512, T 512, QPos causal term), timed beside SDPA on the same
+   gathered K/V and the gather's own time;
+12. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -1979,6 +2000,532 @@ def train_plain_phase(torch, np, cfg, build, expected):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 11: paged-KV decode serving at BERT-base width
+# ---------------------------------------------------------------------------
+
+DECODE_CONFIG = dict(block_size=16, max_seq_len=512, max_batch_size=8,
+                     prefill_seq_buckets=(64, 128, 256, 512),
+                     pack_max_segments=4, max_new_tokens=32,
+                     chain_lengths=(1, 8), prefix_cache=True)
+DECODE_POOL_BLOCKS = 256
+DECODE_REQUESTS = 16          # two bursts of 8
+DECODE_PROMPT_LENS = (16, 384)
+DECODE_SHARED = 64            # tokens of the shared prefix (4 blocks)
+DECODE_SAMPLING_NEW = 16
+# launches per forward (prefill, chunk or one decode step of a chain):
+# one flash forward per layer; the embedding LN and two per layer
+DECODE_LAUNCHES = {"flash_attention_fwd": 12, "layer_norm_fwd": 25}
+TOL_DECODE_GAP = 1e-4         # a divergence needs a top-2 gap below this
+DECODE_MAX_DIVERGED = 1
+
+
+def decode_prompts(np, vocab):
+    """16 prompts of 16-384 tokens from a fixed seed.  Request 2 (first
+    burst) and requests 9, 11, 13 and 15 (second burst) begin with the
+    same 64 tokens: the four later ones hit the prefix cache, 4 full
+    blocks each."""
+    rng = np.random.RandomState(SEED + 11)
+    lens = rng.randint(DECODE_PROMPT_LENS[0], DECODE_PROMPT_LENS[1] + 1,
+                       DECODE_REQUESTS)
+    prompts = [rng.randint(0, vocab, int(n)).astype(np.int64) for n in lens]
+    shared = rng.randint(0, vocab, DECODE_SHARED).astype(np.int64)
+    for i in (2, 9, 11, 13, 15):
+        if prompts[i].size <= DECODE_SHARED + 16:
+            prompts[i] = rng.randint(0, vocab, DECODE_SHARED + 40).astype(
+                np.int64)
+        prompts[i][:DECODE_SHARED] = shared
+    return prompts
+
+
+def decode_budgets(n):
+    """New tokens per request: 32 down to 18 in steps of 2, so the first
+    burst's requests retire at different chain boundaries and the second
+    burst's prefills slot in while the rest of the first still decodes."""
+    return [DECODE_CONFIG["max_new_tokens"] - 2 * (i % 8) for i in range(n)]
+
+
+def drive_decode(engine, prompts, max_new, policies=None):
+    """Submit ``prompts`` in two bursts of half: the second once every
+    request of the first has its first token (its decode chains live).
+    ``max_new`` is one budget or one per request.  Returns (results,
+    first-token latencies in s, wall s)."""
+    first, futs, t_sub = {}, [], {}
+    half = len(prompts) // 2
+
+    def submit(i):
+        def on_token(tok, i=i):
+            first.setdefault(i, time.perf_counter())
+        t_sub[i] = time.perf_counter()
+        kw = dict(policies[i]) if policies else {}
+        n = max_new[i] if isinstance(max_new, (list, tuple)) else max_new
+        futs.append((i, engine.generate({"src_ids": prompts[i]},
+                                        max_new_tokens=n,
+                                        on_token=on_token, **kw)))
+
+    t0 = time.perf_counter()
+    for i in range(half):
+        submit(i)
+    while len(first) < half and time.perf_counter() - t0 < 600:
+        time.sleep(0.002)
+    for i in range(half, len(prompts)):
+        submit(i)
+    results = {i: f.result(timeout=600) for i, f in futs}
+    wall = time.perf_counter() - t0
+    ttft = [first[i] - t_sub[i] for i in sorted(first)]
+    return [results[i] for i in range(len(prompts))], ttft, wall
+
+
+def engine_logits(np, engine, tokens):
+    """The engine's next-token logits after ``tokens``, through its
+    chunked-prefill program (the cache-read route) into blocks taken from
+    the free list and returned after (the engine must be idle)."""
+    cfg = engine.config
+    bs, n = cfg.block_size, len(tokens)
+    blocks = [engine._free.pop() for _ in range(-(-n // bs))]
+    try:
+        width = cfg.chunk_width
+        feed = {"src_ids": np.zeros((1, width), np.int64),
+                "pos_ids": np.zeros((1, width), np.int64),
+                "slot_ids": np.full((1, width), -1, np.int32),
+                "block_table": np.zeros((1, engine._mbps), np.int32),
+                "ctx_len": np.array([n], np.int32),
+                "last_pos": np.array([[n - 1]], np.int64)}
+        feed["src_ids"][0, :n] = tokens
+        feed["pos_ids"][0, :n] = np.arange(n)
+        feed["slot_ids"][0, :n] = [blocks[p // bs] * bs + p % bs
+                                   for p in range(n)]
+        feed["block_table"][0, :len(blocks)] = blocks
+        engine._acquire(engine._chunk)
+        return engine._chunk.run(feed)[0].numpy()[0]
+    finally:
+        engine._free.extend(reversed(blocks))
+
+
+def reference_logits(np, engine, tokens):
+    """The greedy reference's next-token logits after ``tokens`` (its
+    score program on the isolated weights)."""
+    n = len(tokens)
+    sb = next(b for b in engine._score_buckets() if b >= n)
+    feed = {"src_ids": np.zeros((1, sb), np.int64),
+            "pos_ids": np.zeros((1, sb), np.int64),
+            "input_mask": np.zeros((1, sb, 1), np.float32),
+            "last_pos": np.array([[n - 1]], np.int64)}
+    feed["src_ids"][0, :n] = tokens
+    feed["pos_ids"][0, :n] = np.arange(n)
+    feed["input_mask"][0, :n, 0] = 1.0
+    return engine._score.run(feed)[0].numpy()[0]
+
+
+def decode_parity(torch, np, engine, prompts, results):
+    """Every request's tokens against greedy_reference.  Where one
+    diverges, the reference's top-2 logit gap at that step and the two
+    paths' logit difference there (the engine's recomputed through its
+    cache-read chunk program); passes only with every gap under
+    TOL_DECODE_GAP and at most DECODE_MAX_DIVERGED diverged requests."""
+    diverged = []
+    for i, (p, res) in enumerate(zip(prompts, results)):
+        ref = engine.greedy_reference({"src_ids": p},
+                                      max_new_tokens=len(res.tokens))
+        got, want = res.tokens.tolist(), ref.tokens.tolist()
+        check(len(got) == len(want) and all(t >= 0 for t in got),
+              f"decode request {i}: {len(got)} tokens, reference "
+              f"{len(want)}")
+        if got == want:
+            continue
+        t = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+        prefix = list(p) + want[:t]
+        ref_l = reference_logits(np, engine, prefix)
+        eng_l = engine_logits(np, engine, prefix)
+        top2 = np.sort(ref_l)[-2:]
+        gap = float(top2[1] - top2[0])
+        diff = float(np.abs(ref_l - eng_l).max())
+        log(f"  request {i} diverges at token {t}: engine {got[t]}, "
+            f"reference {want[t]}; reference top-2 gap {gap:.3e}, "
+            f"max|Δ logits| engine vs reference {diff:.3e}")
+        diverged.append({"request": i, "token": t, "top2_gap": gap,
+                         "logit_diff": diff})
+        check(gap < TOL_DECODE_GAP, f"decode request {i} diverges from "
+                                    f"greedy_reference at token {t} with a "
+                                    f"top-2 gap of {gap:.3e}")
+    check(len(diverged) <= DECODE_MAX_DIVERGED,
+          f"{len(diverged)} decode requests diverge from greedy_reference")
+    return diverged
+
+
+def decode_kernel_checks(torch, results, dev):
+    """Kernel #1 at the decode path's two new shapes against its twin:
+    a decode step (B8 H12 Sq1, T 512, D64, the ctx_len bias of one padded
+    batch row, ctx_len 0, among random lengths) and a chunk (B1 Sq512
+    T512 with the QPos causal term).  Each row has its time, its bound by
+    the bytes this data needs (the keys below ctx_len; the full window
+    beside it), and SDPA's time on the same gathered K/V: the yardstick
+    of a later paged decode kernel.  Beside them the gather's time: one
+    pool's [B, T, 768] copy, two pools a layer a step."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cache_ops
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    record = recorder(results)
+    heads, d, bs, nb = 12, 64, 16, DECODE_POOL_BLOCKS
+    hidden = heads * d
+
+    def split(t):
+        b, s, _ = t.shape
+        return t.view(b, s, heads, d).permute(0, 2, 1, 3).reshape(
+            b * heads, s, d).contiguous()
+
+    cases = []
+    # decode step: B 8, one query row each
+    b, t_len = 8, DECODE_CONFIG["max_seq_len"]
+    ctx_len = torch.randint(1, t_len + 1, (b,), generator=gen, device=dev)
+    ctx_len[-1] = 0                                  # a padded batch row
+    cases.append(("decode", b, 1, ctx_len, None))
+    # chunk: one row, 300 suffix tokens after 4 hit blocks
+    start, n = 4 * bs, 300
+    q_pos = torch.zeros(1, t_len, dtype=torch.int64, device=dev)
+    q_pos[0, :n] = torch.arange(start, start + n, device=dev)
+    cases.append(("chunk", 1, t_len, torch.tensor([start + n], device=dev),
+                  q_pos))
+    gather_row = None
+    for name, b, sq, ctx_len, q_pos in cases:
+        pool_k = torch.randn(nb, bs, hidden, generator=gen, device=dev)
+        pool_v = torch.randn(nb, bs, hidden, generator=gen, device=dev)
+        table = torch.randperm(nb, generator=gen, device=dev)[
+            :b * (t_len // bs)].view(b, -1).to(torch.int32)
+        q = torch.randn(b, sq, hidden, generator=gen, device=dev)
+        keys = cache_ops.gather_cache(pool_k, table)
+        vals = cache_ops.gather_cache(pool_v, table)
+        bias = cache_ops.ctx_len_bias(ctx_len, t_len)
+        if q_pos is not None:
+            tpos = torch.arange(t_len, device=dev)[None, None, :]
+            causal = torch.where(tpos <= q_pos[:, :, None], 0.0, -1e9)
+            bias = bias + causal[:, None]
+        bias3 = bias.expand(b, 1, sq, t_len).reshape(b, sq, t_len) \
+            .contiguous()
+        qf, kf, vf = split(q), split(keys), split(vals)
+        o, lse = FA.flash_fwd(qf, kf, vf, bias3)
+        po, plse = FA.flash_fwd_plain(qf, kf, vf, bias3)
+        what = f"flash {name} B{b} Sq{sq} T{t_len} float32"
+        check(bool(torch.isfinite(o).all()), f"{what}: non-finite output "
+                                             f"(an all-masked row?)")
+        err = agree(torch, what + " o", o, po, "float32", TOL_F32)
+        # the padded row's lse is near -1e9, where a float32 ulp is 64:
+        # held per row to TOL_LSE plus one float32 ulp of |lse|
+        lerr = max_err(torch, lse, plse)
+        a = plse.abs()
+        over = float(((lse - plse).abs() - TOL_LSE - (
+            torch.nextafter(a, a + 1) - a)).max())
+        log(f"  {what} lse: max|Δ| {lerr:.3e} (tolerance {TOL_LSE:.1e} + 1 "
+            f"float32 ulp of |lse| per row; max|Δ| - tolerance {over:.3e})")
+        check(over <= 0, f"{what}: lse disagrees ({lerr})")
+        lerr = float(((lse - plse).abs() / (1 + a)).max())
+        bh = b * heads
+        q4, k4, v4 = (t.view(b, heads, -1, d) for t in (qf, kf, vf))
+        m4 = bias3.view(b, 1, sq, t_len)
+
+        def lib():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
+        # the bytes this data needs: q, o, lse, the bias, and the K/V rows
+        # inside each row's context (what a paged kernel would read)
+        valid = int(ctx_len.clamp(max=t_len).sum())
+        io = 4 * (2 * bh * sq * d + bh * sq + b * sq * t_len)
+        nbytes = io + 4 * 2 * heads * valid * d
+        full = io + 4 * 2 * bh * t_len * d
+        if q_pos is None:
+            pairs = heads * valid
+        else:
+            pairs = heads * int(((torch.arange(t_len, device=dev)[None] <=
+                                  q_pos[0, :n, None]).sum()))
+        flops = 4 * pairs * d
+        bound = fwd_bounds(nbytes, flops, "float32")
+        ms = time_ms(torch, lambda: FA.flash_fwd(qf, kf, vf, bias3))
+        gather_ms = time_ms(torch, lambda: cache_ops.gather_cache(pool_k,
+                                                                  table))
+        gather_bytes = 2 * 4 * b * t_len * hidden + 4 * table.numel()
+        record(f"flash_attention_fwd_{name}",
+               [b, heads, sq, t_len, d, name], "float32", err,
+               ms, time_ms(torch, lambda: FA.flash_fwd_plain(
+                   qf, kf, vf, bias3)),
+               time_ms(torch, lib), nbytes, flops, **bound,
+               bound_full_window_ms=bound_ms(full, flops, "float32")[0],
+               lse_rel_err=lerr, valid_keys=valid, gather_ms=gather_ms,
+               gather_bound_ms=bound_ms(gather_bytes, 0, "float32")[0],
+               library_is="SDPA on the gathered K/V, same mask")
+        if name == "decode":
+            gather_row = gather_ms
+    return gather_row
+
+
+def decode_synthetic_feed(np, engine, bsz, pos):
+    """A chain feed of ``bsz`` live rows at position ``pos``, each on its
+    own blocks of the pool (the pool's contents are what the traffic left:
+    this times the work, not the tokens)."""
+    cfg = engine.config
+    mb = engine._mbps
+    feed = engine._chain_feed_arrays(bsz, [])
+    for i in range(bsz):
+        feed["token_ids"][i] = 1000 + i
+        feed["pos_ids"][i] = pos
+        feed["block_table"][i] = np.arange(i * mb, (i + 1) * mb) % \
+            engine.pool_blocks
+        feed["ctx_len"][i] = pos + 1
+        feed["steps_left"][i] = 10 ** 6
+    return feed
+
+
+def profile_chain(torch, run, wall_ms):
+    """Device time of one chain by kernel group and its busy share of
+    ``wall_ms`` (the union of the kernels' spans); None when the profiler
+    saw no device activity.  Groups: the matrix products (cuBLAS /
+    CUTLASS, split-K reductions), #1, #4, the cache gather and the
+    head-split copies of its output, the cache writes and embedding
+    lookups, the layer_norm op's Mean / Variance outputs (computed
+    beside #4, read by nothing on this path), and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    groups = {"products": 0.0, "flash #1": 0.0, "layer_norm #4": 0.0,
+              "gather + head-split copies": 0.0,
+              "cache writes + lookups": 0.0,
+              "layer_norm Mean/Variance": 0.0, "other": 0.0}
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+        low = e.name.lower()
+        if "flash_fwd" in low:
+            g = "flash #1"
+        elif "ln_fwd" in low:
+            g = "layer_norm #4"
+        elif "gemm" in low or "cutlass" in low or "splitkreduce" in low:
+            g = "products"
+        elif "gather" in low or ("direct_copy" in low and
+                                 "unrolled" not in low):
+            # the unrolled copies are the small integer casts
+            g = "gather + head-split copies"
+        elif "index" in low:
+            g = "cache writes + lookups"
+        elif "welford" in low or "meanops" in low:
+            g = "layer_norm Mean/Variance"
+        else:
+            g = "other"
+        groups[g] += us / 1e3
+    if not spans:
+        log("  chain device time: not measured (the profiler saw no device "
+            "activity)")
+        return None
+    busy = covered_us(spans) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    for name, (n, us) in top:
+        log(f"    {us / 1e3:8.3f} ms  {n:5d}x  {name[:110]}")
+    return {"busy_ms": busy, "wall_ms": wall_ms, "busy_share":
+            busy / wall_ms, "groups_ms": groups,
+            "host_ms": wall_ms - busy,
+            "top": [{"name": name[:200], "calls": n, "ms": us / 1e3}
+                    for name, (n, us) in top]}
+
+
+def decode_timing(torch, np, engine):
+    """ms per chain step at B8 and B1 (a chain of 8 from a synthetic feed,
+    wall clock to the token fetch, median of 5), prefill ms per bucket
+    (batch 1 and 8, pad feeds that write nothing, median of 3), and one
+    profiled B8 chain of 8."""
+    out = {"chain_step_ms": {}, "prefill_ms": {}}
+    prepared = engine._chains[8]
+    engine._acquire(prepared)
+    for bsz in (8, 1):
+        feed = decode_synthetic_feed(np, engine, bsz, 256)
+        prepared.run(feed)[0].numpy()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            prepared.run(feed)[0].numpy()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["chain_step_ms"][f"B{bsz}"] = statistics.median(walls) / 8
+    feed = decode_synthetic_feed(np, engine, 8, 256)
+    out["chain_profile"] = profile_chain(
+        torch, lambda: prepared.run(feed)[0].numpy(),
+        out["chain_step_ms"]["B8"] * 8)
+    K = engine.config.pack_max_segments
+    engine._acquire(engine._prefill)
+    for sb in engine.config.prefill_seq_buckets:
+        for bb in (1, 8):
+            feed = {"src_ids": np.zeros((bb, sb), np.int64),
+                    "pos_ids": np.zeros((bb, sb), np.int64),
+                    "input_mask": np.ones((bb, sb, K), np.float32),
+                    "slot_ids": np.full((bb, sb), -1, np.int32),
+                    "last_pos": np.zeros((bb, K), np.int64)}
+            engine._prefill.run(feed)[1].numpy()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                engine._prefill.run(feed)[1].numpy()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out["prefill_ms"][f"B{bb}xS{sb}"] = statistics.median(walls)
+    return out
+
+
+def chain_without_host_sync(torch, np, engine):
+    """One B8 chain of 8 with its feeds already on the card, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync inside the
+    chain raises.  The token fetch after it is the chain's one sync."""
+    prepared = engine._chains[8]
+    engine._acquire(prepared)
+    dev = engine._exe.device
+    feed = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in decode_synthetic_feed(np, engine, 8, 128).items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = prepared.run(feed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tokens = handles[0].numpy()
+    check(tokens.shape == (8, 8) and (tokens >= 0).all(),
+          f"synthetic chain emitted {tokens.shape} {tokens.min()}")
+    return True
+
+
+def decode_phase(torch, np, results, place=None):
+    """Phase 11: paged decode at BERT-base width through
+    ``DecodeEngine(BertDecoder(cfg), DecodeConfig(...)).generate``."""
+    from paddle_tpu_torch.models import BertDecoder
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg = BertConfig.base()
+    model = BertDecoder(cfg, seed=SEED)
+    t0 = time.perf_counter()
+    engine = DecodeEngine(model, DecodeConfig(
+        pool_blocks=DECODE_POOL_BLOCKS, **DECODE_CONFIG), place=place)
+    prompts = decode_prompts(np, cfg.vocab_size)
+    report = {"pool_blocks": engine.pool_blocks,
+              "pool_mb": model.cache_block_bytes(16) * engine.pool_blocks
+              / 1e6}
+    try:
+        n_warm = engine.warmup()
+        report["startup_and_warmup_s"] = time.perf_counter() - t0
+        log(f"  BERT-base decoder ({cfg.num_hidden_layers} layers, hidden "
+            f"{cfg.hidden_size}, vocab {cfg.vocab_size}), pool "
+            f"{engine.pool_blocks} blocks ({report['pool_mb']:.1f} MB); "
+            f"{n_warm} feed shapes warmed in "
+            f"{report['startup_and_warmup_s']:.1f} s")
+        # the main path: counts from zero, the traffic, read right after
+        kernels.reset_launch_counts()
+        registry.reset_route_counts()
+        res, ttft, wall = drive_decode(engine, prompts,
+                                       decode_budgets(len(prompts)))
+        engine.drain()
+        launches = kernels.launch_counts()
+        routes = registry.route_counts()
+        stats = engine.stats()
+        forwards = stats["prefill_batches"] + stats["chunk_steps"] + \
+            stats["decode_steps"]
+        log(f"  {len(prompts)} requests in two bursts: {stats['tokens_out']}"
+            f" tokens in {wall:.3f} s ({stats['tokens_out'] / wall:.1f} "
+            f"tokens/s); {stats['prefill_batches']} prefills, "
+            f"{stats['chunk_steps']} chunks, {stats['chains_run']} chains "
+            f"({stats['chain_hist']}), {forwards} forwards; prefix hits "
+            f"{stats['prefix_hits']}; host syncs {stats['host_syncs']}")
+        fallbacks = {k: v for k, v in routes.items() if k[2] == "fallback"}
+        check(not fallbacks, f"route fallbacks on the decode path: "
+                             f"{fallbacks}")
+        for name, per in DECODE_LAUNCHES.items():
+            check(launches[name] == per * forwards,
+                  f"{name}: {launches[name]} launches on the decode path, "
+                  f"expected {per} x {forwards} forwards")
+        others = {k: v for k, v in launches.items()
+                  if v and k not in DECODE_LAUNCHES}
+        check(not others, f"unexpected launches on the decode path: "
+                          f"{others}")
+        check(stats["prefix_hits"] >= 4 * 4,
+              f"prefix hits {stats['prefix_hits']}: the shared-prefix "
+              f"requests missed the cache")
+        check(stats["failed"] == 0 and stats["completed"] == len(prompts),
+              f"decode stats {stats}")
+        ttft_sorted = sorted(ttft)
+        report.update({
+            "requests": len(prompts), "wall_s": wall,
+            "tokens_out": stats["tokens_out"],
+            "tokens_per_s": stats["tokens_out"] / wall,
+            "ttft_p50_ms": 1e3 * statistics.median(ttft_sorted),
+            "ttft_p99_ms": 1e3 * ttft_sorted[min(len(ttft_sorted) - 1,
+                                                 int(0.99 * len(
+                                                     ttft_sorted)))],
+            "forwards": forwards, "launches": launches,
+            "stats": {k: stats[k] for k in (
+                "prefill_batches", "chunk_steps", "chains_run",
+                "chain_hist", "decode_steps", "host_syncs", "prefix_hits",
+                "prefill_tokens", "peak_blocks_used")}})
+        log(f"  TTFT p50 {report['ttft_p50_ms']:.1f} ms, p99 "
+            f"{report['ttft_p99_ms']:.1f} ms; launches {launches}")
+        report["diverged"] = decode_parity(torch, np, engine, prompts, res)
+        log(f"  tokens vs greedy_reference: {len(prompts) - len(report['diverged'])}"
+            f" of {len(prompts)} identical")
+        report["no_host_sync_in_chain"] = chain_without_host_sync(
+            torch, np, engine)
+        report.update(decode_timing(torch, np, engine))
+        log(f"  chain step ms {report['chain_step_ms']}; prefill ms "
+            f"{report['prefill_ms']}")
+        prof = report["chain_profile"]
+        if prof:
+            log(f"  one B8 chain of 8: device busy {prof['busy_ms']:.2f} of "
+                f"{prof['wall_ms']:.2f} ms ({100 * prof['busy_share']:.1f} "
+                f"%); " + ", ".join(f"{g} {ms:.3f}" for g, ms in
+                                    prof["groups_ms"].items()))
+        dev = engine._exe.device
+    finally:
+        engine.shutdown()
+    greedy = {i: r.tokens.tolist() for i, r in enumerate(res)}
+    report["sampling"] = sampling_leg(np, model, prompts, greedy, place)
+    report["gather_ms"] = decode_kernel_checks(torch, results, dev)
+    return launches, report
+
+
+def sampling_leg(np, model, prompts, greedy, place):
+    """A second engine with ``sampling=True``: four requests (one greedy,
+    three sampling with fixed seeds) submitted in two orders draw the same
+    tokens, and the greedy row equals the greedy run's."""
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+    engine = DecodeEngine(model, DecodeConfig(
+        pool_blocks=DECODE_POOL_BLOCKS, sampling=True, **DECODE_CONFIG),
+        place=place)
+    picks = [0, 1, 3, 4]
+    policies = [{}, {"temperature": 0.9, "top_k": 50, "top_p": 0.9,
+                     "seed": 7},
+                {"temperature": 0.7, "seed": 11},
+                {"temperature": 1.2, "top_p": 0.8, "seed": 13}]
+    try:
+        runs = []
+        for order in (picks, picks[::-1]):
+            pol = [policies[picks.index(i)] for i in order]
+            res, _, _ = drive_decode(engine, [prompts[i] for i in order],
+                                     DECODE_SAMPLING_NEW, pol)
+            runs.append({i: r.tokens.tolist() for i, r in zip(order, res)})
+    finally:
+        engine.shutdown()
+    check(runs[0] == runs[1], f"sampling differs between submission "
+                              f"orders: {runs}")
+    check(runs[0][0] == greedy[0][:DECODE_SAMPLING_NEW],
+          "the greedy row of the sampling engine differs from the greedy "
+          "run")
+    check(len({tuple(v) for v in runs[0].values()}) == len(picks),
+          "sampled streams coincide")
+    log(f"  sampling: {len(picks)} requests in two orders, identical; the "
+        f"greedy row equals the greedy run")
+    return {"requests": len(picks), "orders": 2, "identical": True}
+
+
 def nvidia_smi_line():
     try:
         out = subprocess.run(
@@ -2025,7 +2572,9 @@ def kernels_line(per_kernel, launches_by_path):
     call's name beside ``F.layer_norm`` alone on the sum,
     flash forward its dropout variant's times, the flash kernels their
     rows' extra bounds, and the flash backward its library call and
-    float64 witness."""
+    float64 witness.  The flash forward and the LayerNorm forward carry
+    their launches on the paged decode path (phase 11, ``decode_launches``)
+    and the flash forward its decode-step and chunk rows."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     out = []
@@ -2051,8 +2600,10 @@ def kernels_line(per_kernel, launches_by_path):
         if name in ("layer_norm_fwd", "add_layer_norm_fwd"):
             entry["launches_by_path"] = {
                 p: launches_by_path[p].get(name, 0)
-                for p in ("served", "unfused", "train", "fused_train")}
-        for other in ("train", "fused_train", "dp_int8", "dp_int4"):
+                for p in ("served", "unfused", "train", "fused_train",
+                          "decode")}
+        for other in ("train", "fused_train", "dp_int8", "dp_int4",
+                      "decode"):
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name in per_kernel.get("quant_step", {}):
@@ -2064,6 +2615,16 @@ def kernels_line(per_kernel, launches_by_path):
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "bound_fma_ms", "bound_3xtf32_ms",
                 "max_abs_err")}
+            # the paged decode path's shapes: a decode step (Sq 1) and a
+            # chunk, on the gathered context, beside SDPA on the same K/V
+            for path in ("decode", "chunk"):
+                row = per_kernel[f"flash_attention_fwd_{path}"][0]
+                entry[path] = {k: row[k] for k in (
+                    "shape", "ms", "plain_ms", "library_ms", "library_is",
+                    "bound_ms", "bound_by", "bound_full_window_ms",
+                    "bound_fma_ms", "bound_3xtf32_ms", "max_abs_err",
+                    "lse_rel_err", "valid_keys", "gather_ms",
+                    "gather_bound_ms")}
         out.append(entry)
     return {"kernels": out}
 
@@ -2157,23 +2718,28 @@ def main(argv=None) -> int:
             f"card over gloo, int8 tier {TRAIN_STEPS} steps, int4 tier "
             f"{DP_INT4_STEPS} steps")
         dp_ranks, dp_parity = dp_phase(torch, np, repo, base)
+
+        log("phase 11: paged-KV decode at BERT-base width through "
+            "DecodeEngine.generate")
+        decoded, decode = decode_phase(torch, np, per_kernel)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
-    log(f"phase 11: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 12: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
     log("data_parallel " + json.dumps({"ranks": dp_ranks,
                                        "parity": dp_parity}))
+    log("decode " + json.dumps(decode))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
         "fused_train": fused, "dp_int8": dp_ranks[0]["int8"]["launches"],
-        "dp_int4": dp_ranks[0]["int4"]["launches"]})))
+        "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,11 @@ scalar averaged, an integer scalar summed, a batch-sharded tensor
 all-gathered; persistables and whatever the ``backward`` op or the ops
 after it write pass through).
 
+A program with a ``decode_chain`` marker (serving/decode.py) runs its
+body ``chain_length`` times on the device through
+:func:`lower_decode_chain`, the JAX package's ``lax.scan`` as a Python
+loop with every per-step quantity a device tensor.
+
 A program with a ``backward`` meta-op (``append_backward``) runs through
 :func:`run_training_block`, the counterpart of the JAX package's
 ``lower_block_with_backward``: the forward ops under autograd with the
@@ -261,13 +266,92 @@ def run_training_block(ops, env, ctx, bw_idx):
     return env
 
 
+def lower_decode_chain(ops, chain_idx, env, ctx):
+    """Device-chained decode (serving/decode.py): run the program body
+    ``chain_length`` times on the device, the counterpart of the JAX
+    package's ``lax.scan``.
+
+    The ``decode_chain`` marker op sits last in its program; its input
+    slots name the per-step vars the chain drives (the token, position,
+    slot and context-length feeds are overwritten each iteration; the
+    body's ``next_tokens`` / ``next_logits`` close the loop) and its
+    ``Out`` is the packed ``[chain_length, B]`` token matrix: one host
+    fetch per chain instead of one per token.  Everything the single
+    decode step did on the host stays on the device as tensors, with no
+    host sync inside the chain:
+
+    * slots — ``table[pos // bs] * bs + pos % bs``, the engine's host
+      arithmetic, so a chain of L steps writes exactly the slots L single
+      steps would;
+    * the next-token feedback — greedy rows take the body's own argmax;
+      sampling rows draw again from ``next_logits`` (ops/sampling_ops.py);
+    * per-row EOS / length masks — a finished row freezes (its position
+      and token stop advancing), writes nothing (slot -1, cache_write's
+      drop lane) and emits -1, which the host reads as "already done".
+
+    The pools are the env's tensors: under a donated prepared step
+    ``cache_write`` writes them in place every iteration."""
+    from ..ops.sampling_ops import sample_chain_tokens
+    chain_op = ops[chain_idx]
+    body = ops[:chain_idx] + ops[chain_idx + 1:]
+    attrs = chain_op.attrs
+    length = int(attrs["chain_length"])
+    bs = int(attrs["block_size"])
+
+    def in0(slot):
+        return chain_op.input(slot)[0]
+
+    tok_v, pos_v = in0("TokenIds"), in0("PosIds")
+    slot_v, ctxl_v = in0("SlotIds"), in0("CtxLen")
+    logits_v, tokens_v = in0("Logits"), in0("Tokens")
+    table = env[in0("BlockTable")].to(torch.int64)
+    eos = env[in0("EosIds")].to(torch.int64)
+    policy = None
+    if attrs.get("with_sampling"):
+        policy = [env[in0(n)] for n in ("Temperature", "TopK", "TopP",
+                                        "Seeds")]
+    tok = env[tok_v].to(torch.int64)
+    pos = env[pos_v].to(torch.int64)
+    left = env[in0("StepsLeft")].to(torch.int64)
+    done = left <= 0
+    minus1 = torch.full_like(tok, -1)
+    last_block = table.shape[1] - 1
+    emitted = []
+    for _ in range(length):
+        # a frozen row's position may sit one past its last block
+        blk_idx = torch.clamp(pos // bs, 0, last_block)
+        blk = table.gather(1, blk_idx[:, None])[:, 0]
+        slot = torch.where(done, minus1, blk * bs + pos % bs)
+        env[tok_v] = tok
+        env[pos_v] = pos
+        env[slot_v] = slot.to(torch.int32)[:, None]
+        env[ctxl_v] = (pos + 1).to(torch.int32)
+        run_ops(body, env, ctx)
+        nxt = env[tokens_v].reshape(-1).to(torch.int64)
+        if policy is not None:
+            nxt = sample_chain_tokens(env[logits_v], nxt, *policy, pos)
+        emitted.append(torch.where(done, minus1, nxt))
+        left2 = torch.where(done, left, left - 1)
+        done2 = done | (left2 <= 0) | ((eos >= 0) & (nxt == eos))
+        tok = torch.where(done, tok, nxt)
+        pos = torch.where(done, pos, pos + 1)
+        left, done = left2, done2
+    env[chain_op.output("Out")[0]] = torch.stack(emitted)
+    return env
+
+
 def run_block(ops, env, ctx):
     """Interpret a global block: through :func:`run_training_block` when
-    it has a ``backward`` op, else every op without autograd."""
+    it has a ``backward`` op, through :func:`lower_decode_chain` when it
+    has a ``decode_chain`` marker, else every op without autograd."""
     bw_idx = backward_index(ops)
     if bw_idx is not None:
         return run_training_block(ops, env, ctx, bw_idx)
+    chain_idx = next((i for i, op in enumerate(ops)
+                      if op.type == "decode_chain"), None)
     with torch.no_grad():
+        if chain_idx is not None:
+            return lower_decode_chain(ops, chain_idx, env, ctx)
         return run_ops(ops, env, ctx)
 
 

@@ -1,5 +1,5 @@
 """Layer builders — the port of paddle_tpu/layers/ (the subset the BERT
-encoder and its pretraining heads call, and the LR schedules of
+encoder, its pretraining heads and the decoder call, and the LR schedules of
 ``lr_scheduler.py``)."""
 
 from .math_ops import (_binary, _broadcast_shape, _to_variable,  # noqa: F401
@@ -8,7 +8,7 @@ from .math_ops import (_binary, _broadcast_shape, _to_variable,  # noqa: F401
                        matmul, mul, mean)
 from .loss import softmax_with_cross_entropy  # noqa: F401
 from .nn import (data, fc, layer_norm, embedding, softmax,  # noqa: F401
-                 dropout)
+                 dropout, argmax)
 from .tensor_ops import (cast, fill_constant, reshape,  # noqa: F401
                          transpose, split, unsqueeze, slice)
 from ..lr_scheduler import (noam_decay, exponential_decay,  # noqa: F401

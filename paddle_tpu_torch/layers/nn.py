@@ -1,5 +1,6 @@
 """NN layer functions — the port of paddle_tpu/layers/nn.py (the builders
-the BERT encoder calls: data, fc, layer_norm, embedding, dropout)."""
+the BERT encoder and decoder call: data, fc, layer_norm, embedding,
+dropout, argmax)."""
 
 from __future__ import annotations
 
@@ -124,4 +125,20 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
                      outputs={"Out": [out], "Mask": [mask]},
                      attrs={"dropout_prob": dropout_prob, "is_test": is_test,
                             "dropout_implementation": dropout_implementation})
+    return out
+
+
+def argmax(x, axis=-1, keepdims=False, name=None):
+    helper = LayerHelper("arg_max", name=name)
+    nd = len(x.shape)
+    ax = axis % nd
+    if keepdims:
+        shape = tuple(1 if i == ax else s for i, s in enumerate(x.shape))
+    else:
+        shape = tuple(s for i, s in enumerate(x.shape) if i != ax)
+    out = helper.create_variable_for_type_inference("int64", shape,
+                                                    stop_gradient=True)
+    helper.append_op(type="arg_max", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"axis": axis, "keepdims": keepdims})
     return out

@@ -7,6 +7,8 @@ from . import math_ops      # noqa: F401
 from . import tensor_ops    # noqa: F401
 from . import nn_ops        # noqa: F401
 from . import attention_ops  # noqa: F401
+from . import cache_ops     # noqa: F401
+from . import sampling_ops  # noqa: F401
 from . import fused_ops     # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import collective_ops  # noqa: F401

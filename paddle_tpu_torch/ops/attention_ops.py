@@ -1,6 +1,6 @@
 """Fused attention op — the port of paddle_tpu/ops/attention_ops.py (the
-plain branch; the paged-cache and sequence-parallel branches come with
-the decode and multi-GPU slices).
+plain and paged-cache branches; the sequence-parallel branch comes with
+the multi-GPU slice).
 
 One op takes projected Q/K/V in (B, S, H*D) layout plus an additive
 attention bias and produces the context in (B, S, H*D).  The
@@ -11,7 +11,12 @@ inside the kernels from one int32 seed per op per run, taken from the
 run's generator on the device.  With the route's flag off, or on CPU
 tensors the kernels reject, :func:`reference_attention` — the JAX
 package's composition — computes it; on the card such an input raises
-(``registry.cuda_route``)."""
+(``registry.cuda_route``).
+
+The paged-cache branch (``KPool``/``VPool``/``BlockTable``/``CtxLen``
+inputs, serving/decode.py) gathers K and V through the block table and
+runs the same forward kernel on the gathered context through the
+``cached_flash_attention`` route, decode steps (one query row) included."""
 
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import math
 
 import torch
 
+from .cache_ops import ctx_len_bias, gather_cache
 from .cuda import flash_attention as cuda_flash
 from .registry import cuda_route, register, x
 
@@ -101,12 +107,72 @@ def lower_flash_attention(ctx, ins, attrs):
     return {"Out": _merge_heads(out)}
 
 
+def _check_q_pos(q, q_pos):
+    """The JAX package's static spec of QPos (``_infer_fused_attention``),
+    checked on the tensors: one absolute position per query, [B, Sq]."""
+    if q_pos.dim() != 2 or tuple(q_pos.shape) != tuple(q.shape[:2]):
+        raise ValueError(
+            f"fused_attention: QPos {list(q_pos.shape)} must match Q's "
+            f"[B, Sq] = {list(q.shape[:2])} (per-query absolute positions "
+            f"of the chunked-prefill causal mask)")
+
+
+def lower_cached_attention(ctx, ins, attrs, use_flash=False):
+    """Cache-read attention for the paged decode runtime: K/V come from
+    the block pools through the per-sequence block table instead of a
+    fresh projection.  ``use_flash`` (the ``cached_flash_attention``
+    route) hands the gathered context to the flash forward kernel;
+    otherwise :func:`reference_attention` computes it.  Both read the
+    cache identically, so routing never changes which bytes attention
+    sees.
+
+    Positions at or beyond ``CtxLen`` (padded table entries, reused blocks
+    carrying another sequence's leftovers) get a -1e9 bias: an exactly
+    zero softmax weight, which keeps co-batched and block-reuse results
+    equal to a lone run.  The optional ``QPos`` input ([B, Sq] absolute
+    query positions, chunked prefill) adds a per-query causal term: key
+    position t is visible to query position p iff ``t <= p``.  Valid pairs
+    still get an exactly zero bias (0.0 + 0.0).  The bias is [B, 1, 1, T],
+    or [B, 1, Sq, T] with QPos, shared by the heads."""
+    q = x(ins, "Q")
+    kpool, vpool = x(ins, "KPool"), x(ins, "VPool")
+    table, ctx_len = x(ins, "BlockTable"), x(ins, "CtxLen")
+    n_head = resolve_heads(q, attrs)
+    keys = gather_cache(kpool, table)
+    vals = gather_cache(vpool, table)
+    bias = ctx_len_bias(ctx_len, keys.shape[1])
+    q_pos = x(ins, "QPos")
+    if q_pos is not None:
+        _check_q_pos(q, q_pos)
+        tpos = torch.arange(keys.shape[1], dtype=torch.int64,
+                            device=q.device)[None, None, :]
+        zero = torch.zeros((), dtype=bias.dtype, device=q.device)
+        causal = torch.where(tpos <= q_pos.to(torch.int64)[:, :, None],
+                             zero, zero - 1e9)
+        bias = bias + causal[:, None, :, :]
+    if use_flash:
+        out = cuda_flash.flash_attention_bshd(
+            _split_heads(q, n_head), _split_heads(keys, n_head),
+            _split_heads(vals, n_head), bias)
+        return {"Out": _merge_heads(out)}
+    return {"Out": reference_attention(q, keys, vals, bias, n_head, 0.0, ctx,
+                                       True, causal=False)}
+
+
 @register("fused_attention")
 def _fused_attention(ctx, ins, attrs):
-    if x(ins, "KPool") is not None or attrs.get("_seq_axis"):
+    if x(ins, "KPool") is not None:
+        # the paged-cache read: the route's match is the `_cached` stamp,
+        # which every cache-reading instance carries
+        route, _ = cuda_route("fused_attention", ins,
+                              dict(attrs, _cached=True),
+                              kernel="cached_flash_attention")
+        return lower_cached_attention(ctx, ins, attrs,
+                                      use_flash=route is not None)
+    if attrs.get("_seq_axis"):
         raise NotImplementedError(
-            "fused_attention: the paged-cache and sequence-parallel "
-            "branches are not ported yet (decode and multi-GPU slices)")
+            "fused_attention: the sequence-parallel branch (_seq_axis) is "
+            "not ported yet (multi-GPU slice)")
     q, k, v = x(ins, "Q"), x(ins, "K"), x(ins, "V")
     is_test = attrs.get("is_test", False) or ctx.is_test
     route, _ = cuda_route("fused_attention", ins,

@@ -140,8 +140,10 @@ def _mulhilo(a, m: int):
 def philox_words(seed: torch.Tensor, c0, c1, c2):
     """The four Philox-4x32-10 output words of counters (c0, c1, c2, 0)
     under key (seed, 0), for broadcastable int64 tensors of values in
-    [0, 2^32): a tuple of four int64 tensors (csrc/common.cuh pt_philox)."""
-    k0 = seed.reshape(()).to(torch.int64) & _U32
+    [0, 2^32) and an integer ``seed`` tensor broadcastable against them
+    (one key per element of its shape): a tuple of four int64 tensors
+    (csrc/common.cuh pt_philox)."""
+    k0 = seed.to(torch.int64) & _U32
     k1 = 0
     c3 = torch.zeros((), dtype=torch.int64, device=seed.device)
     for r in range(10):
@@ -167,7 +169,7 @@ def philox_bits(seed: torch.Tensor, bh: int, sq: int, sk: int
     rows = (torch.arange(blocks, dtype=torch.int64, device=dev)[:, None] * 16
             + torch.arange(8, dtype=torch.int64, device=dev)).reshape(-1)
     words = philox_words(
-        seed, torch.arange(pairs, dtype=torch.int64, device=dev).view(1, 1, -1),
+        seed.reshape(()), torch.arange(pairs, dtype=torch.int64, device=dev).view(1, 1, -1),
         rows.view(1, -1, 1),
         torch.arange(bh, dtype=torch.int64, device=dev).view(-1, 1, 1))
     # [bh, block, row & 7, col >> 1, word] -> word = 2 * (row bit 3) + col & 1

@@ -1,5 +1,5 @@
 """NN ops — the port of paddle_tpu/ops/nn_ops.py (the subset the BERT
-serving and pretraining programs use).  ``layer_norm`` routes onto the
+serving, pretraining and decoder programs use).  ``layer_norm`` routes onto the
 hand-written LayerNorm kernels (``fused_layer_norm`` route: forward, and
 the backward kernel under autograd); every other op is a plain PyTorch
 composition, as the JAX package leaves them to XLA."""
@@ -145,3 +145,13 @@ def _gather_tokens(ctx, ins, attrs):
     seq, pos = x(ins, "X"), x(ins, "Index").long()
     idx = pos[..., None].expand(pos.shape[0], pos.shape[1], seq.shape[-1])
     return {"Out": torch.gather(seq, 1, idx).reshape(-1, seq.shape[-1])}
+
+
+@register("arg_max")
+def _arg_max(ctx, ins, attrs):
+    """Index of the largest entry along ``axis`` (int64); on ties the
+    first, as ``jnp.argmax`` and ``torch.argmax`` both take it."""
+    a = x(ins, "X")
+    out = torch.argmax(a, dim=attrs.get("axis", -1),
+                       keepdim=bool(attrs.get("keepdims", False)))
+    return {"Out": out.to(torch.int64)}

@@ -45,6 +45,42 @@ def _flash_supported(ins, attrs):
                                 bool(attrs.get("causal")), rate)
 
 
+def _cached_attn_total(ins):
+    """Gathered context length T = max_blocks_per_seq * block_size of the
+    cache-read fused_attention variant, or None."""
+    pool, table = x(ins, "KPool"), x(ins, "BlockTable")
+    if pool is None or table is None or pool.dim() != 3 or table.dim() != 2:
+        return None
+    return int(table.shape[1]) * int(pool.shape[1])
+
+
+def _cached_flash_supported(ins, attrs):
+    """The cache-read route: the gathered context hands the flash forward
+    kernel a (B, H, Sq, T) problem with T the table window, so the gate is
+    the kernel's own at Sk = T, no causal flag (QPos rides in the bias)
+    and no dropout.  Sq = 1 (a decode step) is accepted: the JAX gate
+    (``_pl_cached_supported``) sends it to the gather + einsum composition
+    because the TPU kernel's 128-row query tile cannot price a one-token
+    query, but this kernel masks the rows past Sq in its 32-row blocks and
+    takes any Sq and Sk, as it does any Adam size or quant width the TPU
+    tiling refused."""
+    q = x(ins, "Q")
+    t = _cached_attn_total(ins)
+    if x(ins, "KPool") is None:
+        return False, "not-cached"
+    if q is None or q.dim() != 3 or t is None:
+        return False, "shape-unknown"
+    hd = int(q.shape[-1])
+    n_head = attrs.get("n_head", 1)
+    head_dim = attrs.get("head_dim")
+    if head_dim:
+        n_head = max(1, hd // int(head_dim))
+    if n_head <= 0 or hd % n_head:
+        return False, "shape-unknown"
+    return cuda_flash.supported(int(q.shape[1]), t, hd // n_head, q.dtype,
+                                False, 0.0)
+
+
 def _mhm_supported(ins, attrs):
     q, k = x(ins, "Q"), x(ins, "K")
     if q is None or k is None or q.dim() != 4 or k.dim() != 4:
@@ -146,6 +182,14 @@ ROUTE_FLASH = CudaLowering(
     replaces=(_FLASH_TPU, _FLASH_DQ_TPU, _FLASH_DKV_TPU),
     source=(_CSRC + "flash_attention.cu", _CSRC + "flash_attention_bwd.cu",
             _CSRC + "flash_attention_bwd.cu"))
+# the paged-cache read (serving/decode.py): the gathered context on the
+# same forward kernel; applicability rides the builder-stamped `_cached`
+# attr, so a plain fused_attention skips this route silently
+ROUTE_CACHED_FLASH = CudaLowering(
+    "cached_flash_attention", flag="use_flash_attention", attr="use_flash",
+    match=lambda attrs: bool(attrs.get("_cached")),
+    supported=_cached_flash_supported, kernels=("flash_attention_fwd",),
+    replaces=(_FLASH_TPU,), source=_CSRC + "flash_attention.cu")
 ROUTE_MHM = CudaLowering(
     "flash_attention", flag="use_flash_attention",
     supported=_mhm_supported, kernels=("flash_attention_fwd",),
@@ -187,7 +231,7 @@ ROUTE_DEQUANT_ACC = CudaLowering(
     replaces=(_DQ_ACC_TPU, _DQ_ACC_RQ_TPU),
     source=_CSRC + "quant_accumulate.cu")
 
-register_routes("fused_attention", ROUTE_FLASH)
+register_routes("fused_attention", ROUTE_FLASH, ROUTE_CACHED_FLASH)
 register_routes("multihead_matmul", ROUTE_MHM)
 register_routes("layer_norm", ROUTE_LN)
 register_routes("fused_add_layernorm", ROUTE_ADD_LN)

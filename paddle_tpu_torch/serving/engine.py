@@ -119,6 +119,33 @@ def pad_request(feed: Dict[str, np.ndarray], seq_bucket: Optional[int],
     return out
 
 
+def _plan_bins(row_lens: Sequence[int], capacity: int, max_segments: int,
+               max_rows: int):
+    """First-fit the per-row sequence lengths into packed rows of
+    ``capacity`` tokens with at most ``max_segments`` segments each.
+    Returns ``(placements, n_bins)`` — ``placements[i] = (row, offset)``
+    for input row i — or None when it doesn't fit in ``max_rows``.  (The
+    decode engine's prefill packing; the serving engine's own ragged
+    packing is not ported yet.)"""
+    bins: List[List[int]] = []     # [used_tokens, n_segments]
+    placements = []
+    for s in row_lens:
+        idx = None
+        for i, b in enumerate(bins):
+            if b[0] + s <= capacity and b[1] < max_segments:
+                idx = i
+                break
+        if idx is None:
+            if len(bins) >= max_rows or s > capacity:
+                return None
+            bins.append([0, 0])
+            idx = len(bins) - 1
+        placements.append((idx, bins[idx][0]))
+        bins[idx][0] += s
+        bins[idx][1] += 1
+    return placements, len(bins)
+
+
 class _Request:
     __slots__ = ("feed", "rows", "seq", "group", "future", "deadline",
                  "t_submit")
