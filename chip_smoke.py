@@ -132,7 +132,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (B8 H12 Sq1 T512 D64 with a padded, all-masked row) and the chunk's
    (Sq 512, T 512, QPos causal term), timed beside SDPA on the same
    gathered K/V and the gather's own time;
-12. print the ``kernels`` JSON line, the card's name and power limit, and
+12. bf16 mixed-precision pretraining at BERT-base width and depth
+   (``contrib.mixed_precision.decorate``), three legs.  (a) bench.py's
+   configuration: ``decorate(Adam(1e-4), use_pure_bf16=True)`` at
+   96 x 128 with 20 masks, dropout 0.1: one step through
+   ``Executor.run``, then 10 through ``prepare(donate_state=True)``; the
+   loss is finite and falls, no route falls back, each step launches 12
+   flash forward, 12 dq and 12 dk/dv kernels on bf16 operands, 26
+   LayerNorm forward and backward kernels on float32 ones and one Adam
+   launch for the 158 adam ops, and every parameter is still float32;
+   one profiled step; bench.py's own measure (30 ``Executor.run`` steps,
+   fetches left on the card, one sync); the model FLOP share of the bf16
+   peak; then, with dropout 0, 3 steps with every kernel on against every
+   kernel flag off, losses within 1e-2.  (b) phase 8's program and recipe
+   with the optimizer under ``decorate``, 32 x 128, 10 steps: phase 8's
+   launches, the flash kernels on bf16, the LR's closed form; its step
+   beside phase 8's.  (c) fp16 loss scaling: ``tests/test_amp.py``'s MLP
+   under ``decorate(SGD(0.1), use_pure_bf16=False)`` growing the scale
+   after 3 good steps and backing it off after 2 bad ones, an inf fed at
+   steps 4 and 5: those steps' gradients zeroed, the weights kept, scale
+   and counters equal to a host replay at every step, no host sync inside
+   a step; BERT-base under fp16 refused on its first step by the flash
+   gate (``dtype:torch.float16``).  Kernel #1 and the #2 + #3 pair are
+   timed in bf16 at (a)'s shape (B96 H12 S128 D64, padding bias, dropout
+   0.1) like phase 6's rows;
+13. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -189,6 +213,19 @@ ADAM_OPS = 158            # BERT-base's parameters: adam / adamw ops a step
 FUSED_LAUNCHES = dict(TRAIN_LAUNCHES, layer_norm_fwd=1, layer_norm_bwd=1,
                       add_layer_norm_fwd=25, add_layer_norm_bwd=25,
                       bias_gelu_fwd=13, bias_gelu_bwd=13)
+# phase 12: bench.py's headline configuration (BERT-base pretraining in
+# bf16 at 96 x 128 with 20 masks), its timed window, the kernels-on vs
+# flags-off bound in bf16, and the fp16 loss-scaling leg's policy and feed
+AMP_BATCH, AMP_BENCH_STEPS = 96, 30
+TOL_AMP_PLAIN = 1e-2      # bf16 losses, kernels on vs off (relative)
+# bf16 step-1 grads, kernels on vs off, of max|grad| (the limit that
+# tests/test_torch_amp.py holds the port's bf16 gradients to against JAX)
+TOL_AMP_GRAD = 3e-2
+# the float32 LayerNorms of the bf16 program: the encoder's rows (B*S)
+# and the masked-LM head's (B*20)
+AMP_LN_ROWS = (AMP_BATCH * TRAIN_SEQ, AMP_BATCH * TRAIN_MASKS)
+AMP_FP16_STEPS, AMP_INF_STEPS = 9, (4, 5)
+AMP_INCR_EVERY, AMP_DECR_EVERY = 3, 2
 # the recipe (Devlin et al. 2019, A.2; google-research/bert
 # optimization.py): peak LR 1e-4, decay to 0 over 1M steps, AdamW 0.01,
 # global-norm clip 1.0; the warmup is cut from 10,000 steps to 3
@@ -201,9 +238,11 @@ EDGE_ROWS = 1003          # ragged last block of the backwards' row blocks
 LN_EDGE_ROWS = 300
 LN_EDGE_WIDTHS = (128, 896, 4096, 8192)
 # the LN forwards' rows of D = 768: served B8 x S128 (the main path), the
-# training batch (B8 x S512 served, 32 x 128 trained), one row, and the
-# served B1 and B4 x S128
-LN_FWD_ROWS = (8 * 128, 8 * 512, 1, 128, 512)
+# training batch (B8 x S512 served, 32 x 128 trained), one row, the
+# served B1 and B4 x S128, the trained masked-LM head's B32 x 20 and the
+# bf16 program's rows
+LN_FWD_ROWS = (8 * 128, 8 * 512, 1, 128, 512,
+               TRAIN_BATCH * TRAIN_MASKS) + AMP_LN_ROWS
 # the quantized all-reduce's receive stage (KERNEL_CENSUS_r15.json parity)
 TOL_DQ_ACC = 1e-5         # #11 vs its plain version (abs)
 TOL_DQ_ACC_BLOCK = 1e-6   # #11, each block of max|plain| of that block
@@ -810,160 +849,160 @@ def bert_base_param_shapes(cfg):
 
 
 def flash_training_checks(torch, results):
-    import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as FA
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    randn = randn_on(torch, gen, dev)
-    record = recorder(results)
     seed = torch.tensor([SEED], dtype=torch.int32, device=dev)
-    heads, d = 12, 64
-    for dtname, dt in (("float32", torch.float32),
-                       ("bfloat16", torch.bfloat16)):
-        es = torch.finfo(dt).bits // 8
+    for dtname in ("float32", "bfloat16"):
         for bsz, seq in ((TRAIN_BATCH, TRAIN_SEQ), (LONG_BATCH, LONG_SEQ)):
-            bh = bsz * heads
-            q, k, v, do = (randn(bh, seq, d, dtype=dt) for _ in range(4))
-            shared = padding_bias(torch, gen, dev, bsz, seq)
-            for mode, bias, causal in (("padding-bias", shared, False),
-                                       ("causal", None, True)):
-                what = f"flash train {mode} B={bsz} S={seq} {dtname}"
-                q4, k4, v4, do4 = (t.view(bsz, heads, seq, d).detach()
-                                   .requires_grad_(True) for t in
-                                   (q, k, v, do))
-                mask4 = None if bias is None else \
-                    bias.view(bsz, 1, seq, seq).to(dt)
-                pairs = seq * (seq + 1) // 2 if causal else seq * seq
-                io_bytes = bh * seq * d * es
-                extra = (0 if bias is None else bias.numel() * 4) + \
-                    2 * bh * seq * 4                  # lse, delta
-
-                def forward_row(rate):
-                    """The forward at ``rate`` against the twin, bit for bit
-                    across two launches, timed beside SDPA at that rate;
-                    returns (o, lse)."""
-                    o, lse = FA.flash_fwd(q, k, v, bias, causal, rate, seed)
-                    o2, lse2 = FA.flash_fwd(q, k, v, bias, causal, rate, seed)
-                    check(torch.equal(o, o2) and torch.equal(lse, lse2),
-                          f"{what}: o/lse differ between two launches "
-                          f"(dropout {rate})")
-                    po, plse = FA.flash_fwd_plain(q, k, v, bias, causal,
-                                                  rate, seed)
-                    err_o = agree(torch, f"{what} o (dropout {rate})", o,
-                                  po, dtname, TOL_F32)
-                    # a padded row's lse is near -1e4, where a float32 ulp
-                    # is ~1e-3: held per row to TOL_LSE of max(1, |lse|)
-                    lerr = float(((lse - plse).abs() /
-                                  plse.abs().clamp_min(1.0)).max())
-                    log(f"  {what} lse (dropout {rate}): max|Δ|/max(1,|lse|)"
-                        f" {lerr:.3e} (tolerance {TOL_LSE:.1e})")
-                    check(lerr <= TOL_LSE, f"{what}: lse disagrees ({lerr})")
-                    nbytes = 4 * io_bytes + extra - bh * seq * 4
-                    flops = 4 * bh * pairs * d
-                    record("flash_attention_fwd_dropout",
-                           [bsz, heads, seq, d, mode, f"dropout {rate}"],
-                           dtname, max(err_o, lerr),
-                           time_ms(torch, lambda: FA.flash_fwd(
-                               q, k, v, bias, causal, rate, seed)),
-                           time_ms(torch, lambda: FA.flash_fwd_plain(
-                               q, k, v, bias, causal, rate, seed)),
-                           time_ms(torch, lambda:
-                                   F.scaled_dot_product_attention(
-                                       q4, k4, v4, attn_mask=mask4,
-                                       is_causal=causal, dropout_p=rate)),
-                           nbytes, flops, bit_identical=True,
-                           **fwd_bounds(nbytes, flops, dtname))
-                    return o, lse
-                o, lse = forward_row(DROPOUT)
-                forward_row(0.0)
-                grads = FA.flash_bwd(q, k, v, bias, o, lse, do, causal,
-                                     DROPOUT, seed)
-                again = FA.flash_bwd(q, k, v, bias, o, lse, do, causal,
-                                     DROPOUT, seed)
-                check(all(torch.equal(a, b) for a, b in zip(grads, again)),
-                      f"{what}: dq/dk/dv differ between two launches on the "
-                      f"same inputs")
-                refs = FA.flash_bwd_plain(q, k, v, bias, o, lse, do, causal,
-                                          DROPOUT, seed)
-                errs = [agree(torch, f"{what} {n}", g, r, dtname, TOL_GRAD,
-                              relative=True)
-                        for n, g, r in zip(("dq", "dk", "dv"), grads, refs)]
-                # kernels and the library's backward, each at dropout 0.1
-                # and at 0 (the library redraws its own mask: the same rate,
-                # not the same bits)
-                timed = {}
-                for rate in (DROPOUT, 0.0):
-                    o_r, lse_r = FA.flash_fwd(q, k, v, bias, causal, rate,
-                                              seed)
-                    delta = (do.float() * o_r.float()).sum(dim=-1)
-                    args = (q, k, v, bias, do, lse_r, delta, causal, rate,
-                            seed)
-                    ds = FA.flash_bwd_dkv(*args)[2]
-                    lib_out = F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=mask4, is_causal=causal,
-                        dropout_p=rate)
-                    timed[rate] = (
-                        time_ms(torch, lambda: FA.flash_bwd_dq_ds(
-                            k, ds, seq, causal)),
-                        time_ms(torch, lambda: FA.flash_bwd_dkv(*args)),
-                        time_ms(torch, lambda: torch.autograd.grad(
-                            lib_out, (q4, k4, v4), do4, retain_graph=True)))
-                    del lib_out, ds
-                (dq_ms, dkv_ms, lib_bwd), (dq0_ms, dkv0_ms, lib0_bwd) = \
-                    timed[DROPOUT], timed[0.0]
-                plain_bwd = time_ms(torch, lambda: FA.flash_bwd_plain(
-                    q, k, v, bias, o, lse, do, causal, DROPOUT, seed))
-                shape = [bsz, heads, seq, d, mode, "dropout 0.1"]
-                # each row's bound is the function of the TPU kernel it
-                # replaces: dq 6 BH S^2 D flops (it recomputes q.k^T and
-                # do.v^T), dk/dv 8, each reading q, k, v, dO, the bias, lse
-                # and delta once; float32 at the smaller of the FMA-pipe and
-                # the 3xTF32 tensor-core bound, both kept as extra keys.
-                # This design's own work stands beside it: dk/dv also writes
-                # the float32 score gradient ds^T (whole 64 x 64 tiles, the
-                # causal ones on and below the diagonal), and dq is ds.k, 2
-                # BH S^2 D flops, reading k and ds.  The library's one
-                # backward call computes dq, dk and dv together, and so does
-                # the plain version: both stand beside each kernel, the
-                # library as extra keys, at dropout 0.1 and at 0
-                tiles = -(-seq // FA.BWD_TILE)
-                ds_bytes = 4 * bh * FA.BWD_TILE ** 2 * (
-                    tiles * (tiles + 1) // 2 if causal else tiles ** 2)
-                work = {"dq": (5 * io_bytes + extra, 6 * bh * pairs * d),
-                        "dkv": (6 * io_bytes + extra, 8 * bh * pairs * d)}
-                design = {"dq": (2 * io_bytes + ds_bytes,
-                                 2 * bh * pairs * d),
-                          "dkv": (6 * io_bytes + extra + ds_bytes,
-                                  8 * bh * pairs * d)}
-                witness = {}
-                if dtname == "float32" and mode == "padding-bias":
-                    witness = float64_witness(torch, FA, what, grads, refs,
-                                              (q, k, v, bias, o, lse, do),
-                                              causal, seed)
-                for name, err, ms, ms0 in (
-                        ("dq", errs[0], dq_ms, dq0_ms),
-                        ("dkv", max(errs[1:]), dkv_ms, dkv0_ms)):
-                    nbytes, flops = work[name]
-                    d_bytes, d_flops = design[name]
-                    bounds = {"bound_design_ms": bound_ms(
-                        d_bytes, d_flops, dtname)[0]}
-                    bound = None
-                    if dtname == "float32":
-                        bound = bound_ms(nbytes, 3 * flops, "tf32")
-                        bounds = {
-                            "bound_fma_ms": bound_ms(nbytes, flops,
-                                                     "float32")[0],
-                            "bound_3xtf32_ms": bound[0],
-                            "bound_design_ms": bound_ms(
-                                d_bytes, 3 * d_flops, "tf32")[0]}
-                    record(f"flash_attention_bwd_{name}", shape, dtname, err,
-                           ms, plain_bwd, None, nbytes, flops, bound=bound,
-                           library_dq_dk_dv_ms=lib_bwd,
-                           ms_dropout0=ms0,
-                           library_dq_dk_dv_ms_dropout0=lib0_bwd,
-                           **bounds, **witness.get(name, {}))
+            flash_training_rows(torch, results, gen, seed, dtname, bsz, seq,
+                                ("padding-bias", "causal"))
     flash_route_checks(torch, FA, gen, seed)
+
+
+def flash_training_rows(torch, results, gen, seed, dtname, bsz, seq, modes):
+    """The flash forward (dropout 0.1 and 0) and its dq and dk/dv kernels
+    at (bsz, 12 heads, seq, 64) in ``dtname``, on one draw of q, k, v, dO
+    and BERT's padding bias, in each of ``modes`` ("padding-bias",
+    "causal"): against the twin, bit for bit across two launches, each
+    timed beside SDPA / the library's backward at the same dropout rate
+    and its bound; rows recorded in ``results``."""
+    dev = torch.device("cuda", 0)
+    randn = randn_on(torch, gen, dev)
+    dt = torch.float32 if dtname == "float32" else torch.bfloat16
+    q, k, v, do = (randn(bsz * 12, seq, 64, dtype=dt) for _ in range(4))
+    shared = padding_bias(torch, gen, dev, bsz, seq)
+    for mode in modes:
+        bias, causal = (shared, False) if mode == "padding-bias" else \
+            (None, True)
+        flash_training_mode(torch, results, seed, dtname, bsz, seq, mode,
+                            (q, k, v, do), bias, causal)
+
+
+def flash_training_mode(torch, results, seed, dtname, bsz, seq, mode,
+                        qkvdo, bias, causal):
+    """One mode of :func:`flash_training_rows` on its draw ``qkvdo``."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    record = recorder(results)
+    q, k, v, do = qkvdo
+    heads, d = 12, 64
+    dt = q.dtype
+    es = torch.finfo(dt).bits // 8
+    bh = bsz * heads
+    what = f"flash train {mode} B={bsz} S={seq} {dtname}"
+    q4, k4, v4, do4 = (t.view(bsz, heads, seq, d).detach()
+                       .requires_grad_(True) for t in (q, k, v, do))
+    mask4 = None if bias is None else bias.view(bsz, 1, seq, seq).to(dt)
+    pairs = seq * (seq + 1) // 2 if causal else seq * seq
+    io_bytes = bh * seq * d * es
+    extra = (0 if bias is None else bias.numel() * 4) + \
+        2 * bh * seq * 4                  # lse, delta
+
+    def forward_row(rate):
+        """The forward at ``rate`` against the twin, bit for bit across two
+        launches, timed beside SDPA at that rate; returns (o, lse)."""
+        o, lse = FA.flash_fwd(q, k, v, bias, causal, rate, seed)
+        o2, lse2 = FA.flash_fwd(q, k, v, bias, causal, rate, seed)
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"{what}: o/lse differ between two launches (dropout {rate})")
+        po, plse = FA.flash_fwd_plain(q, k, v, bias, causal, rate, seed)
+        err_o = agree(torch, f"{what} o (dropout {rate})", o, po, dtname,
+                      TOL_F32)
+        # a padded row's lse is near -1e4, where a float32 ulp is ~1e-3:
+        # held per row to TOL_LSE of max(1, |lse|)
+        lerr = float(((lse - plse).abs() / plse.abs().clamp_min(1.0)).max())
+        log(f"  {what} lse (dropout {rate}): max|Δ|/max(1,|lse|) "
+            f"{lerr:.3e} (tolerance {TOL_LSE:.1e})")
+        check(lerr <= TOL_LSE, f"{what}: lse disagrees ({lerr})")
+        nbytes = 4 * io_bytes + extra - bh * seq * 4
+        flops = 4 * bh * pairs * d
+        record("flash_attention_fwd_dropout",
+               [bsz, heads, seq, d, mode, f"dropout {rate}"], dtname,
+               max(err_o, lerr),
+               time_ms(torch, lambda: FA.flash_fwd(
+                   q, k, v, bias, causal, rate, seed)),
+               time_ms(torch, lambda: FA.flash_fwd_plain(
+                   q, k, v, bias, causal, rate, seed)),
+               time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=mask4, is_causal=causal,
+                   dropout_p=rate)),
+               nbytes, flops, bit_identical=True,
+               **fwd_bounds(nbytes, flops, dtname))
+        return o, lse
+    o, lse = forward_row(DROPOUT)
+    forward_row(0.0)
+    grads = FA.flash_bwd(q, k, v, bias, o, lse, do, causal, DROPOUT, seed)
+    again = FA.flash_bwd(q, k, v, bias, o, lse, do, causal, DROPOUT, seed)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"{what}: dq/dk/dv differ between two launches on the same "
+          f"inputs")
+    refs = FA.flash_bwd_plain(q, k, v, bias, o, lse, do, causal, DROPOUT,
+                              seed)
+    errs = [agree(torch, f"{what} {n}", g, r, dtname, TOL_GRAD,
+                  relative=True)
+            for n, g, r in zip(("dq", "dk", "dv"), grads, refs)]
+    # kernels and the library's backward, each at dropout 0.1 and at 0
+    # (the library redraws its own mask: the same rate, not the same bits)
+    timed = {}
+    for rate in (DROPOUT, 0.0):
+        o_r, lse_r = FA.flash_fwd(q, k, v, bias, causal, rate, seed)
+        delta = (do.float() * o_r.float()).sum(dim=-1)
+        args = (q, k, v, bias, do, lse_r, delta, causal, rate, seed)
+        ds = FA.flash_bwd_dkv(*args)[2]
+        lib_out = F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask4, is_causal=causal, dropout_p=rate)
+        timed[rate] = (
+            time_ms(torch, lambda: FA.flash_bwd_dq_ds(k, ds, seq, causal)),
+            time_ms(torch, lambda: FA.flash_bwd_dkv(*args)),
+            time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (q4, k4, v4), do4, retain_graph=True)))
+        del lib_out, ds
+    (dq_ms, dkv_ms, lib_bwd), (dq0_ms, dkv0_ms, lib0_bwd) = \
+        timed[DROPOUT], timed[0.0]
+    plain_bwd = time_ms(torch, lambda: FA.flash_bwd_plain(
+        q, k, v, bias, o, lse, do, causal, DROPOUT, seed))
+    shape = [bsz, heads, seq, d, mode, "dropout 0.1"]
+    # each row's bound is the function of the TPU kernel it replaces: dq
+    # 6 BH S^2 D flops (it recomputes q.k^T and do.v^T), dk/dv 8, each
+    # reading q, k, v, dO, the bias, lse and delta once; float32 at the
+    # smaller of the FMA-pipe and the 3xTF32 tensor-core bound, both kept
+    # as extra keys.  This design's own work stands beside it: dk/dv also
+    # writes the float32 score gradient ds^T (whole 64 x 64 tiles, the
+    # causal ones on and below the diagonal), and dq is ds.k, 2 BH S^2 D
+    # flops, reading k and ds.  The library's one backward call computes
+    # dq, dk and dv together, and so does the plain version: both stand
+    # beside each kernel, the library as extra keys, at dropout 0.1 and 0
+    tiles = -(-seq // FA.BWD_TILE)
+    ds_bytes = 4 * bh * FA.BWD_TILE ** 2 * (
+        tiles * (tiles + 1) // 2 if causal else tiles ** 2)
+    work = {"dq": (5 * io_bytes + extra, 6 * bh * pairs * d),
+            "dkv": (6 * io_bytes + extra, 8 * bh * pairs * d)}
+    design = {"dq": (2 * io_bytes + ds_bytes, 2 * bh * pairs * d),
+              "dkv": (6 * io_bytes + extra + ds_bytes, 8 * bh * pairs * d)}
+    witness = {}
+    if dtname == "float32" and mode == "padding-bias":
+        witness = float64_witness(torch, FA, what, grads, refs,
+                                  (q, k, v, bias, o, lse, do), causal, seed)
+    for name, err, ms, ms0 in (("dq", errs[0], dq_ms, dq0_ms),
+                               ("dkv", max(errs[1:]), dkv_ms, dkv0_ms)):
+        nbytes, flops = work[name]
+        d_bytes, d_flops = design[name]
+        bounds = {"bound_design_ms": bound_ms(d_bytes, d_flops, dtname)[0]}
+        bound = None
+        if dtname == "float32":
+            bound = bound_ms(nbytes, 3 * flops, "tf32")
+            bounds = {
+                "bound_fma_ms": bound_ms(nbytes, flops, "float32")[0],
+                "bound_3xtf32_ms": bound[0],
+                "bound_design_ms": bound_ms(d_bytes, 3 * d_flops,
+                                            "tf32")[0]}
+        record(f"flash_attention_bwd_{name}", shape, dtname, err, ms,
+               plain_bwd, None, nbytes, flops, bound=bound,
+               library_dq_dk_dv_ms=lib_bwd, ms_dropout0=ms0,
+               library_dq_dk_dv_ms_dropout0=lib0_bwd, **bounds,
+               **witness.get(name, {}))
 
 
 def float64_witness(torch, FA, what, grads, refs, inputs, causal, seed):
@@ -1119,10 +1158,11 @@ def ln_adam_training_checks(torch, results, cfg):
     randn = randn_on(torch, gen, dev)
     record = recorder(results)
     d = cfg.hidden_size
-    # the encoder's rows (B*S) and the masked-LM head's (B*20)
+    # the encoder's rows (B*S) and the masked-LM head's (B*20), of the
+    # float32 program and of the bf16 one (its LayerNorms run in float32)
     ln_bwd_checks(torch, results, False,
-                  (TRAIN_BATCH * TRAIN_SEQ, TRAIN_BATCH * TRAIN_MASKS), d,
-                  SEED + 4)
+                  (TRAIN_BATCH * TRAIN_SEQ, TRAIN_BATCH * TRAIN_MASKS) +
+                  AMP_LN_ROWS, d, SEED + 4)
 
     def adam_run(sizes, coeff):
         """One AdamTensor per size (random state; the LR and the powers of
@@ -1304,9 +1344,9 @@ def quant_kernel_checks(torch, results):
         what = f"n={n} SB={sb} {dtype} block {block}" + \
             (f" payload at +{offset} bytes" if offset else "")
         elems = sb * block
-        launched = kernels.LAUNCHES["dequant_accumulate"]
+        launched = kernels.launch_counts()["dequant_accumulate"]
         acc = QK.dequant_accumulate(q, s, spec, n)
-        check(kernels.LAUNCHES["dequant_accumulate"] == launched + 1,
+        check(kernels.launch_counts()["dequant_accumulate"] == launched + 1,
               f"dequant_accumulate {what}: the CUDA kernel did not launch")
         ref = QK.dequant_accumulate_plain(q, s, spec, n)
         err = agree(torch, f"dequant_accumulate {what}", acc, ref, "float32",
@@ -1332,9 +1372,9 @@ def quant_kernel_checks(torch, results):
                    .values()) or None)
         if dtype != "int8":
             continue
-        launched = kernels.LAUNCHES["dequant_accumulate_requant"]
+        launched = kernels.launch_counts()["dequant_accumulate_requant"]
         q2, s2 = QK.dequant_accumulate_requant(q, s, spec, n)
-        check(kernels.LAUNCHES["dequant_accumulate_requant"] ==
+        check(kernels.launch_counts()["dequant_accumulate_requant"] ==
               launched + 1, f"dequant_accumulate_requant {what}: the CUDA "
                             f"kernel did not launch")
         p2, t2 = QK.dequant_accumulate_requant_plain(q, s, spec, n)
@@ -1716,10 +1756,13 @@ def dp_phase(torch, np, repo, cfg):
 # ---------------------------------------------------------------------------
 
 
-def build_train(cfg):
-    """Phase 7's program: pretraining + Adam(1e-4), run as it is.
-    Returns (the program to run, startup, loss, LR var)."""
+def build_train(cfg, amp=False):
+    """Phase 7's program: pretraining + Adam(1e-4), run as it is; with
+    ``amp``, bench.py's: the optimizer under
+    ``decorate(..., use_pure_bf16=True)`` (phase 12).  Returns (the
+    program to run, startup, loss, LR var)."""
     from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
     from paddle_tpu_torch.framework.core import Program, program_guard
     from paddle_tpu_torch.framework import unique_name
     from paddle_tpu_torch.models import bert
@@ -1729,15 +1772,19 @@ def build_train(cfg):
     with program_guard(main, startup):
         _, total, _, _ = bert.build_pretrain_network(cfg)
         opt = fluid.optimizer.Adam(PEAK_LR)
+        if amp:
+            opt = decorate(opt, use_pure_bf16=True)
         opt.minimize(total)
     return main, startup, total, opt.learning_rate_var
 
 
-def build_fused_train(cfg):
+def build_fused_train(cfg, amp=False):
     """Phase 8's program, as a user writes it: the recipe, then both
     fusion passes (``fuse_elemwise_add_act`` through the build
-    strategy).  Returns (the CompiledProgram, startup, loss, LR var)."""
+    strategy); with ``amp`` the optimizer under ``decorate`` in bf16
+    (phase 12).  Returns (the CompiledProgram, startup, loss, LR var)."""
     from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
     from paddle_tpu_torch.framework.core import Program, program_guard
     from paddle_tpu_torch.framework import unique_name
     from paddle_tpu_torch.framework.passes import apply_pass
@@ -1754,6 +1801,8 @@ def build_fused_train(cfg):
         opt = fluid.optimizer.AdamW(
             lr, weight_decay=WEIGHT_DECAY,
             grad_clip=fluid.clip.GradientClipByGlobalNorm(CLIP_NORM))
+        if amp:
+            opt = decorate(opt, use_pure_bf16=True)
         opt.minimize(total)
     apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
     bs = fluid.BuildStrategy()
@@ -1798,9 +1847,10 @@ def covered_us(spans):
 
 def profile_step(torch, step, step_ms):
     """Device time of one training step by kernel, from torch.profiler:
-    the port's kernels, the matrix products (cuBLAS / CUTLASS gemm) and
-    everything else (sums of each kernel's span), and the device's busy
-    share of ``step_ms`` (the median unprofiled step): the union of the
+    the port's kernels, the matrix products (cuBLAS / CUTLASS gemm, and
+    cuBLASLt's ``nvjet`` kernels) and everything else (sums of each
+    kernel's span), and the device's busy share of ``step_ms`` (the
+    median unprofiled step): the union of the
     spans, since a programmatic dependent launch (the LN backwards'
     column sum) starts, and waits, before its primary ends.  None when
     the profiler saw no device activity."""
@@ -1828,7 +1878,7 @@ def profile_step(torch, step, step_ms):
             quant[1] += us / 1e3
         if any(k in name for k in PORT_KERNEL_NAMES):
             groups["port kernels"] += us / 1e3
-        elif "gemm" in low or "cutlass" in low:
+        elif "gemm" in low or "cutlass" in low or low.startswith("nvjet"):
             groups["matrix products"] += us / 1e3
         else:
             groups["other"] += us / 1e3
@@ -1846,27 +1896,68 @@ def profile_step(torch, step, step_ms):
                     for name, (n, us) in top]}
 
 
-def train_phase(torch, np, cfg, build, expected, schedule=None):
+def check_launches(kernels, expected, steps, dtypes):
+    """Each kernel launched ``expected[name]`` times a step over ``steps``
+    steps and no other, every one of those launches on operands of
+    ``dtypes[name]``."""
+    launches = kernels.launch_counts()
+    for name, n in launches.items():
+        per_step = expected.get(name, 0)
+        check(n == per_step * steps,
+              f"{name}: {n} launches in {steps} steps, expected "
+              f"{per_step} per step")
+    for (name, dt), n in kernels.launch_counts_by_dtype().items():
+        check(dt == dtypes.get(name),
+              f"{name}: {n} launches on {dt} operands, expected "
+              f"{dtypes.get(name)} only")
+    return launches
+
+
+def train_phase(torch, np, cfg, build, expected, schedule=None,
+                batch=TRAIN_BATCH, dtypes=None, run_first=False):
     """TRAIN_STEPS steps of ``build(cfg)``'s program through
-    prepare(donate_state=True), dropout as cfg says, each kernel launched
-    exactly ``expected`` times per step and no other; the LR fetched each
-    step equals ``schedule(step)`` when given.  Then one more step under
-    the profiler."""
+    prepare(donate_state=True) on a ``batch`` x TRAIN_SEQ batch, dropout
+    as cfg says, each kernel launched exactly ``expected`` times per step
+    and no other, on operands of ``dtypes[name]`` (float32 when not
+    given), the parameters float32 after the steps; the LR fetched each
+    step equals ``schedule(step)`` when given.  With ``run_first`` one
+    step through ``Executor.run`` comes first (bench.py's entry), its
+    launches checked alike.  Then one more step under the profiler.  The
+    model FLOP share is of the bf16 peak when the program casts to bf16,
+    else of the float32 one."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import cuda as kernels
     from paddle_tpu_torch.ops import registry
+    dtypes = dtypes or {name: "float32" for name in expected}
     program, startup, total, lr_var = build(cfg)
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
-                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+                                batch, TRAIN_SEQ, TRAIN_MASKS)
     scope = fluid.Scope()
     exe = fluid.Executor()                       # CUDAPlace(0)
     exe.run(startup, scope=scope)
     params = program.all_parameters()
     n_params = sum(math.prod(p.shape) for p in params)
+    first = None
+    if run_first:
+        kernels.reset_launch_counts()
+        registry.reset_route_counts()
+        first = float(exe.run(program, feed=feed, fetch_list=[total],
+                              scope=scope)[0])
+        check(math.isfinite(first), f"Executor.run: non-finite loss {first}")
+        check(not registry.route_counts("fallback"),
+              f"route fallbacks in Executor.run: "
+              f"{registry.route_counts('fallback')}")
+        check_launches(kernels, expected, 1, dtypes)
+        log(f"  one step through Executor.run: loss {first:.5f}, launches "
+            f"{kernels.launch_counts()}")
     prepared = exe.prepare(program, fetch_list=[total, lr_var], scope=scope,
                            donate_state=True)
-    ops = [op.type for op in prepared._program.global_block().ops]
+    run_ops = prepared._program.global_block().ops
+    ops = [op.type for op in run_ops]
+    peak_dtype = "bfloat16" if any(
+        op.type == "cast" and op.attrs.get("out_dtype") == "bfloat16"
+        for op in run_ops) else "float32"
     log(f"  program run: {len(ops)} ops, "
         + ", ".join(f"{ops.count(t)} {t}" for t in (
             "fused_add_layernorm", "layer_norm",
@@ -1890,31 +1981,38 @@ def train_phase(torch, np, cfg, build, expected, schedule=None):
         losses.append(loss)
         lrs.append(lr)
     launches = kernels.launch_counts()
+    by_dtype = kernels.launch_counts_by_dtype()
     routes = registry.route_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = statistics.median(step_s[2:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * TRAIN_SEQ
+    flops = model_flops_per_step(cfg, batch, TRAIN_SEQ, TRAIN_MASKS)
+    peak = PEAK_FLOPS[peak_dtype]
     log(f"  BERT-base pretraining ({n_params} parameters, {len(params)} "
-        f"tensors), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MASKS} masks "
+        f"tensors), batch {batch} x {TRAIN_SEQ}, {TRAIN_MASKS} masks "
         f"per sequence, dropout {cfg.hidden_dropout_prob}/"
         f"{cfg.attention_probs_dropout_prob}")
     log(f"  losses: {[round(x, 5) for x in losses]}")
     log(f"  learning rates: {lrs}")
     log(f"  step times (s): {[round(x, 4) for x in step_s]}")
     log(f"  training step: median of steps 3-{TRAIN_STEPS} {steady * 1e3:.2f} "
-        f"ms, {TRAIN_BATCH / steady:.2f} sequences/s, {tokens / steady:.1f} "
+        f"ms, {batch / steady:.2f} sequences/s, {tokens / steady:.1f} "
         f"tokens/s; peak device memory {peak_gib:.2f} GiB")
-    log(f"  launches over {TRAIN_STEPS} steps: {launches}")
+    log(f"  model FLOPs a step {flops / 1e12:.3f} TFLOP (bench.py's count):"
+        f" {flops / steady / 1e12:.1f} TFLOP/s, "
+        f"{100 * flops / steady / peak:.2f} % of the {peak_dtype} peak "
+        f"{peak / 1e12:.0f} TFLOP/s")
+    log(f"  launches over {TRAIN_STEPS} steps: {launches}; by dtype "
+        f"{by_dtype}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     fallbacks = {k: v for k, v in routes.items() if k[2] == "fallback"}
     check(not fallbacks, f"route fallbacks on the training path: "
                          f"{fallbacks}")
-    for name, n in launches.items():
-        per_step = expected.get(name, 0)
-        check(n == per_step * TRAIN_STEPS,
-              f"{name}: {n} launches in {TRAIN_STEPS} steps, expected "
-              f"{per_step} per step")
+    check_launches(kernels, expected, TRAIN_STEPS, dtypes)
+    fluid.sync_prepared_state(scope)
+    kinds = {str(scope.find_var(p.name).dtype) for p in params}
+    check(kinds == {"torch.float32"}, f"parameters left float32: {kinds}")
     if schedule is not None:
         lr_err = max(abs(lr - schedule(i)) / PEAK_LR
                      for i, lr in enumerate(lrs))
@@ -1922,20 +2020,29 @@ def train_phase(torch, np, cfg, build, expected, schedule=None):
             f"(tolerance {TOL_LR:.0e})")
         check(lr_err <= TOL_LR, f"the LR does not follow the schedule: {lrs}")
     profile = profile_step(torch, step, steady * 1e3)
+    result = {"losses": losses, "lrs": lrs, "step_s": step_s,
+              "step_ms_median_3_10": steady * 1e3,
+              "sequences_per_s": batch / steady,
+              "tokens_per_s": tokens / steady, "batch": batch,
+              "model_tflop_per_step": flops / 1e12,
+              "peak_share": flops / steady / peak, "peak_dtype": peak_dtype,
+              "parameters": n_params, "peak_gib": peak_gib,
+              "launches_by_dtype": {f"{n}/{dt}": c
+                                    for (n, dt), c in by_dtype.items()},
+              "profile": profile}
+    if first is not None:
+        result["executor_run_loss"] = first
     del prepared, scope
-    return launches, {"losses": losses, "lrs": lrs, "step_s": step_s,
-                      "step_ms_median_3_10": steady * 1e3,
-                      "sequences_per_s": TRAIN_BATCH / steady,
-                      "tokens_per_s": tokens / steady,
-                      "parameters": n_params, "peak_gib": peak_gib,
-                      "profile": profile}
+    return launches, result
 
 
-def train_plain_phase(torch, np, cfg, build, expected):
+def train_plain_phase(torch, np, cfg, build, expected, batch=TRAIN_BATCH,
+                      tol_loss=TOL_TRAIN_LOSS, tol_grad=TOL_TRAIN_GRAD):
     """Dropout 0: PLAIN_STEPS steps of ``build``'s program through
     Executor.run with every kernel on (each launched ``expected`` times
     per step), and again with every kernel flag off, from the same
-    startup; losses and step-1 grads agree."""
+    startup; losses agree within ``tol_loss`` (relative) and step-1 grads
+    within ``tol_grad`` of max|grad|."""
     import dataclasses
     from paddle_tpu_torch import flags, fluid
     from paddle_tpu_torch.models import bert
@@ -1944,7 +2051,7 @@ def train_plain_phase(torch, np, cfg, build, expected):
                                attention_probs_dropout_prob=0.0)
     program, startup, total, _ = build(cfg0)
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg0,
-                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+                                batch, TRAIN_SEQ, TRAIN_MASKS)
     grad_names = [p.name + "@GRAD" for p in program.all_parameters()]
 
     def run(kernels_on):
@@ -1983,13 +2090,12 @@ def train_plain_phase(torch, np, cfg, build, expected):
     log(f"  dropout 0, {PLAIN_STEPS} steps: losses kernels "
         f"{[round(x, 6) for x in k_losses]} vs plain "
         f"{[round(x, 6) for x in p_losses]}: max relative Δ {loss_err:.3e} "
-        f"(tolerance {TOL_TRAIN_LOSS:.0e}); step-1 grads: max |Δ| / "
-        f"max|grad| {grad_err:.3e} at {worst} (tolerance "
-        f"{TOL_TRAIN_GRAD:.0e})")
-    check(loss_err <= TOL_TRAIN_LOSS, "training loss: kernels disagree with "
-                                      "the plain path")
-    check(grad_err <= TOL_TRAIN_GRAD, f"step-1 grad of {worst}: kernels "
-                                      f"disagree with the plain path")
+        f"(tolerance {tol_loss:.0e}); step-1 grads: max |Δ| / "
+        f"max|grad| {grad_err:.3e} at {worst} (tolerance {tol_grad:.0e})")
+    check(loss_err <= tol_loss, "training loss: kernels disagree with the "
+                                "plain path")
+    check(grad_err <= tol_grad,
+          f"step-1 grad of {worst}: kernels disagree with the plain path")
     return {"plain_losses": p_losses, "kernel_losses": k_losses,
             "loss_max_rel": loss_err, "grad_max_rel": grad_err,
             "grad_worst": worst}
@@ -1998,6 +2104,285 @@ def train_plain_phase(torch, np, cfg, build, expected):
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase 12: bf16 mixed-precision pretraining at BERT-base width
+# ---------------------------------------------------------------------------
+
+
+def model_flops_per_step(cfg, batch, seq, num_masks):
+    """bench.py's analytic count of one step's matrix-product FLOPs (2 a
+    multiply-add; the backward twice the forward): the encoder's
+    projections and FFN, attention's two S^2 products, the masked-LM and
+    pooler heads."""
+    d, ff = cfg.hidden_size, cfg.intermediate_size
+    tokens = batch * seq
+    per_layer = 2 * tokens * (d * 3 * d + d * d + 2 * d * ff)
+    attn = 2 * batch * cfg.num_attention_heads * seq * seq * \
+        (d // cfg.num_attention_heads) * 2
+    heads = 2 * (batch * num_masks) * d * cfg.vocab_size + 2 * batch * d * d
+    return 3 * (cfg.num_hidden_layers * (per_layer + attn) + heads)
+
+
+def amp_dtypes(expected):
+    """The operand dtype of each kernel of the bf16 program: the flash
+    kernels take the bf16 Q, K, V; LayerNorm (black list), bias+GELU (its
+    inputs cast back) and Adam (float32 master weights) stay float32."""
+    return {name: "bfloat16" if name.startswith("flash_attention")
+            else "float32" for name in expected}
+
+
+def bench_style_ms(torch, np, cfg, build, batch):
+    """bench.py's timing of its headline configuration, on the port:
+    ``build(cfg)``'s program from its startup on a ``batch`` x TRAIN_SEQ
+    batch, one synced ``Executor.run``, then AMP_BENCH_STEPS runs with the
+    feeds on the card and the fetches left there, one sync at the end."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    program, startup, total, _ = build(cfg)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg, batch,
+                                TRAIN_SEQ, TRAIN_MASKS)
+    scope = fluid.Scope()
+    exe = fluid.Executor()                       # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    feed_dev = {k: torch.as_tensor(v, device=exe.device)
+                for k, v in feed.items()}
+    loss = float(exe.run(program, feed=feed_dev, fetch_list=[total],
+                         scope=scope)[0])
+    check(math.isfinite(loss), f"bench-style warm-up loss {loss}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AMP_BENCH_STEPS):
+        out, = exe.run(program, feed=feed_dev, fetch_list=[total],
+                       scope=scope, return_numpy=False)
+    last = float(out)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / AMP_BENCH_STEPS
+    check(math.isfinite(last), f"bench-style loss {last}")
+    del scope
+    log(f"  bench.py's measure ({AMP_BENCH_STEPS} Executor.run steps, "
+        f"device-resident feeds and fetches, one sync): {dt * 1e3:.2f} ms "
+        f"a step, {batch / dt:.2f} samples/s")
+    return {"bench_style_step_ms": dt * 1e3,
+            "bench_style_samples_per_s": batch / dt}
+
+
+def scale_replay(np, bad_steps, steps, scale, incr_every, decr_every, incr,
+                 decr):
+    """The dynamic loss-scale policy on the host, one step at a time:
+    (scale, good, bad) after each step, the scale in float32."""
+    good = bad = 0
+    scale = np.float32(scale)
+    out = []
+    for i in range(steps):
+        if i + 1 in bad_steps:
+            good, bad = 0, bad + 1
+        else:
+            good, bad = good + 1, 0
+        if good >= incr_every:
+            scale, good = np.float32(scale * np.float32(incr)), 0
+        elif bad >= decr_every:
+            scale = max(np.float32(scale * np.float32(decr)), np.float32(1.0))
+            bad = 0
+        out.append((float(scale), good, bad))
+    return out
+
+
+def build_amp_mlp(fluid):
+    """tests/test_amp.py's two-layer MLP under fp16 ``decorate(SGD(0.1))``
+    with a fast policy (grow after 3 good steps, back off after 2 bad)."""
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
+    from paddle_tpu_torch.framework import unique_name
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[16])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        const = fluid.initializer.Constant(0.02)
+        h = fluid.layers.fc(x, 32, act="relu", bias_attr=False,
+                            param_attr=fluid.ParamAttr(name="w1",
+                                                       initializer=const))
+        logits = fluid.layers.fc(h, 4, bias_attr=False,
+                                 param_attr=fluid.ParamAttr(
+                                     name="w2", initializer=const))
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        decorate(fluid.optimizer.SGD(0.1), use_pure_bf16=False,
+                 incr_every_n_steps=AMP_INCR_EVERY,
+                 decr_every_n_nan_or_inf=AMP_DECR_EVERY).minimize(loss)
+    return main, startup, loss
+
+
+def fp16_scaling_leg(torch, np):
+    """Leg (c): fp16 loss scaling on the card.  The MLP trains
+    AMP_FP16_STEPS steps through prepare(donate_state=True) on feeds
+    already on the card, steps AMP_INF_STEPS carrying an inf; steps after
+    the first run with host syncs made errors.  Those steps' gradients
+    are zeroed and the weights stay; scale and counters equal the host
+    replay every step.  Then BERT-base under fp16 ``decorate`` is refused
+    on its first step with the flash gate's dtype reason."""
+    from paddle_tpu_torch import fluid
+    main, startup, loss = build_amp_mlp(fluid)
+    state = ["loss_scaling_0", "good_steps_0", "bad_steps_0"]
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    dev = exe.device
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    xs = rng.randn(16, 16).astype(np.float32)
+    ys = rng.randint(0, 4, (16, 1)).astype(np.int64)
+    feeds = []
+    for i in range(AMP_FP16_STEPS):
+        x = xs.copy()
+        if i + 1 in AMP_INF_STEPS:
+            x[3, 5] = np.inf
+        feeds.append({"x": torch.from_numpy(x).to(dev),
+                      "label": torch.from_numpy(ys).to(dev)})
+    step = exe.prepare(main, fetch_list=[loss, "w2@GRAD", "w2"] + state,
+                       scope=scope, donate_state=True)
+    replay = scale_replay(np, AMP_INF_STEPS, AMP_FP16_STEPS, 2.0 ** 15,
+                          AMP_INCR_EVERY, AMP_DECR_EVERY, 2.0, 0.8)
+    w_before = scope.find_var("w2").cpu().numpy().copy()
+    got = []
+    for i, f in enumerate(feeds):
+        torch.cuda.synchronize()
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            handles = step.run(f)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        l, g, w, sc, good, bad = (h.numpy() for h in handles)
+        got.append((float(sc[0]), int(good[0]), int(bad[0])))
+        if i + 1 in AMP_INF_STEPS:
+            check(not np.isfinite(l).all(), f"step {i + 1}: finite loss")
+            check(not g.any(), f"step {i + 1}: gradients not zeroed")
+            check(np.array_equal(w, w_before),
+                  f"step {i + 1}: the weights moved on an overflow")
+        else:
+            check(np.isfinite(l).all() and g.any(),
+                  f"step {i + 1}: loss {l}, gradient all zero")
+            check(not np.array_equal(w, w_before),
+                  f"step {i + 1}: the weights did not move")
+        w_before = w.copy()
+    log(f"  fp16 MLP, {AMP_FP16_STEPS} steps, inf at steps "
+        f"{list(AMP_INF_STEPS)}: (scale, good, bad) {got}; host replay "
+        f"{replay}")
+    check(got == replay, "the loss-scale state differs from the replay")
+    check(got[AMP_INF_STEPS[-1] - 1][0] == float(
+        np.float32(np.float32(2.0 ** 16) * np.float32(0.8))),
+          "the scale did not back off once by 0.8")
+    del step, scope
+    return {"fp16_scale_state": got,
+            "fp16_bert_refused": fp16_bert_refusal(np)}
+
+
+def fp16_bert_refusal(np):
+    """BERT-base under fp16 ``decorate``: its first step raises the flash
+    gate's ``UnimplementedError`` (``dtype:torch.float16``) on the card,
+    the no-fallback rule on the one dtype the kernels do not take."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
+    from paddle_tpu_torch.framework.errors import UnimplementedError
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BertConfig.base()
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        decorate(fluid.optimizer.Adam(PEAK_LR),
+                 use_pure_bf16=False).minimize(total)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg, 2,
+                                TRAIN_SEQ, TRAIN_MASKS)
+    refused = None
+    try:
+        exe.run(main, feed=feed, fetch_list=[total], scope=scope)
+    except Exception as e:          # what is raised is checked below
+        refused = e
+    cause = getattr(refused, "cause", refused)
+    check(isinstance(cause, UnimplementedError)
+          and "dtype:torch.float16" in str(cause),
+          f"fp16 BERT-base was not refused by the flash gate: {refused!r}")
+    log(f"  fp16 BERT-base refused on its first step: "
+        f"{str(cause).splitlines()[0][:160]}")
+    return str(cause)[:300]
+
+
+def bf16_bias_check(torch):
+    """BERT's padding bias ``mask * 1e4 - 1e4`` through the port's
+    ``scale`` op on a bf16 tensor on the card: 0 and -9984 exactly, as the
+    JAX package's weak-typed scalars give (a float32 scalar met in float32
+    arithmetic would leave -16 where the mask keeps a key)."""
+    from paddle_tpu_torch.ops import registry
+    mask = torch.tensor([[0.0, 1.0, 1.0, 0.0]], dtype=torch.bfloat16,
+                        device="cuda")
+    out = registry.get_op("scale")(registry.LoweringContext(
+        device=mask.device), {"X": [mask]}, {"scale": 1e4, "bias": -1e4})
+    got = out["Out"].float().cpu().tolist()[0]
+    log(f"  bf16 padding bias on the card: {got}")
+    check(got == [-9984.0, 0.0, 0.0, -9984.0],
+          f"bf16 padding bias {got}, expected 0 and -9984")
+
+
+def amp_kernel_rows(torch, per_kernel):
+    """#1 and the #2 + #3 pair in bf16 at leg (a)'s shape, as phase 6
+    times them: kernel, twin, SDPA / the library's backward at the same
+    dropout, bounds."""
+    log(f"  #1 and the #2 + #3 pair in bf16 at the main-path shape (B"
+        f"{AMP_BATCH} H12 S{TRAIN_SEQ} D64, padding bias, dropout "
+        f"{DROPOUT})")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    seed = torch.tensor([SEED + 12], dtype=torch.int32, device=dev)
+    flash_training_rows(torch, per_kernel, gen, seed, "bfloat16", AMP_BATCH,
+                        TRAIN_SEQ, ("padding-bias",))
+
+
+def amp_phase(torch, np, cfg, per_kernel, fused_step_ms):
+    """Phase 12's three legs; returns (launches of leg (a)'s prepared
+    steps, of leg (b)'s, the report)."""
+    log(f"  (a) bench.py's configuration: decorate(Adam({PEAK_LR}), "
+        f"use_pure_bf16=True), batch {AMP_BATCH} x {TRAIN_SEQ}, "
+        f"{TRAIN_MASKS} masks, dropout {DROPOUT}")
+    expected = TRAIN_LAUNCHES
+
+    def build(c):
+        return build_train(c, amp=True)
+    launches, report = train_phase(
+        torch, np, cfg, build, expected, batch=AMP_BATCH,
+        dtypes=amp_dtypes(expected), run_first=True)
+    report.update(bench_style_ms(torch, np, cfg, build, AMP_BATCH))
+    log(f"  (a) prepared step {report['step_ms_median_3_10']:.2f} ms "
+        f"({report['sequences_per_s']:.1f} samples/s), bench.py's measure "
+        f"{report['bench_style_step_ms']:.2f} ms "
+        f"({report['bench_style_samples_per_s']:.1f} samples/s); "
+        f"{100 * report['peak_share']:.2f} % of the "
+        f"{report['peak_dtype']} peak")
+    bf16_bias_check(torch)
+    report.update(train_plain_phase(
+        torch, np, cfg, build, expected, batch=AMP_BATCH,
+        tol_loss=TOL_AMP_PLAIN, tol_grad=TOL_AMP_GRAD))
+    log(f"  (b) the published recipe in bf16: phase 8's program with the "
+        f"optimizer under decorate, batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    fused_launches, fused = train_phase(
+        torch, np, cfg, lambda c: build_fused_train(c, amp=True),
+        FUSED_LAUNCHES, schedule=scheduled_lr,
+        dtypes=amp_dtypes(FUSED_LAUNCHES))
+    log(f"  (b) step {fused['step_ms_median_3_10']:.2f} ms in bf16 beside "
+        f"phase 8's {fused_step_ms:.2f} ms in float32 (this run)")
+    log("  (c) fp16 loss scaling on the card")
+    scaling = fp16_scaling_leg(torch, np)
+    amp_kernel_rows(torch, per_kernel)
+    return launches, fused_launches, {
+        "bench_config": report, "recipe_bf16": fused,
+        "recipe_fp32_step_ms": fused_step_ms, "fp16_scaling": scaling}
 
 
 # ---------------------------------------------------------------------------
@@ -2574,7 +2959,12 @@ def kernels_line(per_kernel, launches_by_path):
     rows' extra bounds, and the flash backward its library call and
     float64 witness.  The flash forward and the LayerNorm forward carry
     their launches on the paged decode path (phase 11, ``decode_launches``)
-    and the flash forward its decode-step and chunk rows."""
+    and the flash forward its decode-step and chunk rows.  Kernels of the
+    bf16 programs (phase 12) carry ``amp_launches`` (leg (a)'s 10 prepared
+    steps) and ``amp_fused_launches`` (leg (b)'s), the three flash
+    kernels their bf16 row at that path's shape (``amp``: B96 S128,
+    dropout 0.1) and the LayerNorm forward and backward their float32
+    rows there (``amp``: R 12,288 and 1,920)."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     out = []
@@ -2601,13 +2991,34 @@ def kernels_line(per_kernel, launches_by_path):
             entry["launches_by_path"] = {
                 p: launches_by_path[p].get(name, 0)
                 for p in ("served", "unfused", "train", "fused_train",
-                          "decode")}
+                          "decode", "amp", "amp_fused")}
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
-                      "decode"):
+                      "decode", "amp", "amp_fused"):
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name in per_kernel.get("quant_step", {}):
             entry["step_13_launches"] = per_kernel["quant_step"][name]
+        if name.startswith("flash_attention"):
+            # the bf16 program's shape (phase 12): B96 S128, dropout 0.1
+            rows_of = "flash_attention_fwd_dropout" \
+                if name == "flash_attention_fwd" else name
+            amp_row = [r for r in per_kernel[rows_of]
+                       if r["dtype"] == "bfloat16"
+                       and r["shape"][0] == AMP_BATCH
+                       and r["shape"][5] == f"dropout {DROPOUT}"][0]
+            entry["amp"] = {k: amp_row[k] for k in (
+                "shape", "dtype", "ms", "plain_ms", "library_ms",
+                "library_dq_dk_dv_ms", "bound_ms", "bound_by",
+                "max_abs_err") if k in amp_row}
+        if name in ("layer_norm_fwd", "layer_norm_bwd"):
+            # the bf16 program's float32 LayerNorms: B96 x 128 and x 20 rows
+            entry["amp"] = [{k: r[k] for k in (
+                "shape", "dtype", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "max_abs_err")}
+                for r in rows if r["shape"][0] in AMP_LN_ROWS
+                and r["shape"][1] == 768 and "case" not in r]
+            check(len(entry["amp"]) == len(AMP_LN_ROWS),
+                  f"{name}: no float32 row at the bf16 program's rows")
         if name == "flash_attention_fwd":
             drop = [r for r in per_kernel["flash_attention_fwd_dropout"]
                     if r["dtype"] == "float32"][0]
@@ -2722,24 +3133,32 @@ def main(argv=None) -> int:
         log("phase 11: paged-KV decode at BERT-base width through "
             "DecodeEngine.generate")
         decoded, decode = decode_phase(torch, np, per_kernel)
+
+        log("phase 12: bf16 mixed-precision pretraining at BERT-base width "
+            "(contrib.mixed_precision.decorate)")
+        amp, amp_fused, amp_report = amp_phase(
+            torch, np, base, per_kernel,
+            fused_training["step_ms_median_3_10"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
 
-    log(f"phase 12: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 13: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
     log("data_parallel " + json.dumps({"ranks": dp_ranks,
                                        "parity": dp_parity}))
     log("decode " + json.dumps(decode))
+    log("amp " + json.dumps(amp_report))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
         "fused_train": fused, "dp_int8": dp_ranks[0]["int8"]["launches"],
-        "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded})))
+        "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded,
+        "amp": amp, "amp_fused": amp_fused})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,10 @@ strategy's bucketing and wire tier).  ``fleet.main_program`` is what each
 rank runs, on ``fleet.place``.
 
 The plain data-parallel path is ported: bucketed or per-leaf gradient
-sync, the bf16 cast tier and the int8/int4 blockwise-quantized tiers.  A
-strategy flag whose path is not ported (amp, recompute, gradient_merge,
+sync, the bf16 cast tier and the int8/int4 blockwise-quantized tiers,
+and mixed precision (``amp``: the inner optimizer wrapped by
+``contrib.mixed_precision.decorate`` from ``amp_configs``).  A
+strategy flag whose path is not ported (recompute, gradient_merge,
 localsgd, lamb, sharding / sharded_update, tensor_parallel, pipeline,
 auto_shard, overlap_grad_sync, use_dgc, hierarchical all-reduce, an
 explicit mesh) raises :class:`UnimplementedError` naming it; none is
@@ -186,8 +188,9 @@ class UserDefinedRoleMaker(RoleMakerBase):
 class DistributedStrategy:
     """Every field of the JAX package's strategy.  Ported paths:
     ``fuse_all_reduce_ops`` / ``fuse_grad_size_in_MB`` (bucketing),
-    ``bf16_allreduce``, ``quant_allreduce`` / ``quant_configs`` and
-    ``build_strategy``; any other flag set raises at ``minimize``."""
+    ``bf16_allreduce``, ``quant_allreduce`` / ``quant_configs``, ``amp``
+    / ``amp_configs`` and ``build_strategy``; any other flag set raises
+    at ``minimize``."""
 
     def __init__(self):
         self.amp = False
@@ -238,7 +241,6 @@ class DistributedStrategy:
 
 #: strategy flags whose paths are not ported, with what each needs
 _UNPORTED = (
-    ("amp", "mixed precision (contrib.mixed_precision)"),
     ("recompute", "recompute checkpoints in the executor"),
     ("gradient_merge", "GradientMergeOptimizer"),
     ("localsgd", "LocalSGDOptimizer and local_sgd_sync"),
@@ -433,17 +435,36 @@ class CollectiveOptimizer:
                 build.allreduce_compress_dtype = "bfloat16"
         return build
 
+    def _wrapped(self):
+        """The inner optimizer, wrapped by the strategy's meta-optimizers
+        as the JAX package wraps it: ``decorate`` for ``amp``."""
+        s = self._strategy
+        optimizer = self._inner
+        if s.amp:
+            from ..contrib.mixed_precision import decorate
+            optimizer = decorate(
+                optimizer,
+                init_loss_scaling=s.amp_configs.get("init_loss_scaling",
+                                                    2.0 ** 15),
+                use_dynamic_loss_scaling=s.amp_configs.get(
+                    "use_dynamic_loss_scaling", True),
+                use_pure_bf16=s.amp_configs.get("use_pure_bf16", True))
+        return optimizer
+
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        """The inner optimizer's backward and update ops, then — with
-        more than one worker — the data-parallel compile over the process
-        group (``fleet.main_program``)."""
+        """The (wrapped) inner optimizer's backward and update ops, then —
+        with more than one worker — the data-parallel compile over the
+        process group (``fleet.main_program``): the gradient sync goes
+        right after the ``backward`` op, ahead of an AMP program's
+        ``check_finite_and_unscale``, so every rank sees the same
+        overflow verdict."""
         fleet._ensure_init()
         s = self._strategy
         fleet._strategy = s
         _refuse_unported(s)
         self._validate(s)
-        opt_ops, params_grads = self._inner.minimize(
+        opt_ops, params_grads = self._wrapped().minimize(
             loss, startup_program, parameter_list, no_grad_set)
         program = loss.block.program
         fleet._origin_program = program

@@ -542,8 +542,14 @@ def device_for(place: Place):
                 f"{place!r}: only {torch.cuda.device_count()} CUDA "
                 f"device(s) present")
         # float32 matrix products stay full float32 on the card (no TF32),
-        # as the XLA dots of the JAX package do — stated, not assumed
+        # and bf16 / fp16 products accumulate in float32 throughout (no
+        # reduced-precision split-K reduction), as the XLA dots of the JAX
+        # package do — stated, not assumed
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+            False
         return torch.device("cuda", place.device_id)
     raise TypeError(f"unsupported place {place!r}")
 

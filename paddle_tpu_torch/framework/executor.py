@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 import weakref
 from typing import Any, Dict, List, Optional
 
@@ -226,10 +227,6 @@ def _refuse_unported(bw_op):
         raise UnimplementedError(
             f"backward: pipeline attrs {sorted(pipe)} — pipeline "
             f"parallelism comes with the multi-GPU slice")
-    if attrs.get("loss_scale_var"):
-        raise UnimplementedError(
-            "backward: dynamic loss scaling (loss_scale_var, AMP) is not "
-            "ported yet")
     if attrs.get("guard_scale") or "@GUARD_SCALE@" in \
             bw_op.block.program.global_block().vars:
         raise UnimplementedError(
@@ -241,18 +238,30 @@ def run_training_block(ops, env, ctx, bw_idx):
     autograd with the parameters as leaf tensors, ``param@GRAD`` from
     ``torch.autograd.grad`` of ``loss.sum() * loss_scale`` (zeros for a
     parameter the loss does not reach), ``loss@GRAD`` = ones, then the
-    update ops without autograd on the original parameter tensors."""
+    update ops without autograd on the original parameter tensors.
+
+    A ``loss_scale_var`` (the AMP decorator's dynamic loss scale) also
+    multiplies the summed loss, detached, as the JAX package's
+    ``stop_gradient`` does: the gradients come back scaled, and the
+    ``check_finite_and_unscale`` op after the backward unscales them.
+    The backward reaches a parameter through its cast ops whatever their
+    ``stop_gradient`` flag (autograd never reads it), so an AMP program's
+    float32 master weights get float32 gradients."""
     bw_op = ops[bw_idx]
     _refuse_unported(bw_op)
     param_names = list(bw_op.attrs["param_names"])
     loss_name = bw_op.attrs["loss_name"]
     loss_scale = float(bw_op.attrs.get("loss_scale", 1.0))
+    scale_var = bw_op.attrs.get("loss_scale_var")
     originals = {n: env[n] for n in param_names}
     leaves = [env[n].detach().requires_grad_(True) for n in param_names]
     env.update(zip(param_names, leaves))
     with torch.enable_grad():
         run_ops(ops[:bw_idx], env, ctx)
         total = env[loss_name].sum() * loss_scale
+        if scale_var:
+            total = total * env[scale_var].reshape(()).detach().to(
+                total.dtype)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
     for k, v in env.items():
         if isinstance(v, torch.Tensor) and v.requires_grad:
@@ -355,12 +364,21 @@ def run_block(ops, env, ctx):
         return run_ops(ops, env, ctx)
 
 
+def _reads(op) -> List[str]:
+    """The names ``op`` reads: its inputs, and a ``backward`` op's
+    ``loss_scale_var`` attr."""
+    names = op.input_names()
+    if op.type == "backward" and op.attrs.get("loss_scale_var"):
+        names = names + [op.attrs["loss_scale_var"]]
+    return names
+
+
 def external_inputs(program: Program) -> List[str]:
     """Names the global block reads before any op of it writes them — the
     feeds and the persistable state a run needs from outside."""
     written, needed = set(), []
     for op in program.global_block().ops:
-        for n in op.input_names():
+        for n in _reads(op):
             if n not in written and n not in needed:
                 needed.append(n)
         written.update(op.output_names())
@@ -418,14 +436,16 @@ def _is_persistable(program: Program, name: str) -> bool:
 class FetchHandle:
     """Lazy fetch result: holds the tensor a prepared step produced and
     synchronises only on the first host read (``numpy()``/``__array__``).
-    The host value is cached, so repeated reads sync once."""
+    The host value is cached, so repeated reads sync once; with a
+    ``stats`` dict that read's wait is added to its ``fetch_wait_ns``."""
 
-    __slots__ = ("name", "_value", "_host", "_event")
+    __slots__ = ("name", "_value", "_host", "_stats", "_event")
 
-    def __init__(self, value, name=None, event=None):
+    def __init__(self, value, name=None, stats=None, event=None):
         self.name = name
         self._value = value
         self._host = None
+        self._stats = stats
         self._event = event
 
     @property
@@ -439,7 +459,10 @@ class FetchHandle:
 
     def numpy(self):
         if self._host is None:
+            t0 = time.perf_counter_ns()
             self._host = self._value.detach().cpu().numpy()
+            if self._stats is not None:
+                self._stats["fetch_wait_ns"] += time.perf_counter_ns() - t0
         return self._host
 
     def __array__(self, dtype=None, copy=None):
@@ -497,7 +520,7 @@ class PreparedStep:
         self._written = [n for n in dict.fromkeys(
             n for op in self._ops for n in op.output_names())
             if _is_persistable(program, n)]
-        self.stats = {"steps": 0}
+        self.stats = {"steps": 0, "fetch_wait_ns": 0}
         if donate_state:
             if not hasattr(scope, "_prepared"):
                 scope._prepared = weakref.WeakSet()
@@ -576,7 +599,8 @@ class PreparedStep:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
         handles = [FetchHandle(merge_fetch(self._dp, env[n],
-                                           n in self._replicated), n, event)
+                                           n in self._replicated), n,
+                               self.stats, event)
                    for n in self._fetch_names]
         if return_numpy:
             return [h.numpy() for h in handles]
@@ -594,7 +618,12 @@ class Executor:
 
     def run(self, program: Optional[Program] = None, feed=None,
             fetch_list=None, scope: Optional[Scope] = None,
-            return_numpy: bool = True):
+            return_numpy: bool = True, use_prune: bool = False):
+        """Run ``program`` once and return the fetches.  ``use_prune`` is
+        the JAX package's keyword: there it prunes a program that drains
+        py_readers to its fetch targets, and changes nothing for any
+        other program.  The port has no py_readers yet, so it changes
+        nothing here."""
         program = program or default_main_program()
         scope = scope or global_scope()
         sync_prepared_state(scope)

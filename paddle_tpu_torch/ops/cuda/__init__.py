@@ -10,7 +10,8 @@ called through ``ctypes`` by a Python wrapper that:
   launches the kernel on a CUDA tensor or raises — there is no fallback;
 * allocates the outputs, checks device, dtype, shape and contiguity, and
   raises on a non-zero return code (a refused launch);
-* adds one to its entry in :data:`LAUNCHES` each time it launches.
+* adds one to its entry in :data:`LAUNCHES`, under the dtype of its
+  operands, each time it launches (:func:`count_launch`).
 
 Every kernel with a backward is called through a
 ``torch.autograd.Function`` whose backward is a kernel too (flash
@@ -21,38 +22,54 @@ import time."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
-#: launches per kernel wrapper since the last :func:`reset_launch_counts`
-#: (plain integers; only a real kernel launch counts, never a plain run)
-LAUNCHES: Dict[str, int] = {
-    "flash_attention_fwd": 0,
-    "flash_attention_bwd_dq": 0,
-    "flash_attention_bwd_dkv": 0,
-    "layer_norm_fwd": 0,
-    "layer_norm_bwd": 0,
-    "add_layer_norm_fwd": 0,
-    "add_layer_norm_bwd": 0,
-    "bias_gelu_fwd": 0,
-    "bias_gelu_bwd": 0,
-    "adam": 0,
-    "dequant_accumulate": 0,
-    "dequant_accumulate_requant": 0,
-}
+#: launches per kernel wrapper and dtype of its operands since the last
+#: :func:`reset_launch_counts`, e.g. ``LAUNCHES["flash_attention_fwd"]
+#: ["bfloat16"]`` (only a real kernel launch counts, never a plain run)
+LAUNCHES: Dict[str, Dict[str, int]] = {name: {} for name in (
+    "flash_attention_fwd",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dkv",
+    "layer_norm_fwd",
+    "layer_norm_bwd",
+    "add_layer_norm_fwd",
+    "add_layer_norm_bwd",
+    "bias_gelu_fwd",
+    "bias_gelu_bwd",
+    "adam",
+    "dequant_accumulate",
+    "dequant_accumulate_requant",
+)}
 
 #: dtype codes understood by the C entry points (csrc/common.cuh PtDtype)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def count_launch(name: str, dtype: torch.dtype):
+    """One launch of kernel wrapper ``name`` on operands of ``dtype``."""
+    by_dtype = LAUNCHES[name]
+    key = str(dtype).replace("torch.", "")
+    by_dtype[key] = by_dtype.get(key, 0) + 1
+
+
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for by_dtype in LAUNCHES.values():
+        by_dtype.clear()
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    """Launches per kernel wrapper, whatever the dtype."""
+    return {name: sum(by_dtype.values())
+            for name, by_dtype in LAUNCHES.items()}
+
+
+def launch_counts_by_dtype() -> Dict[Tuple[str, str], int]:
+    """Launches per (kernel wrapper, dtype of its operands)."""
+    return {(name, dt): n for name, by_dtype in LAUNCHES.items()
+            for dt, n in by_dtype.items()}
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

@@ -37,8 +37,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import (LAUNCHES, check_cuda, dtype_code, needs_grad, raise_on_error,
-               require_cuda, stream_handle)
+from . import (check_cuda, count_launch, dtype_code, needs_grad,
+               raise_on_error, require_cuda, stream_handle)
 from .build import function
 
 NEG_INF = -1e30
@@ -336,7 +336,7 @@ def flash_fwd(q, k, v, bias: Optional[torch.Tensor] = None,
             int(bool(causal)), 1.0 / math.sqrt(d), seed_ptr, threshold,
             inv_keep, stream_handle(q.device))
     raise_on_error("flash_fwd", rc)
-    LAUNCHES["flash_attention_fwd"] += 1
+    count_launch("flash_attention_fwd", q.dtype)
     return o, lse
 
 
@@ -379,7 +379,7 @@ def flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal=False,
             sq, k.shape[1], d, ratio, int(bool(causal)), 1.0 / math.sqrt(d),
             seed_ptr, threshold, inv_keep, stream_handle(q.device))
     raise_on_error("flash_bwd_dkv", rc)
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    count_launch("flash_attention_bwd_dkv", q.dtype)
     return dk, dv, ds
 
 
@@ -401,7 +401,7 @@ def flash_bwd_dq(q, k, v, bias, do, lse, delta, causal=False,
             1.0 / math.sqrt(d), seed_ptr, threshold, inv_keep,
             stream_handle(q.device))
     raise_on_error("flash_bwd_dq", rc)
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    count_launch("flash_attention_bwd_dq", q.dtype)
     return dq
 
 
@@ -436,7 +436,7 @@ def flash_bwd_dq_ds(k, ds, sq, causal=False):
             dq.data_ptr(), bh, sq, sk, d, int(bool(causal)),
             1.0 / math.sqrt(d), stream_handle(k.device))
     raise_on_error("flash_bwd_dq_ds", rc)
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    count_launch("flash_attention_bwd_dq", k.dtype)
     return dq
 
 

@@ -28,7 +28,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from . import (LAUNCHES, check_cuda, dtype_code, needs_grad,
+from . import (check_cuda, count_launch, dtype_code, needs_grad,
                raise_on_error, require_cuda, stream_handle)
 from .build import function
 
@@ -167,7 +167,7 @@ def _ln_launch(what, counter, a2, b2, scale, bias, eps):
             plan.group_warps, plan.block_warps, plan.blocks, float(eps),
             stream_handle(a2.device))
     raise_on_error(what, rc)
-    LAUNCHES[counter] += 1
+    count_launch(counter, a2.dtype)
     return y
 
 
@@ -285,7 +285,7 @@ def _ln_bwd_launch(what, a2, b2, scale, dy, eps):
             plan.group_warps, plan.rows_per_block, plan.blocks, float(eps),
             stream_handle(a2.device))
     raise_on_error(what, rc)
-    LAUNCHES[what] += 1
+    count_launch(what, a2.dtype)
     return dx, dscale, dbias
 
 
@@ -395,7 +395,7 @@ def bias_gelu_fwd(x2, bias):
     rc = fn(dtype_code(x2, what), x2.data_ptr(), bias.data_ptr(),
             y.data_ptr(), r, d, stream_handle(x2.device))
     raise_on_error(what, rc)
-    LAUNCHES["bias_gelu_fwd"] += 1
+    count_launch("bias_gelu_fwd", x2.dtype)
     return y
 
 
@@ -420,7 +420,7 @@ def bias_gelu_bwd(x2, bias, dy):
             dy.data_ptr(), dx.data_ptr(), db.data_ptr(), partial.data_ptr(),
             r, d, rows_per_block, nblocks, stream_handle(x2.device))
     raise_on_error(what, rc)
-    LAUNCHES["bias_gelu_bwd"] += 1
+    count_launch("bias_gelu_bwd", x2.dtype)
     return dx, db
 
 

@@ -26,7 +26,7 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import LAUNCHES, check_cuda, raise_on_error, require_cuda, \
+from . import check_cuda, count_launch, raise_on_error, require_cuda, \
     stream_handle
 from .build import function
 
@@ -164,7 +164,7 @@ def adam_multi(tensors: Sequence[AdamTensor]) -> None:
         rc = fn(table.ctypes.data, len(run), chunks.data_ptr(),
                 chunks.shape[0], CHUNK, stream)
         raise_on_error(what, rc)
-        LAUNCHES["adam"] += 1
+        count_launch("adam", run[0].p.dtype)
 
 
 def adam(p, g, m, v, lr, beta1_pow, beta2_pow, beta1=0.9, beta2=0.999,

@@ -54,7 +54,7 @@ import torch
 
 from ...framework.errors import UnimplementedError
 from ..quantize_wire import CompressionSpec, quantize_blockwise, unpack_int4
-from . import LAUNCHES, raise_on_error, require_cuda, stream_handle
+from . import count_launch, raise_on_error, require_cuda, stream_handle
 from .build import function
 
 _P = ctypes.c_void_p
@@ -219,7 +219,7 @@ def dequant_accumulate(payload, scales, spec: CompressionSpec,
             sb, spec.payload_cols, int(int4), *plan,
             stream_handle(payload.device))
     raise_on_error(what, rc)
-    LAUNCHES["dequant_accumulate"] += 1
+    count_launch("dequant_accumulate", payload.dtype)
     return out
 
 
@@ -243,5 +243,5 @@ def dequant_accumulate_requant(payload, scales, spec: CompressionSpec,
             s2.data_ptr(), n_peers, sb, spec.payload_cols, float(spec.qmax),
             1.0 / spec.qmax, *plan, stream_handle(payload.device))
     raise_on_error(what, rc)
-    LAUNCHES["dequant_accumulate_requant"] += 1
+    count_launch("dequant_accumulate_requant", payload.dtype)
     return q2, s2

@@ -2,7 +2,14 @@
 BERT serving and pretraining programs use).  Slot names and attribute semantics are the
 reference's.  Matrix products are ``torch.matmul`` — plain products the
 JAX package leaves to XLA stay library calls; on the card they run in full
-float32 (``core.device_for`` turns TF32 off)."""
+float32 (``core.device_for`` turns TF32 off), and in bf16 / fp16 (the
+mixed-precision program) with float32 accumulation and a low-precision
+output, the JAX package's ``preferred_element_type=float32`` then a cast.
+
+A Python scalar attribute (``scale``'s scale and bias, ``matmul``'s
+alpha) meets a bf16 / fp16 tensor as JAX's weak typing has it meet one:
+rounded to the tensor's dtype first (:func:`_weak`), so BERT's padding
+bias ``mask * 1e4 - 1e4`` gives 0 and -9984 in bf16 on every device."""
 
 from __future__ import annotations
 
@@ -51,11 +58,23 @@ def _sum(ctx, ins, attrs):
     return {"Out": out}
 
 
+_LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+def _weak(value, t):
+    """Python scalar ``value`` as it meets tensor ``t`` in the JAX
+    package: rounded to ``t``'s dtype when that is bf16 / fp16 (on the
+    host: no device op)."""
+    if t.dtype in _LOW_PRECISION:
+        return float(torch.tensor(float(value), dtype=t.dtype))
+    return value
+
+
 @register("scale")
 def _scale(ctx, ins, attrs):
     a = x(ins, "X")
-    s = attrs.get("scale", 1.0)
-    b = attrs.get("bias", 0.0)
+    s = _weak(attrs.get("scale", 1.0), a)
+    b = _weak(attrs.get("bias", 0.0), a)
     if attrs.get("bias_after_scale", True):
         return {"Out": a * s + b}
     return {"Out": (a + b) * s}
@@ -94,7 +113,7 @@ def _matmul(ctx, ins, attrs):
     out = torch.matmul(a, b)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
-        out = out * alpha
+        out = out * _weak(alpha, out)
     return {"Out": out}
 
 

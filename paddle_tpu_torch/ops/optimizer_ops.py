@@ -1,5 +1,7 @@
 """Optimizer update ops — the port of paddle_tpu/ops/optimizer_ops.py (sgd,
-adam and adamw; ref: operators/optimizers/sgd_op, adam_op).
+adam and adamw; ref: operators/optimizers/sgd_op, adam_op), and the AMP
+loss-scaling ops ``check_finite_and_unscale`` / ``update_loss_scaling``
+(ref: operators/amp/).
 
 The JAX package returns new arrays (ParamOut, Moment1Out, ...) that the
 executor writes back under the same names.  The port does the same in
@@ -17,7 +19,12 @@ beta2^t) / (1 - beta1^t)``, AdamW's decoupled decay ``lr * coeff * p`` of
 the parameter as it was before the update, and the beta-power updates on
 the device, so no op waits for the host.  An op on its own is a run of
 one.  The lazy ``SparseRows`` branch and an op whose route is turned off
-are plain compositions, as in the JAX package."""
+are plain compositions, as in the JAX package.
+
+The loss-scaling ops are plain tensor compositions, as in the JAX package
+(no Pallas kernel there): they read the overflow verdict and the scale
+state on the device and never wait for the host, and they write their
+``Out`` back under the gradients' own names."""
 
 from __future__ import annotations
 
@@ -151,3 +158,62 @@ def _adamw(ctx, ins, attrs):
     """Adam, then ``ParamOut -= lr * coeff * Param`` with ``Param`` read
     before the update, as the JAX package computes it."""
     return adam_group(ctx, [("adamw", ins, attrs)])[0]
+
+
+# ---------------------------------------------------------------------------
+# AMP loss-scaling ops (ref: operators/amp/)
+# ---------------------------------------------------------------------------
+
+
+def _found_inf(xs, like):
+    """A 0-d bool device tensor: True when any element of ``xs`` is not
+    finite (no host read)."""
+    if not xs:
+        return torch.zeros((), dtype=torch.bool, device=like.device)
+    return ~torch.stack([torch.isfinite(g).all() for g in xs]).all()
+
+
+def _zeroed_if(found_inf, xs):
+    """Every tensor of ``xs``, or zeros of its shape where ``found_inf``."""
+    return [torch.where(found_inf, torch.zeros((), dtype=g.dtype,
+                                               device=g.device), g)
+            for g in xs]
+
+
+@register("check_finite_and_unscale")
+def _check_finite_and_unscale(ctx, ins, attrs):
+    """``Out = X / Scale`` (the scale cast to each gradient's dtype, a
+    true division as the JAX op computes it), all zeros when any element
+    of any ``X`` is not finite; ``FoundInfinite`` is that verdict, a bool
+    on the device."""
+    xs = ins["X"]
+    scale = x(ins, "Scale")
+    found_inf = _found_inf(xs, scale)
+    outs = [g / scale.to(g.dtype) for g in xs]
+    return {"Out": _zeroed_if(found_inf, outs), "FoundInfinite": found_inf}
+
+
+@register("amp_check_finite_and_scale")
+def _amp_check_finite_and_scale(ctx, ins, attrs):
+    return _check_finite_and_unscale(ctx, ins, attrs)
+
+
+@register("update_loss_scaling")
+def _update_loss_scaling(ctx, ins, attrs):
+    """ref: operators/amp/update_loss_scaling_op.h — the dynamic loss
+    scale through :func:`~..framework.guardrails.scale_policy_update`,
+    and ``Out`` = ``X`` zeroed on a found overflow.  The op's own
+    ``decr_ratio`` default is 0.5, as in the JAX op; the AMP decorator
+    passes 0.8."""
+    from ..framework.guardrails import scale_policy_update
+    found_inf = x(ins, "FoundInfinite")
+    new_scale, good_new, bad_new = scale_policy_update(
+        found_inf, x(ins, "PrevLossScaling"), x(ins, "InGoodSteps"),
+        x(ins, "InBadSteps"),
+        incr_every_n_steps=attrs.get("incr_every_n_steps", 1000),
+        decr_every_n_nan_or_inf=attrs.get("decr_every_n_nan_or_inf", 2),
+        incr_ratio=attrs.get("incr_ratio", 2.0),
+        decr_ratio=attrs.get("decr_ratio", 0.5))
+    return {"Out": _zeroed_if(found_inf, ins.get("X", [])),
+            "LossScaling": new_scale, "OutGoodSteps": good_new,
+            "OutBadSteps": bad_new}

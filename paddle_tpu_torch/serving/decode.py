@@ -101,7 +101,9 @@ class DecodeConfig:
     ``pool_blocks=None`` sizes the pool at full occupancy
     (``max_batch_size * max_blocks_per_seq``).  ``hbm_budget_gb`` (sizing
     the pool through the static memory analyzer) is refused: the analyzer
-    is not ported."""
+    is not ported.  ``prefix_reserve_blocks`` (>= 0) is taken and stored
+    as the JAX package takes it; only a budget reads it, so without one
+    it changes nothing there either."""
 
     def __init__(self, block_size: int = 8,
                  max_seq_len: int = 64,
@@ -117,7 +119,8 @@ class DecodeConfig:
                  chain_lengths: Sequence[int] = (1, 4),
                  prefix_cache: bool = True,
                  chunk_tokens: Optional[int] = None,
-                 sampling: bool = False):
+                 sampling: bool = False,
+                 prefix_reserve_blocks: int = 0):
         if hbm_budget_gb is not None:
             raise UnimplementedError(
                 "DecodeConfig(hbm_budget_gb=...): sizing the pool from a "
@@ -162,6 +165,10 @@ class DecodeConfig:
         if self.chunk_tokens is not None and self.chunk_tokens < 1:
             raise InvalidArgumentError("chunk_tokens must be >= 1")
         self.sampling = bool(sampling)
+        self.prefix_reserve_blocks = int(prefix_reserve_blocks)
+        if self.prefix_reserve_blocks < 0:
+            raise InvalidArgumentError(
+                "prefix_reserve_blocks must be >= 0")
 
     @property
     def max_blocks_per_seq(self) -> int:

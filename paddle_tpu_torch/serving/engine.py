@@ -30,7 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..framework.errors import (ExecutionTimeoutError, InvalidArgumentError,
-                                UnavailableError)
+                                UnavailableError, UnimplementedError)
 
 
 def _default_batch_buckets(max_batch_size: int) -> Tuple[int, ...]:
@@ -51,7 +51,11 @@ class ServingConfig:
     (BERT's src_ids/pos_ids/sent_ids/input_mask); ``seq_fetches`` names
     fetches whose axis 1 is sliced back to the request's true length.
     With ``seq_buckets`` empty no sequence padding happens and only
-    requests with identical non-batch dims coalesce."""
+    requests with identical non-batch dims coalesce.
+
+    ``packing``, ``mask_feed`` and ``pack_max_segments`` are taken and
+    checked as the JAX package checks them; ``packing=True`` then raises
+    :class:`UnimplementedError`, since ragged packing is not ported."""
 
     def __init__(self, max_batch_size: int = 8,
                  max_wait_ms: float = 2.0,
@@ -61,6 +65,9 @@ class ServingConfig:
                  seq_fetches: Sequence[str] = (),
                  pad_values: Optional[Dict[str, Any]] = None,
                  timeout_ms: Optional[float] = None,
+                 packing: bool = False,
+                 mask_feed: Optional[str] = None,
+                 pack_max_segments: int = 4,
                  max_inflight_batches: int = 2):
         if max_batch_size < 1:
             raise InvalidArgumentError("max_batch_size must be >= 1")
@@ -83,7 +90,26 @@ class ServingConfig:
                 "engine cannot tell which feeds carry the sequence dim")
         self.pad_values = dict(pad_values or {})
         self.timeout_ms = timeout_ms
+        self.packing = bool(packing)
+        self.mask_feed = mask_feed
+        self.pack_max_segments = int(pack_max_segments)
         self.max_inflight_batches = max(1, int(max_inflight_batches))
+        if self.packing:
+            if not self.seq_buckets:
+                raise InvalidArgumentError(
+                    "packing=True requires seq_buckets — the packed token "
+                    "axis needs a bucket ladder to pack into")
+            if mask_feed is None or mask_feed not in self.seq_feeds:
+                raise InvalidArgumentError(
+                    f"packing=True requires mask_feed (one of seq_feeds "
+                    f"{list(self.seq_feeds)}) — the feed whose trailing "
+                    f"axis carries the one-hot segment channels")
+            if self.pack_max_segments < 1:
+                raise InvalidArgumentError("pack_max_segments must be >= 1")
+            raise UnimplementedError(
+                "ServingConfig(packing=True): ragged sequence packing (the "
+                "serving engine's segment-channel packing) is not ported "
+                "yet; serve with packing=False")
 
     @property
     def bucket_capacity(self) -> int:

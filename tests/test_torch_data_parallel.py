@@ -59,6 +59,8 @@ TOL = {"fp32": 1e-5, "int8": 1e-4, "int4": 1e-4}        # losses
 TOL_PARAM = {"fp32": 1e-5, "int8": 1e-3, "int4": 3e-3}  # persistables
 OFF_SHARE = {"fp32": 0.0, "int8": 5e-3, "int4": 5e-2}   # elements > 1e-5
 TIER_BOUND = {"int8": 5e-2, "int4": 2.5e-1}   # tests/test_grad_comm.py
+AMP_STEPS = 3
+TOL_AMP = 1e-2            # bf16 losses vs the JAX package's (relative)
 
 
 def _cfg():
@@ -70,11 +72,11 @@ def _cfg():
 
 def _jax_run(tier):
     """The JAX package's fleet on a 2-device mesh: the same program, its
-    startup parameters, 5 steps."""
+    startup parameters, 5 steps (3 for ``amp``)."""
     rng = np.random.RandomState(0)
     batches = [jbert.make_fake_batch(rng, _cfg(), batch_size=4,
                                      seq_len=128, num_masks=5)
-               for _ in range(STEPS)]
+               for _ in range(AMP_STEPS if tier == "amp" else STEPS)]
     jun.reset()
     main, startup = jfluid.Program(), jfluid.Program()
     startup.random_seed = 7
@@ -83,7 +85,9 @@ def _jax_run(tier):
         jfleet.init(JRoleMaker(0, 1))
         s = JStrategy()
         s.mesh = Mesh(np.array(jax.devices()[:2]), ("dp",))
-        if tier != "fp32":
+        if tier == "amp":
+            s.amp = True
+        elif tier != "fp32":
             s.quant_allreduce = True
             s.quant_configs = {"dtype": tier, "block_size": 256,
                                "stochastic_rounding": False}
@@ -230,8 +234,63 @@ def test_validate_refuses_a_bad_quant_config():
         CollectiveOptimizer._validate(s)
 
 
+def test_two_ranks_train_in_bf16_amp(runs):
+    """``strategy.amp`` (bf16) on two ranks, 3 steps through both entries:
+    the ranks' parameters bit-identical, float32 master weights, the
+    losses within the bf16 parity tolerance of the JAX package's fleet on
+    a 2-device mesh, and the program that fleet's desc."""
+    ref, ranks = runs("amp")
+    for entry in ("run", "prepare"):
+        for r, out in enumerate(ranks):
+            losses = out[f"{entry}/losses"]
+            assert len(losses) == AMP_STEPS
+            np.testing.assert_allclose(losses, ref["losses"], rtol=TOL_AMP,
+                                       err_msg=f"{entry} rank {r}")
+        params = [k for k in ranks[0] if k.startswith(f"{entry}/p/")]
+        assert params
+        for k in params:
+            assert np.array_equal(ranks[0][k], ranks[1][k]), k
+            if k.endswith(("_w", "_b", "_scale", "_bias", "_embedding")):
+                assert ranks[0][k].dtype == np.float32, k
+        routes = list(ranks[0][f"{entry}/routes"])
+        assert not [x for x in routes if ":fallback:" in x], routes
+    ops = [op["type"] for b in json.loads(str(ranks[0]["desc"]))["blocks"]
+           for op in b["ops"]]
+    assert "cast" in ops and "check_finite_and_unscale" not in ops
+    assert str(ranks[0]["desc"]) == ref["desc"]
+
+
+def test_strategy_amp_runs_on_one_worker():
+    """fp16 ``strategy.amp`` on one worker: the program minimize leaves,
+    with the loss-scaling ops after the backward, trains."""
+    tcore.reset_default_programs()
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data("x", shape=[4])
+        loss = tfluid.layers.mean(tfluid.layers.fc(
+            tfluid.layers.fc(x, 8, act="relu"), 2))
+        tfleet.init(UserDefinedRoleMaker(0, 1, place=tfluid.CPUPlace()))
+        s = DistributedStrategy()
+        s.amp = True
+        s.amp_configs = dict(s.amp_configs, use_pure_bf16=False)
+        tfleet.distributed_optimizer(tfluid.optimizer.SGD(0.1),
+                                     s).minimize(loss)
+    ops = [op.type for op in main.global_block().ops]
+    bw = ops.index("backward")
+    assert ops[bw + 1:bw + 3] == ["check_finite_and_unscale",
+                                  "update_loss_scaling"]
+    scope = tfluid.Scope()
+    exe = tfluid.Executor(tfleet.place)
+    exe.run(startup, scope=scope)
+    feed = {"x": np.random.RandomState(0).randn(6, 4).astype(np.float32)}
+    losses = [float(exe.run(tfleet.main_program, feed=feed,
+                            fetch_list=[loss], scope=scope)[0])
+              for _ in range(3)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
 @pytest.mark.parametrize("flag", [
-    "amp", "recompute", "gradient_merge", "localsgd", "lamb", "use_dgc",
+    "recompute", "gradient_merge", "localsgd", "lamb", "use_dgc",
     "sharding", "sharded_update", "tensor_parallel", "pipeline",
     "auto_shard", "overlap_grad_sync", "use_hierarchical_allreduce",
     "mesh"])

@@ -18,7 +18,8 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import fused_ops as tF
 
-ROWS = (1, 7, 640, 1000, 1003, 4096, 100000)
+# 1920 and 12288: the bf16 pretraining program's rows (B96 x 20, x 128)
+ROWS = (1, 7, 640, 1000, 1003, 1920, 4096, 12288, 100000)
 WIDTHS = (128, 768, 8192)
 
 

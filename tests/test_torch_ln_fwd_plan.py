@@ -33,7 +33,9 @@ from paddle_tpu_torch.ops.cuda import fused_ops as tF
 TOL_F32 = 2e-5             # chip_smoke.py's kernel-vs-twin tolerance (abs)
 BF16_ULP_REL = 2.0 ** -7   # one bfloat16 ulp is at most this of |value|
 EPS = 1e-5
-ROWS = (1, 7, 128, 1000, 1003, 4096, 100000)
+# with the masked-LM head's rows at B32 and B96 x 20, and the encoder's
+# at B96 x 128 (the bf16 pretraining program's float32 LayerNorms)
+ROWS = (1, 7, 128, 640, 1000, 1003, 1920, 4096, 12288, 100000)
 WIDTHS = tuple(range(128, tF.LN_MAX_DIM + 1, 128))
 SMS, WARPS_PER_SM = 132, 32   # H100: 64 registers a thread leave 32 warps
 

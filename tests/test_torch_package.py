@@ -49,7 +49,7 @@ def _fresh_port_state():
 def test_import_pulls_in_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.fluid, "
             "paddle_tpu_torch.inference, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.io;"
+            "paddle_tpu_torch.io, paddle_tpu_torch.contrib.mixed_precision;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.'));"

@@ -317,8 +317,7 @@ def test_unported_backward_features_are_refused():
     assert second < first                        # SGD trains
     bw = [op for op in main.global_block().ops if op.type == "backward"][0]
     for attr, value, words in (("checkpoints", [h.name], "recompute"),
-                               ("pipe_stages", 2, "pipeline"),
-                               ("loss_scale_var", "scale", "loss scaling")):
+                               ("pipe_stages", 2, "pipeline")):
         bw.attrs[attr] = value
         with pytest.raises(UnimplementedError, match=words):
             exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
@@ -340,6 +339,63 @@ def test_unported_backward_features_are_refused():
     assert all(op.output_names()[0] in adam.inputs["Grad"]
                for op, adam in zip(sums, [o for o in ops
                                            if o.type == "adam"]))
+
+
+@pytest.mark.parametrize("scale", [2.0 ** -3, 2.0 ** 10, 2.0 ** 15])
+def test_loss_scale_var_scales_the_gradients_exactly(scale):
+    """The backward's ``loss_scale_var`` (AMP's dynamic loss scale)
+    multiplies the summed loss: with a power-of-two scale every gradient
+    comes back scaled exactly, and ``check_finite_and_unscale`` gives bit
+    for bit the gradients of the unscaled program."""
+    def build(with_scale):
+        tun.reset()
+        main, startup = tcore.Program(), tcore.Program()
+        startup.random_seed = 5
+        with tcore.program_guard(main, startup):
+            x = tfluid.layers.data("x", shape=[8])
+            h = tfluid.layers.fc(x, 16, act="tanh")
+            loss = tfluid.layers.mean(tfluid.layers.fc(h, 3))
+            _, pgs = tfluid.optimizer.SGD(0.0).minimize(loss)
+        grads = [g.name for _, g in pgs]
+        if with_scale:
+            block = main.global_block()
+            ops = block.ops
+            bw = backward_index(ops)
+            block.create_var(name="scale", shape=(1,), persistable=True)
+            ops[bw].attrs["loss_scale_var"] = "scale"
+            found = block.create_var(name="found_inf", shape=(1,),
+                                     dtype="bool")
+            block._insert_op(bw + 1, type="check_finite_and_unscale",
+                             inputs={"X": grads, "Scale": ["scale"]},
+                             outputs={"Out": grads,
+                                      "FoundInfinite": [found]})
+        return main, startup, loss, grads
+
+    feed = {"x": np.random.RandomState(2).randn(6, 8).astype(np.float32)}
+    outs = []
+    for with_scale in (False, True):
+        main, startup, loss, grads = build(with_scale)
+        scope = tfluid.Scope()
+        exe = tfluid.Executor(tfluid.CPUPlace())
+        exe.run(startup, scope=scope)
+        scope.set_var("scale", torch.tensor([scale]))
+        raw = None
+        if with_scale:
+            # the raw scaled gradients, before the unscale op
+            ops = main.global_block().ops
+            bw = backward_index(ops)
+            keep = ops[bw + 1]
+            del ops[bw + 1]
+            raw = exe.run(main, feed=feed, fetch_list=grads, scope=scope)
+            ops.insert(bw + 1, keep)
+        outs.append((exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                             scope=scope), raw))
+    (plain, _), (unscaled, raw) = outs
+    for a, b in zip(plain, unscaled):
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    for g, r in zip(plain[1:], raw):
+        np.testing.assert_array_equal((g * scale).view(np.uint32),
+                                      r.view(np.uint32))
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,11 @@
 ``collectives``: every ported collective op on this rank's inputs
 (``IN.npz`` holds ``r<rank>/<case>`` arrays), outputs saved per case.
 ``dp``: BERT-tiny pretraining through ``fleet`` with the fused AdamW
-recipe, from the startup parameters and batches in ``IN.npz``, for the
-fp32 / int8 / int4 tier, through ``Executor.run`` and then
-``Executor.prepare(donate_state=True)``.  Each rank writes
-``OUT_DIR/rank<r>.npz``.  Imports the port only."""
+recipe, from the startup parameters and batches in ``IN.npz`` (one step
+a batch), for the fp32 / int8 / int4 tier of the gradient all-reduce or
+``amp`` (``strategy.amp``: bf16 compute, fp32 gradient sync), through
+``Executor.run`` and then ``Executor.prepare(donate_state=True)``.  Each
+rank writes ``OUT_DIR/rank<r>.npz``.  Imports the port only."""
 
 from __future__ import annotations
 
@@ -71,8 +72,6 @@ COLLECTIVE_CASES = [
 ]
 NOOP_OPS = ("c_comm_init", "c_comm_init_all", "c_gen_nccl_id", "barrier")
 
-#: the dp mode's model, recipe and steps
-DP_STEPS = 5
 
 
 def _cfg():
@@ -123,7 +122,9 @@ def build_dp(tier):
     with fluid.program_guard(main, startup):
         _, total, _, _ = bert.build_pretrain_network(_cfg())
         s = DistributedStrategy()
-        if tier != "fp32":
+        if tier == "amp":
+            s.amp = True
+        elif tier != "fp32":
             s.quant_allreduce = True
             s.quant_configs = {"dtype": tier, "block_size": 256,
                                "stochastic_rounding": False}
@@ -146,8 +147,10 @@ def dp(inputs, tier, out_dir):
     _init(rank)
     data = np.load(inputs)
     init = {k[2:]: data[k] for k in data.files if k.startswith("p/")}
+    steps = len({k.split("/", 1)[0] for k in data.files
+                 if k.startswith("b")})
     batches = [{k.split("/", 1)[1]: data[k] for k in data.files
-                if k.startswith(f"b{i}/")} for i in range(DP_STEPS)]
+                if k.startswith(f"b{i}/")} for i in range(steps)]
     out = {}
     for entry in ("run", "prepare"):
         registry.reset_route_counts()
@@ -171,7 +174,7 @@ def dp(inputs, tier, out_dir):
         for n in names:
             out[f"{entry}/p/{n}"] = np.asarray(scope.find_var(n))
         out[f"{entry}/routes"] = np.array(sorted(
-            f"{k[0]}:{k[2]}:{v // DP_STEPS}"
+            f"{k[0]}:{k[2]}:{v // steps}"
             for k, v in registry.route_counts().items()))
     out["desc"] = np.array(__import__("json").dumps(program_to_desc(main)))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
