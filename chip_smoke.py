@@ -13,9 +13,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    D = 128, 896, 4096 and 8192 on 300 rows and on views 4 bytes off the
    vector alignment, bit-identical across two launches; flash
    B = 8, H = 12, S = 128 and 512, D = 64 with padding, per-head, no bias
-   and causal; bit-identical across two launches), float32 and bfloat16,
-   and time kernel, plain version and one PyTorch library call (CUDA
-   events, median of 25);
+   and causal; bit-identical across two launches), float32 and bfloat16
+   (flash also float16), and time kernel, plain version and one PyTorch
+   library call (CUDA events, median of 25);
 3. serve BERT-base at full width (12 layers, random weights from a seed)
    through save_inference_model → AnalysisPredictor (default passes) →
    ServingEngine: 16 bursts of 24 mixed-length requests, each burst
@@ -31,14 +31,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 6. the training kernels against their plain versions at BERT-base
    training shapes: flash forward with dropout 0.1 and 0, beside SDPA at
    the same rate, and its dq and dk/dv kernels (B = 32, S = 128 and B = 8,
-   S = 512; padding bias and causal; float32 and bfloat16; one seed, so
-   the masks are bit-identical; o, lse, dq, dk and dv bit-identical across
-   two launches; in float32 with the padding
+   S = 512; padding bias and causal; float32, bfloat16 and float16; one
+   seed, so the masks are bit-identical; o, lse, dq, dk and dv
+   bit-identical across two launches; in float32 with the padding
    bias, kernels and twin each against the same backward in float64; the
    pair timed, beside the library's backward with the same dropout rate,
    at 0.1 and at 0; both routes of the backward's plan at head dims 64,
    128 and 256 on padded and rectangular shapes, the FMA route also with
-   the score-gradient scratch capped),
+   the score-gradient scratch capped, the 16-bit cases in bf16 and
+   float16 with their forward held too),
    LayerNorm backward (R = 4096 and 640, D = 768) and the multi-tensor
    Adam (runs of one at the word embedding's 23,440,896 elements,
    2,359,296, 768 and 2; all 158 BERT-base parameters as one run, adam
@@ -152,10 +153,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    after 3 good steps and backing it off after 2 bad ones, an inf fed at
    steps 4 and 5: those steps' gradients zeroed, the weights kept, scale
    and counters equal to a host replay at every step, no host sync inside
-   a step; BERT-base under fp16 refused on its first step by the flash
-   gate (``dtype:torch.float16``).  Kernel #1 and the #2 + #3 pair are
-   timed in bf16 at (a)'s shape (B96 H12 S128 D64, padding bias, dropout
-   0.1) like phase 6's rows;
+   a step; then BERT-base under fp16 ``decorate(Adam(1e-4),
+   use_pure_bf16=False)`` with dynamic loss scaling at 32 x 128 for 4
+   prepared steps: finite losses, 12/12/12 flash launches a step on
+   float16 operands, and with dropout 0 kernels on vs every flag off
+   within 1e-2.  Kernel #1 and the #2 + #3 pair are held and timed in
+   bf16 and float16 at (a)'s shape (B96 H12 S128 D64, padding bias,
+   dropout 0.1) like phase 6's rows;
 13. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -181,12 +185,14 @@ BURSTS, BURST_REQUESTS = 16, 24     # the served window: 384 requests
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12,      # FP32 outside the tensor cores
               "tf32": 495e12,        # TF32 tensor cores
-              "bfloat16": 989e12}    # BF16 tensor cores
+              "bfloat16": 989e12,    # BF16 tensor cores
+              "float16": 989e12}     # FP16 tensor cores
 
 # stated tolerances: kernel vs its plain version on the same inputs
 TOL_F32 = 2e-5            # LN, add-LN, bias-GELU, flash o (abs)
 TOL_LSE = 1e-4            # flash lse (abs)
 BF16_REL = 2.0 ** -6      # bf16: max|Δ| <= two bf16 ulps of max|plain|
+FP16_REL = 2.0 ** -9      # float16: two float16 ulps of max|plain|
 TOL_LONE = 1e-5           # served result vs lone run of its padded request
 TOL_PLAIN_PATH = 1e-4     # kernels on vs all kernel flags off, 12 layers
 TOL_UNFUSED = 1e-4        # unfused program vs fused program, 12 layers
@@ -225,6 +231,7 @@ TOL_AMP_GRAD = 3e-2
 # and the masked-LM head's (B*20)
 AMP_LN_ROWS = (AMP_BATCH * TRAIN_SEQ, AMP_BATCH * TRAIN_MASKS)
 AMP_FP16_STEPS, AMP_INF_STEPS = 9, (4, 5)
+AMP_FP16_BERT_STEPS = 4   # fp16 BERT-base prepared steps (leg (c))
 AMP_INCR_EVERY, AMP_DECR_EVERY = 3, 2
 # the recipe (Devlin et al. 2019, A.2; google-research/bert
 # optimization.py): peak LR 1e-4, decay to 0 over 1M steps, AdamW 0.01,
@@ -353,16 +360,21 @@ def fwd_bounds(nbytes, flops, dtype):
             "bound_3xtf32_ms": bound[0]}
 
 
+#: the 16-bit dtypes' tolerances against the plain versions
+REL16 = {"bfloat16": BF16_REL, "float16": FP16_REL}
+
+
 def max_err(torch, got, ref):
     return float((got.float() - ref.float()).abs().max())
 
 
 def agree(torch, what, got, ref, dtype, tol, relative=False):
-    """Kernel vs plain: bf16 within two bf16 ulps of max|plain|; float32
-    within ``tol``, of max(1, max|plain|) when ``relative``."""
+    """Kernel vs plain: bf16 (float16) within two bf16 (float16) ulps of
+    max|plain|; float32 within ``tol``, of max(1, max|plain|) when
+    ``relative``."""
     err = max_err(torch, got, ref)
-    if dtype == "bfloat16":
-        limit = BF16_REL * float(ref.float().abs().max())
+    if dtype in REL16:
+        limit = REL16[dtype] * float(ref.float().abs().max())
     elif relative:
         limit = tol * max(1.0, float(ref.float().abs().max()))
     else:
@@ -476,13 +488,16 @@ def kernel_checks(torch, results):
     record = recorder(results)
 
     for dtname, dt in (("float32", torch.float32),
-                       ("bfloat16", torch.bfloat16)):
+                       ("bfloat16", torch.bfloat16),
+                       ("float16", torch.float16)):
         es = torch.finfo(dt).bits // 8
-        # LayerNorm and residual add + LayerNorm at the served rows
-        ln_fwd_checks(torch, results, randn, dtname,
-                      [(rows, 768, 0, None) for rows in LN_FWD_ROWS[:2]])
+        # LayerNorm and residual add + LayerNorm at the served rows (not
+        # in float16: only the flash kernels take it)
+        if dtname != "float16":
+            ln_fwd_checks(torch, results, randn, dtname,
+                          [(rows, 768, 0, None) for rows in LN_FWD_ROWS[:2]])
         # bias + GELU, D = 3072
-        for rows in (8 * 128, 8 * 512):
+        for rows in (8 * 128, 8 * 512) if dtname != "float16" else ():
             d = 3072
             xx, bb = randn(rows, d, dtype=dt), randn(d, scale=0.1, dtype=dt)
             err = agree(torch, f"bias_gelu [{rows},{d}] {dtname}",
@@ -515,8 +530,8 @@ def kernel_checks(torch, results):
                       f"{what}: o/lse differ between two launches")
                 err = agree(torch, what + " o", o, po, dtname, TOL_F32)
                 lerr = max_err(torch, lse, plse)
-                if dtname == "bfloat16":
-                    # bf16 scores come from the tensor cores, summed in
+                if dtname != "float32":
+                    # 16-bit scores come from the tensor cores, summed in
                     # another order than the twin's float32 matmul: at a
                     # padded row (every logit near -1e4, a float32 ulp
                     # ~1e-3) lse moves by an ulp.  Held per row to TOL_LSE
@@ -854,7 +869,7 @@ def flash_training_checks(torch, results):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     seed = torch.tensor([SEED], dtype=torch.int32, device=dev)
-    for dtname in ("float32", "bfloat16"):
+    for dtname in ("float32", "bfloat16", "float16"):
         for bsz, seq in ((TRAIN_BATCH, TRAIN_SEQ), (LONG_BATCH, LONG_SEQ)):
             flash_training_rows(torch, results, gen, seed, dtname, bsz, seq,
                                 ("padding-bias", "causal"))
@@ -870,7 +885,7 @@ def flash_training_rows(torch, results, gen, seed, dtname, bsz, seq, modes):
     and its bound; rows recorded in ``results``."""
     dev = torch.device("cuda", 0)
     randn = randn_on(torch, gen, dev)
-    dt = torch.float32 if dtname == "float32" else torch.bfloat16
+    dt = getattr(torch, dtname)
     q, k, v, do = (randn(bsz * 12, seq, 64, dtype=dt) for _ in range(4))
     shared = padding_bias(torch, gen, dev, bsz, seq)
     for mode in modes:
@@ -1031,10 +1046,12 @@ def flash_route_checks(torch, FA, gen, seed):
     the FMA route (head dim 256, and head dims 64 and 128 with the score
     gradient scratch capped to 0 bytes, as past DS_SCRATCH_CAP) and the
     tensor-core route on unpadded and rectangular problems, each against
-    the plain twin with dropout 0.1 and bit for bit across two runs."""
+    the plain twin with dropout 0.1 and bit for bit across two runs; the
+    16-bit cases (in bf16 and float16) their forward too, against its twin
+    and bit for bit across two launches."""
     dev = torch.device("cuda", 0)
     randn = randn_on(torch, gen, dev)
-    cases = (  # (bh, sq, sk, d, dtype, causal, bias ratio, scratch cap)
+    cases = [  # (bh, sq, sk, d, dtype, causal, bias ratio, scratch cap)
         (TRAIN_BATCH * 12, TRAIN_SEQ, TRAIN_SEQ, 64, torch.float32, False,
          12, 0),
         (24, 200, 200, 128, torch.bfloat16, True, 0, 0),
@@ -1042,13 +1059,21 @@ def flash_route_checks(torch, FA, gen, seed):
         (24, 65, 65, 128, torch.bfloat16, True, 0, None),
         (24, 77, 200, 128, torch.float32, False, 12, None),
         (8, 100, 77, 256, torch.float32, False, 1, None),
-        (8, 128, 128, 256, torch.bfloat16, True, 0, None))
+        (8, 128, 128, 256, torch.bfloat16, True, 0, None)]
+    # the 16-bit kernels at the odd and rectangular lengths too; every
+    # 16-bit case again in float16
+    cases += [(bh, sq, sk, d, torch.bfloat16, causal, ratio, cap)
+              for bh, sq, sk, d, dt, causal, ratio, cap in cases
+              if dt == torch.float32 and cap is None and d != 256]
+    cases += [(bh, sq, sk, d, torch.float16, causal, ratio, cap)
+              for bh, sq, sk, d, dt, causal, ratio, cap in cases
+              if dt == torch.bfloat16]
     saved = FA.DS_SCRATCH_CAP
     try:
         for bh, sq, sk, d, dt, causal, ratio, cap in cases:
             FA.DS_SCRATCH_CAP = saved if cap is None else cap
             route = FA.bwd_plan(bh, sq, sk, d).route
-            dtname = "float32" if dt == torch.float32 else "bfloat16"
+            dtname = str(dt).replace("torch.", "")
             what = (f"flash bwd {route} route BH={bh} Sq={sq} Sk={sk} D={d} "
                     f"{'causal ' if causal else ''}{dtname}")
             q, do = (randn(bh, sq, d, dtype=dt) for _ in range(2))
@@ -1059,6 +1084,16 @@ def flash_route_checks(torch, FA, gen, seed):
                     torch.rand(bh // ratio, sq, sk, generator=gen,
                                device=dev) < 0.2, -1e4, 0.0)
             o, lse = FA.flash_fwd(q, k, v, bias, causal, DROPOUT, seed)
+            if dtname != "float32":
+                o2, lse2 = FA.flash_fwd(q, k, v, bias, causal, DROPOUT, seed)
+                check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                      f"{what}: o/lse differ between two launches")
+                po, plse = FA.flash_fwd_plain(q, k, v, bias, causal, DROPOUT,
+                                              seed)
+                agree(torch, f"{what} o", o, po, dtname, TOL_F32)
+                lerr = float(((lse - plse).abs() /
+                              plse.abs().clamp_min(1.0)).max())
+                check(lerr <= TOL_LSE, f"{what}: lse disagrees ({lerr})")
             grads = FA.flash_bwd(q, k, v, bias, o, lse, do, causal, DROPOUT,
                                  seed)
             again = FA.flash_bwd(q, k, v, bias, o, lse, do, causal, DROPOUT,
@@ -1756,11 +1791,12 @@ def dp_phase(torch, np, repo, cfg):
 # ---------------------------------------------------------------------------
 
 
-def build_train(cfg, amp=False):
+def build_train(cfg, amp=False, pure_bf16=True):
     """Phase 7's program: pretraining + Adam(1e-4), run as it is; with
     ``amp``, bench.py's: the optimizer under
-    ``decorate(..., use_pure_bf16=True)`` (phase 12).  Returns (the
-    program to run, startup, loss, LR var)."""
+    ``decorate(..., use_pure_bf16=pure_bf16)`` (phase 12; fp16 with
+    dynamic loss scaling when not ``pure_bf16``).  Returns (the program to
+    run, startup, loss, LR var)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.contrib.mixed_precision import decorate
     from paddle_tpu_torch.framework.core import Program, program_guard
@@ -1773,7 +1809,7 @@ def build_train(cfg, amp=False):
         _, total, _, _ = bert.build_pretrain_network(cfg)
         opt = fluid.optimizer.Adam(PEAK_LR)
         if amp:
-            opt = decorate(opt, use_pure_bf16=True)
+            opt = decorate(opt, use_pure_bf16=pure_bf16)
         opt.minimize(total)
     return main, startup, total, opt.learning_rate_var
 
@@ -1820,9 +1856,10 @@ def scheduled_lr(step):
 
 
 # the port's kernels by their CUDA function names (csrc/*.cu)
-PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_fma_kernel",
-                     "flash_bwd_dq_kernel",
-                     "flash_bwd_dkv_kernel", "flash_bwd_dq_fma_kernel",
+PORT_KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_sm90_kernel",
+                     "flash_fwd_fma_kernel", "flash_bwd_dq_kernel",
+                     "flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel",
+                     "flash_bwd_dq_fma_kernel",
                      "flash_bwd_dkv_fma_kernel", "ln_fwd_kernel",
                      "ln_bwd_rows_kernel", "ln_bwd_colsum_kernel",
                      "bias_gelu_fwd_kernel", "bias_gelu_bwd_kernel",
@@ -2125,11 +2162,12 @@ def model_flops_per_step(cfg, batch, seq, num_masks):
     return 3 * (cfg.num_hidden_layers * (per_layer + attn) + heads)
 
 
-def amp_dtypes(expected):
-    """The operand dtype of each kernel of the bf16 program: the flash
-    kernels take the bf16 Q, K, V; LayerNorm (black list), bias+GELU (its
-    inputs cast back) and Adam (float32 master weights) stay float32."""
-    return {name: "bfloat16" if name.startswith("flash_attention")
+def amp_dtypes(expected, half="bfloat16"):
+    """The operand dtype of each kernel of the bf16 (float16) program: the
+    flash kernels take the 16-bit Q, K, V; LayerNorm (black list),
+    bias+GELU (its inputs cast back) and Adam (float32 master weights)
+    stay float32."""
+    return {name: half if name.startswith("flash_attention")
             else "float32" for name in expected}
 
 
@@ -2216,13 +2254,12 @@ def build_amp_mlp(fluid):
 
 
 def fp16_scaling_leg(torch, np):
-    """Leg (c): fp16 loss scaling on the card.  The MLP trains
+    """Leg (c), first part: fp16 loss scaling on the card.  The MLP trains
     AMP_FP16_STEPS steps through prepare(donate_state=True) on feeds
     already on the card, steps AMP_INF_STEPS carrying an inf; steps after
     the first run with host syncs made errors.  Those steps' gradients
     are zeroed and the weights stay; scale and counters equal the host
-    replay every step.  Then BERT-base under fp16 ``decorate`` is refused
-    on its first step with the flash gate's dtype reason."""
+    replay every step."""
     from paddle_tpu_torch import fluid
     main, startup, loss = build_amp_mlp(fluid)
     state = ["loss_scaling_0", "good_steps_0", "bad_steps_0"]
@@ -2275,44 +2312,53 @@ def fp16_scaling_leg(torch, np):
         np.float32(np.float32(2.0 ** 16) * np.float32(0.8))),
           "the scale did not back off once by 0.8")
     del step, scope
-    return {"fp16_scale_state": got,
-            "fp16_bert_refused": fp16_bert_refusal(np)}
+    return {"fp16_scale_state": got}
 
 
-def fp16_bert_refusal(np):
-    """BERT-base under fp16 ``decorate``: its first step raises the flash
-    gate's ``UnimplementedError`` (``dtype:torch.float16``) on the card,
-    the no-fallback rule on the one dtype the kernels do not take."""
+def fp16_bert_leg(torch, np, cfg):
+    """BERT-base under fp16 ``decorate(Adam(1e-4), use_pure_bf16=False)``
+    with dynamic loss scaling, TRAIN_BATCH x TRAIN_SEQ, AMP_FP16_BERT_STEPS
+    prepared steps: the losses finite, no route fallback, 12/12/12 flash
+    launches a step on float16 operands (LayerNorm and Adam on float32);
+    then, dropout 0, kernels on vs every flag off within TOL_AMP_PLAIN
+    (losses) and TOL_AMP_GRAD (step-1 gradients)."""
     from paddle_tpu_torch import fluid
-    from paddle_tpu_torch.contrib.mixed_precision import decorate
-    from paddle_tpu_torch.framework.errors import UnimplementedError
-    from paddle_tpu_torch.framework import unique_name
     from paddle_tpu_torch.models import bert
-    cfg = bert.BertConfig.base()
-    unique_name.reset()
-    main, startup = fluid.Program(), fluid.Program()
-    startup.random_seed = main.random_seed = SEED
-    with fluid.program_guard(main, startup):
-        _, total, _, _ = bert.build_pretrain_network(cfg)
-        decorate(fluid.optimizer.Adam(PEAK_LR),
-                 use_pure_bf16=False).minimize(total)
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+
+    def build(c):
+        return build_train(c, amp=True, pure_bf16=False)
+    program, startup, total, _ = build(cfg)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
     scope = fluid.Scope()
     exe = fluid.Executor()
     exe.run(startup, scope=scope)
-    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg, 2,
-                                TRAIN_SEQ, TRAIN_MASKS)
-    refused = None
-    try:
-        exe.run(main, feed=feed, fetch_list=[total], scope=scope)
-    except Exception as e:          # what is raised is checked below
-        refused = e
-    cause = getattr(refused, "cause", refused)
-    check(isinstance(cause, UnimplementedError)
-          and "dtype:torch.float16" in str(cause),
-          f"fp16 BERT-base was not refused by the flash gate: {refused!r}")
-    log(f"  fp16 BERT-base refused on its first step: "
-        f"{str(cause).splitlines()[0][:160]}")
-    return str(cause)[:300]
+    state = ["loss_scaling_0", "good_steps_0", "bad_steps_0"]
+    prepared = exe.prepare(program, fetch_list=[total] + state, scope=scope,
+                           donate_state=True)
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    steps = []
+    for _ in range(AMP_FP16_BERT_STEPS):
+        loss, sc, good, bad = (h.numpy() for h in prepared.run(feed))
+        steps.append((float(loss), float(sc[0]), int(good[0]), int(bad[0])))
+    launches = kernels.launch_counts()
+    log(f"  fp16 BERT-base, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{AMP_FP16_BERT_STEPS} prepared steps: (loss, scale, good, bad) "
+        f"{steps}; launches {kernels.launch_counts_by_dtype()}")
+    check(all(math.isfinite(x[0]) for x in steps),
+          f"fp16 BERT-base: non-finite loss {steps}")
+    fallbacks = {k: v for k, v in registry.route_counts().items()
+                 if k[2] == "fallback"}
+    check(not fallbacks, f"fp16 BERT-base: route fallbacks {fallbacks}")
+    check_launches(kernels, TRAIN_LAUNCHES, AMP_FP16_BERT_STEPS,
+                   amp_dtypes(TRAIN_LAUNCHES, "float16"))
+    del prepared, scope
+    plain = train_plain_phase(torch, np, cfg, build, TRAIN_LAUNCHES,
+                              tol_loss=TOL_AMP_PLAIN, tol_grad=TOL_AMP_GRAD)
+    return {"steps": steps, "launches": launches, **plain}
 
 
 def bf16_bias_check(torch):
@@ -2332,22 +2378,24 @@ def bf16_bias_check(torch):
 
 
 def amp_kernel_rows(torch, per_kernel):
-    """#1 and the #2 + #3 pair in bf16 at leg (a)'s shape, as phase 6
-    times them: kernel, twin, SDPA / the library's backward at the same
-    dropout, bounds."""
-    log(f"  #1 and the #2 + #3 pair in bf16 at the main-path shape (B"
-        f"{AMP_BATCH} H12 S{TRAIN_SEQ} D64, padding bias, dropout "
+    """#1 and the #2 + #3 pair in bf16 and in float16 at leg (a)'s shape,
+    as phase 6 times them: kernel, twin, SDPA / the library's backward at
+    the same dropout, bounds."""
+    log(f"  #1 and the #2 + #3 pair in bf16 and float16 at the main-path "
+        f"shape (B{AMP_BATCH} H12 S{TRAIN_SEQ} D64, padding bias, dropout "
         f"{DROPOUT})")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     seed = torch.tensor([SEED + 12], dtype=torch.int32, device=dev)
-    flash_training_rows(torch, per_kernel, gen, seed, "bfloat16", AMP_BATCH,
-                        TRAIN_SEQ, ("padding-bias",))
+    for dtname in ("bfloat16", "float16"):
+        flash_training_rows(torch, per_kernel, gen, seed, dtname, AMP_BATCH,
+                            TRAIN_SEQ, ("padding-bias",))
 
 
 def amp_phase(torch, np, cfg, per_kernel, fused_step_ms):
     """Phase 12's three legs; returns (launches of leg (a)'s prepared
-    steps, of leg (b)'s, the report)."""
+    steps, of leg (b)'s, of leg (c)'s fp16 BERT-base steps, the
+    report)."""
     log(f"  (a) bench.py's configuration: decorate(Adam({PEAK_LR}), "
         f"use_pure_bf16=True), batch {AMP_BATCH} x {TRAIN_SEQ}, "
         f"{TRAIN_MASKS} masks, dropout {DROPOUT}")
@@ -2377,12 +2425,14 @@ def amp_phase(torch, np, cfg, per_kernel, fused_step_ms):
         dtypes=amp_dtypes(FUSED_LAUNCHES))
     log(f"  (b) step {fused['step_ms_median_3_10']:.2f} ms in bf16 beside "
         f"phase 8's {fused_step_ms:.2f} ms in float32 (this run)")
-    log("  (c) fp16 loss scaling on the card")
+    log("  (c) fp16 loss scaling on the card, then BERT-base in fp16")
     scaling = fp16_scaling_leg(torch, np)
+    fp16_bert = fp16_bert_leg(torch, np, cfg)
     amp_kernel_rows(torch, per_kernel)
-    return launches, fused_launches, {
+    return launches, fused_launches, fp16_bert["launches"], {
         "bench_config": report, "recipe_bf16": fused,
-        "recipe_fp32_step_ms": fused_step_ms, "fp16_scaling": scaling}
+        "recipe_fp32_step_ms": fused_step_ms, "fp16_scaling": scaling,
+        "fp16_bert": fp16_bert}
 
 
 # ---------------------------------------------------------------------------
@@ -2961,10 +3011,12 @@ def kernels_line(per_kernel, launches_by_path):
     their launches on the paged decode path (phase 11, ``decode_launches``)
     and the flash forward its decode-step and chunk rows.  Kernels of the
     bf16 programs (phase 12) carry ``amp_launches`` (leg (a)'s 10 prepared
-    steps) and ``amp_fused_launches`` (leg (b)'s), the three flash
-    kernels their bf16 row at that path's shape (``amp``: B96 S128,
-    dropout 0.1) and the LayerNorm forward and backward their float32
-    rows there (``amp``: R 12,288 and 1,920)."""
+    steps), ``amp_fused_launches`` (leg (b)'s) and ``amp_fp16_launches``
+    (leg (c)'s fp16 BERT-base steps), the three flash kernels their bf16
+    and float16 rows at that path's shape (``amp`` and ``amp_fp16``: B96
+    S128, dropout 0.1, with the dropout-0 times) and the LayerNorm forward
+    and backward their float32 rows there (``amp``: R 12,288 and
+    1,920)."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     out = []
@@ -2991,25 +3043,28 @@ def kernels_line(per_kernel, launches_by_path):
             entry["launches_by_path"] = {
                 p: launches_by_path[p].get(name, 0)
                 for p in ("served", "unfused", "train", "fused_train",
-                          "decode", "amp", "amp_fused")}
+                          "decode", "amp", "amp_fused", "amp_fp16")}
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
-                      "decode", "amp", "amp_fused"):
+                      "decode", "amp", "amp_fused", "amp_fp16"):
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name in per_kernel.get("quant_step", {}):
             entry["step_13_launches"] = per_kernel["quant_step"][name]
         if name.startswith("flash_attention"):
-            # the bf16 program's shape (phase 12): B96 S128, dropout 0.1
+            # the bf16 program's shape (phase 12): B96 S128, dropout 0.1,
+            # in bf16 (``amp``) and float16 (``amp_fp16``)
             rows_of = "flash_attention_fwd_dropout" \
                 if name == "flash_attention_fwd" else name
-            amp_row = [r for r in per_kernel[rows_of]
-                       if r["dtype"] == "bfloat16"
-                       and r["shape"][0] == AMP_BATCH
-                       and r["shape"][5] == f"dropout {DROPOUT}"][0]
-            entry["amp"] = {k: amp_row[k] for k in (
-                "shape", "dtype", "ms", "plain_ms", "library_ms",
-                "library_dq_dk_dv_ms", "bound_ms", "bound_by",
-                "max_abs_err") if k in amp_row}
+            for key, dt in (("amp", "bfloat16"), ("amp_fp16", "float16")):
+                amp_row = [r for r in per_kernel[rows_of]
+                           if r["dtype"] == dt
+                           and r["shape"][0] == AMP_BATCH
+                           and r["shape"][5] == f"dropout {DROPOUT}"][0]
+                entry[key] = {k: amp_row[k] for k in (
+                    "shape", "dtype", "ms", "plain_ms", "library_ms",
+                    "library_dq_dk_dv_ms", "bound_ms", "bound_by",
+                    "ms_dropout0", "library_dq_dk_dv_ms_dropout0",
+                    "max_abs_err") if k in amp_row}
         if name in ("layer_norm_fwd", "layer_norm_bwd"):
             # the bf16 program's float32 LayerNorms: B96 x 128 and x 20 rows
             entry["amp"] = [{k: r[k] for k in (
@@ -3136,7 +3191,7 @@ def main(argv=None) -> int:
 
         log("phase 12: bf16 mixed-precision pretraining at BERT-base width "
             "(contrib.mixed_precision.decorate)")
-        amp, amp_fused, amp_report = amp_phase(
+        amp, amp_fused, amp_fp16, amp_report = amp_phase(
             torch, np, base, per_kernel,
             fused_training["step_ms_median_3_10"])
     except SmokeFailure as e:
@@ -3158,7 +3213,7 @@ def main(argv=None) -> int:
         "served": served, "unfused": unfused, "train": trained,
         "fused_train": fused, "dp_int8": dp_ranks[0]["int8"]["launches"],
         "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded,
-        "amp": amp, "amp_fused": amp_fused})))
+        "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

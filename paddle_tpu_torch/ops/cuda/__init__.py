@@ -45,7 +45,7 @@ LAUNCHES: Dict[str, Dict[str, int]] = {name: {} for name in (
 )}
 
 #: dtype codes understood by the C entry points (csrc/common.cuh PtDtype)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def count_launch(name: str, dtype: torch.dtype):
@@ -76,7 +76,7 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
     code = DTYPE_CODES.get(t.dtype)
     if code is None:
         raise TypeError(f"{what}: dtype {t.dtype} is not supported by the "
-                        f"CUDA kernel (float32 or bfloat16)")
+                        f"CUDA kernels (float32, bfloat16, float16)")
     return code
 
 

@@ -36,7 +36,7 @@ SOURCES = {
     "adam": "adam.cu",
     "quant_accumulate": "quant_accumulate.cu",
 }
-HEADERS = ("common.cuh", "flash_common.cuh")
+HEADERS = ("common.cuh", "flash_common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

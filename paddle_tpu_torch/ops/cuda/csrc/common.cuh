@@ -1,5 +1,6 @@
 // Shared helpers for the port's Hopper kernels: element loads/stores in
-// float32 or bfloat16 (one at a time, or four as one vector access), a
+// float32 or bfloat16 (one at a time, or four as one vector access; the
+// flash kernels' rounding also in float16), a
 // float warp reduction and the counter-based dropout generator.
 //
 // Every kernel source in this directory exposes a plain C entry point that
@@ -10,10 +11,11 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 // dtype codes shared with the Python wrappers (ops/cuda/__init__.py)
-enum PtDtype { PT_F32 = 0, PT_BF16 = 1 };
+enum PtDtype { PT_F32 = 0, PT_BF16 = 1, PT_F16 = 2 };
 
 __device__ __forceinline__ float pt_load(const float* p) { return *p; }
 __device__ __forceinline__ float pt_load(const __nv_bfloat16* p) {
@@ -31,6 +33,9 @@ template <> __device__ __forceinline__ float pt_round<float>(float v) {
 }
 template <> __device__ __forceinline__ float pt_round<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+template <> __device__ __forceinline__ float pt_round<__half>(float v) {
+  return __half2float(__float2half_rn(v));
 }
 
 // kVec consecutive elements as floats: one 16-byte (float32) or 8-byte

@@ -27,17 +27,23 @@
 // (2 BH S^2 D, 0.0049 ms), bound by reading ds (0.0150 ms).  It keeps one of
 // dk/dv's four products, q.k^T, on the FMA pipes in float32 (0.012 ms of FMA
 // beside 0.0146 ms of tensor-core work; the two pipes run side by side).
-// bf16 runs one tensor-core pass a product (989 TFLOP/s), two where p or ds
-// is an operand.
+// bf16 and float16 run one tensor-core pass a product (989 TFLOP/s). At
+// the mixed-precision program's shape (B96 H12 S128 D64 bf16, the padding
+// bias) dk/dv's bytes take 0.0360 ms (0.0585 with the float32 ds write,
+// which dq reads: this design's own bound), its products 0.0098 ms.
 //
-// Design.
+// Two designs: float32 (below) on mma.sync, and dk/dv in bf16 / float16
+// on Hopper's own machinery (the second part of the file); dq is the
+// mma.sync kernel in every dtype.
+//
+// Design, float32 (and dq in every dtype).
 // * The products (but float32's q.k^T, below) run on the tensor cores
-//   through mma.sync.aligned.m16n8k8 (.tf32) and m16n8k16 (.bf16), each
-//   thread loading its fragments from shared memory.  Not wgmma: with .tf32
-//   it reads only K-major operands from shared memory (its transpose option
-//   exists for 16-bit types only), so three of the five products would need
-//   K, dO and Q staged a second time transposed, and p and ds would
-//   round-trip through shared memory.
+//   through mma.sync.aligned.m16n8k8 (.tf32) and m16n8k16 (.bf16, .f16),
+//   each thread loading its fragments from shared memory.  Not wgmma: with
+//   .tf32 it reads only K-major operands from shared memory (its transpose
+//   option exists for 16-bit types only), so three of the five products
+//   would need K, dO and Q staged a second time transposed, and p and ds
+//   would round-trip through shared memory.
 //   With mma.sync the score tiles stay in registers from the product that
 //   makes them to the products that use them (an accumulator fragment is an
 //   A fragment with its k index permuted), and a thread reads B in any
@@ -61,10 +67,9 @@
 //   (cvt.rna: nearest, ties away from zero), a.b ~ lo.hi' + hi.lo' + hi.hi',
 //   small terms first, accumulated in float32.  Single-pass TF32 keeps
 //   about three decimal digits and misses the gradient tolerance
-//   (tests/test_torch_flash_bwd_numerics.py).  bf16 feeds q, k, v and do to
-//   the tensor cores as they are; p and ds, float32 in registers, are split
-//   into two bf16 halves the same way (rounded to bf16 once, they used up
-//   to half of the bf16 tolerance in a CPU emulation at S = 512).
+//   (tests/test_torch_flash_bwd_numerics.py).  dq in 16 bits feeds k to
+//   the tensor cores as it is and splits the float32 ds into two halves of
+//   the type the same way.
 // * One pass over the scores.  dk/dv (a block of 4 warps per 64 keys, 16
 //   keys a warp) walks the queries 32 rows at a time with dk and dv in
 //   registers (at most 170 a thread at D = 64: three blocks an SM; with 64
@@ -94,12 +99,45 @@
 //   below need O(S).  The caller caps it (flash_attention.py bwd_plan,
 //   DS_SCRATCH_CAP = 1 GiB): a problem whose scratch would exceed the cap
 //   takes the FMA route.
-// * The FMA route (the second half of this file) is the first port's pair
+// * The FMA route (the last part of this file) is the first port's pair
 //   on the float32 FMA pipes, each kernel recomputing the scores and the
 //   mask, with no scratch.  It takes head dim 256 (a warp's dk and dv rows,
 //   2 x 16 x 256 floats, do not fit in its registers beside the score
-//   tiles) and any problem past the scratch cap; a NULL ds selects it.
+//   tiles) and any problem past the scratch cap, in every dtype; a NULL ds
+//   selects it.
+//
+// Design, dk/dv in bf16 and float16 (head dims 64 and 128;
+// flash_bwd_dkv_sm90_kernel, hopper.cuh).  With 16-bit operands wgmma
+// reads either operand transposed, which is what kept the float32 design
+// on mma.sync.
+// * A block is one warpgroup and 64 keys, keys as the products' rows.  K
+//   and V arrive once by TMA; Q and dO in 32-row tiles through a ring of
+//   two stages (3-D tensor maps, rows past Sq read as zeros), completing on
+//   mbarriers; each tile's bias (32 rows by 64 keys), lse and delta by
+//   cp.async, lse +inf on rows past Sq so their p is 0.
+// * s^T = k.q^T and dp^T = v.do^T are wgmma m64n32k16 on the swizzled
+//   tiles; dv += p_dropped^T.do and dk += ds^T.q are wgmma m64nDk16 with
+//   p and ds as register operands, rounded to 16 bits once, and dO and Q
+//   read through wgmma's transposed operand from the same tiles that fed
+//   the scores.  One rounding keeps dk and dv within 0.41 of the 16-bit
+//   tolerance in a CPU emulation at S 128 and 512 (the split took two
+//   passes a product).
+// * ds^T is written to shared memory in TMA's 128-byte swizzle and leaves
+//   by TMA stores (boxes of 32 queries by 64 keys) into the float32 scratch
+//   in the layout dq reads: whole lines, where a thread's scattered 8-byte
+//   stores wrote it before.
+// * The mask is the float32 design's transposed draw (one shuffle a
+//   tile), taken while the score products run; exp is 2^(s log2 e -
+//   lse log2 e).
+// * 32-row query tiles: 49 KB of shared memory and at most 168 registers
+//   at D 64, three blocks an SM.  Measured on an H100 at B96 H12 S128
+//   (tools/torch_kernel_ab.py, against 0.096-0.097 ms): 64-row tiles (234
+//   registers, two blocks an SM) 0.105-0.109; four blocks an SM (128
+//   registers) 0.112; three stages 0.097; each tile's dk/dv products left
+//   in flight into the next tile (three stages, two buffers of rows, one
+//   barrier fewer) 0.102.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -142,26 +180,27 @@ __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4],
   }
 }
 
-template <int D, int SD, int SK>
+// bf16 and float16: ds split into two 16-bit halves
+template <int D, int SD, int SK, typename T,
+          typename = std::enable_if_t<sizeof(T) == 2>>
 __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4],
-                                        const float* ds,
-                                        const __nv_bfloat16* k, int g,
+                                        const float* ds, const T* k, int g,
                                         int t) {
 #pragma unroll
   for (int kk = 0; kk < kBlockN; kk += 16) {
     const float* a = ds + (kk + 2 * t) * SD + g;
     uint32_t ahi[4], alo[4];
-    split_bf16(a[0], a[SD], ahi[0], alo[0]);
-    split_bf16(a[8], a[SD + 8], ahi[1], alo[1]);
-    split_bf16(a[8 * SD], a[9 * SD], ahi[2], alo[2]);
-    split_bf16(a[8 * SD + 8], a[9 * SD + 8], ahi[3], alo[3]);
-    const __nv_bfloat16* br = k + (kk + 2 * t) * SK + g;
+    split16<T>(a[0], a[SD], ahi[0], alo[0]);
+    split16<T>(a[8], a[SD + 8], ahi[1], alo[1]);
+    split16<T>(a[8 * SD], a[9 * SD], ahi[2], alo[2]);
+    split16<T>(a[8 * SD + 8], a[9 * SD + 8], ahi[3], alo[3]);
+    const T* br = k + (kk + 2 * t) * SK + g;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const uint32_t bf[2] = {ld_pair(br + 8 * n, SK),
                               ld_pair(br + 8 * SK + 8 * n, SK)};
-      mma_bf16(acc[n], alo, bf);
-      mma_bf16(acc[n], ahi, bf);
+      mma16<T>(acc[n], alo, bf);
+      mma16<T>(acc[n], ahi, bf);
     }
   }
 }
@@ -416,6 +455,288 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 3 : 1)
     }
 }
 
+// ---------------------------------------------------------------------------
+// dk/dv and ds in bf16 and float16, head dims 64 and 128: Hopper's design
+// (the source note's second part).  A block is one warpgroup and 64 keys;
+// K and V arrive once by TMA, Q and dO in a ring of 32-row stages, their
+// rows' bias, lse and delta by cp.async; the four products run on wgmma and
+// ds^T leaves through shared memory by TMA stores.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Sm90DkvTile {
+  static constexpr int kQRows = 32;  // query rows a stage
+  static constexpr int kStages = 2;
+  static constexpr int kKPanel = 64 * 128;      // 64 key rows of 128 bytes
+  static constexpr int kQPanel = kQRows * 128;  // the query rows' panel
+  static constexpr int kKTile = D / 64 * kKPanel;
+  static constexpr int kQTile = D / 64 * kQPanel;
+  static constexpr int kBiasS = 64 + 4;  // bias row stride, floats
+  static constexpr int kV = kKTile;      // K at 0
+  static constexpr int kQ = kV + kKTile;
+  static constexpr int kDo = kQ + kStages * kQTile;
+  static constexpr int kDs = kDo + kStages * kQTile;  // a 64 x 32 box
+  static constexpr int kBias = kDs + 8192;
+  static constexpr int kStats = kBias + kQRows * kBiasS * 4;  // lse, delta
+  static constexpr int kBar = kStats + 2 * kQRows * 4;
+  // K and V, and Q and dO of each stage, one mbarrier each; 1024 bytes of
+  // slack to align the tiles
+  static constexpr size_t kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// D 64: three blocks an SM (at most 168 registers a thread)
+template <typename T, int D>
+__global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
+    flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tds,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv, int sq,
+                              int sk, int bias_ratio, int bias_vec,
+                              int causal, float scale,
+                              const int* __restrict__ seed,
+                              uint32_t threshold, float inv_keep) {
+  using L = Sm90DkvTile<D>;
+  constexpr int S = L::kStages, P = D / 64, BM = L::kQRows, NT = BM / 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + L::kV;
+  uint8_t* qs = ks + L::kQ;    // [stage][panel][BM][128 bytes]
+  uint8_t* dos = ks + L::kDo;  // the same for dO
+  // ds^T: [64 keys][32 queries], TMA's 128-byte swizzle
+  float* dss = reinterpret_cast<float*>(ks + L::kDs);
+  float* bs = reinterpret_cast<float*>(ks + L::kBias);  // [BM][kBiasS]
+  float* lses = reinterpret_cast<float*>(ks + L::kStats);  // [BM]
+  float* deltas = lses + BM;
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(ks + L::kBar);
+  uint64_t* qbar = kvbar + 1;
+  uint64_t* dobar = qbar + S;
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int g = (tid % 32) / 4, t = tid % 4;
+  const int bh = blockIdx.y, n0 = blockIdx.x * 64;
+  const size_t qoff = static_cast<size_t>(bh) * sq;
+  const size_t koff = static_cast<size_t>(bh) * sk;
+  const float* bb =
+      bias ? bias + static_cast<size_t>(bh / bias_ratio) * sq * sk : nullptr;
+  const uint32_t sd = seed ? static_cast<uint32_t>(*seed) : 0u;
+  // causal: query rows below the block's first key see none of its keys
+  const int qstart = causal ? n0 : 0;
+  const int tiles = (round64(sq) - qstart) / BM;
+  const int kr = 16 * warp + g;  // this thread's keys: n0 + kr, + 8
+
+  auto load_rows = [&](int i) {  // thread 0: query tile i into its stage
+    const int st = i % S, m0 = qstart + BM * i;
+    mbar_expect(qbar + st, L::kQTile);
+    for (int p = 0; p < P; ++p)
+      tma_load(qs + st * L::kQTile + p * L::kQPanel, &tq, qbar + st, 64 * p,
+               m0, bh);
+    mbar_expect(dobar + st, L::kQTile);
+    for (int p = 0; p < P; ++p)
+      tma_load(dos + st * L::kQTile + p * L::kQPanel, &tdo, dobar + st,
+               64 * p, m0, bh);
+  };
+  // the bias, lse and delta of query rows m0 .. m0 + BM - 1 (rows past Sq:
+  // lse +inf, so their p is 0)
+  auto stage_rows = [&](int m0) {
+    if (bb && bias_vec) {  // rows 16-byte aligned: 16 chunks of 4 a row
+      for (int i = tid; i < BM * 16; i += 128) {
+        const int r = i / 16, c = 4 * (i % 16);
+        const bool ok = m0 + r < sq && n0 + c < sk;
+        cp_async16(bs + r * L::kBiasS + c,
+                   bb + (ok ? static_cast<size_t>(m0 + r) * sk + n0 + c : 0),
+                   ok);
+      }
+    } else if (bb) {
+      for (int i = tid; i < BM * 64; i += 128) {
+        const int r = i / 64, c = i % 64;
+        const bool ok = m0 + r < sq && n0 + c < sk;
+        cp_async4(bs + r * L::kBiasS + c,
+                  bb + (ok ? static_cast<size_t>(m0 + r) * sk + n0 + c : 0),
+                  ok);
+      }
+    }
+    for (int i = tid; i < BM; i += 128) {
+      if (m0 + i < sq) {
+        cp_async4(lses + i, lse + qoff + m0 + i, true);
+        cp_async4(deltas + i, delta + qoff + m0 + i, true);
+      } else {
+        lses[i] = INFINITY;
+        deltas[i] = 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(qbar + i, 1);
+      mbar_init(dobar + i, 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(kvbar, 2 * L::kKTile);
+    for (int p = 0; p < P; ++p) {
+      tma_load(ks + p * L::kKPanel, &tk, kvbar, 64 * p, n0, bh);
+      tma_load(vs + p * L::kKPanel, &tv, kvbar, 64 * p, n0, bh);
+    }
+    for (int i = 0; i < min(tiles, S); ++i) load_rows(i);
+  }
+  stage_rows(qstart);
+
+  float dk_acc[D / 2], dv_acc[D / 2], s[BM / 2], dp[BM / 2];
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+#pragma unroll
+  for (int n = 0; n < BM / 2; ++n) s[n] = dp[n] = 0.f;
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < tiles; ++i) {
+    const int st = i % S, m0 = qstart + BM * i;
+    const uint32_t phase = (i / S) & 1;
+    const uint8_t* qt = qs + st * L::kQTile;
+    const uint8_t* dt = dos + st * L::kQTile;
+    // the block's 64 keys against the tile's queries: s = k.q^T and
+    // dp = v.do^T, keys as rows
+    mbar_wait(qbar + st, phase);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss32<T>(s, wg_desc(ks + kk / 4 * L::kKPanel + kk % 4 * 32, 16,
+                                 1024),
+                      wg_desc(qt + kk / 4 * L::kQPanel + kk % 4 * 32, 16, 1024),
+                      kk > 0);
+    wg_commit();
+    mbar_wait(dobar + st, phase);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss32<T>(dp, wg_desc(vs + kk / 4 * L::kKPanel + kk % 4 * 32, 16,
+                                  1024),
+                      wg_desc(dt + kk / 4 * L::kQPanel + kk % 4 * 32, 16, 1024),
+                      kk > 0);
+    wg_commit();
+    // the keep mask (common.cuh pt_dropout_word), drawn while the products
+    // run: the draw of counter (key >> 1, query) serves keys g and g ^ 1 --
+    // this lane and the lane four apart -- at queries q and q + 8 (columns
+    // 2i and 2i + 1 of 8, q's bit 3 clear).  Each lane draws the counters
+    // of its own query parity g & 1, keeps two words of each and hands the
+    // other two to its partner as bits: one shuffle a tile, a quarter of a
+    // draw an element
+    uint32_t keep = ~0u;
+    if (seed) {
+      const int par = g & 1;
+      uint32_t mine = 0, theirs = 0;
+#pragma unroll 4
+      for (int u = 0; u < NT; ++u) {
+        const int h = u & 1, jp = u >> 1;
+        const int key = n0 + kr + 8 * h;
+        const uint32_t w = keep_bits(
+            pt_philox(sd, static_cast<uint32_t>(key) >> 1,
+                      static_cast<uint32_t>(m0 + 16 * jp + 2 * t + par),
+                      static_cast<uint32_t>(bh)),
+            threshold);
+        const int at = 8 * jp + par + 2 * h;  // element (2jp, par + 2h)
+        mine |= ((w >> par) & 1u) << at | ((w >> (2 + par)) & 1u) << (at + 4);
+        theirs |= ((w >> (1 - par)) & 1u) << at |
+                  ((w >> (3 - par)) & 1u) << (at + 4);
+      }
+      keep = mine | __shfl_xor_sync(0xffffffffu, theirs, 4);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's bias, lse and delta are in place
+    wg_wait<1>();
+    wg_hold(s);
+
+    // p = e^(s - lse) as 2^(s log2 e - lse log2 e): s becomes p
+    const bool edge = n0 + 64 > sk;
+    const bool diagonal = causal && n0 + 63 > m0;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * j + 2 * t + (c & 1), key = kr + 8 * (c >> 1);
+        float sv = bb ? fmaf(s[4 * j + c], scale, bs[col * L::kBiasS + key])
+                      : s[4 * j + c] * scale;
+        if (diagonal && n0 + key > m0 + col) sv = kNegInf;
+        if (edge && n0 + key >= sk) sv = -INFINITY;
+        s[4 * j + c] = ex2(fmaf(sv, kLog2e, -lses[col] * kLog2e));
+      }
+    wg_wait<0>();
+    wg_hold(dp);
+    // s becomes p_dropped and dp becomes ds = p (dp_dropped - delta)
+#pragma unroll
+    for (int n = 0; n < BM / 2; ++n) {
+      const float mult = !seed ? 1.f : (keep >> n) & 1u ? inv_keep : 0.f;
+      const float p = s[n];
+      s[n] = p * mult;
+      dp[n] = p * (dp[n] * mult - deltas[8 * (n / 4) + 2 * t + (n & 1)]);
+    }
+    if (tid == 0) bulk_wait_read();  // the last ds tile has left
+    __syncthreads();  // ... and every thread read this tile's rows
+    if (i + 1 < tiles) stage_rows(m0 + BM);
+    // ds^T into shared memory: key row r, query q at chunk (q / 4) ^
+    // (r % 8) of its 128-byte row
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = kr + 8 * h, q = 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(dss + r * 32 + ((q / 4) ^ (r % 8)) * 4 +
+                                   q % 4) =
+            make_float2(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
+      }
+    fence_async_smem();
+    uint32_t pa[BM / 16][4], da[BM / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pa[kk][e] = pack16<T>(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+        da[kk][e] = pack16<T>(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+      }
+    // dv += p_dropped^T . do, dk += ds^T . q
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+      wgmma_rs<T, D>(dv_acc, pa[kk],
+                     wg_desc(dt + 2048 * kk, L::kQPanel, 1024));
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+      wgmma_rs<T, D>(dk_acc, da[kk],
+                     wg_desc(qt + 2048 * kk, L::kQPanel, 1024));
+    wg_commit();
+    wg_wait<0>();
+    wg_hold(dk_acc);
+    wg_hold(dv_acc);
+    __syncthreads();  // ds^T is in shared memory; the stage is read
+    if (tid == 0) {
+      tma_store(&tds, dss, m0, n0, bh);
+      bulk_commit();
+      if (i + S < tiles) load_rows(i + S);
+    }
+  }
+  if (tid == 0) bulk_wait();
+
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = n0 + kr + 8 * h;
+      if (key >= sk) continue;
+      const size_t at = (koff + key) * D + 8 * j + 2 * t;
+      store2(dk + at, dk_acc[4 * j + 2 * h] * scale,
+             dk_acc[4 * j + 2 * h + 1] * scale);
+      store2(dv + at, dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+}
+
 template <typename T, int D, int BM>
 cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   using L = DkvTile<T, D, BM>;
@@ -433,6 +754,36 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
       static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.ds, a.sq, a.sk, a.bias_ratio, a.causal,
       a.scale, a.seed, a.threshold, a.inv_keep);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_sm90(const BwdArgs& a, cudaStream_t stream) {
+  using L = Sm90DkvTile<D>;
+  static_assert(L::kSmem <= 232448, "dk/dv tiles exceed shared memory");
+  CUtensorMap tq, tk, tv, tdo, tds;
+  cudaError_t err = tile_map<T>(&tq, a.q, a.bh, a.sq, D, L::kQRows, 64);
+  if (err == cudaSuccess) err = tile_map<T>(&tk, a.k, a.bh, a.sk, D, 64, 64);
+  if (err == cudaSuccess) err = tile_map<T>(&tv, a.v, a.bh, a.sk, D, 64, 64);
+  if (err == cudaSuccess)
+    err = tile_map<T>(&tdo, a.dout, a.bh, a.sq, D, L::kQRows, 64);
+  if (err == cudaSuccess)
+    err = tile_map<float>(&tds, a.ds, a.bh, round64(a.sk), round64(a.sq), 64,
+                          32);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_dkv_sm90_kernel<T, D>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L::kSmem));
+  if (err != cudaSuccess) return err;
+  const int vec = a.bias && a.sk % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;
+  dim3 grid(round64(a.sk) / 64, a.bh);
+  kernel<<<grid, 128, L::kSmem, stream>>>(
+      tq, tk, tv, tdo, tds, static_cast<const float*>(a.bias),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk, a.bias_ratio,
+      vec, a.causal, a.scale, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
@@ -758,21 +1109,23 @@ cudaError_t launch_dkv_fma(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dk/dv: the tensor-core kernel where the caller gives a ds scratch, else
-// the FMA kernel (head dim 256 has only the FMA route)
+// dk/dv: the tensor-core kernel where the caller gives a ds scratch (float32
+// the mma.sync kernel, bf16 and float16 Hopper's design), else the FMA
+// kernel (head dim 256 has only the FMA route)
 template <typename T>
 cudaError_t dispatch_dkv(int d, const BwdArgs& a, cudaStream_t s) {
-  switch (d) {
-    case 64:
-      return a.ds ? launch_dkv<T, 64, 32>(a, s) : launch_dkv_fma<T, 64>(a, s);
-    case 128:
-      return a.ds ? launch_dkv<T, 128, 32>(a, s)
-                  : launch_dkv_fma<T, 128>(a, s);
-    case 256:
-      return a.ds ? cudaErrorInvalidValue : launch_dkv_fma<T, 256>(a, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (d == 256)
+    return a.ds ? cudaErrorInvalidValue : launch_dkv_fma<T, 256>(a, s);
+  if (d != 64 && d != 128) return cudaErrorInvalidValue;
+  if (!a.ds)
+    return d == 64 ? launch_dkv_fma<T, 64>(a, s)
+                   : launch_dkv_fma<T, 128>(a, s);
+  if constexpr (sizeof(T) == 4)
+    return d == 64 ? launch_dkv<T, 64, 32>(a, s)
+                   : launch_dkv<T, 128, 32>(a, s);
+  else
+    return d == 64 ? launch_dkv_sm90<T, 64>(a, s)
+                   : launch_dkv_sm90<T, 128>(a, s);
 }
 
 // dq: from ds on the tensor-core route, from the inputs on the FMA route
@@ -808,6 +1161,10 @@ int run(Kernel which, int dtype, int d, const BwdArgs& a, void* stream) {
     err = which == Kernel::kDkv
               ? dispatch_dkv<__nv_bfloat16>(d, a, s)
               : dispatch_dq<__nv_bfloat16>(which == Kernel::kDqDs, d, a, s);
+  } else if (dtype == PT_F16) {
+    err = which == Kernel::kDkv
+              ? dispatch_dkv<__half>(d, a, s)
+              : dispatch_dq<__half>(which == Kernel::kDqDs, d, a, s);
   } else {
     err = cudaErrorInvalidValue;
   }

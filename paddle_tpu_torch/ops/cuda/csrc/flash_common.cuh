@@ -6,15 +6,18 @@
 //   float4 staging of (bf16 or float32) rows into float32 shared memory,
 //   and the register-tiled products on the float32 FMA pipes.
 // * The tensor-core kernels: warps of mma.sync.m16n8k8 (.tf32, float32 as
-//   3xTF32) and m16n8k16 (.bf16) products whose score tiles stay in
+//   3xTF32) and m16n8k16 (.bf16, .f16) products whose score tiles stay in
 //   registers, float32 score products as one FMA chain per score, and
-//   cp.async copies of the streamed tiles.
+//   cp.async copies of the streamed tiles.  (The 16-bit forward and dk/dv
+//   kernels are Hopper's own: hopper.cuh.)
 // * The dropout keep decision (common.cuh pt_dropout_word), per element and
 //   per accumulator fragment.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -37,12 +40,26 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
   __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void store4(__half* p, float4 v) {
+  __half2 lo = __floats2half2_rn(v.x, v.y);
+  __half2 hi = __floats2half2_rn(v.z, v.w);
   uint2 u;
   u.x = *reinterpret_cast<uint32_t*>(&lo);
   u.y = *reinterpret_cast<uint32_t*>(&hi);
@@ -186,14 +203,28 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
 }
 
-// two adjacent bf16 values as one word (p 4-byte aligned)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// (a, b) = hi + lo, both pairs of float16, a in the low halves
+__device__ __forceinline__ void split_f16(float a, float b, uint32_t& hi,
+                                          uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(a, b);
+  const float2 hf = __half22float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  const __half2 l = __floats2half2_rn(a - hf.x, b - hf.y);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <typename T>
+__device__ __forceinline__ void split16(float a, float b, uint32_t& hi,
+                                        uint32_t& lo) {
+  if constexpr (std::is_same<T, __half>::value)
+    split_f16(a, b, hi, lo);
+  else
+    split_bf16(a, b, hi, lo);
 }
 
 // p[0] and p[stride] as one word, p[0] in the low half
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p,
-                                            int stride) {
+template <typename T, typename = std::enable_if_t<sizeof(T) == 2>>
+__device__ __forceinline__ uint32_t ld_pair(const T* p, int stride) {
   const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
   const uint32_t hi = *reinterpret_cast<const unsigned short*>(p + stride);
   return lo | (hi << 16);
@@ -217,6 +248,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[16x8] += a[16x16] . b[16x8]: float16 in, float32 accumulate
+__device__ __forceinline__ void mma_f16(float (&c)[4],
+                                        const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16(c, a, b);
+  else
+    mma_bf16(c, a, b);
 }
 
 // c += a.b on split operands, the small terms first
@@ -280,6 +330,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
 
 // ---------------------------------------------------------------------------
 // warp products.  Lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8
@@ -341,32 +394,12 @@ __device__ __forceinline__ void score_tile_fma(float (&c)[NT][4],
   }
 }
 
-template <int D, int NT, int S>
-__device__ __forceinline__ void score_tile(float (&c)[NT][4],
-                                           const __nv_bfloat16* a,
-                                           const __nv_bfloat16* b, int g,
-                                           int t) {
-#pragma unroll 2
-  for (int kk = 0; kk < D; kk += 16) {
-    const uint32_t af[4] = {ld_pair(a + g * S + kk + 2 * t),
-                            ld_pair(a + (g + 8) * S + kk + 2 * t),
-                            ld_pair(a + g * S + kk + 2 * t + 8),
-                            ld_pair(a + (g + 8) * S + kk + 2 * t + 8)};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* br = b + (8 * j + g) * S + kk + 2 * t;
-      const uint32_t bf[2] = {ld_pair(br), ld_pair(br + 8)};
-      mma_bf16(c[j], af, bf);
-    }
-  }
-}
-
 // acc[n] += p . b[0:8NT][8n:8n + 8] (n < D / 8): p is 16 x 8NT in
 // score_tile's accumulator layout, b's rows in shared memory S apart.  The
 // accumulator holds columns 2t, 2t + 1 of its tile j where an A fragment of
 // m16n8k8 holds t and t + 4: read as that fragment, the k index is permuted,
 // and b's rows 8j + 2t and 8j + 2t + 1 take the place of rows t and t + 4.
-// (kSplit is the bf16 overload's; float32 is always 3xTF32.)
+// (kSplit is unused: float32 is always 3xTF32.)
 template <int D, int NT, int S, bool kSplit = true>
 __device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
                                          const float (&p)[NT][4],
@@ -388,34 +421,6 @@ __device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
     }
   }
 }
-
-// bf16: tiles 2i and 2i + 1 of p are, as they lie, the A fragment of one
-// m16n8k16 step over the columns 16i .. 16i + 16.  p is split into two
-// bf16 halves (kSplit), or rounded to bf16 once, as the forward's reference
-// rounds p to v's dtype before p.v.
-template <int D, int NT, int S, bool kSplit = true>
-__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
-                                         const float (&p)[NT][4],
-                                         const __nv_bfloat16* b, int g,
-                                         int t) {
-#pragma unroll
-  for (int i = 0; i < NT / 2; ++i) {
-    uint32_t ahi[4], alo[4];
-    split_bf16(p[2 * i][0], p[2 * i][1], ahi[0], alo[0]);
-    split_bf16(p[2 * i][2], p[2 * i][3], ahi[1], alo[1]);
-    split_bf16(p[2 * i + 1][0], p[2 * i + 1][1], ahi[2], alo[2]);
-    split_bf16(p[2 * i + 1][2], p[2 * i + 1][3], ahi[3], alo[3]);
-    const __nv_bfloat16* br = b + (16 * i + 2 * t) * S + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const uint32_t bf[2] = {ld_pair(br + 8 * n, S),
-                              ld_pair(br + 8 * S + 8 * n, S)};
-      if (kSplit) mma_bf16(acc[n], alo, bf);
-      mma_bf16(acc[n], ahi, bf);
-    }
-  }
-}
-
 
 template <int N>
 __device__ __forceinline__ void zero(float (&c)[N][4]) {

@@ -43,6 +43,7 @@ from .build import function
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,12 +74,12 @@ def supported(sq: int, sk: int, d: int, dtype=torch.float32,
               causal: bool = False, dropout_rate: float = 0.0
               ) -> Tuple[bool, str]:
     """What the CUDA kernels reject: head dims other than 64/128/256,
-    dtypes other than float32/bfloat16, a rectangular causal problem and a
-    dropout rate outside [0, 1).  Any sequence lengths work (rows and keys
-    are masked)."""
+    dtypes other than float32/bfloat16/float16, a rectangular causal
+    problem and a dropout rate outside [0, 1).  Any sequence lengths work
+    (rows and keys are masked)."""
     if d not in HEAD_DIMS:
         return False, f"head-dim:{d}"
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in DTYPES:
         return False, f"dtype:{dtype}"
     if causal and sq != sk:
         return False, "causal-rectangular"

@@ -20,6 +20,8 @@ fleet's ``strategy.amp``, on the CPU.
   elements (their float32 sums run in different orders); those
   tolerances leave room for that over a 2-layer model.  Measured on the
   CPU: losses within 2.6e-5, gradients within 3.8e-3 (worst parameter).
+* BERT-tiny in fp16 with dynamic loss scaling, 3 Adam steps: every loss
+  within 1e-2 of the JAX package's, the flash route taken in float16.
 * The MLP in fp16, 5 steps: losses within 1e-2, the scale state equal;
   with an ``inf`` fed at steps 4 and 5 the port zeroes those steps'
   gradients, backs the scale off once and regrows it as a host replay of
@@ -382,17 +384,21 @@ def _adam(fluid):
     return fluid.optimizer.Adam(1e-3)
 
 
-@pytest.fixture(scope="module")
-def bert_reference():
+def _bert_reference(dtype):
     rng = np.random.RandomState(0)
     feeds = [jbert.make_fake_batch(rng, _bert_cfg(jbert), batch_size=2,
                                    seq_len=128, num_masks=5)
              for _ in range(BERT_STEPS)]
-    main, startup, loss = _build("jax", "bert-tiny", "bf16", optimizer=_adam)
+    main, startup, loss = _build("jax", "bert-tiny", dtype, optimizer=_adam)
     grads = [p.name + "@GRAD" for p in main.all_parameters()]
     init, outs = _jax_train(main, startup, loss, feeds, grads)
     return {"feeds": feeds, "init": init, "grads": grads,
             "losses": [float(o[0]) for o in outs], "grad_values": outs[0][1:]}
+
+
+@pytest.fixture(scope="module")
+def bert_reference():
+    return _bert_reference("bf16")
 
 
 def _check_losses(losses, ref):
@@ -424,6 +430,35 @@ def test_bf16_bert_tiny_trains_like_the_jax_package(bert_reference, entry):
     _check_losses([float(o[0]) for o in outs], ref["losses"])
     # master weights stay float32; the attention ran on the flash route
     # (its plain twin on the CPU) in bf16, nothing fell back
+    assert {scope.find_var(p.name).dtype
+            for p in main.all_parameters()} == {torch.float32}
+    hits = registry.route_counts("hit")
+    assert hits[("fused_attention", "flash_attention", "hit",
+                 "supported")] == 2 * BERT_STEPS
+    assert not registry.route_counts("fallback")
+
+
+def test_fp16_bert_tiny_trains_like_the_jax_package():
+    """BERT-tiny under fp16 ``decorate`` with dynamic loss scaling, 3 Adam
+    steps through ``Executor.run``: every loss within TOL_LOSS of the JAX
+    package's, the scale state that of three steps without overflow, the
+    attention on the flash route in float16 (its plain twin on the CPU),
+    the master weights float32."""
+    ref = _bert_reference("fp16")
+    main, _, loss = _build("port", "bert-tiny", "fp16", optimizer=_adam)
+    scope = _port_scope(ref["init"], main)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    state = ["loss_scaling_0", "good_steps_0", "bad_steps_0"]
+    outs = [exe.run(main, feed=f, fetch_list=[loss] + state, scope=scope)
+            for f in ref["feeds"]]
+    losses = [float(o[0]) for o in outs]
+    assert all(np.isfinite(losses)), losses
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    print(f"fp16 BERT-tiny losses {losses}, JAX {ref['losses']}: relative "
+          f"{rel} (TOL_LOSS {TOL_LOSS})")
+    assert max(rel) <= TOL_LOSS, rel
+    assert [int(o[2][0]) for o in outs] == list(range(1, BERT_STEPS + 1))
+    assert {float(o[1][0]) for o in outs} == {2.0 ** 15}
     assert {scope.find_var(p.name).dtype
             for p in main.all_parameters()} == {torch.float32}
     hits = registry.route_counts("hit")

@@ -5,9 +5,10 @@ its CUDA kernel computes, and what a wrapper runs on CPU tensors) is held
 against the TPU kernel it replaces, run in Pallas interpret mode on the
 CPU as tests/test_flash_attention.py and tests/test_pallas_fused.py run
 them.  Inputs come from numpy with a fixed seed.  Tolerances: 2e-5 (abs
-and rel) for outputs, 1e-4 for the flash log-sum-exp.  The CUDA kernels
-themselves run only on a GPU (chip_smoke.py holds them against these
-plain versions there)."""
+and rel) for outputs, 1e-4 for the flash log-sum-exp; flash outputs in
+bf16 and float16 within two ulps of the type of their largest value.
+The CUDA kernels themselves run only on a GPU (chip_smoke.py holds them
+against these plain versions there)."""
 
 import numpy as np
 import pytest
@@ -24,6 +25,9 @@ from paddle_tpu_torch.ops.cuda import fused_ops as tF
 
 TOL = 2e-5
 TOL_LSE = 1e-4
+#: 16-bit outputs: two ulps of the type relative to max|ref| (bf16's is
+#: chip_smoke.py's BF16_REL)
+REL16 = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -9}
 
 
 def _close(got, ref, tol=TOL):
@@ -50,29 +54,54 @@ def _bias(rng, mode, b, h, s, sk):
     return rng.randn(b * h, s, sk).astype(np.float32)   # per head
 
 
-@pytest.mark.parametrize("mode,causal,s,d", [
-    ("none", False, 128, 64),
-    ("shared", False, 256, 64),
-    ("perhead", False, 128, 64),
-    ("none", True, 256, 64),
-    ("shared", False, 128, 128),
-])
-def test_flash_plain_matches_pallas_interpret(mode, causal, s, d):
+def cases16(f32, cases):
+    """Parameters: the ``f32`` cases in float32 under the ids they had
+    before the dtype was a parameter, and ``cases`` in bf16 and float16
+    (ids ending in the dtype)."""
+    return [pytest.param(*c, "float32", id="-".join(map(str, c)))
+            for c in f32] + [
+        pytest.param(*c, dt, id="-".join(map(str, c + (dt,))))
+        for dt in ("bfloat16", "float16") for c in cases]
+
+
+def close16(got, ref, dtype):
+    """16-bit outputs: within REL16[dtype] of max|ref| (two ulps of the
+    type, relative to the largest output)."""
+    got = np.asarray(torch.as_tensor(got).float())
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    limit = REL16[dtype] * float(np.abs(ref).max())
+    assert float(np.abs(got - ref).max()) <= limit
+
+
+@pytest.mark.parametrize("mode,causal,s,d,dtype", cases16(
+    [("none", False, 128, 64), ("shared", False, 256, 64),
+     ("perhead", False, 128, 64), ("none", True, 256, 64),
+     ("shared", False, 128, 128)],
+    [("shared", False, 128, 64), ("none", True, 256, 64),
+     ("perhead", False, 128, 128)]))
+def test_flash_plain_matches_pallas_interpret(mode, causal, s, d, dtype):
+    """Float32, and the same numpy inputs cast to bf16 / float16 in both
+    packages (the bias stays float32): o within two ulps of the type of
+    max|o| there, lse (float32) within TOL_LSE."""
     rng = np.random.RandomState(0)
     b, h = 2, 2
     q, k, v = (rng.randn(b * h, s, d).astype(np.float32) for _ in range(3))
     bias = _bias(rng, mode, b, h, s, s)
     seed = jnp.zeros((1,), jnp.int32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     ref_o, ref_lse = fa._flash_fwd(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
         None if bias is None else jnp.asarray(bias), seed, 0.0, causal,
         True)
-    o, lse = tfa.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
-                           torch.from_numpy(v),
+    o, lse = tfa.flash_fwd(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
                            None if bias is None else torch.from_numpy(bias),
                            causal=causal)
     assert o.shape == (b * h, s, d) and lse.shape == (b * h, s, 1)
-    _close(o, ref_o)
+    assert o.dtype == tdt and lse.dtype == torch.float32
+    if dtype == "float32":
+        _close(o, ref_o)
+    else:
+        close16(o, ref_o, dtype)
     _close(lse, ref_lse, TOL_LSE)
 
 
@@ -167,7 +196,8 @@ def test_gates_state_what_the_kernels_reject():
     assert tfa.supported(128, 128, 64, dropout_rate=0.1) == (True, "")
     assert tfa.supported(128, 128, 64, dropout_rate=1.0) == \
         (False, "dropout-rate:1.0")
-    assert tfa.supported(128, 128, 64, torch.float16)[1].startswith(
+    assert tfa.supported(128, 128, 64, torch.float16) == (True, "")
+    assert tfa.supported(128, 128, 64, torch.float64)[1].startswith(
         "dtype:")
     assert tF.ln_supported(768) == (True, "")
     assert tF.ln_supported(8320) == (False, "norm-dim:8320")

@@ -7,7 +7,8 @@ kernel it replaces, run in Pallas interpret mode on the CPU as
 tests/test_flash_attention.py and tests/test_pallas_fused.py run them.
 Inputs come from numpy with a fixed seed.  Tolerances
 (KERNEL_CENSUS_r15.json ``parity``): flash gradients 2e-4, LayerNorm
-gradients 2e-5, Adam 1e-5, abs and rel.
+gradients 2e-5, Adam 1e-5, abs and rel; flash gradients in bf16 and
+float16 within two ulps of the type of their largest value.
 
 The Pallas flash kernel refuses dropout in interpret mode (its hardware
 generator has no interpreter), so the port's dropout is tested on its
@@ -29,6 +30,7 @@ from paddle_tpu_torch.ops import cuda as port_cuda
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import fused_ops as tF
 from paddle_tpu_torch.ops.cuda import optimizer as topt
+from test_torch_kernels import cases16, close16
 
 TOL_FLASH_GRAD = 2e-4
 TOL_LN_GRAD = 2e-5
@@ -63,31 +65,37 @@ def _t(a):
     return None if a is None else torch.from_numpy(a)
 
 
-@pytest.mark.parametrize("mode,causal,s,d", [
-    ("none", False, 128, 64),
-    ("shared", False, 128, 64),
-    ("perhead", False, 128, 64),
-    ("none", True, 256, 64),
-    ("shared", False, 256, 128),
-    ("perhead", True, 128, 128),
-])
-def test_flash_bwd_plain_matches_pallas_interpret(mode, causal, s, d):
+@pytest.mark.parametrize("mode,causal,s,d,dtype", cases16(
+    [("none", False, 128, 64), ("shared", False, 128, 64),
+     ("perhead", False, 128, 64), ("none", True, 256, 64),
+     ("shared", False, 256, 128), ("perhead", True, 128, 128)],
+    [("shared", False, 128, 64), ("none", True, 256, 64),
+     ("perhead", True, 128, 128)]))
+def test_flash_bwd_plain_matches_pallas_interpret(mode, causal, s, d, dtype):
+    """Float32, and the same numpy inputs cast to bf16 / float16 in both
+    packages (the bias stays float32): each gradient within two ulps of
+    the type of its largest value there."""
     rng = np.random.RandomState(10)
     b, h = 2, 2
     q, k, v, do = (rng.randn(b * h, s, d).astype(np.float32)
                    for _ in range(4))
     bias = _bias(rng, mode, b, h, s)
     seed = jnp.zeros((1,), jnp.int32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     fn = fa._make_flash(0.0, bias is not None, causal, True)
     jb = None if bias is None else jnp.asarray(bias)
     _, vjp = jax.vjp(lambda q_, k_, v_: fn(q_, k_, v_, jb, seed),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    ref = vjp(jnp.asarray(do))
-    o, lse = tfa.flash_fwd(_t(q), _t(k), _t(v), _t(bias), causal)
-    got = tfa.flash_bwd_plain(_t(q), _t(k), _t(v), _t(bias), o, lse, _t(do),
-                              causal)
+                     *(jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+    ref = vjp(jnp.asarray(do).astype(jdt))
+    q16, k16, v16, do16 = (_t(a).to(tdt) for a in (q, k, v, do))
+    o, lse = tfa.flash_fwd(q16, k16, v16, _t(bias), causal)
+    got = tfa.flash_bwd_plain(q16, k16, v16, _t(bias), o, lse, do16, causal)
     for g, r in zip(got, ref):
-        _close(g, r, TOL_FLASH_GRAD)
+        assert g.dtype == tdt
+        if dtype == "float32":
+            _close(g, r, TOL_FLASH_GRAD)
+        else:
+            close16(g, r, dtype)
 
 
 @pytest.mark.parametrize("rows,d", [(200, 256), (40, 768), (128, 128)])

@@ -4,7 +4,7 @@ quantized all-reduce receive-stage kernels on one CUDA card, across
 checkouts of the repository.
 
     python3 tools/torch_kernel_ab.py ROOT [ROOT ...] [--out FILE]
-                                     [--only fwd,bwd,adam,ln_fwd,quant]
+                                     [--only fwd,bwd,amp,adam,ln_fwd,quant]
 
 Each ROOT is a checkout holding ``paddle_tpu_torch``.  Each runs in its own
 process, in the order given (to compare a parent P with a change C on one
@@ -25,6 +25,9 @@ through the checkout's own wrappers and executor:
   library's backward (``torch.autograd.grad`` through SDPA at the same
   rate), and ``delta = rowsum(dO * O)``, the two PyTorch ops the
   wrapper runs beside the pair;
+* the same forward and backward pair at the bf16 program's shape
+  (``amp``: B96 H12 S128 D64, the padding bias, dropout 0.1 and 0), in
+  bf16 and, where the checkout's gate takes it, float16;
 * the whole Adam update of a BERT-base step as the checkout's executor
   runs it (``framework.executor.run_ops`` over the 158 ``adam`` ops of
   ``Adam(1e-4)``, and over the 158 ``adamw`` ops of the published recipe:
@@ -79,6 +82,8 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_SHAPES = ((32, 128), (8, 512))    # (batch, sequence), 12 heads, D 64
 SERVED_SHAPE = (8, 128)
+AMP_SHAPE = (96, 128)                   # bench.py's bf16 pretraining batch
+AMP_DTYPES = ("bfloat16", "float16")
 HEADS, HEAD_DIM = 12, 64
 RATES = (0.1, 0.0)
 SEED = 2024
@@ -118,16 +123,19 @@ def profile_calls(torch, fn, calls=5):
     return out
 
 
-def forward_rows(torch, FA, C, dev, gen, seed):
+def forward_rows(torch, FA, C, dev, gen, seed, cases=None):
+    """The forward's rows at (dtype, batch, seq, mode, rate) ``cases``
+    (default: the training shapes and the served row)."""
     import torch.nn.functional as F
     rows = []
-    cases = [(dt, b, s, mode, rate)
-             for dt in ("float32", "bfloat16") for b, s in TRAIN_SHAPES
-             for mode in ("padding-bias", "causal") for rate in RATES]
-    cases.append(("float32", SERVED_SHAPE[0], SERVED_SHAPE[1],
-                  "padding-bias served", 0.0))
+    if cases is None:
+        cases = [(dt, b, s, mode, rate)
+                 for dt in ("float32", "bfloat16") for b, s in TRAIN_SHAPES
+                 for mode in ("padding-bias", "causal") for rate in RATES]
+        cases.append(("float32", SERVED_SHAPE[0], SERVED_SHAPE[1],
+                      "padding-bias served", 0.0))
     for dtname, bsz, seq, mode, rate in cases:
-        dt = torch.float32 if dtname == "float32" else torch.bfloat16
+        dt = getattr(torch, dtname)
         es = torch.finfo(dt).bits // 8
         bh, d = bsz * HEADS, HEAD_DIM
         q, k, v = (torch.randn(bh, seq, d, generator=gen, device=dev).to(dt)
@@ -191,12 +199,13 @@ def pair_fns(FA, q, k, v, bias, do, lse, delta, rate, seed):
     return pair
 
 
-def backward_rows(torch, FA, C, dev, gen, seed):
+def backward_rows(torch, FA, C, dev, gen, seed,
+                  dtypes=("float32", "bfloat16"), shapes=TRAIN_SHAPES):
     import torch.nn.functional as F
     rows = []
-    for dtname in ("float32", "bfloat16"):
-        dt = torch.float32 if dtname == "float32" else torch.bfloat16
-        for bsz, seq in TRAIN_SHAPES:
+    for dtname in dtypes:
+        dt = getattr(torch, dtname)
+        for bsz, seq in shapes:
             bh, d = bsz * HEADS, HEAD_DIM
             q, k, v, do = (torch.randn(bh, seq, d, generator=gen,
                                        device=dev).to(dt) for _ in range(4))
@@ -444,9 +453,10 @@ def quant_rows(torch, C, dev, gen):
     return rows
 
 
-GROUPS = ("fwd", "bwd", "adam", "ln_fwd", "quant")
+GROUPS = ("fwd", "bwd", "amp", "adam", "ln_fwd", "quant")
 LIBRARIES = {"fwd": ("flash_attention",), "adam": ("adam",),
              "bwd": ("flash_attention", "flash_attention_bwd"),
+             "amp": ("flash_attention", "flash_attention_bwd"),
              "ln_fwd": ("layer_norm",), "quant": ("quant_accumulate",)}
 
 
@@ -469,6 +479,15 @@ def worker(root, out, only=GROUPS):
         rows += forward_rows(torch, FA, C, dev, gen, seed)
     if "bwd" in only:
         rows += backward_rows(torch, FA, C, dev, gen, seed)
+    if "amp" in only:
+        # the bf16 program's shape, in the 16-bit dtypes the checkout takes
+        dts = [dt for dt in AMP_DTYPES
+               if FA.supported(AMP_SHAPE[1], AMP_SHAPE[1], HEAD_DIM,
+                               getattr(torch, dt))[0]]
+        rows += forward_rows(torch, FA, C, dev, gen, seed, [
+            (dt, AMP_SHAPE[0], AMP_SHAPE[1], "padding-bias", rate)
+            for dt in dts for rate in RATES])
+        rows += backward_rows(torch, FA, C, dev, gen, seed, dts, (AMP_SHAPE,))
     if "adam" in only:
         rows += adam_rows(torch, C, dev, gen)
     if "ln_fwd" in only:
