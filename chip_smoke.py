@@ -44,7 +44,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    Adam (runs of one at the word embedding's 23,440,896 elements,
    2,359,296, 768 and 2; all 158 BERT-base parameters as one run, adam
    and adamw, beside one ``_fused_adam_`` / ``_fused_adamw_`` call; the
-   beta powers advanced once), timed like phase 2; and the fused-training
+   beta powers advanced once; then 16-bit parameters: bf16 p with float32
+   m and v, all-bf16 and fp16 p with float32 m and v at the 158-tensor
+   run, and those and all-fp16 at one 768 x 3072 weight, every output
+   bit for bit equal to the twin's at an LR, AdamW decay and |p| at which
+   the step and the decay each move most of p past its rounding, two
+   launches bit-identical; timed at the recipe's LR beside
+   ``_fused_adam_``), timed like phase 2;
+   and the fused-training
    kernels: add+LayerNorm backward (R = 4096 and 1000, plus 1003 for a
    ragged last row block, D = 768) and bias+GELU backward (R = 4096,
    D = 3072 and R = 640, D = 768, plus R = 1003), float32 and bfloat16.
@@ -159,8 +166,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    float16 operands, and with dropout 0 kernels on vs every flag off
    within 1e-2.  Kernel #1 and the #2 + #3 pair are held and timed in
    bf16 and float16 at (a)'s shape (B96 H12 S128 D64, padding bias,
-   dropout 0.1) like phase 6's rows;
-13. print the ``kernels`` JSON line, the card's name and power limit, and
+   dropout 0.1) like phase 6's rows.  (d) pure bf16: ``decorate(Adam(
+   1e-4), use_pure_bf16=True)`` with the parameters cast to bf16 after the
+   startup (``cast_parameters_to_bf16``; the moments stay float32), 32 x
+   128, 4 prepared steps: finite losses, no route fallback, each step 12
+   flash forward, dq and dk/dv on bf16, 25 LayerNorm forward and backward
+   on float32 and 1 (the embeddings' LayerNorm) on bf16, one Adam launch
+   on bf16 parameters; the parameters still bf16; with dropout 0, kernels
+   on vs every flag off within 1e-2 (losses) and 3e-2 (gradients);
+13. LAMB pretraining, checkpoint and resume: phase 8's program and recipe
+   with ``LambOptimizer(lamb_weight_decay=0.01, epsilon=1e-6,
+   exclude_from_weight_decay_fn=...)`` (LayerNorm parameters and biases
+   excluded, as the BERT LAMB recipe has it) through
+   ``prepare(donate_state=True)``.  Run A: 10 steps, ``save_checkpoint``
+   after step 5 (the run goes on); run B: 10 steps from the same seed;
+   run C: a new scope and executor, the startup, ``load_checkpoint`` of
+   A's checkpoint, ``prepare`` and steps 6-10.  Finite losses, the LR on
+   its closed form every step (so the schedule's counter resumed), no
+   route fallback, each step phase 8's launches of #1-#9 and no Adam
+   launch.  Right after ``load_checkpoint``, C holds A's state at step 5
+   bit for bit (every persistable and the generator's state).  If A and
+   B agree bit for bit (losses and every persistable), C must agree with
+   A bit for bit after step 10; otherwise C lies no further from A than
+   ``LAMB_RESUME_MARGIN`` (4) times B's distance from A (the norm of the
+   state's difference over every persistable).  Printed: the step time (median of steps 3-10), one
+   profiled step's device time split into products, port kernels, LAMB's
+   update ops (with their launches) and other, and the seconds
+   ``save_checkpoint`` and ``load_checkpoint`` take;
+14. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -239,6 +272,31 @@ AMP_INCR_EVERY, AMP_DECR_EVERY = 3, 2
 PEAK_LR, WARMUP_STEPS, DECAY_STEPS = 1e-4, 3, 1_000_000
 WEIGHT_DECAY, CLIP_NORM = 0.01, 1.0
 TOL_LR = 1e-6             # LR read back vs the closed form (relative)
+# phase 12 leg (d): pure bf16 (parameters cast to bf16, moments float32)
+AMP_PURE_BF16_STEPS = 4
+# its launches a step, by operand dtype: the flash kernels and the one Adam
+# launch for the 158 updates on bf16; the embedding LayerNorm on bf16 (its
+# input, the sum of three bf16 tables, has no cast before it), the others
+# on float32
+PURE_BF16_LAUNCHES = (
+    ("flash_attention_fwd", "bfloat16", 12),
+    ("flash_attention_bwd_dq", "bfloat16", 12),
+    ("flash_attention_bwd_dkv", "bfloat16", 12),
+    ("layer_norm_fwd", "float32", 25), ("layer_norm_fwd", "bfloat16", 1),
+    ("layer_norm_bwd", "float32", 25), ("layer_norm_bwd", "bfloat16", 1),
+    ("adam", "bfloat16", 1))
+# phase 13: the recipe with LAMB (You et al. 2019; epsilon 1e-6 and weight
+# decay 0.01 with LayerNorm parameters and biases excluded, as the BERT
+# LAMB recipe has them), checkpointed after LAMB_SAVE_AT of TRAIN_STEPS
+# steps and resumed; LAMB's ops replace the Adam kernel's launch
+LAMB_EPSILON, LAMB_SAVE_AT = 1e-6, 5
+# where two uninterrupted runs differ (an op summing in a varying order),
+# the resumed run's distance from A over steps 6-10 may reach this multiple
+# of A-B's over steps 1-10 (their ratio was 0.59 on an H100): the
+# drift of a few ulps' disorder is itself random.  A resume that lost
+# state (moments, powers, the LR counter, the generator) lies orders of
+# magnitude further, and the restore itself is held bit for bit
+LAMB_RESUME_MARGIN = 4.0
 EDGE_ROWS = 1003          # ragged last block of the backwards' row blocks
 # the LN backwards beyond BERT-base's shapes: widths of 1, 2, 8 and 16
 # warps a row (128 and 8192 are the gate's edges) at a few hundred rows
@@ -1279,6 +1337,128 @@ def ln_adam_training_checks(torch, results, cfg):
                time_ms(torch, lambda: O.adam_multi_plain(twin)),
                time_ms(torch, library(run, 0.0)), 28 * n, 12 * n)
         adam_err = max(adam_err, err)
+    adam16_checks(torch, results, randn, dev, sizes, 4 * d * d, O)
+
+
+#: #10 on 16-bit parameters: (p, m and v) dtypes held and timed, at the
+#: 158-tensor run and at one 768 x 3072 FFN weight (a pure-bf16 program
+#: after cast_parameters_to_bf16 keeps float32 moments beside bf16 p)
+ADAM16_RUN = (("bfloat16", "float32"), ("bfloat16", "bfloat16"),
+              ("float16", "float32"))
+ADAM16_ONE = ADAM16_RUN + (("float16", "float16"),)
+#: #10's 16-bit check state: an LR, an AdamW coefficient and a parameter
+#: scale at which both the Adam step and the decay move most 16-bit
+#: parameters past their rounding (at the recipe's 1e-4 they stay put, and
+#: a kernel that left p alone would agree with its twin)
+ADAM16_CHECK = dict(lr=0.05, coeff=0.5, p_scale=0.01)
+#: the least share of p that the check's update must move
+ADAM16_MOVED = 0.5
+
+
+def adam16_checks(torch, results, randn, dev, sizes, ffn, O):
+    """#10 with 16-bit p (and m, v float32 or p's dtype): kernel against
+    the twin from the same state bit for bit (both compute in float32 in
+    the same order and round each output once; AdamW's decay in p's
+    dtype), at ``ADAM16_CHECK``, where the Adam step and the decay each
+    move most of p (checked against the start and a twin without decay,
+    so a kernel that skipped either would differ); the beta powers
+    advanced once, and two launches bit-identical.  Timed at the recipe's
+    LR without decay beside ``torch._fused_adam_`` on the same tensors
+    (all of p's dtype when the library refuses float32 moments beside
+    16-bit p)."""
+    record = recorder(results)
+
+    def state(sizes, pdt, mdt, lr=1e-4, coeff=0.0, p_scale=1.0):
+        pt, mt = getattr(torch, pdt), getattr(torch, mdt)
+        return [O.AdamTensor(
+            randn(n, scale=p_scale, dtype=pt), randn(n, dtype=mt),
+            randn(n, scale=0.1, dtype=mt),
+            randn(n, scale=0.01).abs().to(mt),
+            torch.tensor([lr], device=dev),
+            torch.tensor([0.9 ** 3], device=dev),
+            torch.tensor([0.999 ** 3], device=dev), 0.9, 0.999, 1e-8, coeff)
+            for n in sizes]
+
+    def copy(run):
+        return [O.AdamTensor(*[t.clone() if torch.is_tensor(t) else t
+                               for t in e]) for e in run]
+
+    def share_moved(a, b):
+        return sum(int((x.p != y.p).sum()) for x, y in zip(a, b)) / \
+            sum(x.p.numel() for x in a)
+
+    def library(run, pdt):
+        args = [[e[i] for e in run] for i in range(4)]
+        steps = [torch.tensor([1.0], device=dev) for _ in run]
+
+        def call():
+            torch._fused_adam_(*args, [], steps, lr=1e-4, beta1=0.9,
+                               beta2=0.999, weight_decay=0.0, eps=1e-8,
+                               amsgrad=False, maximize=False)
+        try:
+            call()
+            return call, "torch._fused_adam_, one call, the same tensors"
+        except (RuntimeError, TypeError, NotImplementedError):
+            same = [O.AdamTensor(*[t.to(getattr(torch, pdt))
+                                   if torch.is_tensor(t) and t.numel() > 1
+                                   else t for t in e]) for e in run]
+            return library(same, pdt)[0], (
+                f"torch._fused_adam_, one call, p, g, m, v all {pdt} (it "
+                f"refuses float32 moments beside {pdt} p)")
+
+    for label, run_sizes, combos in (
+            (f"all {len(sizes)} BERT-base parameters", sizes, ADAM16_RUN),
+            ("one 768 x 3072 FFN weight", [ffn], ADAM16_ONE)):
+        for pdt, mdt in combos:
+            start = state(run_sizes, pdt, mdt, **ADAM16_CHECK)
+            twin, one, two = copy(start), copy(start), copy(start)
+            bare = [e._replace(coeff=0.0) for e in copy(start)]
+            O.adam_multi_plain(twin)
+            O.adam_multi_plain(bare)
+            O.adam_multi(one)
+            O.adam_multi(two)
+            what = f"adam {label}, p {pdt}, m and v {mdt}"
+            moved, decayed = share_moved(twin, start), share_moved(twin, bare)
+            log(f"  {what}: the check's update moves {100 * moved:.2f} % of "
+                f"p, its decay {100 * decayed:.2f} % (lr "
+                f"{ADAM16_CHECK['lr']}, coeff {ADAM16_CHECK['coeff']}, |p| "
+                f"~{ADAM16_CHECK['p_scale']})")
+            check(min(moved, decayed) > ADAM16_MOVED,
+                  f"{what}: the check's update leaves p in place")
+            err = 0.0
+            for name, i in (("p", 0), ("m", 2), ("v", 3)):
+                dt = str(start[0][i].dtype).replace("torch.", "")
+                e = max(max_err(torch, a[i], b[i]) for a, b in zip(one, twin))
+                log(f"  {what} {name} ({dt}): max|Δ| {e:.3e} (bit for bit)")
+                check(all(torch.equal(a[i], b[i]) for a, b in zip(one, twin)),
+                      f"{what} {name}: the kernel disagrees with its plain "
+                      f"version ({e:.3e})")
+                check(all(torch.equal(a[i], b[i]) for a, b in zip(one, two)),
+                      f"{what} {name}: two launches differ")
+                err = max(err, e)
+            for a, b in zip(one, start):
+                check(torch.equal(a.beta1_pow, b.beta1_pow * b.beta1),
+                      f"{what}: the beta powers did not advance once")
+            del twin, two, bare, one, start
+            # timed at the recipe's LR without decay, as the library's call
+            start = state(run_sizes, pdt, mdt)
+            one = copy(start)
+            total = sum(run_sizes)
+            pb, mb = (torch.finfo(getattr(torch, t)).bits // 8
+                      for t in (pdt, mdt))
+            lib, lib_is = library(copy(start), pdt)
+            record("adam", [label, total], pdt, err,
+                   sum(kernel_split_ms(torch, lambda: O.adam_multi(one))
+                       .values()),
+                   time_ms(torch, lambda: O.adam_multi_plain(start),
+                           samples=9),
+                   sum(kernel_split_ms(torch, lib).values()),
+                   (2 * pb + 5 * mb) * total, 12 * total,
+                   bound=bound_ms((2 * pb + 5 * mb) * total, 12 * total,
+                                  "float32"),
+                   ms_from="profiler device time", moments=mdt,
+                   library_is=lib_is)
+            del start, one, lib
 
 
 def fused_training_checks(torch, results, cfg):
@@ -1814,11 +1994,12 @@ def build_train(cfg, amp=False, pure_bf16=True):
     return main, startup, total, opt.learning_rate_var
 
 
-def build_fused_train(cfg, amp=False):
+def build_fused_train(cfg, amp=False, lamb=False):
     """Phase 8's program, as a user writes it: the recipe, then both
     fusion passes (``fuse_elemwise_add_act`` through the build
     strategy); with ``amp`` the optimizer under ``decorate`` in bf16
-    (phase 12).  Returns (the CompiledProgram, startup, loss, LR var)."""
+    (phase 12); with ``lamb`` the recipe's LAMB in place of AdamW (phase
+    13).  Returns (the CompiledProgram, startup, loss, LR var)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.contrib.mixed_precision import decorate
     from paddle_tpu_torch.framework.core import Program, program_guard
@@ -1834,9 +2015,14 @@ def build_fused_train(cfg, amp=False):
             fluid.layers.polynomial_decay(PEAK_LR, DECAY_STEPS, 0.0,
                                           power=1.0),
             WARMUP_STEPS, 0.0, PEAK_LR)
-        opt = fluid.optimizer.AdamW(
-            lr, weight_decay=WEIGHT_DECAY,
-            grad_clip=fluid.clip.GradientClipByGlobalNorm(CLIP_NORM))
+        clip = fluid.clip.GradientClipByGlobalNorm(CLIP_NORM)
+        if lamb:
+            opt = fluid.optimizer.LambOptimizer(
+                lr, lamb_weight_decay=WEIGHT_DECAY, epsilon=LAMB_EPSILON,
+                grad_clip=clip, exclude_from_weight_decay_fn=lamb_no_decay)
+        else:
+            opt = fluid.optimizer.AdamW(lr, weight_decay=WEIGHT_DECAY,
+                                        grad_clip=clip)
         if amp:
             opt = decorate(opt, use_pure_bf16=True)
         opt.minimize(total)
@@ -1846,6 +2032,13 @@ def build_fused_train(cfg, amp=False):
     compiled = fluid.CompiledProgram(main).with_data_parallel(
         loss_name=total.name, build_strategy=bs)
     return compiled, startup, total, opt.learning_rate_var
+
+
+def lamb_no_decay(param):
+    """The BERT LAMB recipe's exclusions from weight decay: every
+    LayerNorm parameter and every bias, by name."""
+    n = param.name
+    return "_ln" in n or n.endswith(("_b", "_bias", ".b_0"))
 
 
 def scheduled_lr(step):
@@ -1882,15 +2075,35 @@ def covered_us(spans):
     return total + (0.0 if hi is None else hi - lo)
 
 
-def profile_step(torch, step, step_ms):
+def range_kernels(prof, name):
+    """(launches, device ms) of the kernels launched inside the CPU ranges
+    ``name`` (``torch.profiler.record_function``) of a profile: each op's
+    kernels, found by the profiler's correlation of launch and kernel,
+    summed over the ranges' descendants."""
+    from torch.autograd import DeviceType
+    n, us = 0, 0.0
+    stack = [e for e in prof.events()
+             if e.name == name and e.device_type == DeviceType.CPU]
+    while stack:
+        e = stack.pop()
+        for k in getattr(e, "kernels", ()):
+            n += 1
+            us += k.duration
+        stack.extend(getattr(e, "cpu_children", ()))
+    return n, us / 1e3
+
+
+def profile_step(torch, step, step_ms, ranges=()):
     """Device time of one training step by kernel, from torch.profiler:
     the port's kernels, the matrix products (cuBLAS / CUTLASS gemm, and
     cuBLASLt's ``nvjet`` kernels) and everything else (sums of each
     kernel's span), and the device's busy share of ``step_ms`` (the
     median unprofiled step): the union of the
     spans, since a programmatic dependent launch (the LN backwards'
-    column sum) starts, and waits, before its primary ends.  None when
-    the profiler saw no device activity."""
+    column sum) starts, and waits, before its primary ends.  Each named
+    CPU range of ``ranges`` (plain PyTorch ops: none is a port kernel or
+    a product) gets its own group, taken out of "other", with its
+    launches.  None when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1898,7 +2111,9 @@ def profile_step(torch, step, step_ms):
         step()
     by_name, spans = {}, []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a named range also shows as a span on the device's timeline
+        # (first to last kernel inside it): not a kernel, not busy time
+        if e.device_type == DeviceType.CUDA and e.name not in ranges:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
             spans.append((e.time_range.start, e.time_range.end))
@@ -1919,14 +2134,28 @@ def profile_step(torch, step, step_ms):
             groups["matrix products"] += us / 1e3
         else:
             groups["other"] += us / 1e3
+    launches_in = {}
+    for name in ranges:
+        n, ms = range_kernels(prof, name)
+        launches_in[name] = n
+        if n:
+            groups[name] = ms
+            groups["other"] -= ms
+        else:
+            log(f"  {name}: not measured (the profiler linked no kernel "
+                f"to the range)")
     busy = covered_us(spans) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     log(f"  one profiled step: device busy {busy:.2f} ms of the "
         f"{step_ms:.2f} ms median step ({100 * busy / step_ms:.1f} %); "
         + ", ".join(f"{g} {ms:.2f} ms" for g, ms in groups.items()))
+    for name, n in launches_in.items():
+        if n:
+            log(f"  {name}: {n} launches, {groups[name]:.3f} device ms")
     for name, (n, us) in top:
         log(f"    {us / 1e3:8.3f} ms  {n:4d}x  {name[:110]}")
     return {"busy_ms": busy, "step_ms": step_ms,
+            "range_launches": launches_in,
             "busy_share": busy / step_ms, "groups_ms": groups,
             "quant_launches": quant[0], "quant_ms": quant[1],
             "top": [{"name": name[:200], "calls": n, "ms": us / 1e3}
@@ -2074,12 +2303,14 @@ def train_phase(torch, np, cfg, build, expected, schedule=None,
 
 
 def train_plain_phase(torch, np, cfg, build, expected, batch=TRAIN_BATCH,
-                      tol_loss=TOL_TRAIN_LOSS, tol_grad=TOL_TRAIN_GRAD):
+                      tol_loss=TOL_TRAIN_LOSS, tol_grad=TOL_TRAIN_GRAD,
+                      after_startup=None):
     """Dropout 0: PLAIN_STEPS steps of ``build``'s program through
     Executor.run with every kernel on (each launched ``expected`` times
     per step), and again with every kernel flag off, from the same
-    startup; losses agree within ``tol_loss`` (relative) and step-1 grads
-    within ``tol_grad`` of max|grad|."""
+    startup (then ``after_startup(program, scope)`` when given); losses
+    agree within ``tol_loss`` (relative) and step-1 grads within
+    ``tol_grad`` of max|grad|."""
     import dataclasses
     from paddle_tpu_torch import flags, fluid
     from paddle_tpu_torch.models import bert
@@ -2098,12 +2329,16 @@ def train_plain_phase(torch, np, cfg, build, expected, batch=TRAIN_BATCH,
             scope = fluid.Scope()
             exe = fluid.Executor()
             exe.run(startup, scope=scope)
+            if after_startup is not None:
+                after_startup(program, scope)
             kernels.reset_launch_counts()
             losses, grads = [], None
             for i in range(PLAIN_STEPS):
                 fetch = [total] + (grad_names if i == 0 else [])
-                out = exe.run(program, feed=feed, fetch_list=fetch,
-                              scope=scope)
+                # bf16 gradients (a pure-bf16 program's) read as float32
+                out = [o.float().cpu().numpy() for o in exe.run(
+                    program, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)]
                 losses.append(float(out[0]))
                 if i == 0:
                     grads = out[1:]
@@ -2361,6 +2596,70 @@ def fp16_bert_leg(torch, np, cfg):
     return {"steps": steps, "launches": launches, **plain}
 
 
+def pure_bf16_leg(torch, np, cfg):
+    """Leg (d): BERT-base under ``decorate(Adam(1e-4),
+    use_pure_bf16=True)`` with its parameters cast to bf16 after the
+    startup (``cast_parameters_to_bf16``; the moments stay float32),
+    TRAIN_BATCH x TRAIN_SEQ, AMP_PURE_BF16_STEPS prepared steps: finite
+    losses, no route fallback, the flash kernels and #10 launched on bf16
+    (one launch a step for the 158 updates), the LayerNorms on float32,
+    the parameters still bf16; then, dropout 0, kernels on vs every flag
+    off within TOL_AMP_PLAIN and TOL_AMP_GRAD."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.contrib.mixed_precision.fp16_utils import \
+        cast_parameters_to_bf16
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+
+    def build(c):
+        return build_train(c, amp=True)
+    program, startup, total, _ = build(cfg)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    cast_parameters_to_bf16(program, scope)
+    prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    losses = [float(prepared.run(feed)[0])
+              for _ in range(AMP_PURE_BF16_STEPS)]
+    launches = kernels.launch_counts()
+    log(f"  pure bf16 BERT-base, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{AMP_PURE_BF16_STEPS} prepared steps: losses "
+        f"{[round(x, 5) for x in losses]}; launches "
+        f"{kernels.launch_counts_by_dtype()}")
+    check(all(math.isfinite(x) for x in losses),
+          f"pure bf16 BERT-base: non-finite loss {losses}")
+    fallbacks = {k: v for k, v in registry.route_counts().items()
+                 if k[2] == "fallback"}
+    check(not fallbacks, f"pure bf16 BERT-base: route fallbacks {fallbacks}")
+    # every launch on its dtype: the embeddings' sum is bf16 once its
+    # tables are, so the embedding LayerNorm (no cast before it in the
+    # rewrite) runs on bf16 like the JAX package's; the other 25 on float32
+    per_step = {(n, dt): c for n, dt, c in PURE_BF16_LAUNCHES}
+    got = kernels.launch_counts_by_dtype()
+    check(got == {k: c * AMP_PURE_BF16_STEPS for k, c in per_step.items()},
+          f"pure bf16 BERT-base: launches {got}, expected {per_step} a "
+          f"step")
+    fluid.sync_prepared_state(scope)
+    kinds = {str(scope.find_var(p.name).dtype)
+             for p in program.all_parameters()}
+    check(kinds == {"torch.bfloat16"}, f"parameters left bf16: {kinds}")
+    del prepared, scope
+    plain = train_plain_phase(
+        torch, np, cfg, build, TRAIN_LAUNCHES, tol_loss=TOL_AMP_PLAIN,
+        tol_grad=TOL_AMP_GRAD,
+        after_startup=lambda prog, sc: cast_parameters_to_bf16(prog, sc))
+    return {"losses": losses, "launches": launches,
+            "launches_by_dtype": {f"{n}/{dt}": c
+                                  for (n, dt), c in got.items()},
+            **plain}
+
+
 def bf16_bias_check(torch):
     """BERT's padding bias ``mask * 1e4 - 1e4`` through the port's
     ``scale`` op on a bf16 tensor on the card: 0 and -9984 exactly, as the
@@ -2393,9 +2692,9 @@ def amp_kernel_rows(torch, per_kernel):
 
 
 def amp_phase(torch, np, cfg, per_kernel, fused_step_ms):
-    """Phase 12's three legs; returns (launches of leg (a)'s prepared
-    steps, of leg (b)'s, of leg (c)'s fp16 BERT-base steps, the
-    report)."""
+    """Phase 12's four legs; returns (launches of leg (a)'s prepared
+    steps, of leg (b)'s, of leg (c)'s fp16 BERT-base steps, of leg (d)'s
+    pure-bf16 steps, the report)."""
     log(f"  (a) bench.py's configuration: decorate(Adam({PEAK_LR}), "
         f"use_pure_bf16=True), batch {AMP_BATCH} x {TRAIN_SEQ}, "
         f"{TRAIN_MASKS} masks, dropout {DROPOUT}")
@@ -2429,10 +2728,211 @@ def amp_phase(torch, np, cfg, per_kernel, fused_step_ms):
     scaling = fp16_scaling_leg(torch, np)
     fp16_bert = fp16_bert_leg(torch, np, cfg)
     amp_kernel_rows(torch, per_kernel)
-    return launches, fused_launches, fp16_bert["launches"], {
-        "bench_config": report, "recipe_bf16": fused,
-        "recipe_fp32_step_ms": fused_step_ms, "fp16_scaling": scaling,
-        "fp16_bert": fp16_bert}
+    log("  (d) pure bf16: decorate(Adam) and cast_parameters_to_bf16, #10 "
+        "on bf16 parameters")
+    pure = pure_bf16_leg(torch, np, cfg)
+    return launches, fused_launches, fp16_bert["launches"], \
+        pure["launches"], {
+            "bench_config": report, "recipe_bf16": fused,
+            "recipe_fp32_step_ms": fused_step_ms, "fp16_scaling": scaling,
+            "fp16_bert": fp16_bert, "pure_bf16": pure}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: LAMB pretraining, checkpoint and resume
+# ---------------------------------------------------------------------------
+
+
+def persistable_state(torch, scope, program):
+    """Every persistable of ``program`` in ``scope``, cloned on the card."""
+    from paddle_tpu_torch import fluid
+    fluid.sync_prepared_state(scope)
+    return {v.name: scope.find_var(v.name).detach().clone()
+            for v in program.list_vars()
+            if v.persistable and scope.find_var(v.name) is not None}
+
+
+def restore_point(torch, scope, program):
+    """What a resume must restore: every persistable of ``program`` and the
+    scope's generator states (``get_state()`` bytes), cloned."""
+    from paddle_tpu_torch.framework.executor import _RNG_VAR
+    state = persistable_state(torch, scope, program)
+    state.update({n: g.get_state() for n, g in scope.vars.items()
+                  if n.startswith(_RNG_VAR) and
+                  isinstance(g, torch.Generator)})
+    return state
+
+
+def run_distance(torch, a, b):
+    """How far run ``a`` lies from ``b``: (the norm of the difference of
+    their states over every persistable, relative to ``b``'s, max |Δ loss|
+    over the steps both ran, max |Δ| over every persistable, the
+    persistable where it is largest)."""
+    losses = max((abs(x - y) for x, y in zip(a["losses"], b["losses"])),
+                 default=0.0)
+    worst, where, num, den = 0.0, "", 0.0, 0.0
+    for n, t in a["state"].items():
+        d = t.double() - b["state"][n].double()
+        num += float((d * d).sum())
+        den += float((b["state"][n].double() ** 2).sum())
+        e = float(d.abs().max())
+        if e > worst:
+            worst, where = e, n
+    return math.sqrt(num / max(den, 1e-300)), losses, worst, where
+
+
+def lamb_run(torch, np, cfg, ckpt_dir, save_at=None, resume=False,
+             profile=False):
+    """TRAIN_STEPS steps of phase 13's program through
+    prepare(donate_state=True) from the seed; with ``save_at`` a
+    save_checkpoint after that step (the run goes on), with ``resume`` a
+    new scope and executor, the startup, load_checkpoint and the steps
+    after the checkpoint's.  Returns the losses, the state after the last
+    step, the step times, the launches of the steps and the save / load
+    seconds."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    compiled, startup, total, lr_var = build_fused_train(cfg, lamb=True)
+    program = compiled._program
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    scope = fluid.Scope()
+    exe = fluid.Executor()                       # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    out = {"first_step": 1}
+    if resume:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = fluid.io.load_checkpoint(exe, ckpt_dir, main_program=program,
+                                      scope=scope)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        check(st.step == LAMB_SAVE_AT and not st.skipped_checkpoints,
+              f"load_checkpoint: step {st.step}, skipped "
+              f"{st.skipped_checkpoints}")
+        out["first_step"] = st.step + 1
+        out["restored"] = restore_point(torch, scope, program)
+    prepared = exe.prepare(compiled, fetch_list=[total, lr_var],
+                           scope=scope, donate_state=True)
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    losses, step_s = [], []
+    for i in range(out["first_step"], TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        loss, lr = (float(h) for h in prepared.run(feed))
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        check(abs(lr - scheduled_lr(i - 1)) <= TOL_LR * PEAK_LR,
+              f"step {i}: LR {lr}, the schedule says {scheduled_lr(i - 1)}")
+        if i == save_at:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fluid.io.save_checkpoint(exe, ckpt_dir,
+                                     fluid.io.TrainStatus(0, i), program,
+                                     scope=scope)
+            out["save_s"] = time.perf_counter() - t0
+            out["saved"] = restore_point(torch, scope, program)
+    out.update(losses=losses, step_s=step_s,
+               launches=kernels.launch_counts(),
+               by_dtype=kernels.launch_counts_by_dtype(),
+               routes=registry.route_counts(),
+               state=persistable_state(torch, scope, program))
+    out["state_bytes"] = sum(t.numel() * t.element_size()
+                             for t in out["state"].values())
+    if profile:
+        # one more step, LAMB's group of ops under a named range
+        group = registry.GROUPS["lamb"]
+
+        def traced(ctx, items):
+            with torch.profiler.record_function("lamb_update"):
+                return group(ctx, items)
+        registry.GROUPS["lamb"] = traced
+        try:
+            steady = statistics.median(step_s[2:]) * 1e3
+            out["profile"] = profile_step(
+                torch, lambda: float(prepared.run(feed)[0]), steady,
+                ranges=("lamb_update",))
+        finally:
+            registry.GROUPS["lamb"] = group
+    del prepared, scope
+    return out
+
+
+def lamb_phase(torch, np, cfg, ckpt_dir):
+    """Phase 13: LAMB pretraining, checkpoint and resume (see the module
+    docstring); returns (the launches of run A's steps, the report)."""
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    a = lamb_run(torch, np, cfg, ckpt_dir, save_at=LAMB_SAVE_AT)
+    b = lamb_run(torch, np, cfg, ckpt_dir, profile=True)
+    c = lamb_run(torch, np, cfg, ckpt_dir, resume=True)
+    expected = {k: v for k, v in FUSED_LAUNCHES.items() if k != "adam"}
+    # LAMB moves each tensor by about lr |p| a step (the trust ratio), so
+    # at the recipe's 1e-4 the loss need not fall within 10 steps: finite
+    for name, r in (("A", a), ("B", b), ("C", c)):
+        log(f"  run {name} (steps {r['first_step']}-{TRAIN_STEPS}): losses "
+            f"{[round(x, 5) for x in r['losses']]}")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"run {name}: non-finite loss {r['losses']}")
+    fallbacks = {k: v for k, v in a["routes"].items() if k[2] == "fallback"}
+    check(not fallbacks, f"LAMB: route fallbacks {fallbacks}")
+    for name, per_step in expected.items():
+        check(a["launches"][name] == per_step * TRAIN_STEPS,
+              f"LAMB: {name} launched {a['launches'][name]} times in "
+              f"{TRAIN_STEPS} steps, expected {per_step} a step")
+    check(a["launches"]["adam"] == 0, "LAMB: the Adam kernel launched")
+    # C starts from A's checkpoint: right after load_checkpoint it holds
+    # A's state at the save, every persistable and generator bit for bit
+    saved, restored = a.pop("saved"), c.pop("restored")
+    check(sorted(saved) == sorted(restored),
+          f"load_checkpoint restored {sorted(set(saved) ^ set(restored))} "
+          f"differently from what was saved")
+    differ = [n for n in saved if not torch.equal(saved[n], restored[n])]
+    log(f"  restore: {len(saved)} persistables and generator states, "
+        f"{len(differ)} differ from run A's at step {LAMB_SAVE_AT}")
+    check(not differ, f"load_checkpoint restored {differ[:5]} other than "
+                      f"run A saved them at step {LAMB_SAVE_AT}")
+    del saved, restored
+    # C ran steps 6-10 from A's checkpoint: held against A's steps 6-10
+    tail = {"losses": a["losses"][LAMB_SAVE_AT:], "state": a["state"]}
+    ab = run_distance(torch, a, b)
+    ca = run_distance(torch, c, tail)
+    cb = run_distance(torch, c, {"losses": b["losses"][LAMB_SAVE_AT:],
+                                 "state": b["state"]})
+    for what, d in (("A-B (two uninterrupted runs)", ab),
+                    ("C-A (resumed vs the run it was saved from)", ca),
+                    ("C-B", cb)):
+        log(f"  distance {what}: state {d[0]:.3e} (relative norm), losses "
+            f"max |Δ| {d[1]:.3e}, state max |Δ| {d[2]:.3e} (at "
+            f"{d[3] or '-'})")
+    bitwise = ab[:3] == (0.0, 0.0, 0.0)
+    if bitwise:
+        check(ca[:3] == (0.0, 0.0, 0.0), "the uninterrupted runs agree "
+              "bit for bit and the resumed one does not")
+    else:
+        # two runs differ only where an op sums in a varying order: the
+        # resumed run, which shares A's first steps exactly (above), may
+        # drift from A over steps 6-10 as far as B drifts over 1-10, with
+        # LAMB_RESUME_MARGIN for the spread of such drift
+        check(ca[0] <= LAMB_RESUME_MARGIN * ab[0],
+              f"the resumed run lies further from the run it was saved "
+              f"from than {LAMB_RESUME_MARGIN} times the two uninterrupted "
+              f"runs from each other")
+    steady = statistics.median(b["step_s"][2:]) * 1e3
+    gb = a["state_bytes"] / 1e9
+    log(f"  step: median of steps 3-{TRAIN_STEPS} {steady:.2f} ms (run B); "
+        f"save_checkpoint {a['save_s']:.2f} s, load_checkpoint "
+        f"{c['load_s']:.2f} s for {gb:.3f} GB of state")
+    report = {"losses": {"A": a["losses"], "B": b["losses"],
+                         "C": c["losses"]},
+              "bitwise": bitwise,
+              "distance_ab": ab, "distance_ca": ca, "distance_cb": cb,
+              "step_ms_median_3_10": steady, "step_s": b["step_s"],
+              "save_s": a["save_s"], "load_s": c["load_s"],
+              "state_gb": gb, "profile": b["profile"]}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return a["launches"], report
 
 
 # ---------------------------------------------------------------------------
@@ -3016,7 +3516,10 @@ def kernels_line(per_kernel, launches_by_path):
     and float16 rows at that path's shape (``amp`` and ``amp_fp16``: B96
     S128, dropout 0.1, with the dropout-0 times) and the LayerNorm forward
     and backward their float32 rows there (``amp``: R 12,288 and
-    1,920)."""
+    1,920).  Leg (d)'s pure-bf16 steps (``amp_pure_bf16_launches``) and
+    phase 13's LAMB run A (``lamb_launches``) add their launches; Adam
+    carries its 16-bit rows (``16_bit``: bf16 and fp16 parameters beside
+    float32 or 16-bit moments)."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     out = []
@@ -3043,11 +3546,19 @@ def kernels_line(per_kernel, launches_by_path):
             entry["launches_by_path"] = {
                 p: launches_by_path[p].get(name, 0)
                 for p in ("served", "unfused", "train", "fused_train",
-                          "decode", "amp", "amp_fused", "amp_fp16")}
+                          "decode", "amp", "amp_fused", "amp_fp16",
+                          "amp_pure_bf16", "lamb")}
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
-                      "decode", "amp", "amp_fused", "amp_fp16"):
+                      "decode", "amp", "amp_fused", "amp_fp16",
+                      "amp_pure_bf16", "lamb"):
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
+        if name == "adam":
+            # 16-bit parameters (leg (d) of phase 12): the rows of phase 6
+            entry["16_bit"] = [{k: r[k] for k in (
+                "shape", "dtype", "moments", "ms", "plain_ms", "library_ms",
+                "library_is", "bound_ms", "bound_by", "max_abs_err")}
+                for r in per_kernel["adam"] if r["dtype"] != "float32"]
         if name in per_kernel.get("quant_step", {}):
             entry["step_13_launches"] = per_kernel["quant_step"][name]
         if name.startswith("flash_attention"):
@@ -3127,6 +3638,7 @@ def main(argv=None) -> int:
 
     from paddle_tpu_torch.ops.cuda import build
     model_dir = os.path.join(build.BUILD_DIR, "smoke_bert_base")
+    ckpt_dir = os.path.join(build.BUILD_DIR, "smoke_lamb_checkpoints")
     t_start = time.perf_counter()
     try:
         log("phase 1: build")
@@ -3191,16 +3703,22 @@ def main(argv=None) -> int:
 
         log("phase 12: bf16 mixed-precision pretraining at BERT-base width "
             "(contrib.mixed_precision.decorate)")
-        amp, amp_fused, amp_fp16, amp_report = amp_phase(
+        amp, amp_fused, amp_fp16, amp_pure, amp_report = amp_phase(
             torch, np, base, per_kernel,
             fused_training["step_ms_median_3_10"])
+
+        log(f"phase 13: LAMB pretraining at BERT-base width (phase 8's "
+            f"program and recipe with LAMB), checkpointed after step "
+            f"{LAMB_SAVE_AT} and resumed")
+        lamb, lamb_report = lamb_phase(torch, np, base, ckpt_dir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    log(f"phase 13: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 14: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
@@ -3208,12 +3726,14 @@ def main(argv=None) -> int:
                                        "parity": dp_parity}))
     log("decode " + json.dumps(decode))
     log("amp " + json.dumps(amp_report))
+    log("lamb " + json.dumps(lamb_report))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
         "fused_train": fused, "dp_int8": dp_ranks[0]["int8"]["launches"],
         "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded,
-        "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16})))
+        "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16,
+        "amp_pure_bf16": amp_pure, "lamb": lamb})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,10 +102,9 @@ def rewrite_program(program: Program, amp_lists: AutoMixedPrecisionLists,
 
 def cast_parameters_to_bf16(program: Program, scope):
     """Pure-bf16 helper: cast the stored parameters themselves to
-    bfloat16 (for a caller that opts out of float32 master weights).  On
-    the card the Adam kernel (#10) takes float32 parameters only, so a
-    program updated by ``adam`` / ``adamw`` then raises there with the
-    kernel gate's reason."""
+    bfloat16 (for a caller that opts out of float32 master weights).  The
+    moments the optimizer made stay float32; the Adam kernel (#10) takes
+    bf16 parameters beside them and rounds each updated parameter once."""
     import numpy as np
     import torch
     for p in program.all_parameters():

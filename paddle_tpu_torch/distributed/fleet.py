@@ -244,7 +244,6 @@ _UNPORTED = (
     ("recompute", "recompute checkpoints in the executor"),
     ("gradient_merge", "GradientMergeOptimizer"),
     ("localsgd", "LocalSGDOptimizer and local_sgd_sync"),
-    ("lamb", "LambOptimizer"),
     ("use_dgc", "DGCMomentumOptimizer"),
     ("sharding", "the ZeRO-1 sharded update"),
     ("sharded_update", "the ZeRO-1 sharded update"),
@@ -389,8 +388,20 @@ class CollectiveOptimizer:
         (the reference's StrategyCompiler drops invalid meta-optimizers
         silently, ref: fleet/base/strategy_compiler.py; here an explicit
         error beats a silently changed recipe).  Only the ported flags'
-        combinations are checked: ``_refuse_unported`` runs first, and the
-        checks of the other flags' combinations come with their paths."""
+        combinations are checked: ``_refuse_unported`` runs next, and the
+        checks of the other flags' combinations come with their paths,
+        but for LAMB's two, which come first and raise as the JAX
+        package's do although DGC and ZeRO are refused by name."""
+        if s.lamb and s.use_dgc:
+            raise ValueError(
+                "DistributedStrategy: lamb and use_dgc both replace the "
+                "base optimizer (LambOptimizer vs DGCMomentumOptimizer)")
+        sharded = getattr(s, "sharded_update", False) or \
+            getattr(s, "sharding", False)
+        if sharded and s.lamb:
+            raise ValueError(
+                "DistributedStrategy: lamb trust ratios need full-tensor "
+                "norms and cannot run on ZeRO shards — disable one")
         if getattr(s, "bf16_allreduce", False) and \
                 getattr(s, "quant_allreduce", False):
             raise InvalidArgumentError(
@@ -436,10 +447,19 @@ class CollectiveOptimizer:
         return build
 
     def _wrapped(self):
-        """The inner optimizer, wrapped by the strategy's meta-optimizers
-        as the JAX package wraps it: ``decorate`` for ``amp``."""
+        """The inner optimizer, swapped and wrapped by the strategy's
+        meta-optimizers as the JAX package does it: ``lamb`` replaces it
+        by a ``LambOptimizer`` of its learning rate and
+        ``lamb_configs["lamb_weight_decay"]`` (its other settings are not
+        carried over, as there), then ``decorate`` for ``amp``."""
+        from .. import optimizer as opt_mod
         s = self._strategy
         optimizer = self._inner
+        if s.lamb and not isinstance(optimizer, opt_mod.LambOptimizer):
+            optimizer = opt_mod.LambOptimizer(
+                learning_rate=optimizer._learning_rate,
+                lamb_weight_decay=s.lamb_configs.get("lamb_weight_decay",
+                                                     0.01))
         if s.amp:
             from ..contrib.mixed_precision import decorate
             optimizer = decorate(
@@ -462,8 +482,8 @@ class CollectiveOptimizer:
         fleet._ensure_init()
         s = self._strategy
         fleet._strategy = s
-        _refuse_unported(s)
         self._validate(s)
+        _refuse_unported(s)
         opt_ops, params_grads = self._wrapped().minimize(
             loss, startup_program, parameter_list, no_grad_set)
         program = loss.block.program

@@ -3,8 +3,7 @@
 the serving and training slices cover — Program, Executor
 (``CUDAPlace(0)`` by default), CompiledProgram and BuildStrategy, the
 BERT layers and LR schedules, ParamAttr, initializers, io,
-append_backward, the SGD/Adam/AdamW optimizers, regularizers and
-gradient clips."""
+append_backward, the optimizers, regularizers and gradient clips."""
 
 from ..framework.core import (Program, Variable, Parameter,  # noqa: F401
                               default_main_program, default_startup_program,

@@ -1,6 +1,6 @@
 // Shared helpers for the port's Hopper kernels: element loads/stores in
-// float32 or bfloat16 (one at a time, or four as one vector access; the
-// flash kernels' rounding also in float16), a
+// float32, bfloat16 or float16 (one at a time, or four as one vector
+// access), rounding to the storage type, a
 // float warp reduction and the counter-based dropout generator.
 //
 // Every kernel source in this directory exposes a plain C entry point that
@@ -21,9 +21,15 @@ __device__ __forceinline__ float pt_load(const float* p) { return *p; }
 __device__ __forceinline__ float pt_load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float pt_load(const __half* p) {
+  return __half2float(*p);
+}
 __device__ __forceinline__ void pt_store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void pt_store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void pt_store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 // Round a float to the storage type T and back (identity for float).
@@ -39,7 +45,7 @@ template <> __device__ __forceinline__ float pt_round<__half>(float v) {
 }
 
 // kVec consecutive elements as floats: one 16-byte (float32) or 8-byte
-// (bfloat16) access for kVec == 4, the pointer aligned to it
+// (bfloat16, float16) access for kVec == 4, the pointer aligned to it
 template <int kVec>
 __device__ __forceinline__ void pt_load_n(const float* p, float* v) {
   if constexpr (kVec == 4) {
@@ -86,6 +92,35 @@ __device__ __forceinline__ void pt_store_n(__nv_bfloat16* p,
   if constexpr (kVec == 4) {
     __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
     __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const uint32_t*>(&lo);
+    q.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = q;
+  } else {
+    pt_store(p, v[0]);
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void pt_load_n(const __half* p, float* v) {
+  if constexpr (kVec == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&q.x));
+    const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&q.y));
+    v[0] = lo.x;
+    v[1] = lo.y;
+    v[2] = hi.x;
+    v[3] = hi.y;
+  } else {
+    v[0] = pt_load(p);
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void pt_store_n(__half* p, const float* v) {
+  if constexpr (kVec == 4) {
+    __half2 lo = __floats2half2_rn(v[0], v[1]);
+    __half2 hi = __floats2half2_rn(v[2], v[3]);
     uint2 q;
     q.x = *reinterpret_cast<const uint32_t*>(&lo);
     q.y = *reinterpret_cast<const uint32_t*>(&hi);

@@ -14,6 +14,7 @@ import torch
 from .cuda import fused_ops as cuda_fused
 from .cuda import flash_attention as cuda_flash
 from .math_ops import gelu
+from .nn_ops import affine_as
 from .registry import cuda_route, get_op, register, x
 
 _ACTS = {
@@ -62,7 +63,8 @@ def _fused_add_layernorm(ctx, ins, attrs):
             d *= int(s)
         r = a.numel() // d
         y = cuda_fused.add_layer_norm(a.reshape(r, d), res.reshape(r, d),
-                                      scale.reshape(d), bias.reshape(d),
+                                      affine_as(a, scale, d),
+                                      affine_as(a, bias, d),
                                       eps).reshape(a.shape)
         zeros = torch.zeros(tuple(a.shape[:bna]), dtype=torch.float32,
                             device=a.device)

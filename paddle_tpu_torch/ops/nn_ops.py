@@ -35,6 +35,14 @@ def layer_norm_composition(a, scale, bias, eps, bna):
     return out.to(a.dtype), mean.reshape(lead), var.reshape(lead)
 
 
+def affine_as(a, t, d):
+    """Scale or Bias flattened to ``d`` in ``a``'s dtype for a LayerNorm
+    kernel: a 16-bit parameter beside float32 ``a`` widens exactly (the
+    value the JAX package's promotion computes with; its gradient is cast
+    back by autograd, as JAX's transpose of the promotion does)."""
+    return t.reshape(d).to(a.dtype)
+
+
 @register("layer_norm")
 def _layer_norm(ctx, ins, attrs):
     """ref: operators/layer_norm_op.cc — normalise over dims
@@ -46,8 +54,9 @@ def _layer_norm(ctx, ins, attrs):
     route, _ = cuda_route("layer_norm", ins, attrs)
     if route is not None:
         r, d = _rows(a, bna)
-        y = cuda_fused.layer_norm(a.reshape(r, d), scale.reshape(d),
-                                  bias.reshape(d), eps).reshape(a.shape)
+        y = cuda_fused.layer_norm(a.reshape(r, d), affine_as(a, scale, d),
+                                  affine_as(a, bias, d),
+                                  eps).reshape(a.shape)
         # Mean/Variance are rarely-consumed auxiliaries, computed outside
         # the kernel and non-differentiable, as the JAX package
         # stop-gradients them (the kernel's backward covers Y only)
@@ -91,8 +100,13 @@ def _dropout(ctx, ins, attrs):
 
 
 def embedding_lookup(w, ids, padding_idx):
+    """Rows ``ids`` of ``w``.  ``F.embedding`` rather than
+    ``index_select``: on the card its backward sums each row's gradient
+    in float32, where ``index_select``'s (``index_add_``) adds with
+    atomics in the table's dtype (a bf16 table's gradient then keeps few
+    of its bits) and in an order that changes from run to run."""
     flat = ids.reshape(-1).long()
-    out = w.index_select(0, flat)
+    out = torch.nn.functional.embedding(flat, w)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((flat == padding_idx)[:, None], 0.0)
     return out.reshape(tuple(ids.shape) + (w.shape[-1],))
@@ -141,10 +155,17 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
 
 @register("gather_tokens")
 def _gather_tokens(ctx, ins, attrs):
-    """Per-sample token positions: (B, S, D) x (B, M) -> (B*M, D)."""
+    """Per-sample token positions: (B, S, D) x (B, M) -> (B*M, D), as rows
+    of the flattened (B*S, D) table through ``F.embedding``, whose
+    backward sums a position drawn twice in a row (masked positions are
+    drawn with replacement) in the same order in every run on the card;
+    ``torch.gather``'s backward adds such duplicates with atomics in an
+    order that changes from run to run."""
     seq, pos = x(ins, "X"), x(ins, "Index").long()
-    idx = pos[..., None].expand(pos.shape[0], pos.shape[1], seq.shape[-1])
-    return {"Out": torch.gather(seq, 1, idx).reshape(-1, seq.shape[-1])}
+    b, s, d = seq.shape
+    rows = (torch.arange(b, device=pos.device)[:, None] * s + pos)
+    return {"Out": torch.nn.functional.embedding(rows.reshape(-1),
+                                                 seq.reshape(b * s, d))}
 
 
 @register("arg_max")

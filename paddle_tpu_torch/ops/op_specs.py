@@ -10,6 +10,8 @@ gives each kernel's source and the TPU kernel it replaces."""
 
 from __future__ import annotations
 
+import torch
+
 from .cuda import flash_attention as cuda_flash
 from .cuda import fused_ops as cuda_fused
 from .cuda import optimizer as cuda_opt
@@ -98,8 +100,13 @@ def _norm_rows_supported(ins, attrs):
     scale, bias = x(ins, "Scale"), x(ins, "Bias")
     if scale is None or bias is None:
         return False, "no-affine"
-    if scale.dtype != a.dtype or bias.dtype != a.dtype:
-        return False, f"affine-dtype:{scale.dtype}"
+    # a 16-bit Scale/Bias beside float32 X (a pure-bf16 program's
+    # parameters under a float32 LayerNorm) widens exactly: the op casts it
+    for t in (scale, bias):
+        if t.dtype != a.dtype and not (
+                a.dtype == torch.float32 and
+                t.dtype in (torch.bfloat16, torch.float16)):
+            return False, f"affine-dtype:{t.dtype}"
     d = 1
     for s in a.shape[attrs.get("begin_norm_axis", 1):]:
         d *= int(s)
@@ -139,7 +146,9 @@ def _is_dense_adam(attrs):
 
 
 def _adam_supported(ins, attrs):
-    return cuda_opt.adam_supported(x(ins, "Param"), x(ins, "Grad"),
+    # no gradient: the op casts it to the first moment's dtype before the
+    # launch, as the JAX op does, and the wrapper checks it then
+    return cuda_opt.adam_supported(x(ins, "Param"), None,
                                    x(ins, "Moment1"), x(ins, "Moment2"),
                                    x(ins, "Beta1Pow"), x(ins, "Beta2Pow"))
 

@@ -1,7 +1,8 @@
 """Optimizer update ops — the port of paddle_tpu/ops/optimizer_ops.py (sgd,
-adam and adamw; ref: operators/optimizers/sgd_op, adam_op), and the AMP
-loss-scaling ops ``check_finite_and_unscale`` / ``update_loss_scaling``
-(ref: operators/amp/).
+momentum, lars_momentum, adam, adamw, lamb, adagrad, decayed_adagrad,
+rmsprop, adadelta, adamax, ftrl and dpsgd; ref: operators/optimizers/),
+and the AMP loss-scaling ops ``check_finite_and_unscale`` /
+``update_loss_scaling`` (ref: operators/amp/).
 
 The JAX package returns new arrays (ParamOut, Moment1Out, ...) that the
 executor writes back under the same names.  The port does the same in
@@ -20,6 +21,15 @@ the parameter as it was before the update, and the beta-power updates on
 the device, so no op waits for the host.  An op on its own is a run of
 one.  The lazy ``SparseRows`` branch and an op whose route is turned off
 are plain compositions, as in the JAX package.
+
+The other optimizers' ops are plain tensor compositions in the JAX ops'
+arithmetic order (no Pallas kernel there, so no CUDA kernel here).  A run
+of ``lamb`` ops goes to :func:`lamb_group`, which computes what the ops
+compute one after the other with ``torch._foreach_*`` over the run's
+tensors: the same elementwise values with a few launches per expression
+instead of one per tensor.  ``dpsgd`` draws its noise from the run's
+seeded generator (the JAX package from a JAX key: the bits differ, as
+they do for dropout).
 
 The loss-scaling ops are plain tensor compositions, as in the JAX package
 (no Pallas kernel there): they read the overflow verdict and the scale
@@ -52,7 +62,8 @@ def _lazy_adam(p, g, m1, m2, b1p, b2p, lr_t, beta1, beta2, eps, rows):
     rowsel = touched.reshape((-1,) + (1,) * (p.dim() - 1))
     m1_new = beta1 * m1 + (1 - beta1) * g
     m2_new = beta2 * m2 + (1 - beta2) * g * g
-    p_new = p - lr_t.to(p.dtype) * (m1_new / (m2_new.sqrt() + eps))
+    p_new = p - lr_t.to(p.dtype) * (m1_new / (m2_new.sqrt() + eps)).to(
+        p.dtype)
     return {"ParamOut": torch.where(rowsel, p_new, p),
             "Moment1Out": torch.where(rowsel, m1_new, m1),
             "Moment2Out": torch.where(rowsel, m2_new, m2),
@@ -70,7 +81,7 @@ def _composed(op_type, ctx, ins, attrs):
     eps = attrs.get("epsilon", 1e-8)
     g = g.to(m1.dtype)
     coeff = _decay_coeff(op_type, attrs)
-    decay = lr.to(p.dtype) * coeff * p if coeff else None
+    decay = cuda_opt.adamw_decay(lr, coeff, p) if coeff else None
     lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
     if attrs.get("lazy_mode") and ins.get("SparseRows"):
         out = _lazy_adam(p, g, m1, m2, b1p, b2p, lr_t, beta1, beta2, eps,
@@ -79,7 +90,7 @@ def _composed(op_type, ctx, ins, attrs):
         m1_out = beta1 * m1 + (1 - beta1) * g
         m2_out = beta2 * m2 + (1 - beta2) * g * g
         out = {"ParamOut": p - lr_t.to(p.dtype) *
-               (m1_out / (m2_out.sqrt() + eps)),
+               (m1_out / (m2_out.sqrt() + eps)).to(p.dtype),
                "Moment1Out": m1_out, "Moment2Out": m2_out}
         if ctx.donate_state:             # lr_t above already read them
             out.update(Beta1PowOut=b1p.mul_(beta1),
@@ -158,6 +169,239 @@ def _adamw(ctx, ins, attrs):
     """Adam, then ``ParamOut -= lr * coeff * Param`` with ``Param`` read
     before the update, as the JAX package computes it."""
     return adam_group(ctx, [("adamw", ins, attrs)])[0]
+
+
+@register("momentum")
+def _momentum(ctx, ins, attrs):
+    p, g, v, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "Velocity"), \
+        x(ins, "LearningRate")
+    mu = attrs.get("mu", 0.9)
+    lr = lr.to(p.dtype)
+    g = g.to(p.dtype)
+    # L2 regularization folded into the op (ref: momentum_op.h
+    # regularization_method)
+    if attrs.get("regularization_method", "") == "l2_decay":
+        g = g + attrs.get("regularization_coeff", 0.0) * p
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": p_out, "VelocityOut": v_out}
+
+
+def _l2_norm(t):
+    return torch.sqrt(torch.sum(torch.square(t)))
+
+
+@register("lars_momentum")
+def _lars_momentum(ctx, ins, attrs):
+    p, g, v, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "Velocity"), \
+        x(ins, "LearningRate")
+    mu = attrs.get("mu", 0.9)
+    lars_coeff = attrs.get("lars_coeff", 0.001)
+    lars_wd = attrs.get("lars_weight_decay", 0.0005)
+    eps = attrs.get("epsilon", 0.0)
+    p_norm, g_norm = _l2_norm(p), _l2_norm(g)
+    local_lr = torch.where(
+        (p_norm > 0) & (g_norm > 0),
+        lr * lars_coeff * p_norm / (g_norm + lars_wd * p_norm + eps), lr)
+    v_out = mu * v + local_lr * (g + lars_wd * p)
+    return {"ParamOut": p - v_out, "VelocityOut": v_out}
+
+
+def _fe(op, *args):
+    """``torch._foreach_<op>`` over lists: per tensor the value of the
+    plain op (fused launches where the tensors allow, one op each
+    otherwise)."""
+    return getattr(torch, f"_foreach_{op}")(*args)
+
+
+@register_group("lamb")
+def lamb_group(ctx, items):
+    """A run of ``lamb`` ops (ref: operators/optimizers/lamb_op.h; the JAX
+    op's arithmetic, in its order), each op's outputs computed as the op
+    alone computes them::
+
+        m1 = b1 * m1 + (1 - b1) * g;  m2 = b2 * m2 + ((1 - b2) * g) * g
+        r = (m1 / (1 - b1p)) / (sqrt(m2 / (1 - b2p)) + eps) + wd * p
+        ratio = |p| / |r| where both norms are > 0, else 1
+        p = p - (lr * ratio) * r;  b1p *= b1;  b2p *= b2
+
+    The elementwise expressions run as ``torch._foreach_*`` over the run
+    (per element the same operation, so the same value); the ops' scalars
+    (bias corrections, trust ratios, steps) are stacked and computed
+    once; the quotients by each op's own bias corrections and the product
+    by its own step are one op per tensor; the trust ratio's norms are
+    ``_foreach_norm`` in the single op and the run alike.  With ``donate_state`` the moments,
+    parameters and beta powers are updated in place."""
+    n = len(items)
+    ins_ = [ins for _, ins, _ in items]
+    attrs_ = [attrs for _, _, attrs in items]
+    ps = [x(i, "Param") for i in ins_]
+    m1s = [x(i, "Moment1") for i in ins_]
+    m2s = [x(i, "Moment2") for i in ins_]
+    b1ps = [x(i, "Beta1Pow") for i in ins_]
+    b2ps = [x(i, "Beta2Pow") for i in ins_]
+    lrs = [x(i, "LearningRate") for i in ins_]
+    gs = [x(i, "Grad").to(m.dtype) for i, m in zip(ins_, m1s)]
+    b1 = [a.get("beta1", 0.9) for a in attrs_]
+    b2 = [a.get("beta2", 0.999) for a in attrs_]
+    eps = [a.get("epsilon", 1e-6) for a in attrs_]
+    wd = [a.get("weight_decay", 0.01) for a in attrs_]
+    inplace = ctx.donate_state
+    if inplace:
+        m1o, m2o = m1s, m2s
+        _fe("mul_", m1o, b1)
+        _fe("mul_", m2o, b2)
+    else:
+        m1o, m2o = _fe("mul", m1s, b1), _fe("mul", m2s, b2)
+    _fe("add_", m1o, _fe("mul", gs, [1 - b for b in b1]))
+    gg = _fe("mul", gs, [1 - b for b in b2])
+    _fe("mul_", gg, gs)
+    _fe("add_", m2o, gg)
+    # each op's own bias corrections 1 - b1p and 1 - b2p, all in one op
+    c1, c2 = 1 - torch.stack(b1ps), 1 - torch.stack(b2ps)
+    m1h = [m / c1[k] for k, m in enumerate(m1o)]
+    m2h = [m / c2[k] for k, m in enumerate(m2o)]
+    r = _fe("sqrt", m2h)
+    _fe("add_", r, eps)
+    r = _fe("div", m1h, r)
+    _fe("add_", r, _fe("mul", ps, wd))
+    p_norm = torch.stack(_fe("norm", ps))
+    r_norm = torch.stack(_fe("norm", r))
+    ratio = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm, 1.0)
+    step = torch.stack(lrs) * ratio[:, None]        # each op's lr * ratio
+    upd = [step[k].to(p.dtype) * rk.to(p.dtype)
+           for k, (p, rk) in enumerate(zip(ps, r))]
+    if inplace:
+        p_out = ps
+        _fe("sub_", p_out, upd)
+        b1o, b2o = b1ps, b2ps
+        _fe("mul_", b1o, b1)
+        _fe("mul_", b2o, b2)
+    else:
+        p_out = _fe("sub", ps, upd)
+        b1o, b2o = _fe("mul", b1ps, b1), _fe("mul", b2ps, b2)
+    return [{"ParamOut": p_out[k], "Moment1Out": m1o[k],
+             "Moment2Out": m2o[k], "Beta1PowOut": b1o[k],
+             "Beta2PowOut": b2o[k]} for k in range(n)]
+
+
+@register("lamb")
+def _lamb(ctx, ins, attrs):
+    """ref: operators/optimizers/lamb_op.h — layer-adaptive large-batch
+    Adam (a run of one of :func:`lamb_group`)."""
+    return lamb_group(ctx, [("lamb", ins, attrs)])[0]
+
+
+@register("adagrad")
+def _adagrad(ctx, ins, attrs):
+    p, g, mom, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "Moment"), \
+        x(ins, "LearningRate")
+    eps = attrs.get("epsilon", 1e-6)
+    mom_out = mom + g * g
+    p_out = p - lr.to(p.dtype) * g / (torch.sqrt(mom_out) + eps)
+    return {"ParamOut": p_out, "MomentOut": mom_out}
+
+
+@register("decayed_adagrad")
+def _decayed_adagrad(ctx, ins, attrs):
+    p, g, mom, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "Moment"), \
+        x(ins, "LearningRate")
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mom_out = decay * mom + (1 - decay) * g * g
+    p_out = p - lr.to(p.dtype) * g / (torch.sqrt(mom_out) + eps)
+    return {"ParamOut": p_out, "MomentOut": mom_out}
+
+
+@register("rmsprop")
+def _rmsprop(ctx, ins, attrs):
+    p, g, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "LearningRate")
+    ms, mom, mg = x(ins, "MeanSquare"), x(ins, "Moment"), x(ins, "MeanGrad")
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    momentum = attrs.get("momentum", 0.0)
+    ms_out = rho * ms + (1 - rho) * g * g
+    if attrs.get("centered", False):
+        mg_out = rho * mg + (1 - rho) * g
+        denom = ms_out - mg_out * mg_out + eps
+    else:
+        mg_out = mg
+        denom = ms_out + eps
+    mom_out = momentum * mom + lr.to(p.dtype) * g / torch.sqrt(denom)
+    return {"ParamOut": p - mom_out, "MomentOut": mom_out,
+            "MeanSquareOut": ms_out, "MeanGradOut": mg_out}
+
+
+@register("adadelta")
+def _adadelta(ctx, ins, attrs):
+    p, g = x(ins, "Param"), x(ins, "Grad")
+    avg_sq_g, avg_sq_u = x(ins, "AvgSquaredGrad"), x(ins, "AvgSquaredUpdate")
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    g2 = rho * avg_sq_g + (1 - rho) * g * g
+    update = -torch.sqrt((avg_sq_u + eps) / (g2 + eps)) * g
+    u2 = rho * avg_sq_u + (1 - rho) * update * update
+    return {"ParamOut": p + update, "AvgSquaredGradOut": g2,
+            "AvgSquaredUpdateOut": u2}
+
+
+@register("adamax")
+def _adamax(ctx, ins, attrs):
+    p, g, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "LearningRate")
+    mom, inf_norm = x(ins, "Moment"), x(ins, "InfNorm")
+    b1p = x(ins, "Beta1Pow")
+    beta1 = attrs.get("beta1", 0.9)
+    beta2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    mom_out = beta1 * mom + (1 - beta1) * g
+    inf_out = torch.maximum(beta2 * inf_norm, torch.abs(g))
+    lr_t = lr / (1 - b1p)
+    p_out = p - lr_t.to(p.dtype) * mom_out / (inf_out + eps)
+    # the beta1 power advances every step (the reference does it in
+    # AdamaxOptimizer._finish_update)
+    return {"ParamOut": p_out, "MomentOut": mom_out, "InfNormOut": inf_out,
+            "Beta1PowOut": b1p * beta1}
+
+
+@register("ftrl")
+def _ftrl(ctx, ins, attrs):
+    p, g, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "LearningRate")
+    sq, lin = x(ins, "SquaredAccumulator"), x(ins, "LinearAccumulator")
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    lr_power = attrs.get("lr_power", -0.5)
+    new_sq = sq + g * g
+    if lr_power == -0.5:
+        root_new, root_old = torch.sqrt(new_sq), torch.sqrt(sq)
+    else:
+        root_new = torch.pow(new_sq, -lr_power)
+        root_old = torch.pow(sq, -lr_power)
+    sigma = (root_new - root_old) / lr
+    lin_out = lin + g - sigma * p
+    denom = root_new / lr + 2 * l2
+    pre = torch.clamp(lin_out, -l1, l1) - lin_out
+    return {"ParamOut": pre / denom, "SquaredAccumOut": new_sq,
+            "LinearAccumOut": lin_out}
+
+
+@register("dpsgd")
+def _dpsgd(ctx, ins, attrs):
+    """Differentially private SGD (ref: optimizers/dpsgd_op.h): the
+    gradient clipped to L2 norm ``clip``, plus Gaussian noise of standard
+    deviation ``sigma * clip / batch_size`` drawn from the run's
+    generator."""
+    p, g, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "LearningRate")
+    clip = attrs.get("clip", 10.0)
+    batch_size = attrs.get("batch_size", 16.0)
+    sigma = attrs.get("sigma", 1.0)
+    scale = torch.clamp(clip / torch.clamp(_l2_norm(g), min=1e-12),
+                        max=1.0)
+    noise = torch.randn(g.shape, generator=ctx.generator, dtype=g.dtype,
+                        device=g.device) * (sigma * clip / batch_size)
+    return {"ParamOut": p - lr.to(p.dtype) * (g * scale + noise)}
 
 
 # ---------------------------------------------------------------------------

@@ -113,6 +113,46 @@ def test_the_allow_list_names_real_differences():
         assert names <= set(jp) and not names & set(tp), key
 
 
+#: the optimizers and the checkpoint API the port took over (with their
+#: short aliases), each compared keyword by keyword above
+OPTIMIZERS_AND_CHECKPOINTS = {
+    "optimizer": {
+        "MomentumOptimizer", "LarsMomentumOptimizer", "LambOptimizer",
+        "AdagradOptimizer", "DecayedAdagradOptimizer", "RMSPropOptimizer",
+        "AdadeltaOptimizer", "AdamaxOptimizer", "FtrlOptimizer",
+        "DpsgdOptimizer", "Momentum", "LarsMomentum", "Lamb", "Adagrad",
+        "DecayedAdagrad", "RMSProp", "Adadelta", "Adamax", "Ftrl",
+        "Dpsgd"},
+    "io": {"TrainStatus", "save_checkpoint", "load_checkpoint",
+           "validate_checkpoint_dir", "save_params", "load_params",
+           "AsyncCheckpointer", "save_persistables_sharded"},
+}
+
+
+@pytest.mark.parametrize("mod", sorted(OPTIMIZERS_AND_CHECKPOINTS))
+def test_the_optimizers_and_checkpoints_are_shared_api(mod):
+    names = {qual.split(".")[0] for m, qual, *_ in SHARED if m == mod}
+    assert OPTIMIZERS_AND_CHECKPOINTS[mod] <= names
+    tmod = importlib.import_module(f"paddle_tpu_torch.{mod}")
+    jmod = importlib.import_module(f"paddle_tpu.{mod}")
+    for name in OPTIMIZERS_AND_CHECKPOINTS[mod]:
+        if name.endswith("Optimizer"):
+            # the short alias names the same class in both packages
+            alias = name[:-len("Optimizer")]
+            assert getattr(tmod, alias) is getattr(tmod, name)
+            assert getattr(jmod, alias) is getattr(jmod, name)
+
+
+def test_the_ported_checkpoint_keeps_the_jax_constants():
+    from paddle_tpu import io as jio
+    from paddle_tpu_torch import io as tio
+    assert (tio.CKPT_FORMAT_VERSION, tio.MANIFEST_FILE) == \
+        (jio.CKPT_FORMAT_VERSION, jio.MANIFEST_FILE)
+    assert issubclass(tio.ChecksumMismatchError, OSError)
+    with pytest.raises(UnimplementedError, match="AsyncCheckpointer"):
+        tio.AsyncCheckpointer()
+
+
 @pytest.mark.parametrize("reserve", [0, 3])
 def test_prefix_reserve_blocks_is_taken_as_jax_takes_it(reserve):
     cfg = DecodeConfig(prefix_reserve_blocks=reserve)

@@ -290,7 +290,7 @@ def test_strategy_amp_runs_on_one_worker():
 
 
 @pytest.mark.parametrize("flag", [
-    "recompute", "gradient_merge", "localsgd", "lamb", "use_dgc",
+    "recompute", "gradient_merge", "localsgd", "use_dgc",
     "sharding", "sharded_update", "tensor_parallel", "pipeline",
     "auto_shard", "overlap_grad_sync", "use_hierarchical_allreduce",
     "mesh"])
