@@ -193,7 +193,37 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    profiled step's device time split into products, port kernels, LAMB's
    update ops (with their launches) and other, and the seconds
    ``save_checkpoint`` and ``load_checkpoint`` take;
-14. print the ``kernels`` JSON line, the card's name and power limit, and
+14. recompute, gradient merge and the wrapper optimizers, each through
+   ``fleet.distributed_optimizer`` on one rank with phase 8's program and
+   recipe and ``prepare(donate_state=True)``.  (a) ``strategy.recompute``
+   with one checkpoint a layer (each encoder layer's last LayerNorm
+   output) beside the same program without, 10 steps at dropout 0.1 from
+   one seed: step-1 loss bit for bit, step-1 gradients within 1e-6 of
+   max|grad|, step-10 loss within 1e-4; each step #1 24 times, add+LN
+   forward 50, bias+GELU forward 25 (the recomputed segments run again),
+   the backward kernels and #10 as phase 8, no fallback; each way the
+   peak memory of one step, the median step and a profiled step.
+   (b) recompute and ``strategy.gradient_merge`` (k 4, avg) on
+   micro-batches of 8 x 128, 8 steps at dropout 0: the merged gradient
+   at step 4 within 1e-4 of max|grad| of one step on the same 32 rows;
+   on the steps that do not apply every parameter and moment bit for bit
+   unchanged; the accumulators zero after each apply; #10 once per apply
+   (2 in 8); one predicate read a step.  (c) ``ExponentialMovingAverage(
+   0.999, thres_steps=the LR schedule's step)``, ``ModelAverage(0.15,
+   2, 4)`` and ``LookaheadOptimizer(AdamW, 0.5, 2)``, 3 steps each: EMA's
+   ``apply`` within one float32 ulp of ``ema / (1 - prod decay_t)``, the
+   ``restore`` of both bit for bit, Lookahead's fast weights equal to
+   its slow ones after each sync step; EMA's update ops timed in a
+   profiled step.  (d) ``strategy.use_dgc`` on Momentum(1e-3, 0.9), 3
+   steps: the word embedding's threshold (23.4 M elements) within one
+   float32 ulp of ``np.quantile`` in float64, 0.1 % of its elements sent
+   (± 1), U, V and the parameter the op's formula bit for bit; the 158
+   DGC updates timed in a profiled step.  (e) ``strategy.localsgd`` (k
+   2) on two ranks of the card over gloo (phase 10's launcher, each rank
+   its 16 rows), 4 steps: no gradient all-reduce in the program, the
+   parameters sha256-equal across the ranks after steps 2 and 4 and not
+   after 3 (step 1 runs at the warmup's LR 0 and moves nothing);
+15. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -297,6 +327,25 @@ LAMB_EPSILON, LAMB_SAVE_AT = 1e-6, 5
 # state (moments, powers, the LR counter, the generator) lies orders of
 # magnitude further, and the restore itself is held bit for bit
 LAMB_RESUME_MARGIN = 4.0
+# phase 14: recompute (one checkpoint a layer: each encoder layer's
+# forward runs again in the backward, so its kernels launch twice a step:
+# #1 12 -> 24, add+LN 25 -> 50 (the embeddings' and the 24 residual), bias
+# +GELU 13 -> 25 (the masked-LM head's runs once, after the last
+# checkpoint); the backward kernels and #10 as phase 8), gradient merge,
+# the averaging wrappers, DGC and LocalSGD on phase 8's program and recipe
+RECOMPUTE_LAUNCHES = dict(FUSED_LAUNCHES, flash_attention_fwd=24,
+                          add_layer_norm_fwd=50, bias_gelu_fwd=25)
+RC_STEPS = TRAIN_STEPS
+TOL_RC_GRAD = 1e-6        # step-1 grads, recompute vs not, of max|grad|
+TOL_RC_LOSS = 1e-4        # step-10 loss, recompute vs not (relative)
+GM_K, GM_MICRO, GM_STEPS = 4, 8, 8     # 4 micro-batches of 8 x 128: 2 applies
+TOL_GM_GRAD = 1e-4        # merged gradient vs one 32-row step, of max|grad|
+WRAP_STEPS = 3            # EMA, ModelAverage, Lookahead, DGC
+EMA_DECAY = 0.999
+MA_RATE, MA_MIN, MA_MAX = 0.15, 2, 4
+LA_ALPHA, LA_K = 0.5, 2
+DGC_LR, DGC_MOMENTUM = 1e-3, 0.9
+LOCALSGD_K, LOCALSGD_STEPS = 2, 4
 EDGE_ROWS = 1003          # ragged last block of the backwards' row blocks
 # the LN backwards beyond BERT-base's shapes: widths of 1, 2, 8 and 16
 # warps a row (128 and 8192 are the gate's edges) at a few hundred rows
@@ -2936,6 +2985,722 @@ def lamb_phase(torch, np, cfg, ckpt_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: recompute, gradient merge and the wrapper optimizers
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_names(program):
+    """Each encoder layer's last LayerNorm output (``Y`` of the LayerNorm
+    whose scale is an ``_ln2_scale`` parameter): one recompute checkpoint
+    a layer, picked from the program as the tests pick them."""
+    return [op.output("Y")[0] for op in program.global_block().ops
+            if op.type in ("layer_norm", "fused_add_layernorm")
+            and op.input("Scale")[0].endswith("_ln2_scale")]
+
+
+def recipe_optimizer(fluid, inner=None):
+    """Phase 8's recipe (warmup, linear decay, global-norm clip): AdamW
+    0.01, or ``inner(lr, clip)``."""
+    lr = fluid.layers.linear_lr_warmup(
+        fluid.layers.polynomial_decay(PEAK_LR, DECAY_STEPS, 0.0, power=1.0),
+        WARMUP_STEPS, 0.0, PEAK_LR)
+    clip = fluid.clip.GradientClipByGlobalNorm(CLIP_NORM)
+    if inner is not None:
+        return inner(lr, clip)
+    return fluid.optimizer.AdamW(lr, weight_decay=WEIGHT_DECAY,
+                                 grad_clip=clip)
+
+
+def build_wrapped_train(cfg, configure=None, inner=None, wrap=None,
+                        post=None):
+    """Phase 14's program: phase 8's BERT-base pretraining and recipe
+    (``recipe_optimizer(fluid, inner)``), wrapped by ``wrap(fluid, opt)``
+    when given, through ``fleet.distributed_optimizer`` on one rank with
+    the strategy ``configure(strategy, main)`` sets; then ``post(fluid,
+    main)`` in the same programs (EMA's ``update``, ModelAverage) and both
+    fusion passes, as phase 8.  Returns (the CompiledProgram, startup,
+    loss, post's result)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    UserDefinedRoleMaker)
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.passes import apply_pass
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    extra = None
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        opt = recipe_optimizer(fluid, inner)
+        if wrap is not None:
+            opt = wrap(fluid, opt)
+        fleet.init(UserDefinedRoleMaker(0, 1))           # CUDAPlace(0)
+        s = DistributedStrategy()
+        if configure is not None:
+            configure(s, main)
+        fleet.distributed_optimizer(opt, s).minimize(total)
+        check(fleet.main_program is main, "fleet on one rank compiled "
+                                          "the program")
+        if post is not None:
+            extra = post(fluid, main)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    bs = fluid.BuildStrategy()
+    bs.fuse_elewise_add_act_ops = True
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=total.name, build_strategy=bs)
+    return compiled, startup, total, extra
+
+
+def traced_ops(executor_mod, torch, name, pick):
+    """A context manager naming a CPU range ``name`` around every op for
+    which ``pick(op)`` holds (``executor._call``), so a profiled step
+    gives those ops' launches and device time (``profile_step``'s
+    ``ranges``)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        real = executor_mod._call
+
+        def call(op, fn):
+            if pick(op):
+                with torch.profiler.record_function(name):
+                    return real(op, fn)
+            return real(op, fn)
+        executor_mod._call = call
+        try:
+            yield
+        finally:
+            executor_mod._call = real
+    return ctx()
+
+
+def wrapped_run(torch, np, cfg, build, steps, feeds=None, grads=False,
+                fetch=None, after_step=None, measure=False, ranges=()):
+    """``steps`` steps of ``build()``'s program through
+    prepare(donate_state=True) on the card from the seed (phase 8's
+    batch, or ``feeds[i]`` at step i), launch and route counts
+    from zero before the steps and read right after them.  With
+    ``grads`` every ``param@GRAD`` is fetched too, step 1's kept
+    (``grads``); ``fetch(program)`` names more fetches, and
+    ``after_step(i, scope, program, fetched)`` runs after each step.
+    With ``measure``: the peak memory of one more step
+    (``reset_peak_memory_stats`` around it), then one profiled step
+    (``ranges``: (range name, op picker) pairs, ``traced_ops``)."""
+    import contextlib
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.framework import executor as executor_mod
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    compiled, startup, total, extra = build()
+    program = compiled._program
+    if feeds is None:
+        feeds = [bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                      TRAIN_BATCH, TRAIN_SEQ,
+                                      TRAIN_MASKS)] * steps
+    scope = fluid.Scope()
+    exe = fluid.Executor()                       # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    more = list(fetch(program)) if fetch is not None else []
+    grad_names = [p.name + "@GRAD" for p in program.all_parameters()] \
+        if grads else []
+    prepared = exe.prepare(compiled, fetch_list=[total] + more + grad_names,
+                           scope=scope, donate_state=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    out = {"losses": [], "step_s": [], "program": program, "scope": scope,
+           "exe": exe, "extra": extra, "prepared": prepared,
+           "launches_by_step": []}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        handles = prepared.run(feeds[i])
+        out["losses"].append(float(handles[0]))
+        out["step_s"].append(time.perf_counter() - t0)
+        if i == 0 and grads:
+            out["grads"] = {n: h.value.detach().clone() for n, h in
+                            zip(grad_names, handles[1 + len(more):])}
+        fetched = [h.value for h in handles[1:1 + len(more)]]
+        del handles
+        out["launches_by_step"].append(kernels.launch_counts())
+        if after_step is not None:
+            fluid.sync_prepared_state(scope)
+            after_step(i + 1, scope, program, fetched)
+        del fetched
+    out["launches"] = kernels.launch_counts()
+    out["routes"] = registry.route_counts()
+    out["predicate_reads"] = prepared.stats["predicate_reads"]
+    if measure:
+        def one():
+            return float(prepared.run(feeds[-1])[0])
+        out["step_ms"] = statistics.median(out["step_s"][2:]) * 1e3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        one()
+        torch.cuda.synchronize()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        with contextlib.ExitStack() as stack:
+            for name, pick in ranges:
+                stack.enter_context(traced_ops(executor_mod, torch, name,
+                                               pick))
+            out["profile"] = profile_step(torch, one, out["step_ms"],
+                                          ranges=tuple(n for n, _ in ranges))
+    return out
+
+
+def check_wrapped_launches(what, launches, expected, steps):
+    for name, n in launches.items():
+        check(n == expected.get(name, 0) * steps,
+              f"{what}: {name} launched {n} times in {steps} steps, "
+              f"expected {expected.get(name, 0)} a step")
+
+
+def no_fallbacks(what, routes):
+    fallbacks = {k: v for k, v in routes.items() if k[2] == "fallback"}
+    check(not fallbacks, f"{what}: route fallbacks {fallbacks}")
+
+
+def grad_gap(torch, got, ref):
+    """max over tensors of max|Δ| / max|ref|, the tensor, and the tensors
+    that differ at all."""
+    worst, where, differ = 0.0, "", []
+    for n, b in ref.items():
+        a = got[n]
+        if not torch.equal(a, b):
+            differ.append(n)
+        e = float((a.double() - b.double()).abs().max()) / max(
+            float(b.double().abs().max()), 1e-30)
+        if e > worst:
+            worst, where = e, n
+    return worst, where, differ
+
+
+def recompute_leg(torch, np, cfg):
+    """(a): phase 8's program with and without ``strategy.recompute`` (one
+    checkpoint a layer), RC_STEPS steps each at dropout 0.1 from one
+    seed."""
+    def configure(s, main):
+        s.recompute = True
+        s.recompute_configs = {"checkpoints": checkpoint_names(main)}
+
+    runs = {}
+    for name, conf in (("plain", None), ("recompute", configure)):
+        runs[name] = wrapped_run(
+            torch, np, cfg, lambda c=conf: build_wrapped_train(cfg, c),
+            RC_STEPS, grads=True, measure=True)
+        r = runs[name]
+        bw = [op for op in r["program"].global_block().ops
+              if op.type == "backward"][0]
+        ckpts = list(bw.attrs.get("checkpoints") or ())
+        check(len(ckpts) == (12 if name == "recompute" else 0),
+              f"{name}: {len(ckpts)} recompute checkpoints")
+        no_fallbacks(f"(a) {name}", r["routes"])
+        check_wrapped_launches(f"(a) {name}", r["launches"],
+                               RECOMPUTE_LAUNCHES if ckpts
+                               else FUSED_LAUNCHES, RC_STEPS)
+        log(f"  (a) {name}: losses {[round(x, 5) for x in r['losses']]}; "
+            f"step median of 3-{RC_STEPS} {r['step_ms']:.2f} ms; peak "
+            f"{r['peak_gib']:.3f} GiB in one step; launches "
+            f"{r['launches']}")
+        for k in ("scope", "exe", "prepared"):
+            r.pop(k)
+        torch.cuda.empty_cache()
+    plain, rc = runs["plain"], runs["recompute"]
+    check(plain["losses"][0] == rc["losses"][0],
+          f"(a) step-1 loss {rc['losses'][0]!r} with recompute, "
+          f"{plain['losses'][0]!r} without")
+    gap, worst, differ = grad_gap(torch, rc["grads"], plain["grads"])
+    log(f"  (a) step-1 gradients, recompute vs not: max|Δ| / max|grad| "
+        f"{gap:.3e} at {worst or '-'} (tolerance {TOL_RC_GRAD:.0e}); "
+        f"{len(plain['grads']) - len(differ)} of {len(plain['grads'])} "
+        f"tensors bit for bit, differing: {differ}")
+    check(gap <= TOL_RC_GRAD, f"(a) step-1 gradient of {worst}: recompute "
+                              f"disagrees with the plain step")
+    last = abs(rc["losses"][-1] - plain["losses"][-1]) / \
+        abs(plain["losses"][-1])
+    log(f"  (a) step-{RC_STEPS} loss: relative Δ {last:.3e} (tolerance "
+        f"{TOL_RC_LOSS:.0e})")
+    check(last <= TOL_RC_LOSS, "(a) recompute drifts from the plain run")
+    report = {}
+    for name, r in runs.items():
+        prof = r["profile"] or {}
+        report[name] = {"losses": r["losses"], "step_s": r["step_s"],
+                        "step_ms_median_3_10": r["step_ms"],
+                        "peak_gib": r["peak_gib"],
+                        "busy_ms": prof.get("busy_ms"),
+                        "profile": r["profile"]}
+    report.update(grad_max_rel=gap, grad_worst=worst, grads_differ=differ,
+                  last_loss_rel=last)
+    log(f"  (a) peak memory {plain['peak_gib']:.3f} -> {rc['peak_gib']:.3f} "
+        f"GiB, step {plain['step_ms']:.2f} -> {rc['step_ms']:.2f} ms, "
+        f"device busy {report['plain']['busy_ms']} -> "
+        f"{report['recompute']['busy_ms']} ms")
+    return rc["launches"], report
+
+
+def gradient_merge_leg(torch, np, cfg):
+    """(b): recompute and ``strategy.gradient_merge`` (k GM_K, avg) on
+    micro-batches of GM_MICRO rows, GM_STEPS steps at dropout 0; the
+    merged gradient at the first apply against one step of the plain
+    program on the same GM_K * GM_MICRO rows."""
+    import dataclasses
+    from paddle_tpu_torch.models import bert
+    cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    whole = bert.make_fake_batch(np.random.RandomState(SEED), cfg0,
+                                 GM_K * GM_MICRO, TRAIN_SEQ, TRAIN_MASKS)
+    micro = []
+    for j in range(GM_K):
+        rows = slice(j * GM_MICRO, (j + 1) * GM_MICRO)
+        micro.append({k: (v[j * GM_MICRO * TRAIN_MASKS:
+                            (j + 1) * GM_MICRO * TRAIN_MASKS]
+                          if k == "mask_label" else v[rows])
+                      for k, v in whole.items()})
+    feeds = [micro[i % GM_K] for i in range(GM_STEPS)]
+
+    def configure(s, main):
+        s.recompute = True
+        s.recompute_configs = {"checkpoints": checkpoint_names(main)}
+        s.gradient_merge = True
+        s.gradient_merge_configs = {"k_steps": GM_K, "avg": True}
+
+    ref = wrapped_run(torch, np, cfg0,
+                      lambda: build_wrapped_train(cfg0, None), 1,
+                      feeds=[whole], grads=True)
+    ref_grads = ref["grads"]
+    del ref
+    torch.cuda.empty_cache()
+    state, merged = {}, {}
+
+    def eff_names(program):
+        return sorted(v.name for v in program.list_vars()
+                      if "_gm_eff" in v.name)
+
+    def watch(i, scope, program, fetched):
+        params = [p.name for p in program.all_parameters()]
+        moments = [v.name for v in program.list_vars() if v.persistable
+                   and ("_moment" in v.name or "_pow_acc" in v.name)]
+        accs = [v.name for v in program.list_vars() if v.persistable
+                and "_gm_acc" in v.name]
+        now = {n: scope.find_var(n) for n in params + moments}
+        applied = i % GM_K == 0
+        if state:
+            same = [n for n in now if torch.equal(now[n], state[n])]
+            if applied:
+                check(not [n for n in params if n in same],
+                      f"(b) step {i}: an apply step left parameters "
+                      f"unchanged: {[n for n in params if n in same][:5]}")
+            else:
+                check(len(same) == len(now),
+                      f"(b) step {i}: a step that does not apply changed "
+                      f"{[n for n in now if n not in same][:5]}")
+        state.clear()
+        state.update({n: t.detach().clone() for n, t in now.items()})
+        if applied:
+            nonzero = [n for n in accs if bool(scope.find_var(n).any())]
+            check(len(accs) == ADAM_OPS and not nonzero,
+                  f"(b) step {i}: {len(nonzero)} of {len(accs)} "
+                  f"accumulators not zero after the apply")
+        if i == GM_K:
+            # each merged gradient, by the parameter its name starts with
+            merged.update({n[:n.index("_gm_eff")] + "@GRAD": t.detach()
+                           for n, t in zip(eff_names(program), fetched)})
+
+    r = wrapped_run(torch, np, cfg0, lambda: build_wrapped_train(
+        cfg0, configure), GM_STEPS, feeds=feeds, fetch=eff_names,
+        after_step=watch)
+    state.clear()
+    check(merged.keys() == ref_grads.keys(),
+          "(b) the merged gradients do not name the parameters")
+    gap, worst, _ = grad_gap(torch, merged, ref_grads)
+    log(f"  (b) merged gradient at step {GM_K} vs one {GM_K * GM_MICRO}-row "
+        f"step: max|Δ| / max|grad| {gap:.3e} at {worst} (tolerance "
+        f"{TOL_GM_GRAD:.0e})")
+    check(gap <= TOL_GM_GRAD, f"(b) the merged gradient of {worst} "
+                              f"strays from the whole batch's")
+    merged.clear()
+    del ref_grads
+    no_fallbacks("(b)", r["routes"])
+    per_step = dict(RECOMPUTE_LAUNCHES, adam=0)
+    applies = GM_STEPS // GM_K
+    for name, n in r["launches"].items():
+        want = applies if name == "adam" else per_step.get(name, 0) * \
+            GM_STEPS
+        check(n == want, f"(b) {name} launched {n} times in {GM_STEPS} "
+                         f"steps, expected {want}")
+    adam_by_step = [d.get("adam", 0) for d in r["launches_by_step"]]
+    want_adam = [(i + 1) // GM_K for i in range(GM_STEPS)]
+    check(adam_by_step == want_adam,
+          f"(b) Adam launches after each step {adam_by_step}, expected "
+          f"{want_adam}")
+    check(r["predicate_reads"] == GM_STEPS,
+          f"(b) {r['predicate_reads']} predicate reads in {GM_STEPS} steps")
+    apply_s = [s for i, s in enumerate(r["step_s"]) if (i + 1) % GM_K == 0]
+    skip_s = [s for i, s in enumerate(r["step_s"])
+              if (i + 1) % GM_K and i >= 1]
+    log(f"  (b) losses {[round(x, 5) for x in r['losses']]}; step times "
+        f"(s) {[round(x, 4) for x in r['step_s']]}: apply steps "
+        f"{[round(x * 1e3, 2) for x in apply_s]} ms, the others' median "
+        f"{statistics.median(skip_s) * 1e3:.2f} ms; {r['predicate_reads']} "
+        f"predicate reads; launches {r['launches']}")
+    return r["launches"], {
+        "losses": r["losses"], "step_s": r["step_s"],
+        "apply_step_ms": [s * 1e3 for s in apply_s],
+        "other_step_ms_median": statistics.median(skip_s) * 1e3,
+        "merged_grad_max_rel": gap, "merged_grad_worst": worst,
+        "predicate_reads": r["predicate_reads"],
+        "adam_launches_by_step": adam_by_step}
+
+
+def averaging_leg(torch, np, cfg):
+    """(c): WRAP_STEPS steps each of EMA (thres_steps: the LR schedule's
+    step counter), ModelAverage and Lookahead(AdamW) on phase 8's
+    program."""
+    from paddle_tpu_torch import fluid
+
+    def ema_post(fl, main):
+        step = [v for v in main.list_vars()
+                if v.persistable and v.name.startswith("@LR_STEP@")][0]
+        ema = fl.optimizer.ExponentialMovingAverage(
+            EMA_DECAY, thres_steps=fl.layers.cast(step, "float32"))
+        ema.update()
+        return ema
+
+    def ma_post(fl, main):
+        return fl.optimizer.ModelAverage(MA_RATE, min_average_window=MA_MIN,
+                                         max_average_window=MA_MAX)
+
+    def lookahead(fl, opt):
+        return fl.optimizer.LookaheadOptimizer(opt, alpha=LA_ALPHA, k=LA_K)
+
+    report = {}
+    ema_names = lambda op: any("_ema" in n or n.startswith("ema_")  # noqa
+                               for n in op.output_names())
+    for name, kw in (("ema", {"post": ema_post}),
+                     ("model_average", {"post": ma_post}),
+                     ("lookahead", {"wrap": lookahead})):
+        syncs = []
+
+        def watch(i, scope, program, fetched, _syncs=syncs):
+            if name != "lookahead":
+                return
+            params = [p.name for p in program.all_parameters()]
+            slow = {v.name[:v.name.index("_slow")]: v.name
+                    for v in program.list_vars() if "_slow" in v.name}
+            equal = [torch.equal(scope.find_var(p),
+                                 scope.find_var(slow[p])) for p in params]
+            _syncs.append(sum(equal))
+            if i % LA_K == 0:
+                check(all(equal), f"(c) Lookahead step {i}: "
+                                  f"{len(equal) - sum(equal)} fast weights "
+                                  f"differ from the slow weights")
+
+        r = wrapped_run(
+            torch, np, cfg, lambda kw=kw: build_wrapped_train(cfg, **kw),
+            WRAP_STEPS, after_step=watch, measure=name == "ema",
+            ranges=(("ema_update", ema_names),) if name == "ema" else ())
+        no_fallbacks(f"(c) {name}", r["routes"])
+        check_wrapped_launches(f"(c) {name}", r["launches"],
+                               FUSED_LAUNCHES, WRAP_STEPS)
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"(c) {name}: non-finite loss {r['losses']}")
+        scope, exe, program = r["scope"], r["exe"], r["program"]
+        fluid.sync_prepared_state(scope)
+        params = [p.name for p in program.all_parameters()]
+        entry = {"losses": r["losses"], "step_s": r["step_s"]}
+        if name in ("ema", "model_average"):
+            avg = r["extra"]
+            before = {n: scope.find_var(n).detach().clone() for n in params}
+            with fluid.scope_guard(scope):
+                with avg.apply(exe):
+                    applied = {n: scope.find_var(n).detach().clone()
+                               for n in params}
+            restored = [n for n in params
+                        if torch.equal(scope.find_var(n), before[n])]
+            check(len(restored) == len(params),
+                  f"(c) {name}: restore gave back {len(restored)} of "
+                  f"{len(params)} parameters bit for bit")
+            moved = sum(not torch.equal(applied[n], before[n])
+                        for n in params)
+            check(moved > 0, f"(c) {name}: apply moved no parameter")
+            entry["applied_params"] = moved
+            if name == "ema":
+                prod = scope.find_var(avg._decay_prod.name)
+                factor = 1.0 - prod
+                worst = 0
+                for n in params:
+                    want = scope.find_var(avg._ema_vars[n].name) / factor
+                    got = applied[n]
+                    ulps = (got.view(torch.int32).long()
+                            - want.view(torch.int32).long()).abs().max()
+                    worst = max(worst, int(ulps))
+                log(f"  (c) EMA apply vs ema / (1 - prod decay_t) "
+                    f"(prod {float(prod):.6f}): at most {worst} float32 "
+                    f"ulps apart (tolerance 1)")
+                check(worst <= 1, "(c) EMA's apply is not its bias-"
+                                  "corrected average")
+                prof = r["profile"] or {}
+                entry["update_launches"] = prof.get(
+                    "range_launches", {}).get("ema_update")
+                entry["update_device_ms"] = prof.get(
+                    "groups_ms", {}).get("ema_update")
+                entry["step_ms_median"] = r["step_ms"]
+                entry["ulps"] = worst
+        else:
+            entry["synced_params_by_step"] = syncs
+            check(syncs[-1] < len(params),
+                  "(c) Lookahead: the fast weights equal the slow ones "
+                  "after a step that does not sync")
+        log(f"  (c) {name}: losses {[round(x, 5) for x in r['losses']]}"
+            + (f"; EMA update {entry['update_launches']} launches, "
+               f"{entry['update_device_ms']} device ms a step"
+               if name == "ema" else "")
+            + (f"; fast = slow per step {syncs} of {len(params)}"
+               if name == "lookahead" else ""))
+        report[name] = entry
+        del r, scope, exe
+        torch.cuda.empty_cache()
+    return report
+
+
+def dgc_leg(torch, np, cfg):
+    """(d): ``strategy.use_dgc`` on Momentum(DGC_LR, DGC_MOMENTUM) with the
+    recipe's clip (fleet swaps in DGCMomentum: ``rampup_begin_step`` 0,
+    sparsity [0.999]), WRAP_STEPS steps; the last step's op on the word
+    embedding is held to ``np.quantile`` and to its formula."""
+    from paddle_tpu_torch.ops import optimizer_ops, registry
+
+    def configure(s, main):
+        s.use_dgc = True
+
+    def momentum(lr, clip):
+        from paddle_tpu_torch import fluid
+        return fluid.optimizer.Momentum(DGC_LR, DGC_MOMENTUM,
+                                        grad_clip=clip)
+
+    seen, armed = {}, []
+    real = registry.OPS["dgc_momentum"]
+
+    def capture(ctx, ins, attrs):
+        out = real(ctx, ins, attrs)
+        p = ins["Param"][0]
+        if armed and p.numel() == cfg.vocab_size * cfg.hidden_size:
+            seen.update({k: v[0].detach().clone() for k, v in ins.items()})
+            seen.update({k: v.detach().clone() for k, v in out.items()})
+            seen["attrs"] = dict(attrs)
+        return out
+
+    def arm(i, scope, program, fetched):
+        # the word embedding's op of the last step (not a measured one)
+        armed[:] = [True] if i == WRAP_STEPS - 1 else []
+
+    registry.OPS["dgc_momentum"] = capture
+    try:
+        r = wrapped_run(
+            torch, np, cfg,
+            lambda: build_wrapped_train(cfg, configure, inner=momentum),
+            WRAP_STEPS, after_step=arm, measure=True,
+            ranges=(("dgc_update",
+                     lambda op: op.type == "dgc_momentum"),))
+    finally:
+        registry.OPS["dgc_momentum"] = real
+    check(bool(seen), "(d) the word embedding's dgc_momentum op did not run")
+    ops = [op.type for op in r["program"].global_block().ops]
+    check(ops.count("dgc_momentum") == ADAM_OPS and "momentum" not in ops,
+          f"(d) {ops.count('dgc_momentum')} dgc_momentum ops")
+    no_fallbacks("(d)", r["routes"])
+    check_wrapped_launches("(d)", r["launches"], dict(FUSED_LAUNCHES,
+                                                      adam=0), WRAP_STEPS)
+    check(all(math.isfinite(x) for x in r["losses"]),
+          f"(d) non-finite loss {r['losses']}")
+    # the last captured step (the profiled one) of the word embedding
+    mu = seen["attrs"]["momentum"]
+    u_new = mu * seen["U"] + seen["Grad"]
+    v_new = seen["V"] + u_new
+    absv = v_new.abs()
+    n = absv.numel()
+    host = absv.double().cpu().numpy().reshape(-1)
+    q = float(np.float32(seen["attrs"]["sparsity"][0]))
+    want = np.float32(np.quantile(host, q))
+    thr = float(optimizer_ops.quantile_linear(absv, torch.tensor(
+        q, dtype=torch.float32, device=absv.device)))
+    ulp = float(np.spacing(want))
+    log(f"  (d) threshold over {n} elements: {thr!r} on the card, "
+        f"np.quantile in float64 {float(want)!r} (one ulp {ulp:.3e})")
+    check(abs(thr - float(want)) <= ulp, "(d) the DGC threshold is not "
+                                         "np.quantile's")
+    mask = (absv >= thr).to(v_new.dtype)
+    sent = int(mask.sum())
+    share = sent / n
+    check(abs(sent - (1.0 - q) * n) <= 1.0 + 1e-6,
+          f"(d) {sent} of {n} elements sent ({share:.6%}), not "
+          f"{1.0 - q:.4%} ± 1/n")
+    consistent = (torch.equal(seen["UOut"], u_new * (1.0 - mask)) and
+                  torch.equal(seen["VOut"], v_new * (1.0 - mask)))
+    lr = seen["LearningRate"].to(v_new.dtype)
+    p_ok = torch.equal(seen["ParamOut"], seen["Param"] - lr * (v_new * mask))
+    log(f"  (d) sent {sent} of {n} ({100 * share:.4f} %); U and V "
+        f"{'match' if consistent else 'do NOT match'} the op's formula, "
+        f"the parameter {'matches' if p_ok else 'does NOT match'}")
+    check(consistent and p_ok, "(d) DGC's outputs are not its formula's")
+    prof = r["profile"] or {}
+    report = {"losses": r["losses"], "step_s": r["step_s"],
+              "step_ms_median": r["step_ms"], "threshold": thr,
+              "np_quantile": float(want), "sent": sent, "numel": n,
+              "update_launches": prof.get("range_launches", {}).get(
+                  "dgc_update"),
+              "update_device_ms": prof.get("groups_ms", {}).get(
+                  "dgc_update"),
+              "peak_gib": r["peak_gib"]}
+    log(f"  (d) losses {[round(x, 5) for x in r['losses']]}; step "
+        f"{r['step_ms']:.2f} ms; DGC update {report['update_launches']} "
+        f"launches, {report['update_device_ms']} device ms a step")
+    seen.clear()
+    return r["launches"], report
+
+
+def localsgd_worker(out_dir):
+    """One rank of phase 14's leg (e) (``--localsgd-worker``): phase 8's
+    program and recipe through ``fleet`` with ``strategy.localsgd``
+    (k_steps LOCALSGD_K), LOCALSGD_STEPS prepared steps on the global
+    batch (each rank its half of the rows), the parameters' sha256 after
+    each; writes ``localsgd<r>.json``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    PaddleCloudRoleMaker)
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.passes import apply_pass
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    cfg = bert.BertConfig.base()
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        s = DistributedStrategy()
+        s.localsgd = True
+        s.localsgd_configs = {"k_steps": LOCALSGD_K}
+        s.build_strategy = fluid.BuildStrategy()
+        s.build_strategy.fuse_elewise_add_act_ops = True
+        fleet.distributed_optimizer(recipe_optimizer(fluid),
+                                    s).minimize(total)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    program = fleet.main_program
+    check(program._dp is not None and program._dp.world == DP_RANKS,
+          "leg (e): fleet.main_program is not data-parallel")
+    ops = [op.type for op in main.global_block().ops]
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    exe.run(startup, scope=scope)
+    prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    res = {"rank": rank, "ops": sorted(set(ops)),
+           "sync_ops": ops.count("local_sgd_sync"), "losses": [],
+           "digests": [], "step_s": []}
+    for _ in range(LOCALSGD_STEPS):
+        t0 = time.perf_counter()
+        res["losses"].append(float(prepared.run(feed)[0]))
+        res["step_s"].append(time.perf_counter() - t0)
+        fluid.sync_prepared_state(scope)
+        res["digests"].append(params_digest(np, scope, main))
+    res["launches"] = kernels.launch_counts()
+    res["fallbacks"] = len(registry.route_counts("fallback"))
+    res["predicate_reads"] = prepared.stats["predicate_reads"]
+    with open(os.path.join(out_dir, f"localsgd{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def localsgd_leg(torch, repo):
+    """(e): two ranks on the card over gloo (phase 10's launcher)."""
+    from paddle_tpu_torch.ops.cuda import build
+    out_dir = os.path.join(build.BUILD_DIR, "smoke_localsgd")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc", str(DP_RANKS), "--selected_gpus", "0,0",
+           "--backend", "gloo", "--timeout", str(DP_TIMEOUT_S),
+           os.path.join(repo, "chip_smoke.py"), "--localsgd-worker",
+           out_dir]
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=repo, timeout=DP_TIMEOUT_S + 60).returncode
+    log(f"  (e) the ranks ran {time.perf_counter() - t0:.1f} s, exit code "
+        f"{rc}")
+    check(rc == 0, f"(e) a LocalSGD rank failed (exit code {rc})")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"localsgd{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for r in ranks:
+        synced = [o for o in r["ops"] if "allreduce" in o]
+        check(not synced, f"(e) rank {r['rank']}: gradient all-reduce ops "
+                          f"{synced} in a LocalSGD program")
+        check(r["sync_ops"] == 1 and not r["fallbacks"],
+              f"(e) rank {r['rank']}: {r['sync_ops']} local_sgd_sync ops, "
+              f"{r['fallbacks']} route fallbacks")
+        check_wrapped_launches(f"(e) rank {r['rank']}", r["launches"],
+                               FUSED_LAUNCHES, LOCALSGD_STEPS)
+        check(r["predicate_reads"] == LOCALSGD_STEPS,
+              f"(e) rank {r['rank']}: {r['predicate_reads']} predicate "
+              f"reads")
+    same = [a == b for a, b in zip(ranks[0]["digests"],
+                                   ranks[1]["digests"])]
+    # equal after a sync step, and after step 1, whose LR the warmup
+    # holds at 0 (nothing moves); different after the other steps
+    want = [(i + 1) % LOCALSGD_K == 0 or scheduled_lr(i) == 0.0
+            for i in range(LOCALSGD_STEPS)]
+    log(f"  (e) parameters sha256-equal across the ranks after each step: "
+        f"{same} (a sync every {LOCALSGD_K} steps; LR 0 at step 1: "
+        f"{want}); losses (each rank's fetch is the ranks' mean) "
+        f"{[[round(x, 5) for x in r['losses']] for r in ranks]}")
+    check(same == want, "(e) the ranks' parameters are not equal exactly "
+                        "after the sync steps")
+    return ranks[0]["launches"], {
+        "same_after_step": same,
+        "losses": [r["losses"] for r in ranks],
+        "step_s": [r["step_s"] for r in ranks]}
+
+
+def wrappers_phase(torch, np, cfg, repo):
+    """Phase 14 (see the module docstring): legs (a)-(e); returns the
+    launches of (a)'s recompute run, (b)'s run and (d)'s, and the
+    report."""
+    log("  (a) recompute, one checkpoint a layer, dropout "
+        f"{cfg.hidden_dropout_prob}")
+    rc_launches, rc = recompute_leg(torch, np, cfg)
+    log(f"  (b) recompute + gradient merge, k {GM_K}, {GM_MICRO} x "
+        f"{TRAIN_SEQ} micro-batches")
+    gm_launches, gm = gradient_merge_leg(torch, np, cfg)
+    log("  (c) EMA, ModelAverage, Lookahead")
+    avg = averaging_leg(torch, np, cfg)
+    log("  (d) DGC momentum")
+    dgc_launches, dgc = dgc_leg(torch, np, cfg)
+    log(f"  (e) LocalSGD, {DP_RANKS} ranks on one card over gloo")
+    ls_launches, ls = localsgd_leg(torch, repo)
+    return ({"recompute": rc_launches, "gradient_merge": gm_launches,
+             "dgc": dgc_launches, "localsgd": ls_launches},
+            {"recompute": rc, "gradient_merge": gm, "averages": avg,
+             "dgc": dgc, "localsgd": ls})
+
+
+# ---------------------------------------------------------------------------
 # phase 11: paged-KV decode serving at BERT-base width
 # ---------------------------------------------------------------------------
 
@@ -3491,6 +4256,11 @@ KERNEL_PATHS = {
 }
 
 
+#: phase 14's paths: (a)'s recompute run, (b)'s recompute + gradient
+#: merge, (d)'s DGC and (e)'s LocalSGD rank 0
+WRAPPED_PATHS = ("recompute", "gradient_merge", "dgc", "localsgd")
+
+
 def kernels_line(per_kernel, launches_by_path):
     """One entry per kernel, at its main-path shape, float32: served rows
     8 x 128 (flash B = 8, S = 128, padding bias; the LayerNorm and add+LN
@@ -3517,7 +4287,10 @@ def kernels_line(per_kernel, launches_by_path):
     S128, dropout 0.1, with the dropout-0 times) and the LayerNorm forward
     and backward their float32 rows there (``amp``: R 12,288 and
     1,920).  Leg (d)'s pure-bf16 steps (``amp_pure_bf16_launches``) and
-    phase 13's LAMB run A (``lamb_launches``) add their launches; Adam
+    phase 13's LAMB run A (``lamb_launches``) add their launches, and so
+    do phase 14's recompute (``recompute_launches``), recompute + gradient
+    merge (``gradient_merge_launches``), DGC (``dgc_launches``) and
+    LocalSGD (``localsgd_launches``, rank 0) runs; Adam
     carries its 16-bit rows (``16_bit``: bf16 and fp16 parameters beside
     float32 or 16-bit moments)."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
@@ -3547,10 +4320,10 @@ def kernels_line(per_kernel, launches_by_path):
                 p: launches_by_path[p].get(name, 0)
                 for p in ("served", "unfused", "train", "fused_train",
                           "decode", "amp", "amp_fused", "amp_fp16",
-                          "amp_pure_bf16", "lamb")}
+                          "amp_pure_bf16", "lamb") + WRAPPED_PATHS}
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
                       "decode", "amp", "amp_fused", "amp_fp16",
-                      "amp_pure_bf16", "lamb"):
+                      "amp_pure_bf16", "lamb") + WRAPPED_PATHS:
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name == "adam":
@@ -3624,9 +4397,10 @@ def main(argv=None) -> int:
               "paddle_tpu_torch package beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
-    if argv[:1] == ["--dp-worker"]:
+    workers = {"--dp-worker": dp_worker, "--localsgd-worker": localsgd_worker}
+    if argv[:1] and argv[0] in workers:
         try:
-            return dp_worker(argv[1])
+            return workers[argv[0]](argv[1])
         except SmokeFailure as e:
             print(f"chip_smoke: rank FAILED: {e}", file=sys.stderr)
             return 1
@@ -3711,6 +4485,11 @@ def main(argv=None) -> int:
             f"program and recipe with LAMB), checkpointed after step "
             f"{LAMB_SAVE_AT} and resumed")
         lamb, lamb_report = lamb_phase(torch, np, base, ckpt_dir)
+
+        log("phase 14: recompute, gradient merge and the wrapper optimizers "
+            "(EMA, ModelAverage, Lookahead, DGC, LocalSGD) through fleet on "
+            "phase 8's program and recipe")
+        wrapped, wrappers_report = wrappers_phase(torch, np, base, repo)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3718,7 +4497,7 @@ def main(argv=None) -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    log(f"phase 14: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 15: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
@@ -3727,13 +4506,14 @@ def main(argv=None) -> int:
     log("decode " + json.dumps(decode))
     log("amp " + json.dumps(amp_report))
     log("lamb " + json.dumps(lamb_report))
+    log("wrappers " + json.dumps(wrappers_report))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
         "fused_train": fused, "dp_int8": dp_ranks[0]["int8"]["launches"],
         "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded,
         "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16,
-        "amp_pure_bf16": amp_pure, "lamb": lamb})))
+        "amp_pure_bf16": amp_pure, "lamb": lamb, **wrapped})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,13 +16,16 @@ rank runs, on ``fleet.place``.
 
 The plain data-parallel path is ported: bucketed or per-leaf gradient
 sync, the bf16 cast tier and the int8/int4 blockwise-quantized tiers,
-and mixed precision (``amp``: the inner optimizer wrapped by
-``contrib.mixed_precision.decorate`` from ``amp_configs``).  A
-strategy flag whose path is not ported (recompute, gradient_merge,
-localsgd, lamb, sharding / sharded_update, tensor_parallel, pipeline,
-auto_shard, overlap_grad_sync, use_dgc, hierarchical all-reduce, an
-explicit mesh) raises :class:`UnimplementedError` naming it; none is
-ignored."""
+and the meta-optimizers, composed in the JAX package's order: ``use_dgc``
+(DGC momentum in place of Momentum), ``lamb``, ``amp`` (the inner
+optimizer wrapped by ``contrib.mixed_precision.decorate`` from
+``amp_configs``), ``recompute`` (the backward's checkpoints),
+``gradient_merge`` and ``localsgd`` (no gradient sync; the parameters
+averaged every ``k_steps``).  A strategy flag whose path is not ported
+(sharding / sharded_update, tensor_parallel, pipeline, auto_shard,
+overlap_grad_sync, hierarchical all-reduce, more than one NCCL
+communicator, an explicit mesh) raises :class:`UnimplementedError`
+naming it; none is ignored."""
 
 from __future__ import annotations
 
@@ -189,8 +192,11 @@ class DistributedStrategy:
     """Every field of the JAX package's strategy.  Ported paths:
     ``fuse_all_reduce_ops`` / ``fuse_grad_size_in_MB`` (bucketing),
     ``bf16_allreduce``, ``quant_allreduce`` / ``quant_configs``, ``amp``
-    / ``amp_configs`` and ``build_strategy``; any other flag set raises
-    at ``minimize``."""
+    / ``amp_configs``, ``lamb`` / ``lamb_configs``, ``recompute`` /
+    ``recompute_configs``, ``gradient_merge`` /
+    ``gradient_merge_configs``, ``localsgd`` / ``localsgd_configs``,
+    ``use_dgc`` and ``build_strategy``; any other flag set raises at
+    ``minimize``."""
 
     def __init__(self):
         self.amp = False
@@ -241,10 +247,6 @@ class DistributedStrategy:
 
 #: strategy flags whose paths are not ported, with what each needs
 _UNPORTED = (
-    ("recompute", "recompute checkpoints in the executor"),
-    ("gradient_merge", "GradientMergeOptimizer"),
-    ("localsgd", "LocalSGDOptimizer and local_sgd_sync"),
-    ("use_dgc", "DGCMomentumOptimizer"),
     ("sharding", "the ZeRO-1 sharded update"),
     ("sharded_update", "the ZeRO-1 sharded update"),
     ("tensor_parallel", "tensor parallelism"),
@@ -387,21 +389,10 @@ class CollectiveOptimizer:
         """Reject strategy combinations with contradictory step semantics
         (the reference's StrategyCompiler drops invalid meta-optimizers
         silently, ref: fleet/base/strategy_compiler.py; here an explicit
-        error beats a silently changed recipe).  Only the ported flags'
-        combinations are checked: ``_refuse_unported`` runs next, and the
-        checks of the other flags' combinations come with their paths,
-        but for LAMB's two, which come first and raise as the JAX
-        package's do although DGC and ZeRO are refused by name."""
-        if s.lamb and s.use_dgc:
-            raise ValueError(
-                "DistributedStrategy: lamb and use_dgc both replace the "
-                "base optimizer (LambOptimizer vs DGCMomentumOptimizer)")
-        sharded = getattr(s, "sharded_update", False) or \
-            getattr(s, "sharding", False)
-        if sharded and s.lamb:
-            raise ValueError(
-                "DistributedStrategy: lamb trust ratios need full-tensor "
-                "norms and cannot run on ZeRO shards — disable one")
+        error beats a silently changed recipe).  The JAX package's checks,
+        in its order and with its messages, for every flag: they run
+        before ``_refuse_unported``, so a contradictory strategy raises as
+        it does there even where one of its flags is not ported."""
         if getattr(s, "bf16_allreduce", False) and \
                 getattr(s, "quant_allreduce", False):
             raise InvalidArgumentError(
@@ -415,6 +406,78 @@ class CollectiveOptimizer:
             # fail at strategy level, not deep in the bucket pass
             from ..ops.quantize_wire import CompressionSpec
             CompressionSpec.from_attr(dict(s.quant_configs or {}))
+        if getattr(s, "auto_shard", False):
+            manual = [name for name in ("sharded_update", "sharding",
+                                        "tensor_parallel")
+                      if getattr(s, name, False)]
+            if manual:
+                raise InvalidArgumentError(
+                    f"DistributedStrategy: auto_shard=True and manual "
+                    f"{'/'.join(name + '=True' for name in manual)} both "
+                    f"claim the sharding layout and cannot compose — the "
+                    f"planner already searches ZeRO/tp configurations; "
+                    f"pick one (drop the manual flag, or set "
+                    f"auto_shard=False to keep the hand-picked layout)")
+            if s.mesh is not None:
+                raise InvalidArgumentError(
+                    "DistributedStrategy: auto_shard=True and an explicit "
+                    "strategy.mesh both pin the device layout and cannot "
+                    "compose — the planner builds the winning mesh itself; "
+                    "pick one (drop strategy.mesh, or set auto_shard=False)")
+            if s.localsgd:
+                raise InvalidArgumentError(
+                    "DistributedStrategy: auto_shard prices per-step grad "
+                    "sync that localsgd removes — the cost model would be "
+                    "wrong; pick one")
+        if getattr(s, "pipeline", False):
+            if s.localsgd:
+                raise ValueError(
+                    "DistributedStrategy: pipeline accumulates "
+                    "per-microbatch grads into one update per step; "
+                    "localsgd removes that per-step sync — the "
+                    "combination is contradictory")
+            if s.recompute:
+                raise InvalidArgumentError(
+                    "DistributedStrategy: pipeline=True and "
+                    "recompute=True both claim the recompute schedule — "
+                    "the 1F1B lowering already rematerializes each "
+                    "stage's forward at its backward tick, so explicit "
+                    "recompute checkpoints would be ignored; drop one")
+        if getattr(s, "overlap_grad_sync", False) and s.localsgd:
+            raise ValueError(
+                "DistributedStrategy: overlap_grad_sync schedules the "
+                "per-step grad collectives that localsgd removes — the "
+                "combination is contradictory")
+        if s.localsgd and s.gradient_merge:
+            raise ValueError(
+                "DistributedStrategy: localsgd and gradient_merge both "
+                "rewrite the update cadence (periodic param averaging vs "
+                "k-step grad accumulation) and cannot compose — pick one")
+        if s.localsgd and s.use_dgc:
+            raise ValueError(
+                "DistributedStrategy: localsgd removes the per-step grad "
+                "allreduce that DGC compresses — the combination is "
+                "contradictory")
+        if s.lamb and s.use_dgc:
+            raise ValueError(
+                "DistributedStrategy: lamb and use_dgc both replace the "
+                "base optimizer (LambOptimizer vs DGCMomentumOptimizer)")
+        sharded = getattr(s, "sharded_update", False) or \
+            getattr(s, "sharding", False)
+        if sharded and s.localsgd:
+            raise ValueError(
+                "DistributedStrategy: sharded_update needs the per-step "
+                "reduce_scatter grad sync that localsgd removes — the "
+                "combination is contradictory")
+        if sharded and s.use_dgc:
+            raise ValueError(
+                "DistributedStrategy: use_dgc masks top-k of the FULL "
+                "gradient; a shard-local top-k diverges across replicas — "
+                "sharded_update cannot compose with DGC")
+        if sharded and s.lamb:
+            raise ValueError(
+                "DistributedStrategy: lamb trust ratios need full-tensor "
+                "norms and cannot run on ZeRO shards — disable one")
 
     def _quant_spec(self):
         """The strategy's CompressionSpec (int8/int4 tiers), or None.
@@ -448,13 +511,28 @@ class CollectiveOptimizer:
 
     def _wrapped(self):
         """The inner optimizer, swapped and wrapped by the strategy's
-        meta-optimizers as the JAX package does it: ``lamb`` replaces it
-        by a ``LambOptimizer`` of its learning rate and
-        ``lamb_configs["lamb_weight_decay"]`` (its other settings are not
-        carried over, as there), then ``decorate`` for ``amp``."""
+        meta-optimizers in the JAX package's order (its ``_compose``):
+        ``use_dgc`` swaps a raw ``MomentumOptimizer`` for a
+        ``DGCMomentumOptimizer`` of its settings (any other optimizer
+        stays, as there); ``lamb`` replaces it by a ``LambOptimizer`` of
+        its learning rate and ``lamb_configs["lamb_weight_decay"]``; then
+        ``decorate`` for ``amp``, ``RecomputeOptimizer`` with
+        ``recompute_configs["checkpoints"]``, ``GradientMergeOptimizer``
+        and ``LocalSGDOptimizer``."""
         from .. import optimizer as opt_mod
         s = self._strategy
         optimizer = self._inner
+        # the DGC swap happens on the raw inner optimizer, before any
+        # wrapper hides its type (ref: incubate/fleet/collective/
+        # __init__.py:478)
+        if s.use_dgc and isinstance(optimizer, opt_mod.MomentumOptimizer):
+            optimizer = opt_mod.DGCMomentumOptimizer(
+                learning_rate=optimizer._learning_rate,
+                momentum=optimizer._momentum,
+                rampup_begin_step=0,
+                use_nesterov=optimizer._use_nesterov,
+                regularization=optimizer.regularization,
+                grad_clip=optimizer._grad_clip)
         if s.lamb and not isinstance(optimizer, opt_mod.LambOptimizer):
             optimizer = opt_mod.LambOptimizer(
                 learning_rate=optimizer._learning_rate,
@@ -469,6 +547,18 @@ class CollectiveOptimizer:
                 use_dynamic_loss_scaling=s.amp_configs.get(
                     "use_dynamic_loss_scaling", True),
                 use_pure_bf16=s.amp_configs.get("use_pure_bf16", True))
+        if s.recompute:
+            rc = opt_mod.RecomputeOptimizer(optimizer)
+            rc._set_checkpoints(s.recompute_configs.get("checkpoints", []))
+            optimizer = rc
+        if s.gradient_merge:
+            optimizer = opt_mod.GradientMergeOptimizer(
+                optimizer, k_steps=s.gradient_merge_configs.get("k_steps", 1),
+                avg=s.gradient_merge_configs.get("avg", True))
+        if s.localsgd:
+            optimizer = opt_mod.LocalSGDOptimizer(
+                optimizer, k_steps=s.localsgd_configs.get("k_steps", 1),
+                begin_step=s.localsgd_configs.get("begin_step", 1))
         return optimizer
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
@@ -478,7 +568,9 @@ class CollectiveOptimizer:
         process group (``fleet.main_program``): the gradient sync goes
         right after the ``backward`` op, ahead of an AMP program's
         ``check_finite_and_unscale``, so every rank sees the same
-        overflow verdict."""
+        overflow verdict.  Under ``localsgd`` no gradient sync is
+        inserted: the ranks average their parameters every ``k_steps``
+        instead (``local_sgd_sync``)."""
         fleet._ensure_init()
         s = self._strategy
         fleet._strategy = s
@@ -492,7 +584,8 @@ class CollectiveOptimizer:
             from ..framework.compiler import CompiledProgram
             fleet._compiled_program = CompiledProgram(
                 program).with_data_parallel(
-                loss_name=loss.name, build_strategy=self._build_strategy())
+                loss_name=None if s.localsgd else loss.name,
+                build_strategy=self._build_strategy())
         else:
             fleet._compiled_program = None
         return opt_ops, params_grads

@@ -350,6 +350,19 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def _create_block(self, parent_idx=None) -> Block:
+        """Open a sub-block (a control-flow branch) under ``parent_idx``,
+        the current block by default, and make it current."""
+        parent_idx = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent_idx)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def _bump_version(self):
         self._version += 1
 

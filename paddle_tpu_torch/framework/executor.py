@@ -39,7 +39,12 @@ A program with a ``backward`` meta-op (``append_backward``) runs through
 :func:`run_training_block`, the counterpart of the JAX package's
 ``lower_block_with_backward``: the forward ops under autograd with the
 parameters as leaves, ``torch.autograd.grad`` at the ``backward`` op, and
-the optimizer ops after it without autograd.
+the optimizer ops after it without autograd.  The backward's recompute
+``checkpoints`` split the forward into segments, each but the last run
+under ``torch.utils.checkpoint`` and recomputed in the backward with the
+same random draws (:func:`run_forward`).  A ``conditional_block`` op
+(``layers.cond``; GradientMerge's apply) runs its taken branch through
+:func:`run_ops`, the predicate read on the host once per run of the op.
 
 Random ops draw from a ``torch.Generator`` on the run's device, seeded
 from ``program.random_seed`` and kept in the scope so successive runs
@@ -217,10 +222,6 @@ def _refuse_unported(bw_op):
     """What the JAX package's lowering does at the backward op and this
     port does not yet: say so rather than train differently."""
     attrs = bw_op.attrs
-    if attrs.get("checkpoints"):
-        raise UnimplementedError(
-            "backward: recompute checkpoints (activation rematerialization) "
-            "are not ported yet")
     pipe = {k: v for k, v in attrs.items()
             if k.startswith("pipe_") and v not in (None, 0, 1, "", False)}
     if pipe:
@@ -233,12 +234,105 @@ def _refuse_unported(bw_op):
             "backward: guardrail loss scaling is not ported yet")
 
 
-def run_training_block(ops, env, ctx, bw_idx):
+def _segment_at_checkpoints(ops, checkpoint_names):
+    """Split ops into segments ending right after each checkpoint var is
+    produced (ref: backward.py:629 recompute segments)."""
+    if not checkpoint_names:
+        return [list(ops)]
+    remaining = set(checkpoint_names)
+    segments, cur = [], []
+    for op in ops:
+        cur.append(op)
+        produced = set(op.output_names()) & remaining
+        if produced:
+            remaining -= produced
+            segments.append(cur)
+            cur = []
+    if cur:
+        segments.append(cur)
+    return segments
+
+
+def _live_names_after(segments, seg_idx, always_live):
+    live = set(always_live)
+    for seg in segments[seg_idx + 1:]:
+        for op in seg:
+            live |= set(op.input_names())
+    return live
+
+
+def _run_recomputed(seg, env, ctx, live):
+    """Run forward segment ``seg`` under ``torch.utils.checkpoint`` (the
+    non-reentrant form, which takes the env dict as it is): autograd keeps
+    none of its intermediates and runs it again in the backward.  Only
+    the names in ``live`` that it writes join ``env``.
+
+    The segment's random ops (dropout masks, the flash kernels' seeds)
+    draw from a generator set to the run generator's state at the
+    segment's entry, as the JAX package passes the key into each
+    segment: the recompute in the backward replays the same draws, and
+    the first run's end state is handed back to the run generator, so
+    the stream advances exactly as it does without recompute.
+    (``preserve_rng_state`` keeps only PyTorch's default generators, which
+    the port's ops do not draw from.)"""
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+    gen = ctx.generator
+    start = gen.get_state() if gen is not None else None
+    end = []
+
+    def seg_fn(e_in):
+        g = None
+        if start is not None:
+            g = torch.Generator(device=gen.device)
+            g.set_state(start)
+        sub = LoweringContext(g, ctx.device, ctx.is_test, ctx.donate_state,
+                              ctx.dp)
+        e_out = run_ops(seg, dict(e_in), sub)
+        if g is not None and not end:
+            end.append(g.get_state())
+        return {k: v for k, v in e_out.items()
+                if k in live and (k not in e_in or v is not e_in[k])}
+
+    # a copy: the recompute must see the env as it is now, not as later
+    # segments leave it.  The recompute runs the whole segment: stopping
+    # early would raise through the ops' error wrapping (``_call``), and
+    # the segment's last op saves tensors anyway
+    with set_checkpoint_early_stop(False):
+        out = checkpoint(seg_fn, dict(env), use_reentrant=False,
+                         preserve_rng_state=False)
+    env.update(out)
+    if end:
+        gen.set_state(end[0])
+
+
+def run_forward(fwd_ops, env, ctx, checkpoints, always_live):
+    """The forward ops of a training block: all at once, or with recompute
+    ``checkpoints`` one segment at a time, each segment but the last
+    recomputed in the backward (:func:`_run_recomputed`).  A segment keeps
+    what later segments read and ``always_live``."""
+    segments = _segment_at_checkpoints(fwd_ops, checkpoints)
+    for i, seg in enumerate(segments):
+        if i < len(segments) - 1:
+            _run_recomputed(seg, env, ctx,
+                            _live_names_after(segments, i, always_live))
+        else:
+            run_ops(seg, env, ctx)
+    return env
+
+
+def run_training_block(ops, env, ctx, bw_idx, keep=()):
     """[forward ops][backward meta-op][update ops]: the forward under
     autograd with the parameters as leaf tensors, ``param@GRAD`` from
     ``torch.autograd.grad`` of ``loss.sum() * loss_scale`` (zeros for a
     parameter the loss does not reach), ``loss@GRAD`` = ones, then the
     update ops without autograd on the original parameter tensors.
+
+    With the backward's recompute ``checkpoints`` (``RecomputeOptimizer``,
+    fleet's ``strategy.recompute``) the forward runs in segments that end
+    at each checkpoint, all but the last recomputed in the backward
+    (:func:`run_forward`); a forward intermediate stays readable after the
+    block only if it is in ``keep`` (the fetches), persistable, or read by
+    the backward op or the ops after it.
 
     A ``loss_scale_var`` (the AMP decorator's dynamic loss scale) also
     multiplies the summed loss, detached, as the JAX package's
@@ -253,11 +347,19 @@ def run_training_block(ops, env, ctx, bw_idx):
     loss_name = bw_op.attrs["loss_name"]
     loss_scale = float(bw_op.attrs.get("loss_scale", 1.0))
     scale_var = bw_op.attrs.get("loss_scale_var")
+    checkpoints = list(bw_op.attrs.get("checkpoints") or ())
+    always_live = set(keep) | {loss_name}
+    if checkpoints:
+        program = bw_op.block.program
+        always_live |= {v.name for v in program.list_vars()
+                        if v.persistable}
+        for op in ops[bw_idx:]:
+            always_live.update(_reads(op))
     originals = {n: env[n] for n in param_names}
     leaves = [env[n].detach().requires_grad_(True) for n in param_names]
     env.update(zip(param_names, leaves))
     with torch.enable_grad():
-        run_ops(ops[:bw_idx], env, ctx)
+        run_forward(ops[:bw_idx], env, ctx, checkpoints, always_live)
         total = env[loss_name].sum() * loss_scale
         if scale_var:
             total = total * env[scale_var].reshape(()).detach().to(
@@ -349,13 +451,14 @@ def lower_decode_chain(ops, chain_idx, env, ctx):
     return env
 
 
-def run_block(ops, env, ctx):
+def run_block(ops, env, ctx, keep=()):
     """Interpret a global block: through :func:`run_training_block` when
-    it has a ``backward`` op, through :func:`lower_decode_chain` when it
-    has a ``decode_chain`` marker, else every op without autograd."""
+    it has a ``backward`` op (``keep``: the names fetched after it),
+    through :func:`lower_decode_chain` when it has a ``decode_chain``
+    marker, else every op without autograd."""
     bw_idx = backward_index(ops)
     if bw_idx is not None:
-        return run_training_block(ops, env, ctx, bw_idx)
+        return run_training_block(ops, env, ctx, bw_idx, keep)
     chain_idx = next((i for i, op in enumerate(ops)
                       if op.type == "decode_chain"), None)
     with torch.no_grad():
@@ -520,7 +623,9 @@ class PreparedStep:
         self._written = [n for n in dict.fromkeys(
             n for op in self._ops for n in op.output_names())
             if _is_persistable(program, n)]
-        self.stats = {"steps": 0, "fetch_wait_ns": 0}
+        # predicate_reads: device values read on the host to pick a path
+        # (a conditional_block's predicate, a LocalSGD sync step)
+        self.stats = {"steps": 0, "fetch_wait_ns": 0, "predicate_reads": 0}
         if donate_state:
             if not hasattr(scope, "_prepared"):
                 scope._prepared = weakref.WeakSet()
@@ -583,7 +688,8 @@ class PreparedStep:
                 _generator(self._scope, self._program, device, self._dp),
                 device, is_test=self._program._is_test,
                 donate_state=self._donate, dp=self._dp)
-            run_block(self._ops, env, ctx)
+            run_block(self._ops, env, ctx, self._fetch_names)
+            self.stats["predicate_reads"] += ctx.predicate_reads
             for n in self._written:
                 if env[n] is self._state.get(n):
                     continue                # updated in place
@@ -647,7 +753,7 @@ class Executor:
         ctx = LoweringContext(_generator(scope, program, self.device, dp),
                               self.device, is_test=program._is_test, dp=dp)
         ops = program.global_block().ops
-        run_block(ops, env, ctx)
+        run_block(ops, env, ctx, fetch_names)
         for op in ops:
             for n in op.output_names():
                 if _is_persistable(program, n) and n in env:

@@ -142,3 +142,89 @@ def mean(x, name=None):
     out = helper.create_variable_for_type_inference(x.dtype, ())
     helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
     return out
+
+
+def square(x, name=None):
+    return _unary("square", x, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_mod", x, y, axis, act, name)
+
+
+def _reduce(op_type, x, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
+    reduce_all = dim is None
+    if dim is None:
+        dims = list(range(len(x.shape)))
+    elif isinstance(dim, int):
+        dims = [dim]
+    else:
+        dims = list(dim)
+    dims_norm = [d % len(x.shape) for d in dims] if x.shape else []
+    if keep_dim:
+        shape = tuple(1 if i in dims_norm else s
+                      for i, s in enumerate(x.shape))
+    else:
+        shape = tuple(s for i, s in enumerate(x.shape) if i not in dims_norm)
+    if reduce_all and not keep_dim:
+        shape = ()
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"dim": dims, "keep_dim": keep_dim,
+                            "reduce_all": reduce_all})
+    return out
+
+
+def reduce_sum(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", x, dim, keep_dim, name)
+
+
+def _compare(op_type, x, y, name=None, cond=None):
+    """A bool variable of the broadcast shape (``cond``: an existing bool
+    variable written in place of a new one)."""
+    x = _to_variable(x)
+    y = _to_variable(y, like=x)
+    helper = LayerHelper(op_type, name=name)
+    out = cond if cond is not None else \
+        helper.create_variable_for_type_inference(
+            "bool", _broadcast_shape(x.shape, y.shape))
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def equal(x, y, cond=None, name=None):
+    return _compare("equal", x, y, name, cond)
+
+
+def not_equal(x, y, cond=None, name=None):
+    return _compare("not_equal", x, y, name, cond)
+
+
+def less_than(x, y, force_cpu=None, cond=None, name=None):
+    return _compare("less_than", x, y, name, cond)
+
+
+def less_equal(x, y, cond=None, name=None):
+    return _compare("less_equal", x, y, name, cond)
+
+
+def greater_than(x, y, cond=None, name=None):
+    return _compare("greater_than", x, y, name, cond)
+
+
+def greater_equal(x, y, cond=None, name=None):
+    return _compare("greater_equal", x, y, name, cond)
+
+
+def logical_and(x, y, name=None):
+    return _compare("logical_and", x, y, name)
+
+
+def logical_or(x, y, name=None):
+    return _compare("logical_or", x, y, name)
+
+
+def logical_not(x, name=None):
+    return _unary("logical_not", x, name)

@@ -114,3 +114,24 @@ def slice(input, axes, starts, ends, name=None):
                      attrs={"axes": list(axes), "starts": list(starts),
                             "ends": list(ends), "decrease_axis": []})
     return out
+
+
+def assign(input, output=None, name=None):
+    """``output`` (a new variable when None) set to ``input``: a variable,
+    or a numpy array / scalar held as an ``assign_value`` constant."""
+    helper = LayerHelper("assign", name=name)
+    if isinstance(input, np.ndarray) or np.isscalar(input):
+        arr = np.asarray(input)
+        out = output if output is not None else \
+            helper.create_variable_for_type_inference(str(arr.dtype),
+                                                      arr.shape)
+        helper.append_op(type="assign_value", outputs={"Out": [out]},
+                         attrs={"shape": list(arr.shape),
+                                "dtype": convert_dtype(arr.dtype),
+                                "values": arr.reshape(-1).tolist()})
+        return out
+    out = output if output is not None else \
+        helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op(type="assign", inputs={"X": [input]},
+                     outputs={"Out": [out]})
+    return out

@@ -12,4 +12,5 @@ from . import sampling_ops  # noqa: F401
 from . import fused_ops     # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import collective_ops  # noqa: F401
+from . import controlflow_ops  # noqa: F401
 from . import op_specs      # noqa: F401

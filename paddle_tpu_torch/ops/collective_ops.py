@@ -22,9 +22,13 @@ rank's shard at wire width -> the receive stage on the CUDA kernels of
 ``ops/cuda/quant_kernels.py`` (route ``dequant_accumulate``) ->
 ``all_gather`` -> dequantize.  ZeRO's ``quant_reduce_scatter`` and
 ``zero_*``, ``fsdp_all_gather``, the tensor-parallel ``c_embedding`` /
-``c_split`` / ``c_concat``, ``collective_permute``,
-``pipe_stage_boundary`` and ``local_sgd_sync`` are not ported yet and
-stay unregistered."""
+``c_split`` / ``c_concat``, ``collective_permute`` and
+``pipe_stage_boundary`` are not ported yet and stay unregistered.
+
+``local_sgd_sync`` (LocalSGD's periodic parameter average) reads its step
+counter on the host to decide whether this run syncs: every rank holds
+the same counter, so all take the same path, and a step that does not
+sync sends nothing (the JAX package's ``lax.cond``)."""
 
 from __future__ import annotations
 
@@ -362,6 +366,50 @@ def _alltoall(ctx, ins, attrs):
 def _c_identity(ctx, ins, attrs):
     # one stream per rank: collectives and compute are already ordered
     return {"Out": x(ins, "X")}
+
+
+@register("local_sgd_sync")
+def _local_sgd_sync(ctx, ins, attrs):
+    """k-periodic parameter averaging for LocalSGD (ref:
+    transpiler/collective.py:270 LocalSGD, localsgd_optimizer.py): on a
+    step where ``Step % k_steps == 0`` and ``Step >= begin_step`` every
+    parameter becomes its mean over the group (one flat all-reduce per
+    dtype), else it passes through.  The identity without a process
+    group.  The step is read on the host (``ctx.read_predicate``), once
+    a run.  An ``_axis_name`` the run does not have falls back to its one
+    axis, as in the JAX package; with several axes it is refused, since
+    guessing could average tensor-parallel shards, not replicas."""
+    params = list(ins.get("Params", []))
+    axis = _ring_axis(ctx, attrs)
+    if axis is None and ctx.axis_names:
+        if len(ctx.axis_names) == 1:
+            axis = ctx.axis_names[0]
+        else:
+            raise ValueError(
+                f"local_sgd_sync: configured axis "
+                f"{attrs.get('_axis_name')!r} is not in the mesh axes "
+                f"{ctx.axis_names}; pass axis_name=<your data axis> to "
+                f"LocalSGDOptimizer")
+    if axis is None or not params:
+        return {"Out": params}
+    step = x(ins, "Step").reshape(()).to(torch.float32)
+    k = float(attrs.get("k_steps", 1))
+    begin = float(attrs.get("begin_step", 1))
+    if not ctx.read_predicate((torch.remainder(step, k) == 0.0) &
+                              (step >= begin)):
+        return {"Out": params}
+    outs = list(params)
+    for dtype in dict.fromkeys(p.dtype for p in params):
+        idx = [i for i, p in enumerate(params) if p.dtype == dtype]
+        group = [params[i] for i in idx]
+        flat = all_reduce(ctx.dp, torch.cat([p.reshape(-1) for p in group]))
+        flat = flat / ctx.dp.world
+        for i, avg in zip(idx, _split_like(flat, group)):
+            if ctx.donate_state:
+                outs[i] = params[i].copy_(avg)    # keeps its storage
+            else:
+                outs[i] = avg
+    return {"Out": outs}
 
 
 def _noop(ctx, ins, attrs):

@@ -1,5 +1,7 @@
 """Dense math ops — the port of paddle_tpu/ops/math_ops.py (the subset the
-BERT serving and pretraining programs use).  Slot names and attribute semantics are the
+BERT serving and pretraining programs use, and the modulo, comparison and
+logical ops the wrapper optimizers' step masks and ``cond`` predicates are
+built from).  Slot names and attribute semantics are the
 reference's.  Matrix products are ``torch.matmul`` — plain products the
 JAX package leaves to XLA stay library calls; on the card they run in full
 float32 (``core.device_for`` turns TF32 off), and in bf16 / fp16 (the
@@ -47,6 +49,8 @@ register("elementwise_mul")(_elementwise(torch.mul))
 register("elementwise_div")(_elementwise(torch.div))
 register("elementwise_max")(_elementwise(torch.maximum))
 register("elementwise_min")(_elementwise(torch.minimum))
+# floored modulo, the sign of the divisor (jnp.mod)
+register("elementwise_mod")(_elementwise(torch.remainder))
 
 
 @register("sum")
@@ -153,6 +157,46 @@ register("exp")(_unary(torch.exp))
 register("sqrt")(_unary(torch.sqrt))
 register("abs")(_unary(torch.abs))
 register("erf")(_unary(torch.erf))
+register("square")(_unary(torch.square))
+register("logical_not")(_unary(torch.logical_not))
+
+
+# ---------------------------------------------------------------------------
+# comparisons and logical ops: numpy broadcasting, the operands promoted
+# to their common type first (jnp's rules for same-kind operands), a bool
+# result
+# ---------------------------------------------------------------------------
+
+
+def _cmp(fn):
+    def impl(ctx, ins, attrs):
+        return {"Out": fn(x(ins, "X"), x(ins, "Y"))}
+    return impl
+
+
+register("equal")(_cmp(torch.eq))
+register("not_equal")(_cmp(torch.ne))
+register("less_than")(_cmp(torch.lt))
+register("less_equal")(_cmp(torch.le))
+register("greater_than")(_cmp(torch.gt))
+register("greater_equal")(_cmp(torch.ge))
+register("logical_and")(_cmp(torch.logical_and))
+register("logical_or")(_cmp(torch.logical_or))
+register("logical_xor")(_cmp(torch.logical_xor))
+
+
+@register("reduce_sum")
+def _reduce_sum(ctx, ins, attrs):
+    a = x(ins, "X")
+    keep = attrs.get("keep_dim", False)
+    dim = attrs.get("dim", [0])
+    dim = [dim] if isinstance(dim, int) else list(dim)
+    if attrs.get("reduce_all", False) or not dim:      # every axis
+        if a.dim() == 0:
+            return {"Out": a.clone()}
+        dim = range(a.dim())
+    dims = tuple(d % a.dim() for d in dim)
+    return {"Out": torch.sum(a, dim=dims, keepdim=keep)}
 
 
 @register("gelu")

@@ -88,8 +88,11 @@ def _dropout(ctx, ins, attrs):
     if is_test:
         out = a if impl == "upscale_in_train" else a * (1.0 - p)
         return {"Out": out, "Mask": _mask_of(a)}
-    keep = torch.empty(a.shape, device=a.device).bernoulli_(
-        1.0 - p, generator=ctx.generator).bool()
+    # uniform [0, 1) below the keep probability, as jax.random.bernoulli
+    # draws it: at rate 0 every element is kept.  (bernoulli_(1.0) on a
+    # CUDA tensor drops an element now and then: its draws include 1.0)
+    keep = torch.rand(a.shape, generator=ctx.generator,
+                      device=a.device) < (1.0 - p)
     if impl == "upscale_in_train":
         out = torch.where(keep, a / max(1.0 - p, 1e-12),
                           torch.zeros((), dtype=a.dtype, device=a.device))

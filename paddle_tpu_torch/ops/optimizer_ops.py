@@ -34,7 +34,12 @@ they do for dropout).
 The loss-scaling ops are plain tensor compositions, as in the JAX package
 (no Pallas kernel there): they read the overflow verdict and the scale
 state on the device and never wait for the host, and they write their
-``Out`` back under the gradients' own names."""
+``Out`` back under the gradients' own names.
+
+The wrapper optimizers' ops, ``average_accumulates`` (ModelAverage) and
+``dgc_momentum``, are plain compositions too, with their counters and the
+DGC sparsity schedule on the device; DGC's quantile is a sort
+(:func:`quantile_linear`)."""
 
 from __future__ import annotations
 
@@ -461,3 +466,121 @@ def _update_loss_scaling(ctx, ins, attrs):
     return {"Out": _zeroed_if(found_inf, ins.get("X", [])),
             "LossScaling": new_scale, "OutGoodSteps": good_new,
             "OutBadSteps": bad_new}
+
+
+# ---------------------------------------------------------------------------
+# the wrapper optimizers' ops: ModelAverage's accumulators and DGC momentum
+# ---------------------------------------------------------------------------
+
+#: kMaxNumAccumulates of the reference's average_accumulates_op.h
+MAX_NUM_ACCUMULATES = 16384
+
+
+@register("average_accumulates")
+def _average_accumulates(ctx, ins, attrs):
+    """Sliding-window parameter averaging (ref: operators/optimizers/
+    average_accumulates_op.h; ModelAverage's op), the JAX op's state
+    machine on int32 counters, every branch a select (no host read):
+
+      num_updates += 1; num_accumulates += 1; sum_1 += param
+      every kMaxNumAccumulates updates: sum_2 += sum_1; sum_1 = 0
+      when num_accumulates >= min_average_window and num_accumulates >=
+      min(max_average_window, num_updates * average_window) (the window
+      in float32): sum_3 = sum_1 + sum_2; sum_1 = sum_2 = 0;
+      old_num_accumulates = num_accumulates; num_accumulates = 0."""
+    p = x(ins, "param")
+    s1, s2, s3 = x(ins, "in_sum_1"), x(ins, "in_sum_2"), x(ins, "in_sum_3")
+    num_acc = x(ins, "in_num_accumulates")
+    old_num = x(ins, "in_old_num_accumulates")
+    num_upd = x(ins, "in_num_updates")
+    rate = attrs.get("average_window", 0.0)
+    max_win = attrs.get("max_average_window", 10000)
+    min_win = attrs.get("min_average_window", 10000)
+
+    num_upd = num_upd + 1
+    num_acc = num_acc + 1
+    s1 = s1 + p.to(s1.dtype)
+    roll = (num_upd % MAX_NUM_ACCUMULATES) == 0
+    zero = torch.zeros((), dtype=s1.dtype, device=s1.device)
+    s2 = torch.where(roll, s2 + s1, s2)
+    s1 = torch.where(roll, zero, s1)
+    updates = num_upd.to(torch.float32) * rate
+    window = torch.minimum(torch.full_like(updates, float(max_win)), updates)
+    shift = (num_acc >= min_win) & (num_acc.to(torch.float32) >= window)
+    s3 = torch.where(shift, s1 + s2, s3)
+    s1 = torch.where(shift, zero, s1)
+    s2 = torch.where(shift, zero, s2)
+    old_num = torch.where(shift, num_acc, old_num)
+    num_acc = torch.where(shift, torch.zeros_like(num_acc), num_acc)
+    return {"out_sum_1": s1, "out_sum_2": s2, "out_sum_3": s3,
+            "out_num_accumulates": num_acc,
+            "out_old_num_accumulates": old_num,
+            "out_num_updates": num_upd}
+
+
+def quantile_linear(values: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The linear-interpolation quantile (``np.quantile``'s default,
+    ``jnp.quantile``'s) of a float32 tensor at a device scalar ``q``: the
+    values at the floor and ceiling of the rank position ``q * (n - 1)``
+    in the sorted input, weighted ``1 - f`` and ``f``, rounded once to
+    float32.  The position and the weights are float64 scalars, exact
+    for any n below 2^29 (``jnp.quantile`` forms the position in float32,
+    which cannot hold a rank of BERT-base's 23.4 M-element word embedding
+    to the unit).  A sort and two one-element gathers on the device, no
+    host read (``torch.quantile`` refuses more than 2^24 elements)."""
+    flat = values.reshape(-1)
+    last = flat.numel() - 1
+    ordered = torch.sort(flat).values
+    pos = q.reshape(1).to(torch.float64) * last
+    low = torch.clamp(torch.floor(pos), 0, last)
+    high = torch.clamp(torch.ceil(pos), 0, last)
+    high_w = pos - low
+    lo = ordered.index_select(0, low.to(torch.int64)).to(torch.float64)
+    hi = ordered.index_select(0, high.to(torch.int64)).to(torch.float64)
+    return (lo * (1.0 - high_w) + hi * high_w).to(torch.float32).reshape(())
+
+
+@register("dgc_momentum")
+def _dgc_momentum(ctx, ins, attrs):
+    """Deep Gradient Compression momentum (ref: operators/dgc_op.cc,
+    DGCMomentumOptimizer), the JAX op's dense form: U = mu U + g
+    (momentum correction), V = V + U; the elements of V at or above the
+    sparsity quantile of |V| are sent (here: applied to the parameter)
+    and zeroed in U and V, the rest stay as residual.  The sparsity ramps
+    through ``sparsity`` over ``rampup_step`` steps from
+    ``rampup_begin_step``; before it the op is plain momentum.  The ramp
+    index and the quantile are computed on the device from the
+    ``CurrentStep`` counter, so nothing is read on the host."""
+    p, g, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "LearningRate")
+    u, v = x(ins, "U"), x(ins, "V")
+    step = x(ins, "CurrentStep")
+    mu = attrs.get("momentum", 0.9)
+    use_nesterov = attrs.get("use_nesterov", False)
+    rampup_begin = float(attrs.get("rampup_begin_step", 0.0))
+    rampup_step = max(float(attrs.get("rampup_step", 1.0)), 1.0)
+    sparsity = list(attrs.get("sparsity", [0.999]))
+
+    lr = lr.to(p.dtype)
+    g = g.to(p.dtype)
+    stepf = step.reshape(()).to(torch.float32)
+    prog = torch.clamp((stepf - rampup_begin) / rampup_step, 0.0, 1.0)
+    sched = torch.tensor(sparsity, dtype=torch.float32, device=p.device)
+    idx = torch.clamp((prog * len(sparsity)).to(torch.int32),
+                      max=len(sparsity) - 1)
+    ratio = sched.index_select(0, idx.reshape(1).to(torch.int64))
+
+    u_new = mu * u + g
+    v_new = v + u_new
+    thr = quantile_linear(torch.abs(v_new).to(torch.float32),
+                          ratio).to(p.dtype)
+    mask = (torch.abs(v_new) >= thr).to(p.dtype)
+    sent = v_new * mask
+    v_keep = v_new * (1.0 - mask)
+    u_keep = u_new * (1.0 - mask)
+
+    dgc_on = stepf >= rampup_begin
+    plain_update = g + mu * u_new if use_nesterov else u_new
+    return {"ParamOut": torch.where(dgc_on, p - lr * sent,
+                                    p - lr * plain_update),
+            "UOut": torch.where(dgc_on, u_keep, u_new),
+            "VOut": torch.where(dgc_on, v_keep, v)}

@@ -87,7 +87,10 @@ class LoweringContext:
     run owns its state (``donate_state``: optimizer ops then update
     parameters and moments in place), and the data-parallel process group
     the collectives reduce over (``dp``, an
-    ``ops.collective_ops.DataParallelGroup``; None outside one)."""
+    ``ops.collective_ops.DataParallelGroup``; None outside one).
+    ``predicate_reads`` counts the device values the run read on the host
+    to choose a path (a ``conditional_block``'s predicate, a LocalSGD
+    sync step): each is one wait for the device."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None,
@@ -98,6 +101,14 @@ class LoweringContext:
         self.is_test = is_test
         self.donate_state = donate_state
         self.dp = dp
+        self.predicate_reads = 0
+
+    def read_predicate(self, value: torch.Tensor) -> bool:
+        """The one-element ``value`` as a Python bool, read on the host
+        (a wait for the device where it lies there), counted in
+        ``predicate_reads``."""
+        self.predicate_reads += 1
+        return bool(value.reshape(()).item())
 
     @property
     def axis_names(self) -> Tuple[str, ...]:

@@ -1,9 +1,10 @@
 """Optimizers — the port of paddle_tpu/optimizer.py (the static-graph
 ``Optimizer`` base, SGD, Momentum, LarsMomentum, Adam, AdamW, Lamb,
-Adagrad, DecayedAdagrad, RMSProp, Adadelta, Adamax, Ftrl and Dpsgd; ref:
-python/paddle/fluid/optimizer.py).  The wrappers (Recompute,
-GradientMerge, ModelAverage, EMA, Lookahead, LocalSGD, DGCMomentum) are
-not ported.
+Adagrad, DecayedAdagrad, RMSProp, Adadelta, Adamax, Ftrl, Dpsgd and
+DGCMomentum, and the wrappers Recompute, GradientMerge, ModelAverage,
+ExponentialMovingAverage, Lookahead and LocalSGD; ref:
+python/paddle/fluid/optimizer.py).  ``ShardedUpdateOptimizer`` (ZeRO-1)
+is not ported.
 
 Same architecture as the reference: ``minimize = append_backward +
 apply_gradients``; the learning rate (a float, a Variable or an
@@ -21,7 +22,7 @@ from typing import Dict, Optional
 
 from .framework import unique_name
 from .framework.backward import append_backward
-from .framework.core import (Variable, default_main_program,
+from .framework.core import (Parameter, Variable, default_main_program,
                              default_startup_program, program_guard)
 from .clip import get_gradient_clip
 from .lr_scheduler import LRScheduler
@@ -509,6 +510,639 @@ class DpsgdOptimizer(Optimizer):
             outputs={"ParamOut": [p]},
             attrs={"clip": self._clip, "batch_size": self._batch_size,
                    "sigma": self._sigma})
+
+
+class RecomputeOptimizer(Optimizer):
+    """Activation recomputation wrapper (ref: optimizer.py:4479).
+
+    ``checkpoints`` mark segment boundaries: the backward op records their
+    names, and the executor runs each segment of the forward that ends at
+    one under ``torch.utils.checkpoint``, recomputing it in the backward
+    (``executor.run_training_block``)."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def __getattr__(self, item):
+        return getattr(self._optimizer, item)
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None, checkpoints=None):
+        # wrappers stacked on top (GradientMerge) reach the inner
+        # optimizer through here; inject the checkpoints
+        return self._optimizer.backward(
+            loss, startup_program, parameter_list, no_grad_set, callbacks,
+            checkpoints=checkpoints or self._checkpoints)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        with program_guard(loss.block.program,
+                           startup_program or default_startup_program()):
+            params_grads = self.backward(loss, startup_program,
+                                         parameter_list, no_grad_set)
+            opt_ops = self.apply_gradients(params_grads)
+        return opt_ops, params_grads
+
+
+class GradientMergeOptimizer(Optimizer):
+    """Gradient accumulation over ``k_steps`` runs (ref: optimizer.py:4949).
+
+    Each run adds the gradients into persistable accumulators; on every
+    k-th run (``step % k == 0``) the inner optimizer applies their mean
+    (``avg``) or sum, inside one ``cond``: its true branch holds the whole
+    inner apply, so parameters and optimizer state (Adam's moments) stay
+    exactly as they were on the other runs, and the accumulators restart
+    from zero after an apply."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        self._inner = inner_optimizer
+        self.k_steps = k_steps
+        self.avg = avg
+
+    def __getattr__(self, item):
+        return getattr(self._inner, item)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        with program_guard(loss.block.program,
+                           startup_program or default_startup_program()):
+            return self._minimize_impl(loss, startup_program,
+                                       parameter_list, no_grad_set)
+
+    def _minimize_impl(self, loss, startup_program, parameter_list,
+                       no_grad_set):
+        from .layers import tensor_ops as T
+        from .layers.control_flow import cond as cond_layer
+        main = default_main_program().global_block()
+        startup = default_startup_program().global_block()
+        params_grads = self._inner.backward(loss, startup_program,
+                                            parameter_list, no_grad_set)
+        # apply_mask = (step % k == 0)
+        maskf, inv_mask = _periodic_mask(main, startup, self.k_steps, "gm")
+
+        merged = []
+        for p, g in params_grads:
+            acc_name = unique_name.generate(f"{p.name}_gm_acc")
+            acc = main.create_var(name=acc_name, shape=p.shape, dtype=p.dtype,
+                                  persistable=True)
+            sacc = startup.create_var(name=acc_name, shape=p.shape,
+                                      dtype=p.dtype, persistable=True)
+            startup.append_op(type="fill_constant", outputs={"Out": [sacc]},
+                              attrs={"shape": list(p.shape), "dtype": p.dtype,
+                                     "value": 0.0})
+            main.append_op(type="sum", inputs={"X": [acc, g]},
+                           outputs={"Out": [acc]})
+            eff_name = unique_name.generate(f"{p.name}_gm_eff")
+            eff = main.create_var(name=eff_name, shape=p.shape, dtype=p.dtype)
+            scale = 1.0 / self.k_steps if self.avg else 1.0
+            main.append_op(type="scale", inputs={"X": [acc]},
+                           outputs={"Out": [eff]}, attrs={"scale": scale})
+            merged.append((p, eff))
+            # reset acc when applied: acc *= (1 - mask)
+            main.append_op(type="elementwise_mul",
+                           inputs={"X": [acc], "Y": [inv_mask]},
+                           outputs={"Out": [acc]}, attrs={"axis": -1})
+
+        # the exact skip: the whole inner apply runs in the true branch of
+        # one cond on step % k == 0 (ref: the reference's conditional_block
+        # in GradientMergeOptimizer._true_apply_gradients)
+        prog = default_main_program()
+        gb = prog.global_block()
+        pred = T.cast(maskf, "bool")
+        written = []
+
+        def true_fn():
+            blk = prog.current_block()
+            start = len(blk.ops)
+            self._inner.apply_gradients(merged)
+            seen = []
+            for op in blk.ops[start:]:
+                for n in op.output_names():
+                    if n not in seen:
+                        seen.append(n)
+            written[:] = [n for n in seen
+                          if n in gb.vars and gb.vars[n].persistable]
+            return [gb.vars[n] for n in written]
+
+        def false_fn():
+            return [T.assign(gb.vars[n]) for n in written]
+
+        outs = cond_layer(pred, true_fn, false_fn, name="gm_apply")
+        opt_ops = []
+        for n, o in zip(written, outs):
+            opt_ops.append(main.append_op(
+                type="assign", inputs={"X": [o]}, outputs={"Out": [n]}))
+        return opt_ops, merged
+
+
+def _persistable_scalar(main, startup, prefix, value=0.0):
+    """A persistable (1,) float32 var in main and startup, startup-filled
+    with ``value``: the step counters and products below."""
+    name = unique_name.generate(prefix)
+    v = main.create_var(name=name, shape=(1,), dtype="float32",
+                        persistable=True)
+    sv = startup.create_var(name=name, shape=(1,), dtype="float32",
+                            persistable=True)
+    startup.append_op(type="fill_constant", outputs={"Out": [sv]},
+                      attrs={"shape": [1], "dtype": "float32",
+                             "value": float(value)})
+    return v
+
+
+def _step_counter(main, startup, prefix):
+    """A persistable step counter incremented once per main-program run."""
+    step = _persistable_scalar(main, startup, f"{prefix}_step")
+    main.append_op(type="increment", inputs={"X": [step]},
+                   outputs={"Out": [step]}, attrs={"step": 1.0})
+    return step
+
+
+def _periodic_mask(main, startup, k, prefix="pm"):
+    """A step counter and ``mask = (step % k == 0)``; returns (maskf,
+    inv_maskf) float32 (1,) vars (GradientMerge, Lookahead)."""
+    step = _step_counter(main, startup, prefix)
+    modk = main.create_var(name=unique_name.generate(f"{prefix}_modk"),
+                           shape=(1,), dtype="float32")
+    main.append_op(type="elementwise_mod", inputs={
+        "X": [step], "Y": [_const_var(main, startup, float(k))]},
+        outputs={"Out": [modk]}, attrs={"axis": -1})
+    mask = main.create_var(name=unique_name.generate(f"{prefix}_mask"),
+                           shape=(1,), dtype="bool")
+    main.append_op(type="equal", inputs={
+        "X": [modk], "Y": [_const_var(main, startup, 0.0)]},
+        outputs={"Out": [mask]})
+    maskf = main.create_var(name=unique_name.generate(f"{prefix}_maskf"),
+                            shape=(1,), dtype="float32")
+    main.append_op(type="cast", inputs={"X": [mask]},
+                   outputs={"Out": [maskf]},
+                   attrs={"out_dtype": "float32"})
+    inv = main.create_var(name=unique_name.generate(f"{prefix}_inv"),
+                          shape=(1,), dtype="float32")
+    main.append_op(type="scale", inputs={"X": [maskf]},
+                   outputs={"Out": [inv]},
+                   attrs={"scale": -1.0, "bias": 1.0})
+    return maskf, inv
+
+
+def _swap_context(executor, apply_program, restore_fn, need_restore):
+    """The apply()/restore() context manager of the parameter-swapping
+    averages (ModelAverage, EMA)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def _ctx():
+        # the swap program reads parameters and accumulators through the
+        # scope: hand a donated prepared step's current state over first
+        from .framework.executor import global_scope, sync_prepared_state
+        sync_prepared_state(global_scope())
+        executor.run(apply_program)
+        try:
+            yield
+        finally:
+            if need_restore:
+                restore_fn(executor)
+    return _ctx()
+
+
+def _const_var(main, startup, value):
+    name = unique_name.generate("const")
+    v = main.create_var(name=name, shape=(1,), dtype="float32",
+                        persistable=True)
+    sv = startup.create_var(name=name, shape=(1,), dtype="float32",
+                            persistable=True)
+    startup.append_op(type="fill_constant", outputs={"Out": [sv]},
+                      attrs={"shape": [1], "dtype": "float32",
+                             "value": float(value)})
+    return v
+
+
+class DGCMomentumOptimizer(Optimizer):
+    """Deep Gradient Compression momentum (ref: optimizer.py:1143
+    DGCMomentumOptimizer; operators/dgc_op.cc).  The ``dgc_momentum`` op
+    keeps DGC's convergence semantics (momentum correction, the masked
+    top-k update, the local residual, the ramped sparsity); the gradient
+    all-reduce stays dense.  ``num_trainers`` and ``local_grad_clip_norm``
+    are taken for script compatibility."""
+
+    type = "dgc_momentum"
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step,
+                 rampup_step=1, sparsity=None, use_nesterov=False,
+                 local_grad_clip_norm=None, num_trainers=None,
+                 regularization=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, regularization, grad_clip, name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+        self._rampup_begin_step = rampup_begin_step
+        self._rampup_step = rampup_step
+        self._sparsity = list(sparsity or [0.999])
+        self._step_var = None
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("u_velocity", p)
+            self._add_accumulator("v_residual", p)
+        if self._step_var is None:
+            main = default_main_program().global_block()
+            startup = default_startup_program().global_block()
+            self._step_var = _persistable_scalar(main, startup, "dgc_step")
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        return block.append_op(
+            type="dgc_momentum",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._param_lr(p)],
+                    "U": [self._get_accumulator("u_velocity", p)],
+                    "V": [self._get_accumulator("v_residual", p)],
+                    "CurrentStep": [self._step_var]},
+            outputs={"ParamOut": [p],
+                     "UOut": [self._get_accumulator("u_velocity", p)],
+                     "VOut": [self._get_accumulator("v_residual", p)]},
+            attrs={"momentum": self._momentum,
+                   "use_nesterov": self._use_nesterov,
+                   "rampup_begin_step": float(self._rampup_begin_step),
+                   "rampup_step": float(self._rampup_step),
+                   "sparsity": self._sparsity})
+
+    def apply_gradients(self, params_grads):
+        opt_ops = super().apply_gradients(params_grads)
+        block = default_main_program().global_block()
+        block.append_op(type="increment", inputs={"X": [self._step_var]},
+                        outputs={"Out": [self._step_var]},
+                        attrs={"step": 1.0})
+        return opt_ops
+
+
+class ModelAverage(Optimizer):
+    """Sliding-window parameter averaging (ref: optimizer.py:3069
+    ModelAverage; operators/optimizers/average_accumulates_op.h).
+
+    Appends one ``average_accumulates`` op per trainable parameter to the
+    main program; ``apply()`` swaps the parameters for their windowed
+    average (the weights to evaluate) and ``restore()`` swaps them back,
+    each a program of its own run against the scope."""
+
+    _ACCS = ("sum_1", "sum_2", "sum_3", "num_accumulates",
+             "old_num_accumulates", "num_updates")
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, regularization=None, name=None):
+        super().__init__(0.0, regularization, None, name)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self._params = [
+            v for v in default_main_program().global_block().vars.values()
+            if isinstance(v, Parameter) and v.trainable]
+        main = default_main_program().global_block()
+        for p in self._params:
+            for n in self._ACCS[:3]:
+                self._add_accumulator(n, p)
+            for n in self._ACCS[3:]:
+                self._add_accumulator(n, p, shape=(1,), dtype="int32")
+            acc = {n: self._get_accumulator(n, p) for n in self._ACCS}
+            main.append_op(
+                type="average_accumulates",
+                inputs=dict({"param": [p]}, **{f"in_{n}": [acc[n]]
+                                               for n in self._ACCS}),
+                outputs={f"out_{n}": [acc[n]] for n in self._ACCS},
+                attrs={"average_window": float(self.average_window),
+                       "min_average_window": int(self.min_average_window),
+                       "max_average_window": int(self.max_average_window)})
+        self._apply_program, self._restore_program = self._build_swap()
+
+    def _build_swap(self):
+        from .framework.core import Program
+        apply_prog, restore_prog = Program(), Program()
+        acc_names = {p.name: {n: self._get_accumulator(n, p).name
+                              for n in self._ACCS[:5]}
+                     for p in self._params}
+        with program_guard(apply_prog, Program()):
+            blk = apply_prog.global_block()
+            for p in self._params:
+                names = acc_names[p.name]
+                pv = blk.create_var(name=p.name, shape=p.shape,
+                                    dtype=p.dtype, persistable=True)
+                backup = blk.create_var(name=f"{p.name}@MA_BACKUP",
+                                        shape=p.shape, dtype=p.dtype,
+                                        persistable=True)
+                blk.append_op(type="assign", inputs={"X": [pv]},
+                              outputs={"Out": [backup]})
+                sums = [blk.create_var(name=names[n], shape=p.shape,
+                                       dtype=p.dtype, persistable=True)
+                        for n in ("sum_1", "sum_2", "sum_3")]
+                total = blk.create_var(name=f"{p.name}@MA_SUM",
+                                       shape=p.shape, dtype=p.dtype)
+                blk.append_op(type="sum", inputs={"X": sums},
+                              outputs={"Out": [total]})
+                counts = [blk.create_var(name=names[n], shape=(1,),
+                                         dtype="int32", persistable=True)
+                          for n in ("num_accumulates",
+                                    "old_num_accumulates")]
+                cnt = blk.create_var(name=f"{p.name}@MA_CNT", shape=(1,),
+                                     dtype="int32")
+                blk.append_op(type="sum", inputs={"X": counts},
+                              outputs={"Out": [cnt]})
+                cntf = blk.create_var(name=f"{p.name}@MA_CNTF", shape=(1,),
+                                      dtype=p.dtype)
+                blk.append_op(type="cast", inputs={"X": [cnt]},
+                              outputs={"Out": [cntf]},
+                              attrs={"out_dtype": p.dtype})
+                one = blk.create_var(name=f"{p.name}@MA_ONE", shape=(1,),
+                                     dtype=p.dtype)
+                blk.append_op(type="fill_constant", outputs={"Out": [one]},
+                              attrs={"shape": [1], "dtype": p.dtype,
+                                     "value": 1.0})
+                denom = blk.create_var(name=f"{p.name}@MA_DEN", shape=(1,),
+                                       dtype=p.dtype)
+                blk.append_op(type="elementwise_max",
+                              inputs={"X": [cntf], "Y": [one]},
+                              outputs={"Out": [denom]}, attrs={"axis": -1})
+                blk.append_op(type="elementwise_div",
+                              inputs={"X": [total], "Y": [denom]},
+                              outputs={"Out": [pv]}, attrs={"axis": -1})
+        restore_prog = _restore_program(self._params, "MA_BACKUP")
+        return apply_prog, restore_prog
+
+    def apply(self, executor, need_restore=True):
+        """A context manager in which the parameters are their averages
+        (ref: optimizer.py ModelAverage.apply)."""
+        return _swap_context(executor, self._apply_program, self.restore,
+                             need_restore)
+
+    def restore(self, executor):
+        executor.run(self._restore_program)
+
+
+def _restore_program(params, backup_tag):
+    """A program that assigns each parameter its ``@<backup_tag>`` copy."""
+    from .framework.core import Program
+    prog = Program()
+    with program_guard(prog, Program()):
+        blk = prog.global_block()
+        for p in params:
+            pv = blk.create_var(name=p.name, shape=p.shape, dtype=p.dtype,
+                                persistable=True)
+            backup = blk.create_var(name=f"{p.name}@{backup_tag}",
+                                    shape=p.shape, dtype=p.dtype,
+                                    persistable=True)
+            blk.append_op(type="assign", inputs={"X": [backup]},
+                          outputs={"Out": [pv]})
+    return prog
+
+
+class ExponentialMovingAverage:
+    """EMA of the parameters (ref: optimizer.py:3378
+    ExponentialMovingAverage).
+
+    ``update()`` appends ``ema = decay_t * ema + (1 - decay_t) * param`` to
+    the main program, with ``decay_t = min(decay, (1 + t) / (10 + t))``
+    when ``thres_steps`` (a variable t) is given, else ``decay``, and
+    keeps the running product of the ``decay_t``; ``apply()`` swaps in the
+    bias-corrected ``ema / (1 - prod decay_t)``, ``restore()`` swaps
+    back."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = decay
+        self._thres_steps = thres_steps
+        self._name = name or ""
+        self._ema_vars = {}
+        self._params = []
+        self._step_var = None
+        self._apply_program = None
+        self._restore_program = None
+
+    def update(self):
+        main = default_main_program().global_block()
+        startup = default_startup_program().global_block()
+        self._params = [v for v in main.vars.values()
+                        if isinstance(v, Parameter) and v.trainable]
+        self._step_var = _step_counter(main, startup, "ema")
+        # the running product of decay_t: the exact bias correction, also
+        # when thres_steps ramps the decay
+        self._decay_prod = _persistable_scalar(main, startup,
+                                               "ema_decay_prod", 1.0)
+        if self._thres_steps is not None:
+            t = self._thres_steps
+            ramp = main.create_var(name=unique_name.generate("ema_ramp"),
+                                   shape=(1,), dtype="float32")
+            num = main.create_var(name=unique_name.generate("ema_num"),
+                                  shape=(1,), dtype="float32")
+            den = main.create_var(name=unique_name.generate("ema_den"),
+                                  shape=(1,), dtype="float32")
+            main.append_op(type="scale", inputs={"X": [t]},
+                           outputs={"Out": [num]},
+                           attrs={"scale": 1.0, "bias": 1.0})
+            main.append_op(type="scale", inputs={"X": [t]},
+                           outputs={"Out": [den]},
+                           attrs={"scale": 1.0, "bias": 10.0})
+            main.append_op(type="elementwise_div",
+                           inputs={"X": [num], "Y": [den]},
+                           outputs={"Out": [ramp]}, attrs={"axis": -1})
+            decay_var = main.create_var(
+                name=unique_name.generate("ema_decay"), shape=(1,),
+                dtype="float32")
+            cd = _const_var(main, startup, self._decay)
+            main.append_op(type="elementwise_min",
+                           inputs={"X": [ramp], "Y": [cd]},
+                           outputs={"Out": [decay_var]}, attrs={"axis": -1})
+        else:
+            decay_var = _const_var(main, startup, self._decay)
+        self._decay_var_name = decay_var.name
+        main.append_op(type="elementwise_mul",
+                       inputs={"X": [self._decay_prod], "Y": [decay_var]},
+                       outputs={"Out": [self._decay_prod]},
+                       attrs={"axis": -1})
+        for p in self._params:
+            ema_name = unique_name.generate(f"{p.name}_ema")
+            ema = main.create_var(name=ema_name, shape=p.shape,
+                                  dtype=p.dtype, persistable=True)
+            sev = startup.create_var(name=ema_name, shape=p.shape,
+                                     dtype=p.dtype, persistable=True)
+            startup.append_op(type="fill_constant", outputs={"Out": [sev]},
+                              attrs={"shape": list(p.shape),
+                                     "dtype": p.dtype, "value": 0.0})
+            self._ema_vars[p.name] = ema
+            t1 = main.create_var(name=unique_name.generate("ema_t1"),
+                                 shape=p.shape, dtype=p.dtype)
+            main.append_op(type="elementwise_mul",
+                           inputs={"X": [ema], "Y": [decay_var]},
+                           outputs={"Out": [t1]}, attrs={"axis": -1})
+            omd = main.create_var(name=unique_name.generate("ema_omd"),
+                                  shape=(1,), dtype="float32")
+            main.append_op(type="scale", inputs={"X": [decay_var]},
+                           outputs={"Out": [omd]},
+                           attrs={"scale": -1.0, "bias": 1.0})
+            t2 = main.create_var(name=unique_name.generate("ema_t2"),
+                                 shape=p.shape, dtype=p.dtype)
+            main.append_op(type="elementwise_mul",
+                           inputs={"X": [p], "Y": [omd]},
+                           outputs={"Out": [t2]}, attrs={"axis": -1})
+            main.append_op(type="elementwise_add",
+                           inputs={"X": [t1], "Y": [t2]},
+                           outputs={"Out": [ema]}, attrs={"axis": -1})
+        self._apply_program, self._restore_program = self._build_swap()
+
+    def _build_swap(self):
+        from .framework.core import Program
+        apply_prog = Program()
+        with program_guard(apply_prog, Program()):
+            blk = apply_prog.global_block()
+            prod = blk.create_var(name=self._decay_prod.name, shape=(1,),
+                                  dtype="float32", persistable=True)
+            factor = blk.create_var(name=unique_name.generate("ema_factor"),
+                                    shape=(1,), dtype="float32")
+            blk.append_op(type="scale", inputs={"X": [prod]},
+                          outputs={"Out": [factor]},
+                          attrs={"scale": -1.0, "bias": 1.0})
+            for p in self._params:
+                pv = blk.create_var(name=p.name, shape=p.shape,
+                                    dtype=p.dtype, persistable=True)
+                ema = blk.create_var(name=self._ema_vars[p.name].name,
+                                     shape=p.shape, dtype=p.dtype,
+                                     persistable=True)
+                backup = blk.create_var(name=f"{p.name}@EMA_BACKUP",
+                                        shape=p.shape, dtype=p.dtype,
+                                        persistable=True)
+                blk.append_op(type="assign", inputs={"X": [pv]},
+                              outputs={"Out": [backup]})
+                blk.append_op(type="elementwise_div",
+                              inputs={"X": [ema], "Y": [factor]},
+                              outputs={"Out": [pv]}, attrs={"axis": -1})
+        return apply_prog, _restore_program(self._params, "EMA_BACKUP")
+
+    def apply(self, executor, need_restore=True):
+        return _swap_context(executor, self._apply_program, self.restore,
+                             need_restore)
+
+    def restore(self, executor):
+        executor.run(self._restore_program)
+
+
+class LookaheadOptimizer:
+    """Lookahead (ref: optimizer.py:4788 LookaheadOptimizer): the fast
+    weights step with the inner optimizer every run; every ``k`` runs the
+    slow weights move ``alpha`` of the way to the fast weights and the
+    fast weights are reset to them.  The k-periodic swap is a 0/1 mask,
+    so every run executes the same ops."""
+
+    def __init__(self, inner_optimizer, alpha=0.5, k=5):
+        assert inner_optimizer is not None
+        assert 0.0 <= alpha <= 1.0
+        assert k >= 1 and isinstance(k, int)
+        self.inner_optimizer = inner_optimizer
+        self.alpha = alpha
+        self.k = k
+        self.type = "lookahead"
+
+    def __getattr__(self, item):
+        return getattr(self.inner_optimizer, item)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        opt_ops, params_grads = self.inner_optimizer.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        with program_guard(loss.block.program,
+                           startup_program or default_startup_program()):
+            self._append_lookahead(params_grads)
+        return opt_ops, params_grads
+
+    def _append_lookahead(self, params_grads):
+        main = default_main_program().global_block()
+        startup = default_startup_program().global_block()
+        maskf, inv = _periodic_mask(main, startup, self.k, "la")
+        for p, _ in params_grads:
+            slow_name = unique_name.generate(f"{p.name}_slow")
+            slow = main.create_var(name=slow_name, shape=p.shape,
+                                   dtype=p.dtype, persistable=True)
+            sslow = startup.create_var(name=slow_name, shape=p.shape,
+                                       dtype=p.dtype, persistable=True)
+            # the slow weights start as the initialised fast weights
+            startup.append_op(type="assign", inputs={"X": [p.name]},
+                              outputs={"Out": [sslow]})
+            # slow' = slow + mask * alpha * (fast - slow)
+            diff = main.create_var(name=unique_name.generate("la_diff"),
+                                   shape=p.shape, dtype=p.dtype)
+            main.append_op(type="elementwise_sub",
+                           inputs={"X": [p], "Y": [slow]},
+                           outputs={"Out": [diff]}, attrs={"axis": -1})
+            scaled = main.create_var(name=unique_name.generate("la_sc"),
+                                     shape=p.shape, dtype=p.dtype)
+            main.append_op(type="scale", inputs={"X": [diff]},
+                           outputs={"Out": [scaled]},
+                           attrs={"scale": float(self.alpha)})
+            masked = main.create_var(name=unique_name.generate("la_msk"),
+                                     shape=p.shape, dtype=p.dtype)
+            main.append_op(type="elementwise_mul",
+                           inputs={"X": [scaled], "Y": [maskf]},
+                           outputs={"Out": [masked]}, attrs={"axis": -1})
+            main.append_op(type="elementwise_add",
+                           inputs={"X": [slow], "Y": [masked]},
+                           outputs={"Out": [slow]}, attrs={"axis": -1})
+            # fast' = mask * slow' + (1 - mask) * fast
+            t1 = main.create_var(name=unique_name.generate("la_t1"),
+                                 shape=p.shape, dtype=p.dtype)
+            main.append_op(type="elementwise_mul",
+                           inputs={"X": [slow], "Y": [maskf]},
+                           outputs={"Out": [t1]}, attrs={"axis": -1})
+            t2 = main.create_var(name=unique_name.generate("la_t2"),
+                                 shape=p.shape, dtype=p.dtype)
+            main.append_op(type="elementwise_mul",
+                           inputs={"X": [p], "Y": [inv]},
+                           outputs={"Out": [t2]}, attrs={"axis": -1})
+            main.append_op(type="elementwise_add",
+                           inputs={"X": [t1], "Y": [t2]},
+                           outputs={"Out": [p]}, attrs={"axis": -1})
+
+
+class LocalSGDOptimizer:
+    """Local SGD (ref: transpiler/collective.py:270 LocalSGD,
+    fleet/meta_optimizers/localsgd_optimizer.py): each rank steps on its
+    own gradients (no per-step gradient all-reduce) and every ``k_steps``
+    runs from ``begin_step`` on the parameters are averaged over the
+    data-parallel group (``local_sgd_sync``); on one rank it is the
+    identity."""
+
+    def __init__(self, inner_optimizer, k_steps=1, begin_step=1,
+                 axis_name="dp"):
+        self.inner_optimizer = inner_optimizer
+        self.k_steps = k_steps
+        self.begin_step = begin_step
+        self.axis_name = axis_name
+        self.type = "localsgd"
+
+    def __getattr__(self, item):
+        return getattr(self.inner_optimizer, item)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        opt_ops, params_grads = self.inner_optimizer.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        with program_guard(loss.block.program,
+                           startup_program or default_startup_program()):
+            self._append_avg(params_grads)
+        return opt_ops, params_grads
+
+    def _append_avg(self, params_grads):
+        main = default_main_program().global_block()
+        startup = default_startup_program().global_block()
+        step = _step_counter(main, startup, "localsgd")
+        params = [p for p, _ in params_grads]
+        main.append_op(
+            type="local_sgd_sync",
+            inputs={"Step": [step], "Params": params},
+            outputs={"Out": params},
+            attrs={"k_steps": float(self.k_steps),
+                   "begin_step": float(self.begin_step),
+                   "ring_id": 0, "_axis_name": self.axis_name})
 
 
 SGD = SGDOptimizer

@@ -26,7 +26,7 @@ from paddle_tpu_torch.serving.engine import ServingConfig
 
 MODULES = ("optimizer", "framework.executor", "framework.compiler",
            "inference", "io", "serving.engine", "serving.decode",
-           "distributed.fleet")
+           "distributed.fleet", "layers.control_flow")
 
 #: JAX internals whose parameters differ by design, with the reason
 ALLOWED = {
@@ -141,6 +141,33 @@ def test_the_optimizers_and_checkpoints_are_shared_api(mod):
             alias = name[:-len("Optimizer")]
             assert getattr(tmod, alias) is getattr(tmod, name)
             assert getattr(jmod, alias) is getattr(jmod, name)
+
+
+#: the wrapper optimizers and the control flow they need, each compared
+#: keyword by keyword above (constructor and public methods)
+WRAPPERS_AND_CONTROL_FLOW = {
+    "optimizer": {"RecomputeOptimizer", "GradientMergeOptimizer",
+                  "DGCMomentumOptimizer", "ModelAverage",
+                  "ExponentialMovingAverage", "LookaheadOptimizer",
+                  "LocalSGDOptimizer"},
+    "layers.control_flow": {"cond", "case"},
+}
+
+
+@pytest.mark.parametrize("mod", sorted(WRAPPERS_AND_CONTROL_FLOW))
+def test_the_wrappers_and_cond_are_shared_api(mod):
+    quals = {qual for m, qual, *_ in SHARED if m == mod}
+    names = {qual.split(".")[0] for qual in quals}
+    assert WRAPPERS_AND_CONTROL_FLOW[mod] <= names
+    if mod == "optimizer":
+        # the swaps' entry points are compared too
+        assert {"ModelAverage.apply", "ModelAverage.restore",
+                "ExponentialMovingAverage.update",
+                "ExponentialMovingAverage.apply",
+                "RecomputeOptimizer.backward",
+                "GradientMergeOptimizer.minimize",
+                "LookaheadOptimizer.minimize",
+                "LocalSGDOptimizer.minimize"} <= quals
 
 
 def test_the_ported_checkpoint_keeps_the_jax_constants():

@@ -5,9 +5,16 @@
         collectives IN.npz OUT_DIR
     launch --nproc 2 --backend gloo --timeout T tests/torch_dist_runner.py \\
         dp IN.npz TIER OUT_DIR
+    launch --nproc 2 --backend gloo --timeout T tests/torch_dist_runner.py \\
+        localsgd IN.npz K OUT_DIR
 
 ``collectives``: every ported collective op on this rank's inputs
 (``IN.npz`` holds ``r<rank>/<case>`` arrays), outputs saved per case.
+``localsgd``: a small regression MLP through ``fleet`` with
+``strategy.localsgd`` (SGD 0.2, ``k_steps`` K), each rank on its own rows
+of the global batches in ``IN.npz`` (one ``prepare(donate_state=True)``
+step a batch); it saves its parameters after every step, the program's
+op types and the step's predicate reads.
 ``dp``: BERT-tiny pretraining through ``fleet`` with the fused AdamW
 recipe, from the startup parameters and batches in ``IN.npz`` (one step
 a batch), for the fp32 / int8 / int4 tier of the gradient all-reduce or
@@ -180,11 +187,54 @@ def dp(inputs, tier, out_dir):
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
 
 
+def localsgd(inputs, k_steps, out_dir):
+    rank = int(os.environ["RANK"])
+    _init(rank)
+    data = np.load(inputs)
+    init = {k[2:]: data[k] for k in data.files if k.startswith("p/")}
+    steps = len({k.split("/", 1)[0] for k in data.files
+                 if k.startswith("b")})
+    batches = [{k.split("/", 1)[1]: data[k] for k in data.files
+                if k.startswith(f"b{i}/")} for i in range(steps)]
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 3
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[8])
+        y = fluid.layers.data("y", shape=[1])
+        h = fluid.layers.fc(x, 8, act="tanh")
+        loss = fluid.layers.mean(
+            fluid.layers.square(fluid.layers.fc(h, 1) - y))
+        s = DistributedStrategy()
+        s.localsgd = True
+        s.localsgd_configs = {"k_steps": int(k_steps)}
+        fleet.distributed_optimizer(fluid.optimizer.SGD(0.2),
+                                    s).minimize(loss)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    scope = fluid.Scope()
+    for n, t in io.convert_params({n: init[n] for n in names},
+                                  "cpu").items():
+        scope.set_var(n, t)
+    exe = fluid.Executor(fleet.place)
+    step = exe.prepare(fleet.main_program, fetch_list=[loss], scope=scope,
+                       donate_state=True)
+    out = {"ops": np.array([op.type for op in main.global_block().ops])}
+    for i, b in enumerate(batches):
+        step.run(b)[0].numpy()
+        fluid.sync_prepared_state(scope)
+        for p in main.all_parameters():
+            out[f"s{i}/{p.name}"] = scope.find_var(p.name).numpy().copy()
+    out["predicate_reads"] = np.array([step.stats["predicate_reads"]])
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
 if __name__ == "__main__":
     mode = sys.argv[1]
     if mode == "collectives":
         collectives(sys.argv[2], sys.argv[3])
     elif mode == "dp":
         dp(sys.argv[2], sys.argv[3], sys.argv[4])
+    elif mode == "localsgd":
+        localsgd(sys.argv[2], sys.argv[3], sys.argv[4])
     else:
         raise SystemExit(f"unknown mode {mode!r}")
