@@ -223,7 +223,32 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    its 16 rows), 4 steps: no gradient all-reduce in the program, the
    parameters sha256-equal across the ranks after steps 2 and 4 and not
    after 3 (step 1 runs at the warmup's LR 0 and moves nothing);
-15. print the ``kernels`` JSON line, the card's name and power limit, and
+15. ZeRO at BERT-base width on two ranks of the card over gloo (phase 10's
+   launcher, each rank its 16 of the 32 x 128 rows, dropout 0.1): phase
+   8's program with the recipe less its global-norm clip (ZeRO-1 refuses
+   a norm clip), 6 prepared steps a leg.  (a) plain dp2 with the fp32
+   bucketed all-reduce, the yardstick; (b) ``strategy.sharding`` (ZeRO-1,
+   fp32 scatter); (c) and (d) the same with ``quant_allreduce`` int8 and
+   int4 at block 256 (the scatter's receive stage on #11); (e) ZeRO-3:
+   ``apply_fsdp_sharding(main, MeshLayout(fsdp=2))`` +
+   ``CompiledProgram.with_mesh``; (b) saves a checkpoint after step 3,
+   and (f) a fresh pair of ranks loads it.  Gates: finite, falling
+   losses; the startup's parameters and the replicated persistables
+   sha256-equal across the ranks; (b) and (e) within 1e-4 of (a)'s losses
+   (relative) and parameters (of max|p|), (c) and (d) within a few times
+   their measured gaps to (a)'s losses and parameters, and the first
+   step's scattered word-embedding gradient within its measured gap to
+   (b)'s (a peer's contribution lost would leave half the sum); phase
+   8's launches a step, #10 once, #11 158
+   times in (c) and (d) (on the int8 carrier) and never in the others,
+   #12 never, no fallback; the bytes each rank's scope holds equal to
+   what the layout predicts (the sharded persistables' global bytes
+   halved); (f)'s restored blocks bit for bit (b)'s saved ones.  #10 on
+   leg (b)'s 158 flat shards against its twin bit for bit, timed beside
+   ``torch._fused_adamw_``.  Printed per leg: the step (median of steps
+   3-6), gloo's wall time in one step, the persistent and peak bytes a
+   rank, and the checkpoint's save and load seconds;
+16. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -395,12 +420,14 @@ def log(msg):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, samples=25, warmup=3, flush=None):
-    """Median device time of one call: each sample starts behind a short
-    GPU sleep, so the host finishes enqueueing before the start event
-    fires and the events see device time only.  With ``flush`` (a tensor
-    larger than the L2 cache) the cache is overwritten before each
-    sample, outside the events."""
+def time_ms(torch, fn, samples=25, warmup=3, flush=None,
+            head_start=2_000_000):
+    """Median device time of one call: each sample starts behind a GPU
+    sleep of ``head_start`` cycles, so the host finishes enqueueing before
+    the start event fires and the events see device time only (a call
+    whose host work takes longer needs a longer head start).  With
+    ``flush`` (a tensor larger than the L2 cache) the cache is overwritten
+    before each sample, outside the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -410,7 +437,7 @@ def time_ms(torch, fn, samples=25, warmup=3, flush=None):
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(head_start)
         start.record()
         fn()
         end.record()
@@ -3700,6 +3727,507 @@ def wrappers_phase(torch, np, cfg, repo):
              "dgc": dgc, "localsgd": ls})
 
 
+#: phase 15: ZeRO on two ranks of the card.  Legs: (a) plain dp2 with the
+#: fp32 all-reduce (the yardstick), (b) ZeRO-1 fp32, (c) ZeRO-1 with the
+#: int8 scatter, (d) with the int4 scatter, (e) ZeRO-3 over fsdp = 2; (f)
+#: a fresh pair of ranks loads the checkpoint (b) saved
+ZERO_LEGS = "abcde"
+ZERO_LEG_NAMES = {"a": "dp2, fp32 all-reduce", "b": "ZeRO-1, fp32 scatter",
+                  "c": "ZeRO-1, int8 scatter", "d": "ZeRO-1, int4 scatter",
+                  "e": "ZeRO-3, fsdp 2"}
+ZERO_QUANT = {"c": "int8", "d": "int4"}
+ZERO_BLOCK = 256          # the word embedding's shard: SB 45,783 at n = 2
+ZERO_STEPS, ZERO_SAVE_AT = 6, 3
+TOL_ZERO_LOSS = 1e-4      # (b), (e) vs (a): losses (relative)
+TOL_ZERO_PARAM = 1e-4     # (b), (e) vs (a): parameters, of max|p|
+# (c), (d) vs (a), a few times what the quantized scatter gives on these
+# inputs (the legs are deterministic: stochastic rounding off).  Losses,
+# relative: measured int8 7.5e-6, int4 2.0e-3.  Parameters, max|Δ| of
+# max|p|: measured 5.3e-4, 7.9e-4; a shard or pad out of place moves a
+# parameter by its own size, but 6 steps move no element by more than
+# the summed LR (4e-4) each way, so this gap saturates near 8e-4 and
+# cannot see a lost contribution.  The scatter gap can: the first step's
+# scattered word-embedding gradient (the largest) against (b)'s fp32 one
+# on the same inputs, |g - g_b| / |g_b|: measured int8 8.8e-3, int4
+# 1.6e-1, where a peer's contribution lost leaves 0.5-0.7 of the sum
+ZERO_QUANT_LOSS = {"int8": 4e-5, "int4": 1e-2}
+ZERO_QUANT_PARAM = {"int8": 2e-3, "int4": 3e-3}
+ZERO_QUANT_SCATTER = {"int8": 3e-2, "int4": 2.5e-1}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: ZeRO-1 and ZeRO-3 on two ranks of the card
+# ---------------------------------------------------------------------------
+
+
+def zero_optimizer(fluid):
+    """Phase 15's recipe: phase 8's AdamW 0.01 with warmup and linear
+    decay, without the global-norm clip (ZeRO-1 refuses a norm clip: a
+    shard-local norm would clip each rank differently)."""
+    lr = fluid.layers.linear_lr_warmup(
+        fluid.layers.polynomial_decay(PEAK_LR, DECAY_STEPS, 0.0, power=1.0),
+        WARMUP_STEPS, 0.0, PEAK_LR)
+    return fluid.optimizer.AdamW(lr, weight_decay=WEIGHT_DECAY)
+
+
+def build_zero_train(cfg, leg):
+    """Phase 15's program for ``leg`` as a rank writes it: BERT-base
+    pretraining, ``fuse_add_layernorm`` and ``fuse_elewise_add_act_ops``,
+    the recipe of :func:`zero_optimizer`; (a) through ``fleet`` (the fp32
+    bucketed all-reduce), (b)-(d) through ``fleet`` with
+    ``strategy.sharding`` (fp32, int8, int4 scatter), (e) minimized, then
+    ``apply_fsdp_sharding(main, MeshLayout(fsdp=2))`` and
+    ``CompiledProgram.with_mesh``.  Returns (the program to run, main,
+    startup, loss)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.fsdp import apply_fsdp_sharding
+    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    from paddle_tpu_torch.framework.passes import apply_pass
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    build = fluid.BuildStrategy()
+    build.fuse_elewise_add_act_ops = True
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        if leg == "e":
+            zero_optimizer(fluid).minimize(total)
+        else:
+            s = DistributedStrategy()
+            s.build_strategy = build
+            s.sharding = leg != "a"
+            if leg in ZERO_QUANT:
+                s.quant_allreduce = True
+                s.quant_configs = {"dtype": ZERO_QUANT[leg],
+                                   "block_size": ZERO_BLOCK,
+                                   "stochastic_rounding": False}
+            fleet.distributed_optimizer(zero_optimizer(fluid),
+                                        s).minimize(total)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    if leg != "e":
+        return fleet.main_program, main, startup, total
+    layout = MeshLayout(fsdp=DP_RANKS)
+    apply_fsdp_sharding(main, layout)
+    program = fluid.CompiledProgram(main).with_mesh(
+        layout.build_mesh(), loss_name=total.name,
+        batch_axis=layout.batch_axes, build_strategy=build)
+    return program, main, startup, total
+
+
+def held_bytes(torch, dp, scope, main):
+    """(bytes this rank's scope holds of the program's persistables, the
+    bytes the layout predicts over the run's group ``dp``: a sharded
+    one's global bytes over the world size, a replicated one's whole;
+    the moments' and the parameters' held bytes)."""
+    from paddle_tpu_torch.ops.collective_ops import shard_dim
+    held = predicted = moments = params = 0
+    names = {p.name for p in main.all_parameters()}
+    for v in main.list_vars():
+        t = scope.find_var(v.name) if v.persistable else None
+        if not torch.is_tensor(t):
+            continue
+        nbytes = t.numel() * t.element_size()
+        whole = math.prod(v.shape) * t.element_size()
+        held += nbytes
+        predicted += whole // dp.world if shard_dim(dp, v) is not None \
+            else whole
+        if "_moment" in v.name:
+            moments += nbytes
+        elif v.name in names:
+            params += nbytes
+    return held, predicted, moments, params
+
+
+def state_digests(np, scope, main):
+    """sha256 of each persistable's bytes as this rank holds it."""
+    import hashlib
+    out = {}
+    for v in main.list_vars():
+        t = scope.find_var(v.name) if v.persistable else None
+        if t is None or not hasattr(t, "detach"):
+            continue
+        out[v.name] = hashlib.sha256(
+            t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def replicated_digest(np, dp, scope, main):
+    """sha256 over the replicated persistables (those the layout does
+    not shard), in name order, as this rank holds them."""
+    import hashlib
+    from paddle_tpu_torch.ops.collective_ops import shard_dim
+    h = hashlib.sha256()
+    for v in sorted(main.list_vars(), key=lambda v: v.name):
+        t = scope.find_var(v.name) if v.persistable else None
+        if t is None or not hasattr(t, "detach") or \
+                shard_dim(dp, v) is not None:
+            continue
+        h.update(v.name.encode())
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def global_params(dp, scope, main):
+    """Every parameter's global value (a sharded one's blocks gathered
+    over ``dp``; a collective, so every rank calls it), on the device, in
+    tensors of their own (the steps after update the scope's in place)."""
+    from paddle_tpu_torch.ops.collective_ops import whole_of
+    return {p.name: whole_of(dp, p, scope.find_var(p.name)).clone()
+            for p in sorted(main.all_parameters(), key=lambda p: p.name)}
+
+
+def params_gap(torch, got, ref):
+    """max|Δ| over every parameter, of max|p| of the reference."""
+    err = max(float((got[n] - ref[n]).abs().max()) for n in ref)
+    top = max(float(ref[n].abs().max()) for n in ref)
+    return err / top
+
+
+def largest_scatter(main):
+    """The output of the ZeRO-1 scatter (``zero_reduce_scatter`` or
+    ``quant_reduce_scatter``) of the largest gradient: the word
+    embedding's, this rank's flat shard of the sum."""
+    block = main.global_block()
+    ops = [op for op in block.ops
+           if op.type in ("zero_reduce_scatter", "quant_reduce_scatter")]
+    op = max(ops, key=lambda op: math.prod(
+        block._find_var_recursive(op.inputs["X"][0]).shape))
+    return op.outputs["Out"][0]
+
+
+def zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref):
+    """One leg of phase 15 on this rank: the startup (its global
+    parameters' digest), ZERO_STEPS prepared steps counted from zero,
+    (b)'s checkpoint after step ZERO_SAVE_AT, the held bytes against the
+    layout, the digests, (a)'s parameters kept as ``ref`` or the leg's
+    held against them ((b)'s first scattered word-embedding gradient
+    likewise for (c), (d)), then one step with the gloo transfers
+    timed."""
+    from paddle_tpu_torch import fluid, io
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    dev = torch.device("cuda", fleet.place.device_id)
+    program, main, startup, total = build_zero_train(cfg, leg)
+    dp = program._dp
+    check(dp is not None and dp.world == DP_RANKS,
+          f"({leg}): the program does not run over {DP_RANKS} ranks")
+    ops = [op.type for op in main.global_block().ops]
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    exe.run(startup, scope=scope)
+    out = {"leg": leg, "ops": {t: ops.count(t) for t in (
+        "zero_reduce_scatter", "quant_reduce_scatter", "zero_shard_slice",
+        "zero_all_gather", "fsdp_all_gather", "c_fused_allreduce_sum",
+        "adamw")},
+        "startup_params_sha256": params_digest(np, scope, main)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    scatter = largest_scatter(main) if leg in "bcd" else None
+    prepared = exe.prepare(program, fetch_list=[total] + (
+        [scatter] if scatter else []), scope=scope, donate_state=True)
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    losses, step_s = [], []
+    for i in range(ZERO_STEPS):
+        t0 = time.perf_counter()
+        got = prepared.run(feed)
+        losses.append(float(got[0]))
+        step_s.append(time.perf_counter() - t0)
+        if scatter and i == 0:
+            shard = got[1].value.detach().clone()
+            if leg == "b":
+                ref["scatter"] = shard
+            else:
+                out["scatter_gap_vs_b"] = float(
+                    (shard - ref["scatter"]).norm() / ref["scatter"].norm())
+            del shard
+        if leg == "b" and i + 1 == ZERO_SAVE_AT:
+            t0 = time.perf_counter()
+            io.save_checkpoint(exe, ckpt_dir, io.TrainStatus(ZERO_SAVE_AT),
+                               main, scope=scope)
+            out["save_s"] = time.perf_counter() - t0
+            out["saved_sha256"] = state_digests(np, scope, main)
+    out["launches"] = {f"{k}/{dt}": n for (k, dt), n in
+                       kernels.launch_counts_by_dtype().items()}
+    out["fallbacks"] = {str(k): v for k, v in
+                        registry.route_counts("fallback").items()}
+    out["routes"] = {str(k): v for k, v in registry.route_counts().items()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    fluid.sync_prepared_state(scope)
+    out["held"], out["predicted"], out["moment_bytes"], \
+        out["param_bytes"] = held_bytes(torch, dp, scope, main)
+    out["losses"], out["step_s"] = losses, step_s
+    out["step_ms_median_3_6"] = statistics.median(step_s[2:]) * 1e3
+    out["replicated_sha256"] = replicated_digest(np, dp, scope, main)
+    params = global_params(dp, scope, main)
+    if leg == "a":
+        ref["params"], ref["losses"] = params, losses
+    else:
+        out["param_gap_vs_a"] = params_gap(torch, params, ref["params"])
+        out["loss_gap_vs_a"] = max(abs(a - b) / abs(b) for a, b in
+                                   zip(losses, ref["losses"]))
+        del params
+    totals, undo = timed_collectives(torch)
+    try:
+        t0 = time.perf_counter()
+        prepared.run(feed)[0].numpy()
+        out["collectives_step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    out["collectives_ms"] = totals["ms"]
+    out["collective_calls"] = totals["calls"]
+    del prepared, scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_restore(torch, np, cfg, feed, ckpt_dir, out_dir):
+    """(f) on a fresh pair of ranks: (b)'s program, no startup,
+    ``load_checkpoint`` of the checkpoint (b) saved after step
+    ZERO_SAVE_AT, the restored blocks' digests, then one step."""
+    from paddle_tpu_torch import fluid, io
+    from paddle_tpu_torch.distributed import fleet
+    program, main, _, total = build_zero_train(cfg, "b")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    t0 = time.perf_counter()
+    st = io.load_checkpoint(exe, ckpt_dir, main_program=main, scope=scope)
+    out = {"load_s": time.perf_counter() - t0, "epoch": st.epoch_no,
+           "restored_sha256": state_digests(np, scope, main)}
+    prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    out["loss_after"] = float(prepared.run(feed)[0])
+    return out
+
+
+def zero_worker(out_dir, legs):
+    """One rank of phase 15 (``--zero-worker DIR LEGS``): the legs named
+    by LEGS ("abcde", or "f" on a fresh pair) in turn; writes
+    ``zero<r>_<legs>.json``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
+    from paddle_tpu_torch.models import bert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
+    cfg = bert.BertConfig.base()
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    res = {"rank": rank, "place": repr(fleet.place)}
+    if legs == "f":
+        res["f"] = zero_restore(torch, np, cfg, feed, ckpt_dir, out_dir)
+    else:
+        ref = {}
+        for leg in legs:
+            res[leg] = zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref)
+            log(f"[rank {rank}] ({leg}) losses "
+                f"{[round(x, 5) for x in res[leg]['losses']]}, step ms "
+                f"{res[leg]['step_ms_median_3_6']:.1f}, held "
+                f"{res[leg]['held']} B (predicted "
+                f"{res[leg]['predicted']})")
+    with open(os.path.join(out_dir, f"zero{rank}_{legs}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def zero_launch(torch, repo, out_dir, legs):
+    """Two ranks of this script on the card over gloo (phase 10's
+    launcher); returns their JSON results."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc", str(DP_RANKS), "--selected_gpus", "0,0",
+           "--backend", "gloo", "--timeout", str(DP_TIMEOUT_S),
+           os.path.join(repo, "chip_smoke.py"), "--zero-worker", out_dir,
+           legs]
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=repo, timeout=DP_TIMEOUT_S + 60).returncode
+    log(f"  legs {legs}: the ranks ran {time.perf_counter() - t0:.1f} s, "
+        f"exit code {rc}")
+    check(rc == 0, f"phase 15 legs {legs}: a rank failed (exit code {rc})")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"zero{r}_{legs}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def zero_expected(leg):
+    """Launches a step by (kernel, operand dtype): phase 8's float32
+    kernels and one Adam launch for the 158 adamw updates (flat shards in
+    (b)-(d), dim-0 shards and replicated parameters in (e)); in (c) and
+    (d) #11 once a parameter (the quantized scatter's receive stage on an
+    int8 carrier), #12 never."""
+    want = {f"{k}/float32": n for k, n in FUSED_LAUNCHES.items()}
+    if leg in ZERO_QUANT:
+        want["dequant_accumulate/int8"] = ADAM_OPS
+    return want
+
+
+def zero_adam_row(torch, results, cfg):
+    """#10 at leg (b)'s shapes: the 158 flat shards of one rank
+    (ceil(numel / (2 * 128)) * 128 elements each), adamw, one launch
+    against the twin bit for bit, timed beside ``torch._fused_adamw_``
+    over the same tensors."""
+    from paddle_tpu_torch.ops.cuda import optimizer as O
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    randn = randn_on(torch, gen, dev)
+    shards = [-(-math.prod(sh) // (DP_RANKS * 128)) * 128
+              for sh in bert_base_param_shapes(cfg)]
+    run = [O.AdamTensor(
+        randn(n), randn(n), randn(n, scale=0.1), randn(n, scale=0.01).abs(),
+        torch.tensor([PEAK_LR], device=dev),
+        torch.tensor([0.9 ** 3], device=dev),
+        torch.tensor([0.999 ** 3], device=dev), 0.9, 0.999, 1e-8,
+        WEIGHT_DECAY) for n in shards]
+    twin = [O.AdamTensor(*[t.clone() if torch.is_tensor(t) else t
+                           for t in e]) for e in run]
+    O.adam_multi(run)
+    O.adam_multi_plain(twin)
+    differ = sum(int((a[i] != b[i]).sum()) for a, b in zip(run, twin)
+                 for i in (0, 2, 3))
+    log(f"  #10 on the {len(shards)} flat shards of a rank: elements of p, "
+        f"m, v that differ from the twin {differ} (must be 0)")
+    check(differ == 0, "#10 on ZeRO-1 shards is not bit for bit its twin")
+    total = sum(shards)
+    args = [[e[i] for e in run] for i in range(4)]
+    steps = [torch.tensor([1.0], device=dev) for _ in run]
+
+    def lib():
+        torch._fused_adamw_(*args, [], steps, lr=PEAK_LR, beta1=0.9,
+                            beta2=0.999, weight_decay=WEIGHT_DECAY, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    # CUDA events behind a 20 M-cycle GPU sleep (the run's 158-row table
+    # takes the host ~2 ms to build); the profiler's device time beside
+    # them, where it sees the kernels (it saw none for this run late in
+    # the whole script)
+    def events_ms(fn):
+        return time_ms(torch, fn, samples=9, head_start=20_000_000)
+
+    recorder(results)(
+        "adam_zero1", [f"{len(shards)} flat shards of one rank of 2, adamw",
+                       total], "float32", 0.0,
+        events_ms(lambda: O.adam_multi(run)),
+        time_ms(torch, lambda: O.adam_multi_plain(twin), samples=9),
+        events_ms(lib), 28 * total, 12 * total,
+        ms_from="CUDA events behind a 20 M-cycle GPU sleep",
+        device_ms=sum(kernel_split_ms(
+            torch, lambda: O.adam_multi(run)).values()) or None,
+        library_device_ms=sum(kernel_split_ms(torch, lib).values()) or None,
+        library_is="torch._fused_adamw_, one call", elements_differ=differ)
+
+
+def zero_phase(torch, np, repo, cfg, results):
+    """Phase 15 (see the module docstring): #10's shard row, legs (a)-(e)
+    on two ranks, (f) on a fresh pair; returns the launches of rank 0 by
+    leg and the report."""
+    from paddle_tpu_torch.ops.cuda import build
+    zero_adam_row(torch, results, cfg)
+    out_dir = os.path.join(build.BUILD_DIR, "smoke_zero")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ranks = zero_launch(torch, repo, out_dir, "".join(ZERO_LEGS))
+    restored = zero_launch(torch, repo, out_dir, "f")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    report = {}
+    for leg in ZERO_LEGS:
+        rs = [r[leg] for r in ranks]
+        what = f"({leg}) {ZERO_LEG_NAMES[leg]}"
+        for r, m in enumerate(rs):
+            who = f"{what} rank {r}"
+            check(all(math.isfinite(x) for x in m["losses"]) and
+                  m["losses"][-1] < m["losses"][0],
+                  f"{who}: losses not finite and falling: {m['losses']}")
+            check(not m["fallbacks"], f"{who}: fallbacks {m['fallbacks']}")
+            want = zero_expected(leg)
+            got = m["launches"]
+            for key in set(want) | set(got):
+                check(got.get(key, 0) == want.get(key, 0) * ZERO_STEPS,
+                      f"{who}: {key} launched {got.get(key, 0)} times in "
+                      f"{ZERO_STEPS} steps, expected {want.get(key, 0)} a "
+                      f"step")
+            check(m["held"] == m["predicted"],
+                  f"{who}: the scope holds {m['held']} bytes of "
+                  f"persistables, the layout predicts {m['predicted']}")
+        for key in ("startup_params_sha256", "replicated_sha256"):
+            check(rs[0][key] == rs[1][key],
+                  f"{what}: {key} differs across the ranks")
+        check(rs[0]["losses"] == rs[1]["losses"],
+              f"{what}: the ranks fetched other losses")
+        if leg != "a":
+            tier = ZERO_QUANT.get(leg)
+            bounds = {"loss_gap_vs_a": ZERO_QUANT_LOSS.get(tier,
+                                                           TOL_ZERO_LOSS),
+                      "param_gap_vs_a": ZERO_QUANT_PARAM.get(tier,
+                                                             TOL_ZERO_PARAM)}
+            if tier:
+                bounds["scatter_gap_vs_b"] = ZERO_QUANT_SCATTER[tier]
+            log(f"  {what}: " + "; ".join(
+                f"{key} {max(m[key] for m in rs):.3e} (tolerance {bound})"
+                for key, bound in bounds.items()))
+            for key, bound in bounds.items():
+                for r, m in enumerate(rs):
+                    check(m[key] <= bound,
+                          f"{what} rank {r}: {key} {m[key]:.3e} over "
+                          f"{bound}")
+        a = ranks[0]["a"]
+        m = rs[0]
+        log(f"  {what}: step {m['step_ms_median_3_6']:.2f} ms (median of "
+            f"steps 3-{ZERO_STEPS}), gloo {m['collectives_ms']:.2f} ms in "
+            f"{m['collective_calls']} calls of a "
+            f"{m['collectives_step_ms']:.2f} ms step (gloo staged through "
+            f"the host, two ranks on one card: no measure of NVLink); "
+            f"persistent {m['held'] / 1e9:.4f} GB a rank (moments "
+            f"{m['moment_bytes'] / 1e9:.4f} GB, parameters "
+            f"{m['param_bytes'] / 1e9:.4f} GB; (a) "
+            f"{a['held'] / 1e9:.4f} GB), peak allocated "
+            f"{m['peak_bytes'] / 1e9:.3f} GB")
+        report[leg] = {k: m[k] for k in (
+            "losses", "step_ms_median_3_6", "collectives_ms",
+            "collective_calls", "collectives_step_ms", "held",
+            "moment_bytes", "param_bytes", "peak_bytes", "ops")}
+        report[leg].update({k: m[k] for k in (
+            "loss_gap_vs_a", "param_gap_vs_a", "scatter_gap_vs_b",
+            "save_s") if k in m})
+    b, e = ranks[0]["b"], ranks[0]["e"]
+    a = ranks[0]["a"]
+    check(b["moment_bytes"] * 2 <= a["moment_bytes"] + 2 * 128 * 4 *
+          ADAM_OPS * 2, "(b): the moments a rank holds are not half")
+    check(e["param_bytes"] < a["param_bytes"],
+          "(e): the parameters a rank holds are not sharded")
+    saved = [r["b"]["saved_sha256"] for r in ranks]
+    for r, f in enumerate(restored):
+        got = f["f"]["restored_sha256"]
+        differ = sorted(n for n in saved[r] if got.get(n) != saved[r][n])
+        log(f"  (f) rank {r}: load_checkpoint {f['f']['load_s']:.2f} s, "
+            f"{len(saved[r])} persistables, restored blocks that differ "
+            f"from the saved ones {len(differ)} (must be 0); a step after "
+            f"it: loss {f['f']['loss_after']:.5f}")
+        check(not differ, f"(f) rank {r}: restored blocks differ: "
+                          f"{differ[:5]}")
+        check(f["f"]["epoch"] == ZERO_SAVE_AT and
+              math.isfinite(f["f"]["loss_after"]),
+              f"(f) rank {r}: epoch {f['f']['epoch']}, loss "
+              f"{f['f']['loss_after']}")
+    report["f"] = {"save_s": ranks[0]["b"]["save_s"],
+                   "load_s": restored[0]["f"]["load_s"],
+                   "loss_after": restored[0]["f"]["loss_after"]}
+    launches = {f"zero_{leg}": {k.split("/")[0]: v for k, v in
+                                ranks[0][leg]["launches"].items()}
+                for leg in ZERO_LEGS}
+    return launches, report
+
+
 # ---------------------------------------------------------------------------
 # phase 11: paged-KV decode serving at BERT-base width
 # ---------------------------------------------------------------------------
@@ -4259,6 +4787,9 @@ KERNEL_PATHS = {
 #: phase 14's paths: (a)'s recompute run, (b)'s recompute + gradient
 #: merge, (d)'s DGC and (e)'s LocalSGD rank 0
 WRAPPED_PATHS = ("recompute", "gradient_merge", "dgc", "localsgd")
+#: phase 15's paths, rank 0 of each leg: (a) dp2 fp32, (b)-(d) ZeRO-1 in
+#: fp32, int8 and int4, (e) ZeRO-3
+ZERO_PATHS = tuple(f"zero_{leg}" for leg in ZERO_LEGS)
 
 
 def kernels_line(per_kernel, launches_by_path):
@@ -4290,9 +4821,12 @@ def kernels_line(per_kernel, launches_by_path):
     phase 13's LAMB run A (``lamb_launches``) add their launches, and so
     do phase 14's recompute (``recompute_launches``), recompute + gradient
     merge (``gradient_merge_launches``), DGC (``dgc_launches``) and
-    LocalSGD (``localsgd_launches``, rank 0) runs; Adam
+    LocalSGD (``localsgd_launches``, rank 0) runs, and phase 15's legs
+    (``zero_a_launches`` ... ``zero_e_launches``, rank 0); Adam
     carries its 16-bit rows (``16_bit``: bf16 and fp16 parameters beside
-    float32 or 16-bit moments)."""
+    float32 or 16-bit moments) and its row on ZeRO-1's flat shards
+    (``zero1_shards``), #11 its rows at the ZeRO-1 scatter's largest
+    shard (``zero_scatter``, int8 and int4)."""
     from paddle_tpu_torch.ops.op_specs import kernel_facts
     facts = kernel_facts()
     out = []
@@ -4323,7 +4857,7 @@ def kernels_line(per_kernel, launches_by_path):
                           "amp_pure_bf16", "lamb") + WRAPPED_PATHS}
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
                       "decode", "amp", "amp_fused", "amp_fp16",
-                      "amp_pure_bf16", "lamb") + WRAPPED_PATHS:
+                      "amp_pure_bf16", "lamb") + WRAPPED_PATHS + ZERO_PATHS:
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name == "adam":
@@ -4332,6 +4866,21 @@ def kernels_line(per_kernel, launches_by_path):
                 "shape", "dtype", "moments", "ms", "plain_ms", "library_ms",
                 "library_is", "bound_ms", "bound_by", "max_abs_err")}
                 for r in per_kernel["adam"] if r["dtype"] != "float32"]
+        if name == "adam":
+            # ZeRO-1's update (phase 15): leg (b)'s 158 flat shards
+            entry["zero1_shards"] = per_kernel["adam_zero1"][0]
+        if name == "dequant_accumulate":
+            # ZeRO-1's quantized scatter (phase 15, legs (c) and (d)): its
+            # largest receive stage, the word embedding's shard at n = 2,
+            # as phase 9 held and timed it
+            entry["zero_scatter"] = [
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err",
+                                   "device_ms")}
+                for r in per_kernel[name]
+                if r["shape"][:3] == [2, 45783, ZERO_BLOCK]]
+            check(len(entry["zero_scatter"]) == 2,
+                  "#11: no int8 and int4 rows at the scatter's shape")
         if name in per_kernel.get("quant_step", {}):
             entry["step_13_launches"] = per_kernel["quant_step"][name]
         if name.startswith("flash_attention"):
@@ -4397,10 +4946,11 @@ def main(argv=None) -> int:
               "paddle_tpu_torch package beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
-    workers = {"--dp-worker": dp_worker, "--localsgd-worker": localsgd_worker}
+    workers = {"--dp-worker": dp_worker, "--localsgd-worker": localsgd_worker,
+               "--zero-worker": zero_worker}
     if argv[:1] and argv[0] in workers:
         try:
-            return workers[argv[0]](argv[1])
+            return workers[argv[0]](*argv[1:])
         except SmokeFailure as e:
             print(f"chip_smoke: rank FAILED: {e}", file=sys.stderr)
             return 1
@@ -4490,6 +5040,12 @@ def main(argv=None) -> int:
             "(EMA, ModelAverage, Lookahead, DGC, LocalSGD) through fleet on "
             "phase 8's program and recipe")
         wrapped, wrappers_report = wrappers_phase(torch, np, base, repo)
+
+        log(f"phase 15: ZeRO-1 and ZeRO-3 at BERT-base width on "
+            f"{DP_RANKS} ranks of the card over gloo (phase 8's program, "
+            f"the recipe without its norm clip), {ZERO_STEPS} steps a leg")
+        zero_launches, zero_report = zero_phase(torch, np, repo, base,
+                                                per_kernel)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4497,7 +5053,7 @@ def main(argv=None) -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    log(f"phase 15: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 16: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
@@ -4507,13 +5063,15 @@ def main(argv=None) -> int:
     log("amp " + json.dumps(amp_report))
     log("lamb " + json.dumps(lamb_report))
     log("wrappers " + json.dumps(wrappers_report))
+    log("zero " + json.dumps(zero_report))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
         "fused_train": fused, "dp_int8": dp_ranks[0]["int8"]["launches"],
         "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded,
         "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16,
-        "amp_pure_bf16": amp_pure, "lamb": lamb, **wrapped})))
+        "amp_pure_bf16": amp_pure, "lamb": lamb, **wrapped,
+        **zero_launches})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,14 +17,19 @@ rank runs, on ``fleet.place``.
 The plain data-parallel path is ported: bucketed or per-leaf gradient
 sync, the bf16 cast tier and the int8/int4 blockwise-quantized tiers,
 and the meta-optimizers, composed in the JAX package's order: ``use_dgc``
-(DGC momentum in place of Momentum), ``lamb``, ``amp`` (the inner
-optimizer wrapped by ``contrib.mixed_precision.decorate`` from
-``amp_configs``), ``recompute`` (the backward's checkpoints),
-``gradient_merge`` and ``localsgd`` (no gradient sync; the parameters
-averaged every ``k_steps``).  A strategy flag whose path is not ported
-(sharding / sharded_update, tensor_parallel, pipeline, auto_shard,
-overlap_grad_sync, hierarchical all-reduce, more than one NCCL
-communicator, an explicit mesh) raises :class:`UnimplementedError`
+(DGC momentum in place of Momentum), ``lamb``, ``sharding`` /
+``sharded_update`` (ZeRO-1: ``ShardedUpdateOptimizer`` over the ``dp``
+axis of the process group, its scatter at the strategy's wire tier —
+``bf16_allreduce``'s cast or ``quant_configs``' int8/int4 — and no
+gradient all-reduce inserted), ``amp`` (the inner optimizer wrapped by
+``contrib.mixed_precision.decorate`` from ``amp_configs``),
+``recompute`` (the backward's checkpoints), ``gradient_merge`` and
+``localsgd`` (no gradient sync; the parameters averaged every
+``k_steps``).  ZeRO-3 is ``framework.fsdp.apply_fsdp_sharding`` +
+``CompiledProgram.with_mesh``, outside fleet, as in the JAX package.  A
+strategy flag whose path is not ported (tensor_parallel, pipeline,
+auto_shard, overlap_grad_sync, hierarchical all-reduce, more than one
+NCCL communicator, an explicit mesh) raises :class:`UnimplementedError`
 naming it; none is ignored."""
 
 from __future__ import annotations
@@ -191,7 +196,8 @@ class UserDefinedRoleMaker(RoleMakerBase):
 class DistributedStrategy:
     """Every field of the JAX package's strategy.  Ported paths:
     ``fuse_all_reduce_ops`` / ``fuse_grad_size_in_MB`` (bucketing),
-    ``bf16_allreduce``, ``quant_allreduce`` / ``quant_configs``, ``amp``
+    ``bf16_allreduce``, ``quant_allreduce`` / ``quant_configs``,
+    ``sharding`` / ``sharded_update`` (ZeRO-1), ``amp``
     / ``amp_configs``, ``lamb`` / ``lamb_configs``, ``recompute`` /
     ``recompute_configs``, ``gradient_merge`` /
     ``gradient_merge_configs``, ``localsgd`` / ``localsgd_configs``,
@@ -247,8 +253,6 @@ class DistributedStrategy:
 
 #: strategy flags whose paths are not ported, with what each needs
 _UNPORTED = (
-    ("sharding", "the ZeRO-1 sharded update"),
-    ("sharded_update", "the ZeRO-1 sharded update"),
     ("tensor_parallel", "tensor parallelism"),
     ("pipeline", "pipeline parallelism"),
     ("auto_shard", "the auto-shard planner"),
@@ -269,9 +273,10 @@ def _refuse_unported(s):
             f"communicator per process group is what is ported")
     if getattr(s, "mesh", None) is not None:
         raise UnimplementedError(
-            "DistributedStrategy.mesh: meshes (ZeRO, tensor and pipeline "
-            "parallelism) are not ported yet; data parallelism is one "
-            "process per rank")
+            "DistributedStrategy.mesh: an explicit mesh is not ported yet; "
+            "data parallelism (and ZeRO-1) is one process per rank over "
+            "the process group, ZeRO-3 is apply_fsdp_sharding + "
+            "CompiledProgram.with_mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +382,11 @@ fleet = _Fleet()
 # ---------------------------------------------------------------------------
 # CollectiveOptimizer (ref: collective/__init__.py:393)
 # ---------------------------------------------------------------------------
+
+
+def _sharded(s) -> bool:
+    return bool(getattr(s, "sharded_update", False) or
+                getattr(s, "sharding", False))
 
 
 class CollectiveOptimizer:
@@ -515,8 +525,12 @@ class CollectiveOptimizer:
         ``use_dgc`` swaps a raw ``MomentumOptimizer`` for a
         ``DGCMomentumOptimizer`` of its settings (any other optimizer
         stays, as there); ``lamb`` replaces it by a ``LambOptimizer`` of
-        its learning rate and ``lamb_configs["lamb_weight_decay"]``; then
-        ``decorate`` for ``amp``, ``RecomputeOptimizer`` with
+        its learning rate and ``lamb_configs["lamb_weight_decay"]``;
+        ``sharding`` / ``sharded_update`` with more than one worker wraps it
+        in a ``ShardedUpdateOptimizer`` over the ``dp`` axis (the bf16 cast
+        for ``bf16_allreduce``, the strategy's int8/int4 spec for
+        ``quant_allreduce``); then ``decorate`` for ``amp``,
+        ``RecomputeOptimizer`` with
         ``recompute_configs["checkpoints"]``, ``GradientMergeOptimizer``
         and ``LocalSGDOptimizer``."""
         from .. import optimizer as opt_mod
@@ -538,6 +552,12 @@ class CollectiveOptimizer:
                 learning_rate=optimizer._learning_rate,
                 lamb_weight_decay=s.lamb_configs.get("lamb_weight_decay",
                                                      0.01))
+        if _sharded(s) and fleet.worker_num() > 1:
+            optimizer = opt_mod.ShardedUpdateOptimizer(
+                optimizer, nranks=fleet.worker_num(), axis_name="dp",
+                compress_dtype="bfloat16" if getattr(s, "bf16_allreduce",
+                                                     False) else None,
+                quant_spec=self._quant_spec())
         if s.amp:
             from ..contrib.mixed_precision import decorate
             optimizer = decorate(
@@ -570,7 +590,8 @@ class CollectiveOptimizer:
         ``check_finite_and_unscale``, so every rank sees the same
         overflow verdict.  Under ``localsgd`` no gradient sync is
         inserted: the ranks average their parameters every ``k_steps``
-        instead (``local_sgd_sync``)."""
+        instead (``local_sgd_sync``); under ``sharding`` neither: the
+        sharded update scatters the gradients itself."""
         fleet._ensure_init()
         s = self._strategy
         fleet._strategy = s
@@ -584,7 +605,8 @@ class CollectiveOptimizer:
             from ..framework.compiler import CompiledProgram
             fleet._compiled_program = CompiledProgram(
                 program).with_data_parallel(
-                loss_name=None if s.localsgd else loss.name,
+                loss_name=None if (s.localsgd or _sharded(s))
+                else loss.name,
                 build_strategy=self._build_strategy())
         else:
             fleet._compiled_program = None

@@ -19,13 +19,18 @@ fused away.  The passes run on a clone of the program per fetch list
 (:meth:`CompiledProgram._variant_for`, an LRU of 8 clones), and the
 executor runs the clone against the same scope.
 
-Several places in one process, ``mesh=`` and ``with_mesh`` raise: one
-process drives one device, and meshes (ZeRO, tensor parallelism) come
-with a later slice.  ``overlap_grad_sync`` is refused by name (it needs
-backward hooks in the executor).  The JAX package's static checks of a
-variant (``verify_programs``, ``hbm_budget_gb``, ``aot_cache_dir``)
-belong to modules the port does not have yet, and it has none of those
-flags."""
+``with_mesh`` takes the port's mesh (``MeshLayout.build_mesh()``: the
+named axes over the process group) with one axis above size 1 — ``dp``,
+or ``fsdp`` for ZeRO-3 after ``framework.fsdp.apply_fsdp_sharding`` —
+slices the feeds over the batch axes and inserts the gradient sync over
+the reduce axes (a parameter stamped over an axis is skipped there: its
+gradient arrives reduce-scattered).  A mesh of several axes (HSDP, tensor,
+pipeline or sequence parallelism) raises, and so do several places in one
+process: one process drives one device.  ``overlap_grad_sync`` is refused
+by name (it needs backward hooks in the executor).  The JAX package's
+static checks of a variant (``verify_programs``, ``hbm_budget_gb``,
+``aot_cache_dir``) belong to modules the port does not have yet, and it
+has none of those flags."""
 
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import numpy as np
 
 from .core import Program, grad_var_name
 from .errors import UnimplementedError
+from .mesh_layout import _flat_axes
 from .passes import apply_pass
 
 _ONE_PROCESS_PER_RANK = (
@@ -43,8 +49,8 @@ _ONE_PROCESS_PER_RANK = (
     "per rank: launch the script with `python -m "
     "paddle_tpu_torch.distributed.launch --nproc N` and train through "
     "`paddle_tpu_torch.distributed.fleet`")
-_MESH_SLICE = ("meshes (ZeRO sharding, tensor and pipeline parallelism) "
-               "are not ported yet")
+_MESH_SLICE = ("a multi-axis mesh (HSDP, tensor, pipeline and sequence "
+               "parallelism) is not ported yet")
 
 
 class BuildStrategy:
@@ -93,24 +99,6 @@ class ExecutionStrategy:
         self.use_experimental_executor = False
 
 
-def _flat_axes(entries):
-    """Flatten axis collections into a flat tuple of axis names (the JAX
-    package's mesh_layout._flat_axes)."""
-    if entries is None:
-        return ()
-    if isinstance(entries, str):
-        return (entries,)
-    out = []
-    for e in entries:
-        if e is None:
-            continue
-        if isinstance(e, str):
-            out.append(e)
-        else:
-            out.extend(_flat_axes(e))
-    return tuple(out)
-
-
 class CompiledProgram:
     #: retained pass-variant clones (one per fetch list)
     _VARIANT_CAP = 8
@@ -130,11 +118,11 @@ class CompiledProgram:
         """Data parallelism over this process's ``torch.distributed``
         group: with more than one rank and a ``loss_name``, the gradient
         sync is inserted for ``nranks`` = the world size.  More than one
-        place, or a mesh, raises."""
+        place, or a mesh (``with_mesh`` takes the port's), raises."""
         if mesh is not None:
             raise UnimplementedError(
-                f"CompiledProgram.with_data_parallel(mesh=...): "
-                f"{_MESH_SLICE}; {_ONE_PROCESS_PER_RANK}")
+                f"CompiledProgram.with_data_parallel(mesh=...): pass the "
+                f"port's mesh to with_mesh; {_ONE_PROCESS_PER_RANK}")
         if places is not None and len(places) > 1:
             raise UnimplementedError(
                 f"CompiledProgram.with_data_parallel over {len(places)} "
@@ -158,10 +146,78 @@ class CompiledProgram:
             self._pending_passes.append("fuse_elemwise_add_act")
         return self
 
-    def with_mesh(self, mesh, loss_name: Optional[str] = None, **_):
-        raise UnimplementedError(
-            f"CompiledProgram.with_mesh: {_MESH_SLICE}; "
-            f"{_ONE_PROCESS_PER_RANK}")
+    @staticmethod
+    def _one_axis(mesh) -> str:
+        """The one axis of the port's mesh that is above size 1 (its
+        first axis when none is); several raise, and so does any other
+        mesh object (a device mesh of several places in this process)."""
+        from .mesh_layout import ProcessMesh
+        if not isinstance(mesh, ProcessMesh):
+            raise UnimplementedError(
+                f"CompiledProgram.with_mesh: {mesh!r} is not the port's mesh "
+                f"(MeshLayout.build_mesh()); {_ONE_PROCESS_PER_RANK}")
+        sizes = dict(mesh.shape)
+        real = [a for a in mesh.axis_names if sizes.get(a, 1) > 1]
+        if len(real) > 1:
+            raise UnimplementedError(
+                f"CompiledProgram.with_mesh over the axes {sizes}: "
+                f"{_MESH_SLICE}; one axis above size 1 (dp, or fsdp for "
+                f"ZeRO-3) is ported")
+        return real[0] if real else mesh.axis_names[0]
+
+    def with_mesh(self, mesh, loss_name: Optional[str] = None,
+                  batch_axis="dp", seq_axis: Optional[str] = None,
+                  feed_specs=None,
+                  build_strategy: Optional[BuildStrategy] = None):
+        """Compile for the port's mesh (``MeshLayout.build_mesh()``) of
+        one axis above size 1 over the process group — the JAX package's
+        ``with_mesh`` for ``MeshLayout(data=n)`` and (after
+        ``apply_fsdp_sharding``) ``MeshLayout(fsdp=n)``.  Feeds split on
+        dim 0 over ``batch_axis`` (the layout's ``batch_axes``); with a
+        ``loss_name`` the gradient sync is inserted over the reduce axes,
+        skipping each parameter's stamped axes.  ``seq_axis`` (sequence
+        parallelism), a per-feed layout in ``feed_specs`` and a mesh of
+        several axes raise."""
+        if mesh is None:
+            self._dp = None
+            self._loss_name = loss_name
+            return self
+        axis = self._one_axis(mesh)
+        if seq_axis or feed_specs:
+            raise UnimplementedError(
+                f"CompiledProgram.with_mesh(seq_axis={seq_axis!r}, "
+                f"feed_specs={feed_specs!r}): sequence parallelism and "
+                f"per-feed layouts are not ported yet; feeds split on dim 0 "
+                f"over the batch axis")
+        sizes = dict(mesh.shape)
+        from ..ops.collective_ops import DataParallelGroup
+        dp = DataParallelGroup.current(axis)
+        world = dp.world if dp is not None else 1
+        if world != int(np.prod(list(sizes.values()))):
+            raise ValueError(
+                f"CompiledProgram.with_mesh: the mesh {sizes} needs "
+                f"{int(np.prod(list(sizes.values())))} ranks, the process "
+                f"group has {world}")
+        batch_axes = tuple(a for a in _flat_axes(batch_axis)
+                           if a in mesh.axis_names)
+        reduce_axes = tuple(a for a in batch_axes if sizes.get(a, 1) > 1)
+        strategy = build_strategy or BuildStrategy()
+        if strategy.overlap_grad_sync:
+            raise UnimplementedError(
+                "BuildStrategy.overlap_grad_sync: firing gradient buckets "
+                "inside the backward sweep needs backward hooks in the "
+                "executor, which are not ported yet")
+        if loss_name is not None and reduce_axes:
+            n = int(np.prod([sizes[a] for a in reduce_axes]))
+            insert_grad_sync(self._program, strategy, n, reduce_axes,
+                             axis_sizes=sizes)
+        if dp is not None:
+            dp.batch_sharded = axis in reduce_axes
+        self._dp = dp
+        self._loss_name = loss_name
+        if strategy.fuse_elewise_add_act_ops:
+            self._pending_passes.append("fuse_elemwise_add_act")
+        return self
 
     def _variant_for(self, fetch_names) -> Program:
         """The pass-rewritten clone of the program for this fetch list

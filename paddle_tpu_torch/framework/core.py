@@ -94,9 +94,20 @@ class Variable:
         self.trainable = trainable
         self.is_data = is_data
         self.initializer = initializer
-        # distributed layout annotation (a tuple over mesh axis names);
-        # None means replicated — carried through the desc unchanged
-        self.dist_attr = None
+        self._dist_attr = None
+
+    @property
+    def dist_attr(self):
+        """Distributed layout of this var: a
+        :class:`~.mesh_layout.ShardSpec` (a PartitionSpec over named mesh
+        axes), or None for replicated.  The setter coerces the bare-tuple
+        spelling (``w.dist_attr = (None, "tp")``)."""
+        return self._dist_attr
+
+    @dist_attr.setter
+    def dist_attr(self, value):
+        from .mesh_layout import ShardSpec
+        self._dist_attr = ShardSpec.coerce(value)
 
     # -- python sugar mirroring the reference's Variable operators --------
     def _elementwise(self, other, op):
@@ -340,8 +351,9 @@ class Program:
         self._version = 0          # bumped on mutation
         self._uid = next(Program._uid_counter)
         self._is_test = False
-        # a mesh layout read from a JAX-package desc, kept to write back
-        self._mesh_layout_desc = None
+        # the program's canonical MeshLayout (serialized as the desc's
+        # ``mesh_layout``), or None
+        self._mesh_layout = None
 
     # -- structure -------------------------------------------------------
     def global_block(self) -> Block:
@@ -386,7 +398,7 @@ class Program:
         p._version = 0
         p._uid = next(Program._uid_counter)
         p._is_test = for_test or self._is_test
-        p._mesh_layout_desc = copy.deepcopy(self._mesh_layout_desc)
+        p._mesh_layout = self._mesh_layout
         for b in self.blocks:
             p.blocks.append(Block(p, b.idx, b.parent_idx))
         for b, nb in zip(self.blocks, p.blocks):

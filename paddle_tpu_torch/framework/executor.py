@@ -28,7 +28,13 @@ each rank keeps its ``1/world`` rows of every fed batch, the collectives
 reduce over the group, and fetches are merged across ranks (a float
 scalar averaged, an integer scalar summed, a batch-sharded tensor
 all-gathered; persistables and whatever the ``backward`` op or the ops
-after it write pass through).
+after it write pass through).  A persistable whose ``dist_attr`` names the
+group's axis (ZeRO's optimizer-state shards, ZeRO-3's parameters) is held
+as the rank's block: the startup program builds the global value on every
+rank, and the first run that reads it keeps the rank's block, in its
+state and in the scope (``collective_ops.block_of``); a fetch of it
+returns the global value.  :func:`_resident` is the one place the
+executor applies that rule.
 
 A program with a ``decode_chain`` marker (serving/decode.py) runs its
 body ``chain_length`` times on the device through
@@ -66,7 +72,7 @@ from .compiler import CompiledProgram
 from .core import (CUDAPlace, Place, Program, Variable, default_main_program,
                    device_for, grad_var_name)
 from .errors import EnforceNotMet, UnimplementedError
-from ..ops.collective_ops import merge_fetch, slice_feed
+from ..ops.collective_ops import block_of, merge_fetch, slice_feed
 from ..ops.registry import LoweringContext, get_group, get_op
 
 _RNG_VAR = "@RNG_STATE@"
@@ -536,6 +542,23 @@ def _is_persistable(program: Program, name: str) -> bool:
     return v is not None and v.persistable
 
 
+def _var(program: Program, name: str):
+    return program.global_block()._find_var_recursive(name)
+
+
+def _resident(scope: Scope, program: Program, dp, name: str,
+              device: torch.device):
+    """The scope's value of ``name`` on ``device``, as this rank holds it:
+    a sharded persistable's global value is cut to the rank's block, and
+    the block replaces the global value in the scope (the same value, held
+    sharded: not a write, so no prepared step re-pulls for it)."""
+    v = to_device(scope.find_var(name), device)
+    held = block_of(dp, _var(program, name), v)
+    if held is not v:
+        scope.vars[name] = held
+    return held
+
+
 class FetchHandle:
     """Lazy fetch result: holds the tensor a prepared step produced and
     synchronises only on the first host read (``numpy()``/``__array__``).
@@ -646,7 +669,8 @@ class PreparedStep:
                 raise RuntimeError(
                     f"persistable var {n!r} not initialised in scope — run "
                     f"the startup program (or load the model) first")
-            state[n] = to_device(v, device)
+            state[n] = _resident(self._scope, self._program, self._dp, n,
+                                 device)
         self._state = state
         self._scope_version = self._scope._version
 
@@ -705,7 +729,8 @@ class PreparedStep:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
         handles = [FetchHandle(merge_fetch(self._dp, env[n],
-                                           n in self._replicated), n,
+                                           n in self._replicated,
+                                           _var(self._program, n)), n,
                                self.stats, event)
                    for n in self._fetch_names]
         if return_numpy:
@@ -744,12 +769,11 @@ class Executor:
             if n in feed:
                 env[n] = to_device(slice_feed(dp, n, feed[n]), self.device)
                 continue
-            v = scope.find_var(n)
-            if v is None:
+            if scope.find_var(n) is None:
                 raise RuntimeError(
                     f"var {n!r} is neither fed nor initialised in scope — "
                     f"feed it, or run the startup program first")
-            env[n] = to_device(v, self.device)
+            env[n] = _resident(scope, program, dp, n, self.device)
         ctx = LoweringContext(_generator(scope, program, self.device, dp),
                               self.device, is_test=program._is_test, dp=dp)
         ops = program.global_block().ops
@@ -757,12 +781,12 @@ class Executor:
         for op in ops:
             for n in op.output_names():
                 if _is_persistable(program, n) and n in env:
-                    scope.set_var(n, env[n])
+                    scope.set_var(n, block_of(dp, _var(program, n), env[n]))
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} were not computed")
         replicated = _replicated_names(program, ops) if dp else ()
-        outs = [merge_fetch(dp, env[n], n in replicated)
+        outs = [merge_fetch(dp, env[n], n in replicated, _var(program, n))
                 for n in fetch_names]
         if return_numpy:
             return [o.detach().cpu().numpy() for o in outs]

@@ -5,9 +5,11 @@ A program crosses between the JAX package and this port as its *desc*: a
 JSON-able dict with ``format_version`` 1 holding only primitive data
 (names, shapes, dtypes, attr values; blocks by index, ndarrays base64).
 Both packages emit the same desc for the same program, byte for byte once
-dumped with ``json.dumps``, and each reads the other's.  Fields this port
-does not interpret (a mesh layout, a regularizer) are kept verbatim and
-written back unchanged."""
+dumped with ``json.dumps``, and each reads the other's.  The program's
+``mesh_layout`` is a :class:`~.mesh_layout.MeshLayout` both ways; a
+variable's ``dist_attr`` is a :class:`~.mesh_layout.ShardSpec`.  A
+regularizer this port does not have is kept verbatim and written back
+unchanged."""
 
 from __future__ import annotations
 
@@ -167,11 +169,12 @@ def _dec_var(block: Block, d, program: Program) -> Variable:
 def program_to_desc(program: Program) -> Dict[str, Any]:
     """Program → versioned primitive-only desc dict (the ProgramDesc
     analog)."""
+    layout = program._mesh_layout
     return {
         "format_version": FORMAT_VERSION,
         "random_seed": program.random_seed,
         "is_test": program._is_test,
-        "mesh_layout": program._mesh_layout_desc,
+        "mesh_layout": layout.to_desc() if layout is not None else None,
         "blocks": [{
             "idx": b.idx,
             "parent_idx": b.parent_idx,
@@ -196,7 +199,9 @@ def desc_to_program(desc: Dict[str, Any]) -> Program:
     program = Program()
     program.random_seed = desc.get("random_seed", 0)
     program._is_test = desc.get("is_test", False)
-    program._mesh_layout_desc = desc.get("mesh_layout")
+    if desc.get("mesh_layout") is not None:
+        from .mesh_layout import MeshLayout
+        program._mesh_layout = MeshLayout.from_desc(desc["mesh_layout"])
     # materialise all blocks first so block-index attrs can resolve
     for bd in desc["blocks"][1:]:
         program.blocks.append(Block(program, bd["idx"],

@@ -18,9 +18,18 @@ Each loader reads only its own file, so a resumed port run continues its
 own random stream exactly, and one resumed from a JAX checkpoint keeps
 the program-seeded generator.
 
-Sharded checkpoints, a layout other than one device's, resharding and
-``AsyncCheckpointer`` need ZeRO and meshes, which are not ported: they
-raise ``UnimplementedError``.  The JAX loader's flight-recorder and
+ZeRO state (a program whose persistables carry a ``dist_attr`` over the
+run's process group: ZeRO-1's flat optimizer shards, ZeRO-3's parameters
+and moments) is saved whole: every rank calls the saver, the blocks are
+gathered (``collective_ops.whole_of``), and rank 0 writes the global
+arrays and the v2 manifest with the JAX package's layout records
+(per-var ``ShardSpec``, ZeRO-1 flat-shard metadata from
+:func:`flat_shard_meta`), so either package loads the other's
+checkpoint.  A load keeps each rank's block (``collective_ops.block_of``).
+Per-process shard files (``sharded=True``, ``save_persistables_sharded``),
+``AsyncCheckpointer``, and a checkpoint whose layout differs from the
+run's (another world size, a flat pad that differs: resharding) raise
+``UnimplementedError``.  The JAX loader's flight-recorder and
 ``monitor.stat`` hooks wait for the port's observability layer."""
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from .framework.core import Program, Variable, default_main_program
 from .framework.errors import InvalidArgumentError, UnimplementedError
 from .framework.executor import (Scope, global_scope, _RNG_VAR,
                                  sync_prepared_state)
+from .framework.mesh_layout import MeshLayout, _flat_axes
+from .ops.collective_ops import block_of, sharded_group, whole_of
 
 #: checkpoint format v2: content-hashed manifests (``ckpt_manifest.json``)
 #: detect a corrupt or partial checkpoint; the layout stamp is one device's
@@ -166,24 +177,62 @@ def _persistable_names(program: Program) -> List[str]:
             if v.persistable and v.name != _RNG_VAR]
 
 
+def _group(program):
+    """The process group ``program``'s sharded persistables live over, or
+    None: a program of replicated persistables saves and loads on each
+    rank alone, as without a group (``if rank == 0: save(...)``)."""
+    return sharded_group(program) if program is not None else None
+
+
+def _is_writer(dp) -> bool:
+    return dp is None or dp.rank == 0
+
+
+def _barrier(dp):
+    """Under a sharded program's group, every rank waits for rank 0's
+    files before it returns."""
+    if dp is not None:
+        import torch.distributed as dist
+        dist.barrier(group=dp.group)
+
+
 def save_persistables(executor, dirname,
                       main_program: Optional[Program] = None,
                       filename: Optional[str] = None,
                       scope: Optional[Scope] = None):
     """Save every persistable var of the program to one npz file (the
-    current values: a donated prepared step's state is synced first)."""
+    current values: a donated prepared step's state is synced first).
+    When the program holds sharded persistables every rank calls it (a
+    collective): their blocks are gathered to the global values, and rank
+    0 writes.  Any other program saves from whichever rank calls it."""
     main_program = main_program or default_main_program()
     scope = scope or global_scope()
     sync_prepared_state(scope)
-    os.makedirs(dirname, exist_ok=True)
+    dp = _group(main_program)
+    block = main_program.global_block()
     arrays = {}
     for name in _persistable_names(main_program):
         v = scope.find_var(name)
         if v is not None:
-            arrays[name] = _to_numpy(v)
-    _verified_write("params", os.path.join(dirname,
-                                           filename or "params.npz"),
-                    lambda: _npz_bytes(arrays))
+            arrays[name] = _to_numpy(whole_of(
+                dp, block._find_var_recursive(name), v))
+    if _is_writer(dp):
+        os.makedirs(dirname, exist_ok=True)
+        _verified_write("params", os.path.join(dirname,
+                                               filename or "params.npz"),
+                        lambda: _npz_bytes(arrays))
+    _barrier(dp)
+
+
+def _set_loaded(scope: Scope, program: Optional[Program],
+                tensors: Dict[str, torch.Tensor]):
+    """Loaded global values into ``scope``, each sharded persistable as
+    this rank's block."""
+    dp = _group(program)
+    block = program.global_block() if program is not None else None
+    for name, t in tensors.items():
+        var = block._find_var_recursive(name) if block is not None else None
+        scope.set_var(name, block_of(dp, var, t))
 
 
 def load_persistables(executor, dirname,
@@ -201,8 +250,8 @@ def load_persistables(executor, dirname,
         arrays = {n: data[n] for n in data.files if n in wanted}
     dtypes = {v.name: v.dtype for v in main_program.list_vars()
               if v.name in arrays}
-    for name, t in convert_params(arrays, executor.device, dtypes).items():
-        scope.set_var(name, t)
+    _set_loaded(scope, main_program,
+                convert_params(arrays, executor.device, dtypes))
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
@@ -267,29 +316,115 @@ def load_params(executor, dirname, main_program=None, filename=None,
 # ---------------------------------------------------------------------------
 
 
-def _one_device(sizes) -> bool:
-    return all(int(n) == 1 for n in dict(sizes).values())
+def _world(program) -> int:
+    dp = _group(program)
+    return dp.world if dp is not None else 1
 
 
-def _refuse_layout(what: str, layout):
-    """A layout other than one device's needs meshes and resharding."""
+def _refuse_layout(what: str, layout, world: int = 1):
+    """A layout over another number of devices than the run's ranks needs
+    resharding, which is not ported."""
     if layout is None:
         return
     sizes = getattr(layout, "sizes", None)
     if isinstance(layout, dict):
         sizes = dict((a, n) for a, n in layout.get("axes", []))
-    if sizes is None or not _one_device(sizes):
+    devices = int(np.prod([int(n) for n in dict(sizes or {}).values()])) \
+        if sizes is not None else None
+    if devices != world:
+        whose = "one device's" if world == 1 else f"the run's {world} ranks'"
         raise UnimplementedError(
-            f"{what}: the layout {sizes!r} is not one device's; meshes and "
-            f"resharded checkpoints are not ported yet")
+            f"{what}: the layout {sizes!r} is not {whose}; restoring under "
+            f"another layout needs resharded checkpoints, which are not "
+            f"ported yet")
 
 
-def _manifest_dict() -> Dict[str, Any]:
-    """The JAX package's v2 manifest keys for an unsharded program on one
-    device: no layout stamp, no shard specs, no ZeRO flat metadata."""
-    return {"format_version": CKPT_FORMAT_VERSION, "mesh_layout": None,
-            "shard_specs": {}, "flat_meta": {}, "rng_vars": [_RNG_VAR],
-            "files": {}}
+def _spec_desc(da) -> List:
+    """JSON-able spelling of a dist_attr (tuples -> lists)."""
+    return [list(e) if isinstance(e, (tuple, list)) else e
+            for e in tuple(da)]
+
+
+def flat_shard_meta(program: Program) -> Dict[str, Dict[str, Any]]:
+    """ZeRO-1 flat optimizer-shard alignment metadata from the program IR
+    (the JAX package's ``framework/reshard.flat_shard_meta``):
+    ``{persistable: {"owner", "numel", "align", "axes"}}`` for every
+    persistable living at the flat padded-shard layout (the
+    ``zero_shard_slice`` / ``zero_all_gather`` pattern)."""
+    block = program.global_block()
+    align_of: Dict[str, Tuple[int, Tuple[str, ...]]] = {}
+    owner_of: Dict[str, Tuple[str, int]] = {}
+    for op in block.ops:
+        if op.type == "zero_shard_slice":
+            out = op.outputs.get("Out", [None])[0]
+            axes = _flat_axes(op.attrs.get("_axis_name") or ())
+            if out:
+                align_of[out] = (int(op.attrs.get("align", 1) or 1), axes)
+        elif op.type == "zero_all_gather":
+            psh = op.inputs.get("X", [None])[0]
+            p = op.outputs.get("Out", [None])[0]
+            if psh and p:
+                owner_of[psh] = (p, int(op.attrs.get("numel", 0)))
+    meta: Dict[str, Dict[str, Any]] = {}
+    for psh, (owner, numel) in owner_of.items():
+        pvar = block.vars.get(psh)
+        if pvar is None or not numel:
+            continue
+        align, axes = align_of.get(psh, (1, ()))
+        if not axes:
+            axes = _flat_axes(tuple(getattr(pvar, "dist_attr", None) or ()))
+        shape = tuple(int(s) for s in pvar.shape)
+        rec = {"owner": owner, "numel": int(numel), "align": int(align),
+               "axes": list(axes)}
+        # every persistable coupled to the shard update at the same flat
+        # padded shape (Adam moments, gradient-merge accumulators)
+        for op in block.ops:
+            names = set(op.input_names()) | set(op.output_names())
+            if psh not in names:
+                continue
+            for n in names:
+                v = block._find_var_recursive(n)
+                if v is None or not v.persistable or n == owner:
+                    continue
+                if tuple(int(s) for s in v.shape) == shape:
+                    meta[n] = dict(rec)
+    return meta
+
+
+def _layout_view(main_program: Optional[Program], layout=None):
+    """(mesh layout, per-var shard specs, ZeRO-1 flat metadata): the
+    layout stamp of the v2 manifest, as the JAX package writes it."""
+    specs: Dict[str, List] = {}
+    flat: Dict[str, Dict] = {}
+    if main_program is not None:
+        layout = layout or getattr(main_program, "_mesh_layout", None)
+        if not isinstance(layout, MeshLayout):
+            layout = None
+        block = main_program.global_block()
+        for v in main_program.list_vars():
+            if v.persistable and getattr(v, "dist_attr", None):
+                specs[v.name] = _spec_desc(v.dist_attr)
+        for name, rec in flat_shard_meta(main_program).items():
+            rec = dict(rec)
+            v = block.vars.get(name)
+            if v is not None and len(tuple(v.shape)) == 1:
+                rec["pad"] = int(v.shape[0])
+            if layout is not None:
+                n = 1
+                for a in rec.get("axes") or ():
+                    n *= layout.size(a)
+                rec["n"] = max(int(n), 1)
+            flat[name] = rec
+    return layout, specs, flat
+
+
+def _manifest_dict(layout=None, specs=None, flat=None) -> Dict[str, Any]:
+    """The JAX package's v2 manifest keys: the layout stamp, the shard
+    specs and the ZeRO flat metadata."""
+    return {"format_version": CKPT_FORMAT_VERSION,
+            "mesh_layout": layout.to_desc() if layout is not None else None,
+            "shard_specs": dict(specs or {}), "flat_meta": dict(flat or {}),
+            "rng_vars": [_RNG_VAR], "files": {}}
 
 
 def _write_manifest(d: str, main_program: Optional[Program] = None,
@@ -298,8 +433,10 @@ def _write_manifest(d: str, main_program: Optional[Program] = None,
     rename), with a content hash per file of the checkpoint: a torn save is
     detectable, and restore falls back to the newest checkpoint whose
     hashes verify."""
-    _refuse_layout("save_checkpoint", layout)
-    manifest = dict(manifest if manifest is not None else _manifest_dict())
+    _refuse_layout("save_checkpoint", layout, _world(main_program))
+    if manifest is None:
+        manifest = _manifest_dict(*_layout_view(main_program, layout))
+    manifest = dict(manifest)
     files = {}
     for fn in sorted(os.listdir(d)):
         p = os.path.join(d, fn)
@@ -371,11 +508,21 @@ class TrainStatus:
             self.to_dict() == other.to_dict()
 
 
-def _generator_states(scope: Scope) -> Dict[str, np.ndarray]:
+def _generator_states(scope: Scope, dp=None) -> Dict[str, np.ndarray]:
     """The scope's random streams (``_RNG_VAR``, and a data-parallel
-    rank's ``_RNG_VAR/rank<r>``) as ``get_state()`` bytes."""
-    return {n: g.get_state().numpy() for n, g in scope.vars.items()
-            if n.startswith(_RNG_VAR) and isinstance(g, torch.Generator)}
+    rank's ``_RNG_VAR/rank<r>``) as ``get_state()`` bytes; under a process
+    group every rank's (a collective: every rank calls it)."""
+    states = {n: g.get_state().numpy() for n, g in scope.vars.items()
+              if n.startswith(_RNG_VAR) and isinstance(g, torch.Generator)}
+    if dp is None:
+        return states
+    import torch.distributed as dist
+    every = [None] * dp.world
+    dist.all_gather_object(every, states, group=dp.group)
+    merged: Dict[str, np.ndarray] = {}
+    for r in every:
+        merged.update(r)
+    return merged
 
 
 def save_checkpoint(executor, path, train_status: TrainStatus,
@@ -388,28 +535,34 @@ def save_checkpoint(executor, path, train_status: TrainStatus,
     first), the port's generator states (:data:`TORCH_RNG_FILE`), the
     TrainStatus and the v2 manifest, written last; keeps the newest
     ``max_checkpoints`` unless ``remain_all_checkpoint``.  Returns the
-    directory.  ``sharded=True`` and a layout other than one device's are
-    not ported (UnimplementedError)."""
+    directory.  When the program holds sharded persistables every rank
+    calls it and rank 0 writes (the global arrays, every rank's generator
+    states); any other program saves from whichever rank calls it.
+    ``sharded=True`` and a layout other than the run's are not ported
+    (UnimplementedError)."""
     if sharded:
         raise UnimplementedError(
-            "save_checkpoint(sharded=True): per-process shard files need "
-            "ZeRO and meshes, which are not ported yet")
-    _refuse_layout("save_checkpoint", layout)
+            "save_checkpoint(sharded=True): per-process shard files are "
+            "not ported yet; the port saves ZeRO state whole from rank 0")
     scope = scope or global_scope()
     main_program = main_program or default_main_program()
+    _refuse_layout("save_checkpoint", layout, _world(main_program))
     sync_prepared_state(scope)
+    dp = _group(main_program)
     d = os.path.join(path, f"checkpoint_{train_status.epoch_no}")
-    os.makedirs(d, exist_ok=True)
     save_persistables(executor, d, main_program, scope=scope)
-    states = _generator_states(scope)
-    if states:
-        _verified_write("rng", os.path.join(d, TORCH_RNG_FILE),
-                        lambda: _npz_bytes(states))
-    _verified_write("train_status", os.path.join(d, "train_status.json"),
-                    json.dumps(train_status.to_dict()).encode())
-    _write_manifest(d, main_program)
-    if not remain_all_checkpoint:
-        _cleanup_stale(path, max_checkpoints)
+    states = _generator_states(scope, dp)
+    if _is_writer(dp):
+        if states:
+            _verified_write("rng", os.path.join(d, TORCH_RNG_FILE),
+                            lambda: _npz_bytes(states))
+        _verified_write("train_status",
+                        os.path.join(d, "train_status.json"),
+                        json.dumps(train_status.to_dict()).encode())
+        _write_manifest(d, main_program, layout=layout)
+        if not remain_all_checkpoint:
+            _cleanup_stale(path, max_checkpoints)
+    _barrier(dp)
     return d
 
 
@@ -478,10 +631,12 @@ def load_checkpoint(executor, path, trainer_id=0,
     step pulls the restored state before its next run.  The port's
     generators continue from their saved states; a JAX checkpoint's
     ``rng.npy`` (a JAX key) is ignored and the scope keeps its
-    program-seeded generator.  A checkpoint written under another layout,
-    a sharded one and ``dst_layout`` other than one device's raise
-    UnimplementedError."""
-    _refuse_layout("load_checkpoint", dst_layout)
+    program-seeded generator.  Under a process group every rank loads the
+    global arrays and keeps its block of each sharded persistable.  A
+    checkpoint written under another layout (another world size, a flat
+    ZeRO pad other than the program's), a sharded one and a
+    ``dst_layout`` other than the run's raise UnimplementedError."""
+    _refuse_layout("load_checkpoint", dst_layout, _world(main_program))
     scope = scope or global_scope()
     program = main_program if main_program is not None \
         else default_main_program()
@@ -517,25 +672,24 @@ def _restore_dir(d: str, program: Optional[Program], scope: Scope,
     generator states; returns its TrainStatus."""
     manifest = _read_manifest(d) or {}
     _refuse_layout("load_checkpoint (the checkpoint's stamp)",
-                   manifest.get("mesh_layout"))
-    if manifest.get("flat_meta") or \
-            any(n.startswith("shard_manifest_") for n in os.listdir(d)):
+                   manifest.get("mesh_layout"), _world(program))
+    if any(n.startswith("shard_manifest_") for n in os.listdir(d)):
         raise UnimplementedError(
-            f"load_checkpoint: {d!r} is a sharded or ZeRO checkpoint; "
-            f"restoring one needs meshes and resharding, which are not "
-            f"ported yet")
+            f"load_checkpoint: {d!r} is a sharded (per-process) checkpoint; "
+            f"restoring one needs resharding, which is not ported yet")
     device = torch.device(device if device is not None else "cpu")
     wanted = set(_persistable_names(program)) if program is not None \
         else None
     arrays = _read_whole_arrays(d, wanted)
+    _refuse_flat_reshard(d, manifest.get("flat_meta") or {}, program,
+                         arrays)
     if program is not None:
         _check_restore_shapes(program, arrays)
         dtypes = {v.name: v.dtype for v in program.list_vars()
                   if v.name in arrays}
     else:
         dtypes = {}
-    for name, t in convert_params(arrays, device, dtypes).items():
-        scope.set_var(name, t)
+    _set_loaded(scope, program, convert_params(arrays, device, dtypes))
     rng_path = os.path.join(d, TORCH_RNG_FILE)
     if os.path.exists(rng_path):
         with np.load(rng_path) as data:
@@ -547,6 +701,28 @@ def _restore_dir(d: str, program: Optional[Program], scope: Scope,
         st = TrainStatus.from_dict(json.load(f))
     st.reshard = None
     return st
+
+
+def _refuse_flat_reshard(d, flat_meta, program, arrays):
+    """A ZeRO-1 flat state saved at another pad (another world size or
+    alignment) than the program's needs resharding: refused by name."""
+    block = program.global_block() if program is not None else None
+    for name, rec in flat_meta.items():
+        if name not in arrays or block is None:
+            continue
+        v = block._find_var_recursive(name)
+        if v is None or len(tuple(v.shape)) != 1:
+            continue
+        src = int(rec.get("pad") or np.shape(arrays[name])[0])
+        n = rec.get("n")
+        if src != int(v.shape[0]) or (n and int(n) != _world(program)):
+            raise UnimplementedError(
+                f"load_checkpoint: {d!r} holds the ZeRO flat state "
+                f"{name!r} padded to {src}"
+                + (f" over {n} ranks" if n else "")
+                + f"; the program pads it to {int(v.shape[0])} over "
+                f"{_world(program)}: resharding to another world size is "
+                f"not ported yet")
 
 
 def _read_whole_arrays(d: str, wanted=None,
@@ -563,10 +739,11 @@ def _read_whole_arrays(d: str, wanted=None,
 def save_persistables_sharded(executor, dirname,
                               main_program: Optional[Program] = None,
                               scope: Optional[Scope] = None, layout=None):
-    """Not ported: per-process shard files need ZeRO and meshes."""
+    """Not ported: per-process shard files and resharding come with a
+    later slice (ZeRO state saves whole through save_persistables)."""
     raise UnimplementedError(
-        "save_persistables_sharded: sharded checkpoints need ZeRO and "
-        "meshes, which are not ported yet")
+        "save_persistables_sharded: per-process sharded checkpoints are "
+        "not ported yet; save_persistables saves ZeRO state whole")
 
 
 class AsyncCheckpointer:

@@ -20,10 +20,29 @@ The blockwise-quantized all-reduce (``c_quant_allreduce_sum``,
 ``c_fused_quant_allreduce_sum``): quantize -> ``all_to_all`` of each
 rank's shard at wire width -> the receive stage on the CUDA kernels of
 ``ops/cuda/quant_kernels.py`` (route ``dequant_accumulate``) ->
-``all_gather`` -> dequantize.  ZeRO's ``quant_reduce_scatter`` and
-``zero_*``, ``fsdp_all_gather``, the tensor-parallel ``c_embedding`` /
-``c_split`` / ``c_concat``, ``collective_permute`` and
-``pipe_stage_boundary`` are not ported yet and stay unregistered.
+``all_gather`` -> dequantize.
+
+ZeRO: ``zero_reduce_scatter`` (the flat gradient padded to ``n·align``,
+each rank's 1/n slice summed over the group: ``all_to_all`` + a sum in
+peer order, as ``c_reducescatter``), ``quant_reduce_scatter`` (quantize ->
+``all_to_all`` at wire width -> the receive stage on kernel #11, no
+requantize: the reduced float32 shard feeds the sharded update),
+``zero_shard_slice`` (the rank's flat slice of a replicated tensor, no
+communication), ``zero_all_gather`` (the updated shards gathered, the pad
+dropped) and ``fsdp_all_gather`` (ZeRO-3: the full parameter gathered
+from the resident shards along ``gather_dim``; its backward sums the
+cotangent's slices over the group, so each rank's gradient arrives as
+its shard — the JAX op's transpose, ``psum_scatter``).  The
+tensor-parallel ``c_embedding`` / ``c_split`` / ``c_concat``,
+``collective_permute`` and ``pipe_stage_boundary`` are not ported yet
+and stay unregistered.
+
+A persistable whose ``dist_attr`` names the run's axis is sharded: each
+rank holds only its block of the global value.  :func:`block_of` (the
+rank's block of a global value; the executor applies it to every
+persistable it reads from or writes to the scope) and :func:`whole_of`
+(the global value of a block: a fetch, a save) are that rule, and the
+only code that knows it.
 
 ``local_sgd_sync`` (LocalSGD's periodic parameter average) reads its step
 counter on the host to decide whether this run syncs: every rank holds
@@ -47,9 +66,13 @@ DP_AXIS = "dp"
 
 class DataParallelGroup:
     """The process group a data-parallel run reduces over — the port's
-    counterpart of the JAX package's ``dp`` mesh axis."""
+    counterpart of the JAX package's one mesh axis (``dp``, or ``fsdp``
+    for ZeRO-3).  ``batch_sharded`` says whether fed batches split over
+    it (the JAX feed spec ``P(axis)``; ``with_mesh`` without a batch axis
+    replicates them)."""
 
-    __slots__ = ("rank", "world", "group", "backend", "axis_name")
+    __slots__ = ("rank", "world", "group", "backend", "axis_name",
+                 "batch_sharded")
 
     def __init__(self, rank: int, world: int, backend: str, group=None,
                  axis_name: str = DP_AXIS):
@@ -58,6 +81,7 @@ class DataParallelGroup:
         self.backend = str(backend)
         self.group = group
         self.axis_name = axis_name
+        self.batch_sharded = True
 
     @classmethod
     def current(cls, axis_name: str = DP_AXIS
@@ -252,35 +276,52 @@ def _quant_route(op_type, ins, attrs, n_peers) -> bool:
     return route is not None
 
 
-def _quant_allreduce_flat(ctx, flat, spec: CompressionSpec, use_kernel):
-    """The two-stage quantized all-reduce of a float32 flat tensor:
-    quantize -> all_to_all shards -> receive stage (dequantize,
-    accumulate over peers, requantize) -> all_gather -> dequantize.
-    Returns (the reduced flat tensor at the input length, the stage-2
+def _quant_scatter(ctx, flat, spec: CompressionSpec, use_kernel,
+                   requant: bool = False):
+    """The scatter stage of the quantized collectives: ``flat`` (float32)
+    padded to ``n·block_size`` and quantized (stochastic rounding draws
+    from the rank's generator), every peer's quantized copy of this
+    rank's shard received at wire width by ``all_to_all``, then the
+    receive stage on the kernel route (``use_kernel``) or its plain twin:
+    the shard summed over the peers in float32 (#11), or with ``requant``
+    that sum requantized to int8 in the same pass (#12), as (payload,
     scales)."""
     dp = ctx.dp
     n = dp.world
-    numel = flat.shape[0]
     flat = pad_to_blocks(flat, n * spec.block_size)
     sb = flat.shape[0] // (n * spec.block_size)
     gen = ctx.generator if spec.stochastic_rounding else None
     q, s = quantize_blockwise(flat, spec, gen)
     qx = all_to_all(dp, q.reshape(n, sb, -1)).reshape(n * sb, -1)
     sx = all_to_all(dp, s.reshape(n, sb)).reshape(-1)
-    if spec.dtype == "int8" and not spec.stochastic_rounding:
-        requant = cuda_quant.dequant_accumulate_requant if use_kernel \
+    if requant:
+        fn = cuda_quant.dequant_accumulate_requant if use_kernel \
             else cuda_quant.dequant_accumulate_requant_plain
-        q2, s2 = requant(qx, sx, spec, n)
     else:
-        acc = cuda_quant.dequant_accumulate if use_kernel \
+        fn = cuda_quant.dequant_accumulate if use_kernel \
             else cuda_quant.dequant_accumulate_plain
-        q2, s2 = quantize_blockwise(acc(qx, sx, spec, n), spec, gen)
+    return fn(qx, sx, spec, n)
+
+
+def _quant_allreduce_flat(ctx, flat, spec: CompressionSpec, use_kernel):
+    """The two-stage quantized all-reduce of a float32 flat tensor:
+    the scatter stage (:func:`_quant_scatter`: quantize -> all_to_all
+    shards -> dequantize, accumulate over peers, requantize) ->
+    all_gather -> dequantize.  Returns (the reduced flat tensor at the
+    input length, the stage-2 scales)."""
+    requant = spec.dtype == "int8" and not spec.stochastic_rounding
+    red = _quant_scatter(ctx, flat, spec, use_kernel, requant)
+    if requant:
+        q2, s2 = red
+    else:
+        gen = ctx.generator if spec.stochastic_rounding else None
+        q2, s2 = quantize_blockwise(red, spec, gen)
     # stage 2: the same bytes on every rank, so the local dequantization
     # cannot diverge across replicas
-    qf = all_gather(dp, q2.reshape(-1))
-    sf = all_gather(dp, s2)
-    full = dequantize_blockwise(qf.reshape(n * sb, -1), sf, spec)
-    return full[:numel], sf
+    qf = all_gather(ctx.dp, q2.reshape(-1))
+    sf = all_gather(ctx.dp, s2)
+    full = dequantize_blockwise(qf.reshape(sf.shape[0], -1), sf, spec)
+    return full[:flat.shape[0]], sf
 
 
 @register("c_quant_allreduce_sum")
@@ -319,6 +360,138 @@ def _c_fused_quant_allreduce_sum(ctx, ins, attrs):
                               ctx.dp.world)
     red, scales = _quant_allreduce_flat(ctx, flat.float(), spec, use_kernel)
     return {"Out": _split_like(red.to(flat.dtype), outs), "QScale": scales}
+
+
+def _axes_tuple(axis):
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def _one_axis(axis, op_type):
+    """The scatter axis of a ZeRO op; a second reduce axis (the JAX
+    package's psum over the rest of a data x sp grid) needs a multi-axis
+    mesh, which is not ported."""
+    axes = _axes_tuple(axis)
+    if len(axes) > 1:
+        from ..framework.errors import UnimplementedError
+        raise UnimplementedError(
+            f"{op_type} over the axes {axes}: a multi-axis mesh is not "
+            f"ported yet")
+    return axes[0]
+
+
+@register("zero_reduce_scatter")
+def _zero_reduce_scatter(ctx, ins, attrs):
+    """Gradient half of the ZeRO-1 sharded update: this rank's 1/n flat
+    shard of the summed gradient (padded to ``n·align``).  ``scale`` folds
+    the mean; ``compress_dtype`` runs the scatter and its sum at bf16."""
+    g = x(ins, "X")
+    axis = _ring_axis(ctx, attrs)
+    scale = attrs.get("scale")
+    if scale is not None:
+        g = g * scale
+    if axis is None:
+        return {"Out": g.reshape(-1)}
+    _one_axis(axis, "zero_reduce_scatter")
+    n = ctx.dp.world
+    # the flat layout: a multiple of n·align (align > 1 makes every shard
+    # whole quantization blocks, matching zero_shard_slice's)
+    flat = pad_to_blocks(g.reshape(-1), n * attrs.get("align", 1))
+    comp = attrs.get("compress_dtype")
+    orig = flat.dtype
+    if comp and flat.is_floating_point():
+        flat = flat.to({"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                        "float16": torch.float16}[str(comp)])
+    out = _peer_sum(all_to_all(ctx.dp, flat.reshape(n, -1)))
+    return {"Out": out.to(orig)}
+
+
+@register("quant_reduce_scatter")
+def _quant_reduce_scatter(ctx, ins, attrs):
+    """Quantized gradient half of ZeRO-1: quantize -> ``all_to_all`` (each
+    rank receives every peer's quantized copy of its shard, at wire width)
+    -> the receive stage (#11: dequantize and accumulate in float32).  The
+    output is the rank's reduced float32 flat shard; the pad is
+    ``n·block_size``, so ``zero_shard_slice`` must get the same
+    ``align``.  Stochastic rounding draws from the rank's generator."""
+    g = x(ins, "X")
+    axis = _ring_axis(ctx, attrs)
+    scale = attrs.get("scale")
+    if scale is not None:
+        g = g * scale
+    spec = CompressionSpec.from_attr(attrs["quant_spec"])
+    if axis is None:
+        return {"Out": g.reshape(-1)}
+    _one_axis(axis, "quant_reduce_scatter")
+    use_kernel = _quant_route("quant_reduce_scatter", ins, attrs,
+                              ctx.dp.world)
+    return {"Out": _quant_scatter(ctx, g.reshape(-1).float(), spec,
+                                  use_kernel).to(g.dtype)}
+
+
+@register("zero_shard_slice")
+def _zero_shard_slice(ctx, ins, attrs):
+    """This rank's flat 1/n shard of a replicated tensor (padded to
+    ``n·align``): the parameter slice the sharded update owns.  No
+    communication."""
+    a = x(ins, "X")
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
+        return {"Out": a.reshape(-1)}
+    _one_axis(axis, "zero_shard_slice")
+    n = ctx.dp.world
+    flat = pad_to_blocks(a.reshape(-1), n * attrs.get("align", 1))
+    shard = flat.shape[0] // n
+    # a tensor of its own: the update writes it in place, and must not
+    # write through into the replicated parameter it was cut from
+    return {"Out": flat[ctx.dp.rank * shard:
+                        (ctx.dp.rank + 1) * shard].clone()}
+
+
+@register("zero_all_gather")
+def _zero_all_gather(ctx, ins, attrs):
+    """The full replicated tensor from every rank's updated shard, the
+    flat pad dropped (``numel``, ``shape``)."""
+    sh = x(ins, "X")
+    axis = _ring_axis(ctx, attrs)
+    shape = tuple(attrs["shape"])
+    numel = int(attrs["numel"])
+    full = sh if axis is None else all_gather(ctx.dp, sh)
+    return {"Out": full[:numel].reshape(shape)}
+
+
+class _FsdpGather(torch.autograd.Function):
+    """all_gather along ``dim`` forward; backward, each rank's slice of
+    the cotangent summed over the group (the reduce-scatter that is the
+    gather's transpose).  Every rank runs the same backward graph, so the
+    collectives of the backward issue in the same order on every rank."""
+
+    @staticmethod
+    def forward(ctx, a, dp, dim):
+        ctx.dp, ctx.dim = dp, dim
+        return all_gather(dp, a, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dp = ctx.dp
+        parts = torch.stack(grad.chunk(dp.world, dim=ctx.dim))
+        return _peer_sum(all_to_all(dp, parts)), None, None
+
+
+@register("fsdp_all_gather")
+def _fsdp_all_gather(ctx, ins, attrs):
+    """ZeRO-3's gather at a parameter's first forward use
+    (framework/fsdp.py): the full tensor from the resident shards along
+    ``gather_dim``.  Its backward delivers each rank the summed gradient
+    of its shard.  The identity without a process group."""
+    a = x(ins, "X")
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
+        return {"Out": a}
+    _one_axis(axis, "fsdp_all_gather")
+    dim = attrs.get("gather_dim", 0)
+    if dim < 0:
+        dim += a.dim()
+    return {"Out": _FsdpGather.apply(a, ctx.dp, dim)}
 
 
 @register("c_broadcast")
@@ -420,13 +593,100 @@ for _name in ("c_comm_init", "c_comm_init_all", "c_gen_nccl_id", "barrier"):
     register(_name)(_noop)
 
 
-def merge_fetch(dp: Optional[DataParallelGroup], value, replicated: bool):
+# ---------------------------------------------------------------------------
+# sharded persistables: the block-per-rank rule
+# ---------------------------------------------------------------------------
+
+
+def shard_dim(dp: Optional[DataParallelGroup], var) -> Optional[int]:
+    """The dim of ``var`` its ``dist_attr`` shards over the group's axis,
+    or None (no group, no such var, or replicated over the group)."""
+    da = getattr(var, "dist_attr", None) if var is not None else None
+    if dp is None or not da:
+        return None
+    from ..framework.mesh_layout import _flat_axes
+    for d, entry in enumerate(da):
+        if dp.axis_name in _flat_axes((entry,)):
+            return d
+    return None
+
+
+def sharded_group(program) -> Optional[DataParallelGroup]:
+    """The process group ``program``'s sharded persistables live over:
+    the group over the first axis a persistable's ``dist_attr`` names
+    (an axis of size 1 in the program's mesh layout does not count), or
+    None when no persistable is sharded or there is no group of more than
+    one rank.  A program of replicated persistables only (plain data
+    parallelism) has none: each rank holds the whole of every value."""
+    from ..framework.mesh_layout import MeshLayout, _flat_axes
+    layout = getattr(program, "_mesh_layout", None)
+    if not isinstance(layout, MeshLayout):
+        layout = None
+    for v in program.list_vars():
+        da = getattr(v, "dist_attr", None)
+        if not (v.persistable and da):
+            continue
+        for axis in _flat_axes(tuple(da)):
+            if layout is not None and layout.size(axis) < 2:
+                continue
+            return DataParallelGroup.current(axis)
+    return None
+
+
+def _block_rows(dp, var, d):
+    full = int(var.shape[d])
+    if full <= 0 or full % dp.world:
+        from ..framework.errors import InvalidArgumentError
+        raise InvalidArgumentError(
+            f"sharded persistable {var.name!r}: dim {d} of {full} does not "
+            f"divide into {dp.world} ranks")
+    return full, full // dp.world
+
+
+def block_of(dp: Optional[DataParallelGroup], var, value):
+    """This rank's block of a sharded persistable: the global value (the
+    startup program's, a loaded checkpoint's) is cut to the rank's rows of
+    its shard dim, in a tensor of its own; a block passes through.  Any
+    other value (a replicated var, no group) passes through."""
+    d = shard_dim(dp, var)
+    if d is None or not isinstance(value, torch.Tensor):
+        return value
+    full, rows = _block_rows(dp, var, d)
+    got = int(value.shape[d])
+    if got == rows:
+        return value
+    if got != full:
+        from ..framework.errors import InvalidArgumentError
+        raise InvalidArgumentError(
+            f"sharded persistable {var.name!r}: dim {d} is {got}, neither "
+            f"the global {full} nor a block of {rows}")
+    return value.narrow(d, dp.rank * rows, rows).clone()
+
+
+def whole_of(dp: Optional[DataParallelGroup], var, value):
+    """The global value of a sharded persistable from this rank's block
+    (every rank's blocks gathered along the shard dim, a collective: every
+    rank calls it); a global value or a replicated one passes through."""
+    d = shard_dim(dp, var)
+    if d is None or not isinstance(value, torch.Tensor):
+        return value
+    full, _ = _block_rows(dp, var, d)
+    if int(value.shape[d]) == full:
+        return value
+    return all_gather(dp, value, d)
+
+
+def merge_fetch(dp: Optional[DataParallelGroup], value, replicated: bool,
+                var=None):
     """A fetched value under data parallelism (ref: the reference's
-    FetchOpHandle, the JAX package's ``_merge_fetch``): replicated values
-    (persistables, everything written from the backward op on) pass
-    through; a float scalar is averaged over ranks, an integer scalar
+    FetchOpHandle, the JAX package's ``_merge_fetch``): a sharded
+    persistable (``var``) comes back whole (:func:`whole_of`); replicated
+    values (persistables, everything written from the backward op on)
+    pass through; a float scalar is averaged over ranks, an integer scalar
     summed; any other tensor is batch-sharded and all-gathered along
     dim 0."""
+    if shard_dim(dp, var) is not None:
+        return whole_of(dp, var, value)
     if dp is None or replicated or not isinstance(value, torch.Tensor):
         return value
     if value.dim() == 0:
@@ -439,7 +699,7 @@ def merge_fetch(dp: Optional[DataParallelGroup], value, replicated: bool):
 def slice_feed(dp: Optional[DataParallelGroup], name: str, value):
     """This rank's rows of a fed global batch (the JAX feed spec
     ``P(batch_axis)``): dim 0 split into ``world`` equal parts."""
-    if dp is None:
+    if dp is None or not dp.batch_sharded:
         return value
     if not isinstance(value, torch.Tensor):
         value = np.asarray(value)

@@ -240,6 +240,14 @@ ROUTE_DEQUANT_ACC = CudaLowering(
     replaces=(_DQ_ACC_TPU, _DQ_ACC_RQ_TPU),
     source=_CSRC + "quant_accumulate.cu")
 
+# ZeRO-1's quantized gradient scatter: the accumulating receive stage
+# only (its float32 shard feeds the sharded update, nothing requantizes;
+# the JAX package's _PL_DEQUANT_ACC)
+ROUTE_DEQUANT_ACC_RS = CudaLowering(
+    "dequant_accumulate", flag="use_pallas_fused",
+    supported=_dequant_acc_supported, kernels=("dequant_accumulate",),
+    replaces=(_DQ_ACC_TPU,), source=_CSRC + "quant_accumulate.cu")
+
 register_routes("fused_attention", ROUTE_FLASH, ROUTE_CACHED_FLASH)
 register_routes("multihead_matmul", ROUTE_MHM)
 register_routes("layer_norm", ROUTE_LN)
@@ -249,6 +257,7 @@ register_routes("adam", ROUTE_ADAM)
 register_routes("adamw", ROUTE_ADAM)        # the same update, then decay
 register_routes("c_quant_allreduce_sum", ROUTE_DEQUANT_ACC)
 register_routes("c_fused_quant_allreduce_sum", ROUTE_DEQUANT_ACC)
+register_routes("quant_reduce_scatter", ROUTE_DEQUANT_ACC_RS)
 
 
 def kernel_facts():

@@ -2,9 +2,9 @@
 ``Optimizer`` base, SGD, Momentum, LarsMomentum, Adam, AdamW, Lamb,
 Adagrad, DecayedAdagrad, RMSProp, Adadelta, Adamax, Ftrl, Dpsgd and
 DGCMomentum, and the wrappers Recompute, GradientMerge, ModelAverage,
-ExponentialMovingAverage, Lookahead and LocalSGD; ref:
-python/paddle/fluid/optimizer.py).  ``ShardedUpdateOptimizer`` (ZeRO-1)
-is not ported.
+ExponentialMovingAverage, Lookahead, LocalSGD and ShardedUpdate (ZeRO-1:
+the gradient reduce-scattered to flat 1/n shards, the update on the
+shard, the parameter all-gathered); ref: python/paddle/fluid/optimizer.py).
 
 Same architecture as the reference: ``minimize = append_backward +
 apply_gradients``; the learning rate (a float, a Variable or an
@@ -19,6 +19,8 @@ package's order."""
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import numpy as np
 
 from .framework import unique_name
 from .framework.backward import append_backward
@@ -99,6 +101,12 @@ class Optimizer:
                             persistable=True)
         sv = startup.create_var(name=var_name, shape=shape, dtype=dtype,
                                 persistable=True)
+        # an accumulator shaped like a sharded parameter (a ZeRO-1 flat
+        # shard, a tensor-parallel split) is sharded with it
+        da = getattr(param, "dist_attr", None)
+        if da and shape == list(param.shape):
+            v.dist_attr = da
+            sv.dist_attr = da
         startup.append_op(type="fill_constant", outputs={"Out": [sv]},
                           attrs={"shape": shape, "dtype": dtype,
                                  "value": float(fill_value)})
@@ -1143,6 +1151,164 @@ class LocalSGDOptimizer:
             attrs={"k_steps": float(self.k_steps),
                    "begin_step": float(self.begin_step),
                    "ring_id": 0, "_axis_name": self.axis_name})
+
+
+class ShardedUpdateOptimizer(Optimizer):
+    """ZeRO-1 sharded weight update (ref: "Automatic Cross-Replica
+    Sharding of Weight Update in Data-Parallel Training",
+    arXiv:2004.13336; the reference fleet's ``sharding`` stage 1) — the
+    JAX package's rewrite, op for op.  Data-parallel gradient sync and
+    update
+
+        all_reduce(g);  p = update(p, g)            # every rank, full
+
+    become
+
+        g_shard = reduce_scatter(flat(g)) / n       # zero_reduce_scatter
+        p_shard = slice(flat(p))                    # zero_shard_slice
+        p_shard = update(p_shard, g_shard)          # the inner optimizer
+        p       = all_gather(p_shard)               # zero_all_gather
+
+    The accumulators are created from the shard var (flat, padded to a
+    multiple of ``n·128``, or ``n·block_size`` under a quantized scatter,
+    ``dist_attr`` over the data axis), so each rank holds 1/n of the
+    optimizer state (the executor keeps each rank's block of them).
+
+    Only elementwise update rules shard (LAMB and LARS need full-tensor
+    norms: ``ValueError``); norm-based gradient clipping is refused
+    (``NotImplementedError``: a shard-local norm clips each rank
+    differently); a parameter with a ``dist_attr`` or ``is_distributed``
+    keeps the dense mean + all-reduce and the full update."""
+
+    _ELEMENTWISE = {"sgd", "momentum", "adam", "adamw", "adagrad",
+                    "decayed_adagrad", "rmsprop", "adadelta", "adamax",
+                    "ftrl", "dpsgd"}
+
+    def __init__(self, optimizer, nranks, axis_name="dp",
+                 compress_dtype=None, quant_spec=None):
+        base = getattr(optimizer, "type", None)
+        if base not in self._ELEMENTWISE:
+            raise ValueError(
+                f"sharded_update: optimizer type {base!r} is not an "
+                f"elementwise update rule (LAMB/LARS trust ratios need "
+                f"full-tensor norms) — supported: "
+                f"{sorted(self._ELEMENTWISE)}")
+        self._inner = optimizer
+        self._nranks = int(nranks)
+        self._axes = tuple(axis_name) if isinstance(axis_name, (tuple, list)) \
+            else (axis_name,)
+        self._compress = compress_dtype
+        # the int8/int4 wire tier of the gradient scatter; the parameter
+        # all-gather stays full precision (it moves updated weights, whose
+        # error would accumulate step over step)
+        from .ops.quantize_wire import CompressionSpec
+        self._quant = CompressionSpec.from_attr(quant_spec)
+        if self._quant is not None and self._quant.dtype == "bfloat16":
+            self._compress, self._quant = "bfloat16", None
+
+    def __getattr__(self, item):
+        if item == "_inner":
+            raise AttributeError(item)
+        return getattr(self._inner, item)
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None, checkpoints=None):
+        return self._inner.backward(loss, startup_program, parameter_list,
+                                    no_grad_set, callbacks, checkpoints)
+
+    def _check_clip(self):
+        from .clip import GradientClipByGlobalNorm, GradientClipByNorm
+        clip = self._inner._grad_clip or get_gradient_clip()
+        if isinstance(clip, (GradientClipByNorm, GradientClipByGlobalNorm)):
+            raise NotImplementedError(
+                "sharded_update: norm-based gradient clipping would use "
+                "shard-local norms (each replica clips differently) — "
+                "use GradientClipByValue or disable sharded_update")
+
+    def apply_gradients(self, params_grads):
+        self._check_clip()
+        block = default_main_program().current_block()
+        n = self._nranks
+        data_axis = self._axes[0]
+        axis_attr = self._axes if len(self._axes) > 1 else data_axis
+        shard_pairs, gathers, plain = [], [], []
+        # a quantized scatter pads every rank's shard to whole blocks, and
+        # the parameter slice must take the same pad; unquantized shards
+        # align to 128 (zero padding leaves the update unchanged)
+        align = self._quant.block_size if self._quant is not None else 128
+        for p, g in params_grads:
+            if getattr(p, "dist_attr", None) or \
+                    getattr(p, "is_distributed", False):
+                plain.append((p, g))
+                continue
+            numel = int(np.prod(p.shape)) if len(tuple(p.shape)) else 1
+            padded = numel + (-numel % (n * align))
+            gsh = block.create_var(
+                name=unique_name.generate(f"{p.name}_grad_zshard"),
+                shape=(padded,), dtype=p.dtype)
+            scatter_attrs = {"ring_id": 0, "_axis_name": axis_attr,
+                             "scale": 1.0 / n}
+            if self._quant is not None:
+                scatter_type = "quant_reduce_scatter"
+                scatter_attrs["quant_spec"] = self._quant.to_attr()
+            else:
+                scatter_type = "zero_reduce_scatter"
+                scatter_attrs["align"] = align
+                if self._compress:
+                    scatter_attrs["compress_dtype"] = self._compress
+            block.append_op(type=scatter_type, inputs={"X": [g]},
+                            outputs={"Out": [gsh]}, attrs=scatter_attrs)
+            psh = block.create_var(
+                name=unique_name.generate(f"{p.name}_zshard"),
+                shape=(padded,), dtype=p.dtype)
+            # accumulators created from the shard var inherit its layout
+            psh.dist_attr = (data_axis,)
+            psh.regularizer = getattr(p, "regularizer", None)
+            psh.optimize_attrs = dict(getattr(p, "optimize_attrs", {}) or {})
+            psh.trainable = True
+            block.append_op(
+                type="zero_shard_slice", inputs={"X": [p]},
+                outputs={"Out": [psh]},
+                attrs={"ring_id": 0, "_axis_name": data_axis,
+                       **({"align": align} if align > 1 else {})})
+            shard_pairs.append((psh, gsh))
+            gathers.append((psh, p, numel))
+        opt_ops = []
+        if shard_pairs:
+            opt_ops += self._inner.apply_gradients(shard_pairs)
+        for psh, p, numel in gathers:
+            opt_ops.append(block.append_op(
+                type="zero_all_gather", inputs={"X": [psh]},
+                outputs={"Out": [p]},
+                attrs={"ring_id": 0, "_axis_name": data_axis,
+                       "numel": numel, "shape": list(p.shape)}))
+        if plain:
+            # sharded params: the mean scale and a dense all-reduce over
+            # the data axes their shards do not cover, the full update
+            for p, g in plain:
+                da = tuple(getattr(p, "dist_attr", None) or ())
+                axes = tuple(a for a in self._axes if a not in da)
+                block.append_op(type="scale", inputs={"X": [g]},
+                                outputs={"Out": [g]},
+                                attrs={"scale": 1.0 / n})
+                if axes:
+                    block.append_op(
+                        type="c_allreduce_sum", inputs={"X": [g]},
+                        outputs={"Out": [g]},
+                        attrs={"ring_id": 0,
+                               "_axis_name": axes if len(axes) > 1
+                               else axes[0]})
+            opt_ops += self._inner.apply_gradients(plain)
+        return opt_ops
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        with program_guard(loss.block.program,
+                           startup_program or default_startup_program()):
+            params_grads = self.backward(loss, startup_program,
+                                         parameter_list, no_grad_set)
+            opt_ops = self.apply_gradients(params_grads)
+        return opt_ops, params_grads
 
 
 SGD = SGDOptimizer

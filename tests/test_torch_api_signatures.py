@@ -26,7 +26,8 @@ from paddle_tpu_torch.serving.engine import ServingConfig
 
 MODULES = ("optimizer", "framework.executor", "framework.compiler",
            "inference", "io", "serving.engine", "serving.decode",
-           "distributed.fleet", "layers.control_flow")
+           "distributed.fleet", "layers.control_flow",
+           "framework.mesh_layout", "framework.fsdp")
 
 #: JAX internals whose parameters differ by design, with the reason
 ALLOWED = {
@@ -257,3 +258,22 @@ def test_fetch_handles_count_their_wait_in_the_steps_stats():
     handle.numpy()                        # cached: no second wait counted
     assert step.stats["fetch_wait_ns"] == waited
     tcore.reset_default_programs()
+
+
+#: ZeRO's public names: the sharded update, the layout and the ZeRO-3
+#: rewrite, each compared keyword by keyword above
+ZERO = {
+    "optimizer": {"ShardedUpdateOptimizer.__init__",
+                  "ShardedUpdateOptimizer.apply_gradients",
+                  "ShardedUpdateOptimizer.minimize"},
+    "framework.mesh_layout": {"MeshLayout.__init__", "MeshLayout.build_mesh",
+                              "MeshLayout.spec", "MeshLayout.to_desc"},
+    "framework.fsdp": {"apply_fsdp_sharding"},
+    "framework.compiler": {"CompiledProgram.with_mesh"},
+}
+
+
+@pytest.mark.parametrize("mod", sorted(ZERO))
+def test_zero_is_shared_api(mod):
+    quals = {qual for m, qual, *_ in SHARED if m == mod}
+    assert ZERO[mod] <= quals

@@ -8,8 +8,16 @@ Tolerances: the float32 ops within 1e-6; the bf16 cast path within bf16
 rounding (2^-7 of the largest magnitude, times the rank count); the
 blockwise-quantized all-reduce's ``Out`` and ``QScale`` bit-identical at
 n = 2 (int8 and int4), and at n = 3 within one quantization step of each
-block (the sums of three peers may round in another order).  Every op is
-the identity outside a process group."""
+block (the sums of three peers may round in another order).  ZeRO's ops:
+``zero_reduce_scatter`` (with a 128 ``align`` pad, and in bf16),
+``zero_shard_slice`` (aligned and not), ``zero_all_gather`` (the pad
+dropped) and ``fsdp_all_gather`` within 1e-6, its gradient (the summed
+reduce-scatter of each rank's cotangent) within 1e-6;
+``quant_reduce_scatter`` (int8 at block 256, int4 at block 128, the pad
+to n·block) within 1e-6 of each element's magnitude (the receive stage's
+kernel twin accumulates with one rounding a peer, the JAX package's plain
+path rounds each product first).  Every op is the identity outside a
+process group (the ZeRO ops up to their flat layout)."""
 
 import os
 import subprocess
@@ -39,7 +47,8 @@ TOL = 1e-6
 
 def _inputs(n):
     """Per rank: X (5, 7), X2 (11,), Q (37, 29) — 1,073 elements, ragged
-    against n x 256 — and R (3n, 4)."""
+    against n x 256 — R (3n, 4), S (32,) and G (5, 7n), the cotangent of
+    X gathered along dim 1."""
     rng = np.random.RandomState(100 + n)
     out = []
     for _ in range(n):
@@ -50,6 +59,8 @@ def _inputs(n):
                                                  (37, 1))).astype(
                 np.float32),
             "R": rng.randn(3 * n, 4).astype(np.float32),
+            "S": rng.randn(32).astype(np.float32),
+            "G": rng.randn(5, 7 * n).astype(np.float32),
         })
     return out
 
@@ -118,7 +129,7 @@ def test_collective_matches_the_jax_package(ranks, n, case, op, attrs,
     inputs = _inputs(n)
     want = _jax_case(n, op, attrs, slots, inputs)
     port = ranks(n)
-    quant = "quant_spec" in attrs
+    quant = "quant_spec" in attrs and op != "quant_reduce_scatter"
     for r in range(n):
         got = [port[r][f"{case}/{i}"] for i in range(len(want))
                if f"{case}/{i}" in port[r]]
@@ -155,6 +166,9 @@ def test_collective_matches_the_jax_package(ranks, n, case, op, attrs,
             elif "bf16" in case:
                 bound = n * 2.0 ** -7 * float(np.abs(w).max())
                 assert np.abs(g - w).max() <= bound, case
+            elif op == "quant_reduce_scatter":
+                np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-7,
+                                           err_msg=f"{case} rank {r}")
             else:
                 np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL,
                                            err_msg=f"{case} rank {r}")
@@ -163,7 +177,41 @@ def test_collective_matches_the_jax_package(ranks, n, case, op, attrs,
     routes = set(port[0]["routes"])
     assert "c_quant_allreduce_sum:hit" in routes
     assert "c_fused_quant_allreduce_sum:hit" in routes
+    assert "quant_reduce_scatter:hit" in routes
     assert not [x for x in routes if x.endswith(":fallback")]
+
+
+def _jax_fsdp_grad(n, inputs):
+    """The JAX op's transpose: each rank's gradient of X for its
+    cotangent G of the gather along dim 1."""
+    mesh = Mesh(np.array(jax.devices()[:n]), ("dp",))
+    xs = np.stack([inputs[r]["X"] for r in range(n)])
+    gs = np.stack([inputs[r]["G"] for r in range(n)])
+
+    def body(x, g):
+        ctx = JCtx(jax.random.PRNGKey(0), mesh, ("dp",))
+
+        def gather(a):
+            return jget_op("fsdp_all_gather")(ctx, {"X": [a]},
+                                              {"gather_dim": 1})["Out"]
+        _, vjp = jax.vjp(gather, x[0])
+        return vjp(g[0])[0][None]
+
+    fn = shard_map(body, mesh=mesh, in_specs=(P("dp"), P("dp")),
+                   out_specs=P("dp"), check_vma=False)
+    return np.asarray(jax.jit(fn)(xs, gs))
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_fsdp_all_gather_gradient_matches_the_jax_transpose(ranks, n):
+    inputs = _inputs(n)
+    want = _jax_fsdp_grad(n, inputs)
+    port = ranks(n)
+    for r in range(n):
+        got = port[r]["fsdp_grad"]
+        assert got.shape == inputs[r]["X"].shape
+        np.testing.assert_allclose(got, want[r], rtol=TOL, atol=TOL,
+                                   err_msg=f"rank {r}")
 
 
 @pytest.mark.parametrize("op", sorted(
@@ -179,6 +227,15 @@ def test_every_collective_is_the_identity_outside_a_group(op):
     if op.startswith("c_fused"):
         out = tregistry.get_op(op)(ctx, {"X": [a, b]}, attrs)["Out"]
         assert torch.equal(out[0], a) and torch.equal(out[1], b)
+    elif op in ("zero_reduce_scatter", "quant_reduce_scatter",
+                "zero_shard_slice"):
+        # ZeRO's flat layout: the tensor flattened
+        out = tregistry.get_op(op)(ctx, {"X": [a]}, attrs)["Out"]
+        assert torch.equal(out, a.reshape(-1))
+    elif op == "zero_all_gather":
+        out = tregistry.get_op(op)(ctx, {"X": [a.reshape(-1)]},
+                                   {"numel": 12, "shape": [4, 3]})["Out"]
+        assert torch.equal(out, a)
     else:
         out = tregistry.get_op(op)(ctx, {"X": [a]}, attrs)["Out"]
         assert torch.equal(out, a)

@@ -211,6 +211,25 @@ def test_fleet_program_has_the_jax_packages_desc(runs, tier):
     assert types.count(want) == 1 and "c_allreduce_sum" not in types
 
 
+def test_rank0_alone_saves_under_plain_data_parallelism(runs):
+    """The usual fleet save, ``if rank == 0: save(...)``: with replicated
+    persistables only, the save is no collective.  Rank 0 writes every
+    persistable as it holds it and a checkpoint whose manifest verifies,
+    while rank 1 goes on; both ranks then take the same next step."""
+    _, ranks = runs("fp32")
+    saved = {k[len("rank0_save/"):]: v for k, v in ranks[0].items()
+             if k.startswith("rank0_save/")}
+    held = {k[len("prepare/p/"):]: v for k, v in ranks[0].items()
+            if k.startswith("prepare/p/")}
+    assert saved and set(saved) == set(held)
+    for n, a in saved.items():
+        assert np.array_equal(a, held[n]), n
+    assert bool(ranks[0]["rank0_ckpt_ok"])
+    assert not [k for k in ranks[1] if k.startswith("rank0_")]
+    loss = [float(r["after_save/loss"]) for r in ranks]
+    assert np.isfinite(loss[0]) and loss[0] == loss[1]
+
+
 # ---------------------------------------------------------------------------
 # fleet's refusals and rules (no process group needed)
 # ---------------------------------------------------------------------------
@@ -290,9 +309,8 @@ def test_strategy_amp_runs_on_one_worker():
 
 
 @pytest.mark.parametrize("flag", [
-    "sharding", "sharded_update", "tensor_parallel", "pipeline",
-    "auto_shard", "overlap_grad_sync", "use_hierarchical_allreduce",
-    "mesh"])
+    "tensor_parallel", "pipeline", "auto_shard", "overlap_grad_sync",
+    "use_hierarchical_allreduce", "mesh"])
 def test_unported_strategy_flags_are_refused_by_name(flag):
     tcore.reset_default_programs()
     main, startup = tfluid.Program(), tfluid.Program()

@@ -151,7 +151,11 @@ def test_route_table_names_every_kernel_and_what_it_replaces():
                           "layer_norm", "fused_add_layernorm",
                           "fused_elemwise_activation", "adam", "adamw",
                           "c_quant_allreduce_sum",
-                          "c_fused_quant_allreduce_sum"}
+                          "c_fused_quant_allreduce_sum",
+                          "quant_reduce_scatter"}
+    # ZeRO-1's quantized scatter takes the accumulating kernel only
+    assert [r.kernels for r in table["quant_reduce_scatter"]] == \
+        [("dequant_accumulate",)]
     kernels = {k for routes in table.values() for r in routes
                for k in r.kernels}
     assert kernels == set(port_cuda.LAUNCHES)

@@ -9,7 +9,20 @@
         localsgd IN.npz K OUT_DIR
 
 ``collectives``: every ported collective op on this rank's inputs
-(``IN.npz`` holds ``r<rank>/<case>`` arrays), outputs saved per case.
+(``IN.npz`` holds ``r<rank>/<case>`` arrays), outputs saved per case, and
+``fsdp_all_gather``'s gradient for the cotangent ``G``.
+``zero1``: BERT-tiny pretraining through ``fleet`` with
+``strategy.sharding`` (ZeRO-1) in the TIER ``fp32`` / ``bf16`` (the
+scatter in bf16) / ``int8`` / ``int4`` (the quantized scatter) /
+``amp`` (``strategy.amp``), with AdamW (0.01, warmup and decay, no norm
+clip), or ``sgd`` / ``momentum``; ``zero3``: the AdamW program rewritten
+by ``apply_fsdp_sharding(main, MeshLayout(fsdp=2))`` and compiled with
+``CompiledProgram.with_mesh``.  Both run like ``dp`` and save every
+persistable's global value (the blocks gathered) and the program desc.
+``zero1ckpt IN.npz CKPT OUT_DIR``: the fp32 ZeRO-1 program loads the
+checkpoint under CKPT (the JAX package's), saves each rank's blocks
+right after, trains 2 steps and saves a checkpoint of its own under
+``OUT_DIR/ckpt``.
 ``localsgd``: a small regression MLP through ``fleet`` with
 ``strategy.localsgd`` (SGD 0.2, ``k_steps`` K), each rank on its own rows
 of the global batches in ``IN.npz`` (one ``prepare(donate_state=True)``
@@ -19,8 +32,9 @@ op types and the step's predicate reads.
 recipe, from the startup parameters and batches in ``IN.npz`` (one step
 a batch), for the fp32 / int8 / int4 tier of the gradient all-reduce or
 ``amp`` (``strategy.amp``: bf16 compute, fp32 gradient sync), through
-``Executor.run`` and then ``Executor.prepare(donate_state=True)``.  Each
-rank writes ``OUT_DIR/rank<r>.npz``.  Imports the port only."""
+``Executor.run`` and then ``Executor.prepare(donate_state=True)``; then
+rank 0 alone saves its persistables and a checkpoint, and both ranks
+take one more step.  Each rank writes ``OUT_DIR/rank<r>.npz``.  Imports the port only."""
 
 from __future__ import annotations
 
@@ -73,6 +87,20 @@ COLLECTIVE_CASES = [
     ("allgather_dim1", "c_allgather", {"gather_dim": 1}, ("X",)),
     ("reducescatter", "c_reducescatter", {}, ("R",)),
     ("alltoall", "alltoall", {}, ("R",)),
+    ("zero_reduce_scatter", "zero_reduce_scatter",
+     {"scale": 0.5, "align": 128}, ("Q",)),
+    ("zero_reduce_scatter_bf16", "zero_reduce_scatter",
+     {"compress_dtype": "bfloat16"}, ("X",)),
+    ("quant_reduce_scatter_int8", "quant_reduce_scatter",
+     {"quant_spec": {"dtype": "int8", "block_size": 256}, "scale": 0.5},
+     ("Q",)),
+    ("quant_reduce_scatter_int4", "quant_reduce_scatter",
+     {"quant_spec": {"dtype": "int4", "block_size": 128}}, ("Q",)),
+    ("zero_shard_slice", "zero_shard_slice", {"align": 128}, ("Q",)),
+    ("zero_shard_slice_unaligned", "zero_shard_slice", {}, ("X",)),
+    ("zero_all_gather", "zero_all_gather", {"numel": 60, "shape": [6, 10]},
+     ("S",)),
+    ("fsdp_all_gather", "fsdp_all_gather", {"gather_dim": 1}, ("X",)),
     ("identity", "c_identity", {}, ("X",)),
     ("sync_calc", "c_sync_calc_stream", {}, ("X",)),
     ("sync_comm", "c_sync_comm_stream", {}, ("X",)),
@@ -113,6 +141,13 @@ def collectives(inputs, out_dir):
             out[f"{case}/{i}"] = t.numpy()
         if "QScale" in res:
             out[f"{case}/qscale"] = res["QScale"].numpy()
+    # fsdp_all_gather's backward: this rank's cotangent G of the gathered
+    # tensor comes back as the summed gradient of its shard
+    xg = torch.from_numpy(data[f"r{rank}/X"]).requires_grad_(True)
+    full = registry.get_op("fsdp_all_gather")(ctx, {"X": [xg]},
+                                              {"gather_dim": 1})["Out"]
+    torch.autograd.backward(full, torch.from_numpy(data[f"r{rank}/G"]))
+    out["fsdp_grad"] = xg.grad.numpy()
     for op in NOOP_OPS:
         assert registry.get_op(op)(ctx, {}, {}) == {}
     out["routes"] = np.array(sorted(
@@ -179,11 +214,170 @@ def dp(inputs, tier, out_dir):
             fluid.sync_prepared_state(scope)
         out[f"{entry}/losses"] = np.array(losses)
         for n in names:
-            out[f"{entry}/p/{n}"] = np.asarray(scope.find_var(n))
+            out[f"{entry}/p/{n}"] = np.array(scope.find_var(n))
+        out[f"{entry}/routes"] = np.array(sorted(
+            f"{k[0]}:{k[2]}:{v // steps}"
+            for k, v in registry.route_counts().items()))
+    # the usual fleet save: rank 0 alone saves the replicated state while
+    # rank 1 goes on to the next step's gradient sync; a save that waited
+    # on the other rank would hang or cross that collective
+    if rank == 0:
+        d = os.path.join(out_dir, "rank0_save")
+        io.save_persistables(exe, d, main, scope=scope)
+        with np.load(os.path.join(d, "params.npz")) as f:
+            for n in f.files:
+                out[f"rank0_save/{n}"] = f[n]
+        ck = io.save_checkpoint(exe, os.path.join(out_dir, "rank0_ckpt"),
+                                io.TrainStatus(0), main, scope=scope)
+        out["rank0_ckpt_ok"] = np.array(io.validate_checkpoint_dir(ck)[0])
+    out["after_save/loss"] = np.array(float(step.run(batches[0])[0]))
+    out["desc"] = np.array(__import__("json").dumps(program_to_desc(main)))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+#: ZeRO tiers: (strategy flags, inner optimizer)
+ZERO_TIERS = {
+    "fp32": ({}, "adamw"),
+    "bf16": ({"bf16_allreduce": True}, "adamw"),
+    "int8": ({"quant_allreduce": True, "quant_configs": {
+        "dtype": "int8", "block_size": 256, "stochastic_rounding": False}},
+        "adamw"),
+    "int4": ({"quant_allreduce": True, "quant_configs": {
+        "dtype": "int4", "block_size": 128, "stochastic_rounding": False}},
+        "adamw"),
+    "amp": ({"amp": True}, "adamw"),
+    "sgd": ({}, "sgd"),
+    "momentum": ({}, "momentum"),
+}
+
+
+def zero_optimizer(fluid, kind):
+    """The inner optimizer of a ZeRO run: AdamW 0.01 with warmup into
+    linear decay (the recipe without its global-norm clip, which ZeRO-1
+    refuses), SGD or Momentum."""
+    lr = fluid.layers.linear_lr_warmup(
+        fluid.layers.polynomial_decay(1e-3, 10, 0.0, power=1.0), 2, 0.0,
+        1e-3)
+    if kind == "sgd":
+        return fluid.optimizer.SGD(0.05)
+    if kind == "momentum":
+        return fluid.optimizer.Momentum(0.02, 0.9)
+    return fluid.optimizer.AdamW(lr, weight_decay=0.01)
+
+
+def build_zero(mode, tier):
+    """The user's ZeRO program: ``zero1`` through fleet's
+    ``strategy.sharding``, ``zero3`` through ``apply_fsdp_sharding`` and
+    ``with_mesh``.  Returns (the program to run, the program, the loss)."""
+    from paddle_tpu_torch.framework.fsdp import apply_fsdp_sharding
+    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 7
+    flags, kind = ZERO_TIERS[tier]
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(_cfg())
+        build = fluid.BuildStrategy()
+        build.fuse_elewise_add_act_ops = True
+        if mode == "zero1":
+            s = DistributedStrategy()
+            s.sharding = True
+            for k, v in flags.items():
+                setattr(s, k, v)
+            s.build_strategy = build
+            fleet.distributed_optimizer(zero_optimizer(fluid, kind),
+                                        s).minimize(total)
+        else:
+            zero_optimizer(fluid, kind).minimize(total)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    if mode == "zero1":
+        return fleet.main_program, main, total
+    layout = MeshLayout(fsdp=2)
+    apply_fsdp_sharding(main, layout)
+    compiled = fluid.CompiledProgram(main).with_mesh(
+        layout.build_mesh(), loss_name=total.name,
+        batch_axis=layout.batch_axes, build_strategy=build)
+    return compiled, main, total
+
+
+def _global_state(compiled, main, scope):
+    """Every persistable's global value (a sharded one's blocks
+    gathered; every rank calls this in the same order)."""
+    from paddle_tpu_torch.ops.collective_ops import whole_of
+    out = {}
+    for v in sorted(main.list_vars(), key=lambda v: v.name):
+        if v.persistable and scope.find_var(v.name) is not None:
+            t = whole_of(compiled._dp, v, scope.find_var(v.name))
+            out[v.name] = io._to_numpy(t)
+    return out
+
+
+def zero(mode, inputs, tier, out_dir):
+    rank = int(os.environ["RANK"])
+    _init(rank)
+    data = np.load(inputs)
+    init = {k[2:]: data[k] for k in data.files if k.startswith("p/")}
+    steps = len({k.split("/", 1)[0] for k in data.files
+                 if k.startswith("b")})
+    batches = [{k.split("/", 1)[1]: data[k] for k in data.files
+                if k.startswith(f"b{i}/")} for i in range(steps)]
+    out = {}
+    for entry in ("run", "prepare"):
+        registry.reset_route_counts()
+        compiled, main, total = build_zero(mode, tier)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        scope = fluid.Scope()
+        dtypes = {v.name: v.dtype for v in main.list_vars()}
+        for n, t in io.convert_params({n: init[n] for n in names},
+                                      "cpu", dtypes).items():
+            scope.set_var(n, t)
+        exe = fluid.Executor(fleet.place)
+        if entry == "run":
+            losses = [float(exe.run(compiled, feed=b, fetch_list=[total],
+                                    scope=scope)[0]) for b in batches]
+        else:
+            step = exe.prepare(compiled, fetch_list=[total], scope=scope,
+                               donate_state=True)
+            losses = [float(step.run(b)[0]) for b in batches]
+            fluid.sync_prepared_state(scope)
+        out[f"{entry}/losses"] = np.array(losses)
+        # the bytes this rank holds of each persistable
+        for n in names:
+            t = scope.find_var(n)
+            out[f"{entry}/held/{n}"] = np.array(t.numel() *
+                                                t.element_size())
+        for n, a in _global_state(compiled, main, scope).items():
+            out[f"{entry}/p/{n}"] = a
         out[f"{entry}/routes"] = np.array(sorted(
             f"{k[0]}:{k[2]}:{v // steps}"
             for k, v in registry.route_counts().items()))
     out["desc"] = np.array(__import__("json").dumps(program_to_desc(main)))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def zero1ckpt(inputs, ckpt, out_dir):
+    rank = int(os.environ["RANK"])
+    _init(rank)
+    data = np.load(inputs)
+    batches = [{k.split("/", 1)[1]: data[k] for k in data.files
+                if k.startswith(f"b{i}/")} for i in range(2)]
+    compiled, main, total = build_zero("zero1", "fp32")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    st = io.load_checkpoint(exe, ckpt, main_program=main, scope=scope)
+    out = {"epoch": np.array(st.epoch_no)}
+    for v in main.list_vars():
+        if v.persistable and scope.find_var(v.name) is not None:
+            # a copy: the donated steps below update the blocks in place
+            out[f"loaded/{v.name}"] = io._to_numpy(
+                scope.find_var(v.name)).copy()
+    step = exe.prepare(compiled, fetch_list=[total], scope=scope,
+                       donate_state=True)
+    out["losses"] = np.array([float(step.run(b)[0]) for b in batches])
+    io.save_checkpoint(exe, os.path.join(out_dir, "ckpt"),
+                       io.TrainStatus(st.epoch_no + 1), main, scope=scope)
+    for n, a in _global_state(compiled, main, scope).items():
+        out[f"saved/{n}"] = a
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
 
 
@@ -236,5 +430,9 @@ if __name__ == "__main__":
         dp(sys.argv[2], sys.argv[3], sys.argv[4])
     elif mode == "localsgd":
         localsgd(sys.argv[2], sys.argv[3], sys.argv[4])
+    elif mode in ("zero1", "zero3"):
+        zero(mode, sys.argv[2], sys.argv[3], sys.argv[4])
+    elif mode == "zero1ckpt":
+        zero1ckpt(sys.argv[2], sys.argv[3], sys.argv[4])
     else:
         raise SystemExit(f"unknown mode {mode!r}")
