@@ -248,7 +248,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``torch._fused_adamw_``.  Printed per leg: the step (median of steps
    3-6), gloo's wall time in one step, the persistent and peak bytes a
    rank, and the checkpoint's save and load seconds;
-16. print the ``kernels`` JSON line, the card's name and power limit, and
+16. HSDP at BERT-base width on four ranks of the card over gloo (phase
+   10's launcher, each rank its 8 of the 32 x 128 rows), phase 15's
+   program and recipe with dropout 0, 6 prepared steps a leg.  (a) dp4
+   with the fp32 bucketed all-reduce, the yardstick; (b) HSDP:
+   ``apply_fsdp_sharding(main, MeshLayout(data=2, fsdp=2))`` +
+   ``CompiledProgram.with_mesh`` (bucketed gradient sync: the
+   fsdp-stamped gradients over dp, the rest over both axes); (c) (b)'s
+   state after step 3 through ``save_checkpoint(sharded=True)`` (each
+   rank its own blocks, nothing gathered) and then through
+   ``AsyncCheckpointer``; (d) four fresh ranks restore (c) onto
+   ``MeshLayout(fsdp=4)`` (blocks re-cut from 2 parts to 4) and (e) two
+   onto ``MeshLayout(data=2)`` (every persistable whole), each then steps
+   4-6.  Gates: (b) within 1e-4 of (a) in losses (relative) and
+   parameters (of max|p|); every rank's persistent bytes the layout's
+   prediction; (c) verifies, every block written once and the blocks
+   covering each persistable whole, the AsyncCheckpointer copy's shard
+   files the same bytes; (d)'s and (e)'s restored global state bit for
+   bit (c)'s, each rank's bytes read equal to its planned bytes, steps
+   4-6 within 1e-4 of (b)'s; phase 8's launches of #1-#10 a step on
+   every rank of every leg, no fallback.  Printed per leg: the step,
+   gloo's wall time and calls in one step, the persistent and peak bytes
+   a rank; (c)'s save seconds, bytes written a rank, and the seconds
+   ``AsyncCheckpointer.save()`` blocks against the whole write; (d)'s
+   and (e)'s load seconds, bytes read and reshard wire bytes;
+17. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -3820,10 +3844,11 @@ def build_zero_train(cfg, leg):
 
 def held_bytes(torch, dp, scope, main):
     """(bytes this rank's scope holds of the program's persistables, the
-    bytes the layout predicts over the run's group ``dp``: a sharded
-    one's global bytes over the world size, a replicated one's whole;
-    the moments' and the parameters' held bytes)."""
-    from paddle_tpu_torch.ops.collective_ops import shard_dim
+    bytes the layout predicts over the run's groups ``dp``: a sharded
+    one's global bytes over the ranks of the axes that shard it, a
+    replicated one's whole; the moments' and the parameters' held
+    bytes)."""
+    from paddle_tpu_torch.ops.collective_ops import _sharding
     held = predicted = moments = params = 0
     names = {p.name for p in main.all_parameters()}
     for v in main.list_vars():
@@ -3833,8 +3858,8 @@ def held_bytes(torch, dp, scope, main):
         nbytes = t.numel() * t.element_size()
         whole = math.prod(v.shape) * t.element_size()
         held += nbytes
-        predicted += whole // dp.world if shard_dim(dp, v) is not None \
-            else whole
+        sh = _sharding(dp, v)
+        predicted += whole // sh[1].world if sh is not None else whole
         if "_moment" in v.name:
             moments += nbytes
         elif v.name in names:
@@ -4226,6 +4251,487 @@ def zero_phase(torch, np, repo, cfg, results):
                                 ranks[0][leg]["launches"].items()}
                 for leg in ZERO_LEGS}
     return launches, report
+
+
+# ---------------------------------------------------------------------------
+# phase 16: HSDP (data x fsdp) on four ranks, sharded checkpoints, reshard
+# ---------------------------------------------------------------------------
+
+#: phase 16: four ranks of the card over gloo, each its 8 rows of the
+#: 32 x 128 batch, dropout 0.  (a) dp4, fp32 all-reduce (the yardstick);
+#: (b) HSDP data 2 x fsdp 2; (c) (b)'s state after step 3 through
+#: ``save_checkpoint(sharded=True)`` and ``AsyncCheckpointer``; (d) four
+#: fresh ranks restore (c) onto fsdp 4, (e) two onto data 2 (plain data
+#: parallelism), each then steps 4-6
+HSDP_RANKS = 4
+HSDP_LEG_NAMES = {"a": "dp4, fp32 all-reduce", "b": "HSDP data 2 x fsdp 2",
+                  "d": "(c) restored onto fsdp 4",
+                  "e": "(c) restored onto data 2"}
+HSDP_LAYOUTS = {"b": {"data": 2, "fsdp": 2}, "d": {"fsdp": 4},
+                "e": {"data": 2}}
+HSDP_STEPS, HSDP_SAVE_AT = 6, 3
+TOL_HSDP_LOSS = 1e-4      # (b) vs (a); (d), (e) vs (b): losses (relative)
+TOL_HSDP_PARAM = 1e-4     # (b) vs (a): parameters, of max|p|
+HSDP_TIMEOUT_S = 600
+
+
+def hsdp_config(cfg):
+    """Phase 16's model: BERT-base uncut, dropout 0."""
+    import copy
+    cfg = copy.copy(cfg)
+    cfg.hidden_dropout_prob = 0.0
+    cfg.attention_probs_dropout_prob = 0.0
+    return cfg
+
+
+def build_hsdp_train(cfg, leg):
+    """Phase 16's program for ``leg`` as a rank writes it: phase 15's (a)
+    program through ``fleet`` for (a); for the others the recipe of
+    :func:`zero_optimizer` minimized, ``apply_fsdp_sharding`` over the
+    leg's ``MeshLayout`` (a no-op without an fsdp axis), the layout
+    stamped on the program and ``CompiledProgram.with_mesh`` with
+    bucketed gradient sync.  Returns (the program to run, main, startup,
+    loss)."""
+    if leg == "a":
+        return build_zero_train(cfg, "a")
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.fsdp import apply_fsdp_sharding
+    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    from paddle_tpu_torch.framework.passes import apply_pass
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        zero_optimizer(fluid).minimize(total)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    layout = MeshLayout(**HSDP_LAYOUTS[leg])
+    apply_fsdp_sharding(main, layout)
+    main._mesh_layout = layout
+    build = fluid.BuildStrategy()
+    build.fuse_elewise_add_act_ops = True
+    build.fuse_all_reduce_ops = True
+    program = fluid.CompiledProgram(main).with_mesh(
+        layout.build_mesh(), loss_name=total.name,
+        batch_axis=layout.batch_axes, build_strategy=build)
+    return program, main, startup, total
+
+
+def global_digests(np, dp, scope, main):
+    """sha256 of every persistable's global value (a sharded one's blocks
+    gathered over its axes: a collective, so every rank calls it)."""
+    import hashlib
+    from paddle_tpu_torch.ops.collective_ops import whole_of
+    out = {}
+    for v in sorted(main.list_vars(), key=lambda v: v.name):
+        t = scope.find_var(v.name) if v.persistable else None
+        if t is None or not hasattr(t, "detach"):
+            continue
+        g = whole_of(dp, v, t)
+        out[v.name] = hashlib.sha256(
+            g.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+        del g
+    return out
+
+
+def hsdp_steps(torch, prepared, feed, steps, out):
+    """``steps`` prepared steps with the launch and route counts set to 0
+    first: the losses and step seconds; the launches by (kernel, dtype)
+    and the fallbacks into ``out``."""
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(prepared.run(feed)[0]))
+        step_s.append(time.perf_counter() - t0)
+    out["launches"] = {f"{k}/{dt}": n for (k, dt), n in
+                       kernels.launch_counts_by_dtype().items()}
+    out["fallbacks"] = {str(k): v for k, v in
+                        registry.route_counts("fallback").items()}
+    return losses, step_s
+
+
+def hsdp_collectives(torch, prepared, feed, out):
+    """One more step with the gloo transfers timed."""
+    totals, undo = timed_collectives(torch)
+    try:
+        t0 = time.perf_counter()
+        prepared.run(feed)[0].numpy()
+        out["collectives_step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    out["collectives_ms"] = totals["ms"]
+    out["collective_calls"] = totals["calls"]
+
+
+def hsdp_leg(torch, np, cfg, leg, feed, out_dir, ref):
+    """Leg (a) or (b) on this rank: the startup, HSDP_STEPS prepared steps
+    ((b) saves after step HSDP_SAVE_AT: (c)), the held bytes against the
+    layout, (a)'s losses and parameters kept in ``ref`` or (b)'s held
+    against them, then one step with the gloo transfers timed."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    dev = torch.device("cuda", fleet.place.device_id)
+    program, main, startup, total = build_hsdp_train(cfg, leg)
+    dp = program._dp
+    check(dp is not None and dp.world == HSDP_RANKS,
+          f"({leg}): the program does not run over {HSDP_RANKS} ranks")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    exe.run(startup, scope=scope)
+    ops = [op.type for op in main.global_block().ops]
+    out = {"leg": leg, "ops": {t: ops.count(t) for t in (
+        "fsdp_all_gather", "c_fused_allreduce_sum", "c_allreduce_sum",
+        "adamw")}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    first, s1 = hsdp_steps(torch, prepared, feed, HSDP_SAVE_AT, out)
+    launches = dict(out["launches"])
+    if leg == "b":
+        out.update(hsdp_save(torch, np, exe, dp, main, scope, out_dir))
+    rest, s2 = hsdp_steps(torch, prepared, feed, HSDP_STEPS - HSDP_SAVE_AT,
+                          out)
+    for k, n in launches.items():
+        out["launches"][k] = out["launches"].get(k, 0) + n
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["losses"], out["step_s"] = first + rest, s1 + s2
+    out["step_ms_median_3_6"] = statistics.median(out["step_s"][2:]) * 1e3
+    fluid.sync_prepared_state(scope)
+    out["held"], out["predicted"], out["moment_bytes"], \
+        out["param_bytes"] = held_bytes(torch, dp, scope, main)
+    params = global_params(dp, scope, main)
+    if leg == "a":
+        ref["params"], ref["losses"] = params, out["losses"]
+    else:
+        out["param_gap_vs_a"] = params_gap(torch, params, ref["params"])
+        out["loss_gap_vs_a"] = max(abs(a - b) / abs(b) for a, b in
+                                   zip(out["losses"], ref["losses"]))
+    del params
+    hsdp_collectives(torch, prepared, feed, out)
+    del prepared, scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+def hsdp_save(torch, np, exe, dp, main, scope, out_dir):
+    """(c) on this rank, after (b)'s step HSDP_SAVE_AT: the global state's
+    digests and bytes, ``save_checkpoint(sharded=True)`` under ``ckpt``
+    and the same state through ``AsyncCheckpointer`` under ``async``: the
+    seconds the sharded save takes, this rank's bytes written, the
+    seconds ``save()`` blocks and the seconds until ``wait()``, called
+    right after it, returns (the whole write)."""
+    from paddle_tpu_torch import fluid, io
+    fluid.sync_prepared_state(scope)
+    out = {"saved_sha256": global_digests(np, dp, scope, main),
+           "state_bytes": sum(
+               math.prod(v.shape) * scope.find_var(v.name).element_size()
+               for v in main.list_vars() if v.persistable and
+               hasattr(scope.find_var(v.name), "element_size"))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = io.save_checkpoint(exe, os.path.join(out_dir, "ckpt"),
+                           io.TrainStatus(HSDP_SAVE_AT), main, scope=scope,
+                           sharded=True)
+    out["save_s"] = time.perf_counter() - t0
+    out["written_bytes"] = sum(
+        os.path.getsize(os.path.join(d, f"{stem}_{dp.rank}.{ext}"))
+        for stem, ext in (("shard_data", "npz"), ("shard_manifest", "json"),
+                          ("torch_rng", "npz")))
+    ck = io.AsyncCheckpointer()
+    t0 = time.perf_counter()
+    ck.save(exe, os.path.join(out_dir, "async"),
+            io.TrainStatus(HSDP_SAVE_AT), main, scope=scope)
+    out["async_block_s"] = time.perf_counter() - t0
+    ck.wait()
+    out["async_whole_s"] = time.perf_counter() - t0
+    fluid.sync_prepared_state(scope)
+    return out
+
+
+def hsdp_restore(torch, np, cfg, leg, feed, out_dir):
+    """(d) or (e) on a fresh set of ranks: the leg's program, no startup,
+    ``load_checkpoint`` of (c)'s sharded checkpoint onto its layout (the
+    seconds, the bytes this rank read against its planned bytes, the
+    reshard's wire bytes), the restored global state's digests, then
+    steps HSDP_SAVE_AT + 1 to HSDP_STEPS."""
+    from paddle_tpu_torch import fluid, io
+    from paddle_tpu_torch.distributed import fleet
+    dev = torch.device("cuda", fleet.place.device_id)
+    program, main, _, total = build_hsdp_train(cfg, leg)
+    dp = program._dp
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = io.load_checkpoint(exe, os.path.join(out_dir, "ckpt"),
+                            main_program=main, scope=scope)
+    torch.cuda.synchronize()
+    out = {"leg": leg, "load_s": time.perf_counter() - t0,
+           "epoch": st.epoch_no,
+           "bytes_read": st.read_stats["bytes_read"],
+           "planned_bytes": st.read_stats["planned_bytes"],
+           "wire_bytes": st.reshard["wire_bytes"] if st.reshard else None,
+           "reshard_steps": st.reshard["steps_by_kind"] if st.reshard
+           else None,
+           "restored_sha256": global_digests(np, dp, scope, main)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    out["losses"], out["step_s"] = hsdp_steps(
+        torch, prepared, feed, HSDP_STEPS - HSDP_SAVE_AT, out)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    fluid.sync_prepared_state(scope)
+    out["held"], out["predicted"], out["moment_bytes"], \
+        out["param_bytes"] = held_bytes(torch, dp, scope, main)
+    hsdp_collectives(torch, prepared, feed, out)
+    return out
+
+
+def hsdp_worker(out_dir, legs):
+    """One rank of phase 16 (``--hsdp-worker DIR LEGS``): legs "ab" on
+    four ranks, "d" on four fresh ones, "e" on two; writes
+    ``hsdp<r>_<legs>.json``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
+    from paddle_tpu_torch.models import bert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
+    cfg = hsdp_config(bert.BertConfig.base())
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    res = {"rank": rank, "world": fleet.worker_num()}
+    if legs in ("d", "e"):
+        res[legs] = hsdp_restore(torch, np, cfg, legs, feed, out_dir)
+    else:
+        ref = {}
+        for leg in legs:
+            res[leg] = hsdp_leg(torch, np, cfg, leg, feed, out_dir, ref)
+    for leg in legs:
+        m = res[leg]
+        log(f"[rank {rank}] ({leg}) losses "
+            f"{[round(x, 5) for x in m['losses']]}, held {m['held']} B "
+            f"(predicted {m['predicted']})")
+    with open(os.path.join(out_dir, f"hsdp{rank}_{legs}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def hsdp_launch(torch, repo, out_dir, nproc, legs):
+    """``nproc`` ranks of this script on the card over gloo; returns their
+    JSON results."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc", str(nproc), "--selected_gpus", ",".join(["0"] * nproc),
+           "--backend", "gloo", "--timeout", str(HSDP_TIMEOUT_S),
+           os.path.join(repo, "chip_smoke.py"), "--hsdp-worker", out_dir,
+           legs]
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=repo,
+                        timeout=HSDP_TIMEOUT_S + 60).returncode
+    log(f"  legs {legs} on {nproc} ranks: ran "
+        f"{time.perf_counter() - t0:.1f} s, exit code {rc}")
+    check(rc == 0, f"phase 16 legs {legs}: a rank failed (exit code {rc})")
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"hsdp{r}_{legs}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def check_hsdp_rank(what, m, steps):
+    """The gates every rank of every leg meets: finite losses, no
+    fallback, phase 8's launches of #1-#10 a step, the held bytes the
+    layout's."""
+    check(all(math.isfinite(x) for x in m["losses"]),
+          f"{what}: losses not finite: {m['losses']}")
+    check(not m["fallbacks"], f"{what}: fallbacks {m['fallbacks']}")
+    want = {f"{k}/float32": n for k, n in FUSED_LAUNCHES.items()}
+    got = m["launches"]
+    for key in set(want) | set(got):
+        check(got.get(key, 0) == want.get(key, 0) * steps,
+              f"{what}: {key} launched {got.get(key, 0)} times in {steps} "
+              f"steps, expected {want.get(key, 0)} a step")
+    check(m["held"] == m["predicted"],
+          f"{what}: the scope holds {m['held']} bytes of persistables, the "
+          f"layout predicts {m['predicted']}")
+
+
+def shard_coverage(ckpt):
+    """(elements each persistable's blocks cover, summed over every
+    rank's shard manifest, the global elements, blocks listed twice) of a
+    sharded checkpoint."""
+    covered, total, seen, twice = {}, {}, set(), []
+    for fn in sorted(os.listdir(ckpt)):
+        if not fn.startswith("shard_manifest_"):
+            continue
+        with open(os.path.join(ckpt, fn)) as f:
+            for name, rec in json.load(f)["vars"].items():
+                total[name] = math.prod(rec["shape"])
+                for e in rec["shards"]:
+                    key = (name, json.dumps(e["index"]))
+                    if key in seen:
+                        twice.append(key)
+                    seen.add(key)
+                    covered[name] = covered.get(name, 0) + (
+                        total[name] if e["index"] is None else
+                        math.prod(b - a for a, b in e["index"]))
+    return covered, total, twice
+
+
+def hsdp_phase(torch, np, repo):
+    """Phase 16 (see the module docstring); returns rank 0's launches by
+    leg and the report."""
+    from paddle_tpu_torch.ops.cuda import build
+    out_dir = os.path.join(build.BUILD_DIR, "smoke_hsdp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        trained = hsdp_launch(torch, repo, out_dir, HSDP_RANKS, "ab")
+        ckpt = os.path.join(out_dir, "ckpt", f"checkpoint_{HSDP_SAVE_AT}")
+        copy = os.path.join(out_dir, "async", f"checkpoint_{HSDP_SAVE_AT}")
+        report = {"c": hsdp_saved(trained, ckpt, copy)}
+        restored = {"d": hsdp_launch(torch, repo, out_dir, HSDP_RANKS, "d"),
+                    "e": hsdp_launch(torch, repo, out_dir, 2, "e")}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    report.update(hsdp_report(trained, restored))
+    launches = {f"hsdp_{leg}": {k.split("/")[0]: v for k, v in
+                                trained[0][leg]["launches"].items()}
+                for leg in "ab"}
+    launches.update({f"hsdp_{leg}": {k.split("/")[0]: v for k, v in
+                                     ranks[0][leg]["launches"].items()}
+                     for leg, ranks in restored.items()})
+    return launches, report
+
+
+def hsdp_saved(trained, ckpt, copy):
+    """(c)'s gates: both checkpoints verify, every block of every
+    persistable written once and the blocks covering it whole, the
+    AsyncCheckpointer copy's shard files those of the sharded save."""
+    from paddle_tpu_torch import io
+    bs = [r["b"] for r in trained]
+    saved = bs[0]["saved_sha256"]
+    check(all(m["saved_sha256"] == saved for m in bs),
+          "(c): the ranks gathered other global states")
+    for d in (ckpt, copy):
+        ok, why = io.validate_checkpoint_dir(d)
+        check(ok, f"(c): {d} does not verify: {why}")
+    covered, total, twice = shard_coverage(ckpt)
+    check(not twice, f"(c): blocks written twice: {twice[:3]}")
+    check(set(total) == set(saved) and covered == total,
+          "(c): the blocks do not cover each persistable once: "
+          f"{sorted(n for n in total if covered[n] != total[n])[:5]}")
+    files = {d: io._read_manifest(d)["files"] for d in (ckpt, copy)}
+    shards = sorted(f for f in files[ckpt] if f.startswith("shard_"))
+    check(shards and all(files[ckpt][f] == files[copy].get(f)
+                         for f in shards),
+          "(c): AsyncCheckpointer's files differ from the sharded save's")
+    payload = sum(os.path.getsize(os.path.join(ckpt, f)) for f in shards
+                  if f.startswith("shard_data_"))
+    written = [m["written_bytes"] for m in bs]
+    log(f"  (c) sharded save: {max(m['save_s'] for m in bs):.2f} s (the "
+        f"slowest rank), {sum(written) / 1e9:.4f} GB written by the "
+        f"{len(bs)} ranks ({', '.join(map(str, written))} B), shard "
+        f"payload {payload / 1e9:.4f} GB for a state of "
+        f"{bs[0]['state_bytes'] / 1e9:.4f} GB, every block once; "
+        f"AsyncCheckpointer.save() blocked "
+        f"{max(m['async_block_s'] for m in bs):.2f} s of a "
+        f"{max(m['async_whole_s'] for m in bs):.2f} s write")
+    return {"save_s": [m["save_s"] for m in bs], "written_bytes": written,
+            "payload_bytes": payload, "state_bytes": bs[0]["state_bytes"],
+            "async_block_s": [m["async_block_s"] for m in bs],
+            "async_whole_s": [m["async_whole_s"] for m in bs]}
+
+
+def hsdp_report(trained, restored):
+    """Phase 16's gates of legs (a), (b), (d) and (e), and their printed
+    figures."""
+    report = {}
+    for leg in "ab":
+        rs = [r[leg] for r in trained]
+        what = f"({leg}) {HSDP_LEG_NAMES[leg]}"
+        for r, m in enumerate(rs):
+            check_hsdp_rank(f"{what} rank {r}", m, HSDP_STEPS)
+        check(all(m["losses"] == rs[0]["losses"] for m in rs),
+              f"{what}: the ranks fetched other losses")
+        if leg == "b":
+            for key, bound in (("loss_gap_vs_a", TOL_HSDP_LOSS),
+                               ("param_gap_vs_a", TOL_HSDP_PARAM)):
+                gap = max(m[key] for m in rs)
+                log(f"  {what}: {key} {gap:.3e} (tolerance {bound})")
+                check(gap <= bound, f"{what}: {key} {gap:.3e} over {bound}")
+        m, a = rs[0], trained[0]["a"]
+        log(f"  {what}: step {m['step_ms_median_3_6']:.2f} ms (median of "
+            f"steps 3-{HSDP_STEPS}), gloo {m['collectives_ms']:.2f} ms in "
+            f"{m['collective_calls']} calls of a "
+            f"{m['collectives_step_ms']:.2f} ms step (gloo staged through "
+            f"the host, four ranks on one card); persistent "
+            f"{m['held'] / 1e9:.4f} GB a rank (moments "
+            f"{m['moment_bytes'] / 1e9:.4f} GB, parameters "
+            f"{m['param_bytes'] / 1e9:.4f} GB; (a) {a['held'] / 1e9:.4f} "
+            f"GB), peak allocated {m['peak_bytes'] / 1e9:.3f} GB")
+        report[leg] = {k: m[k] for k in (
+            "losses", "step_ms_median_3_6", "collectives_ms",
+            "collective_calls", "collectives_step_ms", "held",
+            "moment_bytes", "param_bytes", "peak_bytes", "ops")}
+        report[leg].update({k: m[k] for k in (
+            "loss_gap_vs_a", "param_gap_vs_a") if k in m})
+    saved = trained[0]["b"]["saved_sha256"]
+    b_after = trained[0]["b"]["losses"][HSDP_SAVE_AT:]
+    for leg, ranks in restored.items():
+        what = f"({leg}) {HSDP_LEG_NAMES[leg]}"
+        for r, res in enumerate(ranks):
+            m = res[leg]
+            who = f"{what} rank {r}"
+            check_hsdp_rank(who, m, HSDP_STEPS - HSDP_SAVE_AT)
+            differ = sorted(n for n in saved
+                            if m["restored_sha256"].get(n) != saved[n])
+            check(m["epoch"] == HSDP_SAVE_AT and not differ and
+                  set(m["restored_sha256"]) == set(saved),
+                  f"{who}: epoch {m['epoch']}, restored global state "
+                  f"differs from (c)'s: {differ[:5]}")
+            check(m["bytes_read"] == m["planned_bytes"],
+                  f"{who}: read {m['bytes_read']} bytes, planned "
+                  f"{m['planned_bytes']}")
+            m["loss_gap_vs_b"] = max(abs(x - y) / abs(y) for x, y in
+                                     zip(m["losses"], b_after))
+            check(m["loss_gap_vs_b"] <= TOL_HSDP_LOSS,
+                  f"{who}: steps {HSDP_SAVE_AT + 1}-{HSDP_STEPS} "
+                  f"{m['losses']} vs (b)'s {b_after}: "
+                  f"{m['loss_gap_vs_b']:.3e}")
+        m = ranks[0][leg]
+        m["step_ms_median"] = statistics.median(m["step_s"]) * 1e3
+        log(f"  {what}: load_checkpoint {m['load_s']:.2f} s, read "
+            f"{m['bytes_read'] / 1e9:.4f} GB a rank (planned "
+            f"{m['planned_bytes'] / 1e9:.4f} GB), reshard wire "
+            f"{(m['wire_bytes'] or 0) / 1e9:.4f} GB {m['reshard_steps']}; "
+            f"the restored state bit for bit (c)'s; steps "
+            f"{HSDP_SAVE_AT + 1}-{HSDP_STEPS} within "
+            f"{max(r[leg]['loss_gap_vs_b'] for r in ranks):.3e} of (b)'s; "
+            f"step {m['step_ms_median']:.2f} ms, gloo "
+            f"{m['collectives_ms']:.2f} ms in {m['collective_calls']} calls; "
+            f"persistent {m['held'] / 1e9:.4f} GB a rank, peak "
+            f"{m['peak_bytes'] / 1e9:.3f} GB")
+        report[leg] = {k: m[k] for k in (
+            "load_s", "bytes_read", "planned_bytes", "wire_bytes",
+            "reshard_steps", "losses", "loss_gap_vs_b", "held",
+            "peak_bytes", "step_ms_median", "collectives_ms",
+            "collective_calls")}
+        report[leg]["ranks"] = len(ranks)
+    check(restored["d"][0]["d"]["held"] < trained[0]["b"]["held"],
+          "(d): fsdp 4 holds no less a rank than HSDP's fsdp 2")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -4790,6 +5296,9 @@ WRAPPED_PATHS = ("recompute", "gradient_merge", "dgc", "localsgd")
 #: phase 15's paths, rank 0 of each leg: (a) dp2 fp32, (b)-(d) ZeRO-1 in
 #: fp32, int8 and int4, (e) ZeRO-3
 ZERO_PATHS = tuple(f"zero_{leg}" for leg in ZERO_LEGS)
+#: phase 16's paths, rank 0 of each leg: (a) dp4, (b) HSDP, (d) and (e)
+#: the restores' steps
+HSDP_PATHS = ("hsdp_a", "hsdp_b", "hsdp_d", "hsdp_e")
 
 
 def kernels_line(per_kernel, launches_by_path):
@@ -4821,8 +5330,10 @@ def kernels_line(per_kernel, launches_by_path):
     phase 13's LAMB run A (``lamb_launches``) add their launches, and so
     do phase 14's recompute (``recompute_launches``), recompute + gradient
     merge (``gradient_merge_launches``), DGC (``dgc_launches``) and
-    LocalSGD (``localsgd_launches``, rank 0) runs, and phase 15's legs
-    (``zero_a_launches`` ... ``zero_e_launches``, rank 0); Adam
+    LocalSGD (``localsgd_launches``, rank 0) runs, phase 15's legs
+    (``zero_a_launches`` ... ``zero_e_launches``, rank 0) and phase 16's
+    (``hsdp_a_launches``, ``hsdp_b_launches``, and the restored runs'
+    ``hsdp_d_launches`` and ``hsdp_e_launches``, rank 0); Adam
     carries its 16-bit rows (``16_bit``: bf16 and fp16 parameters beside
     float32 or 16-bit moments) and its row on ZeRO-1's flat shards
     (``zero1_shards``), #11 its rows at the ZeRO-1 scatter's largest
@@ -4857,7 +5368,8 @@ def kernels_line(per_kernel, launches_by_path):
                           "amp_pure_bf16", "lamb") + WRAPPED_PATHS}
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
                       "decode", "amp", "amp_fused", "amp_fp16",
-                      "amp_pure_bf16", "lamb") + WRAPPED_PATHS + ZERO_PATHS:
+                      "amp_pure_bf16", "lamb") + WRAPPED_PATHS + ZERO_PATHS \
+                + HSDP_PATHS:
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name == "adam":
@@ -4947,7 +5459,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, repo)
     workers = {"--dp-worker": dp_worker, "--localsgd-worker": localsgd_worker,
-               "--zero-worker": zero_worker}
+               "--zero-worker": zero_worker, "--hsdp-worker": hsdp_worker}
     if argv[:1] and argv[0] in workers:
         try:
             return workers[argv[0]](*argv[1:])
@@ -5046,6 +5558,12 @@ def main(argv=None) -> int:
             f"the recipe without its norm clip), {ZERO_STEPS} steps a leg")
         zero_launches, zero_report = zero_phase(torch, np, repo, base,
                                                 per_kernel)
+
+        log(f"phase 16: HSDP (data 2 x fsdp 2) at BERT-base width on "
+            f"{HSDP_RANKS} ranks of the card over gloo (phase 15's program "
+            f"and recipe, dropout 0), {HSDP_STEPS} steps a leg; sharded "
+            f"checkpoints restored onto fsdp 4 and data 2")
+        hsdp_launches, hsdp_report_ = hsdp_phase(torch, np, repo)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5053,7 +5571,7 @@ def main(argv=None) -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    log(f"phase 16: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 17: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
@@ -5064,6 +5582,7 @@ def main(argv=None) -> int:
     log("lamb " + json.dumps(lamb_report))
     log("wrappers " + json.dumps(wrappers_report))
     log("zero " + json.dumps(zero_report))
+    log("hsdp " + json.dumps(hsdp_report_))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
@@ -5071,7 +5590,7 @@ def main(argv=None) -> int:
         "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded,
         "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16,
         "amp_pure_bf16": amp_pure, "lamb": lamb, **wrapped,
-        **zero_launches})))
+        **zero_launches, **hsdp_launches})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -271,7 +271,19 @@ def _refuse_unported(s):
         raise UnimplementedError(
             f"DistributedStrategy.nccl_comm_num={s.nccl_comm_num}: one "
             f"communicator per process group is what is ported")
-    if getattr(s, "mesh", None) is not None:
+    mesh = getattr(s, "mesh", None)
+    from ..framework.mesh_layout import ProcessMesh
+    if _sharded(s) and isinstance(mesh, ProcessMesh) and mesh.size > 1 \
+            and len(mesh.axis_names) != 1:
+        # the JAX package's refusal (its fleet shards the update over one
+        # axis); a hybrid grid composes with_mesh and the optimizer
+        raise ValueError(
+            "sharded_update currently shards over a single-axis "
+            "(data-parallel) mesh; got axes "
+            f"{tuple(mesh.axis_names)} — use CompiledProgram"
+            ".with_mesh + ShardedUpdateOptimizer directly for "
+            "hybrid grids")
+    if mesh is not None:
         raise UnimplementedError(
             "DistributedStrategy.mesh: an explicit mesh is not ported yet; "
             "data parallelism (and ZeRO-1) is one process per rank over "

@@ -12,7 +12,9 @@ unless given), ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``FLAGS_selected_gpus`` (from ``--selected_gpus``, one id per rank, or one
 id for all) and the backend in ``PADDLE_DISTRI_BACKEND`` when
 ``--backend`` names one.  ``fleet.init`` reads them
-(``fleet.TPURoleMaker``).
+(``fleet.TPURoleMaker``).  Several ranks may share one GPU
+(``--nproc 4 --selected_gpus 0,0,0,0 --backend gloo``: NCCL refuses two
+ranks of a communicator on one device).
 
 The launcher returns the OR of the ranks' exit codes (a rank killed by a
 signal counts as 128 + the signal).  When a rank fails, the others get a

@@ -20,13 +20,13 @@ fused away.  The passes run on a clone of the program per fetch list
 executor runs the clone against the same scope.
 
 ``with_mesh`` takes the port's mesh (``MeshLayout.build_mesh()``: the
-named axes over the process group) with one axis above size 1 — ``dp``,
-or ``fsdp`` for ZeRO-3 after ``framework.fsdp.apply_fsdp_sharding`` —
-slices the feeds over the batch axes and inserts the gradient sync over
-the reduce axes (a parameter stamped over an axis is skipped there: its
-gradient arrives reduce-scattered).  A mesh of several axes (HSDP, tensor,
-pipeline or sequence parallelism) raises, and so do several places in one
-process: one process drives one device.  ``overlap_grad_sync`` is refused
+named axes over the process group) of the ``dp`` and ``fsdp`` axes —
+data parallelism, ZeRO-3 after ``framework.fsdp.apply_fsdp_sharding``,
+and HSDP (both) — slices the feeds over the batch axes and inserts the
+gradient sync over them (a parameter stamped over an axis is reduced over
+the others only: its gradient arrives reduce-scattered over that one).
+A tensor, pipeline or sequence axis raises, and so do several places in
+one process: one process drives one device.  ``overlap_grad_sync`` is refused
 by name (it needs backward hooks in the executor).  The JAX package's
 static checks of a variant (``verify_programs``, ``hbm_budget_gb``,
 ``aot_cache_dir``) belong to modules the port does not have yet, and it
@@ -49,8 +49,8 @@ _ONE_PROCESS_PER_RANK = (
     "per rank: launch the script with `python -m "
     "paddle_tpu_torch.distributed.launch --nproc N` and train through "
     "`paddle_tpu_torch.distributed.fleet`")
-_MESH_SLICE = ("a multi-axis mesh (HSDP, tensor, pipeline and sequence "
-               "parallelism) is not ported yet")
+_MESH_SLICE = ("tensor, pipeline and sequence parallelism are not ported "
+               "yet")
 
 
 class BuildStrategy:
@@ -146,74 +146,76 @@ class CompiledProgram:
             self._pending_passes.append("fuse_elemwise_add_act")
         return self
 
-    @staticmethod
-    def _one_axis(mesh) -> str:
-        """The one axis of the port's mesh that is above size 1 (its
-        first axis when none is); several raise, and so does any other
-        mesh object (a device mesh of several places in this process)."""
+    def with_mesh(self, mesh, loss_name: Optional[str] = None,
+                  batch_axis="dp", seq_axis: Optional[str] = None,
+                  feed_specs=None,
+                  build_strategy: Optional[BuildStrategy] = None):
+        """Compile for the port's mesh (``MeshLayout.build_mesh()``, a
+        ``ProcessMesh`` of the data and fsdp axes over the process group)
+        — the JAX package's ``with_mesh`` for ``MeshLayout(data=n)``,
+        ``MeshLayout(fsdp=n)`` after ``apply_fsdp_sharding`` (ZeRO-3) and
+        both (HSDP).  Feeds split on dim 0 over ``batch_axis`` (the
+        layout's ``batch_axes``) by the rank's flat index over them; with
+        a ``loss_name`` the gradient sync is inserted over the batch axes
+        of size above 1, each parameter's stamped axes left out (an
+        fsdp-stamped parameter's gradient is summed over fsdp by the
+        gather's transpose and reduced over ``dp`` only).  The mesh must
+        have as many ranks as the process group (``ValueError``).
+        ``seq_axis`` (sequence parallelism), a per-feed layout in
+        ``feed_specs`` and any other mesh object raise."""
+        if mesh is None:
+            self._dp = None
+            self._loss_name = loss_name
+            return self
         from .mesh_layout import ProcessMesh
         if not isinstance(mesh, ProcessMesh):
             raise UnimplementedError(
                 f"CompiledProgram.with_mesh: {mesh!r} is not the port's mesh "
                 f"(MeshLayout.build_mesh()); {_ONE_PROCESS_PER_RANK}")
         sizes = dict(mesh.shape)
-        real = [a for a in mesh.axis_names if sizes.get(a, 1) > 1]
-        if len(real) > 1:
+        other = [a for a in mesh.axis_names if sizes.get(a, 1) > 1
+                 and a not in ("dp", "fsdp")]
+        if other:
             raise UnimplementedError(
-                f"CompiledProgram.with_mesh over the axes {sizes}: "
-                f"{_MESH_SLICE}; one axis above size 1 (dp, or fsdp for "
-                f"ZeRO-3) is ported")
-        return real[0] if real else mesh.axis_names[0]
-
-    def with_mesh(self, mesh, loss_name: Optional[str] = None,
-                  batch_axis="dp", seq_axis: Optional[str] = None,
-                  feed_specs=None,
-                  build_strategy: Optional[BuildStrategy] = None):
-        """Compile for the port's mesh (``MeshLayout.build_mesh()``) of
-        one axis above size 1 over the process group — the JAX package's
-        ``with_mesh`` for ``MeshLayout(data=n)`` and (after
-        ``apply_fsdp_sharding``) ``MeshLayout(fsdp=n)``.  Feeds split on
-        dim 0 over ``batch_axis`` (the layout's ``batch_axes``); with a
-        ``loss_name`` the gradient sync is inserted over the reduce axes,
-        skipping each parameter's stamped axes.  ``seq_axis`` (sequence
-        parallelism), a per-feed layout in ``feed_specs`` and a mesh of
-        several axes raise."""
-        if mesh is None:
-            self._dp = None
-            self._loss_name = loss_name
-            return self
-        axis = self._one_axis(mesh)
+                f"CompiledProgram.with_mesh over the axes {sizes}: {other} "
+                f"{_MESH_SLICE}; the dp and fsdp axes (data parallelism, "
+                f"ZeRO-3, HSDP) are ported")
         if seq_axis or feed_specs:
             raise UnimplementedError(
                 f"CompiledProgram.with_mesh(seq_axis={seq_axis!r}, "
                 f"feed_specs={feed_specs!r}): sequence parallelism and "
                 f"per-feed layouts are not ported yet; feeds split on dim 0 "
-                f"over the batch axis")
-        sizes = dict(mesh.shape)
-        from ..ops.collective_ops import DataParallelGroup
-        dp = DataParallelGroup.current(axis)
-        world = dp.world if dp is not None else 1
-        if world != int(np.prod(list(sizes.values()))):
-            raise ValueError(
-                f"CompiledProgram.with_mesh: the mesh {sizes} needs "
-                f"{int(np.prod(list(sizes.values())))} ranks, the process "
-                f"group has {world}")
-        batch_axes = tuple(a for a in _flat_axes(batch_axis)
-                           if a in mesh.axis_names)
-        reduce_axes = tuple(a for a in batch_axes if sizes.get(a, 1) > 1)
+                f"over the batch axes")
         strategy = build_strategy or BuildStrategy()
         if strategy.overlap_grad_sync:
             raise UnimplementedError(
                 "BuildStrategy.overlap_grad_sync: firing gradient buckets "
                 "inside the backward sweep needs backward hooks in the "
                 "executor, which are not ported yet")
+        from ..ops.collective_ops import DataParallelGroup, MeshGroups
+        batch_axes = tuple(a for a in _flat_axes(batch_axis)
+                           if a in mesh.axis_names)
+        reduce_axes = tuple(a for a in batch_axes if sizes.get(a, 1) > 1)
+        real = [a for a in mesh.axis_names if sizes.get(a, 1) > 1]
+        if len(real) > 1:
+            dp = MeshGroups.of(mesh, reduce_axes)
+        else:
+            dp = DataParallelGroup.current(real[0] if real
+                                           else mesh.axis_names[0])
+            if dp is not None:
+                dp.batch_sharded = dp.axis_name in reduce_axes
+        world = dp.world if dp is not None else 1
+        if world != mesh.size:
+            raise ValueError(
+                f"CompiledProgram.with_mesh: the mesh {sizes} needs "
+                f"{mesh.size} ranks, the process group has {world}")
         if loss_name is not None and reduce_axes:
             n = int(np.prod([sizes[a] for a in reduce_axes]))
             insert_grad_sync(self._program, strategy, n, reduce_axes,
                              axis_sizes=sizes)
-        if dp is not None:
-            dp.batch_sharded = axis in reduce_axes
         self._dp = dp
+        # io reads the groups a checkpoint's blocks live over from here
+        self._program._run_groups = dp
         self._loss_name = loss_name
         if strategy.fuse_elewise_add_act_ops:
             self._pending_passes.append("fuse_elemwise_add_act")

@@ -354,6 +354,9 @@ class Program:
         # the program's canonical MeshLayout (serialized as the desc's
         # ``mesh_layout``), or None
         self._mesh_layout = None
+        # the process groups CompiledProgram.with_mesh compiled it for
+        # (not serialized, not cloned): what io reads a rank's blocks by
+        self._run_groups = None
 
     # -- structure -------------------------------------------------------
     def global_block(self) -> Block:

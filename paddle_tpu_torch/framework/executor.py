@@ -23,18 +23,21 @@ results are only waited for when read.
 Both take a :class:`~.compiler.CompiledProgram` too: ``run`` resolves its
 pass variant for the fetch list on every call, ``prepare`` once.  One
 compiled inside a ``torch.distributed`` group of more than one rank runs
-data-parallel, like the JAX package's ``shard_map`` over a ``dp`` axis:
-each rank keeps its ``1/world`` rows of every fed batch, the collectives
-reduce over the group, and fetches are merged across ranks (a float
-scalar averaged, an integer scalar summed, a batch-sharded tensor
-all-gathered; persistables and whatever the ``backward`` op or the ops
-after it write pass through).  A persistable whose ``dist_attr`` names the
-group's axis (ZeRO's optimizer-state shards, ZeRO-3's parameters) is held
-as the rank's block: the startup program builds the global value on every
-rank, and the first run that reads it keeps the rank's block, in its
-state and in the scope (``collective_ops.block_of``); a fetch of it
-returns the global value.  :func:`_resident` is the one place the
-executor applies that rule.
+over the groups it was compiled for (``dp`` below: a one-axis
+``DataParallelGroup`` or HSDP's ``MeshGroups``), like the JAX package's
+``shard_map`` over its mesh: each rank keeps its rows of every fed batch
+(dim 0 split over the batch axes by its flat index over them), the
+collectives reduce over the groups of their axes, and fetches are merged
+over the batch axes (a float scalar averaged, an integer scalar summed, a
+batch-sharded tensor all-gathered; persistables and whatever the
+``backward`` op or the ops after it write pass through).  A persistable
+whose ``dist_attr`` names an axis of the run (ZeRO's optimizer-state
+shards, ZeRO-3's and HSDP's parameters) is held as the rank's block under
+its own axes: the startup program builds the global value on every rank,
+and the first run that reads it keeps the rank's block, in its state and
+in the scope (``collective_ops.block_of``); a fetch of it returns the
+global value.  :func:`_resident` is the one place the executor applies
+that rule.
 
 A program with a ``decode_chain`` marker (serving/decode.py) runs its
 body ``chain_length`` times on the device through
@@ -55,7 +58,7 @@ same random draws (:func:`run_forward`).  A ``conditional_block`` op
 Random ops draw from a ``torch.Generator`` on the run's device, seeded
 from ``program.random_seed`` and kept in the scope so successive runs
 continue one stream; a data-parallel run draws from its own stream, the
-seed folded with the rank, so dropout masks differ across ranks."""
+seed folded with the global rank, so dropout masks differ across ranks."""
 
 from __future__ import annotations
 

@@ -19,7 +19,9 @@ this pass shards the parameters themselves:
 * the optimizer accumulators shaped like the parameter are stamped with
   the same spec, so the moments shard along with it.
 
-The batch shards over the fsdp axis (``MeshLayout.batch_axes``)."""
+The batch shards over the fsdp axis, and over ``dp`` x ``fsdp`` under
+HSDP (``MeshLayout.batch_axes``), where a stamped parameter is a block by
+the rank's fsdp coordinate, replicated over ``dp``."""
 
 from __future__ import annotations
 

@@ -11,14 +11,18 @@
 The JAX package turns a layout into a ``jax.sharding.Mesh``; the port runs
 one process per rank, so :meth:`MeshLayout.build_mesh` returns a
 :class:`ProcessMesh`: the squeezed axis names and sizes over the
-``torch.distributed`` process group.  This port takes layouts with at
-most one axis above size 1 — ``data=n`` (data parallelism, ZeRO-1) or
-``fsdp=n`` (ZeRO-3); a multi-axis mesh (HSDP's data × fsdp, tensor or
-pipeline parallelism) raises :class:`UnimplementedError` naming it."""
+``torch.distributed`` process group, each rank at its coordinates
+(row-major over the squeezed axes, as the JAX package reshapes its
+devices), with one process group per line of the grid.  This port takes
+the data and the fsdp axes — ``data=n`` (data parallelism, ZeRO-1),
+``fsdp=n`` (ZeRO-3) and both (HSDP); a layout with a tensor, pipeline,
+expert or extra axis above size 1 raises :class:`UnimplementedError`
+naming it."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional, Tuple
+import itertools
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from .errors import UnimplementedError
 
@@ -92,7 +96,15 @@ class ProcessMesh:
     """The port's mesh: the named axes of a layout that are above size 1,
     with their sizes, laid over the ``torch.distributed`` process group
     (one process per rank).  ``axis_names`` and ``shape`` ({axis: size})
-    are what ``CompiledProgram.with_mesh`` reads."""
+    are what ``CompiledProgram.with_mesh`` reads.
+
+    Rank ``r`` sits at the coordinates :meth:`coords` gives, row-major over
+    the axes (the last axis varies fastest), as the JAX package reshapes
+    its device list.  :meth:`line_group` is the process group of the ranks
+    that differ only on some of the axes (a line of the grid for one
+    axis); the groups are created the first time a mesh of this shape is
+    asked for one, every line of every axis set in the same order on
+    every rank, as ``torch.distributed.new_group`` needs."""
 
     def __init__(self, axis_names: Tuple[str, ...], sizes: Tuple[int, ...]):
         self.axis_names = tuple(axis_names)
@@ -105,8 +117,77 @@ class ProcessMesh:
             n *= s
         return n
 
+    def coords(self, rank: int) -> Dict[str, int]:
+        """{axis: coordinate} of ``rank``, row-major over the axes."""
+        out, rest = {}, int(rank)
+        for a in reversed(self.axis_names):
+            out[a] = rest % self.shape[a]
+            rest //= self.shape[a]
+        return {a: out[a] for a in self.axis_names}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        """The rank at ``coords`` (row-major over the axes)."""
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + int(coords.get(a, 0))
+        return r
+
+    def line_ranks(self, rank: int, axes: Tuple[str, ...]) -> List[int]:
+        """The ranks that share ``rank``'s coordinates on every axis not in
+        ``axes``, in row-major order over ``axes`` (mesh order): the
+        members of its group over ``axes``."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        base = self.coords(rank)
+        out = []
+        for idx in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = dict(base)
+            c.update(zip(axes, idx))
+            out.append(self.rank_of(c))
+        return out
+
+    def line_group(self, rank: int, axes: Tuple[str, ...]):
+        """(the process group over ``axes`` that ``rank`` belongs to, its
+        member ranks); the group is None (the default group) when
+        ``axes`` covers the whole mesh."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        members = self.line_ranks(rank, axes)
+        if len(axes) == len(self.axis_names):
+            return None, members
+        return _line_groups(self)[axes][tuple(members)], members
+
     def __repr__(self):
         return f"ProcessMesh({self.shape})"
+
+
+#: (default group, axis names, sizes) -> {axes: {member ranks: group}}
+_GROUPS: Dict[Any, Dict[Tuple[str, ...], Dict[Tuple[int, ...], Any]]] = {}
+
+
+def _line_groups(mesh: ProcessMesh):
+    """Every line group of ``mesh``'s shape, created once a process group:
+    for each proper subset of the axes (by size, in mesh order) each of
+    its lines, in row-major order of the other axes' coordinates.  Every
+    rank runs this same sequence of ``new_group`` calls."""
+    import torch.distributed as dist
+    key = (id(dist.group.WORLD), mesh.axis_names,
+           tuple(mesh.shape[a] for a in mesh.axis_names))
+    groups = _GROUPS.get(key)
+    if groups is not None:
+        return groups
+    groups = {}
+    names = mesh.axis_names
+    for k in range(1, len(names)):
+        for axes in itertools.combinations(names, k):
+            others = [a for a in names if a not in axes]
+            lines = {}
+            for idx in itertools.product(*(range(mesh.shape[a])
+                                           for a in others)):
+                base = mesh.rank_of(dict(zip(others, idx)))
+                members = tuple(mesh.line_ranks(base, axes))
+                lines[members] = dist.new_group(list(members))
+            groups[axes] = lines
+    _GROUPS[key] = groups
+    return groups
 
 
 class MeshLayout:
@@ -209,20 +290,36 @@ class MeshLayout:
                     f"{self.axis_names}")
         return s
 
+    def spec_shards(self, spec, ndim: Optional[int] = None
+                    ) -> Tuple[int, ...]:
+        """Per-dim shard counts a :class:`ShardSpec` induces under this
+        layout (axes absent from the layout, or at size 1, do not shard):
+        the geometry the resharding planner (framework/reshard.py) diffs
+        between a checkpoint's layout and the restore's."""
+        entries = tuple(spec) if spec is not None else ()
+        n = len(entries) if ndim is None else int(ndim)
+        out = [1] * n
+        for d, entry in enumerate(entries[:n]):
+            parts = 1
+            for a in _flat_axes((entry,)):
+                parts *= self._sizes.get(a, 1)
+            out[d] = parts
+        return tuple(out)
+
     # -- materialisation -------------------------------------------------
     def check_ported(self):
-        """Raise :class:`UnimplementedError` unless at most one axis is
-        above size 1 and it is the data or the fsdp axis."""
-        real = self.mesh_axes
-        if len(real) > 1 or (real and next(iter(real)) not in
-                             (self.data_axis, self.fsdp_axis)):
-            kind = "HSDP (data x fsdp)" if set(real) == {
-                self.data_axis, self.fsdp_axis} else \
-                "a multi-axis mesh (HSDP, tp, pp)"
+        """Raise :class:`UnimplementedError` naming each axis above size 1
+        that is not the data or the fsdp axis (tensor, pipeline, expert
+        parallelism and extra axes are not ported)."""
+        other = {a: n for a, n in self.mesh_axes.items()
+                 if a not in (self.data_axis, self.fsdp_axis)}
+        if other:
             raise UnimplementedError(
-                f"mesh layout {real}: {kind} is not ported yet; this port "
-                f"takes one axis above size 1, data=n (data parallelism, "
-                f"ZeRO-1) or fsdp=n (ZeRO-3)")
+                f"mesh layout {self.mesh_axes}: the axes {other} are not "
+                f"ported yet; this port takes the data and the fsdp axes "
+                f"(data parallelism, ZeRO-1, ZeRO-3 and HSDP, data x fsdp); "
+                f"tensor, pipeline and expert parallelism wait for their "
+                f"slices")
 
     def build_mesh(self, devices=None) -> Optional[ProcessMesh]:
         """The :class:`ProcessMesh` over the squeezed axes (size-1 axes

@@ -5,11 +5,15 @@ c_reducescatter_op.h).
 
 The JAX package maps ``ring_id`` onto a mesh axis and lowers the ops to
 XLA collectives inside the executor's ``shard_map``.  The port runs one
-process per rank: a data-parallel run carries a :class:`DataParallelGroup`
-(rank, world size, process group, backend) on its lowering context, whose
-one axis, ``"dp"``, is what ``ring_id`` / ``_axis_name`` resolve to
-(:func:`_ring_axis`, the JAX package's rules).  Outside a process group of
-more than one rank every op is the identity, as in the JAX package.
+process per rank, and a run carries its groups on its lowering context:
+a :class:`DataParallelGroup` (rank, world size, process group, backend)
+for a run over one axis (``"dp"``, or ``"fsdp"`` for ZeRO-3), or a
+:class:`MeshGroups` for a mesh of several (HSDP's ``dp`` x ``fsdp``),
+whose :meth:`~MeshGroups.over` gives the group of any set of its axes.
+``ring_id`` / ``_axis_name`` resolve to an axis or a tuple of axes
+(:func:`_ring_axis`, the JAX package's rules), and each op reduces over
+the group of the axes it is given.  Outside a process group of more than
+one rank every op is the identity, as in the JAX package.
 
 On the gloo backend a tensor on a GPU is staged through host memory for
 the transfer (gloo moves host buffers); computation stays on the tensor's
@@ -24,7 +28,9 @@ rank's shard at wire width -> the receive stage on the CUDA kernels of
 
 ZeRO: ``zero_reduce_scatter`` (the flat gradient padded to ``n·align``,
 each rank's 1/n slice summed over the group: ``all_to_all`` + a sum in
-peer order, as ``c_reducescatter``), ``quant_reduce_scatter`` (quantize ->
+peer order, as ``c_reducescatter``; given several axes, it scatters over
+the first after an all-reduce over the rest, as the JAX op's ``psum``
+before its scatter), ``quant_reduce_scatter`` (likewise; quantize ->
 ``all_to_all`` at wire width -> the receive stage on kernel #11, no
 requantize: the reduced float32 shard feeds the sharded update),
 ``zero_shard_slice`` (the rank's flat slice of a replicated tensor, no
@@ -32,13 +38,19 @@ communication), ``zero_all_gather`` (the updated shards gathered, the pad
 dropped) and ``fsdp_all_gather`` (ZeRO-3: the full parameter gathered
 from the resident shards along ``gather_dim``; its backward sums the
 cotangent's slices over the group, so each rank's gradient arrives as
-its shard — the JAX op's transpose, ``psum_scatter``).  The
+its shard — the JAX op's transpose, ``psum_scatter``; in an HSDP grid
+both run on the rank's line of their own axis).  A sum over peers runs
+in peer order, so over four ranks or two axes it is not a ``psum`` bit
+for bit.  The
 tensor-parallel ``c_embedding`` / ``c_split`` / ``c_concat``,
 ``collective_permute`` and ``pipe_stage_boundary`` are not ported yet
 and stay unregistered.
 
-A persistable whose ``dist_attr`` names the run's axis is sharded: each
-rank holds only its block of the global value.  :func:`block_of` (the
+A persistable whose ``dist_attr`` names an axis of the run is sharded:
+each rank holds only its block of the global value, its index in the
+group of the axes that shard the dim, replicated over the other axes (an
+fsdp-stamped parameter under HSDP: a block by the rank's fsdp
+coordinate, the same on both dp rows).  :func:`block_of` (the
 rank's block of a global value; the executor applies it to every
 persistable it reads from or writes to the scope) and :func:`whole_of`
 (the global value of a block: a fetch, a save) are that rule, and the
@@ -51,6 +63,7 @@ sync sends nothing (the JAX package's ``lax.cond``)."""
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -65,23 +78,32 @@ DP_AXIS = "dp"
 
 
 class DataParallelGroup:
-    """The process group a data-parallel run reduces over — the port's
-    counterpart of the JAX package's one mesh axis (``dp``, or ``fsdp``
-    for ZeRO-3).  ``batch_sharded`` says whether fed batches split over
-    it (the JAX feed spec ``P(axis)``; ``with_mesh`` without a batch axis
-    replicates them)."""
+    """The process group of one mesh axis — the port's counterpart of a
+    JAX mesh axis (``dp``, or ``fsdp`` for ZeRO-3): this rank's index in
+    it (``rank``), its size (``world``), the ``torch.distributed`` group
+    (None: the default group), the global ranks of its members in group
+    order (``ranks``; None: ``0 .. world - 1``) and the axis name.  A run over one axis
+    threads its group through the executor as the run's mesh: it answers
+    :meth:`over` with itself.  ``batch_sharded`` says whether fed batches
+    split over it (the JAX feed spec ``P(axis)``; ``with_mesh`` without a
+    batch axis replicates them)."""
 
     __slots__ = ("rank", "world", "group", "backend", "axis_name",
-                 "batch_sharded")
+                 "batch_sharded", "ranks")
 
     def __init__(self, rank: int, world: int, backend: str, group=None,
-                 axis_name: str = DP_AXIS):
+                 axis_name=DP_AXIS, ranks=None):
         self.rank = int(rank)
         self.world = int(world)
         self.backend = str(backend)
         self.group = group
         self.axis_name = axis_name
         self.batch_sharded = True
+        self.ranks = None if ranks is None else [int(r) for r in ranks]
+
+    def global_rank(self, i: int) -> int:
+        """The global rank of the group's member ``i``."""
+        return int(i) if self.ranks is None else self.ranks[int(i)]
 
     @classmethod
     def current(cls, axis_name: str = DP_AXIS
@@ -98,9 +120,97 @@ class DataParallelGroup:
         return cls(dist.get_rank(), world, dist.get_backend(),
                    axis_name=axis_name)
 
+    @property
+    def axis_names(self):
+        """The run's axes: this group's one."""
+        return (self.axis_name,)
+
+    def over(self, axes) -> "DataParallelGroup":
+        """The group over ``axes``: this one (its axis is the run's)."""
+        return self
+
+    def batch_group(self) -> Optional["DataParallelGroup"]:
+        """The group fed batches split over (and fetches merge over), or
+        None."""
+        return self if self.batch_sharded else None
+
     def __repr__(self):
         return (f"DataParallelGroup(rank={self.rank}, world={self.world}, "
                 f"backend={self.backend!r})")
+
+
+class MeshGroups(DataParallelGroup):
+    """This rank's place in a :class:`~..framework.mesh_layout.ProcessMesh`
+    of several axes (HSDP's ``dp`` x ``fsdp``): as a group it is the whole
+    mesh (the default group, ``rank`` the global rank), and :meth:`over`
+    gives the group of any set of its axes — the line of ranks that share
+    this rank's coordinates on the other axes, indexed row-major over the
+    set in mesh order.  ``batch_axes`` are the axes fed batches split
+    over, by the rank's flat index over them."""
+
+    __slots__ = ("mesh", "coords", "batch_axes", "_groups")
+
+    def __init__(self, mesh, rank: int, backend: str, batch_axes=()):
+        super().__init__(rank, mesh.size, backend,
+                         axis_name=tuple(mesh.axis_names))
+        self.mesh = mesh
+        self.coords = mesh.coords(rank)
+        self.batch_axes = tuple(a for a in mesh.axis_names
+                                if a in tuple(batch_axes))
+        self._groups = {}
+        for k in range(1, len(mesh.axis_names)):
+            # every line group, created in the same order on every rank
+            for axes in itertools.combinations(mesh.axis_names, k):
+                self.over(axes)
+
+    @classmethod
+    def of(cls, mesh, batch_axes=()) -> Optional["MeshGroups"]:
+        """This process's place in ``mesh`` (a ``ProcessMesh``; a
+        collective the first time a mesh of its shape is asked for: every
+        rank calls it), or None outside a process group of more than one
+        rank.  The group must have as many ranks as the mesh."""
+        import torch.distributed as dist
+        if mesh is None or not (dist.is_available() and
+                                dist.is_initialized()):
+            return None
+        world = dist.get_world_size()
+        if world < 2:
+            return None
+        if world != mesh.size:
+            raise ValueError(f"{mesh!r} needs {mesh.size} ranks, the "
+                             f"process group has {world}")
+        from ..framework.mesh_layout import _flat_axes
+        return cls(mesh, dist.get_rank(), dist.get_backend(),
+                   _flat_axes(batch_axes))
+
+    @property
+    def axis_names(self):
+        return tuple(self.mesh.axis_names)
+
+    def over(self, axes) -> DataParallelGroup:
+        if isinstance(axes, str):
+            axes = (axes,)
+        axes = tuple(a for a in self.mesh.axis_names if a in tuple(axes))
+        if not axes:
+            raise ValueError(f"no axis of {self.mesh!r} in {axes!r}")
+        if len(axes) == len(self.mesh.axis_names):
+            return self
+        g = self._groups.get(axes)
+        if g is None:
+            group, members = self.mesh.line_group(self.rank, axes)
+            g = DataParallelGroup(members.index(self.rank), len(members),
+                                  self.backend, group,
+                                  axes[0] if len(axes) == 1 else axes,
+                                  ranks=members)
+            self._groups[axes] = g
+        return g
+
+    def batch_group(self) -> Optional[DataParallelGroup]:
+        return self.over(self.batch_axes) if self.batch_axes else None
+
+    def __repr__(self):
+        return (f"MeshGroups(rank={self.rank}, {self.mesh.shape}, "
+                f"coords={self.coords}, backend={self.backend!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +261,11 @@ def all_to_all(dp: DataParallelGroup, t: torch.Tensor):
     pairs = []
     for j in range(dp.world):
         if j != dp.rank:
-            pairs.append(dist.P2POp(dist.isend, send[j], j, group=dp.group))
-            pairs.append(dist.P2POp(dist.irecv, recv[j], j, group=dp.group))
+            peer = dp.global_rank(j)
+            pairs.append(dist.P2POp(dist.isend, send[j], peer,
+                                    group=dp.group))
+            pairs.append(dist.P2POp(dist.irecv, recv[j], peer,
+                                    group=dp.group))
     for req in dist.batch_isend_irecv(pairs):
         req.wait()
     return torch.stack(recv).to(t.device)
@@ -161,7 +274,7 @@ def all_to_all(dp: DataParallelGroup, t: torch.Tensor):
 def broadcast(dp: DataParallelGroup, t: torch.Tensor, root: int):
     import torch.distributed as dist
     w = _on_wire(dp, t)
-    dist.broadcast(w, src=int(root), group=dp.group)
+    dist.broadcast(w, src=dp.global_rank(root), group=dp.group)
     return w.to(t.device)
 
 
@@ -197,12 +310,19 @@ def _ring_axis(ctx, attrs):
     return names[0]
 
 
+def _group(ctx, axis) -> DataParallelGroup:
+    """The process group over ``axis`` (a name or a tuple of names, as
+    :func:`_ring_axis` returns them) of the run's mesh."""
+    return ctx.dp.over(axis)
+
+
 def _allreduce(op):
     def impl(ctx, ins, attrs):
         a = x(ins, "X")
-        if _ring_axis(ctx, attrs) is None:
+        axis = _ring_axis(ctx, attrs)
+        if axis is None:
             return {"Out": a}
-        return {"Out": all_reduce(ctx.dp, a, op)}
+        return {"Out": all_reduce(_group(ctx, axis), a, op)}
     return impl
 
 
@@ -216,12 +336,14 @@ def _compressed(dp, a, compress_dtype):
 @register("c_allreduce_sum")
 def _c_allreduce_sum(ctx, ins, attrs):
     a = x(ins, "X")
-    if _ring_axis(ctx, attrs) is None:
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
         return {"Out": a}
+    g = _group(ctx, axis)
     comp = attrs.get("compress_dtype")
     if comp and a.is_floating_point():
-        return {"Out": _compressed(ctx.dp, a, comp)}
-    return {"Out": all_reduce(ctx.dp, a)}
+        return {"Out": _compressed(g, a, comp)}
+    return {"Out": all_reduce(g, a)}
 
 
 register("c_allreduce_max")(_allreduce("max"))
@@ -233,9 +355,10 @@ def _c_allreduce_prod(ctx, ins, attrs):
     """Exact product-allreduce: gather every rank's tensor and multiply
     (no log/exp, so zeros, negatives and integers stay exact)."""
     a = x(ins, "X")
-    if _ring_axis(ctx, attrs) is None:
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
         return {"Out": a}
-    gathered = all_gather(ctx.dp, a.unsqueeze(0))
+    gathered = all_gather(_group(ctx, axis), a.unsqueeze(0))
     return {"Out": torch.prod(gathered, dim=0).to(a.dtype)}
 
 
@@ -258,14 +381,16 @@ def _c_fused_allreduce_sum(ctx, ins, attrs):
         return {"Out": []}
     scale = attrs.get("scale")
     outs = xs if scale is None else [a * scale for a in xs]
-    if _ring_axis(ctx, attrs) is None:
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
         return {"Out": outs}
+    g = _group(ctx, axis)
     flat = torch.cat([a.reshape(-1) for a in outs])
     comp = attrs.get("compress_dtype")
     if comp and flat.is_floating_point():
-        flat = _compressed(ctx.dp, flat, comp)
+        flat = _compressed(g, flat, comp)
     else:
-        flat = all_reduce(ctx.dp, flat)
+        flat = all_reduce(g, flat)
     return {"Out": _split_like(flat, outs)}
 
 
@@ -276,24 +401,23 @@ def _quant_route(op_type, ins, attrs, n_peers) -> bool:
     return route is not None
 
 
-def _quant_scatter(ctx, flat, spec: CompressionSpec, use_kernel,
+def _quant_scatter(ctx, g, flat, spec: CompressionSpec, use_kernel,
                    requant: bool = False):
-    """The scatter stage of the quantized collectives: ``flat`` (float32)
-    padded to ``n·block_size`` and quantized (stochastic rounding draws
-    from the rank's generator), every peer's quantized copy of this
-    rank's shard received at wire width by ``all_to_all``, then the
-    receive stage on the kernel route (``use_kernel``) or its plain twin:
-    the shard summed over the peers in float32 (#11), or with ``requant``
-    that sum requantized to int8 in the same pass (#12), as (payload,
-    scales)."""
-    dp = ctx.dp
-    n = dp.world
+    """The scatter stage of the quantized collectives over the group
+    ``g``: ``flat`` (float32) padded to ``n·block_size`` and quantized
+    (stochastic rounding draws from the rank's generator), every peer's
+    quantized copy of this rank's shard received at wire width by
+    ``all_to_all``, then the receive stage on the kernel route
+    (``use_kernel``) or its plain twin: the shard summed over the peers in
+    float32 (#11), or with ``requant`` that sum requantized to int8 in the
+    same pass (#12), as (payload, scales)."""
+    n = g.world
     flat = pad_to_blocks(flat, n * spec.block_size)
     sb = flat.shape[0] // (n * spec.block_size)
     gen = ctx.generator if spec.stochastic_rounding else None
     q, s = quantize_blockwise(flat, spec, gen)
-    qx = all_to_all(dp, q.reshape(n, sb, -1)).reshape(n * sb, -1)
-    sx = all_to_all(dp, s.reshape(n, sb)).reshape(-1)
+    qx = all_to_all(g, q.reshape(n, sb, -1)).reshape(n * sb, -1)
+    sx = all_to_all(g, s.reshape(n, sb)).reshape(-1)
     if requant:
         fn = cuda_quant.dequant_accumulate_requant if use_kernel \
             else cuda_quant.dequant_accumulate_requant_plain
@@ -303,14 +427,14 @@ def _quant_scatter(ctx, flat, spec: CompressionSpec, use_kernel,
     return fn(qx, sx, spec, n)
 
 
-def _quant_allreduce_flat(ctx, flat, spec: CompressionSpec, use_kernel):
-    """The two-stage quantized all-reduce of a float32 flat tensor:
-    the scatter stage (:func:`_quant_scatter`: quantize -> all_to_all
-    shards -> dequantize, accumulate over peers, requantize) ->
-    all_gather -> dequantize.  Returns (the reduced flat tensor at the
+def _quant_allreduce_flat(ctx, g, flat, spec: CompressionSpec, use_kernel):
+    """The two-stage quantized all-reduce of a float32 flat tensor over
+    the group ``g``: the scatter stage (:func:`_quant_scatter`: quantize
+    -> all_to_all shards -> dequantize, accumulate over peers, requantize)
+    -> all_gather -> dequantize.  Returns (the reduced flat tensor at the
     input length, the stage-2 scales)."""
     requant = spec.dtype == "int8" and not spec.stochastic_rounding
-    red = _quant_scatter(ctx, flat, spec, use_kernel, requant)
+    red = _quant_scatter(ctx, g, flat, spec, use_kernel, requant)
     if requant:
         q2, s2 = red
     else:
@@ -318,8 +442,8 @@ def _quant_allreduce_flat(ctx, flat, spec: CompressionSpec, use_kernel):
         q2, s2 = quantize_blockwise(red, spec, gen)
     # stage 2: the same bytes on every rank, so the local dequantization
     # cannot diverge across replicas
-    qf = all_gather(ctx.dp, q2.reshape(-1))
-    sf = all_gather(ctx.dp, s2)
+    qf = all_gather(g, q2.reshape(-1))
+    sf = all_gather(g, s2)
     full = dequantize_blockwise(qf.reshape(sf.shape[0], -1), sf, spec)
     return full[:flat.shape[0]], sf
 
@@ -332,12 +456,13 @@ def _c_quant_allreduce_sum(ctx, ins, attrs):
     scale = attrs.get("scale")
     if scale is not None:
         a = a * scale
-    if _ring_axis(ctx, attrs) is None:
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
         return {"Out": a}
+    g = _group(ctx, axis)
     spec = CompressionSpec.from_attr(attrs["quant_spec"])
-    use_kernel = _quant_route("c_quant_allreduce_sum", ins, attrs,
-                              ctx.dp.world)
-    flat, _ = _quant_allreduce_flat(ctx, a.reshape(-1).float(), spec,
+    use_kernel = _quant_route("c_quant_allreduce_sum", ins, attrs, g.world)
+    flat, _ = _quant_allreduce_flat(ctx, g, a.reshape(-1).float(), spec,
                                     use_kernel)
     return {"Out": flat.reshape(a.shape).to(a.dtype)}
 
@@ -352,13 +477,16 @@ def _c_fused_quant_allreduce_sum(ctx, ins, attrs):
         return {"Out": []}
     scale = attrs.get("scale")
     outs = xs if scale is None else [a * scale for a in xs]
-    if _ring_axis(ctx, attrs) is None:
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
         return {"Out": outs}
+    g = _group(ctx, axis)
     spec = CompressionSpec.from_attr(attrs["quant_spec"])
     flat = torch.cat([a.reshape(-1) for a in outs])
     use_kernel = _quant_route("c_fused_quant_allreduce_sum", ins, attrs,
-                              ctx.dp.world)
-    red, scales = _quant_allreduce_flat(ctx, flat.float(), spec, use_kernel)
+                              g.world)
+    red, scales = _quant_allreduce_flat(ctx, g, flat.float(), spec,
+                                        use_kernel)
     return {"Out": _split_like(red.to(flat.dtype), outs), "QScale": scales}
 
 
@@ -366,24 +494,22 @@ def _axes_tuple(axis):
     return axis if isinstance(axis, tuple) else (axis,)
 
 
-def _one_axis(axis, op_type):
-    """The scatter axis of a ZeRO op; a second reduce axis (the JAX
-    package's psum over the rest of a data x sp grid) needs a multi-axis
-    mesh, which is not ported."""
+def _scatter_groups(ctx, axis):
+    """(the group a ZeRO scatter rides: the first of its axes, the group
+    of the rest or None) — the JAX ops ``psum`` over the rest before the
+    scatter."""
     axes = _axes_tuple(axis)
-    if len(axes) > 1:
-        from ..framework.errors import UnimplementedError
-        raise UnimplementedError(
-            f"{op_type} over the axes {axes}: a multi-axis mesh is not "
-            f"ported yet")
-    return axes[0]
+    rest = axes[1:]
+    return _group(ctx, axes[0]), (_group(ctx, rest) if rest else None)
 
 
 @register("zero_reduce_scatter")
 def _zero_reduce_scatter(ctx, ins, attrs):
     """Gradient half of the ZeRO-1 sharded update: this rank's 1/n flat
-    shard of the summed gradient (padded to ``n·align``).  ``scale`` folds
-    the mean; ``compress_dtype`` runs the scatter and its sum at bf16."""
+    shard of the summed gradient (padded to ``n·align``, n the size of
+    the first axis; with several axes the rest are all-reduced first).
+    ``scale`` folds the mean; ``compress_dtype`` runs the scatter and its
+    sum at bf16."""
     g = x(ins, "X")
     axis = _ring_axis(ctx, attrs)
     scale = attrs.get("scale")
@@ -391,8 +517,8 @@ def _zero_reduce_scatter(ctx, ins, attrs):
         g = g * scale
     if axis is None:
         return {"Out": g.reshape(-1)}
-    _one_axis(axis, "zero_reduce_scatter")
-    n = ctx.dp.world
+    scatter, rest = _scatter_groups(ctx, axis)
+    n = scatter.world
     # the flat layout: a multiple of n·align (align > 1 makes every shard
     # whole quantization blocks, matching zero_shard_slice's)
     flat = pad_to_blocks(g.reshape(-1), n * attrs.get("align", 1))
@@ -401,7 +527,9 @@ def _zero_reduce_scatter(ctx, ins, attrs):
     if comp and flat.is_floating_point():
         flat = flat.to({"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
                         "float16": torch.float16}[str(comp)])
-    out = _peer_sum(all_to_all(ctx.dp, flat.reshape(n, -1)))
+    if rest is not None:
+        flat = all_reduce(rest, flat)
+    out = _peer_sum(all_to_all(scatter, flat.reshape(n, -1)))
     return {"Out": out.to(orig)}
 
 
@@ -409,8 +537,9 @@ def _zero_reduce_scatter(ctx, ins, attrs):
 def _quant_reduce_scatter(ctx, ins, attrs):
     """Quantized gradient half of ZeRO-1: quantize -> ``all_to_all`` (each
     rank receives every peer's quantized copy of its shard, at wire width)
-    -> the receive stage (#11: dequantize and accumulate in float32).  The
-    output is the rank's reduced float32 flat shard; the pad is
+    -> the receive stage (#11: dequantize and accumulate in float32), over
+    the first axis, after a float32 all-reduce over the rest.  The output
+    is the rank's reduced float32 flat shard; the pad is
     ``n·block_size``, so ``zero_shard_slice`` must get the same
     ``align``.  Stochastic rounding draws from the rank's generator."""
     g = x(ins, "X")
@@ -421,94 +550,103 @@ def _quant_reduce_scatter(ctx, ins, attrs):
     spec = CompressionSpec.from_attr(attrs["quant_spec"])
     if axis is None:
         return {"Out": g.reshape(-1)}
-    _one_axis(axis, "quant_reduce_scatter")
+    scatter, rest = _scatter_groups(ctx, axis)
+    flat = pad_to_blocks(g.reshape(-1).float(),
+                         scatter.world * spec.block_size)
+    if rest is not None:
+        flat = all_reduce(rest, flat)
     use_kernel = _quant_route("quant_reduce_scatter", ins, attrs,
-                              ctx.dp.world)
-    return {"Out": _quant_scatter(ctx, g.reshape(-1).float(), spec,
+                              scatter.world)
+    return {"Out": _quant_scatter(ctx, scatter, flat, spec,
                                   use_kernel).to(g.dtype)}
 
 
 @register("zero_shard_slice")
 def _zero_shard_slice(ctx, ins, attrs):
     """This rank's flat 1/n shard of a replicated tensor (padded to
-    ``n·align``): the parameter slice the sharded update owns.  No
-    communication."""
+    ``n·align``; n and the rank's index from the first axis): the
+    parameter slice the sharded update owns.  No communication."""
     a = x(ins, "X")
     axis = _ring_axis(ctx, attrs)
     if axis is None:
         return {"Out": a.reshape(-1)}
-    _one_axis(axis, "zero_shard_slice")
-    n = ctx.dp.world
+    g = _group(ctx, _axes_tuple(axis)[0])
+    n = g.world
     flat = pad_to_blocks(a.reshape(-1), n * attrs.get("align", 1))
     shard = flat.shape[0] // n
     # a tensor of its own: the update writes it in place, and must not
     # write through into the replicated parameter it was cut from
-    return {"Out": flat[ctx.dp.rank * shard:
-                        (ctx.dp.rank + 1) * shard].clone()}
+    return {"Out": flat[g.rank * shard:(g.rank + 1) * shard].clone()}
 
 
 @register("zero_all_gather")
 def _zero_all_gather(ctx, ins, attrs):
-    """The full replicated tensor from every rank's updated shard, the
-    flat pad dropped (``numel``, ``shape``)."""
+    """The full replicated tensor from every rank's updated shard over the
+    first axis, the flat pad dropped (``numel``, ``shape``)."""
     sh = x(ins, "X")
     axis = _ring_axis(ctx, attrs)
     shape = tuple(attrs["shape"])
     numel = int(attrs["numel"])
-    full = sh if axis is None else all_gather(ctx.dp, sh)
+    full = sh if axis is None else \
+        all_gather(_group(ctx, _axes_tuple(axis)[0]), sh)
     return {"Out": full[:numel].reshape(shape)}
 
 
 class _FsdpGather(torch.autograd.Function):
-    """all_gather along ``dim`` forward; backward, each rank's slice of
-    the cotangent summed over the group (the reduce-scatter that is the
-    gather's transpose).  Every rank runs the same backward graph, so the
-    collectives of the backward issue in the same order on every rank."""
+    """all_gather along ``dim`` over the group forward; backward, each
+    rank's slice of the cotangent summed over the group (the
+    reduce-scatter that is the gather's transpose).  Every rank runs the
+    same backward graph, so the collectives of the backward issue in the
+    same order on every rank."""
 
     @staticmethod
-    def forward(ctx, a, dp, dim):
-        ctx.dp, ctx.dim = dp, dim
-        return all_gather(dp, a, dim)
+    def forward(ctx, a, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(group, a, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        dp = ctx.dp
-        parts = torch.stack(grad.chunk(dp.world, dim=ctx.dim))
-        return _peer_sum(all_to_all(dp, parts)), None, None
+        g = ctx.group
+        parts = torch.stack(grad.chunk(g.world, dim=ctx.dim))
+        return _peer_sum(all_to_all(g, parts)), None, None
 
 
 @register("fsdp_all_gather")
 def _fsdp_all_gather(ctx, ins, attrs):
     """ZeRO-3's gather at a parameter's first forward use
     (framework/fsdp.py): the full tensor from the resident shards along
-    ``gather_dim``.  Its backward delivers each rank the summed gradient
-    of its shard.  The identity without a process group."""
+    ``gather_dim`` over its axis (``fsdp``; inside an HSDP grid, the
+    rank's fsdp line).  Its backward delivers each rank the gradient of
+    its shard summed over that line.  The identity without a process
+    group."""
     a = x(ins, "X")
     axis = _ring_axis(ctx, attrs)
     if axis is None:
         return {"Out": a}
-    _one_axis(axis, "fsdp_all_gather")
     dim = attrs.get("gather_dim", 0)
     if dim < 0:
         dim += a.dim()
-    return {"Out": _FsdpGather.apply(a, ctx.dp, dim)}
+    return {"Out": _FsdpGather.apply(a, _group(ctx, axis), dim)}
 
 
 @register("c_broadcast")
 def _c_broadcast(ctx, ins, attrs):
     a = x(ins, "X")
-    if _ring_axis(ctx, attrs) is None:
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
         return {"Out": a}
-    return {"Out": broadcast(ctx.dp, a, attrs.get("root", 0))}
+    return {"Out": broadcast(_group(ctx, axis), a, attrs.get("root", 0))}
 
 
 @register("c_allgather")
 def _c_allgather(ctx, ins, attrs):
     a = x(ins, "X")
-    if _ring_axis(ctx, attrs) is None:
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
         return {"Out": a}
     dim = attrs.get("gather_dim", 0)
-    return {"Out": all_gather(ctx.dp, a, dim if dim >= 0 else dim + a.dim())}
+    return {"Out": all_gather(_group(ctx, axis), a,
+                              dim if dim >= 0 else dim + a.dim())}
 
 
 @register("c_reducescatter")
@@ -516,21 +654,25 @@ def _c_reducescatter(ctx, ins, attrs):
     """Rank r's 1/n slice (dim 0) of the sum: every rank's slice r moves
     to rank r, which adds them in peer order."""
     a = x(ins, "X")
-    if _ring_axis(ctx, attrs) is None:
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
         return {"Out": a}
-    n = ctx.dp.world
+    g = _group(ctx, axis)
+    n = g.world
     parts = a.reshape((n, a.shape[0] // n) + tuple(a.shape[1:]))
-    return {"Out": _peer_sum(all_to_all(ctx.dp, parts))}
+    return {"Out": _peer_sum(all_to_all(g, parts))}
 
 
 @register("alltoall")
 def _alltoall(ctx, ins, attrs):
     a = x(ins, "X")
-    if _ring_axis(ctx, attrs) is None:
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
         return {"Out": a}
-    n = ctx.dp.world
+    g = _group(ctx, axis)
+    n = g.world
     parts = a.reshape((n, a.shape[0] // n) + tuple(a.shape[1:]))
-    return {"Out": all_to_all(ctx.dp, parts).reshape(a.shape)}
+    return {"Out": all_to_all(g, parts).reshape(a.shape)}
 
 
 @register("c_identity")
@@ -565,6 +707,7 @@ def _local_sgd_sync(ctx, ins, attrs):
                 f"LocalSGDOptimizer")
     if axis is None or not params:
         return {"Out": params}
+    g = _group(ctx, axis)
     step = x(ins, "Step").reshape(()).to(torch.float32)
     k = float(attrs.get("k_steps", 1))
     begin = float(attrs.get("begin_step", 1))
@@ -575,8 +718,8 @@ def _local_sgd_sync(ctx, ins, attrs):
     for dtype in dict.fromkeys(p.dtype for p in params):
         idx = [i for i, p in enumerate(params) if p.dtype == dtype]
         group = [params[i] for i in idx]
-        flat = all_reduce(ctx.dp, torch.cat([p.reshape(-1) for p in group]))
-        flat = flat / ctx.dp.world
+        flat = all_reduce(g, torch.cat([p.reshape(-1) for p in group]))
+        flat = flat / g.world
         for i, avg in zip(idx, _split_like(flat, group)):
             if ctx.donate_state:
                 outs[i] = params[i].copy_(avg)    # keeps its storage
@@ -598,60 +741,92 @@ for _name in ("c_comm_init", "c_comm_init_all", "c_gen_nccl_id", "barrier"):
 # ---------------------------------------------------------------------------
 
 
-def shard_dim(dp: Optional[DataParallelGroup], var) -> Optional[int]:
-    """The dim of ``var`` its ``dist_attr`` shards over the group's axis,
-    or None (no group, no such var, or replicated over the group)."""
+def _sharding(dp: Optional[DataParallelGroup], var):
+    """(the dim ``var``'s ``dist_attr`` shards over the run's axes, the
+    group over that dim's axes), or None (no group, no such var, or
+    replicated over every axis of the run).  The rank's block is its
+    index in that group; the other axes hold the block replicated."""
     da = getattr(var, "dist_attr", None) if var is not None else None
     if dp is None or not da:
         return None
     from ..framework.mesh_layout import _flat_axes
+    names = dp.axis_names
     for d, entry in enumerate(da):
-        if dp.axis_name in _flat_axes((entry,)):
-            return d
+        axes = tuple(a for a in _flat_axes((entry,)) if a in names)
+        if axes:
+            return d, dp.over(axes)
+    return None
+
+
+def shard_dim(dp: Optional[DataParallelGroup], var) -> Optional[int]:
+    """The dim of ``var`` its ``dist_attr`` shards over the run's axes, or
+    None (no group, no such var, or replicated over the run's axes)."""
+    sh = _sharding(dp, var)
+    return None if sh is None else sh[0]
+
+
+def run_groups(program) -> Optional[DataParallelGroup]:
+    """The groups ``program`` runs over: the ones ``CompiledProgram.
+    with_mesh`` recorded on it, else those of its mesh layout when that
+    has several axes (built here: a collective), else None."""
+    groups = getattr(program, "_run_groups", None)
+    if groups is not None:
+        return groups
+    from ..framework.mesh_layout import MeshLayout
+    layout = getattr(program, "_mesh_layout", None)
+    if isinstance(layout, MeshLayout) and len(layout.mesh_axes) > 1:
+        return MeshGroups.of(layout.build_mesh(), layout.batch_axes)
     return None
 
 
 def sharded_group(program) -> Optional[DataParallelGroup]:
-    """The process group ``program``'s sharded persistables live over:
-    the group over the first axis a persistable's ``dist_attr`` names
-    (an axis of size 1 in the program's mesh layout does not count), or
-    None when no persistable is sharded or there is no group of more than
-    one rank.  A program of replicated persistables only (plain data
-    parallelism) has none: each rank holds the whole of every value."""
+    """The groups ``program``'s sharded persistables live over: the run's
+    (:func:`run_groups`) when a persistable's ``dist_attr`` names one of
+    their axes, else the group over the first axis a persistable's
+    ``dist_attr`` names (an axis of size 1 in the program's mesh layout
+    does not count); None when no persistable is sharded or there is no
+    group of more than one rank.  A program of replicated persistables
+    only (plain data parallelism) has none: each rank holds the whole of
+    every value."""
     from ..framework.mesh_layout import MeshLayout, _flat_axes
+    sharded = [v for v in program.list_vars()
+               if v.persistable and getattr(v, "dist_attr", None)]
+    groups = run_groups(program) if sharded else None
+    if groups is not None:
+        return groups if any(_sharding(groups, v) for v in sharded) \
+            else None
     layout = getattr(program, "_mesh_layout", None)
     if not isinstance(layout, MeshLayout):
         layout = None
-    for v in program.list_vars():
-        da = getattr(v, "dist_attr", None)
-        if not (v.persistable and da):
-            continue
-        for axis in _flat_axes(tuple(da)):
+    for v in sharded:
+        for axis in _flat_axes(tuple(v.dist_attr)):
             if layout is not None and layout.size(axis) < 2:
                 continue
             return DataParallelGroup.current(axis)
     return None
 
 
-def _block_rows(dp, var, d):
+def _block_rows(g, var, d):
     full = int(var.shape[d])
-    if full <= 0 or full % dp.world:
+    if full <= 0 or full % g.world:
         from ..framework.errors import InvalidArgumentError
         raise InvalidArgumentError(
             f"sharded persistable {var.name!r}: dim {d} of {full} does not "
-            f"divide into {dp.world} ranks")
-    return full, full // dp.world
+            f"divide into {g.world} ranks")
+    return full, full // g.world
 
 
 def block_of(dp: Optional[DataParallelGroup], var, value):
     """This rank's block of a sharded persistable: the global value (the
     startup program's, a loaded checkpoint's) is cut to the rank's rows of
-    its shard dim, in a tensor of its own; a block passes through.  Any
-    other value (a replicated var, no group) passes through."""
-    d = shard_dim(dp, var)
-    if d is None or not isinstance(value, torch.Tensor):
+    its shard dim — its index in the group of that dim's axes — in a
+    tensor of its own; a block passes through.  Any other value (a
+    replicated var, no group) passes through."""
+    sh = _sharding(dp, var)
+    if sh is None or not isinstance(value, torch.Tensor):
         return value
-    full, rows = _block_rows(dp, var, d)
+    d, g = sh
+    full, rows = _block_rows(g, var, d)
     got = int(value.shape[d])
     if got == rows:
         return value
@@ -660,20 +835,22 @@ def block_of(dp: Optional[DataParallelGroup], var, value):
         raise InvalidArgumentError(
             f"sharded persistable {var.name!r}: dim {d} is {got}, neither "
             f"the global {full} nor a block of {rows}")
-    return value.narrow(d, dp.rank * rows, rows).clone()
+    return value.narrow(d, g.rank * rows, rows).clone()
 
 
 def whole_of(dp: Optional[DataParallelGroup], var, value):
     """The global value of a sharded persistable from this rank's block
-    (every rank's blocks gathered along the shard dim, a collective: every
-    rank calls it); a global value or a replicated one passes through."""
-    d = shard_dim(dp, var)
-    if d is None or not isinstance(value, torch.Tensor):
+    (the blocks gathered along the shard dim over the group of its axes,
+    a collective: every rank calls it); a global value or a replicated one
+    passes through."""
+    sh = _sharding(dp, var)
+    if sh is None or not isinstance(value, torch.Tensor):
         return value
-    full, _ = _block_rows(dp, var, d)
+    d, g = sh
+    full, _ = _block_rows(g, var, d)
     if int(value.shape[d]) == full:
         return value
-    return all_gather(dp, value, d)
+    return all_gather(g, value, d)
 
 
 def merge_fetch(dp: Optional[DataParallelGroup], value, replicated: bool,
@@ -682,24 +859,28 @@ def merge_fetch(dp: Optional[DataParallelGroup], value, replicated: bool,
     FetchOpHandle, the JAX package's ``_merge_fetch``): a sharded
     persistable (``var``) comes back whole (:func:`whole_of`); replicated
     values (persistables, everything written from the backward op on)
-    pass through; a float scalar is averaged over ranks, an integer scalar
-    summed; any other tensor is batch-sharded and all-gathered along
-    dim 0."""
+    pass through, and so does everything when batches are not split;
+    over the group they split over, a float scalar is averaged, an
+    integer scalar summed, and any other tensor is batch-sharded and
+    all-gathered along dim 0."""
     if shard_dim(dp, var) is not None:
         return whole_of(dp, var, value)
-    if dp is None or replicated or not isinstance(value, torch.Tensor):
+    g = dp.batch_group() if dp is not None else None
+    if g is None or replicated or not isinstance(value, torch.Tensor):
         return value
     if value.dim() == 0:
         if value.is_floating_point():
-            return all_reduce(dp, value) / dp.world
-        return all_reduce(dp, value)
-    return all_gather(dp, value)
+            return all_reduce(g, value) / g.world
+        return all_reduce(g, value)
+    return all_gather(g, value)
 
 
 def slice_feed(dp: Optional[DataParallelGroup], name: str, value):
     """This rank's rows of a fed global batch (the JAX feed spec
-    ``P(batch_axis)``): dim 0 split into ``world`` equal parts."""
-    if dp is None or not dp.batch_sharded:
+    ``P(batch_axes)``): dim 0 split into as many equal parts as the batch
+    axes have ranks, the rank's flat index over them picking its part."""
+    g = dp.batch_group() if dp is not None else None
+    if g is None:
         return value
     if not isinstance(value, torch.Tensor):
         value = np.asarray(value)
@@ -707,9 +888,9 @@ def slice_feed(dp: Optional[DataParallelGroup], name: str, value):
     if not shape:
         return value
     from ..framework.errors import InvalidArgumentError
-    if shape[0] % dp.world:
+    if shape[0] % g.world:
         raise InvalidArgumentError(
             f"feed {name!r}: the leading dim {shape[0]} does not divide "
-            f"into {dp.world} data-parallel ranks")
-    rows = shape[0] // dp.world
-    return value[dp.rank * rows:(dp.rank + 1) * rows]
+            f"into {g.world} data-parallel ranks")
+    rows = shape[0] // g.world
+    return value[g.rank * rows:(g.rank + 1) * rows]

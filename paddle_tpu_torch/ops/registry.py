@@ -85,9 +85,10 @@ class LoweringContext:
     """Threaded through one program run: test mode, the device the run
     executes on, the seeded generator random ops draw from, whether the
     run owns its state (``donate_state``: optimizer ops then update
-    parameters and moments in place), and the data-parallel process group
-    the collectives reduce over (``dp``, an
-    ``ops.collective_ops.DataParallelGroup``; None outside one).
+    parameters and moments in place), and the process groups the
+    collectives reduce over (``dp``: an ``ops.collective_ops.
+    DataParallelGroup`` for a run over one axis, a ``MeshGroups`` for a
+    mesh of several; None outside a process group).
     ``predicate_reads`` counts the device values the run read on the host
     to choose a path (a ``conditional_block``'s predicate, a LocalSGD
     sync step): each is one wait for the device."""
@@ -112,9 +113,9 @@ class LoweringContext:
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
-        """The run's reduce axes (the JAX package's mesh axis names):
-        the process group's one axis, or none."""
-        return (self.dp.axis_name,) if self.dp is not None else ()
+        """The run's mesh axes (the JAX package's mesh axis names): its
+        groups' axes, or none."""
+        return tuple(self.dp.axis_names) if self.dp is not None else ()
 
 
 def x(ins, slot, i=0):

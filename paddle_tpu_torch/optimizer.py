@@ -1174,6 +1174,11 @@ class ShardedUpdateOptimizer(Optimizer):
     ``dist_attr`` over the data axis), so each rank holds 1/n of the
     optimizer state (the executor keeps each rank's block of them).
 
+    ``axis_name`` may be a tuple of axes, as in the JAX package: the
+    scatter and the gather ride the first, and the gradient is all-reduced
+    over the rest before the scatter (``nranks`` is the first axis's
+    size).
+
     Only elementwise update rules shard (LAMB and LARS need full-tensor
     norms: ``ValueError``); norm-based gradient clipping is refused
     (``NotImplementedError``: a shard-local norm clips each rank

@@ -27,7 +27,8 @@ from paddle_tpu_torch.serving.engine import ServingConfig
 MODULES = ("optimizer", "framework.executor", "framework.compiler",
            "inference", "io", "serving.engine", "serving.decode",
            "distributed.fleet", "layers.control_flow",
-           "framework.mesh_layout", "framework.fsdp")
+           "framework.mesh_layout", "framework.fsdp", "framework.reshard",
+           "framework.analysis")
 
 #: JAX internals whose parameters differ by design, with the reason
 ALLOWED = {
@@ -126,7 +127,13 @@ OPTIMIZERS_AND_CHECKPOINTS = {
         "Dpsgd"},
     "io": {"TrainStatus", "save_checkpoint", "load_checkpoint",
            "validate_checkpoint_dir", "save_params", "load_params",
-           "AsyncCheckpointer", "save_persistables_sharded"},
+           "AsyncCheckpointer", "save_persistables_sharded",
+           "load_persistables_sharded"},
+    "framework.reshard": {"plan_reshard", "plan_var_transfer",
+                          "execute_reshard", "flat_shard_meta",
+                          "flat_moved_bytes", "spec_dim_divisors",
+                          "ReshardPlan", "VarTransfer", "ReshardStep"},
+    "framework.analysis": {"verify_reshard", "VerifyResult", "Diagnostic"},
 }
 
 
@@ -177,8 +184,9 @@ def test_the_ported_checkpoint_keeps_the_jax_constants():
     assert (tio.CKPT_FORMAT_VERSION, tio.MANIFEST_FILE) == \
         (jio.CKPT_FORMAT_VERSION, jio.MANIFEST_FILE)
     assert issubclass(tio.ChecksumMismatchError, OSError)
-    with pytest.raises(UnimplementedError, match="AsyncCheckpointer"):
-        tio.AsyncCheckpointer()
+    # the background writer is ported: nothing in flight, nothing to join
+    ck = tio.AsyncCheckpointer()
+    assert not ck.in_flight and ck.drain()
 
 
 @pytest.mark.parametrize("reserve", [0, 3])

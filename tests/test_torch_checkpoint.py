@@ -18,8 +18,10 @@
   in ``rng.npy`` ignored; a port checkpoint passes the JAX package's
   ``validate_checkpoint_dir`` and loads through its ``load_checkpoint`` to
   the same arrays.
-* Sharded saves, layouts other than one device's, resharding and
-  ``AsyncCheckpointer`` raise ``UnimplementedError`` by name."""
+* Sharded saves and ``AsyncCheckpointer`` read back as saved on one
+  process; a layout with a tensor or pipeline axis raises
+  ``UnimplementedError`` by name, and a layout change with
+  ``reshard=False`` the JAX package's ``InvalidArgumentError``."""
 
 import json
 import os
@@ -38,8 +40,10 @@ from paddle_tpu_torch import fluid as tfluid
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.framework import core as tcore
 from paddle_tpu_torch.framework import unique_name as tun
-from paddle_tpu_torch.framework.errors import UnimplementedError
+from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
+                                               UnimplementedError)
 from paddle_tpu_torch.framework.executor import _RNG_VAR
+from paddle_tpu_torch.framework.mesh_layout import MeshLayout
 from paddle_tpu_torch.models import bert as tbert
 
 TOL = 1e-5
@@ -304,38 +308,59 @@ def test_a_port_checkpoint_loads_in_the_jax_package(tmp_path):
                                       t.numpy(), err_msg=n)
 
 
-class _Layout:
-    def __init__(self, **sizes):
-        self.sizes = sizes
-
-
 def test_unported_checkpoint_paths_are_refused_by_name(tmp_path):
+    """What stays refused: a layout with a tensor or pipeline axis, given
+    at save, as the restore's destination or as the checkpoint's stamp
+    (``UnimplementedError`` naming the axis), and a layout change with
+    ``reshard=False`` (the JAX package's ``InvalidArgumentError``).  What
+    was refused before and runs now: a sharded checkpoint, a per-process
+    sharded save and ``AsyncCheckpointer``, each read back as saved."""
     main, startup, _ = _build("port")
     scope, exe = _fresh(main, startup)
+    want = _state(scope, main)
     path = str(tmp_path)
-    with pytest.raises(UnimplementedError, match="sharded=True"):
-        tio.save_checkpoint(exe, path, tio.TrainStatus(0), main, scope=scope,
-                            sharded=True)
-    with pytest.raises(UnimplementedError, match="not one device's"):
-        tio.save_checkpoint(exe, path, tio.TrainStatus(0), main, scope=scope,
-                            layout=_Layout(dp=2))
-    with pytest.raises(UnimplementedError, match="save_persistables_sharded"):
-        tio.save_persistables_sharded(exe, path, main, scope=scope)
-    with pytest.raises(UnimplementedError, match="AsyncCheckpointer"):
-        tio.AsyncCheckpointer(max_checkpoints=2)
-    # one device's layout is taken
     d = tio.save_checkpoint(exe, path, tio.TrainStatus(0), main, scope=scope,
-                            layout=_Layout(dp=1, tp=1))
-    with pytest.raises(UnimplementedError, match="not one device's"):
+                            sharded=True, layout=MeshLayout(data=1, tp=1))
+    assert sorted(os.listdir(d)) == [
+        "ckpt_manifest.json", "shard_data_0.npz", "shard_manifest_0.json",
+        "torch_rng.npz", "train_status.json"]
+    assert tio.validate_checkpoint_dir(d) == (True, "ok")
+    tio.save_persistables_sharded(exe, str(tmp_path / "flat"), main,
+                                  scope=scope)
+    ck = tio.AsyncCheckpointer(max_checkpoints=2)
+    ck.save(exe, str(tmp_path / "async"), tio.TrainStatus(1), main,
+            scope=scope)
+    ck.wait()
+    for src in ("sharded", "flat", "async"):
+        scope2, exe2 = _fresh(main, startup)
+        for n, t in want.items():
+            scope2.set_var(n, torch.zeros_like(t))
+        if src == "flat":
+            tio.load_persistables_sharded(exe2, str(tmp_path / "flat"), main,
+                                          scope=scope2)
+        else:
+            tio.load_checkpoint(exe2, path if src == "sharded" else
+                                str(tmp_path / "async"), main_program=main,
+                                scope=scope2)
+        for n, t in want.items():
+            assert torch.equal(scope2.find_var(n), t), (src, n)
+    # refused: a tensor or pipeline axis
+    with pytest.raises(UnimplementedError, match="tp.*not ported"):
+        tio.save_checkpoint(exe, path, tio.TrainStatus(0), main, scope=scope,
+                            layout=MeshLayout(data=2, tp=2))
+    with pytest.raises(UnimplementedError, match="pp.*not ported"):
         tio.load_checkpoint(exe, path, main_program=main, scope=scope,
-                            dst_layout=_Layout(dp=4))
-    # a checkpoint stamped with a mesh of 2, or written sharded
+                            dst_layout=MeshLayout(pipe=2))
     man = tio._manifest_dict()
-    man["mesh_layout"] = {"axes": [["dp", 2]]}
+    man["mesh_layout"] = MeshLayout(tp=2).to_desc()
     tio._write_manifest(d, main, manifest=man)
-    with pytest.raises(UnimplementedError, match="stamp"):
+    with pytest.raises(UnimplementedError, match="stamp.*tp"):
         tio.load_checkpoint(exe, path, main_program=main, scope=scope)
-    open(os.path.join(d, "shard_manifest_0.json"), "w").close()
-    tio._write_manifest(d, main)
-    with pytest.raises(UnimplementedError, match="sharded"):
-        tio.load_checkpoint(exe, path, main_program=main, scope=scope)
+    # a layout change with resharding off: the JAX package's error
+    man["mesh_layout"] = MeshLayout(data=2).to_desc()
+    tio._write_manifest(d, main, manifest=man)
+    with pytest.raises(InvalidArgumentError,
+                       match="resharding is disabled") as e:
+        tio.load_checkpoint(exe, path, main_program=main, scope=scope,
+                            dst_layout=MeshLayout(fsdp=2), reshard=False)
+    assert "{'dp': 2, 'fsdp': 1, 'tp': 1}" in str(e.value)

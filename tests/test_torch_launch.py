@@ -106,3 +106,14 @@ def test_a_batch_that_does_not_divide_over_the_ranks_raises():
     with pytest.raises(InvalidArgumentError,
                        match="leading dim 8 does not divide into 3"):
         slice_feed(dp, "src_ids", np.zeros((8, 4)))
+
+
+def test_four_ranks_share_one_card():
+    """HSDP's four ranks on one GPU (``--nproc 4 --selected_gpus 0,0,0,0
+    --backend gloo``): every rank on GPU 0, over gloo, its own rank."""
+    assert L._gpu_ids("0,0,0,0", 4) == ["0"] * 4
+    envs = [L.rank_env(r, 4, "127.0.0.1", 29500, "0", "gloo", base={})
+            for r in range(4)]
+    assert [(e["RANK"], e["FLAGS_selected_gpus"],
+             e["PADDLE_DISTRI_BACKEND"]) for e in envs] == [
+        (str(r), "0", "gloo") for r in range(4)]

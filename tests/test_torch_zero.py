@@ -468,14 +468,35 @@ def test_sharding_on_one_worker_runs_the_program_as_minimize_left_it():
 
 
 @pytest.mark.parametrize("layout", [
-    {"data": 2, "fsdp": 2}, {"tp": 2}, {"data": 2, "tp": 2}, {"pipe": 2},
-    {"fsdp": 2, "tp": 2}], ids=lambda d: "x".join(f"{k}{v}"
-                                                  for k, v in d.items()))
+    {"data": 2, "fsdp": 2, "tp": 2}, {"tp": 2}, {"data": 2, "tp": 2},
+    {"pipe": 2}, {"fsdp": 2, "tp": 2}],
+    ids=lambda d: "x".join(f"{k}{v}" for k, v in d.items()))
 def test_multi_axis_layouts_are_refused_by_name(layout):
-    with pytest.raises(UnimplementedError,
-                       match="HSDP|multi-axis mesh") as e:
+    """A tensor or pipeline axis is refused by name, HSDP's data x fsdp
+    beside it too (data x fsdp alone is ported: see
+    ``test_hsdp_layouts_are_taken``)."""
+    with pytest.raises(UnimplementedError, match="tp|pp") as e:
         MeshLayout(**layout).build_mesh()
     assert "not ported" in str(e.value)
+
+
+def test_hsdp_layouts_are_taken():
+    """data x fsdp passes the port's check and, outside a process group
+    of its four ranks, fails only on the rank count; its ProcessMesh puts
+    rank r at (r // 2, r % 2), row-major as the JAX package reshapes its
+    devices."""
+    from paddle_tpu_torch.framework.mesh_layout import ProcessMesh
+    layout = MeshLayout(data=2, fsdp=2)
+    layout.check_ported()
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        layout.build_mesh()
+    mesh = ProcessMesh(("dp", "fsdp"), (2, 2))
+    assert [mesh.coords(r) for r in range(4)] == [
+        {"dp": d, "fsdp": f} for d in range(2) for f in range(2)]
+    assert [mesh.rank_of(mesh.coords(r)) for r in range(4)] == [0, 1, 2, 3]
+    assert mesh.line_ranks(3, ("dp",)) == [1, 3]
+    assert mesh.line_ranks(2, ("fsdp",)) == [2, 3]
+    assert mesh.line_ranks(1, ("dp", "fsdp")) == [0, 1, 2, 3]
 
 
 def test_one_axis_layouts_need_as_many_ranks():
@@ -520,7 +541,9 @@ def test_with_mesh_refuses_a_sequence_axis_and_foreign_meshes():
     with pytest.raises(UnimplementedError, match="per-feed layouts"):
         cp.with_mesh(ProcessMesh(("dp",), (1,)), loss.name,
                      feed_specs={"x": (None, "dp")})
-    with pytest.raises(UnimplementedError, match="multi-axis mesh"):
-        cp.with_mesh(ProcessMesh(("dp", "fsdp"), (2, 2)), loss.name)
+    # HSDP's ("dp", "fsdp") is taken (test_torch_hsdp.py); a tensor axis
+    # is refused by name
+    with pytest.raises(UnimplementedError, match="tensor, pipeline"):
+        cp.with_mesh(ProcessMesh(("dp", "tp"), (2, 2)), loss.name)
     with pytest.raises(UnimplementedError, match="not the port's mesh"):
         cp.with_mesh(object(), loss.name)
