@@ -272,7 +272,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    a rank; (c)'s save seconds, bytes written a rank, and the seconds
    ``AsyncCheckpointer.save()`` blocks against the whole write; (d)'s
    and (e)'s load seconds, bytes read and reshard wire bytes;
-17. print the ``kernels`` JSON line, the card's name and power limit, and
+17. ``overlap_grad_sync`` at BERT-base width on two ranks of the card
+   over gloo (phase 10's launcher, each rank its 16 of the 32 x 128
+   rows), phase 8's program and recipe (dropout 0.1) through fleet, 6
+   prepared steps a leg: (a) the classic tail-fused program, (b) overlap
+   (ready-order buckets at bucket_mb 4, min_buckets 4, fired from backward
+   hooks), (c) (b) with ``overlap_lowering`` off (the same buckets at the
+   tail), (d) (b) in the int8 tier (#12 launched from the hooks on the
+   communication worker's stream), (e) (d) with lowering off, (f)
+   overlap at bucket_mb 32.  Gates: (b) = (c) = (a) and (d) = (e) bit for
+   bit in losses and parameter sha256, both ranks alike; at least 4
+   buckets in (b) and (d); in (b), (d), (f) every bucket hooked and the
+   hooks fired in ``_ready_rank`` order, in (c), (e) every bucket at the
+   tail; phase 8's launches of #1-#10 a step, #12 once a bucket a step in
+   (d) and (e), no fallback; #11 and #12 held against their plain
+   versions at two of (d)'s bucket shard shapes.  Printed per leg: the
+   buckets, the step, the exposed collective ms (from the backward's end
+   to the last reduced gradient, CUDA events), gloo's wall time and calls
+   in one step and the device's busy share.  Then the preemption drill:
+   phase 15's ZeRO-3 leg under a ``PreemptionHandler`` with an
+   ``AsyncCheckpointer``; SIGTERM to the launcher after step 3 of 6: both
+   ranks save one sharded checkpoint at the same step and exit 42 (the
+   async copy of step 2 drained whole), and a relaunch resumes with steps
+   4-6 and the parameters bit for bit the uninterrupted run's;
+18. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -284,6 +307,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -4735,6 +4759,502 @@ def hsdp_report(trained, restored):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: overlap_grad_sync, and a preemption drill, on two ranks
+# ---------------------------------------------------------------------------
+
+#: phase 17: two ranks of the card over gloo, each its 16 of phase 8's
+#: 32 x 128 rows, phase 8's program and recipe through fleet (phase 10's
+#: launcher).  Legs: (a) the classic tail-fused program (fp32 buckets at
+#: the 32 MB cap), (b) overlap_grad_sync at bucket_mb 4, min_buckets 4,
+#: (c) (b) with overlap_lowering off (the same buckets at the tail), (d)
+#: (b) in the int8 tier, (e) (d) with lowering off, (f) overlap at
+#: bucket_mb 32
+OVERLAP_LEGS = "abcdef"
+OVERLAP_LEG_NAMES = {"a": "classic tail-fused", "b": "overlap, bucket_mb 4",
+                     "c": "overlap, overlap_lowering off",
+                     "d": "int8 overlap", "e": "int8 overlap, lowering off",
+                     "f": "overlap, bucket_mb 32"}
+OVERLAP_STEPS = 6
+OVERLAP_TIMEOUT_S = 600
+#: the preemption drill: phase 15's ZeRO-3 leg (e) under a
+#: PreemptionHandler with an AsyncCheckpointer; SIGTERM to the launcher
+#: after step PREEMPT_AT of PREEMPT_STEPS
+PREEMPT_STEPS, PREEMPT_AT = 6, 3
+PREEMPT_MARK = "PREEMPT-STEP"
+GRAD_SYNC_BUCKETS = ("c_fused_allreduce_sum", "c_fused_quant_allreduce_sum")
+
+
+def build_overlap_train(cfg, leg):
+    """Phase 17's program for ``leg`` as a rank writes it: phase 8's
+    BERT-base pretraining, recipe and fusion passes through ``fleet`` with
+    the leg's gradient sync.  Returns (fleet.main_program, main, startup,
+    loss)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.passes import apply_pass
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        s = DistributedStrategy()
+        if leg != "a":
+            s.overlap_grad_sync = True
+            s.overlap_configs = {"bucket_mb": 32 if leg == "f" else 4,
+                                 "min_buckets": 4}
+        if leg in "de":
+            s.quant_allreduce = True
+            s.quant_configs = {"dtype": "int8", "block_size": 256,
+                               "stochastic_rounding": False}
+        s.build_strategy = fluid.BuildStrategy()
+        s.build_strategy.fuse_elewise_add_act_ops = True
+        fleet.distributed_optimizer(recipe_optimizer(fluid),
+                                    s).minimize(total)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    return fleet.main_program, main, startup, total
+
+
+class GlooWall:
+    """While on, the host wall time and the count of the
+    ``torch.distributed`` collectives every thread calls (the caller's
+    and the gradient-sync worker's): gloo's own time, the host staging
+    copies outside it; a ``batch_isend_irecv`` is one call, its time the
+    call's and its requests' waits."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast", "batch_isend_irecv")
+
+    def __enter__(self):
+        import threading
+        import torch.distributed as dist
+        self.ms, self.calls = 0.0, 0
+        lock = threading.Lock()
+        self._saved = {n: getattr(dist, n) for n in self.NAMES}
+
+        def add(t0, calls=0):
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                self.ms += ms
+                self.calls += calls
+
+        class Timed:
+            """A request whose wait adds to the wall (waited once, as
+            the caller does: a gloo request waited twice blocks)."""
+
+            def __init__(self, req):
+                self._req = req
+
+            def wait(self, *args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return self._req.wait(*args, **kw)
+                finally:
+                    add(t0)
+
+        def wrap(name, fn):
+            def timed(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                add(t0, 1)
+                if name == "batch_isend_irecv":
+                    out = [Timed(req) for req in out]
+                return out
+            return timed
+
+        for n, fn in self._saved.items():
+            setattr(dist, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for n, fn in self._saved.items():
+            setattr(dist, n, fn)
+
+
+def bucket_numels(main):
+    """The element count of each gradient bucket of ``main``, in program
+    order."""
+    block = main.global_block()
+    return [sum(math.prod(block._find_var_recursive(g).shape)
+                for g in op.input("X"))
+            for op in block.ops if op.type in GRAD_SYNC_BUCKETS]
+
+
+def overlap_leg(torch, np, cfg, leg, feed):
+    """One leg of phase 17 on this rank: OVERLAP_STEPS prepared steps
+    counted from zero (each step's exposed collective ms from its
+    ``grad_sync`` record), the parameters' digest, then one profiled step
+    and one step with gloo's calls timed."""
+    from paddle_tpu_torch import flags, fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    program, main, startup, total = build_overlap_train(cfg, leg)
+    check(program._dp is not None and program._dp.world == DP_RANKS,
+          f"({leg}): the program does not run over {DP_RANKS} ranks")
+    flags.set_flags({"overlap_lowering": leg not in "ce"})
+    try:
+        scope = fluid.Scope()
+        exe = fluid.Executor(fleet.place)
+        exe.run(startup, scope=scope)
+        prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                               donate_state=True)
+
+        def step():
+            return float(prepared.run(feed)[0])
+
+        kernels.reset_launch_counts()
+        registry.reset_route_counts()
+        losses, step_s, exposed, fired = [], [], [], []
+        for _ in range(OVERLAP_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            step_s.append(time.perf_counter() - t0)
+            rec = prepared.grad_sync
+            exposed.append(rec.exposed_ms())
+            fired.append(list(rec.fired))
+        out = {"leg": leg, "losses": losses, "step_s": step_s,
+               "exposed_ms": exposed, "hooked": list(rec.hooked),
+               "fired": fired, "tail": rec.tail,
+               "bucket_numels": bucket_numels(main),
+               "launches": {f"{k}/{dt}": n for (k, dt), n in
+                            kernels.launch_counts_by_dtype().items()},
+               "fallbacks": {str(k): v for k, v in
+                             registry.route_counts("fallback").items()}}
+        fluid.sync_prepared_state(scope)
+        out["params_sha256"] = params_digest(np, scope, main)
+        steady = statistics.median(step_s[2:]) * 1e3
+        out["step_ms_median_3_6"] = steady
+        out["exposed_ms_median_3_6"] = statistics.median(exposed[2:])
+        out["profile"] = profile_step(torch, step, steady)
+        with GlooWall() as wall:
+            t0 = time.perf_counter()
+            step()
+            out["gloo_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["gloo_ms"], out["gloo_calls"] = wall.ms, wall.calls
+    finally:
+        flags.set_flags({"overlap_lowering": True})
+    del prepared, scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+def preempt_run(torch, np, out_dir, mode):
+    """The preemption drill on this rank: phase 15's ZeRO-3 program
+    (``MeshLayout(fsdp=2)``) under a ``PreemptionHandler`` over
+    ``out_dir/ckpt`` with an ``AsyncCheckpointer``.  ``ref``: the
+    uninterrupted PREEMPT_STEPS steps.  ``stop``: after step
+    PREEMPT_AT - 1 an async save (``out_dir/async``), after step
+    PREEMPT_AT rank 0 prints the marker and every rank waits for its
+    SIGTERM; ``step_done`` then drains the write, saves the sharded
+    checkpoint and exits 42.  ``resume``: restores and runs the rest.
+    Returns the losses, the first step and each parameter's digest as
+    this rank holds it."""
+    from paddle_tpu_torch import fluid, io
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.preemption import PreemptionHandler
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import registry
+    cfg = bert.BertConfig.base()
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    program, main, startup, total = build_zero_train(cfg, "e")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    exe.run(startup, scope=scope)
+    ck = io.AsyncCheckpointer()
+    handler = PreemptionHandler(exe, os.path.join(out_dir, "ckpt"), main,
+                                scope=scope, checkpointer=ck)
+    t0 = time.perf_counter()
+    st = handler.restore()
+    restore_s = time.perf_counter() - t0
+    prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    registry.reset_route_counts()
+    losses = []
+    for step in range(st.step + 1, PREEMPT_STEPS):
+        losses.append(float(prepared.run(feed)[0]))
+        if mode == "stop" and step == PREEMPT_AT - 2:
+            ck.save(exe, os.path.join(out_dir, "async"), io.TrainStatus(step),
+                    main, scope=scope)
+        if mode == "stop" and step == PREEMPT_AT - 1:
+            if fleet.worker_index() == 0:
+                log(f"{PREEMPT_MARK} {step + 1}")
+            deadline = time.monotonic() + 300
+            while not handler.preempted and time.monotonic() < deadline:
+                time.sleep(0.01)
+        handler.step_done(step)
+    check(mode != "stop", "the drill's ranks were not stopped")
+    ck.wait()
+    fluid.sync_prepared_state(scope)
+    digests = state_digests(np, scope, main)
+    return {"losses": losses, "first_step": st.step + 1,
+            "restore_s": restore_s,
+            "params_sha256": {p.name: digests[p.name]
+                              for p in main.all_parameters()},
+            "fallbacks": {str(k): v for k, v in
+                          registry.route_counts("fallback").items()}}
+
+
+def overlap_worker(out_dir, legs):
+    """One rank of phase 17 (``--overlap-worker DIR LEGS``): the legs of
+    LEGS in turn ("z": the drill's uninterrupted run); writes
+    ``overlap<r>.json``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
+    from paddle_tpu_torch.models import bert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
+    cfg = bert.BertConfig.base()
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    res = {"rank": rank, "place": repr(fleet.place)}
+    for leg in legs:
+        if leg == "z":
+            res[leg] = preempt_run(torch, np, out_dir, "ref")
+            continue
+        res[leg] = m = overlap_leg(torch, np, cfg, leg, feed)
+        log(f"[rank {rank}] ({leg}) {len(m['bucket_numels'])} buckets, "
+            f"losses {[round(x, 5) for x in m['losses']]}, step ms "
+            f"{m['step_ms_median_3_6']:.1f}, exposed ms "
+            f"{[round(x, 2) for x in m['exposed_ms']]}")
+    with open(os.path.join(out_dir, f"overlap{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def preempt_worker(out_dir, mode):
+    """One rank of the drill's ``stop`` or ``resume`` launch
+    (``--preempt-worker DIR MODE``); writes ``preempt<r>_<mode>.json``
+    (``stop`` exits 42 before)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    res = preempt_run(torch, np, out_dir, mode)
+    with open(os.path.join(out_dir, f"preempt{rank}_{mode}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def overlap_launch_cmd(repo, flag, out_dir, arg):
+    return [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+            "--nproc", str(DP_RANKS), "--selected_gpus", "0,0",
+            "--backend", "gloo", "--timeout", str(OVERLAP_TIMEOUT_S),
+            os.path.join(repo, "chip_smoke.py"), flag, out_dir, arg]
+
+
+def read_ranks(out_dir, name):
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, name.format(r=r))) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def preempt_drill(torch, repo, out_dir):
+    """The drill's ``stop`` launch, SIGTERM to the launcher at the
+    marker, then the ``resume`` launch; returns (the stop launch's exit
+    code and seconds, resume's ranks)."""
+    torch.cuda.empty_cache()
+    cmd = overlap_launch_cmd(repo, "--preempt-worker", out_dir, "stop")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE,
+                            text=True)
+    try:
+        signalled = False
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            if not signalled and line.startswith(PREEMPT_MARK):
+                proc.send_signal(signal.SIGTERM)
+                signalled = True
+        rc = proc.wait(timeout=OVERLAP_TIMEOUT_S + 60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stop_s = time.perf_counter() - t0
+    log(f"  drill: SIGTERM to the launcher after step {PREEMPT_AT}; the "
+        f"launcher exited {rc} after {stop_s:.1f} s")
+    check(signalled, "drill: the ranks never reached the marker")
+    check(rc == 42, f"drill: the launcher exited {rc}, not 42")
+    cmd = overlap_launch_cmd(repo, "--preempt-worker", out_dir, "resume")
+    rc = subprocess.run(cmd, cwd=repo,
+                        timeout=OVERLAP_TIMEOUT_S + 60).returncode
+    check(rc == 0, f"drill: the resumed ranks failed (exit code {rc})")
+    return stop_s, read_ranks(out_dir, "preempt{r}_resume.json")
+
+
+def overlap_quant_checks(torch, results, numels):
+    """#11 and #12 against their plain versions at two shard shapes of
+    leg (d)'s ready-order buckets (n = 2, block 256: its smallest bucket
+    and its median one), appended to ``results["overlap_quant"]``."""
+    from paddle_tpu_torch.ops.cuda import quant_kernels as QK
+    from paddle_tpu_torch.ops.quantize_wire import CompressionSpec
+    gen = torch.Generator(device=torch.device("cuda", 0)).manual_seed(
+        SEED + 17)
+    spec = CompressionSpec("int8", 256)
+    rows = results.setdefault("overlap_quant", [])
+    for numel in sorted({min(numels), sorted(numels)[len(numels) // 2]}):
+        sb = -(-numel // (DP_RANKS * 256))
+        q, s = quant_peers(torch, gen, spec, DP_RANKS, sb)
+        acc = QK.dequant_accumulate(q, s, spec, DP_RANKS)
+        err = max_err(torch, acc, QK.dequant_accumulate_plain(
+            q, s, spec, DP_RANKS))
+        q2, s2 = QK.dequant_accumulate_requant(q, s, spec, DP_RANKS)
+        p2, t2 = QK.dequant_accumulate_requant_plain(q, s, spec, DP_RANKS)
+        differ = int((q2 != p2).sum())
+        serr = max_err(torch, s2, t2)
+        log(f"  #11 / #12 at a bucket of leg (d), n={DP_RANKS} SB={sb} "
+            f"int8: #11 max|Δ| {err:.3e} (tolerance {TOL_DQ_ACC:.0e}); #12 "
+            f"payload bytes that differ {differ} (must be 0), scales "
+            f"max|Δ| {serr:.3e} (tolerance {TOL_DQ_SCALE:.0e})")
+        check(err <= TOL_DQ_ACC, f"#11 at SB={sb}: {err:.3e}")
+        check(differ == 0 and serr <= TOL_DQ_SCALE,
+              f"#12 at SB={sb}: {differ} bytes, scales {serr:.3e}")
+        rows.append({"shape": [DP_RANKS, sb, 256, "int8"],
+                     "dequant_accumulate_max_abs_err": err,
+                     "requant_payload_bytes_differ": differ,
+                     "requant_scales_max_abs_err": serr})
+
+
+def overlap_phase(torch, np, repo, results):
+    """Phase 17 (see the module docstring); returns rank 0's launches by
+    leg and the report."""
+    from paddle_tpu_torch.ops.cuda import build
+    out_dir = os.path.join(build.BUILD_DIR, "smoke_overlap")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rc = subprocess.run(
+            overlap_launch_cmd(repo, "--overlap-worker", out_dir,
+                               OVERLAP_LEGS + "z"), cwd=repo,
+            timeout=OVERLAP_TIMEOUT_S + 60).returncode
+        log(f"  legs {OVERLAP_LEGS} and the drill's uninterrupted run: "
+            f"ran {time.perf_counter() - t0:.1f} s, exit code {rc}")
+        check(rc == 0, f"phase 17: a rank failed (exit code {rc})")
+        ranks = read_ranks(out_dir, "overlap{r}.json")
+        stop_s, resumed = preempt_drill(torch, repo, out_dir)
+        ckpt = os.path.join(out_dir, "ckpt")
+        saved = sorted(d for d in os.listdir(ckpt)
+                       if d.startswith("checkpoint_"))
+        files = set(os.listdir(os.path.join(ckpt, saved[-1])))
+        from paddle_tpu_torch import io
+        copy = os.path.join(out_dir, "async", f"checkpoint_{PREEMPT_AT - 2}")
+        copy_ok = io.validate_checkpoint_dir(copy)[0]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    report = overlap_report(ranks)
+    overlap_quant_checks(torch, results, ranks[0]["d"]["bucket_numels"])
+    # the drill
+    check(saved == [f"checkpoint_{PREEMPT_AT - 1}"],
+          f"drill: checkpoints {saved}")
+    check({f"shard_manifest_{r}.json" for r in range(DP_RANKS)} <= files,
+          f"drill: the checkpoint lacks a rank's shards: {sorted(files)}")
+    check(copy_ok, "drill: the in-flight AsyncCheckpointer write was torn")
+    for r, res in enumerate(resumed):
+        ref = ranks[r]["z"]
+        check(res["first_step"] == PREEMPT_AT,
+              f"drill rank {r}: resumed at step {res['first_step']}")
+        check(res["losses"] == ref["losses"][PREEMPT_AT:],
+              f"drill rank {r}: steps {PREEMPT_AT + 1}-{PREEMPT_STEPS} "
+              f"{res['losses']} vs {ref['losses'][PREEMPT_AT:]}")
+        differ = sorted(n for n in ref["params_sha256"]
+                        if res["params_sha256"].get(n) !=
+                        ref["params_sha256"][n])
+        check(not differ, f"drill rank {r}: parameters differ: {differ[:5]}")
+        check(not res["fallbacks"], f"drill rank {r}: fallbacks")
+    log(f"  drill: both ranks saved one sharded checkpoint "
+        f"({saved[-1]}) and exited 42 ({stop_s:.1f} s with the launch); "
+        f"the AsyncCheckpointer copy of step {PREEMPT_AT - 1} whole; the "
+        f"relaunch restored in {resumed[0]['restore_s']:.2f} s and steps "
+        f"{PREEMPT_AT + 1}-{PREEMPT_STEPS} {resumed[0]['losses']} are bit "
+        f"for bit the uninterrupted run's, parameters too")
+    report["drill"] = {"stop_launch_s": stop_s, "checkpoints": saved,
+                       "restore_s": resumed[0]["restore_s"],
+                       "losses": resumed[0]["losses"]}
+    launches = {f"overlap_{leg}": {k.split("/")[0]: v for k, v in
+                                   ranks[0][leg]["launches"].items()}
+                for leg in OVERLAP_LEGS}
+    return launches, report
+
+
+def overlap_report(ranks):
+    """Phase 17's gates over legs (a)-(f), and their printed figures."""
+    report = {}
+    for leg in OVERLAP_LEGS:
+        rs = [r[leg] for r in ranks]
+        what = f"({leg}) {OVERLAP_LEG_NAMES[leg]}"
+        n = len(rs[0]["bucket_numels"])
+        for r, m in enumerate(rs):
+            who = f"{what} rank {r}"
+            check(all(math.isfinite(x) for x in m["losses"]),
+                  f"{who}: losses not finite: {m['losses']}")
+            check(not m["fallbacks"], f"{who}: fallbacks {m['fallbacks']}")
+            want = {f"{k}/float32": v for k, v in FUSED_LAUNCHES.items()}
+            if leg in "de":
+                want["dequant_accumulate_requant/int8"] = n
+            got = m["launches"]
+            for key in set(want) | set(got):
+                check(got.get(key, 0) == want.get(key, 0) * OVERLAP_STEPS,
+                      f"{who}: {key} launched {got.get(key, 0)} times in "
+                      f"{OVERLAP_STEPS} steps, expected {want.get(key, 0)} "
+                      f"a step")
+            if leg in "bdf":
+                check(len(m["hooked"]) == n and m["tail"] == 0 and
+                      m["hooked"] == sorted(m["hooked"], reverse=True) and
+                      all(f == sorted(m["hooked"]) for f in m["fired"]),
+                      f"{who}: hooks {m['hooked']} fired {m['fired'][-1]}, "
+                      f"{m['tail']} at the tail; {n} buckets in ready order "
+                      f"expected")
+            elif leg in "ce":
+                check(not m["hooked"] and m["tail"] == n,
+                      f"{who}: {m['hooked']} hooked with lowering off")
+        check(rs[0]["losses"] == rs[1]["losses"] and
+              rs[0]["params_sha256"] == rs[1]["params_sha256"],
+              f"{what}: the ranks differ")
+        if leg in "bd":
+            check(n >= 4, f"{what}: {n} buckets, at least 4 expected")
+        m = rs[0]
+        prof = m.get("profile") or {}
+        log(f"  {what}: {n} buckets; step {m['step_ms_median_3_6']:.2f} ms "
+            f"(median of steps 3-{OVERLAP_STEPS}); exposed collective "
+            f"{m['exposed_ms_median_3_6']:.2f} ms (median; backward's end to "
+            f"the last reduced gradient); gloo {m['gloo_ms']:.2f} ms in "
+            f"{m['gloo_calls']} calls of a {m['gloo_step_ms']:.2f} ms step "
+            f"(gloo staged through the host, two ranks on one card: no "
+            f"measure of NVLink); device busy "
+            + (f"{100 * prof['busy_share']:.1f} %" if prof
+               else "not measured"))
+        report[leg] = {k: m[k] for k in (
+            "losses", "step_ms_median_3_6", "exposed_ms",
+            "exposed_ms_median_3_6", "gloo_ms", "gloo_calls",
+            "gloo_step_ms", "bucket_numels")}
+        report[leg]["busy_share"] = prof.get("busy_share")
+    a, b, c, d, e = (ranks[0][k] for k in "abcde")
+    for x, y, what in ((b, c, "(b) vs (c)"), (b, a, "(b) vs (a)"),
+                       (d, e, "(d) vs (e)")):
+        check(x["losses"] == y["losses"] and
+              x["params_sha256"] == y["params_sha256"],
+              f"{what}: not bit for bit: {x['losses']} vs {y['losses']}")
+    log("  (b) = (c) = (a) and (d) = (e) bit for bit in losses and "
+        "parameter sha256; hooks fired in ready order in (b), (d), (f); "
+        "#12 launched from the hooks in (d) as often as at the tail in (e)")
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 11: paged-KV decode serving at BERT-base width
 # ---------------------------------------------------------------------------
 
@@ -5299,6 +5819,9 @@ ZERO_PATHS = tuple(f"zero_{leg}" for leg in ZERO_LEGS)
 #: phase 16's paths, rank 0 of each leg: (a) dp4, (b) HSDP, (d) and (e)
 #: the restores' steps
 HSDP_PATHS = ("hsdp_a", "hsdp_b", "hsdp_d", "hsdp_e")
+#: phase 17's paths, rank 0 of each leg: (a) classic, (b)-(f) overlapped
+#: or at the tail, (d) and (e) int8
+OVERLAP_PATHS = tuple(f"overlap_{leg}" for leg in OVERLAP_LEGS)
 
 
 def kernels_line(per_kernel, launches_by_path):
@@ -5333,7 +5856,9 @@ def kernels_line(per_kernel, launches_by_path):
     LocalSGD (``localsgd_launches``, rank 0) runs, phase 15's legs
     (``zero_a_launches`` ... ``zero_e_launches``, rank 0) and phase 16's
     (``hsdp_a_launches``, ``hsdp_b_launches``, and the restored runs'
-    ``hsdp_d_launches`` and ``hsdp_e_launches``, rank 0); Adam
+    ``hsdp_d_launches`` and ``hsdp_e_launches``, rank 0) and phase 17's
+    (``overlap_a_launches`` ... ``overlap_f_launches``, rank 0; #11 and
+    #12 also carry ``overlap_rows``, held at leg (d)'s bucket shapes); Adam
     carries its 16-bit rows (``16_bit``: bf16 and fp16 parameters beside
     float32 or 16-bit moments) and its row on ZeRO-1's flat shards
     (``zero1_shards``), #11 its rows at the ZeRO-1 scatter's largest
@@ -5369,7 +5894,7 @@ def kernels_line(per_kernel, launches_by_path):
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
                       "decode", "amp", "amp_fused", "amp_fp16",
                       "amp_pure_bf16", "lamb") + WRAPPED_PATHS + ZERO_PATHS \
-                + HSDP_PATHS:
+                + HSDP_PATHS + OVERLAP_PATHS:
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name == "adam":
@@ -5393,6 +5918,10 @@ def kernels_line(per_kernel, launches_by_path):
                 if r["shape"][:3] == [2, 45783, ZERO_BLOCK]]
             check(len(entry["zero_scatter"]) == 2,
                   "#11: no int8 and int4 rows at the scatter's shape")
+        if name.startswith("dequant_accumulate"):
+            # phase 17: held at the shard shapes of leg (d)'s overlapped
+            # buckets
+            entry["overlap_rows"] = per_kernel["overlap_quant"]
         if name in per_kernel.get("quant_step", {}):
             entry["step_13_launches"] = per_kernel["quant_step"][name]
         if name.startswith("flash_attention"):
@@ -5459,7 +5988,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, repo)
     workers = {"--dp-worker": dp_worker, "--localsgd-worker": localsgd_worker,
-               "--zero-worker": zero_worker, "--hsdp-worker": hsdp_worker}
+               "--zero-worker": zero_worker, "--hsdp-worker": hsdp_worker,
+               "--overlap-worker": overlap_worker,
+               "--preempt-worker": preempt_worker}
     if argv[:1] and argv[0] in workers:
         try:
             return workers[argv[0]](*argv[1:])
@@ -5564,6 +6095,15 @@ def main(argv=None) -> int:
             f"and recipe, dropout 0), {HSDP_STEPS} steps a leg; sharded "
             f"checkpoints restored onto fsdp 4 and data 2")
         hsdp_launches, hsdp_report_ = hsdp_phase(torch, np, repo)
+
+        log(f"phase 17: overlap_grad_sync at BERT-base width on {DP_RANKS} "
+            f"ranks of the card over gloo (phase 8's program and recipe "
+            f"through fleet), {OVERLAP_STEPS} steps a leg; the preemption "
+            f"drill on ZeRO-3")
+        t17 = time.perf_counter()
+        overlap_launches, overlap_report_ = overlap_phase(torch, np, repo,
+                                                          per_kernel)
+        log(f"  phase 17 ran {time.perf_counter() - t17:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5571,7 +6111,7 @@ def main(argv=None) -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    log(f"phase 17: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 18: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
@@ -5583,6 +6123,7 @@ def main(argv=None) -> int:
     log("wrappers " + json.dumps(wrappers_report))
     log("zero " + json.dumps(zero_report))
     log("hsdp " + json.dumps(hsdp_report_))
+    log("overlap " + json.dumps(overlap_report_))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
@@ -5590,7 +6131,7 @@ def main(argv=None) -> int:
         "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded,
         "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16,
         "amp_pure_bf16": amp_pure, "lamb": lamb, **wrapped,
-        **zero_launches, **hsdp_launches})))
+        **zero_launches, **hsdp_launches, **overlap_launches})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,12 +25,21 @@ gradient all-reduce inserted), ``amp`` (the inner optimizer wrapped by
 ``contrib.mixed_precision.decorate`` from ``amp_configs``),
 ``recompute`` (the backward's checkpoints), ``gradient_merge`` and
 ``localsgd`` (no gradient sync; the parameters averaged every
-``k_steps``).  ZeRO-3 is ``framework.fsdp.apply_fsdp_sharding`` +
-``CompiledProgram.with_mesh``, outside fleet, as in the JAX package.  A
-strategy flag whose path is not ported (tensor_parallel, pipeline,
-auto_shard, overlap_grad_sync, hierarchical all-reduce, more than one
-NCCL communicator, an explicit mesh) raises :class:`UnimplementedError`
-naming it; none is ignored."""
+``k_steps``), and ``overlap_grad_sync`` (the buckets cut in gradient
+ready order, ``overlap_configs``' ``bucket_mb`` and ``min_buckets``, and
+fired from backward hooks by the executor).  ZeRO-3 is
+``framework.fsdp.apply_fsdp_sharding`` + ``CompiledProgram.with_mesh``,
+outside fleet, as in the JAX package.  ``strategy.mesh`` takes the
+port's mesh (``MeshLayout(...).build_mesh()``, a ``ProcessMesh``) where
+the JAX package takes a jax ``Mesh``: one axis is data parallelism over
+that axis, data x fsdp compiles ``with_mesh``.  ``nccl_comm_num`` and
+``use_hierarchical_allreduce`` are taken and change nothing, as in the
+JAX package (one communicator a group; the backend schedules the
+all-reduce).  A flag whose path is not ported (tensor_parallel, pipeline,
+auto_shard, a mesh of another kind or with a tensor, pipeline or expert
+axis) raises :class:`UnimplementedError` naming it; none is ignored.
+``barrier_worker`` meets the other workers through the host collective
+service (``distributed/gloo.py``) when ``PADDLE_GLOO_ENDPOINT`` is set."""
 
 from __future__ import annotations
 
@@ -201,7 +210,10 @@ class DistributedStrategy:
     / ``amp_configs``, ``lamb`` / ``lamb_configs``, ``recompute`` /
     ``recompute_configs``, ``gradient_merge`` /
     ``gradient_merge_configs``, ``localsgd`` / ``localsgd_configs``,
-    ``use_dgc`` and ``build_strategy``; any other flag set raises at
+    ``use_dgc``, ``overlap_grad_sync`` / ``overlap_configs``, ``mesh`` (a
+    ``ProcessMesh`` of the dp and fsdp axes), ``nccl_comm_num`` and
+    ``use_hierarchical_allreduce`` (no-ops) and ``build_strategy``;
+    ``tensor_parallel``, ``pipeline`` and ``auto_shard`` raise at
     ``minimize``."""
 
     def __init__(self):
@@ -256,8 +268,6 @@ _UNPORTED = (
     ("tensor_parallel", "tensor parallelism"),
     ("pipeline", "pipeline parallelism"),
     ("auto_shard", "the auto-shard planner"),
-    ("overlap_grad_sync", "backward hooks in the executor"),
-    ("use_hierarchical_allreduce", "hierarchical all-reduce"),
 )
 
 
@@ -267,14 +277,22 @@ def _refuse_unported(s):
             raise UnimplementedError(
                 f"DistributedStrategy.{name}=True: its path ({needs}) is "
                 f"not ported yet")
-    if getattr(s, "nccl_comm_num", 1) != 1:
-        raise UnimplementedError(
-            f"DistributedStrategy.nccl_comm_num={s.nccl_comm_num}: one "
-            f"communicator per process group is what is ported")
     mesh = getattr(s, "mesh", None)
-    from ..framework.mesh_layout import ProcessMesh
-    if _sharded(s) and isinstance(mesh, ProcessMesh) and mesh.size > 1 \
-            and len(mesh.axis_names) != 1:
+    from ..framework.mesh_layout import DATA_AXIS, FSDP_AXIS, ProcessMesh
+    if mesh is None:
+        return
+    if not isinstance(mesh, ProcessMesh):
+        raise UnimplementedError(
+            f"DistributedStrategy.mesh={mesh!r}: the port takes its own "
+            f"mesh, MeshLayout(...).build_mesh() (a ProcessMesh over the "
+            f"process group, one process per rank)")
+    other = [a for a in mesh.axis_names if a not in (DATA_AXIS, FSDP_AXIS)]
+    if other:
+        raise UnimplementedError(
+            f"DistributedStrategy.mesh over the axes {mesh.shape}: {other} "
+            f"— tensor, pipeline and expert parallelism are not ported "
+            f"yet; the {DATA_AXIS} and {FSDP_AXIS} axes are")
+    if _sharded(s) and mesh.size > 1 and len(mesh.axis_names) != 1:
         # the JAX package's refusal (its fleet shards the update over one
         # axis); a hybrid grid composes with_mesh and the optimizer
         raise ValueError(
@@ -283,12 +301,15 @@ def _refuse_unported(s):
             f"{tuple(mesh.axis_names)} — use CompiledProgram"
             ".with_mesh + ShardedUpdateOptimizer directly for "
             "hybrid grids")
-    if mesh is not None:
-        raise UnimplementedError(
-            "DistributedStrategy.mesh: an explicit mesh is not ported yet; "
-            "data parallelism (and ZeRO-1) is one process per rank over "
-            "the process group, ZeRO-3 is apply_fsdp_sharding + "
-            "CompiledProgram.with_mesh")
+
+
+def _dp_axis(s) -> str:
+    """The axis one-axis data parallelism runs over: the strategy mesh's
+    one axis, else ``dp``."""
+    mesh = getattr(s, "mesh", None)
+    if mesh is not None and len(mesh.axis_names) == 1:
+        return mesh.axis_names[0]
+    return "dp"
 
 
 # ---------------------------------------------------------------------------
@@ -368,9 +389,25 @@ class _Fleet:
         self._ensure_init()
         return self._role_maker.backend()
 
+    @property
+    def _gloo(self):
+        """The host collective service (``distributed/gloo.py``) of this
+        job, made from the launcher's environment the first time it is
+        asked for; None without ``PADDLE_GLOO_ENDPOINT``."""
+        if not hasattr(self, "_gloo_ctx"):
+            from .gloo import init_from_env
+            self._gloo_ctx = init_from_env()
+        return self._gloo_ctx
+
     def barrier_worker(self):
-        """Block until every worker reaches this point (a no-op for one
-        worker)."""
+        """Block until every worker reaches this point (ref:
+        fleet_base.py barrier_worker -> GlooWrapper::Barrier): through the
+        host collective service when ``PADDLE_GLOO_ENDPOINT`` is set,
+        else through the process group (a no-op for one worker)."""
+        g = self._gloo
+        if g is not None:
+            g.barrier()
+            return
         import torch.distributed as dist
         if self.worker_num() > 1 and dist.is_initialized():
             dist.barrier()
@@ -521,6 +558,11 @@ class CollectiveOptimizer:
         build.fuse_all_reduce_ops = bool(getattr(s, "fuse_all_reduce_ops",
                                                  False))
         build.fuse_grad_size_in_MB = getattr(s, "fuse_grad_size_in_MB", 32)
+        if getattr(s, "overlap_grad_sync", False):
+            ov = dict(getattr(s, "overlap_configs", None) or {})
+            build.overlap_grad_sync = True
+            build.overlap_bucket_size_in_MB = ov.get("bucket_mb", 4)
+            build.overlap_min_buckets = ov.get("min_buckets", 4)
         if getattr(s, "bf16_allreduce", False):
             build.allreduce_compress_dtype = "bfloat16"
         if getattr(s, "quant_allreduce", False):
@@ -566,7 +608,7 @@ class CollectiveOptimizer:
                                                      0.01))
         if _sharded(s) and fleet.worker_num() > 1:
             optimizer = opt_mod.ShardedUpdateOptimizer(
-                optimizer, nranks=fleet.worker_num(), axis_name="dp",
+                optimizer, nranks=fleet.worker_num(), axis_name=_dp_axis(s),
                 compress_dtype="bfloat16" if getattr(s, "bf16_allreduce",
                                                      False) else None,
                 quant_spec=self._quant_spec())
@@ -603,23 +645,35 @@ class CollectiveOptimizer:
         overflow verdict.  Under ``localsgd`` no gradient sync is
         inserted: the ranks average their parameters every ``k_steps``
         instead (``local_sgd_sync``); under ``sharding`` neither: the
-        sharded update scatters the gradients itself."""
+        sharded update scatters the gradients itself.  A data x fsdp
+        ``strategy.mesh`` compiles ``with_mesh`` over it instead, a
+        one-axis one ``with_data_parallel`` over its axis."""
         fleet._ensure_init()
         s = self._strategy
         fleet._strategy = s
         self._validate(s)
         _refuse_unported(s)
+        if s.mesh is not None and s.mesh.size != fleet.worker_num():
+            raise ValueError(
+                f"DistributedStrategy.mesh: {s.mesh!r} needs {s.mesh.size} "
+                f"ranks, the job has {fleet.worker_num()}")
         opt_ops, params_grads = self._wrapped().minimize(
             loss, startup_program, parameter_list, no_grad_set)
         program = loss.block.program
         fleet._origin_program = program
-        if fleet.worker_num() > 1:
-            from ..framework.compiler import CompiledProgram
+        from ..framework.compiler import CompiledProgram
+        loss_name = None if (s.localsgd or _sharded(s)) else loss.name
+        mesh = s.mesh
+        if mesh is not None and len(mesh.axis_names) > 1:
+            # data x fsdp: both axes split the batch
+            fleet._compiled_program = CompiledProgram(program).with_mesh(
+                mesh, loss_name=loss_name, batch_axis=mesh.axis_names,
+                build_strategy=self._build_strategy())
+        elif fleet.worker_num() > 1:
             fleet._compiled_program = CompiledProgram(
                 program).with_data_parallel(
-                loss_name=None if (s.localsgd or _sharded(s))
-                else loss.name,
-                build_strategy=self._build_strategy())
+                loss_name=loss_name, build_strategy=self._build_strategy(),
+                axis_name=_dp_axis(s))
         else:
             fleet._compiled_program = None
         return opt_ops, params_grads

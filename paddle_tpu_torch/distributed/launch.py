@@ -16,16 +16,25 @@ id for all) and the backend in ``PADDLE_DISTRI_BACKEND`` when
 (``--nproc 4 --selected_gpus 0,0,0,0 --backend gloo``: NCCL refuses two
 ranks of a communicator on one device).
 
+Every rank also gets ``PADDLE_TPU_PS_AUTHKEY``, a fresh secret for the
+job unless the environment has one: the key of the host collective
+service (``distributed/gloo.py``).
+
 The launcher returns the OR of the ranks' exit codes (a rank killed by a
 signal counts as 128 + the signal).  When a rank fails, the others get a
 short grace to fail too and are then killed; a rank still running at
 ``--timeout`` is killed and the launch fails, so a hung collective fails
-its caller instead of hanging it."""
+its caller instead of hanging it.  A SIGTERM to the launcher (a
+preemption notice) is forwarded to every rank, and a rank that exits
+with :data:`PREEMPTED_EXIT_CODE` (``distributed/preemption.py``: it
+checkpointed and stopped) is not a failure: when every rank does, the
+launcher exits with that code too, so its caller can relaunch."""
 
 from __future__ import annotations
 
 import argparse
 import os
+import secrets
 import signal
 import socket
 import subprocess
@@ -35,6 +44,9 @@ from typing import List, Optional, Sequence
 
 #: seconds the other ranks get to exit after one rank fails
 FAILURE_GRACE_S = 10.0
+#: exit code of a rank that checkpointed on a preemption notice and
+#: stopped ("relaunch me")
+PREEMPTED_EXIT_CODE = 42
 
 
 def free_port(host: str = "127.0.0.1") -> int:
@@ -95,11 +107,22 @@ def launch(script_args: Sequence[str], nproc: int = 1,
         raise SystemExit(f"--nproc {nproc}: at least one rank")
     gpus = _gpu_ids(selected_gpus, nproc)
     port = master_port or free_port(master_addr)
+    base = dict(os.environ)
+    base.setdefault("PADDLE_TPU_PS_AUTHKEY", secrets.token_hex(32))
     procs = []
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    ok = (None, 0, PREEMPTED_EXIT_CODE)
+    previous = signal.signal(signal.SIGTERM, forward)
     try:
         for rank in range(nproc):
             env = rank_env(rank, nproc, master_addr, port,
-                           None if gpus is None else gpus[rank], backend)
+                           None if gpus is None else gpus[rank], backend,
+                           base)
             procs.append(subprocess.Popen(
                 [sys.executable] + list(script_args), env=env))
         deadline = None if not timeout else time.monotonic() + timeout
@@ -109,7 +132,7 @@ def launch(script_args: Sequence[str], nproc: int = 1,
             if all(c is not None for c in codes):
                 break
             now = time.monotonic()
-            if any(c not in (None, 0) for c in codes):
+            if any(c not in ok for c in codes):
                 grace = now + FAILURE_GRACE_S
                 deadline = grace if deadline is None else \
                     min(deadline, grace)
@@ -117,21 +140,25 @@ def launch(script_args: Sequence[str], nproc: int = 1,
                 running = [r for r, c in enumerate(codes) if c is None]
                 print(f"launch: killing rank(s) {running} "
                       + ("after a rank failed" if any(
-                          c not in (None, 0) for c in codes)
+                          c not in ok for c in codes)
                          else f"still running after {timeout} s"),
                       file=sys.stderr, flush=True)
-                timed_out = all(c in (None, 0) for c in codes)
+                timed_out = all(c in ok for c in codes)
                 _kill(procs)
                 break
             time.sleep(0.05)
     except BaseException:
         _kill(procs)
         raise
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    codes = [p.wait() for p in procs]
+    if not timed_out and all(c == PREEMPTED_EXIT_CODE for c in codes):
+        return PREEMPTED_EXIT_CODE
     rc = 0
-    for p in procs:
-        code = p.wait()
+    for code in codes:
         rc |= code if code >= 0 else 128 - code
-    if timed_out and rc == 0:
+    if timed_out and rc in (0, PREEMPTED_EXIT_CODE):
         rc = 124
     return rc
 

@@ -6,7 +6,7 @@ names and defaults: they switch the hand-written kernels (ops/cuda/) on
 and off, and with both off every op runs its plain PyTorch composition —
 the plain path a run on the card is compared against.  The checkpoint
 writer's retry count and backoff keep the JAX package's names and
-defaults too."""
+defaults too, and so does ``overlap_lowering``."""
 
 from __future__ import annotations
 
@@ -33,6 +33,11 @@ _register("use_pallas_fused", True)        # LN / add-LN / bias-GELU kernels
 # checkpoint file writes: attempts after a transient OSError, first backoff
 _register("checkpoint_retries", 3)
 _register("checkpoint_retry_backoff_s", 0.05)
+# overlap_grad_sync's ready-order buckets fire their collectives from
+# backward hooks (True) or all at the program tail (False: the same
+# program and buckets, every collective after the backward — the control
+# that shows the hooks move when a bucket runs, not what it computes)
+_register("overlap_lowering", True)
 
 
 def get_flags(flags: Union[str, Iterable[str]]) -> Dict[str, Any]:

@@ -26,8 +26,9 @@ and HSDP (both) — slices the feeds over the batch axes and inserts the
 gradient sync over them (a parameter stamped over an axis is reduced over
 the others only: its gradient arrives reduce-scattered over that one).
 A tensor, pipeline or sequence axis raises, and so do several places in
-one process: one process drives one device.  ``overlap_grad_sync`` is refused
-by name (it needs backward hooks in the executor).  The JAX package's
+one process: one process drives one device.  With ``overlap_grad_sync``
+the buckets are cut in gradient ready order and marked for the
+executor's backward hooks (:func:`insert_grad_sync`).  The JAX package's
 static checks of a variant (``verify_programs``, ``hbm_budget_gb``,
 ``aot_cache_dir``) belong to modules the port does not have yet, and it
 has none of those flags."""
@@ -57,9 +58,10 @@ class BuildStrategy:
     """ref: details/build_strategy.h — the JAX package's fields.  The
     gradient-sync fields (``fuse_all_reduce_ops``,
     ``fuse_grad_size_in_MB``, ``allreduce_compress_dtype``,
-    ``allreduce_quant_spec``, ``gradient_scale_strategy``) shape
-    :func:`insert_grad_sync` inside a process group; ``overlap_grad_sync``
-    is refused."""
+    ``allreduce_quant_spec``, ``gradient_scale_strategy``,
+    ``overlap_grad_sync`` with ``overlap_bucket_size_in_MB`` and
+    ``overlap_min_buckets``) shape :func:`insert_grad_sync` inside a
+    process group."""
 
     class ReduceStrategy:
         AllReduce = 0
@@ -128,11 +130,6 @@ class CompiledProgram:
                 f"CompiledProgram.with_data_parallel over {len(places)} "
                 f"places: {_ONE_PROCESS_PER_RANK}")
         strategy = build_strategy or BuildStrategy()
-        if strategy.overlap_grad_sync:
-            raise UnimplementedError(
-                "BuildStrategy.overlap_grad_sync: firing gradient buckets "
-                "inside the backward sweep needs backward hooks in the "
-                "executor, which are not ported yet")
         from ..ops.collective_ops import DataParallelGroup
         dp = DataParallelGroup.current(axis_name)
         if dp is not None and loss_name is not None:
@@ -187,11 +184,6 @@ class CompiledProgram:
                 f"per-feed layouts are not ported yet; feeds split on dim 0 "
                 f"over the batch axes")
         strategy = build_strategy or BuildStrategy()
-        if strategy.overlap_grad_sync:
-            raise UnimplementedError(
-                "BuildStrategy.overlap_grad_sync: firing gradient buckets "
-                "inside the backward sweep needs backward hooks in the "
-                "executor, which are not ported yet")
         from ..ops.collective_ops import DataParallelGroup, MeshGroups
         batch_axes = tuple(a for a in _flat_axes(batch_axis)
                            if a in mesh.axis_names)
@@ -268,16 +260,19 @@ def _qscale_blocks(numel, p_axes, qspec, axis_sizes):
 
 
 def _bucketize(group, cap):
-    """Split one (dtype, axes) group's leaves ``(grad, nbytes)`` into
-    contiguous buckets ``(names, nbytes)`` of at most ``cap`` bytes (a
-    leaf larger than the cap is a bucket of its own)."""
+    """Split one (dtype, axes) group's leaves ``(grad, nbytes, hook)``
+    into contiguous buckets ``(names, nbytes, hook)`` of at most ``cap``
+    bytes (a leaf larger than the cap is a bucket of its own), each
+    carrying the least hook position of its members (None when a member
+    has none: the backward cannot fire that bucket early)."""
     buckets = []
-    for g, nbytes in group:
+    for g, nbytes, hook in group:
         if buckets and (cap is None or buckets[-1][1] + nbytes <= cap):
-            names, size = buckets[-1]
-            buckets[-1] = (names + [g], size + nbytes)
+            names, size, h = buckets[-1]
+            h = None if (h is None or hook is None) else min(h, hook)
+            buckets[-1] = (names + [g], size + nbytes, h)
         else:
-            buckets.append(([g], nbytes))
+            buckets.append(([g], nbytes, hook))
     return buckets
 
 
@@ -296,7 +291,18 @@ def insert_grad_sync(program: Program, strategy, nranks, reduce_axes,
     into ``c_quant_allreduce_sum`` / ``c_fused_quant_allreduce_sum``, the
     latter declaring its stage-2 scale var (``QScale``).  A param already
     sharded over some axes (``dist_attr``) reduces over the others only;
-    a distributed param is skipped."""
+    a distributed param is skipped.
+
+    With ``strategy.overlap_grad_sync`` the bucketed path cuts the buckets
+    in gradient READY order: the leaves sorted by descending first forward
+    read (counted over the ops before the backward, feed and fetch left
+    out; unread parameters last), the cap min(``fuse_grad_size_in_MB``,
+    ``overlap_bucket_size_in_MB``), a (dtype, axes) group re-split to at
+    least ``overlap_min_buckets`` buckets, the ops emitted in ready order
+    and marked ``_overlap`` / ``_ready_rank`` / ``_bucket_index`` /
+    ``_overlap_hook_pos`` (the least first read of the bucket's members).
+    The executor fires such a bucket's collective from a backward hook
+    placed before that read (:func:`~.executor.run_training_block`)."""
     block = program.global_block()
     bw_idx = next((i for i, op in enumerate(block.ops)
                    if op.type == "backward"), None)
@@ -319,7 +325,20 @@ def insert_grad_sync(program: Program, strategy, nranks, reduce_axes,
     all_axes = tuple(reduce_axes) if isinstance(reduce_axes, (tuple, list)) \
         else (reduce_axes or "dp",)
 
-    leaves = []          # (grad_name, p_axes, dtype, nbytes)
+    overlap = bool(getattr(strategy, "overlap_grad_sync", False))
+    first_use = {}
+    if overlap:
+        from .liveness import op_reads_recursive
+        want = set(bw.attrs["param_names"])
+        pos = 0
+        for op in block.ops[:bw_idx]:
+            if op.type in ("feed", "fetch"):
+                continue
+            for n in op_reads_recursive(op) & want:
+                first_use.setdefault(n, pos)
+            pos += 1
+
+    leaves = []          # (grad_name, p_axes, dtype, nbytes, first use)
     for pname in bw.attrs["param_names"]:
         pvar = block._find_var_recursive(pname)
         if pvar is not None and getattr(pvar, "is_distributed", False):
@@ -330,15 +349,16 @@ def insert_grad_sync(program: Program, strategy, nranks, reduce_axes,
         numel = int(abs(np.prod(pvar.shape))) if pvar is not None and \
             len(tuple(pvar.shape)) else 1
         leaves.append((grad_var_name(pname), p_axes, dtype,
-                       numel * _DTYPE_BYTES.get(dtype, 4)))
+                       numel * _DTYPE_BYTES.get(dtype, 4),
+                       first_use.get(pname)))
 
     def axis_attr(p_axes):
         return {"ring_id": 0,
                 "_axis_name": tuple(p_axes) if len(p_axes) > 1
                 else p_axes[0]}
 
-    if not getattr(strategy, "fuse_all_reduce_ops", False):
-        for g, p_axes, dtype, _ in leaves:
+    if not getattr(strategy, "fuse_all_reduce_ops", False) and not overlap:
+        for g, p_axes, dtype, _, _ in leaves:
             if need_scale:
                 block._insert_op(insert_at, type="scale",
                                  inputs={"X": [g]}, outputs={"Out": [g]},
@@ -360,49 +380,81 @@ def insert_grad_sync(program: Program, strategy, nranks, reduce_axes,
 
     # -- bucketed path ------------------------------------------------
     cap_mb = getattr(strategy, "fuse_grad_size_in_MB", 32) or 0
+    if overlap:
+        ov_mb = getattr(strategy, "overlap_bucket_size_in_MB", 4) or 0
+        cap_mb = min(cap_mb, ov_mb) if cap_mb > 0 and ov_mb > 0 \
+            else (cap_mb or ov_mb)
+        # a parameter's cotangent is final once the reverse sweep passes
+        # its first read, so the later read comes first; unread last
+        leaves = sorted(leaves, key=lambda t: -1 if t[4] is None else t[4],
+                        reverse=True)
     cap = int(cap_mb * (1 << 20)) if cap_mb > 0 else None
-    group_leaves = {}    # (dtype, p_axes) -> [(grad, nbytes), ...]
+    group_leaves = {}    # (dtype, p_axes) -> [(grad, nbytes, hook), ...]
     order = []
-    for g, p_axes, dtype, nbytes in leaves:
+    for g, p_axes, dtype, nbytes, hook in leaves:
         key = (dtype, p_axes)
         if key not in group_leaves:
             group_leaves[key] = []
             order.append(key)
-        group_leaves[key].append((g, nbytes))
-    for key in order:
-        dtype, p_axes = key
-        for names, bucket_bytes in _bucketize(group_leaves[key], cap):
-            if not p_axes:
-                # nothing to reduce over (fully sharded param): the
-                # mean-scale still applies, per leaf
-                if need_scale:
-                    for g in names:
-                        block._insert_op(
-                            insert_at, type="scale",
-                            inputs={"X": [g]}, outputs={"Out": [g]},
-                            attrs={"scale": 1.0 / nranks})
-                        insert_at += 1
-                continue
-            attrs = axis_attr(p_axes)
+        group_leaves[key].append((g, nbytes, hook))
+    if overlap:
+        min_buckets = int(getattr(strategy, "overlap_min_buckets", 4) or 0)
+        flat = []
+        for key in order:
+            ls = group_leaves[key]
+            gcap = cap
+            if min_buckets > 1 and len(ls) >= min_buckets:
+                # one giant bucket has nothing to hide behind: shrink the
+                # cap until the group splits into min_buckets buckets
+                auto = -(-sum(n for _, n, _ in ls) // min_buckets)
+                gcap = auto if gcap is None else min(gcap, auto)
+            flat.extend((key, b) for b in _bucketize(ls, gcap))
+        # emitted in ready order (descending hook position), unhookable
+        # buckets last
+        flat.sort(key=lambda kb: -1 if kb[1][2] is None else kb[1][2],
+                  reverse=True)
+        ranked = [(key, names, nbytes, hook, rank)
+                  for rank, (key, (names, nbytes, hook)) in enumerate(flat)]
+    else:
+        ranked = [(key, names, nbytes, None, None) for key in order
+                  for names, nbytes, _ in _bucketize(group_leaves[key], cap)]
+    for (dtype, p_axes), names, bucket_bytes, hook, rank in ranked:
+        if not p_axes:
+            # nothing to reduce over (fully sharded param): the
+            # mean-scale still applies, per leaf
             if need_scale:
-                attrs["scale"] = 1.0 / nranks
-            op_type = "c_fused_allreduce_sum"
-            outputs = {"Out": list(names)}
-            if qspec is not None and dtype in _FLOAT_DTYPES:
-                # the bucket's stage-2 scale tensor rides beside the
-                # payload: a declared var, so its bytes are on record
-                op_type = "c_fused_quant_allreduce_sum"
-                attrs["quant_spec"] = qspec.to_attr()
-                numel = bucket_bytes // _DTYPE_BYTES.get(dtype, 4)
-                sv = block.create_var(
-                    name=f"{names[0]}@quant_scale",
-                    shape=(_qscale_blocks(numel, p_axes, qspec,
-                                          axis_sizes),),
-                    dtype="float32")
-                outputs["QScale"] = [sv.name]
-            elif compress:
-                attrs["compress_dtype"] = compress
-            block._insert_op(insert_at, type=op_type,
-                             inputs={"X": list(names)}, outputs=outputs,
-                             attrs=attrs)
-            insert_at += 1
+                for g in names:
+                    block._insert_op(
+                        insert_at, type="scale",
+                        inputs={"X": [g]}, outputs={"Out": [g]},
+                        attrs={"scale": 1.0 / nranks})
+                    insert_at += 1
+            continue
+        attrs = axis_attr(p_axes)
+        if need_scale:
+            attrs["scale"] = 1.0 / nranks
+        if rank is not None:
+            attrs["_overlap"] = True
+            attrs["_ready_rank"] = int(rank)
+            attrs["_bucket_index"] = int(rank)
+            if hook is not None:
+                attrs["_overlap_hook_pos"] = int(hook)
+        op_type = "c_fused_allreduce_sum"
+        outputs = {"Out": list(names)}
+        if qspec is not None and dtype in _FLOAT_DTYPES:
+            # the bucket's stage-2 scale tensor rides beside the
+            # payload: a declared var, so its bytes are on record
+            op_type = "c_fused_quant_allreduce_sum"
+            attrs["quant_spec"] = qspec.to_attr()
+            numel = bucket_bytes // _DTYPE_BYTES.get(dtype, 4)
+            sv = block.create_var(
+                name=f"{names[0]}@quant_scale",
+                shape=(_qscale_blocks(numel, p_axes, qspec, axis_sizes),),
+                dtype="float32")
+            outputs["QScale"] = [sv.name]
+        elif compress:
+            attrs["compress_dtype"] = compress
+        block._insert_op(insert_at, type=op_type,
+                         inputs={"X": list(names)}, outputs=outputs,
+                         attrs=attrs)
+        insert_at += 1

@@ -329,6 +329,75 @@ def run_forward(fwd_ops, env, ctx, checkpoints, always_live):
     return env
 
 
+#: the ops insert_grad_sync places after the backward
+GRAD_SYNC_OPS = ("c_allreduce_sum", "c_quant_allreduce_sum",
+                 "c_fused_allreduce_sum", "c_fused_quant_allreduce_sum")
+
+
+class _BucketHook(torch.autograd.Function):
+    """Identity over one ready-order bucket's parameters: its backward
+    runs once every member's cotangent is final, hands the cotangents to
+    the bucket's collective (``HookedBucket.fire``) and returns them
+    unchanged."""
+
+    @staticmethod
+    def forward(fctx, bucket, *params):
+        fctx.bucket = bucket
+        return tuple(p.view_as(p) for p in params)
+
+    @staticmethod
+    def backward(fctx, *cots):
+        fctx.bucket.fire(cots)
+        return (None,) + cots
+
+
+def _overlap_schedule(fwd_ops, tail_ops, param_names, ctx):
+    """The backward hooks of this run: for each ready-order bucket op
+    (``_overlap`` with an ``_overlap_hook_pos``) in the tail whose axes
+    the run has, (the position in ``fwd_ops`` of the first read of any of
+    its parameters, their names, the op), sorted by position.  The
+    positions are counted here, on the ops this run executes, so a pass
+    that rewrote the forward cannot leave one stale; a bucket with a
+    parameter the forward does not read stays at the tail."""
+    from ..ops.collective_ops import _ring_axis
+    from .liveness import op_reads_recursive
+    hookable = [op for op in tail_ops if op.attrs.get("_overlap")
+                and op.attrs.get("_overlap_hook_pos") is not None
+                and _ring_axis(ctx, op.attrs) is not None]
+    if not hookable:
+        return []
+    grad_to_param = {grad_var_name(n): n for n in param_names}
+    want = set(param_names)
+    first_use: Dict[str, int] = {}
+    for i, op in enumerate(fwd_ops):
+        for n in op_reads_recursive(op) & want:
+            first_use.setdefault(n, i)
+    hooks = []
+    for op in hookable:
+        pnames = [grad_to_param.get(g) for g in op.input("X")]
+        if pnames and all(p in first_use for p in pnames):
+            hooks.append((min(first_use[p] for p in pnames), pnames, op))
+    hooks.sort(key=lambda t: t[0])
+    return hooks
+
+
+def _run_hooked(fwd_ops, env, ctx, hooks, record):
+    """The forward ops with each bucket's :class:`_BucketHook` applied to
+    its parameters right before their first read; returns the
+    (op, ``HookedBucket``) pairs."""
+    from ..ops.collective_ops import HookedBucket
+    buckets, cur = [], 0
+    for pos, pnames, op in hooks:
+        run_ops(fwd_ops[cur:pos], env, ctx)
+        bucket = HookedBucket(ctx, op, record)
+        env.update(zip(pnames, _BucketHook.apply(
+            bucket, *[env[n] for n in pnames])))
+        buckets.append((op, bucket))
+        cur = pos
+    run_ops(fwd_ops[cur:], env, ctx)
+    return buckets
+
+
 def run_training_block(ops, env, ctx, bw_idx, keep=()):
     """[forward ops][backward meta-op][update ops]: the forward under
     autograd with the parameters as leaf tensors, ``param@GRAD`` from
@@ -349,7 +418,22 @@ def run_training_block(ops, env, ctx, bw_idx, keep=()):
     ``check_finite_and_unscale`` op after the backward unscales them.
     The backward reaches a parameter through its cast ops whatever their
     ``stop_gradient`` flag (autograd never reads it), so an AMP program's
-    float32 master weights get float32 gradients."""
+    float32 master weights get float32 gradients.
+
+    Under ``overlap_grad_sync`` (with ``flags.overlap_lowering`` on and
+    the run over a group) each ready-order gradient bucket is fired from
+    the backward: an identity :class:`_BucketHook` over its parameters
+    sits right before their first read, its backward hands the bucket to
+    the asynchronous collective of its group (``collective_ops.
+    HookedBucket``) as soon as every member's cotangent is final, and the
+    backward goes on.  After ``torch.autograd.grad`` every bucket is
+    waited for and writes the outputs of its op, which the tail then
+    skips; the values are those of the op run at the tail.  With recompute
+    checkpoints (more than one segment) the buckets stay at the tail, as
+    in the JAX package.  ``ctx.grad_sync`` records the run's gradient
+    sync (``collective_ops.GradSyncRecord``)."""
+    from ..flags import flag
+    from ..ops.collective_ops import GradSyncRecord
     bw_op = ops[bw_idx]
     _refuse_unported(bw_op)
     param_names = list(bw_op.attrs["param_names"])
@@ -357,6 +441,13 @@ def run_training_block(ops, env, ctx, bw_idx, keep=()):
     loss_scale = float(bw_op.attrs.get("loss_scale", 1.0))
     scale_var = bw_op.attrs.get("loss_scale_var")
     checkpoints = list(bw_op.attrs.get("checkpoints") or ())
+    tail = ops[bw_idx + 1:]
+    record = GradSyncRecord() if ctx.dp is not None and any(
+        op.type in GRAD_SYNC_OPS for op in tail) else None
+    ctx.grad_sync = record
+    hooks = []
+    if record is not None and not checkpoints and flag("overlap_lowering"):
+        hooks = _overlap_schedule(ops[:bw_idx], tail, param_names, ctx)
     always_live = set(keep) | {loss_name}
     if checkpoints:
         program = bw_op.block.program
@@ -368,12 +459,18 @@ def run_training_block(ops, env, ctx, bw_idx, keep=()):
     leaves = [env[n].detach().requires_grad_(True) for n in param_names]
     env.update(zip(param_names, leaves))
     with torch.enable_grad():
-        run_forward(ops[:bw_idx], env, ctx, checkpoints, always_live)
+        if hooks:
+            buckets = _run_hooked(ops[:bw_idx], env, ctx, hooks, record)
+        else:
+            buckets = []
+            run_forward(ops[:bw_idx], env, ctx, checkpoints, always_live)
         total = env[loss_name].sum() * loss_scale
         if scale_var:
             total = total * env[scale_var].reshape(()).detach().to(
                 total.dtype)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    if record is not None:
+        record.mark_backward_end(ctx.device)
     for k, v in env.items():
         if isinstance(v, torch.Tensor) and v.requires_grad:
             env[k] = v.detach()
@@ -381,8 +478,24 @@ def run_training_block(ops, env, ctx, bw_idx, keep=()):
     for n, leaf, g in zip(param_names, leaves, grads):
         env[grad_var_name(n)] = torch.zeros_like(leaf) if g is None else g
     env[grad_var_name(loss_name)] = torch.ones_like(env[loss_name])
+    done = set()
+    for op, bucket in buckets:
+        # a bucket whose parameters the loss does not reach never fired:
+        # its op runs at the tail
+        if bucket.pending is not None:
+            _scatter_outputs(op, bucket.finish(), env)
+            done.add(id(op))
+    tail = [op for op in tail if id(op) not in done]
     with torch.no_grad():
-        run_ops(ops[bw_idx + 1:], env, ctx)
+        if record is None:
+            run_ops(tail, env, ctx)
+            return env
+        last = max((i for i, op in enumerate(tail)
+                    if op.type in GRAD_SYNC_OPS), default=-1)
+        record.tail = sum(op.type in GRAD_SYNC_OPS for op in tail)
+        run_ops(tail[:last + 1], env, ctx)
+        record.mark_synced(ctx.device)
+        run_ops(tail[last + 1:], env, ctx)
     return env
 
 
@@ -652,6 +765,9 @@ class PreparedStep:
         # predicate_reads: device values read on the host to pick a path
         # (a conditional_block's predicate, a LocalSGD sync step)
         self.stats = {"steps": 0, "fetch_wait_ns": 0, "predicate_reads": 0}
+        #: the last run's ``collective_ops.GradSyncRecord`` (None when it
+        #: synced no gradients over a group)
+        self.grad_sync = None
         if donate_state:
             if not hasattr(scope, "_prepared"):
                 scope._prepared = weakref.WeakSet()
@@ -717,6 +833,7 @@ class PreparedStep:
                 donate_state=self._donate, dp=self._dp)
             run_block(self._ops, env, ctx, self._fetch_names)
             self.stats["predicate_reads"] += ctx.predicate_reads
+            self.grad_sync = ctx.grad_sync
             for n in self._written:
                 if env[n] is self._state.get(n):
                     continue                # updated in place

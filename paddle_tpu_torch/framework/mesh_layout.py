@@ -145,32 +145,35 @@ class ProcessMesh:
             out.append(self.rank_of(c))
         return out
 
-    def line_group(self, rank: int, axes: Tuple[str, ...]):
+    def line_group(self, rank: int, axes: Tuple[str, ...], tag: str = ""):
         """(the process group over ``axes`` that ``rank`` belongs to, its
         member ranks); the group is None (the default group) when
-        ``axes`` covers the whole mesh."""
+        ``axes`` covers the whole mesh.  Each ``tag`` names a set of
+        groups of its own over the same lines (the gradient-sync
+        workers' is ``"sync"``)."""
         axes = tuple(a for a in self.axis_names if a in axes)
         members = self.line_ranks(rank, axes)
         if len(axes) == len(self.axis_names):
             return None, members
-        return _line_groups(self)[axes][tuple(members)], members
+        return _line_groups(self, tag)[axes][tuple(members)], members
 
     def __repr__(self):
         return f"ProcessMesh({self.shape})"
 
 
-#: (default group, axis names, sizes) -> {axes: {member ranks: group}}
+#: (default group, axis names, sizes, tag) -> {axes: {member ranks: group}}
 _GROUPS: Dict[Any, Dict[Tuple[str, ...], Dict[Tuple[int, ...], Any]]] = {}
 
 
-def _line_groups(mesh: ProcessMesh):
-    """Every line group of ``mesh``'s shape, created once a process group:
-    for each proper subset of the axes (by size, in mesh order) each of
-    its lines, in row-major order of the other axes' coordinates.  Every
-    rank runs this same sequence of ``new_group`` calls."""
+def _line_groups(mesh: ProcessMesh, tag: str = ""):
+    """Every line group of ``mesh``'s shape, created once a process group
+    and tag: for each proper subset of the axes (by size, in mesh order)
+    each of its lines, in row-major order of the other axes'
+    coordinates.  Every rank runs this same sequence of ``new_group``
+    calls."""
     import torch.distributed as dist
     key = (id(dist.group.WORLD), mesh.axis_names,
-           tuple(mesh.shape[a] for a in mesh.axis_names))
+           tuple(mesh.shape[a] for a in mesh.axis_names), tag)
     groups = _GROUPS.get(key)
     if groups is not None:
         return groups

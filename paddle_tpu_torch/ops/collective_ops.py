@@ -64,6 +64,9 @@ sync sends nothing (the JAX package's ``lax.cond``)."""
 from __future__ import annotations
 
 import itertools
+import math
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -72,7 +75,7 @@ import torch
 from .cuda import quant_kernels as cuda_quant
 from .quantize_wire import (CompressionSpec, dequantize_blockwise,
                             pad_to_blocks, quantize_blockwise)
-from .registry import cuda_route, register, x
+from .registry import LoweringContext, cuda_route, register, x
 
 DP_AXIS = "dp"
 
@@ -134,9 +137,36 @@ class DataParallelGroup:
         None."""
         return self if self.batch_sharded else None
 
+    def sync_worker(self, axes, device) -> "SyncWorker":
+        """The communication worker (:class:`SyncWorker`) of the group
+        over ``axes`` on ``device``: one a set of member ranks and device
+        in the process, made the first time it is asked for.  Making one
+        creates process groups, a collective: every rank asks for the
+        same workers in the same order."""
+        import torch.distributed as dist
+        g = self.over(axes)
+        key = (id(dist.group.WORLD), tuple(g.ranks or range(g.world)),
+               str(device))
+        w = _SYNC_WORKERS.get(key)
+        if w is None:
+            w = _SYNC_WORKERS[key] = SyncWorker(self._twin(axes), device)
+        return w
+
+    def _twin(self, axes) -> "DataParallelGroup":
+        """A group of its own over the same ranks as this one."""
+        import torch.distributed as dist
+        members = self.ranks or list(range(self.world))
+        return DataParallelGroup(self.rank, self.world, self.backend,
+                                 dist.new_group(members), self.axis_name,
+                                 ranks=self.ranks)
+
     def __repr__(self):
         return (f"DataParallelGroup(rank={self.rank}, world={self.world}, "
                 f"backend={self.backend!r})")
+
+
+#: (default group, member ranks, device) -> the SyncWorker over them
+_SYNC_WORKERS = {}
 
 
 class MeshGroups(DataParallelGroup):
@@ -207,6 +237,22 @@ class MeshGroups(DataParallelGroup):
 
     def batch_group(self) -> Optional[DataParallelGroup]:
         return self.over(self.batch_axes) if self.batch_axes else None
+
+    def _twin(self, axes) -> DataParallelGroup:
+        """A group of its own over the ranks of :meth:`over` ``axes``: a
+        line group of the mesh's ``"sync"`` set (every line of every axis
+        set made at once, as :meth:`over`'s), or a new group over the
+        whole mesh."""
+        import torch.distributed as dist
+        g = self.over(axes)
+        if g is self:
+            return DataParallelGroup(self.rank, self.world, self.backend,
+                                     dist.new_group(list(range(self.world))),
+                                     self.axis_name)
+        group, members = self.mesh.line_group(
+            self.rank, _axes_tuple(g.axis_name), tag="sync")
+        return DataParallelGroup(g.rank, g.world, g.backend, group,
+                                 g.axis_name, ranks=members)
 
     def __repr__(self):
         return (f"MeshGroups(rank={self.rank}, {self.mesh.shape}, "
@@ -326,11 +372,11 @@ def _allreduce(op):
     return impl
 
 
-def _compressed(dp, a, compress_dtype):
-    """Cast -> all-reduce -> upcast (the bf16 tier)."""
+def _compressed(reduce, a, compress_dtype):
+    """Cast -> ``reduce`` (an all-reduce) -> upcast (the bf16 tier)."""
     wire = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
             "float16": torch.float16}[str(compress_dtype)]
-    return all_reduce(dp, a.to(wire)).to(a.dtype)
+    return reduce(a.to(wire)).to(a.dtype)
 
 
 @register("c_allreduce_sum")
@@ -342,7 +388,7 @@ def _c_allreduce_sum(ctx, ins, attrs):
     g = _group(ctx, axis)
     comp = attrs.get("compress_dtype")
     if comp and a.is_floating_point():
-        return {"Out": _compressed(g, a, comp)}
+        return {"Out": _compressed(lambda t: all_reduce(g, t), a, comp)}
     return {"Out": all_reduce(g, a)}
 
 
@@ -362,13 +408,40 @@ def _c_allreduce_prod(ctx, ins, attrs):
     return {"Out": torch.prod(gathered, dim=0).to(a.dtype)}
 
 
-def _split_like(flat, like):
+def _split_like(flat, shapes):
+    """``flat`` cut into consecutive views of ``shapes``."""
     pieces, off = [], 0
-    for a in like:
-        n = a.numel()
-        pieces.append(flat[off:off + n].reshape(a.shape))
+    for shape in shapes:
+        n = math.prod(shape)
+        pieces.append(flat[off:off + n].reshape(shape))
         off += n
     return pieces
+
+
+def _bucket_flat(xs, attrs):
+    """(a bucket's gradients with the 1/nranks mean ``scale`` folded in,
+    their flat concatenation)."""
+    scale = attrs.get("scale")
+    outs = xs if scale is None else [a * scale for a in xs]
+    return outs, torch.cat([a.reshape(-1) for a in outs])
+
+
+def _reduce_bucket(ctx, g, flat, attrs, use_kernel, reduce):
+    """A flat bucket summed over the group ``g``: (the sum at ``flat``'s
+    dtype, the stage-2 scales or None).  The quantized tiers run
+    :func:`_quant_allreduce_flat` (the receive stage on the kernel route
+    when ``use_kernel``); ``compress_dtype`` casts around ``reduce``;
+    otherwise ``reduce`` (an all-reduce of a tensor over ``g``) alone."""
+    spec = attrs.get("quant_spec")
+    if spec is not None:
+        red, scales = _quant_allreduce_flat(
+            ctx, g, flat.float(), CompressionSpec.from_attr(spec),
+            use_kernel)
+        return red.to(flat.dtype), scales
+    comp = attrs.get("compress_dtype")
+    if comp and flat.is_floating_point():
+        return _compressed(reduce, flat, comp), None
+    return reduce(flat), None
 
 
 @register("c_fused_allreduce_sum")
@@ -379,19 +452,14 @@ def _c_fused_allreduce_sum(ctx, ins, attrs):
     xs = list(ins.get("X", []))
     if not xs:
         return {"Out": []}
-    scale = attrs.get("scale")
-    outs = xs if scale is None else [a * scale for a in xs]
     axis = _ring_axis(ctx, attrs)
     if axis is None:
-        return {"Out": outs}
+        return {"Out": _bucket_flat(xs, attrs)[0]}
     g = _group(ctx, axis)
-    flat = torch.cat([a.reshape(-1) for a in outs])
-    comp = attrs.get("compress_dtype")
-    if comp and flat.is_floating_point():
-        flat = _compressed(g, flat, comp)
-    else:
-        flat = all_reduce(g, flat)
-    return {"Out": _split_like(flat, outs)}
+    outs, flat = _bucket_flat(xs, attrs)
+    red, _ = _reduce_bucket(ctx, g, flat, attrs, False,
+                            lambda t: all_reduce(g, t))
+    return {"Out": _split_like(red, [a.shape for a in outs])}
 
 
 def _quant_route(op_type, ins, attrs, n_peers) -> bool:
@@ -475,19 +543,202 @@ def _c_fused_quant_allreduce_sum(ctx, ins, attrs):
     xs = list(ins.get("X", []))
     if not xs:
         return {"Out": []}
-    scale = attrs.get("scale")
-    outs = xs if scale is None else [a * scale for a in xs]
     axis = _ring_axis(ctx, attrs)
     if axis is None:
-        return {"Out": outs}
+        return {"Out": _bucket_flat(xs, attrs)[0]}
     g = _group(ctx, axis)
-    spec = CompressionSpec.from_attr(attrs["quant_spec"])
-    flat = torch.cat([a.reshape(-1) for a in outs])
+    outs, flat = _bucket_flat(xs, attrs)
     use_kernel = _quant_route("c_fused_quant_allreduce_sum", ins, attrs,
                               g.world)
-    red, scales = _quant_allreduce_flat(ctx, g, flat.float(), spec,
-                                        use_kernel)
-    return {"Out": _split_like(red.to(flat.dtype), outs), "QScale": scales}
+    red, scales = _reduce_bucket(ctx, g, flat, attrs, use_kernel,
+                                 lambda t: all_reduce(g, t))
+    return {"Out": _split_like(red, [a.shape for a in outs]),
+            "QScale": scales}
+
+
+# ---------------------------------------------------------------------------
+# overlapped gradient buckets (overlap_grad_sync): fired from backward hooks
+# ---------------------------------------------------------------------------
+
+
+class SyncWorker:
+    """One communication thread for one process group: it runs the jobs
+    handed to it (:meth:`submit`) one at a time in the order they were
+    handed over, on a group of its own over the same ranks (gloo pairs
+    each rank's collectives on a group by their order, and the backward's
+    own collectives — ZeRO-3's gather transposes — run on the run's
+    groups in the autograd thread meanwhile) and, on a GPU, on a CUDA
+    stream of its own.  :meth:`submit` returns a future whose
+    ``result()`` raises the job's failure.
+
+    Over gloo on a GPU a bucket crosses through pinned host buffers, one
+    a bucket, kept and reused across steps: the device-to-host copy runs
+    on the worker's stream after the bucket's ready event, the thread
+    waits for it, gloo reduces the host buffer in place, and the
+    host-to-device copy goes back on the worker's stream (its event is
+    the bucket's ``done``).  Over NCCL the collective runs on the bucket's
+    own flat tensor (``async_op=True``), the worker's stream waiting for
+    it."""
+
+    def __init__(self, group: DataParallelGroup, device):
+        self.group = group
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        self._staging = {}
+        self._pool = ThreadPoolExecutor(
+            1, thread_name_prefix=f"grad-sync-rank{group.rank}")
+
+    def submit(self, fn) -> Future:
+        return self._pool.submit(self._on_stream, fn)
+
+    def _on_stream(self, fn):
+        if self.stream is None:
+            return fn()
+        with torch.cuda.stream(self.stream):
+            return fn()
+
+    def all_reduce(self, key, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` (a tensor of the caller's own) over the
+        worker's group, on the worker's thread and stream."""
+        import torch.distributed as dist
+        g = self.group
+        if g.backend == "nccl":
+            dist.all_reduce(t, group=g.group, async_op=True).wait()
+            return t
+        if t.device.type == "cpu":
+            dist.all_reduce(t, group=g.group)
+            return t
+        host = self._staging.get(key)
+        if host is None or host.shape != t.shape or host.dtype != t.dtype:
+            host = self._staging[key] = torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(self.stream)
+        copied.synchronize()
+        dist.all_reduce(host, group=g.group)
+        out = torch.empty_like(t)
+        out.copy_(host, non_blocking=True)
+        return out
+
+
+class GradSyncRecord:
+    """What one training run's gradient sync did: ``hooked`` (the
+    ``_bucket_index`` of each bucket given a backward hook, in the order
+    of the hooks in the forward), ``fired`` (those whose hook fired, in
+    firing order), ``tail`` (the gradient-sync ops run after the
+    backward), and the moments :meth:`exposed_ms` spans: the backward's
+    last kernel, and every reduced gradient in hand on the compute stream
+    (CUDA events with timing on a GPU, the host clock on the CPU)."""
+
+    __slots__ = ("hooked", "fired", "tail", "backward_end", "synced")
+
+    def __init__(self):
+        self.hooked, self.fired = [], []
+        self.tail = 0
+        self.backward_end = self.synced = None
+
+    @staticmethod
+    def _mark(device):
+        if device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+
+    def mark_backward_end(self, device):
+        self.backward_end = self._mark(device)
+
+    def mark_synced(self, device):
+        self.synced = self._mark(device)
+
+    def exposed_ms(self) -> float:
+        """Milliseconds from the backward's end to the last reduced
+        gradient (waits for the device): the collective time the backward
+        did not hide."""
+        a, b = self.backward_end, self.synced
+        if isinstance(a, float):
+            return (b - a) * 1e3
+        b.synchronize()
+        return a.elapsed_time(b)
+
+
+class HookedBucket:
+    """One ready-order bucket (a ``c_fused_allreduce_sum`` or
+    ``c_fused_quant_allreduce_sum`` op with ``_overlap_hook_pos``) of one
+    run, fired from the backward: :meth:`fire` (in the autograd thread,
+    once every member's cotangent is final) folds the mean scale in,
+    concatenates and hands the bucket to the worker of its group;
+    :meth:`finish` (after the backward) waits for it and returns the
+    op's outputs, the same values the op computes at the tail.  A
+    quantized bucket's stochastic rounding draws from a generator of its
+    own, seeded ``_bucket_index + 0x0eaf`` (the JAX package's fixed
+    per-bucket key: the run's stream cannot be threaded through the
+    hook)."""
+
+    def __init__(self, ctx, op, record: GradSyncRecord):
+        self.op_type, self.attrs = op.type, op.attrs
+        axis = _ring_axis(ctx, op.attrs)
+        self.index = int(op.attrs.get("_bucket_index", 0))
+        self.worker = ctx.dp.sync_worker(axis, ctx.device)
+        self.device = ctx.device
+        self.record = record
+        self.pending = None
+        self.shapes = None
+        record.hooked.append(self.index)
+
+    def fire(self, cots):
+        self.record.fired.append(self.index)
+        outs, flat = _bucket_flat(list(cots), self.attrs)
+        self.shapes = [a.shape for a in outs]
+        use_kernel = False
+        if self.op_type == "c_fused_quant_allreduce_sum":
+            use_kernel = _quant_route(self.op_type, {"X": list(cots)},
+                                      self.attrs, self.worker.group.world)
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+            flat.record_stream(self.worker.stream)
+        self.pending = self.worker.submit(
+            lambda: self._reduce(flat, ready, use_kernel))
+
+    def _reduce(self, flat, ready, use_kernel):
+        """On the worker's thread and stream."""
+        w = self.worker
+        if ready is not None:
+            w.stream.wait_event(ready)
+        gen = None
+        spec = self.attrs.get("quant_spec")
+        if spec is not None and \
+                CompressionSpec.from_attr(spec).stochastic_rounding:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.index + 0x0eaf)
+        hctx = LoweringContext(gen, self.device, dp=w.group)
+        red, scales = _reduce_bucket(
+            hctx, w.group, flat, self.attrs, use_kernel,
+            lambda t: w.all_reduce(self.index, t))
+        done = None
+        if w.stream is not None:
+            done = torch.cuda.Event()
+            done.record(w.stream)
+        return red, scales, done
+
+    def finish(self):
+        """The op's outputs, once the worker has the reduced bucket (its
+        failure raised here); on a GPU the compute stream waits for it."""
+        red, scales, done = self.pending.result()
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for t in (red, scales):
+                if t is not None:
+                    t.record_stream(cur)
+        outs = {"Out": _split_like(red, self.shapes)}
+        if scales is not None:
+            outs["QScale"] = scales
+        return outs
 
 
 def _axes_tuple(axis):
@@ -720,7 +971,7 @@ def _local_sgd_sync(ctx, ins, attrs):
         group = [params[i] for i in idx]
         flat = all_reduce(g, torch.cat([p.reshape(-1) for p in group]))
         flat = flat / g.world
-        for i, avg in zip(idx, _split_like(flat, group)):
+        for i, avg in zip(idx, _split_like(flat, [p.shape for p in group])):
             if ctx.donate_state:
                 outs[i] = params[i].copy_(avg)    # keeps its storage
             else:

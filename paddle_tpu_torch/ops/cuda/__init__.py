@@ -22,6 +22,7 @@ import time."""
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -48,28 +49,37 @@ LAUNCHES: Dict[str, Dict[str, int]] = {name: {} for name in (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+#: the counters are bumped from the autograd thread and the gradient-sync
+#: workers as well as the caller's
+_LAUNCH_LOCK = threading.Lock()
+
+
 def count_launch(name: str, dtype: torch.dtype):
     """One launch of kernel wrapper ``name`` on operands of ``dtype``."""
     by_dtype = LAUNCHES[name]
     key = str(dtype).replace("torch.", "")
-    by_dtype[key] = by_dtype.get(key, 0) + 1
+    with _LAUNCH_LOCK:
+        by_dtype[key] = by_dtype.get(key, 0) + 1
 
 
 def reset_launch_counts():
-    for by_dtype in LAUNCHES.values():
-        by_dtype.clear()
+    with _LAUNCH_LOCK:
+        for by_dtype in LAUNCHES.values():
+            by_dtype.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel wrapper, whatever the dtype."""
-    return {name: sum(by_dtype.values())
-            for name, by_dtype in LAUNCHES.items()}
+    with _LAUNCH_LOCK:
+        return {name: sum(by_dtype.values())
+                for name, by_dtype in LAUNCHES.items()}
 
 
 def launch_counts_by_dtype() -> Dict[Tuple[str, str], int]:
     """Launches per (kernel wrapper, dtype of its operands)."""
-    return {(name, dt): n for name, by_dtype in LAUNCHES.items()
-            for dt, n in by_dtype.items()}
+    with _LAUNCH_LOCK:
+        return {(name, dt): n for name, by_dtype in LAUNCHES.items()
+                for dt, n in by_dtype.items()}
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

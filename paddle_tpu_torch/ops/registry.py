@@ -91,7 +91,9 @@ class LoweringContext:
     mesh of several; None outside a process group).
     ``predicate_reads`` counts the device values the run read on the host
     to choose a path (a ``conditional_block``'s predicate, a LocalSGD
-    sync step): each is one wait for the device."""
+    sync step): each is one wait for the device.  ``grad_sync`` is the
+    training run's ``collective_ops.GradSyncRecord`` when it synced
+    gradients over a group, else None."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None,
@@ -103,6 +105,7 @@ class LoweringContext:
         self.donate_state = donate_state
         self.dp = dp
         self.predicate_reads = 0
+        self.grad_sync = None
 
     def read_predicate(self, value: torch.Tensor) -> bool:
         """The one-element ``value`` as a Python bool, read on the host

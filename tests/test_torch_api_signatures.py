@@ -28,7 +28,8 @@ MODULES = ("optimizer", "framework.executor", "framework.compiler",
            "inference", "io", "serving.engine", "serving.decode",
            "distributed.fleet", "layers.control_flow",
            "framework.mesh_layout", "framework.fsdp", "framework.reshard",
-           "framework.analysis")
+           "framework.analysis", "distributed.gloo",
+           "distributed.preemption")
 
 #: JAX internals whose parameters differ by design, with the reason
 ALLOWED = {

@@ -309,8 +309,7 @@ def test_strategy_amp_runs_on_one_worker():
 
 
 @pytest.mark.parametrize("flag", [
-    "tensor_parallel", "pipeline", "auto_shard", "overlap_grad_sync",
-    "use_hierarchical_allreduce", "mesh"])
+    "tensor_parallel", "pipeline", "auto_shard", "mesh"])
 def test_unported_strategy_flags_are_refused_by_name(flag):
     tcore.reset_default_programs()
     main, startup = tfluid.Program(), tfluid.Program()
@@ -412,15 +411,65 @@ def test_insert_grad_sync_matches_the_jax_package(fused, tier):
         assert len(synced) == 2      # the 0.84 MB fc weight, the rest
 
 
-def test_build_strategy_overlap_grad_sync_is_refused():
+@pytest.mark.parametrize("axes", [("dp", "tp"), ("pp",), ("dp", "ep")])
+def test_mesh_axes_the_port_has_not_are_refused_by_name(axes):
+    """A ``ProcessMesh`` strategy.mesh with a tensor, pipeline or expert
+    axis raises naming the axis; nothing is appended."""
+    from paddle_tpu_torch.framework.mesh_layout import ProcessMesh
     tcore.reset_default_programs()
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         x = tfluid.layers.data("x", shape=[4])
         loss = tfluid.layers.mean(tfluid.layers.fc(x, 2))
-        tfluid.optimizer.SGD(0.1).minimize(loss)
-    bs = tfluid.BuildStrategy()
-    bs.overlap_grad_sync = True
-    with pytest.raises(UnimplementedError, match="overlap_grad_sync"):
-        tfluid.CompiledProgram(main).with_data_parallel(loss.name,
-                                                        build_strategy=bs)
+        tfleet.init(UserDefinedRoleMaker(0, 1, place=tfluid.CPUPlace()))
+        s = DistributedStrategy()
+        s.mesh = ProcessMesh(axes, (2,) * len(axes))
+        opt = tfleet.distributed_optimizer(tfluid.optimizer.SGD(0.1), s)
+        before = [op.type for op in main.global_block().ops]
+        with pytest.raises(UnimplementedError, match=axes[-1]):
+            opt.minimize(loss)
+    assert [op.type for op in main.global_block().ops] == before
+
+
+def test_a_mesh_of_another_size_than_the_job_raises():
+    from paddle_tpu_torch.framework.mesh_layout import ProcessMesh
+    tcore.reset_default_programs()
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data("x", shape=[4])
+        loss = tfluid.layers.mean(tfluid.layers.fc(x, 2))
+        tfleet.init(UserDefinedRoleMaker(0, 1, place=tfluid.CPUPlace()))
+        s = DistributedStrategy()
+        s.mesh = ProcessMesh(("dp",), (2,))
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            tfleet.distributed_optimizer(tfluid.optimizer.SGD(0.1),
+                                         s).minimize(loss)
+
+
+@pytest.mark.parametrize("knob", ["nccl_comm_num", "hierarchical"])
+def test_the_nccl_knobs_leave_the_program_unchanged(knob):
+    """``nccl_comm_num=2`` and ``use_hierarchical_allreduce`` are taken
+    and change nothing: the program fleet builds is op for op and attr
+    for attr the one built without them (the grad sync itself on two
+    ranks: ``tests/test_torch_overlap.py``)."""
+    descs = []
+    for on in (False, True):
+        tcore.reset_default_programs()
+        from paddle_tpu_torch.framework import unique_name as tun
+        from paddle_tpu_torch.framework.serialization import (
+            program_to_desc as tdesc)
+        tun.reset()
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.program_guard(main, startup):
+            x = tfluid.layers.data("x", shape=[4])
+            loss = tfluid.layers.mean(tfluid.layers.fc(x, 2))
+            tfleet.init(UserDefinedRoleMaker(0, 1, place=tfluid.CPUPlace()))
+            s = DistributedStrategy()
+            if on and knob == "nccl_comm_num":
+                s.nccl_comm_num = 2
+            elif on:
+                s.use_hierarchical_allreduce = True
+            tfleet.distributed_optimizer(tfluid.optimizer.SGD(0.1),
+                                         s).minimize(loss)
+        descs.append(json.dumps(tdesc(main)))
+    assert descs[0] == descs[1]
