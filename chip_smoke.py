@@ -295,7 +295,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ranks save one sharded checkpoint at the same step and exit 42 (the
    async copy of step 2 drained whole), and a relaunch resumes with steps
    4-6 and the parameters bit for bit the uninterrupted run's;
-18. print the ``kernels`` JSON line, the card's name and power limit, and
+18. tensor and sequence parallelism at BERT-base width and depth
+   (``build_pretrain_network_parallel``, float32, Adam 1e-4, the ranks on
+   the card over gloo, phase 10's launcher).  (k) the ring route's kernel
+   entry — #1 returning lse, #2 and #3 taking delta - dlse — against its
+   twins at B4 H6 S_loc 256 D64 (BERT-base's 12 heads over tp 2, S 512
+   over sp 2), float32 and bfloat16, under a random dO and dlse, for a
+   padding bias with one batch row all masked and the causal biases of a
+   diagonal block and of a block wholly in the future (their all-masked
+   rows the uniform mean of V), timed beside the library's lse-returning
+   call; (a) tp 2 x sp 2 on four ranks (``MeshLayout(tp=2,
+   extra_axes={"sp": 2})``, every feed split ("dp", "sp"), batch 4 x 512,
+   38 masked tokens in each sp half of every row, attention dropout 0),
+   4 prepared steps, against the same program built with ``tp_degree=1,
+   seq_axis=None`` on one rank from the same seed: losses within 1e-4;
+   (b) tp 2 on two ranks, batch 32 x 128, attention dropout 0.1 on the
+   plain flash route.  Gates: no fallback; #1-#3 24 launches a step on
+   (a) (12 layers x 2 ring steps) and 12 on (b), the LayerNorm forward
+   and backward 25, Adam 1; every rank's startup the same parameters
+   (sha256) and, after the steps, its replicated persistables sha256-equal
+   to rank 0's.  Printed per leg: the step, gloo's wall ms, calls and
+   bytes in one step by kind (tp all-reduces, the LM head's tp gather,
+   the ring's point-to-point shifts, the gradient sync), the device's busy
+   share and the peak allocated bytes;
+19. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -5780,6 +5803,480 @@ def sampling_leg(np, model, prompts, greedy, place):
     return {"requests": len(picks), "orders": 2, "identical": True}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: tensor and sequence parallelism (tp x sp) on the ring route
+# ---------------------------------------------------------------------------
+
+#: (k): the ring's kernel entry at BERT-base's 12 heads over tp 2 and
+#: S 512 over sp 2: B4 H6 S_loc 256 D64
+RING_SHAPE = (4, 6, 256, 64)
+RING_BIASES = ("padding", "causal_diagonal", "causal_future")
+RING_NEG = -1e30          # the ring's additive mask (parallel/ring_attention)
+#: (a): tp 2 x sp 2 on four ranks, batch 4 x 512, every row holding the
+#: same masked count in each sp shard; (b): tp 2 on two ranks, 32 x 128
+#: with attention dropout 0.1 on the plain flash route
+TPSP_RANKS, TP_RANKS = 4, 2
+TPSP_BATCH, TPSP_SEQ, TPSP_PER_SHARD = 4, 512, 38
+TP_BATCH, TP_SEQ = TRAIN_BATCH, TRAIN_SEQ
+TPSP_STEPS = 4
+TPSP_LR = 1e-4
+TOL_TPSP_LOSS = 1e-4      # (a) vs the one-rank run: losses (relative)
+TPSP_TIMEOUT_S = 600
+#: launches a step: #1-#3 once a ring step a layer (2 ring steps at sp 2)
+#: on (a), once a layer on (b); the LayerNorm forward and backward 25
+#: (the embeddings' and 2 a layer); Adam one launch for the whole update
+TPSP_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 24,
+                 "flash_attention_bwd_dkv": 24, "layer_norm_fwd": 25,
+                 "layer_norm_bwd": 25, "adam": 1}
+TP_LAUNCHES = dict(TPSP_LAUNCHES, flash_attention_fwd=12,
+                   flash_attention_bwd_dq=12, flash_attention_bwd_dkv=12)
+TPSP_LEG_NAMES = {"a": "tp 2 x sp 2, four ranks", "b": "tp 2, two ranks"}
+
+
+def ring_biases(torch, gen, dev, bsz, seq):
+    """The ring's three block biases, head-shared (B, S, S) float32: a
+    padding mask with batch row 0 all masked, the causal bias of a
+    diagonal block, and that of a block wholly in the future."""
+    mask = (torch.rand(bsz, seq, generator=gen, device=dev) < 0.8).float()
+    mask[0] = 0.0
+    pad = ((1.0 - mask) * RING_NEG)[:, None, :].expand(bsz, seq, seq)
+    keep = torch.ones(seq, seq, dtype=torch.bool, device=dev).tril()
+    diag = torch.zeros(seq, seq, device=dev).masked_fill(
+        ~keep, RING_NEG).expand(bsz, seq, seq)
+    future = torch.full((bsz, seq, seq), RING_NEG, device=dev)
+    return {"padding": pad.contiguous(), "causal_diagonal": diag.contiguous(),
+            "causal_future": future}
+
+
+def ring_kernel_checks(torch, results):
+    """(k): the ring route's kernel entry — #1 returning lse, #2 and #3
+    taking delta - dlse — against the plain twins at RING_SHAPE, float32
+    and bfloat16, under a random dO and a random dlse, for each of the
+    ring's block biases; the all-masked rows the uniform mean of V; timed
+    beside the library's lse-returning call (the forward) and the bound."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as FA
+    record = recorder(results)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    randn = randn_on(torch, gen, dev)
+    bsz, heads, seq, d = RING_SHAPE
+    bh = bsz * heads
+    biases = ring_biases(torch, gen, dev, bsz, seq)
+    for dtname in ("float32", "bfloat16"):
+        dt = getattr(torch, dtname)
+        es = torch.finfo(dt).bits // 8
+        q, k, v, do = (randn(bh, seq, d, dtype=dt) for _ in range(4))
+        dlse = randn(bh, seq, 1)
+        io_bytes = bh * seq * d * es
+        for kind in RING_BIASES:
+            bias = biases[kind]
+            what = f"ring {kind} B={bsz} H={heads} S={seq} {dtname}"
+            o, lse = FA.flash_fwd(q, k, v, bias)
+            po, plse = FA.flash_fwd_plain(q, k, v, bias)
+            err_o = agree(torch, f"{what} o", o, po, dtname, TOL_F32)
+            lerr = float(((lse - plse).abs() /
+                          plse.abs().clamp_min(1.0)).max())
+            log(f"  {what} lse: max|Δ|/max(1,|lse|) {lerr:.3e} "
+                f"(tolerance {TOL_LSE:.1e})")
+            check(lerr <= TOL_LSE, f"{what}: lse disagrees ({lerr})")
+            check(bool(torch.isfinite(lse).all()),
+                  f"{what}: an lse is not finite")
+            rows = slice(0, heads) if kind == "padding" else \
+                (slice(None) if kind == "causal_future" else None)
+            if rows is not None:
+                mean_v = v[rows].float().mean(dim=1, keepdim=True)
+                agree(torch, f"{what} all-masked rows vs mean(V)",
+                      o[rows].float(), mean_v.expand_as(o[rows]), dtname,
+                      TOL_F32)
+            grads = FA.flash_bwd(q, k, v, bias, o, lse, do, dlse=dlse)
+            refs = FA.flash_bwd_plain(q, k, v, bias, o, lse, do, dlse=dlse)
+            errs = [agree(torch, f"{what} {n}", g, r, dtname, TOL_GRAD,
+                          relative=True)
+                    for n, g, r in zip(("dq", "dk", "dv"), grads, refs)]
+            if kind != "padding":
+                continue
+            # timed on the padding bias (the main path's block bias)
+            extra = bias.numel() * 4 + 2 * bh * seq * 4    # lse, delta
+            nbytes = 4 * io_bytes + bias.numel() * 4 + bh * seq * 4
+            flops = 4 * bh * seq * seq * d
+            q4, k4, v4 = (t.view(bsz, heads, seq, d) for t in (q, k, v))
+            lib = None
+            try:
+                b4 = bias.view(bsz, 1, seq, seq).to(dt).expand(
+                    bsz, heads, seq, seq)
+                torch.ops.aten._scaled_dot_product_efficient_attention(
+                    q4, k4, v4, b4, True)
+                lib = time_ms(torch, lambda: torch.ops.aten.
+                              _scaled_dot_product_efficient_attention(
+                                  q4, k4, v4, b4, True))
+            except RuntimeError as e:
+                log(f"  {what}: the library's lse-returning call refused "
+                    f"the inputs ({str(e).splitlines()[0][:120]})")
+            bound = None
+            if dtname == "float32":
+                bound = bound_ms(nbytes, 3 * flops, "tf32")
+            record("flash_attention_fwd_ring", [bsz, heads, seq, d, kind],
+                   dtname, max(err_o, lerr),
+                   time_ms(torch, lambda: FA.flash_fwd(q, k, v, bias)),
+                   time_ms(torch, lambda: FA.flash_fwd_plain(q, k, v, bias)),
+                   lib, nbytes, flops, bound=bound,
+                   library_is="_scaled_dot_product_efficient_attention("
+                   "compute_log_sumexp=True)")
+            delta = (do.float() * o.float()).sum(dim=-1) - dlse.view(bh, seq)
+            args = (q, k, v, bias, do, lse, delta)
+            ds = FA.flash_bwd_dkv(*args)[2]
+            dq_ms = time_ms(torch, lambda: FA.flash_bwd_dq_ds(k, ds, seq))
+            dkv_ms = time_ms(torch, lambda: FA.flash_bwd_dkv(*args))
+            del ds
+            plain_bwd = time_ms(torch, lambda: FA.flash_bwd_plain(
+                q, k, v, bias, o, lse, do, dlse=dlse))
+            work = {"dq": (5 * io_bytes + extra, 6 * bh * seq * seq * d),
+                    "dkv": (6 * io_bytes + extra, 8 * bh * seq * seq * d)}
+            for name, err, ms in (("dq", errs[0], dq_ms),
+                                  ("dkv", max(errs[1:]), dkv_ms)):
+                nb, fl = work[name]
+                record(f"flash_attention_bwd_{name}_ring",
+                       [bsz, heads, seq, d, kind, "dlse"], dtname, err, ms,
+                       plain_bwd, None, nb, fl,
+                       bound=bound_ms(nb, 3 * fl, "tf32")
+                       if dtname == "float32" else None)
+
+
+def tpsp_config(leg):
+    """Phase 18's model: BERT-base uncut; attention dropout 0 on (a) (the
+    ring applies none, and the one-rank reference would), 0.1 on (b)."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BertConfig.base()
+    cfg.hidden_dropout_prob = 0.0
+    cfg.attention_probs_dropout_prob = 0.0 if leg == "a" else DROPOUT
+    return cfg
+
+
+def tpsp_batch(np, cfg, leg):
+    """The global batch: (a) 4 x 512 with TPSP_PER_SHARD masked tokens in
+    each sp half of every row (the loss is the per-shard weighted mean,
+    averaged over the shards: equal counts make it the global mean);
+    (b) 32 x 128 as make_fake_parallel_batch draws it."""
+    from paddle_tpu_torch.models import bert
+    rng = np.random.RandomState(SEED)
+    if leg == "b":
+        return bert.make_fake_parallel_batch(rng, cfg, TP_BATCH, TP_SEQ)
+    feed = bert.make_fake_parallel_batch(rng, cfg, TPSP_BATCH, TPSP_SEQ)
+    w = np.zeros((TPSP_BATCH, TPSP_SEQ), np.float32)
+    half = TPSP_SEQ // 2
+    for i in range(TPSP_BATCH):
+        for h in range(2):
+            w[i, h * half + rng.choice(half, TPSP_PER_SHARD,
+                                       replace=False)] = 1.0
+    feed["lm_weights"] = w
+    return feed
+
+
+def build_tpsp_train(cfg, leg, ranks=True):
+    """Phase 18's program: ``build_pretrain_network_parallel`` (tp 2, the
+    ``sp`` ring on (a)) with Adam, compiled ``with_mesh`` over (a)'s
+    ``MeshLayout(tp=2, extra_axes={"sp": 2})`` with every feed split
+    ("dp", "sp") and the gradient sync over sp bucketed at 32 MB, or
+    (b)'s ``MeshLayout(tp=2)`` (no gradient sync: tp leaves none).  ``ranks=False``: the
+    one-rank reference, the same program built with ``tp_degree=1,
+    seq_axis=None``.  Returns (program to run, main, startup, loss)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    seq = "sp" if leg == "a" and ranks else None
+    with fluid.program_guard(main, startup):
+        feeds, loss = bert.build_pretrain_network_parallel(
+            cfg, tp_degree=2 if ranks else 1, seq_axis=seq)
+        fluid.optimizer.Adam(TPSP_LR).minimize(loss)
+    if not ranks:
+        return main, main, startup, loss
+    layout = MeshLayout(tp=2, extra_axes={"sp": 2} if seq else None)
+    main._mesh_layout = layout
+    build = fluid.BuildStrategy()
+    build.fuse_all_reduce_ops = True
+    program = fluid.CompiledProgram(main).with_mesh(
+        layout.build_mesh(), loss_name=loss.name, batch_axis="dp",
+        seq_axis=seq,
+        feed_specs={f.name: ("dp", "sp") for f in feeds} if seq else None,
+        build_strategy=build)
+    return program, main, startup, loss
+
+
+def params_sha(np, scope, main):
+    """sha256 over every parameter's value in ``scope``, in name order
+    (the startup's global values, before any rank cuts its blocks)."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in sorted(main.all_parameters(), key=lambda p: p.name):
+        h.update(p.name.encode())
+        h.update(scope.find_var(p.name).detach().contiguous().cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def comm_by_kind(torch):
+    """Wrap the gloo transfers (collective_ops' all_reduce / all_gather /
+    all_to_all / broadcast / ring_shift) so a step can report their wall
+    ms, calls and bytes by
+    kind: the tp all-reduces, the tp gathers (the LM head's logits), the
+    ring's point-to-point shifts and the gradient sync over the batch and
+    sequence axes.  Each is synchronised first, so the time is the
+    transfer's.  Returns (totals, undo)."""
+    from paddle_tpu_torch.ops import collective_ops as C
+    totals = {}
+
+    def kind_of(name, g):
+        axes = g.axis_name if isinstance(g.axis_name, tuple) else \
+            (g.axis_name,)
+        if name == "ring_shift":
+            return "ring P2P"
+        if "tp" in axes and len(axes) == 1:
+            return "tp all-reduce" if name == "all_reduce" else \
+                f"tp {name.replace('_', '-')}"
+        return "grad sync"
+
+    def wrap(name, fn):
+        def timed(g, t, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(g, t, *args, **kw)
+            torch.cuda.synchronize()
+            row = totals.setdefault(kind_of(name, g),
+                                    {"ms": 0.0, "calls": 0, "bytes": 0})
+            row["ms"] += (time.perf_counter() - t0) * 1e3
+            row["calls"] += 1
+            row["bytes"] += t.numel() * t.element_size()
+            return out
+        return timed
+
+    saved = {n: getattr(C, n) for n in (
+        "all_to_all", "all_gather", "all_reduce", "broadcast",
+        "ring_shift")}
+    for n, fn in saved.items():
+        setattr(C, n, wrap(n, fn))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(C, n, fn)
+    return totals, undo
+
+
+def tpsp_worker(out_dir, leg):
+    """One rank of phase 18 leg (a) or (b) (``--tpsp-worker DIR LEG``):
+    the startup (its global parameters' sha256), TPSP_STEPS prepared
+    steps with the launches and fallbacks counted, one step with the gloo
+    transfers timed by kind, one profiled step, the peak allocated bytes,
+    and the sha256 of every replicated persistable after the steps;
+    writes ``tpsp<r>_<leg>.json``."""
+    import hashlib
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
+    dev = torch.device("cuda", fleet.place.device_id)
+    cfg = tpsp_config(leg)
+    feed = tpsp_batch(np, cfg, leg)
+    program, main, startup, loss = build_tpsp_train(cfg, leg)
+    dp = program._dp
+    want = TPSP_RANKS if leg == "a" else TP_RANKS
+    check(dp is not None and dp.world == want,
+          f"({leg}): the program does not run over {want} ranks")
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    exe.run(startup, scope=scope)
+    out = {"rank": rank, "leg": leg,
+           "init_sha256": params_sha(np, scope, main)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prepared = exe.prepare(program, fetch_list=[loss], scope=scope,
+                           donate_state=True)
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    losses, step_s = [], []
+    for _ in range(TPSP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(prepared.run(feed)[0]))
+        step_s.append(time.perf_counter() - t0)
+    out["launches"] = {f"{k}/{dt}": n for (k, dt), n in
+                       kernels.launch_counts_by_dtype().items()}
+    out["fallbacks"] = {str(k): v for k, v in
+                        registry.route_counts("fallback").items()}
+    out["ring_hits"] = sum(v for k, v in registry.route_counts("hit").items()
+                           if k[1] == "ring_flash_attention")
+    out["losses"], out["step_s"] = losses, step_s
+    out["step_ms_median"] = statistics.median(step_s[1:]) * 1e3
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    totals, undo = comm_by_kind(torch)
+    try:
+        t0 = time.perf_counter()
+        prepared.run(feed)[0].numpy()
+        out["comm_step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    out["comm"] = totals
+    out["profile"] = profile_step(
+        torch, lambda: prepared.run(feed)[0].numpy(),
+        out["step_ms_median"])
+    fluid.sync_prepared_state(scope)
+    out["replicated_sha256"] = {
+        v.name: hashlib.sha256(scope.find_var(v.name).detach().contiguous()
+                               .cpu().numpy().tobytes()).hexdigest()
+        for v in main.list_vars()
+        if v.persistable and not getattr(v, "dist_attr", None)
+        and torch.is_tensor(scope.find_var(v.name))}
+    out["held_bytes"] = sum(
+        scope.find_var(v.name).numel() * scope.find_var(v.name)
+        .element_size() for v in main.list_vars()
+        if v.persistable and torch.is_tensor(scope.find_var(v.name)))
+    log(f"[rank {rank}] ({leg}) losses {[round(x, 5) for x in losses]}, "
+        f"step {out['step_ms_median']:.1f} ms")
+    with open(os.path.join(out_dir, f"tpsp{rank}_{leg}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def tpsp_reference(torch, np):
+    """(a)'s one-rank reference: the same program built with
+    ``tp_degree=1, seq_axis=None`` on this process, from the same seed
+    (its parameters' sha256 held to the ranks' startup), TPSP_STEPS
+    prepared steps on the same global batch: the losses, the step."""
+    from paddle_tpu_torch import fluid
+    cfg = tpsp_config("a")
+    feed = tpsp_batch(np, cfg, "a")
+    program, main, startup, loss = build_tpsp_train(cfg, "a", ranks=False)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    sha = params_sha(np, scope, main)
+    prepared = exe.prepare(program, fetch_list=[loss], scope=scope,
+                           donate_state=True)
+    losses, step_s = [], []
+    for _ in range(TPSP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(prepared.run(feed)[0]))
+        step_s.append(time.perf_counter() - t0)
+    del prepared, scope
+    torch.cuda.empty_cache()
+    return {"losses": losses, "init_sha256": sha,
+            "step_ms_median": statistics.median(step_s[1:]) * 1e3}
+
+
+def tpsp_launch(torch, repo, out_dir, nproc, leg):
+    """``nproc`` ranks of this script on the card over gloo for ``leg``;
+    returns their JSON results."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc", str(nproc), "--selected_gpus", ",".join(["0"] * nproc),
+           "--backend", "gloo", "--timeout", str(TPSP_TIMEOUT_S),
+           os.path.join(repo, "chip_smoke.py"), "--tpsp-worker", out_dir,
+           leg]
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=repo,
+                        timeout=TPSP_TIMEOUT_S + 60).returncode
+    log(f"  leg ({leg}) on {nproc} ranks: ran "
+        f"{time.perf_counter() - t0:.1f} s, exit code {rc}")
+    check(rc == 0, f"phase 18 leg ({leg}): a rank failed (exit code {rc})")
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"tpsp{r}_{leg}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def tpsp_report(leg, ranks, ref=None):
+    """The gates of leg (a) or (b) and its printed figures: finite losses,
+    every rank the same; the same startup on every rank (and the
+    reference's); no fallback; the launches a step; the replicated
+    persistables sha256-equal across the ranks; (a)'s losses within
+    TOL_TPSP_LOSS of the one-rank run's."""
+    what = f"({leg}) {TPSP_LEG_NAMES[leg]}"
+    expected = TPSP_LAUNCHES if leg == "a" else TP_LAUNCHES
+    m0 = ranks[0]
+    for r, m in enumerate(ranks):
+        who = f"{what} rank {r}"
+        check(all(math.isfinite(x) for x in m["losses"]),
+              f"{who}: losses not finite: {m['losses']}")
+        check(m["losses"] == m0["losses"],
+              f"{who}: fetched other losses than rank 0")
+        check(m["init_sha256"] == m0["init_sha256"],
+              f"{who}: another startup than rank 0's")
+        check(not m["fallbacks"], f"{who}: fallbacks {m['fallbacks']}")
+        want = {f"{k}/float32": n for k, n in expected.items()}
+        got = m["launches"]
+        for key in set(want) | set(got):
+            check(got.get(key, 0) == want.get(key, 0) * TPSP_STEPS,
+                  f"{who}: {key} launched {got.get(key, 0)} times in "
+                  f"{TPSP_STEPS} steps, expected {want.get(key, 0)} a step")
+        check(m["replicated_sha256"] == m0["replicated_sha256"],
+              f"{who}: replicated persistables differ from rank 0's: "
+              f"{sorted(n for n in m0['replicated_sha256'] if m['replicated_sha256'].get(n) != m0['replicated_sha256'][n])[:5]}")
+    check((m0["ring_hits"] > 0) == (leg == "a"),
+          f"{what}: {m0['ring_hits']} ring route hits")
+    report = {k: m0[k] for k in ("losses", "step_ms_median", "comm_step_ms",
+                                 "comm", "peak_bytes", "held_bytes")}
+    report["busy_share"] = m0["profile"]["busy_share"] if m0["profile"] \
+        else None
+    if ref is not None:
+        check(ref["init_sha256"] == m0["init_sha256"],
+              f"{what}: the one-rank run started from other parameters")
+        gap = max(abs(a - b) / abs(b) for a, b in
+                  zip(m0["losses"], ref["losses"]))
+        log(f"  {what}: losses {m0['losses']} vs one rank "
+            f"{ref['losses']}: {gap:.3e} (tolerance {TOL_TPSP_LOSS})")
+        check(gap <= TOL_TPSP_LOSS, f"{what}: losses {gap:.3e} from the "
+                                    f"one-rank run's")
+        report.update(loss_gap=gap, one_rank_losses=ref["losses"],
+                      one_rank_step_ms=ref["step_ms_median"])
+    comm = m0["comm"]
+    log(f"  {what}: step {m0['step_ms_median']:.1f} ms (median of steps "
+        f"2-{TPSP_STEPS}); one step with its gloo transfers timed "
+        f"{m0['comm_step_ms']:.1f} ms: "
+        + ", ".join(f"{k} {v['ms']:.1f} ms in {v['calls']} calls "
+                    f"({v['bytes'] / 1e6:.1f} MB)"
+                    for k, v in sorted(comm.items()))
+        + f"; device busy "
+        + (f"{100 * report['busy_share']:.1f} %" if report["busy_share"]
+           is not None else "not measured")
+        + f"; peak allocated {m0['peak_bytes'] / 1e9:.3f} GB, persistent "
+        f"{m0['held_bytes'] / 1e9:.4f} GB a rank ({len(ranks)} ranks on one "
+        f"card over gloo, staged through the host)")
+    return report
+
+
+def tpsp_phase(torch, np, repo, results):
+    """Phase 18 (see the module docstring); returns rank 0's launches by
+    leg and the report."""
+    from paddle_tpu_torch.ops.cuda import build
+    ring_kernel_checks(torch, results)
+    out_dir = os.path.join(build.BUILD_DIR, "smoke_tpsp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        ref = tpsp_reference(torch, np)
+        legs = {"a": tpsp_launch(torch, repo, out_dir, TPSP_RANKS, "a"),
+                "b": tpsp_launch(torch, repo, out_dir, TP_RANKS, "b")}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    report = {"a": tpsp_report("a", legs["a"], ref),
+              "b": tpsp_report("b", legs["b"])}
+    launches = {path: {k.split("/")[0]: v for k, v in
+                       legs[leg][0]["launches"].items()}
+                for path, leg in (("tp_sp", "a"), ("tp", "b"))}
+    return launches, report
+
+
 def nvidia_smi_line():
     try:
         out = subprocess.run(
@@ -5822,6 +6319,9 @@ HSDP_PATHS = ("hsdp_a", "hsdp_b", "hsdp_d", "hsdp_e")
 #: phase 17's paths, rank 0 of each leg: (a) classic, (b)-(f) overlapped
 #: or at the tail, (d) and (e) int8
 OVERLAP_PATHS = tuple(f"overlap_{leg}" for leg in OVERLAP_LEGS)
+#: phase 18's paths, rank 0 of each leg: (a) tp x sp on the ring route,
+#: (b) tp on the plain flash route
+TPSP_PATHS = ("tp_sp", "tp")
 
 
 def kernels_line(per_kernel, launches_by_path):
@@ -5858,7 +6358,10 @@ def kernels_line(per_kernel, launches_by_path):
     (``hsdp_a_launches``, ``hsdp_b_launches``, and the restored runs'
     ``hsdp_d_launches`` and ``hsdp_e_launches``, rank 0) and phase 17's
     (``overlap_a_launches`` ... ``overlap_f_launches``, rank 0; #11 and
-    #12 also carry ``overlap_rows``, held at leg (d)'s bucket shapes); Adam
+    #12 also carry ``overlap_rows``, held at leg (d)'s bucket shapes) and
+    phase 18's (``tp_sp_launches``: leg (a)'s ring route, ``tp_launches``:
+    leg (b), rank 0; #1-#3 also carry ``ring``, their rows at the ring's
+    kernel entry, float32 and bfloat16); Adam
     carries its 16-bit rows (``16_bit``: bf16 and fp16 parameters beside
     float32 or 16-bit moments) and its row on ZeRO-1's flat shards
     (``zero1_shards``), #11 its rows at the ZeRO-1 scatter's largest
@@ -5894,7 +6397,7 @@ def kernels_line(per_kernel, launches_by_path):
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
                       "decode", "amp", "amp_fused", "amp_fp16",
                       "amp_pure_bf16", "lamb") + WRAPPED_PATHS + ZERO_PATHS \
-                + HSDP_PATHS + OVERLAP_PATHS:
+                + HSDP_PATHS + OVERLAP_PATHS + TPSP_PATHS:
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name == "adam":
@@ -5925,6 +6428,12 @@ def kernels_line(per_kernel, launches_by_path):
         if name in per_kernel.get("quant_step", {}):
             entry["step_13_launches"] = per_kernel["quant_step"][name]
         if name.startswith("flash_attention"):
+            # the ring route (phase 18 (k)): B4 H6 S_loc 256 D64, the
+            # padding block bias, lse returned and its cotangent folded
+            entry["ring"] = [{k: r[k] for k in (
+                "shape", "dtype", "ms", "plain_ms", "library_ms",
+                "library_is", "bound_ms", "bound_by", "max_abs_err")
+                if k in r} for r in per_kernel[name + "_ring"]]
             # the bf16 program's shape (phase 12): B96 S128, dropout 0.1,
             # in bf16 (``amp``) and float16 (``amp_fp16``)
             rows_of = "flash_attention_fwd_dropout" \
@@ -5990,7 +6499,8 @@ def main(argv=None) -> int:
     workers = {"--dp-worker": dp_worker, "--localsgd-worker": localsgd_worker,
                "--zero-worker": zero_worker, "--hsdp-worker": hsdp_worker,
                "--overlap-worker": overlap_worker,
-               "--preempt-worker": preempt_worker}
+               "--preempt-worker": preempt_worker,
+               "--tpsp-worker": tpsp_worker}
     if argv[:1] and argv[0] in workers:
         try:
             return workers[argv[0]](*argv[1:])
@@ -6104,6 +6614,16 @@ def main(argv=None) -> int:
         overlap_launches, overlap_report_ = overlap_phase(torch, np, repo,
                                                           per_kernel)
         log(f"  phase 17 ran {time.perf_counter() - t17:.1f} s")
+
+        log(f"phase 18: tensor and sequence parallelism at BERT-base width "
+            f"on the card over gloo: the ring's kernel entry against its "
+            f"twins, (a) tp 2 x sp 2 on {TPSP_RANKS} ranks against one "
+            f"rank, (b) tp 2 with attention dropout, {TPSP_STEPS} steps a "
+            f"leg")
+        t18 = time.perf_counter()
+        tpsp_launches, tpsp_report_ = tpsp_phase(torch, np, repo,
+                                                 per_kernel)
+        log(f"  phase 18 ran {time.perf_counter() - t18:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6111,7 +6631,7 @@ def main(argv=None) -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    log(f"phase 18: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 19: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
@@ -6124,6 +6644,7 @@ def main(argv=None) -> int:
     log("zero " + json.dumps(zero_report))
     log("hsdp " + json.dumps(hsdp_report_))
     log("overlap " + json.dumps(overlap_report_))
+    log("tp_sp " + json.dumps(tpsp_report_))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
@@ -6131,7 +6652,8 @@ def main(argv=None) -> int:
         "dp_int4": dp_ranks[0]["int4"]["launches"], "decode": decoded,
         "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16,
         "amp_pure_bf16": amp_pure, "lamb": lamb, **wrapped,
-        **zero_launches, **hsdp_launches, **overlap_launches})))
+        **zero_launches, **hsdp_launches, **overlap_launches,
+        **tpsp_launches})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

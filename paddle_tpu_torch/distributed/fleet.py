@@ -31,13 +31,19 @@ fired from backward hooks by the executor).  ZeRO-3 is
 ``framework.fsdp.apply_fsdp_sharding`` + ``CompiledProgram.with_mesh``,
 outside fleet, as in the JAX package.  ``strategy.mesh`` takes the
 port's mesh (``MeshLayout(...).build_mesh()``, a ``ProcessMesh``) where
-the JAX package takes a jax ``Mesh``: one axis is data parallelism over
-that axis, data x fsdp compiles ``with_mesh``.  ``nccl_comm_num`` and
+the JAX package takes a jax ``Mesh``: one data axis is data parallelism
+over that axis, data x fsdp compiles ``with_mesh``, and a mesh with a
+tensor (``tp``) or sequence (``sp``) axis compiles ``with_mesh`` with the
+sequence axis and feed specs splitting every fed array of two dims or
+more on dim 0 over the batch axes and dim 1 over ``sp``.
+``tensor_parallel`` / ``tensor_parallel_configs`` are taken as in the JAX
+package: the layout comes from the parameters' ``dist_attr`` and the
+mesh.  ``nccl_comm_num`` and
 ``use_hierarchical_allreduce`` are taken and change nothing, as in the
 JAX package (one communicator a group; the backend schedules the
-all-reduce).  A flag whose path is not ported (tensor_parallel, pipeline,
-auto_shard, a mesh of another kind or with a tensor, pipeline or expert
-axis) raises :class:`UnimplementedError` naming it; none is ignored.
+all-reduce).  A flag whose path is not ported (pipeline, auto_shard, a
+mesh of another kind or with a pipeline or expert axis) raises
+:class:`UnimplementedError` naming it; none is ignored.
 ``barrier_worker`` meets the other workers through the host collective
 service (``distributed/gloo.py``) when ``PADDLE_GLOO_ENDPOINT`` is set."""
 
@@ -211,10 +217,11 @@ class DistributedStrategy:
     ``recompute_configs``, ``gradient_merge`` /
     ``gradient_merge_configs``, ``localsgd`` / ``localsgd_configs``,
     ``use_dgc``, ``overlap_grad_sync`` / ``overlap_configs``, ``mesh`` (a
-    ``ProcessMesh`` of the dp and fsdp axes), ``nccl_comm_num`` and
+    ``ProcessMesh`` of the dp, fsdp, tp and sp axes),
+    ``tensor_parallel`` / ``tensor_parallel_configs`` (taken: the layout
+    comes from ``dist_attr`` and the mesh), ``nccl_comm_num`` and
     ``use_hierarchical_allreduce`` (no-ops) and ``build_strategy``;
-    ``tensor_parallel``, ``pipeline`` and ``auto_shard`` raise at
-    ``minimize``."""
+    ``pipeline`` and ``auto_shard`` raise at ``minimize``."""
 
     def __init__(self):
         self.amp = False
@@ -265,7 +272,6 @@ class DistributedStrategy:
 
 #: strategy flags whose paths are not ported, with what each needs
 _UNPORTED = (
-    ("tensor_parallel", "tensor parallelism"),
     ("pipeline", "pipeline parallelism"),
     ("auto_shard", "the auto-shard planner"),
 )
@@ -278,7 +284,7 @@ def _refuse_unported(s):
                 f"DistributedStrategy.{name}=True: its path ({needs}) is "
                 f"not ported yet")
     mesh = getattr(s, "mesh", None)
-    from ..framework.mesh_layout import DATA_AXIS, FSDP_AXIS, ProcessMesh
+    from ..framework.mesh_layout import ProcessMesh, check_ported_axes
     if mesh is None:
         return
     if not isinstance(mesh, ProcessMesh):
@@ -286,12 +292,7 @@ def _refuse_unported(s):
             f"DistributedStrategy.mesh={mesh!r}: the port takes its own "
             f"mesh, MeshLayout(...).build_mesh() (a ProcessMesh over the "
             f"process group, one process per rank)")
-    other = [a for a in mesh.axis_names if a not in (DATA_AXIS, FSDP_AXIS)]
-    if other:
-        raise UnimplementedError(
-            f"DistributedStrategy.mesh over the axes {mesh.shape}: {other} "
-            f"— tensor, pipeline and expert parallelism are not ported "
-            f"yet; the {DATA_AXIS} and {FSDP_AXIS} axes are")
+    check_ported_axes(dict(mesh.shape), "DistributedStrategy.mesh")
     if _sharded(s) and mesh.size > 1 and len(mesh.axis_names) != 1:
         # the JAX package's refusal (its fleet shards the update over one
         # axis); a hybrid grid composes with_mesh and the optimizer
@@ -301,6 +302,25 @@ def _refuse_unported(s):
             f"{tuple(mesh.axis_names)} — use CompiledProgram"
             ".with_mesh + ShardedUpdateOptimizer directly for "
             "hybrid grids")
+
+
+def _batch_axes(mesh):
+    """The axes of ``mesh`` the batch splits over: its dp and fsdp axes."""
+    from ..framework.mesh_layout import DATA_AXIS, FSDP_AXIS
+    axes = tuple(a for a in mesh.axis_names if a in (DATA_AXIS, FSDP_AXIS))
+    return axes[0] if len(axes) == 1 else (axes or None)
+
+
+def _seq_feed_specs(program, mesh):
+    """Under a sequence axis, every fed array of two dims or more splits
+    dim 0 over the batch axes and dim 1 over ``sp`` (the JAX package's
+    ``feed_specs={f: P("dp", "sp")}``); none without one."""
+    from ..framework.mesh_layout import SEQ_AXIS
+    if SEQ_AXIS not in mesh.axis_names:
+        return None
+    batch = _batch_axes(mesh)
+    return {v.name: (batch, SEQ_AXIS) for v in program.list_vars()
+            if getattr(v, "is_data", False) and len(tuple(v.shape)) >= 2}
 
 
 def _dp_axis(s) -> str:
@@ -664,7 +684,19 @@ class CollectiveOptimizer:
         from ..framework.compiler import CompiledProgram
         loss_name = None if (s.localsgd or _sharded(s)) else loss.name
         mesh = s.mesh
-        if mesh is not None and len(mesh.axis_names) > 1:
+        from ..framework.mesh_layout import SEQ_AXIS, TP_AXIS
+        model = [a for a in (TP_AXIS, SEQ_AXIS) if mesh is not None and
+                 a in mesh.axis_names]
+        if model:
+            # tensor / sequence parallelism: the batch splits over the data
+            # axes, every fed [B, S, ...] array's dim 1 over sp
+            fleet._compiled_program = CompiledProgram(program).with_mesh(
+                mesh, loss_name=loss_name,
+                batch_axis=_batch_axes(mesh),
+                seq_axis=SEQ_AXIS if SEQ_AXIS in model else None,
+                feed_specs=_seq_feed_specs(program, mesh),
+                build_strategy=self._build_strategy())
+        elif mesh is not None and len(mesh.axis_names) > 1:
             # data x fsdp: both axes split the batch
             fleet._compiled_program = CompiledProgram(program).with_mesh(
                 mesh, loss_name=loss_name, batch_axis=mesh.axis_names,

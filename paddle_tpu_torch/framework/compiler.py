@@ -22,11 +22,15 @@ executor runs the clone against the same scope.
 ``with_mesh`` takes the port's mesh (``MeshLayout.build_mesh()``: the
 named axes over the process group) of the ``dp`` and ``fsdp`` axes —
 data parallelism, ZeRO-3 after ``framework.fsdp.apply_fsdp_sharding``,
-and HSDP (both) — slices the feeds over the batch axes and inserts the
-gradient sync over them (a parameter stamped over an axis is reduced over
-the others only: its gradient arrives reduce-scattered over that one).
-A tensor, pipeline or sequence axis raises, and so do several places in
-one process: one process drives one device.  With ``overlap_grad_sync``
+and HSDP (both) — and of the ``dp``, ``tp`` and ``sp`` axes (Megatron
+tensor parallelism from the parameters' ``dist_attr``, ring attention
+over ``seq_axis``), slices the feeds over the batch axes (and by
+``feed_specs``: dim 1 over the sequence axis) and inserts the gradient
+sync over the batch and sequence axes (a parameter stamped over an axis
+is reduced over the others only: its gradient arrives reduce-scattered
+over that one, or is local to its tensor-parallel block).  A pipeline or
+expert axis raises, and so do several places in one process: one
+process drives one device.  With ``overlap_grad_sync``
 the buckets are cut in gradient ready order and marked for the
 executor's backward hooks (:func:`insert_grad_sync`).  The JAX package's
 static checks of a variant (``verify_programs``, ``hbm_budget_gb``,
@@ -50,8 +54,6 @@ _ONE_PROCESS_PER_RANK = (
     "per rank: launch the script with `python -m "
     "paddle_tpu_torch.distributed.launch --nproc N` and train through "
     "`paddle_tpu_torch.distributed.fleet`")
-_MESH_SLICE = ("tensor, pipeline and sequence parallelism are not ported "
-               "yet")
 
 
 class BuildStrategy:
@@ -148,54 +150,58 @@ class CompiledProgram:
                   feed_specs=None,
                   build_strategy: Optional[BuildStrategy] = None):
         """Compile for the port's mesh (``MeshLayout.build_mesh()``, a
-        ``ProcessMesh`` of the data and fsdp axes over the process group)
-        — the JAX package's ``with_mesh`` for ``MeshLayout(data=n)``,
-        ``MeshLayout(fsdp=n)`` after ``apply_fsdp_sharding`` (ZeRO-3) and
-        both (HSDP).  Feeds split on dim 0 over ``batch_axis`` (the
-        layout's ``batch_axes``) by the rank's flat index over them; with
-        a ``loss_name`` the gradient sync is inserted over the batch axes
-        of size above 1, each parameter's stamped axes left out (an
+        ``ProcessMesh`` over the process group) — the JAX package's
+        ``with_mesh`` for ``MeshLayout(data=n)``, ``MeshLayout(fsdp=n)``
+        after ``apply_fsdp_sharding`` (ZeRO-3), both (HSDP), and data x
+        tp x sp (tensor parallelism from the parameters' ``dist_attr``;
+        ``seq_axis`` the axis ring attention runs over).  Feeds split on
+        dim 0 over ``batch_axis`` (the layout's ``batch_axes``) by the
+        rank's flat index over them, or by their entry in ``feed_specs``
+        (one entry a dim: ``("dp", "sp")`` splits dim 1 over the sequence
+        axis too; axes the mesh lacks are dropped); with a ``loss_name``
+        the gradient sync is inserted over the batch and sequence axes of
+        size above 1, each parameter's stamped axes left out (an
         fsdp-stamped parameter's gradient is summed over fsdp by the
-        gather's transpose and reduced over ``dp`` only).  The mesh must
-        have as many ranks as the process group (``ValueError``).
-        ``seq_axis`` (sequence parallelism), a per-feed layout in
-        ``feed_specs`` and any other mesh object raise."""
+        gather's transpose and reduced over ``dp`` only; a tp-stamped
+        one's is its block's own).  A ``seq_axis`` the mesh lacks is
+        dropped, as in the JAX package.  The mesh must have as many ranks
+        as the process group (``ValueError``); a pipeline or expert axis
+        and any other mesh object raise."""
         if mesh is None:
             self._dp = None
             self._loss_name = loss_name
             return self
-        from .mesh_layout import ProcessMesh
+        from .mesh_layout import ProcessMesh, check_ported_axes
         if not isinstance(mesh, ProcessMesh):
             raise UnimplementedError(
                 f"CompiledProgram.with_mesh: {mesh!r} is not the port's mesh "
                 f"(MeshLayout.build_mesh()); {_ONE_PROCESS_PER_RANK}")
         sizes = dict(mesh.shape)
-        other = [a for a in mesh.axis_names if sizes.get(a, 1) > 1
-                 and a not in ("dp", "fsdp")]
-        if other:
-            raise UnimplementedError(
-                f"CompiledProgram.with_mesh over the axes {sizes}: {other} "
-                f"{_MESH_SLICE}; the dp and fsdp axes (data parallelism, "
-                f"ZeRO-3, HSDP) are ported")
-        if seq_axis or feed_specs:
-            raise UnimplementedError(
-                f"CompiledProgram.with_mesh(seq_axis={seq_axis!r}, "
-                f"feed_specs={feed_specs!r}): sequence parallelism and "
-                f"per-feed layouts are not ported yet; feeds split on dim 0 "
-                f"over the batch axes")
+        check_ported_axes(sizes, "CompiledProgram.with_mesh")
         strategy = build_strategy or BuildStrategy()
         from ..ops.collective_ops import DataParallelGroup, MeshGroups
         batch_axes = tuple(a for a in _flat_axes(batch_axis)
                            if a in mesh.axis_names)
-        reduce_axes = tuple(a for a in batch_axes if sizes.get(a, 1) > 1)
+        seq_axis = seq_axis if seq_axis and seq_axis in mesh.axis_names \
+            else None
+        batch_real = tuple(a for a in batch_axes if sizes.get(a, 1) > 1)
+        # grads are partial over the batch axes AND the sequence axis (the
+        # loss tokens are sharded on both): reduce over every such axis
+        reduce_axes = batch_real + tuple(
+            a for a in (seq_axis,) if a and sizes.get(a, 1) > 1
+            and a not in batch_real)
         real = [a for a in mesh.axis_names if sizes.get(a, 1) > 1]
         if len(real) > 1:
-            dp = MeshGroups.of(mesh, reduce_axes)
+            dp = MeshGroups.of(mesh, batch_real)
         else:
             dp = DataParallelGroup.current(real[0] if real
                                            else mesh.axis_names[0])
             if dp is not None:
-                dp.batch_sharded = dp.axis_name in reduce_axes
+                dp.batch_sharded = dp.axis_name in batch_real
+        if dp is not None:
+            dp.seq_axis = seq_axis
+            dp.feed_specs = {str(k): tuple(v) for k, v in
+                             dict(feed_specs or {}).items()}
         world = dp.world if dp is not None else 1
         if world != mesh.size:
             raise ValueError(

@@ -58,7 +58,11 @@ same random draws (:func:`run_forward`).  A ``conditional_block`` op
 Random ops draw from a ``torch.Generator`` on the run's device, seeded
 from ``program.random_seed`` and kept in the scope so successive runs
 continue one stream; a data-parallel run draws from its own stream, the
-seed folded with the global rank, so dropout masks differ across ranks."""
+seed folded with the rank's index over the batch and sequence axes, so
+dropout masks differ across data and sequence shards and agree across
+tensor-parallel ranks.  A run over a sequence axis splits each feed by
+its spec (dim 1 over the sequence axis) and averages a one-element float
+fetch (a per-shard loss) over it."""
 
 from __future__ import annotations
 
@@ -626,12 +630,15 @@ def _fetch_names(fetch_list) -> List[str]:
 
 def _generator(scope: Scope, program: Program, device: torch.device,
                dp=None):
-    """The scope's random stream on ``device``; a data-parallel run's is
-    its own, seeded from ``program.random_seed`` folded with the rank."""
+    """The scope's random stream on ``device``; a run over a group has
+    its own, seeded from ``program.random_seed`` folded with the rank's
+    index over the batch and sequence axes (``fold_index``): the draws
+    differ per data and sequence shard and agree across a tensor-parallel
+    line, whose activations are replicated."""
     key, seed = _RNG_VAR, int(program.random_seed)
     if dp is not None:
         key = f"{_RNG_VAR}/rank{dp.rank}"
-        seed = (seed * 0x9E3779B1 + dp.rank + 1) % (1 << 63)
+        seed = (seed * 0x9E3779B1 + dp.fold_index() + 1) % (1 << 63)
     g = scope.find_var(key)
     if not isinstance(g, torch.Generator) or g.device != device:
         g = torch.Generator(device=device)

@@ -15,9 +15,11 @@ one process per rank, so :meth:`MeshLayout.build_mesh` returns a
 (row-major over the squeezed axes, as the JAX package reshapes its
 devices), with one process group per line of the grid.  This port takes
 the data and the fsdp axes — ``data=n`` (data parallelism, ZeRO-1),
-``fsdp=n`` (ZeRO-3) and both (HSDP); a layout with a tensor, pipeline,
-expert or extra axis above size 1 raises :class:`UnimplementedError`
-naming it."""
+``fsdp=n`` (ZeRO-3) and both (HSDP) — and the tensor axis with one extra
+sequence axis ``sp`` beside the data axis (Megatron tensor parallelism
+and ring attention, dp x tp x sp); a layout with a pipeline, expert or
+other extra axis above size 1, or fsdp beside tp or sp, raises
+:class:`UnimplementedError` naming it."""
 
 from __future__ import annotations
 
@@ -31,6 +33,28 @@ FSDP_AXIS = "fsdp"
 TP_AXIS = "tp"
 PIPE_AXIS = "pp"
 EXPERT_AXIS = "ep"
+#: the sequence-parallel axis (an extra axis of the layout, as the JAX
+#: package spells it: ``MeshLayout(tp=2, extra_axes={"sp": 2})``)
+SEQ_AXIS = "sp"
+#: the mesh axes the port runs: data parallelism, ZeRO / HSDP, Megatron
+#: tensor parallelism and ring attention (pipeline and expert parallelism
+#: wait for their slices)
+PORTED_AXES = (DATA_AXIS, FSDP_AXIS, TP_AXIS, SEQ_AXIS)
+
+
+def check_ported_axes(sizes: Dict[str, int], what: str,
+                      ported: Tuple[str, ...] = PORTED_AXES):
+    """Raise :class:`UnimplementedError` naming each axis of ``sizes``
+    ({axis: size}) above size 1 outside ``ported``; ``what`` names the
+    caller."""
+    other = {a: n for a, n in sizes.items() if n > 1 and a not in ported}
+    if other:
+        raise UnimplementedError(
+            f"{what} over the axes {dict(sizes)}: the axes {other} are not "
+            f"ported yet; the port takes the {', '.join(ported)} axes (data "
+            f"parallelism, ZeRO, HSDP, Megatron tensor parallelism and ring "
+            f"attention); pipeline and expert parallelism wait for their "
+            f"slices")
 
 
 def _flat_axes(entries) -> Tuple[str, ...]:
@@ -312,17 +336,23 @@ class MeshLayout:
     # -- materialisation -------------------------------------------------
     def check_ported(self):
         """Raise :class:`UnimplementedError` naming each axis above size 1
-        that is not the data or the fsdp axis (tensor, pipeline, expert
-        parallelism and extra axes are not ported)."""
-        other = {a: n for a, n in self.mesh_axes.items()
-                 if a not in (self.data_axis, self.fsdp_axis)}
-        if other:
+        that the port has not: the pipeline and expert axes and any extra
+        axis but :data:`SEQ_AXIS` (pipeline and expert parallelism wait
+        for their slices), or the fsdp axis beside the tensor or the
+        sequence axis (ZeRO-3 over tensor-parallel blocks is not ported).
+        The data, fsdp, tensor and sequence axes pass."""
+        axes = self.mesh_axes
+        check_ported_axes(axes, "mesh layout",
+                          (self.data_axis, self.fsdp_axis, self.tp_axis,
+                           SEQ_AXIS))
+        mixed = {a: n for a, n in axes.items()
+                 if a in (self.tp_axis, SEQ_AXIS)}
+        if mixed and self.fsdp_axis in axes:
             raise UnimplementedError(
-                f"mesh layout {self.mesh_axes}: the axes {other} are not "
-                f"ported yet; this port takes the data and the fsdp axes "
-                f"(data parallelism, ZeRO-1, ZeRO-3 and HSDP, data x fsdp); "
-                f"tensor, pipeline and expert parallelism wait for their "
-                f"slices")
+                f"mesh layout {axes}: fsdp beside {mixed} is not ported "
+                f"yet; ZeRO-3 shards replicated parameters over data x "
+                f"fsdp, and tensor / sequence parallelism run over data x "
+                f"{self.tp_axis} x {SEQ_AXIS}")
 
     def build_mesh(self, devices=None) -> Optional[ProcessMesh]:
         """The :class:`ProcessMesh` over the squeezed axes (size-1 axes
@@ -387,4 +417,6 @@ class MeshLayout:
 
 
 __all__ = ["ShardSpec", "MeshLayout", "ProcessMesh", "DATA_AXIS",
-           "FSDP_AXIS", "TP_AXIS", "PIPE_AXIS", "EXPERT_AXIS", "_flat_axes"]
+           "FSDP_AXIS", "TP_AXIS", "PIPE_AXIS", "EXPERT_AXIS", "SEQ_AXIS",
+           "PORTED_AXES", "check_ported_axes",
+           "_flat_axes"]

@@ -633,6 +633,30 @@ def _dst_layout(program: Optional[Program], dst_layout=None):
     return dst_layout
 
 
+def _refuse_model_parallel_reshard(manifest: Optional[Dict],
+                                   program: Optional[Program], dst_layout):
+    """A restore onto another layout than the checkpoint's, where either
+    has a tensor or sequence axis above size 1, is refused by name: the
+    reshard of tensor-parallel blocks is not ported yet (restore onto the
+    same layout, or load a whole save into a one-rank program)."""
+    src = MeshLayout.from_desc((manifest or {}).get("mesh_layout"))
+    dst = _dst_layout(program, dst_layout)
+    if isinstance(dst, dict):
+        dst = MeshLayout.from_desc(dst)
+    if src is None or dst is None or src.sizes == dst.sizes:
+        return
+    from .framework.mesh_layout import SEQ_AXIS
+    model = {a: n for lay in (src, dst) for a, n in lay.mesh_axes.items()
+             if a in (lay.tp_axis, SEQ_AXIS)}
+    if model:
+        raise UnimplementedError(
+            f"load_checkpoint: restoring a checkpoint written under "
+            f"{_layout_name(src)} onto {_layout_name(dst)} changes a "
+            f"tensor or sequence layout ({model}); that reshard is not "
+            f"ported yet — restore onto the same layout, or load a whole "
+            f"save into a one-rank program")
+
+
 def _maybe_reshard(arrays: Dict[str, np.ndarray], manifest: Optional[Dict],
                    program: Optional[Program], dst_layout, reshard: bool
                    ) -> Tuple[Dict[str, np.ndarray], Optional[Dict]]:
@@ -762,7 +786,8 @@ def load_checkpoint(executor, path, trainer_id=0,
     only the rows of the blocks it holds under the destination layout
     (``st.read_stats``: ``bytes_read`` against ``planned_bytes``).  Each
     rank keeps its block of every sharded persistable.  A layout with an
-    axis the port has not (tp, pp, ep) raises ``UnimplementedError``."""
+    axis the port has not (pp, ep) raises ``UnimplementedError``, and so
+    does a restore that changes a tensor or sequence layout."""
     _refuse_unported_layout("load_checkpoint", dst_layout)
     scope = scope or global_scope()
     program = main_program if main_program is not None \
@@ -801,6 +826,7 @@ def _restore_dir(d: str, program: Optional[Program], scope: Scope,
     manifest = _read_manifest(d) or {}
     _refuse_unported_layout("load_checkpoint (the checkpoint's stamp)",
                             manifest.get("mesh_layout"))
+    _refuse_model_parallel_reshard(manifest, program, dst_layout)
     device = torch.device(device if device is not None else "cpu")
     wanted = set(_persistable_names(program)) if program is not None \
         else None

@@ -14,7 +14,8 @@ from .loss import softmax_with_cross_entropy  # noqa: F401
 from .nn import (data, fc, layer_norm, embedding, softmax,  # noqa: F401
                  dropout, argmax)
 from .tensor_ops import (cast, fill_constant, reshape,  # noqa: F401
-                         transpose, split, unsqueeze, slice, assign)
+                         transpose, split, squeeze, unsqueeze, slice,
+                         assign)
 from .control_flow import cond, case  # noqa: F401
 from ..lr_scheduler import (noam_decay, exponential_decay,  # noqa: F401
                             natural_exp_decay, inverse_time_decay,

@@ -98,6 +98,24 @@ def unsqueeze(input, axes, name=None):
     return out
 
 
+def squeeze(input, axes=None, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    axes = axes or []
+    nd = len(input.shape)
+    norm = [ax % nd for ax in axes]
+    if norm:
+        shape = tuple(s for i, s in enumerate(input.shape) if i not in norm)
+    else:
+        shape = tuple(s for s in input.shape if s != 1)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    xshape = helper.create_variable_for_type_inference(
+        input.dtype, (0,) + tuple(input.shape))
+    helper.append_op(type="squeeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": axes})
+    return out
+
+
 def slice(input, axes, starts, ends, name=None):
     helper = LayerHelper("slice", name=name)
     shape = list(input.shape)

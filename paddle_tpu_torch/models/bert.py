@@ -1,7 +1,9 @@
 """BERT — the port of paddle_tpu/models/bert.py: the encoder, the
-masked-LM + next-sentence pretraining heads and the synthetic pretraining
-batch (the MoE branch and the tensor/sequence-parallel builders are not
-ported yet).
+masked-LM + next-sentence pretraining heads, the synthetic pretraining
+batch, and the tensor/sequence-parallel pretraining builder
+(:func:`build_pretrain_network_parallel`: Megatron tp layers, ring
+attention over the sequence axis).  The MoE branch (``moe_experts > 0``)
+is not ported yet and raises by name.
 
 Static-graph builder: embeddings + N post-LN transformer encoder layers
 + the pooled first-token output.  It emits the same program as the JAX
@@ -33,6 +35,13 @@ class BertConfig:
     type_vocab_size: int = 2
     initializer_range: float = 0.02
     dtype: str = "float32"
+    # the JAX package's MoE fields: moe_experts > 0 is refused by the
+    # builders (the routed MoE FFN is not ported yet)
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_group_size: int = 0
+    moe_aux_weight: float = 0.01
 
     @staticmethod
     def base():
@@ -52,6 +61,15 @@ def _init(cfg):
 
 def _attr(name, cfg):
     return ParamAttr(name=name, initializer=_init(cfg))
+
+
+def _refuse_moe(cfg: BertConfig):
+    if cfg.moe_experts:
+        from ..framework.errors import UnimplementedError
+        raise UnimplementedError(
+            f"BertConfig(moe_experts={cfg.moe_experts}): the routed MoE FFN "
+            f"(parallel.moe_ffn) is not ported yet; build the dense model "
+            f"(moe_experts=0)")
 
 
 def _ffn_block(x, cfg: BertConfig, name: str):
@@ -112,6 +130,7 @@ def bert_encoder(src_ids, position_ids, sentence_ids, input_mask,
                  cfg: BertConfig, is_test=False, extra_emb=None):
     """Returns (sequence_output, pooled_output).  ``extra_emb`` joins the
     input embedding sum (ERNIE's task-type embedding hook)."""
+    _refuse_moe(cfg)
     emb = layers.embedding(src_ids, size=[cfg.vocab_size, cfg.hidden_size],
                            dtype=cfg.dtype,
                            param_attr=_attr("word_embedding", cfg))
@@ -226,6 +245,103 @@ def build_pretrain_network(cfg: BertConfig, is_test=False):
     feeds = [src_ids, pos_ids, sent_ids, input_mask, mask_label, mask_pos,
              labels]
     return feeds, total, mlm, nsp
+
+
+def parallel_encoder_layer(x, kv_mask, cfg: BertConfig, tp_degree: int,
+                           name: str, seq_axis=None, is_test=False):
+    """Encoder layer with Megatron TP (heads + FFN sharded over tp) and
+    optional ring attention over the sequence-parallel axis — the
+    dp x tp x sp path."""
+    from .. import parallel as par
+    d = cfg.hidden_size
+    attn = par.parallel_multihead_attention(
+        x, d, cfg.num_attention_heads, tp_degree, seq_axis=seq_axis,
+        kv_mask=kv_mask, dropout=0.0 if is_test
+        else cfg.attention_probs_dropout_prob, name=f"{name}_attn")
+    x = layers.layer_norm(x + attn, begin_norm_axis=2,
+                          param_attr=ParamAttr(name=f"{name}_ln1_scale"),
+                          bias_attr=ParamAttr(name=f"{name}_ln1_bias"))
+    ffn = par.parallel_ffn(x, d, cfg.intermediate_size, tp_degree,
+                           act=cfg.hidden_act, name=f"{name}_ffn")
+    return layers.layer_norm(x + ffn, begin_norm_axis=2,
+                             param_attr=ParamAttr(name=f"{name}_ln2_scale"),
+                             bias_attr=ParamAttr(name=f"{name}_ln2_bias"))
+
+
+def build_pretrain_network_parallel(cfg: BertConfig, tp_degree: int = 1,
+                                    seq_axis=None, is_test=False):
+    """BERT masked-LM with tensor + sequence parallelism.
+
+    Per-token LM loss (label weights select masked positions) instead of
+    the gather-based head: under sequence parallelism every rank scores
+    only its own token shard, so no cross-shard gather is needed, and the
+    loss is this shard's weighted mean (the gradient sync averages over
+    the data and sequence shards).
+
+    Feeds [B, S]-shaped: src_ids, pos_ids, sent_ids, kv_mask (float 0/1),
+    lm_labels (int), lm_weights (float 0/1).  Returns (feeds, loss)."""
+    from .. import parallel as par
+    _refuse_moe(cfg)
+    src_ids = layers.data("src_ids", shape=[-1, -1], dtype="int64",
+                          append_batch_size=False)
+    pos_ids = layers.data("pos_ids", shape=[-1, -1], dtype="int64",
+                          append_batch_size=False)
+    sent_ids = layers.data("sent_ids", shape=[-1, -1], dtype="int64",
+                           append_batch_size=False)
+    kv_mask = layers.data("kv_mask", shape=[-1, -1], dtype="float32",
+                          append_batch_size=False)
+    lm_labels = layers.data("lm_labels", shape=[-1, -1], dtype="int64",
+                            append_batch_size=False)
+    lm_weights = layers.data("lm_weights", shape=[-1, -1], dtype="float32",
+                             append_batch_size=False)
+
+    emb = par.vocab_parallel_embedding(
+        src_ids, cfg.vocab_size, cfg.hidden_size, tp_degree,
+        param_attr=_attr("word_embedding", cfg))
+    pos = layers.embedding(pos_ids, size=[cfg.max_position_embeddings,
+                                          cfg.hidden_size], dtype=cfg.dtype,
+                           param_attr=_attr("pos_embedding", cfg))
+    sent = layers.embedding(sent_ids, size=[cfg.type_vocab_size,
+                                            cfg.hidden_size],
+                            dtype=cfg.dtype,
+                            param_attr=_attr("sent_embedding", cfg))
+    x = layers.layer_norm(emb + pos + sent, begin_norm_axis=2,
+                          param_attr=ParamAttr(name="pre_encoder_ln_scale"),
+                          bias_attr=ParamAttr(name="pre_encoder_ln_bias"))
+    for i in range(cfg.num_hidden_layers):
+        x = parallel_encoder_layer(x, kv_mask, cfg, tp_degree,
+                                   name=f"encoder_layer_{i}",
+                                   seq_axis=seq_axis, is_test=is_test)
+    # LM head: column-parallel projection to vocab, gathered for softmax
+    logits = par.column_parallel_fc(
+        x, cfg.vocab_size, tp_degree, gather_output=True,
+        param_attr=_attr("mask_lm_out_w", cfg), bias_attr=False,
+        name="mask_lm_out")
+    per_tok = layers.softmax_with_cross_entropy(
+        logits, layers.unsqueeze(lm_labels, axes=[-1]))
+    per_tok = layers.squeeze(per_tok, axes=[-1])
+    wsum = layers.reduce_sum(per_tok * lm_weights)
+    wcnt = layers.reduce_sum(lm_weights) + 1e-6
+    loss = wsum / wcnt
+    feeds = [src_ids, pos_ids, sent_ids, kv_mask, lm_labels, lm_weights]
+    return feeds, loss
+
+
+def make_fake_parallel_batch(rng, cfg: BertConfig, batch_size=8,
+                             seq_len=128, mask_frac=0.15):
+    """Synthetic batch in :func:`build_pretrain_network_parallel`'s feed
+    layout, from a ``numpy.random.RandomState`` in the JAX package's
+    generator order."""
+    b, s = batch_size, seq_len
+    return {
+        "src_ids": rng.randint(0, cfg.vocab_size, (b, s)).astype("int64"),
+        "pos_ids": np.tile(np.arange(s, dtype="int64"), (b, 1)),
+        "sent_ids": rng.randint(0, cfg.type_vocab_size,
+                                (b, s)).astype("int64"),
+        "kv_mask": np.ones((b, s), dtype="float32"),
+        "lm_labels": rng.randint(0, cfg.vocab_size, (b, s)).astype("int64"),
+        "lm_weights": (rng.rand(b, s) < mask_frac).astype("float32"),
+    }
 
 
 def make_fake_batch(rng, cfg: BertConfig, batch_size=8, seq_len=128,

@@ -1,6 +1,5 @@
 """Fused attention op — the port of paddle_tpu/ops/attention_ops.py (the
-plain and paged-cache branches; the sequence-parallel branch comes with
-the multi-GPU slice).
+plain, paged-cache and sequence-parallel branches).
 
 One op takes projected Q/K/V in (B, S, H*D) layout plus an additive
 attention bias and produces the context in (B, S, H*D).  The
@@ -16,7 +15,15 @@ package's composition — computes it; on the card such an input raises
 The paged-cache branch (``KPool``/``VPool``/``BlockTable``/``CtxLen``
 inputs, serving/decode.py) gathers K and V through the block table and
 runs the same forward kernel on the gathered context through the
-``cached_flash_attention`` route, decode steps (one query row) included."""
+``cached_flash_attention`` route, decode steps (one query row) included.
+
+The sequence-parallel branch (``_seq_axis`` naming an axis of the run:
+Q/K/V hold this rank's sequence shard) rings K/V over that axis
+(``parallel/ring_attention.py``): the ``ring_flash_attention`` route runs
+each block on the flash kernels with a differentiable lse, its flag off
+the plain composition.  As in the JAX package the ring applies no
+attention dropout.  A ``_seq_axis`` the run does not have takes the plain
+branch."""
 
 from __future__ import annotations
 
@@ -159,6 +166,22 @@ def lower_cached_attention(ctx, ins, attrs, use_flash=False):
                                        True, causal=False)}
 
 
+def lower_ring_attention(ctx, ins, attrs, use_flash=False):
+    """Sequence-parallel attention: the ring over the ``_seq_axis`` ranks,
+    inner step on the flash kernels (the ``ring_flash_attention`` route)
+    or the plain composition."""
+    from ..parallel.ring_attention import ring_attention
+    q, k, v = x(ins, "Q"), x(ins, "K"), x(ins, "V")
+    n_head = resolve_heads(q, attrs)
+    axis = attrs["_seq_axis"]
+    out = ring_attention(
+        _split_heads(q, n_head), _split_heads(k, n_head),
+        _split_heads(v, n_head), axis, causal=attrs.get("causal", False),
+        kv_mask=x(ins, "KVMask"), use_flash=use_flash,
+        group=ctx.dp.over(axis))
+    return {"Out": _merge_heads(out)}
+
+
 @register("fused_attention")
 def _fused_attention(ctx, ins, attrs):
     if x(ins, "KPool") is not None:
@@ -169,10 +192,15 @@ def _fused_attention(ctx, ins, attrs):
                               kernel="cached_flash_attention")
         return lower_cached_attention(ctx, ins, attrs,
                                       use_flash=route is not None)
-    if attrs.get("_seq_axis"):
-        raise NotImplementedError(
-            "fused_attention: the sequence-parallel branch (_seq_axis) is "
-            "not ported yet (multi-GPU slice)")
+    seq_axis = attrs.get("_seq_axis")
+    if seq_axis and seq_axis in ctx.axis_names:
+        route, _ = cuda_route("fused_attention", ins, attrs,
+                              kernel="ring_flash_attention")
+        return lower_ring_attention(ctx, ins, attrs,
+                                    use_flash=route is not None)
+    if seq_axis:
+        # the axis is not in this run: the plain branch, as in the JAX op
+        attrs = dict(attrs, _seq_axis=None)
     q, k, v = x(ins, "Q"), x(ins, "K"), x(ins, "V")
     is_test = attrs.get("is_test", False) or ctx.is_test
     route, _ = cuda_route("fused_attention", ins,

@@ -41,10 +41,24 @@ cotangent's slices over the group, so each rank's gradient arrives as
 its shard — the JAX op's transpose, ``psum_scatter``; in an HSDP grid
 both run on the rank's line of their own axis).  A sum over peers runs
 in peer order, so over four ranks or two axes it is not a ``psum`` bit
-for bit.  The
-tensor-parallel ``c_embedding`` / ``c_split`` / ``c_concat``,
-``collective_permute`` and ``pipe_stage_boundary`` are not ported yet
-and stay unregistered.
+for bit.
+
+Tensor and sequence parallelism: ``c_embedding`` (the vocab-sharded
+lookup: this rank's rows masked in, summed over the group forward, the
+cotangent passing through the sum backward), ``c_allgather`` /
+``c_concat`` (differentiable: the backward is the rank's slice of the
+replicated cotangent — the one-device gradient, where the JAX package's
+transpose sums it over the group), ``c_split`` (the rank's slice of dim
+0; its backward gathers) and ``collective_permute`` (a ring shift over
+the group's point-to-point pairs, :func:`ring_shift`; its backward
+shifts the other way).  The Megatron f/g ops (``ops/tp_ops.py``) run
+:class:`CopyToGroup` and :class:`SumOverGroup`.
+``pipe_stage_boundary`` is not ported yet and stays unregistered.
+
+A run over a sequence axis (``CompiledProgram.with_mesh(seq_axis=...,
+feed_specs=...)``) splits each fed array by its spec (:func:`slice_feed`:
+dim 0 over the batch axes, dim 1 over the sequence axis) and merges a
+fetch over it too (:func:`merge_fetch`).
 
 A persistable whose ``dist_attr`` names an axis of the run is sharded:
 each rank holds only its block of the global value, its index in the
@@ -72,6 +86,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..framework.errors import UnimplementedError
 from .cuda import quant_kernels as cuda_quant
 from .quantize_wire import (CompressionSpec, dequantize_blockwise,
                             pad_to_blocks, quantize_blockwise)
@@ -92,7 +107,7 @@ class DataParallelGroup:
     batch axis replicates them)."""
 
     __slots__ = ("rank", "world", "group", "backend", "axis_name",
-                 "batch_sharded", "ranks")
+                 "batch_sharded", "ranks", "seq_axis", "feed_specs")
 
     def __init__(self, rank: int, world: int, backend: str, group=None,
                  axis_name=DP_AXIS, ranks=None):
@@ -103,6 +118,10 @@ class DataParallelGroup:
         self.axis_name = axis_name
         self.batch_sharded = True
         self.ranks = None if ranks is None else [int(r) for r in ranks]
+        #: the sequence-parallel axis of the run, or None; the fed arrays'
+        #: specs ({name: one entry a dim}, the JAX feed_specs)
+        self.seq_axis = None
+        self.feed_specs = {}
 
     def global_rank(self, i: int) -> int:
         """The global rank of the group's member ``i``."""
@@ -136,6 +155,19 @@ class DataParallelGroup:
         """The group fed batches split over (and fetches merge over), or
         None."""
         return self if self.batch_sharded else None
+
+    def seq_group(self) -> Optional["DataParallelGroup"]:
+        """The group of the run's sequence axis, or None."""
+        return self.over(self.seq_axis) if self.seq_axis in \
+            self.axis_names else None
+
+    def fold_index(self) -> int:
+        """This rank's flat index over the batch and sequence axes: the
+        shard its random draws are folded with (they differ per data and
+        sequence shard and agree across a tensor-parallel line, as the
+        JAX step folds only those axes into its key)."""
+        return self.rank if self.batch_sharded or \
+            self.seq_axis == self.axis_name else 0
 
     def sync_worker(self, axes, device) -> "SyncWorker":
         """The communication worker (:class:`SyncWorker`) of the group
@@ -237,6 +269,12 @@ class MeshGroups(DataParallelGroup):
 
     def batch_group(self) -> Optional[DataParallelGroup]:
         return self.over(self.batch_axes) if self.batch_axes else None
+
+    def fold_index(self) -> int:
+        axes = self.batch_axes + tuple(
+            a for a in (self.seq_axis,) if a in self.mesh.axis_names
+            and a not in self.batch_axes)
+        return self.over(axes).rank if axes else 0
 
     def _twin(self, axes) -> DataParallelGroup:
         """A group of its own over the ranks of :meth:`over` ``axes``: a
@@ -889,15 +927,165 @@ def _c_broadcast(ctx, ins, attrs):
     return {"Out": broadcast(_group(ctx, axis), a, attrs.get("root", 0))}
 
 
+class _Gather(torch.autograd.Function):
+    """all_gather along ``dim`` over the group forward; backward, the
+    rank's slice of the cotangent.  The gathered value is replicated over
+    the group, so each rank holds the whole cotangent and its slice is the
+    one-device gradient of its part (the JAX transpose, ``psum_scatter``
+    of a replicated cotangent, sums it over the group instead)."""
+
+    @staticmethod
+    def forward(ctx, a, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(group, a, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.group
+        return grad.chunk(g.world, dim=ctx.dim)[g.rank].contiguous(), \
+            None, None
+
+
+class _Split(torch.autograd.Function):
+    """The rank's slice of dim 0 forward; the slices gathered backward."""
+
+    @staticmethod
+    def forward(ctx, a, group):
+        ctx.group = group
+        piece = a.shape[0] // group.world
+        return a[group.rank * piece:(group.rank + 1) * piece].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(ctx.group, grad, 0), None
+
+
+class SumOverGroup(torch.autograd.Function):
+    """Summed over the group forward; the cotangent passes through (the
+    Megatron g, ``mp_allreduce_sum``, and the reduce inside
+    ``c_embedding``: each rank's partial owns its part of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, a, group):
+        return all_reduce(group, a)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class CopyToGroup(torch.autograd.Function):
+    """Identity forward; the cotangent summed over the group backward (the
+    Megatron f, ``mp_copy``)."""
+
+    @staticmethod
+    def forward(ctx, a, group):
+        ctx.group = group
+        return a.view_as(a)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(ctx.group, grad), None
+
+
+def ring_shift(g: DataParallelGroup, t: torch.Tensor, shift: int = 1
+               ) -> torch.Tensor:
+    """Member i's ``t`` arrives at member (i + shift) mod n: one batch of
+    point-to-point pairs (the send to the member ahead, the receive from
+    the one behind) between the group's global ranks."""
+    import torch.distributed as dist
+    n = g.world
+    shift %= n
+    if shift == 0:
+        return t
+    w = _on_wire(g, t)
+    out = torch.empty_like(w)
+    dst = g.global_rank((g.rank + shift) % n)
+    src = g.global_rank((g.rank - shift) % n)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, w, dst, group=g.group),
+        dist.P2POp(dist.irecv, out, src, group=g.group)])
+    for req in reqs:
+        req.wait()
+    return out.to(t.device)
+
+
+class RingShift(torch.autograd.Function):
+    """:func:`ring_shift` with a gradient: the cotangent shifts the other
+    way.  Every rank of the group runs the same backward graph, so the
+    backward's pairs issue in the same order on every rank."""
+
+    @staticmethod
+    def forward(ctx, a, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return ring_shift(group, a, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ring_shift(ctx.group, grad.contiguous(), -ctx.shift), None, \
+            None
+
+
 @register("c_allgather")
+@register("c_concat")
 def _c_allgather(ctx, ins, attrs):
+    """Every rank's X concatenated along ``gather_dim`` (dim 0 unless
+    given) over the group, differentiable (:class:`_Gather`); the
+    identity without a group."""
     a = x(ins, "X")
     axis = _ring_axis(ctx, attrs)
     if axis is None:
         return {"Out": a}
     dim = attrs.get("gather_dim", 0)
-    return {"Out": all_gather(_group(ctx, axis), a,
-                              dim if dim >= 0 else dim + a.dim())}
+    return {"Out": _Gather.apply(a, _group(ctx, axis),
+                                 dim if dim >= 0 else dim + a.dim())}
+
+
+@register("c_split")
+def _c_split(ctx, ins, attrs):
+    """This rank's 1/n slice of dim 0 over the group (its gradient
+    gathers)."""
+    a = x(ins, "X")
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
+        return {"Out": a}
+    return {"Out": _Split.apply(a, _group(ctx, axis))}
+
+
+@register("c_embedding")
+def _c_embedding(ctx, ins, attrs):
+    """Vocab-sharded embedding lookup (model parallel): the ids in this
+    rank's rows (``per_shard_rows`` from its index in the group, else
+    ``start_index``) looked up, the rest zero, summed over the group; the
+    gradient of W scatters into this rank's rows only."""
+    w, ids = x(ins, "W"), x(ins, "Ids")
+    axis = _ring_axis(ctx, attrs)
+    g = _group(ctx, axis) if axis is not None else None
+    if "per_shard_rows" in attrs and g is not None:
+        start = g.rank * int(attrs["per_shard_rows"])
+    else:
+        start = int(attrs.get("start_index", 0))
+    local = ids.to(torch.int64) - start
+    valid = (local >= 0) & (local < w.shape[0])
+    out = torch.nn.functional.embedding(
+        torch.clamp(local, 0, w.shape[0] - 1), w)
+    out = torch.where(valid[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                         device=out.device))
+    if g is not None:
+        out = SumOverGroup.apply(out, g)
+    return {"Out": out}
+
+
+@register("collective_permute")
+def _collective_permute(ctx, ins, attrs):
+    """Ring shift over the group by ``shift`` (used by sequence
+    parallelism), differentiable (:class:`RingShift`)."""
+    a = x(ins, "X")
+    axis = _ring_axis(ctx, attrs)
+    if axis is None:
+        return {"Out": a}
+    return {"Out": RingShift.apply(a.contiguous(), _group(ctx, axis),
+                                   int(attrs.get("shift", 1)))}
 
 
 @register("c_reducescatter")
@@ -1113,11 +1301,33 @@ def merge_fetch(dp: Optional[DataParallelGroup], value, replicated: bool,
     pass through, and so does everything when batches are not split;
     over the group they split over, a float scalar is averaged, an
     integer scalar summed, and any other tensor is batch-sharded and
-    all-gathered along dim 0."""
+    all-gathered along dim 0.  Over a sequence axis first: a value of one
+    element (a scalar or (1,): a per-shard loss, a count) is averaged if
+    a float and summed if an integer, and a tensor of two dims or more
+    gathered along dim 1 (the sequence); a 1-D value of more elements
+    raises, as nothing says how its shards merge (the JAX package
+    returns each shard's own)."""
     if shard_dim(dp, var) is not None:
         return whole_of(dp, var, value)
-    g = dp.batch_group() if dp is not None else None
-    if g is None or replicated or not isinstance(value, torch.Tensor):
+    if dp is None or replicated or not isinstance(value, torch.Tensor):
+        return value
+    sg = dp.seq_group()
+    if sg is not None:
+        if value.dim() >= 2:
+            value = all_gather(sg, value, 1)
+        elif value.numel() == 1:
+            value = all_reduce(sg, value)
+            if value.is_floating_point():
+                value = value / sg.world
+        else:
+            raise UnimplementedError(
+                f"fetching a value of shape {tuple(value.shape)} over the "
+                f"sequence axis {dp.seq_axis!r}: a 1-D value of more than "
+                f"one element is neither a per-shard scalar nor [B, S, "
+                f"...], and its shards' merge (sum, mean or none) is not "
+                f"known; fetch a scalar or a [B, S, ...] tensor")
+    g = dp.batch_group()
+    if g is None:
         return value
     if value.dim() == 0:
         if value.is_floating_point():
@@ -1126,12 +1336,30 @@ def merge_fetch(dp: Optional[DataParallelGroup], value, replicated: bool,
     return all_gather(g, value)
 
 
+def _feed_spec(dp: DataParallelGroup, name: str):
+    """The groups each dim of feed ``name`` splits over: its
+    ``feed_specs`` entry (axes the run lacks dropped), else dim 0 over the
+    batch axes (the JAX feed spec ``P(batch_axes)``)."""
+    spec = dp.feed_specs.get(name)
+    if spec is None:
+        g = dp.batch_group()
+        return [g] if g is not None else []
+    from ..framework.mesh_layout import _flat_axes
+    out = []
+    for entry in tuple(spec):
+        axes = tuple(a for a in _flat_axes((entry,)) if a in dp.axis_names)
+        out.append(dp.over(axes) if axes else None)
+    return out
+
+
 def slice_feed(dp: Optional[DataParallelGroup], name: str, value):
-    """This rank's rows of a fed global batch (the JAX feed spec
-    ``P(batch_axes)``): dim 0 split into as many equal parts as the batch
-    axes have ranks, the rank's flat index over them picking its part."""
-    g = dp.batch_group() if dp is not None else None
-    if g is None:
+    """This rank's part of a fed global array: each dim split into as many
+    equal parts as the ranks of the axes its spec names, the rank's flat
+    index over them picking its part — by default dim 0 over the batch
+    axes; ``feed_specs`` (sequence parallelism) adds dim 1 over the
+    sequence axis."""
+    groups = _feed_spec(dp, name) if dp is not None else []
+    if not any(g is not None for g in groups):
         return value
     if not isinstance(value, torch.Tensor):
         value = np.asarray(value)
@@ -1139,9 +1367,16 @@ def slice_feed(dp: Optional[DataParallelGroup], name: str, value):
     if not shape:
         return value
     from ..framework.errors import InvalidArgumentError
-    if shape[0] % g.world:
-        raise InvalidArgumentError(
-            f"feed {name!r}: the leading dim {shape[0]} does not divide "
-            f"into {g.world} data-parallel ranks")
-    rows = shape[0] // g.world
-    return value[g.rank * rows:(g.rank + 1) * rows]
+    for d, g in enumerate(groups[:len(shape)]):
+        if g is None:
+            continue
+        if shape[d] % g.world:
+            what = "the leading dim" if d == 0 else f"dim {d} of"
+            raise InvalidArgumentError(
+                f"feed {name!r}: {what} {shape[d]} does not divide into "
+                f"{g.world} ranks of {g.axis_name!r}")
+        n = shape[d] // g.world
+        index = [slice(None)] * len(shape)
+        index[d] = slice(g.rank * n, (g.rank + 1) * n)
+        value = value[tuple(index)]
+    return value

@@ -96,7 +96,11 @@
 //   apart); query blocks are the grid's fastest axis, so the heads of one
 //   batch row run together and share the head-shared bias in L2.
 // * The scale and the bias are applied in one rounding (fmaf), and
-//   e^(s - m) is 2^(s log2 e - m log2 e): one fmaf and MUFU.EX2.
+//   e^(s - m) is 2^(s log2 e - m log2 e): one fmaf and MUFU.EX2.  A row
+//   whose every key so far is masked by a bias (the ring's -1e30: m below
+//   kHugeNeg) takes 2^((s - m) log2 e) instead: there the rounding of
+//   m log2 e (~1e23) would swamp s - m and give p = inf or 0, where the
+//   plain version's s - m is exactly 0 (p = 1, the uniform mean of V).
 // * The dropout mask (fragment_keep) is drawn while q.k^T runs.
 // * 60 KB of shared memory and at most 168 registers at D 64: three
 //   blocks an SM.  Measured on an H100 at B96 H12 S128 D64 bf16
@@ -611,6 +615,7 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
       if (i + 1 < tiles) stage_bias(k0 + BN);
     }
     float alpha[2], mneg[2];
+    bool huge[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
@@ -620,12 +625,16 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
       mrow[h] = m_new;
       lrow[h] *= alpha[h];
       mneg[h] = -m_new * kLog2e;
+      huge[h] = m_new < kHugeNeg;
     }
-    // p = e^(s - m) as 2^(s log2 e - m log2 e), its sum (undropped), and
-    // the dropped p rounded to 16 bits as p.v's register operand
+    // p = e^(s - m) as 2^(s log2 e - m log2 e) (a masked row: 2^((s - m)
+    // log2 e)), its sum (undropped), and the dropped p rounded to 16 bits
+    // as p.v's register operand
 #pragma unroll
     for (int n = 0; n < 32; ++n) {
-      const float p = ex2(fmaf(s[n], kLog2e, mneg[(n >> 1) & 1]));
+      const int h = (n >> 1) & 1;
+      const float p = ex2(huge[h] ? (s[n] - mrow[h]) * kLog2e
+                                  : fmaf(s[n], kLog2e, mneg[h]));
       lrow[(n >> 1) & 1] += p;
       s[n] = !kDropout ? p : (keep >> n) & 1u ? p * inv_keep : 0.f;
     }

@@ -654,7 +654,9 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
     wg_wait<1>();
     wg_hold(s);
 
-    // p = e^(s - lse) as 2^(s log2 e - lse log2 e): s becomes p
+    // p = e^(s - lse) as 2^(s log2 e - lse log2 e), or 2^((s - lse)
+    // log2 e) on a row masked everywhere by a bias (lse below kHugeNeg,
+    // where the rounding of lse log2 e would swamp s - lse): s becomes p
     const bool edge = n0 + 64 > sk;
     const bool diagonal = causal && n0 + 63 > m0;
 #pragma unroll
@@ -666,7 +668,9 @@ __global__ void __launch_bounds__(128, D == 64 ? 3 : 2)
                       : s[4 * j + c] * scale;
         if (diagonal && n0 + key > m0 + col) sv = kNegInf;
         if (edge && n0 + key >= sk) sv = -INFINITY;
-        s[4 * j + c] = ex2(fmaf(sv, kLog2e, -lses[col] * kLog2e));
+        const float l = lses[col];
+        s[4 * j + c] = ex2(l < kHugeNeg ? (sv - l) * kLog2e
+                                        : fmaf(sv, kLog2e, -l * kLog2e));
       }
     wg_wait<0>();
     wg_hold(dp);

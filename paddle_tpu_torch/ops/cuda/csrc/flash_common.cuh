@@ -29,6 +29,9 @@ constexpr int kThreads = 256;      // a 16 x 16 grid of threads
 constexpr int kPStride = kBlockN + 16;  // score-tile rows in shared memory
 constexpr int kCStride = 64 + 4;        // a 64-wide head-dim chunk row
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
+// below this a row max (or lse) comes from mask biases alone: the 16-bit
+// kernels then take e^(s - m) unfused (see flash_fwd_sm90_kernel)
+constexpr float kHugeNeg = -1e20f;
 constexpr int kMmaThreads = 128;  // tensor-core kernels: 4 warps
 
 __device__ __forceinline__ float4 load4(const float* p) {

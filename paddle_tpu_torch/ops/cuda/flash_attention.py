@@ -12,7 +12,10 @@ gradient) ``flash_bwd_dkv`` and ``flash_bwd_dq`` each recompute the
 scores, in O(S) memory.  :class:`FlashAttention` ties them into one
 ``torch.autograd.Function`` (the TPU package's ``custom_vjp``), and
 ``flash_attention_bshd`` takes ``(B, H, S, D)`` operands plus a
-broadcastable additive bias, exactly as the TPU wrapper does.  The
+broadcastable additive bias, exactly as the TPU wrapper does.
+:class:`FlashAttentionLse` and ``flash_attention_with_lse`` return the
+per-row logsumexp beside o, differentiable: its cotangent folds into the
+same backward kernels as delta - dlse (ring attention's merge).  The
 kernels are ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``
 (the source notes there give their bounds and designs);
 ``flash_fwd_plain`` and ``flash_bwd_plain`` are the same functions in plain
@@ -250,10 +253,11 @@ def flash_fwd_plain(q, k, v, bias=None, causal=False, dropout_rate=0.0,
 
 
 def flash_bwd_plain(q, k, v, bias, o, lse, do, causal=False,
-                    dropout_rate=0.0, seed=None):
+                    dropout_rate=0.0, seed=None, dlse=None):
     """Plain PyTorch spec of the backward kernels, as explicit formulas:
     p = exp(s - lse); dp = do.v^T masked and rescaled like p;
-    ds = p * (dp - rowsum(do * o)); dq = ds.k * scale,
+    ds = p * (dp - delta) with delta = rowsum(do * o), less the lse
+    cotangent ``dlse`` (BH, Sq[, 1]) when one is given; dq = ds.k * scale,
     dk = ds^T.q * scale, dv = p_dropped^T.do, in float32 (float64 for
     float64 operands).  Returns (dq, dk, dv) in the dtypes of q, k, v."""
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -268,6 +272,8 @@ def flash_bwd_plain(q, k, v, bias, o, lse, do, causal=False,
         pd = torch.where(keep, p * inv, zero)
         dp = torch.where(keep, dp * inv, zero)
     delta = (dof * o.to(p.dtype)).sum(dim=-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - dlse.to(p.dtype).reshape(delta.shape)
     ds = p * (dp - delta)
     dq = torch.matmul(ds, k.to(p.dtype)) * scale
     dk = torch.matmul(ds.transpose(1, 2), q.to(p.dtype)) * scale
@@ -442,18 +448,21 @@ def flash_bwd_dq_ds(k, ds, sq, causal=False):
 
 
 def flash_bwd(q, k, v, bias, o, lse, do, causal=False, dropout_rate=0.0,
-              seed=None):
+              seed=None, dlse=None):
     """(dq, dk, dv) given the forward's inputs, o, lse and the output
     gradient do.  CPU tensors run :func:`flash_bwd_plain`; CUDA tensors
     launch the dk/dv kernel, then the dq kernel, from its ds on the "mma"
     route and from the inputs on the "fma" route (delta = rowsum(do * o)
     is one float32 reduction here, as ``_flash_bwd`` computes it outside
-    its kernels)."""
+    its kernels).  An lse cotangent ``dlse`` (BH, Sq[, 1]) folds into the
+    same kernels as delta - dlse: dL/ds = p (dp - delta) + dlse p."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, bias, o, lse, do, causal,
-                               dropout_rate, seed)
+                               dropout_rate, seed, dlse)
     do = do.contiguous()
     delta = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float().reshape(delta.shape)
     dk, dv, ds = flash_bwd_dkv(q, k, v, bias, do, lse, delta, causal,
                                dropout_rate, seed)
     if ds is not None:
@@ -484,6 +493,69 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+class FlashAttentionLse(torch.autograd.Function):
+    """(o, lse) of flattened (BH, S, D) operands, both differentiable: the
+    backward takes (do, dlse) and hands delta - dlse to the same dq and
+    dk/dv kernels (the TPU package's ``_make_flash(with_lse=True)``).  No
+    dropout; the bias gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        o, lse = flash_fwd(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_bwd(q, k, v, bias, o, lse, do, dlse=dlse)
+        return dq, dk, dv, None
+
+
+def _flat_bias(bias, b, h, s, sk):
+    """A broadcastable (B, 1|H, 1|Sq, Sk) bias as the kernels read it:
+    (B, Sq, Sk) when the heads share it (read once per batch row), else
+    (B*H, Sq, Sk); float32, no gradient."""
+    if bias is None:
+        return None
+    if bias.shape[2] == 1:
+        bias = bias.expand(bias.shape[0], bias.shape[1], s, sk)
+    if bias.shape[1] == 1:
+        bf = bias.reshape(b, s, sk)
+    else:
+        bf = bias.expand(b, h, s, sk).reshape(b * h, s, sk)
+    return bf.detach().to(torch.float32).contiguous()
+
+
+def flash_attention_with_lse(q, k, v, bias=None):
+    """Attention over ONE K/V block with its residual: ``(o, lse)`` for
+    q (B, H, Sq, D) and k/v (B, H, Sk, D), lse (B, H, Sq) float32, both
+    differentiable through :class:`FlashAttentionLse` — the building block
+    ring attention merges over the rotated K/V shards
+    (``parallel/ring_attention.py``).  ``bias`` is a broadcastable
+    (B, 1|H, 1|Sq, Sk) additive mask, stop-gradiented.  A row whose keys
+    are all masked by a finite bias (the ring's -1e30) gets the uniform
+    mean of V and a finite lse near the bias; CPU tensors run the plain
+    twins."""
+    b, h, s, d = q.shape
+    sk = k.shape[2]
+    ok, why = supported(s, sk, d, q.dtype)
+    if not ok:
+        raise ValueError(f"flash_attention_with_lse: unsupported problem "
+                         f"({why})")
+    qf = q.reshape(b * h, s, d).contiguous()
+    kf = k.reshape(b * h, sk, d).contiguous()
+    vf = v.reshape(b * h, sk, d).contiguous()
+    bf = _flat_bias(bias, b, h, s, sk)
+    if needs_grad(qf, kf, vf):
+        o, lse = FlashAttentionLse.apply(qf, kf, vf, bf)
+    else:
+        o, lse = flash_fwd(qf, kf, vf, bf)
+    return o.reshape(b, h, s, d), lse.reshape(b, h, s)
+
+
 def flash_attention_bshd(q, k, v, bias=None, dropout_rate=0.0,
                          causal=False, seed=None):
     """q: (B, H, Sq, D), k/v: (B, H, Sk, D); bias broadcastable
@@ -500,15 +572,7 @@ def flash_attention_bshd(q, k, v, bias=None, dropout_rate=0.0,
     qf = q.reshape(b * h, s, d).contiguous()
     kf = k.reshape(b * h, sk, d).contiguous()
     vf = v.reshape(b * h, sk, d).contiguous()
-    bf = None
-    if bias is not None:
-        if bias.shape[2] == 1:
-            bias = bias.expand(bias.shape[0], bias.shape[1], s, sk)
-        if bias.shape[1] == 1:
-            bf = bias.reshape(b, s, sk)
-        else:
-            bf = bias.expand(b, h, s, sk).reshape(b * h, s, sk)
-        bf = bf.detach().to(torch.float32).contiguous()
+    bf = _flat_bias(bias, b, h, s, sk)
     if needs_grad(qf, kf, vf):
         o = FlashAttention.apply(qf, kf, vf, bf, seed, bool(causal),
                                  float(dropout_rate))

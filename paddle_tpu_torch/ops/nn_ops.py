@@ -102,17 +102,59 @@ def _dropout(ctx, ins, attrs):
     return {"Out": out.to(a.dtype), "Mask": keep.to(torch.uint8)}
 
 
-def embedding_lookup(w, ids, padding_idx):
+class _ReplicatedTableLookup(torch.autograd.Function):
+    """Rows ``ids`` of a table replicated over the run's tensor-parallel
+    ranks, whose gradient is the product one_hot(ids)^T . grad over the
+    distinct ids, accumulated in float32 in a fixed order.  On the card
+    ``F.embedding``'s backward sums many ids into one row (4,096 ids into
+    the sentence embedding's 2 rows) in an order that changes from run to
+    run: one ulp apart, which ranks each computing the replicated table's
+    gradient themselves must not be."""
+
+    @staticmethod
+    def forward(ctx, w, flat):
+        ctx.save_for_backward(flat)
+        ctx.table_shape = w.shape
+        return torch.nn.functional.embedding(flat, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        flat, = ctx.saved_tensors
+        rows, inv = torch.unique(flat, return_inverse=True)
+        one_hot = torch.nn.functional.one_hot(inv, rows.numel()).to(
+            torch.float32)
+        dw = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                         device=grad.device)
+        dw[rows] = torch.matmul(one_hot.t(), grad.to(torch.float32))
+        return dw.to(grad.dtype), None
+
+
+def embedding_lookup(w, ids, padding_idx, replicated_over_tp=False):
     """Rows ``ids`` of ``w``.  ``F.embedding`` rather than
     ``index_select``: on the card its backward sums each row's gradient
     in float32, where ``index_select``'s (``index_add_``) adds with
     atomics in the table's dtype (a bf16 table's gradient then keeps few
-    of its bits) and in an order that changes from run to run."""
+    of its bits) and in an order that changes from run to run.  A table
+    on the card that is ``replicated_over_tp`` takes
+    :class:`_ReplicatedTableLookup`, whose gradient is the same on every
+    rank."""
     flat = ids.reshape(-1).long()
-    out = torch.nn.functional.embedding(flat, w)
+    if replicated_over_tp and w.device.type != "cpu" and \
+            torch.is_grad_enabled() and w.requires_grad:
+        out = _ReplicatedTableLookup.apply(w, flat)
+    else:
+        out = torch.nn.functional.embedding(flat, w)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((flat == padding_idx)[:, None], 0.0)
     return out.reshape(tuple(ids.shape) + (w.shape[-1],))
+
+
+def _replicated_over_tp(ctx) -> bool:
+    """Whether the run has a tensor-parallel axis: a ``lookup_table``'s
+    table is then replicated over it (a vocab-sharded one is
+    ``c_embedding``'s)."""
+    from ..framework.mesh_layout import TP_AXIS
+    return TP_AXIS in ctx.axis_names
 
 
 @register("lookup_table")
@@ -121,13 +163,15 @@ def _lookup_table(ctx, ins, attrs):
     w, ids = x(ins, "W"), x(ins, "Ids")
     if ids.dim() > 1 and ids.shape[-1] == 1:
         ids = ids[..., 0]
-    return {"Out": embedding_lookup(w, ids, attrs.get("padding_idx", -1))}
+    return {"Out": embedding_lookup(w, ids, attrs.get("padding_idx", -1),
+                                    _replicated_over_tp(ctx))}
 
 
 @register("lookup_table_v2")
 def _lookup_table_v2(ctx, ins, attrs):
     w, ids = x(ins, "W"), x(ins, "Ids")
-    return {"Out": embedding_lookup(w, ids, attrs.get("padding_idx", -1))}
+    return {"Out": embedding_lookup(w, ids, attrs.get("padding_idx", -1),
+                                    _replicated_over_tp(ctx))}
 
 
 def _gather_label_logp(logp, label, ignore_index=-100):

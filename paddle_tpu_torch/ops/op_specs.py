@@ -47,6 +47,21 @@ def _flash_supported(ins, attrs):
                                 bool(attrs.get("causal")), rate)
 
 
+def _ring_supported(ins, attrs):
+    """The ring's inner step on the flash kernels (the JAX package's
+    ``_pl_ring_supported``): an explicit AttnBias is per-source-block
+    semantics the kernel step does not take; else the kernels' own gate
+    on the local shard (no causal flag: the ring's causal mask rides in
+    its bias; no dropout: the ring applies none)."""
+    if x(ins, "AttnBias") is not None:
+        return False, "ring-explicit-bias"
+    dims = _attn_dims(ins, attrs)
+    if dims is None:
+        return False, "shape-unknown"
+    _, _, s, sk, d = dims
+    return cuda_flash.supported(s, sk, d, x(ins, "Q").dtype)
+
+
 def _cached_attn_total(ins):
     """Gathered context length T = max_blocks_per_seq * block_size of the
     cache-read fused_attention variant, or None."""
@@ -191,6 +206,17 @@ ROUTE_FLASH = CudaLowering(
     replaces=(_FLASH_TPU, _FLASH_DQ_TPU, _FLASH_DKV_TPU),
     source=(_CSRC + "flash_attention.cu", _CSRC + "flash_attention_bwd.cu",
             _CSRC + "flash_attention_bwd.cu"))
+# sequence parallelism: each rotated K/V block of the ring on the same
+# three kernels, the lse differentiable (the JAX package's _PL_RING)
+ROUTE_RING_FLASH = CudaLowering(
+    "ring_flash_attention", flag="use_flash_attention", attr="use_flash",
+    match=lambda attrs: bool(attrs.get("_seq_axis")),
+    supported=_ring_supported,
+    kernels=("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv"),
+    replaces=(_FLASH_TPU, _FLASH_DQ_TPU, _FLASH_DKV_TPU),
+    source=(_CSRC + "flash_attention.cu", _CSRC + "flash_attention_bwd.cu",
+            _CSRC + "flash_attention_bwd.cu"))
 # the paged-cache read (serving/decode.py): the gathered context on the
 # same forward kernel; applicability rides the builder-stamped `_cached`
 # attr, so a plain fused_attention skips this route silently
@@ -248,7 +274,8 @@ ROUTE_DEQUANT_ACC_RS = CudaLowering(
     supported=_dequant_acc_supported, kernels=("dequant_accumulate",),
     replaces=(_DQ_ACC_TPU,), source=_CSRC + "quant_accumulate.cu")
 
-register_routes("fused_attention", ROUTE_FLASH, ROUTE_CACHED_FLASH)
+register_routes("fused_attention", ROUTE_FLASH, ROUTE_RING_FLASH,
+                ROUTE_CACHED_FLASH)
 register_routes("multihead_matmul", ROUTE_MHM)
 register_routes("layer_norm", ROUTE_LN)
 register_routes("fused_add_layernorm", ROUTE_ADD_LN)

@@ -8,7 +8,10 @@ JAX package then fails on the port only where the port refuses by name,
 never with a bare ``TypeError``.  The keywords the port had lacked are
 driven as well: ``DecodeConfig(prefix_reserve_blocks=...)``,
 ``ServingConfig(packing=..., mask_feed=..., pack_max_segments=...)`` and
-``Executor.run(use_prune=...)``."""
+``Executor.run(use_prune=...)``.  The parallelism package (topology, the
+Megatron layers, ring attention and the refusals of pipeline and MoE) and
+``models.bert``'s builders (the tensor/sequence-parallel ones included)
+are compared as well."""
 
 import importlib
 import inspect
@@ -29,7 +32,8 @@ MODULES = ("optimizer", "framework.executor", "framework.compiler",
            "distributed.fleet", "layers.control_flow",
            "framework.mesh_layout", "framework.fsdp", "framework.reshard",
            "framework.analysis", "distributed.gloo",
-           "distributed.preemption")
+           "distributed.preemption", "parallel", "parallel.topology",
+           "parallel.tp_layers", "parallel.ring_attention", "models.bert")
 
 #: JAX internals whose parameters differ by design, with the reason
 ALLOWED = {

@@ -244,10 +244,26 @@ def test_q_pos_must_match_the_query_shape():
 
 
 def test_the_sequence_parallel_branch_is_refused_by_name():
-    q = torch.zeros(1, 4, 128)
-    with pytest.raises(NotImplementedError, match="_seq_axis"):
-        get_op("fused_attention")(_ctx(), {"Q": [q], "K": [q], "V": [q]},
-                                  {"n_head": 2, "_seq_axis": "sp"})
+    """The sequence-parallel branch is ported: a ``_seq_axis`` the run
+    lacks takes the plain branch (the JAX op's rule), and on a run over
+    that axis the ring route refuses by name, off the CPU, what its kernel
+    step does not take (an explicit AttnBias)."""
+    from paddle_tpu_torch.framework.errors import UnimplementedError
+    from paddle_tpu_torch.ops.collective_ops import DataParallelGroup
+    rng = np.random.RandomState(3)
+    q = torch.from_numpy(rng.randn(1, 4, 128).astype(np.float32))
+    ins = {"Q": [q], "K": [q], "V": [q]}
+    got = get_op("fused_attention")(_ctx(), ins, {"n_head": 2,
+                                                  "_seq_axis": "sp"})["Out"]
+    want = get_op("fused_attention")(_ctx(), ins, {"n_head": 2})["Out"]
+    assert torch.equal(got, want)
+    ctx = _ctx()
+    ctx.dp = DataParallelGroup(0, 2, "gloo", axis_name="sp")
+    m = torch.zeros(1, 4, 128, device="meta")
+    with pytest.raises(UnimplementedError, match="ring-explicit-bias"):
+        get_op("fused_attention")(
+            ctx, {"Q": [m], "K": [m], "V": [m], "AttnBias": [m]},
+            {"n_head": 2, "head_dim": 64, "_seq_axis": "sp"})
 
 
 def test_arg_max_takes_the_first_of_ties_as_jnp_argmax():

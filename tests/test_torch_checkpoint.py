@@ -309,9 +309,10 @@ def test_a_port_checkpoint_loads_in_the_jax_package(tmp_path):
 
 
 def test_unported_checkpoint_paths_are_refused_by_name(tmp_path):
-    """What stays refused: a layout with a tensor or pipeline axis, given
+    """What stays refused: a layout with an expert or pipeline axis, given
     at save, as the restore's destination or as the checkpoint's stamp
-    (``UnimplementedError`` naming the axis), and a layout change with
+    (``UnimplementedError`` naming the axis; the tensor axis is ported,
+    ``tests/test_torch_tp_sp_bert.py``), and a layout change with
     ``reshard=False`` (the JAX package's ``InvalidArgumentError``).  What
     was refused before and runs now: a sharded checkpoint, a per-process
     sharded save and ``AsyncCheckpointer``, each read back as saved."""
@@ -344,17 +345,17 @@ def test_unported_checkpoint_paths_are_refused_by_name(tmp_path):
                                 scope=scope2)
         for n, t in want.items():
             assert torch.equal(scope2.find_var(n), t), (src, n)
-    # refused: a tensor or pipeline axis
-    with pytest.raises(UnimplementedError, match="tp.*not ported"):
+    # refused: an expert or pipeline axis
+    with pytest.raises(UnimplementedError, match="ep.*not ported"):
         tio.save_checkpoint(exe, path, tio.TrainStatus(0), main, scope=scope,
-                            layout=MeshLayout(data=2, tp=2))
+                            layout=MeshLayout(data=2, expert=2))
     with pytest.raises(UnimplementedError, match="pp.*not ported"):
         tio.load_checkpoint(exe, path, main_program=main, scope=scope,
                             dst_layout=MeshLayout(pipe=2))
     man = tio._manifest_dict()
-    man["mesh_layout"] = MeshLayout(tp=2).to_desc()
+    man["mesh_layout"] = MeshLayout(expert=2).to_desc()
     tio._write_manifest(d, main, manifest=man)
-    with pytest.raises(UnimplementedError, match="stamp.*tp"):
+    with pytest.raises(UnimplementedError, match="stamp.*ep"):
         tio.load_checkpoint(exe, path, main_program=main, scope=scope)
     # a layout change with resharding off: the JAX package's error
     man["mesh_layout"] = MeshLayout(data=2).to_desc()

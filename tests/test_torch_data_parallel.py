@@ -311,6 +311,10 @@ def test_strategy_amp_runs_on_one_worker():
 @pytest.mark.parametrize("flag", [
     "tensor_parallel", "pipeline", "auto_shard", "mesh"])
 def test_unported_strategy_flags_are_refused_by_name(flag):
+    """``pipeline``, ``auto_shard`` and a mesh of another kind raise naming
+    the flag, and nothing is appended.  ``tensor_parallel`` is taken now,
+    as in the JAX package (the layout comes from ``dist_attr`` and the
+    mesh): on one worker minimize leaves the plain update."""
     tcore.reset_default_programs()
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
@@ -321,6 +325,12 @@ def test_unported_strategy_flags_are_refused_by_name(flag):
         setattr(s, flag, object() if flag == "mesh" else True)
         opt = tfleet.distributed_optimizer(tfluid.optimizer.SGD(0.1), s)
         before = [op.type for op in main.global_block().ops]
+        if flag == "tensor_parallel":
+            opt.minimize(loss)
+            after = [op.type for op in main.global_block().ops]
+            assert after[len(before):][-1] == "sgd" and \
+                tfleet.main_program is main
+            return
         with pytest.raises(UnimplementedError, match=flag):
             opt.minimize(loss)
     assert [op.type for op in main.global_block().ops] == before, \
@@ -411,10 +421,11 @@ def test_insert_grad_sync_matches_the_jax_package(fused, tier):
         assert len(synced) == 2      # the 0.84 MB fc weight, the rest
 
 
-@pytest.mark.parametrize("axes", [("dp", "tp"), ("pp",), ("dp", "ep")])
+@pytest.mark.parametrize("axes", [("dp", "cp"), ("pp",), ("dp", "ep")])
 def test_mesh_axes_the_port_has_not_are_refused_by_name(axes):
-    """A ``ProcessMesh`` strategy.mesh with a tensor, pipeline or expert
-    axis raises naming the axis; nothing is appended."""
+    """A ``ProcessMesh`` strategy.mesh with a pipeline, expert or unknown
+    axis raises naming the axis; nothing is appended.  (The tensor and
+    sequence axes are ported: ``tests/test_torch_tp_sp_bert.py``.)"""
     from paddle_tpu_torch.framework.mesh_layout import ProcessMesh
     tcore.reset_default_programs()
     main, startup = tfluid.Program(), tfluid.Program()

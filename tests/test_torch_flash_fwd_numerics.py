@@ -16,9 +16,12 @@ and reported (``-rP``), also at B32 H12 S128.
 
 The 16-bit kernel (bf16, float16; Hopper's design) keeps q.k^T in float32
 from the tensor cores, applies the scale and the bias in one rounding,
-takes p as 2^(s log2 e - m log2 e) with the row max folded into one fmaf,
-and rounds the dropped p to the type for p.v: o within two ulps of the
-type of max|o|, lse within TOL_LSE."""
+takes p as 2^(s log2 e - m log2 e) with the row max folded into one fmaf
+(on a row whose max is below ``kHugeNeg`` = -1e20, a row masked
+everywhere by the ring's -1e30 bias, as 2^((s - m) log2 e): there the
+fused form's rounding of m log2 e swamps s - m), and rounds the dropped p
+to the type for p.v: o within two ulps of the type of max|o|, lse within
+TOL_LSE."""
 
 import math
 
@@ -81,11 +84,15 @@ def ex2(x):
     return f32(torch.exp2(x.double()))
 
 
-def forward16(q, k, v, bias, causal, rate=0.0, seed=None):
+HUGE_NEG = -1e20           # csrc/flash_common.cuh kHugeNeg
+
+
+def forward16(q, k, v, bias, causal, rate=0.0, seed=None, unfused=True):
     """(o, lse) as the 16-bit kernel (flash_fwd_sm90_kernel) computes
     them over 64-key tiles: q.k^T accumulated in float32, the scale and
     the bias in one rounding (fmaf), p = 2^(s log2 e - m log2 e) with the
-    row max folded into one fmaf, the dropped p rounded to the type for
+    row max folded into one fmaf (``unfused``: a row whose max is below
+    HUGE_NEG as 2^((s - m) log2 e)), the dropped p rounded to the type for
     p.v, float32 accumulation."""
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -108,8 +115,10 @@ def forward16(q, k, v, bias, causal, rate=0.0, seed=None):
             s = s.masked_fill(cols > rows, FA.NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = ex2((m - m_new) * LOG2E)
-        p = ex2(f32(s.double() * LOG2E.double() -
-                    (m_new * LOG2E).double()))
+        x = f32(s.double() * LOG2E.double() - (m_new * LOG2E).double())
+        if unfused:
+            x = torch.where(m_new < HUGE_NEG, (s - m_new) * LOG2E, x)
+        p = ex2(x)
         l = l * alpha + p.sum(-1, keepdim=True)
         if keep is not None:
             p = torch.where(keep[:, :, k0:k0 + TILE], p * inv_keep,
@@ -177,6 +186,35 @@ def test_16bit_kernel_arithmetic_holds_the_forward_tolerances(dtype, mode,
     print(f"{dtype} {mode} dropout {rate}: o {err_o:.3e} of max|o|, lse "
           f"{err_lse:.3e}; tolerances {REL16[dtype]}, {TOL_LSE}")
     assert err_o <= REL16[dtype] and err_lse <= TOL_LSE, (err_o, err_lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bfloat16", "float16"])
+def test_16bit_kernel_takes_a_row_masked_by_the_ring_bias(dtype):
+    """The ring's -1e30 padding bias with batch row 0 masked everywhere:
+    the 16-bit kernel's arithmetic gives those rows the uniform mean of V
+    as the twin does (within the 16-bit tolerances); the fused form alone
+    (2^(s log2 e - m log2 e) on every row) would not, since m log2 e
+    rounds by ~1e23 at m = -1e30."""
+    gen = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(2 * 2, 128, D, generator=gen).to(dtype)
+               for _ in range(3))
+    mask = (torch.rand(2, 128, generator=gen) < 0.8).float()
+    mask[0] = 0.0
+    bias = ((1.0 - mask) * FA.NEG_INF)[:, None, :].expand(2, 128, 128)
+    ref = FA.flash_fwd_plain(q, k, v, bias, False)
+    o, lse = forward16(q, k, v, bias, False)
+    err_o = float((o.float() - ref[0].float()).abs().max()) / float(
+        ref[0].float().abs().max())
+    err_lse = float(((lse - ref[1]).abs() / ref[1].abs().clamp_min(1.0))
+                    .max())
+    assert err_o <= REL16[dtype] and err_lse <= TOL_LSE, (err_o, err_lse)
+    mean_v = v[:2].float().mean(dim=1, keepdim=True)
+    assert float((o[:2].float() - mean_v).abs().max()) <= \
+        REL16[dtype] * float(mean_v.abs().max()) * 4
+    fused, _ = forward16(q, k, v, bias, False, unfused=False)
+    assert not torch.allclose(fused[:2].float(), ref[0][:2].float(),
+                              atol=1e-2, equal_nan=False)
 
 
 def test_3xtf32_scores_at_bert_base_shape_reported():

@@ -472,9 +472,18 @@ def test_sharding_on_one_worker_runs_the_program_as_minimize_left_it():
     {"pipe": 2}, {"fsdp": 2, "tp": 2}],
     ids=lambda d: "x".join(f"{k}{v}" for k, v in d.items()))
 def test_multi_axis_layouts_are_refused_by_name(layout):
-    """A tensor or pipeline axis is refused by name, HSDP's data x fsdp
-    beside it too (data x fsdp alone is ported: see
-    ``test_hsdp_layouts_are_taken``)."""
+    """A pipeline axis is refused by name, and so is fsdp beside a tensor
+    axis (data x fsdp alone is ported: see ``test_hsdp_layouts_are_taken``).
+    A tensor axis with or without data is ported now: it passes the check
+    and, outside a process group of its ranks, fails only on the rank
+    count."""
+    if "fsdp" not in layout and "pipe" not in layout:
+        taken = MeshLayout(**layout)
+        taken.check_ported()
+        with pytest.raises(ValueError,
+                           match=f"needs {taken.num_devices} ranks"):
+            taken.build_mesh()
+        return
     with pytest.raises(UnimplementedError, match="tp|pp") as e:
         MeshLayout(**layout).build_mesh()
     assert "not ported" in str(e.value)
@@ -531,19 +540,25 @@ def test_mesh_layout_desc_crosses_both_ways():
 
 
 def test_with_mesh_refuses_a_sequence_axis_and_foreign_meshes():
+    """The sequence axis and per-feed layouts are ported now: a
+    ``seq_axis`` the mesh lacks is dropped and ``feed_specs`` are taken (a
+    one-rank mesh runs without a group); a tensor axis is taken and needs
+    its ranks; a pipeline axis and a foreign mesh are refused by name."""
     from paddle_tpu_torch.framework.mesh_layout import ProcessMesh
     _, main, startup, loss = _tiny_program("port")
     with tfluid.program_guard(main, startup):
         tfluid.optimizer.SGD(0.1).minimize(loss)
     cp = tfluid.CompiledProgram(main)
-    with pytest.raises(UnimplementedError, match="seq_axis"):
-        cp.with_mesh(ProcessMesh(("dp",), (1,)), loss.name, seq_axis="sp")
-    with pytest.raises(UnimplementedError, match="per-feed layouts"):
-        cp.with_mesh(ProcessMesh(("dp",), (1,)), loss.name,
-                     feed_specs={"x": (None, "dp")})
-    # HSDP's ("dp", "fsdp") is taken (test_torch_hsdp.py); a tensor axis
-    # is refused by name
-    with pytest.raises(UnimplementedError, match="tensor, pipeline"):
+    assert cp.with_mesh(ProcessMesh(("dp",), (1,)), loss.name,
+                        seq_axis="sp")._dp is None
+    assert cp.with_mesh(ProcessMesh(("dp",), (1,)), loss.name,
+                        feed_specs={"x": (None, "dp")})._dp is None
+    # HSDP's ("dp", "fsdp") is taken (test_torch_hsdp.py), and so is a
+    # tensor axis (test_torch_tensor_parallel.py); a pipeline axis is
+    # refused by name
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         cp.with_mesh(ProcessMesh(("dp", "tp"), (2, 2)), loss.name)
+    with pytest.raises(UnimplementedError, match="pipeline"):
+        cp.with_mesh(ProcessMesh(("dp", "pp"), (2, 2)), loss.name)
     with pytest.raises(UnimplementedError, match="not the port's mesh"):
         cp.with_mesh(object(), loss.name)

@@ -79,7 +79,8 @@ LEGS = {
 
 
 def _init(rank):
-    torch.set_num_threads(2)
+    # one intra-op thread: see ``launch`` in tests/test_torch_overlap.py
+    torch.set_num_threads(1)
     fleet.init(PaddleCloudRoleMaker(place=fluid.CPUPlace()))
     assert fleet.worker_index() == rank
     return fleet.worker_num()
