@@ -223,10 +223,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    its 16 rows), 4 steps: no gradient all-reduce in the program, the
    parameters sha256-equal across the ranks after steps 2 and 4 and not
    after 3 (step 1 runs at the warmup's LR 0 and moves nothing);
-15. ZeRO at BERT-base width on two ranks of the card over gloo (phase 10's
-   launcher, each rank its 16 of the 32 x 128 rows, dropout 0.1): phase
-   8's program with the recipe less its global-norm clip (ZeRO-1 refuses
-   a norm clip), 6 prepared steps a leg.  (a) plain dp2 with the fp32
+15. ZeRO at BERT-base width (hidden 768, 12 heads, intermediate 3072,
+   the full vocabulary) and 2 layers (``CUT_LAYERS``; phases 15-17 are cut
+   in depth only, their launch counts derived from the depth,
+   ``fused_launches``, and the adamw ops counted in the built program) on
+   two ranks of the card over gloo (phase 10's launcher, each rank its 16
+   of the 32 x 128 rows, dropout 0.1): phase 8's program with the recipe
+   less its global-norm clip (ZeRO-1 refuses a norm clip), 6 prepared
+   steps a leg.  (a) plain dp2 with the fp32
    bucketed all-reduce, the yardstick; (b) ``strategy.sharding`` (ZeRO-1,
    fp32 scatter); (c) and (d) the same with ``quant_allreduce`` int8 and
    int4 at block 256 (the scatter's receive stage on #11); (e) ZeRO-3:
@@ -239,16 +243,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    their measured gaps to (a)'s losses and parameters, and the first
    step's scattered word-embedding gradient within its measured gap to
    (b)'s (a peer's contribution lost would leave half the sum); phase
-   8's launches a step, #10 once, #11 158
-   times in (c) and (d) (on the int8 carrier) and never in the others,
+   8's launches a step, #10 once, #11 once an adamw op
+   in (c) and (d) (on the int8 carrier) and never in the others,
    #12 never, no fallback; the bytes each rank's scope holds equal to
    what the layout predicts (the sharded persistables' global bytes
    halved); (f)'s restored blocks bit for bit (b)'s saved ones.  #10 on
    leg (b)'s 158 flat shards against its twin bit for bit, timed beside
-   ``torch._fused_adamw_``.  Printed per leg: the step (median of steps
-   3-6), gloo's wall time in one step, the persistent and peak bytes a
-   rank, and the checkpoint's save and load seconds;
-16. HSDP at BERT-base width on four ranks of the card over gloo (phase
+   ``torch._fused_adamw_`` (BERT-base's 12 layers: 158 shards).  Printed
+   per leg: the step (median of steps 3-6), gloo's wall time in one step,
+   the persistent and peak bytes a rank, and the checkpoint's save and
+   load seconds; per rank launch of phases 15-17 and 19 one line of its
+   parts (spawn to the first step, steps, saves, loads, the in-process
+   one-rank runs, the rest);
+16. HSDP at BERT-base width and 2 layers on four ranks of the card over
+   gloo (phase
    10's launcher, each rank its 8 of the 32 x 128 rows), phase 15's
    program and recipe with dropout 0, 6 prepared steps a leg.  (a) dp4
    with the fp32 bucketed all-reduce, the yardstick; (b) HSDP:
@@ -272,7 +280,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    a rank; (c)'s save seconds, bytes written a rank, and the seconds
    ``AsyncCheckpointer.save()`` blocks against the whole write; (d)'s
    and (e)'s load seconds, bytes read and reshard wire bytes;
-17. ``overlap_grad_sync`` at BERT-base width on two ranks of the card
+17. ``overlap_grad_sync`` at BERT-base width and 2 layers on two ranks of
+   the card
    over gloo (phase 10's launcher, each rank its 16 of the 32 x 128
    rows), phase 8's program and recipe (dropout 0.1) through fleet, 6
    prepared steps a leg: (a) the classic tail-fused program, (b) overlap
@@ -318,7 +327,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    bytes in one step by kind (tp all-reduces, the LM head's tp gather,
    the ring's point-to-point shifts, the gradient sync), the device's busy
    share and the peak allocated bytes;
-19. print the ``kernels`` JSON line, the card's name and power limit, and
+19. pipeline parallelism at BERT-base width and depth (12 layers, phase
+   8's program and recipe, float32, the ranks on the card over gloo):
+   (a)-(c) on two ranks, ``apply_pipeline(main, 2, 4)`` (the stage cut
+   planned at the 8 x 128 microbatch) and ``with_mesh`` over
+   ``MeshLayout(pipe=2)``, 32 x 128 in 4 microbatches, 4 prepared steps a
+   leg: (a) 1F1B, (b) zero-bubble and interleaved (chunks 2), dropout 0,
+   each against the one-rank ``set_microbatches(main, 4)`` run of the same
+   program on the same batch (run by rank 0 before its legs): losses
+   within 1e-5 (relative), parameters within 1e-5 after the steps (each
+   ``*_qkv_b``'s key third left out: an exactly-zero gradient Adam turns
+   into ±LR noise); (c) 1F1B at dropout 0.1 with the ``pipe_replay_check``
+   flag on: every B unit's recomputed boundary bit for bit the one its F
+   unit sent; (d) dp 2 x pp 2 on four ranks through ``fleet``'s
+   ``strategy.pipeline`` (``shard_weights``, phase 15's recipe: a norm
+   clip would read gradient blocks), 64 x 128, against the one-rank run
+   of 8 microbatches on the global batch: the bytes each rank holds equal
+   to the layout's prediction (the pipe-sharded parameters and moments
+   halved), a sharded save after step 4; (e) four fresh ranks restore it
+   bit for bit and take the step (d) took after its save, to the same
+   loss.  Gates on every leg and rank: no fallback; #1-#10 launched
+   exactly as the program's stage cut and the schedule's tables predict
+   (``pipe_expected``); every step's census: idle slots the simulator's,
+   no launch on an idle tick.  Printed per leg (rank 0): the step
+   (median of steps 2-4), gloo's wall ms, calls and MB in one step split
+   into the point-to-point hops, the pp all-reduce, the dp sync and the
+   pipe-sharded gather / scatter, the schedule's ``bubble_frac``, the
+   device busy share and the peak allocated bytes;
+20. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -365,19 +401,59 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS = 10, 32, 128, 20
 LONG_BATCH, LONG_SEQ = 8, 512      # the longest BERT sequence
 PLAIN_STEPS = 3
 DROPOUT = 0.1
-# launches per BERT-base training step: 12 layers; LayerNorm 1 + 2 per
-# layer + the masked-LM head; one Adam op per parameter, the run of 158
-# updated by one launch of the multi-tensor kernel
-TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
-                  "flash_attention_bwd_dkv": 12, "layer_norm_fwd": 26,
-                  "layer_norm_bwd": 26, "adam": 1}
-ADAM_OPS = 158            # BERT-base's parameters: adam / adamw ops a step
-# the fused program: add+LN for the 24 residual adds and the embedding sum
-# (word + pos) + sent, LN left for the masked-LM transform; bias+GELU for
-# the 12 FFNs and the masked-LM transform (the pooled tanh runs unfused)
-FUSED_LAUNCHES = dict(TRAIN_LAUNCHES, layer_norm_fwd=1, layer_norm_bwd=1,
-                      add_layer_norm_fwd=25, add_layer_norm_bwd=25,
-                      bias_gelu_fwd=13, bias_gelu_bwd=13)
+
+
+def train_launches(layers):
+    """Launches per BERT training step of ``layers`` encoder layers: #1-#3
+    once a layer; LayerNorm 2 a layer + the embeddings' + the masked-LM
+    head's; one Adam launch for the run of every parameter's update."""
+    return {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers,
+            "layer_norm_fwd": 2 * layers + 2,
+            "layer_norm_bwd": 2 * layers + 2, "adam": 1}
+
+
+def fused_launches(layers):
+    """The fused program's (phase 8's) launches a step: add+LN for the 2
+    residual adds a layer and the embedding sum, LN left for the masked-LM
+    transform; bias+GELU for each FFN and the masked-LM transform (the
+    pooled tanh runs unfused)."""
+    return dict(train_launches(layers), layer_norm_fwd=1, layer_norm_bwd=1,
+                add_layer_norm_fwd=2 * layers + 1,
+                add_layer_norm_bwd=2 * layers + 1,
+                bias_gelu_fwd=layers + 1, bias_gelu_bwd=layers + 1)
+
+
+def adam_ops(program):
+    """The ``adam`` / ``adamw`` ops of a built program (one a parameter)."""
+    return sum(op.type in ("adam", "adamw")
+               for op in program.global_block().ops)
+
+
+def grad_sync_buckets(program):
+    """The gradient-sync bucket ops of a built program."""
+    return sum(op.type in GRAD_SYNC_BUCKETS
+               for op in program.global_block().ops)
+
+
+def cut_depth(cfg, layers=None):
+    """``cfg`` at its full width with ``layers`` encoder layers (phases
+    15-17 run BERT-base's width at CUT_LAYERS: their gates count launches
+    and bytes, which the depth scales but does not change in kind)."""
+    import copy
+    cfg = copy.copy(cfg)
+    cfg.num_hidden_layers = CUT_LAYERS if layers is None else layers
+    return cfg
+
+
+# launches per BERT-base training step (12 layers) and its adam ops, one a
+# parameter, updated by one launch of the multi-tensor kernel
+TRAIN_LAUNCHES = train_launches(12)
+ADAM_OPS = 158
+FUSED_LAUNCHES = fused_launches(12)
+#: the depth of phases 15-17 (BERT-base width, hidden 768, 12 heads,
+#: intermediate 3072, the full vocabulary)
+CUT_LAYERS = 2
 # phase 12: bench.py's headline configuration (BERT-base pretraining in
 # bf16 at 96 x 128 with 20 masks), its timed window, the kernels-on vs
 # flags-off bound in bf16, and the fp16 loss-scaling leg's policy and feed
@@ -473,8 +549,42 @@ TOL_DP_INT8 = 5e-2        # int8 tier vs full precision (test_grad_comm.py)
 # reduced gradients, which the LR schedule and AdamW hide from the losses
 TOL_DP_MOMENTS = 4 / 127
 
+GRAD_SYNC_BUCKETS = ("c_fused_allreduce_sum", "c_fused_quant_allreduce_sum")
+
+
 class SmokeFailure(Exception):
     pass
+
+
+#: the parts of this rank launch's run, seconds (``--*-worker`` ranks):
+#: "to_first_step" from the launcher's start (SMOKE_LAUNCH_T0) to the
+#: first step, then "steps", "saves", "loads", written with the results
+_STAMPS = {}
+
+
+def stamp(part, seconds):
+    _STAMPS[part] = _STAMPS.get(part, 0.0) + seconds
+
+
+def first_step():
+    """Mark the first step of this rank launch (once)."""
+    t0 = os.environ.get("SMOKE_LAUNCH_T0")
+    if t0 and "to_first_step" not in _STAMPS:
+        _STAMPS["to_first_step"] = time.time() - float(t0)
+
+
+def launch_env():
+    """The environment of a rank launch: its start time for the ranks'
+    stamps."""
+    return dict(os.environ, SMOKE_LAUNCH_T0=repr(time.time()))
+
+
+def launch_line(what, ranks, wall_s):
+    """One line a launch: its wall seconds and rank 0's parts."""
+    st = ranks[0].get("stamps") or {}
+    parts = ", ".join(f"{k} {v:.1f} s" for k, v in st.items())
+    log(f"  {what}: {wall_s:.1f} s wall; rank 0: {parts or 'no stamps'}, "
+        f"other {wall_s - sum(st.values()):.1f} s")
 
 
 def check(cond, msg):
@@ -4005,6 +4115,7 @@ def zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref):
     kernels.reset_launch_counts()
     registry.reset_route_counts()
     losses, step_s = [], []
+    first_step()
     for i in range(ZERO_STEPS):
         t0 = time.perf_counter()
         got = prepared.run(feed)
@@ -4023,6 +4134,7 @@ def zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref):
             io.save_checkpoint(exe, ckpt_dir, io.TrainStatus(ZERO_SAVE_AT),
                                main, scope=scope)
             out["save_s"] = time.perf_counter() - t0
+            stamp("saves", out["save_s"])
             out["saved_sha256"] = state_digests(np, scope, main)
     out["launches"] = {f"{k}/{dt}": n for (k, dt), n in
                        kernels.launch_counts_by_dtype().items()}
@@ -4034,6 +4146,7 @@ def zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref):
     out["held"], out["predicted"], out["moment_bytes"], \
         out["param_bytes"] = held_bytes(torch, dp, scope, main)
     out["losses"], out["step_s"] = losses, step_s
+    stamp("steps", sum(step_s))
     out["step_ms_median_3_6"] = statistics.median(step_s[2:]) * 1e3
     out["replicated_sha256"] = replicated_digest(np, dp, scope, main)
     params = global_params(dp, scope, main)
@@ -4071,9 +4184,13 @@ def zero_restore(torch, np, cfg, feed, ckpt_dir, out_dir):
     st = io.load_checkpoint(exe, ckpt_dir, main_program=main, scope=scope)
     out = {"load_s": time.perf_counter() - t0, "epoch": st.epoch_no,
            "restored_sha256": state_digests(np, scope, main)}
+    stamp("loads", out["load_s"])
     prepared = exe.prepare(program, fetch_list=[total], scope=scope,
                            donate_state=True)
+    first_step()
+    t0 = time.perf_counter()
     out["loss_after"] = float(prepared.run(feed)[0])
+    stamp("steps", time.perf_counter() - t0)
     return out
 
 
@@ -4090,7 +4207,7 @@ def zero_worker(out_dir, legs):
     fleet.init(PaddleCloudRoleMaker())
     rank = fleet.worker_index()
     check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
-    cfg = bert.BertConfig.base()
+    cfg = cut_depth(bert.BertConfig.base())
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
     ckpt_dir = os.path.join(out_dir, "ckpt")
@@ -4106,6 +4223,7 @@ def zero_worker(out_dir, legs):
                 f"{res[leg]['step_ms_median_3_6']:.1f}, held "
                 f"{res[leg]['held']} B (predicted "
                 f"{res[leg]['predicted']})")
+    res["stamps"] = dict(_STAMPS)
     with open(os.path.join(out_dir, f"zero{rank}_{legs}.json"), "w") as f:
         json.dump(res, f)
     return 0
@@ -4121,32 +4239,35 @@ def zero_launch(torch, repo, out_dir, legs):
            os.path.join(repo, "chip_smoke.py"), "--zero-worker", out_dir,
            legs]
     t0 = time.perf_counter()
-    rc = subprocess.run(cmd, cwd=repo, timeout=DP_TIMEOUT_S + 60).returncode
-    log(f"  legs {legs}: the ranks ran {time.perf_counter() - t0:.1f} s, "
-        f"exit code {rc}")
+    rc = subprocess.run(cmd, cwd=repo, timeout=DP_TIMEOUT_S + 60,
+                        env=launch_env()).returncode
+    wall = time.perf_counter() - t0
+    log(f"  legs {legs}: the ranks ran {wall:.1f} s, exit code {rc}")
     check(rc == 0, f"phase 15 legs {legs}: a rank failed (exit code {rc})")
     ranks = []
     for r in range(DP_RANKS):
         with open(os.path.join(out_dir, f"zero{r}_{legs}.json")) as f:
             ranks.append(json.load(f))
+    launch_line(f"phase 15 launch {legs}", ranks, wall)
     return ranks
 
 
-def zero_expected(leg):
+def zero_expected(leg, adamw):
     """Launches a step by (kernel, operand dtype): phase 8's float32
-    kernels and one Adam launch for the 158 adamw updates (flat shards in
-    (b)-(d), dim-0 shards and replicated parameters in (e)); in (c) and
-    (d) #11 once a parameter (the quantized scatter's receive stage on an
-    int8 carrier), #12 never."""
-    want = {f"{k}/float32": n for k, n in FUSED_LAUNCHES.items()}
+    kernels at CUT_LAYERS layers and one Adam launch for the ``adamw``
+    updates (flat shards in (b)-(d), dim-0 shards and replicated
+    parameters in (e)); in (c) and (d) #11 once a parameter (the
+    quantized scatter's receive stage on an int8 carrier), #12 never."""
+    want = {f"{k}/float32": n for k, n in fused_launches(CUT_LAYERS).items()}
     if leg in ZERO_QUANT:
-        want["dequant_accumulate/int8"] = ADAM_OPS
+        want["dequant_accumulate/int8"] = adamw
     return want
 
 
 def zero_adam_row(torch, results, cfg):
-    """#10 at leg (b)'s shapes: the 158 flat shards of one rank
-    (ceil(numel / (2 * 128)) * 128 elements each), adamw, one launch
+    """#10 at leg (b)'s shapes at full depth: the 158 flat shards of one
+    rank of BERT-base's 12 layers (ceil(numel / (2 * 128)) * 128 elements
+    each), adamw, one launch
     against the twin bit for bit, timed beside ``torch._fused_adamw_``
     over the same tensors."""
     from paddle_tpu_torch.ops.cuda import optimizer as O
@@ -4221,7 +4342,7 @@ def zero_phase(torch, np, repo, cfg, results):
                   m["losses"][-1] < m["losses"][0],
                   f"{who}: losses not finite and falling: {m['losses']}")
             check(not m["fallbacks"], f"{who}: fallbacks {m['fallbacks']}")
-            want = zero_expected(leg)
+            want = zero_expected(leg, m["ops"]["adamw"])
             got = m["launches"]
             for key in set(want) | set(got):
                 check(got.get(key, 0) == want.get(key, 0) * ZERO_STEPS,
@@ -4274,7 +4395,8 @@ def zero_phase(torch, np, repo, cfg, results):
     b, e = ranks[0]["b"], ranks[0]["e"]
     a = ranks[0]["a"]
     check(b["moment_bytes"] * 2 <= a["moment_bytes"] + 2 * 128 * 4 *
-          ADAM_OPS * 2, "(b): the moments a rank holds are not half")
+          a["ops"]["adamw"] * 2, "(b): the moments a rank holds are not "
+          "half")
     check(e["param_bytes"] < a["param_bytes"],
           "(e): the parameters a rank holds are not sharded")
     saved = [r["b"]["saved_sha256"] for r in ranks]
@@ -4392,10 +4514,12 @@ def hsdp_steps(torch, prepared, feed, steps, out):
     kernels.reset_launch_counts()
     registry.reset_route_counts()
     losses, step_s = [], []
+    first_step()
     for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(float(prepared.run(feed)[0]))
         step_s.append(time.perf_counter() - t0)
+    stamp("steps", sum(step_s))
     out["launches"] = {f"{k}/{dt}": n for (k, dt), n in
                        kernels.launch_counts_by_dtype().items()}
     out["fallbacks"] = {str(k): v for k, v in
@@ -4498,6 +4622,7 @@ def hsdp_save(torch, np, exe, dp, main, scope, out_dir):
     out["async_block_s"] = time.perf_counter() - t0
     ck.wait()
     out["async_whole_s"] = time.perf_counter() - t0
+    stamp("saves", out["save_s"] + out["async_whole_s"])
     fluid.sync_prepared_state(scope)
     return out
 
@@ -4528,6 +4653,7 @@ def hsdp_restore(torch, np, cfg, leg, feed, out_dir):
            "reshard_steps": st.reshard["steps_by_kind"] if st.reshard
            else None,
            "restored_sha256": global_digests(np, dp, scope, main)}
+    stamp("loads", out["load_s"])
     torch.cuda.reset_peak_memory_stats(dev)
     prepared = exe.prepare(program, fetch_list=[total], scope=scope,
                            donate_state=True)
@@ -4554,7 +4680,7 @@ def hsdp_worker(out_dir, legs):
     fleet.init(PaddleCloudRoleMaker())
     rank = fleet.worker_index()
     check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
-    cfg = hsdp_config(bert.BertConfig.base())
+    cfg = hsdp_config(cut_depth(bert.BertConfig.base()))
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
     res = {"rank": rank, "world": fleet.worker_num()}
@@ -4569,6 +4695,7 @@ def hsdp_worker(out_dir, legs):
         log(f"[rank {rank}] ({leg}) losses "
             f"{[round(x, 5) for x in m['losses']]}, held {m['held']} B "
             f"(predicted {m['predicted']})")
+    res["stamps"] = dict(_STAMPS)
     with open(os.path.join(out_dir, f"hsdp{rank}_{legs}.json"), "w") as f:
         json.dump(res, f)
     return 0
@@ -4584,26 +4711,27 @@ def hsdp_launch(torch, repo, out_dir, nproc, legs):
            os.path.join(repo, "chip_smoke.py"), "--hsdp-worker", out_dir,
            legs]
     t0 = time.perf_counter()
-    rc = subprocess.run(cmd, cwd=repo,
-                        timeout=HSDP_TIMEOUT_S + 60).returncode
-    log(f"  legs {legs} on {nproc} ranks: ran "
-        f"{time.perf_counter() - t0:.1f} s, exit code {rc}")
+    rc = subprocess.run(cmd, cwd=repo, timeout=HSDP_TIMEOUT_S + 60,
+                        env=launch_env()).returncode
+    wall = time.perf_counter() - t0
+    log(f"  legs {legs} on {nproc} ranks: ran {wall:.1f} s, exit code {rc}")
     check(rc == 0, f"phase 16 legs {legs}: a rank failed (exit code {rc})")
     ranks = []
     for r in range(nproc):
         with open(os.path.join(out_dir, f"hsdp{r}_{legs}.json")) as f:
             ranks.append(json.load(f))
+    launch_line(f"phase 16 launch {legs}", ranks, wall)
     return ranks
 
 
 def check_hsdp_rank(what, m, steps):
     """The gates every rank of every leg meets: finite losses, no
-    fallback, phase 8's launches of #1-#10 a step, the held bytes the
-    layout's."""
+    fallback, phase 8's launches of #1-#10 a step at CUT_LAYERS layers,
+    the held bytes the layout's."""
     check(all(math.isfinite(x) for x in m["losses"]),
           f"{what}: losses not finite: {m['losses']}")
     check(not m["fallbacks"], f"{what}: fallbacks {m['fallbacks']}")
-    want = {f"{k}/float32": n for k, n in FUSED_LAUNCHES.items()}
+    want = {f"{k}/float32": n for k, n in fused_launches(CUT_LAYERS).items()}
     got = m["launches"]
     for key in set(want) | set(got):
         check(got.get(key, 0) == want.get(key, 0) * steps,
@@ -4804,7 +4932,6 @@ OVERLAP_TIMEOUT_S = 600
 #: after step PREEMPT_AT of PREEMPT_STEPS
 PREEMPT_STEPS, PREEMPT_AT = 6, 3
 PREEMPT_MARK = "PREEMPT-STEP"
-GRAD_SYNC_BUCKETS = ("c_fused_allreduce_sum", "c_fused_quant_allreduce_sum")
 
 
 def build_overlap_train(cfg, leg):
@@ -4931,6 +5058,7 @@ def overlap_leg(torch, np, cfg, leg, feed):
         kernels.reset_launch_counts()
         registry.reset_route_counts()
         losses, step_s, exposed, fired = [], [], [], []
+        first_step()
         for _ in range(OVERLAP_STEPS):
             t0 = time.perf_counter()
             losses.append(step())
@@ -4938,6 +5066,7 @@ def overlap_leg(torch, np, cfg, leg, feed):
             rec = prepared.grad_sync
             exposed.append(rec.exposed_ms())
             fired.append(list(rec.fired))
+        stamp("steps", sum(step_s))
         out = {"leg": leg, "losses": losses, "step_s": step_s,
                "exposed_ms": exposed, "hooked": list(rec.hooked),
                "fired": fired, "tail": rec.tail,
@@ -4980,7 +5109,7 @@ def preempt_run(torch, np, out_dir, mode):
     from paddle_tpu_torch.distributed.preemption import PreemptionHandler
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import registry
-    cfg = bert.BertConfig.base()
+    cfg = cut_depth(bert.BertConfig.base())
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
     program, main, startup, total = build_zero_train(cfg, "e")
@@ -4993,12 +5122,16 @@ def preempt_run(torch, np, out_dir, mode):
     t0 = time.perf_counter()
     st = handler.restore()
     restore_s = time.perf_counter() - t0
+    stamp("loads", restore_s)
     prepared = exe.prepare(program, fetch_list=[total], scope=scope,
                            donate_state=True)
     registry.reset_route_counts()
     losses = []
+    first_step()
     for step in range(st.step + 1, PREEMPT_STEPS):
+        t0 = time.perf_counter()
         losses.append(float(prepared.run(feed)[0]))
+        stamp("steps", time.perf_counter() - t0)
         if mode == "stop" and step == PREEMPT_AT - 2:
             ck.save(exe, os.path.join(out_dir, "async"), io.TrainStatus(step),
                     main, scope=scope)
@@ -5034,7 +5167,7 @@ def overlap_worker(out_dir, legs):
     fleet.init(PaddleCloudRoleMaker())
     rank = fleet.worker_index()
     check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
-    cfg = bert.BertConfig.base()
+    cfg = cut_depth(bert.BertConfig.base())
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
     res = {"rank": rank, "place": repr(fleet.place)}
@@ -5047,6 +5180,7 @@ def overlap_worker(out_dir, legs):
             f"losses {[round(x, 5) for x in m['losses']]}, step ms "
             f"{m['step_ms_median_3_6']:.1f}, exposed ms "
             f"{[round(x, 2) for x in m['exposed_ms']]}")
+    res["stamps"] = dict(_STAMPS)
     with open(os.path.join(out_dir, f"overlap{rank}.json"), "w") as f:
         json.dump(res, f)
     return 0
@@ -5064,6 +5198,7 @@ def preempt_worker(out_dir, mode):
     fleet.init(PaddleCloudRoleMaker())
     rank = fleet.worker_index()
     res = preempt_run(torch, np, out_dir, mode)
+    res["stamps"] = dict(_STAMPS)
     with open(os.path.join(out_dir, f"preempt{rank}_{mode}.json"), "w") as f:
         json.dump(res, f)
     return 0
@@ -5092,7 +5227,7 @@ def preempt_drill(torch, repo, out_dir):
     cmd = overlap_launch_cmd(repo, "--preempt-worker", out_dir, "stop")
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE,
-                            text=True)
+                            text=True, env=launch_env())
     try:
         signalled = False
         for line in proc.stdout:
@@ -5111,10 +5246,14 @@ def preempt_drill(torch, repo, out_dir):
     check(signalled, "drill: the ranks never reached the marker")
     check(rc == 42, f"drill: the launcher exited {rc}, not 42")
     cmd = overlap_launch_cmd(repo, "--preempt-worker", out_dir, "resume")
-    rc = subprocess.run(cmd, cwd=repo,
-                        timeout=OVERLAP_TIMEOUT_S + 60).returncode
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=repo, timeout=OVERLAP_TIMEOUT_S + 60,
+                        env=launch_env()).returncode
+    wall = time.perf_counter() - t0
     check(rc == 0, f"drill: the resumed ranks failed (exit code {rc})")
-    return stop_s, read_ranks(out_dir, "preempt{r}_resume.json")
+    ranks = read_ranks(out_dir, "preempt{r}_resume.json")
+    launch_line("phase 17 drill resume launch", ranks, wall)
+    return stop_s, ranks
 
 
 def overlap_quant_checks(torch, results, numels):
@@ -5163,11 +5302,13 @@ def overlap_phase(torch, np, repo, results):
         rc = subprocess.run(
             overlap_launch_cmd(repo, "--overlap-worker", out_dir,
                                OVERLAP_LEGS + "z"), cwd=repo,
-            timeout=OVERLAP_TIMEOUT_S + 60).returncode
+            timeout=OVERLAP_TIMEOUT_S + 60, env=launch_env()).returncode
+        wall = time.perf_counter() - t0
         log(f"  legs {OVERLAP_LEGS} and the drill's uninterrupted run: "
-            f"ran {time.perf_counter() - t0:.1f} s, exit code {rc}")
+            f"ran {wall:.1f} s, exit code {rc}")
         check(rc == 0, f"phase 17: a rank failed (exit code {rc})")
         ranks = read_ranks(out_dir, "overlap{r}.json")
+        launch_line(f"phase 17 launch {OVERLAP_LEGS}z", ranks, wall)
         stop_s, resumed = preempt_drill(torch, repo, out_dir)
         ckpt = os.path.join(out_dir, "ckpt")
         saved = sorted(d for d in os.listdir(ckpt)
@@ -5225,7 +5366,8 @@ def overlap_report(ranks):
             check(all(math.isfinite(x) for x in m["losses"]),
                   f"{who}: losses not finite: {m['losses']}")
             check(not m["fallbacks"], f"{who}: fallbacks {m['fallbacks']}")
-            want = {f"{k}/float32": v for k, v in FUSED_LAUNCHES.items()}
+            want = {f"{k}/float32": v for k, v in
+                    fused_launches(CUT_LAYERS).items()}
             if leg in "de":
                 want["dequant_accumulate_requant/int8"] = n
             got = m["launches"]
@@ -6019,26 +6161,19 @@ def params_sha(np, scope, main):
     return h.hexdigest()
 
 
-def comm_by_kind(torch):
-    """Wrap the gloo transfers (collective_ops' all_reduce / all_gather /
-    all_to_all / broadcast / ring_shift) so a step can report their wall
-    ms, calls and bytes by
-    kind: the tp all-reduces, the tp gathers (the LM head's logits), the
-    ring's point-to-point shifts and the gradient sync over the batch and
-    sequence axes.  Each is synchronised first, so the time is the
-    transfer's.  Returns (totals, undo)."""
+def timed_comm(torch, names, kind_of):
+    """Wrap the gloo transfers ``names`` of collective_ops (each taking
+    its group and its tensor, a list of tensors or of (shape, dtype)
+    pairs first) so a step can report their wall ms, calls and bytes by
+    ``kind_of(name, group)``.  Each is synchronised first, so the time is
+    the transfer's.  Returns (totals, undo)."""
     from paddle_tpu_torch.ops import collective_ops as C
     totals = {}
 
-    def kind_of(name, g):
-        axes = g.axis_name if isinstance(g.axis_name, tuple) else \
-            (g.axis_name,)
-        if name == "ring_shift":
-            return "ring P2P"
-        if "tp" in axes and len(axes) == 1:
-            return "tp all-reduce" if name == "all_reduce" else \
-                f"tp {name.replace('_', '-')}"
-        return "grad sync"
+    def nbytes(t):
+        return sum(math.prod(x[0]) * 4 if isinstance(x, tuple) else
+                   x.numel() * x.element_size()
+                   for x in (t if isinstance(t, (list, tuple)) else [t]))
 
     def wrap(name, fn):
         def timed(g, t, *args, **kw):
@@ -6050,13 +6185,11 @@ def comm_by_kind(torch):
                                     {"ms": 0.0, "calls": 0, "bytes": 0})
             row["ms"] += (time.perf_counter() - t0) * 1e3
             row["calls"] += 1
-            row["bytes"] += t.numel() * t.element_size()
+            row["bytes"] += nbytes(t)
             return out
         return timed
 
-    saved = {n: getattr(C, n) for n in (
-        "all_to_all", "all_gather", "all_reduce", "broadcast",
-        "ring_shift")}
+    saved = {n: getattr(C, n) for n in names}
     for n, fn in saved.items():
         setattr(C, n, wrap(n, fn))
 
@@ -6064,6 +6197,25 @@ def comm_by_kind(torch):
         for n, fn in saved.items():
             setattr(C, n, fn)
     return totals, undo
+
+
+def _axes(g):
+    return g.axis_name if isinstance(g.axis_name, tuple) else (g.axis_name,)
+
+
+def comm_by_kind(torch):
+    """Phase 18's gloo transfers by kind: the tp all-reduces, the tp
+    gathers (the LM head's logits), the ring's point-to-point shifts and
+    the gradient sync over the batch and sequence axes."""
+    def kind_of(name, g):
+        if name == "ring_shift":
+            return "ring P2P"
+        if _axes(g) == ("tp",):
+            return "tp all-reduce" if name == "all_reduce" else \
+                f"tp {name.replace('_', '-')}"
+        return "grad sync"
+    return timed_comm(torch, ("all_to_all", "all_gather", "all_reduce",
+                              "broadcast", "ring_shift"), kind_of)
 
 
 def tpsp_worker(out_dir, leg):
@@ -6277,6 +6429,526 @@ def tpsp_phase(torch, np, repo, results):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 19: pipeline parallelism at BERT-base width and depth
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES, PIPE_M, PIPE_STEPS = 2, 4, 4
+PIPE_DP_BATCH = 64        # (d): 32 rows a data-parallel rank
+PIPE_RANKS_D = 4
+TOL_PIPE_LOSS = 1e-5      # losses vs the one-rank run (relative)
+TOL_PIPE_PARAM = 1e-5     # parameters after the steps vs it (abs)
+PIPE_TIMEOUT_S = 600
+#: the two-rank launch's legs: (schedule, chunks, dropout)
+PIPE_LEGS = {"a": ("1f1b", 1, 0.0), "b_zb": ("zero_bubble", 1, 0.0),
+             "b_il": ("interleaved", 2, 0.0), "c": ("1f1b", 1, DROPOUT)}
+PIPE_LEG_NAMES = {"a": "1F1B pp 2", "b_zb": "zero-bubble pp 2",
+                  "b_il": "interleaved pp 2 x chunks 2",
+                  "c": "1F1B pp 2, dropout 0.1",
+                  "d": "dp 2 x pp 2 through fleet, pipe-sharded weights"}
+#: op type -> (the kernels its forward launches, those its backward
+#: launches); "gelu": a fused_elemwise_activation of add + GELU
+PIPE_KERNEL_OPS = {
+    "fused_attention": (("flash_attention_fwd",),
+                        ("flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv")),
+    "layer_norm": (("layer_norm_fwd",), ("layer_norm_bwd",)),
+    "fused_add_layernorm": (("add_layer_norm_fwd",),
+                            ("add_layer_norm_bwd",)),
+    "gelu": (("bias_gelu_fwd",), ("bias_gelu_bwd",)),
+}
+
+
+def pipe_config(dropout):
+    """Phase 19's model: BERT-base uncut, at ``dropout`` (hidden and
+    attention)."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BertConfig.base()
+    cfg.hidden_dropout_prob = dropout
+    cfg.attention_probs_dropout_prob = dropout
+    return cfg
+
+
+def pipe_feed_shapes(feed, M):
+    """A microbatch's (shape, dtype) of every feed: the stage planner's
+    shapes."""
+    return {n: ((v.shape[0] // M,) + tuple(v.shape[1:]), str(v.dtype))
+            for n, v in feed.items()}
+
+
+def build_pipe_train(cfg, feed, schedule="1f1b", chunks=1, M=PIPE_M,
+                     stages=PIPE_STAGES, via_fleet=False, clip=True):
+    """Phase 19's program: phase 8's BERT-base pretraining, recipe and
+    fusion passes (``fuse_add_layernorm`` on the program,
+    ``fuse_elewise_add_act_ops`` through the build strategy).  ``stages``
+    > 1: ``apply_pipeline(main, stages, M, schedule, chunks)`` and
+    ``with_mesh`` over ``MeshLayout(pipe=stages)``; ``via_fleet``: (d),
+    phase 15's recipe (no norm clip: a pipe-sharded gradient is a block)
+    through ``fleet`` with ``strategy.pipeline`` (``shard_weights``) over
+    the job's ranks split into (dp, pp); ``stages`` 1: the one-rank run,
+    ``set_microbatches(main, M)`` and both passes on the program itself
+    (``clip`` False: phase 15's recipe).  Returns (the program to run,
+    main, startup, loss)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    from paddle_tpu_torch.framework.passes import apply_pass
+    from paddle_tpu_torch.framework.pipe import (apply_pipeline,
+                                                 set_microbatches)
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    build = fluid.BuildStrategy()
+    build.fuse_elewise_add_act_ops = True
+    shapes = pipe_feed_shapes(feed, M * (2 if via_fleet else 1))
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        if via_fleet:
+            s = DistributedStrategy()
+            s.build_strategy = build
+            s.pipeline = True
+            s.pipeline_configs = {"accumulate_steps": M,
+                                  "num_stages": stages,
+                                  "shard_weights": True,
+                                  "feed_shapes": shapes}
+            fleet.distributed_optimizer(zero_optimizer(fluid),
+                                        s).minimize(total)
+        else:
+            (recipe_optimizer(fluid) if clip else
+             zero_optimizer(fluid)).minimize(total)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    if via_fleet:
+        main._mesh_layout = MeshLayout(data=PIPE_RANKS_D // stages,
+                                       pipe=stages)
+        return fleet.main_program, main, startup, total
+    if stages == 1:
+        set_microbatches(main, M)
+        apply_pass(main, "fuse_elemwise_add_act", fetch_names=[total.name])
+        return main, main, startup, total
+    apply_pipeline(main, stages, M, schedule=schedule, chunks=chunks,
+                   feed_shapes=shapes)
+    layout = MeshLayout(pipe=stages)
+    main._mesh_layout = layout
+    program = fluid.CompiledProgram(main).with_mesh(
+        layout.build_mesh(), loss_name=total.name, batch_axis="dp",
+        build_strategy=build)
+    return program, main, startup, total
+
+
+def pipe_expected(program, loss_name, pp_rank, S, M, family, chunks):
+    """Launches a rank makes a step, from the program and the schedule:
+    each virtual stage's forward kernels once per F unit and once per
+    recompute (each B unit, and each W unit under zero-bubble), its
+    backward kernels once per B and W unit; #10 once."""
+    from paddle_tpu_torch.framework.pipe import KIND_IDLE, simulate_schedule
+    variant = program._variant_for([loss_name]) \
+        if hasattr(program, "_variant_for") else program
+    ops = variant.global_block().ops
+    V = S * chunks
+    per = [({}, {}) for _ in range(V)]
+    for op in ops:
+        if op.type == "backward":
+            break
+        key = op.type
+        if key == "fused_elemwise_activation":
+            key = "gelu" if "gelu" in op.attrs.get("functor_list", ()) \
+                else None
+        if key not in PIPE_KERNEL_OPS:
+            continue
+        k = int(op.attrs.get("_pipe_stage", 0))
+        for side, names in zip(per[k], PIPE_KERNEL_OPS[key]):
+            for n in names:
+                side[n] = side.get(n, 0) + 1
+    sch = simulate_schedule(family, S, M, chunks=chunks)
+    want = {"adam": 1}
+    for t in range(sch["ticks"]):
+        kind = sch["kind"][t][pp_rank]
+        if kind == KIND_IDLE:
+            continue
+        fwd, bwd = per[sch["vstage"][t][pp_rank]]
+        for side in (fwd,) if kind == 1 else (fwd, bwd):
+            for n, c in side.items():
+                want[n] = want.get(n, 0) + c
+    return want
+
+
+def pipe_comm(torch):
+    """Phase 19's gloo transfers by kind: the point-to-point hops (sends
+    unwaited: their staging), the all-reduces over pp (the gradient sum,
+    and the loss and census sum), over dp (the data-parallel gradient
+    sync), and the pipe-sharded weights' gather and gradient scatter."""
+    def kind_of(name, g):
+        if name in ("isend_to", "recv_from"):
+            return "pp hops"
+        if name == "all_reduce":
+            return "pp all-reduce" if _axes(g) == ("pp",) else \
+                "dp grad sync"
+        return "pp weight gather/scatter"
+    return timed_comm(torch, ("isend_to", "recv_from", "all_reduce",
+                              "all_gather", "all_to_all"), kind_of)
+
+
+def pipe_params_gap(torch, got, ref):
+    """max|Δ| over every parameter; each ``*_qkv_b``'s key third left
+    out (its gradient is exactly zero, and Adam turns the rounding noise
+    there into ±LR steps)."""
+    err = 0.0
+    for n, r in ref.items():
+        d = (got[n] - r).abs()
+        if n.endswith("_qkv_b"):
+            h = r.shape[0] // 3
+            d = torch.cat([d[:h], d[2 * h:]])
+        err = max(err, float(d.max()))
+    return err
+
+
+def pipe_reference(torch, np, cfg, feed, M, via_fleet):
+    """The one-rank run on this process: the same program (phase 15's
+    recipe for (d)) with ``set_microbatches(main, M)``, PIPE_STEPS
+    prepared steps on ``feed`` from the seed: the losses, every
+    parameter after them, the step ms."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fleet
+    program, main, startup, loss = build_pipe_train(
+        cfg, feed, M=M, stages=1, clip=not via_fleet)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    exe.run(startup, scope=scope)
+    prepared = exe.prepare(program, fetch_list=[loss], scope=scope,
+                           donate_state=True)
+    losses, step_s = [], []
+    t0 = time.perf_counter()
+    for _ in range(PIPE_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(prepared.run(feed)[0]))
+        step_s.append(time.perf_counter() - t1)
+    stamp("one-rank reference", time.perf_counter() - t0)
+    fluid.sync_prepared_state(scope)
+    params = {p.name: scope.find_var(p.name).clone()
+              for p in main.all_parameters()}
+    del prepared, scope
+    torch.cuda.empty_cache()
+    return {"losses": losses, "params": params,
+            "step_ms_median": statistics.median(step_s[1:]) * 1e3}
+
+
+def pipe_leg(torch, np, leg, ref, out_dir):
+    """One leg of phase 19 on this rank: the startup, PIPE_STEPS prepared
+    steps with the launches, fallbacks and each step's pipeline census,
+    the launches the program and the schedule predict, the losses and
+    parameters against the one-rank run ``ref``; (d) the held bytes
+    against the layout, a sharded save and the state's digests, and the
+    step after it; then one step with the gloo transfers timed by kind,
+    one profiled step and the peak allocated bytes."""
+    from paddle_tpu_torch import fluid, io
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.executor import last_pipeline_report
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    dev = torch.device("cuda", fleet.place.device_id)
+    family, chunks, dropout = PIPE_LEGS.get(leg, ("1f1b", 1, 0.0))
+    cfg = pipe_config(dropout)
+    fed = PIPE_DP_BATCH if leg == "d" else TRAIN_BATCH
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg, fed,
+                                TRAIN_SEQ, TRAIN_MASKS)
+    program, main, startup, loss = build_pipe_train(
+        cfg, feed, family, chunks, via_fleet=leg == "d")
+    dp = program._dp
+    pp = dp.over("pp")
+    out = {"leg": leg, "pp_rank": pp.rank, "world": dp.world}
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    exe.run(startup, scope=scope)
+    out["init_sha256"] = params_sha(np, scope, main)
+    prepared = exe.prepare(program, fetch_list=[loss], scope=scope,
+                           donate_state=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    if leg == "c":
+        fluid.set_flags({"pipe_replay_check": True})
+    losses, step_s, census = [], [], []
+    first_step()
+    try:
+        for _ in range(PIPE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(prepared.run(feed)[0]))
+            step_s.append(time.perf_counter() - t0)
+            rep = last_pipeline_report()
+            census.append({k: rep[k] for k in (
+                "census_idle_slots", "sim_idle_slots", "idle_launches",
+                "rank_idle_ticks", "units", "ring_peak", "ring_slots",
+                "replay_checked", "replay_mismatched", "hops", "walk_s")})
+    finally:
+        fluid.set_flags({"pipe_replay_check": False})
+    stamp("steps", sum(step_s))
+    out["launches"] = {f"{k}/{dt}": n for (k, dt), n in
+                       kernels.launch_counts_by_dtype().items()}
+    out["fallbacks"] = {str(k): v for k, v in
+                        registry.route_counts("fallback").items()}
+    out["expected"] = pipe_expected(program, loss.name, pp.rank,
+                                    pp.world, PIPE_M, family, chunks)
+    out["census"] = census
+    out["bubble_frac"] = rep["bubble_frac"]
+    out["sharded_params"] = len(rep["sharded_params"])
+    out["losses"], out["step_s"] = losses, step_s
+    out["step_ms_median"] = statistics.median(step_s[1:]) * 1e3
+    fluid.sync_prepared_state(scope)
+    params = global_params(dp, scope, main)
+    if ref is not None:
+        out["loss_gap"] = max(abs(a - b) / abs(b) for a, b in
+                              zip(losses, ref["losses"]))
+        out["param_gap"] = pipe_params_gap(torch, params, ref["params"])
+        out["one_rank_losses"] = ref["losses"]
+        out["one_rank_step_ms"] = ref["step_ms_median"]
+    del params
+    if leg == "d":
+        out["held"], out["predicted"], out["moment_bytes"], \
+            out["param_bytes"] = held_bytes(torch, dp, scope, main)
+        t0 = time.perf_counter()
+        io.save_checkpoint(exe, os.path.join(out_dir, "ckpt"),
+                           io.TrainStatus(PIPE_STEPS), main, scope=scope,
+                           sharded=True)
+        stamp("saves", time.perf_counter() - t0)
+        out["saved_sha256"] = state_digests(np, scope, main)
+    totals, undo = pipe_comm(torch)
+    try:
+        t0 = time.perf_counter()
+        out["loss_after"] = float(prepared.run(feed)[0])
+        out["comm_step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    out["comm"] = totals
+    out["profile"] = profile_step(
+        torch, lambda: prepared.run(feed)[0].numpy(), out["step_ms_median"])
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del prepared, scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_restore(torch, np, out_dir):
+    """(e): four fresh ranks build (d)'s program, ``load_checkpoint`` its
+    sharded checkpoint (no startup), digest the state as each rank holds
+    it, then take one step (the step (d) took after its save)."""
+    from paddle_tpu_torch import fluid, io
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import bert
+    cfg = pipe_config(0.0)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                PIPE_DP_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    program, main, _, loss = build_pipe_train(cfg, feed, via_fleet=True)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    t0 = time.perf_counter()
+    st = io.load_checkpoint(exe, os.path.join(out_dir, "ckpt"),
+                            main_program=main, scope=scope)
+    out = {"load_s": time.perf_counter() - t0, "epoch": st.epoch_no}
+    stamp("loads", out["load_s"])
+    out["restored_sha256"] = state_digests(np, scope, main)
+    prepared = exe.prepare(program, fetch_list=[loss], scope=scope,
+                           donate_state=True)
+    first_step()
+    t0 = time.perf_counter()
+    out["loss_after"] = float(prepared.run(feed)[0])
+    stamp("steps", time.perf_counter() - t0)
+    return out
+
+
+def pipe_worker(out_dir, legs):
+    """One rank of phase 19 (``--pipe-worker DIR LEGS``): "abc" (legs a,
+    b_zb, b_il, c on two ranks, rank 0 running the one-rank reference
+    first), "d" (four ranks, rank 0's reference on the global batch) or
+    "e" (the restore); writes ``pipe<r>_<legs>.json``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
+    from paddle_tpu_torch.models import bert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
+    res = {"rank": rank}
+    if legs == "e":
+        res["e"] = pipe_restore(torch, np, out_dir)
+    else:
+        ref = None
+        if rank == 0:
+            cfg = pipe_config(0.0)
+            d = legs == "d"
+            feed = bert.make_fake_batch(
+                np.random.RandomState(SEED), cfg,
+                PIPE_DP_BATCH if d else TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+            ref = pipe_reference(torch, np, cfg, feed,
+                                 PIPE_M * (2 if d else 1), d)
+        for leg in (("d",) if legs == "d" else tuple(PIPE_LEGS)):
+            res[leg] = m = pipe_leg(torch, np, leg,
+                                    ref if leg != "c" else None, out_dir)
+            log(f"[rank {rank}] ({leg}) losses "
+                f"{[round(x, 5) for x in m['losses']]}, step "
+                f"{m['step_ms_median']:.1f} ms")
+    res["stamps"] = dict(_STAMPS)
+    with open(os.path.join(out_dir, f"pipe{rank}_{legs}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def pipe_launch(torch, repo, out_dir, nproc, legs):
+    """``nproc`` ranks of this script on the card over gloo; returns
+    their JSON results."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc", str(nproc), "--selected_gpus", ",".join(["0"] * nproc),
+           "--backend", "gloo", "--timeout", str(PIPE_TIMEOUT_S),
+           os.path.join(repo, "chip_smoke.py"), "--pipe-worker", out_dir,
+           legs]
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=repo, timeout=PIPE_TIMEOUT_S + 60,
+                        env=launch_env()).returncode
+    wall = time.perf_counter() - t0
+    log(f"  legs {legs} on {nproc} ranks: ran {wall:.1f} s, exit code {rc}")
+    check(rc == 0, f"phase 19 legs {legs}: a rank failed (exit code {rc})")
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"pipe{r}_{legs}.json")) as f:
+            ranks.append(json.load(f))
+    launch_line(f"phase 19 launch {legs}", ranks, wall)
+    return ranks
+
+
+def pipe_report(leg, ranks):
+    """The gates of one leg on every rank, and rank 0's printed figures:
+    finite losses, the same on every rank; the same startup; no fallback;
+    #1-#10 launched exactly as the program and the schedule predict; the
+    census (idle slots the simulator's, no launch on an idle tick); the
+    losses and parameters within TOL_PIPE_* of the one-rank run ((a), (b),
+    (d)); (c)'s recomputed boundaries bit for bit the sent ones; (d)'s
+    held bytes the layout's."""
+    what = f"({leg}) {PIPE_LEG_NAMES[leg]}"
+    m0 = ranks[0]
+    for r, m in enumerate(ranks):
+        who = f"{what} rank {r}"
+        check(all(math.isfinite(x) for x in m["losses"]),
+              f"{who}: losses not finite: {m['losses']}")
+        check(m["losses"] == m0["losses"],
+              f"{who}: fetched other losses than rank 0")
+        check(m["init_sha256"] == m0["init_sha256"],
+              f"{who}: another startup than rank 0's")
+        check(not m["fallbacks"], f"{who}: fallbacks {m['fallbacks']}")
+        want = {f"{k}/float32": n for k, n in m["expected"].items()}
+        got = m["launches"]
+        for key in set(want) | set(got):
+            check(got.get(key, 0) == want.get(key, 0) * PIPE_STEPS,
+                  f"{who}: {key} launched {got.get(key, 0)} times in "
+                  f"{PIPE_STEPS} steps, the plan and the schedule say "
+                  f"{want.get(key, 0)} a step")
+        for c in m["census"]:
+            check(c["census_idle_slots"] == c["sim_idle_slots"] and
+                  c["idle_launches"] == 0,
+                  f"{who}: census {c['census_idle_slots']} idle slots vs "
+                  f"the simulator's {c['sim_idle_slots']}, "
+                  f"{c['idle_launches']} launches on idle ticks")
+            if leg == "c":
+                check(c["replay_mismatched"] == 0 and c["replay_checked"]
+                      == (PIPE_M if m["pp_rank"] == 0 else 0),
+                      f"{who}: {c['replay_mismatched']} of "
+                      f"{c['replay_checked']} recomputed boundaries differ "
+                      f"from the sent ones")
+        if leg == "d":
+            check(m["held"] == m["predicted"],
+                  f"{who}: the scope holds {m['held']} bytes of "
+                  f"persistables, the layout predicts {m['predicted']}")
+            check(m["sharded_params"] > 0, f"{who}: no pipe-sharded "
+                                           f"parameter")
+    report = {k: m0[k] for k in (
+        "losses", "step_ms_median", "comm_step_ms", "comm", "peak_bytes",
+        "bubble_frac", "expected", "sharded_params")}
+    report["census"] = m0["census"][-1]
+    report["busy_share"] = m0["profile"]["busy_share"] if m0["profile"] \
+        else None
+    if "loss_gap" in m0:
+        log(f"  {what}: losses {m0['losses']} vs one rank "
+            f"{m0['one_rank_losses']}: {m0['loss_gap']:.3e} (tolerance "
+            f"{TOL_PIPE_LOSS}); parameters after step {PIPE_STEPS} "
+            f"max|Δ| {m0['param_gap']:.3e} (tolerance {TOL_PIPE_PARAM})")
+        check(m0["loss_gap"] <= TOL_PIPE_LOSS,
+              f"{what}: losses {m0['loss_gap']:.3e} from the one-rank run")
+        check(m0["param_gap"] <= TOL_PIPE_PARAM,
+              f"{what}: parameters {m0['param_gap']:.3e} from the one-rank "
+              f"run")
+        report.update({k: m0[k] for k in (
+            "loss_gap", "param_gap", "one_rank_losses",
+            "one_rank_step_ms")})
+    if leg == "d":
+        report.update(held=m0["held"], moment_bytes=m0["moment_bytes"],
+                      param_bytes=m0["param_bytes"])
+    comm = m0["comm"]
+    log(f"  {what}: step {m0['step_ms_median']:.1f} ms (median of steps "
+        f"2-{PIPE_STEPS}); bubble_frac {m0['bubble_frac']:.3f}; one step "
+        f"with its gloo transfers timed {m0['comm_step_ms']:.1f} ms: "
+        + ", ".join(f"{k} {v['ms']:.1f} ms in {v['calls']} calls "
+                    f"({v['bytes'] / 1e6:.1f} MB)"
+                    for k, v in sorted(comm.items()))
+        + "; device busy "
+        + (f"{100 * report['busy_share']:.1f} %" if report["busy_share"]
+           is not None else "not measured")
+        + f"; peak allocated {m0['peak_bytes'] / 1e9:.3f} GB a rank "
+        f"({len(ranks)} ranks on one card over gloo, staged through the "
+        f"host)")
+    return report
+
+
+def pipe_phase(torch, np, repo):
+    """Phase 19 (see the module docstring); returns rank 0's launches by
+    leg and the report."""
+    from paddle_tpu_torch.ops.cuda import build
+    out_dir = os.path.join(build.BUILD_DIR, "smoke_pipe")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        two = pipe_launch(torch, repo, out_dir, PIPE_STAGES, "abc")
+        four = pipe_launch(torch, repo, out_dir, PIPE_RANKS_D, "d")
+        restored = pipe_launch(torch, repo, out_dir, PIPE_RANKS_D, "e")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    report = {leg: pipe_report(leg, [r[leg] for r in two])
+              for leg in PIPE_LEGS}
+    report["d"] = pipe_report("d", [r["d"] for r in four])
+    for leg in ("b_zb", "b_il"):
+        gap = max(abs(x - y) / abs(y) for x, y in
+                  zip(two[0][leg]["losses"], two[0]["a"]["losses"]))
+        check(gap <= TOL_PIPE_LOSS,
+              f"({leg}): losses {gap:.3e} from (a)'s")
+        report[leg]["loss_gap_vs_a"] = gap
+    for r, e in enumerate(restored):
+        saved = four[r]["d"]["saved_sha256"]
+        got = e["e"]["restored_sha256"]
+        differ = sorted(n for n in saved if got.get(n) != saved[n])
+        check(not differ and e["e"]["epoch"] == PIPE_STEPS,
+              f"(e) rank {r}: restored state differs: {differ[:5]}")
+        check(e["e"]["loss_after"] == four[r]["d"]["loss_after"],
+              f"(e) rank {r}: the step after the restore "
+              f"{e['e']['loss_after']} vs {four[r]['d']['loss_after']}")
+    log(f"  (e) four fresh ranks restored (d)'s sharded checkpoint bit for "
+        f"bit ({len(four[0]['d']['saved_sha256'])} persistables a rank, "
+        f"load {restored[0]['e']['load_s']:.2f} s) and their next step's "
+        f"loss is the uninterrupted run's: {restored[0]['e']['loss_after']}")
+    report["e"] = {"load_s": restored[0]["e"]["load_s"],
+                   "loss_after": restored[0]["e"]["loss_after"]}
+    launches = {f"pipe_{leg}": {k.split("/")[0]: v for k, v in
+                                two[0][leg]["launches"].items()}
+                for leg in PIPE_LEGS}
+    launches["pipe_d"] = {k.split("/")[0]: v for k, v in
+                          four[0]["d"]["launches"].items()}
+    return launches, report
+
+
 def nvidia_smi_line():
     try:
         out = subprocess.run(
@@ -6322,6 +6994,9 @@ OVERLAP_PATHS = tuple(f"overlap_{leg}" for leg in OVERLAP_LEGS)
 #: phase 18's paths, rank 0 of each leg: (a) tp x sp on the ring route,
 #: (b) tp on the plain flash route
 TPSP_PATHS = ("tp_sp", "tp")
+#: phase 19's paths, rank 0 of each leg: (a) 1F1B, (b) zero-bubble and
+#: interleaved, (c) 1F1B at dropout 0.1, (d) dp 2 x pp 2 through fleet
+PIPE_PATHS = ("pipe_a", "pipe_b_zb", "pipe_b_il", "pipe_c", "pipe_d")
 
 
 def kernels_line(per_kernel, launches_by_path):
@@ -6361,7 +7036,9 @@ def kernels_line(per_kernel, launches_by_path):
     #12 also carry ``overlap_rows``, held at leg (d)'s bucket shapes) and
     phase 18's (``tp_sp_launches``: leg (a)'s ring route, ``tp_launches``:
     leg (b), rank 0; #1-#3 also carry ``ring``, their rows at the ring's
-    kernel entry, float32 and bfloat16); Adam
+    kernel entry, float32 and bfloat16) and phase 19's
+    (``pipe_a_launches``, ``pipe_b_zb_launches``, ``pipe_b_il_launches``,
+    ``pipe_c_launches``, ``pipe_d_launches``, rank 0); Adam
     carries its 16-bit rows (``16_bit``: bf16 and fp16 parameters beside
     float32 or 16-bit moments) and its row on ZeRO-1's flat shards
     (``zero1_shards``), #11 its rows at the ZeRO-1 scatter's largest
@@ -6397,7 +7074,7 @@ def kernels_line(per_kernel, launches_by_path):
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
                       "decode", "amp", "amp_fused", "amp_fp16",
                       "amp_pure_bf16", "lamb") + WRAPPED_PATHS + ZERO_PATHS \
-                + HSDP_PATHS + OVERLAP_PATHS + TPSP_PATHS:
+                + HSDP_PATHS + OVERLAP_PATHS + TPSP_PATHS + PIPE_PATHS:
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name == "adam":
@@ -6500,7 +7177,7 @@ def main(argv=None) -> int:
                "--zero-worker": zero_worker, "--hsdp-worker": hsdp_worker,
                "--overlap-worker": overlap_worker,
                "--preempt-worker": preempt_worker,
-               "--tpsp-worker": tpsp_worker}
+               "--tpsp-worker": tpsp_worker, "--pipe-worker": pipe_worker}
     if argv[:1] and argv[0] in workers:
         try:
             return workers[argv[0]](*argv[1:])
@@ -6595,16 +7272,21 @@ def main(argv=None) -> int:
         wrapped, wrappers_report = wrappers_phase(torch, np, base, repo)
 
         log(f"phase 15: ZeRO-1 and ZeRO-3 at BERT-base width on "
-            f"{DP_RANKS} ranks of the card over gloo (phase 8's program, "
-            f"the recipe without its norm clip), {ZERO_STEPS} steps a leg")
+            f"{DP_RANKS} ranks of the card over gloo (phase 8's program at "
+            f"{CUT_LAYERS} layers, the recipe without its norm clip), "
+            f"{ZERO_STEPS} steps a leg")
+        t15 = time.perf_counter()
         zero_launches, zero_report = zero_phase(torch, np, repo, base,
                                                 per_kernel)
+        log(f"  phase 15 ran {time.perf_counter() - t15:.1f} s")
 
         log(f"phase 16: HSDP (data 2 x fsdp 2) at BERT-base width on "
             f"{HSDP_RANKS} ranks of the card over gloo (phase 15's program "
             f"and recipe, dropout 0), {HSDP_STEPS} steps a leg; sharded "
             f"checkpoints restored onto fsdp 4 and data 2")
+        t16 = time.perf_counter()
         hsdp_launches, hsdp_report_ = hsdp_phase(torch, np, repo)
+        log(f"  phase 16 ran {time.perf_counter() - t16:.1f} s")
 
         log(f"phase 17: overlap_grad_sync at BERT-base width on {DP_RANKS} "
             f"ranks of the card over gloo (phase 8's program and recipe "
@@ -6624,6 +7306,17 @@ def main(argv=None) -> int:
         tpsp_launches, tpsp_report_ = tpsp_phase(torch, np, repo,
                                                  per_kernel)
         log(f"  phase 18 ran {time.perf_counter() - t18:.1f} s")
+
+        log(f"phase 19: pipeline parallelism at BERT-base width and depth "
+            f"on the card over gloo (phase 8's program and recipe): "
+            f"(a)-(c) pp {PIPE_STAGES} on {PIPE_STAGES} ranks, "
+            f"{PIPE_M} microbatches (1F1B, zero-bubble, interleaved, 1F1B "
+            f"at dropout {DROPOUT}), (d) dp 2 x pp 2 through fleet with "
+            f"pipe-sharded weights on {PIPE_RANKS_D} ranks and (e) its "
+            f"restore, {PIPE_STEPS} steps a leg")
+        t19 = time.perf_counter()
+        pipe_launches, pipe_report_ = pipe_phase(torch, np, repo)
+        log(f"  phase 19 ran {time.perf_counter() - t19:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6631,7 +7324,7 @@ def main(argv=None) -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    log(f"phase 19: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 20: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
@@ -6645,6 +7338,7 @@ def main(argv=None) -> int:
     log("hsdp " + json.dumps(hsdp_report_))
     log("overlap " + json.dumps(overlap_report_))
     log("tp_sp " + json.dumps(tpsp_report_))
+    log("pipeline " + json.dumps(pipe_report_))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
@@ -6653,7 +7347,7 @@ def main(argv=None) -> int:
         "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16,
         "amp_pure_bf16": amp_pure, "lamb": lamb, **wrapped,
         **zero_launches, **hsdp_launches, **overlap_launches,
-        **tpsp_launches})))
+        **tpsp_launches, **pipe_launches})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,9 +41,17 @@ package: the layout comes from the parameters' ``dist_attr`` and the
 mesh.  ``nccl_comm_num`` and
 ``use_hierarchical_allreduce`` are taken and change nothing, as in the
 JAX package (one communicator a group; the backend schedules the
-all-reduce).  A flag whose path is not ported (pipeline, auto_shard, a
-mesh of another kind or with a pipeline or expert axis) raises
-:class:`UnimplementedError` naming it; none is ignored.
+all-reduce).  ``pipeline`` / ``pipeline_configs`` (``accumulate_steps``
+microbatches, ``num_stages``) cut the trained program into stages
+(``framework.pipe.apply_pipeline``) and compile it ``with_mesh`` over an
+explicit ``strategy.mesh`` with a ``pp`` axis, or over the job's ranks
+split into (dp, pp) with pp = ``num_stages`` (default: every rank a
+stage); ZeRO-1 beside it shards over the dp ranks.  ``pipeline_configs``
+may also name ``apply_pipeline``'s ``shard_weights`` and
+``feed_shapes`` (the microbatch's shapes the stage cut is planned at).  A flag whose path is
+not ported (auto_shard, a mesh of another kind or with an expert axis,
+pp beside fsdp, tp or sp) raises :class:`UnimplementedError` naming it;
+none is ignored.
 ``barrier_worker`` meets the other workers through the host collective
 service (``distributed/gloo.py``) when ``PADDLE_GLOO_ENDPOINT`` is set."""
 
@@ -219,9 +227,10 @@ class DistributedStrategy:
     ``use_dgc``, ``overlap_grad_sync`` / ``overlap_configs``, ``mesh`` (a
     ``ProcessMesh`` of the dp, fsdp, tp and sp axes),
     ``tensor_parallel`` / ``tensor_parallel_configs`` (taken: the layout
-    comes from ``dist_attr`` and the mesh), ``nccl_comm_num`` and
+    comes from ``dist_attr`` and the mesh), ``pipeline`` /
+    ``pipeline_configs``, ``nccl_comm_num`` and
     ``use_hierarchical_allreduce`` (no-ops) and ``build_strategy``;
-    ``pipeline`` and ``auto_shard`` raise at ``minimize``."""
+    ``auto_shard`` raises at ``minimize``."""
 
     def __init__(self):
         self.amp = False
@@ -272,7 +281,6 @@ class DistributedStrategy:
 
 #: strategy flags whose paths are not ported, with what each needs
 _UNPORTED = (
-    ("pipeline", "pipeline parallelism"),
     ("auto_shard", "the auto-shard planner"),
 )
 
@@ -321,6 +329,33 @@ def _seq_feed_specs(program, mesh):
     batch = _batch_axes(mesh)
     return {v.name: (batch, SEQ_AXIS) for v in program.list_vars()
             if getattr(v, "is_data", False) and len(tuple(v.shape)) >= 2}
+
+
+#: the ``pipeline_configs`` keys handed to ``apply_pipeline`` besides the
+#: JAX package's ``accumulate_steps`` and ``num_stages``
+_PIPE_OPTIONS = ("shard_weights", "feed_shapes")
+
+
+def _pipe_layout(s):
+    """(pipe stages, mesh) of ``strategy.pipeline``: an explicit
+    ``strategy.mesh`` must have a ``pp`` axis of size >= 2; otherwise the
+    job's ranks split into (dp, pp) with pp = ``pipeline_configs[
+    "num_stages"]`` (default: every rank a stage)."""
+    from ..framework.mesh_layout import PIPE_AXIS, MeshLayout
+    if s.mesh is not None:
+        stages = int(dict(s.mesh.shape).get(PIPE_AXIS, 0))
+        if stages < 2:
+            raise InvalidArgumentError(
+                "DistributedStrategy: pipeline=True needs a mesh with a "
+                f"'pp' axis of size >= 2; got axes {dict(s.mesh.shape)}")
+        return stages, s.mesh
+    n = fleet.worker_num()
+    stages = int(dict(s.pipeline_configs or {}).get("num_stages") or 0) or n
+    if n % stages:
+        raise InvalidArgumentError(
+            f"DistributedStrategy: num_stages={stages} does not divide the "
+            f"{n} ranks of the job")
+    return stages, MeshLayout(data=n // stages, pipe=stages).build_mesh()
 
 
 def _dp_axis(s) -> str:
@@ -593,15 +628,16 @@ class CollectiveOptimizer:
                 build.allreduce_compress_dtype = "bfloat16"
         return build
 
-    def _wrapped(self):
+    def _wrapped(self, shard_ranks):
         """The inner optimizer, swapped and wrapped by the strategy's
         meta-optimizers in the JAX package's order (its ``_compose``):
         ``use_dgc`` swaps a raw ``MomentumOptimizer`` for a
         ``DGCMomentumOptimizer`` of its settings (any other optimizer
         stays, as there); ``lamb`` replaces it by a ``LambOptimizer`` of
         its learning rate and ``lamb_configs["lamb_weight_decay"]``;
-        ``sharding`` / ``sharded_update`` with more than one worker wraps it
-        in a ``ShardedUpdateOptimizer`` over the ``dp`` axis (the bf16 cast
+        ``sharding`` / ``sharded_update`` over ``shard_ranks`` data-parallel
+        ranks (more than one) wraps it in a ``ShardedUpdateOptimizer`` over
+        the ``dp`` axis (the bf16 cast
         for ``bf16_allreduce``, the strategy's int8/int4 spec for
         ``quant_allreduce``); then ``decorate`` for ``amp``,
         ``RecomputeOptimizer`` with
@@ -626,9 +662,9 @@ class CollectiveOptimizer:
                 learning_rate=optimizer._learning_rate,
                 lamb_weight_decay=s.lamb_configs.get("lamb_weight_decay",
                                                      0.01))
-        if _sharded(s) and fleet.worker_num() > 1:
+        if _sharded(s) and shard_ranks > 1:
             optimizer = opt_mod.ShardedUpdateOptimizer(
-                optimizer, nranks=fleet.worker_num(), axis_name=_dp_axis(s),
+                optimizer, nranks=shard_ranks, axis_name=_dp_axis(s),
                 compress_dtype="bfloat16" if getattr(s, "bf16_allreduce",
                                                      False) else None,
                 quant_spec=self._quant_spec())
@@ -677,13 +713,27 @@ class CollectiveOptimizer:
             raise ValueError(
                 f"DistributedStrategy.mesh: {s.mesh!r} needs {s.mesh.size} "
                 f"ranks, the job has {fleet.worker_num()}")
-        opt_ops, params_grads = self._wrapped().minimize(
+        stages, mesh = _pipe_layout(s) if s.pipeline else (1, s.mesh)
+        opt_ops, params_grads = self._wrapped(
+            fleet.worker_num() // stages).minimize(
             loss, startup_program, parameter_list, no_grad_set)
         program = loss.block.program
         fleet._origin_program = program
         from ..framework.compiler import CompiledProgram
         loss_name = None if (s.localsgd or _sharded(s)) else loss.name
-        mesh = s.mesh
+        if s.pipeline:
+            # the JAX package's _finish_pipeline: cut the trained program
+            # into stages, compile it over the (dp, pp) mesh
+            from ..framework.pipe import apply_pipeline
+            pcfg = dict(s.pipeline_configs or {})
+            apply_pipeline(program, stages,
+                           int(pcfg.get("accumulate_steps") or 1),
+                           **{k: pcfg[k] for k in _PIPE_OPTIONS
+                              if pcfg.get(k) is not None})
+            fleet._compiled_program = CompiledProgram(program).with_mesh(
+                mesh, loss_name=loss_name, batch_axis="dp",
+                build_strategy=self._build_strategy())
+            return opt_ops, params_grads
         from ..framework.mesh_layout import SEQ_AXIS, TP_AXIS
         model = [a for a in (TP_AXIS, SEQ_AXIS) if mesh is not None and
                  a in mesh.axis_names]

@@ -38,6 +38,10 @@ _register("checkpoint_retry_backoff_s", 0.05)
 # program and buckets, every collective after the backward — the control
 # that shows the hooks move when a bucket runs, not what it computes)
 _register("overlap_lowering", True)
+# the pipelined lowering keeps each F unit's sent boundary and holds the
+# B / W units' recomputed one to it bit for bit (the dropout replay),
+# counted in last_pipeline_report(); off: nothing kept, nothing compared
+_register("pipe_replay_check", False)
 
 
 def get_flags(flags: Union[str, Iterable[str]]) -> Dict[str, Any]:

@@ -3,11 +3,14 @@
 the serving and training slices cover — Program, Executor
 (``CUDAPlace(0)`` by default), CompiledProgram and BuildStrategy, the
 BERT layers and LR schedules, ParamAttr, initializers, io,
-append_backward, the optimizers, regularizers and gradient clips."""
+append_backward, the optimizers, regularizers and gradient clips, and
+``device_guard`` (a pipeline stage annotation for
+``parallel.PipelineOptimizer``)."""
 
 from ..framework.core import (Program, Variable, Parameter,  # noqa: F401
                               default_main_program, default_startup_program,
-                              program_guard, CPUPlace, CUDAPlace,
+                              program_guard, device_guard, CPUPlace,
+                              CUDAPlace,
                               is_compiled_with_cuda)
 from ..framework.executor import (Executor, Scope, global_scope,  # noqa: F401
                                   scope_guard, PreparedStep, FetchHandle)

@@ -28,9 +28,12 @@ over ``seq_axis``), slices the feeds over the batch axes (and by
 ``feed_specs``: dim 1 over the sequence axis) and inserts the gradient
 sync over the batch and sequence axes (a parameter stamped over an axis
 is reduced over the others only: its gradient arrives reduce-scattered
-over that one, or is local to its tensor-parallel block).  A pipeline or
-expert axis raises, and so do several places in one process: one
-process drives one device.  With ``overlap_grad_sync``
+over that one, or is local to its tensor-parallel block).  It takes the
+pipe axis ``pp`` beside the data axis too (a program
+``framework.pipe.apply_pipeline`` cut into stages: the executor walks
+its schedule over the pp group, and ``insert_pipe_grad_sync`` sums the
+gradients over pp).  An expert axis, pp beside fsdp, tp or sp, and
+several places in one process raise: one process drives one device.  With ``overlap_grad_sync``
 the buckets are cut in gradient ready order and marked for the
 executor's backward hooks (:func:`insert_grad_sync`).  The JAX package's
 static checks of a variant (``verify_programs``, ``hbm_budget_gb``,
@@ -154,7 +157,8 @@ class CompiledProgram:
         ``with_mesh`` for ``MeshLayout(data=n)``, ``MeshLayout(fsdp=n)``
         after ``apply_fsdp_sharding`` (ZeRO-3), both (HSDP), and data x
         tp x sp (tensor parallelism from the parameters' ``dist_attr``;
-        ``seq_axis`` the axis ring attention runs over).  Feeds split on
+        ``seq_axis`` the axis ring attention runs over), and data x pp
+        (a pipelined program).  Feeds split on
         dim 0 over ``batch_axis`` (the layout's ``batch_axes``) by the
         rank's flat index over them, or by their entry in ``feed_specs``
         (one entry a dim: ``("dp", "sp")`` splits dim 1 over the sequence
@@ -166,7 +170,9 @@ class CompiledProgram:
         one's is its block's own).  A ``seq_axis`` the mesh lacks is
         dropped, as in the JAX package.  The mesh must have as many ranks
         as the process group (``ValueError``); a pipeline or expert axis
-        and any other mesh object raise."""
+        and any other mesh object raise.  A ``pp`` axis runs a pipelined
+        program over its line of ranks (not a batch axis: the pipe ranks
+        of a data row see the same rows)."""
         if mesh is None:
             self._dp = None
             self._loss_name = loss_name
@@ -280,6 +286,53 @@ def _bucketize(group, cap):
         else:
             buckets.append(([g], nbytes, hook))
     return buckets
+
+
+def insert_pipe_grad_sync(program: Program, pipe_axis: str = "pp") -> int:
+    """Sum every parameter gradient over the pipe axis — the pipeline's
+    own gradient sync (``framework/pipe.apply_pipeline`` calls it).
+
+    Each pipe rank accumulates cotangents only for its own stages'
+    parameters (the others stay zero), so a plain sum over ``pipe_axis``
+    gives every rank the whole gradient; no mean scale (the 1/n lives
+    with the data-axis sync, with which this sum commutes).  One fused
+    collective per dtype, right after the backward; a pipe-sharded
+    parameter's gradient (``dist_attr`` over the pipe axis) is skipped:
+    the lowering's reduce-scatter is its sum.  On a run without the pipe
+    axis the ops are the identity.  Returns the number of ops
+    inserted."""
+    block = program.global_block()
+    bw_idx = next((i for i, op in enumerate(block.ops)
+                   if op.type == "backward"), None)
+    if bw_idx is None:
+        return 0
+    bw = block.ops[bw_idx]
+    if bw.attrs.get("_pipe_allreduce_inserted"):
+        return 0
+    bw.attrs["_pipe_allreduce_inserted"] = True
+    groups, order = {}, []
+    for pname in bw.attrs["param_names"]:
+        pvar = block._find_var_recursive(pname)
+        gvar = block._find_var_recursive(grad_var_name(pname))
+        gda = getattr(gvar, "dist_attr", None) if gvar is not None \
+            else None
+        if gda and pipe_axis in _flat_axes(tuple(gda)):
+            continue
+        dtype = str(getattr(pvar, "dtype", "float32") or "float32")
+        if dtype not in groups:
+            groups[dtype] = []
+            order.append(dtype)
+        groups[dtype].append(grad_var_name(pname))
+    insert_at = bw_idx + 1
+    for dtype in order:
+        block._insert_op(
+            insert_at, type="c_fused_allreduce_sum",
+            inputs={"X": list(groups[dtype])},
+            outputs={"Out": list(groups[dtype])},
+            attrs={"ring_id": 0, "_axis_name": pipe_axis,
+                   "_pipe_grad_sync": True})
+        insert_at += 1
+    return len(order)
 
 
 def insert_grad_sync(program: Program, strategy, nranks, reduce_axes,

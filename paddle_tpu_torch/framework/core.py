@@ -169,6 +169,22 @@ class Parameter(Variable):
 # ---------------------------------------------------------------------------
 
 
+_device_guard_stack: List[Optional[str]] = []
+
+
+@contextlib.contextmanager
+def device_guard(device: Optional[str] = None):
+    """Pipeline stage annotation (ref: fluid.device_guard, consumed by
+    PipelineOptimizer._split_program, optimizer.py:3751): every op
+    appended inside is stamped ``op_device`` = ``device``, "gpu:k" (or the
+    JAX package's "tpu:k") — k is the pipeline stage."""
+    _device_guard_stack.append(device)
+    try:
+        yield
+    finally:
+        _device_guard_stack.pop()
+
+
 class Operator:
     """Symbolic op node (ref: framework.proto OpDesc).  ``inputs`` and
     ``outputs`` map slot names to lists of variable names; the callable
@@ -302,6 +318,8 @@ class Block:
     def append_op(self, type: str, inputs=None, outputs=None,
                   attrs=None) -> Operator:
         op = Operator(self, type, inputs, outputs, attrs)
+        if _device_guard_stack and "op_device" not in op.attrs:
+            op.attrs["op_device"] = _device_guard_stack[-1]
         self.ops.append(op)
         self.program._bump_version()
         return op

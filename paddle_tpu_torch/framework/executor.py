@@ -48,7 +48,10 @@ A program with a ``backward`` meta-op (``append_backward``) runs through
 :func:`run_training_block`, the counterpart of the JAX package's
 ``lower_block_with_backward``: the forward ops under autograd with the
 parameters as leaves, ``torch.autograd.grad`` at the ``backward`` op, and
-the optimizer ops after it without autograd.  The backward's recompute
+the optimizer ops after it without autograd; a program with
+``pipe_microbatches`` or pipeline stages (``framework.pipe``) runs through
+``pipeline_lowering`` instead (:func:`last_pipeline_report` gives the last
+pipelined run's census).  The backward's recompute
 ``checkpoints`` split the forward into segments, each but the last run
 under ``torch.utils.checkpoint`` and recomputed in the backward with the
 same random draws (:func:`run_forward`).  A ``conditional_block`` op
@@ -81,6 +84,7 @@ from .core import (CUDAPlace, Place, Program, Variable, default_main_program,
 from .errors import EnforceNotMet, UnimplementedError
 from ..ops.collective_ops import block_of, merge_fetch, slice_feed
 from ..ops.registry import LoweringContext, get_group, get_op
+from .pipeline_lowering import last_pipeline_report  # noqa: F401
 
 _RNG_VAR = "@RNG_STATE@"
 
@@ -233,18 +237,31 @@ def backward_index(ops) -> Optional[int]:
 
 def _refuse_unported(bw_op):
     """What the JAX package's lowering does at the backward op and this
-    port does not yet: say so rather than train differently."""
+    port does not yet: say so rather than train differently.  Under the
+    microbatched or pipelined lowering a dynamic loss scale and recompute
+    checkpoints are refused (the JAX lowerings leave both unapplied: the
+    pipelined backward recomputes each stage already)."""
     attrs = bw_op.attrs
-    pipe = {k: v for k, v in attrs.items()
-            if k.startswith("pipe_") and v not in (None, 0, 1, "", False)}
-    if pipe:
-        raise UnimplementedError(
-            f"backward: pipeline attrs {sorted(pipe)} — pipeline "
-            f"parallelism comes with the multi-GPU slice")
+    if _pipe_microbatches(bw_op) > 1 or _pipe_stages(bw_op) > 1:
+        for key, what in (("loss_scale_var", "dynamic loss scaling"),
+                          ("checkpoints", "recompute checkpoints")):
+            if attrs.get(key):
+                raise UnimplementedError(
+                    f"backward: {what} under the microbatched / pipelined "
+                    f"lowering is not ported (the JAX package's pipeline "
+                    f"lowerings do not apply it either); drop one")
     if attrs.get("guard_scale") or "@GUARD_SCALE@" in \
             bw_op.block.program.global_block().vars:
         raise UnimplementedError(
             "backward: guardrail loss scaling is not ported yet")
+
+
+def _pipe_stages(bw_op) -> int:
+    return int(bw_op.attrs.get("pipe_stages") or 1)
+
+
+def _pipe_microbatches(bw_op) -> int:
+    return int(bw_op.attrs.get("pipe_microbatches") or 1)
 
 
 def _segment_at_checkpoints(ops, checkpoint_names):
@@ -440,6 +457,15 @@ def run_training_block(ops, env, ctx, bw_idx, keep=()):
     from ..ops.collective_ops import GradSyncRecord
     bw_op = ops[bw_idx]
     _refuse_unported(bw_op)
+    pipe_axis = bw_op.attrs.get("pipe_axis") or "pp"
+    if _pipe_stages(bw_op) > 1 and pipe_axis in ctx.axis_names:
+        from .pipeline_lowering import lower_pipelined
+        return lower_pipelined(ops, env, ctx, bw_idx, keep)
+    if _pipe_microbatches(bw_op) > 1:
+        # a pipelined program on a run without the pipe axis (the pipe = 1
+        # degenerate), or the bare microbatch accumulation
+        from .pipeline_lowering import lower_microbatched
+        return lower_microbatched(ops, env, ctx, bw_idx, keep)
     param_names = list(bw_op.attrs["param_names"])
     loss_name = bw_op.attrs["loss_name"]
     loss_scale = float(bw_op.attrs.get("loss_scale", 1.0))

@@ -15,10 +15,11 @@ one process per rank, so :meth:`MeshLayout.build_mesh` returns a
 (row-major over the squeezed axes, as the JAX package reshapes its
 devices), with one process group per line of the grid.  This port takes
 the data and the fsdp axes — ``data=n`` (data parallelism, ZeRO-1),
-``fsdp=n`` (ZeRO-3) and both (HSDP) — and the tensor axis with one extra
+``fsdp=n`` (ZeRO-3) and both (HSDP) — the tensor axis with one extra
 sequence axis ``sp`` beside the data axis (Megatron tensor parallelism
-and ring attention, dp x tp x sp); a layout with a pipeline, expert or
-other extra axis above size 1, or fsdp beside tp or sp, raises
+and ring attention, dp x tp x sp), and the pipeline axis ``pp`` beside
+the data axis (dp x pp); a layout with an expert or other extra axis
+above size 1, fsdp beside tp or sp, or pp beside fsdp, tp or sp, raises
 :class:`UnimplementedError` naming it."""
 
 from __future__ import annotations
@@ -37,9 +38,9 @@ EXPERT_AXIS = "ep"
 #: package spells it: ``MeshLayout(tp=2, extra_axes={"sp": 2})``)
 SEQ_AXIS = "sp"
 #: the mesh axes the port runs: data parallelism, ZeRO / HSDP, Megatron
-#: tensor parallelism and ring attention (pipeline and expert parallelism
-#: wait for their slices)
-PORTED_AXES = (DATA_AXIS, FSDP_AXIS, TP_AXIS, SEQ_AXIS)
+#: tensor parallelism, ring attention and pipeline parallelism (expert
+#: parallelism waits for its slice)
+PORTED_AXES = (DATA_AXIS, FSDP_AXIS, TP_AXIS, SEQ_AXIS, PIPE_AXIS)
 
 
 def check_ported_axes(sizes: Dict[str, int], what: str,
@@ -52,9 +53,28 @@ def check_ported_axes(sizes: Dict[str, int], what: str,
         raise UnimplementedError(
             f"{what} over the axes {dict(sizes)}: the axes {other} are not "
             f"ported yet; the port takes the {', '.join(ported)} axes (data "
-            f"parallelism, ZeRO, HSDP, Megatron tensor parallelism and ring "
-            f"attention); pipeline and expert parallelism wait for their "
-            f"slices")
+            f"parallelism, ZeRO, HSDP, Megatron tensor parallelism, ring "
+            f"attention and pipeline parallelism); expert parallelism "
+            f"waits for its slice")
+    check_pipe_beside(sizes, what)
+
+
+def check_pipe_beside(sizes: Dict[str, int], what: str,
+                      pipe_axis: str = PIPE_AXIS):
+    """Raise :class:`UnimplementedError` when the pipe axis is above size 1
+    beside a fsdp, tensor or sequence axis above size 1: the pipelined
+    lowering runs over data x pp only (plain data parallelism or ZeRO-1
+    beside it)."""
+    if sizes.get(pipe_axis, 1) < 2:
+        return
+    beside = {a: n for a, n in sizes.items()
+              if n > 1 and a in (FSDP_AXIS, TP_AXIS, SEQ_AXIS)}
+    if beside:
+        raise UnimplementedError(
+            f"{what} over the axes {dict(sizes)}: the pipe axis beside "
+            f"{beside} is not ported yet; pipeline parallelism runs over "
+            f"{DATA_AXIS} x {pipe_axis} (with plain data parallelism or "
+            f"ZeRO-1 over {DATA_AXIS})")
 
 
 def _flat_axes(entries) -> Tuple[str, ...]:
@@ -336,15 +356,17 @@ class MeshLayout:
     # -- materialisation -------------------------------------------------
     def check_ported(self):
         """Raise :class:`UnimplementedError` naming each axis above size 1
-        that the port has not: the pipeline and expert axes and any extra
-        axis but :data:`SEQ_AXIS` (pipeline and expert parallelism wait
-        for their slices), or the fsdp axis beside the tensor or the
-        sequence axis (ZeRO-3 over tensor-parallel blocks is not ported).
-        The data, fsdp, tensor and sequence axes pass."""
+        that the port has not: the expert axis and any extra axis but
+        :data:`SEQ_AXIS` (expert parallelism waits for its slice), the
+        fsdp axis beside the tensor or the sequence axis (ZeRO-3 over
+        tensor-parallel blocks is not ported), or the pipe axis beside
+        the fsdp, tensor or sequence axis.  The data, fsdp, tensor,
+        sequence and pipe axes pass."""
         axes = self.mesh_axes
         check_ported_axes(axes, "mesh layout",
                           (self.data_axis, self.fsdp_axis, self.tp_axis,
-                           SEQ_AXIS))
+                           SEQ_AXIS, self.pipe_axis))
+        check_pipe_beside(axes, "mesh layout", self.pipe_axis)
         mixed = {a: n for a, n in axes.items()
                  if a in (self.tp_axis, SEQ_AXIS)}
         if mixed and self.fsdp_axis in axes:
@@ -418,5 +440,5 @@ class MeshLayout:
 
 __all__ = ["ShardSpec", "MeshLayout", "ProcessMesh", "DATA_AXIS",
            "FSDP_AXIS", "TP_AXIS", "PIPE_AXIS", "EXPERT_AXIS", "SEQ_AXIS",
-           "PORTED_AXES", "check_ported_axes",
+           "PORTED_AXES", "check_ported_axes", "check_pipe_beside",
            "_flat_axes"]

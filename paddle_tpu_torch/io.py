@@ -636,15 +636,24 @@ def _dst_layout(program: Optional[Program], dst_layout=None):
 def _refuse_model_parallel_reshard(manifest: Optional[Dict],
                                    program: Optional[Program], dst_layout):
     """A restore onto another layout than the checkpoint's, where either
-    has a tensor or sequence axis above size 1, is refused by name: the
-    reshard of tensor-parallel blocks is not ported yet (restore onto the
-    same layout, or load a whole save into a one-rank program)."""
+    has a pipe, tensor or sequence axis above size 1 and the pipe axes
+    differ, or either has a tensor or sequence axis above size 1, is
+    refused by name: the reshard of pipe-sharded and tensor-parallel
+    blocks is not ported yet (restore onto the same layout, or load a
+    whole save into a one-rank program)."""
     src = MeshLayout.from_desc((manifest or {}).get("mesh_layout"))
     dst = _dst_layout(program, dst_layout)
     if isinstance(dst, dict):
         dst = MeshLayout.from_desc(dst)
     if src is None or dst is None or src.sizes == dst.sizes:
         return
+    if src.pipe != dst.pipe:
+        raise UnimplementedError(
+            f"load_checkpoint: restoring a checkpoint written under "
+            f"{_layout_name(src)} onto {_layout_name(dst)} changes the "
+            f"pipe layout (pp {src.pipe} -> {dst.pipe}); a restore across "
+            f"pipe layouts is not ported yet — restore onto the same "
+            f"(dp, pp) layout")
     from .framework.mesh_layout import SEQ_AXIS
     model = {a: n for lay in (src, dst) for a, n in lay.mesh_axes.items()
              if a in (lay.tp_axis, SEQ_AXIS)}

@@ -14,4 +14,5 @@ from . import optimizer_ops  # noqa: F401
 from . import collective_ops  # noqa: F401
 from . import tp_ops        # noqa: F401
 from . import controlflow_ops  # noqa: F401
+from . import pipeline_op   # noqa: F401
 from . import op_specs      # noqa: F401

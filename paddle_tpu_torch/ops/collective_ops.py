@@ -53,7 +53,9 @@ transpose sums it over the group), ``c_split`` (the rank's slice of dim
 the group's point-to-point pairs, :func:`ring_shift`; its backward
 shifts the other way).  The Megatron f/g ops (``ops/tp_ops.py``) run
 :class:`CopyToGroup` and :class:`SumOverGroup`.
-``pipe_stage_boundary`` is not ported yet and stays unregistered.
+``pipe_stage_boundary`` (a pipeline cut, ``framework/pipe.py``) is the
+identity: the executor's pipelined lowering cuts the op list at it and
+moves the crossing tensors itself (:func:`isend_to` / :func:`recv_from`).
 
 A run over a sequence axis (``CompiledProgram.with_mesh(seq_axis=...,
 feed_specs=...)``) splits each fed array by its spec (:func:`slice_feed`:
@@ -353,6 +355,54 @@ def all_to_all(dp: DataParallelGroup, t: torch.Tensor):
     for req in dist.batch_isend_irecv(pairs):
         req.wait()
     return torch.stack(recv).to(t.device)
+
+
+def isend_to(g: DataParallelGroup, tensors, peer: int):
+    """Send ``tensors`` (a list, in order) to member ``peer`` of the group:
+    one batch of point-to-point sends, returned unwaited as (requests,
+    wire buffers) — keep both until :func:`wait_sends`.  On gloo a tensor
+    on a GPU is staged through host memory."""
+    import torch.distributed as dist
+    dst = g.global_rank(peer)
+    ws = [_on_wire(g, t) for t in tensors]
+    return dist.batch_isend_irecv([dist.P2POp(dist.isend, w, dst,
+                                              group=g.group)
+                                   for w in ws]), ws
+
+
+def wait_sends(pending):
+    """Wait for the ``(requests, buffers)`` pairs of :func:`isend_to`."""
+    for reqs, _ in pending:
+        for req in reqs:
+            req.wait()
+
+
+def reduce_scatter(g: DataParallelGroup, t: torch.Tensor, dim: int = 0):
+    """This rank's block (its index along ``dim``, cut in ``g.world``
+    equal blocks) of the sum of ``t`` over the group, summed in peer
+    order."""
+    n = g.world
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not divide into {n} ranks")
+    blocks = torch.stack([b.contiguous() for b in t.chunk(n, dim)])
+    return _peer_sum(all_to_all(g, blocks))
+
+
+def recv_from(g: DataParallelGroup, likes, peer: int, device):
+    """Receive tensors shaped and typed as ``likes`` ([(shape, dtype)]) from
+    member ``peer`` of the group, on ``device``: one batch of
+    point-to-point receives, waited for."""
+    import torch.distributed as dist
+    src = g.global_rank(peer)
+    wire = torch.device("cpu") if g.backend == "gloo" else device
+    bufs = [torch.empty(shape, dtype=dtype, device=wire)
+            for shape, dtype in likes]
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.irecv, b, src,
+                                              group=g.group) for b in bufs])
+    for req in reqs:
+        req.wait()
+    return [b.to(device) for b in bufs]
 
 
 def broadcast(dp: DataParallelGroup, t: torch.Tensor, root: int):
@@ -1169,6 +1219,16 @@ def _local_sgd_sync(ctx, ins, attrs):
 
 def _noop(ctx, ins, attrs):
     return {}
+
+
+@register("pipe_stage_boundary")
+def _pipe_stage_boundary(ctx, ins, attrs):
+    """A pipeline stage cut (``framework/pipe.apply_pipeline``): the
+    identity on the live tensors crossing it.  Run in program order (one
+    pipe rank, or the microbatched lowering) it changes nothing; the
+    pipelined lowering partitions the forward at these markers and sends
+    the crossing tensors between the pipe ranks itself."""
+    return {"Out": list(ins.get("X", []))}
 
 
 for _name in ("c_comm_init", "c_comm_init_all", "c_gen_nccl_id", "barrier"):

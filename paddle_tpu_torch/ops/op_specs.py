@@ -6,7 +6,15 @@ predicate stating exactly what its CUDA kernel rejects (head dims, norm
 widths, dtypes), evaluated on the op's input tensors, so
 ``cuda_route`` reports every hit and every fallback with its reason, and
 refuses (raises) on the card what a gate rejects.  :func:`kernel_facts`
-gives each kernel's source and the TPU kernel it replaces."""
+gives each kernel's source and the TPU kernel it replaces.
+
+Two static channels of the JAX package's op specs ride here too, for the
+pipeline's stage-cut planner (``framework/pipe.py``): :data:`FLOPS`, the
+forward GEMM-class FLOPs of an op from its input and output signatures
+(``flops(ins, outs, attrs)``, the JAX ``op_specs.py`` functions for the
+ops the ported programs use; the MoE ops are not ported), and
+:data:`COLLECTIVE_OPS`, the op types the JAX package flags
+``collective``."""
 
 from __future__ import annotations
 
@@ -297,3 +305,153 @@ def kernel_facts():
                                       route.replaces):
                 facts[name] = (src, tpu)
     return facts
+
+
+# ---------------------------------------------------------------------------
+# the flops and collective channels (the JAX package's op_specs.py)
+# ---------------------------------------------------------------------------
+
+
+class VarSig:
+    """(shape, dtype) of a variable: a shape of ints (-1 unknown) or None."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype="float32"):
+        self.shape = None if shape is None else tuple(int(d) for d in shape)
+        self.dtype = str(dtype)
+
+    def __repr__(self):
+        return f"VarSig({self.shape}, {self.dtype})"
+
+
+def _sig(ins, slot, i=0):
+    v = ins.get(slot)
+    if not v or i >= len(v):
+        return None
+    return v[i]
+
+
+def _known(shape) -> bool:
+    return shape is not None and all(int(d) >= 0 for d in shape)
+
+
+def _numel(shape):
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def _flops_mul(ins, outs, attrs):
+    xv, yv = _sig(ins, "X"), _sig(ins, "Y")
+    if xv is None or yv is None or xv.shape is None or yv.shape is None:
+        return None
+    xn = int(attrs.get("x_num_col_dims", 1))
+    yn = int(attrs.get("y_num_col_dims", 1))
+    sx, sy = xv.shape, yv.shape
+    if not _known(sx) or not _known(sy):
+        return None
+    return 2.0 * _numel(sx[:xn]) * _numel(sx[xn:]) * _numel(sy[yn:])
+
+
+def _flops_matmul(ins, outs, attrs):
+    xv, yv = _sig(ins, "X"), _sig(ins, "Y")
+    if xv is None or yv is None or xv.shape is None or yv.shape is None \
+            or len(xv.shape) < 2 or len(yv.shape) < 2:
+        return None
+    tx = bool(attrs.get("transpose_X", attrs.get("trans_x", False)))
+    ty = bool(attrs.get("transpose_Y", attrs.get("trans_y", False)))
+    sx, sy = list(xv.shape), list(yv.shape)
+    m, k = (sx[-1], sx[-2]) if tx else (sx[-2], sx[-1])
+    _, n = (sy[-1], sy[-2]) if ty else (sy[-2], sy[-1])
+    batch_x, batch_y = sx[:-2], sy[:-2]
+    batch = batch_x if len(batch_x) >= len(batch_y) else batch_y
+    if not _known((m, k, n)) or not _known(batch):
+        return None
+    return 2.0 * _numel(batch) * m * k * n
+
+
+def _flops_fused_attention(ins, outs, attrs):
+    """QK^T and PV: 4·B·Sq·Sk·hidden (the head split cancels); the
+    cache-read variant's Sk is its table window."""
+    q, k = _sig(ins, "Q"), _sig(ins, "K")
+    if q is None or q.shape is None or len(q.shape) < 3:
+        return None
+    b, sq, hidden = q.shape[0], q.shape[1], q.shape[-1]
+    pool, table = _sig(ins, "KPool"), _sig(ins, "BlockTable")
+    if pool is not None:
+        ps = pool.shape
+        ts = table.shape if table is not None else None
+        if ps is None or ts is None or len(ps) != 3 or len(ts) != 2 or \
+                ps[1] < 0 or ts[1] < 0:
+            return None
+        sk = ts[1] * ps[1]
+    else:
+        ksh = k.shape if k is not None and k.shape is not None else q.shape
+        sk = ksh[1] if len(ksh) > 1 else sq
+    if not _known((b, sq, sk, hidden)):
+        return None
+    return 4.0 * b * sq * sk * hidden
+
+
+def _flops_conv2d(ins, outs, attrs):
+    xv, wv = _sig(ins, "Input"), _sig(ins, "Filter")
+    ov = _sig(outs, "Output") if outs else None
+    if xv is None or wv is None or ov is None or xv.shape is None or \
+            wv.shape is None or ov.shape is None or len(wv.shape) != 4:
+        return None
+    if not _known(ov.shape) or not _known(wv.shape):
+        return None
+    _, cin_g, kh, kw = wv.shape
+    return 2.0 * _numel(ov.shape) * cin_g * kh * kw
+
+
+def _flops_elemwise(k, slot="X"):
+    """``k`` FLOPs per element of input ``slot``."""
+    def flops(ins, outs, attrs):
+        v = _sig(ins, slot)
+        if v is None or v.shape is None or not _known(v.shape):
+            return None
+        return float(k) * _numel(v.shape)
+    return flops
+
+
+def _flops_softmax_ce(ins, outs, attrs):
+    v = _sig(ins, "Logits")
+    if v is None or v.shape is None or not _known(v.shape):
+        return None
+    return 10.0 * _numel(v.shape)
+
+
+def _flops_c_embedding(ins, outs, attrs):
+    w, ids = _sig(ins, "W"), _sig(ins, "Ids")
+    if w is None or ids is None or w.shape is None or ids.shape is None \
+            or not _known(w.shape) or not _known(ids.shape):
+        return None
+    return 2.0 * _numel(ids.shape) * w.shape[-1]
+
+
+#: op type -> ``flops(ins, outs, attrs)`` (``ins`` / ``outs``: slot ->
+#: [VarSig]; None or 0 when a shape is unknown)
+FLOPS = {
+    "mul": _flops_mul, "matmul": _flops_matmul, "matmul_v2": _flops_matmul,
+    "fused_attention": _flops_fused_attention,
+    "conv2d": _flops_conv2d, "depthwise_conv2d": _flops_conv2d,
+    "softmax": _flops_elemwise(5), "log_softmax": _flops_elemwise(5),
+    "cross_entropy": _flops_elemwise(3), "cross_entropy2": _flops_elemwise(3),
+    "cumsum": _flops_elemwise(1),
+    "softmax_with_cross_entropy": _flops_softmax_ce,
+    "c_embedding": _flops_c_embedding,
+}
+
+#: the op types the JAX package's op specs flag ``collective``
+COLLECTIVE_OPS = frozenset({
+    "alltoall", "c_allgather", "c_allreduce_max", "c_allreduce_min",
+    "c_allreduce_prod", "c_allreduce_sum", "c_broadcast", "c_concat",
+    "c_embedding", "c_expert_alltoall", "c_fused_allreduce_sum",
+    "c_fused_quant_allreduce_sum", "c_quant_allreduce_sum",
+    "c_reducescatter", "c_split", "collective_permute", "fsdp_all_gather",
+    "local_sgd_sync", "moe_ffn", "mp_allreduce_sum", "mp_copy",
+    "pipe_stage_boundary", "quant_reduce_scatter", "zero_all_gather",
+    "zero_reduce_scatter", "zero_shard_slice"})

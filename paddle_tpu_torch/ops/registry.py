@@ -24,7 +24,11 @@ when the op's tensors lie on the CPU.  A gate that rejects tensors on any
 other device raises :class:`UnimplementedError` with the gate's reason.
 
 Integer ids stay int64 (the JAX package narrows them to int32 when x64
-is off); tests compare values, not dtypes."""
+is off); tests compare values, not dtypes.
+
+:func:`abstract_eval` is the counterpart of ``jax.eval_shape``: ops run
+inside it on ``meta`` tensors take their plain compositions, and their
+route decisions are not counted (no kernel, no launch, no fallback)."""
 
 from __future__ import annotations
 
@@ -179,6 +183,24 @@ class CudaLowering:
 
 ROUTES: Dict[str, Tuple[CudaLowering, ...]] = {}
 
+_ABSTRACT = threading.local()
+
+
+class abstract_eval:
+    """Context manager: inside it (on this thread) :func:`cuda_route`
+    sends every op to its plain composition, uncounted — for running ops
+    on ``meta`` tensors to learn their outputs' shapes and dtypes, as
+    ``jax.eval_shape`` does, without launching or refusing a kernel."""
+
+    def __enter__(self):
+        self._old = getattr(_ABSTRACT, "on", False)
+        _ABSTRACT.on = True
+        return self
+
+    def __exit__(self, *exc):
+        _ABSTRACT.on = self._old
+        return False
+
 #: (op type, kernel, "hit" | "fallback", reason) -> count
 ROUTE_COUNTS: Dict[Tuple[str, str, str, str], int] = {}
 _COUNT_LOCK = threading.Lock()
@@ -232,6 +254,8 @@ def cuda_route(op_type: str, ins, attrs, kernel: Optional[str] = None,
     routes = ROUTES.get(op_type)
     if not routes:
         return None, "no-cuda-route"
+    if getattr(_ABSTRACT, "on", False):
+        return None, "abstract-eval"
     reasons = []
     rejected = []
     matched = []

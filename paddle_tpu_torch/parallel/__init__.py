@@ -11,15 +11,16 @@ axis   meaning
 dp     data parallel — batch dim sharded, grads all-reduced
 tp     tensor model parallel — param cols/rows sharded (Megatron)
 sp     sequence/context parallel — seq dim sharded, ring attention
-pp     pipeline parallel — not ported yet
+pp     pipeline parallel — layer stages, microbatches hop rank to rank
 ep     expert parallel — not ported yet
 =====  =========================================================
 
-``gpipe_spmd``, ``PipelineOptimizer``, ``moe_ffn``, ``collect_aux_losses``
-and ``apply_expert_sharding`` raise :class:`UnimplementedError` by name
-until their slices."""
+``gpipe_spmd`` and ``PipelineOptimizer`` are ``parallel/pipeline.py``;
+``moe_ffn``, ``collect_aux_losses`` and ``apply_expert_sharding`` raise
+:class:`UnimplementedError` by name until their slice."""
 
 from ..framework.errors import UnimplementedError
+from .pipeline import PipelineOptimizer, gpipe_spmd  # noqa: F401
 from .ring_attention import ring_attention  # noqa: F401
 from .topology import (DeviceTopology, auto_mesh, build_mesh,  # noqa: F401
                        tpu_slice_env)
@@ -37,18 +38,8 @@ def _unported(name, what):
     return refuse
 
 
-gpipe_spmd = _unported("gpipe_spmd", "pipeline parallelism")
 moe_ffn = _unported("moe_ffn", "the routed MoE FFN")
 collect_aux_losses = _unported("collect_aux_losses",
                                "the MoE auxiliary losses")
 apply_expert_sharding = _unported("apply_expert_sharding",
                                   "expert parallelism")
-
-
-class PipelineOptimizer:
-    """Pipeline parallelism is not ported yet: constructing one raises."""
-
-    def __init__(self, *args, **kwargs):
-        raise UnimplementedError(
-            "parallel.PipelineOptimizer: pipeline parallelism is not "
-            "ported yet; it waits for its slice")

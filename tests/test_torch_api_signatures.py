@@ -9,7 +9,8 @@ never with a bare ``TypeError``.  The keywords the port had lacked are
 driven as well: ``DecodeConfig(prefix_reserve_blocks=...)``,
 ``ServingConfig(packing=..., mask_feed=..., pack_max_segments=...)`` and
 ``Executor.run(use_prune=...)``.  The parallelism package (topology, the
-Megatron layers, ring attention and the refusals of pipeline and MoE) and
+Megatron layers, ring attention, the pipeline's ``PipelineOptimizer`` and
+``gpipe_spmd``, and the refusals of MoE), ``framework.pipe`` and
 ``models.bert``'s builders (the tensor/sequence-parallel ones included)
 are compared as well."""
 
@@ -33,7 +34,8 @@ MODULES = ("optimizer", "framework.executor", "framework.compiler",
            "framework.mesh_layout", "framework.fsdp", "framework.reshard",
            "framework.analysis", "distributed.gloo",
            "distributed.preemption", "parallel", "parallel.topology",
-           "parallel.tp_layers", "parallel.ring_attention", "models.bert")
+           "parallel.tp_layers", "parallel.ring_attention", "models.bert",
+           "framework.pipe", "parallel.pipeline")
 
 #: JAX internals whose parameters differ by design, with the reason
 ALLOWED = {
@@ -290,3 +292,22 @@ ZERO = {
 def test_zero_is_shared_api(mod):
     quals = {qual for m, qual, *_ in SHARED if m == mod}
     assert ZERO[mod] <= quals
+
+
+#: the pipeline's public names (the stage-cut rewrite, the schedules,
+#: PipelineOptimizer, gpipe_spmd), each compared keyword by keyword above
+PIPELINE = {
+    "framework.pipe": {"plan_stage_cuts", "simulate_schedule",
+                       "schedule_1f1b", "enumerate_schedules",
+                       "set_microbatches", "apply_pipeline",
+                       "apply_pipe_weight_sharding", "StageCutPlan.__init__",
+                       "StageCutPlan.as_dict", "plan_remat", "apply_remat"},
+    "parallel.pipeline": {"gpipe_spmd", "PipelineOptimizer.__init__",
+                          "PipelineOptimizer.minimize"},
+}
+
+
+@pytest.mark.parametrize("mod", sorted(PIPELINE))
+def test_the_pipeline_is_shared_api(mod):
+    quals = {qual for m, qual, *_ in SHARED if m == mod}
+    assert PIPELINE[mod] <= quals

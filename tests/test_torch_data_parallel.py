@@ -311,10 +311,12 @@ def test_strategy_amp_runs_on_one_worker():
 @pytest.mark.parametrize("flag", [
     "tensor_parallel", "pipeline", "auto_shard", "mesh"])
 def test_unported_strategy_flags_are_refused_by_name(flag):
-    """``pipeline``, ``auto_shard`` and a mesh of another kind raise naming
-    the flag, and nothing is appended.  ``tensor_parallel`` is taken now,
-    as in the JAX package (the layout comes from ``dist_attr`` and the
-    mesh): on one worker minimize leaves the plain update."""
+    """``auto_shard`` and a mesh of another kind raise naming the flag,
+    and nothing is appended.  ``tensor_parallel`` is taken now, as in the
+    JAX package (the layout comes from ``dist_attr`` and the mesh): on one
+    worker minimize leaves the plain update; so is ``pipeline``: on one
+    worker it is one stage, the update plain and the microbatch count
+    stamped (``tests/test_torch_pipeline.py`` runs it on more)."""
     tcore.reset_default_programs()
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
@@ -330,6 +332,15 @@ def test_unported_strategy_flags_are_refused_by_name(flag):
             after = [op.type for op in main.global_block().ops]
             assert after[len(before):][-1] == "sgd" and \
                 tfleet.main_program is main
+            return
+        if flag == "pipeline":
+            opt.minimize(loss)
+            ops = main.global_block().ops
+            assert [op.type for op in ops][len(before):][-1] == "sgd"
+            bw = next(op for op in ops if op.type == "backward")
+            assert bw.attrs["pipe_microbatches"] == 1
+            assert not bw.attrs.get("pipe_stages")
+            assert tfleet.main_program._program is main
             return
         with pytest.raises(UnimplementedError, match=flag):
             opt.minimize(loss)
@@ -421,11 +432,14 @@ def test_insert_grad_sync_matches_the_jax_package(fused, tier):
         assert len(synced) == 2      # the 0.84 MB fc weight, the rest
 
 
-@pytest.mark.parametrize("axes", [("dp", "cp"), ("pp",), ("dp", "ep")])
+@pytest.mark.parametrize("axes", [("dp", "cp"), ("pp", "sp"),
+                                  ("dp", "ep")])
 def test_mesh_axes_the_port_has_not_are_refused_by_name(axes):
-    """A ``ProcessMesh`` strategy.mesh with a pipeline, expert or unknown
-    axis raises naming the axis; nothing is appended.  (The tensor and
-    sequence axes are ported: ``tests/test_torch_tp_sp_bert.py``.)"""
+    """A ``ProcessMesh`` strategy.mesh with an expert or unknown axis, or
+    the pipe axis beside a sequence axis, raises naming the axis; nothing
+    is appended.  (The tensor and sequence axes are ported:
+    ``tests/test_torch_tp_sp_bert.py``; the pipe axis beside the data
+    axis: ``tests/test_torch_pipeline.py``.)"""
     from paddle_tpu_torch.framework.mesh_layout import ProcessMesh
     tcore.reset_default_programs()
     main, startup = tfluid.Program(), tfluid.Program()

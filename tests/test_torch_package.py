@@ -59,6 +59,23 @@ def test_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.framework.pipe",
+    "paddle_tpu_torch.framework.pipeline_lowering",
+    "paddle_tpu_torch.parallel.pipeline",
+    "paddle_tpu_torch.ops.pipeline_op"])
+def test_the_pipeline_modules_import_no_jax(module):
+    code = (f"import sys, {module};"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'paddle_tpu' or "
+            "m.startswith('paddle_tpu.'));"
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert os.path.join(REPO, *module.split(".")) + ".py" in _port_sources()
+
+
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, names in os.walk(PKG):

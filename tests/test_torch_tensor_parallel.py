@@ -270,16 +270,16 @@ def test_what_is_not_ported_is_refused_by_name():
     from paddle_tpu_torch import parallel
     from paddle_tpu_torch.framework.errors import UnimplementedError
     from paddle_tpu_torch.models import bert
-    for fn, name in ((parallel.gpipe_spmd, "gpipe_spmd"),
-                     (parallel.moe_ffn, "moe_ffn"),
+    for fn, name in ((parallel.moe_ffn, "moe_ffn"),
                      (parallel.collect_aux_losses, "collect_aux_losses"),
                      (parallel.apply_expert_sharding,
                       "apply_expert_sharding"),
                      (parallel.tpu_slice_env, "tpu_slice_env")):
         with pytest.raises(UnimplementedError, match=name):
             fn()
-    with pytest.raises(UnimplementedError, match="PipelineOptimizer"):
-        parallel.PipelineOptimizer(None)
+    # pipeline parallelism is ported (tests/test_torch_pipeline.py)
+    assert parallel.PipelineOptimizer(None).num_microbatches == 1
+    assert callable(parallel.gpipe_spmd)
     from paddle_tpu_torch import fluid
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -292,7 +292,7 @@ def test_what_is_not_ported_is_refused_by_name():
     ({"tp": 2}, True), ({"data": 2, "tp": 2}, True),
     ({"tp": 2, "extra_axes": {"sp": 2}}, True),
     ({"data": 2, "tp": 2, "extra_axes": {"sp": 2}}, True),
-    ({"pipe": 2}, False), ({"expert": 2}, False),
+    ({"pipe": 2}, True), ({"expert": 2}, False),
     ({"extra_axes": {"cp": 2}}, False), ({"fsdp": 2, "tp": 2}, False),
     ({"fsdp": 2, "extra_axes": {"sp": 2}}, False)],
     ids=lambda v: str(v).replace(" ", ""))

@@ -472,12 +472,12 @@ def test_sharding_on_one_worker_runs_the_program_as_minimize_left_it():
     {"pipe": 2}, {"fsdp": 2, "tp": 2}],
     ids=lambda d: "x".join(f"{k}{v}" for k, v in d.items()))
 def test_multi_axis_layouts_are_refused_by_name(layout):
-    """A pipeline axis is refused by name, and so is fsdp beside a tensor
-    axis (data x fsdp alone is ported: see ``test_hsdp_layouts_are_taken``).
-    A tensor axis with or without data is ported now: it passes the check
-    and, outside a process group of its ranks, fails only on the rank
-    count."""
-    if "fsdp" not in layout and "pipe" not in layout:
+    """fsdp beside a tensor axis is refused by name (data x fsdp alone is
+    ported: see ``test_hsdp_layouts_are_taken``).  A tensor axis with or
+    without data, and a pipeline axis, are ported now: they pass the
+    check and, outside a process group of their ranks, fail only on the
+    rank count."""
+    if "fsdp" not in layout:
         taken = MeshLayout(**layout)
         taken.check_ported()
         with pytest.raises(ValueError,
@@ -543,7 +543,8 @@ def test_with_mesh_refuses_a_sequence_axis_and_foreign_meshes():
     """The sequence axis and per-feed layouts are ported now: a
     ``seq_axis`` the mesh lacks is dropped and ``feed_specs`` are taken (a
     one-rank mesh runs without a group); a tensor axis is taken and needs
-    its ranks; a pipeline axis and a foreign mesh are refused by name."""
+    its ranks, and so is a pipeline axis beside the data axis; a pipeline
+    axis beside a tensor axis and a foreign mesh are refused by name."""
     from paddle_tpu_torch.framework.mesh_layout import ProcessMesh
     _, main, startup, loss = _tiny_program("port")
     with tfluid.program_guard(main, startup):
@@ -553,12 +554,15 @@ def test_with_mesh_refuses_a_sequence_axis_and_foreign_meshes():
                         seq_axis="sp")._dp is None
     assert cp.with_mesh(ProcessMesh(("dp",), (1,)), loss.name,
                         feed_specs={"x": (None, "dp")})._dp is None
-    # HSDP's ("dp", "fsdp") is taken (test_torch_hsdp.py), and so is a
-    # tensor axis (test_torch_tensor_parallel.py); a pipeline axis is
+    # HSDP's ("dp", "fsdp") is taken (test_torch_hsdp.py), and so are a
+    # tensor axis (test_torch_tensor_parallel.py) and a pipeline axis
+    # beside the data axis (test_torch_pipeline.py); pp beside tp is
     # refused by name
     with pytest.raises(ValueError, match="needs 4 ranks"):
         cp.with_mesh(ProcessMesh(("dp", "tp"), (2, 2)), loss.name)
-    with pytest.raises(UnimplementedError, match="pipeline"):
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         cp.with_mesh(ProcessMesh(("dp", "pp"), (2, 2)), loss.name)
+    with pytest.raises(UnimplementedError, match="pipe axis beside"):
+        cp.with_mesh(ProcessMesh(("pp", "tp"), (2, 2)), loss.name)
     with pytest.raises(UnimplementedError, match="not the port's mesh"):
         cp.with_mesh(object(), loss.name)
