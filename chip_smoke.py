@@ -304,7 +304,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ranks save one sharded checkpoint at the same step and exit 42 (the
    async copy of step 2 drained whole), and a relaunch resumes with steps
    4-6 and the parameters bit for bit the uninterrupted run's;
-18. tensor and sequence parallelism at BERT-base width and depth
+18. tensor and sequence parallelism at BERT-base width and 4 layers
+   (``MP_LAYERS``; phases 18 and 19 are cut in depth only, every launch
+   count derived from the built program)
    (``build_pretrain_network_parallel``, float32, Adam 1e-4, the ranks on
    the card over gloo, phase 10's launcher).  (k) the ring route's kernel
    entry — #1 returning lse, #2 and #3 taking delta - dlse — against its
@@ -313,22 +315,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    padding bias with one batch row all masked and the causal biases of a
    diagonal block and of a block wholly in the future (their all-masked
    rows the uniform mean of V), timed beside the library's lse-returning
-   call; (a) tp 2 x sp 2 on four ranks (``MeshLayout(tp=2,
+   call (at 12 heads of 64, the depth does not enter); (a) tp 2 x sp 2
+   on four ranks (``MeshLayout(tp=2,
    extra_axes={"sp": 2})``, every feed split ("dp", "sp"), batch 4 x 512,
    38 masked tokens in each sp half of every row, attention dropout 0),
    4 prepared steps, against the same program built with ``tp_degree=1,
    seq_axis=None`` on one rank from the same seed: losses within 1e-4;
    (b) tp 2 on two ranks, batch 32 x 128, attention dropout 0.1 on the
-   plain flash route.  Gates: no fallback; #1-#3 24 launches a step on
-   (a) (12 layers x 2 ring steps) and 12 on (b), the LayerNorm forward
-   and backward 25, Adam 1; every rank's startup the same parameters
+   plain flash route.  Gates: no fallback; #1-#3 once an attention op a
+   ring step (2 ring steps at sp 2 on (a), one on (b)), the LayerNorm
+   forward and backward once a ``layer_norm`` op, Adam 1, counted in the
+   built program (``tpsp_launches``); every rank's startup the same parameters
    (sha256) and, after the steps, its replicated persistables sha256-equal
    to rank 0's.  Printed per leg: the step, gloo's wall ms, calls and
    bytes in one step by kind (tp all-reduces, the LM head's tp gather,
    the ring's point-to-point shifts, the gradient sync), the device's busy
    share and the peak allocated bytes;
-19. pipeline parallelism at BERT-base width and depth (12 layers, phase
-   8's program and recipe, float32, the ranks on the card over gloo):
+19. pipeline parallelism at BERT-base width and 4 layers (``MP_LAYERS``,
+   phase 8's program and recipe, float32, the ranks on the card over
+   gloo):
    (a)-(c) on two ranks, ``apply_pipeline(main, 2, 4)`` (the stage cut
    planned at the 8 x 128 microbatch) and ``with_mesh`` over
    ``MeshLayout(pipe=2)``, 32 x 128 in 4 microbatches, 4 prepared steps a
@@ -353,8 +358,43 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (median of steps 2-4), gloo's wall ms, calls and MB in one step split
    into the point-to-point hops, the pp all-reduce, the dp sync and the
    pipe-sharded gather / scatter, the schedule's ``bubble_frac``, the
-   device busy share and the peak allocated bytes;
-20. print the ``kernels`` JSON line, the card's name and power limit, and
+   device busy share and the peak allocated bytes; per rank launch of
+   phases 18 and 19 one line of its parts (spawn to the first step,
+   steps, saves, loads, the in-process one-rank runs, the rest);
+20. Mixture-of-Experts at BERT-base width (hidden 768, 12 heads,
+   intermediate 3072, the full vocabulary, 12 layers, the routed FFN in
+   every layer: ``moe_experts`` 8, top-2, capacity factor 2.0, aux weight
+   0.01), phase 8's fused program with phase 15's recipe (no norm clip:
+   under ``ep`` an expert gradient is its rank's block), 32 x 128 with 20
+   masks.  (a) One rank in this process: 5 prepared steps at dropout 0.1
+   (finite losses, no fallback, each kernel's launches a step counted in
+   the built program's pass variant: #1-#3 once a layer, add+LN twice a
+   layer and once for the embeddings, LN and bias+GELU once for the
+   masked-LM transform, #10 once), the share of (token, choice) slots
+   each layer dropped (from its Combine weights), the step, the peak and
+   a profiled step's device busy share; then at dropout 0 and aux 0, 3
+   steps with every kernel on against every flag off (phase 7's
+   tolerances).  (b) The same program at 2 layers (``MOE_EP_LAYERS``:
+   the script's clock) retrofitted by ``parallel.apply_expert_sharding``
+   onto ``MeshLayout(expert=2)`` on two ranks of the card over gloo, one
+   launch (each rank its 16 rows), 3 steps a tier: (i) the float32
+   exchange, losses and parameters within 1e-5 of the one-rank run at
+   its depth, dropout 0 and aux 0 (the kernel run of (a) when the depths
+   agree); (ii)
+   the int8 exchange within rtol 0.05 / atol 0.01 of (i), its receive
+   dequantized by the composition (no kernel route taken); (iii) (i)'s
+   state after step 3 through ``save_checkpoint(sharded=True)``, restored
+   onto one rank in this process: every parameter bit for bit, the next
+   loss within 1e-6 (relative) of the ranks'.  Every rank: no fallback, the
+   launches its program predicts, the bytes it holds the layout's.
+   Printed per tier: the step, the exchanges' and the dense all-reduce's
+   gloo ms, calls and bytes in one step, persistent and peak bytes.  (c) The MoE decoder (8 experts, routed one token a group)
+   through phase 11's ``DecodeEngine`` config: 8 of phase 11's requests,
+   12 flash forward and 25 LN forward launches a forward, no fallback,
+   the tokens against ``greedy_reference`` as phase 11 holds them, and an
+   engine with every kernel flag off on the same weights serving the same
+   tokens;
+21. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only — nothing of JAX or the JAX package."""
@@ -454,6 +494,8 @@ FUSED_LAUNCHES = fused_launches(12)
 #: the depth of phases 15-17 (BERT-base width, hidden 768, 12 heads,
 #: intermediate 3072, the full vocabulary)
 CUT_LAYERS = 2
+#: the depth of phases 18-19, at the same width
+MP_LAYERS = 4
 # phase 12: bench.py's headline configuration (BERT-base pretraining in
 # bf16 at 96 x 128 with 20 masks), its timed window, the kernels-on vs
 # flags-off bound in bf16, and the fp16 loss-scaling leg's policy and feed
@@ -5957,21 +5999,13 @@ RING_NEG = -1e30          # the ring's additive mask (parallel/ring_attention)
 #: (a): tp 2 x sp 2 on four ranks, batch 4 x 512, every row holding the
 #: same masked count in each sp shard; (b): tp 2 on two ranks, 32 x 128
 #: with attention dropout 0.1 on the plain flash route
-TPSP_RANKS, TP_RANKS = 4, 2
+TPSP_RANKS, TP_RANKS, SP_DEGREE = 4, 2, 2
 TPSP_BATCH, TPSP_SEQ, TPSP_PER_SHARD = 4, 512, 38
 TP_BATCH, TP_SEQ = TRAIN_BATCH, TRAIN_SEQ
 TPSP_STEPS = 4
 TPSP_LR = 1e-4
 TOL_TPSP_LOSS = 1e-4      # (a) vs the one-rank run: losses (relative)
 TPSP_TIMEOUT_S = 600
-#: launches a step: #1-#3 once a ring step a layer (2 ring steps at sp 2)
-#: on (a), once a layer on (b); the LayerNorm forward and backward 25
-#: (the embeddings' and 2 a layer); Adam one launch for the whole update
-TPSP_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 24,
-                 "flash_attention_bwd_dkv": 24, "layer_norm_fwd": 25,
-                 "layer_norm_bwd": 25, "adam": 1}
-TP_LAUNCHES = dict(TPSP_LAUNCHES, flash_attention_fwd=12,
-                   flash_attention_bwd_dq=12, flash_attention_bwd_dkv=12)
 TPSP_LEG_NAMES = {"a": "tp 2 x sp 2, four ranks", "b": "tp 2, two ranks"}
 
 
@@ -6085,11 +6119,26 @@ def ring_kernel_checks(torch, results):
                        if dtname == "float32" else None)
 
 
+def tpsp_launches(main, leg):
+    """Launches a step of phase 18's built program: #1-#3 once a
+    ``fused_attention`` op a ring step (the sp degree on (a), one step on
+    (b)), the LayerNorm forward and backward once a ``layer_norm`` op,
+    Adam one launch for the whole update."""
+    ops = main.global_block().ops
+    attn = sum(op.type == "fused_attention" for op in ops) * \
+        (SP_DEGREE if leg == "a" else 1)
+    ln = sum(op.type == "layer_norm" for op in ops)
+    return {"flash_attention_fwd": attn, "flash_attention_bwd_dq": attn,
+            "flash_attention_bwd_dkv": attn, "layer_norm_fwd": ln,
+            "layer_norm_bwd": ln, "adam": 1}
+
+
 def tpsp_config(leg):
-    """Phase 18's model: BERT-base uncut; attention dropout 0 on (a) (the
-    ring applies none, and the one-rank reference would), 0.1 on (b)."""
+    """Phase 18's model: BERT-base's width at MP_LAYERS layers; attention
+    dropout 0 on (a) (the ring applies none, and the one-rank reference
+    would), 0.1 on (b)."""
     from paddle_tpu_torch.models import bert
-    cfg = bert.BertConfig.base()
+    cfg = cut_depth(bert.BertConfig.base(), MP_LAYERS)
     cfg.hidden_dropout_prob = 0.0
     cfg.attention_probs_dropout_prob = 0.0 if leg == "a" else DROPOUT
     return cfg
@@ -6137,7 +6186,7 @@ def build_tpsp_train(cfg, leg, ranks=True):
         fluid.optimizer.Adam(TPSP_LR).minimize(loss)
     if not ranks:
         return main, main, startup, loss
-    layout = MeshLayout(tp=2, extra_axes={"sp": 2} if seq else None)
+    layout = MeshLayout(tp=2, extra_axes={"sp": SP_DEGREE} if seq else None)
     main._mesh_layout = layout
     build = fluid.BuildStrategy()
     build.fuse_all_reduce_ops = True
@@ -6249,7 +6298,8 @@ def tpsp_worker(out_dir, leg):
     exe = fluid.Executor(fleet.place)
     exe.run(startup, scope=scope)
     out = {"rank": rank, "leg": leg,
-           "init_sha256": params_sha(np, scope, main)}
+           "init_sha256": params_sha(np, scope, main),
+           "expected": tpsp_launches(main, leg)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     prepared = exe.prepare(program, fetch_list=[loss], scope=scope,
@@ -6257,10 +6307,12 @@ def tpsp_worker(out_dir, leg):
     kernels.reset_launch_counts()
     registry.reset_route_counts()
     losses, step_s = [], []
+    first_step()
     for _ in range(TPSP_STEPS):
         t0 = time.perf_counter()
         losses.append(float(prepared.run(feed)[0]))
         step_s.append(time.perf_counter() - t0)
+    stamp("steps", sum(step_s))
     out["launches"] = {f"{k}/{dt}": n for (k, dt), n in
                        kernels.launch_counts_by_dtype().items()}
     out["fallbacks"] = {str(k): v for k, v in
@@ -6294,6 +6346,7 @@ def tpsp_worker(out_dir, leg):
         if v.persistable and torch.is_tensor(scope.find_var(v.name)))
     log(f"[rank {rank}] ({leg}) losses {[round(x, 5) for x in losses]}, "
         f"step {out['step_ms_median']:.1f} ms")
+    out["stamps"] = dict(_STAMPS)
     with open(os.path.join(out_dir, f"tpsp{rank}_{leg}.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -6335,15 +6388,16 @@ def tpsp_launch(torch, repo, out_dir, nproc, leg):
            os.path.join(repo, "chip_smoke.py"), "--tpsp-worker", out_dir,
            leg]
     t0 = time.perf_counter()
-    rc = subprocess.run(cmd, cwd=repo,
-                        timeout=TPSP_TIMEOUT_S + 60).returncode
-    log(f"  leg ({leg}) on {nproc} ranks: ran "
-        f"{time.perf_counter() - t0:.1f} s, exit code {rc}")
+    rc = subprocess.run(cmd, cwd=repo, timeout=TPSP_TIMEOUT_S + 60,
+                        env=launch_env()).returncode
+    wall = time.perf_counter() - t0
+    log(f"  leg ({leg}) on {nproc} ranks: ran {wall:.1f} s, exit code {rc}")
     check(rc == 0, f"phase 18 leg ({leg}): a rank failed (exit code {rc})")
     ranks = []
     for r in range(nproc):
         with open(os.path.join(out_dir, f"tpsp{r}_{leg}.json")) as f:
             ranks.append(json.load(f))
+    launch_line(f"phase 18 launch ({leg})", ranks, wall)
     return ranks
 
 
@@ -6354,7 +6408,6 @@ def tpsp_report(leg, ranks, ref=None):
     persistables sha256-equal across the ranks; (a)'s losses within
     TOL_TPSP_LOSS of the one-rank run's."""
     what = f"({leg}) {TPSP_LEG_NAMES[leg]}"
-    expected = TPSP_LAUNCHES if leg == "a" else TP_LAUNCHES
     m0 = ranks[0]
     for r, m in enumerate(ranks):
         who = f"{what} rank {r}"
@@ -6365,7 +6418,7 @@ def tpsp_report(leg, ranks, ref=None):
         check(m["init_sha256"] == m0["init_sha256"],
               f"{who}: another startup than rank 0's")
         check(not m["fallbacks"], f"{who}: fallbacks {m['fallbacks']}")
-        want = {f"{k}/float32": n for k, n in expected.items()}
+        want = {f"{k}/float32": n for k, n in m["expected"].items()}
         got = m["launches"]
         for key in set(want) | set(got):
             check(got.get(key, 0) == want.get(key, 0) * TPSP_STEPS,
@@ -6377,7 +6430,8 @@ def tpsp_report(leg, ranks, ref=None):
     check((m0["ring_hits"] > 0) == (leg == "a"),
           f"{what}: {m0['ring_hits']} ring route hits")
     report = {k: m0[k] for k in ("losses", "step_ms_median", "comm_step_ms",
-                                 "comm", "peak_bytes", "held_bytes")}
+                                 "comm", "peak_bytes", "held_bytes",
+                                 "expected")}
     report["busy_share"] = m0["profile"]["busy_share"] if m0["profile"] \
         else None
     if ref is not None:
@@ -6430,7 +6484,7 @@ def tpsp_phase(torch, np, repo, results):
 
 
 # ---------------------------------------------------------------------------
-# phase 19: pipeline parallelism at BERT-base width and depth
+# phase 19: pipeline parallelism at BERT-base width, MP_LAYERS layers
 # ---------------------------------------------------------------------------
 
 PIPE_STAGES, PIPE_M, PIPE_STEPS = 2, 4, 4
@@ -6460,10 +6514,10 @@ PIPE_KERNEL_OPS = {
 
 
 def pipe_config(dropout):
-    """Phase 19's model: BERT-base uncut, at ``dropout`` (hidden and
-    attention)."""
+    """Phase 19's model: BERT-base's width at MP_LAYERS layers, at
+    ``dropout`` (hidden and attention)."""
     from paddle_tpu_torch.models import bert
-    cfg = bert.BertConfig.base()
+    cfg = cut_depth(bert.BertConfig.base(), MP_LAYERS)
     cfg.hidden_dropout_prob = dropout
     cfg.attention_probs_dropout_prob = dropout
     return cfg
@@ -6538,6 +6592,15 @@ def build_pipe_train(cfg, feed, schedule="1f1b", chunks=1, M=PIPE_M,
     return program, main, startup, total
 
 
+def kernel_op_key(op):
+    """The PIPE_KERNEL_OPS key of a forward op (a fused add + activation
+    counts when its activation is GELU), or None."""
+    key = op.type
+    if key == "fused_elemwise_activation":
+        key = "gelu" if "gelu" in op.attrs.get("functor_list", ()) else None
+    return key if key in PIPE_KERNEL_OPS else None
+
+
 def pipe_expected(program, loss_name, pp_rank, S, M, family, chunks):
     """Launches a rank makes a step, from the program and the schedule:
     each virtual stage's forward kernels once per F unit and once per
@@ -6552,11 +6615,8 @@ def pipe_expected(program, loss_name, pp_rank, S, M, family, chunks):
     for op in ops:
         if op.type == "backward":
             break
-        key = op.type
-        if key == "fused_elemwise_activation":
-            key = "gelu" if "gelu" in op.attrs.get("functor_list", ()) \
-                else None
-        if key not in PIPE_KERNEL_OPS:
+        key = kernel_op_key(op)
+        if key is None:
             continue
         k = int(op.attrs.get("_pipe_stage", 0))
         for side, names in zip(per[k], PIPE_KERNEL_OPS[key]):
@@ -6949,6 +7009,616 @@ def pipe_phase(torch, np, repo):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 20: Mixture-of-Experts at BERT-base width
+# ---------------------------------------------------------------------------
+
+#: BertConfig's MoE defaults with 8 experts: top-2, capacity factor 2.0,
+#: aux weight 0.01, routing groups of up to 256 tokens
+MOE_EXPERTS = 8
+MOE_STEPS = 5             # (a): prepared steps at dropout 0.1
+MOE_EP_STEPS = 3          # (b): steps a tier (the reference's count)
+MOE_EP_RANKS = 2
+#: (b)'s depth: BERT-base's width at CUT_LAYERS layers.  On an H100 80GB
+#: at 700 W, at 12 its launch ran 80 s and the one-rank restore of its
+#: 6.7 GB checkpoint 27 s, and at 4 the script ran 913.9 s by its clock;
+#: (a) and (c) keep 12
+MOE_EP_LAYERS = CUT_LAYERS
+TOL_MOE_EP = 1e-5         # (b)(i) vs the one-rank run: losses, parameters
+MOE_INT8_RTOL, MOE_INT8_ATOL = 0.05, 0.01   # (ii) vs (i), tests/test_moe
+#: (iii) the next loss on one rank vs the ranks', relative: one rank's
+#: mean over 32 rows against the mean of two 16-row means differ in the
+#: order of the sum (one float32 ulp of a loss of 10 is 9.5e-7)
+TOL_MOE_RESTORE = 1e-6
+MOE_TIMEOUT_S = 600
+#: (c): 8 requests of phase 11's prompts in one burst, routed one token a
+#: group (capacity 1 an expert: no drop depends on the batch)
+MOE_DECODE_REQUESTS = 8
+MOE_DECODE_GROUP = 1
+
+
+def moe_config(dropout, aux=0.01, layers=None):
+    """Phase 20's model: BERT-base width with the routed FFN in every
+    layer (``moe_experts`` 8, top-2, capacity factor 2.0), at
+    ``dropout`` (hidden and attention) and aux weight ``aux``; ``layers``
+    cuts the depth."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BertConfig.base()
+    if layers is not None:
+        cfg = cut_depth(cfg, layers)
+    cfg.moe_experts = MOE_EXPERTS
+    cfg.moe_aux_weight = aux
+    cfg.hidden_dropout_prob = dropout
+    cfg.attention_probs_dropout_prob = dropout
+    return cfg
+
+
+def build_moe_train(cfg, layout=None, quant=None):
+    """Phase 20's program: phase 8's fused program (``fuse_add_layernorm``
+    on the program, ``fuse_elewise_add_act_ops`` through the build
+    strategy) with phase 15's recipe (AdamW with warmup and decay, no
+    global-norm clip: under ``ep`` an expert gradient is its rank's
+    block).  ``layout``: ``apply_expert_sharding`` onto it (the exchange
+    at ``quant``'s tier) and ``with_mesh`` over its batch axes, bucketed
+    gradient sync; else one rank.  Returns (the program to run, main,
+    startup, loss, LR var)."""
+    from paddle_tpu_torch import fluid, parallel
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.passes import apply_pass
+    from paddle_tpu_torch.models import bert
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = main.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(cfg)
+        opt = zero_optimizer(fluid)
+        opt.minimize(total)
+    apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
+    bs = fluid.BuildStrategy()
+    bs.fuse_elewise_add_act_ops = True
+    if layout is None:
+        program = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=total.name, build_strategy=bs)
+    else:
+        parallel.apply_expert_sharding(main, layout, quant_spec=quant)
+        main._mesh_layout = layout
+        bs.fuse_all_reduce_ops = True
+        program = fluid.CompiledProgram(main).with_mesh(
+            layout.build_mesh(), loss_name=total.name,
+            batch_axis=layout.batch_axes, build_strategy=bs)
+    return program, main, startup, total, opt.learning_rate_var
+
+
+def program_launches(program, loss_name):
+    """Launches a training step of ``program`` makes, from its pass
+    variant: each forward op's kernels (PIPE_KERNEL_OPS) once, its
+    backward's once, #10 once for the run of adamw ops."""
+    variant = program._variant_for([loss_name]) \
+        if hasattr(program, "_variant_for") else program
+    want = {"adam": 1}
+    for op in variant.global_block().ops:
+        if op.type == "backward":
+            break
+        for names in PIPE_KERNEL_OPS.get(kernel_op_key(op), ()):
+            for n in names:
+                want[n] = want.get(n, 0) + 1
+    return want
+
+
+def combine_names(main):
+    """Each routed block's Combine weights (moe_dispatch's output)."""
+    return [op.outputs["Combine"][0] for op in main.global_block().ops
+            if op.type == "moe_dispatch"]
+
+
+def dropped_share(np, combines, top_k):
+    """The share of (token, choice) slots each layer's routing dropped:
+    1 - the kept entries of Combine [G, S, E, C] over tokens x top-k."""
+    out = []
+    for c in combines:
+        c = np.asarray(c)
+        tokens = c.shape[0] * c.shape[1]
+        out.append(1.0 - float(np.count_nonzero(c)) / (tokens * top_k))
+    return out
+
+
+def moe_plain_run(torch, np, cfg, kernels_on, grads=True):
+    """PLAIN_STEPS steps of phase 20's one-rank program at ``cfg`` through
+    Executor.run from the seed's startup, with every kernel on or every
+    kernel flag off: (losses, step-1 gradients, launches, the parameters
+    after the steps on the host, the gradients' names)."""
+    from paddle_tpu_torch import flags, fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    program, main, startup, total, _ = build_moe_train(cfg)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    grad_names = [p.name + "@GRAD" for p in main.all_parameters()]
+    flags.set_flags({"use_flash_attention": kernels_on,
+                     "use_pallas_fused": kernels_on})
+    try:
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(startup, scope=scope)
+        kernels.reset_launch_counts()
+        losses, got = [], None
+        for i in range(PLAIN_STEPS):
+            fetch = [total] + (grad_names if i == 0 and grads else [])
+            res = exe.run(program, feed=feed, fetch_list=fetch,
+                          scope=scope, return_numpy=False)
+            losses.append(float(res[0]))
+            if i == 0:
+                got = [g.cpu() for g in res[1:]]
+        params = {p.name: scope.find_var(p.name).detach().cpu().clone()
+                  for p in main.all_parameters()}
+        return losses, got, kernels.launch_counts(), params, grad_names
+    finally:
+        flags.set_flags({"use_flash_attention": True,
+                         "use_pallas_fused": True})
+        torch.cuda.empty_cache()
+
+
+def moe_one_rank(torch, np):
+    """(a): phase 20's program on this process, MOE_STEPS prepared steps at
+    dropout 0.1 (launches a step derived from the program, no fallback,
+    the drops a layer from the last step's Combine), one profiled step;
+    then at dropout 0 and aux 0, PLAIN_STEPS steps with every kernel on
+    against every kernel flag off (phase 7's tolerances).  Returns
+    (launches, report, the reference: the kernel run's losses and
+    parameters, for (b))."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    cfg = moe_config(DROPOUT)
+    program, main, startup, total, lr_var = build_moe_train(cfg)
+    expected = program_launches(program, total.name)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    combs = combine_names(main)
+    params = main.all_parameters()
+    n_params = sum(math.prod(p.shape) for p in params)
+    n_expert = sum(math.prod(p.shape) for p in params
+                   if len(p.shape) >= 2 and p.shape[0] == MOE_EXPERTS
+                   and "_moe" in p.name)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    prepared = exe.prepare(program, fetch_list=[total, lr_var] + combs,
+                           scope=scope, donate_state=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from zero, MOE_STEPS steps, read right after
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    losses, step_s, out = [], [], None
+    for _ in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        out = prepared.run(feed)
+        losses.append(float(out[0]))
+        step_s.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    fallbacks = registry.route_counts("fallback")
+    drops = dropped_share(np, [h.numpy() for h in out[2:]], cfg.moe_top_k)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = statistics.median(step_s[1:])
+    log(f"  (a) MoE BERT-base ({n_params} parameters, {n_expert} of them "
+        f"in {MOE_EXPERTS} experts a layer x {cfg.num_hidden_layers}), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, dropout {DROPOUT}: losses "
+        f"{[round(x, 5) for x in losses]}; step {steady * 1e3:.1f} ms "
+        f"(median of steps 2-{MOE_STEPS}); peak allocated {peak_gb:.2f} "
+        f"GB; token slots dropped a layer "
+        f"{[round(d, 4) for d in drops]}")
+    log(f"  launches over {MOE_STEPS} steps: {launches}; derived a step "
+        f"from the program: {expected}")
+    check(all(math.isfinite(x) for x in losses), f"(a): losses {losses}")
+    check(not fallbacks, f"(a): route fallbacks {fallbacks}")
+    check_launches(kernels, expected, MOE_STEPS,
+                   {n: "float32" for n in expected})
+    profile = profile_step(torch, lambda: float(prepared.run(feed)[0]),
+                           steady * 1e3)
+    del prepared, scope, out
+    torch.cuda.empty_cache()
+    report = {"losses": losses, "step_s": step_s,
+              "step_ms_median": steady * 1e3, "peak_gb": peak_gb,
+              "parameters": n_params, "expert_parameters": n_expert,
+              "dropped_share_by_layer": drops, "expected": expected,
+              "busy_share": profile["busy_share"] if profile else None,
+              "profile": profile}
+
+    # dropout 0, aux 0: kernels on vs every flag off; the kernel run is
+    # (b)'s one-rank reference
+    cfg0 = moe_config(0.0, aux=0.0)
+    k_losses, k_grads, k_launches, k_params, grad_names = moe_plain_run(
+        torch, np, cfg0, True)
+    p_losses, p_grads, p_launches, _, _ = moe_plain_run(torch, np, cfg0,
+                                                        False)
+    check(sum(p_launches.values()) == 0, "(a): the plain path launched")
+    check(all(k_launches.get(n, 0) == per * PLAIN_STEPS
+              for n, per in expected.items()),
+          f"(a): the kernel path launched {k_launches}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    grad_err, worst = 0.0, ""
+    for n, a, b in zip(grad_names, k_grads, p_grads):
+        e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if e > grad_err:
+            grad_err, worst = e, n
+    log(f"  (a) dropout 0, aux 0, {PLAIN_STEPS} steps: losses kernels "
+        f"{[round(x, 6) for x in k_losses]} vs plain "
+        f"{[round(x, 6) for x in p_losses]}: max relative Δ {loss_err:.3e} "
+        f"(tolerance {TOL_TRAIN_LOSS:.0e}); step-1 grads max |Δ| / "
+        f"max|grad| {grad_err:.3e} at {worst} (tolerance "
+        f"{TOL_TRAIN_GRAD:.0e})")
+    check(loss_err <= TOL_TRAIN_LOSS, "(a): kernels disagree with the "
+                                      "plain path (losses)")
+    check(grad_err <= TOL_TRAIN_GRAD,
+          f"(a): step-1 grad of {worst}: kernels disagree with the plain "
+          f"path")
+    report.update(kernel_losses=k_losses, plain_losses=p_losses,
+                  loss_max_rel=loss_err, grad_max_rel=grad_err,
+                  grad_worst=worst)
+    del k_grads, p_grads
+    if MOE_EP_LAYERS != cfg.num_hidden_layers:
+        # (b) runs cut: its one-rank reference at its own depth
+        k_losses, _, _, k_params, _ = moe_plain_run(
+            torch, np, moe_config(0.0, aux=0.0, layers=MOE_EP_LAYERS), True,
+            grads=False)
+    return launches, report, {"losses": k_losses, "params": k_params}
+
+
+def moe_comm(torch):
+    """Phase 20's gloo transfers by kind: the expert exchange (an
+    all-to-all: the token blocks, or the int8 payload and its scales) and
+    the dense gradients' all-reduce over ep."""
+    def kind_of(name, g):
+        return "expert exchange" if name == "all_to_all" else \
+            "dense all-reduce"
+    return timed_comm(torch, ("all_to_all", "all_reduce"), kind_of)
+
+
+def moe_ep_leg(torch, np, tier, feed, out_dir):
+    """One tier of (b) on this rank: ``apply_expert_sharding`` onto
+    ``MeshLayout(expert=2)`` (float32, or the int8 exchange), the startup,
+    MOE_EP_STEPS prepared steps (launches, fallbacks, the route table's
+    entries); float32: the global parameters (a file for the parent) and
+    a sharded save; the step after them with the gloo transfers timed;
+    the held and peak bytes."""
+    from paddle_tpu_torch import fluid, io
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    dev = torch.device("cuda", fleet.place.device_id)
+    cfg = moe_config(0.0, aux=0.0, layers=MOE_EP_LAYERS)
+    quant = None if tier == "fp32" else tier
+    program, main, startup, total, _ = build_moe_train(
+        cfg, MeshLayout(expert=MOE_EP_RANKS), quant)
+    dp = program._dp
+    check(dp is not None and dp.world == MOE_EP_RANKS,
+          f"(b) {tier}: the program does not run over {MOE_EP_RANKS} ranks")
+    out = {"tier": tier, "expected": program_launches(program, total.name),
+           "exchanges": sum(op.type == "c_expert_alltoall"
+                            for op in main.global_block().ops)}
+    scope = fluid.Scope()
+    exe = fluid.Executor(fleet.place)
+    exe.run(startup, scope=scope)
+    prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    registry.reset_route_counts()
+    losses, step_s = [], []
+    first_step()
+    for _ in range(MOE_EP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(prepared.run(feed)[0]))
+        step_s.append(time.perf_counter() - t0)
+    stamp("steps", sum(step_s))
+    out["launches"] = {f"{k}/{dt}": n for (k, dt), n in
+                       kernels.launch_counts_by_dtype().items()}
+    out["fallbacks"] = {str(k): v for k, v in
+                        registry.route_counts("fallback").items()}
+    out["exchange_routes"] = sum(v for k, v in registry.route_counts()
+                                 .items() if k[0] == "c_expert_alltoall")
+    out["losses"], out["step_s"] = losses, step_s
+    out["step_ms_median"] = statistics.median(step_s[1:]) * 1e3
+    fluid.sync_prepared_state(scope)
+    out["held"], out["predicted"], _, _ = held_bytes(torch, dp, scope, main)
+    if tier == "fp32":
+        params = global_params(dp, scope, main)
+        out["params_path"] = os.path.join(out_dir, "ep_params.pt")
+        if fleet.worker_index() == 0:
+            torch.save({n: t.cpu() for n, t in params.items()},
+                       out["params_path"])
+        del params
+        t0 = time.perf_counter()
+        io.save_checkpoint(exe, os.path.join(out_dir, "ckpt"),
+                           io.TrainStatus(MOE_EP_STEPS),
+                           main, scope=scope, sharded=True)
+        out["save_s"] = time.perf_counter() - t0
+        stamp("saves", out["save_s"])
+    totals, undo = moe_comm(torch)
+    try:
+        t0 = time.perf_counter()
+        out["loss_after"] = float(prepared.run(feed)[0])
+        out["comm_step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    out["comm"] = totals
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del prepared, scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_worker(out_dir):
+    """One rank of (b) (``--moe-worker DIR``): the float32 tier, then the
+    int8 tier, in one launch; writes ``moe<r>.json``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
+    from paddle_tpu_torch.models import bert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
+    cfg = moe_config(0.0, aux=0.0, layers=MOE_EP_LAYERS)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    res = {"rank": rank}
+    for tier in ("fp32", "int8"):
+        res[tier] = m = moe_ep_leg(torch, np, tier, feed, out_dir)
+        log(f"[rank {rank}] (b) {tier}: losses "
+            f"{[round(x, 6) for x in m['losses']]}, step "
+            f"{m['step_ms_median']:.1f} ms")
+    res["stamps"] = dict(_STAMPS)
+    with open(os.path.join(out_dir, f"moe{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def moe_launch(torch, repo, out_dir):
+    """MOE_EP_RANKS ranks of this script on the card over gloo, one
+    launch for (b)'s tiers; returns their JSON results."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc", str(MOE_EP_RANKS), "--selected_gpus",
+           ",".join(["0"] * MOE_EP_RANKS), "--backend", "gloo",
+           "--timeout", str(MOE_TIMEOUT_S),
+           os.path.join(repo, "chip_smoke.py"), "--moe-worker", out_dir]
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, cwd=repo, timeout=MOE_TIMEOUT_S + 60,
+                        env=launch_env()).returncode
+    wall = time.perf_counter() - t0
+    log(f"  (b) on {MOE_EP_RANKS} ranks: ran {wall:.1f} s, exit code {rc}")
+    check(rc == 0, f"phase 20 (b): a rank failed (exit code {rc})")
+    ranks = []
+    for r in range(MOE_EP_RANKS):
+        with open(os.path.join(out_dir, f"moe{r}.json")) as f:
+            ranks.append(json.load(f))
+    launch_line("phase 20 launch (b)", ranks, wall)
+    return ranks
+
+
+def moe_ep_report(torch, np, ranks, ref, out_dir):
+    """(b)'s gates: every rank's losses finite and alike, no fallback, no
+    route of the exchange taken, the launches the program predicts, the
+    held bytes the layout's; (i) against the one-rank reference ``ref``
+    within TOL_MOE_EP (losses and parameters), (ii) against (i) within
+    the int8 bound; (iii) the sharded checkpoint restored onto one rank
+    in this process: the parameters bit for bit, the next loss within
+    TOL_MOE_RESTORE (relative).  Returns rank 0's launches and the report."""
+    from paddle_tpu_torch import fluid, io
+    from paddle_tpu_torch.models import bert
+    report = {"layers": MOE_EP_LAYERS}
+    for tier in ("fp32", "int8"):
+        what = f"(b) {tier} exchange, expert 2"
+        m0 = ranks[0][tier]
+        for r, rk in enumerate(ranks):
+            m = rk[tier]
+            who = f"{what} rank {r}"
+            check(all(math.isfinite(x) for x in m["losses"]),
+                  f"{who}: losses {m['losses']}")
+            check(m["losses"] == m0["losses"], f"{who}: other losses than "
+                                               f"rank 0's")
+            check(not m["fallbacks"], f"{who}: fallbacks {m['fallbacks']}")
+            check(m["exchange_routes"] == 0,
+                  f"{who}: the exchange took a kernel route")
+            want = {f"{k}/float32": n for k, n in m["expected"].items()}
+            for key in set(want) | set(m["launches"]):
+                check(m["launches"].get(key, 0) ==
+                      want.get(key, 0) * MOE_EP_STEPS,
+                      f"{who}: {key} launched {m['launches'].get(key, 0)} "
+                      f"times in {MOE_EP_STEPS} steps, the program says "
+                      f"{want.get(key, 0)} a step")
+            check(m["held"] == m["predicted"],
+                  f"{who}: holds {m['held']} bytes, the layout predicts "
+                  f"{m['predicted']}")
+        comm = m0["comm"]
+        log(f"  {what}: losses {m0['losses']}; step "
+            f"{m0['step_ms_median']:.1f} ms (median of steps 2-"
+            f"{MOE_EP_STEPS}); one step with its gloo transfers timed "
+            f"{m0['comm_step_ms']:.1f} ms: "
+            + ", ".join(f"{k} {v['ms']:.1f} ms in {v['calls']} calls "
+                        f"({v['bytes'] / 1e6:.1f} MB)"
+                        for k, v in sorted(comm.items()))
+            + f"; {m0['exchanges']} exchange ops; persistent "
+            f"{m0['held'] / 1e9:.3f} GB, peak allocated "
+            f"{m0['peak_bytes'] / 1e9:.3f} GB a rank (two ranks on one "
+            f"card over gloo, staged through the host)")
+        report[tier] = {k: m0[k] for k in (
+            "losses", "step_ms_median", "comm_step_ms", "comm", "held",
+            "peak_bytes", "expected", "exchanges")}
+    fp, q = ranks[0]["fp32"], ranks[0]["int8"]
+    gap = max(abs(a - b) for a, b in zip(fp["losses"], ref["losses"]))
+    got = torch.load(fp["params_path"])
+    pgap = pipe_params_gap(torch, got, ref["params"])
+    del got
+    log(f"  (b)(i) vs the one-rank run at dropout 0, aux 0: losses max|Δ| "
+        f"{gap:.3e}, parameters max|Δ| {pgap:.3e} (tolerance {TOL_MOE_EP})")
+    check(gap <= TOL_MOE_EP and pgap <= TOL_MOE_EP,
+          f"(b)(i): {gap:.3e} / {pgap:.3e} from the one-rank run")
+    report["fp32"].update(loss_gap=gap, param_gap=pgap)
+    qgap = max(abs(a - b) - MOE_INT8_RTOL * abs(b)
+               for a, b in zip(q["losses"], fp["losses"]))
+    log(f"  (b)(ii) int8 exchange vs float32: losses {q['losses']} vs "
+        f"{fp['losses']} (rtol {MOE_INT8_RTOL}, atol {MOE_INT8_ATOL})")
+    check(qgap <= MOE_INT8_ATOL, "(b)(ii): the int8 exchange strays from "
+                                 "the float32 one")
+    # (iii) the sharded ep-2 checkpoint onto one rank
+    cfg = moe_config(0.0, aux=0.0, layers=MOE_EP_LAYERS)
+    program, main, _, total, _ = build_moe_train(cfg)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    t0 = time.perf_counter()
+    st = io.load_checkpoint(exe, os.path.join(out_dir, "ckpt"),
+                            main_program=main, scope=scope)
+    load_s = time.perf_counter() - t0
+    got = torch.load(fp["params_path"])
+    differ = sorted(n for n, t in got.items()
+                    if not torch.equal(scope.find_var(n).cpu(), t))
+    del got
+    check(st.epoch_no == MOE_EP_STEPS and not differ,
+          f"(b)(iii): restored parameters differ: {differ[:5]}")
+    prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                           donate_state=True)
+    nxt = float(prepared.run(feed)[0])
+    log(f"  (b)(iii) the expert-2 sharded checkpoint ({fp['save_s']:.2f} s "
+        f"to save) restored onto one rank in {load_s:.2f} s, every "
+        f"parameter bit for bit; the next loss {nxt} vs the ranks' "
+        f"{fp['loss_after']} (tolerance {TOL_MOE_RESTORE}, relative)")
+    check(abs(nxt - fp["loss_after"]) <= TOL_MOE_RESTORE * abs(nxt),
+          f"(b)(iii): the next loss {nxt} vs {fp['loss_after']}")
+    report["restore"] = {"load_s": load_s, "save_s": fp["save_s"],
+                         "loss_after": nxt}
+    del prepared, scope
+    torch.cuda.empty_cache()
+    launches = {"moe_ep": {k.split("/")[0]: v for k, v in
+                           fp["launches"].items()},
+                "moe_ep_int8": {k.split("/")[0]: v for k, v in
+                                q["launches"].items()}}
+    return launches, report
+
+
+def moe_decode_leg(torch, np):
+    """(c): phase 11's engine config serving the MoE decoder (8 experts,
+    routed one token a group): MOE_DECODE_REQUESTS requests of phase 11's
+    prompts with the kernels on (launches a forward, no fallback, tokens
+    against greedy_reference as phase 11 holds them), then with every
+    kernel flag off on the same weights: the same tokens (a divergence
+    only where the reference's top-2 gap is under TOL_DECODE_GAP)."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import BertDecoder
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+    cfg = moe_config(0.0)
+    cfg.moe_group_size = MOE_DECODE_GROUP
+    prompts = decode_prompts(np, cfg.vocab_size)[:MOE_DECODE_REQUESTS]
+    budgets = decode_budgets(len(prompts))
+
+    def engine_for():
+        return DecodeEngine(BertDecoder(cfg, seed=SEED), DecodeConfig(
+            pool_blocks=DECODE_POOL_BLOCKS, **DECODE_CONFIG),
+            auto_start=False)
+
+    engine = engine_for().start()
+    try:
+        kernels.reset_launch_counts()
+        registry.reset_route_counts()
+        t0 = time.perf_counter()
+        futs = [engine.generate({"src_ids": p}, max_new_tokens=n)
+                for p, n in zip(prompts, budgets)]
+        res = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        engine.drain()
+        launches = kernels.launch_counts()
+        fallbacks = registry.route_counts("fallback")
+        stats = engine.stats()
+        forwards = stats["prefill_batches"] + stats["chunk_steps"] + \
+            stats["decode_steps"]
+        log(f"  (c) MoE decoder, {len(prompts)} requests: "
+            f"{stats['tokens_out']} tokens in {wall:.3f} s "
+            f"({stats['tokens_out'] / wall:.1f} tokens/s), {forwards} "
+            f"forwards; launches {launches}")
+        check(not fallbacks, f"(c): route fallbacks {fallbacks}")
+        for name, per in DECODE_LAUNCHES.items():
+            check(launches.get(name, 0) == per * forwards,
+                  f"(c): {name} launched {launches.get(name, 0)} times, "
+                  f"expected {per} x {forwards} forwards")
+        check(not {k: v for k, v in launches.items()
+                   if v and k not in DECODE_LAUNCHES},
+              f"(c): unexpected launches {launches}")
+        diverged = decode_parity(torch, np, engine, prompts, res)
+        weights = {n: engine._ref_scope.find_var(n).detach().cpu().numpy()
+                   for n in engine._ref_scope.var_names()
+                   if engine._programs.startup.global_block().has_var(n)}
+    finally:
+        engine.shutdown()
+    kernel_tokens = [r.tokens.tolist() for r in res]
+    flags.set_flags({"use_flash_attention": False,
+                     "use_pallas_fused": False})
+    plain = engine_for()
+    try:
+        plain.set_params(weights)
+        plain.start()
+        kernels.reset_launch_counts()
+        futs = [plain.generate({"src_ids": p}, max_new_tokens=n)
+                for p, n in zip(prompts, budgets)]
+        plain_tokens = [f.result(timeout=600).tokens.tolist() for f in futs]
+        check(sum(kernels.launch_counts().values()) == 0,
+              "(c): the plain route launched a kernel")
+        differ = []
+        for i, (a, b) in enumerate(zip(kernel_tokens, plain_tokens)):
+            if a == b:
+                continue
+            t = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            ref_l = reference_logits(np, plain, list(prompts[i]) + b[:t])
+            top2 = np.sort(ref_l)[-2:]
+            differ.append({"request": i, "token": t,
+                           "top2_gap": float(top2[1] - top2[0])})
+    finally:
+        flags.set_flags({"use_flash_attention": True,
+                         "use_pallas_fused": True})
+        plain.shutdown()
+    log(f"  (c) tokens vs greedy_reference: {len(prompts) - len(diverged)} "
+        f"of {len(prompts)} identical; kernel route vs plain route: "
+        f"{len(prompts) - len(differ)} of {len(prompts)} identical "
+        f"{differ}")
+    check(len(differ) <= DECODE_MAX_DIVERGED and
+          all(d["top2_gap"] < TOL_DECODE_GAP for d in differ),
+          f"(c): the kernel route's tokens differ from the plain route's: "
+          f"{differ}")
+    return launches, {"requests": len(prompts), "wall_s": wall,
+                      "tokens_out": stats["tokens_out"],
+                      "tokens_per_s": stats["tokens_out"] / wall,
+                      "forwards": forwards, "diverged": diverged,
+                      "plain_differ": differ}
+
+
+def moe_phase(torch, np, repo):
+    """Phase 20 (see the module docstring); returns the launches by path
+    and the report."""
+    from paddle_tpu_torch.ops.cuda import build
+    one_launches, one, ref = moe_one_rank(torch, np)
+    out_dir = os.path.join(build.BUILD_DIR, "smoke_moe")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        ranks = moe_launch(torch, repo, out_dir)
+        ep_launches, ep = moe_ep_report(torch, np, ranks, ref, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del ref
+    dec_launches, dec = moe_decode_leg(torch, np)
+    return ({"moe": one_launches, **ep_launches, "moe_decode": dec_launches},
+            {"a": one, "b": ep, "c": dec})
+
+
 def nvidia_smi_line():
     try:
         out = subprocess.run(
@@ -6997,6 +7667,9 @@ TPSP_PATHS = ("tp_sp", "tp")
 #: phase 19's paths, rank 0 of each leg: (a) 1F1B, (b) zero-bubble and
 #: interleaved, (c) 1F1B at dropout 0.1, (d) dp 2 x pp 2 through fleet
 PIPE_PATHS = ("pipe_a", "pipe_b_zb", "pipe_b_il", "pipe_c", "pipe_d")
+#: phase 20's paths: (a) one rank, (b) expert 2 rank 0 (float32 and int8
+#: exchanges), (c) the MoE decoder
+MOE_PATHS = ("moe", "moe_ep", "moe_ep_int8", "moe_decode")
 
 
 def kernels_line(per_kernel, launches_by_path):
@@ -7038,7 +7711,10 @@ def kernels_line(per_kernel, launches_by_path):
     leg (b), rank 0; #1-#3 also carry ``ring``, their rows at the ring's
     kernel entry, float32 and bfloat16) and phase 19's
     (``pipe_a_launches``, ``pipe_b_zb_launches``, ``pipe_b_il_launches``,
-    ``pipe_c_launches``, ``pipe_d_launches``, rank 0); Adam
+    ``pipe_c_launches``, ``pipe_d_launches``, rank 0) and phase 20's
+    (``moe_launches``: (a)'s one-rank steps, ``moe_ep_launches`` and
+    ``moe_ep_int8_launches``: (b)'s float32 and int8 exchange tiers, rank
+    0, ``moe_decode_launches``: (c)); Adam
     carries its 16-bit rows (``16_bit``: bf16 and fp16 parameters beside
     float32 or 16-bit moments) and its row on ZeRO-1's flat shards
     (``zero1_shards``), #11 its rows at the ZeRO-1 scatter's largest
@@ -7074,7 +7750,8 @@ def kernels_line(per_kernel, launches_by_path):
         for other in ("train", "fused_train", "dp_int8", "dp_int4",
                       "decode", "amp", "amp_fused", "amp_fp16",
                       "amp_pure_bf16", "lamb") + WRAPPED_PATHS + ZERO_PATHS \
-                + HSDP_PATHS + OVERLAP_PATHS + TPSP_PATHS + PIPE_PATHS:
+                + HSDP_PATHS + OVERLAP_PATHS + TPSP_PATHS + PIPE_PATHS \
+                + MOE_PATHS:
             if path != other and launches_by_path[other].get(name):
                 entry[other + "_launches"] = launches_by_path[other][name]
         if name == "adam":
@@ -7177,7 +7854,8 @@ def main(argv=None) -> int:
                "--zero-worker": zero_worker, "--hsdp-worker": hsdp_worker,
                "--overlap-worker": overlap_worker,
                "--preempt-worker": preempt_worker,
-               "--tpsp-worker": tpsp_worker, "--pipe-worker": pipe_worker}
+               "--tpsp-worker": tpsp_worker, "--pipe-worker": pipe_worker,
+               "--moe-worker": moe_worker}
     if argv[:1] and argv[0] in workers:
         try:
             return workers[argv[0]](*argv[1:])
@@ -7298,7 +7976,7 @@ def main(argv=None) -> int:
         log(f"  phase 17 ran {time.perf_counter() - t17:.1f} s")
 
         log(f"phase 18: tensor and sequence parallelism at BERT-base width "
-            f"on the card over gloo: the ring's kernel entry against its "
+            f"and {MP_LAYERS} layers on the card over gloo: the ring's kernel entry against its "
             f"twins, (a) tp 2 x sp 2 on {TPSP_RANKS} ranks against one "
             f"rank, (b) tp 2 with attention dropout, {TPSP_STEPS} steps a "
             f"leg")
@@ -7307,7 +7985,8 @@ def main(argv=None) -> int:
                                                  per_kernel)
         log(f"  phase 18 ran {time.perf_counter() - t18:.1f} s")
 
-        log(f"phase 19: pipeline parallelism at BERT-base width and depth "
+        log(f"phase 19: pipeline parallelism at BERT-base width and "
+            f"{MP_LAYERS} layers "
             f"on the card over gloo (phase 8's program and recipe): "
             f"(a)-(c) pp {PIPE_STAGES} on {PIPE_STAGES} ranks, "
             f"{PIPE_M} microbatches (1F1B, zero-bubble, interleaved, 1F1B "
@@ -7317,6 +7996,17 @@ def main(argv=None) -> int:
         t19 = time.perf_counter()
         pipe_launches, pipe_report_ = pipe_phase(torch, np, repo)
         log(f"  phase 19 ran {time.perf_counter() - t19:.1f} s")
+
+        log(f"phase 20: Mixture-of-Experts at BERT-base width "
+            f"({MOE_EXPERTS} experts, top-2, capacity factor 2.0): (a) one "
+            f"rank, {MOE_STEPS} steps of phase 20's fused program; (b) "
+            f"expert 2 on {MOE_EP_RANKS} ranks of the card over gloo at "
+            f"{MOE_EP_LAYERS} layers, float32 and int8 exchanges, the "
+            f"sharded checkpoint restored onto one rank; (c) the MoE "
+            f"decoder through DecodeEngine.generate")
+        t20 = time.perf_counter()
+        moe_launches, moe_report = moe_phase(torch, np, repo)
+        log(f"  phase 20 ran {time.perf_counter() - t20:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7324,7 +8014,7 @@ def main(argv=None) -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    log(f"phase 20: report ({time.perf_counter() - t_start:.1f} s in all)")
+    log(f"phase 21: report ({time.perf_counter() - t_start:.1f} s in all)")
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))
@@ -7339,6 +8029,7 @@ def main(argv=None) -> int:
     log("overlap " + json.dumps(overlap_report_))
     log("tp_sp " + json.dumps(tpsp_report_))
     log("pipeline " + json.dumps(pipe_report_))
+    log("moe " + json.dumps(moe_report))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,
@@ -7347,7 +8038,7 @@ def main(argv=None) -> int:
         "amp": amp, "amp_fused": amp_fused, "amp_fp16": amp_fp16,
         "amp_pure_bf16": amp_pure, "lamb": lamb, **wrapped,
         **zero_launches, **hsdp_launches, **overlap_launches,
-        **tpsp_launches, **pipe_launches})))
+        **tpsp_launches, **pipe_launches, **moe_launches})))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

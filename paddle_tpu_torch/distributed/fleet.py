@@ -51,7 +51,10 @@ may also name ``apply_pipeline``'s ``shard_weights`` and
 ``feed_shapes`` (the microbatch's shapes the stage cut is planned at).  A flag whose path is
 not ported (auto_shard, a mesh of another kind or with an expert axis,
 pp beside fsdp, tp or sp) raises :class:`UnimplementedError` naming it;
-none is ignored.
+none is ignored.  Expert parallelism composes
+``parallel.apply_expert_sharding`` with ``CompiledProgram.with_mesh``
+outside fleet; the manual ``moe_ffn(ep_degree=n, axis_name="dp")``
+build rides fleet's plain data parallelism.
 ``barrier_worker`` meets the other workers through the host collective
 service (``distributed/gloo.py``) when ``PADDLE_GLOO_ENDPOINT`` is set."""
 
@@ -301,6 +304,15 @@ def _refuse_unported(s):
             f"mesh, MeshLayout(...).build_mesh() (a ProcessMesh over the "
             f"process group, one process per rank)")
     check_ported_axes(dict(mesh.shape), "DistributedStrategy.mesh")
+    from ..framework.mesh_layout import EXPERT_AXIS
+    if dict(mesh.shape).get(EXPERT_AXIS, 1) > 1:
+        raise UnimplementedError(
+            f"DistributedStrategy.mesh over the axes {dict(mesh.shape)}: "
+            f"an expert axis through fleet is not ported yet (the JAX "
+            f"package's fleet reaches expert layouts through auto_shard's "
+            f"planner); compose parallel.apply_expert_sharding with "
+            f"CompiledProgram.with_mesh, or build moe_ffn(ep_degree=n, "
+            f"axis_name='dp') under plain data parallelism")
     if _sharded(s) and mesh.size > 1 and len(mesh.axis_names) != 1:
         # the JAX package's refusal (its fleet shards the update over one
         # axis); a hybrid grid composes with_mesh and the optimizer

@@ -32,8 +32,13 @@ over that one, or is local to its tensor-parallel block).  It takes the
 pipe axis ``pp`` beside the data axis too (a program
 ``framework.pipe.apply_pipeline`` cut into stages: the executor walks
 its schedule over the pp group, and ``insert_pipe_grad_sync`` sums the
-gradients over pp).  An expert axis, pp beside fsdp, tp or sp, and
-several places in one process raise: one process drives one device.  With ``overlap_grad_sync``
+gradients over pp), and the expert axis ``ep`` beside the data and fsdp
+axes (a program ``parallel.apply_expert_sharding`` stamped: ``ep`` is a
+batch axis, and an expert weight's gradient, summed over the ranks'
+tokens by the exchange's backward, is scaled by 1/n and reduced over the
+other batch axes only).  pp beside fsdp, tp or sp, ep beside tp, sp or
+pp, and several places in one process raise: one process drives one
+device.  With ``overlap_grad_sync``
 the buckets are cut in gradient ready order and marked for the
 executor's backward hooks (:func:`insert_grad_sync`).  The JAX package's
 static checks of a variant (``verify_programs``, ``hbm_budget_gb``,
@@ -157,8 +162,9 @@ class CompiledProgram:
         ``with_mesh`` for ``MeshLayout(data=n)``, ``MeshLayout(fsdp=n)``
         after ``apply_fsdp_sharding`` (ZeRO-3), both (HSDP), and data x
         tp x sp (tensor parallelism from the parameters' ``dist_attr``;
-        ``seq_axis`` the axis ring attention runs over), and data x pp
-        (a pipelined program).  Feeds split on
+        ``seq_axis`` the axis ring attention runs over), data x pp (a
+        pipelined program), and data x fsdp x ep (expert parallelism
+        after ``parallel.apply_expert_sharding``).  Feeds split on
         dim 0 over ``batch_axis`` (the layout's ``batch_axes``) by the
         rank's flat index over them, or by their entry in ``feed_specs``
         (one entry a dim: ``("dp", "sp")`` splits dim 1 over the sequence
@@ -167,12 +173,18 @@ class CompiledProgram:
         size above 1, each parameter's stamped axes left out (an
         fsdp-stamped parameter's gradient is summed over fsdp by the
         gather's transpose and reduced over ``dp`` only; a tp-stamped
-        one's is its block's own).  A ``seq_axis`` the mesh lacks is
-        dropped, as in the JAX package.  The mesh must have as many ranks
-        as the process group (``ValueError``); a pipeline or expert axis
-        and any other mesh object raise.  A ``pp`` axis runs a pipelined
-        program over its line of ranks (not a batch axis: the pipe ranks
-        of a data row see the same rows)."""
+        one's is its block's own; an ep-stamped expert weight's is summed
+        over ep by the expert exchange's backward, scaled by 1/n and
+        reduced over the other batch axes).  A ``seq_axis`` the mesh
+        lacks is dropped, as in the JAX package.  The mesh must have as
+        many ranks as the process group (``ValueError``); an axis the
+        port has not, or one beside an axis it does not run beside
+        (``mesh_layout.check_ported_axes``), and any other mesh object
+        raise.  A ``pp`` axis runs a pipelined program over its line of
+        ranks (not a batch axis: the pipe ranks of a data row see the
+        same rows); an ``ep`` axis (``MeshLayout(data=n, expert=m)``,
+        ``MeshLayout(fsdp=n, expert=m)``) is a batch axis, over which
+        the ``c_expert_alltoall`` ops exchange the routed tokens."""
         if mesh is None:
             self._dp = None
             self._loss_name = loss_name

@@ -17,10 +17,12 @@ devices), with one process group per line of the grid.  This port takes
 the data and the fsdp axes — ``data=n`` (data parallelism, ZeRO-1),
 ``fsdp=n`` (ZeRO-3) and both (HSDP) — the tensor axis with one extra
 sequence axis ``sp`` beside the data axis (Megatron tensor parallelism
-and ring attention, dp x tp x sp), and the pipeline axis ``pp`` beside
-the data axis (dp x pp); a layout with an expert or other extra axis
-above size 1, fsdp beside tp or sp, or pp beside fsdp, tp or sp, raises
-:class:`UnimplementedError` naming it."""
+and ring attention, dp x tp x sp), the pipeline axis ``pp`` beside the
+data axis (dp x pp), and the expert axis ``ep`` beside the data and the
+fsdp axes (dp x ep, fsdp x ep, dp x fsdp x ep); a layout with another
+extra axis above size 1, fsdp beside tp or sp, pp beside fsdp, tp or sp,
+or ep beside tp, sp or pp, raises :class:`UnimplementedError` naming
+it."""
 
 from __future__ import annotations
 
@@ -38,9 +40,9 @@ EXPERT_AXIS = "ep"
 #: package spells it: ``MeshLayout(tp=2, extra_axes={"sp": 2})``)
 SEQ_AXIS = "sp"
 #: the mesh axes the port runs: data parallelism, ZeRO / HSDP, Megatron
-#: tensor parallelism, ring attention and pipeline parallelism (expert
-#: parallelism waits for its slice)
-PORTED_AXES = (DATA_AXIS, FSDP_AXIS, TP_AXIS, SEQ_AXIS, PIPE_AXIS)
+#: tensor parallelism, ring attention, pipeline and expert parallelism
+PORTED_AXES = (DATA_AXIS, FSDP_AXIS, TP_AXIS, SEQ_AXIS, PIPE_AXIS,
+               EXPERT_AXIS)
 
 
 def check_ported_axes(sizes: Dict[str, int], what: str,
@@ -54,9 +56,9 @@ def check_ported_axes(sizes: Dict[str, int], what: str,
             f"{what} over the axes {dict(sizes)}: the axes {other} are not "
             f"ported yet; the port takes the {', '.join(ported)} axes (data "
             f"parallelism, ZeRO, HSDP, Megatron tensor parallelism, ring "
-            f"attention and pipeline parallelism); expert parallelism "
-            f"waits for its slice")
+            f"attention, pipeline and expert parallelism)")
     check_pipe_beside(sizes, what)
+    check_expert_beside(sizes, what)
 
 
 def check_pipe_beside(sizes: Dict[str, int], what: str,
@@ -75,6 +77,25 @@ def check_pipe_beside(sizes: Dict[str, int], what: str,
             f"{beside} is not ported yet; pipeline parallelism runs over "
             f"{DATA_AXIS} x {pipe_axis} (with plain data parallelism or "
             f"ZeRO-1 over {DATA_AXIS})")
+
+
+def check_expert_beside(sizes: Dict[str, int], what: str,
+                        expert_axis: str = EXPERT_AXIS,
+                        pipe_axis: str = PIPE_AXIS, tp_axis: str = TP_AXIS):
+    """Raise :class:`UnimplementedError` when the expert axis is above size
+    1 beside a tensor, sequence or pipe axis above size 1: expert
+    parallelism runs over data x fsdp x ep (the expert exchange inside a
+    tensor-parallel block, a ring-attention shard or a pipeline stage is
+    not ported)."""
+    if sizes.get(expert_axis, 1) < 2:
+        return
+    beside = {a: n for a, n in sizes.items()
+              if n > 1 and a in (tp_axis, SEQ_AXIS, pipe_axis)}
+    if beside:
+        raise UnimplementedError(
+            f"{what} over the axes {dict(sizes)}: the expert axis beside "
+            f"{beside} is not ported yet; expert parallelism runs over "
+            f"{DATA_AXIS} x {FSDP_AXIS} x {expert_axis}")
 
 
 def _flat_axes(entries) -> Tuple[str, ...]:
@@ -356,17 +377,19 @@ class MeshLayout:
     # -- materialisation -------------------------------------------------
     def check_ported(self):
         """Raise :class:`UnimplementedError` naming each axis above size 1
-        that the port has not: the expert axis and any extra axis but
-        :data:`SEQ_AXIS` (expert parallelism waits for its slice), the
+        that the port has not: any extra axis but :data:`SEQ_AXIS`, the
         fsdp axis beside the tensor or the sequence axis (ZeRO-3 over
-        tensor-parallel blocks is not ported), or the pipe axis beside
-        the fsdp, tensor or sequence axis.  The data, fsdp, tensor,
-        sequence and pipe axes pass."""
+        tensor-parallel blocks is not ported), the pipe axis beside the
+        fsdp, tensor or sequence axis, or the expert axis beside the
+        tensor, sequence or pipe axis.  The data, fsdp, tensor, sequence,
+        pipe and expert axes pass."""
         axes = self.mesh_axes
         check_ported_axes(axes, "mesh layout",
                           (self.data_axis, self.fsdp_axis, self.tp_axis,
-                           SEQ_AXIS, self.pipe_axis))
+                           SEQ_AXIS, self.pipe_axis, self.expert_axis))
         check_pipe_beside(axes, "mesh layout", self.pipe_axis)
+        check_expert_beside(axes, "mesh layout", self.expert_axis,
+                            self.pipe_axis, self.tp_axis)
         mixed = {a: n for a, n in axes.items()
                  if a in (self.tp_axis, SEQ_AXIS)}
         if mixed and self.fsdp_axis in axes:
@@ -441,4 +464,5 @@ class MeshLayout:
 __all__ = ["ShardSpec", "MeshLayout", "ProcessMesh", "DATA_AXIS",
            "FSDP_AXIS", "TP_AXIS", "PIPE_AXIS", "EXPERT_AXIS", "SEQ_AXIS",
            "PORTED_AXES", "check_ported_axes", "check_pipe_beside",
+           "check_expert_beside",
            "_flat_axes"]

@@ -32,8 +32,11 @@ Both carry the JAX package's v2 manifest (the layout, per-var
 other's checkpoints.  A restore onto another layout is planned, verified
 and executed on the host (``framework/reshard.py``), and under a process
 group each rank reads only the rows of the blocks it keeps
-(``collective_ops.block_of``).  A layout with a tensor, pipeline or
-expert axis raises ``UnimplementedError``.  The JAX loader's
+(``collective_ops.block_of``); an expert-sharded state (``ep``) saves
+each expert block once and restores onto another expert layout through
+the same dim-0 plan.  A restore that changes a tensor, sequence or pipe
+layout, and a layout the port does not run, raise
+``UnimplementedError``.  The JAX loader's
 flight-recorder and ``monitor.stat`` hooks wait for the port's
 observability layer."""
 
@@ -329,9 +332,9 @@ def load_params(executor, dirname, main_program=None, filename=None,
 
 
 def _refuse_unported_layout(what: str, layout):
-    """A layout (a ``MeshLayout`` or its desc) with a tensor, pipeline,
-    expert or extra axis above size 1 names a path the port has not:
-    refused by name (``MeshLayout.check_ported``)."""
+    """A layout (a ``MeshLayout`` or its desc) the port does not run (an
+    unknown extra axis above size 1, or axes beside each other the port
+    does not combine) is refused by name (``MeshLayout.check_ported``)."""
     if isinstance(layout, dict):
         layout = MeshLayout.from_desc(layout)
     if isinstance(layout, MeshLayout):
@@ -794,9 +797,9 @@ def load_checkpoint(executor, path, trainer_id=0,
     reassembled by global offsets; under a process group each rank reads
     only the rows of the blocks it holds under the destination layout
     (``st.read_stats``: ``bytes_read`` against ``planned_bytes``).  Each
-    rank keeps its block of every sharded persistable.  A layout with an
-    axis the port has not (pp, ep) raises ``UnimplementedError``, and so
-    does a restore that changes a tensor or sequence layout."""
+    rank keeps its block of every sharded persistable.  A layout the port
+    does not run raises ``UnimplementedError``, and so does a restore
+    that changes a pipe, tensor or sequence layout."""
     _refuse_unported_layout("load_checkpoint", dst_layout)
     scope = scope or global_scope()
     program = main_program if main_program is not None \

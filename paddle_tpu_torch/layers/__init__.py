@@ -6,7 +6,7 @@ predicates are built from)."""
 from .math_ops import (_binary, _broadcast_shape, _to_variable,  # noqa: F401
                        elementwise_add, elementwise_sub, elementwise_mul,
                        elementwise_div, relu, sigmoid, tanh, gelu, scale,
-                       matmul, mul, mean, square, elementwise_mod,
+                       matmul, mul, mean, square, elementwise_mod, sum,
                        reduce_sum, equal, not_equal, less_than, less_equal,
                        greater_than, greater_equal, logical_and, logical_or,
                        logical_not)

@@ -144,6 +144,16 @@ def mean(x, name=None):
     return out
 
 
+def sum(x, name=None):
+    """The elementwise sum of a list of variables (one ``sum`` op)."""
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    helper = LayerHelper("sum", name=name)
+    out = helper.create_variable_for_type_inference(xs[0].dtype, xs[0].shape)
+    helper.append_op(type="sum", inputs={"X": list(xs)},
+                     outputs={"Out": [out]})
+    return out
+
+
 def square(x, name=None):
     return _unary("square", x, name)
 

@@ -2,8 +2,10 @@
 masked-LM + next-sentence pretraining heads, the synthetic pretraining
 batch, and the tensor/sequence-parallel pretraining builder
 (:func:`build_pretrain_network_parallel`: Megatron tp layers, ring
-attention over the sequence axis).  The MoE branch (``moe_experts > 0``)
-is not ported yet and raises by name.
+attention over the sequence axis).  With ``moe_experts > 0`` every FFN
+is the routed MoE block (``parallel.moe_ffn``, built dense: expert
+parallelism is retrofitted by ``parallel.apply_expert_sharding``) and
+the blocks' load-balance terms join the pretraining loss.
 
 Static-graph builder: embeddings + N post-LN transformer encoder layers
 + the pooled first-token output.  It emits the same program as the JAX
@@ -35,8 +37,9 @@ class BertConfig:
     type_vocab_size: int = 2
     initializer_range: float = 0.02
     dtype: str = "float32"
-    # the JAX package's MoE fields: moe_experts > 0 is refused by the
-    # builders (the routed MoE FFN is not ported yet)
+    # moe_experts > 0 replaces every FFN with a top-k routed MoE block
+    # built dense (parallel/moe.py); the tensor/sequence-parallel builder
+    # refuses it
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
@@ -64,15 +67,36 @@ def _attr(name, cfg):
 
 
 def _refuse_moe(cfg: BertConfig):
+    """The tensor/sequence-parallel builder has no MoE branch: the JAX
+    package's builds the dense FFN there whatever ``moe_experts`` says,
+    so the port refuses rather than train another model than asked."""
     if cfg.moe_experts:
         from ..framework.errors import UnimplementedError
         raise UnimplementedError(
-            f"BertConfig(moe_experts={cfg.moe_experts}): the routed MoE FFN "
-            f"(parallel.moe_ffn) is not ported yet; build the dense model "
-            f"(moe_experts=0)")
+            f"build_pretrain_network_parallel(BertConfig(moe_experts="
+            f"{cfg.moe_experts})): the tensor/sequence-parallel builder has "
+            f"no MoE branch (the JAX package's silently builds the dense "
+            f"FFN); build the routed MoE model with build_pretrain_network, "
+            f"or the dense one here (moe_experts=0)")
 
 
 def _ffn_block(x, cfg: BertConfig, name: str):
+    """The dense two-fc FFN, or (``cfg.moe_experts`` > 0) the routed MoE
+    block, built dense (no collective; ``apply_expert_sharding``
+    retrofits the exchange).  The block's aux loss is recorded on the
+    program (``parallel.collect_aux_losses`` drains it in the loss
+    builder)."""
+    if cfg.moe_experts:
+        from ..parallel import moe_ffn
+        out, _aux = moe_ffn(
+            x, num_experts=cfg.moe_experts,
+            ffn_hidden=cfg.intermediate_size, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, act=cfg.hidden_act,
+            group_size=cfg.moe_group_size,
+            param_attr=_attr(f"{name}_moe", cfg),
+            bias_attr=ParamAttr(name=f"{name}_moe_b"),
+            name=f"{name}_moe")
+        return out
     ffn = layers.fc(x, cfg.intermediate_size, num_flatten_dims=2,
                     act=cfg.hidden_act,
                     param_attr=_attr(f"{name}_ffn1_w", cfg),
@@ -130,7 +154,6 @@ def bert_encoder(src_ids, position_ids, sentence_ids, input_mask,
                  cfg: BertConfig, is_test=False, extra_emb=None):
     """Returns (sequence_output, pooled_output).  ``extra_emb`` joins the
     input embedding sum (ERNIE's task-type embedding hook)."""
-    _refuse_moe(cfg)
     emb = layers.embedding(src_ids, size=[cfg.vocab_size, cfg.hidden_size],
                            dtype=cfg.dtype,
                            param_attr=_attr("word_embedding", cfg))
@@ -242,6 +265,15 @@ def build_pretrain_network(cfg: BertConfig, is_test=False):
                                    cfg, is_test=is_test)
     total, mlm, nsp = bert_pretrain_loss(seq_out, pooled, mask_label,
                                          mask_pos, labels, cfg)
+    if cfg.moe_experts:
+        from ..framework.core import default_main_program
+        from ..parallel import collect_aux_losses
+        aux_terms = collect_aux_losses(default_main_program())
+        if aux_terms:
+            aux = layers.sum(aux_terms) if len(aux_terms) > 1 \
+                else aux_terms[0]
+            total = layers.elementwise_add(
+                total, layers.scale(aux, scale=cfg.moe_aux_weight))
     feeds = [src_ids, pos_ids, sent_ids, input_mask, mask_label, mask_pos,
              labels]
     return feeds, total, mlm, nsp

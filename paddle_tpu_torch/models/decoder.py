@@ -23,8 +23,11 @@ tied-embedding LM head):
 All declare the same parameter names, so one startup program (one scope)
 serves them; the cache pools are plain persistables the engine fills with
 zeros.  The programs are op for op and name for name the JAX package's,
-so a desc built by either package is the same.  The routed MoE FFN
-(``moe_experts > 0``) is refused: MoE is not ported yet.
+so a desc built by either package is the same.  With ``moe_experts > 0``
+every FFN is the routed MoE block (``parallel.moe_ffn``, built dense: a
+served program carries no collective), the same expert weights in every
+program; the routing runs inside the moe_dispatch / moe_expert_ffn /
+moe_combine ops, so a chain body runs it like any other op.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ from typing import Dict, List, Optional
 
 from .. import layers
 from ..framework.core import Program, program_guard
-from ..framework.errors import UnimplementedError
 from ..framework.initializer import TruncatedNormalInitializer
 from ..framework.layer_helper import LayerHelper, ParamAttr
 from .bert import BertConfig
@@ -149,13 +151,27 @@ def _decoder_layer(x, attn_bias, cfg: BertConfig, name: str,
     x = layers.layer_norm(x + attn_out, begin_norm_axis=2,
                           param_attr=ParamAttr(name=f"{name}_ln1_scale"),
                           bias_attr=ParamAttr(name=f"{name}_ln1_bias"))
-    ffn = layers.fc(x, cfg.intermediate_size, num_flatten_dims=2,
-                    act=cfg.hidden_act,
-                    param_attr=_attr(f"{name}_ffn1_w", cfg),
-                    bias_attr=ParamAttr(name=f"{name}_ffn1_b"))
-    ffn = layers.fc(ffn, d, num_flatten_dims=2,
-                    param_attr=_attr(f"{name}_ffn2_w", cfg),
-                    bias_attr=ParamAttr(name=f"{name}_ffn2_b"))
+    if cfg.moe_experts:
+        # the routed MoE FFN, built dense (ep_degree None: a served
+        # program is collective-free), one set of expert weights by name
+        # across the prefill / decode / chain / chunk programs
+        from ..parallel import moe_ffn
+        ffn, _aux = moe_ffn(
+            x, num_experts=cfg.moe_experts,
+            ffn_hidden=cfg.intermediate_size, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, act=cfg.hidden_act,
+            group_size=cfg.moe_group_size,
+            param_attr=_attr(f"{name}_moe", cfg),
+            bias_attr=ParamAttr(name=f"{name}_moe_b"),
+            name=f"{name}_moe")
+    else:
+        ffn = layers.fc(x, cfg.intermediate_size, num_flatten_dims=2,
+                        act=cfg.hidden_act,
+                        param_attr=_attr(f"{name}_ffn1_w", cfg),
+                        bias_attr=ParamAttr(name=f"{name}_ffn1_b"))
+        ffn = layers.fc(ffn, d, num_flatten_dims=2,
+                        param_attr=_attr(f"{name}_ffn2_w", cfg),
+                        bias_attr=ParamAttr(name=f"{name}_ffn2_b"))
     return layers.layer_norm(x + ffn, begin_norm_axis=2,
                              param_attr=ParamAttr(name=f"{name}_ln2_scale"),
                              bias_attr=ParamAttr(name=f"{name}_ln2_bias"))
@@ -239,13 +255,7 @@ class BertDecoder:
 
     def __init__(self, cfg: Optional[BertConfig] = None,
                  name: str = "decoder", seed: int = 0):
-        cfg = cfg or BertConfig.tiny()
-        if getattr(cfg, "moe_experts", 0):
-            raise UnimplementedError(
-                f"BertDecoder: the routed MoE FFN (moe_ffn, moe_experts="
-                f"{cfg.moe_experts}) is not ported yet; build the dense "
-                f"decoder (moe_experts=0)")
-        self.cfg = cfg
+        self.cfg = cfg or BertConfig.tiny()
         self.name = name
         self.seed = seed
 
@@ -474,6 +484,12 @@ class BertDecoder:
         key = (f"{self.name}/seed={self.seed}/L={cfg.num_hidden_layers}"
                f"/H={cfg.hidden_size}/heads={cfg.num_attention_heads}"
                f"/V={cfg.vocab_size}/dtype={cfg.dtype}/bs={block_size}")
+        if cfg.moe_experts:
+            # routed FFNs change what a cached block's K/V mean: an MoE
+            # and a dense build of one geometry never share prefix-cache
+            # entries
+            key += (f"/moe=E{cfg.moe_experts}k{cfg.moe_top_k}"
+                    f"cf{cfg.moe_capacity_factor}")
         return key
 
     def build(self, num_blocks: int, block_size: int,

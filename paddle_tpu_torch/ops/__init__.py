@@ -13,6 +13,7 @@ from . import fused_ops     # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import collective_ops  # noqa: F401
 from . import tp_ops        # noqa: F401
+from . import moe_ops       # noqa: F401
 from . import controlflow_ops  # noqa: F401
 from . import pipeline_op   # noqa: F401
 from . import op_specs      # noqa: F401

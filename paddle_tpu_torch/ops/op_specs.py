@@ -12,7 +12,7 @@ Two static channels of the JAX package's op specs ride here too, for the
 pipeline's stage-cut planner (``framework/pipe.py``): :data:`FLOPS`, the
 forward GEMM-class FLOPs of an op from its input and output signatures
 (``flops(ins, outs, attrs)``, the JAX ``op_specs.py`` functions for the
-ops the ported programs use; the MoE ops are not ported), and
+ops the ported programs use, the MoE pipeline's included), and
 :data:`COLLECTIVE_OPS`, the op types the JAX package flags
 ``collective``."""
 
@@ -432,6 +432,60 @@ def _flops_c_embedding(ins, outs, attrs):
     return 2.0 * _numel(ids.shape) * w.shape[-1]
 
 
+# -- the MoE pipeline (ops/moe_ops.py): the static dims mirror the
+# runtime arithmetic of moe_dispatch (the same _moe_static_dims), so the
+# planner prices the capacity-factor geometry the ops run
+
+
+def _moe_spec_dims(ins, attrs):
+    """(n, g, sg, c, e, m) from the X / GateW signatures and the attrs, or
+    None."""
+    xv, gw = _sig(ins, "X"), _sig(ins, "GateW")
+    if xv is None or xv.shape is None or gw is None or gw.shape is None \
+            or len(gw.shape) != 2:
+        return None
+    e = int(attrs.get("num_experts", gw.shape[1]))
+    m = xv.shape[-1]
+    from .moe_ops import _moe_static_dims
+    n, g, sg, c = _moe_static_dims(
+        xv.shape, e, attrs.get("top_k", 2),
+        attrs.get("capacity_factor", 1.25), attrs.get("group_size", 0))
+    return n, g, sg, c, e, m
+
+
+def _flops_moe_dispatch(ins, outs, attrs):
+    """The gate GEMM (2 N m E) + the dispatch one-hot einsum (2 G S E C m
+    = 2 N E C m)."""
+    dims = _moe_spec_dims(ins, attrs)
+    if dims is None:
+        return None
+    n, g, sg, c, e, m = dims
+    if min(n, c, e, m) <= 0:
+        return None
+    return 2.0 * n * m * e + 2.0 * n * e * c * m
+
+
+def _flops_moe_expert_ffn(ins, outs, attrs):
+    """Two batched GEMMs over the dispatched blocks: 4 E B m h, where
+    B = G C carries the capacity factor."""
+    xe, w1 = _sig(ins, "Xe"), _sig(ins, "W1")
+    if xe is None or xe.shape is None or not _known(xe.shape) \
+            or w1 is None or w1.shape is None or not _known(w1.shape):
+        return None
+    e, b, m = xe.shape
+    h = w1.shape[-1]
+    return 4.0 * e * b * m * h
+
+
+def _flops_moe_combine(ins, outs, attrs):
+    """The combine einsum gsec,egcm->gsm: 2 G S E C m."""
+    comb, xv = _sig(ins, "Combine"), _sig(ins, "X")
+    if comb is None or comb.shape is None or not _known(comb.shape) \
+            or xv is None or xv.shape is None or xv.shape[-1] <= 0:
+        return None
+    return 2.0 * _numel(comb.shape) * xv.shape[-1]
+
+
 #: op type -> ``flops(ins, outs, attrs)`` (``ins`` / ``outs``: slot ->
 #: [VarSig]; None or 0 when a shape is unknown)
 FLOPS = {
@@ -443,6 +497,9 @@ FLOPS = {
     "cumsum": _flops_elemwise(1),
     "softmax_with_cross_entropy": _flops_softmax_ce,
     "c_embedding": _flops_c_embedding,
+    "moe_dispatch": _flops_moe_dispatch,
+    "moe_expert_ffn": _flops_moe_expert_ffn,
+    "moe_combine": _flops_moe_combine,
 }
 
 #: the op types the JAX package's op specs flag ``collective``

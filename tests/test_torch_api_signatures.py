@@ -10,7 +10,8 @@ driven as well: ``DecodeConfig(prefix_reserve_blocks=...)``,
 ``ServingConfig(packing=..., mask_feed=..., pack_max_segments=...)`` and
 ``Executor.run(use_prune=...)``.  The parallelism package (topology, the
 Megatron layers, ring attention, the pipeline's ``PipelineOptimizer`` and
-``gpipe_spmd``, and the refusals of MoE), ``framework.pipe`` and
+``gpipe_spmd``, and MoE's ``moe_ffn``, ``collect_aux_losses`` and
+``apply_expert_sharding``), ``framework.pipe`` and
 ``models.bert``'s builders (the tensor/sequence-parallel ones included)
 are compared as well."""
 
@@ -35,7 +36,7 @@ MODULES = ("optimizer", "framework.executor", "framework.compiler",
            "framework.analysis", "distributed.gloo",
            "distributed.preemption", "parallel", "parallel.topology",
            "parallel.tp_layers", "parallel.ring_attention", "models.bert",
-           "framework.pipe", "parallel.pipeline")
+           "framework.pipe", "parallel.pipeline", "parallel.moe")
 
 #: JAX internals whose parameters differ by design, with the reason
 ALLOWED = {
@@ -311,3 +312,18 @@ PIPELINE = {
 def test_the_pipeline_is_shared_api(mod):
     quals = {qual for m, qual, *_ in SHARED if m == mod}
     assert PIPELINE[mod] <= quals
+
+
+#: MoE's public names, each compared keyword by keyword above, in the
+#: package and in its module
+MOE = {
+    "parallel": {"moe_ffn", "collect_aux_losses", "apply_expert_sharding"},
+    "parallel.moe": {"moe_ffn", "collect_aux_losses",
+                     "apply_expert_sharding"},
+}
+
+
+@pytest.mark.parametrize("mod", sorted(MOE))
+def test_moe_is_shared_api(mod):
+    quals = {qual for m, qual, *_ in SHARED if m == mod}
+    assert MOE[mod] <= quals

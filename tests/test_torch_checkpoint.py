@@ -309,10 +309,12 @@ def test_a_port_checkpoint_loads_in_the_jax_package(tmp_path):
 
 
 def test_unported_checkpoint_paths_are_refused_by_name(tmp_path):
-    """What stays refused: a layout with an expert or pipeline axis, given
-    at save, as the restore's destination or as the checkpoint's stamp
-    (``UnimplementedError`` naming the axis; the tensor axis is ported,
-    ``tests/test_torch_tp_sp_bert.py``), and a layout change with
+    """What stays refused: a layout the port does not run (an expert axis
+    beside a tensor or pipe axis) given at save or as the checkpoint's
+    stamp, a restore across pipe layouts (``UnimplementedError`` naming
+    the axis; the tensor axis is ported, ``tests/test_torch_tp_sp_bert.py``,
+    and the expert axis beside data and fsdp,
+    ``tests/test_torch_moe.py``), and a layout change with
     ``reshard=False`` (the JAX package's ``InvalidArgumentError``).  What
     was refused before and runs now: a sharded checkpoint, a per-process
     sharded save and ``AsyncCheckpointer``, each read back as saved."""
@@ -345,15 +347,15 @@ def test_unported_checkpoint_paths_are_refused_by_name(tmp_path):
                                 scope=scope2)
         for n, t in want.items():
             assert torch.equal(scope2.find_var(n), t), (src, n)
-    # refused: an expert or pipeline axis
+    # refused: an expert axis beside a tensor axis; a pipe layout change
     with pytest.raises(UnimplementedError, match="ep.*not ported"):
         tio.save_checkpoint(exe, path, tio.TrainStatus(0), main, scope=scope,
-                            layout=MeshLayout(data=2, expert=2))
+                            layout=MeshLayout(data=2, expert=2, tp=2))
     with pytest.raises(UnimplementedError, match="pp.*not ported"):
         tio.load_checkpoint(exe, path, main_program=main, scope=scope,
                             dst_layout=MeshLayout(pipe=2))
     man = tio._manifest_dict()
-    man["mesh_layout"] = MeshLayout(expert=2).to_desc()
+    man["mesh_layout"] = MeshLayout(expert=2, pipe=2).to_desc()
     tio._write_manifest(d, main, manifest=man)
     with pytest.raises(UnimplementedError, match="stamp.*ep"):
         tio.load_checkpoint(exe, path, main_program=main, scope=scope)

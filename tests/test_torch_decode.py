@@ -334,8 +334,7 @@ def test_sampling_is_deterministic_across_orders(reference):
 
 
 def test_what_is_not_ported_is_refused_by_name(monkeypatch, reference):
-    with pytest.raises(UnimplementedError, match="moe_ffn"):
-        BertDecoder(JConfig(**dict(WIDTHS, moe_experts=4)))
+    # the MoE decoder is ported (tests/test_torch_moe.py)
     model = BertDecoder(BertConfig(**WIDTHS), seed=SEED)
     with pytest.raises(UnimplementedError, match="plan_cache_pool"):
         DecodeEngine(model, DecodeConfig(**_config(hbm_budget_gb=0.5)),

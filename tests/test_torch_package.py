@@ -76,6 +76,12 @@ def test_the_pipeline_modules_import_no_jax(module):
     assert os.path.join(REPO, *module.split(".")) + ".py" in _port_sources()
 
 
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.ops.moe_ops"])
+def test_the_moe_modules_import_no_jax(module):
+    test_the_pipeline_modules_import_no_jax(module)
+
+
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, names in os.walk(PKG):

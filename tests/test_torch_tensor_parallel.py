@@ -270,13 +270,11 @@ def test_what_is_not_ported_is_refused_by_name():
     from paddle_tpu_torch import parallel
     from paddle_tpu_torch.framework.errors import UnimplementedError
     from paddle_tpu_torch.models import bert
-    for fn, name in ((parallel.moe_ffn, "moe_ffn"),
-                     (parallel.collect_aux_losses, "collect_aux_losses"),
-                     (parallel.apply_expert_sharding,
-                      "apply_expert_sharding"),
-                     (parallel.tpu_slice_env, "tpu_slice_env")):
+    for fn, name in ((parallel.tpu_slice_env, "tpu_slice_env"),):
         with pytest.raises(UnimplementedError, match=name):
             fn()
+    # MoE is ported (tests/test_torch_moe.py); the tensor/sequence-parallel
+    # builder has no MoE branch and refuses it by name
     # pipeline parallelism is ported (tests/test_torch_pipeline.py)
     assert parallel.PipelineOptimizer(None).num_microbatches == 1
     assert callable(parallel.gpipe_spmd)
@@ -292,7 +290,8 @@ def test_what_is_not_ported_is_refused_by_name():
     ({"tp": 2}, True), ({"data": 2, "tp": 2}, True),
     ({"tp": 2, "extra_axes": {"sp": 2}}, True),
     ({"data": 2, "tp": 2, "extra_axes": {"sp": 2}}, True),
-    ({"pipe": 2}, True), ({"expert": 2}, False),
+    ({"pipe": 2}, True), ({"expert": 2}, True),
+    ({"expert": 2, "tp": 2}, False),
     ({"extra_axes": {"cp": 2}}, False), ({"fsdp": 2, "tp": 2}, False),
     ({"fsdp": 2, "extra_axes": {"sp": 2}}, False)],
     ids=lambda v: str(v).replace(" ", ""))
