@@ -247,7 +247,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    in (c) and (d) (on the int8 carrier) and never in the others,
    #12 never, no fallback; the bytes each rank's scope holds equal to
    what the layout predicts (the sharded persistables' global bytes
-   halved); (f)'s restored blocks bit for bit (b)'s saved ones.  #10 on
+   halved); (f)'s restored blocks bit for bit (b)'s saved ones.  In the
+   same launch, the auto-shard legs: (g) plain dp2 with phase 8's recipe,
+   its global-norm clip 1.0 included; (h) fleet's
+   ``DistributedStrategy(auto_shard=True)`` with the same recipe and a
+   budget halfway between the free plan's peaks (the free plan, data 2,
+   made first on the ranks), 4 steps each.  (h)'s gates: the winner is
+   fsdp 2, the ranks' plan hashes are equal, no priced config carries an
+   error, its planning made no route decision, no launch and no CUDA
+   allocation, its clip's norm is summed over fsdp (one
+   ``c_global_norm_allreduce``) and step 1's global norm exceeds 1.0 (the
+   clip binds), it launches as (e) does, and it lands within (e)'s
+   tolerances of (g).  Every leg prints the static per-rank estimate
+   (``memory_analysis.analyze_memory``) of its persistent and peak bytes
+   beside the measured ones (the bytes the scope holds, the allocation
+   after the startup, ``max_memory_allocated``): the persistent estimate
+   equals the bytes held of the persistables it prices, the peak's ratio
+   is recorded (phases 8, 16 and 20 (a) print and gate the same).
+   While the ranks run, the planner's static 12-layer plans
+   of BERT-base at 2 and 4 devices and of MoE BERT-base with
+   ``max_expert`` 2 (host work in this process, their seconds printed).  #10 on
    leg (b)'s 158 flat shards against its twin bit for bit, timed beside
    ``torch._fused_adamw_`` (BERT-base's 12 layers: 158 shards).  Printed
    per leg: the step (median of steps 3-6), gloo's wall time in one step,
@@ -2479,7 +2498,8 @@ def check_launches(kernels, expected, steps, dtypes):
 
 
 def train_phase(torch, np, cfg, build, expected, schedule=None,
-                batch=TRAIN_BATCH, dtypes=None, run_first=False):
+                batch=TRAIN_BATCH, dtypes=None, run_first=False,
+                estimate=False):
     """TRAIN_STEPS steps of ``build(cfg)``'s program through
     prepare(donate_state=True) on a ``batch`` x TRAIN_SEQ batch, dropout
     as cfg says, each kernel launched exactly ``expected`` times per step
@@ -2489,7 +2509,8 @@ def train_phase(torch, np, cfg, build, expected, schedule=None,
     step through ``Executor.run`` comes first (bench.py's entry), its
     launches checked alike.  Then one more step under the profiler.  The
     model FLOP share is of the bf16 peak when the program casts to bf16,
-    else of the float32 one."""
+    else of the float32 one.  With ``estimate`` the static memory estimate
+    is printed beside the measured bytes (:func:`check_estimate`)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import cuda as kernels
@@ -2501,6 +2522,8 @@ def train_phase(torch, np, cfg, build, expected, schedule=None,
     scope = fluid.Scope()
     exe = fluid.Executor()                       # CUDAPlace(0)
     exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    allocated_after_startup = torch.cuda.memory_allocated()
     params = program.all_parameters()
     n_params = sum(math.prod(p.shape) for p in params)
     first = None
@@ -2578,6 +2601,19 @@ def train_phase(torch, np, cfg, build, expected, schedule=None,
     fluid.sync_prepared_state(scope)
     kinds = {str(scope.find_var(p.name).dtype) for p in params}
     check(kinds == {"torch.float32"}, f"parameters left float32: {kinds}")
+    memory = None
+    if estimate:
+        est, state_in, written = memory_estimate(program, feed, total.name)
+        held, predicted, _, _ = held_bytes(torch, None, scope, program)
+        memory = {"estimate": {"state_bytes": est.state_bytes,
+                               "peak_bytes": est.peak_bytes},
+                  "state_in_held": scope_bytes(torch, scope, state_in),
+                  "held": held, "predicted": predicted,
+                  "left_out": left_out_bytes(torch, None, scope, program,
+                                             state_in, written),
+                  "allocated_after_startup": allocated_after_startup,
+                  "peak_bytes": torch.cuda.max_memory_allocated()}
+        check_estimate("one rank", memory)
     if schedule is not None:
         lr_err = max(abs(lr - schedule(i)) / PEAK_LR
                      for i, lr in enumerate(lrs))
@@ -2597,6 +2633,8 @@ def train_phase(torch, np, cfg, build, expected, schedule=None,
               "profile": profile}
     if first is not None:
         result["executor_run_loss"] = first
+    if memory is not None:
+        result["memory"] = memory
     del prepared, scope
     return launches, result
 
@@ -3976,6 +4014,15 @@ TOL_ZERO_PARAM = 1e-4     # (b), (e) vs (a): parameters, of max|p|
 ZERO_QUANT_LOSS = {"int8": 4e-5, "int4": 1e-2}
 ZERO_QUANT_PARAM = {"int8": 2e-3, "int4": 3e-3}
 ZERO_QUANT_SCATTER = {"int8": 3e-2, "int4": 2.5e-1}
+#: phase 15's auto-shard legs, in the same launch: (g) plain dp2 with
+#: phase 8's recipe (its global-norm clip 1.0 included), (h) fleet's
+#: auto_shard with the same recipe and a budget halfway between the free
+#: plan's peaks, which flips the winner to fsdp 2 (the clip's squares
+#: summed over fsdp); AUTO_STEPS prepared steps each
+AUTO_LEGS = "gh"
+AUTO_LEG_NAMES = {"g": "dp2, phase 8's recipe with its clip",
+                  "h": "auto_shard under a budget (fsdp 2), the same recipe"}
+AUTO_STEPS = 4
 
 
 # ---------------------------------------------------------------------------
@@ -3993,15 +4040,17 @@ def zero_optimizer(fluid):
     return fluid.optimizer.AdamW(lr, weight_decay=WEIGHT_DECAY)
 
 
-def build_zero_train(cfg, leg):
+def build_zero_train(cfg, leg, budget=None, feed=None):
     """Phase 15's program for ``leg`` as a rank writes it: BERT-base
     pretraining, ``fuse_add_layernorm`` and ``fuse_elewise_add_act_ops``,
     the recipe of :func:`zero_optimizer`; (a) through ``fleet`` (the fp32
     bucketed all-reduce), (b)-(d) through ``fleet`` with
     ``strategy.sharding`` (fp32, int8, int4 scatter), (e) minimized, then
     ``apply_fsdp_sharding(main, MeshLayout(fsdp=2))`` and
-    ``CompiledProgram.with_mesh``.  Returns (the program to run, main,
-    startup, loss)."""
+    ``CompiledProgram.with_mesh``; (g) like (a) with phase 8's recipe (its
+    clip), (h) the same through fleet's ``auto_shard`` with the budget
+    ``budget`` (None: no budget) at ``feed``'s shapes.  Returns (the
+    program to run, main, startup, loss)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
@@ -4019,6 +4068,16 @@ def build_zero_train(cfg, leg):
         _, total, _, _ = bert.build_pretrain_network(cfg)
         if leg == "e":
             zero_optimizer(fluid).minimize(total)
+        elif leg in AUTO_LEGS:
+            s = DistributedStrategy()
+            s.build_strategy = build
+            if leg == "h":
+                s.auto_shard = True
+                s.auto_shard_configs["hbm_budget_gb"] = budget
+                s.auto_shard_configs["feed_shapes"] = {
+                    k: (v.shape, str(v.dtype)) for k, v in feed.items()}
+            fleet.distributed_optimizer(recipe_optimizer(fluid),
+                                        s).minimize(total)
         else:
             s = DistributedStrategy()
             s.build_strategy = build
@@ -4039,6 +4098,61 @@ def build_zero_train(cfg, leg):
         layout.build_mesh(), loss_name=total.name,
         batch_axis=layout.batch_axes, build_strategy=build)
     return program, main, startup, total
+
+
+def global_norm_name(main):
+    """The global-norm clip's norm (the ``sqrt`` of its sum of squares)."""
+    names = [op.output_names()[0] for op in main.global_block().ops
+             if op.type == "sqrt" and
+             op.output_names()[0].startswith("global_norm")]
+    check(len(names) == 1, f"one global-norm clip expected, found {names}")
+    return names[0]
+
+
+def memory_estimate(program, feed, loss_name):
+    """The static per-rank estimate of the program a rank runs
+    (``memory_analysis.analyze_memory`` on the pass variant, at the
+    feed's shapes and the run's layout), its state's names and the
+    persistables the program writes."""
+    from paddle_tpu_torch.framework import memory_analysis as ma
+    variant = program._variant_for([loss_name]) \
+        if hasattr(program, "_variant_for") else program
+    est = ma.analyze_memory(
+        variant, feed_shapes=feed, fetch_names=[loss_name],
+        mesh_axes=getattr(program, "_mesh_axes", None) or {},
+        batch_axis=getattr(program, "_batch_axis", None),
+        seq_axis=getattr(program, "_seq_axis", None),
+        feed_specs=getattr(program, "_feed_specs", None))
+    state_in, written = ma._state_names(variant, [loss_name])
+    return est, state_in, set(written)
+
+
+def scope_bytes(torch, scope, names):
+    """Bytes the scope holds of ``names``."""
+    total = 0
+    for n in names:
+        t = scope.find_var(n)
+        if torch.is_tensor(t):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def left_out_bytes(torch, dp, scope, main, state_in, written):
+    """{each persistable the scope holds outside the estimate's state
+    ``state_in``: [its bytes by the layout's formula, whether the program
+    writes it]}: one the step writes before it reads it (a scheduled
+    learning rate) is priced among the step's values, not its state."""
+    from paddle_tpu_torch.ops.collective_ops import _sharding
+    out = {}
+    for v in main.list_vars():
+        t = scope.find_var(v.name) if v.persistable else None
+        if not torch.is_tensor(t) or v.name in state_in:
+            continue
+        whole = math.prod(v.shape) * t.element_size()
+        sh = _sharding(dp, v)
+        out[v.name] = [whole // sh[1].world if sh is not None else whole,
+                       v.name in written]
+    return out
 
 
 def held_bytes(torch, dp, scope, main):
@@ -4136,7 +4250,39 @@ def zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref):
     from paddle_tpu_torch.ops import cuda as kernels
     from paddle_tpu_torch.ops import registry
     dev = torch.device("cuda", fleet.place.device_id)
-    program, main, startup, total = build_zero_train(cfg, leg)
+    out = {}
+    if leg == "h":
+        # the free plan first (no budget), then the budget halfway between
+        # its peaks; the planning (and stamping) of the budgeted build
+        # touches nothing on the card: no route decision, no launch, no
+        # allocation
+        build_zero_train(cfg, "h", None, feed)
+        peaks = sorted(c.peak_bytes for c in fleet.plan.configs)
+        budget = (peaks[0] + peaks[-1]) / 2 / float(1 << 30)
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated(dev)
+        registry.reset_route_counts()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        program, main, startup, total = build_zero_train(cfg, leg, budget,
+                                                         feed)
+        out["plan_s"] = time.perf_counter() - t0
+        plan = fleet.plan
+        out["plan_side_effects"] = {
+            "routes": len(registry.route_counts()),
+            "launches": sum(kernels.launch_counts().values()),
+            "allocated_bytes": torch.cuda.memory_allocated(dev) - alloc0}
+        out["budget_gb"] = budget
+        out["free_peaks"] = peaks
+        out["winner"] = plan.winner.layout.sizes
+        out["plan_hashes"] = list(fleet._plan_hashes)
+        out["plan"] = [{"layout": c.layout.sizes, "fits": c.fits,
+                        "winner": c.winner, "peak_bytes": c.peak_bytes,
+                        "wire_bytes": c.wire_bytes, "error": c.error}
+                       for c in plan.configs]
+    else:
+        program, main, startup, total = build_zero_train(cfg, leg)
+    steps = AUTO_STEPS if leg in AUTO_LEGS else ZERO_STEPS
     dp = program._dp
     check(dp is not None and dp.world == DP_RANKS,
           f"({leg}): the program does not run over {DP_RANKS} ranks")
@@ -4144,25 +4290,33 @@ def zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref):
     scope = fluid.Scope()
     exe = fluid.Executor(fleet.place)
     exe.run(startup, scope=scope)
-    out = {"leg": leg, "ops": {t: ops.count(t) for t in (
+    torch.cuda.synchronize()
+    out.update({"leg": leg, "ops": {t: ops.count(t) for t in (
         "zero_reduce_scatter", "quant_reduce_scatter", "zero_shard_slice",
         "zero_all_gather", "fsdp_all_gather", "c_fused_allreduce_sum",
-        "adamw")},
-        "startup_params_sha256": params_digest(np, scope, main)}
-    torch.cuda.synchronize()
+        "c_global_norm_allreduce", "adamw")},
+        "startup_params_sha256": params_digest(np, scope, main),
+        "allocated_after_startup": torch.cuda.memory_allocated(dev)})
+    est, state_in, written = memory_estimate(program, feed, total.name)
+    out["estimate"] = {"state_bytes": est.state_bytes,
+                       "peak_bytes": est.peak_bytes}
     torch.cuda.reset_peak_memory_stats(dev)
     scatter = largest_scatter(main) if leg in "bcd" else None
+    norm = global_norm_name(main) if leg in AUTO_LEGS else None
     prepared = exe.prepare(program, fetch_list=[total] + (
-        [scatter] if scatter else []), scope=scope, donate_state=True)
+        [scatter] if scatter else []) + ([norm] if norm else []),
+        scope=scope, donate_state=True)
     kernels.reset_launch_counts()
     registry.reset_route_counts()
     losses, step_s = [], []
     first_step()
-    for i in range(ZERO_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         got = prepared.run(feed)
         losses.append(float(got[0]))
         step_s.append(time.perf_counter() - t0)
+        if norm and i == 0:
+            out["step1_global_norm"] = float(got[-1].numpy().reshape(-1)[0])
         if scatter and i == 0:
             shard = got[1].value.detach().clone()
             if leg == "b":
@@ -4187,13 +4341,23 @@ def zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref):
     fluid.sync_prepared_state(scope)
     out["held"], out["predicted"], out["moment_bytes"], \
         out["param_bytes"] = held_bytes(torch, dp, scope, main)
+    out["state_in_held"] = scope_bytes(torch, scope, state_in)
+    out["left_out"] = left_out_bytes(torch, dp, scope, main, state_in,
+                                     written)
     out["losses"], out["step_s"] = losses, step_s
     stamp("steps", sum(step_s))
     out["step_ms_median_3_6"] = statistics.median(step_s[2:]) * 1e3
     out["replicated_sha256"] = replicated_digest(np, dp, scope, main)
     params = global_params(dp, scope, main)
-    if leg == "a":
-        ref["params"], ref["losses"] = params, losses
+    if leg in ("a", "g"):
+        ref[leg + "_params"], ref[leg + "_losses"] = params, losses
+        if leg == "a":
+            ref["params"], ref["losses"] = params, losses
+    elif leg == "h":
+        out["param_gap_vs_g"] = params_gap(torch, params, ref["g_params"])
+        out["loss_gap_vs_g"] = max(abs(a - b) / abs(b) for a, b in
+                                   zip(losses, ref["g_losses"]))
+        del params
     else:
         out["param_gap_vs_a"] = params_gap(torch, params, ref["params"])
         out["loss_gap_vs_a"] = max(abs(a - b) / abs(b) for a, b in
@@ -4271,9 +4435,10 @@ def zero_worker(out_dir, legs):
     return 0
 
 
-def zero_launch(torch, repo, out_dir, legs):
+def zero_launch(torch, repo, out_dir, legs, meanwhile=None):
     """Two ranks of this script on the card over gloo (phase 10's
-    launcher); returns their JSON results."""
+    launcher); ``meanwhile()`` (host work of this process, nothing on the
+    card) runs while they do.  Returns their JSON results."""
     torch.cuda.empty_cache()
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc", str(DP_RANKS), "--selected_gpus", "0,0",
@@ -4281,8 +4446,19 @@ def zero_launch(torch, repo, out_dir, legs):
            os.path.join(repo, "chip_smoke.py"), "--zero-worker", out_dir,
            legs]
     t0 = time.perf_counter()
-    rc = subprocess.run(cmd, cwd=repo, timeout=DP_TIMEOUT_S + 60,
-                        env=launch_env()).returncode
+    proc = subprocess.Popen(cmd, cwd=repo, env=launch_env())
+    try:
+        if meanwhile is not None:
+            meanwhile()
+        rc = proc.wait(timeout=DP_TIMEOUT_S + 60)
+    except BaseException:
+        proc.terminate()              # the launcher forwards it to the ranks
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        raise
     wall = time.perf_counter() - t0
     log(f"  legs {legs}: the ranks ran {wall:.1f} s, exit code {rc}")
     check(rc == 0, f"phase 15 legs {legs}: a rank failed (exit code {rc})")
@@ -4362,16 +4538,67 @@ def zero_adam_row(torch, results, cfg):
         library_is="torch._fused_adamw_, one call", elements_differ=differ)
 
 
+def static_plans(torch, np):
+    """The auto-shard planner on the host (nothing on the card): BERT-base
+    pretraining at 12 layers with phase 8's recipe planned for 2 and 4
+    devices, and phase 20's MoE BERT-base (AdamW, no clip) for 2 with
+    ``max_expert`` 2, at the 32 x 128 global batch, with the card's peak
+    and the link figure; each ranking printed with its seconds.  No priced
+    config may carry an error."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.shard_planner import plan_sharding
+    from paddle_tpu_torch.models import bert
+    out = {}
+    for tag, cfg, nds, kw in (
+            ("bert_base", bert.BertConfig.base(), (2, 4), {}),
+            ("moe_bert_base", moe_config(DROPOUT), (2,),
+             {"max_expert": 2})):
+        unique_name.reset()
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            _, total, _, _ = bert.build_pretrain_network(cfg)
+            (zero_optimizer(fluid) if kw else
+             recipe_optimizer(fluid)).minimize(total)
+        feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
+                                    TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+        for nd in nds:
+            t0 = time.perf_counter()
+            plan = plan_sharding(main, nd, loss_name=total.name,
+                                 feed_shapes=feed, fetch_names=[total.name],
+                                 **kw)
+            secs = time.perf_counter() - t0
+            log(f"  static plan, {tag} at {cfg.num_hidden_layers} layers on "
+                f"{nd} devices ({secs:.2f} s of host time):")
+            for line in plan.report().splitlines():
+                log("    " + line)
+            errors = [c.error for c in plan.configs if c.error]
+            check(not errors, f"{tag} on {nd}: priced configs carry "
+                              f"errors: {errors}")
+            out[f"{tag}_{nd}"] = {
+                "seconds": secs, "winner": plan.winner.layout.sizes,
+                "configs": [{"layout": c.layout.sizes,
+                             "peak_bytes": c.peak_bytes,
+                             "wire_bytes": c.wire_bytes,
+                             "cost_ms": c.cost_s * 1e3} for c in
+                            plan.configs]}
+    return out
+
+
 def zero_phase(torch, np, repo, cfg, results):
-    """Phase 15 (see the module docstring): #10's shard row, legs (a)-(e)
-    on two ranks, (f) on a fresh pair; returns the launches of rank 0 by
-    leg and the report."""
+    """Phase 15 (see the module docstring): the static plans, #10's shard
+    row, legs (a)-(e), (g) and (h) on two ranks, (f) on a fresh pair;
+    returns the launches of rank 0 by leg and the report."""
     from paddle_tpu_torch.ops.cuda import build
     zero_adam_row(torch, results, cfg)
     out_dir = os.path.join(build.BUILD_DIR, "smoke_zero")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    ranks = zero_launch(torch, repo, out_dir, "".join(ZERO_LEGS))
+    plans = {}
+    # the static plans are host work: they run while the ranks do
+    ranks = zero_launch(torch, repo, out_dir, ZERO_LEGS + AUTO_LEGS,
+                        meanwhile=lambda: plans.update(static_plans(torch,
+                                                                    np)))
     restored = zero_launch(torch, repo, out_dir, "f")
     shutil.rmtree(out_dir, ignore_errors=True)
     report = {}
@@ -4394,6 +4621,7 @@ def zero_phase(torch, np, repo, cfg, results):
             check(m["held"] == m["predicted"],
                   f"{who}: the scope holds {m['held']} bytes of "
                   f"persistables, the layout predicts {m['predicted']}")
+            check_estimate(who, m)
         for key in ("startup_params_sha256", "replicated_sha256"):
             check(rs[0][key] == rs[1][key],
                   f"{what}: {key} differs across the ranks")
@@ -4434,6 +4662,8 @@ def zero_phase(torch, np, repo, cfg, results):
         report[leg].update({k: m[k] for k in (
             "loss_gap_vs_a", "param_gap_vs_a", "scatter_gap_vs_b",
             "save_s") if k in m})
+    report.update(auto_report(ranks))
+    report["static_plans"] = plans
     b, e = ranks[0]["b"], ranks[0]["e"]
     a = ranks[0]["a"]
     check(b["moment_bytes"] * 2 <= a["moment_bytes"] + 2 * 128 * 4 *
@@ -4460,8 +4690,116 @@ def zero_phase(torch, np, repo, cfg, results):
                    "loss_after": restored[0]["f"]["loss_after"]}
     launches = {f"zero_{leg}": {k.split("/")[0]: v for k, v in
                                 ranks[0][leg]["launches"].items()}
-                for leg in ZERO_LEGS}
+                for leg in ZERO_LEGS + AUTO_LEGS}
     return launches, report
+
+
+def check_estimate(who, m):
+    """The static estimate of a rank's persistent state equals the bytes
+    its scope holds of the persistables the estimate prices, and, with the
+    persistables it leaves out (each one the step writes before it reads
+    it), the layout's formula over every persistable the scope holds; the
+    peak is printed beside the measured one, its ratio recorded without a
+    gate (the transient model was fitted to XLA's buffer assignment, and
+    the executor keeps a run's values to its end)."""
+    est = m["estimate"]
+    left = m["left_out"]
+    log(f"  {who}: persistables outside the estimate's state (written "
+        f"before they are read): {sorted(left)}, "
+        f"{sum(b for b, _ in left.values())} B")
+    log(f"  {who}: estimate {est['state_bytes'] / 1e9:.4f} GB persistent "
+        f"(held {m['state_in_held'] / 1e9:.4f} GB of those persistables; "
+        f"{m['allocated_after_startup'] / 1e9:.4f} GB allocated after the "
+        f"startup), peak {est['peak_bytes'] / 1e9:.4f} GB against "
+        f"max_memory_allocated {m['peak_bytes'] / 1e9:.4f} GB (ratio "
+        f"{m['peak_bytes'] / est['peak_bytes']:.3f})")
+    check(est["state_bytes"] == m["state_in_held"],
+          f"{who}: estimated persistent bytes {est['state_bytes']}, the "
+          f"scope holds {m['state_in_held']}")
+    unwritten = sorted(n for n, (_, w) in left.items() if not w)
+    check(not unwritten, f"{who}: the estimate leaves out persistables "
+                         f"the step never writes: {unwritten}")
+    check(est["state_bytes"] + sum(b for b, _ in left.values()) ==
+          m["predicted"],
+          f"{who}: estimated persistent bytes {est['state_bytes']} and "
+          f"{sum(b for b, _ in left.values())} left out, the layout's "
+          f"formula over every persistable held {m['predicted']}")
+
+
+def auto_report(ranks):
+    """(g) and (h) of phase 15: the gates of fleet's auto_shard on the
+    card, and their report."""
+    report = {}
+    for leg in AUTO_LEGS:
+        rs = [r[leg] for r in ranks]
+        what = f"({leg}) {AUTO_LEG_NAMES[leg]}"
+        for r, m in enumerate(rs):
+            who = f"{what} rank {r}"
+            check(all(math.isfinite(x) for x in m["losses"]) and
+                  m["losses"][-1] < m["losses"][0],
+                  f"{who}: losses not finite and falling: {m['losses']}")
+            check(not m["fallbacks"], f"{who}: fallbacks {m['fallbacks']}")
+            want = zero_expected("e", m["ops"]["adamw"])
+            got = m["launches"]
+            for key in set(want) | set(got):
+                check(got.get(key, 0) == want.get(key, 0) * AUTO_STEPS,
+                      f"{who}: {key} launched {got.get(key, 0)} times in "
+                      f"{AUTO_STEPS} steps, expected {want.get(key, 0)} a "
+                      f"step (as (e) launches)")
+            check(m["held"] == m["predicted"],
+                  f"{who}: the scope holds {m['held']} bytes of "
+                  f"persistables, the layout predicts {m['predicted']}")
+            check(m["step1_global_norm"] > CLIP_NORM,
+                  f"{who}: step 1's global norm {m['step1_global_norm']} "
+                  f"does not exceed the clip {CLIP_NORM}: it does not bind")
+            check_estimate(who, m)
+        check(rs[0]["losses"] == rs[1]["losses"],
+              f"{what}: the ranks fetched other losses")
+        check(rs[0]["step1_global_norm"] == rs[1]["step1_global_norm"],
+              f"{what}: the ranks clip by other norms")
+        report[leg] = {k: rs[0][k] for k in (
+            "losses", "step_ms_median_3_6", "collectives_ms",
+            "collective_calls", "held", "peak_bytes", "estimate",
+            "allocated_after_startup", "step1_global_norm", "ops")}
+    h = [r["h"] for r in ranks]
+    for r, m in enumerate(h):
+        who = f"(h) rank {r}"
+        check(m["winner"] == {"dp": 1, "fsdp": DP_RANKS, "tp": 1},
+              f"{who}: the planner's winner is {m['winner']}, not fsdp "
+              f"{DP_RANKS}")
+        check(len(set(m["plan_hashes"])) == 1 and
+              len(m["plan_hashes"]) == DP_RANKS,
+              f"{who}: the ranks' plan hashes differ: {m['plan_hashes']}")
+        check(not [c for c in m["plan"] if c["error"]],
+              f"{who}: a priced config carries an error: {m['plan']}")
+        check(m["plan_side_effects"] == {"routes": 0, "launches": 0,
+                                         "allocated_bytes": 0},
+              f"{who}: planning touched the card: "
+              f"{m['plan_side_effects']}")
+        check(m["ops"]["c_global_norm_allreduce"] == 1,
+              f"{who}: the clip's norm is not summed over fsdp")
+        for key, bound in (("loss_gap_vs_g", TOL_ZERO_LOSS),
+                           ("param_gap_vs_g", TOL_ZERO_PARAM)):
+            check(m[key] <= bound,
+                  f"{who}: {key} {m[key]:.3e} over {bound}")
+    check(h[0]["plan_hashes"] == h[1]["plan_hashes"],
+          "(h): the ranks gathered other plan hashes")
+    m = h[0]
+    log(f"  (h) auto_shard: budget {m['budget_gb']:.4f} GiB (halfway "
+        f"between the free plan's peaks {m['free_peaks']}), winner "
+        f"{m['winner']}, plan hashes equal on both ranks, planning and "
+        f"stamping {m['plan_s']:.2f} s of host time with no route "
+        f"decision, no launch and no allocation on the card; vs (g): "
+        f"losses {m['loss_gap_vs_g']:.3e} (tolerance {TOL_ZERO_LOSS}), "
+        f"parameters {m['param_gap_vs_g']:.3e} (tolerance "
+        f"{TOL_ZERO_PARAM}); step-1 global norm "
+        f"{m['step1_global_norm']:.4f} (clip {CLIP_NORM}); step "
+        f"{m['step_ms_median_3_6']:.2f} ms against (g)'s "
+        f"{ranks[0]['g']['step_ms_median_3_6']:.2f} ms")
+    report["h"].update({k: m[k] for k in (
+        "budget_gb", "free_peaks", "winner", "plan_s", "loss_gap_vs_g",
+        "param_gap_vs_g", "plan")})
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -4598,10 +4936,14 @@ def hsdp_leg(torch, np, cfg, leg, feed, out_dir, ref):
     exe = fluid.Executor(fleet.place)
     exe.run(startup, scope=scope)
     ops = [op.type for op in main.global_block().ops]
+    torch.cuda.synchronize()
     out = {"leg": leg, "ops": {t: ops.count(t) for t in (
         "fsdp_all_gather", "c_fused_allreduce_sum", "c_allreduce_sum",
-        "adamw")}}
-    torch.cuda.synchronize()
+        "adamw")}, "allocated_after_startup": torch.cuda.memory_allocated(
+            dev)}
+    est, state_in, written = memory_estimate(program, feed, total.name)
+    out["estimate"] = {"state_bytes": est.state_bytes,
+                       "peak_bytes": est.peak_bytes}
     torch.cuda.reset_peak_memory_stats(dev)
     prepared = exe.prepare(program, fetch_list=[total], scope=scope,
                            donate_state=True)
@@ -4619,6 +4961,9 @@ def hsdp_leg(torch, np, cfg, leg, feed, out_dir, ref):
     fluid.sync_prepared_state(scope)
     out["held"], out["predicted"], out["moment_bytes"], \
         out["param_bytes"] = held_bytes(torch, dp, scope, main)
+    out["state_in_held"] = scope_bytes(torch, scope, state_in)
+    out["left_out"] = left_out_bytes(torch, dp, scope, main, state_in,
+                                     written)
     params = global_params(dp, scope, main)
     if leg == "a":
         ref["params"], ref["losses"] = params, out["losses"]
@@ -4782,6 +5127,8 @@ def check_hsdp_rank(what, m, steps):
     check(m["held"] == m["predicted"],
           f"{what}: the scope holds {m['held']} bytes of persistables, the "
           f"layout predicts {m['predicted']}")
+    if "estimate" in m:
+        check_estimate(what, m)
 
 
 def shard_coverage(ckpt):
@@ -7184,6 +7531,9 @@ def moe_one_rank(torch, np):
     scope = fluid.Scope()
     exe = fluid.Executor()
     exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    allocated_after_startup = torch.cuda.memory_allocated()
+    est, state_in, written = memory_estimate(program, feed, total.name)
     prepared = exe.prepare(program, fetch_list=[total, lr_var] + combs,
                            scope=scope, donate_state=True)
     torch.cuda.synchronize()
@@ -7215,11 +7565,22 @@ def moe_one_rank(torch, np):
     check(not fallbacks, f"(a): route fallbacks {fallbacks}")
     check_launches(kernels, expected, MOE_STEPS,
                    {n: "float32" for n in expected})
+    fluid.sync_prepared_state(scope)
+    held, predicted, _, _ = held_bytes(torch, None, scope, main)
+    memory = {"estimate": {"state_bytes": est.state_bytes,
+                           "peak_bytes": est.peak_bytes},
+              "state_in_held": scope_bytes(torch, scope, state_in),
+              "held": held, "predicted": predicted,
+              "left_out": left_out_bytes(torch, None, scope, main,
+                                         state_in, written),
+              "allocated_after_startup": allocated_after_startup,
+              "peak_bytes": torch.cuda.max_memory_allocated()}
+    check_estimate("(a) one rank", memory)
     profile = profile_step(torch, lambda: float(prepared.run(feed)[0]),
                            steady * 1e3)
     del prepared, scope, out
     torch.cuda.empty_cache()
-    report = {"losses": losses, "step_s": step_s,
+    report = {"memory": memory, "losses": losses, "step_s": step_s,
               "step_ms_median": steady * 1e3, "peak_gb": peak_gb,
               "parameters": n_params, "expert_parameters": n_expert,
               "dropped_share_by_layer": drops, "expected": expected,
@@ -7654,7 +8015,7 @@ KERNEL_PATHS = {
 WRAPPED_PATHS = ("recompute", "gradient_merge", "dgc", "localsgd")
 #: phase 15's paths, rank 0 of each leg: (a) dp2 fp32, (b)-(d) ZeRO-1 in
 #: fp32, int8 and int4, (e) ZeRO-3
-ZERO_PATHS = tuple(f"zero_{leg}" for leg in ZERO_LEGS)
+ZERO_PATHS = tuple(f"zero_{leg}" for leg in ZERO_LEGS + AUTO_LEGS)
 #: phase 16's paths, rank 0 of each leg: (a) dp4, (b) HSDP, (d) and (e)
 #: the restores' steps
 HSDP_PATHS = ("hsdp_a", "hsdp_b", "hsdp_d", "hsdp_e")
@@ -7916,7 +8277,7 @@ def main(argv=None) -> int:
             f"so the loss moves within {TRAIN_STEPS} steps)")
         fused, fused_training = train_phase(
             torch, np, base, build_fused_train, FUSED_LAUNCHES,
-            schedule=scheduled_lr)
+            schedule=scheduled_lr, estimate=True)
         fused_training.update(train_plain_phase(
             torch, np, base, build_fused_train, FUSED_LAUNCHES))
 
@@ -7952,7 +8313,9 @@ def main(argv=None) -> int:
         log(f"phase 15: ZeRO-1 and ZeRO-3 at BERT-base width on "
             f"{DP_RANKS} ranks of the card over gloo (phase 8's program at "
             f"{CUT_LAYERS} layers, the recipe without its norm clip), "
-            f"{ZERO_STEPS} steps a leg")
+            f"{ZERO_STEPS} steps a leg; (g) dp2 and (h) auto_shard under a "
+            f"budget with the recipe's clip, {AUTO_STEPS} steps each; the "
+            f"static plans")
         t15 = time.perf_counter()
         zero_launches, zero_report = zero_phase(torch, np, repo, base,
                                                 per_kernel)

@@ -48,10 +48,18 @@ explicit ``strategy.mesh`` with a ``pp`` axis, or over the job's ranks
 split into (dp, pp) with pp = ``num_stages`` (default: every rank a
 stage); ZeRO-1 beside it shards over the dp ranks.  ``pipeline_configs``
 may also name ``apply_pipeline``'s ``shard_weights`` and
-``feed_shapes`` (the microbatch's shapes the stage cut is planned at).  A flag whose path is
-not ported (auto_shard, a mesh of another kind or with an expert axis,
-pp beside fsdp, tp or sp) raises :class:`UnimplementedError` naming it;
-none is ignored.  Expert parallelism composes
+``feed_shapes`` (the microbatch's shapes the stage cut is planned at).
+``auto_shard`` / ``auto_shard_configs`` (``hbm_budget_gb``, ``max_tp``,
+``min_shard_numel``, ``num_devices`` (default: the world size),
+``feed_shapes``, ``report_path``, ``fsdp_prefetch_distance``,
+``max_pipe``, ``max_expert``, ``num_microbatches``, ``pipe_schedule``,
+``pipe_shard_weights``, ``remat``) plan the layout statically
+(``framework/shard_planner.py``), check that every rank reached the same
+plan (:func:`plan_hash`), stamp the winner and compile it ``with_mesh``;
+``fleet.plan`` is the ranked plan.  A flag whose path is not ported (a
+mesh of another kind or with an expert axis, pp beside fsdp, tp or sp, an
+auto-shard winner the port does not run) raises
+:class:`UnimplementedError` naming it; none is ignored.  Expert parallelism composes
 ``parallel.apply_expert_sharding`` with ``CompiledProgram.with_mesh``
 outside fleet; the manual ``moe_ffn(ep_degree=n, axis_name="dp")``
 build rides fleet's plain data parallelism.
@@ -232,8 +240,8 @@ class DistributedStrategy:
     ``tensor_parallel`` / ``tensor_parallel_configs`` (taken: the layout
     comes from ``dist_attr`` and the mesh), ``pipeline`` /
     ``pipeline_configs``, ``nccl_comm_num`` and
-    ``use_hierarchical_allreduce`` (no-ops) and ``build_strategy``;
-    ``auto_shard`` raises at ``minimize``."""
+    ``use_hierarchical_allreduce`` (no-ops), ``auto_shard`` /
+    ``auto_shard_configs`` and ``build_strategy``."""
 
     def __init__(self):
         self.amp = False
@@ -282,18 +290,7 @@ class DistributedStrategy:
         self.build_strategy = None
 
 
-#: strategy flags whose paths are not ported, with what each needs
-_UNPORTED = (
-    ("auto_shard", "the auto-shard planner"),
-)
-
-
 def _refuse_unported(s):
-    for name, needs in _UNPORTED:
-        if getattr(s, name, False):
-            raise UnimplementedError(
-                f"DistributedStrategy.{name}=True: its path ({needs}) is "
-                f"not ported yet")
     mesh = getattr(s, "mesh", None)
     from ..framework.mesh_layout import ProcessMesh, check_ported_axes
     if mesh is None:
@@ -390,6 +387,8 @@ class _Fleet:
         self._strategy: Optional[DistributedStrategy] = None
         self._origin_program = None
         self._compiled_program = None
+        self._plan = None          # the last auto_shard Plan
+        self._plan_hashes = None   # every rank's sha256 of that plan
 
     # -- lifecycle -------------------------------------------------------
     def init(self, role_maker: Optional[RoleMakerBase] = None,
@@ -490,6 +489,12 @@ class _Fleet:
     @property
     def _origin_main_program(self):
         return self._origin_program
+
+    @property
+    def plan(self):
+        """The ranked auto-shard Plan of the last ``auto_shard=True``
+        minimize (``framework/shard_planner.py``), or None."""
+        return self._plan
 
 
 fleet = _Fleet()
@@ -703,6 +708,97 @@ class CollectiveOptimizer:
                 begin_step=s.localsgd_configs.get("begin_step", 1))
         return optimizer
 
+    def _minimize_auto(self, loss, startup_program=None,
+                       parameter_list=None, no_grad_set=None):
+        """``strategy.auto_shard``: the plain training program first (the
+        backward and update ops, no layout), then the planner ranks the
+        (data, fsdp, tp, pipe, expert) layouts of the job's ranks
+        statically (``shard_planner.plan_sharding``, nothing launched),
+        every rank checks that all of them reached the same plan, and the
+        winner is stamped onto this program (``stamp_winning_layout``:
+        the expert, ZeRO-3 and pipeline rewrites; a winner the port does
+        not run raises by name) and compiled ``with_mesh`` over its
+        mesh."""
+        from ..flags import flag
+        from ..framework.mesh_layout import (EXPERT_AXIS, FSDP_AXIS,
+                                             _flat_axes)
+        from ..framework.shard_planner import (plan_sharding,
+                                               stamp_winning_layout)
+        s = self._strategy
+        cfgs = dict(s.auto_shard_configs or {})
+        program = loss.block.program
+        # a manual per-parameter fsdp or expert stamp claims the layout the
+        # planner searches (tp annotations are fine: it searches the tp
+        # dimension they declare)
+        for p in program.all_parameters():
+            da = getattr(p, "dist_attr", None)
+            if da and FSDP_AXIS in _flat_axes(tuple(da)):
+                raise InvalidArgumentError(
+                    f"DistributedStrategy: auto_shard=True and a manual "
+                    f"per-param dist_attr override on {p.name!r} "
+                    f"({tuple(da)!r}) both claim the {FSDP_AXIS!r} axis "
+                    f"and cannot compose — drop the manual stamp or set "
+                    f"auto_shard=False")
+            if da and EXPERT_AXIS in _flat_axes(tuple(da)):
+                raise InvalidArgumentError(
+                    f"DistributedStrategy: auto_shard=True and a manual "
+                    f"ep_degree stamp on {p.name!r} ({tuple(da)!r}) both "
+                    f"claim the {EXPERT_AXIS!r} axis and cannot compose "
+                    f"— build the MoE layer dense (ep_degree=None) and "
+                    f"let the planner search max_expert, or set "
+                    f"auto_shard=False")
+        for op in program.global_block().ops:
+            if op.type == "c_expert_alltoall" and \
+                    op.attrs.get("_axis_name"):
+                raise InvalidArgumentError(
+                    "DistributedStrategy: auto_shard=True cannot compose "
+                    "with a manually expert-parallel MoE build (found a "
+                    "c_expert_alltoall over axis "
+                    f"{op.attrs['_axis_name']!r}) — build the MoE layer "
+                    "dense (ep_degree=None) and pass "
+                    "auto_shard_configs={'max_expert': ...}, or set "
+                    "auto_shard=False")
+
+        opt_ops, params_grads = self._wrapped(1).minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+
+        ndev = int(cfgs.get("num_devices") or fleet.worker_num())
+        budget = cfgs.get("hbm_budget_gb")
+        if budget is None:
+            budget = float(flag("hbm_budget_gb") or 0.0) or None
+        min_numel = int(cfgs.get("min_shard_numel") or 2048)
+        plan = plan_sharding(
+            program, ndev, loss_name=loss.name,
+            feed_shapes=cfgs.get("feed_shapes"),
+            fetch_names=[loss.name], hbm_budget_gb=budget,
+            build_strategy=self._build_strategy(),
+            max_tp=cfgs.get("max_tp"), min_shard_numel=min_numel,
+            module="auto_shard",
+            report_path=cfgs.get("report_path"),
+            max_pipe=int(cfgs.get("max_pipe") or 1),
+            max_expert=int(cfgs.get("max_expert") or 1),
+            num_microbatches=int(cfgs.get("num_microbatches") or 1),
+            remat=bool(cfgs.get("remat")),
+            pipe_schedule=str(cfgs.get("pipe_schedule") or "1f1b"),
+            pipe_shard_weights=bool(cfgs.get("pipe_shard_weights")))
+        fleet._plan = plan
+        fleet._plan_hashes = _same_plan_everywhere(plan)
+        layout = stamp_winning_layout(
+            program, plan, min_shard_numel=min_numel,
+            prefetch_distance=int(cfgs.get("fsdp_prefetch_distance")
+                                  or 0),
+            feed_shapes=cfgs.get("feed_shapes"))
+        fleet._origin_program = program
+        mesh = layout.build_mesh()
+        if mesh is not None:
+            from ..framework.compiler import CompiledProgram
+            fleet._compiled_program = CompiledProgram(program).with_mesh(
+                mesh, loss_name=loss.name, batch_axis=layout.batch_axes,
+                build_strategy=self._build_strategy())
+        else:
+            fleet._compiled_program = None
+        return opt_ops, params_grads
+
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
         """The (wrapped) inner optimizer's backward and update ops, then —
@@ -720,6 +816,9 @@ class CollectiveOptimizer:
         s = self._strategy
         fleet._strategy = s
         self._validate(s)
+        if getattr(s, "auto_shard", False):
+            return self._minimize_auto(loss, startup_program,
+                                       parameter_list, no_grad_set)
         _refuse_unported(s)
         if s.mesh is not None and s.mesh.size != fleet.worker_num():
             raise ValueError(
@@ -771,6 +870,35 @@ class CollectiveOptimizer:
         else:
             fleet._compiled_program = None
         return opt_ops, params_grads
+
+
+def plan_hash(plan) -> str:
+    """sha256 of a Plan's JSON (keys sorted): equal on every rank that
+    planned the same program with the same figures."""
+    import hashlib
+    import json
+    return hashlib.sha256(json.dumps(plan.as_dict(), sort_keys=True)
+                          .encode()).hexdigest()
+
+
+def _same_plan_everywhere(plan):
+    """Every rank plans for itself: gather each rank's :func:`plan_hash`
+    and raise ``InvalidArgumentError`` if any two differ (the ranks would
+    build different programs and hang in their collectives).  Returns the
+    hashes, rank by rank."""
+    import torch.distributed as dist
+    mine = plan_hash(plan)
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size() == 1:
+        return [mine]
+    hashes = [None] * dist.get_world_size()
+    dist.all_gather_object(hashes, mine)
+    if len(set(hashes)) != 1:
+        raise InvalidArgumentError(
+            f"auto_shard: the ranks planned differently (plan hashes "
+            f"{hashes}); every rank must see the same program, feeds, "
+            f"budget and figures")
+    return hashes
 
 
 def distributed_optimizer(optimizer, strategy: Optional[DistributedStrategy]

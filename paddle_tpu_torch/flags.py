@@ -42,6 +42,24 @@ _register("overlap_lowering", True)
 # B / W units' recomputed one to it bit for bit (the dropout replay),
 # counted in last_pipeline_report(); off: nothing kept, nothing compared
 _register("pipe_replay_check", False)
+# the static pricing layer (framework/memory_analysis.py): a per-rank
+# budget in GiB that Executor.prepare / Executor.run /
+# CompiledProgram.with_mesh hold a program's static peak estimate to
+# before any launch (0: no gate); with remat_on_reject an over-budget
+# training program gets recompute checkpoints (pipe.plan_remat) instead
+_register("hbm_budget_gb", 0.0)
+_register("remat_on_reject", False)
+# the share of the step's 3x forward GEMM FLOPs that runs in the backward
+# and can hide an overlapped gradient sync (the exposed-comm model)
+_register("overlap_compute_frac", 2.0 / 3.0)
+# peak FLOP/s the exposed-comm model divides the step's FLOPs by (> 0
+# overrides observability.flops.device_peak_flops' table)
+_register("device_peak_flops", 0.0)
+# the bandwidth in GB/s the exposed-comm model moves wire bytes at: the
+# gloo exchange measured on an NVIDIA H100 80GB HBM3 at 700 W (two ranks
+# on one card, 48 x 25.2 MB in 1611.4 ms: 0.75 GB/s; chip_smoke.py phase
+# 20 (b))
+_register("link_gbps", 0.75)
 
 
 def get_flags(flags: Union[str, Iterable[str]]) -> Dict[str, Any]:

@@ -40,10 +40,12 @@ other batch axes only).  pp beside fsdp, tp or sp, ep beside tp, sp or
 pp, and several places in one process raise: one process drives one
 device.  With ``overlap_grad_sync``
 the buckets are cut in gradient ready order and marked for the
-executor's backward hooks (:func:`insert_grad_sync`).  The JAX package's
-static checks of a variant (``verify_programs``, ``hbm_budget_gb``,
-``aot_cache_dir``) belong to modules the port does not have yet, and it
-has none of those flags."""
+executor's backward hooks (:func:`insert_grad_sync`).  With
+``flag("hbm_budget_gb")`` set, ``with_mesh`` holds the program's static
+per-rank peak estimate (``memory_analysis.check_hbm_budget``) to the
+budget before anything runs.  The JAX package's other static checks of
+a variant (``verify_programs``, ``aot_cache_dir``) belong to modules the
+port does not have yet, and it has none of those flags."""
 
 from __future__ import annotations
 
@@ -120,8 +122,14 @@ class CompiledProgram:
         self._loss_name = None
         self._pending_passes = []
         self._pass_variants: "OrderedDict[tuple, Program]" = OrderedDict()
-        # the process group the run reduces over (None: one rank)
+        # the process group the run reduces over (None: one rank), and the
+        # layout the budget gate prices a rank by ({axis: size}, the batch
+        # and sequence axes, the feed specs)
         self._dp = None
+        self._mesh_axes = {}
+        self._batch_axis = None
+        self._seq_axis = None
+        self._feed_specs = None
 
     def with_data_parallel(self, loss_name: Optional[str] = None,
                            build_strategy: Optional[BuildStrategy] = None,
@@ -146,6 +154,9 @@ class CompiledProgram:
             insert_grad_sync(self._program, strategy, dp.world,
                              (axis_name,), axis_sizes={axis_name: dp.world})
         self._dp = dp
+        if dp is not None:
+            self._mesh_axes = {axis_name: dp.world}
+            self._batch_axis = axis_name
         self._loss_name = loss_name
         if strategy.fuse_elewise_add_act_ops:
             # ref: build_strategy.cc:51 runs fuse_elewise_add_act_pass in
@@ -230,6 +241,23 @@ class CompiledProgram:
             insert_grad_sync(self._program, strategy, n, reduce_axes,
                              axis_sizes=sizes)
         self._dp = dp
+        self._mesh_axes = dict(sizes)
+        self._batch_axis = batch_axes if len(batch_axes) != 1 \
+            else batch_axes[0]
+        self._seq_axis = seq_axis
+        self._feed_specs = {str(k): tuple(v) for k, v in
+                            dict(feed_specs or {}).items()} or None
+        from ..flags import flag
+        if flag("hbm_budget_gb"):
+            # the budget gate before any launch: declared feed shapes
+            # (−1 read as 1, a lower bound); Executor.prepare / run
+            # re-gate at the feeds' shapes
+            from .memory_analysis import check_hbm_budget
+            check_hbm_budget(
+                self._program,
+                fetch_names=[loss_name] if loss_name else [],
+                mesh_axes=self._mesh_axes, batch_axis=self._batch_axis,
+                seq_axis=seq_axis, feed_specs=self._feed_specs)
         # io reads the groups a checkpoint's blocks live over from here
         self._program._run_groups = dp
         self._loss_name = loss_name

@@ -73,6 +73,7 @@ import contextlib
 import threading
 import time
 import weakref
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -755,6 +756,46 @@ class FetchHandle:
         return f"FetchHandle({self.name!r}, {state})"
 
 
+#: (program, feeds, fetches, layout, donation, budget) the budget gate
+#: already admitted: the static estimate runs once per such key (the
+#: newest _ADMITTED_CAP kept)
+_ADMITTED: "OrderedDict[tuple, None]" = OrderedDict()
+_ADMITTED_CAP = 64
+
+
+def _budget_gate(program: Program, compiled, feed, fetch_names,
+                 donate_state: bool):
+    """``flag("hbm_budget_gb")``'s gate: raise ``InvalidArgumentError``
+    before any launch when the program's static per-rank peak estimate
+    (``memory_analysis.check_hbm_budget``, at the feeds' shapes and the
+    run's layout) exceeds the budget.  Once per program version, feed
+    signature, fetch list and layout."""
+    from ..flags import flag
+    budget = float(flag("hbm_budget_gb") or 0.0)
+    if budget <= 0:
+        return
+    mesh = getattr(compiled, "_mesh_axes", None) or {}
+    feed = dict(feed or {})
+    key = (program._uid, program._version,
+           tuple(sorted((k, tuple(np.shape(v)), str(getattr(v, "dtype", "")))
+                        for k, v in feed.items())),
+           tuple(fetch_names), tuple(sorted(mesh.items())),
+           bool(donate_state), budget)
+    if key in _ADMITTED:
+        _ADMITTED.move_to_end(key)
+        return
+    from .memory_analysis import check_hbm_budget
+    check_hbm_budget(program, feed_shapes=feed or None,
+                     fetch_names=list(fetch_names), mesh_axes=mesh,
+                     batch_axis=getattr(compiled, "_batch_axis", None),
+                     seq_axis=getattr(compiled, "_seq_axis", None),
+                     feed_specs=getattr(compiled, "_feed_specs", None),
+                     donate_state=donate_state, budget_gb=budget)
+    _ADMITTED[key] = None
+    if len(_ADMITTED) > _ADMITTED_CAP:
+        _ADMITTED.popitem(last=False)
+
+
 class PreparedStep:
     """Steady-state fast path (ref: Executor::Prepare / RunPreparedContext):
     the program's persistable inputs are resolved and moved to the device
@@ -914,9 +955,12 @@ class Executor:
         feed = feed or {}
         fetch_names = _fetch_names(fetch_list)
         dp = None
+        compiled = None
         if isinstance(program, CompiledProgram):
+            compiled = program
             dp = program._dp
             program = program._variant_for(fetch_names)
+        _budget_gate(program, compiled, feed, fetch_names, False)
         env: Dict[str, Any] = {}
         for n in external_inputs(program):
             if n in feed:
@@ -957,9 +1001,13 @@ class Executor:
         program = program or default_main_program()
         scope = scope or global_scope()
         dp = None
+        compiled = None
         if isinstance(program, CompiledProgram):
+            compiled = program
             dp = program._dp
             program = program._variant_for(_fetch_names(fetch_list))
+        _budget_gate(program, compiled, feed, _fetch_names(fetch_list),
+                     donate_state)
         return PreparedStep(self, program, feed_names, fetch_list or [],
                             scope, feed=feed, donate_state=donate_state,
                             dp=dp)

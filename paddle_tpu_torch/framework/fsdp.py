@@ -17,7 +17,10 @@ this pass shards the parameters themselves:
   the fsdp axis for stamped parameters (their gradients are stamped too)
   and only applies the mean scale;
 * the optimizer accumulators shaped like the parameter are stamped with
-  the same spec, so the moments shard along with it.
+  the same spec, so the moments shard along with it;
+* a global-norm clip sums its sharded gradients' squares over the fsdp
+  axis before the square root (``clip.shard_global_norm``), so every rank
+  clips by the whole gradient's norm.
 
 The batch shards over the fsdp axis, and over ``dp`` x ``fsdp`` under
 HSDP (``MeshLayout.batch_axes``), where a stamped parameter is a block by
@@ -178,6 +181,8 @@ def apply_fsdp_sharding(program: Program, layout: MeshLayout,
              _DTYPE_BYTES.get(str(p.dtype), 4),
              "pinned": bool(liveness.get(p.name) and
                             liveness[p.name].pinned)})
+    from ..clip import shard_global_norm
+    shard_global_norm(block)
     program._bump_version()
     return report
 

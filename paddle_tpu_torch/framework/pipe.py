@@ -30,9 +30,11 @@ paddle_tpu/framework/pipe.py (its rewrite half).
   optimizer state; the lowering gathers them once before its walk and
   reduce-scatters their gradients once after it.
 
-Activation rematerialization planning (``plan_remat`` / ``apply_remat``)
-prices recompute with the JAX package's static memory estimate, which
-the port does not have yet: both raise :class:`UnimplementedError`."""
+* **activation rematerialization** — :func:`plan_remat` picks recompute
+  checkpoints at the forward's residual minima and prices them with the
+  static memory estimate (``framework/memory_analysis.py``);
+  :func:`apply_remat` stamps them on the ``backward`` op, whose recompute
+  segments the executor runs."""
 
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from .core import Program, grad_var_name
-from .errors import InvalidArgumentError, UnimplementedError
+from .errors import InvalidArgumentError
 from .fsdp import _DTYPE_BYTES
 from .mesh_layout import PIPE_AXIS
 
@@ -158,6 +160,22 @@ SHAPE_INFERRED_OPS = frozenset({
     "softmax_with_cross_entropy", "softplus", "softsign", "split", "sqrt",
     "square", "sum", "swish", "tanh", "top_k", "transpose", "transpose2",
     "truncated_gaussian_random", "uniform_random", "unsqueeze2", "where"})
+
+#: the output slots the JAX package's infer channel covers, for the ops of
+#: :data:`SHAPE_INFERRED_OPS` with outputs beyond them (an ``XShape``, an
+#: optimizer's moments): the other slots keep their declared signatures
+#: there.  Every slot of an op not listed is covered.
+INFERRED_SLOTS = {
+    "reshape2": ("Out",), "reshape": ("Out",), "transpose2": ("Out",),
+    "transpose": ("Out",), "unsqueeze2": ("Out",),
+    "cross_entropy": ("Y", "Out"), "cross_entropy2": ("Y", "Out"),
+    "batch_norm": ("Y",), "fused_attention": ("Out",),
+    "moe_dispatch": ("Xe", "Combine", "AuxLoss"),
+    "sgd": ("ParamOut",), "momentum": ("ParamOut",),
+    "adamax": ("ParamOut",), "adagrad": ("ParamOut",),
+    "rmsprop": ("ParamOut",), "lars_momentum": ("ParamOut",),
+    "lamb": ("ParamOut",), "adam": ("ParamOut",), "adamw": ("ParamOut",),
+}
 
 #: the fusion passes' ops, whose outputs keep their first input's shape:
 #: the JAX package's infer channel has no rule for them, which leaves a
@@ -958,23 +976,152 @@ def apply_pipe_weight_sharding(program: Program,
 
 
 # ---------------------------------------------------------------------------
-# activation rematerialization (not ported)
+# activation rematerialization
 # ---------------------------------------------------------------------------
 
-
-def plan_remat(*args, **kwargs):
-    """Not ported: remat planning prices recompute with the JAX package's
-    static HBM estimate (``memory_analysis.estimate``), which the port
-    does not have yet."""
-    raise UnimplementedError(
-        "pipe.plan_remat: remat planning needs the static memory "
-        "estimate (memory_analysis.estimate), which is not ported yet; "
-        "set recompute checkpoints by hand (RecomputeOptimizer)")
+#: the random ops whose draws a recompute segment replays
+RNG_OP_TYPES = frozenset({
+    "dropout", "uniform_random", "gaussian_random",
+    "truncated_gaussian_random", "uniform_random_batch_size_like", "seed",
+})
 
 
-def apply_remat(*args, **kwargs):
-    """Not ported (see :func:`plan_remat`)."""
-    raise UnimplementedError(
-        "pipe.apply_remat: remat planning needs the static memory "
-        "estimate (memory_analysis.estimate), which is not ported yet; "
-        "set recompute checkpoints by hand (RecomputeOptimizer)")
+class RematPlan:
+    """A candidate recompute insertion: segment boundaries + pricing."""
+
+    def __init__(self, checkpoints, positions, num_segments, est_before,
+                 est_after, flops_delta, fits):
+        self.checkpoints = list(checkpoints)
+        self.positions = list(positions)
+        self.num_segments = int(num_segments)
+        self.est_before = est_before
+        self.est_after = est_after
+        self.flops_delta = float(flops_delta)
+        self.fits = bool(fits)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {"checkpoints": list(self.checkpoints),
+                "positions": list(self.positions),
+                "num_segments": self.num_segments,
+                "peak_bytes_before": int(self.est_before.peak_bytes),
+                "peak_bytes_after": int(self.est_after.peak_bytes),
+                "recompute_flops_delta": self.flops_delta,
+                "fits": self.fits}
+
+
+def plan_remat(program: Program, feed_shapes=None,
+               fetch_names=(), mesh_axes: Optional[Dict[str, int]] = None,
+               batch_axis=None, seq_axis=None,
+               budget_gb: Optional[float] = None,
+               donate_state: bool = True,
+               max_segments: int = 16) -> Optional[RematPlan]:
+    """Pick recompute ``checkpoints`` at the liveness-identified residual
+    minima and price the trade (the JAX package's search): the retained
+    per-rank peak after (``memory_analysis.analyze_memory``) against the
+    forward FLOPs of re-running every non-final segment once in the
+    backward.  Segment counts are tried smallest first (2, 4, 8, ...):
+    the cheapest plan that fits ``budget_gb`` wins; with no budget, or
+    nothing fitting, the deepest plan evaluated is returned (``fits``
+    says which).  The shapes are the static estimate's
+    (``memory_analysis.shape_env``).  None when the program has no
+    backward op or already carries checkpoints."""
+    from .memory_analysis import _feed_sigs as _ma_feed_sigs
+    from .memory_analysis import analyze_memory, shape_env
+    block, ops, bw_idx = _fwd_region(program)
+    if bw_idx is None:
+        return None
+    bw = ops[bw_idx]
+    if bw.attrs.get("checkpoints"):
+        return None
+    fwd_ops = ops[:bw_idx]
+    F = len(fwd_ops)
+    if F < 4:
+        return None
+    feed_sigs = _ma_feed_sigs(program, feed_shapes, 1)
+    env = shape_env(program, feed_sigs)
+    def_idx, last_use = _fwd_liveness(block, fwd_ops)
+    flops = _per_op_flops(block, fwd_ops, env)
+    fprefix = np.concatenate([[0.0], np.cumsum(flops)])
+
+    cost: Dict[int, int] = {}
+    for c in range(1, F):
+        # the checkpoint marker is an output of op c-1
+        if not fwd_ops[c - 1].output_names():
+            continue
+        names, b = _boundary_at(block, fwd_ops, c, def_idx, last_use,
+                                env, feed_sigs)
+        if b is None:
+            continue
+        cost[c] = b
+    if not cost:
+        return None
+    positions = sorted(cost)
+
+    kw = dict(feed_shapes=feed_shapes, fetch_names=list(fetch_names),
+              mesh_axes=mesh_axes, batch_axis=batch_axis,
+              seq_axis=seq_axis, donate_state=donate_state)
+    est_before = analyze_memory(program, **kw)
+
+    def pick(K):
+        """K-1 cut positions: the least-boundary candidate inside each
+        even-spacing window."""
+        chosen = []
+        for k in range(1, K):
+            center = k * F / K
+            half = max(F / (2 * K), 1.0)
+            window = [c for c in positions
+                      if center - half <= c <= center + half
+                      and c not in chosen]
+            if not window:
+                window = [c for c in positions if c not in chosen]
+                if not window:
+                    return None
+                window = [min(window, key=lambda c: abs(c - center))]
+            chosen.append(min(window, key=lambda c: (cost[c], c)))
+        return sorted(chosen)
+
+    best: Optional[RematPlan] = None
+    K = 2
+    while K <= min(int(max_segments), F):
+        cuts = pick(K)
+        if cuts is None:
+            break
+        markers = [fwd_ops[c - 1].output_names()[0] for c in cuts]
+        clone = program.clone()
+        _, cops, cbw = _fwd_region(clone)
+        cops[cbw].attrs["checkpoints"] = list(markers)
+        est_after = analyze_memory(clone, **kw)
+        # every non-final segment's forward re-runs once in the backward
+        delta = float(fprefix[cuts[-1]])
+        fits = budget_gb is not None and \
+            est_after.peak_gb <= float(budget_gb)
+        cand = RematPlan(markers, cuts, K, est_before, est_after,
+                         delta, fits)
+        if fits:
+            return cand
+        if best is None or est_after.peak_bytes < \
+                best.est_after.peak_bytes:
+            best = cand
+        K *= 2
+    return best
+
+
+def apply_remat(program: Program, plan: RematPlan):
+    """Apply a :class:`RematPlan` to the program: set the backward op's
+    ``checkpoints``, which the executor's recompute segments run
+    (``executor.run_forward``: each segment but the last under
+    ``torch.utils.checkpoint``, its random ops replayed from the run
+    generator's state at the segment's entry), and stamp ``_folded_key``
+    on the random ops inside the recompute regions, as the JAX package
+    does.  Returns the backward op."""
+    block, ops, bw_idx = _fwd_region(program)
+    if bw_idx is None:
+        raise InvalidArgumentError("apply_remat: no backward op")
+    bw = ops[bw_idx]
+    bw.attrs["checkpoints"] = list(plan.checkpoints)
+    last_cut = max(plan.positions) if plan.positions else 0
+    for op in ops[:last_cut]:
+        if op.type in RNG_OP_TYPES:
+            op.attrs["_folded_key"] = True
+    program._bump_version()
+    return bw

@@ -25,11 +25,11 @@ plan (``reshard-*`` diagnostics) before anything moves;
 (the restore path), counting the bytes it moves so that execution is held
 to the plan's accounting.
 
-Two parts wait for their slices and raise :class:`UnimplementedError`
-naming what they need: :meth:`ReshardPlan.price` (the exposed-comm model
-of ``memory_analysis``) and :func:`arm_fault` (the ``reshard_execute``
-fault seam of ``testing/faultline.py``); :func:`execute_reshard` crosses
-no seam."""
+:meth:`ReshardPlan.price` prices a restore through
+``memory_analysis.exposed_comm_model``.  :func:`arm_fault` (the
+``reshard_execute`` fault seam of ``testing/faultline.py``) waits for its
+slice and raises :class:`UnimplementedError` naming it;
+:func:`execute_reshard` crosses no seam."""
 
 from __future__ import annotations
 
@@ -462,13 +462,17 @@ class ReshardPlan:
                 "unpriced_collectives": []}
 
     def price(self, ici_gbps=None) -> Dict[str, Any]:
-        """Not ported: the JAX package prices the restore with
-        ``memory_analysis.exposed_comm_model``, which comes with the
-        port's analysis layer."""
-        raise UnimplementedError(
-            "ReshardPlan.price: pricing a restore needs "
-            "memory_analysis.exposed_comm_model, which is not ported yet; "
-            "wire_summary() has the bytes it would price")
+        """The restore's time through ``memory_analysis.
+        exposed_comm_model`` (all of it exposed: a restore has no compute
+        to hide under).  ``ici_gbps`` is the JAX package's keyword, read
+        as the link's GB/s (default ``flag("link_gbps")``)."""
+        from .memory_analysis import exposed_comm_model
+        n = self.dst_layout.num_devices if self.dst_layout else 1
+        priced = exposed_comm_model(self.wire_summary(), 0.0,
+                                    num_devices=n, overlap=False,
+                                    has_backward=False, link_gbps=ici_gbps)
+        self.pricing = priced
+        return priced
 
     # -- reporting -------------------------------------------------------
     def as_dict(self) -> Dict[str, Any]:
@@ -487,8 +491,8 @@ class ReshardPlan:
              "compiles_attempted": self.compiles_attempted,
              "transfers": [t.as_dict() for t in self.transfers.values()
                            if not t.identity]}
-        # the JAX package adds the priced ``wire_time_ms`` and
-        # ``exposed_comm_ms`` here; pricing is not ported (:meth:`price`)
+        # the JAX package also prices the plan here (``wire_time_ms``,
+        # ``exposed_comm_ms``); the port's figures are :meth:`price`'s
         return d
 
     def report(self) -> str:

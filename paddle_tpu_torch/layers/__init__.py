@@ -10,7 +10,7 @@ from .math_ops import (_binary, _broadcast_shape, _to_variable,  # noqa: F401
                        reduce_sum, equal, not_equal, less_than, less_equal,
                        greater_than, greater_equal, logical_and, logical_or,
                        logical_not)
-from .loss import softmax_with_cross_entropy  # noqa: F401
+from .loss import cross_entropy, softmax_with_cross_entropy  # noqa: F401
 from .nn import (data, fc, layer_norm, embedding, softmax,  # noqa: F401
                  dropout, argmax)
 from .tensor_ops import (cast, fill_constant, reshape,  # noqa: F401

@@ -6,6 +6,21 @@ from __future__ import annotations
 from ..framework.layer_helper import LayerHelper
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100,
+                  name=None):
+    """Per-row cross entropy of the probabilities ``input`` against
+    ``label`` (int64 class ids, or a distribution with ``soft_label``)."""
+    helper = LayerHelper("cross_entropy", name=name)
+    shape = tuple(input.shape[:-1]) + (1,)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, return_softmax=False,
                                axis=-1, name=None):

@@ -480,6 +480,15 @@ def _c_allreduce_sum(ctx, ins, attrs):
     return {"Out": all_reduce(g, a)}
 
 
+@register("c_global_norm_allreduce")
+def _c_global_norm_allreduce(ctx, ins, attrs):
+    """A global-norm clip's partial sum of squares summed over the axes
+    its gradients are sharded on (``clip.shard_global_norm``); the
+    identity where the run lacks them."""
+    return _c_allreduce_sum(ctx, ins, {k: v for k, v in attrs.items()
+                                       if k != "compress_dtype"})
+
+
 register("c_allreduce_max")(_allreduce("max"))
 register("c_allreduce_min")(_allreduce("min"))
 

@@ -183,6 +183,27 @@ def _gather_label_logp(logp, label, ignore_index=-100):
                                             device=picked.device), picked)
 
 
+@register("cross_entropy")
+def _cross_entropy(ctx, ins, attrs):
+    """ref: cross_entropy_op.cc — ``-log`` of the label's probability
+    (floored at 1e-20), the class axis kept with size 1; hard labels are
+    int64 class ids (ignore_index rows give 0), soft ones distributions."""
+    prob, label = x(ins, "X"), x(ins, "Label")
+    logp = torch.log(torch.clamp_min(prob, 1e-20))
+    if attrs.get("soft_label", False):
+        return {"Y": -(label * logp).sum(dim=-1, keepdim=True)}
+    picked = _gather_label_logp(logp, label, attrs.get("ignore_index", -100))
+    return {"Y": -picked[..., None]}
+
+
+@register("cross_entropy2")
+def _cross_entropy2(ctx, ins, attrs):
+    y = _cross_entropy(ctx, ins, attrs)["Y"]
+    prob = x(ins, "X")
+    return {"Y": y, "XShape": torch.zeros_like(prob),
+            "MatchX": torch.exp(-y)}
+
+
 @register("softmax_with_cross_entropy")
 def _softmax_with_cross_entropy(ctx, ins, attrs):
     """ref: softmax_with_cross_entropy_op.cc — Softmax and the per-row

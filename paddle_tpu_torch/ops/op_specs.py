@@ -8,13 +8,18 @@ widths, dtypes), evaluated on the op's input tensors, so
 refuses (raises) on the card what a gate rejects.  :func:`kernel_facts`
 gives each kernel's source and the TPU kernel it replaces.
 
-Two static channels of the JAX package's op specs ride here too, for the
-pipeline's stage-cut planner (``framework/pipe.py``): :data:`FLOPS`, the
-forward GEMM-class FLOPs of an op from its input and output signatures
-(``flops(ins, outs, attrs)``, the JAX ``op_specs.py`` functions for the
-ops the ported programs use, the MoE pipeline's included), and
-:data:`COLLECTIVE_OPS`, the op types the JAX package flags
-``collective``."""
+The static channels of the JAX package's op specs ride here too, for the
+pipeline's stage-cut planner (``framework/pipe.py``) and the static
+estimators (``framework/memory_analysis.py``, ``observability/flops.py``,
+``framework/shard_planner.py``): :data:`FLOPS`, the forward GEMM-class
+FLOPs of an op from its input and output signatures (``flops(ins, outs,
+attrs)``, the JAX ``op_specs.py`` functions for the ops the ported
+programs use, the MoE pipeline's included), :data:`COLLECTIVE_OPS`, the
+op types the JAX package flags ``collective``, :data:`WIRE_SPECS`, each
+collective's ring cost (``wire(ins, attrs, axis_sizes)``), and the byte
+channels ``mem_transparent`` / ``mem_backward_extra``.  All of them are
+registered as ``registry.OpSpec`` entries (``registry.OP_SPECS``) by
+:func:`register_default_specs`."""
 
 from __future__ import annotations
 
@@ -512,3 +517,206 @@ COLLECTIVE_OPS = frozenset({
     "local_sgd_sync", "moe_ffn", "mp_allreduce_sum", "mp_copy",
     "pipe_stage_boundary", "quant_reduce_scatter", "zero_all_gather",
     "zero_reduce_scatter", "zero_shard_slice"})
+
+#: the all-reduce a global-norm clip runs over the axes its gradients are
+#: sharded on (``clip.shard_global_norm``): one scalar a group a step.
+#: The port's own op: the JAX package clips each rank by its own blocks.
+CLIP_NORM_ALLREDUCE = "c_global_norm_allreduce"
+
+
+# -- the wire channel (the JAX package's ``_wire_width`` / ``_WIRE_SPECS``):
+# what a collective moves per step under its ring schedule and its
+# compression spec, from its inputs' declared (global) signatures
+
+
+_WIRE_DTYPE_BYTES = {"float64": 8, "int64": 8, "float32": 4, "int32": 4,
+                     "bfloat16": 2, "float16": 2, "int16": 2, "int8": 1,
+                     "uint8": 1, "bool": 1}
+
+
+def _wire_width(dtype) -> int:
+    """On-wire bytes per element (a dtype outside the table prices at its
+    true element size, never a silent 4)."""
+    width = _WIRE_DTYPE_BYTES.get(str(dtype))
+    if width is not None:
+        return width
+    try:
+        from .registry import dtype_nbytes
+        return dtype_nbytes(dtype)
+    except Exception:
+        return 4
+
+
+def _ring_factor(attrs, axis_sizes, passes):
+    """Sum over the op's reduce axes of passes·(n-1)/n; ``passes`` an axis
+    when the mesh is unknown (the n → ∞ bound).  With a known mesh an
+    axis absent from it (or of size 1) is an identity collective: zero
+    wire."""
+    axes = attrs.get("_axis_name") or ()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if not axes:
+        axes = (None,)
+    total = 0.0
+    for ax in axes:
+        n = (axis_sizes or {}).get(ax) if ax is not None else None
+        if n is None and ax is not None and axis_sizes:
+            continue                 # known mesh, axis not on it
+        total += passes * ((n - 1) / n if n and n > 1 else
+                           (0.0 if n == 1 else 1.0))
+    return total
+
+
+def _collective_wire(passes):
+    """The ``wire`` fn of a (possibly quantized) reduce collective moving
+    its payload ``passes`` times an axis."""
+    def wire(ins, attrs, axis_sizes=None):
+        from .quantize_wire import quant_spec_of
+        numel, width = 0, 4
+        for sig in ins.get("X", []):
+            if sig is None or sig.shape is None or not _known(sig.shape):
+                return None              # dynamic payload: no claim
+            numel += _numel(sig.shape)
+            width = _wire_width(sig.dtype)
+        if not numel:
+            return None
+        factor = _ring_factor(attrs, axis_sizes, passes)
+        logical = int(numel * width * factor)
+        spec = quant_spec_of(attrs)
+        per_pass = spec.wire_bytes(numel) if spec is not None \
+            else numel * width
+        return logical, int(per_pass * factor)
+    return wire
+
+
+def _pipe_boundary_wire(ins, attrs, axis_sizes=None):
+    """One stage cut a step: the boundary payload crosses once a
+    microbatch forward and once backward, and the microbatches sum to the
+    batch, so 2 × payload point to point; zero when the mesh is known and
+    the pipe axis is absent or of size 1."""
+    numel_bytes = 0
+    for sig in ins.get("X", []):
+        if sig is None or sig.shape is None or not _known(sig.shape):
+            return None
+        numel_bytes += _numel(sig.shape) * _wire_width(sig.dtype)
+    if not numel_bytes:
+        return None
+    ax = attrs.get("_axis_name")
+    if axis_sizes is not None:
+        n = (axis_sizes or {}).get(ax, 1)
+        if not n or n <= 1:
+            return 0, 0
+    total = 2 * numel_bytes
+    return total, total
+
+
+def _c_embedding_wire(ins, attrs, axis_sizes=None):
+    """Vocab-parallel embedding: the [*, dim] lookup is all-reduced over
+    the model axis in the forward: 2·(n-1)/n · ids_numel · dim · width."""
+    w, ids = _sig(ins, "W"), _sig(ins, "Ids")
+    if w is None or ids is None or w.shape is None or ids.shape is None \
+            or not _known(w.shape) or not _known(ids.shape):
+        return None
+    numel = _numel(ids.shape) * w.shape[-1]
+    factor = _ring_factor(attrs, axis_sizes, 2)
+    total = int(numel * _wire_width(w.dtype) * factor)
+    return total, total
+
+
+#: collective op type -> its ``wire`` fn (2 payload passes for all-reduce
+#: shapes, 1 for a scatter or gather half; an op whose backward is
+#: another collective prices both directions)
+WIRE_SPECS = {
+    "pipe_stage_boundary": _pipe_boundary_wire,
+    "alltoall": _collective_wire(2),
+    "c_expert_alltoall": _collective_wire(2),
+    "c_broadcast": _collective_wire(1),
+    "c_embedding": _c_embedding_wire,
+    "c_allreduce_sum": _collective_wire(2),
+    "c_fused_allreduce_sum": _collective_wire(2),
+    "c_quant_allreduce_sum": _collective_wire(2),
+    "c_fused_quant_allreduce_sum": _collective_wire(2),
+    "zero_reduce_scatter": _collective_wire(1),
+    "quant_reduce_scatter": _collective_wire(1),
+    "c_reducescatter": _collective_wire(1),
+    "zero_all_gather": _collective_wire(1),
+    "c_allgather": _collective_wire(2),
+    "fsdp_all_gather": _collective_wire(2),
+    "mp_allreduce_sum": _collective_wire(2),
+    "mp_copy": _collective_wire(2),
+    # the port's clip norm all-reduce: one forward ring all-reduce of a
+    # float32 scalar, no backward
+    CLIP_NORM_ALLREDUCE: _collective_wire(2),
+}
+
+
+# -- the byte channels (the JAX package's mem_transparent /
+# mem_backward_extra entries)
+
+
+def _attention_probs_bytes(ins, outs, attrs):
+    """The attention's logits and probabilities [B, n_head, Sq, Sk], kept
+    for the backward and named by no variable."""
+    from .registry import dtype_nbytes
+    q = _sig(ins, "Q")
+    k = _sig(ins, "K") or q
+    if q is None or q.shape is None or len(q.shape) < 3:
+        return 0
+    ksh = k.shape if k is not None and k.shape is not None else q.shape
+    b, sq = int(q.shape[0]), int(q.shape[1])
+    sk = int(ksh[1]) if len(ksh) > 1 else sq
+    if min(b, sq, sk) < 0:
+        return 0
+    n_head = int(attrs.get("n_head", 1) or 1)
+    head_dim = attrs.get("head_dim")
+    if head_dim and q.shape[-1] > 0:
+        n_head = max(1, int(q.shape[-1]) // int(head_dim))
+    return 2 * b * n_head * sq * sk * dtype_nbytes(q.dtype)
+
+
+def _softmax_ce_extra_bytes(ins, outs, attrs):
+    """softmax-CE keeps the logit-sized softmax for the backward, and its
+    cotangent is logit-sized too: two logit copies."""
+    lg = _sig(ins, "Logits")
+    if lg is None or lg.shape is None or any(int(d) < 0 for d in lg.shape):
+        return 0
+    from .registry import dtype_nbytes
+    return 2 * _numel(lg.shape) * dtype_nbytes(lg.dtype)
+
+
+#: the fusible families (views, elementwise arithmetic, activations): the
+#: JAX package's ``mem_transparent=True`` entries
+MEM_TRANSPARENT_OPS = frozenset({
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "equal", "not_equal", "less_than", "less_equal", "greater_than",
+    "greater_equal", "logical_and", "logical_or", "logical_xor",
+    "logical_not", "relu", "relu6", "sigmoid", "tanh", "gelu", "exp",
+    "log", "sqrt", "rsqrt", "square", "abs", "floor", "ceil", "round",
+    "sign", "softplus", "swish", "hard_swish", "hard_sigmoid",
+    "leaky_relu", "scale", "assign", "clip", "pow", "softsign", "erf",
+    "sin", "cos", "softmax", "log_softmax", "dropout", "cast", "reshape2",
+    "reshape", "unsqueeze2", "squeeze2", "flatten2", "flatten"})
+
+#: op type -> ``mem_backward_extra(ins, outs, attrs)``
+MEM_BACKWARD_EXTRA = {
+    "softmax_with_cross_entropy": _softmax_ce_extra_bytes,
+    "fused_attention": _attention_probs_bytes,
+}
+
+
+def register_default_specs():
+    """Fill ``registry.OP_SPECS`` from the channel tables above
+    (idempotent)."""
+    from .registry import op_spec
+    names = (set(FLOPS) | set(COLLECTIVE_OPS) | set(WIRE_SPECS) |
+             MEM_TRANSPARENT_OPS | set(MEM_BACKWARD_EXTRA))
+    for name in sorted(names):
+        op_spec(name,
+                collective=name in COLLECTIVE_OPS or
+                name == CLIP_NORM_ALLREDUCE,
+                mem_transparent=True if name in MEM_TRANSPARENT_OPS
+                else None,
+                mem_backward_extra=MEM_BACKWARD_EXTRA.get(name),
+                wire=WIRE_SPECS.get(name), flops=FLOPS.get(name))
+
+
+register_default_specs()

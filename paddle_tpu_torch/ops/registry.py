@@ -201,6 +201,105 @@ class abstract_eval:
         _ABSTRACT.on = self._old
         return False
 
+# ---------------------------------------------------------------------------
+# the static spec channels (the JAX package's OpSpec, less ``infer`` and
+# ``pallas``: shapes come from a forward on ``meta`` tensors, kernel
+# routes from ROUTES)
+# ---------------------------------------------------------------------------
+
+
+class OpSpec:
+    """Static metadata for one op type, read by the static estimators
+    (``framework/memory_analysis.py``, ``observability/flops.py``):
+
+    * ``collective`` — the op communicates (or rides the collective
+      schedule) and runs after the backward as grad sync;
+    * ``mem_transparent`` — True for fusible ops (views, elementwise
+      arithmetic, activations): the output joins its input's residual
+      alias class; None defers to the analyzer's fallback set;
+    * ``mem_backward_extra(ins, outs, attrs) -> bytes`` — op-internal
+      values kept for the backward that are no named variable;
+    * ``wire(ins, attrs, axis_sizes) -> (logical_bytes, wire_bytes)`` —
+      the collective's payload against what its ring schedule moves under
+      its compression spec;
+    * ``flops(ins, outs, attrs) -> float`` — forward GEMM-class FLOPs.
+
+    ``ins`` / ``outs`` map slots to lists of ``op_specs.VarSig`` (None
+    where unknown)."""
+
+    __slots__ = ("name", "collective", "mem_transparent",
+                 "mem_backward_extra", "wire", "flops")
+
+    def __init__(self, name: str, collective: bool = False,
+                 mem_transparent: Optional[bool] = None,
+                 mem_backward_extra: Optional[Callable] = None,
+                 wire: Optional[Callable] = None,
+                 flops: Optional[Callable] = None):
+        self.name = name
+        self.collective = collective
+        self.mem_transparent = mem_transparent
+        self.mem_backward_extra = mem_backward_extra
+        self.wire = wire
+        self.flops = flops
+
+
+#: op type -> its :class:`OpSpec` (``ops/op_specs.py`` fills it)
+OP_SPECS: Dict[str, OpSpec] = {}
+
+
+def op_spec(name: str, collective: bool = False,
+            mem_transparent: Optional[bool] = None,
+            mem_backward_extra: Optional[Callable] = None,
+            wire: Optional[Callable] = None,
+            flops: Optional[Callable] = None) -> OpSpec:
+    """Register the static metadata of op ``name`` (re-registration
+    replaces)."""
+    spec = OpSpec(name, collective=collective,
+                  mem_transparent=mem_transparent,
+                  mem_backward_extra=mem_backward_extra, wire=wire,
+                  flops=flops)
+    OP_SPECS[name] = spec
+    return spec
+
+
+#: the static channels of an OpSpec, in census order (the JAX package's
+#: ``infer`` channel is the port's forward on ``meta`` tensors)
+SPEC_CHANNELS = ("flops", "wire", "mem")
+
+
+def spec_coverage() -> Dict[str, list]:
+    """Which registered op types carry each static channel:
+    ``{"flops": [...], "wire": [...], "mem": [...]}``, each sorted; "mem"
+    counts an op with ``mem_transparent`` or ``mem_backward_extra``."""
+    cov = {ch: [] for ch in SPEC_CHANNELS}
+    for name in sorted(OP_SPECS):
+        spec = OP_SPECS[name]
+        if spec.flops is not None:
+            cov["flops"].append(name)
+        if spec.wire is not None:
+            cov["wire"].append(name)
+        if spec.mem_transparent is not None or \
+                spec.mem_backward_extra is not None:
+            cov["mem"].append(name)
+    return cov
+
+
+#: bytes an element of each dtype takes on the card (int64 ids stay
+#: int64 there; the JAX package prices them at int32, its x64 being off)
+DTYPE_BYTES = {"float64": 8, "int64": 8, "float32": 4, "int32": 4,
+               "bfloat16": 2, "float16": 2, "int16": 2, "int8": 1,
+               "uint8": 1, "bool": 1}
+
+
+def dtype_nbytes(dtype) -> int:
+    """Bytes per element of ``dtype`` as the card holds it."""
+    key = str(dtype).replace("torch.", "")
+    b = DTYPE_BYTES.get(key)
+    if b is None:
+        b = int(torch.empty((), dtype=getattr(torch, key)).element_size())
+    return b
+
+
 #: (op type, kernel, "hit" | "fallback", reason) -> count
 ROUTE_COUNTS: Dict[Tuple[str, str, str, str], int] = {}
 _COUNT_LOCK = threading.Lock()

@@ -183,10 +183,10 @@ def apply_expert_sharding(program, layout: MeshLayout,
 
     Returns the report: the exchanges inserted, the parameters stamped
     and the skip census.  A global-norm clip over the stamped gradients
-    raises :class:`InvalidArgumentError` (each rank would clip by the
-    norm of its own expert blocks, and the replicas would drift; the JAX
-    package computes it on the shards), as
-    ``framework.pipe.apply_pipe_weight_sharding`` refuses it."""
+    sums their squares over the expert axis before the root
+    (``clip.shard_global_norm``): every rank clips by the norm of the
+    whole gradient (the JAX package clips each device by its own
+    blocks)."""
     ep = layout.expert
     axis = layout.expert_axis
     report: Dict[str, Any] = {"expert_axis": axis, "expert_degree": ep,
@@ -284,17 +284,9 @@ def apply_expert_sharding(program, layout: MeshLayout,
                                 not getattr(v, "dist_attr", None):
                             v.dist_attr = spec
             report["stamped"].append(p.name)
-    if bw_idx is not None:
-        stamped = {grad_var_name(n) for n in report["stamped"]}
-        normed = sorted({n for op in block.ops[bw_idx:]
-                         if op.type == "squared_l2_norm"
-                         for n in op.input_names()} & stamped)
-        if normed:
-            from ..framework.errors import InvalidArgumentError
-            raise InvalidArgumentError(
-                f"apply_expert_sharding: a global-norm clip reads the "
-                f"expert gradients {normed[:3]}..., each rank's block over "
-                f"{axis!r}: each rank would clip by its own blocks' norm; "
-                f"drop the clip (or clip by value)")
+    # a global-norm clip reads each rank's blocks of the expert gradients:
+    # their squares are summed over the expert axis before the root
+    from ..clip import shard_global_norm
+    shard_global_norm(block)
     program._bump_version()
     return report

@@ -50,9 +50,9 @@ metrics gauges, the watchdog, tracing spans, ``RecordEvent`` and the
 faultline seam; the persistent AOT cache (a warm restart has nothing
 compiled to load: the kernels are built once per checkout) and
 ``verify_decode`` (the static tier).  ``DecodeConfig(hbm_budget_gb=...)``
-needs ``memory_analysis.plan_cache_pool``, also of the static tier, and
-is refused by name: the pool comes from ``pool_blocks`` or full
-occupancy.  ``stats()`` has no ``compile_count``: nothing is compiled
+sizes the pool through ``memory_analysis.plan_cache_pool`` (the static
+estimate of a probe decode program at the largest batch bucket), as the
+JAX engine does.  ``stats()`` has no ``compile_count``: nothing is compiled
 per shape.  :meth:`DecodeEngine.set_params` carries weights in by name
 (numpy arrays, e.g. the JAX package's engine's).
 """
@@ -68,9 +68,9 @@ import numpy as np
 import torch
 
 from ..framework.core import CUDAPlace
-from ..framework.errors import (InvalidArgumentError, UnavailableError,
-                                UnimplementedError)
+from ..framework.errors import InvalidArgumentError, UnavailableError
 from ..framework.executor import Executor, Scope
+from ..flags import flag
 from ..io import convert_params
 from ..ops.tensor_ops import torch_dtype
 from .engine import _plan_bins
@@ -99,11 +99,13 @@ class DecodeConfig:
     """Decode-engine knobs.
 
     ``pool_blocks=None`` sizes the pool at full occupancy
-    (``max_batch_size * max_blocks_per_seq``).  ``hbm_budget_gb`` (sizing
-    the pool through the static memory analyzer) is refused: the analyzer
-    is not ported.  ``prefix_reserve_blocks`` (>= 0) is taken and stored
-    as the JAX package takes it; only a budget reads it, so without one
-    it changes nothing there either."""
+    (``max_batch_size * max_blocks_per_seq``), or, with ``hbm_budget_gb``
+    (or ``flag("hbm_budget_gb")``) set, at what the budget affords after
+    the weights and the working set (``memory_analysis.plan_cache_pool``
+    on a probe decode program, at engine start).  ``prefix_reserve_blocks``
+    (>= 0) is headroom a budgeted pool keeps for the prefix cache: the
+    engine refuses to start when fewer than one sequence's blocks plus
+    the reserve fit."""
 
     def __init__(self, block_size: int = 8,
                  max_seq_len: int = 64,
@@ -121,11 +123,6 @@ class DecodeConfig:
                  chunk_tokens: Optional[int] = None,
                  sampling: bool = False,
                  prefix_reserve_blocks: int = 0):
-        if hbm_budget_gb is not None:
-            raise UnimplementedError(
-                "DecodeConfig(hbm_budget_gb=...): sizing the pool from a "
-                "memory budget needs memory_analysis.plan_cache_pool (the "
-                "static tier), which is not ported yet; pass pool_blocks")
         if block_size < 1:
             raise InvalidArgumentError("block_size must be >= 1")
         if max_batch_size < 1:
@@ -165,6 +162,7 @@ class DecodeConfig:
         if self.chunk_tokens is not None and self.chunk_tokens < 1:
             raise InvalidArgumentError("chunk_tokens must be >= 1")
         self.sampling = bool(sampling)
+        self.hbm_budget_gb = hbm_budget_gb
         self.prefix_reserve_blocks = int(prefix_reserve_blocks)
         if self.prefix_reserve_blocks < 0:
             raise InvalidArgumentError(
@@ -360,9 +358,15 @@ class DecodeEngine:
                 f"max_position_embeddings={mcfg.max_position_embeddings}")
         self._mbps = cfg.max_blocks_per_seq
 
+        # -- pool sizing (the static estimate is the admission model) --
+        budget = cfg.hbm_budget_gb
+        if budget is None:
+            budget = float(flag("hbm_budget_gb") or 0.0)
+        self.pool_plan: Dict[str, Any] = {}
         pool_blocks = cfg.pool_blocks
         if pool_blocks is None:
-            pool_blocks = cfg.max_batch_size * self._mbps
+            pool_blocks = self._plan_pool(budget) if budget else \
+                cfg.max_batch_size * self._mbps
         if pool_blocks < 1:
             raise InvalidArgumentError(
                 f"pool_blocks={pool_blocks} — the paged cache needs at "
@@ -937,6 +941,33 @@ class DecodeEngine:
             self._promote(seq)
             self._chunking.remove(seq)
             self._active.append(seq)
+
+    # -- pool sizing --------------------------------------------------------
+    def _plan_pool(self, budget_gb: float) -> int:
+        """Static pool sizing: a probe decode program (one sequence's
+        blocks) priced at the largest batch bucket's pad feeds, the blocks
+        the budget affords after it (``plan_cache_pool``) — nothing runs
+        and nothing is allocated."""
+        from ..framework.memory_analysis import plan_cache_pool
+        cfg = self.config
+        probe = self.model.build(self._mbps, cfg.block_size, self._mbps,
+                                 cfg.pack_max_segments)
+        feed = self._decode_feed_arrays(cfg.batch_buckets[-1], [])
+        plan = plan_cache_pool(
+            probe.decode, feed_shapes=feed,
+            fetch_names=probe.fetch_names,
+            cache_vars=probe.cache_vars,
+            block_bytes=self.model.cache_block_bytes(cfg.block_size),
+            budget_gb=budget_gb, min_blocks=self._mbps,
+            reserve_blocks=cfg.prefix_reserve_blocks)
+        self.pool_plan = {
+            "blocks": plan["blocks"],
+            "block_bytes": plan["block_bytes"],
+            "fixed_bytes": plan["fixed_bytes"],
+            "budget_bytes": plan["budget_bytes"],
+            "reserve_blocks": plan.get("reserve_blocks", 0),
+        }
+        return plan["blocks"]
 
     # -- decode step ------------------------------------------------------
     def _decode_feed_arrays(self, bucket_b: int, live: List[_Seq]):

@@ -13,7 +13,9 @@ Megatron layers, ring attention, the pipeline's ``PipelineOptimizer`` and
 ``gpipe_spmd``, and MoE's ``moe_ffn``, ``collect_aux_losses`` and
 ``apply_expert_sharding``), ``framework.pipe`` and
 ``models.bert``'s builders (the tensor/sequence-parallel ones included)
-are compared as well."""
+are compared as well, and so is the pricing layer
+(``framework.memory_analysis``, ``framework.shard_planner``,
+``observability.flops``)."""
 
 import importlib
 import inspect
@@ -36,7 +38,9 @@ MODULES = ("optimizer", "framework.executor", "framework.compiler",
            "framework.analysis", "distributed.gloo",
            "distributed.preemption", "parallel", "parallel.topology",
            "parallel.tp_layers", "parallel.ring_attention", "models.bert",
-           "framework.pipe", "parallel.pipeline", "parallel.moe")
+           "framework.pipe", "parallel.pipeline", "parallel.moe",
+           "framework.memory_analysis", "framework.shard_planner",
+           "observability.flops")
 
 #: JAX internals whose parameters differ by design, with the reason
 ALLOWED = {
@@ -211,9 +215,10 @@ def test_negative_prefix_reserve_blocks_raises_as_in_jax():
         JDecodeConfig(prefix_reserve_blocks=-1)
     with pytest.raises(InvalidArgumentError, match="prefix_reserve_blocks"):
         DecodeConfig(prefix_reserve_blocks=-1)
-    # the budget that would read it stays refused by name
-    with pytest.raises(UnimplementedError, match="hbm_budget_gb"):
-        DecodeConfig(hbm_budget_gb=1.0, prefix_reserve_blocks=2)
+    # the budget that reads it is taken (the pool is sized by
+    # memory_analysis.plan_cache_pool at engine start)
+    cfg = DecodeConfig(hbm_budget_gb=1.0, prefix_reserve_blocks=2)
+    assert cfg.hbm_budget_gb == 1.0 and cfg.prefix_reserve_blocks == 2
 
 
 def test_serving_packing_keywords():
@@ -327,3 +332,31 @@ MOE = {
 def test_moe_is_shared_api(mod):
     quals = {qual for m, qual, *_ in SHARED if m == mod}
     assert MOE[mod] <= quals
+
+
+#: the pricing layer's public names (the static estimate, the wire and
+#: exposed-comm model, the planner, remat planning), each compared keyword
+#: by keyword above
+PRICING = {
+    "framework.memory_analysis": {
+        "analyze_memory", "estimate", "lint_memory", "check_hbm_budget",
+        "plan_cache_pool", "collective_wire_summary", "exposed_comm_model",
+        "mem_uncovered_suspects", "mesh_axes_of", "sig_bytes",
+        "block_liveness", "program_liveness", "LiveTensor.__init__",
+        "MemoryEstimate.__init__", "MemoryEstimate.as_dict",
+        "MemoryEstimate.report", "Interval.__init__"},
+    "framework.shard_planner": {
+        "legal_tp_degrees", "legal_pipe_degrees", "legal_expert_degrees",
+        "enumerate_layouts", "price_config", "plan_sharding",
+        "stamp_winning_layout", "PlanConfig.__init__", "PlanConfig.as_dict",
+        "Plan.__init__", "Plan.as_dict", "Plan.report", "Plan.write_report"},
+    "observability.flops": {"estimate_step_flops", "device_peak_flops"},
+    "framework.pipe": {"RematPlan.__init__", "RematPlan.as_dict",
+                       "plan_remat", "apply_remat"},
+}
+
+
+@pytest.mark.parametrize("mod", sorted(PRICING))
+def test_the_pricing_layer_is_shared_api(mod):
+    quals = {qual for m, qual, *_ in SHARED if m == mod}
+    assert PRICING[mod] <= quals

@@ -311,8 +311,10 @@ def test_strategy_amp_runs_on_one_worker():
 @pytest.mark.parametrize("flag", [
     "tensor_parallel", "pipeline", "auto_shard", "mesh"])
 def test_unported_strategy_flags_are_refused_by_name(flag):
-    """``auto_shard`` and a mesh of another kind raise naming the flag,
-    and nothing is appended.  ``tensor_parallel`` is taken now, as in the
+    """A mesh of another kind raises naming the flag, and nothing is
+    appended.  ``auto_shard`` is taken now: on one worker the planner's
+    one layout is the single device, and minimize leaves the plain
+    update.  ``tensor_parallel`` is taken now, as in the
     JAX package (the layout comes from ``dist_attr`` and the mesh): on one
     worker minimize leaves the plain update; so is ``pipeline``: on one
     worker it is one stage, the update plain and the microbatch count
@@ -332,6 +334,13 @@ def test_unported_strategy_flags_are_refused_by_name(flag):
             after = [op.type for op in main.global_block().ops]
             assert after[len(before):][-1] == "sgd" and \
                 tfleet.main_program is main
+            return
+        if flag == "auto_shard":
+            opt.minimize(loss)
+            after = [op.type for op in main.global_block().ops]
+            assert after[len(before):][-1] == "sgd"
+            assert tfleet._plan.winner.layout.num_devices == 1
+            assert tfleet.main_program is main
             return
         if flag == "pipeline":
             opt.minimize(loss)

@@ -335,10 +335,12 @@ def test_sampling_is_deterministic_across_orders(reference):
 
 def test_what_is_not_ported_is_refused_by_name(monkeypatch, reference):
     # the MoE decoder is ported (tests/test_torch_moe.py)
+    # a memory budget sizes the pool (memory_analysis.plan_cache_pool)
     model = BertDecoder(BertConfig(**WIDTHS), seed=SEED)
-    with pytest.raises(UnimplementedError, match="plan_cache_pool"):
-        DecodeEngine(model, DecodeConfig(**_config(hbm_budget_gb=0.5)),
-                     place=CPUPlace(), auto_start=False)
+    sized = DecodeEngine(model, DecodeConfig(**_config(hbm_budget_gb=0.5)),
+                         place=CPUPlace(), auto_start=False)
+    assert sized.pool_plan["blocks"] >= sized.config.max_blocks_per_seq
+    sized.shutdown()
     engine = _engine(reference)
     try:
         with pytest.raises(InvalidArgumentError, match="sampling"):

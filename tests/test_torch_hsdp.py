@@ -129,7 +129,8 @@ def run(tmp_path_factory):
         arrays.update({f"b{i}/{k}": v for k, v in b.items()})
     np.savez(tmp / "in.npz", **arrays)
     ref = {"losses": losses, "final": final, "main": main,
-           "desc": json.dumps(jdesc(main))}
+           "desc": json.dumps(jdesc(main)), "init": init,
+           "batches": batches}
     return ref, launch(tmp, 4, "hsdp", str(tmp / "in.npz"))
 
 
@@ -154,6 +155,47 @@ def test_hsdp_trains_like_the_jax_package(run, entry):
                 assert np.array_equal(ranks[0][k], out[k]), k
     routes = list(ranks[0][f"{entry}/routes"])
     assert not [x for x in routes if ":fallback:" in x], routes
+
+
+def test_global_norm_clip_under_hsdp_is_the_one_device_clip(run):
+    """HSDP with a global-norm clip of 0.05 (it binds): the squares of the
+    fsdp-sharded gradients are all-reduced over fsdp before the root, the
+    replicated ones added once, so the four ranks land within 1e-6 of the
+    JAX package's one-device run from the same parameters and batches."""
+    ref, ranks = run
+    jun.reset()
+    main, startup = jfluid.Program(), jfluid.Program()
+    startup.random_seed = 7
+    with jfluid.program_guard(main, startup):
+        _, total, _, _ = jbert.build_pretrain_network(_cfg())
+        lr = jfluid.layers.linear_lr_warmup(
+            jfluid.layers.polynomial_decay(1e-3, 10, 0.0, power=1.0), 2,
+            0.0, 1e-3)
+        jfluid.optimizer.AdamW(
+            lr, weight_decay=0.01,
+            grad_clip=jfluid.clip.GradientClipByGlobalNorm(0.05)
+        ).minimize(total)
+    scope = jfluid.Scope()
+    exe = jfluid.Executor(jfluid.CPUPlace())
+    with jfluid.scope_guard(scope):
+        exe.run(startup)
+        for n, a in ref["init"].items():
+            if scope.find_var(n) is not None:
+                scope.set_var(n, a)
+        losses = [float(np.asarray(exe.run(main, feed=b,
+                                           fetch_list=[total])[0]))
+                  for b in ref["batches"]]
+        final = {n: np.asarray(scope.find_var(n)) for n in ref["final"]
+                 if scope.find_var(n) is not None}
+    for out in ranks:
+        np.testing.assert_allclose(out["clip/losses"], losses, rtol=0,
+                                   atol=1e-6)
+        for n, a in final.items():
+            np.testing.assert_allclose(out[f"clip/p/{n}"], a, rtol=0,
+                                       atol=1e-5, err_msg=n)
+        types = list(out["clip/types"])
+        assert types.count("c_global_norm_allreduce") == 1
+    assert np.abs(np.array(losses) - ref["losses"]).max() > 1e-4
 
 
 def test_the_program_is_the_jax_packages_desc(run):

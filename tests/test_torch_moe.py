@@ -88,7 +88,7 @@ from paddle_tpu_torch.ops.registry import LoweringContext, get_op
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNNER = os.path.join(REPO, "tests", "torch_moe_runner.py")
 sys.path.insert(0, os.path.join(REPO, "tests"))
-from torch_moe_runner import (BERT_LR, FFN, GROUP, SGD_LR,  # noqa: E402
+from torch_moe_runner import (BERT_LR, CLIPPED, FFN, GROUP, SGD_LR,  # noqa
                               STEPS, TOY_LR, E, M)
 
 TOL_OP = 1e-6        # op outputs
@@ -97,8 +97,8 @@ TOL_RUN = 1e-5       # one rank, and a layout against the JAX layout
 TOL_EP = 1e-6        # expert layouts against one device (aux 0)
 LAUNCH_TIMEOUT_S = 300
 LEGS2 = ("ep2", "toy_ep2_aux", "toy_ep2_bf16", "toy_ep2_int8",
-         "manual_k1", "manual_k2", "drops")
-LEGS4 = ("dp2ep2", "dp2ep2_aux", "fsdp2ep2", "ckpt")
+         "manual_k1", "manual_k2", "drops", "ep2_clip", "manual_k2_clip")
+LEGS4 = ("dp2ep2", "dp2ep2_aux", "fsdp2ep2", "ckpt", "fsdp2ep2_clip")
 BERT_BATCH, BERT_SEQ, BERT_MASKS = 8, 32, 5
 
 
@@ -332,13 +332,16 @@ def _bert_cfg(mod, aux=0.01):
         moe_aux_weight=aux)
 
 
-def _build_bert(mod, core, un, fluid, aux=0.01, apply_pass=None):
+def _build_bert(mod, core, un, fluid, aux=0.01, apply_pass=None,
+                clip=None):
     un.reset()
     main, startup = core.Program(), core.Program()
     startup.random_seed = 7
     with core.program_guard(main, startup):
         _, total, _, _ = mod.build_pretrain_network(_bert_cfg(mod, aux))
-        fluid.optimizer.Adam(BERT_LR).minimize(total)
+        fluid.optimizer.Adam(
+            BERT_LR, grad_clip=fluid.clip.GradientClipByGlobalNorm(clip)
+            if clip else None).minimize(total)
     if apply_pass is not None:
         apply_pass(main, "fuse_add_layernorm", fetch_names=[total.name])
     return main, startup, total
@@ -384,7 +387,7 @@ def _jax_train(main, startup, loss, feeds, layout=None, quant=None,
 
 
 def _toy_jax(sizes=None, aux=0.0, quant=None, init=None, feeds=None,
-             top_k=2, opt="adam", ep=None, group=GROUP):
+             top_k=2, opt="adam", ep=None, group=GROUP, clip=None):
     L = jfluid.layers
     jun.reset()
     jcore.reset_default_programs()
@@ -400,8 +403,9 @@ def _toy_jax(sizes=None, aux=0.0, quant=None, init=None, feeds=None,
         loss = L.mean(L.square(out))
         if aux:
             loss = L.elementwise_add(loss, L.scale(a, scale=aux))
-        (jfluid.optimizer.Adam(TOY_LR) if opt == "adam"
-         else jfluid.optimizer.SGD(SGD_LR)).minimize(loss)
+        gc = jfluid.clip.GradientClipByGlobalNorm(clip) if clip else None
+        (jfluid.optimizer.Adam(TOY_LR, grad_clip=gc) if opt == "adam"
+         else jfluid.optimizer.SGD(SGD_LR, grad_clip=gc)).minimize(loss)
     layout = JMeshLayout(**sizes) if sizes else None
     return _jax_train(main, startup, loss, feeds, layout, quant, init)
 
@@ -484,9 +488,9 @@ def _ranks(refs, leg):
     return refs.ranks[n]
 
 
-def _bert_ref(cache, aux, fused=False, layout=None):
+def _bert_ref(cache, aux, fused=False, layout=None, clip=None):
     main, startup, total = _build_bert(
-        jbert, jcore, jun, jfluid, aux, japply if fused else None)
+        jbert, jcore, jun, jfluid, aux, japply if fused else None, clip)
     return _jax_train(main, startup, total, cache["batches"], layout,
                       init=cache["bert_init"])
 
@@ -513,6 +517,10 @@ _REFS = {
     "manual_k2": lambda c: _toy_jax(
         init=c["toy_init"], feeds=c["toy_feeds"][:STEPS],
         opt="sgd", group=0),
+    "bert_aux0_clip": lambda c: _bert_ref(c, 0.0, clip=CLIPPED["ep2_clip"]),
+    "manual_k2_clip": lambda c: _toy_jax(
+        init=c["toy_init"], feeds=c["toy_feeds"][:STEPS],
+        opt="sgd", group=0, clip=CLIPPED["manual_k2_clip"]),
 }
 
 
@@ -700,6 +708,31 @@ def test_manual_ep_degree_under_data_parallelism(refs, top_k):
                                atol=TOL_EP)
     params = _leg_params(ranks[0], leg)
     _check_params(params, jfinal, params, TOL_RUN)
+
+
+@pytest.mark.parametrize("leg,ref,free,groups", [
+    ("ep2_clip", "bert_aux0_clip", "bert_aux0", 1),
+    ("fsdp2ep2_clip", "bert_aux0_clip", "bert_aux0", 2),
+    ("manual_k2_clip", "manual_k2_clip", "manual_k2", 1)])
+def test_global_norm_clip_under_ep_is_the_one_device_clip(refs, leg, ref,
+                                                          free, groups):
+    """A global-norm clip that binds beside expert parallelism, through
+    ``apply_expert_sharding`` (then ZeRO-3 under fsdp 2 x expert 2) and
+    through a manual ``moe_ffn(ep_degree=2)`` build: the squares of the
+    expert gradients (each rank's blocks) are all-reduced over the expert
+    axis, and those of the ZeRO-3 blocks over fsdp, before the root, so
+    every rank lands within 1e-6 of the JAX package's one-device run."""
+    ranks = _ranks(refs, leg)
+    _same_on_every_rank(ranks, leg)
+    jl, _, jfinal = refs(ref)
+    np.testing.assert_allclose(ranks[0][f"{leg}/losses"], jl, rtol=0,
+                               atol=1e-6)
+    params = _leg_params(ranks[0], leg)
+    _check_params(params, jfinal, params, TOL_RUN)
+    assert list(ranks[0][f"{leg}/types"]).count(
+        "c_global_norm_allreduce") == groups
+    unclipped, _, _ = refs(free)
+    assert np.abs(np.asarray(jl) - unclipped).max() > 1e-6
 
 
 def test_capacity_drops_are_deterministic(refs):
@@ -935,9 +968,9 @@ def test_ep_layouts_pass_the_check(sizes):
 
 
 def test_global_norm_clip_beside_ep_is_refused_by_name():
-    """Each rank holds its experts' gradient blocks: a global-norm clip
-    would clip every rank by another norm."""
-    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    """Each rank holds its experts' gradient blocks: a global-norm clip is
+    no longer refused; its squares of the expert gradients are summed
+    over the expert axis before the root, the others added locally."""
     tcore.reset_default_programs()
     tun.reset()
     main, startup = tfluid.Program(), tfluid.Program()
@@ -947,8 +980,63 @@ def test_global_norm_clip_beside_ep_is_refused_by_name():
         tfluid.optimizer.Adam(
             TOY_LR, grad_clip=tfluid.clip.GradientClipByGlobalNorm(1.0)
         ).minimize(loss)
-    with pytest.raises(InvalidArgumentError, match="global-norm clip"):
-        tparallel.apply_expert_sharding(main, MeshLayout(expert=2))
+    report = tparallel.apply_expert_sharding(main, MeshLayout(expert=2))
+    ops = main.global_block().ops
+    ar = [op for op in ops if op.type == "c_global_norm_allreduce"]
+    assert len(ar) == 1 and ar[0].attrs["_axis_name"] == "ep"
+    part = [op for op in ops if ar[0].input_names()[0] in op.output_names()]
+    sq = {op.output_names()[0]: op.input_names()[0] for op in ops
+          if op.type == "squared_l2_norm"}
+    assert sorted(sq[n] for n in part[0].input_names()) == sorted(
+        n + "@GRAD" for n in report["stamped"])
+
+
+@pytest.mark.parametrize("manual", [False, True], ids=["rewrite", "manual"])
+def test_zero3_after_ep_groups_the_clip_per_axis(manual):
+    """``apply_expert_sharding`` (or a manual ``moe_ffn(ep_degree=2)``
+    build) and then ``apply_fsdp_sharding`` under a global-norm clip: one
+    all-reduce over each axis, the expert gradients' squares in the expert
+    axis's group, the ZeRO-3 blocks' in fsdp's, every square read once; a
+    further rewrite inserts nothing."""
+    from paddle_tpu_torch.clip import shard_global_norm
+    from paddle_tpu_torch.framework.fsdp import apply_fsdp_sharding
+    from torch_moe_runner import toy_model
+    tcore.reset_default_programs()
+    tun.reset()
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        loss, _, _ = toy_model(ep=2 if manual else None)
+        tfluid.optimizer.Adam(
+            TOY_LR, grad_clip=tfluid.clip.GradientClipByGlobalNorm(1.0)
+        ).minimize(loss)
+    layout = MeshLayout(fsdp=2, expert=2)
+    if manual:
+        ep_axis = "dp"
+        expert = [p.name for p in main.all_parameters()
+                  if getattr(p, "dist_attr", None)]
+    else:
+        ep_axis = layout.expert_axis
+        expert = tparallel.apply_expert_sharding(main, layout)["stamped"]
+    rep = apply_fsdp_sharding(main, layout, min_shard_numel=16)
+    block = main.global_block()
+    ops = block.ops
+    sq = {op.output_names()[0]: op.input_names()[0] for op in ops
+          if op.type == "squared_l2_norm"}
+    groups = {}
+    for ar in (op for op in ops if op.type == "c_global_norm_allreduce"):
+        part = next(op for op in ops
+                    if ar.input_names()[0] in op.output_names())
+        groups[ar.attrs["_axis_name"]] = sorted(
+            sq[n] for n in part.input_names())
+    assert expert and rep["sharded"]
+    assert groups == {
+        ep_axis: sorted(n + "@GRAD" for n in expert),
+        layout.fsdp_axis: sorted(p["param"] + "@GRAD"
+                                 for p in rep["sharded"])}
+    reads = [n for op in ops if op.type == "sum"
+             for n in op.input_names() if n in sq]
+    assert sorted(reads) == sorted(sq)
+    assert shard_global_norm(block) == 0
 
 
 def test_parallel_builder_refuses_moe_by_name():

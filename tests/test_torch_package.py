@@ -82,6 +82,36 @@ def test_the_moe_modules_import_no_jax(module):
     test_the_pipeline_modules_import_no_jax(module)
 
 
+@pytest.mark.parametrize("module", [
+    "paddle_tpu_torch.framework.memory_analysis",
+    "paddle_tpu_torch.framework.shard_planner",
+    "paddle_tpu_torch.framework.liveness",
+    "paddle_tpu_torch.observability.flops"])
+def test_the_pricing_modules_import_no_jax(module):
+    """The static pricing layer and the planner: imported alone, in a
+    process of their own, they pull in neither JAX nor the JAX package
+    (and the AST scan below covers their sources)."""
+    test_the_pipeline_modules_import_no_jax(module)
+
+
+def test_the_spec_channels_census():
+    """The estimators' channels are registered: every collective the port
+    runs has a wire price or is one of the JAX package's unpriced ones."""
+    from paddle_tpu_torch.ops import op_specs
+    cov = registry.spec_coverage()
+    assert set(cov) == set(registry.SPEC_CHANNELS)
+    assert set(op_specs.FLOPS) <= set(cov["flops"])
+    assert {"fused_attention", "softmax_with_cross_entropy", "dropout",
+            "elementwise_add"} <= set(cov["mem"])
+    unpriced = {"c_allreduce_max", "c_allreduce_min", "c_allreduce_prod",
+                "c_concat", "c_split", "collective_permute",
+                "local_sgd_sync", "moe_ffn", "zero_shard_slice"}
+    for name, spec in registry.OP_SPECS.items():
+        if spec.collective:
+            assert spec.wire is not None or name in unpriced, name
+    assert "c_global_norm_allreduce" in cov["wire"]
+
+
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, names in os.walk(PKG):

@@ -199,9 +199,14 @@ def test_dst_read_ranges_are_the_jax_packages():
 
 def test_price_and_fault_drills_wait_for_their_slices():
     plan = _plan("port", CASES[0])
-    with pytest.raises(UnimplementedError, match="exposed_comm_model"):
-        plan.price()
-    assert plan.wire_summary() == _plan("jax", CASES[0]).wire_summary()
+    jplan = _plan("jax", CASES[0])
+    # the restore is priced through the port's exposed_comm_model now
+    got, want = plan.price(ici_gbps=0.75), jplan.price(ici_gbps=0.75)
+    assert got["link_gbps"] == want["ici_gbps"] == 0.75
+    for k, v in want.items():
+        if k not in ("ici_gbps", "peak_flops"):
+            assert got[k] == v, k
+    assert plan.wire_summary() == jplan.wire_summary()
     with pytest.raises(UnimplementedError, match="testing/faultline.py"):
         treshard.arm_fault("reshard_execute", action="raise")
 

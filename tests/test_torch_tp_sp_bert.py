@@ -6,8 +6,10 @@ the JAX package's ONE-DEVICE run of the same program built with
 ``tp_degree=1, seq_axis=None`` from the same global weights — what the
 model means (the JAX mesh run scales tp gradients, pinned below).
 
-* 3 SGD steps through ``Executor.run`` and 3 Adam steps through
-  ``prepare(donate_state=True)``: losses within ``TOL`` = 1e-5 (the HSDP
+* 3 SGD steps through ``Executor.run``, 3 Adam steps through
+  ``prepare(donate_state=True)`` and 3 SGD steps under a global-norm clip
+  that binds (the tp blocks' squares all-reduced over tp before the
+  root): losses within ``TOL`` = 1e-5 (the HSDP
   tests' float32 tolerance), every parameter within ``TOL`` after SGD and
   within ``TOL_ADAM`` = 1e-4 (a tenth of Adam's LR) after Adam, on
   batches whose ``lm_weights`` rows hold the same masked count in each sp
@@ -51,7 +53,7 @@ from paddle_tpu.parallel import build_mesh as jbuild_mesh
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNNER = os.path.join(REPO, "tests", "torch_tp_runner.py")
 sys.path.insert(0, os.path.join(REPO, "tests"))
-from torch_tp_runner import ADAM_LR, SGD_LR  # noqa: E402
+from torch_tp_runner import ADAM_LR, optimizer  # noqa: E402
 
 LAYOUTS = {"tp2": 2, "sp2": 2, "tp2sp2": 4}
 STEPS = 3
@@ -89,8 +91,7 @@ def _jax_program(opt, tp=1, seq_axis=None):
     with jfluid.program_guard(main, startup):
         _, loss = jbert.build_pretrain_network_parallel(
             _cfg(), tp_degree=tp, seq_axis=seq_axis)
-        (jfluid.optimizer.SGD(SGD_LR) if opt == "sgd" else
-         jfluid.optimizer.Adam(ADAM_LR)).minimize(loss)
+        optimizer(jfluid, opt).minimize(loss)
     return main, startup, loss
 
 
@@ -119,7 +120,7 @@ def ref(tmp_path_factory):
     batches = [_batch(rng, (PER_SHARD, PER_SHARD)) for _ in range(STEPS)]
     odd = _batch(rng, (2, 9))
     out = {"batches": batches, "odd": odd}
-    for opt in ("sgd", "adam"):
+    for opt in ("sgd", "adam", "clip"):
         main, startup, loss = _jax_program(opt)
         scope = jfluid.Scope()
         exe = jfluid.Executor(jfluid.CPUPlace())
@@ -171,7 +172,7 @@ def ranks(ref):
     return get
 
 
-@pytest.mark.parametrize("opt", ["sgd", "adam"])
+@pytest.mark.parametrize("opt", ["sgd", "adam", "clip"])
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_the_slice_trains_like_the_one_device_jax_run(ref, ranks, layout,
                                                       opt):
@@ -185,7 +186,7 @@ def test_the_slice_trains_like_the_one_device_jax_run(ref, ranks, layout,
                 continue
             got = out[f"{opt}/p/{n}"]
             assert got.shape == w.shape, n
-            tol = TOL if opt == "sgd" else TOL_ADAM
+            tol = TOL_ADAM if opt == "adam" else TOL
             np.testing.assert_allclose(got, w, rtol=tol, atol=tol,
                                        err_msg=f"rank {r} {n}")
     routes = [str(x) for x in outs[0]["routes"]]
@@ -193,6 +194,19 @@ def test_the_slice_trains_like_the_one_device_jax_run(ref, ranks, layout,
     ring = [x for x in routes if x.startswith(
         "fused_attention:ring_flash_attention:hit")]
     assert bool(ring) == ("sp" in layout), routes
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_a_global_norm_clip_sums_the_tp_blocks_over_tp(ref, ranks, layout):
+    """The clip binds (its run leaves the unclipped one by more than
+    ``TOL``) and reads one all-reduce of the squares of the tp layers'
+    gradients (the build stamps them over tp at any degree; where the mesh
+    has no tp axis the all-reduce is the identity)."""
+    outs, _ = ranks(layout)
+    assert np.abs(np.asarray(ref["clip"]["losses"]) -
+                  ref["sgd"]["losses"]).max() > TOL
+    for out in outs:
+        assert int(out["clip/allreduces"]) == 1
 
 
 @pytest.mark.parametrize("layout", ["sp2", "tp2sp2"])

@@ -566,3 +566,150 @@ def test_with_mesh_refuses_a_sequence_axis_and_foreign_meshes():
         cp.with_mesh(ProcessMesh(("pp", "tp"), (2, 2)), loss.name)
     with pytest.raises(UnimplementedError, match="not the port's mesh"):
         cp.with_mesh(object(), loss.name)
+
+
+# ---------------------------------------------------------------------------
+# the global-norm clip under ZeRO-3, and fleet's auto_shard (the zero3
+# launch's auto legs, tests/torch_dist_runner.py auto_legs)
+# ---------------------------------------------------------------------------
+
+
+def _jax_clip_program(clip):
+    jun.reset()
+    main, startup = jfluid.Program(), jfluid.Program()
+    startup.random_seed = 7
+    with jfluid.program_guard(main, startup):
+        _, total, _, _ = jbert.build_pretrain_network(_cfg())
+        lr = jfluid.layers.linear_lr_warmup(
+            jfluid.layers.polynomial_decay(1e-3, 10, 0.0, power=1.0), 2,
+            0.0, 1e-3)
+        jfluid.optimizer.AdamW(
+            lr, weight_decay=0.01,
+            grad_clip=jfluid.clip.GradientClipByGlobalNorm(clip)
+        ).minimize(total)
+    return main, startup, total
+
+
+@pytest.fixture(scope="module")
+def one_device(runs):
+    """The JAX package's ONE-device runs of the clipped program (clip 0.05
+    and 1e9) from the zero3 launch's parameters and batches."""
+    ref, _ = runs("zero3", "fp32")
+    out = {}
+    for clip in (0.05, 1e9):
+        main, startup, total = _jax_clip_program(clip)
+        scope = jfluid.Scope()
+        exe = jfluid.Executor(jfluid.CPUPlace())
+        with jfluid.scope_guard(scope):
+            exe.run(startup)
+            for n, a in ref["init"].items():
+                if scope.find_var(n) is not None:
+                    scope.set_var(n, a)
+            losses = [float(np.asarray(exe.run(main, feed=b,
+                                               fetch_list=[total])[0]))
+                      for b in ref["batches"]]
+            final = {n: np.asarray(scope.find_var(n)) for n in ref["final"]
+                     if scope.find_var(n) is not None}
+        out[clip] = {"losses": losses, "final": final, "main": main,
+                     "loss": total}
+    return out
+
+
+@pytest.mark.parametrize("clip", [0.05, 1e9])
+def test_global_norm_clip_under_fsdp_is_the_one_device_clip(runs, one_device,
+                                                            clip):
+    """ZeRO-3 at fsdp 2 with a global-norm clip: the clip's sum of squares
+    over the sharded gradients is all-reduced over fsdp, so both ranks
+    clip by the whole gradient's norm, as one device does (the JAX
+    package's own fsdp run is up to 8.8e-4 off there at clip 0.05)."""
+    _, ranks = runs("zero3", "fp32")
+    want = one_device[clip]
+    tag = "fsdp2_clip" if clip == 0.05 else "fsdp2_noclip"
+    for out in ranks:
+        np.testing.assert_allclose(out[f"auto/{tag}/losses"],
+                                   want["losses"], rtol=0, atol=1e-6)
+        for n, a in want["final"].items():
+            np.testing.assert_allclose(out[f"auto/{tag}/p/{n}"], a,
+                                       rtol=0, atol=1e-5, err_msg=n)
+        types = list(out[f"auto/{tag}/types"])
+        assert types.count("c_global_norm_allreduce") == 1
+    if clip == 0.05:     # the clip binds: it moved the run
+        free = one_device[1e9]["losses"]
+        assert np.abs(np.array(want["losses"]) - free).max() > 1e-4
+
+
+def _same_run(a, b, tag_a, tag_b):
+    assert np.array_equal(a[f"auto/{tag_a}/losses"],
+                          b[f"auto/{tag_b}/losses"])
+    pa = {k[len(tag_a) + 8:] for k in a if k.startswith(f"auto/{tag_a}/p/")}
+    pb = {k[len(tag_b) + 8:] for k in b if k.startswith(f"auto/{tag_b}/p/")}
+    assert pa == pb and pa
+    for n in pa:
+        assert np.array_equal(a[f"auto/{tag_a}/p/{n}"],
+                              b[f"auto/{tag_b}/p/{n}"]), n
+
+
+def _jax_plan(budget_gb):
+    from paddle_tpu.flags import get_flags, set_flags
+    from paddle_tpu.framework.compiler import BuildStrategy as JBuild
+    from paddle_tpu.framework.shard_planner import plan_sharding as jplan
+    main, _, total = _jax_clip_program(0.05)
+    build = JBuild()
+    build.fuse_all_reduce_ops = True
+    build.fuse_grad_size_in_MB = 32
+    old = get_flags(["ici_gbps"])
+    set_flags({"ici_gbps": 0.75})
+    try:
+        return jplan(main, 2, loss_name=total.name,
+                     fetch_names=[total.name], hbm_budget_gb=budget_gb,
+                     build_strategy=build, module="auto_shard")
+    finally:
+        set_flags(old)
+
+
+def test_auto_shard_without_a_budget_is_the_dp2_run(runs):
+    """auto_shard on two ranks, no budget: the JAX planner's winner (data
+    2), every rank's plan the same, and the run bit for bit fleet's
+    hand-built data-parallel run."""
+    _, ranks = runs("zero3", "fp32")
+    jp = _jax_plan(None)
+    for out in ranks:
+        assert json.loads(str(out["auto/auto_free/winner"])) == \
+            jp.winner.layout.sizes == {"dp": 2, "fsdp": 1, "tp": 1}
+        hashes = list(out["auto/auto_free/hashes"])
+        assert len(hashes) == 2 and len(set(hashes)) == 1
+        _same_run(out, out, "auto_free", "dp2_clip")
+    assert str(ranks[0]["auto/auto_free/plan"]) == \
+        str(ranks[1]["auto/auto_free/plan"])
+
+
+def test_auto_shard_under_a_tight_budget_is_the_fsdp2_run(runs):
+    """A budget halfway between the free plan's peaks flips the winner to
+    fsdp 2, as it flips the JAX planner's on the same program at its own
+    halfway budget; the run is bit for bit the hand-built fsdp 2 run (its
+    clip summed over fsdp)."""
+    _, ranks = runs("zero3", "fp32")
+    jfree = _jax_plan(None)
+    peaks = sorted(c.peak_bytes for c in jfree.configs)
+    jp = _jax_plan((peaks[0] + peaks[-1]) / 2 / float(1 << 30))
+    for out in ranks:
+        plan = json.loads(str(out["auto/auto_budget/plan"]))
+        assert json.loads(str(out["auto/auto_budget/winner"])) == \
+            jp.winner.layout.sizes == {"dp": 1, "fsdp": 2, "tp": 1}
+        assert [(c["data"], c["fsdp"], c["tp"], c["fits"], c["winner"])
+                for c in plan["configs"]] == \
+            [(c.layout.data, c.layout.fsdp, c.layout.tp, c.fits, c.winner)
+             for c in jp.configs]
+        assert not [c for c in plan["configs"] if c.get("error")]
+        hashes = list(out["auto/auto_budget/hashes"])
+        assert len(set(hashes)) == 1
+        _same_run(out, out, "auto_budget", "fsdp2_clip")
+    assert str(ranks[0]["auto/hash"]) == str(ranks[1]["auto/hash"])
+
+
+def test_auto_shard_over_budget_raises_with_the_ranking(runs):
+    _, ranks = runs("zero3", "fp32")
+    for out in ranks:
+        msg = str(out["auto/over_error"])
+        assert "no sharding configuration fits" in msg
+        assert "fsdp=2" in msg and "data=2" in msg

@@ -19,6 +19,12 @@ clip), or ``sgd`` / ``momentum``; ``zero3``: the AdamW program rewritten
 by ``apply_fsdp_sharding(main, MeshLayout(fsdp=2))`` and compiled with
 ``CompiledProgram.with_mesh``.  Both run like ``dp`` and save every
 persistable's global value (the blocks gathered) and the program desc.
+``zero3`` then runs the auto-shard legs (:func:`auto_legs`, saved under
+``auto/``): the unfused AdamW program with a global-norm clip of 0.05
+(which binds) and of 1e9 (which never does) hand-built at fsdp 2, the
+0.05 one hand-built at dp 2 through fleet, and through fleet's
+``auto_shard`` without a budget, with a budget halfway between the free
+plan's peaks, and with one nothing fits.
 ``zero1ckpt IN.npz CKPT OUT_DIR``: the fp32 ZeRO-1 program loads the
 checkpoint under CKPT (the JAX package's), saves each rank's blocks
 right after, trains 2 steps and saves a checkpoint of its own under
@@ -352,7 +358,118 @@ def zero(mode, inputs, tier, out_dir):
             f"{k[0]}:{k[2]}:{v // steps}"
             for k, v in registry.route_counts().items()))
     out["desc"] = np.array(__import__("json").dumps(program_to_desc(main)))
+    if mode == "zero3":
+        out.update(auto_legs(init, batches))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def clip_program(clip):
+    """BERT-tiny pretraining (unfused) minimized with AdamW 0.01 (warmup
+    into linear decay) and a global-norm clip of ``clip``: (main, loss)."""
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 7
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(_cfg())
+    return main, startup, total
+
+
+def clip_optimizer(clip):
+    lr = fluid.layers.linear_lr_warmup(
+        fluid.layers.polynomial_decay(1e-3, 10, 0.0, power=1.0), 2, 0.0,
+        1e-3)
+    return fluid.optimizer.AdamW(
+        lr, weight_decay=0.01,
+        grad_clip=fluid.clip.GradientClipByGlobalNorm(clip))
+
+
+def _fleet_build():
+    """The BuildStrategy fleet compiles a default DistributedStrategy
+    with (the gradient buckets on, 32 MB)."""
+    build = fluid.BuildStrategy()
+    build.fuse_all_reduce_ops = True
+    build.fuse_grad_size_in_MB = 32
+    return build
+
+
+def _train_leg(compiled, main, total, init, batches):
+    """Losses and every persistable's global value after the batches."""
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    scope = fluid.Scope()
+    dtypes = {v.name: v.dtype for v in main.list_vars()}
+    for n, t in io.convert_params({n: init[n] for n in names if n in init},
+                                  "cpu", dtypes).items():
+        scope.set_var(n, t)
+    exe = fluid.Executor(fleet.place)
+    losses = [float(exe.run(compiled, feed=b, fetch_list=[total],
+                            scope=scope)[0]) for b in batches]
+    return losses, _global_state(compiled, main, scope)
+
+
+def auto_legs(init, batches):
+    """The clip repair and fleet's auto_shard on two ranks."""
+    import hashlib
+    import json
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    from paddle_tpu_torch.framework.fsdp import apply_fsdp_sharding
+    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    out = {}
+
+    def save(tag, losses, state):
+        out[f"auto/{tag}/losses"] = np.array(losses)
+        for n, a in state.items():
+            out[f"auto/{tag}/p/{n}"] = a
+
+    for tag, clip in (("fsdp2_clip", 0.05), ("fsdp2_noclip", 1e9)):
+        main, startup, total = clip_program(clip)
+        with fluid.program_guard(main, startup):
+            clip_optimizer(clip).minimize(total)
+        layout = MeshLayout(fsdp=2)
+        apply_fsdp_sharding(main, layout)
+        compiled = fluid.CompiledProgram(main).with_mesh(
+            layout.build_mesh(), loss_name=total.name,
+            batch_axis=layout.batch_axes, build_strategy=_fleet_build())
+        save(tag, *_train_leg(compiled, main, total, init, batches))
+        out[f"auto/{tag}/types"] = np.array(
+            [op.type for op in main.global_block().ops])
+    main, startup, total = clip_program(0.05)
+    with fluid.program_guard(main, startup):
+        fleet.distributed_optimizer(clip_optimizer(0.05),
+                                    DistributedStrategy()).minimize(total)
+    save("dp2_clip", *_train_leg(fleet.main_program, main, total, init,
+                                 batches))
+
+    def auto(tag, budget):
+        main, startup, total = clip_program(0.05)
+        s = DistributedStrategy()
+        s.auto_shard = True
+        s.auto_shard_configs["hbm_budget_gb"] = budget
+        with fluid.program_guard(main, startup):
+            fleet.distributed_optimizer(clip_optimizer(0.05),
+                                        s).minimize(total)
+        plan = fleet.plan
+        out[f"auto/{tag}/plan"] = np.array(json.dumps(plan.as_dict(),
+                                                      sort_keys=True))
+        out[f"auto/{tag}/hashes"] = np.array(fleet._plan_hashes)
+        out[f"auto/{tag}/winner"] = np.array(
+            json.dumps(plan.winner.layout.sizes))
+        save(tag, *_train_leg(fleet.main_program, main, total, init,
+                              batches))
+        return plan
+
+    free = auto("auto_free", None)
+    peaks = sorted(c.peak_bytes for c in free.configs)
+    budget = (peaks[0] + peaks[-1]) / 2 / float(1 << 30)
+    out["auto/budget_gb"] = np.array(budget)
+    auto("auto_budget", budget)
+    try:
+        auto("auto_over", 1e-9)
+        out["auto/over_error"] = np.array("")
+    except InvalidArgumentError as e:
+        out["auto/over_error"] = np.array(str(e))
+    out["auto/hash"] = np.array(hashlib.sha256(
+        str(out["auto/auto_budget/plan"]).encode()).hexdigest())
+    return out
 
 
 def zero1ckpt(inputs, ckpt, out_dir):

@@ -241,7 +241,43 @@ def hsdp(inputs, out_dir):
             for k, v in registry.route_counts().items()))
     out["coords"] = np.array([groups.coords["dp"], groups.coords["fsdp"]])
     out["desc"] = np.array(json.dumps(program_to_desc(main)))
+    out.update(clip_leg(init, batches))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def clip_leg(init, batches):
+    """HSDP (data 2 x fsdp 2) of the unfused program with AdamW and a
+    global-norm clip of 0.05, which binds: the clip's squares of the
+    fsdp-sharded gradients are summed over fsdp (``clip/...``)."""
+    unique_name.reset()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 7
+    with fluid.program_guard(main, startup):
+        _, total, _, _ = bert.build_pretrain_network(_cfg())
+        lr = fluid.layers.linear_lr_warmup(
+            fluid.layers.polynomial_decay(1e-3, 10, 0.0, power=1.0), 2,
+            0.0, 1e-3)
+        fluid.optimizer.AdamW(
+            lr, weight_decay=0.01,
+            grad_clip=fluid.clip.GradientClipByGlobalNorm(0.05)
+        ).minimize(total)
+    layout = MeshLayout(data=2, fsdp=2)
+    apply_fsdp_sharding(main, layout)
+    build = fluid.BuildStrategy()
+    build.fuse_all_reduce_ops = True
+    compiled = fluid.CompiledProgram(main).with_mesh(
+        layout.build_mesh(), loss_name=total.name,
+        batch_axis=layout.batch_axes, build_strategy=build)
+    scope = fluid.Scope()
+    _fill(scope, main, init)
+    exe = fluid.Executor(fleet.place)
+    out = {"clip/losses": np.array([
+        float(exe.run(compiled, feed=b, fetch_list=[total],
+                      scope=scope)[0]) for b in batches])}
+    for n, a in _global_state(compiled._dp, main, scope).items():
+        out[f"clip/p/{n}"] = a
+    out["clip/types"] = np.array([op.type for op in main.global_block().ops])
+    return out
 
 
 def mlp_model():

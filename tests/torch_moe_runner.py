@@ -20,6 +20,10 @@ the N ranks:
 * ``manual_k1`` / ``manual_k2``: ``moe_ffn(ep_degree=2, axis_name="dp")``
   (top-k 1 / 2, SGD 0.2) under plain data parallelism
   (``with_data_parallel``);
+* ``ep2_clip`` / ``fsdp2ep2_clip`` / ``manual_k2_clip``: ``ep2`` /
+  ``fsdp2ep2`` / ``manual_k2`` with the global-norm clip of
+  :data:`CLIPPED` (the squares of the expert gradients summed over the
+  expert axis, and of the ZeRO-3 blocks over fsdp, before the root);
 * ``drops``: the toy block at capacity factor 0.125, top-1, over
   ``MeshLayout(expert=2)``, its output fetched twice from fresh scopes;
 * ``ckpt`` (4 ranks): the toy at ``MeshLayout(expert=4)`` trained 6
@@ -65,7 +69,11 @@ BERT_LEGS = {
     "dp2ep2": ({"data": 2, "expert": 2}, 0.0, None),
     "dp2ep2_aux": ({"data": 2, "expert": 2}, 0.01, None),
     "fsdp2ep2": ({"fsdp": 2, "expert": 2}, 0.0, None),
+    "ep2_clip": ({"expert": 2}, 0.0, None),
+    "fsdp2ep2_clip": ({"fsdp": 2, "expert": 2}, 0.0, None),
 }
+#: leg -> the global-norm clip its optimizer takes (one that binds)
+CLIPPED = {"ep2_clip": 0.05, "fsdp2ep2_clip": 0.05, "manual_k2_clip": 0.01}
 TOY_LEGS = {
     "toy_ep2_aux": ({"expert": 2}, 0.01, None),
     "toy_ep2_bf16": ({"expert": 2}, 0.0, "bfloat16"),
@@ -153,7 +161,7 @@ def bert_leg(leg, inp, out):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         _, loss, _, _ = bert.build_pretrain_network(bert_cfg(aux))
-        fluid.optimizer.Adam(BERT_LR).minimize(loss)
+        fluid.optimizer.Adam(BERT_LR, grad_clip=_clip(leg)).minimize(loss)
     fsdp_rep = {}
     prog, rep = _compile(main, loss, MeshLayout(**sizes), quant, fsdp_rep)
     scope = fluid.Scope()
@@ -163,6 +171,8 @@ def bert_leg(leg, inp, out):
     losses = _train(exe, prog, loss, scope,
                     [bert_feeds(inp, i) for i in range(STEPS)])
     _save(out, leg, losses, prog, scope, main)
+    out[f"{leg}/types"] = np.array([op.type for op in
+                                    main.global_block().ops])
     out[f"{leg}/stamped"] = np.array(json.dumps(rep["stamped"]))
     out[f"{leg}/exchanges"] = np.array(sum(
         op.type == "c_expert_alltoall" for op in main.global_block().ops))
@@ -199,13 +209,20 @@ def toy_leg(leg, inp, out):
           prog, scope, main)
 
 
+def _clip(leg):
+    c = CLIPPED.get(leg)
+    return fluid.clip.GradientClipByGlobalNorm(c) if c else None
+
+
 def manual_leg(leg, inp, out):
-    top_k = int(leg[-1])
+    top_k = int(leg[len("manual_k")])
     unique_name.reset()
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         loss, _, _ = toy_model(top_k=top_k, ep=2)
-        fluid.optimizer.SGD(SGD_LR).minimize(loss)
+        fluid.optimizer.SGD(SGD_LR, grad_clip=_clip(leg)).minimize(loss)
+    out[f"{leg}/types"] = np.array([op.type for op in
+                                    main.global_block().ops])
     prog = fluid.CompiledProgram(main).with_data_parallel(
         loss_name=loss.name)
     scope = fluid.Scope()

@@ -21,7 +21,8 @@ gradients.
 ``bert``: BERT-tiny built by ``build_pretrain_network_parallel`` under
 LAYOUT (``tp2``, ``sp2``, ``tp2sp2``), from the global parameters of
 ``IN.npz``, three SGD steps through ``Executor.run`` and three Adam steps
-through ``prepare(donate_state=True)`` on the batches ``b<i>``; with
+through ``prepare(donate_state=True)`` on the batches ``b<i>``, and
+three SGD steps under the global-norm clip :data:`CLIP_NORM`; with
 ``IN.npz``'s ``odd/...`` batch, one SGD step on it; under ``tp2sp2`` the
 Adam state is saved (``save_checkpoint`` sharded, ``AsyncCheckpointer``,
 and whole) under ``OUT_DIR`` and restored onto the same layout in a
@@ -76,6 +77,8 @@ BERT_LAYOUTS = {"tp2": ({"tp": 2}, 2, None),
 MLP_LAYOUTS = {"tp2": {"tp": 2}, "dp2tp2": {"data": 2, "tp": 2}}
 SGD_LR = 0.5
 ADAM_LR = 1e-3
+#: the ``clip`` run's global-norm clip (one that binds)
+CLIP_NORM = 0.5
 MLP_LR = 0.1
 VOCAB = 16
 
@@ -233,6 +236,16 @@ def _cfg():
     return cfg
 
 
+def optimizer(fl, opt):
+    """``opt``'s optimizer in the package ``fl`` (either one's ``fluid``):
+    SGD, Adam, or SGD under the global-norm clip :data:`CLIP_NORM`."""
+    if opt == "adam":
+        return fl.optimizer.Adam(ADAM_LR)
+    clip = fl.clip.GradientClipByGlobalNorm(CLIP_NORM) if opt == "clip" \
+        else None
+    return fl.optimizer.SGD(SGD_LR, grad_clip=clip)
+
+
 def bert_program(layout_name, opt):
     """The user's program under ``layout_name``: BERT-tiny built by
     ``build_pretrain_network_parallel`` at the layout's tp degree and
@@ -245,8 +258,7 @@ def bert_program(layout_name, opt):
     with fluid.program_guard(main, startup):
         feeds, loss = bert.build_pretrain_network_parallel(
             _cfg(), tp_degree=tp, seq_axis=seq)
-        (fluid.optimizer.SGD(SGD_LR) if opt == "sgd" else
-         fluid.optimizer.Adam(ADAM_LR)).minimize(loss)
+        optimizer(fluid, opt).minimize(loss)
     layout = MeshLayout(**kw)
     main._mesh_layout = layout
     specs = {f.name: ("dp", "sp") for f in feeds} if seq else None
@@ -286,6 +298,19 @@ def bert_run(layout_name, inputs, out_dir):
         _fill(scope, main, init)
         out["odd/loss"] = np.asarray(exe.run(
             program, feed=odd, fetch_list=[loss], scope=scope)[0])
+    # SGD under a global-norm clip: the tp blocks' squares summed over tp
+    program, main, startup, loss = bert_program(layout_name, "clip")
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    _fill(scope, main, init)
+    out["clip/losses"] = np.array([float(np.asarray(exe.run(
+        program, feed=b, fetch_list=[loss], scope=scope)[0]).reshape(()))
+        for b in batches])
+    out.update({f"clip/p/{n}": a for n, a in
+                _global_state(program._dp, main, scope).items()})
+    out["clip/allreduces"] = np.array(sum(
+        op.type == "c_global_norm_allreduce"
+        for op in main.global_block().ops))
     # Adam through a donated prepared step
     program, main, startup, loss = bert_program(layout_name, "adam")
     groups = program._dp
