@@ -236,7 +236,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    int4 at block 256 (the scatter's receive stage on #11); (e) ZeRO-3:
    ``apply_fsdp_sharding(main, MeshLayout(fsdp=2))`` +
    ``CompiledProgram.with_mesh``; (b) saves a checkpoint after step 3,
-   and (f) a fresh pair of ranks loads it.  Gates: finite, falling
+   and (f), last in the same launch, loads it from disk into a freshly
+   built program and scope.  Gates: finite, falling
    losses; the startup's parameters and the replicated persistables
    sha256-equal across the ranks; (b) and (e) within 1e-4 of (a)'s losses
    (relative) and parameters (of max|p|), (c) and (d) within a few times
@@ -284,8 +285,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    fsdp-stamped gradients over dp, the rest over both axes); (c) (b)'s
    state after step 3 through ``save_checkpoint(sharded=True)`` (each
    rank its own blocks, nothing gathered) and then through
-   ``AsyncCheckpointer``; (d) four fresh ranks restore (c) onto
-   ``MeshLayout(fsdp=4)`` (blocks re-cut from 2 parts to 4) and (e) two
+   ``AsyncCheckpointer``; (d) the same four ranks, after (b), restore
+   (c) from disk onto ``MeshLayout(fsdp=4)`` (blocks re-cut from 2 parts
+   to 4) in a freshly built program and scope, and (e) two fresh ranks
    onto ``MeshLayout(data=2)`` (every persistable whole), each then steps
    4-6.  Gates: (b) within 1e-4 of (a) in losses (relative) and
    parameters (of max|p|); every rank's persistent bytes the layout's
@@ -341,15 +343,32 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    4 prepared steps, against the same program built with ``tp_degree=1,
    seq_axis=None`` on one rank from the same seed: losses within 1e-4;
    (b) tp 2 on two ranks, batch 32 x 128, attention dropout 0.1 on the
-   plain flash route.  Gates: no fallback; #1-#3 once an attention op a
-   ring step (2 ring steps at sp 2 on (a), one on (b)), the LayerNorm
-   forward and backward once a ``layer_norm`` op, Adam 1, counted in the
-   built program (``tpsp_launches``); every rank's startup the same parameters
-   (sha256) and, after the steps, its replicated persistables sha256-equal
-   to rank 0's.  Printed per leg: the step, gloo's wall ms, calls and
-   bytes in one step by kind (tp all-reduces, the LM head's tp gather,
-   the ring's point-to-point shifts, the gradient sync), the device's busy
-   share and the peak allocated bytes;
+   plain flash route; (c), in (a)'s launch after it, fsdp 2 x tp 2
+   (``apply_fsdp_sharding`` over ``MeshLayout(fsdp=2, tp=2)`` on the tp
+   build: the tp blocks stay tp blocks, the rest is sharded over fsdp)
+   at ``MP_LAYERS`` (at 12 the script ran past PR 21's clock), 32 x 128
+   with 20 masked
+   tokens a row (10 in each half), phase 8's recipe with its global-norm
+   clip 1.0, dropout 0, against the same program built with
+   ``tp_degree=1`` on one rank: losses within 1e-4, the clip's squares
+   summed once over fsdp and once over tp and binding, the persistent
+   bytes a rank the static estimate's (``learning_rate_0`` alone left
+   out), each block bit for bit on the ranks that share its
+   coordinates; then a sharded save (every block once) restored from
+   disk onto tp 2 x sp 2 and onto data 4 in freshly built programs and
+   scopes: the global state bit for bit, each rank's bytes read the
+   planned ones, the next step's loss within 1e-4 of (c)'s.  Gates: no
+   fallback; #1-#3 once an attention op a ring step (2 ring steps at sp 2
+   on (a), one on (b) and (c)), the LayerNorm forward and backward once a
+   ``layer_norm`` op, Adam 1, counted in the built program
+   (``tpsp_launches``); every rank's startup the same parameters (sha256)
+   and, after the steps, its replicated persistables sha256-equal to rank
+   0's.  Printed per leg: the step, gloo's wall ms, calls and bytes in
+   one step by kind (tp all-reduces, the LM head's tp gather, the ring's
+   point-to-point shifts, the fsdp gathers and reduce-scatters, the
+   gradient sync), the device's busy share and the peak allocated bytes;
+   (c) also its persistent bytes beside the estimate, its save's and each
+   restore's seconds and bytes;
 19. pipeline parallelism at BERT-base width and 4 layers (``MP_LAYERS``,
    phase 8's program and recipe, float32, the ranks on the card over
    gloo):
@@ -368,8 +387,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    clip would read gradient blocks), 64 x 128, against the one-rank run
    of 8 microbatches on the global batch: the bytes each rank holds equal
    to the layout's prediction (the pipe-sharded parameters and moments
-   halved), a sharded save after step 4; (e) four fresh ranks restore it
-   bit for bit and take the step (d) took after its save, to the same
+   halved), a sharded save after step 4; (e) the same four ranks, after
+   (d), restore it from disk into a freshly built program and scope bit
+   for bit and take the step (d) took after its save, to the same
    loss.  Gates on every leg and rank: no fallback; #1-#10 launched
    exactly as the program's stage cut and the schedule's tables predict
    (``pipe_expected``); every step's census: idle slots the simulator's,
@@ -632,6 +652,24 @@ def first_step():
     t0 = os.environ.get("SMOKE_LAUNCH_T0")
     if t0 and "to_first_step" not in _STAMPS:
         _STAMPS["to_first_step"] = time.time() - float(t0)
+
+
+#: {phase: its seconds by the script's clock}, each closed when the next
+#: one begins
+_PHASE_S = {}
+_PHASE_OPEN = []
+
+
+def begin_phase(n, what):
+    """Log phase ``n`` and close the one before it: its seconds go into
+    :data:`_PHASE_S` and on a line of their own."""
+    now = time.perf_counter()
+    if _PHASE_OPEN:
+        prev, t0 = _PHASE_OPEN.pop()
+        _PHASE_S[prev] = round(now - t0, 1)
+        log(f"  phase {prev} ran {now - t0:.1f} s")
+    _PHASE_OPEN.append((n, now))
+    log(f"phase {n}: {what}")
 
 
 def launch_env():
@@ -3991,7 +4029,8 @@ def wrappers_phase(torch, np, cfg, repo):
 #: phase 15: ZeRO on two ranks of the card.  Legs: (a) plain dp2 with the
 #: fp32 all-reduce (the yardstick), (b) ZeRO-1 fp32, (c) ZeRO-1 with the
 #: int8 scatter, (d) with the int4 scatter, (e) ZeRO-3 over fsdp = 2; (f)
-#: a fresh pair of ranks loads the checkpoint (b) saved
+#: the same ranks, after the other legs, load the checkpoint (b) saved
+#: into a freshly built program and scope
 ZERO_LEGS = "abcde"
 ZERO_LEG_NAMES = {"a": "dp2, fp32 all-reduce", "b": "ZeRO-1, fp32 scatter",
                   "c": "ZeRO-1, int8 scatter", "d": "ZeRO-1, int4 scatter",
@@ -4378,11 +4417,13 @@ def zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref):
 
 
 def zero_restore(torch, np, cfg, feed, ckpt_dir, out_dir):
-    """(f) on a fresh pair of ranks: (b)'s program, no startup,
-    ``load_checkpoint`` of the checkpoint (b) saved after step
-    ZERO_SAVE_AT, the restored blocks' digests, then one step."""
+    """(f) after the other legs, in the same ranks: (b)'s program built
+    afresh into a new ``Scope``, no startup, ``load_checkpoint`` of the
+    checkpoint (b) saved after step ZERO_SAVE_AT read back from disk, the
+    restored blocks' digests, then one step."""
     from paddle_tpu_torch import fluid, io
     from paddle_tpu_torch.distributed import fleet
+    torch.cuda.empty_cache()
     program, main, _, total = build_zero_train(cfg, "b")
     scope = fluid.Scope()
     exe = fluid.Executor(fleet.place)
@@ -4402,8 +4443,8 @@ def zero_restore(torch, np, cfg, feed, ckpt_dir, out_dir):
 
 def zero_worker(out_dir, legs):
     """One rank of phase 15 (``--zero-worker DIR LEGS``): the legs named
-    by LEGS ("abcde", or "f" on a fresh pair) in turn; writes
-    ``zero<r>_<legs>.json``."""
+    by LEGS ("abcdeghf": (f) the restore of (b)'s checkpoint, last) in
+    turn; writes ``zero<r>_<legs>.json``."""
     import numpy as np
     import torch
     from paddle_tpu_torch.distributed import fleet
@@ -4418,17 +4459,17 @@ def zero_worker(out_dir, legs):
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
     ckpt_dir = os.path.join(out_dir, "ckpt")
     res = {"rank": rank, "place": repr(fleet.place)}
-    if legs == "f":
-        res["f"] = zero_restore(torch, np, cfg, feed, ckpt_dir, out_dir)
-    else:
-        ref = {}
-        for leg in legs:
-            res[leg] = zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref)
-            log(f"[rank {rank}] ({leg}) losses "
-                f"{[round(x, 5) for x in res[leg]['losses']]}, step ms "
-                f"{res[leg]['step_ms_median_3_6']:.1f}, held "
-                f"{res[leg]['held']} B (predicted "
-                f"{res[leg]['predicted']})")
+    ref = {}
+    for leg in legs:
+        if leg == "f":
+            res["f"] = zero_restore(torch, np, cfg, feed, ckpt_dir, out_dir)
+            continue
+        res[leg] = zero_leg(torch, np, cfg, leg, feed, ckpt_dir, ref)
+        log(f"[rank {rank}] ({leg}) losses "
+            f"{[round(x, 5) for x in res[leg]['losses']]}, step ms "
+            f"{res[leg]['step_ms_median_3_6']:.1f}, held "
+            f"{res[leg]['held']} B (predicted "
+            f"{res[leg]['predicted']})")
     res["stamps"] = dict(_STAMPS)
     with open(os.path.join(out_dir, f"zero{rank}_{legs}.json"), "w") as f:
         json.dump(res, f)
@@ -4587,7 +4628,7 @@ def static_plans(torch, np):
 
 def zero_phase(torch, np, repo, cfg, results):
     """Phase 15 (see the module docstring): the static plans, #10's shard
-    row, legs (a)-(e), (g) and (h) on two ranks, (f) on a fresh pair;
+    row, legs (a)-(e), (g), (h) and then (f) in one launch of two ranks;
     returns the launches of rank 0 by leg and the report."""
     from paddle_tpu_torch.ops.cuda import build
     zero_adam_row(torch, results, cfg)
@@ -4596,10 +4637,10 @@ def zero_phase(torch, np, repo, cfg, results):
     os.makedirs(out_dir)
     plans = {}
     # the static plans are host work: they run while the ranks do
-    ranks = zero_launch(torch, repo, out_dir, ZERO_LEGS + AUTO_LEGS,
+    ranks = zero_launch(torch, repo, out_dir, ZERO_LEGS + AUTO_LEGS + "f",
                         meanwhile=lambda: plans.update(static_plans(torch,
                                                                     np)))
-    restored = zero_launch(torch, repo, out_dir, "f")
+    restored = ranks
     shutil.rmtree(out_dir, ignore_errors=True)
     report = {}
     for leg in ZERO_LEGS:
@@ -4809,8 +4850,9 @@ def auto_report(ranks):
 #: phase 16: four ranks of the card over gloo, each its 8 rows of the
 #: 32 x 128 batch, dropout 0.  (a) dp4, fp32 all-reduce (the yardstick);
 #: (b) HSDP data 2 x fsdp 2; (c) (b)'s state after step 3 through
-#: ``save_checkpoint(sharded=True)`` and ``AsyncCheckpointer``; (d) four
-#: fresh ranks restore (c) onto fsdp 4, (e) two onto data 2 (plain data
+#: ``save_checkpoint(sharded=True)`` and ``AsyncCheckpointer``; (d) the
+#: same four ranks, after (b), restore (c) onto fsdp 4 in a freshly built
+#: program and scope, (e) two fresh ranks onto data 2 (plain data
 #: parallelism), each then steps 4-6
 HSDP_RANKS = 4
 HSDP_LEG_NAMES = {"a": "dp4, fp32 all-reduce", "b": "HSDP data 2 x fsdp 2",
@@ -5015,13 +5057,15 @@ def hsdp_save(torch, np, exe, dp, main, scope, out_dir):
 
 
 def hsdp_restore(torch, np, cfg, leg, feed, out_dir):
-    """(d) or (e) on a fresh set of ranks: the leg's program, no startup,
-    ``load_checkpoint`` of (c)'s sharded checkpoint onto its layout (the
-    seconds, the bytes this rank read against its planned bytes, the
-    reshard's wire bytes), the restored global state's digests, then
-    steps HSDP_SAVE_AT + 1 to HSDP_STEPS."""
+    """(d) after (a) and (b) in their four ranks, or (e) on two fresh
+    ranks: the leg's program built afresh into a new ``Scope``, no
+    startup, ``load_checkpoint`` of (c)'s sharded checkpoint read back
+    from disk onto its layout (the seconds, the bytes this rank read
+    against its planned bytes, the reshard's wire bytes), the restored
+    global state's digests, then steps HSDP_SAVE_AT + 1 to HSDP_STEPS."""
     from paddle_tpu_torch import fluid, io
     from paddle_tpu_torch.distributed import fleet
+    torch.cuda.empty_cache()
     dev = torch.device("cuda", fleet.place.device_id)
     program, main, _, total = build_hsdp_train(cfg, leg)
     dp = program._dp
@@ -5055,8 +5099,8 @@ def hsdp_restore(torch, np, cfg, leg, feed, out_dir):
 
 
 def hsdp_worker(out_dir, legs):
-    """One rank of phase 16 (``--hsdp-worker DIR LEGS``): legs "ab" on
-    four ranks, "d" on four fresh ones, "e" on two; writes
+    """One rank of phase 16 (``--hsdp-worker DIR LEGS``): legs "abd" on
+    four ranks ((d) the restore of (c), last), "e" on two; writes
     ``hsdp<r>_<legs>.json``."""
     import numpy as np
     import torch
@@ -5071,11 +5115,11 @@ def hsdp_worker(out_dir, legs):
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
                                 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
     res = {"rank": rank, "world": fleet.worker_num()}
-    if legs in ("d", "e"):
-        res[legs] = hsdp_restore(torch, np, cfg, legs, feed, out_dir)
-    else:
-        ref = {}
-        for leg in legs:
+    ref = {}
+    for leg in legs:
+        if leg in ("d", "e"):
+            res[leg] = hsdp_restore(torch, np, cfg, leg, feed, out_dir)
+        else:
             res[leg] = hsdp_leg(torch, np, cfg, leg, feed, out_dir, ref)
     for leg in legs:
         m = res[leg]
@@ -5161,11 +5205,11 @@ def hsdp_phase(torch, np, repo):
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     try:
-        trained = hsdp_launch(torch, repo, out_dir, HSDP_RANKS, "ab")
+        trained = hsdp_launch(torch, repo, out_dir, HSDP_RANKS, "abd")
         ckpt = os.path.join(out_dir, "ckpt", f"checkpoint_{HSDP_SAVE_AT}")
         copy = os.path.join(out_dir, "async", f"checkpoint_{HSDP_SAVE_AT}")
         report = {"c": hsdp_saved(trained, ckpt, copy)}
-        restored = {"d": hsdp_launch(torch, repo, out_dir, HSDP_RANKS, "d"),
+        restored = {"d": trained,
                     "e": hsdp_launch(torch, repo, out_dir, 2, "e")}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -6353,7 +6397,19 @@ TPSP_STEPS = 4
 TPSP_LR = 1e-4
 TOL_TPSP_LOSS = 1e-4      # (a) vs the one-rank run: losses (relative)
 TPSP_TIMEOUT_S = 600
-TPSP_LEG_NAMES = {"a": "tp 2 x sp 2, four ranks", "b": "tp 2, two ranks"}
+TPSP_LEG_NAMES = {"a": "tp 2 x sp 2, four ranks", "b": "tp 2, two ranks",
+                  "c": "fsdp 2 x tp 2, four ranks"}
+#: (c): fsdp 2 x tp 2 in (a)'s launch, phase 8's recipe (its global-norm
+#: clip included), 32 x 128 with TRAIN_MASKS masked tokens a row, half of
+#: them in each sp half (so the restore onto tp 2 x sp 2 sees the same
+#: count in every shard); its sharded save restored onto
+#: FSDP_TP_RESTORES in the same processes
+FSDP_TP_LAYOUT = {"fsdp": 2, "tp": 2}
+#: each leg's MeshLayout arguments
+TPSP_LAYOUTS = {"a": {"tp": 2, "extra_axes": {"sp": SP_DEGREE}},
+                "b": {"tp": 2}, "c": FSDP_TP_LAYOUT}
+FSDP_TP_RESTORES = {"tp2sp2": {"tp": 2, "extra_axes": {"sp": 2}},
+                    "data4": {"data": 4}}
 
 
 def ring_biases(torch, gen, dev, bsz, seq):
@@ -6469,8 +6525,8 @@ def ring_kernel_checks(torch, results):
 def tpsp_launches(main, leg):
     """Launches a step of phase 18's built program: #1-#3 once a
     ``fused_attention`` op a ring step (the sp degree on (a), one step on
-    (b)), the LayerNorm forward and backward once a ``layer_norm`` op,
-    Adam one launch for the whole update."""
+    (b) and (c)), the LayerNorm forward and backward once a
+    ``layer_norm`` op, Adam one launch for the whole update."""
     ops = main.global_block().ops
     attn = sum(op.type == "fused_attention" for op in ops) * \
         (SP_DEGREE if leg == "a" else 1)
@@ -6482,12 +6538,12 @@ def tpsp_launches(main, leg):
 
 def tpsp_config(leg):
     """Phase 18's model: BERT-base's width at MP_LAYERS layers; attention
-    dropout 0 on (a) (the ring applies none, and the one-rank reference
-    would), 0.1 on (b)."""
+    dropout 0 on (a) and (c) (the ring applies none, and the one-rank
+    reference would), 0.1 on (b)."""
     from paddle_tpu_torch.models import bert
     cfg = cut_depth(bert.BertConfig.base(), MP_LAYERS)
     cfg.hidden_dropout_prob = 0.0
-    cfg.attention_probs_dropout_prob = 0.0 if leg == "a" else DROPOUT
+    cfg.attention_probs_dropout_prob = DROPOUT if leg == "b" else 0.0
     return cfg
 
 
@@ -6495,52 +6551,74 @@ def tpsp_batch(np, cfg, leg):
     """The global batch: (a) 4 x 512 with TPSP_PER_SHARD masked tokens in
     each sp half of every row (the loss is the per-shard weighted mean,
     averaged over the shards: equal counts make it the global mean);
-    (b) 32 x 128 as make_fake_parallel_batch draws it."""
+    (b) 32 x 128 as make_fake_parallel_batch draws it; (c) 32 x 128 with
+    TRAIN_MASKS // 2 masked tokens in each sp half of every row (the same
+    count in every batch and sequence shard of every layout it runs
+    on)."""
     from paddle_tpu_torch.models import bert
     rng = np.random.RandomState(SEED)
     if leg == "b":
         return bert.make_fake_parallel_batch(rng, cfg, TP_BATCH, TP_SEQ)
-    feed = bert.make_fake_parallel_batch(rng, cfg, TPSP_BATCH, TPSP_SEQ)
-    w = np.zeros((TPSP_BATCH, TPSP_SEQ), np.float32)
-    half = TPSP_SEQ // 2
-    for i in range(TPSP_BATCH):
+    rows, seq, per = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS // 2) \
+        if leg == "c" else (TPSP_BATCH, TPSP_SEQ, TPSP_PER_SHARD)
+    feed = bert.make_fake_parallel_batch(rng, cfg, rows, seq)
+    w = np.zeros((rows, seq), np.float32)
+    half = seq // 2
+    for i in range(rows):
         for h in range(2):
-            w[i, h * half + rng.choice(half, TPSP_PER_SHARD,
-                                       replace=False)] = 1.0
+            w[i, h * half + rng.choice(half, per, replace=False)] = 1.0
     feed["lm_weights"] = w
     return feed
 
 
-def build_tpsp_train(cfg, leg, ranks=True):
-    """Phase 18's program: ``build_pretrain_network_parallel`` (tp 2, the
-    ``sp`` ring on (a)) with Adam, compiled ``with_mesh`` over (a)'s
-    ``MeshLayout(tp=2, extra_axes={"sp": 2})`` with every feed split
-    ("dp", "sp") and the gradient sync over sp bucketed at 32 MB, or
-    (b)'s ``MeshLayout(tp=2)`` (no gradient sync: tp leaves none).  ``ranks=False``: the
-    one-rank reference, the same program built with ``tp_degree=1,
-    seq_axis=None``.  Returns (program to run, main, startup, loss)."""
+def tpsp_optimizer(leg):
+    """Phase 18's optimizer, made from a ``fluid``: phase 8's recipe (its
+    global-norm clip included) on (c), Adam at TPSP_LR on (a) and (b)."""
+    if leg == "c":
+        return recipe_optimizer
+    return lambda fluid: fluid.optimizer.Adam(TPSP_LR)
+
+
+def tpsp_layout(leg):
+    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    return MeshLayout(**TPSP_LAYOUTS[leg])
+
+
+def build_tpsp_train(cfg, layout, optimizer):
+    """Phase 18's program: ``build_pretrain_network_parallel`` at
+    ``layout``'s tp degree (ring attention over ``sp`` where the layout
+    has that axis), ``optimizer(fluid)`` minimized, rewritten by
+    ``apply_fsdp_sharding`` where the layout has a fsdp axis and compiled
+    ``with_mesh`` over it: the batch over its dp and fsdp axes, every
+    feed split (batch, "sp") under sp, the gradient sync bucketed at 32
+    MB.  ``layout`` None: the one-rank reference, built with
+    ``tp_degree=1, seq_axis=None``.  Returns (program to run, main,
+    startup, loss)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.framework import unique_name
-    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    from paddle_tpu_torch.framework.fsdp import apply_fsdp_sharding
     from paddle_tpu_torch.models import bert
     unique_name.reset()
     main, startup = fluid.Program(), fluid.Program()
     startup.random_seed = main.random_seed = SEED
-    seq = "sp" if leg == "a" and ranks else None
+    seq = "sp" if layout is not None and layout.size("sp") > 1 else None
     with fluid.program_guard(main, startup):
         feeds, loss = bert.build_pretrain_network_parallel(
-            cfg, tp_degree=2 if ranks else 1, seq_axis=seq)
-        fluid.optimizer.Adam(TPSP_LR).minimize(loss)
-    if not ranks:
+            cfg, tp_degree=layout.tp if layout is not None else 1,
+            seq_axis=seq)
+        optimizer(fluid).minimize(loss)
+    if layout is None:
         return main, main, startup, loss
-    layout = MeshLayout(tp=2, extra_axes={"sp": SP_DEGREE} if seq else None)
+    if layout.fsdp > 1:
+        apply_fsdp_sharding(main, layout)
     main._mesh_layout = layout
     build = fluid.BuildStrategy()
     build.fuse_all_reduce_ops = True
+    batch = layout.batch_axes or "dp"
     program = fluid.CompiledProgram(main).with_mesh(
-        layout.build_mesh(), loss_name=loss.name, batch_axis="dp",
+        layout.build_mesh(), loss_name=loss.name, batch_axis=batch,
         seq_axis=seq,
-        feed_specs={f.name: ("dp", "sp") for f in feeds} if seq else None,
+        feed_specs={f.name: (batch, "sp") for f in feeds} if seq else None,
         build_strategy=build)
     return program, main, startup, loss
 
@@ -6600,65 +6678,104 @@ def _axes(g):
 
 
 def comm_by_kind(torch):
-    """Phase 18's gloo transfers by kind: the tp all-reduces, the tp
-    gathers (the LM head's logits), the ring's point-to-point shifts and
-    the gradient sync over the batch and sequence axes."""
+    """Phase 18's gloo transfers by kind: the tp all-reduces (the clip's
+    squares over tp among them), the tp gathers (the LM head's logits),
+    the ring's point-to-point shifts, the fsdp gathers and their
+    backward's reduce-scatters, and the gradient sync over the batch and
+    sequence axes (the clip's squares over fsdp among them)."""
     def kind_of(name, g):
         if name == "ring_shift":
             return "ring P2P"
         if _axes(g) == ("tp",):
             return "tp all-reduce" if name == "all_reduce" else \
                 f"tp {name.replace('_', '-')}"
+        if _axes(g) == ("fsdp",) and name != "all_reduce":
+            return "fsdp gather" if name == "all_gather" else \
+                "fsdp reduce-scatter"
         return "grad sync"
     return timed_comm(torch, ("all_to_all", "all_gather", "all_reduce",
                               "broadcast", "ring_shift"), kind_of)
 
 
-def tpsp_worker(out_dir, leg):
-    """One rank of phase 18 leg (a) or (b) (``--tpsp-worker DIR LEG``):
-    the startup (its global parameters' sha256), TPSP_STEPS prepared
-    steps with the launches and fallbacks counted, one step with the gloo
-    transfers timed by kind, one profiled step, the peak allocated bytes,
-    and the sha256 of every replicated persistable after the steps;
-    writes ``tpsp<r>_<leg>.json``."""
+def fetched_loss(value):
+    """A fetched loss as one float: under a batch axis the (1,) loss
+    comes back one element a batch shard, each its shard's weighted mean
+    (equal masked counts make their mean the global one)."""
+    return float(value.numpy().astype("float64").mean())
+
+
+def replica_digests(np, dp, scope, main):
+    """{persistable: [[the axes it is a block over, this rank's block
+    index along them] (empty where it is held whole), the sha256 of its
+    bytes as this rank holds them]}: the ranks with the same key must
+    hold the same bytes."""
     import hashlib
-    import numpy as np
-    import torch
+    from paddle_tpu_torch.ops.collective_ops import _sharding
+    out = {}
+    for v in main.list_vars():
+        t = scope.find_var(v.name) if v.persistable else None
+        if t is None or not hasattr(t, "detach"):
+            continue
+        sh = _sharding(dp, v)
+        key = [] if sh is None else [list(_axes(sh[1])), sh[1].rank]
+        out[v.name] = [key, hashlib.sha256(
+            t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()]
+    return out
+
+
+def tpsp_leg(torch, np, leg, out_dir):
+    """One rank of phase 18 leg (a), (b) or (c): the startup (its global
+    parameters' sha256), TPSP_STEPS prepared steps with the launches and
+    fallbacks counted, one step with the gloo transfers timed by kind,
+    one profiled step, the peak allocated bytes, and the digests of each
+    block after the steps (:func:`replica_digests`); (c) also its static
+    estimate against the bytes held, step 1's global norm, and
+    :func:`fsdp_tp_restores`."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
     from paddle_tpu_torch.ops import cuda as kernels
     from paddle_tpu_torch.ops import registry
-    torch.backends.cuda.matmul.allow_tf32 = False
-    fleet.init(PaddleCloudRoleMaker())
     rank = fleet.worker_index()
-    check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
     dev = torch.device("cuda", fleet.place.device_id)
     cfg = tpsp_config(leg)
     feed = tpsp_batch(np, cfg, leg)
-    program, main, startup, loss = build_tpsp_train(cfg, leg)
+    program, main, startup, loss = build_tpsp_train(
+        cfg, tpsp_layout(leg), tpsp_optimizer(leg))
     dp = program._dp
-    want = TPSP_RANKS if leg == "a" else TP_RANKS
+    want = TP_RANKS if leg == "b" else TPSP_RANKS
     check(dp is not None and dp.world == want,
           f"({leg}): the program does not run over {want} ranks")
     scope = fluid.Scope()
     exe = fluid.Executor(fleet.place)
     exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
     out = {"rank": rank, "leg": leg,
            "init_sha256": params_sha(np, scope, main),
-           "expected": tpsp_launches(main, leg)}
-    torch.cuda.synchronize()
+           "expected": tpsp_launches(main, leg),
+           "allocated_after_startup": torch.cuda.memory_allocated(dev)}
+    norm = None
+    if leg == "c":
+        est, state_in, written = memory_estimate(program, feed, loss.name)
+        out["estimate"] = {"state_bytes": est.state_bytes,
+                           "peak_bytes": est.peak_bytes}
+        norm = global_norm_name(main)
+        out["allreduce_axes"] = sorted(
+            str(op.attrs["_axis_name"]) for op in main.global_block().ops
+            if op.type == "c_global_norm_allreduce")
     torch.cuda.reset_peak_memory_stats(dev)
-    prepared = exe.prepare(program, fetch_list=[loss], scope=scope,
-                           donate_state=True)
+    prepared = exe.prepare(program, fetch_list=[loss] + (
+        [norm] if norm else []), scope=scope, donate_state=True)
     kernels.reset_launch_counts()
     registry.reset_route_counts()
     losses, step_s = [], []
     first_step()
-    for _ in range(TPSP_STEPS):
+    for i in range(TPSP_STEPS):
         t0 = time.perf_counter()
-        losses.append(float(prepared.run(feed)[0]))
+        got = prepared.run(feed)
+        losses.append(fetched_loss(got[0]))
         step_s.append(time.perf_counter() - t0)
+        if norm and i == 0:
+            out["step1_global_norm"] = float(got[1].numpy().reshape(-1)[0])
     stamp("steps", sum(step_s))
     out["launches"] = {f"{k}/{dt}": n for (k, dt), n in
                        kernels.launch_counts_by_dtype().items()}
@@ -6669,6 +6786,17 @@ def tpsp_worker(out_dir, leg):
     out["losses"], out["step_s"] = losses, step_s
     out["step_ms_median"] = statistics.median(step_s[1:]) * 1e3
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    fluid.sync_prepared_state(scope)
+    if leg == "c":
+        out["held"], out["predicted"], out["moment_bytes"], \
+            out["param_bytes"] = held_bytes(torch, dp, scope, main)
+        out["state_in_held"] = scope_bytes(torch, scope, state_in)
+        out["left_out"] = left_out_bytes(torch, dp, scope, main, state_in,
+                                         written)
+        out.update(fsdp_tp_save(torch, np, exe, dp, main, scope, out_dir))
+        t0 = time.perf_counter()
+        out["loss_next"] = fetched_loss(prepared.run(feed)[0])
+        stamp("steps", time.perf_counter() - t0)
     totals, undo = comm_by_kind(torch)
     try:
         t0 = time.perf_counter()
@@ -6681,33 +6809,112 @@ def tpsp_worker(out_dir, leg):
         torch, lambda: prepared.run(feed)[0].numpy(),
         out["step_ms_median"])
     fluid.sync_prepared_state(scope)
-    out["replicated_sha256"] = {
-        v.name: hashlib.sha256(scope.find_var(v.name).detach().contiguous()
-                               .cpu().numpy().tobytes()).hexdigest()
-        for v in main.list_vars()
-        if v.persistable and not getattr(v, "dist_attr", None)
-        and torch.is_tensor(scope.find_var(v.name))}
+    out["replica_sha256"] = replica_digests(np, dp, scope, main)
     out["held_bytes"] = sum(
         scope.find_var(v.name).numel() * scope.find_var(v.name)
         .element_size() for v in main.list_vars()
         if v.persistable and torch.is_tensor(scope.find_var(v.name)))
     log(f"[rank {rank}] ({leg}) losses {[round(x, 5) for x in losses]}, "
         f"step {out['step_ms_median']:.1f} ms")
-    out["stamps"] = dict(_STAMPS)
-    with open(os.path.join(out_dir, f"tpsp{rank}_{leg}.json"), "w") as f:
-        json.dump(out, f)
+    del prepared, scope, exe
+    torch.cuda.empty_cache()
+    if leg == "c":
+        out["restores"] = fsdp_tp_restores(torch, np, cfg, feed, out_dir)
+    return out
+
+
+def fsdp_tp_save(torch, np, exe, dp, main, scope, out_dir):
+    """(c)'s state after its steps: the global value's digests, then
+    ``save_checkpoint(sharded=True)`` under ``fsdp_tp_ckpt`` (each block
+    written once, by the ranks at coordinate 0 of the axes it is
+    replicated over): the seconds and this rank's bytes written."""
+    from paddle_tpu_torch import io
+    out = {"saved_sha256": global_digests(np, dp, scope, main)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = io.save_checkpoint(exe, os.path.join(out_dir, "fsdp_tp_ckpt"),
+                           io.TrainStatus(TPSP_STEPS), main, scope=scope,
+                           sharded=True)
+    out["save_s"] = time.perf_counter() - t0
+    stamp("saves", out["save_s"])
+    out["written_bytes"] = sum(
+        os.path.getsize(os.path.join(d, f"{stem}_{dp.rank}.{ext}"))
+        for stem, ext in (("shard_data", "npz"), ("shard_manifest", "json")))
+    return out
+
+
+def fsdp_tp_restores(torch, np, cfg, feed, out_dir):
+    """(c)'s sharded save restored onto each of FSDP_TP_RESTORES in this
+    process: a freshly built program and ``Scope``, ``load_checkpoint``
+    reading the files back (the seconds, the bytes this rank read against
+    its planned bytes, the reshard's steps and wire bytes), the restored
+    global state's digests, then one step (the step (c) took after its
+    save)."""
+    from paddle_tpu_torch import fluid, io
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.mesh_layout import MeshLayout
+    out = {}
+    for name, layout in FSDP_TP_RESTORES.items():
+        program, main, _, loss = build_tpsp_train(
+            cfg, MeshLayout(**layout), tpsp_optimizer("c"))
+        dp = program._dp
+        scope = fluid.Scope()
+        exe = fluid.Executor(fleet.place)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = io.load_checkpoint(exe, os.path.join(out_dir, "fsdp_tp_ckpt"),
+                                main_program=main, scope=scope)
+        torch.cuda.synchronize()
+        m = {"load_s": time.perf_counter() - t0, "epoch": st.epoch_no,
+             "bytes_read": st.read_stats["bytes_read"],
+             "planned_bytes": st.read_stats["planned_bytes"],
+             "wire_bytes": st.reshard["wire_bytes"] if st.reshard else None,
+             "reshard_steps": st.reshard["steps_by_kind"] if st.reshard
+             else None,
+             "restored_sha256": global_digests(np, dp, scope, main)}
+        stamp("loads", m["load_s"])
+        prepared = exe.prepare(program, fetch_list=[loss], scope=scope,
+                               donate_state=True)
+        t0 = time.perf_counter()
+        m["loss_after"] = fetched_loss(prepared.run(feed)[0])
+        stamp("steps", time.perf_counter() - t0)
+        out[name] = m
+        del prepared, scope, exe
+        torch.cuda.empty_cache()
+    return out
+
+
+def tpsp_worker(out_dir, legs):
+    """One rank of phase 18 (``--tpsp-worker DIR LEGS``): the legs LEGS
+    ("ac" on four ranks, "b" on two) in turn (:func:`tpsp_leg`); writes
+    ``tpsp<r>_<legs>.json``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
+    res = {"rank": rank}
+    for leg in legs:
+        res[leg] = tpsp_leg(torch, np, leg, out_dir)
+    res["stamps"] = dict(_STAMPS)
+    with open(os.path.join(out_dir, f"tpsp{rank}_{legs}.json"), "w") as f:
+        json.dump(res, f)
     return 0
 
 
-def tpsp_reference(torch, np):
-    """(a)'s one-rank reference: the same program built with
+def tpsp_reference(torch, np, leg):
+    """(a)'s or (c)'s one-rank reference: the same program built with
     ``tp_degree=1, seq_axis=None`` on this process, from the same seed
     (its parameters' sha256 held to the ranks' startup), TPSP_STEPS
     prepared steps on the same global batch: the losses, the step."""
     from paddle_tpu_torch import fluid
-    cfg = tpsp_config("a")
-    feed = tpsp_batch(np, cfg, "a")
-    program, main, startup, loss = build_tpsp_train(cfg, "a", ranks=False)
+    cfg = tpsp_config(leg)
+    feed = tpsp_batch(np, cfg, leg)
+    program, main, startup, loss = build_tpsp_train(cfg, None,
+                                                    tpsp_optimizer(leg))
     scope = fluid.Scope()
     exe = fluid.Executor()
     exe.run(startup, scope=scope)
@@ -6725,35 +6932,36 @@ def tpsp_reference(torch, np):
             "step_ms_median": statistics.median(step_s[1:]) * 1e3}
 
 
-def tpsp_launch(torch, repo, out_dir, nproc, leg):
-    """``nproc`` ranks of this script on the card over gloo for ``leg``;
-    returns their JSON results."""
+def tpsp_launch(torch, repo, out_dir, nproc, legs):
+    """``nproc`` ranks of this script on the card over gloo for the legs
+    ``legs``; returns their JSON results."""
     torch.cuda.empty_cache()
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc", str(nproc), "--selected_gpus", ",".join(["0"] * nproc),
            "--backend", "gloo", "--timeout", str(TPSP_TIMEOUT_S),
            os.path.join(repo, "chip_smoke.py"), "--tpsp-worker", out_dir,
-           leg]
+           legs]
     t0 = time.perf_counter()
     rc = subprocess.run(cmd, cwd=repo, timeout=TPSP_TIMEOUT_S + 60,
                         env=launch_env()).returncode
     wall = time.perf_counter() - t0
-    log(f"  leg ({leg}) on {nproc} ranks: ran {wall:.1f} s, exit code {rc}")
-    check(rc == 0, f"phase 18 leg ({leg}): a rank failed (exit code {rc})")
+    log(f"  legs {legs} on {nproc} ranks: ran {wall:.1f} s, exit code {rc}")
+    check(rc == 0, f"phase 18 legs {legs}: a rank failed (exit code {rc})")
     ranks = []
     for r in range(nproc):
-        with open(os.path.join(out_dir, f"tpsp{r}_{leg}.json")) as f:
+        with open(os.path.join(out_dir, f"tpsp{r}_{legs}.json")) as f:
             ranks.append(json.load(f))
-    launch_line(f"phase 18 launch ({leg})", ranks, wall)
+    launch_line(f"phase 18 launch {legs}", ranks, wall)
     return ranks
 
 
 def tpsp_report(leg, ranks, ref=None):
     """The gates of leg (a) or (b) and its printed figures: finite losses,
     every rank the same; the same startup on every rank (and the
-    reference's); no fallback; the launches a step; the replicated
-    persistables sha256-equal across the ranks; (a)'s losses within
-    TOL_TPSP_LOSS of the one-rank run's."""
+    reference's); no fallback; the launches a step; each block (a
+    replicated persistable whole) bit for bit the same on the ranks that
+    share its coordinates; (a)'s losses within TOL_TPSP_LOSS of the
+    one-rank run's."""
     what = f"({leg}) {TPSP_LEG_NAMES[leg]}"
     m0 = ranks[0]
     for r, m in enumerate(ranks):
@@ -6771,9 +6979,15 @@ def tpsp_report(leg, ranks, ref=None):
             check(got.get(key, 0) == want.get(key, 0) * TPSP_STEPS,
                   f"{who}: {key} launched {got.get(key, 0)} times in "
                   f"{TPSP_STEPS} steps, expected {want.get(key, 0)} a step")
-        check(m["replicated_sha256"] == m0["replicated_sha256"],
-              f"{who}: replicated persistables differ from rank 0's: "
-              f"{sorted(n for n in m0['replicated_sha256'] if m['replicated_sha256'].get(n) != m0['replicated_sha256'][n])[:5]}")
+    blocks = {}
+    for m in ranks:
+        for name, (key, sha) in m["replica_sha256"].items():
+            blocks.setdefault((name, json.dumps(key)), set()).add(sha)
+    split = sorted(k for k, v in blocks.items() if len(v) > 1)
+    check(not split, f"{what}: ranks with the same coordinates hold other "
+                     f"bytes: {split[:5]}")
+    check(len({len(m["replica_sha256"]) for m in ranks}) == 1,
+          f"{what}: the ranks hold different persistables")
     check((m0["ring_hits"] > 0) == (leg == "a"),
           f"{what}: {m0['ring_hits']} ring route hits")
     report = {k: m0[k] for k in ("losses", "step_ms_median", "comm_step_ms",
@@ -6808,6 +7022,90 @@ def tpsp_report(leg, ranks, ref=None):
     return report
 
 
+def fsdp_tp_report(ranks, ckpt):
+    """(c)'s gates beyond :func:`tpsp_report`'s, and its printed figures:
+    the static estimate of a rank's persistent bytes what it holds (only
+    ``learning_rate_0`` left out), the clip's squares summed once over
+    fsdp and once over tp and binding on every rank alike, the sharded
+    save every block once, and each restore's state bit for bit
+    the saved one, its bytes read the planned ones and its next step
+    within TOL_TPSP_LOSS of (c)'s."""
+    what = f"(c) {TPSP_LEG_NAMES['c']}"
+    m0 = ranks[0]
+    for r, m in enumerate(ranks):
+        who = f"{what} rank {r}"
+        check(m["held"] == m["predicted"],
+              f"{who}: the scope holds {m['held']} bytes of persistables, "
+              f"the layout predicts {m['predicted']}")
+        check(set(m["left_out"]) <= {"learning_rate_0"},
+              f"{who}: persistables outside the estimate: "
+              f"{sorted(m['left_out'])}")
+        check_estimate(who, m)
+        check(m["allreduce_axes"] == ["fsdp", "tp"],
+              f"{who}: the clip's all-reduces run over "
+              f"{m['allreduce_axes']}")
+        check(m["step1_global_norm"] > CLIP_NORM and
+              m["step1_global_norm"] == m0["step1_global_norm"],
+              f"{who}: step 1's global norm {m['step1_global_norm']} (rank "
+              f"0 {m0['step1_global_norm']}) does not bind the clip "
+              f"{CLIP_NORM} alike on every rank")
+        check(m["saved_sha256"] == m0["saved_sha256"],
+              f"{who}: gathered another global state than rank 0")
+    covered, total, twice = shard_coverage(ckpt)
+    check(not twice, f"{what}: blocks written twice: {twice[:3]}")
+    check(set(total) == set(m0["saved_sha256"]) and covered == total,
+          f"{what}: the blocks do not cover each persistable once")
+    written = [m["written_bytes"] for m in ranks]
+    log(f"  {what}: step 1's global norm {m0['step1_global_norm']:.4f} "
+        f"(clip {CLIP_NORM}: binds), squares summed over "
+        f"{m0['allreduce_axes']}; persistent {m0['held'] / 1e9:.4f} GB a "
+        f"rank (moments {m0['moment_bytes'] / 1e9:.4f} GB, parameters "
+        f"{m0['param_bytes'] / 1e9:.4f} GB); sharded save "
+        f"{max(m['save_s'] for m in ranks):.2f} s (the slowest rank), "
+        f"{sum(written) / 1e9:.4f} GB written ({', '.join(map(str, written))}"
+        f" B), every block once")
+    report = {"save_s": [m["save_s"] for m in ranks],
+              "written_bytes": written, "held": m0["held"],
+              "moment_bytes": m0["moment_bytes"],
+              "param_bytes": m0["param_bytes"], "estimate": m0["estimate"],
+              "allocated_after_startup": m0["allocated_after_startup"],
+              "step1_global_norm": m0["step1_global_norm"],
+              "loss_next": m0["loss_next"], "restores": {}}
+    for name in FSDP_TP_RESTORES:
+        for r, m in enumerate(ranks):
+            got = m["restores"][name]
+            who = f"{what} restored onto {name} rank {r}"
+            differ = sorted(n for n in m0["saved_sha256"]
+                            if got["restored_sha256"].get(n) !=
+                            m0["saved_sha256"][n])
+            check(got["epoch"] == TPSP_STEPS and not differ and
+                  set(got["restored_sha256"]) == set(m0["saved_sha256"]),
+                  f"{who}: epoch {got['epoch']}, restored global state "
+                  f"differs from the saved one: {differ[:5]}")
+            check(got["bytes_read"] == got["planned_bytes"],
+                  f"{who}: read {got['bytes_read']} bytes, planned "
+                  f"{got['planned_bytes']}")
+            gap = abs(got["loss_after"] - m["loss_next"]) / \
+                abs(m["loss_next"])
+            got["loss_gap"] = gap
+            check(gap <= TOL_TPSP_LOSS,
+                  f"{who}: the next step's loss {got['loss_after']} vs "
+                  f"(c)'s {m['loss_next']}: {gap:.3e}")
+        g = m0["restores"][name]
+        log(f"  {what} restored onto {name}: load_checkpoint "
+            f"{g['load_s']:.2f} s, read {g['bytes_read'] / 1e9:.4f} GB a "
+            f"rank (planned {g['planned_bytes'] / 1e9:.4f} GB), reshard "
+            f"wire {(g['wire_bytes'] or 0) / 1e9:.4f} GB "
+            f"{g['reshard_steps']}; the restored state bit for bit the "
+            f"saved one; the next step's loss {g['loss_after']} vs (c)'s "
+            f"{m0['loss_next']} ("
+            f"{max(m['restores'][name]['loss_gap'] for m in ranks):.3e})")
+        report["restores"][name] = {k: g[k] for k in (
+            "load_s", "bytes_read", "planned_bytes", "wire_bytes",
+            "reshard_steps", "loss_after", "loss_gap")}
+    return report
+
+
 def tpsp_phase(torch, np, repo, results):
     """Phase 18 (see the module docstring); returns rank 0's launches by
     leg and the report."""
@@ -6817,16 +7115,23 @@ def tpsp_phase(torch, np, repo, results):
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     try:
-        ref = tpsp_reference(torch, np)
-        legs = {"a": tpsp_launch(torch, repo, out_dir, TPSP_RANKS, "a"),
-                "b": tpsp_launch(torch, repo, out_dir, TP_RANKS, "b")}
+        refs = {leg: tpsp_reference(torch, np, leg) for leg in "ac"}
+        four = tpsp_launch(torch, repo, out_dir, TPSP_RANKS, "ac")
+        fsdp_tp = fsdp_tp_report(
+            [r["c"] for r in four],
+            os.path.join(out_dir, "fsdp_tp_ckpt", f"checkpoint_{TPSP_STEPS}"))
+        two = tpsp_launch(torch, repo, out_dir, TP_RANKS, "b")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    report = {"a": tpsp_report("a", legs["a"], ref),
-              "b": tpsp_report("b", legs["b"])}
+    report = {leg: tpsp_report(leg, [r[leg] for r in four], refs[leg])
+              for leg in "ac"}
+    report["b"] = tpsp_report("b", [r["b"] for r in two])
+    report["c"].update(fsdp_tp)
     launches = {path: {k.split("/")[0]: v for k, v in
-                       legs[leg][0]["launches"].items()}
-                for path, leg in (("tp_sp", "a"), ("tp", "b"))}
+                       ranks[0][leg]["launches"].items()}
+                for path, leg, ranks in (("tp_sp", "a", four),
+                                         ("fsdp_tp", "c", four),
+                                         ("tp", "b", two))}
     return launches, report
 
 
@@ -7140,12 +7445,14 @@ def pipe_leg(torch, np, leg, ref, out_dir):
 
 
 def pipe_restore(torch, np, out_dir):
-    """(e): four fresh ranks build (d)'s program, ``load_checkpoint`` its
-    sharded checkpoint (no startup), digest the state as each rank holds
-    it, then take one step (the step (d) took after its save)."""
+    """(e), after (d) in its four ranks: (d)'s program built afresh into
+    a new ``Scope``, ``load_checkpoint`` of its sharded checkpoint read
+    back from disk (no startup), the state digested as each rank holds
+    it, then one step (the step (d) took after its save)."""
     from paddle_tpu_torch import fluid, io
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.models import bert
+    torch.cuda.empty_cache()
     cfg = pipe_config(0.0)
     feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg,
                                 PIPE_DP_BATCH, TRAIN_SEQ, TRAIN_MASKS)
@@ -7170,8 +7477,9 @@ def pipe_restore(torch, np, out_dir):
 def pipe_worker(out_dir, legs):
     """One rank of phase 19 (``--pipe-worker DIR LEGS``): "abc" (legs a,
     b_zb, b_il, c on two ranks, rank 0 running the one-rank reference
-    first), "d" (four ranks, rank 0's reference on the global batch) or
-    "e" (the restore); writes ``pipe<r>_<legs>.json``."""
+    first) or "de" (four ranks, rank 0's reference on the global batch,
+    then (e) the restore of (d)'s checkpoint); writes
+    ``pipe<r>_<legs>.json``."""
     import numpy as np
     import torch
     from paddle_tpu_torch.distributed import fleet
@@ -7182,24 +7490,23 @@ def pipe_worker(out_dir, legs):
     rank = fleet.worker_index()
     check(fleet.backend == "gloo", f"rank {rank} on {fleet.backend}")
     res = {"rank": rank}
-    if legs == "e":
+    ref = None
+    d = legs.startswith("d")
+    if rank == 0:
+        cfg = pipe_config(0.0)
+        feed = bert.make_fake_batch(
+            np.random.RandomState(SEED), cfg,
+            PIPE_DP_BATCH if d else TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+        ref = pipe_reference(torch, np, cfg, feed,
+                             PIPE_M * (2 if d else 1), d)
+    for leg in (("d",) if d else tuple(PIPE_LEGS)):
+        res[leg] = m = pipe_leg(torch, np, leg,
+                                ref if leg != "c" else None, out_dir)
+        log(f"[rank {rank}] ({leg}) losses "
+            f"{[round(x, 5) for x in m['losses']]}, step "
+            f"{m['step_ms_median']:.1f} ms")
+    if legs == "de":
         res["e"] = pipe_restore(torch, np, out_dir)
-    else:
-        ref = None
-        if rank == 0:
-            cfg = pipe_config(0.0)
-            d = legs == "d"
-            feed = bert.make_fake_batch(
-                np.random.RandomState(SEED), cfg,
-                PIPE_DP_BATCH if d else TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
-            ref = pipe_reference(torch, np, cfg, feed,
-                                 PIPE_M * (2 if d else 1), d)
-        for leg in (("d",) if legs == "d" else tuple(PIPE_LEGS)):
-            res[leg] = m = pipe_leg(torch, np, leg,
-                                    ref if leg != "c" else None, out_dir)
-            log(f"[rank {rank}] ({leg}) losses "
-                f"{[round(x, 5) for x in m['losses']]}, step "
-                f"{m['step_ms_median']:.1f} ms")
     res["stamps"] = dict(_STAMPS)
     with open(os.path.join(out_dir, f"pipe{rank}_{legs}.json"), "w") as f:
         json.dump(res, f)
@@ -7320,8 +7627,8 @@ def pipe_phase(torch, np, repo):
     os.makedirs(out_dir)
     try:
         two = pipe_launch(torch, repo, out_dir, PIPE_STAGES, "abc")
-        four = pipe_launch(torch, repo, out_dir, PIPE_RANKS_D, "d")
-        restored = pipe_launch(torch, repo, out_dir, PIPE_RANKS_D, "e")
+        four = pipe_launch(torch, repo, out_dir, PIPE_RANKS_D, "de")
+        restored = four
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     report = {leg: pipe_report(leg, [r[leg] for r in two])
@@ -7342,7 +7649,7 @@ def pipe_phase(torch, np, repo):
         check(e["e"]["loss_after"] == four[r]["d"]["loss_after"],
               f"(e) rank {r}: the step after the restore "
               f"{e['e']['loss_after']} vs {four[r]['d']['loss_after']}")
-    log(f"  (e) four fresh ranks restored (d)'s sharded checkpoint bit for "
+    log(f"  (e) (d)'s ranks restored its sharded checkpoint bit for "
         f"bit ({len(four[0]['d']['saved_sha256'])} persistables a rank, "
         f"load {restored[0]['e']['load_s']:.2f} s) and their next step's "
         f"loss is the uninterrupted run's: {restored[0]['e']['loss_after']}")
@@ -8023,8 +8330,8 @@ HSDP_PATHS = ("hsdp_a", "hsdp_b", "hsdp_d", "hsdp_e")
 #: or at the tail, (d) and (e) int8
 OVERLAP_PATHS = tuple(f"overlap_{leg}" for leg in OVERLAP_LEGS)
 #: phase 18's paths, rank 0 of each leg: (a) tp x sp on the ring route,
-#: (b) tp on the plain flash route
-TPSP_PATHS = ("tp_sp", "tp")
+#: (b) tp on the plain flash route, (c) fsdp x tp
+TPSP_PATHS = ("tp_sp", "tp", "fsdp_tp")
 #: phase 19's paths, rank 0 of each leg: (a) 1F1B, (b) zero-bubble and
 #: interleaved, (c) 1F1B at dropout 0.1, (d) dp 2 x pp 2 through fleet
 PIPE_PATHS = ("pipe_a", "pipe_b_zb", "pipe_b_il", "pipe_c", "pipe_d")
@@ -8069,7 +8376,8 @@ def kernels_line(per_kernel, launches_by_path):
     (``overlap_a_launches`` ... ``overlap_f_launches``, rank 0; #11 and
     #12 also carry ``overlap_rows``, held at leg (d)'s bucket shapes) and
     phase 18's (``tp_sp_launches``: leg (a)'s ring route, ``tp_launches``:
-    leg (b), rank 0; #1-#3 also carry ``ring``, their rows at the ring's
+    leg (b), ``fsdp_tp_launches``: leg (c), rank 0; #1-#3 also carry
+    ``ring``, their rows at the ring's
     kernel entry, float32 and bfloat16) and phase 19's
     (``pipe_a_launches``, ``pipe_b_zb_launches``, ``pipe_b_il_launches``,
     ``pipe_c_launches``, ``pipe_d_launches``, rank 0) and phase 20's
@@ -8234,43 +8542,44 @@ def main(argv=None) -> int:
     ckpt_dir = os.path.join(build.BUILD_DIR, "smoke_lamb_checkpoints")
     t_start = time.perf_counter()
     try:
-        log("phase 1: build")
+        begin_phase(1, "build")
         rep = build.build()
         log(f"  built {rep['built'] or 'nothing (cached)'} in "
             f"{rep['seconds']:.1f} s")
 
-        log("phase 2: kernels vs plain versions")
+        begin_phase(2, "kernels vs plain versions")
         per_kernel = {}
         kernel_checks(torch, per_kernel)
 
-        log("phase 3: BERT-base served through the port")
+        begin_phase(3, "BERT-base served through the port")
         shutil.rmtree(model_dir, ignore_errors=True)
         cfg = build_and_save(torch, model_dir)
         served, serving, canon, fused_outs = serve_phase(torch, np,
                                                          model_dir, cfg)
 
-        log("phase 4: unfused program (switch_ir_optim(False))")
+        begin_phase(4, "unfused program (switch_ir_optim(False))")
         unfused, unfused_err = unfused_phase(torch, np, model_dir, canon,
                                              fused_outs)
         serving["unfused_max_abs"] = unfused_err
 
-        log("phase 5: multihead_matmul program on the flash kernel")
+        begin_phase(5, "multihead_matmul program on the flash kernel")
         serving["multihead_matmul_max_abs"] = mhm_phase(torch, np)
 
-        log("phase 6: training kernels vs plain versions")
+        begin_phase(6, "training kernels vs plain versions")
         from paddle_tpu_torch.models import bert
         base = bert.BertConfig.base()
         flash_training_checks(torch, per_kernel)
         ln_adam_training_checks(torch, per_kernel, base)
         fused_training_checks(torch, per_kernel, base)
 
-        log("phase 7: BERT-base trained through the port")
+        begin_phase(7, "BERT-base trained through the port")
         trained, training = train_phase(torch, np, base, build_train,
                                         TRAIN_LAUNCHES)
         training.update(train_plain_phase(torch, np, base, build_train,
                                           TRAIN_LAUNCHES))
 
-        log(f"phase 8: BERT-base trained through the fused program and the "
+        begin_phase(
+            8, f"BERT-base trained through the fused program and the "
             f"published recipe (AdamW {WEIGHT_DECAY}, global-norm clip "
             f"{CLIP_NORM}, LR {PEAK_LR} decayed over {DECAY_STEPS} steps; "
             f"warmup cut from the published 10,000 steps to {WARMUP_STEPS} "
@@ -8281,74 +8590,79 @@ def main(argv=None) -> int:
         fused_training.update(train_plain_phase(
             torch, np, base, build_fused_train, FUSED_LAUNCHES))
 
-        log("phase 9: quantized all-reduce receive-stage kernels vs plain "
+        begin_phase(
+            9, "quantized all-reduce receive-stage kernels vs plain "
             "versions")
         quant_kernel_checks(torch, per_kernel)
 
-        log(f"phase 10: data-parallel BERT-base, {DP_RANKS} ranks on one "
+        begin_phase(
+            10, f"data-parallel BERT-base, {DP_RANKS} ranks on one "
             f"card over gloo, int8 tier {TRAIN_STEPS} steps, int4 tier "
             f"{DP_INT4_STEPS} steps")
         dp_ranks, dp_parity = dp_phase(torch, np, repo, base)
 
-        log("phase 11: paged-KV decode at BERT-base width through "
+        begin_phase(
+            11, "paged-KV decode at BERT-base width through "
             "DecodeEngine.generate")
         decoded, decode = decode_phase(torch, np, per_kernel)
 
-        log("phase 12: bf16 mixed-precision pretraining at BERT-base width "
+        begin_phase(
+            12, "bf16 mixed-precision pretraining at BERT-base width "
             "(contrib.mixed_precision.decorate)")
         amp, amp_fused, amp_fp16, amp_pure, amp_report = amp_phase(
             torch, np, base, per_kernel,
             fused_training["step_ms_median_3_10"])
 
-        log(f"phase 13: LAMB pretraining at BERT-base width (phase 8's "
+        begin_phase(
+            13, f"LAMB pretraining at BERT-base width (phase 8's "
             f"program and recipe with LAMB), checkpointed after step "
             f"{LAMB_SAVE_AT} and resumed")
         lamb, lamb_report = lamb_phase(torch, np, base, ckpt_dir)
 
-        log("phase 14: recompute, gradient merge and the wrapper optimizers "
+        begin_phase(
+            14, "recompute, gradient merge and the wrapper optimizers "
             "(EMA, ModelAverage, Lookahead, DGC, LocalSGD) through fleet on "
             "phase 8's program and recipe")
         wrapped, wrappers_report = wrappers_phase(torch, np, base, repo)
 
-        log(f"phase 15: ZeRO-1 and ZeRO-3 at BERT-base width on "
+        begin_phase(
+            15, f"ZeRO-1 and ZeRO-3 at BERT-base width on "
             f"{DP_RANKS} ranks of the card over gloo (phase 8's program at "
             f"{CUT_LAYERS} layers, the recipe without its norm clip), "
             f"{ZERO_STEPS} steps a leg; (g) dp2 and (h) auto_shard under a "
             f"budget with the recipe's clip, {AUTO_STEPS} steps each; the "
             f"static plans")
-        t15 = time.perf_counter()
         zero_launches, zero_report = zero_phase(torch, np, repo, base,
                                                 per_kernel)
-        log(f"  phase 15 ran {time.perf_counter() - t15:.1f} s")
 
-        log(f"phase 16: HSDP (data 2 x fsdp 2) at BERT-base width on "
+        begin_phase(
+            16, f"HSDP (data 2 x fsdp 2) at BERT-base width on "
             f"{HSDP_RANKS} ranks of the card over gloo (phase 15's program "
             f"and recipe, dropout 0), {HSDP_STEPS} steps a leg; sharded "
             f"checkpoints restored onto fsdp 4 and data 2")
-        t16 = time.perf_counter()
         hsdp_launches, hsdp_report_ = hsdp_phase(torch, np, repo)
-        log(f"  phase 16 ran {time.perf_counter() - t16:.1f} s")
 
-        log(f"phase 17: overlap_grad_sync at BERT-base width on {DP_RANKS} "
+        begin_phase(
+            17, f"overlap_grad_sync at BERT-base width on {DP_RANKS} "
             f"ranks of the card over gloo (phase 8's program and recipe "
             f"through fleet), {OVERLAP_STEPS} steps a leg; the preemption "
             f"drill on ZeRO-3")
-        t17 = time.perf_counter()
         overlap_launches, overlap_report_ = overlap_phase(torch, np, repo,
                                                           per_kernel)
-        log(f"  phase 17 ran {time.perf_counter() - t17:.1f} s")
 
-        log(f"phase 18: tensor and sequence parallelism at BERT-base width "
-            f"and {MP_LAYERS} layers on the card over gloo: the ring's kernel entry against its "
-            f"twins, (a) tp 2 x sp 2 on {TPSP_RANKS} ranks against one "
-            f"rank, (b) tp 2 with attention dropout, {TPSP_STEPS} steps a "
-            f"leg")
-        t18 = time.perf_counter()
+        begin_phase(
+            18, f"tensor and sequence parallelism at BERT-base width on the "
+            f"card over gloo: the ring's kernel entry against its twins, "
+            f"{MP_LAYERS} layers: (a) tp 2 x sp 2 on {TPSP_RANKS} ranks "
+            f"against one rank, (c) in its launch fsdp 2 x tp 2 with phase "
+            f"8's recipe against one rank, its sharded save restored onto "
+            f"tp 2 x sp 2 and data 4, (b) tp 2 with attention dropout, "
+            f"{TPSP_STEPS} steps a leg")
         tpsp_launches, tpsp_report_ = tpsp_phase(torch, np, repo,
                                                  per_kernel)
-        log(f"  phase 18 ran {time.perf_counter() - t18:.1f} s")
 
-        log(f"phase 19: pipeline parallelism at BERT-base width and "
+        begin_phase(
+            19, f"pipeline parallelism at BERT-base width and "
             f"{MP_LAYERS} layers "
             f"on the card over gloo (phase 8's program and recipe): "
             f"(a)-(c) pp {PIPE_STAGES} on {PIPE_STAGES} ranks, "
@@ -8356,20 +8670,17 @@ def main(argv=None) -> int:
             f"at dropout {DROPOUT}), (d) dp 2 x pp 2 through fleet with "
             f"pipe-sharded weights on {PIPE_RANKS_D} ranks and (e) its "
             f"restore, {PIPE_STEPS} steps a leg")
-        t19 = time.perf_counter()
         pipe_launches, pipe_report_ = pipe_phase(torch, np, repo)
-        log(f"  phase 19 ran {time.perf_counter() - t19:.1f} s")
 
-        log(f"phase 20: Mixture-of-Experts at BERT-base width "
+        begin_phase(
+            20, f"Mixture-of-Experts at BERT-base width "
             f"({MOE_EXPERTS} experts, top-2, capacity factor 2.0): (a) one "
             f"rank, {MOE_STEPS} steps of phase 20's fused program; (b) "
             f"expert 2 on {MOE_EP_RANKS} ranks of the card over gloo at "
             f"{MOE_EP_LAYERS} layers, float32 and int8 exchanges, the "
             f"sharded checkpoint restored onto one rank; (c) the MoE "
             f"decoder through DecodeEngine.generate")
-        t20 = time.perf_counter()
         moe_launches, moe_report = moe_phase(torch, np, repo)
-        log(f"  phase 20 ran {time.perf_counter() - t20:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -8377,7 +8688,8 @@ def main(argv=None) -> int:
         shutil.rmtree(model_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    log(f"phase 21: report ({time.perf_counter() - t_start:.1f} s in all)")
+    begin_phase(21, f"report ({time.perf_counter() - t_start:.1f} s in all)")
+    log("phase_seconds " + json.dumps(_PHASE_S))
     log("serving " + json.dumps(serving))
     log("training " + json.dumps(training))
     log("fused_training " + json.dumps(fused_training))

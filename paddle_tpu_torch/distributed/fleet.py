@@ -33,9 +33,10 @@ outside fleet, as in the JAX package.  ``strategy.mesh`` takes the
 port's mesh (``MeshLayout(...).build_mesh()``, a ``ProcessMesh``) where
 the JAX package takes a jax ``Mesh``: one data axis is data parallelism
 over that axis, data x fsdp compiles ``with_mesh``, and a mesh with a
-tensor (``tp``) or sequence (``sp``) axis compiles ``with_mesh`` with the
-sequence axis and feed specs splitting every fed array of two dims or
-more on dim 0 over the batch axes and dim 1 over ``sp``.
+tensor (``tp``) or sequence (``sp``) axis, beside the data and fsdp axes
+or not, compiles ``with_mesh`` with the sequence axis and feed specs
+splitting every fed array of two dims or more on dim 0 over the batch
+axes (dp and fsdp) and dim 1 over ``sp``.
 ``tensor_parallel`` / ``tensor_parallel_configs`` are taken as in the JAX
 package: the layout comes from the parameters' ``dist_attr`` and the
 mesh.  ``nccl_comm_num`` and
@@ -55,7 +56,8 @@ may also name ``apply_pipeline``'s ``shard_weights`` and
 ``max_pipe``, ``max_expert``, ``num_microbatches``, ``pipe_schedule``,
 ``pipe_shard_weights``, ``remat``) plan the layout statically
 (``framework/shard_planner.py``), check that every rank reached the same
-plan (:func:`plan_hash`), stamp the winner and compile it ``with_mesh``;
+plan (:func:`plan_hash`), stamp the winner (a fsdp x tp one too) and
+compile it ``with_mesh``;
 ``fleet.plan`` is the ranked plan.  A flag whose path is not ported (a
 mesh of another kind or with an expert axis, pp beside fsdp, tp or sp, an
 auto-shard winner the port does not run) raises
@@ -420,10 +422,14 @@ class _Fleet:
                     import torch
                     from ..framework.core import device_for
                     torch.cuda.set_device(device_for(place))
+                from .launch import client_store
+                timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+                store = client_store(rm.init_method(), world, timeout)
+                meet = {"store": store} if store is not None else \
+                    {"init_method": rm.init_method()}
                 dist.init_process_group(
-                    backend, init_method=rm.init_method(),
-                    world_size=world, rank=rm.worker_index(),
-                    timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+                    backend, world_size=world, rank=rm.worker_index(),
+                    timeout=timeout, **meet)
         return self
 
     def _ensure_init(self):

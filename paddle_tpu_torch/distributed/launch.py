@@ -6,8 +6,7 @@
         [--master_addr 127.0.0.1] [--master_port PORT] train.py [args ...]
 
 Spawns ``--nproc`` processes of the script, one per rank, each with
-``MASTER_ADDR`` / ``MASTER_PORT`` (a free port, found by binding port 0,
-unless given), ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` / ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``, its GPU in
 ``FLAGS_selected_gpus`` (from ``--selected_gpus``, one id per rank, or one
 id for all) and the backend in ``PADDLE_DISTRI_BACKEND`` when
@@ -15,6 +14,15 @@ id for all) and the backend in ``PADDLE_DISTRI_BACKEND`` when
 (``fleet.TPURoleMaker``).  Several ranks may share one GPU
 (``--nproc 4 --selected_gpus 0,0,0,0 --backend gloo``: NCCL refuses two
 ranks of a communicator on one device).
+
+The launcher itself hosts the process group's rendezvous store (a
+``torch.distributed.TCPStore`` on ``--master_port``, or on a port the OS
+picks as it binds) and names it in every rank's
+``PADDLE_TPU_LAUNCH_STORE`` (``host:port``, :data:`LAUNCH_STORE_ENV`);
+``fleet.init`` joins it as a client when the rank meets at that address
+(:func:`client_store`), and meets anywhere else as before (rank 0 hosts).
+A port found free and handed to rank 0 to bind later could be taken in
+between by another job or by a connection's ephemeral port.
 
 Every rank also gets ``PADDLE_TPU_PS_AUTHKEY``, a fresh secret for the
 job unless the environment has one: the key of the host collective
@@ -54,6 +62,31 @@ def free_port(host: str = "127.0.0.1") -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind((host, 0))
         return s.getsockname()[1]
+
+
+#: the environment variable naming the store the launcher hosts
+#: (``host:port``)
+LAUNCH_STORE_ENV = "PADDLE_TPU_LAUNCH_STORE"
+
+
+def rendezvous_store(host: str, nproc: int, port: int = 0):
+    """The TCP store the ranks rendezvous through, hosted by this process
+    on ``port`` (0: a port the OS picks while it binds; ``store.port``)."""
+    from torch.distributed import TCPStore
+    return TCPStore(host, port, nproc, is_master=True,
+                    wait_for_workers=False)
+
+
+def client_store(init_method: Optional[str], world: int, timeout):
+    """A client of the store this rank's launcher hosts when
+    ``init_method`` (``tcp://host:port``) is its address, else None."""
+    addr = os.environ.get(LAUNCH_STORE_ENV)
+    if not addr or init_method != f"tcp://{addr}":
+        return None
+    from torch.distributed import TCPStore
+    host, port = addr.rsplit(":", 1)
+    return TCPStore(host, int(port), world, is_master=False,
+                    timeout=timeout)
 
 
 def _gpu_ids(selected_gpus, nproc) -> Optional[List[str]]:
@@ -106,9 +139,12 @@ def launch(script_args: Sequence[str], nproc: int = 1,
     if nproc < 1:
         raise SystemExit(f"--nproc {nproc}: at least one rank")
     gpus = _gpu_ids(selected_gpus, nproc)
-    port = master_port or free_port(master_addr)
     base = dict(os.environ)
     base.setdefault("PADDLE_TPU_PS_AUTHKEY", secrets.token_hex(32))
+    # held until the ranks are done
+    store = rendezvous_store(master_addr, nproc, master_port or 0)
+    port = store.port
+    base[LAUNCH_STORE_ENV] = f"{master_addr}:{port}"
     procs = []
 
     def forward(signum, frame):

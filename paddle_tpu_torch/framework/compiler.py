@@ -22,13 +22,14 @@ executor runs the clone against the same scope.
 ``with_mesh`` takes the port's mesh (``MeshLayout.build_mesh()``: the
 named axes over the process group) of the ``dp`` and ``fsdp`` axes —
 data parallelism, ZeRO-3 after ``framework.fsdp.apply_fsdp_sharding``,
-and HSDP (both) — and of the ``dp``, ``tp`` and ``sp`` axes (Megatron
-tensor parallelism from the parameters' ``dist_attr``, ring attention
-over ``seq_axis``), slices the feeds over the batch axes (and by
-``feed_specs``: dim 1 over the sequence axis) and inserts the gradient
-sync over the batch and sequence axes (a parameter stamped over an axis
-is reduced over the others only: its gradient arrives reduce-scattered
-over that one, or is local to its tensor-parallel block).  It takes the
+and HSDP (both) — and of the ``tp`` and ``sp`` axes beside them
+(Megatron tensor parallelism from the parameters' ``dist_attr``, ring
+attention over ``seq_axis``; fsdp beside any two of dp, tp and sp),
+slices the feeds over the batch axes (and by ``feed_specs``: dim 1 over
+the sequence axis) and inserts the gradient sync over the batch and
+sequence axes (a parameter stamped over an axis is reduced over the
+others only: its gradient arrives reduce-scattered over that one, or is
+local to its tensor-parallel block).  It takes the
 pipe axis ``pp`` beside the data axis too (a program
 ``framework.pipe.apply_pipeline`` cut into stages: the executor walks
 its schedule over the pp group, and ``insert_pipe_grad_sync`` sums the
@@ -171,9 +172,11 @@ class CompiledProgram:
         """Compile for the port's mesh (``MeshLayout.build_mesh()``, a
         ``ProcessMesh`` over the process group) — the JAX package's
         ``with_mesh`` for ``MeshLayout(data=n)``, ``MeshLayout(fsdp=n)``
-        after ``apply_fsdp_sharding`` (ZeRO-3), both (HSDP), and data x
-        tp x sp (tensor parallelism from the parameters' ``dist_attr``;
-        ``seq_axis`` the axis ring attention runs over), data x pp (a
+        after ``apply_fsdp_sharding`` (ZeRO-3), both (HSDP), and tp and
+        sp beside them, fsdp beside any two of data, tp and sp (tensor
+        parallelism from the parameters' ``dist_attr``, ZeRO-3 over what
+        they leave; ``seq_axis`` the axis ring attention runs over),
+        data x pp (a
         pipelined program), and data x fsdp x ep (expert parallelism
         after ``parallel.apply_expert_sharding``).  Feeds split on
         dim 0 over ``batch_axis`` (the layout's ``batch_axes``) by the

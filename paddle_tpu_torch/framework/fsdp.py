@@ -24,7 +24,12 @@ this pass shards the parameters themselves:
 
 The batch shards over the fsdp axis, and over ``dp`` x ``fsdp`` under
 HSDP (``MeshLayout.batch_axes``), where a stamped parameter is a block by
-the rank's fsdp coordinate, replicated over ``dp``."""
+the rank's fsdp coordinate, replicated over ``dp``.  Beside tensor and
+sequence parallelism the pass skips every parameter that already has a
+``dist_attr`` (the tp layers stamp theirs at any tp degree), as the JAX
+pass does: a tp block stays a block over ``tp`` and its gradient is
+reduced over the batch and sequence axes, the rest is sharded over the
+rank's fsdp line, replicated over ``dp``, ``tp`` and ``sp``."""
 
 from __future__ import annotations
 

@@ -15,14 +15,15 @@ one process per rank, so :meth:`MeshLayout.build_mesh` returns a
 (row-major over the squeezed axes, as the JAX package reshapes its
 devices), with one process group per line of the grid.  This port takes
 the data and the fsdp axes — ``data=n`` (data parallelism, ZeRO-1),
-``fsdp=n`` (ZeRO-3) and both (HSDP) — the tensor axis with one extra
-sequence axis ``sp`` beside the data axis (Megatron tensor parallelism
-and ring attention, dp x tp x sp), the pipeline axis ``pp`` beside the
-data axis (dp x pp), and the expert axis ``ep`` beside the data and the
-fsdp axes (dp x ep, fsdp x ep, dp x fsdp x ep); a layout with another
-extra axis above size 1, fsdp beside tp or sp, pp beside fsdp, tp or sp,
-or ep beside tp, sp or pp, raises :class:`UnimplementedError` naming
-it."""
+``fsdp=n`` (ZeRO-3) and both (HSDP) — with the tensor axis and one
+extra sequence axis ``sp`` beside them (Megatron tensor parallelism and
+ring attention; ZeRO-3 shards what the tp layers did not stamp, and the
+fsdp axis runs beside any two of data, tp and sp), the pipeline axis
+``pp`` beside the data axis (dp x pp), and the expert axis ``ep`` beside
+the data and the fsdp axes (dp x ep, fsdp x ep, dp x fsdp x ep); a
+layout with another extra axis above size 1, data, fsdp, tp and sp all
+at once, pp beside fsdp, tp or sp, or ep beside tp, sp or pp, raises
+:class:`UnimplementedError` naming it."""
 
 from __future__ import annotations
 
@@ -59,6 +60,23 @@ def check_ported_axes(sizes: Dict[str, int], what: str,
             f"attention, pipeline and expert parallelism)")
     check_pipe_beside(sizes, what)
     check_expert_beside(sizes, what)
+    check_fsdp_beside(sizes, what)
+
+
+def check_fsdp_beside(sizes: Dict[str, int], what: str,
+                      data_axis: str = DATA_AXIS, fsdp_axis: str = FSDP_AXIS,
+                      tp_axis: str = TP_AXIS):
+    """Raise :class:`UnimplementedError` when the data, fsdp, tensor and
+    sequence axes are all above size 1: fsdp runs beside any two of the
+    others (data x fsdp x tp, data x fsdp x sp, fsdp x tp x sp), and no
+    run has trained the four at once yet."""
+    four = {a: sizes.get(a, 1) for a in (data_axis, fsdp_axis, tp_axis,
+                                         SEQ_AXIS)}
+    if min(four.values()) > 1:
+        raise UnimplementedError(
+            f"{what} over the axes {dict(sizes)}: {fsdp_axis} beside "
+            f"{data_axis}, {tp_axis} and {SEQ_AXIS} at once is not ported "
+            f"yet; {fsdp_axis} runs beside any two of them")
 
 
 def check_pipe_beside(sizes: Dict[str, int], what: str,
@@ -378,11 +396,11 @@ class MeshLayout:
     def check_ported(self):
         """Raise :class:`UnimplementedError` naming each axis above size 1
         that the port has not: any extra axis but :data:`SEQ_AXIS`, the
-        fsdp axis beside the tensor or the sequence axis (ZeRO-3 over
-        tensor-parallel blocks is not ported), the pipe axis beside the
-        fsdp, tensor or sequence axis, or the expert axis beside the
-        tensor, sequence or pipe axis.  The data, fsdp, tensor, sequence,
-        pipe and expert axes pass."""
+        pipe axis beside the fsdp, tensor or sequence axis, or the expert
+        axis beside the tensor, sequence or pipe axis, or the data,
+        fsdp, tensor and sequence axes all at once.  The data, fsdp,
+        tensor, sequence, pipe and expert axes pass, and so does fsdp
+        beside any two of data, tensor and sequence."""
         axes = self.mesh_axes
         check_ported_axes(axes, "mesh layout",
                           (self.data_axis, self.fsdp_axis, self.tp_axis,
@@ -390,14 +408,8 @@ class MeshLayout:
         check_pipe_beside(axes, "mesh layout", self.pipe_axis)
         check_expert_beside(axes, "mesh layout", self.expert_axis,
                             self.pipe_axis, self.tp_axis)
-        mixed = {a: n for a, n in axes.items()
-                 if a in (self.tp_axis, SEQ_AXIS)}
-        if mixed and self.fsdp_axis in axes:
-            raise UnimplementedError(
-                f"mesh layout {axes}: fsdp beside {mixed} is not ported "
-                f"yet; ZeRO-3 shards replicated parameters over data x "
-                f"fsdp, and tensor / sequence parallelism run over data x "
-                f"{self.tp_axis} x {SEQ_AXIS}")
+        check_fsdp_beside(axes, "mesh layout", self.data_axis,
+                          self.fsdp_axis, self.tp_axis)
 
     def build_mesh(self, devices=None) -> Optional[ProcessMesh]:
         """The :class:`ProcessMesh` over the squeezed axes (size-1 axes
@@ -464,5 +476,5 @@ class MeshLayout:
 __all__ = ["ShardSpec", "MeshLayout", "ProcessMesh", "DATA_AXIS",
            "FSDP_AXIS", "TP_AXIS", "PIPE_AXIS", "EXPERT_AXIS", "SEQ_AXIS",
            "PORTED_AXES", "check_ported_axes", "check_pipe_beside",
-           "check_expert_beside",
+           "check_expert_beside", "check_fsdp_beside",
            "_flat_axes"]

@@ -605,9 +605,10 @@ def stamp_winning_layout(program: Program, plan: Plan,
     stays with ``CompiledProgram.with_mesh`` (it reads the stamped
     dist_attrs).  Raises ``InvalidArgumentError`` when no config fit,
     and ``UnimplementedError`` by name (``MeshLayout.check_ported``:
-    fsdp beside tp or sp, ``check_pipe_beside``, ``check_expert_beside``)
-    when the winner is a layout the port does not run — never the
-    runner-up in its place."""
+    ``check_pipe_beside``, ``check_expert_beside``) when the winner is a
+    layout the port does not run — never the runner-up in its place.  A
+    fsdp x tp (x sp) winner runs: the ZeRO-3 rewrite skips the
+    parameters the tp layers stamped."""
     if plan.winner is None:
         raise InvalidArgumentError(
             "auto_shard: no sharding configuration fits "

@@ -117,3 +117,46 @@ def test_four_ranks_share_one_card():
     assert [(e["RANK"], e["FLAGS_selected_gpus"],
              e["PADDLE_DISTRI_BACKEND"]) for e in envs] == [
         (str(r), "0", "gloo") for r in range(4)]
+
+
+@pytest.mark.parametrize("meet", ["launcher_store", "master_port",
+                                  "own_address"])
+def test_the_ranks_rendezvous_without_a_port_race(tmp_path, meet):
+    """The launcher hosts the rendezvous store, on ``master_port`` or on a
+    port the OS picked as it bound it, and names it in every rank's
+    environment; ``fleet.init`` joins it as a client, and a rank script
+    that meets at its own address meets there as before (rank 0 hosts).
+    Either way three ranks form their process group and all-reduce."""
+    script = _script(tmp_path, (
+        "sys.path.insert(0, %r)\n"
+        "import torch, torch.distributed as dist\n"
+        "from paddle_tpu_torch import fluid\n"
+        "from paddle_tpu_torch.distributed import fleet\n"
+        "from paddle_tpu_torch.distributed.fleet import PaddleCloudRoleMaker\n"
+        "fleet.init(PaddleCloudRoleMaker(\n"
+        "    coordinator_address=sys.argv[2] or None,\n"
+        "    place=fluid.CPUPlace(), backend='gloo'))\n"
+        "t = torch.ones(1) * (dist.get_rank() + 1)\n"
+        "dist.all_reduce(t)\n"
+        "with open(os.path.join(sys.argv[1], os.environ['RANK']), 'w') as f:\n"
+        "    f.write(repr((float(t), os.environ[%r],\n"
+        "                  os.environ['MASTER_ADDR'] + ':' +\n"
+        "                  os.environ['MASTER_PORT'])))\n"
+        "dist.destroy_process_group()\n") % (REPO, L.LAUNCH_STORE_ENV))
+    port, own = None, ""
+    if meet == "master_port":
+        store = L.rendezvous_store("127.0.0.1", 1)
+        port = store.port
+        del store                       # a port the OS just had free
+    elif meet == "own_address":
+        own = f"127.0.0.1:{L.free_port()}"
+    rc = L.launch([script, str(tmp_path), own], nproc=3, backend="gloo",
+                  timeout=120, master_port=port)
+    assert rc == 0
+    got = [eval((tmp_path / str(r)).read_text()) for r in range(3)]
+    assert {g[0] for g in got} == {6.0}
+    assert len({g[1] for g in got}) == 1
+    for total, store, master in got:
+        assert store == master
+        if port is not None:
+            assert master == f"127.0.0.1:{port}"

@@ -304,16 +304,20 @@ def test_audit_winner_is_refused_by_name(programs):
 
 
 @pytest.mark.parametrize("sizes,match", [
-    ({"fsdp": 2, "tp": 2}, "fsdp beside"),
+    ({"fsdp": 2, "tp": 2}, None),
     ({"fsdp": 2, "pipe": 2}, "pipe axis beside"),
     ({"tp": 2, "expert": 2}, "expert axis beside"),
 ])
 def test_a_winner_the_port_cannot_run_is_refused_by_name(programs, sizes,
                                                          match):
     """The planner prices the layout (its ranking stays the JAX
-    package's), but stamping it raises the check that refuses it; the
-    program is left as it was and no other layout is stamped."""
+    package's), but stamping a layout the port does not run raises the
+    check that refuses it; the program is left as it was and no other
+    layout is stamped.  A fsdp x tp winner is stamped: the ZeRO-3 rewrite
+    over its fsdp axis and the layout (``tests/test_torch_fsdp_tp.py``
+    trains one)."""
     _, tmain, loss, feeds = programs("mlp")
+    tmain = tmain.clone()
     cfg = tsp.PlanConfig(MeshLayout(**sizes))
     cfg.est = tma.analyze_memory(tmain, feed_shapes=feeds,
                                  fetch_names=[loss])
@@ -324,6 +328,12 @@ def test_a_winner_the_port_cannot_run_is_refused_by_name(programs, sizes,
     plan = tsp.Plan([cfg, runner_up], 4, None)
     assert plan.winner is cfg
     before = json.dumps([op.type for op in tmain.global_block().ops])
+    if match is None:
+        layout = tsp.stamp_winning_layout(tmain, plan, min_shard_numel=64)
+        assert layout is cfg.layout and tmain._mesh_layout is layout
+        assert "fsdp_all_gather" in [op.type for op in
+                                     tmain.global_block().ops]
+        return
     with pytest.raises(UnimplementedError, match=match):
         tsp.stamp_winning_layout(tmain, plan)
     assert json.dumps([op.type for op in

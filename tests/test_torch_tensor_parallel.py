@@ -292,8 +292,14 @@ def test_what_is_not_ported_is_refused_by_name():
     ({"data": 2, "tp": 2, "extra_axes": {"sp": 2}}, True),
     ({"pipe": 2}, True), ({"expert": 2}, True),
     ({"expert": 2, "tp": 2}, False),
-    ({"extra_axes": {"cp": 2}}, False), ({"fsdp": 2, "tp": 2}, False),
-    ({"fsdp": 2, "extra_axes": {"sp": 2}}, False)],
+    ({"extra_axes": {"cp": 2}}, False), ({"fsdp": 2, "tp": 2}, True),
+    ({"fsdp": 2, "extra_axes": {"sp": 2}}, True),
+    ({"data": 2, "fsdp": 2, "tp": 2}, True),
+    ({"fsdp": 2, "tp": 2, "extra_axes": {"sp": 2}}, True),
+    ({"data": 2, "fsdp": 2, "extra_axes": {"sp": 2}}, True),
+    ({"data": 2, "fsdp": 2, "tp": 2, "extra_axes": {"sp": 2}}, False),
+    ({"pipe": 2, "tp": 2}, False), ({"expert": 2, "extra_axes": {"sp": 2}},
+                                    False)],
     ids=lambda v: str(v).replace(" ", ""))
 def test_check_ported_takes_tensor_and_sequence_axes(sizes, ok):
     from paddle_tpu_torch.framework.errors import UnimplementedError

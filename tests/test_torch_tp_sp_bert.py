@@ -29,8 +29,10 @@ model means (the JAX mesh run scales tp gradients, pinned below).
 * Checkpoints under tp x sp: ``save_checkpoint(sharded=True)`` and
   ``AsyncCheckpointer`` write each block once and restore onto the same
   layout bit for bit; the whole save loads into the one-rank
-  ``tp_degree=1`` program bit for bit; a restore onto another tp layout,
-  and pipe or expert axes, are refused by name.
+  ``tp_degree=1`` program bit for bit; a restore onto another tp, sp or
+  data layout reshards bit for bit by the JAX package's plan, and one
+  that changes the pipe layout, or puts pp or ep beside tp, is refused by
+  name.
 
 Each launch has its own timeout, so a hung collective fails its test."""
 
@@ -385,27 +387,52 @@ def test_the_whole_save_loads_into_the_one_rank_program(ref, ranks):
 
 
 def test_a_restore_onto_another_tp_layout_is_refused_by_name(ref, ranks):
+    """A restore of the tp 2 x sp 2 save onto another tensor, sequence or
+    data layout (tp 4, sp 4, data 2) reshards: every persistable comes
+    back bit for bit as the saved global value, by the JAX package's
+    ``plan_reshard`` for the same layouts, shapes and specs (steps by kind
+    and wire bytes).  A restore that changes the pipe layout, or onto pp
+    or ep beside tp, is refused by name."""
+    from paddle_tpu.framework.mesh_layout import MeshLayout as JLayout
+    from paddle_tpu.framework.reshard import plan_reshard as jplan
     from paddle_tpu_torch import fluid as tfluid
     from paddle_tpu_torch import io as tio
     from paddle_tpu_torch.framework.errors import UnimplementedError
+    from paddle_tpu_torch.framework import unique_name as tun
     from paddle_tpu_torch.framework.mesh_layout import MeshLayout
     from paddle_tpu_torch.models import bert as tbert
-    _, out_dir = ranks("tp2sp2")
+    outs, out_dir = ranks("tp2sp2")
+    tun.reset()
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         _, loss = tbert.build_pretrain_network_parallel(_cfg(), 2, "sp")
         tfluid.optimizer.Adam(ADAM_LR).minimize(loss)
     exe = tfluid.Executor(tfluid.CPUPlace())
-    for dst in (MeshLayout(tp=4), MeshLayout(extra_axes={"sp": 4}),
-                MeshLayout(data=2)):
-        with pytest.raises(UnimplementedError,
-                           match="tensor or sequence layout"):
+    jmain, _, _ = _jax_program("adam", tp=2, seq_axis="sp")
+    specs = {v.name: v.dist_attr for v in jmain.list_vars()
+             if v.persistable and getattr(v, "dist_attr", None)}
+    saved = {k[len("adam/p/"):]: v for k, v in outs[0].items()
+             if k.startswith("adam/p/")}
+    sigs = {n: (tuple(a.shape), str(a.dtype)) for n, a in saved.items()}
+    src = {"tp": 2, "extra_axes": {"sp": 2}}
+    for dst in ({"tp": 4}, {"extra_axes": {"sp": 4}}, {"data": 2}):
+        scope = tfluid.Scope()
+        st = tio.load_checkpoint(exe, str(out_dir / "ckpt"),
+                                 main_program=main, scope=scope,
+                                 dst_layout=MeshLayout(**dst))
+        for n, a in saved.items():
+            np.testing.assert_array_equal(
+                tio._to_numpy(scope.find_var(n)), a, err_msg=f"{dst} {n}")
+        want = jplan(JLayout(**src), JLayout(**dst), var_sigs=sigs,
+                     src_specs=specs, dst_specs=specs)
+        assert st.reshard["steps_by_kind"] == want.steps_by_kind(), dst
+        assert st.reshard["wire_bytes"] == want.wire_bytes, dst
+        assert st.reshard["steps_by_kind"], dst
+    for dst, match in ((MeshLayout(pipe=2), "pipe layout"),
+                       (MeshLayout(pipe=2, tp=2), "pipe axis beside"),
+                       (MeshLayout(expert=2, tp=2), "expert axis beside")):
+        with pytest.raises(UnimplementedError, match=match) as e:
             tio.load_checkpoint(exe, str(out_dir / "ckpt"),
                                 main_program=main, scope=tfluid.Scope(),
                                 dst_layout=dst)
-    for dst, axis in ((MeshLayout(pipe=2), "pp"),
-                      (MeshLayout(expert=2), "ep")):
-        with pytest.raises(UnimplementedError, match=f"{axis}.*not ported"):
-            tio.load_checkpoint(exe, str(out_dir / "ckpt"),
-                                main_program=main, scope=tfluid.Scope(),
-                                dst_layout=dst)
+        assert "not ported" in str(e.value)

@@ -469,22 +469,22 @@ def test_sharding_on_one_worker_runs_the_program_as_minimize_left_it():
 
 @pytest.mark.parametrize("layout", [
     {"data": 2, "fsdp": 2, "tp": 2}, {"tp": 2}, {"data": 2, "tp": 2},
-    {"pipe": 2}, {"fsdp": 2, "tp": 2}],
+    {"pipe": 2}, {"fsdp": 2, "tp": 2}, {"fsdp": 2, "pipe": 2}],
     ids=lambda d: "x".join(f"{k}{v}" for k, v in d.items()))
 def test_multi_axis_layouts_are_refused_by_name(layout):
-    """fsdp beside a tensor axis is refused by name (data x fsdp alone is
-    ported: see ``test_hsdp_layouts_are_taken``).  A tensor axis with or
-    without data, and a pipeline axis, are ported now: they pass the
-    check and, outside a process group of their ranks, fail only on the
-    rank count."""
-    if "fsdp" not in layout:
+    """A pipeline axis beside fsdp is refused by name.  fsdp beside a
+    tensor axis (with or without data), a tensor axis with or without
+    data, and a pipeline axis alone are ported: they pass the check and,
+    outside a process group of their ranks, fail only on the rank
+    count."""
+    if not ("pipe" in layout and "fsdp" in layout):
         taken = MeshLayout(**layout)
         taken.check_ported()
         with pytest.raises(ValueError,
                            match=f"needs {taken.num_devices} ranks"):
             taken.build_mesh()
         return
-    with pytest.raises(UnimplementedError, match="tp|pp") as e:
+    with pytest.raises(UnimplementedError, match="pipe axis beside") as e:
         MeshLayout(**layout).build_mesh()
     assert "not ported" in str(e.value)
 
