@@ -436,6 +436,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 21. print the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
+Robustness and observability, inside the launches above (the report's
+``observability`` line): phase 3 serves one more burst with tracing on
+(each micro-batch's pad / run / split spans on one step id, and
+``profiler.serving_stats()`` reporting ``stats()``); phase 6 holds #10
+with the guard's skip flag set (kernel and twin write nothing) and unset
+(kernel against twin), timed both ways; phase 8, on its program at
+dropout 0, (i) 8 steps with tracing and a ``TelemetryRecorder`` off,
+then 8 on (the JSONL valid, MFU in (0, 1] of the peak of the program's
+GEMM dtype, goodput, HBM headroom), (ii) 8 steps under
+``guard_nonfinite`` with a NaN gradient at guard step 2 (every
+parameter and moment sha256-equal across it, the skip counter 1, later
+losses the unguarded run's within 1e-6, #1-#10 at phase 8's counts; the
+launches and device ms of the guard's probe and gate), (iii) the
+watchdog drill (a 3 s stall against a 1 s deadline trips it once, with
+stacks and a bundle; healthy steps do not); phase 11 runs its 16
+requests again with tracing on (one ``decode::*`` span a prefill, chunk
+and chain, the gauges, the same tokens); phase 13 corrupts run A's
+params file once between its write and its readback (one
+``checkpoint::retry``, run C restores bit for bit); phase 15 (f) runs the
+restored program guarded with a NaN on rank 1 only (both ranks skip the
+step, replicas sha256-equal); phase 16 (d) arms ``reshard_execute``
+during a first restore (it raises on every rank) before the restore
+whose gates follow.
+
 Imports torch and the port only — nothing of JAX or the JAX package."""
 
 from __future__ import annotations
@@ -1104,6 +1128,7 @@ def serve_phase(torch, np, model_dir, cfg):
         launches = kernels.launch_counts()
         routes = registry.route_counts()
         stats = engine.stats()
+        traced_burst(engine, reqs[:BURST_REQUESTS])
     finally:
         engine.shutdown()
     wall = sum(walls)
@@ -2749,6 +2774,444 @@ def train_plain_phase(torch, np, cfg, build, expected, batch=TRAIN_BATCH,
 
 
 # ---------------------------------------------------------------------------
+# robustness and observability (tracing, telemetry, the guarded step, the
+# watchdog, the drill seams), inside phases 3, 6, 8, 11, 13, 15 and 16
+# ---------------------------------------------------------------------------
+
+#: phase 8's observability legs: steps a leg, the guard step the drill
+#: poisons, the watchdog drill's deadline and stall (seconds)
+OBS_STEPS = 8
+GUARD_POISON = 2
+WATCHDOG_DEADLINE_S, WATCHDOG_STALL_S = 1.0, 3.0
+TOL_GUARD_LOSS = 1e-6     # guarded steps vs the unguarded run (relative)
+#: what the observability checks measured, printed on the report's
+#: ``observability`` line
+OBS_REPORT = {}
+
+
+def sha256_of(torch, scope, names):
+    """sha256 of each named scope tensor's bytes."""
+    import hashlib
+    return {n: hashlib.sha256(scope.find_var(n).detach().contiguous().cpu()
+                              .numpy().tobytes()).hexdigest() for n in names}
+
+
+def guard_activity(torch, fn):
+    """(launches, device ms) of the guard's own work in one profiled call
+    of ``fn`` (a guarded step): the kernels of ``guardrails.stash_probe``
+    (the probe and the verdict) and ``guarded_state_out`` (the selects and
+    the counters), each run inside a named range; (None, None) when the
+    profiler linked no kernel to them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddle_tpu_torch.framework import guardrails
+    saved = {n: getattr(guardrails, n) for n in ("stash_probe",
+                                                 "guarded_state_out")}
+
+    def ranged(name, f):
+        def g(*a, **kw):
+            with record_function(name):
+                return f(*a, **kw)
+        return g
+    for n, f in saved.items():
+        setattr(guardrails, n, ranged("guard::" + n, f))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for n, f in saved.items():
+            setattr(guardrails, n, f)
+    n = ms = 0
+    for name in saved:
+        k, t = range_kernels(prof, "guard::" + name)
+        n, ms = n + k, ms + t
+    return (n, ms) if n else (None, None)
+
+
+def adam_skip_checks(torch, cfg):
+    """Phase 6: #10 with the guard's skip flag on the 158-tensor AdamW run
+    — set, kernel and twin leave p, m, v and both powers bit for bit;
+    unset, the kernel agrees with the twin within TOL_ADAM; the run timed
+    with the flag unset (profiler device time) beside no flag."""
+    from paddle_tpu_torch.ops.cuda import optimizer as O
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    randn = randn_on(torch, gen, dev)
+    sizes = [math.prod(sh) for sh in bert_base_param_shapes(cfg)]
+
+    def run_of():
+        return [O.AdamTensor(
+            randn(n), randn(n), randn(n, scale=0.1),
+            randn(n, scale=0.01).abs(), torch.tensor([1e-4], device=dev),
+            torch.tensor([0.9 ** 3], device=dev),
+            torch.tensor([0.999 ** 3], device=dev), 0.9, 0.999, 1e-8,
+            WEIGHT_DECAY) for n in sizes]
+
+    def state(run):
+        return [t.clone() for e in run for t in (e.p, e.m, e.v, e.beta1_pow,
+                                                  e.beta2_pow)]
+
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    run = run_of()
+    twin = [O.AdamTensor(*[t.clone() if torch.is_tensor(t) else t
+                           for t in e]) for e in run]
+    before = state(run)
+    O.adam_multi(run, skip=one)
+    O.adam_multi_plain(twin, skip=one)
+    kept = all(torch.equal(a, b) for a, b in zip(state(run), before)) and \
+        all(torch.equal(a, b) for a, b in zip(state(twin), before))
+    log(f"  #10 skip flag set, all {len(sizes)} BERT-base parameters: p, "
+        f"m, v and both powers bit for bit, kernel and twin: {kept}")
+    check(kept, "#10: a set skip flag let the kernel or its twin write")
+    O.adam_multi(run, skip=zero)
+    O.adam_multi_plain(twin, skip=zero)
+    err = max(max_err(torch, a[i], b[i]) for a, b in zip(run, twin)
+              for i in (0, 2, 3))
+    powers = all(torch.equal(a.beta1_pow, b.beta1_pow) and
+                 torch.equal(a.beta2_pow, b.beta2_pow)
+                 for a, b in zip(run, twin))
+    log(f"  #10 skip flag unset: kernel vs twin max|Δ| {err:.3e} "
+        f"(tolerance {TOL_ADAM:.0e}), powers bit for bit {powers}")
+    check(err <= TOL_ADAM and powers,
+          "#10 with the skip flag unset disagrees with its twin")
+    flag_ms = sum(kernel_split_ms(torch, lambda: O.adam_multi(
+        run, skip=zero)).values())
+    none_ms = sum(kernel_split_ms(torch, lambda: O.adam_multi(run))
+                  .values())
+    log(f"  #10 all {len(sizes)} parameters, adamw: {flag_ms:.4f} ms with "
+        f"the skip flag unset, {none_ms:.4f} ms without a flag (profiler "
+        f"device time)")
+    OBS_REPORT["adam_skip_flag"] = {"kept": kept, "unset_max_abs": err,
+                                    "flag_unset_ms": flag_ms,
+                                    "no_flag_ms": none_ms}
+
+
+def observe_phase(torch, np, cfg):
+    """Phase 8's observability legs on its program at dropout 0:
+    (i) OBS_STEPS steps with tracing and a TelemetryRecorder off, then
+    OBS_STEPS on; (ii) a fresh run under ``guard_nonfinite`` with
+    ``grad_nonfinite`` armed at guard step GUARD_POISON; (iii) the
+    watchdog drill on it."""
+    import dataclasses
+    from paddle_tpu_torch import flags, fluid, observability as obs
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import cuda as kernels
+    from paddle_tpu_torch.ops.cuda import build
+    from paddle_tpu_torch.testing import faultline
+    cfg0 = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    compiled, startup, total, _ = build_fused_train(cfg0)
+    feed = bert.make_fake_batch(np.random.RandomState(SEED), cfg0,
+                                TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flight_dir = os.path.join(build.BUILD_DIR, "smoke_flight")
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    flags.set_flags({"flight_dump_dir": flight_dir})
+
+    def fresh(guard):
+        flags.set_flags({"guard_nonfinite": guard})
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(startup, scope=scope)
+        return scope, exe.prepare(compiled, fetch_list=[total],
+                                  scope=scope, donate_state=True)
+
+    def steps(prepared, n, rec=None):
+        losses, walls = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            if rec is None:
+                losses.append(float(prepared.run(feed)[0]))
+            else:
+                with rec.step(tokens=tokens) as st:
+                    st.loss = prepared.run(feed)[0]
+                losses.append(st.record["loss"])
+            walls.append(time.perf_counter() - t0)
+        return losses, walls
+
+    report = {}
+    try:
+        # (i) telemetry off, then on, on one prepared step
+        scope, prepared = fresh(False)
+        program = prepared._program
+        unguarded, off_s = steps(prepared, OBS_STEPS)
+        path = os.path.join(build.BUILD_DIR, "smoke_telemetry.jsonl")
+        if os.path.exists(path):
+            os.remove(path)
+        t0 = time.perf_counter()
+        rec = obs.TelemetryRecorder(path, program=program, feed_shapes=feed,
+                                    fetch_names=[total.name],
+                                    tokens_per_step=tokens).attach(prepared)
+        header_s = time.perf_counter() - t0
+        obs.tracing.clear_events()
+        obs.tracing.enable()
+        try:
+            _, on_s = steps(prepared, OBS_STEPS, rec)
+        finally:
+            obs.tracing.disable()
+            rec.close()
+        spans = len(obs.tracing.get_events())
+        obs.tracing.clear_events()
+        facts = obs.validate_jsonl(path)
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+        os.remove(path)
+        head = recs[0]
+        rows = [r for r in recs if r["record"] == "step"]
+        mfus = [r["mfu"] for r in rows]
+        off_ms = statistics.median(off_s[2:]) * 1e3
+        on_ms = statistics.median(on_s[2:]) * 1e3
+        headroom = [r.get("hbm_headroom_bytes") for r in rows]
+        log(f"  (i) telemetry: median of steps 3-{OBS_STEPS} {off_ms:.2f} "
+            f"ms off, {on_ms:.2f} ms with tracing and the recorder on "
+            f"({spans} spans); the header priced in {header_s:.2f} s: "
+            f"{head['static']['flops_per_step'] / 1e12:.4f} TFLOP a step "
+            f"(GEMMs, op specs), peak {head['peak_flops'] / 1e12:.0f} "
+            f"TFLOP/s for {head['peak_dtype']} on "
+            f"{head['device']['device_kind']}; MFU a step "
+            f"{[round(x, 4) for x in mfus]}, goodput "
+            f"{[r['goodput'] for r in rows]}, HBM headroom "
+            f"{headroom[-1]} B (card less the static peak "
+            f"{head['static'].get('peak_hbm_bytes')} B)")
+        check(facts["steps"] == OBS_STEPS and
+              all(m is not None and 0 < m <= 1 for m in mfus),
+              f"telemetry: MFU out of (0, 1]: {mfus}")
+        check(headroom[-1] is not None, "telemetry: no HBM headroom")
+        report["telemetry"] = {
+            "step_ms_off": off_ms, "step_ms_on": on_ms, "spans": spans,
+            "header_s": header_s, "mfu": mfus,
+            "mfu_median": statistics.median(mfus[2:]),
+            "peak_flops": head["peak_flops"],
+            "peak_dtype": head["peak_dtype"],
+            "flops_per_step": head["static"]["flops_per_step"],
+            "goodput": [r["goodput"] for r in rows],
+            "hbm_headroom_bytes": headroom[-1],
+            "peak_hbm_estimate": head["static"].get("peak_hbm_bytes")}
+        del prepared, scope
+        torch.cuda.empty_cache()
+
+        # (ii) the guarded step, the drill at guard step GUARD_POISON
+        scope, prepared = fresh(True)
+        names = [v.name for v in program.list_vars() if v.persistable and
+                 (v.name in {p.name for p in program.all_parameters()} or
+                  "moment" in v.name)]
+        kernels.reset_launch_counts()
+        faultline.arm("grad_nonfinite", action="nan", step=GUARD_POISON,
+                      times=1)
+        guarded, g_s, trace = [], [], []
+        try:
+            for i in range(OBS_STEPS):
+                if i == GUARD_POISON:
+                    fluid.sync_prepared_state(scope)
+                    before = sha256_of(torch, scope, names)
+                t0 = time.perf_counter()
+                guarded.append(float(prepared.run(feed)[0]))
+                g_s.append(time.perf_counter() - t0)
+                if i == GUARD_POISON:
+                    # armed, the seam reads the guard's step count on the
+                    # host (a wait mid-step): disarmed for the timed steps
+                    faultline.disarm()
+                    fluid.sync_prepared_state(scope)
+                    after = sha256_of(torch, scope, names)
+                trace.append(prepared.guard_info(sync=True)
+                             ["skipped_total"])
+        finally:
+            faultline.disarm()
+        launches = kernels.launch_counts()
+        info = prepared.guard_info(sync=True)
+        kept = before == after
+        # the skipped step recomputes step GUARD_POISON's loss from the
+        # same state; each later step is the unguarded run's one before
+        want = unguarded[:GUARD_POISON + 1] + \
+            unguarded[GUARD_POISON:OBS_STEPS - 1]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(guarded, want))
+        g_ms = statistics.median(g_s[GUARD_POISON + 2:]) * 1e3
+        added = guard_activity(torch, lambda: float(prepared.run(feed)[0]))
+        log(f"  (ii) guarded, NaN in a gradient at guard step "
+            f"{GUARD_POISON}: skip total {info['skipped_total']} (after "
+            f"each step {trace}); {len(names)} parameters and moments "
+            f"sha256-equal across the skipped step: {kept}; losses vs the "
+            f"unguarded run's max relative Δ {gap:.3e} (tolerance "
+            f"{TOL_GUARD_LOSS:.0e}); launches {launches}")
+        log(f"  the guard adds {added[0]} launches and "
+            f"{added[1] if added[1] is None else round(added[1], 4)} "
+            f"device ms a step (one profiled step, its probe and gate in "
+            f"named ranges); guarded step {g_ms:.2f} ms (median of steps "
+            f"{GUARD_POISON + 3}-{OBS_STEPS}, unarmed) against "
+            f"{off_ms:.2f} ms unguarded")
+        check(kept, "guard: the skipped step changed a parameter or moment")
+        check(info["skipped_total"] == 1 and info["consecutive"] == 0,
+              f"guard: skip counters {info}")
+        check(gap <= TOL_GUARD_LOSS, f"guard: losses {guarded} vs the "
+                                     f"unguarded {unguarded}")
+        for name, per in FUSED_LAUNCHES.items():
+            check(launches[name] == per * OBS_STEPS,
+                  f"guard: {name} launched {launches[name]} times in "
+                  f"{OBS_STEPS} steps, expected {per} a step")
+        report["guard"] = {"skipped_total": info["skipped_total"],
+                           "skip_trace": trace, "sha256_equal": kept,
+                           "loss_max_rel": gap, "added_launches": added[0],
+                           "added_device_ms": added[1],
+                           "step_ms_guarded": g_ms,
+                           "step_ms_unguarded": off_ms}
+
+        # (iii) the watchdog: a stalled step trips it once, healthy ones
+        # do not
+        flags.set_flags({"step_deadline_s": WATCHDOG_DEADLINE_S})
+        obs.watchdog.ensure_started()
+        base = len(obs.watchdog.trips())
+        counter = obs.metrics.counter("watchdog::trip", beacon="prepared")
+        c0 = counter.get()
+        faultline.arm("step_stall", action="stall",
+                      seconds=WATCHDOG_STALL_S, times=1)
+        try:
+            float(prepared.run(feed)[0])
+        finally:
+            faultline.disarm()
+        for _ in range(3):
+            float(prepared.run(feed)[0])
+        time.sleep(1.5 * WATCHDOG_DEADLINE_S)
+        trips = obs.watchdog.trips()[base:]
+        bundle = obs.flight.validate_bundle(trips[0]["bundle"]) \
+            if trips and trips[0]["bundle"] else None
+        stacks = len(bundle["extra"]["thread_stacks"]) if bundle else 0
+        log(f"  (iii) watchdog, deadline {WATCHDOG_DEADLINE_S} s, a "
+            f"{WATCHDOG_STALL_S} s stall then 3 healthy steps: "
+            f"{len(trips)} trip(s) "
+            f"{[(t['beacon'], round(t['stalled_s'], 2)) for t in trips]}, "
+            f"{stacks} thread stacks in the bundle, watchdog::trip "
+            f"{counter.get() - c0}")
+        check(len(trips) == 1 and trips[0]["beacon"] == "prepared" and
+              stacks >= 1 and counter.get() - c0 == 1,
+              f"watchdog: trips {trips}")
+        report["watchdog"] = {"trips": len(trips), "stacks": stacks,
+                              "stalled_s": trips[0]["stalled_s"]}
+        del prepared, scope
+    finally:
+        flags.set_flags({"guard_nonfinite": False, "step_deadline_s": 0.0})
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    OBS_REPORT["phase8"] = report
+    return report
+
+
+def traced_burst(engine, burst):
+    """Phase 3: one more burst through the served engine with tracing on:
+    each micro-batch's pad / run / split spans share its step id, and
+    ``profiler.serving_stats()`` reports what ``stats()`` reports."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import tracing
+    before = engine.stats()["batches"]
+    tracing.clear_events()
+    tracing.enable()
+    try:
+        for f in [engine.submit(r) for r in burst]:
+            f.result(timeout=600)
+        engine.drain(timeout=600)
+    finally:
+        tracing.disable()
+    stats = engine.stats()
+    by_sid = {}
+    names = set()
+    for name, _, _, _, attrs in tracing.get_events():
+        names.add(name)
+        if name in ("serving::pad", "serving::run", "serving::split"):
+            by_sid.setdefault(attrs["step_id"], []).append(name)
+    tracing.clear_events()
+    batches = stats["batches"] - before
+    whole = sum(sorted(v) == ["serving::pad", "serving::run",
+                              "serving::split"] for v in by_sid.values())
+    listed = stats in profiler.serving_stats()
+    log(f"  traced burst of {len(burst)}: {batches} micro-batches, {whole} "
+        f"step ids each on one batch's pad / run / split spans; span "
+        f"names {sorted(names)}; serving_stats() lists stats(): {listed}")
+    check(whole == batches == len(by_sid),
+          f"serving spans by step id: {by_sid}")
+    check(listed, "profiler.serving_stats() does not report the engine")
+    OBS_REPORT["phase3"] = {"batches": batches, "span_names": sorted(names)}
+
+
+def traced_decode(engine, prompts, untraced):
+    """Phase 11: the 16 requests again with tracing on: one
+    ``decode::prefill`` / ``chunk`` / ``chain`` span each of the engine's
+    prefills, chunks and chains, each on a step id of its own, the
+    ``decode::*`` gauges set, and the tokens those of the untraced run."""
+    from paddle_tpu_torch.observability import metrics, tracing
+    before = engine.stats()
+    tracing.clear_events()
+    tracing.enable()
+    try:
+        res, _, wall = drive_decode(engine, prompts,
+                                    decode_budgets(len(prompts)))
+        engine.drain()
+    finally:
+        tracing.disable()
+    after = engine.stats()
+    spans, sids = {}, set()
+    for name, _, _, _, attrs in tracing.get_events():
+        if name.startswith("decode::"):
+            spans[name] = spans.get(name, 0) + 1
+            sids.add(attrs["step_id"])
+    tracing.clear_events()
+    want = {"decode::prefill": "prefill_batches",
+            "decode::chunk": "chunk_steps", "decode::chain": "chains_run"}
+    want = {k: after[v] - before[v] for k, v in want.items()
+            if after[v] - before[v]}
+    same = all(a.tokens.tolist() == b.tokens.tolist()
+               for a, b in zip(res, untraced))
+    gauges = {m["name"]: m["value"] for m in metrics.metrics_snapshot(
+        include_serving=False)["metrics"] if m["name"].startswith(
+            "decode::")}
+    log(f"  traced run of the {len(prompts)} requests ({wall:.3f} s): spans "
+        f"{spans} (the engine counted {want}), {len(sids)} step ids; tokens "
+        f"those of the untraced run: {same}; gauges {gauges}")
+    check(spans == want and len(sids) == sum(spans.values()),
+          f"decode spans {spans}, the engine counted {want}")
+    check(same, "decode: the traced run's tokens differ from the untraced")
+    check({"decode::cache_blocks_used", "decode::active_seqs",
+           "decode::prefix_cache_hits"} <= set(gauges),
+          f"decode gauges {gauges}")
+    OBS_REPORT["phase11"] = {"spans": spans, "gauges": gauges,
+                             "tokens_equal": same}
+
+
+def zero_guard_drill(torch, np, exe, program, main, scope, total, feed):
+    """Phase 15 (f): the restored program's steps under
+    ``guard_nonfinite``, a NaN gradient on rank 1 only at guard step 1:
+    each rank's skip total after each step, its persistables' digests
+    across the skipped step, and its replicated digest after."""
+    from paddle_tpu_torch import flags, fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.testing import faultline
+    flags.set_flags({"guard_nonfinite": True})
+    fluid.sync_prepared_state(scope)
+    try:
+        prepared = exe.prepare(program, fetch_list=[total], scope=scope,
+                               donate_state=True)
+        if fleet.worker_index() == 1:
+            faultline.arm("grad_nonfinite", action="nan", step=1, times=1)
+        trace, losses = [], []
+        for i in range(3):
+            if i == 1:
+                fluid.sync_prepared_state(scope)
+                before = state_digests(np, scope, main)
+            losses.append(float(prepared.run(feed)[0]))
+            trace.append(prepared.guard_info(sync=True)["skipped_total"])
+            if i == 1:
+                fluid.sync_prepared_state(scope)
+                kept = state_digests(np, scope, main) == before
+    finally:
+        faultline.disarm()
+        flags.set_flags({"guard_nonfinite": False})
+    fluid.sync_prepared_state(scope)
+    return {"skip_trace": trace, "kept": kept, "losses": losses,
+            "replicated_sha256": replicated_digest(np, program._dp, scope,
+                                                   main)}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3238,8 +3701,24 @@ def lamb_run(torch, np, cfg, ckpt_dir, save_at=None, resume=False,
 def lamb_phase(torch, np, cfg, ckpt_dir):
     """Phase 13: LAMB pretraining, checkpoint and resume (see the module
     docstring); returns (the launches of run A's steps, the report)."""
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.testing import faultline
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    a = lamb_run(torch, np, cfg, ckpt_dir, save_at=LAMB_SAVE_AT)
+    retries = metrics.counter("checkpoint::retry", stage="params")
+    r0 = retries.get()
+    # run A's save: the params file corrupted once between its write and
+    # its readback; the retry writes it again, and C restores from it
+    faultline.arm("checkpoint_write", action="corrupt_file",
+                  match={"stage": "params"}, times=1)
+    try:
+        a = lamb_run(torch, np, cfg, ckpt_dir, save_at=LAMB_SAVE_AT)
+    finally:
+        faultline.disarm()
+    retried = retries.get() - r0
+    log(f"  run A's save_checkpoint with its params file corrupted once "
+        f"after the write: checkpoint::retry{{stage=params}} {retried}")
+    check(retried == 1, f"checkpoint::retry read {retried}, not 1")
+    OBS_REPORT["phase13"] = {"checkpoint_retry": retried}
     b = lamb_run(torch, np, cfg, ckpt_dir, profile=True)
     c = lamb_run(torch, np, cfg, ckpt_dir, resume=True)
     expected = {k: v for k, v in FUSED_LAUNCHES.items() if k != "adam"}
@@ -4437,6 +4916,8 @@ def zero_restore(torch, np, cfg, feed, ckpt_dir, out_dir):
     first_step()
     t0 = time.perf_counter()
     out["loss_after"] = float(prepared.run(feed)[0])
+    out["guard"] = zero_guard_drill(torch, np, exe, program, main, scope,
+                                    total, feed)
     stamp("steps", time.perf_counter() - t0)
     return out
 
@@ -4726,6 +5207,20 @@ def zero_phase(torch, np, repo, cfg, results):
               math.isfinite(f["f"]["loss_after"]),
               f"(f) rank {r}: epoch {f['f']['epoch']}, loss "
               f"{f['f']['loss_after']}")
+    guards = [r["f"]["guard"] for r in restored]
+    log(f"  (f) guarded, a NaN gradient on rank 1 only at guard step 1: "
+        f"skip totals {[g['skip_trace'] for g in guards]}, state kept "
+        f"across the skipped step {[g['kept'] for g in guards]}, "
+        f"replicated sha256 equal across the ranks "
+        f"{guards[0]['replicated_sha256'] == guards[1]['replicated_sha256']}")
+    for r, g in enumerate(guards):
+        check(g["skip_trace"] == [0, 1, 1] and g["kept"] and
+              all(math.isfinite(x) for x in g["losses"]),
+              f"(f) rank {r}: the guard drill {g}")
+    check(guards[0]["replicated_sha256"] == guards[1]["replicated_sha256"],
+          "(f) guard drill: the replicas differ after the skipped step")
+    OBS_REPORT["phase15"] = {"skip_trace": guards[0]["skip_trace"],
+                             "replicas_equal": True}
     report["f"] = {"save_s": ranks[0]["b"]["save_s"],
                    "load_s": restored[0]["f"]["load_s"],
                    "loss_after": restored[0]["f"]["loss_after"]}
@@ -5069,8 +5564,22 @@ def hsdp_restore(torch, np, cfg, leg, feed, out_dir):
     dev = torch.device("cuda", fleet.place.device_id)
     program, main, _, total = build_hsdp_train(cfg, leg)
     dp = program._dp
-    scope = fluid.Scope()
     exe = fluid.Executor(fleet.place)
+    fault = None
+    if leg == "d":
+        # a fault between two per-var transfers of the restore: it raises
+        # on every rank, and the restore below is the second one
+        from paddle_tpu_torch.framework import reshard
+        from paddle_tpu_torch.testing import faultline
+        reshard.arm_fault(action="raise")
+        try:
+            io.load_checkpoint(exe, os.path.join(out_dir, "ckpt"),
+                               main_program=main, scope=fluid.Scope())
+        except faultline.FaultlineError as e:
+            fault = type(e).__name__
+        finally:
+            faultline.disarm()
+    scope = fluid.Scope()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = io.load_checkpoint(exe, os.path.join(out_dir, "ckpt"),
@@ -5083,7 +5592,8 @@ def hsdp_restore(torch, np, cfg, leg, feed, out_dir):
            "wire_bytes": st.reshard["wire_bytes"] if st.reshard else None,
            "reshard_steps": st.reshard["steps_by_kind"] if st.reshard
            else None,
-           "restored_sha256": global_digests(np, dp, scope, main)}
+           "restored_sha256": global_digests(np, dp, scope, main),
+           "fault": fault}
     stamp("loads", out["load_s"])
     torch.cuda.reset_peak_memory_stats(dev)
     prepared = exe.prepare(program, fetch_list=[total], scope=scope,
@@ -5213,6 +5723,13 @@ def hsdp_phase(torch, np, repo):
                     "e": hsdp_launch(torch, repo, out_dir, 2, "e")}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    faults = [r["d"]["fault"] for r in trained]
+    log(f"  (d) reshard_execute armed during a first restore: raised "
+        f"{faults} on the {len(faults)} ranks; the second restore's gates "
+        f"follow")
+    check(faults == ["FaultlineError"] * len(trained),
+          f"(d) the reshard drill raised {faults}")
+    OBS_REPORT["phase16"] = {"fault_raised": faults}
     report.update(hsdp_report(trained, restored))
     launches = {f"hsdp_{leg}": {k.split("/")[0]: v for k, v in
                                 trained[0][leg]["launches"].items()}
@@ -6322,6 +6839,7 @@ def decode_phase(torch, np, results, place=None):
         log(f"  TTFT p50 {report['ttft_p50_ms']:.1f} ms, p99 "
             f"{report['ttft_p99_ms']:.1f} ms; launches {launches}")
         report["diverged"] = decode_parity(torch, np, engine, prompts, res)
+        traced_decode(engine, prompts, res)
         log(f"  tokens vs greedy_reference: {len(prompts) - len(report['diverged'])}"
             f" of {len(prompts)} identical")
         report["no_host_sync_in_chain"] = chain_without_host_sync(
@@ -8570,6 +9088,7 @@ def main(argv=None) -> int:
         base = bert.BertConfig.base()
         flash_training_checks(torch, per_kernel)
         ln_adam_training_checks(torch, per_kernel, base)
+        adam_skip_checks(torch, base)
         fused_training_checks(torch, per_kernel, base)
 
         begin_phase(7, "BERT-base trained through the port")
@@ -8589,6 +9108,7 @@ def main(argv=None) -> int:
             schedule=scheduled_lr, estimate=True)
         fused_training.update(train_plain_phase(
             torch, np, base, build_fused_train, FUSED_LAUNCHES))
+        fused_training["observability"] = observe_phase(torch, np, base)
 
         begin_phase(
             9, "quantized all-reduce receive-stage kernels vs plain "
@@ -8705,6 +9225,7 @@ def main(argv=None) -> int:
     log("tp_sp " + json.dumps(tpsp_report_))
     log("pipeline " + json.dumps(pipe_report_))
     log("moe " + json.dumps(moe_report))
+    log("observability " + json.dumps(OBS_REPORT))
     log("kernel_rows " + json.dumps(per_kernel))
     print(json.dumps(kernels_line(per_kernel, {
         "served": served, "unfused": unfused, "train": trained,

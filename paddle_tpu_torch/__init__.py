@@ -10,6 +10,7 @@ points run on the GPU unless the caller asks for the CPU.
 
 from . import ops            # registers the op impls and kernel routes
 from . import fluid          # noqa: F401
+from . import observability  # noqa: F401 — tracing, telemetry, flight
 from .framework.core import CPUPlace, CUDAPlace  # noqa: F401
 
 __version__ = "0.1.0"

@@ -6,7 +6,11 @@ names and defaults: they switch the hand-written kernels (ops/cuda/) on
 and off, and with both off every op runs its plain PyTorch composition —
 the plain path a run on the card is compared against.  The checkpoint
 writer's retry count and backoff keep the JAX package's names and
-defaults too, and so does ``overlap_lowering``."""
+defaults too, and so do ``overlap_lowering`` and the flags of the
+robustness and observability layer: ``check_nan_inf`` /
+``check_nan_inf_per_op``, the flight recorder's, the guarded step's
+(``guard_*``, ``max_skipped_steps``) and the watchdog's
+(``step_deadline_s``, ``watchdog_abort``)."""
 
 from __future__ import annotations
 
@@ -60,6 +64,36 @@ _register("device_peak_flops", 0.0)
 # on one card, 48 x 25.2 MB in 1611.4 ms: 0.75 GB/s; chip_smoke.py phase
 # 20 (b))
 _register("link_gbps", 0.75)
+# scan every fetch and written persistable for NaN/Inf after a run and
+# raise naming the var (ref: platform/flags.cc:44); with the per-op flag
+# too, Executor.run names the op that produced the first one
+_register("check_nan_inf", False)
+_register("check_nan_inf_per_op", False)
+# the crash flight recorder (observability/flight.py): a ring of recent
+# steps and spans, dumped as a bundle on an uncaught executor or serving
+# exception and on a non-finite loss; bundles land in flight_dump_dir
+# (empty: a folder under the temporary directory)
+_register("flight_recorder", True)
+_register("flight_dump_dir", "")
+# the guarded training step (framework/guardrails.py): a NaN/Inf in the
+# loss or any gradient skips the step, leaving every written persistable
+# bit for bit; more than max_skipped_steps skips in a row abort with a
+# replayable bundle (0: never); guard_loss_scale scales a non-AMP loss by
+# the guard's own dynamic scale
+_register("guard_nonfinite", False)
+_register("max_skipped_steps", 10)
+_register("guard_loss_scale", False)
+_register("guard_loss_scale_init", 2.0 ** 15)
+_register("guard_incr_every_n_steps", 1000)
+_register("guard_incr_ratio", 2.0)
+_register("guard_decr_ratio", 0.5)
+_register("guard_loss_scale_max", 2.0 ** 16)
+# the hang watchdog (observability/watchdog.py): > 0 starts a thread that
+# dumps every thread's stack and a flight bundle when a step, served
+# batch or checkpoint write has run longer than this many seconds;
+# watchdog_abort then also exits the process with code 66
+_register("step_deadline_s", 0.0)
+_register("watchdog_abort", False)
 
 
 def get_flags(flags: Union[str, Iterable[str]]) -> Dict[str, Any]:

@@ -3,9 +3,10 @@
 the serving and training slices cover — Program, Executor
 (``CUDAPlace(0)`` by default), CompiledProgram and BuildStrategy, the
 BERT layers and LR schedules, ParamAttr, initializers, io,
-append_backward, the optimizers, regularizers and gradient clips, and
+append_backward, the optimizers, regularizers and gradient clips,
 ``device_guard`` (a pipeline stage annotation for
-``parallel.PipelineOptimizer``)."""
+``parallel.PipelineOptimizer``), and the ``profiler`` and ``monitor``
+modules."""
 
 from ..framework.core import (Program, Variable, Parameter,  # noqa: F401
                               default_main_program, default_startup_program,
@@ -28,6 +29,8 @@ from ..framework.executor import sync_prepared_state  # noqa: F401
 from .. import optimizer     # noqa: F401
 from .. import regularizer   # noqa: F401
 from .. import clip          # noqa: F401
+from .. import profiler      # noqa: F401
+from .. import monitor       # noqa: F401
 
 name_scope = unique_name.name_scope
 

@@ -69,6 +69,7 @@ fetch (a per-shard loss) over it."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -82,12 +83,36 @@ import torch
 from .compiler import CompiledProgram
 from .core import (CUDAPlace, Place, Program, Variable, default_main_program,
                    device_for, grad_var_name)
-from .errors import EnforceNotMet, UnimplementedError
-from ..ops.collective_ops import block_of, merge_fetch, slice_feed
+from .errors import EnforceNotMet, GuardrailViolation, UnimplementedError
+from ..flags import flag
+from ..monitor import stat
+from ..ops.collective_ops import (block_of, merge_fetch, slice_feed,
+                                  trace_collective)
 from ..ops.registry import LoweringContext, get_group, get_op
 from .pipeline_lowering import last_pipeline_report  # noqa: F401
+# the hot loop's observability hooks, bound once at import: one call a
+# prepared step bumps the run-level step id and drops the flight
+# breadcrumb; the watchdog's beacons bracket the step; a seam's crossing
+# costs one dict truthiness test while nothing is armed
+from ..observability import flight as _flight
+from ..observability.flight import step_breadcrumb as _step_breadcrumb
+from ..observability.tracing import (is_enabled as _tracing_enabled,
+                                     next_step_id as _next_step_id)
+from ..observability.watchdog import (begin as _wd_begin, end as _wd_end,
+                                      ensure_started as _wd_ensure)
+from ..profiler import RecordEvent
+from ..testing import faultline as _faultline
+from ..testing.faultline import _ARMED as _FL_ARMED
+from . import guardrails as _guardrails
 
 _RNG_VAR = "@RNG_STATE@"
+
+#: a guarded prepared step decodes the newest finished step's guard
+#: counters on the host every N steps (they are cumulative: nothing is
+#: lost between reads); ``wait()`` and ``guard_info(sync=True)`` decode at
+#: once, so the skip-budget abort lags a burst by at most N steps
+_GUARD_DECODE_EVERY = 16
+_GUARD_PENDING_CAP = 64
 
 
 class Scope:
@@ -172,8 +197,12 @@ def _scatter_outputs(op, outs, env):
 
 def _call(op, fn):
     """``fn()``, a failure raised as EnforceNotMet carrying ``op``'s type
-    and the user call site that created it."""
+    and the user call site that created it.  The ``collective_impl`` drill
+    seam is crossed first (a spec's ``match={"op": <type>}`` picks the
+    op), so its fault surfaces as a real one does."""
     try:
+        if _FL_ARMED:
+            _faultline.crossing("collective_impl", op=op.type)
         return fn()
     except EnforceNotMet:
         raise
@@ -201,22 +230,59 @@ def _run_end(ops, i, group):
     return j
 
 
+def _dispatch(op, ctx, ins):
+    """One op's impl on ``ins``; a collective inside its span while
+    tracing is on (``collective_ops.trace_collective``)."""
+    if _tracing_enabled():
+        with trace_collective(op.type, op.attrs, ins, ctx.dp):
+            return get_op(op.type)(ctx, ins, op.attrs)
+    return get_op(op.type)(ctx, ins, op.attrs)
+
+
+def _nonfinite_outputs(names_vals):
+    """The names whose value is a float tensor holding a NaN or an Inf (a
+    host read of each: a debug path)."""
+    bad = []
+    for n, v in names_vals:
+        if isinstance(v, torch.Tensor) and v.is_floating_point() and \
+                not bool(torch.isfinite(v).all()):
+            bad.append(n)
+    return bad
+
+
+def check_op_outputs(op, names_vals):
+    """``flag("check_nan_inf_per_op")``: raise naming ``op`` and its first
+    output that holds a NaN or an Inf (the JAX package's message)."""
+    bad = _nonfinite_outputs(names_vals)
+    if bad:
+        raise RuntimeError(
+            f"Operator {op.type!r} output {bad[0]!r} contains "
+            f"NaN/Inf (FLAGS_check_nan_inf per-op mode; ref: "
+            f"nan_inf_utils_detail PrintNanInf)")
+
+
 def run_ops(ops, env, ctx):
     """Interpret a straight-line op list.  A run of ops with a group impl
     (``registry.register_group``: Adam's multi-tensor update) is handed to
     it at once.  A failing op raises EnforceNotMet carrying the op type
-    and the user call site that created it."""
+    and the user call site that created it.  With ``ctx.check_each_op``
+    (``flag("check_nan_inf_per_op")``) each op's outputs are checked as
+    it finishes."""
+    per_op = getattr(ctx, "check_each_op", False)
     i = 0
     while i < len(ops):
         op = ops[i]
         if op.type in ("feed", "fetch"):
             i += 1
             continue
-        group = get_group(op.type)
+        group = get_group(op.type) if not per_op else None
         if group is None:
-            outs = _call(op, lambda: get_op(op.type)(
-                ctx, _gather_inputs(op, env), op.attrs))
+            outs = _call(op, lambda: _dispatch(op, ctx,
+                                               _gather_inputs(op, env)))
             _scatter_outputs(op, outs, env)
+            if per_op:
+                check_op_outputs(op, [(n, env[n]) for n in
+                                      op.output_names() if n in env])
             i += 1
             continue
         run = ops[i:_run_end(ops, i, group)]
@@ -241,7 +307,8 @@ def _refuse_unported(bw_op):
     port does not yet: say so rather than train differently.  Under the
     microbatched or pipelined lowering a dynamic loss scale and recompute
     checkpoints are refused (the JAX lowerings leave both unapplied: the
-    pipelined backward recomputes each stage already)."""
+    pipelined backward recomputes each stage already); the guard's own
+    loss scale there is refused by ``guardrails.active_policy``."""
     attrs = bw_op.attrs
     if _pipe_microbatches(bw_op) > 1 or _pipe_stages(bw_op) > 1:
         for key, what in (("loss_scale_var", "dynamic loss scaling"),
@@ -251,10 +318,6 @@ def _refuse_unported(bw_op):
                     f"backward: {what} under the microbatched / pipelined "
                     f"lowering is not ported (the JAX package's pipeline "
                     f"lowerings do not apply it either); drop one")
-    if attrs.get("guard_scale") or "@GUARD_SCALE@" in \
-            bw_op.block.program.global_block().vars:
-        raise UnimplementedError(
-            "backward: guardrail loss scaling is not ported yet")
 
 
 def _pipe_stages(bw_op) -> int:
@@ -499,6 +562,9 @@ def run_training_block(ops, env, ctx, bw_idx, keep=()):
         if scale_var:
             total = total * env[scale_var].reshape(()).detach().to(
                 total.dtype)
+        guard_scale = _guardrails.loss_scale(ctx)
+        if guard_scale is not None:
+            total = total * guard_scale.detach().to(total.dtype)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
     if record is not None:
         record.mark_backward_end(ctx.device)
@@ -509,6 +575,12 @@ def run_training_block(ops, env, ctx, bw_idx, keep=()):
     for n, leaf, g in zip(param_names, leaves, grads):
         env[grad_var_name(n)] = torch.zeros_like(leaf) if g is None else g
     env[grad_var_name(loss_name)] = torch.ones_like(env[loss_name])
+    gnames = [grad_var_name(n) for n in param_names]
+    if getattr(ctx, "check_each_op", False):
+        check_op_outputs(bw_op, [(g, env[g]) for g in gnames])
+    # the guard's probe over the raw gradients, before the buckets and
+    # the tail rewrite them (framework/guardrails.py)
+    _guardrails.stash_probe(env, loss_name, gnames, ctx)
     done = set()
     for op, bucket in buckets:
         # a bucket whose parameters the loss does not reach never fired:
@@ -516,6 +588,7 @@ def run_training_block(ops, env, ctx, bw_idx, keep=()):
         if bucket.pending is not None:
             _scatter_outputs(op, bucket.finish(), env)
             done.add(id(op))
+    _guardrails.unscale(env, gnames, ctx)
     tail = [op for op in tail if id(op) not in done]
     with torch.no_grad():
         if record is None:
@@ -736,7 +809,8 @@ class FetchHandle:
     def numpy(self):
         if self._host is None:
             t0 = time.perf_counter_ns()
-            self._host = self._value.detach().cpu().numpy()
+            with RecordEvent("prepared::fetch_sync"):
+                self._host = self._value.detach().cpu().numpy()
             if self._stats is not None:
                 self._stats["fetch_wait_ns"] += time.perf_counter_ns() - t0
         return self._host
@@ -808,7 +882,17 @@ class PreparedStep:
     With ``donate_state`` (training) the step owns its state: the
     optimizer ops update it in place, nothing is written to the scope per
     step, and :meth:`sync_scope` (through :func:`sync_prepared_state`)
-    hands the current tensors over by reference."""
+    hands the current tensors over by reference.  Under
+    ``flag("guard_nonfinite")`` a training program's step is guarded
+    (framework/guardrails.py): :meth:`guard_info` reads its skip counters,
+    and more than ``flag("max_skipped_steps")`` skips in a row raise
+    :class:`GuardrailViolation` with a replayable flight bundle.
+
+    Each run is one step on the run-level step axis (a flight breadcrumb,
+    the ``prepared::*`` spans) and one watchdog beacon; the first run of a
+    feed signature is the port's ``executor::compile`` (the state pulled,
+    the guard resolved); an exception crossing a run dumps a flight
+    bundle."""
 
     def __init__(self, executor: "Executor", program: Program, feed_names,
                  fetch_list, scope: Scope, feed=None,
@@ -826,6 +910,7 @@ class PreparedStep:
                              if n not in self._state_names]
         self._state: Optional[Dict[str, torch.Tensor]] = None
         self._scope_version = None
+        self._dirty = False
         self._steps: Dict[Any, int] = {}
         self._lock = threading.Lock()
         self._donate = donate_state
@@ -842,6 +927,19 @@ class PreparedStep:
         #: the last run's ``collective_ops.GradSyncRecord`` (None when it
         #: synced no gradients over a group)
         self.grad_sync = None
+        # the guarded step (framework/guardrails.py): its policy, device
+        # state, the guard tails not yet read on the host, and the newest
+        # facts read
+        self._guard = _guardrails.policy_for(self._ops)
+        self._no_gate = _guardrails.no_gate_names(self._ops)
+        self._guard_state: Optional[Dict[str, torch.Tensor]] = None
+        self._guard_pending: "collections.deque" = collections.deque()
+        self._guard_tick = 0
+        self._guard_f32 = None
+        self.guard_stats: Dict[str, Any] = {
+            "steps": 0, "skipped_total": 0, "consecutive": 0,
+            "last_skipped": False, "loss_scale": None, "step": None}
+        _wd_ensure()        # hang watchdog, when step_deadline_s is set
         if donate_state:
             if not hasattr(scope, "_prepared"):
                 scope._prepared = weakref.WeakSet()
@@ -865,47 +963,106 @@ class PreparedStep:
             state[n] = _resident(self._scope, self._program, self._dp, n,
                                  device)
         self._state = state
+        if self._guard is not None:
+            self._guard_state = _guardrails.init_state(
+                self._scope, self._guard, device)
         self._scope_version = self._scope._version
 
-    def sync_scope(self):
-        """Write the current state tensors into the scope by reference."""
-        with self._lock:
+    def _bind(self, sig):
+        """The first run of feed signature ``sig``: the port's
+        ``executor::compile`` (state pulled and the guard resolved; the
+        kernels themselves were built ahead), counted for the telemetry
+        recorder's goodput."""
+        t0 = time.perf_counter_ns()
+        with RecordEvent("executor::compile", program=self._program._uid,
+                         version=self._program._version):
             if self._state is None or \
                     self._scope_version != self._scope._version:
-                return          # the scope was written since: it is newer
-            changed = False
-            for n in self._written:
-                v = self._state.get(n)
-                if v is not None and self._scope.vars.get(n) is not v:
+                self._pull_state()
+            self._steps[sig] = 0
+        stat("executor_compile_count").add()
+        stat("executor_compile_ns").add(time.perf_counter_ns() - t0)
+        _flight.note_event("compile", program=self._program._uid,
+                           fresh=True)
+
+    def sync_scope(self):
+        """Write the current state tensors (and the guard's) into the
+        scope by reference."""
+        with self._lock:
+            if not self._dirty or self._state is None or \
+                    self._scope_version != self._scope._version:
+                return          # nothing ran, or the scope is newer
+            self._dirty = False
+            with RecordEvent("prepared::scope_sync"):
+                pairs = [(n, self._state.get(n)) for n in self._written]
+                if self._guard_state is not None:
+                    pairs += list(self._guard_state.items())
+                changed = [(n, v) for n, v in pairs if v is not None and
+                           self._scope.vars.get(n) is not v]
+                for n, v in changed:
                     self._scope.vars[n] = v
-                    changed = True
-            if changed:
-                self._scope._version += 1
-                self._scope_version = self._scope._version
+                if changed:
+                    self._scope._version += 1
+                    self._scope_version = self._scope._version
 
     def run(self, feed=None, return_numpy=False):
         """One run.  Returns ``FetchHandle``s (device-resident; sync on
         first read) unless ``return_numpy=True``."""
+        # the watchdog's beacon brackets the whole step; the stall seam
+        # is the drill's way to make exactly the hang it must catch
+        _wd_begin("prepared")
+        try:
+            if _FL_ARMED:
+                _faultline.crossing("step_stall")
+            return self._run_inner(feed, return_numpy)
+        finally:
+            _wd_end("prepared")
+
+    def _run_inner(self, feed, return_numpy):
+        sid = _step_breadcrumb("prepared", self._program._uid)
         feed = feed or {}
         missing = [n for n in self._feed_inputs if n not in feed]
         if missing:
             raise KeyError(f"prepared step needs feeds {missing}")
         device = self._exe.device
         with self._lock:
+            sig = tuple(sorted((k, tuple(np.shape(v)), str(getattr(
+                v, "dtype", ""))) for k, v in feed.items()))
+            if sig not in self._steps:
+                self._bind(sig)
             if self._state is None or \
                     self._scope_version != self._scope._version:
                 self._pull_state()
-            sig = tuple(sorted((k, tuple(np.shape(v)), str(getattr(
-                v, "dtype", ""))) for k, v in feed.items()))
-            self._steps[sig] = self._steps.get(sig, 0) + 1
+            self._steps[sig] += 1
             env = dict(self._state)
             for k, v in feed.items():
                 env[k] = to_device(slice_feed(self._dp, k, v), device)
+            gen = _generator(self._scope, self._program, device, self._dp)
+            rng_state = gen.get_state() if self._guard is not None \
+                else None
             ctx = LoweringContext(
-                _generator(self._scope, self._program, device, self._dp),
-                device, is_test=self._program._is_test,
+                gen, device, is_test=self._program._is_test,
                 donate_state=self._donate, dp=self._dp)
-            run_block(self._ops, env, ctx, self._fetch_names)
+            old = tail = None
+            if self._guard is not None:
+                ctx.guard, ctx.guard_state = self._guard, self._guard_state
+                old = {n: env.get(n) for n in self._written}
+            try:
+                with RecordEvent("prepared::dispatch"):
+                    run_block(self._ops, env, ctx, self._fetch_names)
+                    if old is not None:
+                        tail = _guardrails.guarded_state_out(
+                            env, old, self._written, ctx, self._no_gate)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:
+                # the black box before the stack unwinds: which step died,
+                # on which program, with what flags live
+                _flight.dump("prepared_step_exception", exc=e,
+                             program=self._program,
+                             extra={"step": sid,
+                                    "fetches": list(self._fetch_names)})
+                raise
             self.stats["predicate_reads"] += ctx.predicate_reads
             self.grad_sync = ctx.grad_sync
             for n in self._written:
@@ -917,11 +1074,27 @@ class PreparedStep:
                     # a served program writes no persistable; keep the
                     # scope the owner if one ever does
                     self._scope.set_var(n, env[n])
+            if self._guard is not None and not self._donate:
+                for n, v in self._guard_state.items():
+                    self._scope.set_var(n, v)
+            self._dirty = self._donate
             self.stats["steps"] += 1
         event = None
         if device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
+        if self._guard is not None:
+            self._guard_pending.append(
+                (sid, tail, feed, rng_state, event))
+            self._guard_tick += 1
+            if self._guard_tick >= _GUARD_DECODE_EVERY or \
+                    len(self._guard_pending) > _GUARD_PENDING_CAP:
+                self._guard_tick = 0
+                self._guard_poll(block=False)
+        if flag("check_nan_inf"):
+            Executor._check_nan_inf(
+                self._fetch_names, [env[n] for n in self._fetch_names],
+                {n: env[n] for n in self._written})
         handles = [FetchHandle(merge_fetch(self._dp, env[n],
                                            n in self._replicated,
                                            _var(self._program, n)), n,
@@ -930,6 +1103,88 @@ class PreparedStep:
         if return_numpy:
             return [h.numpy() for h in handles]
         return handles
+
+    # -- guardrails -------------------------------------------------------
+    def _guard_poll(self, block=False):
+        """Decode the newest finished step's guard tail into
+        ``guard_stats`` and hold the consecutive-skip budget.  Older
+        finished entries are dropped undecoded (the counters are
+        cumulative); ``block=True`` takes the newest dispatched one,
+        waiting for it.  Raises :class:`GuardrailViolation` (after a
+        flight bundle with replayable sidecars) when the budget is
+        spent."""
+        pend = self._guard_pending
+        if not pend:
+            return
+        newest = None
+        if block:
+            newest = pend[-1]
+            pend.clear()
+        else:
+            while pend:
+                ev = pend[0][4]
+                if ev is not None and not ev.query():
+                    break
+                newest = pend.popleft()
+            if newest is None:
+                return
+        sid, (g_i32, g_f32), feed, rng_state, _ = newest
+        i = g_i32.cpu().numpy().reshape(4)
+        gs = self.guard_stats
+        gs["steps"] = int(i[3])
+        gs["last_skipped"] = bool(int(i[0]))
+        gs["consecutive"] = int(i[1])
+        gs["skipped_total"] = int(i[2])
+        gs["step"] = sid
+        from ..observability import metrics as _obs_metrics
+        _obs_metrics.gauge("guardrail::skipped_total").set(int(i[2]))
+        _obs_metrics.gauge("guardrail::consecutive_skipped").set(int(i[1]))
+        # the loss scale and probe are read only when guard_info asks
+        self._guard_f32 = g_f32
+        budget = self._guard.max_skipped
+        if budget and int(i[1]) > budget:
+            f = g_f32.cpu().numpy().reshape(2)
+            _guardrails.dump_abort_bundle(
+                "guardrail_skip_budget_exhausted",
+                program=self._program, step_id=sid,
+                consecutive=int(i[1]), total=int(i[2]),
+                probe=np.float32(f[0]), scale=float(f[1]),
+                rng_key=rng_state, feed=feed, step_counter=int(i[3]) - 1)
+            raise GuardrailViolation(
+                f"non-finite step defense: {int(i[1])} consecutive "
+                f"skipped steps exceed flag('max_skipped_steps')="
+                f"{budget} at step {sid} — flight bundle dumped "
+                f"(framework/guardrails.py)")
+
+    def guard_info(self, sync=False) -> Dict[str, Any]:
+        """The newest guard facts read (skipped / consecutive / total /
+        loss scale): the telemetry recorder's per-step source.
+        ``sync=True`` waits for every dispatched step's verdict."""
+        self._guard_poll(block=sync)
+        f32 = self._guard_f32
+        if f32 is not None:
+            f = f32.cpu().numpy().reshape(2)
+            self.guard_stats["loss_scale"] = float(f[1])
+            self._guard_f32 = None
+            from ..observability import metrics as _obs_metrics
+            _obs_metrics.gauge("guardrail::loss_scale").set(float(f[1]))
+        return dict(self.guard_stats)
+
+    def wait(self):
+        """Wait until every dispatched step has finished on the device,
+        and read the guard's verdicts."""
+        device = self._exe.device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self._guard_poll(block=True)
+        return self
+
+    def close(self):
+        """Hand the state to the scope and stop tracking this step."""
+        self.sync_scope()
+        prepared = getattr(self._scope, "_prepared", None)
+        if prepared is not None:
+            prepared.discard(self)
 
 
 class Executor:
@@ -940,6 +1195,7 @@ class Executor:
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = device_for(self.place)
+        self._bound = set()
 
     def run(self, program: Optional[Program] = None, feed=None,
             fetch_list=None, scope: Optional[Scope] = None,
@@ -948,19 +1204,42 @@ class Executor:
         the JAX package's keyword: there it prunes a program that drains
         py_readers to its fetch targets, and changes nothing for any
         other program.  The port has no py_readers yet, so it changes
-        nothing here."""
+        nothing here.
+
+        A run is one step on the step axis: ``executor::compile`` spans
+        its resolution (the pass variant, the budget gate, the guard;
+        counted as a compile the first time a program version is seen) and
+        ``executor::run`` its ops.  Under ``flag("guard_nonfinite")`` a
+        training program is guarded (its counters in the scope under
+        ``guardrails.STATE_VARS``); ``flag("check_nan_inf")`` scans the
+        fetches and the state after the run, and with
+        ``check_nan_inf_per_op`` every op's outputs as it finishes."""
         program = program or default_main_program()
         scope = scope or global_scope()
         sync_prepared_state(scope)
         feed = feed or {}
         fetch_names = _fetch_names(fetch_list)
-        dp = None
-        compiled = None
-        if isinstance(program, CompiledProgram):
-            compiled = program
-            dp = program._dp
-            program = program._variant_for(fetch_names)
-        _budget_gate(program, compiled, feed, fetch_names, False)
+        sid = _next_step_id()
+        _flight.note_step(sid, "run", getattr(program, "_uid", None))
+        t0 = time.perf_counter_ns()
+        with RecordEvent("executor::compile",
+                         program=getattr(program, "_uid", None),
+                         version=getattr(program, "_version", None)):
+            dp = None
+            compiled = None
+            if isinstance(program, CompiledProgram):
+                compiled = program
+                dp = program._dp
+                program = program._variant_for(fetch_names)
+            _budget_gate(program, compiled, feed, fetch_names, False)
+            ops = program.global_block().ops
+            guard = _guardrails.policy_for(ops)
+        key = (program._uid, program._version)
+        if key not in self._bound:
+            self._bound.add(key)
+            stat("executor_compile_count").add()
+            stat("executor_compile_ns").add(time.perf_counter_ns() - t0)
+            _flight.note_event("compile", program=program._uid, fresh=True)
         env: Dict[str, Any] = {}
         for n in external_inputs(program):
             if n in feed:
@@ -971,23 +1250,99 @@ class Executor:
                     f"var {n!r} is neither fed nor initialised in scope — "
                     f"feed it, or run the startup program first")
             env[n] = _resident(scope, program, dp, n, self.device)
-        ctx = LoweringContext(_generator(scope, program, self.device, dp),
-                              self.device, is_test=program._is_test, dp=dp)
-        ops = program.global_block().ops
-        run_block(ops, env, ctx, fetch_names)
-        for op in ops:
-            for n in op.output_names():
-                if _is_persistable(program, n) and n in env:
-                    scope.set_var(n, block_of(dp, _var(program, n), env[n]))
+        gen = _generator(scope, program, self.device, dp)
+        rng_state = gen.get_state() if guard is not None else None
+        ctx = LoweringContext(gen, self.device, is_test=program._is_test,
+                              dp=dp)
+        ctx.check_each_op = bool(flag("check_nan_inf") and
+                                 flag("check_nan_inf_per_op"))
+        written = [n for n in dict.fromkeys(
+            n for op in ops for n in op.output_names())
+            if _is_persistable(program, n)]
+        old = tail = None
+        if guard is not None:
+            ctx.guard = guard
+            ctx.guard_state = _guardrails.init_state(scope, guard,
+                                                     self.device)
+            old = {n: env.get(n) for n in written}
+        with RecordEvent("executor::run"):
+            try:
+                run_block(ops, env, ctx, fetch_names)
+                if old is not None:
+                    tail = _guardrails.guarded_state_out(
+                        env, old, written, ctx,
+                        _guardrails.no_gate_names(ops))
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:
+                _flight.dump("executor_run_exception", exc=e,
+                             program=program,
+                             extra={"step": sid,
+                                    "fetches": list(fetch_names)})
+                raise
+        stat("executor_run_count").add()
+        for n in written:
+            if n in env:
+                scope.set_var(n, block_of(dp, _var(program, n), env[n]))
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} were not computed")
+        if guard is not None:
+            self._guard_after_run(program, ctx, tail, scope, sid, feed,
+                                  rng_state)
+        if flag("check_nan_inf"):
+            state = [n for n in external_inputs(program)
+                     if _is_persistable(program, n)]
+            state += [n for n in written if n not in state]
+            self._check_nan_inf(fetch_names,
+                                [env[n] for n in fetch_names],
+                                {n: env[n] for n in state if n in env})
         replicated = _replicated_names(program, ops) if dp else ()
         outs = [merge_fetch(dp, env[n], n in replicated, _var(program, n))
                 for n in fetch_names]
         if return_numpy:
             return [o.detach().cpu().numpy() for o in outs]
         return outs
+
+    @staticmethod
+    def _guard_after_run(program, ctx, tail, scope, sid, feed, rng_state):
+        """A guarded ``Executor.run``'s tail: the guard state into the
+        scope, its counters read on the host (the slow path: one small
+        read a run), the skip budget held."""
+        for n, v in ctx.guard_state.items():
+            scope.set_var(n, v)
+        g_i32, g_f32 = tail
+        gd = _guardrails.decode_tail(g_i32.cpu().numpy(),
+                                     g_f32.cpu().numpy())
+        budget = ctx.guard.max_skipped
+        if budget and gd["consecutive"] > budget:
+            _guardrails.dump_abort_bundle(
+                "guardrail_skip_budget_exhausted", program=program,
+                step_id=sid, consecutive=gd["consecutive"],
+                total=gd["skipped_total"], probe=gd["probe"],
+                scale=gd["loss_scale"], rng_key=rng_state, feed=feed,
+                step_counter=gd["step_counter"] - 1)
+            raise GuardrailViolation(
+                f"non-finite step defense: {gd['consecutive']} "
+                f"consecutive skipped steps exceed "
+                f"flag('max_skipped_steps')={budget} — flight bundle "
+                f"dumped (framework/guardrails.py)")
+
+    @staticmethod
+    def _check_nan_inf(fetch_names, fetches, state_out):
+        """``flag("check_nan_inf")`` (ref: FLAGS_check_nan_inf): every
+        fetch and state tensor holding a NaN or an Inf, named in one
+        RuntimeError after a flight bundle (the guard's own state is left
+        out: its probe is meant to carry the NaN)."""
+        bad = _nonfinite_outputs(
+            [(n, v) for n, v in list(zip(fetch_names, fetches)) +
+             list(state_out.items()) if not _guardrails.is_guard_var(n)])
+        if bad:
+            _flight.dump("non_finite_output",
+                         extra={"bad_vars": list(bad)})
+            raise RuntimeError(
+                f"Operator output contains NaN/Inf (FLAGS_check_nan_inf): "
+                f"{bad} (ref: nan_inf_utils_detail PrintNanInf)")
 
     def prepare(self, program: Optional[Program] = None, feed_names=None,
                 fetch_list=None, scope: Optional[Scope] = None, feed=None,

@@ -160,8 +160,8 @@ _ENV_CACHE: "OrderedDict[tuple, Dict[str, Any]]" = OrderedDict()
 _ENV_CACHE_CAP = 32
 
 
-def shape_env(program: Program, feed_sigs: Dict[str, Any]
-              ) -> Dict[str, Any]:
+def shape_env(program: Program, feed_sigs: Dict[str, Any],
+              extra_ops=frozenset()) -> Dict[str, Any]:
     """``{name: VarSig}`` of every value the global block produces, as
     the JAX package's static shapes see it: each op run on ``meta``
     tensors of its inputs' signatures (no kernel, no launch, nothing
@@ -171,17 +171,20 @@ def shape_env(program: Program, feed_sigs: Dict[str, Any]
     merged into the declared signature as the JAX package merges its
     inferred one.  An op the JAX package infers no shape for (not in
     ``pipe.SHAPE_INFERRED_OPS``), or one that cannot run on meta tensors,
-    leaves its outputs at their declared signatures.  Cached per
-    (program, version, feeds)."""
+    leaves its outputs at their declared signatures; ``extra_ops`` are
+    inferred besides (``pipe.FUSED_SHAPE_OPS``: the fusion passes' ops,
+    which the JAX package leaves unshaped).  Cached per (program,
+    version, feeds, extra ops)."""
     block = program.global_block()
     key = (program._uid, program._version, len(block.ops),
            len(block.vars),
-           tuple(sorted((n, s.shape, s.dtype) for n, s in feed_sigs.items())))
+           tuple(sorted((n, s.shape, s.dtype) for n, s in feed_sigs.items())),
+           tuple(sorted(extra_ops)))
     hit = _ENV_CACHE.get(key)
     if hit is not None:
         _ENV_CACHE.move_to_end(key)
         return hit
-    env = _shape_env(program, feed_sigs)
+    env = _shape_env(program, feed_sigs, extra_ops)
     _ENV_CACHE[key] = env
     if len(_ENV_CACHE) > _ENV_CACHE_CAP:
         _ENV_CACHE.popitem(last=False)
@@ -235,7 +238,8 @@ def _run_meta(op, sigs, probe: int):
     return out
 
 
-def _shape_env(program: Program, feed_sigs: Dict[str, Any]):
+def _shape_env(program: Program, feed_sigs: Dict[str, Any],
+               extra_ops=frozenset()):
     from ..ops.op_specs import VarSig
     from .pipe import INFERRED_SLOTS, SHAPE_INFERRED_OPS
 
@@ -257,7 +261,7 @@ def _shape_env(program: Program, feed_sigs: Dict[str, Any]):
                         env[grad_var_name(pname)] = psig
             continue
         outs = None
-        if op.type in SHAPE_INFERRED_OPS:
+        if op.type in SHAPE_INFERRED_OPS or op.type in extra_ops:
             sigs = {n: sig_of(n) for n in op_reads_recursive(op)}
             if all(s is not None and s.shape is not None
                    for s in sigs.values()):

@@ -99,8 +99,16 @@ def _split_env(env, param_names, feed_names):
 
 
 def _run_tail(ops, bw_idx, env, ctx, keep, what):
+    """The ops after the backward, once the gradients are in ``env``; the
+    guard's probe (framework/guardrails.py) is taken first, over this
+    rank's loss and gradients, and summed over every rank of the run."""
+    from . import guardrails
     from .executor import run_ops
     ctx.grad_sync = None
+    attrs = ops[bw_idx].attrs
+    guardrails.stash_probe(
+        env, attrs["loss_name"],
+        [grad_var_name(n) for n in attrs["param_names"]], ctx)
     with torch.no_grad():
         run_ops(ops[bw_idx + 1:], env, ctx)
     _check_pipe_fetches(env, keep, what)

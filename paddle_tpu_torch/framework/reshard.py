@@ -26,10 +26,9 @@ plan (``reshard-*`` diagnostics) before anything moves;
 to the plan's accounting.
 
 :meth:`ReshardPlan.price` prices a restore through
-``memory_analysis.exposed_comm_model``.  :func:`arm_fault` (the
-``reshard_execute`` fault seam of ``testing/faultline.py``) waits for its
-slice and raises :class:`UnimplementedError` naming it;
-:func:`execute_reshard` crosses no seam."""
+``memory_analysis.exposed_comm_model``.  :func:`execute_reshard`
+crosses the ``reshard_execute`` drill seam of ``testing/faultline.py``
+before each var it moves; :func:`arm_fault` arms it."""
 
 from __future__ import annotations
 
@@ -38,7 +37,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
-from .errors import InvalidArgumentError, UnimplementedError
+from .errors import InvalidArgumentError
 from .mesh_layout import MeshLayout, ShardSpec, _flat_axes
 
 RESHARD_FORMAT_VERSION = 1
@@ -742,7 +741,9 @@ def execute_reshard(plan: ReshardPlan, arrays: Dict[str, np.ndarray],
 
     Returns ``(dst arrays, stats)`` where stats carries the
     actually-moved wire bytes per var — equal to the plan's static
-    accounting by construction, asserted when ``strict``."""
+    accounting by construction, asserted when ``strict``.  The
+    ``reshard_execute`` drill seam is crossed before each var moved."""
+    from ..testing import faultline as _faultline
     out: Dict[str, np.ndarray] = {}
     stats = {"wire_bytes": 0, "vars_moved": 0,
              "by_var": {}}
@@ -751,6 +752,8 @@ def execute_reshard(plan: ReshardPlan, arrays: Dict[str, np.ndarray],
         if tr is None or tr.identity:
             out[name] = arr
             continue
+        # drill seam: a fault striking mid-restore, between transfers
+        _faultline.crossing("reshard_execute", var=name)
         dst, moved = _execute_var(tr, np.asarray(arr))
         if tuple(dst.shape) != tuple(tr.dst_shape):
             raise InvalidArgumentError(
@@ -770,13 +773,16 @@ def execute_reshard(plan: ReshardPlan, arrays: Dict[str, np.ndarray],
     return out, stats
 
 
-def arm_fault(*args, **kwargs):
-    """Not ported: the JAX package's ``reshard_execute`` seam, where a
-    drill strikes a restore between two per-var transfers, is armed
-    through ``testing/faultline.py``."""
-    raise UnimplementedError(
-        "reshard fault drills: the reshard_execute seam needs "
-        "testing/faultline.py, which is not ported yet")
+def arm_fault(action: str = "raise", at: int = 0, times=1, match=None,
+              **params):
+    """Arm the ``reshard_execute`` drill seam (``testing/faultline.py``):
+    :func:`execute_reshard` crosses it before each var it moves, so a
+    restore can be struck between two per-var transfers (``match={"var":
+    name}`` picks one).  Returns the armed spec; ``faultline.disarm``
+    clears it."""
+    from ..testing import faultline
+    return faultline.arm("reshard_execute", action=action, at=at,
+                         times=times, match=match, **params)
 
 
 __all__ = ["ReshardStep", "VarTransfer", "ReshardPlan", "plan_reshard",

@@ -36,9 +36,19 @@ group each rank reads only the rows of the blocks it keeps
 each expert block once and restores onto another expert layout through
 the same dim-0 plan.  A restore that changes a tensor, sequence or pipe
 layout, and a layout the port does not run, raise
-``UnimplementedError``.  The JAX loader's
-flight-recorder and ``monitor.stat`` hooks wait for the port's
-observability layer."""
+``UnimplementedError``.
+
+Observability, as in the JAX package: a transient write failure or a
+readback mismatch is retried and counted (``checkpoint::retry{stage}``,
+``monitor`` ``checkpoint_retry_total``, a flight breadcrumb); the
+``checkpoint_write`` drill seam sits between a file's write and its
+readback; a restore that reshards runs inside a ``checkpoint::reshard``
+span; a skipped corrupt checkpoint and a failed restore leave a
+breadcrumb and a flight bundle; the AsyncCheckpointer spans its snapshot
+(``checkpoint::snapshot``, counted in ``checkpoint_snapshot_ns`` for the
+telemetry recorder's goodput) and its background write
+(``checkpoint::write``, pinned to the snapshot's step id) and holds the
+watchdog's ``checkpoint`` beacon while it writes."""
 
 from __future__ import annotations
 
@@ -63,6 +73,13 @@ from .framework.analysis import verify_reshard
 from .framework.mesh_layout import (MeshLayout, ProcessMesh, ShardSpec,
                                     _flat_axes)
 from .framework.reshard import execute_reshard, flat_shard_meta, plan_reshard
+from .monitor import stat
+from .observability import flight as _flight
+from .observability import metrics as _metrics
+from .observability import watchdog as _watchdog
+from .observability.tracing import current_step_id, step_scope
+from .profiler import RecordEvent
+from .testing import faultline as _faultline
 from .ops.collective_ops import (MeshGroups, _sharding, block_of,
                                  sharded_group, whole_of)
 
@@ -133,17 +150,23 @@ def _retry_io(what: str, fn):
     """Run a checkpoint file operation, retrying a transient OSError with
     bounded exponential backoff (``flag("checkpoint_retries")`` attempts
     after the first, ``flag("checkpoint_retry_backoff_s")`` doubling up
-    to 2 s).  Any other error propagates at once."""
+    to 2 s; each retry counted on ``checkpoint::retry{stage}`` and
+    ``checkpoint_retry_total``, with a flight breadcrumb).  Any other
+    error propagates at once."""
     retries = int(flag("checkpoint_retries") or 0)
     base = float(flag("checkpoint_retry_backoff_s") or 0.05)
     attempt = 0
     while True:
         try:
             return fn()
-        except OSError:
+        except OSError as e:
             attempt += 1
             if attempt > retries:
                 raise
+            _metrics.counter("checkpoint::retry", stage=what).add()
+            stat("checkpoint_retry_total").add()
+            _flight.note_event("checkpoint_retry", stage=what,
+                               attempt=attempt, error=repr(e))
             time.sleep(min(base * (2 ** (attempt - 1)), 2.0))
 
 
@@ -159,6 +182,8 @@ def _verified_write(what: str, path: str, data):
         expect = "sha256:" + hashlib.sha256(payload).hexdigest()
         with open(path, "wb") as f:
             f.write(payload)
+        # drill seam: corrupt or fail the file between write and readback
+        _faultline.crossing("checkpoint_write", stage=what, path=path)
         got = _sha256(path)
         if got != expect:
             raise ChecksumMismatchError(
@@ -725,7 +750,15 @@ def _maybe_reshard(arrays: Dict[str, np.ndarray], manifest: Optional[Dict],
             f"{_layout_name(src_layout)} onto program layout "
             f"{_layout_name(dst_layout)}:\n" + res.report())
     t0 = time.perf_counter_ns()
-    out, stats = execute_reshard(plan, arrays)
+    with RecordEvent("checkpoint::reshard", src=_layout_name(src_layout),
+                     dst=_layout_name(dst_layout)):
+        out, stats = execute_reshard(plan, arrays)
+    stat("checkpoint_reshards").add()
+    stat("checkpoint_reshard_ns").add(time.perf_counter_ns() - t0)
+    _flight.note_event("checkpoint_reshard", src=_layout_name(src_layout),
+                       dst=_layout_name(dst_layout),
+                       wire_bytes=stats["wire_bytes"],
+                       vars_moved=stats["vars_moved"])
     info = {"src_layout": src_layout.sizes if src_layout else None,
             "dst_layout": dst_layout.sizes if dst_layout else None,
             "wire_bytes": int(stats["wire_bytes"]),
@@ -805,12 +838,19 @@ def load_checkpoint(executor, path, trainer_id=0,
             chosen = d
             break
         skipped.append({"dir": d, "reason": reason})
+        stat("checkpoint_restore_skipped").add()
+        _flight.note_event("checkpoint_skipped", path=d, reason=reason)
     if chosen is None:
         raise InvalidArgumentError(
             f"load_checkpoint: no valid checkpoint under {path!r} — "
             f"skipped {[(s['dir'], s['reason']) for s in skipped]}")
-    st = _restore_dir(chosen, program, scope, dst_layout=dst_layout,
-                      reshard=reshard, device=executor.device)
+    try:
+        st = _restore_dir(chosen, program, scope, dst_layout=dst_layout,
+                          reshard=reshard, device=executor.device)
+    except BaseException as e:
+        _flight.dump("checkpoint_restore_failed", exc=e, program=program,
+                     extra={"checkpoint": chosen, "skipped": skipped})
+        raise
     st.skipped_checkpoints = skipped
     st.restored_from = chosen
     return st
@@ -1274,13 +1314,13 @@ class AsyncCheckpointer:
     directory, and rank 0's publishes it (TrainStatus, manifest, rename)
     once every rank's files are down; ``wait()`` then holds every rank
     until it is published.  Any other program writes the whole-array
-    layout of :func:`save_checkpoint` from the calling rank.  The JAX
-    package also starts its hang watchdog here
-    (``observability/watchdog``); the port's waits for the observability
-    layer."""
+    layout of :func:`save_checkpoint` from the calling rank.  The hang
+    watchdog starts here when ``flag("step_deadline_s")`` is set, and
+    watches each background write (its ``checkpoint`` beacon)."""
 
     def __init__(self, max_checkpoints: int = 3):
         import atexit
+        _watchdog.ensure_started()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._max = max_checkpoints
@@ -1335,22 +1375,33 @@ class AsyncCheckpointer:
         self.wait()
         main_program = main_program or default_main_program()
         scope = scope or global_scope()
-        sync_prepared_state(scope)
         dp = _group(main_program)
-        # the snapshot, on this thread: the values at this step
-        if dp is None:
-            snap = {}
-            for name in _persistable_names(main_program):
-                v = scope.find_var(name)
-                if v is not None:
-                    a = _to_numpy(v)
-                    snap[name] = np.array(a) if not isinstance(
-                        v, torch.Tensor) or v.device.type == "cpu" else a
-            shard_bytes = None
-        else:
-            arrays, vars_ = _rank_blocks(main_program, scope, dp, copy=True)
-            shard_bytes = _shard_payload(main_program, vars_)
-        states = _generator_states(scope)
+        # the snapshot, on this thread: the values at this step — the
+        # training thread's stall a checkpoint costs, spanned and counted
+        t0 = time.perf_counter_ns()
+        with RecordEvent("checkpoint::snapshot",
+                         epoch=train_status.epoch_no):
+            sync_prepared_state(scope)
+            if dp is None:
+                snap = {}
+                for name in _persistable_names(main_program):
+                    v = scope.find_var(name)
+                    if v is not None:
+                        a = _to_numpy(v)
+                        snap[name] = np.array(a) if not isinstance(
+                            v, torch.Tensor) or v.device.type == "cpu" \
+                            else a
+                shard_bytes = None
+            else:
+                arrays, vars_ = _rank_blocks(main_program, scope, dp,
+                                             copy=True)
+                shard_bytes = _shard_payload(main_program, vars_)
+            states = _generator_states(scope)
+        stat("checkpoint_snapshot_ns").add(time.perf_counter_ns() - t0)
+        stat("checkpoint_saves").add()
+        # the background write keeps the id of the step it snapshotted
+        snap_step_id = current_step_id()
+        _flight.note_event("checkpoint", epoch=train_status.epoch_no)
         status = json.dumps(train_status.to_dict()).encode()
         manifest = _manifest_dict(*_layout_view(main_program))
         ckpt_id = train_status.epoch_no
@@ -1409,6 +1460,16 @@ class AsyncCheckpointer:
             _cleanup_stale(path, keep)
 
         def write():
+            _watchdog.begin("checkpoint")
+            try:
+                with step_scope(snap_step_id), \
+                        RecordEvent("checkpoint::write",
+                                    epoch=train_status.epoch_no):
+                    write_and_publish()
+            finally:
+                _watchdog.end("checkpoint")
+
+        def write_and_publish():
             try:
                 write_files()
             except BaseException as e:   # noqa: BLE001 — raised on wait

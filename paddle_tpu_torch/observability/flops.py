@@ -11,7 +11,9 @@ dW), so a program with a ``backward`` op prices at 3x its forward.
 :func:`device_peak_flops` reads the card's dense peak by dtype from
 :data:`DEVICE_PEAK_FLOPS`; ``flag("device_peak_flops")`` (> 0) overrides
 it, and a run without a CUDA device takes the flag or
-:data:`CPU_FALLBACK_FLOPS`."""
+:data:`CPU_FALLBACK_FLOPS`.  :func:`matmul_dtype` names the dtype a
+program's GEMMs run in (its peak is the MFU denominator the telemetry
+recorder divides by) and :func:`device_info` the device and that peak."""
 
 from __future__ import annotations
 
@@ -61,21 +63,69 @@ def device_peak_flops(device=None, dtype: str = "bfloat16") -> float:
         f"set flag device_peak_flops")
 
 
+def matmul_dtype(program) -> str:
+    """The operand type of ``program``'s GEMM-class ops (those
+    :func:`estimate_step_flops` prices): ``"bfloat16"`` or ``"float16"``
+    when one reads a tensor of that type, else ``"tf32"`` when PyTorch
+    lets float32 matmuls round to TF32
+    (``torch.backends.cuda.matmul.allow_tf32``), else ``"float32"``."""
+    import torch
+    from ..ops.registry import OP_SPECS
+    block = program.global_block()
+    seen = set()
+    for op in block.ops:
+        spec = OP_SPECS.get(op.type)
+        if getattr(spec, "flops", None) is None or \
+                op.type in NON_GEMM_FLOPS_OPS:
+            continue
+        for n in op.input_names():
+            v = block._find_var_recursive(n)
+            if v is not None:
+                seen.add(str(v.dtype))
+    for half in ("bfloat16", "float16"):
+        if half in seen:
+            return half
+    return "tf32" if torch.backends.cuda.matmul.allow_tf32 else "float32"
+
+
+def device_info(device=None, dtype: str = "bfloat16") -> Dict[str, Any]:
+    """``{"platform", "device_kind", "peak_flops", "peak_dtype"}`` of
+    ``device`` (default: CUDA device 0 when present, else the CPU), the
+    peak for ``dtype`` operands (:func:`device_peak_flops`)."""
+    import torch
+    if device is None:
+        device = 0 if torch.cuda.is_available() else "cpu"
+    dev = torch.device("cuda", device) if isinstance(device, int) \
+        else torch.device(device)
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return {"platform": "gpu" if dev.type == "cuda" else "cpu",
+            "device_kind": kind,
+            "peak_flops": device_peak_flops(dev, dtype),
+            "peak_dtype": str(dtype)}
+
+
 def estimate_step_flops(program, feed_shapes=None,
                         fetch_names: Iterable[str] = (),
-                        unknown_dim: int = 1) -> Dict[str, Any]:
+                        unknown_dim: int = 1,
+                        infer_fused: bool = False) -> Dict[str, Any]:
     """Static GEMM-class FLOPs for one step of ``program``:
     ``{"fwd_flops", "total_flops", "fwd_flops_all", "total_flops_all",
     "has_backward", "by_op", "unpriced"}`` as the JAX package returns
     them (``total_flops`` = 3 x ``fwd_flops`` with a backward;
-    :data:`NON_GEMM_FLOPS_OPS` only in the ``*_all`` totals)."""
+    :data:`NON_GEMM_FLOPS_OPS` only in the ``*_all`` totals).  With
+    ``infer_fused`` the fusion passes' ops (``pipe.FUSED_SHAPE_OPS``) pass
+    their shapes on: the JAX package's shapes stop at them, which leaves
+    a fused program's encoder unpriced (its telemetry reads no MFU
+    there); the telemetry recorder asks for them."""
     from ..ops.registry import OP_SPECS
     from ..framework.memory_analysis import _feed_sigs, _sig_lookup, \
         shape_env
 
+    from ..framework.pipe import FUSED_SHAPE_OPS
     block = program.global_block()
     feed_sigs = _feed_sigs(program, feed_shapes, unknown_dim)
-    sig_of = _sig_lookup(block, shape_env(program, feed_sigs))
+    sig_of = _sig_lookup(block, shape_env(
+        program, feed_sigs, FUSED_SHAPE_OPS if infer_fused else frozenset()))
 
     fwd = 0.0
     fwd_non_gemm = 0.0
@@ -116,5 +166,6 @@ def estimate_step_flops(program, feed_shapes=None,
             "unpriced": sorted(set(unpriced))}
 
 
-__all__ = ["device_peak_flops", "estimate_step_flops", "DEVICE_PEAK_FLOPS",
+__all__ = ["device_peak_flops", "device_info", "matmul_dtype",
+           "estimate_step_flops", "DEVICE_PEAK_FLOPS",
            "CPU_FALLBACK_FLOPS", "NON_GEMM_FLOPS_OPS"]

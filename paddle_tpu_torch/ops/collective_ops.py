@@ -79,6 +79,8 @@ sync sends nothing (the JAX package's ``lax.cond``)."""
 
 from __future__ import annotations
 
+import contextlib
+
 import itertools
 import math
 import time
@@ -786,6 +788,11 @@ class HookedBucket:
         record.hooked.append(self.index)
 
     def fire(self, cots):
+        with trace_collective(self.op_type, self.attrs, {"X": list(cots)},
+                              self.worker.group, path="sync_worker"):
+            self._fire(cots)
+
+    def _fire(self, cots):
         self.record.fired.append(self.index)
         outs, flat = _bucket_flat(list(cots), self.attrs)
         self.shapes = [a.shape for a in outs]
@@ -840,6 +847,73 @@ class HookedBucket:
 
 def _axes_tuple(axis):
     return axis if isinstance(axis, tuple) else (axis,)
+
+
+# ---------------------------------------------------------------------------
+# collective spans (observability/tracing.py)
+# ---------------------------------------------------------------------------
+
+
+def _axis_sizes(dp) -> dict:
+    if dp is None:
+        return {}
+    out = {}
+    for a in dp.axis_names:
+        if isinstance(a, tuple):
+            continue
+        try:
+            out[str(a)] = int(dp.over(a).world)
+        except ValueError:
+            pass
+    return out
+
+
+def trace_collective(op_type, attrs, ins, dp, path=None):
+    """A ``collective::<kind>`` span over one collective's dispatch when
+    tracing is on, else a null context: kind, axis, the backend (``gloo``
+    or ``nccl``; ``path`` ``"sync_worker"`` for an overlapped bucket fired
+    from the backward), a ready-order bucket's ``bucket_index`` /
+    ``ready_rank`` / ``overlap`` and, where the op spec's ``wire``
+    channel prices it, the logical and wire bytes (also counted on the
+    ``collective_traced_wire_bytes{kind}`` counter).  The JAX package
+    opens it at trace time, once a compile; the port runs eagerly, so it
+    opens once a run.  Host time: the device time of the collective
+    lands in whatever waits for it."""
+    from ..observability import tracing
+    from .registry import OP_SPECS
+    spec = OP_SPECS.get(op_type)
+    if not tracing.is_enabled() or spec is None or not spec.collective:
+        return contextlib.nullcontext()
+    from ..observability import metrics
+    from .op_specs import VarSig
+    a = {"kind": op_type,
+         "axis": str(attrs.get("_axis_name") or attrs.get("ring_id", 0))}
+    if dp is not None:
+        a["backend"] = dp.backend
+    if path is not None:
+        a["path"] = path
+    if "_bucket_index" in attrs:
+        a["bucket_index"] = int(attrs["_bucket_index"])
+    if "_ready_rank" in attrs:
+        a["ready_rank"] = int(attrs["_ready_rank"])
+    if "_overlap" in attrs:
+        a["overlap"] = bool(attrs["_overlap"])
+    wire_fn = getattr(spec, "wire", None)
+    if wire_fn is not None:
+        try:
+            sigs = {slot: [VarSig(tuple(v.shape), str(v.dtype).replace(
+                "torch.", "")) if hasattr(v, "shape") else None
+                for v in vals] for slot, vals in ins.items()}
+            priced = wire_fn(sigs, attrs, _axis_sizes(dp))
+        except Exception:       # pricing must not break tracing
+            priced = None
+        if priced is not None:
+            logical, wire = priced
+            a["logical_bytes"] = int(logical)
+            a["wire_bytes"] = int(wire)
+            metrics.counter("collective_traced_wire_bytes",
+                            kind=op_type).add(int(wire))
+    return tracing.Span(f"collective::{op_type}", a)
 
 
 def _scatter_groups(ctx, axis):

@@ -33,9 +33,12 @@ def _run_block(block, env, ctx):
 
 def _sub_ctx(ctx):
     """The branch's context: the run's generator (one random stream),
-    device, test mode, ``donate_state`` and process group."""
-    return LoweringContext(ctx.generator, ctx.device, ctx.is_test,
-                           ctx.donate_state, ctx.dp)
+    device, test mode, ``donate_state``, process group and guard
+    verdict."""
+    sub = LoweringContext(ctx.generator, ctx.device, ctx.is_test,
+                          ctx.donate_state, ctx.dp)
+    sub.guard_skip = ctx.guard_skip
+    return sub
 
 
 @register("conditional_block")

@@ -27,6 +27,15 @@
 // are overwritten in place; lr and the powers are read from device memory,
 // so nothing waits for the host.
 //
+// The guarded training step (paddle_tpu_torch/framework/guardrails.py)
+// passes its verdict as an optional device int `skip`: when it holds a
+// nonzero value every block returns before its first store, so p, m, v
+// and the beta powers stay bit for bit (the JAX package selects the old
+// state after the update; here the update is in place, and a copy of the
+// whole state each step would double it).  Every block reads the same
+// word, so either all return or none does, and the powers' ticket is
+// left untouched.
+//
 // Operand dtypes, as the TPU kernel takes them: p float32, bfloat16 or
 // float16; m and v each float32 or p's dtype; g m's dtype (the op casts the
 // gradient first, as the JAX op does).  The launch is templated per dtype
@@ -105,7 +114,8 @@ __device__ __forceinline__ void adam_one(float& p, float g, float& m,
 template <typename TP, typename TM, typename TV>
 __global__ void __launch_bounds__(kThreads)
     adam_multi_kernel(const AdamTable tab, const int2* __restrict__ chunks,
-                      int chunk) {
+                      int chunk, const int* __restrict__ skip) {
+  if (skip != nullptr && *skip != 0) return;  // a skipped step
   const int2 ch = chunks[blockIdx.x];  // (tensor, chunk of it)
   const AdamTensor& a = tab.t[ch.x];
   TP* const P = static_cast<TP*>(a.p);
@@ -169,10 +179,10 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename TP, typename TM, typename TV>
 cudaError_t launch(const AdamTable& tab, const int2* chunks, int nchunks,
-                   int chunk, cudaStream_t stream) {
+                   int chunk, const int* skip, cudaStream_t stream) {
   adam_multi_kernel<TP, TM, TV>
-      <<<static_cast<unsigned>(nchunks), kThreads, 0, stream>>>(tab, chunks,
-                                                                chunk);
+      <<<static_cast<unsigned>(nchunks), kThreads, 0, stream>>>(
+          tab, chunks, chunk, skip);
   return cudaGetLastError();
 }
 
@@ -186,15 +196,19 @@ size_t dtype_bytes(int code) { return code == PT_F32 ? 4 : 2; }
 template <typename TP>
 cudaError_t launch_for(int p_dtype, int m_dtype, int v_dtype,
                        const AdamTable& tab, const int2* chunks,
-                       int nchunks, int chunk, cudaStream_t stream) {
+                       int nchunks, int chunk, const int* skip,
+                       cudaStream_t stream) {
   const bool m32 = m_dtype == PT_F32, v32 = v_dtype == PT_F32;
   if (!m32 && m_dtype != p_dtype) return cudaErrorInvalidValue;
   if (!v32 && v_dtype != p_dtype) return cudaErrorInvalidValue;
-  if (m32 && v32) return launch<TP, float, float>(tab, chunks, nchunks,
-                                                  chunk, stream);
-  if (m32) return launch<TP, float, TP>(tab, chunks, nchunks, chunk, stream);
-  if (v32) return launch<TP, TP, float>(tab, chunks, nchunks, chunk, stream);
-  return launch<TP, TP, TP>(tab, chunks, nchunks, chunk, stream);
+  if (m32 && v32)
+    return launch<TP, float, float>(tab, chunks, nchunks, chunk, skip,
+                                    stream);
+  if (m32)
+    return launch<TP, float, TP>(tab, chunks, nchunks, chunk, skip, stream);
+  if (v32)
+    return launch<TP, TP, float>(tab, chunks, nchunks, chunk, skip, stream);
+  return launch<TP, TP, TP>(tab, chunks, nchunks, chunk, skip, stream);
 }
 
 }  // namespace
@@ -205,11 +219,11 @@ cudaError_t launch_for(int p_dtype, int m_dtype, int v_dtype,
 // pieces of `chunk` (a multiple of 4).  Every row's p is of dtype code
 // `p_dtype`, its g and m of `m_dtype`, its v of `v_dtype` (PtDtype; m and v
 // each float32 or p's).  No two rows may share a parameter, moment or beta
-// power.
+// power.  `skip` is null or a device int: nonzero, nothing is written.
 extern "C" int pt_adam_multi(const void* tensors, int count,
                              const void* chunks, int nchunks, int chunk,
                              int p_dtype, int m_dtype, int v_dtype,
-                             void* stream) {
+                             const void* skip, void* stream) {
   if (count < 1 || count > kMaxTensors || nchunks < 1 || chunk < 4 ||
       chunk % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -230,18 +244,19 @@ extern "C" int pt_adam_multi(const void* tensors, int count,
       tab.vec[i / 32] |= 1u << (i % 32);
   }
   const int2* ch = static_cast<const int2*>(chunks);
+  const int* sk = static_cast<const int*>(skip);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   if (p_dtype == PT_F32) {
     if (m_dtype != PT_F32 || v_dtype != PT_F32)
       return static_cast<int>(cudaErrorInvalidValue);
-    rc = launch<float, float, float>(tab, ch, nchunks, chunk, st);
+    rc = launch<float, float, float>(tab, ch, nchunks, chunk, sk, st);
   } else if (p_dtype == PT_BF16) {
     rc = launch_for<__nv_bfloat16>(p_dtype, m_dtype, v_dtype, tab, ch,
-                                   nchunks, chunk, st);
+                                   nchunks, chunk, sk, st);
   } else {
     rc = launch_for<__half>(p_dtype, m_dtype, v_dtype, tab, ch, nchunks,
-                            chunk, st);
+                            chunk, sk, st);
   }
   return static_cast<int>(rc);
 }

@@ -20,7 +20,13 @@ numel >= 1024`` was its tiling's limit): BERT-base has 80 parameters of
 768 elements or fewer.  :func:`adam_multi_plain` is the same update in
 plain PyTorch, in place too, with the per-op path's arithmetic in its
 order (the kernel rounds every step the same way); CPU tensors run it,
-CUDA tensors launch the kernel or raise."""
+CUDA tensors launch the kernel or raise.
+
+Both take the guarded step's verdict (``skip``: a one-element int32 on
+the tensors' device, framework/guardrails.py): when it holds 1 the
+kernel returns before its first store and the twin selects the old
+values, so p, m, v and both powers stay bit for bit, with no host read
+of the flag."""
 
 from __future__ import annotations
 
@@ -120,7 +126,7 @@ def adamw_decay(lr, coeff, p):
     return lr.to(p.dtype) * torch.tensor(coeff, dtype=p.dtype) * p
 
 
-def adam_multi_plain(tensors: Sequence[AdamTensor]) -> None:
+def adam_multi_plain(tensors: Sequence[AdamTensor], skip=None) -> None:
     """The kernel's function in plain PyTorch, tensor by tensor in the
     per-op path's order: the step size from the powers, AdamW's decay term
     from p before the update (:func:`adamw_decay`), :func:`adam_plain`,
@@ -130,7 +136,12 @@ def adam_multi_plain(tensors: Sequence[AdamTensor]) -> None:
     nearest even, as the kernel and the TPU kernel store it; float32
     operands are updated in place as before.  The decay is subtracted
     from the stored p in p's dtype, as the JAX op subtracts it from its
-    ParamOut."""
+    ParamOut.  With ``skip`` (a one-element int32 tensor) the update runs
+    on copies and each tensor takes them back only where ``skip`` is 0
+    (a ``torch.where`` select: a skipped step leaves every tensor bit for
+    bit)."""
+    if skip is not None:
+        return _plain_guarded(tensors, skip)
     for e in tensors:
         lr_t = e.lr * torch.sqrt(1 - e.beta2_pow) / (1 - e.beta1_pow)
         decay = adamw_decay(e.lr, e.coeff, e.p) if e.coeff else None
@@ -145,6 +156,19 @@ def adam_multi_plain(tensors: Sequence[AdamTensor]) -> None:
             e.p.sub_(decay)
         e.beta1_pow.mul_(e.beta1)
         e.beta2_pow.mul_(e.beta2)
+
+
+def _plain_guarded(tensors: Sequence[AdamTensor], skip) -> None:
+    copies = [e._replace(p=e.p.clone(), m=e.m.clone(), v=e.v.clone(),
+                         beta1_pow=e.beta1_pow.clone(),
+                         beta2_pow=e.beta2_pow.clone()) for e in tensors]
+    adam_multi_plain(copies)
+    keep = skip.reshape(()).bool()
+    for e, c in zip(tensors, copies):
+        for dst, src in ((e.p, c.p), (e.m, c.m), (e.v, c.v),
+                         (e.beta1_pow, c.beta1_pow),
+                         (e.beta2_pow, c.beta2_pow)):
+            dst.copy_(torch.where(keep, dst, src))
 
 
 def _chunks(device, numels, chunk) -> torch.Tensor:
@@ -190,24 +214,33 @@ def _by_dtypes(tensors: Sequence[AdamTensor]):
     return groups.items()
 
 
-def adam_multi(tensors: Sequence[AdamTensor]) -> None:
+def adam_multi(tensors: Sequence[AdamTensor], skip=None) -> None:
     """One Adam step of every tensor in ``tensors``, in place (p, m, v and
     both beta powers), in one launch per combination of operand dtypes
     (several past the kernel's table of 256).  No two entries may share a
-    tensor.  CPU tensors run :func:`adam_multi_plain`; CUDA tensors launch
-    the kernel or raise."""
+    tensor.  With ``skip`` (a one-element int32 on the device) the kernel
+    reads the guard's verdict and writes nothing when it is 1.  CPU
+    tensors run :func:`adam_multi_plain`; CUDA tensors launch the kernel
+    or raise."""
     tensors = list(tensors)
     if not tensors:
         return
     device = tensors[0].p.device
     if device.type == "cpu":
-        return adam_multi_plain(tensors)
+        return adam_multi_plain(tensors, skip)
     what = "adam"
     require_cuda(what, tensors[0].p)
     for e in tensors:
         _check(what, e, device)
+    skip_ptr = None
+    if skip is not None:
+        if skip.dtype != torch.int32 or skip.numel() != 1 or \
+                skip.device != device:
+            raise ValueError(f"{what}: skip must be one int32 on {device}")
+        skip = skip.contiguous()
+        skip_ptr = skip.data_ptr()
     fn = function("adam", "pt_adam_multi",
-                  (_P, _I, _P, _I, _I, _I, _I, _I, _P))
+                  (_P, _I, _P, _I, _I, _I, _I, _I, _P, _P))
     stream = stream_handle(device)
     for dtypes, group in _by_dtypes(tensors):
         codes = [DTYPE_CODES[dt] for dt in dtypes]
@@ -222,7 +255,7 @@ def adam_multi(tensors: Sequence[AdamTensor]) -> None:
                  for e in run], dtype=_ROW)
             chunks = _chunks(device, [e.p.numel() for e in run], CHUNK)
             rc = fn(table.ctypes.data, len(run), chunks.data_ptr(),
-                    chunks.shape[0], CHUNK, *codes, stream)
+                    chunks.shape[0], CHUNK, *codes, skip_ptr, stream)
             raise_on_error(what, rc)
             count_launch("adam", dtypes[0])
 

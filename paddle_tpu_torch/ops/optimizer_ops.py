@@ -31,6 +31,11 @@ instead of one per tensor.  ``dpsgd`` draws its noise from the run's
 seeded generator (the JAX package from a JAX key: the bits differ, as
 they do for dropout).
 
+On a step the guard skips (``ctx.guard_skip``, framework/guardrails.py)
+the ops that update in place write nothing: the kernel reads the verdict
+from device memory and returns before its first store, the compositions
+select the old value with ``torch.where``.
+
 The loss-scaling ops are plain tensor compositions, as in the JAX package
 (no Pallas kernel there): they read the overflow verdict and the scale
 state on the device and never wait for the host, and they write their
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import torch
 
+from ..framework.guardrails import keep_old, write_guarded
 from .cuda import optimizer as cuda_opt
 from .registry import cuda_route, register, register_group, x
 
@@ -54,6 +60,8 @@ def _sgd(ctx, ins, attrs):
     p, g, lr = x(ins, "Param"), x(ins, "Grad"), x(ins, "LearningRate")
     step = lr.to(p.dtype) * g.to(p.dtype)
     if ctx.donate_state:
+        if ctx.guard_skip is not None:
+            return {"ParamOut": write_guarded(ctx, p, p - step)}
         return {"ParamOut": p.sub_(step)}
     return {"ParamOut": p - step}
 
@@ -98,8 +106,8 @@ def _composed(op_type, ctx, ins, attrs):
                (m1_out / (m2_out.sqrt() + eps)).to(p.dtype),
                "Moment1Out": m1_out, "Moment2Out": m2_out}
         if ctx.donate_state:             # lr_t above already read them
-            out.update(Beta1PowOut=b1p.mul_(beta1),
-                       Beta2PowOut=b2p.mul_(beta2))
+            out.update(Beta1PowOut=write_guarded(ctx, b1p, b1p * beta1),
+                       Beta2PowOut=write_guarded(ctx, b2p, b2p * beta2))
         else:
             out.update(Beta1PowOut=b1p * beta1, Beta2PowOut=b2p * beta2)
     if decay is not None:
@@ -131,7 +139,10 @@ def _kernel_update(ctx, items):
             attrs.get("epsilon", 1e-8), _decay_coeff(op_type, attrs)))
         outs.append({"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
                      "Beta1PowOut": b1p, "Beta2PowOut": b2p})
-    cuda_opt.adam_multi(entries)
+    if ctx.guard_skip is None:
+        cuda_opt.adam_multi(entries)
+    else:
+        cuda_opt.adam_multi(entries, skip=ctx.guard_skip)
     return outs
 
 
@@ -254,7 +265,11 @@ def lamb_group(ctx, items):
     b2 = [a.get("beta2", 0.999) for a in attrs_]
     eps = [a.get("epsilon", 1e-6) for a in attrs_]
     wd = [a.get("weight_decay", 0.01) for a in attrs_]
-    inplace = ctx.donate_state
+    # a guarded step computes out of place and writes each result back
+    # through a select (write_guarded): the in-place _foreach ops below
+    # cannot read the verdict
+    guarded = ctx.donate_state and keep_old(ctx) is not None
+    inplace = ctx.donate_state and not guarded
     if inplace:
         m1o, m2o = m1s, m2s
         _fe("mul_", m1o, b1)
@@ -288,6 +303,11 @@ def lamb_group(ctx, items):
     else:
         p_out = _fe("sub", ps, upd)
         b1o, b2o = _fe("mul", b1ps, b1), _fe("mul", b2ps, b2)
+    if guarded:
+        for olds, news in ((ps, p_out), (m1s, m1o), (m2s, m2o),
+                           (b1ps, b1o), (b2ps, b2o)):
+            for k in range(n):
+                news[k] = write_guarded(ctx, olds[k], news[k])
     return [{"ParamOut": p_out[k], "Moment1Out": m1o[k],
              "Moment2Out": m2o[k], "Beta1PowOut": b1o[k],
              "Beta2PowOut": b2o[k]} for k in range(n)]

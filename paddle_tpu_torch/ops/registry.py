@@ -97,7 +97,11 @@ class LoweringContext:
     to choose a path (a ``conditional_block``'s predicate, a LocalSGD
     sync step): each is one wait for the device.  ``grad_sync`` is the
     training run's ``collective_ops.GradSyncRecord`` when it synced
-    gradients over a group, else None."""
+    gradients over a group, else None.  A guarded training run
+    (``framework/guardrails.py``) sets ``guard`` (its policy) and
+    ``guard_state`` before it starts, and the backward sets
+    ``guard_skip`` (an int32 device tensor, 1 on a step to skip), which
+    the ops that update in place read."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None,
@@ -110,6 +114,9 @@ class LoweringContext:
         self.dp = dp
         self.predicate_reads = 0
         self.grad_sync = None
+        self.guard = None
+        self.guard_state = None
+        self.guard_skip = None
 
     def read_predicate(self, value: torch.Tensor) -> bool:
         """The one-element ``value`` as a Python bool, read on the host

@@ -45,9 +45,14 @@ and chunked prefill.
   co-batched, delayed or placed into reused blocks: masked cache reads
   contribute exact zeros (cache_ops.ctx_len_bias).
 
-Left out, as ``serving/engine.py`` leaves them out: the flight recorder,
-metrics gauges, the watchdog, tracing spans, ``RecordEvent`` and the
-faultline seam; the persistent AOT cache (a warm restart has nothing
+Each prefill batch, chunk and chain is one step on the run-level step
+axis: a flight breadcrumb, a ``decode::prefill`` / ``decode::chunk`` /
+``decode::chain`` span pinned to its step id, and a watchdog beacon;
+each scheduling round sets the ``decode::*`` gauges (cache blocks in use,
+live sequences, prefix-cache hits / misses / bytes saved) and crosses the
+``serving_decode`` drill seam; a worker that dies dumps a flight bundle.
+
+Left out: the persistent AOT cache (a warm restart has nothing
 compiled to load: the kernels are built once per checkout) and
 ``verify_decode`` (the static tier).  ``DecodeConfig(hbm_budget_gb=...)``
 sizes the pool through ``memory_analysis.plan_cache_pool`` (the static
@@ -59,6 +64,7 @@ per shape.  :meth:`DecodeEngine.set_params` carries weights in by name
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from concurrent.futures import Future
@@ -72,6 +78,13 @@ from ..framework.errors import InvalidArgumentError, UnavailableError
 from ..framework.executor import Executor, Scope
 from ..flags import flag
 from ..io import convert_params
+from ..observability import flight as _flight
+from ..observability import metrics as _metrics
+from ..observability import watchdog as _watchdog
+from ..observability.tracing import next_step_id, step_scope
+from ..profiler import RecordEvent
+from ..testing import faultline as _faultline
+from ..testing.faultline import _ARMED as _FL_ARMED
 from ..ops.tensor_ops import torch_dtype
 from .engine import _plan_bins
 
@@ -472,6 +485,7 @@ class DecodeEngine:
         self._prefill_tokens = 0        # prompt tokens actually computed
         self._t_first = None
         self._t_last = None
+        _watchdog.ensure_started()
         if auto_start:
             self.start()
 
@@ -665,6 +679,10 @@ class DecodeEngine:
                 if self._stop and not self._pending \
                         and not self._active and not self._chunking:
                     return
+            if _FL_ARMED:
+                # drill seam: an uncaught decode-worker exception,
+                # outside any per-step recovery
+                _faultline.crossing("serving_decode")
             with self._run_lock:
                 admitted = self._admit()
                 if admitted:
@@ -679,10 +697,16 @@ class DecodeEngine:
                 if self._active:
                     self._chain_step()
                     self._retire()
+            self._update_gauges()
 
     def _worker_fatal(self, exc: BaseException):
-        """Terminal worker failure: every generation future fails, every
-        cache block frees, the engine goes unhealthy."""
+        """Terminal worker failure: a flight bundle, then every generation
+        future fails, every cache block frees, the engine goes
+        unhealthy."""
+        _flight.dump("decode_worker_fatal", exc=exc,
+                     extra={"pending": len(self._pending),
+                            "active": len(self._active),
+                            "chunking": len(self._chunking)})
         failed = 0
         with self._cond:
             self._unhealthy = exc
@@ -867,10 +891,26 @@ class DecodeEngine:
             self._owner.sync_scope()
         self._owner = prepared
 
+    @contextlib.contextmanager
+    def _unit(self, kind: str, info, span: str, **attrs):
+        """One unit of device work (a prefill batch, a chunk, a chain):
+        its own step id, flight breadcrumb, watchdog beacon and span."""
+        sid = next_step_id()
+        _flight.note_step(sid, kind, info)
+        _watchdog.begin("decode")
+        try:
+            with step_scope(sid), RecordEvent(span, attrs or None):
+                yield
+        finally:
+            _watchdog.end("decode")
+
     def _run_prefill(self, admitted: List[_Seq]):
-        feed, _ = self._prefill_feed(admitted)
-        self._acquire(self._prefill)
-        tokens = self._prefill.run(feed)[1].numpy()
+        feed, bucket = self._prefill_feed(admitted)
+        with self._unit("decode_prefill", bucket, "decode::prefill",
+                        requests=len(admitted),
+                        bucket=f"{bucket[0]}x{bucket[1]}"):
+            self._acquire(self._prefill)
+            tokens = self._prefill.run(feed)[1].numpy()
         now = time.monotonic()
         for seq in admitted:
             tok = int(tokens[seq._gather_idx])
@@ -924,11 +964,13 @@ class DecodeEngine:
         last = np.full((1, 1), n - 1 if final else 0, np.int64)
         feed = {"src_ids": src, "pos_ids": pos, "slot_ids": slots,
                 "block_table": table, "ctx_len": ctx, "last_pos": last}
-        self._acquire(self._chunk)
-        handles = self._chunk.run(feed)
-        # only the final chunk's first generated token crosses to the
-        # host; intermediate chunks stay asynchronous
-        tok = int(handles[1].numpy()[0]) if final else None
+        with self._unit("decode_chunk", (start, end), "decode::chunk",
+                        tokens=n, final=final):
+            self._acquire(self._chunk)
+            handles = self._chunk.run(feed)
+            # only the final chunk's first generated token crosses to the
+            # host; intermediate chunks stay asynchronous
+            tok = int(handles[1].numpy()[0]) if final else None
         seq._chunk_off = end
         with self._stats_lock:
             self._chunk_steps += 1
@@ -1057,9 +1099,12 @@ class DecodeEngine:
         length = self._pick_chain()
         bucket_b = next(b for b in cfg.batch_buckets if b >= len(live))
         feed = self._chain_feed_arrays(bucket_b, live)
-        prepared = self._chains[length]
-        self._acquire(prepared)
-        tokens = prepared.run(feed)[0].numpy()      # [length, bucket_b]
+        with self._unit("decode_chain", (length, bucket_b, len(live)),
+                        "decode::chain", live=len(live), bucket=bucket_b,
+                        chain=length):
+            prepared = self._chains[length]
+            self._acquire(prepared)
+            tokens = prepared.run(feed)[0].numpy()  # [length, bucket_b]
         now = time.monotonic()
         emitted = 0
         for s in range(length):
@@ -1117,6 +1162,21 @@ class DecodeEngine:
                 seq.steps))
         with self._stats_lock:
             self._completed += len(finished)
+
+    def _update_gauges(self):
+        """The ``decode::*`` gauges on the metrics registry: cache blocks
+        in use, live sequences, and the prefix cache's hits, misses and
+        bytes saved."""
+        _metrics.gauge("decode::cache_blocks_used").set(
+            self._blocks_in_use())
+        _metrics.gauge("decode::active_seqs").set(
+            len(self._active) + len(self._chunking))
+        idx = self._prefix_index
+        if idx is not None:
+            _metrics.gauge("decode::prefix_cache_hits").set(idx.hits)
+            _metrics.gauge("decode::prefix_cache_misses").set(idx.misses)
+            _metrics.gauge("decode::prefix_cache_bytes_saved").set(
+                idx.bytes_saved)
 
     def _blocks_in_use(self) -> int:
         """Pool blocks some live sequence actually holds: refcount-0

@@ -17,7 +17,15 @@ persistent executable cache and the fleet come later, see ROADMAP.md).
 * **lifecycle** — ``warmup``, graceful ``drain``/``shutdown`` and a
   per-request ``timeout_ms`` swept across the whole queue every wakeup;
   the idle engine sleeps until notified;
-* **stats** — QPS, p50/p99 latency, padding waste, batch histogram.
+* **stats** — QPS, p50/p99 latency, padding waste, batch histogram,
+  also through ``profiler.serving_stats()`` and the metrics export;
+* **observability** — each micro-batch is one step on the run-level step
+  axis: a flight breadcrumb and the ``serving::pad`` / ``serving::run`` /
+  ``serving::split`` spans pinned to its step id (``serving::wait`` spans
+  the batching window), a watchdog beacon around its dispatch; the
+  ``serving_worker`` drill seam at the top of each worker iteration; a
+  flight bundle when a batch's dispatch or completion raises or the
+  worker dies.
 """
 
 from __future__ import annotations
@@ -31,6 +39,12 @@ import numpy as np
 
 from ..framework.errors import (ExecutionTimeoutError, InvalidArgumentError,
                                 UnavailableError, UnimplementedError)
+from ..observability import flight as _flight
+from ..observability import watchdog as _watchdog
+from ..observability.tracing import next_step_id, step_scope
+from ..profiler import RecordEvent, register_serving_engine
+from ..testing import faultline as _faultline
+from ..testing.faultline import _ARMED as _FL_ARMED
 
 
 def _default_batch_buckets(max_batch_size: int) -> Tuple[int, ...]:
@@ -190,7 +204,8 @@ class _Batch:
     """One picked micro-batch, from selection through dispatch to
     completion."""
 
-    __slots__ = ("picked", "bucket_b", "bucket_s", "rows_total", "handles")
+    __slots__ = ("picked", "bucket_b", "bucket_s", "rows_total", "handles",
+                 "step_id")
 
     def __init__(self, picked, bucket_b, bucket_s, rows_total):
         self.picked = picked
@@ -198,6 +213,7 @@ class _Batch:
         self.bucket_s = bucket_s
         self.rows_total = rows_total
         self.handles = None
+        self.step_id = None
 
 
 class ServingEngine:
@@ -242,6 +258,8 @@ class ServingEngine:
         self._batch_hist: Dict[int, int] = {}
         self._t_first_submit: Optional[float] = None
         self._t_last_done: Optional[float] = None
+        _watchdog.ensure_started()   # hang watchdog (step_deadline_s)
+        register_serving_engine(self)
         if auto_start:
             self.start()
 
@@ -388,6 +406,10 @@ class ServingEngine:
         inflight: List[_Batch] = []
         try:
             while True:
+                if _FL_ARMED:
+                    # drill seam: an uncaught worker exception, outside
+                    # the per-batch recovery
+                    _faultline.crossing("serving_worker")
                 if len(inflight) >= self.config.max_inflight_batches:
                     self._complete(inflight.pop(0))
                     continue
@@ -395,7 +417,11 @@ class ServingEngine:
                 if got is None:                  # stop, queue drained
                     break
                 if isinstance(got, _Batch):
-                    batch = self._dispatch(got)
+                    _watchdog.begin("serving")
+                    try:
+                        batch = self._dispatch(got)
+                    finally:
+                        _watchdog.end("serving")
                     if batch is not None:
                         inflight.append(batch)
                 elif inflight:
@@ -406,6 +432,9 @@ class ServingEngine:
             self._worker_fatal(e, inflight)
 
     def _worker_fatal(self, exc: BaseException, inflight: List[_Batch]):
+        _flight.dump("serving_worker_fatal", exc=exc,
+                     extra={"pending": len(self._queue),
+                            "inflight": len(inflight)})
         failed = 0
         with self._cond:
             self._unhealthy = exc
@@ -458,26 +487,9 @@ class ServingEngine:
                     continue
                 first = self._queue[0]
                 if block and not self._stop:
-                    restart = False
                     close_at = first.t_submit + cfg.max_wait_ms / 1e3
-                    while not self._stop:
-                        now = time.monotonic()
-                        sweep(now)
-                        if first not in self._queue:
-                            restart = True   # head expired: new head
-                            break
-                        avail = sum(r.rows for r in self._queue
-                                    if r.group == first.group)
-                        if avail >= cfg.max_batch_size:
-                            break
-                        until = close_at
-                        dl = self._earliest_deadline()
-                        if dl is not None and dl < until:
-                            until = dl
-                        remaining = until - now
-                        if remaining <= 0:
-                            break
-                        self._cond.wait(remaining)
+                    with RecordEvent("serving::wait"):
+                        restart = self._wait_window(first, close_at, sweep)
                     if restart:
                         continue
                     sweep(time.monotonic())
@@ -501,6 +513,30 @@ class ServingEngine:
             with self._cond:
                 self._cond.notify_all()      # drain() watches the queue
         return batch
+
+    def _wait_window(self, first, close_at, sweep) -> bool:
+        """Hold the batching window open (queue lock held) until the
+        head's group fills a batch, the window closes or a deadline
+        falls due; True when the head expired meanwhile."""
+        cfg = self.config
+        while not self._stop:
+            now = time.monotonic()
+            sweep(now)
+            if first not in self._queue:
+                return True          # head expired: new head
+            avail = sum(r.rows for r in self._queue
+                        if r.group == first.group)
+            if avail >= cfg.max_batch_size:
+                return False
+            until = close_at
+            dl = self._earliest_deadline()
+            if dl is not None and dl < until:
+                until = dl
+            remaining = until - now
+            if remaining <= 0:
+                return False
+            self._cond.wait(remaining)
+        return False
 
     def _pick(self, group) -> Optional[_Batch]:
         """Select queued requests of ``group`` into one batch (queue lock
@@ -537,12 +573,25 @@ class ServingEngine:
     def _dispatch(self, batch: _Batch) -> Optional[_Batch]:
         """Assemble + dispatch one batch; the GPU works on it while the
         worker loops back for the next one."""
+        batch.step_id = next_step_id()
+        _flight.note_step(batch.step_id, "serving_batch",
+                          (batch.bucket_b, batch.bucket_s))
         try:
-            feed = self._assemble(batch.picked, batch.rows_total,
-                                  batch.bucket_b, batch.bucket_s)
-            with self._run_lock:
-                batch.handles = self._predictor.run_feed_async(feed)
+            with step_scope(batch.step_id):
+                with RecordEvent("serving::pad",
+                                 requests=len(batch.picked)):
+                    feed = self._assemble(batch.picked, batch.rows_total,
+                                          batch.bucket_b, batch.bucket_s)
+                with RecordEvent("serving::run",
+                                 bucket=f"{batch.bucket_b}x"
+                                        f"{batch.bucket_s}"), \
+                        self._run_lock:
+                    batch.handles = self._predictor.run_feed_async(feed)
         except Exception as e:   # noqa: BLE001 — routed to the futures
+            _flight.dump("serving_dispatch_exception", exc=e,
+                         extra={"step": batch.step_id,
+                                "bucket": (batch.bucket_b, batch.bucket_s),
+                                "requests": len(batch.picked)})
             self._fail_batch(batch, e)
             with self._cond:
                 self._active -= 1
@@ -554,9 +603,14 @@ class ServingEngine:
         """Materialize one in-flight batch's results and route them back
         per request."""
         try:
-            outs = [h.numpy() for h in batch.handles]
-            self._split_padded(batch, outs)
+            with step_scope(batch.step_id), RecordEvent("serving::split"):
+                outs = [h.numpy() for h in batch.handles]
+                self._split_padded(batch, outs)
         except Exception as e:   # noqa: BLE001 — routed to the futures
+            _flight.dump("serving_complete_exception", exc=e,
+                         extra={"step": batch.step_id,
+                                "bucket": (batch.bucket_b, batch.bucket_s),
+                                "requests": len(batch.picked)})
             self._fail_batch(batch, e)
         else:
             done = time.monotonic()

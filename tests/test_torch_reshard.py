@@ -34,8 +34,7 @@ from paddle_tpu.framework.mesh_layout import (MeshLayout as JLayout,
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.framework import analysis as tanalysis
 from paddle_tpu_torch.framework import reshard as treshard
-from paddle_tpu_torch.framework.errors import (InvalidArgumentError,
-                                               UnimplementedError)
+from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch.framework.mesh_layout import (MeshLayout as TLayout,
                                                     ShardSpec as TSpec)
 
@@ -207,8 +206,28 @@ def test_price_and_fault_drills_wait_for_their_slices():
         if k not in ("ici_gbps", "peak_flops"):
             assert got[k] == v, k
     assert plan.wire_summary() == jplan.wire_summary()
-    with pytest.raises(UnimplementedError, match="testing/faultline.py"):
-        treshard.arm_fault("reshard_execute", action="raise")
+    # the reshard_execute seam strikes between per-var transfers, in the
+    # port (armed through arm_fault) as in the JAX package
+    from paddle_tpu.testing import faultline as jfl
+    from paddle_tpu_torch.testing import faultline as tfl
+    case = CASES[5]
+    arrays = {n: np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+              for n, (shape, _) in case[3].items()}
+    for pkg, fl, arm in (("jax", jfl, lambda: jfl.arm(
+            "reshard_execute", action="raise", at=1)),
+            ("port", tfl, lambda: treshard.arm_fault(action="raise",
+                                                      at=1))):
+        reshard = PKGS[pkg][0]
+        spec = arm()
+        try:
+            with pytest.raises(fl.FaultlineError, match="reshard_execute"):
+                reshard.execute_reshard(_plan(pkg, case), arrays)
+            assert (spec.hits, spec.fired) == (2, 1)
+        finally:
+            fl.disarm()
+    got, _ = treshard.execute_reshard(_plan("port", case), arrays)
+    want, _ = jreshard.execute_reshard(_plan("jax", case), arrays)
+    assert all(np.array_equal(got[n], want[n]) for n in want)
 
 
 def _fake_sharded_ckpt(d, w, b, n_shards):
